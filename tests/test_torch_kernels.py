@@ -1,0 +1,124 @@
+"""The CUDA kernels K1-K3 against their plain PyTorch versions, on the card.
+
+Marked ``requires_cuda``; each test skips (inside its fixture) where no
+CUDA device is present.  No jax here, so the file also runs where only
+PyTorch is installed:
+
+    python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
+
+On the card every K1-K3 output must equal its plain version bit for bit:
+the integer paths are the same int64 arithmetic, and the kernels' f32
+operations are single-rounding intrinsics in the plain versions' order,
+as eager PyTorch rounds each operation.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from idsp_tpu_torch.design import Filter
+from idsp_tpu_torch.filters import biquad
+from idsp_tpu_torch.filters.biquad_cuda import df1_bank_q, df1_bank_q_plain
+from idsp_tpu_torch.filters.ddc_cuda import (
+    df1_hbf_cascade_bank,
+    df1_hbf_cascade_bank_plain,
+    fastlo_ddc_cascade_bank,
+    fastlo_ddc_cascade_bank_plain,
+    hbf1_tail_init,
+)
+from idsp_tpu_torch.filters.hbf import HBF_TAPS
+
+BA_Q = biquad.quantize_ba(
+    biquad.from_cookbook(Filter().critical_frequency(0.02).lowpass()), 29)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: compares a CUDA kernel with its "
+                    "plain PyTorch version")
+    return torch.device("cuda")
+
+
+def _i32(rng, shape, lo=-(2**31), hi=2**31, device=None):
+    a = rng.integers(lo, hi, size=shape, dtype=np.int64).astype(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+def _equal(a, b):
+    for u, v in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        if isinstance(u, tuple):
+            _equal(u, v)
+        else:
+            assert u.dtype == v.dtype and u.shape == v.shape
+            assert torch.equal(u, v), (u != v).sum().item()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_df1_bank_q_kernel_equals_plain(cuda, out_dtype):
+    c, t = 256, 1000  # t not a multiple of the kernel's row group
+    rng = np.random.default_rng(30)
+    st = biquad.Df1State(x=_i32(rng, (c, 2), device=cuda),
+                         y=_i32(rng, (c, 2), device=cuda))
+    st_p = st
+    for _ in range(3):
+        xs = _i32(rng, (t, c), device=cuda)
+        st, ys = df1_bank_q(BA_Q, st, xs, 29, out_dtype=out_dtype)
+        st_p, ys_p = df1_bank_q_plain(BA_Q, st_p, xs, 29, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, ys), (st_p.x, st_p.y, ys_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("depth", [1, 3])
+def test_df1_hbf_cascade_kernel_equals_plain(cuda, depth):
+    c2, t = 256, 1024
+    taps = tuple(HBF_TAPS[2 - d] for d in range(depth))
+    rng = np.random.default_rng(31)
+    st = biquad.df1_init((c2,), device=cuda)
+    tails = tuple(hbf1_tail_init(c2, len(tv), device=cuda) for tv in taps)
+    st_p, tails_p = st, tails
+    for _ in range(3):
+        xs = _i32(rng, (t, c2), -(2**27), 2**27, device=cuda)
+        st, tails, y = df1_hbf_cascade_bank(BA_Q, st, tails, xs, 29,
+                                            taps=taps, time_chunk=128)
+        st_p, tails_p, y_p = df1_hbf_cascade_bank_plain(
+            BA_Q, st_p, tails_p, xs, 29, taps=taps)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, tails, y), (st_p.x, st_p.y, tails_p, y_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tc", [16, 128])
+def test_fastlo_cascade_kernel_equals_plain(cuda, tc):
+    c, t = 128, 1024
+    rng = np.random.default_rng(32)
+    p0 = _i32(rng, (c,), device=cuda)
+    steps = _i32(rng, (c,), 1 << 24, 1 << 30, device=cuda)
+    st = biquad.df1_init((2 * c,), device=cuda)
+    tails = tuple(hbf1_tail_init(2 * c, m, device=cuda) for m in (5, 10, 23))
+    ph, st_p, tails_p, ph_p = p0, st, tails, p0
+    for _ in range(3):
+        x = _i32(rng, (t,), -(2**27), 2**27, device=cuda)
+        st, tails, ph, y = fastlo_ddc_cascade_bank(
+            BA_Q, st, tails, ph, steps, x, 29, time_chunk=tc)
+        st_p, tails_p, ph_p, y_p = fastlo_ddc_cascade_bank_plain(
+            BA_Q, st_p, tails_p, ph_p, steps, x, 29, time_chunk=tc)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, tails, ph, y), (st_p.x, st_p.y, tails_p, ph_p, y_p))
+
+
+@pytest.mark.requires_cuda
+def test_wrappers_reject_bad_input(cuda):
+    st = biquad.df1_init((128,), device=cuda)
+    xs = torch.zeros((100, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        df1_bank_q(BA_Q, st, xs.to(torch.int64), 29)
+    with pytest.raises(ValueError):
+        df1_bank_q(BA_Q, st, torch.zeros((128, 100), dtype=torch.int32,
+                                       device=cuda).T, 29)
+    tails = tuple(hbf1_tail_init(128, m, device=cuda) for m in (5, 10, 23))
+    with pytest.raises(ValueError):  # 100 % 128 != 0
+        df1_hbf_cascade_bank(BA_Q, st, tails, xs, 29)
