@@ -1,6 +1,7 @@
 """Build and bind the CUDA kernels of `csrc/`.
 
-The sources are compiled at first use with nvcc, for ``sm_90a``, into a
+The sources are compiled at first use with nvcc, for ``sm_90a``, one
+nvcc process per ``.cu`` file, all started together, and linked into a
 shared library with a plain C interface, under ``build/idsp_tpu_torch/``
 at the root of the checkout, keyed by a hash of the sources, the nvcc
 path and version, and torch's CUDA version.  The
@@ -26,10 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "idsp_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +37,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "idsp_df1_bank_q": [_P] * 6 + [_I] * 9 + [_P],
     "idsp_ddc_cascade": [_P] * 13 + [_I] * 10 + [_P, _P, _P],
+    "idsp_lowpass_bank": [_P] * 4 + [_I] * 6 + [_P],
+    "idsp_pll_bank": [_P] * 4 + [_I] * 5 + [_P],
+    "idsp_ddc_bank_lp": [_P] * 11 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()
@@ -78,14 +81,25 @@ def library() -> ctypes.CDLL:
         so = out_dir / "libidsp_tpu_torch.so"
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f".libidsp_tpu_torch.{os.getpid()}.so"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = res.stdout + res.stderr
+            tag = f".{os.getpid()}"
+            objs, procs = [], []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = out_dir / f"{src.stem}{tag}.o"
+                objs.append(str(obj))
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            logs = [p.communicate()[0] for p in procs]  # waits for each
+            build_log = "".join(logs)
+            if any(p.returncode for p in procs):
+                raise RuntimeError(f"nvcc failed:\n{build_log}")
+            tmp = out_dir / f".libidsp_tpu_torch{tag}.so"
+            res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                  *objs], capture_output=True, text=True)
             if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{build_log}")
+                raise RuntimeError(f"nvcc link failed:\n{res.stdout}"
+                                   f"{res.stderr}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
@@ -94,6 +108,12 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def pointers(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers (a ``void* const*``
+    argument); the caller keeps the tensors alive over the call."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -44,6 +44,17 @@ from .ops.trig import cossin
 MODES = ("scan", "split", "fold3", "fastlo_fused")
 
 
+def exact_mix(x: torch.Tensor, phase0: torch.Tensor, steps: torch.Tensor):
+    """Conjugate NCO mix with the exact `cossin` LO: (t, 2c) int32, I
+    lanes then Q lanes; sample n mixed with phase ``phase0 + steps*n``,
+    n = 1..t."""
+    lo_re, lo_im = cossin(accu.ramp_t(phase0, steps, x.shape[0]))
+    xi = x[:, None]
+    mi = fxp.q_apply(lo_re, xi, 32)
+    mq = fxp.q_apply(-lo_im, xi, 32)
+    return torch.cat([mi, mq], dim=1)
+
+
 class DdcChain(nn.Module):
     """Stateless chain step ``forward(state, x) -> (state, (zi, zq))``.
 
@@ -85,15 +96,6 @@ class DdcChain(nn.Module):
         return (bq, hbf_dec_cascade_init(3, (c,), device=dev),
                 hbf_dec_cascade_init(3, (c,), device=dev), phase0)
 
-    def exact_mix(self, x: torch.Tensor, phase0: torch.Tensor):
-        """Conjugate NCO mix with the exact `cossin` LO: (t, 2c) int32,
-        sample n mixed with phase ``phase0 + steps*n``, n = 1..t."""
-        lo_re, lo_im = cossin(accu.ramp_t(phase0, self.steps, x.shape[0]))
-        xi = x[:, None]
-        mi = fxp.q_apply(lo_re, xi, 32)
-        mq = fxp.q_apply(-lo_im, xi, 32)
-        return torch.cat([mi, mq], dim=1)
-
     def forward(self, state, x: torch.Tensor):
         bq_iq, dec_i, dec_q, phase0 = state
         c = self.steps.shape[0]
@@ -104,7 +106,7 @@ class DdcChain(nn.Module):
                 time_chunk=self.time_chunk,
             )
             return (bq_iq, dec_i, tails, phase0), (y8[:, :c], y8[:, c:])
-        miq = self.exact_mix(x, phase0)
+        miq = exact_mix(x, phase0, self.steps)
         phase0 = accu.advance(phase0, self.steps, t)
         if self.mode == "fold3":
             bq_iq, tails, y8 = df1_hbf_cascade_bank(

@@ -2,9 +2,12 @@
 
 The JAX package's values cross as numpy arrays (``np.asarray`` of a jax
 array), so this module needs no jax.  NamedTuples are matched by field
-names: ``(x, y)`` is a `Df1State`, ``(odd, even)`` an `HbfDecState`;
-tuples (per-stage tails, cascade states) keep their structure and
-``None`` stays ``None``.
+names: ``(x, y)`` is a `Df1State`, ``(odd, even)`` an `HbfDecState`,
+``(p,)`` a `LowpassState`, ``(x0, clamp)`` a `ClampWrapState`, the PLL
+fields a `PllState` and ``(nco_phase, lp_i, lp_q, pll)`` a
+`DdcBankState`; tuples (per-stage tails, cascade states) keep their
+structure and ``None`` stays ``None``.  Dtypes cross unchanged (the
+PLL's clamp indicator stays int8).
 """
 
 from __future__ import annotations
@@ -14,8 +17,16 @@ import torch
 
 from .filters.biquad import Df1State
 from .filters.hbf import HbfDecState
+from .filters.lowpass import LowpassState
+from .filters.pll import PllState
+from .ops.unwrap import ClampWrapState
+from .pipelines.ddc_bank import DdcBankState
 
-_STATES = {("x", "y"): Df1State, ("odd", "even"): HbfDecState}
+_STATES = {
+    cls._fields: cls
+    for cls in (Df1State, HbfDecState, LowpassState, ClampWrapState,
+                PllState, DdcBankState)
+}
 
 
 def to_torch(obj, device):

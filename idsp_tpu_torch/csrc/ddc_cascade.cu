@@ -13,7 +13,7 @@
 //
 // Per chunk of tc rows and per lane (one thread):
 //  1. (K3) mix: lo = coarse[chunk] * fine[row], x scaled by AMPLITUDE,
-//     rounded half away from zero to i32 (fastlo.py:47-55, 110-134);
+//     rounded half away from zero to i32 (fastlo.cuh, shared with K6);
 //  2. the DF1 step; its f32 output goes to stage 0's parity buffers:
 //     even rows behind the m-1 carried even-tail rows, odd rows behind
 //     the 2m-1 carried odd-tail rows (ddc_pallas.py:613-617);
@@ -45,14 +45,13 @@
 #include <cstdint>
 
 #include "df1.cuh"
+#include "fastlo.cuh"
 
 namespace {
 
 constexpr int kLanes = 32;    // lanes (threads) per block
 constexpr int kMaxDepth = 4;  // half-band stages
 constexpr int kMaxTaps = 32;  // one-sided taps per stage
-// (2^31 - 2^15) / 2^32, exact in f32 (ops/fastlo.py AMPLITUDE)
-constexpr float kAmplitude = 0.5f - 1.0f / 131072.0f;
 
 struct CascadeParams {
   idsp::Df1Coefs k;
@@ -60,11 +59,6 @@ struct CascadeParams {
   int m[kMaxDepth];
   float taps[kMaxDepth][kMaxTaps];
 };
-
-// round half away from zero, written like ops/fastlo.round_half_away
-__device__ __forceinline__ float round_half_away(float v) {
-  return v >= 0.0f ? floorf(__fadd_rn(v, 0.5f)) : -floorf(__fadd_rn(-v, 0.5f));
-}
 
 template <bool FastLo>
 __global__ void __launch_bounds__(kLanes) ddc_cascade_kernel(
@@ -134,18 +128,18 @@ __global__ void __launch_bounds__(kLanes) ddc_cascade_kernel(
     auto input = [&](int u) -> int32_t {
       const int row = q * tc + u;
       if constexpr (FastLo) {
-        const float xh = __fmul_rn(static_cast<float>(__ldg(x + row)), kAmplitude);
+        const float xh = idsp::fastlo_scale(__ldg(x + row));
         const float cbv = __ldg(cb + static_cast<size_t>(u) * c + ch);
         const float sbv = __ldg(sb + static_cast<size_t>(u) * c + ch);
+        // one product and one rounding per lane: a select the compiler
+        // can if-convert, so the unrolled rows stay one basic block
         float v;
         if (is_q) {
-          const float lo_im = __fadd_rn(__fmul_rn(sav, cbv), __fmul_rn(cav, sbv));
-          v = -__fmul_rn(lo_im, xh);
+          v = idsp::fastlo_prod_q(cav, sav, cbv, sbv, xh);
         } else {
-          const float lo_re = __fsub_rn(__fmul_rn(cav, cbv), __fmul_rn(sav, sbv));
-          v = __fmul_rn(lo_re, xh);
+          v = idsp::fastlo_prod_i(cav, sav, cbv, sbv, xh);
         }
-        return static_cast<int32_t>(round_half_away(v));
+        return idsp::fastlo_round(v);
       } else {
         return __ldg(xs + static_cast<size_t>(row) * c2 + lane);
       }

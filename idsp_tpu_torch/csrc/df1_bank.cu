@@ -15,64 +15,44 @@
 // next to that.
 //
 // What the design does about it: one thread per lane with the state in
-// registers; rows are read coalesced along lanes, and the next group of
-// kGroup rows is loaded while the current group computes, so global
-// load latency stays off the serial chain.  Blocks of 32 lanes spread
-// the warps over as many SMs as there are warps.  Widening the
-// parallelism beyond one thread per lane (the affine-prefix form of
-// idsp_tpu/parallel) is later work.
+// registers, on the sequential-bank template of seq_bank.cuh: rows are
+// read coalesced along lanes, and the next group of kBankGroup rows is
+// loaded while the current group computes, so global load latency stays
+// off the serial chain.  Blocks of 32 lanes spread the warps over as
+// many SMs as there are warps.  Widening the parallelism beyond one
+// thread per lane (the affine-prefix form of idsp_tpu/parallel) is
+// later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "df1.cuh"
+#include "seq_bank.cuh"
 
 namespace {
 
-constexpr int kGroup = 16;  // rows per prefetch group
-constexpr int kLanes = 32;  // lanes (threads) per block
+using idsp::kBankLanes;
 
 template <bool F32Out>
-__device__ __forceinline__ void put(void* ys, size_t i, int32_t y) {
-  if constexpr (F32Out) {
-    static_cast<float*>(ys)[i] = static_cast<float>(y);
-  } else {
-    static_cast<int32_t*>(ys)[i] = y;
-  }
-}
-
-template <bool F32Out>
-__global__ void __launch_bounds__(kLanes)
+__global__ void __launch_bounds__(kBankLanes)
     df1_bank_kernel(const int32_t* __restrict__ xs, void* __restrict__ ys,
                     const int32_t* __restrict__ sx,
                     const int32_t* __restrict__ sy, int32_t* __restrict__ sx_out,
                     int32_t* __restrict__ sy_out, int t, int c,
                     idsp::Df1Coefs k) {
-  const int lane = blockIdx.x * kLanes + threadIdx.x;
+  const int lane = blockIdx.x * kBankLanes + threadIdx.x;
   if (lane >= c) return;
   idsp::Df1Lane s;
   s.load(sx, sy, lane);
-  const int32_t* xp = xs + lane;
-  const int full = t / kGroup * kGroup;
-  int32_t cur[kGroup];
-#pragma unroll
-  for (int u = 0; u < kGroup; ++u)
-    cur[u] = full > 0 ? __ldg(xp + static_cast<size_t>(u) * c) : 0;
-  for (int i0 = 0; i0 < full; i0 += kGroup) {
-    const bool more = i0 + kGroup < full;
-    int32_t nxt[kGroup];
-#pragma unroll
-    for (int u = 0; u < kGroup; ++u)
-      nxt[u] = more ? __ldg(xp + static_cast<size_t>(i0 + kGroup + u) * c) : 0;
-#pragma unroll
-    for (int u = 0; u < kGroup; ++u)
-      put<F32Out>(ys, static_cast<size_t>(i0 + u) * c + lane, s.step(k, cur[u]));
-#pragma unroll
-    for (int u = 0; u < kGroup; ++u) cur[u] = nxt[u];
-  }
-  for (int i = full; i < t; ++i)
-    put<F32Out>(ys, static_cast<size_t>(i) * c + lane,
-                s.step(k, __ldg(xp + static_cast<size_t>(i) * c)));
+  idsp::seq_bank<false>(
+      xs, t, c, lane, 1, [&](int32_t x) { return s.step(k, x); },
+      [&](size_t i, int32_t y) {
+        if constexpr (F32Out) {
+          static_cast<float*>(ys)[i] = static_cast<float>(y);
+        } else {
+          static_cast<int32_t*>(ys)[i] = y;
+        }
+      });
   s.store(sx_out, sy_out, lane);
 }
 
@@ -84,7 +64,7 @@ extern "C" int idsp_df1_bank_q(const void* xs, void* ys, const void* sx,
                                int t, int c, int f, int f32_out, int b0,
                                int b1, int b2, int a1, int a2, void* stream) {
   const idsp::Df1Coefs k{b0, b1, b2, a1, a2, f};
-  const dim3 grid((c + kLanes - 1) / kLanes);
+  const dim3 grid((c + kBankLanes - 1) / kBankLanes);
   auto st = static_cast<cudaStream_t>(stream);
   auto x = static_cast<const int32_t*>(xs);
   auto ix = static_cast<const int32_t*>(sx);
@@ -92,9 +72,9 @@ extern "C" int idsp_df1_bank_q(const void* xs, void* ys, const void* sx,
   auto ox = static_cast<int32_t*>(sx_out);
   auto oy = static_cast<int32_t*>(sy_out);
   if (f32_out) {
-    df1_bank_kernel<true><<<grid, kLanes, 0, st>>>(x, ys, ix, iy, ox, oy, t, c, k);
+    df1_bank_kernel<true><<<grid, kBankLanes, 0, st>>>(x, ys, ix, iy, ox, oy, t, c, k);
   } else {
-    df1_bank_kernel<false><<<grid, kLanes, 0, st>>>(x, ys, ix, iy, ox, oy, t, c, k);
+    df1_bank_kernel<false><<<grid, kBankLanes, 0, st>>>(x, ys, ix, iy, ox, oy, t, c, k);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K3 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K6 against their plain PyTorch versions, on the card.
 
 Marked ``requires_cuda``; each test skips (inside its fixture) where no
 CUDA device is present.  No jax here, so the file also runs where only
@@ -6,7 +6,7 @@ PyTorch is installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
 
-On the card every K1-K3 output must equal its plain version bit for bit:
+On the card every K1-K6 output must equal its plain version bit for bit:
 the integer paths are the same int64 arithmetic, and the kernels' f32
 operations are single-rounding intrinsics in the plain versions' order,
 as eager PyTorch rounds each operation.
@@ -26,7 +26,14 @@ from idsp_tpu_torch.filters.ddc_cuda import (
     fastlo_ddc_cascade_bank_plain,
     hbf1_tail_init,
 )
+from idsp_tpu_torch.filters import lowpass, pll
+from idsp_tpu_torch.filters.ddc_bank_cuda import (
+    fastlo_ddc_bank_block_lp,
+    fastlo_ddc_bank_block_lp_plain,
+)
 from idsp_tpu_torch.filters.hbf import HBF_TAPS
+from idsp_tpu_torch.filters.lowpass_cuda import lowpass_bank, lowpass_bank_plain
+from idsp_tpu_torch.filters.pll_cuda import pll_bank, pll_bank_plain
 
 BA_Q = biquad.quantize_ba(
     biquad.from_cookbook(Filter().critical_frequency(0.02).lowpass()), 29)
@@ -111,6 +118,65 @@ def test_fastlo_cascade_kernel_equals_plain(cuda, tc):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,dec,t", [(1, 1, 1000), (2, 8, 1000),
+                                     (2, 16, 1024)])
+def test_lowpass_bank_kernel_equals_plain(cuda, n, dec, t):
+    # c not a multiple of the 32-lane block; t = 1000 leaves a tail of
+    # rows after the last full prefetch group
+    c = 200
+    rng = np.random.default_rng(33)
+    k = lowpass.gains1(0.01) if n == 1 else lowpass.gains2(0.2)
+    st = lowpass.LowpassState(p=torch.from_numpy(
+        rng.integers(-(2**55), 2**55, size=(c, n), dtype=np.int64)).to(cuda))
+    st_p = st
+    for _ in range(3):
+        xs = _i32(rng, (t, c), device=cuda)
+        xs[::5] = 2**31 - 1  # the saturating subtraction
+        xs[1::7] = -(2**31)
+        st, ys = lowpass_bank(k, st, xs, dec=dec)
+        st_p, ys_p = lowpass_bank_plain(k, st_p, xs, dec=dec)
+        torch.cuda.synchronize()
+        _equal((st.p, ys), (st_p.p, ys_p))
+
+
+@pytest.mark.requires_cuda
+def test_pll_bank_kernel_equals_plain(cuda):
+    c, t = 200, 512
+    rng = np.random.default_rng(34)
+    ba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    st = pll.init((c,), device=cuda)
+    st_p = st
+    for _ in range(3):
+        xs = _i32(rng, (t, c), device=cuda)
+        st, ys = pll_bank(ba, st, xs)
+        st_p, ys_p = pll_bank_plain(ba, st_p, xs)
+        torch.cuda.synchronize()
+        _equal((st, ys), (st_p, ys_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,tc", [(2, 128), (2, 32), (1, 64)])
+def test_fastlo_ddc_bank_lp_kernel_equals_plain(cuda, n, tc):
+    c, t, d = 100, 1024, 16
+    rng = np.random.default_rng(35)
+    k = lowpass.gains1(0.004) if n == 1 else lowpass.gains2(0.004)
+    ba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    steps = _i32(rng, (c,), 1 << 24, 1 << 30, device=cuda)
+    carry = (lowpass.init(n, (2 * c,), device=cuda),
+             pll.init((c,), device=cuda), _i32(rng, (c,), device=cuda))
+    carry_p = carry
+    for _ in range(3):
+        x = _i32(rng, (t,), -(2**27), 2**27, device=cuda)
+        out = fastlo_ddc_bank_block_lp(k, ba, *carry, steps, x, d=d,
+                                       time_chunk=tc)
+        out_p = fastlo_ddc_bank_block_lp_plain(k, ba, *carry_p, steps, x,
+                                               d=d, time_chunk=tc)
+        torch.cuda.synchronize()
+        _equal(out, out_p)
+        carry, carry_p = out[:3], out_p[:3]
+
+
+@pytest.mark.requires_cuda
 def test_wrappers_reject_bad_input(cuda):
     st = biquad.df1_init((128,), device=cuda)
     xs = torch.zeros((100, 128), dtype=torch.int32, device=cuda)
@@ -122,3 +188,9 @@ def test_wrappers_reject_bad_input(cuda):
     tails = tuple(hbf1_tail_init(128, m, device=cuda) for m in (5, 10, 23))
     with pytest.raises(ValueError):  # 100 % 128 != 0
         df1_hbf_cascade_bank(BA_Q, st, tails, xs, 29)
+    lp = lowpass.init(2, (128,), device=cuda)
+    with pytest.raises(ValueError):  # 100 % 16 != 0
+        lowpass_bank(lowpass.gains2(0.01), lp, xs, dec=16)
+    with pytest.raises(ValueError):  # int64 phases
+        pll_bank(pll.coefficients_from_bandwidth(2e-2), pll.init(
+            (128,), device=cuda), xs.to(torch.int64))

@@ -39,7 +39,9 @@ def _t(a):
 
 def test_import_leaves_jax_out():
     code = ("import sys, idsp_tpu_torch, idsp_tpu_torch.chain, "
-            "idsp_tpu_torch.convert, idsp_tpu_torch.profiling; "
+            "idsp_tpu_torch.convert, idsp_tpu_torch.profiling, "
+            "idsp_tpu_torch.pipelines.ddc_bank, "
+            "idsp_tpu_torch.filters.ddc_bank_cuda; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
