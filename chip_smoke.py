@@ -2,10 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (`idsp_tpu_torch`) on one NVIDIA GPU.
 
 Builds the CUDA kernels from ``idsp_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version, drives the two main paths -- the
-headline DDC chain (`DdcChain`) and the BASELINE #5 DDC bank (`DdcBank`)
--- through their kernel modes, checks the results and times kernels,
-chain and bank.  Phases, each reported on its own line:
+against its plain PyTorch version, drives the three main paths -- the
+headline DDC chain (`DdcChain`), the BASELINE #5 DDC bank (`DdcBank`)
+and the BASELINE #4 rate conversion (`RoundTrip`, the CIC + half-band
+composite decimator, CIC interpolation) -- through their kernel modes,
+checks the results and times kernels, chain, bank and rate conversion.
+Phases, each reported on its own line:
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
 2. the kernel build (nvcc, sm_90a, one process per source) and its time;
@@ -13,8 +15,12 @@ chain and bank.  Phases, each reported on its own line:
    K1 `df1_bank_q`, K2 `df1_hbf_cascade_bank`, K3
    `fastlo_ddc_cascade_bank` at c=512 channels (1024 I|Q lanes); K4
    `lowpass_bank` (dec 16), K5 `pll_bank` (t/16 rows) and K6
-   `fastlo_ddc_bank_block_lp` at c=1024 (2048 lanes), d=16; state,
-   tails and outputs bit for bit (tolerance 0);
+   `fastlo_ddc_bank_block_lp` at c=1024 (2048 lanes), d=16; K7
+   `hbf_dec_cascade_bank` (depth 4, (32768, 512) f32), K8
+   `hbf_int_cascade_bank` (depth 4, (2048, 512) f32), K9 `cic_dec_bank`
+   (N=3, R=16, (32768, 512) i32 in +-2^16) and K10 `cic_int_bank`
+   ((2048, 512) i32 in +-2^10); state, tails and outputs bit for bit
+   (tolerance 0);
 4. the main paths, each with every launch counter reset just before it
    and read just after:
    * `DdcChain` in ``split`` (K1), ``fold3`` (K2) and ``fastlo_fused``
@@ -31,13 +37,30 @@ chain and bank.  Phases, each reported on its own line:
      (tests/test_rate_ddc_bank.py:57-84: 16 tones with offsets, gains2
      (0.001), one block) inside the 1024-channel bank in ``exact`` and
      ``one_kernel``, gated by that test's bounds;
+   * BASELINE #4 at the suite's widths (benches/suite.py:796-851,
+     c=512, t=32768): `RoundTrip` (depth 4, x ~ N(0, 1)) in ``scan`` and
+     ``kernel`` (K7, K8), `cic_hbf_decimate_t` (CIC N=3 by 4, then
+     half-band by 4; x in +-2^20) plain and with K9 + K7, and CIC
+     interpolation (N=3, R=16, x in +-2^10) plain and with K10, over 3
+     blocks: ``kernel`` within 32 ULP of ``scan``, the CIC state and the
+     CIC interpolation bit for bit, the composite output within 16 ULP;
+     then the quality gates of tests/test_rate_ddc_bank.py:11-54 in
+     kernel mode, each lane with its own tone or level;
 5. every kernel's launch counter > 0 from its main path's run;
 6. CUDA-event times of each kernel and its plain version, of the plain
    layers around them (exact mix, time-major HBF, fast mix, atan2),
    chain rates at c=512 and c=1024 and bank rates at c=1024, in c*t
-   full-rate samples/s, t=32768; for each kernel mode, the device's
-   busy share (`torch.profiler` device time over the CUDA-event block
-   time); the run's wall time.
+   full-rate samples/s, t=32768; K7-K10 at c=512 and 1024 beside their
+   library yardsticks (grouped `F.conv1d` per half-band stage, TF32
+   off; chained `torch.cumsum` and `torch.diff` for the CIC),
+   round-trip and composite
+   rates at c=512 and 1024; for each kernel mode, the device's busy
+   share (`torch.profiler` device time over the CUDA-event block time)
+   with each device event's span count and time; the run's wall time.
+   Each kernel's roofline bound (bytes over 3.35 TB/s or operations over
+   the CUDA-core peak per instruction, the larger) is computed from the
+   shapes; for the recurrences the log line adds an estimated latency
+   floor, which the `kernels` line leaves out (it is not measured).
 
 Any failure raises (non-zero exit).  Without a CUDA device it exits
 non-zero before any result.  The last line is
@@ -60,6 +83,97 @@ TC = 128  # fused-kernel time chunk (and fine-table length of the fast LO)
 F0_STEP = 0x4000_0000  # LO at fs/4
 OFF_STEP = 3 << 18  # carrier offset: bin 3 of a 2048-sample slice at t/8
 C_BANK, DEC = 1024, 16  # BASELINE #5 (benches/suite.py:1016-1089)
+C_RATE, DEPTH, CIC_R = 512, 4, 16  # BASELINE #4 (benches/suite.py:796-851)
+
+# The least time the card could take for a kernel's work: the larger of
+# its bytes (each input read once, each output written once) over the
+# memory rate and its operations over the CUDA cores' peak for their
+# type.  Rates of one H100 SXM at 700 W, per instruction: 3.35 TB/s and
+# 67 Tflop/s f32 outside the tensor cores (NVIDIA's data sheet, which
+# counts an FMA as two flops); the kernels issue every f32 multiply and
+# add on its own (`__fmul_rn`, `__fadd_rn`, one instruction each), so
+# f32 is taken at 128 lanes x 132 SMs x 1.98 GHz = 33.5e12 per second;
+# int32 at 64 INT32 lanes per SM (Hopper whitepaper), 16.7e12.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 33.5e12
+I32_OPS_PER_S = 16.7e12
+# An estimate, not a measurement, printed on the log line only: the
+# latency floor of a serial recurrence, its dependent operations per step
+# (read off the source; each 64-bit operation counted once) at an assumed
+# 4 cycles each (the fixed-latency ALU pipes) at the SM's maximum clock.
+CYCLES_PER_DEPENDENT_OP = 4
+BUSY_ITERS = 5  # chained blocks under the profiler per busy-share reading
+M_DEC3, M_DEC4, M_INT4 = (5, 10, 23), (4, 5, 10, 23), (23, 10, 5, 4)
+
+
+def fir_dec_ops(t, ms):
+    """f32 operations of a decimation cascade per lane: 3m per output
+    (m pair adds, m products, m-1 sums, the center add)."""
+    return sum((t >> (d + 1)) * 3 * m for d, m in enumerate(ms))
+
+
+def fir_int_ops(t, ms):
+    """f32 operations of an interpolation cascade per lane: 3m-1 per FIR
+    output, one FIR output per stage input row (the center is a copy)."""
+    return sum((t << d) * (3 * m - 1) for d, m in enumerate(ms))
+
+
+def work(name, c, t=T):
+    """(bytes, f32 ops, int32 ops, serial steps, dependent ops per step)
+    of one call of a kernel at the shapes phase 6 times it: c channels
+    (2c I|Q lanes for K1-K6, c lanes for K7-K10), t full-rate rows.
+    Operation counts are read off the kernels' sources."""
+    c2 = 2 * c
+    tails3 = 2 * 4 * sum(3 * m - 2 for m in M_DEC3) * c2
+    tables = 2 * 4 * (t // TC + TC) * c  # fast-LO factor tables
+    if name == "df1_bank_q":  # 5 products, 4 adds, shift, convert
+        return 8 * t * c2 + 32 * c2, 0, 11 * t * c2, t, 3
+    if name == "df1_hbf_cascade_bank":
+        return (4 * t * c2 + 4 * (t // 8) * c2 + tails3 + 32 * c2,
+                fir_dec_ops(t, M_DEC3) * c2, 11 * t * c2, t, 3)
+    if name == "fastlo_ddc_cascade_bank":  # + 6 f32 ops of mix per sample
+        return (4 * t + tables + 4 * (t // 8) * c2 + tails3 + 32 * c2,
+                (6 * t + fir_dec_ops(t, M_DEC3)) * c2, 11 * t * c2, t, 3)
+    if name == "lowpass_bank":  # Lowpass<2>: 9 int ops per sample
+        return (4 * t * c2 + 4 * (t // DEC) * c2 + 32 * c2, 0,
+                9 * t * c2, t, 8)
+    if name == "pll_bank":  # about 25 int ops per kept row
+        rows = t // DEC
+        return 8 * rows * c + 72 * c, 0, 25 * rows * c, rows, 12
+    if name == "fastlo_ddc_bank_block_lp":  # mix, 2 lowpasses, atan2+PLL
+        return (4 * t + tables + 12 * (t // DEC) * c + 32 * c2 + 80 * c,
+                6 * t * c2, 9 * t * c2 + 55 * (t // DEC) * c, t, 8)
+    if name == "hbf_dec_cascade_bank":
+        return (4 * t * c + 4 * (t >> DEPTH) * c
+                + 2 * 4 * sum(3 * m - 2 for m in M_DEC4) * c,
+                fir_dec_ops(t, M_DEC4) * c, 0, 0, 0)
+    if name == "hbf_int_cascade_bank":  # t low-rate rows in
+        low = t >> DEPTH
+        return (4 * low * c + 4 * t * c
+                + 2 * 4 * sum(2 * m - 1 for m in M_INT4) * c,
+                fir_int_ops(low, M_INT4) * c, 0, 0, 0)
+    # K9/K10 as phase 6 times them, through the wrapper: the kernel's N = 3
+    # wrapping adds per fast row and the plain combs' 3 subtractions per
+    # slow row; state read and written once (integrators and combs, (c, 3)
+    # each) and the zoh row written
+    slow, state = t // CIC_R, 52 * c
+    if name == "cic_dec_bank":
+        return 4 * t * c + 4 * slow * c + state, 0, 3 * (t + slow) * c, t, 1
+    if name == "cic_int_bank":  # t // R slow rows in, t fast rows out
+        return 4 * slow * c + 4 * t * c + state, 0, 3 * (t + slow) * c, t, 1
+    raise KeyError(name)
+
+
+def bounds(name, c, sm_mhz):
+    """(bound_ms, bound_by, estimated latency floor ms or None) of
+    `work`."""
+    nbytes, f32_ops, i32_ops, steps, chain = work(name, c)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(f32_ops / F32_OPS_PER_S, i32_ops / I32_OPS_PER_S)
+    floor = (steps * chain * CYCLES_PER_DEPENDENT_OP / (sm_mhz * 1e6) * 1e3
+             if steps else None)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", floor)
 
 
 def log(msg):
@@ -111,6 +225,373 @@ def snr_db(z):
     return 10 * np.log10(p_sig / (spec.sum() - p_sig)), peak
 
 
+def sm_clock_mhz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()
+    return float(out[0])
+
+
+def log_busy(timings, key, c, sec, card, step, state, *args):
+    """Phase 6: one mode's busy share (`profiling.busy_share` over
+    BUSY_ITERS blocks), with each device event's span count and device ms
+    per block: a kernel launched k times per block shows k * BUSY_ITERS
+    spans unless the profiler lost some of its records."""
+    from idsp_tpu_torch.profiling import busy_share
+
+    busy, window, by_name = busy_share(step, state, *args, iters=BUSY_ITERS)
+    timings["busy_share"].setdefault(key, {})[c] = {
+        "device_ms": busy * 1e3, "profiled_ms": window * 1e3,
+        "ms": sec * 1e3,
+        "spans": {k: [n, s * 1e3] for k, (n, s) in by_name.items()}}
+    spans = ", ".join(f"{k} x{n} {s * 1e3:.3f} ms" for k, (n, s) in sorted(
+        by_name.items(), key=lambda kv: -kv[1][1]))
+    log(f"phase 6 c={c} {key} busy: device {busy * 1e3:.3f} ms of "
+        f"{window * 1e3:.3f} ms/block under the profiler (share "
+        f"{busy / window:.4f}; of the unprofiled block {busy / sec:.4f}); "
+        f"spans in {BUSY_ITERS} blocks: {spans}  [{card}]")
+
+
+def rate_inputs(dev, rng):
+    """Input makers of the BASELINE #4 phases: (normal, ints)."""
+    import torch
+
+    def normal(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            dev)
+
+    def ints(shape, lim):
+        return torch.from_numpy(rng.integers(
+            -lim, lim, size=shape, dtype=np.int64).astype(np.int32)).to(dev)
+
+    return normal, ints
+
+
+def check_rate_kernels(dev, rng, errs):
+    """Phase 3 for K7-K10: each kernel against its plain version over
+    BLOCKS carried blocks at c = C_RATE lanes, tolerance 0."""
+    import torch
+    from idsp_tpu_torch.filters import cic, hbf
+    from idsp_tpu_torch.filters.cic_cuda import (
+        cic_dec_bank, cic_dec_bank_plain, cic_int_bank, cic_int_bank_plain,
+    )
+    from idsp_tpu_torch.filters.hbf_cuda import (
+        hbf_dec_cascade_bank, hbf_dec_cascade_bank_plain,
+        hbf_int_cascade_bank, hbf_int_cascade_bank_plain,
+    )
+
+    normal, ints = rate_inputs(dev, rng)
+    c, low, rate = C_RATE, T >> DEPTH, CIC_R - 1
+    cases = (
+        ("K7", hbf_dec_cascade_bank, hbf_dec_cascade_bank_plain,
+         hbf.hbf_dec_cascade_init(DEPTH, (c,), axis=0, device=dev),
+         lambda: (normal((T, c)),)),
+        ("K8", hbf_int_cascade_bank, hbf_int_cascade_bank_plain,
+         hbf.hbf_int_cascade_init(DEPTH, (c,), axis=0, device=dev),
+         lambda: (normal((low, c)),)),
+        ("K9", cic_dec_bank, cic_dec_bank_plain,
+         cic.init(3, 1, (c,), device=dev),
+         lambda: (ints((T, c), 2**16), rate)),
+        ("K10", cic_int_bank, cic_int_bank_plain,
+         cic.init(3, 1, (c,), device=dev),
+         lambda: (ints((low, c), 2**10), rate)),
+    )
+    for tag, kern, plain, st, make_args in cases:
+        name = kern.__name__
+        err = 0.0
+        for _ in range(BLOCKS):
+            args = make_args()
+            got = kern(st, *args)
+            want = plain(st, *args)
+            torch.cuda.synchronize()
+            err = max(err, compare(name, got, want))
+            st = got[0]
+        errs[name] = err
+        log(f"phase 3 {tag} {name} == plain over {BLOCKS} blocks (c={c}, "
+            f"x {tuple(args[0].shape)}): max |d| {err}")
+
+
+def ulp_bound(ref, k):
+    """k * spacing(max |ref|) in f32 (tests/test_hbf_pallas.py:23-27)."""
+    scale = np.float32(max(float(ref.abs().max()), 1.0))
+    return k * float(np.spacing(scale))
+
+
+def rate_main_path(dev, rng, wrappers):
+    """Phase 4 for BASELINE #4: the round trip, the composite decimator
+    and CIC interpolation, plain and through K7-K10, then the quality
+    gates in kernel mode.  Returns the launch counts of the run."""
+    import torch
+    from idsp_tpu_torch.filters import cic, hbf
+    from idsp_tpu_torch.filters.cic_cuda import cic_int_bank
+    from idsp_tpu_torch.pipelines import rate_conversion as rc
+    from idsp_tpu_torch.pipelines.rate_conversion import RoundTrip
+
+    normal, ints = rate_inputs(dev, rng)
+    c, rate = C_RATE, CIC_R - 1
+    rt_x = [normal((T, c)) for _ in range(BLOCKS)]
+    comp_x = [ints((T, c), 2**20) for _ in range(BLOCKS)]
+    int_x = [ints((T // CIC_R, c), 2**10) for _ in range(BLOCKS)]
+
+    for w in wrappers:
+        w.launches = 0
+    rt = {}
+    for m in ("scan", "kernel"):
+        mod = RoundTrip(m, DEPTH, c, device=dev)
+        st, outs = mod.init_state(), []
+        for xb in rt_x:
+            st, y = mod(st, xb)
+            outs.append((st, y))
+        rt[m] = outs
+    comp = {}
+    for uk in (False, True):
+        cs = cic.init(3, 1, (c,), device=dev)
+        hs = hbf.hbf_dec_cascade_init(2, (c,), axis=0, device=dev)
+        outs = []
+        for xb in comp_x:
+            (cs, hs), y = rc.cic_hbf_decimate_t(cs, hs, xb, 3, 2,
+                                                use_kernel=uk)
+            outs.append((cs, hs, y))
+        comp[uk] = outs
+    itp = {}
+    for kern in (False, True):
+        st, outs = cic.init(3, 1, (c,), device=dev), []
+        for xb in int_x:
+            if kern:
+                st, y = cic_int_bank(st, xb, rate)
+            else:
+                st, y = cic.interpolate_block(st, xb, rate, axis=0)
+            outs.append((st, y))
+        itp[kern] = outs
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    log(f"phase 4 main path: RoundTrip (scan, kernel), cic_hbf_decimate_t "
+        f"(plain, kernel), CIC interpolation (plain, kernel) x {BLOCKS} "
+        f"blocks at c={c}, t={T}; launches {counts}")
+
+    worst = bound = 0.0
+    for (st, y), (st_r, y_r) in zip(rt["kernel"], rt["scan"]):
+        if tuple(y.shape) != (T, c) or not bool(torch.isfinite(y).all()):
+            raise AssertionError("RoundTrip kernel: bad output")
+        bound = ulp_bound(y_r, 32)
+        for a, b in zip(leaves((st, y)), leaves((st_r, y_r)), strict=True):
+            worst = max(worst, max_abs(a, b))
+        if worst > bound:
+            raise AssertionError(f"RoundTrip kernel off scan by {worst} > "
+                                 f"{bound}")
+    log(f"phase 4 RoundTrip kernel vs scan over {BLOCKS} blocks: max |d| "
+        f"{worst} (outputs and tails; gate 32 ULP = {bound})")
+    worst = 0.0
+    for b, ((cs, hs, y), (cs_r, hs_r, y_r)) in enumerate(
+            zip(comp[True], comp[False])):
+        compare(f"composite CIC state, block {b}", cs, cs_r)
+        if tuple(y.shape) != (T // 16, c) or not bool(
+                torch.isfinite(y).all()):
+            raise AssertionError("composite decimator: bad output")
+        bound = ulp_bound(y_r, 16)
+        for a, r in zip(leaves((hs, y)), leaves((hs_r, y_r)), strict=True):
+            worst = max(worst, max_abs(a, r))
+        if worst > bound:
+            raise AssertionError(f"composite decimator off plain by {worst} "
+                                 f"> {bound}")
+    log(f"phase 4 cic_hbf_decimate_t kernel: CIC state bit-exact vs plain; "
+        f"max |d| of tails and output {worst} (gate 16 ULP = {bound})")
+    for b, (got, want) in enumerate(zip(itp[True], itp[False])):
+        compare(f"CIC interpolation, block {b}", got, want)
+    log(f"phase 4 CIC interpolation kernel == plain on every output and "
+        f"state word over {BLOCKS} blocks")
+
+    # quality gates (tests/test_rate_ddc_bank.py:11-54), kernel mode, one
+    # tone or level per lane
+    lane = np.arange(c)
+    n = 1 << 14
+    f = (77 + lane * 153 // (c - 1)) / 12288  # whole periods from 4096 on
+    x = np.cos(2 * np.pi * f[None] * np.arange(n)[:, None]
+               + 2 * np.pi * lane[None] / c).astype(np.float32)
+    mod = RoundTrip("kernel", 4, c, device=dev)
+    _, y = mod(mod.init_state(), torch.from_numpy(x).to(dev))
+    y = y.double().cpu().numpy()
+    ratio = (y[4096:] ** 2).mean(0) / (x[4096:].astype(np.float64) ** 2).mean(0)
+    tone = float(np.abs(ratio - 1).max())
+    n = 1 << 13
+    f = np.linspace(0.15, 0.45, c)
+    x = np.cos(2 * np.pi * f[None] * np.arange(n)[:, None]).astype(np.float32)
+    mod = RoundTrip("kernel", 2, c, device=dev)
+    _, y = mod(mod.init_state(), torch.from_numpy(x).to(dev))
+    stop = float((y.double().cpu().numpy()[2048:] ** 2).mean(0).max())
+    level = 1000 + lane
+    x = torch.from_numpy(np.broadcast_to(
+        level[None], (20 * 64, c)).astype(np.int32).copy()).to(dev)
+    (_, _), y = rc.cic_hbf_decimate_t(
+        cic.init(3, 1, (c,), device=dev),
+        hbf.hbf_dec_cascade_init(2, (c,), axis=0, device=dev), x, 4, 2,
+        use_kernel=True)
+    gain = cic.gain(4, 3, 1) * 4
+    dc = float(np.abs(y[-1].double().cpu().numpy() / (level * gain) - 1).max())
+    torch.cuda.synchronize()
+    if not (tone < 1e-3 and stop < 0.5 * 10 ** (-98 / 10) and dc < 1e-3):
+        raise AssertionError(f"rate-conversion gates: tone {tone}, stopband "
+                             f"{stop}, DC {dc}")
+    log(f"phase 4 rate-conversion gates on {c} lanes (kernel mode): round-"
+        f"trip tone power |ratio - 1| max {tone:.3e} < 1e-3; depth-2 "
+        f"stopband power max {stop:.3e} < {0.5 * 10 ** (-98 / 10):.3e}; "
+        f"composite DC gain |err| max {dc:.3e} < 1e-3")
+    return counts
+
+
+def library_calls(x, low, xi, xl):
+    """PyTorch library compositions of K7-K10's functions, timed as
+    yardsticks (never used by the port), from a zero state: per
+    half-band stage one grouped `F.conv1d` on time-last data (stride 2
+    for decimation; two output channels per lane, FIR and center, for
+    interpolation); for the CIC, N chained `torch.cumsum` for the
+    integrators and N `torch.diff` for the combs at the slow rate.
+    Returns name -> fn(_) -> output in the kernel's layout."""
+    import torch
+    import torch.nn.functional as F
+    from idsp_tpu_torch.filters.hbf import HBF_TAPS
+
+    c, dev = x.shape[1], x.device
+
+    def dec_weight(tv):
+        m = len(tv)
+        h = np.zeros(4 * m - 1, np.float32)
+        h[0:2 * m:2] = tv
+        h[4 * m - 2:2 * m - 1:-2] = tv
+        h[2 * m - 1] = 1.0
+        return torch.from_numpy(h).to(dev).repeat(c, 1, 1)
+
+    def int_weight(tv):
+        m = len(tv)
+        w = np.zeros((2, 2 * m), np.float32)
+        w[0, :m] = tv
+        w[0, 2 * m - 1:m - 1:-1] = tv
+        w[1, m] = 1.0
+        return torch.from_numpy(w).to(dev).repeat(c, 1)[:, None]
+
+    dec = [(dec_weight(HBF_TAPS[DEPTH - 1 - i]),
+            torch.zeros((1, c, 4 * len(HBF_TAPS[DEPTH - 1 - i]) - 3),
+                        device=dev)) for i in range(DEPTH)]
+    itp = [(int_weight(HBF_TAPS[i]),
+            torch.zeros((1, c, 2 * len(HBF_TAPS[i]) - 1), device=dev))
+           for i in range(DEPTH)]
+    xt, lowt = x.T.contiguous()[None], low.T.contiguous()[None]
+
+    def hbf_dec(_):
+        cur = xt
+        for w, hist in dec:
+            cur = F.conv1d(torch.cat([hist, cur], -1), w, stride=2, groups=c)
+        return cur[0].T
+
+    def hbf_int(_):
+        cur = lowt
+        for w, hist in itp:
+            y = F.conv1d(torch.cat([hist, cur], -1), w, groups=c)
+            cur = y.view(1, c, 2, -1).transpose(2, 3).reshape(1, c, -1)
+        return cur[0].T
+
+    zero_row = torch.zeros((1, c), dtype=torch.int32, device=dev)
+
+    def combs(cur):
+        for _ in range(3):
+            cur = torch.diff(cur, dim=0, prepend=zero_row)
+        return cur
+
+    def cic_dec(_):
+        cur = xi
+        for _ in range(3):
+            cur = torch.cumsum(cur, 0, dtype=torch.int32)
+        return combs(cur[::CIC_R])
+
+    def cic_int(_):
+        cur = torch.repeat_interleave(combs(xl), CIC_R, 0)
+        for _ in range(3):
+            cur = torch.cumsum(cur, 0, dtype=torch.int32)
+        return cur
+
+    return {"hbf_dec_cascade_bank": hbf_dec, "hbf_int_cascade_bank": hbf_int,
+            "cic_dec_bank": cic_dec, "cic_int_bank": cic_int}
+
+
+def time_rate(dev, rng, card, timings):
+    """Phase 6 for BASELINE #4: K7-K10 beside their plain versions and
+    library yardsticks, round-trip and composite rates, busy shares."""
+    import torch
+    from idsp_tpu_torch.filters import cic, hbf
+    from idsp_tpu_torch.filters.cic_cuda import (
+        cic_dec_bank, cic_dec_bank_plain, cic_int_bank, cic_int_bank_plain,
+    )
+    from idsp_tpu_torch.filters.hbf_cuda import (
+        hbf_dec_cascade_bank, hbf_dec_cascade_bank_plain,
+        hbf_int_cascade_bank, hbf_int_cascade_bank_plain,
+    )
+    from idsp_tpu_torch.pipelines import rate_conversion as rc
+    from idsp_tpu_torch.pipelines.rate_conversion import RoundTrip
+    from idsp_tpu_torch.profiling import measure_rate
+
+    torch.backends.cudnn.allow_tf32 = False  # f32 convolutions in f32
+    normal, ints = rate_inputs(dev, rng)
+    rate = CIC_R - 1
+    timings["rate_samples_per_s"] = {}
+    for c in (C_RATE, C_WIDE):
+        x, low = normal((T, c)), normal((T >> DEPTH, c))
+        xi, xl = ints((T, c), 2**16), ints((T // CIC_R, c), 2**10)
+        dec0 = hbf.hbf_dec_cascade_init(DEPTH, (c,), axis=0, device=dev)
+        int0 = hbf.hbf_int_cascade_init(DEPTH, (c,), axis=0, device=dev)
+        cic0 = cic.init(3, 1, (c,), device=dev)
+        cases = {
+            "hbf_dec_cascade_bank": (
+                lambda s: hbf_dec_cascade_bank(s, x),
+                lambda s: hbf_dec_cascade_bank_plain(s, x), dec0),
+            "hbf_int_cascade_bank": (
+                lambda s: hbf_int_cascade_bank(s, low),
+                lambda s: hbf_int_cascade_bank_plain(s, low), int0),
+            "cic_dec_bank": (lambda s: cic_dec_bank(s, xi, rate),
+                             lambda s: cic_dec_bank_plain(s, xi, rate), cic0),
+            "cic_int_bank": (lambda s: cic_int_bank(s, xl, rate),
+                             lambda s: cic_int_bank_plain(s, xl, rate), cic0),
+        }
+        libs = library_calls(x, low, xi, xl)
+        for name, (kern, plain, st) in cases.items():
+            lib_out = libs[name](None).double()
+            ker_out = kern(st)[1].double()
+            torch.cuda.synchronize()
+            lib_d = float((lib_out - ker_out).abs().max())
+            k_s, _ = measure_rate(kern, st, iters=20, trials=3)
+            p_s, _ = measure_rate(plain, st, iters=5, trials=3)
+            l_s, _ = measure_rate(libs[name], None, iters=10, trials=3,
+                                  stateful=False)
+            timings["kernels"].setdefault(name, {})[c] = {
+                "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
+                "library_ms": l_s * 1e3}
+            log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
+                f"{p_s * 1e3:.4f} ms, library {l_s * 1e3:.4f} ms (max |d| "
+                f"library vs kernel {lib_d:.3e}, scale "
+                f"{float(ker_out.abs().max()):.3e})  [{card}]")
+
+        def comp(s, xb, uk):
+            return rc.cic_hbf_decimate_t(s[0], s[1], xb, 3, 2, use_kernel=uk)
+
+        xc = ints((T, c), 2**20)
+        comp0 = (cic0, hbf.hbf_dec_cascade_init(2, (c,), axis=0, device=dev))
+        runs = {f"round_trip_{m}": (RoundTrip(m, DEPTH, c, device=dev), None)
+                for m in ("scan", "kernel")}
+        runs["composite_plain"] = (lambda s, xb: comp(s, xb, False), comp0)
+        runs["composite_kernel"] = (lambda s, xb: comp(s, xb, True), comp0)
+        for name, (step, st) in runs.items():
+            st = step.init_state() if st is None else st
+            xb = xc if name.startswith("composite") else x
+            sec, _ = measure_rate(step, st, xb, iters=10, trials=3)
+            rate_s = c * T / sec
+            timings["rate_samples_per_s"].setdefault(name, {})[c] = rate_s
+            log(f"phase 6 c={c} {name}: {sec * 1e3:.4f} ms/block, "
+                f"{rate_s:.6e} samples/s (c*t)  [{card}]")
+            if "kernel" in name:
+                log_busy(timings, name, c, sec, card, step, st, xb)
+
+
 def main():
     wall0 = time.perf_counter()
     import torch
@@ -139,12 +620,16 @@ def main():
         lowpass_bank, lowpass_bank_plain,
     )
     from idsp_tpu_torch.filters.pll_cuda import pll_bank, pll_bank_plain
+    from idsp_tpu_torch.filters.cic_cuda import cic_dec_bank, cic_int_bank
+    from idsp_tpu_torch.filters.hbf_cuda import (
+        hbf_dec_cascade_bank, hbf_int_cascade_bank,
+    )
     from idsp_tpu_torch.ops import accu
     from idsp_tpu_torch.ops.fastlo import fastlo_mix
     from idsp_tpu_torch.ops.trig import atan2, cossin
     from idsp_tpu_torch.ops.unwrap import ClampWrapState
     from idsp_tpu_torch.pipelines.ddc_bank import DdcBank, make_tone_bank
-    from idsp_tpu_torch.profiling import busy_share, measure_rate
+    from idsp_tpu_torch.profiling import measure_rate
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -275,6 +760,7 @@ def main():
     log(f"phase 3 K6 fastlo_ddc_bank_block_lp == plain over {BLOCKS} "
         f"blocks (c={C_BANK}, t={T}, d={DEC}, time_chunk={TC}): "
         f"max |d| {err}")
+    check_rate_kernels(dev, rng, errs)
 
     # ---- phase 4: the main path ---------------------------------------
     steps_np = rng.integers(1 << 24, 1 << 30, size=(C_WIDE,)).astype(np.int32)
@@ -292,9 +778,14 @@ def main():
     chains = {m: DdcChain(m, steps_all[:C_MAIN], ba, time_chunk=TC)
               for m in modes}
     wrappers = (df1_bank_q, df1_hbf_cascade_bank, fastlo_ddc_cascade_bank,
-                lowpass_bank, pll_bank, fastlo_ddc_bank_block_lp)
+                lowpass_bank, pll_bank, fastlo_ddc_bank_block_lp,
+                hbf_dec_cascade_bank, hbf_int_cascade_bank, cic_dec_bank,
+                cic_int_bank)
     chain_kernels = ("df1_bank_q", "df1_hbf_cascade_bank",
                      "fastlo_ddc_cascade_bank")
+    bank_kernels = ("lowpass_bank", "pll_bank", "fastlo_ddc_bank_block_lp")
+    rate_kernels = ("hbf_dec_cascade_bank", "hbf_int_cascade_bank",
+                    "cic_dec_bank", "cic_int_bank")
     for w in wrappers:
         w.launches = 0
     runs = {}
@@ -365,8 +856,8 @@ def main():
         bank_runs[m] = outs
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in wrappers}
-    for w in wrappers[len(chain_kernels):]:
-        launches[w.__name__] = counts[w.__name__]
+    for k in bank_kernels:
+        launches[k] = counts[k]
     log(f"phase 4 main path: DdcBank {bank_modes} x {BLOCKS} blocks at "
         f"c={C_BANK}, t={T}, d={DEC}; launches {counts}")
     for m, ref in (("exact", "scan"), ("one_kernel", "fast")):
@@ -406,6 +897,11 @@ def main():
         log(f"phase 4 DdcBank {m} acquisition: {n_tones} tones locked, "
             f"|freq err| median {med} < {1 << 16}, max {worst} < "
             f"{(1 << 31) * 1e-4:.1f}")
+
+    # ---- phase 4 (rate conversion): the BASELINE #4 main path ---------
+    counts = rate_main_path(dev, rng, wrappers)
+    for k in rate_kernels:
+        launches[k] = counts[k]
 
     # ---- phase 5: the main paths went through every kernel ------------
     for name, n in launches.items():
@@ -469,16 +965,9 @@ def main():
             timings["chain_samples_per_s"].setdefault(m, {})[c] = rate
             log(f"phase 6 c={c} chain {m}: {sec * 1e3:.3f} ms/block, "
                 f"{rate:.6e} samples/s (c*t)  [{card}]")
-            if m == "scan":
-                continue
-            busy, window = busy_share(chain, chain.init_state(), x, iters=5)
-            timings["busy_share"].setdefault(m, {})[c] = {
-                "device_ms": busy * 1e3, "profiled_ms": window * 1e3,
-                "ms": sec * 1e3}
-            log(f"phase 6 c={c} chain {m} busy: device {busy * 1e3:.3f} ms "
-                f"of {window * 1e3:.3f} ms/block under the profiler "
-                f"(share {busy / window:.4f}; of the unprofiled block "
-                f"{busy / sec:.4f})  [{card}]")
+            if m != "scan":
+                log_busy(timings, m, c, sec, card, chain, chain.init_state(),
+                         x)
     # the bank at its published width
     c = C_BANK
     x = bank_x[0]
@@ -531,16 +1020,10 @@ def main():
         timings["bank_samples_per_s"][m] = rate
         log(f"phase 6 c={c} bank {m}: {sec * 1e3:.3f} ms/block, "
             f"{rate:.6e} samples/s (c*t)  [{card}]")
-        if m == "scan":
-            continue
-        busy, window = busy_share(bank, bank.init_state(), x, iters=5)
-        timings["busy_share"].setdefault(f"bank_{m}", {})[c] = {
-            "device_ms": busy * 1e3, "profiled_ms": window * 1e3,
-            "ms": sec * 1e3}
-        log(f"phase 6 c={c} bank {m} busy: device {busy * 1e3:.3f} ms of "
-            f"{window * 1e3:.3f} ms/block under the profiler (share "
-            f"{busy / window:.4f}; of the unprofiled block "
-            f"{busy / sec:.4f})  [{card}]")
+        if m != "scan":
+            log_busy(timings, f"bank_{m}", c, sec, card, bank,
+                     bank.init_state(), x)
+    time_rate(dev, rng, card, timings)
     print(json.dumps({"timings": timings}), flush=True)
 
     sources = {
@@ -556,15 +1039,35 @@ def main():
                      "idsp_tpu/filters/pll_pallas.py:93"),
         "fastlo_ddc_bank_block_lp": ("idsp_tpu_torch/csrc/ddc_bank.cu",
                                      "idsp_tpu/filters/ddc_pallas.py:1066"),
+        "hbf_dec_cascade_bank": ("idsp_tpu_torch/csrc/hbf_cascade.cu",
+                                 "idsp_tpu/filters/hbf_pallas.py:52"),
+        "hbf_int_cascade_bank": ("idsp_tpu_torch/csrc/hbf_cascade.cu",
+                                 "idsp_tpu/filters/hbf_pallas.py:210"),
+        "cic_dec_bank": ("idsp_tpu_torch/csrc/cic_bank.cu",
+                         "idsp_tpu/filters/cic_pallas.py:83"),
+        "cic_int_bank": ("idsp_tpu_torch/csrc/cic_bank.cu",
+                         "idsp_tpu/filters/cic_pallas.py:131"),
     }
+    sm_mhz = sm_clock_mhz()
     kernels = []
     for name, (src, rep) in sources.items():
-        c = C_MAIN if name in chain_kernels else C_BANK
+        c = (C_MAIN if name in chain_kernels else
+             C_BANK if name in bank_kernels else C_RATE)
+        timed = timings["kernels"][name][c]
+        bound_ms, bound_by, floor_ms = bounds(name, c, sm_mhz)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": timings["kernels"][name][c]["ms"],
-            "plain_ms": timings["kernels"][name][c]["plain_ms"]})
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": timed.get("library_ms"), "c": c})
+        nbytes, f32_ops, i32_ops, steps, chain = work(name, c)
+        log(f"bound {name} at c={c}: {bound_ms:.6f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.2f} MB, {f32_ops / 1e6:.1f} M f32 ops, "
+            f"{i32_ops / 1e6:.1f} M int32 ops); estimated latency floor "
+            f"{floor_ms} ms ({steps} steps x {chain} dependent ops x "
+            f"{CYCLES_PER_DEPENDENT_OP} cycles at {sm_mhz:.0f} MHz, not "
+            f"measured); kernel {timed['ms']:.4f} ms")
     log(f"wall time {time.perf_counter() - wall0:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

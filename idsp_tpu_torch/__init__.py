@@ -1,7 +1,8 @@
-"""idsp_tpu_torch — the DDC paths of `idsp_tpu` on PyTorch and CUDA.
+"""idsp_tpu_torch — the DDC and rate-conversion paths of `idsp_tpu` on
+PyTorch and CUDA.
 
 A second package beside `idsp_tpu` (the JAX reference, which stays as
-it is).  It carries two main paths with the same numerics and the same
+it is).  It carries three main paths with the same numerics and the same
 public layouts:
 
 * the headline DDC chain `bench.py` measures (`chain.DdcChain`) —
@@ -9,13 +10,18 @@ public layouts:
   half-band decimate-by-8;
 * the BASELINE #5 DDC bank, Lowpass variant
   (`pipelines.ddc_bank.DdcBank`) — per-channel mix, `Lowpass<2>` on I
-  and Q, keep 1 in d, `atan2`, per-channel PLL.
+  and Q, keep 1 in d, `atan2`, per-channel PLL;
+* the BASELINE #4 rate conversion (`pipelines.rate_conversion`,
+  `RoundTrip`) — half-band decimate by 16 then interpolate by 16, and
+  the CIC + half-band composite decimator.
 
 Layouts: time-major ``(t, 2c)`` lanes, I in ``[0, c)`` and Q in
 ``[c, 2c)``; ``Df1State.x/.y`` of shape ``(lanes, 2)``;
 ``LowpassState.p`` ``(lanes, N)`` int64; `PllState` with ``(c,)``
 leaves; fused-cascade tails ``(3m-2, lanes)`` f32, ``2m-1`` odd rows
-then ``m-1`` even rows per stage.
+then ``m-1`` even rows per stage; `HbfIntState.x` ``(2m-1, lanes)``;
+`CicState` with combs ``(c, N, M)``, integrators ``(c, N)`` and zoh
+``(c,)``, all int32.
 
 Every Pallas kernel on those paths is a hand-written CUDA C++ kernel
 (``csrc/*.cu``, built with nvcc for ``sm_90a`` at first use).  Each
@@ -31,7 +37,11 @@ Importing this package imports torch and numpy only — never jax.
 from . import fxp, luts  # noqa: F401
 from .ops import accu, fastlo, trig  # noqa: F401
 from .ops.trig import cossin  # noqa: F401
+from .filters import cic, hbf  # noqa: F401
+from .pipelines import rate_conversion  # noqa: F401
+from .pipelines.rate_conversion import RoundTrip  # noqa: F401
 
-__all__ = ["accu", "cossin", "fastlo", "fxp", "luts", "trig"]
+__all__ = ["RoundTrip", "accu", "cic", "cossin", "fastlo", "fxp", "hbf",
+           "luts", "rate_conversion", "trig"]
 
 __version__ = "0.1.0"

@@ -3,9 +3,10 @@
 The JAX package's values cross as numpy arrays (``np.asarray`` of a jax
 array), so this module needs no jax.  NamedTuples are matched by field
 names: ``(x, y)`` is a `Df1State`, ``(odd, even)`` an `HbfDecState`,
-``(p,)`` a `LowpassState`, ``(x0, clamp)`` a `ClampWrapState`, the PLL
-fields a `PllState` and ``(nco_phase, lp_i, lp_q, pll)`` a
-`DdcBankState`; tuples (per-stage tails, cascade states) keep their
+``(x,)`` an `HbfIntState`, ``(p,)`` a `LowpassState`, ``(x0, clamp)`` a
+`ClampWrapState`, the PLL fields a `PllState`, ``(nco_phase, lp_i,
+lp_q, pll)`` a `DdcBankState`, ``(combs, integrators, zoh)`` a
+`CicState` and ``(dec, int_)`` a `RateConvState`; tuples (per-stage tails, cascade states) keep their
 structure and ``None`` stays ``None``.  Dtypes cross unchanged (the
 PLL's clamp indicator stays int8).
 """
@@ -16,16 +17,19 @@ import numpy as np
 import torch
 
 from .filters.biquad import Df1State
-from .filters.hbf import HbfDecState
+from .filters.cic import CicState
+from .filters.hbf import HbfDecState, HbfIntState
 from .filters.lowpass import LowpassState
 from .filters.pll import PllState
 from .ops.unwrap import ClampWrapState
 from .pipelines.ddc_bank import DdcBankState
+from .pipelines.rate_conversion import RateConvState
 
 _STATES = {
     cls._fields: cls
-    for cls in (Df1State, HbfDecState, LowpassState, ClampWrapState,
-                PllState, DdcBankState)
+    for cls in (Df1State, HbfDecState, HbfIntState, LowpassState,
+                ClampWrapState, PllState, DdcBankState, CicState,
+                RateConvState)
 }
 
 

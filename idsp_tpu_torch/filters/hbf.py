@@ -1,5 +1,5 @@
-"""Half-band FIR decimators (port of the decimation part of
-`idsp_tpu.filters.hbf`, reference src/hbf.rs).
+"""Half-band FIR decimators and interpolators and their power-of-two
+cascades (port of `idsp_tpu.filters.hbf`, reference src/hbf.rs).
 
 Each stage is a symmetric FIR over a tail-extended block
 (overlap-save): the carried state is exactly the impulse-response tail
@@ -8,8 +8,8 @@ lead) or on the first (``axis=0``, time-major ``(t, c)``, the layout of
 the fused DDC chain).
 
 The f32 operation order is the JAX package's: ``acc += (b + a) *
-tap[i]`` for i ascending (small taps first), then ``+ even`` — one
-rounding per operation.
+tap[i]`` for i ascending (small taps first), then ``+ even`` (for a
+decimator) — one rounding per operation.
 """
 
 from __future__ import annotations
@@ -143,3 +143,75 @@ def hbf_dec_cascade(states, x, taps=HBF_TAPS, *, axis: int = -1):
         st2, cur = hbf_dec_block(taps[depth - 1 - i], st, cur, axis=axis)
         new_states.append(st2)
     return tuple(new_states), cur
+
+
+class HbfIntState(NamedTuple):
+    """Input FIR tail (2M-1 samples at the low rate)."""
+
+    x: torch.Tensor
+
+
+def hbf_int_init(m: int, shape=(), dtype=torch.float32, axis: int = -1, *,
+                 device) -> HbfIntState:
+    ln, shape = (2 * m - 1,), tuple(shape)
+    return HbfIntState(x=torch.zeros(ln + shape if axis == 0 else shape + ln,
+                                     dtype=dtype, device=device))
+
+
+def hbf_int_block(taps, state: HbfIntState, x, *, axis: int = -1):
+    """Interpolate-by-2 (hbf.rs:208-236): FIR output in the even output
+    slots, the M-delayed input (identity center tap) in the odd slots.
+
+    x: n low-rate samples on the time axis; returns (state, 2n outputs).
+    """
+    m = len(taps)
+    dim = 0 if axis == 0 else x.dim() - 1
+    ext = torch.cat([state.x, x], dim=dim)
+    fir = symmetric_fir(taps, ext, odd=False, sym=True, axis=axis)
+    n = x.shape[axis]
+    center = _sl(ext, m, m + n, axis)
+    y = torch.stack([fir, center], dim=dim + 1).flatten(dim, dim + 1)
+    return HbfIntState(x=_sl(ext, n, ext.shape[axis], axis)), y
+
+
+def hbf_int_cascade_init(depth: int, shape=(), dtype=torch.float32,
+                         taps=HBF_TAPS, axis: int = -1, *, device):
+    """States for a 2**depth interpolation cascade (lowest rate first)."""
+    return tuple(
+        hbf_int_init(len(taps[d]), shape, dtype, axis=axis, device=device)
+        for d in range(depth)
+    )
+
+
+def hbf_int_cascade(states, x, taps=HBF_TAPS, *, axis: int = -1):
+    """Interpolate by 2**depth: lowest-rate/most-taps stage first
+    (hbf.rs:476-512): taps[0] .. taps[depth-1]."""
+    new_states = []
+    cur = x
+    for i, st in enumerate(states):
+        st2, cur = hbf_int_block(taps[i], st, cur, axis=axis)
+        new_states.append(st2)
+    return tuple(new_states), cur
+
+
+def hbf_dec_response_length(depth: int, taps=HBF_TAPS) -> int:
+    """Effective tap count of the decimation cascade (hbf.rs:424-448)."""
+    if depth > len(taps):
+        raise ValueError(f"depth {depth} > {len(taps)} stages of taps")
+    n = 0
+    for d in reversed(range(depth)):
+        n //= 2
+        n += fir_len(len(taps[d]), False)
+    return n
+
+
+def hbf_int_response_length(depth: int, taps=HBF_TAPS) -> int:
+    """Effective tap count of the interpolation cascade
+    (hbf.rs:515-539)."""
+    if depth > len(taps):
+        raise ValueError(f"depth {depth} > {len(taps)} stages of taps")
+    n = 0
+    for d in range(depth):
+        n += fir_len(len(taps[d]), False)
+        n *= 2
+    return n

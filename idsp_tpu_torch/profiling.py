@@ -59,6 +59,12 @@ def union_length(spans) -> float:
     return total
 
 
+def short_name(name: str) -> str:
+    """A device event's name without namespace prefixes or arguments:
+    ``(anonymous namespace)::k(float const*, int)`` -> ``k``."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0].strip()
+
+
 def busy_share(step, state, *args, iters: int = 5):
     """How much of a run of ``iters`` chained calls the card is busy.
 
@@ -66,9 +72,12 @@ def busy_share(step, state, *args, iters: int = 5):
     bracket the chained calls as in `measure_rate`.  Device time is the
     union of the spans of the profiler's device events (kernels, copies,
     memsets) -- host-side operator rows are not counted.  Returns
-    ``(busy_s_per_call, window_s_per_call)``: device time and the
-    CUDA-event time of the profiled run, each divided by ``iters``.  The
-    profiler slows the host, not the card, so ``busy / window`` is a
+    ``(busy_s_per_call, window_s_per_call, by_name)``: device time and
+    the CUDA-event time of the profiled run, each divided by ``iters``,
+    and for each device event name (`short_name`) its ``(spans,
+    seconds_per_call)``.  A kernel launched k times per call shows
+    ``k * iters`` spans unless the profiler lost some of its records.
+    The profiler slows the host, not the card, so ``busy / window`` is a
     lower bound on the busy share of a run without it.
     """
     from torch.autograd import DeviceType
@@ -89,12 +98,17 @@ def busy_share(step, state, *args, iters: int = 5):
         end.record()
         end.synchronize()
     window = start.elapsed_time(end) / 1e3
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    if not spans:
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
         raise RuntimeError("torch.profiler recorded no device activity")
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
     busy = union_length(spans) / 1e6  # profiler times are in us
     if busy > 1.01 * window:
         raise RuntimeError(f"device time {busy} s exceeds the CUDA-event "
                            f"window {window} s: the profile is inconsistent")
-    return busy / iters, window / iters
+    by_name = {}
+    for e in events:
+        n, us = by_name.get(short_name(e.name), (0, 0.0))
+        by_name[short_name(e.name)] = (n + 1, us + e.time_range.elapsed_us())
+    return busy / iters, window / iters, {
+        k: (n, us / 1e6 / iters) for k, (n, us) in by_name.items()}

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K10 against their plain PyTorch versions, on the card.
 
 Marked ``requires_cuda``; each test skips (inside its fixture) where no
 CUDA device is present.  No jax here, so the file also runs where only
@@ -6,7 +6,7 @@ PyTorch is installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
 
-On the card every K1-K6 output must equal its plain version bit for bit:
+On the card every K1-K10 output must equal its plain version bit for bit:
 the integer paths are the same int64 arithmetic, and the kernels' f32
 operations are single-rounding intrinsics in the plain versions' order,
 as eager PyTorch rounds each operation.
@@ -26,12 +26,24 @@ from idsp_tpu_torch.filters.ddc_cuda import (
     fastlo_ddc_cascade_bank_plain,
     hbf1_tail_init,
 )
-from idsp_tpu_torch.filters import lowpass, pll
+from idsp_tpu_torch.filters import cic, hbf, lowpass, pll
+from idsp_tpu_torch.filters.cic_cuda import (
+    cic_dec_bank,
+    cic_dec_bank_plain,
+    cic_int_bank,
+    cic_int_bank_plain,
+)
 from idsp_tpu_torch.filters.ddc_bank_cuda import (
     fastlo_ddc_bank_block_lp,
     fastlo_ddc_bank_block_lp_plain,
 )
 from idsp_tpu_torch.filters.hbf import HBF_TAPS
+from idsp_tpu_torch.filters.hbf_cuda import (
+    hbf_dec_cascade_bank,
+    hbf_dec_cascade_bank_plain,
+    hbf_int_cascade_bank,
+    hbf_int_cascade_bank_plain,
+)
 from idsp_tpu_torch.filters.lowpass_cuda import lowpass_bank, lowpass_bank_plain
 from idsp_tpu_torch.filters.pll_cuda import pll_bank, pll_bank_plain
 
@@ -194,3 +206,86 @@ def test_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError):  # int64 phases
         pll_bank(pll.coefficients_from_bandwidth(2e-2), pll.init(
             (128,), device=cuda), xs.to(torch.int64))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("depth,tc", [(1, 64), (2, 512), (4, 512), (4, 64)])
+def test_hbf_dec_cascade_kernel_equals_plain(cuda, depth, tc):
+    c, t = 200, 2048  # c not a multiple of the 32-lane block
+    rng = np.random.default_rng(36)
+    st = tuple(hbf.HbfDecState(odd=torch.randn_like(s.odd),
+                               even=torch.randn_like(s.even))
+               for s in hbf.hbf_dec_cascade_init(depth, (c,), axis=0,
+                                                 device=cuda))
+    st_p = st
+    for _ in range(3):
+        x = torch.from_numpy(rng.normal(size=(t, c)).astype(np.float32)).to(
+            cuda)
+        st, y = hbf_dec_cascade_bank(st, x, time_chunk=tc)
+        st_p, y_p = hbf_dec_cascade_bank_plain(st_p, x)
+        torch.cuda.synchronize()
+        _equal((st, y), (st_p, y_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("depth,tc", [(1, 64), (3, 32), (4, 64), (4, 8)])
+def test_hbf_int_cascade_kernel_equals_plain(cuda, depth, tc):
+    c, t = 200, 256
+    rng = np.random.default_rng(37)
+    st = tuple(hbf.HbfIntState(x=torch.randn_like(s.x))
+               for s in hbf.hbf_int_cascade_init(depth, (c,), axis=0,
+                                                 device=cuda))
+    st_p = st
+    for _ in range(3):
+        x = torch.from_numpy(rng.normal(size=(t, c)).astype(np.float32)).to(
+            cuda)
+        st, y = hbf_int_cascade_bank(st, x, time_chunk=tc)
+        st_p, y_p = hbf_int_cascade_bank_plain(st_p, x)
+        torch.cuda.synchronize()
+        _equal((st, y), (st_p, y_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,m,rate", [(3, 1, 15), (2, 2, 3), (4, 1, 4),
+                                      (8, 1, 1)])
+def test_cic_bank_kernels_equal_plain(cuda, n, m, rate):
+    c, r = 200, rate + 1
+    rng = np.random.default_rng(38)
+    st = cic.CicState(*(_i32(rng, tuple(v.shape), device=cuda)
+                        for v in cic.init(n, m, (c,), device=cuda)))
+    st_p = st
+    for _ in range(3):
+        xs = _i32(rng, (64 * r + 16 * r, c), device=cuda)  # wraps by design
+        st, ys = cic_dec_bank(st, xs, rate)
+        st_p, ys_p = cic_dec_bank_plain(st_p, xs, rate)
+        torch.cuda.synchronize()
+        _equal((st, ys), (st_p, ys_p))
+    st = st_p = cic.init(n, m, (c,), device=cuda)
+    lim = 2**31 // cic.gain(rate, n, m) // 4
+    for _ in range(3):
+        xs = _i32(rng, (37, c), -lim, lim, device=cuda)
+        st, ys = cic_int_bank(st, xs, rate)
+        st_p, ys_p = cic_int_bank_plain(st_p, xs, rate)
+        torch.cuda.synchronize()
+        _equal((st, ys), (st_p, ys_p))
+
+
+@pytest.mark.requires_cuda
+def test_rate_conversion_wrappers_reject_bad_input(cuda):
+    dec = hbf.hbf_dec_cascade_init(4, (128,), axis=0, device=cuda)
+    with pytest.raises(ValueError):  # 100 % 16 != 0
+        hbf_dec_cascade_bank(dec, torch.zeros((100, 128), device=cuda))
+    with pytest.raises(ValueError):  # int32 input
+        hbf_dec_cascade_bank(dec, torch.zeros((128, 128), dtype=torch.int32,
+                                              device=cuda))
+    itp = hbf.hbf_int_cascade_init(4, (128,), axis=0, device=cuda)
+    with pytest.raises(RuntimeError):  # 256 KB of shared memory a block
+        hbf_int_cascade_bank(itp, torch.zeros((128, 128), device=cuda),
+                             time_chunk=128)
+    st = cic.init(3, 1, (128,), device=cuda)
+    with pytest.raises(ValueError):  # 100 % 16 != 0
+        cic_dec_bank(st, torch.zeros((100, 128), dtype=torch.int32,
+                                     device=cuda), 15)
+    with pytest.raises(ValueError):  # 9 integrator stages
+        cic_dec_bank(cic.init(9, 1, (128,), device=cuda),
+                     torch.zeros((32, 128), dtype=torch.int32, device=cuda), 15)

@@ -59,6 +59,17 @@ def test_union_length_and_timers_need_cuda():
             profiling.busy_share(step, None)
 
 
+@pytest.mark.parametrize("name, short", [
+    ("(anonymous namespace)::hbf_dec_cascade_kernel(float const*, int)",
+     "hbf_dec_cascade_kernel"),
+    ("(anonymous namespace)::cic_bank_kernel<3>(int const*, int*)",
+     "cic_bank_kernel<3>"),
+    ("Memcpy DtoD (Device -> Device)", "Memcpy DtoD"),
+])
+def test_profiler_event_short_name(name, short):
+    assert profiling.short_name(name) == short
+
+
 def test_copied_constants_equal_reference():
     np.testing.assert_array_equal(luts.cossin_table(), jluts.cossin_table())
     assert luts.COSSIN_DEPTH == jluts.COSSIN_DEPTH
