@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (`idsp_tpu_torch`) on one NVIDIA GPU.
 
 Builds the CUDA kernels from ``idsp_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version, drives the three main paths -- the
-headline DDC chain (`DdcChain`), the BASELINE #5 DDC bank (`DdcBank`)
-and the BASELINE #4 rate conversion (`RoundTrip`, the CIC + half-band
-composite decimator, CIC interpolation) -- through their kernel modes,
-checks the results and times kernels, chain, bank and rate conversion.
+against its plain PyTorch version, drives the main paths -- the
+headline DDC chain (`DdcChain`), the BASELINE #5 DDC bank in its Lowpass
+(`DdcBank`) and biquad (`DdcBankBiquad`) variants and the BASELINE #4
+rate conversion (`RoundTrip`, the CIC + half-band composite decimator,
+CIC interpolation) -- through their kernel modes, checks the results and
+times kernels, chain, banks and rate conversion.
 Phases, each reported on its own line:
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
@@ -19,15 +20,20 @@ Phases, each reported on its own line:
    `hbf_dec_cascade_bank` (depth 4, (32768, 512) f32), K8
    `hbf_int_cascade_bank` (depth 4, (2048, 512) f32), K9 `cic_dec_bank`
    (N=3, R=16, (32768, 512) i32 in +-2^16) and K10 `cic_int_bank`
-   ((2048, 512) i32 in +-2^10); state, tails and outputs bit for bit
+   ((2048, 512) i32 in +-2^10); K11 `df1_bank_q_dec`, K12
+   `fastlo_df1_dec_bank` and K13 `fastlo_ddc_bank_block` at c=1024,
+   d=16, time chunk 128; K14 `ddc_mix_df1_bank` (f32 out, x and steps
+   full range) at c=512 and 1024; state, tails and outputs bit for bit
    (tolerance 0);
 4. the main paths, each with every launch counter reset just before it
    and read just after:
-   * `DdcChain` in ``split`` (K1), ``fold3`` (K2) and ``fastlo_fused``
-     (K3) over 3 blocks of a coherent carrier at c=512; ``split``/
-     ``fold3`` integer state bit for bit against the ``scan`` oracle
-     (outputs within 16 ULP of the output scale), ``fastlo_fused``
-     > 80 dB SNR on the expected bin;
+   * `DdcChain` in ``split`` (K1), ``fused`` (K14), ``fold3`` (K2) and
+     ``fastlo_fused`` (K3) over 3 blocks of a coherent carrier at c=512,
+     and ``scan``, ``split``, ``fused`` at c=1024; ``split``/``fold3``
+     integer state bit for bit against the ``scan`` oracle (outputs
+     within 16 ULP of the output scale), ``fused`` output equal to
+     ``split``'s and its state to ``scan``'s at both widths,
+     ``fastlo_fused`` > 80 dB SNR on the expected bin;
    * `DdcBank` in ``scan``, ``exact`` (K4, K5), ``fast`` (K4, K5) and
      ``one_kernel`` (K6) over 3 blocks at its published width (c=1024,
      t=32768, d=16, gains2(0.004), PLL bandwidth 2e-2, x uniform in
@@ -37,6 +43,14 @@ Phases, each reported on its own line:
      (tests/test_rate_ddc_bank.py:57-84: 16 tones with offsets, gains2
      (0.001), one block) inside the 1024-channel bank in ``exact`` and
      ``one_kernel``, gated by that test's bounds;
+   * `DdcBankBiquad` in ``scan``, ``exact`` (K11, K5), ``fast`` (K11,
+     K5), ``fast_fused`` (K12, K5) and ``one_kernel`` (K13) over 3 blocks
+     at the same width with the suite's Q29 lowpass at 0.004
+     (benches/suite.py:1034-1042); ``exact`` equals ``scan``, and
+     ``fast_fused`` and ``one_kernel`` equal ``fast``, on every output and
+     state word; the same 16 tones with the lowpass at 0.001 lock in
+     ``exact`` and ``one_kernel``, and ``fast_fused`` tracks ``exact``
+     (the gates of tests/test_rate_ddc_bank.py:278-281);
    * BASELINE #4 at the suite's widths (benches/suite.py:796-851,
      c=512, t=32768): `RoundTrip` (depth 4, x ~ N(0, 1)) in ``scan`` and
      ``kernel`` (K7, K8), `cic_hbf_decimate_t` (CIC N=3 by 4, then
@@ -50,7 +64,9 @@ Phases, each reported on its own line:
 6. CUDA-event times of each kernel and its plain version, of the plain
    layers around them (exact mix, time-major HBF, fast mix, atan2),
    chain rates at c=512 and c=1024 and bank rates at c=1024, in c*t
-   full-rate samples/s, t=32768; K7-K10 at c=512 and 1024 beside their
+   full-rate samples/s, t=32768 (K14 and chain ``fused`` at c=512 and
+   1024; K11-K13 and the biquad bank's five modes at c=1024); K7-K10 at
+   c=512 and 1024 beside their
    library yardsticks (grouped `F.conv1d` per half-band stage, TF32
    off; chained `torch.cumsum` and `torch.diff` for the CIC),
    round-trip and composite
@@ -121,8 +137,8 @@ def fir_int_ops(t, ms):
 def work(name, c, t=T):
     """(bytes, f32 ops, int32 ops, serial steps, dependent ops per step)
     of one call of a kernel at the shapes phase 6 times it: c channels
-    (2c I|Q lanes for K1-K6, c lanes for K7-K10), t full-rate rows.
-    Operation counts are read off the kernels' sources."""
+    (2c I|Q lanes for K1-K6 and K11-K14, c lanes for K7-K10), t full-rate
+    rows.  Operation counts are read off the kernels' sources."""
     c2 = 2 * c
     tails3 = 2 * 4 * sum(3 * m - 2 for m in M_DEC3) * c2
     tables = 2 * 4 * (t // TC + TC) * c  # fast-LO factor tables
@@ -143,6 +159,19 @@ def work(name, c, t=T):
     if name == "fastlo_ddc_bank_block_lp":  # mix, 2 lowpasses, atan2+PLL
         return (4 * t + tables + 12 * (t // DEC) * c + 32 * c2 + 80 * c,
                 6 * t * c2, 9 * t * c2 + 55 * (t // DEC) * c, t, 8)
+    if name == "df1_bank_q_dec":  # K1's DF1, t/d rows out
+        return 4 * t * c2 + 4 * (t // DEC) * c2 + 32 * c2, 0, 11 * t * c2, t, 3
+    if name == "fastlo_df1_dec_bank":  # mix, 2 DF1s, t/d rows out
+        return (4 * t + tables + 8 * (t // DEC) * c + 32 * c2, 6 * t * c2,
+                11 * t * c2, t, 3)
+    if name == "fastlo_ddc_bank_block":  # K12, then atan2 + PLL
+        return (4 * t + tables + 8 * (t // DEC) * c + 32 * c2 + 72 * c,
+                6 * t * c2, 11 * t * c2 + 55 * (t // DEC) * c, t, 3)
+    if name == "ddc_mix_df1_bank":  # per channel and row: the LO 38 (once,
+        # though the kernel's I and Q lanes each make it), then per lane
+        # the mix 2 and the DF1 11
+        return (4 * t + 8 * c + 4 * t * c2 + 32 * c2, 0,
+                (38 + 2 * 2 + 2 * 11) * t * c, t, 3)
     if name == "hbf_dec_cascade_bank":
         return (4 * t * c + 4 * (t >> DEPTH) * c
                 + 2 * 4 * sum(3 * m - 2 for m in M_DEC4) * c,
@@ -592,6 +621,170 @@ def time_rate(dev, rng, card, timings):
                 log_busy(timings, name, c, sec, card, step, st, xb)
 
 
+def hold(name, kern, plain, carry, make_x):
+    """Phase 3: ``kern`` against ``plain`` over BLOCKS carried blocks,
+    tolerance 0.  Both are called as ``fn(*carry, x)``; the first
+    len(carry) results are the next carry.  Returns the largest |d|."""
+    import torch
+
+    err = 0.0
+    for _ in range(BLOCKS):
+        x = make_x()
+        got = kern(*carry, x)
+        want = plain(*carry, x)
+        torch.cuda.synchronize()
+        err = max(err, compare(name, got, want))
+        carry = got[:len(carry)]
+    return err
+
+
+def check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba):
+    """Phase 3 for K11-K14 at full width: K11-K13 at c = C_BANK (d = 16,
+    time chunk TC), K14 at c = C_MAIN and C_WIDE with f32 output."""
+    from idsp_tpu_torch.filters import biquad, pll
+    from idsp_tpu_torch.filters.biquad_cuda import (
+        df1_bank_q_dec, df1_bank_q_dec_plain,
+    )
+    from idsp_tpu_torch.filters.ddc_bank_cuda import (
+        fastlo_ddc_bank_block, fastlo_ddc_bank_block_plain,
+        fastlo_df1_dec_bank, fastlo_df1_dec_bank_plain,
+    )
+    from idsp_tpu_torch.filters.ddc_cuda import (
+        ddc_mix_df1_bank, ddc_mix_df1_bank_plain,
+    )
+    import torch
+
+    def df1_state(lanes):
+        return biquad.Df1State(x=i32((lanes, 2), -(2**27), 2**27),
+                               y=i32((lanes, 2), -(2**27), 2**27))
+
+    def wide():
+        return i32((T,), -(2**27), 2**27)
+
+    c, cb2 = C_BANK, 2 * C_BANK
+    steps = i32((c,), 1 << 24, 1 << 30)
+    kw = {"d": DEC, "time_chunk": TC}
+    errs["df1_bank_q_dec"] = hold(
+        "df1_bank_q_dec",
+        lambda s, xs: df1_bank_q_dec(ba_bank, s, xs, 29, d=DEC),
+        lambda s, xs: df1_bank_q_dec_plain(ba_bank, s, xs, 29, d=DEC),
+        (df1_state(cb2),), lambda: i32((T, cb2)))
+    errs["fastlo_df1_dec_bank"] = hold(
+        "fastlo_df1_dec_bank",
+        lambda s, ph, x: fastlo_df1_dec_bank(ba_bank, s, ph, steps, x, 29,
+                                             **kw),
+        lambda s, ph, x: fastlo_df1_dec_bank_plain(ba_bank, s, ph, steps, x,
+                                                   29, **kw),
+        (df1_state(cb2), i32((c,))), wide)
+    errs["fastlo_ddc_bank_block"] = hold(
+        "fastlo_ddc_bank_block",
+        lambda s, p, ph, x: fastlo_ddc_bank_block(ba_bank, pll_ba, s, p, ph,
+                                                  steps, x, 29, **kw),
+        lambda s, p, ph, x: fastlo_ddc_bank_block_plain(
+            ba_bank, pll_ba, s, p, ph, steps, x, 29, **kw),
+        (df1_state(cb2), pll.init((c,), device=dev), i32((c,))), wide)
+    log(f"phase 3 K11 df1_bank_q_dec, K12 fastlo_df1_dec_bank, K13 "
+        f"fastlo_ddc_bank_block == plain over {BLOCKS} blocks (c={c}, "
+        f"t={T}, d={DEC}, time_chunk={TC}): max |d| "
+        f"{errs['df1_bank_q_dec']}, {errs['fastlo_df1_dec_bank']}, "
+        f"{errs['fastlo_ddc_bank_block']}")
+    err = 0.0
+    for c in (C_MAIN, C_WIDE):
+        stp = i32((c,))  # full-range frequency words: every LO octant
+        err = max(err, hold(
+            "ddc_mix_df1_bank",
+            lambda s, ph, x: ddc_mix_df1_bank(ba, s, ph, stp, x, 29,
+                                              out_dtype=torch.float32),
+            lambda s, ph, x: ddc_mix_df1_bank_plain(
+                ba, s, ph, stp, x, 29, out_dtype=torch.float32),
+            (df1_state(2 * c), i32((c,))), lambda: i32((T,))))
+    errs["ddc_mix_df1_bank"] = err
+    log(f"phase 3 K14 ddc_mix_df1_bank (f32 out) == plain over {BLOCKS} "
+        f"blocks at c={C_MAIN} and {C_WIDE} (x full range): max |d| {err}")
+
+
+def biquad_bank_main_path(dev, i32, rng, ba_bank, pll_ba, wrappers):
+    """Phase 4 for the biquad DDC bank (`DdcBankBiquad`, c = C_BANK) in
+    its five modes over BLOCKS blocks, then the 16-tone acquisition.
+    Returns (launch counts, banks, inputs)."""
+    import torch
+    from idsp_tpu_torch.design import Filter
+    from idsp_tpu_torch.filters import biquad
+    from idsp_tpu_torch.pipelines.ddc_bank import (
+        BIQUAD_MODES, DdcBankBiquad, make_tone_bank,
+    )
+
+    steps = i32((C_BANK,), 1 << 24, 1 << 30)
+    banks = {m: DdcBankBiquad(m, steps, ba_bank, pll_ba, decimate=DEC,
+                              time_chunk=TC) for m in BIQUAD_MODES}
+    xs = [i32((T,), -(2**27), 2**27) for _ in range(BLOCKS)]
+    for w in wrappers:
+        w.launches = 0
+    runs = {}
+    for m, bank in banks.items():
+        state, outs = bank.init_state(), []
+        for xb in xs:
+            state, out = bank(state, xb)
+            outs.append((state, out))
+        runs[m] = outs
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    log(f"phase 4 main path: DdcBankBiquad {BIQUAD_MODES} x {BLOCKS} blocks "
+        f"at c={C_BANK}, t={T}, d={DEC}; launches {counts}")
+    for m, ref in (("exact", "scan"), ("fast_fused", "fast"),
+                   ("one_kernel", "fast")):
+        for b, (got, want) in enumerate(zip(runs[m], runs[ref])):
+            compare(f"DdcBankBiquad {m} vs {ref}, block {b}", got, want)
+        log(f"phase 4 DdcBankBiquad {m} == {ref} on I, Q, freq and every "
+            f"state word over {BLOCKS} blocks")
+    for m in BIQUAD_MODES:
+        yi, yq, freq = runs[m][-1][1]
+        shapes = [tuple(v.shape) for v in (yi, yq, freq)]
+        if shapes != [(T // DEC, C_BANK)] * 2 + [(C_BANK,)]:
+            raise AssertionError(f"DdcBankBiquad {m}: output shapes {shapes}")
+
+    # 16 tones in the 1024-channel bank (tests/test_rate_ddc_bank.py:
+    # 57-84), the filter and gates of the biquad bank's own test (:226-281)
+    n_tones = 16
+    acq_rng = np.random.default_rng(2)
+    acq_steps = rng.integers(1 << 24, 1 << 30, size=(C_BANK,)).astype(np.int32)
+    acq_steps[:n_tones] = ((np.arange(n_tones) + 8) * (1 << 26)).astype(
+        np.int64).astype(np.int32)
+    offsets = acq_rng.integers(-(1 << 16), 1 << 16, size=n_tones,
+                               dtype=np.int64).astype(np.int32)
+    acq_x = make_tone_bank(acq_steps[:n_tones], T, amplitude=1 << 26,
+                           offsets=offsets, device=dev)
+    want_f = -(offsets.astype(np.int64) * DEC)
+    ba_acq = biquad.quantize_ba(
+        biquad.from_cookbook(Filter().critical_frequency(0.001).lowpass()), 29)
+    freqs = {}
+    for m in ("exact", "fast_fused", "one_kernel"):
+        bank = DdcBankBiquad(m, torch.from_numpy(acq_steps).to(dev), ba_acq,
+                             pll_ba, decimate=DEC, time_chunk=TC)
+        _, (_, _, freq) = bank(bank.init_state(), acq_x)
+        freqs[m] = freq[:n_tones].cpu().numpy().astype(np.int64)
+
+    def wrap(v):
+        return np.abs((v + 2**31) % 2**32 - 2**31)
+
+    for m in ("exact", "one_kernel"):
+        err = wrap(freqs[m] - want_f)
+        if not np.median(err) < 1 << 18:
+            raise AssertionError(f"DdcBankBiquad {m}: PLL acquisition error "
+                                 f"median {np.median(err)}")
+        log(f"phase 4 DdcBankBiquad {m} acquisition: {n_tones} tones locked, "
+            f"|freq err| median {float(np.median(err))} < {1 << 18}, max "
+            f"{int(err.max())}")
+    track = float(np.median(wrap(freqs["fast_fused"] - freqs["exact"])))
+    lock = float(np.median(wrap(freqs["fast_fused"] - want_f)))
+    if not (track < 1 << 12 and lock < 1 << 18):
+        raise AssertionError(f"DdcBankBiquad fast_fused: median |freq - "
+                             f"exact| {track}, |freq err| {lock}")
+    log(f"phase 4 DdcBankBiquad fast_fused tracks exact: median |freq - "
+        f"exact| {track} < {1 << 12}, |freq err| median {lock} < {1 << 18}")
+    return counts, banks, xs
+
+
 def main():
     wall0 = time.perf_counter()
     import torch
@@ -604,16 +797,19 @@ def main():
     from idsp_tpu_torch.design import Filter
     from idsp_tpu_torch.filters import biquad
     from idsp_tpu_torch.filters.biquad_cuda import (
-        df1_bank_q, df1_bank_q_plain,
+        df1_bank_q, df1_bank_q_dec, df1_bank_q_dec_plain, df1_bank_q_plain,
     )
     from idsp_tpu_torch.filters.ddc_cuda import (
+        ddc_mix_df1_bank, ddc_mix_df1_bank_plain,
         df1_hbf_cascade_bank, df1_hbf_cascade_bank_plain,
         fastlo_ddc_cascade_bank, fastlo_ddc_cascade_bank_plain,
         hbf1_tail_init,
     )
     from idsp_tpu_torch.filters import lowpass, pll
     from idsp_tpu_torch.filters.ddc_bank_cuda import (
-        fastlo_ddc_bank_block_lp, fastlo_ddc_bank_block_lp_plain,
+        fastlo_ddc_bank_block, fastlo_ddc_bank_block_lp,
+        fastlo_ddc_bank_block_lp_plain, fastlo_ddc_bank_block_plain,
+        fastlo_df1_dec_bank, fastlo_df1_dec_bank_plain,
     )
     from idsp_tpu_torch.filters.hbf import hbf_dec_cascade
     from idsp_tpu_torch.filters.lowpass_cuda import (
@@ -659,6 +855,9 @@ def main():
 
     lp_gains = lowpass.gains2(0.004)
     pll_ba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    # the biquad bank's filter, benches/suite.py:1034-1042
+    ba_bank = biquad.quantize_ba(
+        biquad.from_cookbook(Filter().critical_frequency(0.004).lowpass()), 29)
 
     # ---- phase 3: each kernel against its plain version ---------------
     c2 = 2 * C_MAIN
@@ -761,6 +960,7 @@ def main():
         f"blocks (c={C_BANK}, t={T}, d={DEC}, time_chunk={TC}): "
         f"max |d| {err}")
     check_rate_kernels(dev, rng, errs)
+    check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba)
 
     # ---- phase 4: the main path ---------------------------------------
     steps_np = rng.integers(1 << 24, 1 << 30, size=(C_WIDE,)).astype(np.int32)
@@ -774,34 +974,55 @@ def main():
         torch.int32)
     xblocks = [carrier[i * T:(i + 1) * T].contiguous() for i in range(BLOCKS)]
 
-    modes = ("scan", "split", "fold3", "fastlo_fused")
+    modes = ("scan", "split", "fused", "fold3", "fastlo_fused")
     chains = {m: DdcChain(m, steps_all[:C_MAIN], ba, time_chunk=TC)
               for m in modes}
     wrappers = (df1_bank_q, df1_hbf_cascade_bank, fastlo_ddc_cascade_bank,
                 lowpass_bank, pll_bank, fastlo_ddc_bank_block_lp,
                 hbf_dec_cascade_bank, hbf_int_cascade_bank, cic_dec_bank,
-                cic_int_bank)
+                cic_int_bank, df1_bank_q_dec, fastlo_df1_dec_bank,
+                fastlo_ddc_bank_block, ddc_mix_df1_bank)
     chain_kernels = ("df1_bank_q", "df1_hbf_cascade_bank",
-                     "fastlo_ddc_cascade_bank")
+                     "fastlo_ddc_cascade_bank", "ddc_mix_df1_bank")
     bank_kernels = ("lowpass_bank", "pll_bank", "fastlo_ddc_bank_block_lp")
+    biquad_kernels = ("df1_bank_q_dec", "fastlo_df1_dec_bank",
+                      "fastlo_ddc_bank_block")
     rate_kernels = ("hbf_dec_cascade_bank", "hbf_int_cascade_bank",
                     "cic_dec_bank", "cic_int_bank")
     for w in wrappers:
         w.launches = 0
-    runs = {}
-    for m in modes:
-        state = chains[m].init_state()
-        outs = []
-        for xb in xblocks:
-            state, (zi, zq) = chains[m](state, xb)
-            outs.append((zi, zq, state[0].x.clone(), state[0].y.clone(),
-                         state[3].clone()))
-        runs[m] = outs
+    # every mode at c = C_MAIN; the exact-LO modes also at c = C_WIDE
+    wide_modes = ("scan", "split", "fused")
+    runs, wide_runs = {}, {}
+    for c, ms, into in ((C_MAIN, modes, runs), (C_WIDE, wide_modes,
+                                                 wide_runs)):
+        for m in ms:
+            chain = chains[m] if c == C_MAIN else DdcChain(
+                m, steps_all[:c], ba, time_chunk=TC)
+            state = chain.init_state()
+            outs = []
+            for xb in xblocks:
+                state, (zi, zq) = chain(state, xb)
+                outs.append((zi, zq, state[0].x.clone(), state[0].y.clone(),
+                             state[3].clone()))
+            into[m] = outs
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in wrappers}
     launches = {k: counts[k] for k in chain_kernels}
     log(f"phase 4 main path: DdcChain {modes} x {BLOCKS} blocks at "
-        f"c={C_MAIN}, t={T}; launches {counts}")
+        f"c={C_MAIN} and {wide_modes} at c={C_WIDE}, t={T}; launches "
+        f"{counts}")
+
+    # fused: the output of split word for word, the integer state of scan
+    for c, rs in ((C_MAIN, runs), (C_WIDE, wide_runs)):
+        for b, (f_run, s_run, o_run) in enumerate(
+                zip(rs["fused"], rs["split"], rs["scan"])):
+            compare(f"DdcChain fused vs split at c={c}, block {b}",
+                    f_run[:2], s_run[:2])
+            compare(f"DdcChain fused vs scan state at c={c}, block {b}",
+                    f_run[2:], o_run[2:])
+        log(f"phase 4 fused at c={c}: (zi, zq) == split's and DF1 state and "
+            f"phase == scan's, bit for bit over {BLOCKS} blocks")
 
     for m in ("split", "fold3"):
         worst = 0.0
@@ -898,6 +1119,12 @@ def main():
             f"|freq err| median {med} < {1 << 16}, max {worst} < "
             f"{(1 << 31) * 1e-4:.1f}")
 
+    # ---- phase 4 (biquad bank): the BASELINE #5 biquad variant --------
+    counts, bq_banks, bq_x = biquad_bank_main_path(dev, i32, rng, ba_bank,
+                                                   pll_ba, wrappers)
+    for k in biquad_kernels:
+        launches[k] = counts[k]
+
     # ---- phase 4 (rate conversion): the BASELINE #4 main path ---------
     counts = rate_main_path(dev, rng, wrappers)
     for k in rate_kernels:
@@ -934,6 +1161,11 @@ def main():
                                                   29, time_chunk=TC),
                 lambda s: fastlo_ddc_cascade_bank_plain(
                     ba, s, tails, ph0, stp, x, 29, time_chunk=TC)),
+            "ddc_mix_df1_bank": (
+                lambda s: ddc_mix_df1_bank(ba, s, ph0, stp, x, 29,
+                                           out_dtype=torch.float32),
+                lambda s: ddc_mix_df1_bank_plain(ba, s, ph0, stp, x, 29,
+                                                 out_dtype=torch.float32)),
         }
         for name, (kern, plain) in cases.items():
             k_s, _ = measure_rate(kern, st, iters=20, trials=3)
@@ -994,6 +1226,29 @@ def main():
             k6(fastlo_ddc_bank_block_lp),
             k6(fastlo_ddc_bank_block_lp_plain), (lp0, pll0)),
     }
+
+    def k13(fn):
+        def step(s):
+            r = fn(ba_bank, pll_ba, *s, ph0, bank_steps, x, 29, d=DEC,
+                   time_chunk=TC)
+            return ((r[0], r[1]),) + r[2:]
+        return step
+
+    bq0 = biquad.df1_init((2 * c,), device=dev)
+    cases.update({
+        "df1_bank_q_dec": (
+            lambda s: df1_bank_q_dec(ba_bank, s, xs, 29, d=DEC),
+            lambda s: df1_bank_q_dec_plain(ba_bank, s, xs, 29, d=DEC), bq0),
+        "fastlo_df1_dec_bank": (
+            lambda s: fastlo_df1_dec_bank(ba_bank, s, ph0, bank_steps, x, 29,
+                                          d=DEC, time_chunk=TC),
+            lambda s: fastlo_df1_dec_bank_plain(ba_bank, s, ph0, bank_steps,
+                                                x, 29, d=DEC, time_chunk=TC),
+            bq0),
+        "fastlo_ddc_bank_block": (
+            k13(fastlo_ddc_bank_block), k13(fastlo_ddc_bank_block_plain),
+            (bq0, pll0)),
+    })
     for name, (kern, plain, st) in cases.items():
         k_s, _ = measure_rate(kern, st, iters=20, trials=3)
         p_s, _ = measure_rate(plain, st, iters=1, trials=1)
@@ -1023,6 +1278,18 @@ def main():
         if m != "scan":
             log_busy(timings, f"bank_{m}", c, sec, card, bank,
                      bank.init_state(), x)
+    timings["biquad_bank_samples_per_s"] = {}
+    for m, bank in bq_banks.items():
+        iters, trials = (1, 1) if m == "scan" else (10, 3)
+        sec, _ = measure_rate(bank, bank.init_state(), bq_x[0], iters=iters,
+                              trials=trials)
+        rate = c * T / sec
+        timings["biquad_bank_samples_per_s"][m] = rate
+        log(f"phase 6 c={c} biquad bank {m}: {sec * 1e3:.3f} ms/block, "
+            f"{rate:.6e} samples/s (c*t)  [{card}]")
+        if m != "scan":
+            log_busy(timings, f"biquad_bank_{m}", c, sec, card, bank,
+                     bank.init_state(), bq_x[0])
     time_rate(dev, rng, card, timings)
     print(json.dumps({"timings": timings}), flush=True)
 
@@ -1037,6 +1304,14 @@ def main():
                          "idsp_tpu/filters/lowpass_pallas.py:69"),
         "pll_bank": ("idsp_tpu_torch/csrc/pll_bank.cu",
                      "idsp_tpu/filters/pll_pallas.py:93"),
+        "df1_bank_q_dec": ("idsp_tpu_torch/csrc/df1_bank.cu",
+                           "idsp_tpu/filters/biquad_pallas.py:290"),
+        "fastlo_df1_dec_bank": ("idsp_tpu_torch/csrc/ddc_bank.cu",
+                                "idsp_tpu/filters/ddc_pallas.py:870"),
+        "fastlo_ddc_bank_block": ("idsp_tpu_torch/csrc/ddc_bank.cu",
+                                  "idsp_tpu/filters/ddc_pallas.py:1018"),
+        "ddc_mix_df1_bank": ("idsp_tpu_torch/csrc/ddc_mix_df1.cu",
+                             "idsp_tpu/filters/ddc_pallas.py:47"),
         "fastlo_ddc_bank_block_lp": ("idsp_tpu_torch/csrc/ddc_bank.cu",
                                      "idsp_tpu/filters/ddc_pallas.py:1066"),
         "hbf_dec_cascade_bank": ("idsp_tpu_torch/csrc/hbf_cascade.cu",
@@ -1052,7 +1327,7 @@ def main():
     kernels = []
     for name, (src, rep) in sources.items():
         c = (C_MAIN if name in chain_kernels else
-             C_BANK if name in bank_kernels else C_RATE)
+             C_BANK if name in bank_kernels + biquad_kernels else C_RATE)
         timed = timings["kernels"][name][c]
         bound_ms, bound_by, floor_ms = bounds(name, c, sm_mhz)
         kernels.append({

@@ -8,9 +8,9 @@ public layouts:
 * the headline DDC chain `bench.py` measures (`chain.DdcChain`) —
   per-channel conjugate NCO mix, Q32<29> DF1 biquad, three-stage
   half-band decimate-by-8;
-* the BASELINE #5 DDC bank, Lowpass variant
-  (`pipelines.ddc_bank.DdcBank`) — per-channel mix, `Lowpass<2>` on I
-  and Q, keep 1 in d, `atan2`, per-channel PLL;
+* the BASELINE #5 DDC bank (`pipelines.ddc_bank.DdcBank`, Lowpass
+  variant, and `DdcBankBiquad`, Q<f> DF1 variant) — per-channel mix,
+  the channel filter on I and Q, keep 1 in d, `atan2`, per-channel PLL;
 * the BASELINE #4 rate conversion (`pipelines.rate_conversion`,
   `RoundTrip`) — half-band decimate by 16 then interpolate by 16, and
   the CIC + half-band composite decimator.
@@ -38,10 +38,20 @@ from . import fxp, luts  # noqa: F401
 from .ops import accu, fastlo, trig  # noqa: F401
 from .ops.trig import cossin  # noqa: F401
 from .filters import cic, hbf  # noqa: F401
+from .filters.biquad_cuda import df1_bank_q_dec  # noqa: F401
+from .filters.ddc_bank_cuda import (  # noqa: F401
+    fastlo_ddc_bank_block, fastlo_df1_dec_bank,
+)
+from .filters.ddc_cuda import ddc_mix_df1_bank  # noqa: F401
 from .pipelines import rate_conversion  # noqa: F401
+from .pipelines.ddc_bank import (  # noqa: F401
+    DdcBankBiquad, DdcBankBiquadState, init_biquad,
+)
 from .pipelines.rate_conversion import RoundTrip  # noqa: F401
 
-__all__ = ["RoundTrip", "accu", "cic", "cossin", "fastlo", "fxp", "hbf",
-           "luts", "rate_conversion", "trig"]
+__all__ = ["DdcBankBiquad", "DdcBankBiquadState", "RoundTrip", "accu", "cic",
+           "cossin", "ddc_mix_df1_bank", "df1_bank_q_dec", "fastlo",
+           "fastlo_ddc_bank_block", "fastlo_df1_dec_bank", "fxp", "hbf",
+           "init_biquad", "luts", "rate_conversion", "trig"]
 
 __version__ = "0.1.0"

@@ -13,11 +13,14 @@ giving ``(t/8, 2c)`` f32.  Modes:
 * ``scan`` — the oracle, all plain: `cossin` mix, `df1_process_q`,
   time-last `hbf_dec_cascade` per I and Q (bench.py:213-236).
 * ``split`` — exact mix, K1 `df1_bank_q` (f32 out), time-major HBF.
+* ``fused`` — K14 `ddc_mix_df1_bank` (the exact mix in the DF1 kernel,
+  f32 out), time-major HBF; bit-identical to ``split``.
 * ``fold3`` — exact mix, K2 `df1_hbf_cascade_bank`.
 * ``fastlo_fused`` — K3 `fastlo_ddc_cascade_bank`: the whole chain in
   one kernel with the SNR-gated fast LO.
 
-``scan``, ``split`` and ``fold3`` carry bit-identical integer state.
+``scan``, ``split``, ``fused`` and ``fold3`` carry bit-identical integer
+state.
 State is ``(df1_state, dec_i, dec_q, phase0)`` as in bench.py; the
 output is ``(zi, zq)``, (c, t/8) each for ``scan`` and (t/8, c) each
 otherwise.
@@ -29,30 +32,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import fxp
 from .filters.biquad import df1_init, df1_process_q
 from .filters.biquad_cuda import df1_bank_q
-from .filters.ddc_cuda import (
+from .filters.ddc_cuda import (  # noqa: F401 (exact_mix: part of this API)
+    ddc_mix_df1_bank,
     df1_hbf_cascade_bank,
+    exact_mix,
     fastlo_ddc_cascade_bank,
     hbf1_tail_init,
 )
 from .filters.hbf import hbf_dec_cascade, hbf_dec_cascade_init
 from .ops import accu
-from .ops.trig import cossin
 
-MODES = ("scan", "split", "fold3", "fastlo_fused")
-
-
-def exact_mix(x: torch.Tensor, phase0: torch.Tensor, steps: torch.Tensor):
-    """Conjugate NCO mix with the exact `cossin` LO: (t, 2c) int32, I
-    lanes then Q lanes; sample n mixed with phase ``phase0 + steps*n``,
-    n = 1..t."""
-    lo_re, lo_im = cossin(accu.ramp_t(phase0, steps, x.shape[0]))
-    xi = x[:, None]
-    mi = fxp.q_apply(lo_re, xi, 32)
-    mq = fxp.q_apply(-lo_im, xi, 32)
-    return torch.cat([mi, mq], dim=1)
+MODES = ("scan", "split", "fused", "fold3", "fastlo_fused")
 
 
 class DdcChain(nn.Module):
@@ -90,7 +82,7 @@ class DdcChain(nn.Module):
             tails = tuple(hbf1_tail_init(2 * c, m, device=dev)
                           for m in (5, 10, 23))
             return (bq, None, tails, phase0)
-        if self.mode == "split":
+        if self.mode in ("split", "fused"):
             return (bq, hbf_dec_cascade_init(3, (2 * c,), axis=0, device=dev),
                     None, phase0)
         return (bq, hbf_dec_cascade_init(3, (c,), device=dev),
@@ -106,6 +98,12 @@ class DdcChain(nn.Module):
                 time_chunk=self.time_chunk,
             )
             return (bq_iq, dec_i, tails, phase0), (y8[:, :c], y8[:, c:])
+        if self.mode == "fused":
+            bq_iq, phase0, yiq = ddc_mix_df1_bank(
+                self.ba_q, bq_iq, phase0, self.steps, x, self.f,
+                out_dtype=torch.float32)
+            dec_i, ziq = hbf_dec_cascade(dec_i, yiq, axis=0)
+            return (bq_iq, dec_i, dec_q, phase0), (ziq[:, :c], ziq[:, c:])
         miq = exact_mix(x, phase0, self.steps)
         phase0 = accu.advance(phase0, self.steps, t)
         if self.mode == "fold3":

@@ -5,7 +5,8 @@ array), so this module needs no jax.  NamedTuples are matched by field
 names: ``(x, y)`` is a `Df1State`, ``(odd, even)`` an `HbfDecState`,
 ``(x,)`` an `HbfIntState`, ``(p,)`` a `LowpassState`, ``(x0, clamp)`` a
 `ClampWrapState`, the PLL fields a `PllState`, ``(nco_phase, lp_i,
-lp_q, pll)`` a `DdcBankState`, ``(combs, integrators, zoh)`` a
+lp_q, pll)`` a `DdcBankState`, ``(nco_phase, bq, pll)`` a
+`DdcBankBiquadState`, ``(combs, integrators, zoh)`` a
 `CicState` and ``(dec, int_)`` a `RateConvState`; tuples (per-stage tails, cascade states) keep their
 structure and ``None`` stays ``None``.  Dtypes cross unchanged (the
 PLL's clamp indicator stays int8).
@@ -22,14 +23,14 @@ from .filters.hbf import HbfDecState, HbfIntState
 from .filters.lowpass import LowpassState
 from .filters.pll import PllState
 from .ops.unwrap import ClampWrapState
-from .pipelines.ddc_bank import DdcBankState
+from .pipelines.ddc_bank import DdcBankBiquadState, DdcBankState
 from .pipelines.rate_conversion import RateConvState
 
 _STATES = {
     cls._fields: cls
     for cls in (Df1State, HbfDecState, HbfIntState, LowpassState,
-                ClampWrapState, PllState, DdcBankState, CicState,
-                RateConvState)
+                ClampWrapState, PllState, DdcBankState, DdcBankBiquadState,
+                CicState, RateConvState)
 }
 
 

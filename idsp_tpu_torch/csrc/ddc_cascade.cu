@@ -151,7 +151,9 @@ extern "C" int idsp_ddc_cascade(
   auto kernel = fastlo ? ddc_cascade_kernel<true> : ddc_cascade_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // a refused size is also the runtime's last error: take it, or the
+  // next launch of any kernel in this library would report it
+  if (err != cudaSuccess) return static_cast<int>(cudaGetLastError());
   const dim3 grid((c2 + kHbfLanes - 1) / kHbfLanes);
   kernel<<<grid, kHbfLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(xs), static_cast<const int32_t*>(x),

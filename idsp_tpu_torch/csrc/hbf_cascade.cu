@@ -178,7 +178,9 @@ int launch(Kernel kernel, size_t rows, const void* xs, const void* tails_in,
   const size_t smem = rows * kHbfLanes * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // a refused size is also the runtime's last error: take it, or the
+  // next launch of any kernel in this library would report it
+  if (err != cudaSuccess) return static_cast<int>(cudaGetLastError());
   const dim3 grid((c + kHbfLanes - 1) / kHbfLanes);
   kernel<<<grid, kHbfLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xs), static_cast<const float*>(tails_in),

@@ -1,23 +1,27 @@
-"""K2 and K3: the fused DDC cascade (port of the fused-cascade family of
-`idsp_tpu.filters.ddc_pallas`).
+"""K2, K3 and K14: the fused DDC kernels (port of the fused-cascade
+family and `ddc_mix_df1_bank` of `idsp_tpu.filters.ddc_pallas`).
 
 * `df1_hbf_cascade_bank` (K2): Q<f> DF1 bank + 2**depth half-band
   decimation in one kernel.
 * `fastlo_ddc_cascade_bank` (K3): K2 with the coarse/fine fast-LO
   conjugate mix computed in the kernel: the whole headline chain, which
   reads only ``x (t,)`` and small LO tables.
+* `ddc_mix_df1_bank` (K14): the exact `cossin` conjugate mix
+  (`exact_mix`) fused into the DF1 bank, bit-identical to mixing first.
 
-Both run ``csrc/ddc_cascade.cu`` for CUDA tensors and their plain
-PyTorch versions (``*_plain``) for CPU tensors; any other device
-raises.  Carried state follows the JAX package: `Df1State` (2c, 2) and
-one (3m-2, 2c) f32 tail per stage (`hbf1_tail_init`), ``2m-1`` odd
-rows then ``m-1`` even rows, stages highest rate first.
+K2 and K3 run ``csrc/ddc_cascade.cu``, K14 ``csrc/ddc_mix_df1.cu``, for
+CUDA tensors, and their plain PyTorch versions (``*_plain``) for CPU
+tensors; any other device raises.  Carried state follows the JAX
+package: `Df1State` (2c, 2) and one (3m-2, 2c) f32 tail per stage
+(`hbf1_tail_init`), ``2m-1`` odd rows then ``m-1`` even rows, stages
+highest rate first.
 
-The plain versions are the unfused composition: DF1 scan, f32 cast,
-`hbf.hbf_dec_block` per stage with each tail unpacked into its
-`HbfDecState`.  Time chunking does not change any value of K2, so its
-plain version runs the whole block at once; K3's fine table has length
-``time_chunk``, so its plain version builds the same tables.
+The plain versions are the unfused composition: K2/K3 the DF1 scan, f32
+cast, `hbf.hbf_dec_block` per stage with each tail unpacked into its
+`HbfDecState`; K14 `exact_mix`, the DF1 scan and the cast.  Time
+chunking does not change any value of K2, so its plain version runs the
+whole block at once; K3's fine table has length ``time_chunk``, so its
+plain version builds the same tables.
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _ext
+from .. import _ext, fxp
 from ..ops import accu
 from ..ops.fastlo import fastlo_mix_tables, fastlo_tables
+from ..ops.trig import cossin
 from .biquad import Df1State, _ba_list, df1_process_q
+from .biquad_cuda import df1_bank_q_plain
 from .hbf import HBF_TAPS, HbfDecState, hbf_dec_block
 
 
@@ -194,3 +200,75 @@ def fastlo_ddc_cascade_bank(ba, state: Df1State, tails, phase0, steps, x,
 
 
 fastlo_ddc_cascade_bank.launches = 0  # kernel launches since the last reset
+
+
+def exact_mix(x: torch.Tensor, phase0: torch.Tensor, steps: torch.Tensor):
+    """Conjugate NCO mix with the exact `cossin` LO: (t, 2c) int32, I
+    lanes then Q lanes; sample n mixed with phase ``phase0 + steps*n``,
+    n = 1..t."""
+    lo_re, lo_im = cossin(accu.ramp_t(phase0, steps, x.shape[0]))
+    xi = x[:, None]
+    mi = fxp.q_apply(lo_re, xi, 32)
+    mq = fxp.q_apply(-lo_im, xi, 32)
+    return torch.cat([mi, mq], dim=1)
+
+
+def ddc_mix_df1_bank_plain(ba, state: Df1State, phase0, steps, x,
+                           f: int = 29, *, out_dtype=None):
+    """Plain PyTorch version of `ddc_mix_df1_bank`: `exact_mix`, the DF1
+    scan, the cast."""
+    state, ys = df1_bank_q_plain(ba, state, exact_mix(x, phase0, steps), f,
+                                 out_dtype=out_dtype)
+    return state, accu.advance(phase0, steps, x.shape[0]), ys
+
+
+def ddc_mix_df1_bank(ba, state: Df1State, phase0, steps, x, f: int = 29, *,
+                     out_dtype=None):
+    """Exact-LO conjugate NCO mix + Q<f> DF1 bank in one kernel.
+
+    Args:
+      ba: (5,) i32 Q<f> coefficients.
+      state: Df1State with x/y (2c, 2) int32, I lanes then Q lanes.
+      phase0: (c,) i32 NCO phase before the first sample: row i of the
+        block mixes with ``cossin(phase0 + steps*(i+1))``, wrapping.
+      steps: (c,) i32 per-channel frequency words.
+      x: (t,) i32 wideband input.
+      out_dtype: None (int32) or torch.float32 (the state stays exact).
+
+    Returns (state, new_phase0, yiq) with yiq (t, 2c), bit-identical to
+    `exact_mix` then `df1_bank_q`.
+    """
+    if x.device.type == "cpu":
+        return ddc_mix_df1_bank_plain(ba, state, phase0, steps, x, f,
+                                      out_dtype=out_dtype)
+    if out_dtype not in (None, torch.int32, torch.float32):
+        raise ValueError(f"out_dtype must be int32 or float32, got {out_dtype}")
+    if not 0 < f < 64:
+        raise ValueError(f"f must be in (0, 64), got {f}")
+    t = x.shape[0]
+    c = phase0.shape[0]
+    dev = x.device
+    _ext.require("x", x, dev, torch.int32, (t,))
+    _ext.require("phase0", phase0, dev, torch.int32, (c,))
+    _ext.require("steps", steps, dev, torch.int32, (c,))
+    _ext.require("state.x", state.x, dev, torch.int32, (2 * c, 2))
+    _ext.require("state.y", state.y, dev, torch.int32, (2 * c, 2))
+    f32 = out_dtype == torch.float32
+    ys = torch.empty((t, 2 * c), dtype=torch.float32 if f32 else torch.int32,
+                     device=dev)
+    new_x = torch.empty_like(state.x)
+    new_y = torch.empty_like(state.y)
+    lib = _ext.library()
+    with torch.cuda.device(dev):
+        err = lib.idsp_ddc_mix_df1(
+            x.data_ptr(), phase0.data_ptr(), steps.data_ptr(),
+            state.x.data_ptr(), state.y.data_ptr(), new_x.data_ptr(),
+            new_y.data_ptr(), ys.data_ptr(), t, c, f, int(f32),
+            *_ba_list(ba), _ext.stream_ptr(dev),
+        )
+    _ext.check(err, "ddc_mix_df1_bank")
+    ddc_mix_df1_bank.launches += 1
+    return Df1State(x=new_x, y=new_y), accu.advance(phase0, steps, t), ys
+
+
+ddc_mix_df1_bank.launches = 0  # kernel launches since the last reset

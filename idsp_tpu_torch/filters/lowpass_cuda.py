@@ -12,12 +12,8 @@ from __future__ import annotations
 import torch
 
 from .. import _ext
+from .biquad_cuda import check_dec as _check_dec
 from .lowpass import LowpassState, _gains, block
-
-
-def _check_dec(t: int, dec: int) -> None:
-    if dec < 1 or t % dec:
-        raise ValueError(f"need dec >= 1 dividing t, got t={t}, dec={dec}")
 
 
 def lowpass_bank_plain(k, state: LowpassState, xs, *, dec: int = 1):

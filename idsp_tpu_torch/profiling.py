@@ -68,37 +68,46 @@ def short_name(name: str) -> str:
 def busy_share(step, state, *args, iters: int = 5):
     """How much of a run of ``iters`` chained calls the card is busy.
 
-    One untimed call warms up; then, under `torch.profiler`, CUDA events
-    bracket the chained calls as in `measure_rate`.  Device time is the
-    union of the spans of the profiler's device events (kernels, copies,
-    memsets) -- host-side operator rows are not counted.  Returns
-    ``(busy_s_per_call, window_s_per_call, by_name)``: device time and
-    the CUDA-event time of the profiled run, each divided by ``iters``,
-    and for each device event name (`short_name`) its ``(spans,
-    seconds_per_call)``.  A kernel launched k times per call shows
-    ``k * iters`` spans unless the profiler lost some of its records.
-    The profiler slows the host, not the card, so ``busy / window`` is a
-    lower bound on the busy share of a run without it.
+    `torch.profiler` runs on a schedule of two steps: a warm-up step (one
+    call, traced and dropped: it warms up the call and starts the device
+    tracer before the measured calls), then the recorded step, in which
+    CUDA events bracket the chained calls as in `measure_rate`.  Device
+    time is the union of the spans of the profiler's device events
+    (kernels, copies, memsets) -- host-side operator rows and the step's
+    own range are not counted.  Returns ``(busy_s_per_call,
+    window_s_per_call, by_name)``: device time and the CUDA-event time of
+    the recorded step, each divided by ``iters``, and for each device
+    event name (`short_name`) its ``(spans, seconds_per_call)``.  A kernel
+    launched k times per call shows ``k * iters`` spans unless the
+    profiler lost some of its records.  The profiler slows the host, not
+    the card, so ``busy / window`` is a lower bound on the busy share of
+    a run without it.
     """
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     if not torch.cuda.is_available():
         raise RuntimeError("busy_share profiles the CUDA device; none found")
-    step(state, *args)
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        step(state, *args)  # the warm-up step
+        torch.cuda.synchronize()
+        prof.step()
         st = state
         start.record()
         for _ in range(iters):
             st = step(st, *args)[0]
         end.record()
         end.synchronize()
+        prof.step()
     window = start.elapsed_time(end) / 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the schedule's own "ProfilerStep#n" range also shows on the device:
+    # it spans the whole step and is no device work
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("ProfilerStep")]
     if not events:
         raise RuntimeError("torch.profiler recorded no device activity")
     spans = [(e.time_range.start, e.time_range.end) for e in events]

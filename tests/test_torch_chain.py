@@ -7,7 +7,10 @@ port mode runs 3 consecutive blocks on CPU tensors (plain versions):
 integer state (DF1 state, phase) bit for bit, outputs within
 16 * spacing(max |DF1 output|) (the JAX package's FIR bound).  The
 fast-LO chain is held to the coherent-carrier SNR gate of
-tests/test_chain_snr.py:75-126.
+tests/test_chain_snr.py:75-126.  Mode ``fused`` is also held to
+bench.py's ``fused`` step (bench.py:199-212: the interpret-mode JAX
+kernel `ddc_mix_df1_bank`, then the time-major HBF): state bit for bit,
+outputs within the same FIR bound.
 """
 
 import jax
@@ -20,6 +23,7 @@ from idsp_tpu import fxp as jfxp
 from idsp_tpu.design import Filter as JFilter
 from idsp_tpu.filters import biquad as jbiquad
 from idsp_tpu.filters import hbf as jhbf
+from idsp_tpu.filters.ddc_pallas import ddc_mix_df1_bank as j_ddc_mix_df1_bank
 from idsp_tpu.ops.trig import cossin as jcossin
 
 from idsp_tpu_torch.chain import MODES, DdcChain
@@ -52,7 +56,18 @@ def _jax_scan_block(state, x, steps):
     return (bq_iq, dec_i, dec_q, phase0), (zi, zq), yiq
 
 
-@pytest.mark.parametrize("mode", ["scan", "split", "fold3"])
+def _jax_fused_block(state, x, steps):
+    """bench.py:199-212 (mode "fused") for one block."""
+    bq_iq, dec_i, dec_q, phase0 = state
+    c = steps.shape[0]
+    bq_iq, phase0, yiq = j_ddc_mix_df1_bank(
+        BA_Q, bq_iq, phase0, steps, x, 29, time_chunk=512,
+        out_dtype=jnp.float32, interpret=True)
+    dec_i, ziq = jhbf.hbf_dec_cascade(dec_i, yiq, axis=0)
+    return (bq_iq, dec_i, dec_q, phase0), (ziq[:, :c], ziq[:, c:]), yiq
+
+
+@pytest.mark.parametrize("mode", ["scan", "split", "fused", "fold3"])
 def test_exact_modes_match_jax_scan(mode):
     c, t = 128, 512
     rng = np.random.default_rng(20)
@@ -81,6 +96,33 @@ def test_exact_modes_match_jax_scan(mode):
         for got, want in ((zi, jzi), (zq, jzq)):
             assert tuple(got.shape) == want.shape == (c, t // 8)
             assert np.abs(got.numpy() - np.asarray(want)).max() <= bound
+
+
+def test_fused_matches_jax_fused_step():
+    c, t = 128, 256
+    rng = np.random.default_rng(21)
+    steps = rng.integers(1 << 24, 1 << 30, size=(c,)).astype(np.int32)
+    chain = DdcChain("fused", torch.from_numpy(steps), BA_Q)
+    state = chain.init_state()
+    jstate = (jbiquad.df1_init((2 * c,), jnp.int32),
+              jhbf.hbf_dec_cascade_init(3, (2 * c,), axis=0), None,
+              jnp.zeros((c,), jnp.int32))
+    for _ in range(2):
+        x = rng.integers(-(2**27), 2**27, size=(t,)).astype(np.int32)
+        jstate, (jzi, jzq), yiq = _jax_fused_block(jstate, jnp.asarray(x),
+                                                   jnp.asarray(steps))
+        state, (zi, zq) = chain(state, torch.from_numpy(x))
+        for got, want in ((state[0].x, jstate[0].x), (state[0].y, jstate[0].y),
+                          (state[3], jstate[3])):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        bound = 16 * np.spacing(np.float32(np.abs(np.asarray(yiq)).max()))
+        for got, want in ((zi, jzi), (zq, jzq)):
+            assert tuple(got.shape) == want.shape == (t // 8, c)
+            assert np.abs(got.numpy() - np.asarray(want)).max() <= bound
+        for got, want in zip(state[1], jstate[1]):  # HBF tails
+            assert np.abs(got.odd.numpy() - np.asarray(want.odd)).max() <= bound
+            assert np.abs(got.even.numpy()
+                          - np.asarray(want.even)).max() <= bound
 
 
 def test_fastlo_fused_chain_snr():
@@ -119,4 +161,4 @@ def test_chain_state_shapes_and_unknown_mode():
             assert [tuple(tl.shape) for tl in dec_q] == [(13, 16), (28, 16),
                                                           (67, 16)]
     with pytest.raises(ValueError):
-        DdcChain("fused", steps, BA_Q)
+        DdcChain("fold", steps, BA_Q)

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K10 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K14 against their plain PyTorch versions, on the card.
 
 Marked ``requires_cuda``; each test skips (inside its fixture) where no
 CUDA device is present.  No jax here, so the file also runs where only
@@ -6,7 +6,7 @@ PyTorch is installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
 
-On the card every K1-K10 output must equal its plain version bit for bit:
+On the card every K1-K14 output must equal its plain version bit for bit:
 the integer paths are the same int64 arithmetic, and the kernels' f32
 operations are single-rounding intrinsics in the plain versions' order,
 as eager PyTorch rounds each operation.
@@ -18,8 +18,15 @@ import torch
 
 from idsp_tpu_torch.design import Filter
 from idsp_tpu_torch.filters import biquad
-from idsp_tpu_torch.filters.biquad_cuda import df1_bank_q, df1_bank_q_plain
+from idsp_tpu_torch.filters.biquad_cuda import (
+    df1_bank_q,
+    df1_bank_q_dec,
+    df1_bank_q_dec_plain,
+    df1_bank_q_plain,
+)
 from idsp_tpu_torch.filters.ddc_cuda import (
+    ddc_mix_df1_bank,
+    ddc_mix_df1_bank_plain,
     df1_hbf_cascade_bank,
     df1_hbf_cascade_bank_plain,
     fastlo_ddc_cascade_bank,
@@ -34,8 +41,12 @@ from idsp_tpu_torch.filters.cic_cuda import (
     cic_int_bank_plain,
 )
 from idsp_tpu_torch.filters.ddc_bank_cuda import (
+    fastlo_ddc_bank_block,
     fastlo_ddc_bank_block_lp,
     fastlo_ddc_bank_block_lp_plain,
+    fastlo_ddc_bank_block_plain,
+    fastlo_df1_dec_bank,
+    fastlo_df1_dec_bank_plain,
 )
 from idsp_tpu_torch.filters.hbf import HBF_TAPS
 from idsp_tpu_torch.filters.hbf_cuda import (
@@ -289,3 +300,112 @@ def test_rate_conversion_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError):  # 9 integrator stages
         cic_dec_bank(cic.init(9, 1, (128,), device=cuda),
                      torch.zeros((32, 128), dtype=torch.int32, device=cuda), 15)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d,out_dtype,t", [(16, None, 1024), (12, None, 996),
+                                           (16, torch.float32, 1024)])
+def test_df1_bank_q_dec_kernel_equals_plain(cuda, d, out_dtype, t):
+    # c not a multiple of the 32-lane block; t = 996 leaves a tail of rows
+    # after the last full prefetch group
+    c = 200
+    rng = np.random.default_rng(39)
+    st = biquad.Df1State(x=_i32(rng, (c, 2), device=cuda),
+                         y=_i32(rng, (c, 2), device=cuda))
+    st_p = st
+    for _ in range(3):
+        xs = _i32(rng, (t, c), device=cuda)
+        st, ys = df1_bank_q_dec(BA_Q, st, xs, 29, d=d, out_dtype=out_dtype)
+        st_p, ys_p = df1_bank_q_dec_plain(BA_Q, st_p, xs, 29, d=d,
+                                          out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, ys), (st_p.x, st_p.y, ys_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("with_pll", [False, True])
+@pytest.mark.parametrize("d,tc,t", [(16, 128, 1024), (16, 32, 1024),
+                                    (12, 96, 768)])
+def test_fastlo_df1_bank_kernels_equal_plain(cuda, with_pll, d, tc, t):
+    """K12 (without the PLL) and K13 (with it)."""
+    c = 100
+    rng = np.random.default_rng(40)
+    ba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    steps = _i32(rng, (c,), 1 << 24, 1 << 30, device=cuda)
+    st = biquad.Df1State(x=_i32(rng, (2 * c, 2), -(2**27), 2**27, device=cuda),
+                         y=_i32(rng, (2 * c, 2), -(2**27), 2**27, device=cuda))
+    carry = (st, pll.init((c,), device=cuda), _i32(rng, (c,), device=cuda))
+    carry_p = carry
+    for _ in range(3):
+        x = _i32(rng, (t,), -(2**27), 2**27, device=cuda)
+        if with_pll:
+            out = fastlo_ddc_bank_block(BA_Q, ba, *carry, steps, x, 29, d=d,
+                                        time_chunk=tc)
+            out_p = fastlo_ddc_bank_block_plain(BA_Q, ba, *carry_p, steps, x,
+                                                29, d=d, time_chunk=tc)
+            carry, carry_p = out[:3], out_p[:3]
+        else:
+            out = fastlo_df1_dec_bank(BA_Q, carry[0], carry[2], steps, x, 29,
+                                      d=d, time_chunk=tc)
+            out_p = fastlo_df1_dec_bank_plain(BA_Q, carry_p[0], carry_p[2],
+                                              steps, x, 29, d=d, time_chunk=tc)
+            carry = (out[0], carry[1], out[1])
+            carry_p = (out_p[0], carry_p[1], out_p[1])
+        torch.cuda.synchronize()
+        _equal(out, out_p)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_ddc_mix_df1_kernel_equals_plain(cuda, out_dtype):
+    # 200 lanes: not a multiple of the 32-lane block; t = 1000 leaves a
+    # tail of rows after the last full prefetch group; full-range x and
+    # phases take the mix to its extremes and every octant of the LO
+    c, t = 100, 1000
+    rng = np.random.default_rng(41)
+    steps = _i32(rng, (c,), device=cuda)
+    st = biquad.Df1State(x=_i32(rng, (2 * c, 2), device=cuda),
+                         y=_i32(rng, (2 * c, 2), -(2**28), 2**28, device=cuda))
+    ph = _i32(rng, (c,), device=cuda)
+    st_p, ph_p = st, ph
+    for _ in range(3):
+        x = _i32(rng, (t,), device=cuda)
+        st, ph, y = ddc_mix_df1_bank(BA_Q, st, ph, steps, x, 29,
+                                     out_dtype=out_dtype)
+        st_p, ph_p, y_p = ddc_mix_df1_bank_plain(BA_Q, st_p, ph_p, steps, x,
+                                                 29, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, ph, y), (st_p.x, st_p.y, ph_p, y_p))
+
+
+@pytest.mark.requires_cuda
+def test_biquad_bank_wrappers_reject_bad_input(cuda):
+    st = biquad.df1_init((128,), device=cuda)
+    xs = torch.zeros((100, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # 100 % 16 != 0
+        df1_bank_q_dec(BA_Q, st, xs, 29, d=16)
+    steps = torch.zeros((64,), dtype=torch.int32, device=cuda)
+    x = torch.zeros((256,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # time_chunk % d != 0
+        fastlo_df1_dec_bank(BA_Q, st, steps, steps, x, 29, d=16,
+                            time_chunk=24)
+    with pytest.raises(ValueError):  # the state is (2c, 2)
+        fastlo_ddc_bank_block(BA_Q, pll.coefficients_from_bandwidth(2e-2),
+                              biquad.df1_init((64,), device=cuda),
+                              pll.init((64,), device=cuda), steps, steps, x)
+    with pytest.raises(ValueError):  # int64 output
+        ddc_mix_df1_bank(BA_Q, st, steps, steps, x, out_dtype=torch.int64)
+
+
+@pytest.mark.requires_cuda
+def test_refused_launch_leaves_no_pending_error(cuda):
+    """A launch refused for its shared memory raises, and the next
+    kernel of the library launches as usual."""
+    itp = hbf.hbf_int_cascade_init(4, (128,), axis=0, device=cuda)
+    with pytest.raises(RuntimeError):
+        hbf_int_cascade_bank(itp, torch.zeros((128, 128), device=cuda),
+                             time_chunk=128)
+    st = biquad.df1_init((128,), device=cuda)
+    xs = torch.ones((64, 128), dtype=torch.int32, device=cuda)
+    _equal(df1_bank_q_dec(BA_Q, st, xs, 29, d=16),
+           df1_bank_q_dec_plain(BA_Q, st, xs, 29, d=16))

@@ -70,6 +70,36 @@ def test_profiler_event_short_name(name, short):
     assert profiling.short_name(name) == short
 
 
+def test_ab_time_loads_a_second_copy_of_the_port():
+    """`ab_time.load_tree` imports a checkout's package under a name of
+    its own: distinct modules, its own build root, the same words."""
+    import importlib
+    from pathlib import Path
+
+    from idsp_tpu_torch import ab_time
+    from idsp_tpu_torch.filters.biquad_cuda import df1_bank_q
+
+    root = Path(__file__).resolve().parent.parent
+    try:
+        ab_time.load_tree(str(root), "ab_test_copy")
+        other = importlib.import_module("ab_test_copy.filters.biquad_cuda")
+        ext = importlib.import_module("ab_test_copy._ext")
+        assert other.df1_bank_q is not df1_bank_q
+        assert ext.BUILD_ROOT == root / "build" / "idsp_tpu_torch"
+        rng = np.random.default_rng(5)
+        ba = biquad.quantize_ba(biquad.from_cookbook(
+            Filter().critical_frequency(0.02).lowpass()), 29)
+        st = biquad.df1_init((4,), device="cpu")
+        xs = _t(_i32(rng, (64, 4), -(2**27), 2**27))
+        got = other.df1_bank_q(ba, st, xs, 29)
+        want = df1_bank_q(ba, st, xs, 29)
+        for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
+            assert torch.equal(a, b)
+    finally:
+        for k in [k for k in sys.modules if k.split(".")[0] == "ab_test_copy"]:
+            del sys.modules[k]
+
+
 def test_copied_constants_equal_reference():
     np.testing.assert_array_equal(luts.cossin_table(), jluts.cossin_table())
     assert luts.COSSIN_DEPTH == jluts.COSSIN_DEPTH
