@@ -4,10 +4,12 @@
 Builds the CUDA kernels from ``idsp_tpu_torch/csrc``, holds each kernel
 against its plain PyTorch version, drives the main paths -- the
 headline DDC chain (`DdcChain`), the BASELINE #5 DDC bank in its Lowpass
-(`DdcBank`) and biquad (`DdcBankBiquad`) variants and the BASELINE #4
+(`DdcBank`) and biquad (`DdcBankBiquad`) variants, the BASELINE #4
 rate conversion (`RoundTrip`, the CIC + half-band composite decimator,
-CIC interpolation) -- through their kernel modes, checks the results and
-times kernels, chain, banks and rate conversion.
+CIC interpolation), and BASELINE #1-#3 (`FmReceiver`, `DdcLockinBank`,
+`channelize_planes`) -- through their kernel modes, checks the results
+and times kernels, chain, banks, rate conversion, FM, lock-in and
+channelizer.
 Phases, each reported on its own line:
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
@@ -23,8 +25,12 @@ Phases, each reported on its own line:
    ((2048, 512) i32 in +-2^10); K11 `df1_bank_q_dec`, K12
    `fastlo_df1_dec_bank` and K13 `fastlo_ddc_bank_block` at c=1024,
    d=16, time chunk 128; K14 `ddc_mix_df1_bank` (f32 out, x and steps
-   full range) at c=512 and 1024; state, tails and outputs bit for bit
-   (tolerance 0);
+   full range) at c=512 and 1024; K15 `fm_disc_bank` (exact and fast
+   angle; c=512, IQ = cossin of random phases) and K16 `ddc_lockin_bank`
+   (c=512, time chunk 512, x ~ N(0, 1), n0 carried); state, tails and
+   outputs bit for bit (tolerance 0); K17 `channelize_fused` (m=1024,
+   n=1024 frames, f32 and bf16) within 2e-5 of the output scale, its
+   history and two chained blocks against one bit for bit;
 4. the main paths, each with every launch counter reset just before it
    and read just after:
    * `DdcChain` in ``split`` (K1), ``fused`` (K14), ``fold3`` (K2) and
@@ -60,6 +66,21 @@ Phases, each reported on its own line:
      CIC interpolation bit for bit, the composite output within 16 ULP;
      then the quality gates of tests/test_rate_ddc_bank.py:11-54 in
      kernel mode, each lane with its own tone or level;
+   * BASELINE #1 (benches/suite.py:751-794): `FmReceiver` in ``scan``,
+     ``composed`` (K1), ``kernel`` (K15) and ``kernel_fast`` at c=512,
+     t=32768, carrier 12345, Q32<30> deemphasis at 0.02, over 3 blocks:
+     ``kernel`` == ``composed`` == ``scan`` on every word,
+     ``kernel_fast`` within 1024 LSB; `run_fm_disc` with K15 (both
+     angles) against fm_disc.rs:151-157;
+   * BASELINE #2 (suite.py:899-931): `DdcLockinBank` ``scan`` and
+     ``kernel`` (K16) at c=512, t=32768, lowpass 0.002, over 3 blocks:
+     within 2e-5; a tone at channel 40 against the gates of
+     tests/test_structures_pallas.py:214-229;
+   * BASELINE #3 (suite.py:960-1012): `channelize_planes` ``fused``
+     (K17) and ``xla`` at m=1024, 8 taps, n=1024 (3 blocks) and 16384,
+     bf16 and f32: fused within 2e-5 of the scale; a tone at channel 100
+     through the fused path, p[100] > 1e4 x the rest at f32, > 10x at
+     bf16;
 5. every kernel's launch counter > 0 from its main path's run;
 6. CUDA-event times of each kernel and its plain version, of the plain
    layers around them (exact mix, time-major HBF, fast mix, atan2),
@@ -70,7 +91,11 @@ Phases, each reported on its own line:
    library yardsticks (grouped `F.conv1d` per half-band stage, TF32
    off; chained `torch.cumsum` and `torch.diff` for the CIC),
    round-trip and composite
-   rates at c=512 and 1024; for each kernel mode, the device's busy
+   rates at c=512 and 1024; K15 (both angles) and K16 at c=512 with the
+   FM and lock-in modes' block times; K17 (bf16 and f32) at n=1024 and
+   16384 beside its plain version and its library yardstick (the FIR in
+   torch ops and `torch.matmul` of the four products, TF32 off), with
+   the planes path's rates (n*m samples/s); for each kernel mode, the device's busy
    share (`torch.profiler` device time over the CUDA-event block time)
    with each device event's span count and time; the run's wall time.
    Each kernel's roofline bound (bytes over 3.35 TB/s or operations over
@@ -113,6 +138,10 @@ C_RATE, DEPTH, CIC_R = 512, 4, 16  # BASELINE #4 (benches/suite.py:796-851)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 33.5e12
 I32_OPS_PER_S = 16.7e12
+# K17's products: f32 FMAs at the data sheet's 67 Tflop/s (an FMA two
+# flops), bf16 on the tensor cores at 989 Tflop/s dense.
+F32_FMA_FLOPS_PER_S = 67e12
+BF16_MMA_FLOPS_PER_S = 989e12
 # An estimate, not a measurement, printed on the log line only: the
 # latency floor of a serial recurrence, its dependent operations per step
 # (read off the source; each 64-bit operation counted once) at an assumed
@@ -120,6 +149,11 @@ I32_OPS_PER_S = 16.7e12
 CYCLES_PER_DEPENDENT_OP = 4
 BUSY_ITERS = 5  # chained blocks under the profiler per busy-share reading
 M_DEC3, M_DEC4, M_INT4 = (5, 10, 23), (4, 5, 10, 23), (23, 10, 5, 4)
+# BASELINE #1-#3 at the widths of benches/suite.py:751-1012
+C_FM, FM_CARRIER = 512, 12345  # FM bank; carrier word of suite.py:760
+C_LOCKIN, TC_LOCKIN = 512, 512  # lock-in channels, LO table chunk
+M_CH, CH_TAPS = 1024, 8  # channelizer branches, prototype taps
+N_CH = (1024, 16384)  # frames per block (suite.py:960, 1005)
 
 
 def fir_dec_ops(t, ms):
@@ -134,79 +168,133 @@ def fir_int_ops(t, ms):
     return sum((t << d) * (3 * m - 1) for d, m in enumerate(ms))
 
 
+def _w(nbytes, f32, i32, steps, chain, fma=0, mma=0):
+    """One kernel call's work: bytes moved, f32 operations issued one by
+    one, int32 operations, f32 flops of FMAs (2 each), bf16 tensor-core
+    flops, serial steps and dependent operations per step."""
+    return {"bytes": nbytes, "f32": f32, "i32": i32, "fma": fma, "mma": mma,
+            "steps": steps, "chain": chain}
+
+
 def work(name, c, t=T):
-    """(bytes, f32 ops, int32 ops, serial steps, dependent ops per step)
-    of one call of a kernel at the shapes phase 6 times it: c channels
-    (2c I|Q lanes for K1-K6 and K11-K14, c lanes for K7-K10), t full-rate
-    rows.  Operation counts are read off the kernels' sources."""
+    """The `_w` work of one call of a kernel at the shapes phase 6 times
+    it: c channels (2c I|Q lanes for K1-K6 and K11-K14, c lanes for
+    K7-K10, c channels for K15 and K16, c frames of M_CH branches for K17),
+    t full-rate rows.  Operation counts are read off the kernels' sources."""
     c2 = 2 * c
     tails3 = 2 * 4 * sum(3 * m - 2 for m in M_DEC3) * c2
     tables = 2 * 4 * (t // TC + TC) * c  # fast-LO factor tables
     if name == "df1_bank_q":  # 5 products, 4 adds, shift, convert
-        return 8 * t * c2 + 32 * c2, 0, 11 * t * c2, t, 3
+        return _w(8 * t * c2 + 32 * c2, 0, 11 * t * c2, t, 3)
     if name == "df1_hbf_cascade_bank":
-        return (4 * t * c2 + 4 * (t // 8) * c2 + tails3 + 32 * c2,
-                fir_dec_ops(t, M_DEC3) * c2, 11 * t * c2, t, 3)
+        return _w(4 * t * c2 + 4 * (t // 8) * c2 + tails3 + 32 * c2,
+                  fir_dec_ops(t, M_DEC3) * c2, 11 * t * c2, t, 3)
     if name == "fastlo_ddc_cascade_bank":  # + 6 f32 ops of mix per sample
-        return (4 * t + tables + 4 * (t // 8) * c2 + tails3 + 32 * c2,
-                (6 * t + fir_dec_ops(t, M_DEC3)) * c2, 11 * t * c2, t, 3)
+        return _w(4 * t + tables + 4 * (t // 8) * c2 + tails3 + 32 * c2,
+                  (6 * t + fir_dec_ops(t, M_DEC3)) * c2, 11 * t * c2, t, 3)
     if name == "lowpass_bank":  # Lowpass<2>: 9 int ops per sample
-        return (4 * t * c2 + 4 * (t // DEC) * c2 + 32 * c2, 0,
-                9 * t * c2, t, 8)
+        return _w(4 * t * c2 + 4 * (t // DEC) * c2 + 32 * c2, 0,
+                  9 * t * c2, t, 8)
     if name == "pll_bank":  # about 25 int ops per kept row
         rows = t // DEC
-        return 8 * rows * c + 72 * c, 0, 25 * rows * c, rows, 12
+        return _w(8 * rows * c + 72 * c, 0, 25 * rows * c, rows, 12)
     if name == "fastlo_ddc_bank_block_lp":  # mix, 2 lowpasses, atan2+PLL
-        return (4 * t + tables + 12 * (t // DEC) * c + 32 * c2 + 80 * c,
-                6 * t * c2, 9 * t * c2 + 55 * (t // DEC) * c, t, 8)
+        return _w(4 * t + tables + 12 * (t // DEC) * c + 32 * c2 + 80 * c,
+                  6 * t * c2, 9 * t * c2 + 55 * (t // DEC) * c, t, 8)
     if name == "df1_bank_q_dec":  # K1's DF1, t/d rows out
-        return 4 * t * c2 + 4 * (t // DEC) * c2 + 32 * c2, 0, 11 * t * c2, t, 3
+        return _w(4 * t * c2 + 4 * (t // DEC) * c2 + 32 * c2, 0,
+                  11 * t * c2, t, 3)
     if name == "fastlo_df1_dec_bank":  # mix, 2 DF1s, t/d rows out
-        return (4 * t + tables + 8 * (t // DEC) * c + 32 * c2, 6 * t * c2,
-                11 * t * c2, t, 3)
+        return _w(4 * t + tables + 8 * (t // DEC) * c + 32 * c2, 6 * t * c2,
+                  11 * t * c2, t, 3)
     if name == "fastlo_ddc_bank_block":  # K12, then atan2 + PLL
-        return (4 * t + tables + 8 * (t // DEC) * c + 32 * c2 + 72 * c,
-                6 * t * c2, 11 * t * c2 + 55 * (t // DEC) * c, t, 3)
+        return _w(4 * t + tables + 8 * (t // DEC) * c + 32 * c2 + 72 * c,
+                  6 * t * c2, 11 * t * c2 + 55 * (t // DEC) * c, t, 3)
     if name == "ddc_mix_df1_bank":  # per channel and row: the LO 38 (once,
         # though the kernel's I and Q lanes each make it), then per lane
         # the mix 2 and the DF1 11
-        return (4 * t + 8 * c + 4 * t * c2 + 32 * c2, 0,
-                (38 + 2 * 2 + 2 * 11) * t * c, t, 3)
+        return _w(4 * t + 8 * c + 4 * t * c2 + 32 * c2, 0,
+                  (38 + 2 * 2 + 2 * 11) * t * c, t, 3)
     if name == "hbf_dec_cascade_bank":
-        return (4 * t * c + 4 * (t >> DEPTH) * c
-                + 2 * 4 * sum(3 * m - 2 for m in M_DEC4) * c,
-                fir_dec_ops(t, M_DEC4) * c, 0, 0, 0)
+        return _w(4 * t * c + 4 * (t >> DEPTH) * c
+                  + 2 * 4 * sum(3 * m - 2 for m in M_DEC4) * c,
+                  fir_dec_ops(t, M_DEC4) * c, 0, 0, 0)
     if name == "hbf_int_cascade_bank":  # t low-rate rows in
         low = t >> DEPTH
-        return (4 * low * c + 4 * t * c
-                + 2 * 4 * sum(2 * m - 1 for m in M_INT4) * c,
-                fir_int_ops(low, M_INT4) * c, 0, 0, 0)
+        return _w(4 * low * c + 4 * t * c
+                  + 2 * 4 * sum(2 * m - 1 for m in M_INT4) * c,
+                  fir_int_ops(low, M_INT4) * c, 0, 0, 0)
     # K9/K10 as phase 6 times them, through the wrapper: the kernel's N = 3
     # wrapping adds per fast row and the plain combs' 3 subtractions per
     # slow row; state read and written once (integrators and combs, (c, 3)
     # each) and the zoh row written
     slow, state = t // CIC_R, 52 * c
     if name == "cic_dec_bank":
-        return 4 * t * c + 4 * slow * c + state, 0, 3 * (t + slow) * c, t, 1
+        return _w(4 * t * c + 4 * slow * c + state, 0, 3 * (t + slow) * c,
+                  t, 1)
     if name == "cic_int_bank":  # t // R slow rows in, t fast rows out
-        return 4 * slow * c + 4 * t * c + state, 0, 3 * (t + slow) * c, t, 1
+        return _w(4 * slow * c + 4 * t * c + state, 0, 3 * (t + slow) * c,
+                  t, 1)
+    if name == "fm_disc_bank":  # exact angle, per sample: the conjugate
+        # product (4 wide products and 2 wide sums, 2 ops each, and the
+        # negation) 13, atan2 ~50, the carrier 1, the DF1 11; IQ in, y
+        # out, 7 state words in and out
+        return _w(12 * t * c + 56 * c, 0, 75 * t * c, t, 3)
+    if name == "fm_disc_bank_fast":  # f32 product 10 (4 casts), f32 angle
+        # 23 (abs 2, min/max 3, divide 1, Horner 13, fold 3, scale, round,
+        # clamp, cast 4); the carrier and the DF1 12 int
+        return _w(12 * t * c + 56 * c, 37 * t * c, 12 * t * c, t, 3)
+    if name == "ddc_lockin_bank":  # per channel and row: the LO 6, the mix
+        # 2 and the negation, the two f32 DF1s 9 each; x in, tables, (t, 2c)
+        # out, state (2c, 2) x2 in and out
+        tabs = 2 * 4 * (t // TC_LOCKIN + TC_LOCKIN) * c
+        return _w(4 * t + tabs + 4 * t * c2 + 32 * c2, 27 * t * c, 0, t, 3)
+    if name in ("channelize_fused", "channelize_fused_f32"):  # c frames:
+        # the FIR 2 planes x (taps products + taps-1 sums) per sample; the
+        # DFT 8m flops per complex sample; planes in and out, twiddles,
+        # coefficients and history
+        n, m = c, M_CH
+        tw = 2 if name == "channelize_fused" else 4
+        nbytes = (16 * n * m + 2 * tw * m * m + 4 * CH_TAPS * m
+                  + 4 * 4 * (CH_TAPS - 1) * m)
+        fir = 2 * (2 * CH_TAPS - 1) * n * m
+        dft = 8 * m * n * m
+        if name == "channelize_fused":
+            return _w(nbytes, fir, 0, 0, 0, mma=dft)
+        return _w(nbytes, fir, 0, 0, 0, fma=dft)
     raise KeyError(name)
 
 
 def bounds(name, c, sm_mhz):
     """(bound_ms, bound_by, estimated latency floor ms or None) of
-    `work`."""
-    nbytes, f32_ops, i32_ops, steps, chain = work(name, c)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(f32_ops / F32_OPS_PER_S, i32_ops / I32_OPS_PER_S)
-    floor = (steps * chain * CYCLES_PER_DEPENDENT_OP / (sm_mhz * 1e6) * 1e3
-             if steps else None)
+    `work`: the larger of the bytes over the memory rate and each kind of
+    operation over its peak."""
+    w = work(name, c)
+    t_bytes = w["bytes"] / HBM_BYTES_PER_S
+    t_ops = max(w["f32"] / F32_OPS_PER_S, w["i32"] / I32_OPS_PER_S,
+                w["fma"] / F32_FMA_FLOPS_PER_S, w["mma"] / BF16_MMA_FLOPS_PER_S)
+    floor = (w["steps"] * w["chain"] * CYCLES_PER_DEPENDENT_OP
+             / (sm_mhz * 1e6) * 1e3 if w["steps"] else None)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", floor)
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def log_bound(name, c, ms, sm_mhz):
+    """The `bound` log line of one kernel: its roofline bound and terms,
+    and the estimated latency floor of a recurrence (not measured)."""
+    bound_ms, bound_by, floor_ms = bounds(name, c, sm_mhz)
+    w = work(name, c)
+    log(f"bound {name} at c={c}: {bound_ms:.6f} ms ({bound_by}: "
+        f"{w['bytes'] / 1e6:.2f} MB, {w['f32'] / 1e6:.1f} M f32 ops, "
+        f"{w['i32'] / 1e6:.1f} M int32 ops, {w['fma'] / 1e9:.2f} G f32 FMA "
+        f"flops, {w['mma'] / 1e9:.2f} G bf16 tensor flops); estimated "
+        f"latency floor {floor_ms} ms ({w['steps']} steps x {w['chain']} "
+        f"dependent ops x {CYCLES_PER_DEPENDENT_OP} cycles at "
+        f"{sm_mhz:.0f} MHz, not measured); kernel {ms:.4f} ms")
 
 
 def card_line():
@@ -271,6 +359,14 @@ def log_busy(timings, key, c, sec, card, step, state, *args):
     from idsp_tpu_torch.profiling import busy_share
 
     busy, window, by_name = busy_share(step, state, *args, iters=BUSY_ITERS)
+    if busy is None:
+        timings["busy_share"].setdefault(key, {})[c] = {
+            "device_ms": None, "profiled_ms": window * 1e3, "ms": sec * 1e3,
+            "spans": {}}
+        log(f"phase 6 c={c} {key} busy: not measured (the profiler recorded "
+            f"no device event in {BUSY_ITERS} blocks of {window * 1e3:.3f} "
+            f"ms)  [{card}]")
+        return
     timings["busy_share"].setdefault(key, {})[c] = {
         "device_ms": busy * 1e3, "profiled_ms": window * 1e3,
         "ms": sec * 1e3,
@@ -785,6 +881,499 @@ def biquad_bank_main_path(dev, i32, rng, ba_bank, pll_ba, wrappers):
     return counts, banks, xs
 
 
+def fm_inputs(dev, rng):
+    """The FM bank's (T, C_FM) IQ planes: `cossin` of uniform random int32
+    phases (benches/suite.py:751-756)."""
+    import torch
+    from idsp_tpu_torch.ops.trig import cossin
+
+    ph = rng.integers(-(2**31), 2**31, size=(T, C_FM), dtype=np.int64)
+    re, im = cossin(torch.from_numpy(ph.astype(np.int32)).to(dev))
+    return re.contiguous(), im.contiguous()
+
+
+def normal_f32(dev, rng, shape):
+    import torch
+
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+
+def lockin_setup():
+    """(lo_fs, ba) of the lock-in bank (benches/suite.py:899-931)."""
+    from idsp_tpu_torch.pipelines.ddc_lockin import lowpass_ba
+
+    return np.linspace(0.05, 0.45, C_LOCKIN), lowpass_ba(0.002)
+
+
+def near(got, want, scale, rel=2e-5):
+    """Largest |got - want| of two tensors; raises above rel * scale."""
+    err = max_abs(got, want)
+    if not (got.shape == want.shape and err <= rel * scale):
+        raise AssertionError(f"off by {err} > {rel} * {scale}")
+    return err
+
+
+def check_slice5_kernels(dev, rng, errs):
+    """Phase 3 for K15-K17 over BLOCKS carried blocks: K15 (both angles)
+    and K16 bit for bit at c = 512, t = T; K17 at m = M_CH, n = 1024 (f32
+    and bf16) within 2e-5 of the output scale, its history bit for bit,
+    and two chained blocks equal to one bit for bit."""
+    import torch
+    from idsp_tpu_torch.filters.ddc_lockin_cuda import (
+        ddc_lockin_bank, ddc_lockin_bank_plain,
+    )
+    from idsp_tpu_torch.filters.fm_cuda import fm_disc_bank, fm_disc_bank_plain
+    from idsp_tpu_torch.pipelines import channelizer as chz
+    from idsp_tpu_torch.pipelines import fm_disc
+    from idsp_tpu_torch.pipelines.channelizer_cuda import (
+        channelize_fused, channelize_fused_plain,
+    )
+
+    ba_fm = fm_disc.deemphasis_coefficients(0.02)
+    err = 0.0
+    for angle in ("exact", "fast"):
+        e = hold(
+            "fm_disc_bank",
+            lambda s, iq: fm_disc_bank(ba_fm, s, *iq, FM_CARRIER,
+                                       angle=angle),
+            lambda s, iq: fm_disc_bank_plain(ba_fm, s, *iq, FM_CARRIER,
+                                             angle=angle),
+            (fm_disc.init_state((C_FM,), device=dev),),
+            lambda: fm_inputs(dev, rng))
+        err = max(err, e)
+    errs["fm_disc_bank"] = err
+    log(f"phase 3 K15 fm_disc_bank (exact and fast angle) == plain over "
+        f"{BLOCKS} blocks (c={C_FM}, t={T}, IQ = cossin of random phases): "
+        f"max |d| {err}")
+
+    lo_fs, ba_lk = lockin_setup()
+    n0 = iter(range(0, BLOCKS * T, T))
+    errs["ddc_lockin_bank"] = hold(
+        "ddc_lockin_bank",
+        lambda s, xn: ddc_lockin_bank(ba_lk, s, *xn, time_chunk=TC_LOCKIN),
+        lambda s, xn: ddc_lockin_bank_plain(ba_lk, s, *xn,
+                                            time_chunk=TC_LOCKIN),
+        (biquad_f32_state(dev, rng, 2 * C_LOCKIN),),
+        lambda: (normal_f32(dev, rng, (T,)), lo_fs, next(n0)))
+    log(f"phase 3 K16 ddc_lockin_bank == plain over {BLOCKS} blocks "
+        f"(c={C_LOCKIN}, t={T}, time_chunk={TC_LOCKIN}, x ~ N(0, 1)): "
+        f"max |d| {errs['ddc_lockin_bank']}")
+
+    n = N_CH[0]
+    for tw in (torch.float32, torch.bfloat16):
+        st = chz.PlanesState(*(normal_f32(dev, rng, (CH_TAPS - 1, M_CH))
+                               for _ in range(2)))
+        err = scale = 0.0
+        for _ in range(BLOCKS):
+            zr, zi = (normal_f32(dev, rng, (n, M_CH)) for _ in range(2))
+            got = channelize_fused(st, zr, zi, m=M_CH, taps=CH_TAPS,
+                                   twiddle_dtype=tw)
+            want = channelize_fused_plain(st, zr, zi, m=M_CH, taps=CH_TAPS,
+                                          twiddle_dtype=tw)
+            torch.cuda.synchronize()
+            compare("channelize_fused history", got[0], want[0])
+            scale = float(torch.maximum(want[1].abs().max(),
+                                        want[2].abs().max()))
+            for g, w in zip(got[1:], want[1:]):
+                err = max(err, near(g, w, scale))
+            st = got[0]
+        zr, zi = (normal_f32(dev, rng, (2 * n, M_CH)) for _ in range(2))
+        one = channelize_fused(st, zr, zi, m=M_CH, taps=CH_TAPS,
+                               twiddle_dtype=tw)
+        a = channelize_fused(st, zr[:n], zi[:n], m=M_CH, taps=CH_TAPS,
+                             twiddle_dtype=tw)
+        b = channelize_fused(a[0], zr[n:], zi[n:], m=M_CH, taps=CH_TAPS,
+                             twiddle_dtype=tw)
+        torch.cuda.synchronize()
+        compare("channelize_fused two blocks vs one", (
+            b[0], torch.cat([a[1], b[1]]), torch.cat([a[2], b[2]])), one)
+        if tw == torch.bfloat16:
+            errs["channelize_fused"] = err
+        log(f"phase 3 K17 channelize_fused ({str(tw)[6:]}) vs plain over "
+            f"{BLOCKS} blocks (m={M_CH}, n={n}): max |d| {err} (gate 2e-5 "
+            f"x scale {scale:.3f}), history bit for bit; two chained blocks "
+            f"== one block bit for bit")
+
+
+def biquad_f32_state(dev, rng, lanes):
+    from idsp_tpu_torch.filters import biquad
+
+    return biquad.Df1State(x=normal_f32(dev, rng, (lanes, 2)),
+                           y=normal_f32(dev, rng, (lanes, 2)))
+
+
+def fm_main_path(dev, rng, wrappers):
+    """Phase 4 for BASELINE #1: `FmReceiver` in its four modes over BLOCKS
+    blocks at c = C_FM, t = T; ``kernel`` == ``composed`` == ``scan`` on
+    every word, ``kernel_fast`` within 1024 LSB of ``kernel``; then
+    `run_fm_disc` through K15 (both angles) against the reference's gates.
+    Returns the launch counts of the run."""
+    import torch
+    from idsp_tpu_torch.pipelines import fm_disc
+    from idsp_tpu_torch.pipelines.fm_disc import FmReceiver
+
+    ba = fm_disc.deemphasis_coefficients(0.02)
+    blocks = [fm_inputs(dev, rng) for _ in range(BLOCKS)]
+    for w in wrappers:
+        w.launches = 0
+    runs = {}
+    for m in fm_disc.MODES:
+        rx = FmReceiver(m, ba, FM_CARRIER, C_FM, device=dev)
+        st, outs = rx.init_state(), []
+        for re, im in blocks:
+            st, y = rx(st, re, im)
+            outs.append((st, y))
+        runs[m] = outs
+    gates = {k: fm_disc.run_fm_disc(kernel=k, device=dev)
+             for k in ("exact", "fast")}
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    log(f"phase 4 main path: FmReceiver {fm_disc.MODES} x {BLOCKS} blocks at "
+        f"c={C_FM}, t={T}, carrier {FM_CARRIER}, deemphasis Q32<30> at 0.02; "
+        f"run_fm_disc (exact, fast); launches {counts}")
+    for m in ("composed", "kernel"):
+        for b, (got, want) in enumerate(zip(runs[m], runs["scan"])):
+            compare(f"FmReceiver {m} vs scan, block {b}", got, want)
+    fast = max(max_abs(f[1], k[1])
+               for f, k in zip(runs["kernel_fast"], runs["kernel"]))
+    for m, outs in runs.items():
+        y = outs[-1][1]
+        if tuple(y.shape) != (T, C_FM) or y.dtype != torch.int32:
+            raise AssertionError(f"FmReceiver {m}: output {y.dtype}"
+                                 f"{tuple(y.shape)}")
+    if fast > 1024:
+        raise AssertionError(f"FmReceiver kernel_fast off kernel by {fast}")
+    log(f"phase 4 FmReceiver kernel == composed == scan on every output and "
+        f"state word over {BLOCKS} blocks; kernel_fast max |d| {fast} <= 1024 "
+        f"LSB")
+    for k, r in gates.items():
+        if not (r["corr"] > 0.999 and 0.95 < r["gain"] < 1.05
+                and r["rms"] < 5e-4):
+            raise AssertionError(f"run_fm_disc({k!r}) gates: {r}")
+        log(f"phase 4 run_fm_disc kernel={k!r}: corr {r['corr']:.9f} > "
+            f"0.999, gain {r['gain']:.7f} in (0.95, 1.05), rms "
+            f"{r['rms']:.3e} < 5e-4")
+    return counts
+
+
+def lockin_f64(lo_fs, ba, xs):
+    """The lock-in bank in float64 (LO from float64 phases, float64 DF1 with
+    the same coefficients) over the blocks ``xs``: the yardstick of the
+    f32 paths' rounding."""
+    import torch
+    from idsp_tpu_torch.filters import biquad
+
+    f64 = torch.float64
+    dev = xs[0].device
+    w = torch.as_tensor(2 * np.pi * lo_fs, dtype=f64, device=dev)
+    st = biquad.df1_init((2 * len(lo_fs),), f64, device=dev)
+    outs = []
+    for b, x in enumerate(xs):
+        i = b * len(x) + torch.arange(len(x), dtype=f64, device=dev)
+        ph = torch.remainder(i[:, None] * w[None], 2 * np.pi)
+        xb = x.to(f64)[:, None]
+        iq = torch.cat([xb * torch.cos(ph), -(xb * torch.sin(ph))], dim=1)
+        st, y = biquad.df1_process(ba.astype(np.float64), st, iq)
+        outs.append(y)
+    return outs
+
+
+def lockin_tone_gates(y, lo_fs, k_tone, phi):
+    """The gates of tests/test_structures_pallas.py:214-229 on the output of
+    a tone at channel ``k_tone``: (mean errors, rms, distant channels)."""
+    c = len(lo_fs)
+    tail = y[3 * y.shape[0] // 4:].double().cpu().numpy()
+    exp_i, exp_q = 0.5 * np.cos(phi), 0.5 * np.sin(phi)
+    di = abs(tail[:, k_tone].mean() - exp_i)
+    dq = abs(tail[:, c + k_tone].mean() - exp_q)
+    rms = float(np.sqrt(((tail[:, k_tone] - exp_i) ** 2
+                         + (tail[:, c + k_tone] - exp_q) ** 2).mean()))
+    # channels whose LO lies within the +-3-channel window of the c = 128
+    # test (0.0094 in frequency) see the difference tone in the passband
+    far = np.abs(lo_fs - lo_fs[k_tone]) > 3 * 0.4 / 127
+    off = float(np.abs(tail[:, :c]).mean(axis=0)[far].max())
+    if not (di < 3e-3 and dq < 3e-3 and rms < 6e-3 and off < 0.05):
+        raise AssertionError(f"lock-in gates: mean off by ({di}, {dq}), rms "
+                             f"{rms}, distant channels {off}")
+    return f"|mean - 0.5 (cos, sin) phi| = ({di:.3e}, {dq:.3e}) < 3e-3, " \
+        f"rms {rms:.3e} < 6e-3, distant channels mean |I| max {off:.3e} < 0.05"
+
+
+def lockin_main_path(dev, rng, wrappers):
+    """Phase 4 for BASELINE #2: `DdcLockinBank` ``scan`` and ``kernel``
+    over BLOCKS blocks (n0 carried) at c = C_LOCKIN, t = T, x ~ N(0, 1),
+    and a tone at channel 40 through ``kernel`` against the gates of
+    tests/test_structures_pallas.py:214-229.  ``kernel`` against ``scan``:
+    within 2e-5 on the JAX package's own inputs (:182-212: c = 128, t =
+    4096, time chunk 256, two blocks, the tone); at this width the f32
+    DF1's roundoff (the lowpass at 0.002 lifts it ~6000x at DC) exceeds
+    that, so there ``kernel``'s error against a float64 evaluation must
+    stay within twice ``scan``'s.  Returns the launch counts of the run."""
+    import torch
+    from idsp_tpu_torch.pipelines.ddc_lockin import MODES, DdcLockinBank
+
+    lo_fs, ba = lockin_setup()
+    xs = [normal_f32(dev, rng, (T,)) for _ in range(BLOCKS)]
+    k_tone, phi = 40, 0.37
+
+    def tone(freq, t):
+        i = np.arange(t, dtype=np.float64)
+        return torch.from_numpy(np.cos(2 * np.pi * freq * i + phi).astype(
+            np.float32)).to(dev)
+
+    lo_128 = np.linspace(0.05, 0.45, 128)
+    x_128 = tone(lo_128[k_tone], 4096)
+    for w in wrappers:
+        w.launches = 0
+    runs, small = {}, {}
+    for m in MODES:
+        bank = DdcLockinBank(m, lo_fs, ba, time_chunk=TC_LOCKIN, device=dev)
+        st, outs = bank.init_state(), []
+        for b, xb in enumerate(xs):
+            st, y = bank(st, xb, b * T)
+            outs.append((st, y))
+        runs[m] = outs
+        bank = DdcLockinBank(m, lo_128, ba, time_chunk=256, device=dev)
+        st, outs = bank.init_state(), []
+        for n0 in (0, 2048):
+            st, y = bank(st, x_128[n0:n0 + 2048], n0)
+            outs.append(y)
+        small[m] = torch.cat(outs)
+    bank = DdcLockinBank("kernel", lo_fs, ba, time_chunk=TC_LOCKIN,
+                         device=dev)
+    _, y_tone = bank(bank.init_state(), tone(lo_fs[k_tone], T))
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    log(f"phase 4 main path: DdcLockinBank {MODES} x {BLOCKS} blocks at "
+        f"c={C_LOCKIN} ({2 * C_LOCKIN} I|Q lanes), t={T}, time_chunk="
+        f"{TC_LOCKIN}, lowpass 0.002, and at c=128, t=4096 on a tone; a tone "
+        f"at channel {k_tone}; launches {counts}")
+    d128 = max_abs(small["kernel"], small["scan"])
+    if d128 >= 2e-5:
+        raise AssertionError(f"DdcLockinBank kernel off scan by {d128} at "
+                             f"c=128")
+    log(f"phase 4 DdcLockinBank kernel vs scan at c=128, t=4096 (the tone of "
+        f"tests/test_structures_pallas.py:182-212): max |d| {d128} < 2e-5; "
+        f"gates: {lockin_tone_gates(small['kernel'], lo_128, k_tone, phi)}")
+    ref = lockin_f64(lo_fs, ba, xs)
+    worst = e_scan = e_kernel = 0.0
+    for (sk, yk), (ss, ys), yr in zip(runs["kernel"], runs["scan"], ref):
+        if tuple(yk.shape) != (T, 2 * C_LOCKIN) or not bool(
+                torch.isfinite(yk).all()):
+            raise AssertionError("DdcLockinBank kernel: bad output")
+        worst = max(worst, max_abs(yk, ys), max_abs(sk.y, ss.y))
+        e_scan = max(e_scan, max_abs(ys, yr))
+        e_kernel = max(e_kernel, max_abs(yk, yr))
+    if e_kernel > 2 * e_scan:
+        raise AssertionError(f"DdcLockinBank kernel off float64 by {e_kernel}"
+                             f", scan by {e_scan}")
+    log(f"phase 4 DdcLockinBank over {BLOCKS} blocks at c={C_LOCKIN}: max "
+        f"|kernel - scan| {worst}; against float64: kernel {e_kernel}, scan "
+        f"{e_scan} (gate: kernel <= 2 x scan)")
+    log(f"phase 4 lock-in gates at c={C_LOCKIN} (kernel, channel {k_tone}): "
+        f"{lockin_tone_gates(y_tone, lo_fs, k_tone, phi)}")
+    return counts
+
+
+def channelizer_main_path(dev, rng, wrappers):
+    """Phase 4 for BASELINE #3: `channelize_planes` at m = M_CH, 8 taps,
+    ``impl="fused"`` (K17) and the plain ``"xla"`` composition, bf16 and
+    f32, over BLOCKS blocks of n = N_CH[0] frames and one of N_CH[1]:
+    fused within 2e-5 of the scale of the plain planes path; then the
+    tone at channel 100 through the fused path: p[100] > 1e4 x the rest
+    at f32 (tests/test_pipelines.py:46-53), > 10x at bf16 (:205-209).
+    Returns the launch counts of the run."""
+    import torch
+    from idsp_tpu_torch.pipelines import channelizer as chz
+
+    blocks = {n: [tuple(normal_f32(dev, rng, (n, M_CH)) for _ in range(2))
+                  for _ in range(BLOCKS if n == N_CH[0] else 1)]
+              for n in N_CH}
+    nfr = 160
+    x = chz.tone(100 / M_CH, M_CH * nfr, device=dev)
+    tone = chz.planes_from_stream(x[..., 0].contiguous(),
+                                  x[..., 1].contiguous(), M_CH)
+    for w in wrappers:
+        w.launches = 0
+    runs, powers = {}, {}
+    for tw in (torch.bfloat16, torch.float32):
+        for impl in ("fused", "xla"):
+            for n, zs in blocks.items():
+                st = chz.init_planes(M_CH, CH_TAPS, device=dev)
+                outs = []
+                for zr, zi in zs:
+                    st, yr, yi = chz.channelize_planes(
+                        st, zr, zi, m=M_CH, taps=CH_TAPS, twiddle_dtype=tw,
+                        impl=impl)
+                    outs.append((st, yr, yi))
+                runs[(tw, impl, n)] = outs
+        _, yr, yi = chz.channelize_planes(
+            chz.init_planes(M_CH, CH_TAPS, device=dev), *tone, m=M_CH,
+            taps=CH_TAPS, twiddle_dtype=tw, impl="fused")
+        powers[tw] = (yr.double() ** 2 + yi.double() ** 2)[128:].mean(
+            0).cpu().numpy()
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    log(f"phase 4 main path: channelize_planes (fused, xla) x (bf16, f32) at "
+        f"m={M_CH}, taps={CH_TAPS}, n={N_CH[0]} x {BLOCKS} blocks and n="
+        f"{N_CH[1]}; the tone at channel 100; launches {counts}")
+    for (tw, impl, n), outs in runs.items():
+        if impl != "fused":
+            continue
+        worst = 0.0
+        for (st, yr, yi), (st_p, yr_p, yi_p) in zip(outs,
+                                                     runs[(tw, "xla", n)]):
+            compare("channelize_planes fused vs xla history", st, st_p)
+            scale = float(torch.maximum(yr_p.abs().max(), yi_p.abs().max()))
+            for g, w in ((yr, yr_p), (yi, yi_p)):
+                worst = max(worst, near(g, w, scale))
+        log(f"phase 4 channelize_planes fused vs xla ({str(tw)[6:]}, n={n}):"
+            f" max |d| {worst} (gate 2e-5 x {scale:.3f}), history bit for bit")
+    for tw, ratio in ((torch.float32, 1e4), (torch.bfloat16, 10.0)):
+        p = powers[tw]
+        got = float(p[100] / np.delete(p, 100).max())
+        if int(np.argmax(p)) != 100 or not got > ratio:
+            raise AssertionError(f"channelizer tone gate ({tw}): peak at "
+                                 f"{int(np.argmax(p))}, ratio {got}")
+        log(f"phase 4 channelizer tone at channel 100 ({str(tw)[6:]}, fused):"
+            f" p[100] / max(others) = {got:.4e} > {ratio:g}")
+    return counts
+
+
+def channelizer_library(zr, zi, tw):
+    """The yardstick of K17 (never used by the port): the polyphase FIR in
+    torch ops and `torch.matmul` of the four products, in ``tw`` (bf16
+    products with a bf16 result; f32 with TF32 off)."""
+    import torch
+    from idsp_tpu_torch.pipelines import channelizer as chz
+
+    coeff = torch.from_numpy(chz.coefficients(None, M_CH, CH_TAPS)).to(
+        zr.device)
+    hist = torch.zeros((CH_TAPS - 1, M_CH), device=zr.device)
+    wr, wi = chz.twiddles(M_CH, tw, zr.device)
+
+    def run(_):
+        ar = chz.polyphase_fir(hist, zr, coeff)[0].to(tw)
+        ai = chz.polyphase_fir(hist, zi, coeff)[0].to(tw)
+        return ar @ wr - ai @ wi, ar @ wi + ai @ wr
+
+    return run
+
+
+def time_slice5(dev, rng, card, timings):
+    """Phase 6 for BASELINE #1-#3: K15-K17 beside their plain versions (and
+    K17 beside its library yardstick), the modes' block times and rates,
+    busy shares of the kernel modes."""
+    import torch
+    from idsp_tpu_torch.filters.ddc_lockin_cuda import (
+        ddc_lockin_bank, ddc_lockin_bank_plain,
+    )
+    from idsp_tpu_torch.filters.fm_cuda import fm_disc_bank, fm_disc_bank_plain
+    from idsp_tpu_torch.pipelines import channelizer as chz
+    from idsp_tpu_torch.pipelines import fm_disc
+    from idsp_tpu_torch.pipelines.channelizer_cuda import (
+        channelize_fused, channelize_fused_plain,
+    )
+    from idsp_tpu_torch.pipelines.ddc_lockin import DdcLockinBank
+    from idsp_tpu_torch.pipelines.fm_disc import FmReceiver
+    from idsp_tpu_torch.profiling import measure_rate
+
+    def record(name, key, k_s, p_s, l_s=None, note=""):
+        entry = {"ms": k_s * 1e3, "plain_ms": p_s * 1e3}
+        if l_s is not None:
+            entry["library_ms"] = l_s * 1e3
+        timings["kernels"].setdefault(name, {})[key] = entry
+        lib = "" if l_s is None else f", library {l_s * 1e3:.4f} ms"
+        log(f"phase 6 {name} {note}: kernel {k_s * 1e3:.4f} ms, plain "
+            f"{p_s * 1e3:.2f} ms{lib}  [{card}]")
+
+    # K15 and the FM receiver at c = C_FM
+    ba = fm_disc.deemphasis_coefficients(0.02)
+    re, im = fm_inputs(dev, rng)
+    st0 = fm_disc.init_state((C_FM,), device=dev)
+    for angle, name in (("exact", "fm_disc_bank"),
+                        ("fast", "fm_disc_bank_fast")):
+        k_s, _ = measure_rate(lambda s: fm_disc_bank(
+            ba, s, re, im, FM_CARRIER, angle=angle), st0, iters=20, trials=3)
+        p_s, _ = measure_rate(lambda s: fm_disc_bank_plain(
+            ba, s, re, im, FM_CARRIER, angle=angle), st0, iters=1, trials=1)
+        record(name, C_FM, k_s, p_s, note=f"c={C_FM} ({angle} angle)")
+    timings["fm_samples_per_s"] = {}
+    for m in fm_disc.MODES:
+        rx = FmReceiver(m, ba, FM_CARRIER, C_FM, device=dev)
+        iters, trials = (1, 1) if m == "scan" else (10, 3)
+        sec, _ = measure_rate(rx, rx.init_state(), re, im, iters=iters,
+                              trials=trials)
+        timings["fm_samples_per_s"][m] = C_FM * T / sec
+        log(f"phase 6 c={C_FM} FmReceiver {m}: {sec * 1e3:.3f} ms/block, "
+            f"{C_FM * T / sec:.6e} samples/s (c*t)  [{card}]")
+        if m != "scan":
+            log_busy(timings, f"fm_{m}", C_FM, sec, card, rx,
+                     rx.init_state(), re, im)
+
+    # K16 and the lock-in bank at c = C_LOCKIN
+    lo_fs, ba_lk = lockin_setup()
+    x = normal_f32(dev, rng, (T,))
+    sl0 = biquad_f32_state(dev, rng, 2 * C_LOCKIN)
+    k_s, _ = measure_rate(lambda s: ddc_lockin_bank(
+        ba_lk, s, x, lo_fs, 0, time_chunk=TC_LOCKIN), sl0, iters=20, trials=3)
+    p_s, _ = measure_rate(lambda s: ddc_lockin_bank_plain(
+        ba_lk, s, x, lo_fs, 0, time_chunk=TC_LOCKIN), sl0, iters=1, trials=1)
+    record("ddc_lockin_bank", C_LOCKIN, k_s, p_s, note=f"c={C_LOCKIN}")
+    timings["lockin_samples_per_s"] = {}
+    for m in ("scan", "kernel"):
+        bank = DdcLockinBank(m, lo_fs, ba_lk, time_chunk=TC_LOCKIN,
+                             device=dev)
+        iters, trials = (1, 1) if m == "scan" else (10, 3)
+        sec, _ = measure_rate(bank, bank.init_state(), x, iters=iters,
+                              trials=trials)
+        timings["lockin_samples_per_s"][m] = C_LOCKIN * T / sec
+        log(f"phase 6 c={C_LOCKIN} DdcLockinBank {m}: {sec * 1e3:.3f} "
+            f"ms/block, {C_LOCKIN * T / sec:.6e} samples/s (c*t)  [{card}]")
+        if m != "scan":
+            log_busy(timings, f"lockin_{m}", C_LOCKIN, sec, card, bank,
+                     bank.init_state(), x)
+
+    # K17 at m = M_CH, n in N_CH: bf16 and f32, beside plain and library
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
+    timings["channelizer_samples_per_s"] = {}
+    for n in N_CH:
+        zr, zi = (normal_f32(dev, rng, (n, M_CH)) for _ in range(2))
+        sc0 = chz.init_planes(M_CH, CH_TAPS, device=dev)
+        for tw, name in ((torch.bfloat16, "channelize_fused"),
+                         (torch.float32, "channelize_fused_f32")):
+            def kern(s, tw=tw):
+                return channelize_fused(s, zr, zi, m=M_CH, taps=CH_TAPS,
+                                        twiddle_dtype=tw)
+
+            def plain(s, tw=tw):
+                return channelize_fused_plain(s, zr, zi, m=M_CH, taps=CH_TAPS,
+                                              twiddle_dtype=tw)
+
+            lib = channelizer_library(zr, zi, tw)
+            k_s, _ = measure_rate(kern, sc0, iters=20, trials=3)
+            p_s, _ = measure_rate(plain, sc0, iters=5, trials=3)
+            l_s, _ = measure_rate(lib, None, iters=10, trials=3,
+                                  stateful=False)
+            record(name, n, k_s, p_s, l_s, note=f"n={n}, m={M_CH}")
+            for impl in ("fused", "xla"):
+                def step(s, impl=impl, tw=tw):
+                    return chz.channelize_planes(s, zr, zi, m=M_CH,
+                                                 taps=CH_TAPS,
+                                                 twiddle_dtype=tw, impl=impl)
+
+                sec, _ = measure_rate(step, sc0, iters=10, trials=3)
+                key = f"{impl}_{str(tw)[6:]}"
+                timings["channelizer_samples_per_s"].setdefault(key, {})[n] = (
+                    n * M_CH / sec)
+                log(f"phase 6 n={n} channelize_planes {key}: "
+                    f"{sec * 1e3:.4f} ms/block, {n * M_CH / sec:.6e} "
+                    f"samples/s (n*m)  [{card}]")
+                if impl == "fused":
+                    log_busy(timings, f"channelizer_{key}", n, sec, card,
+                             step, sc0)
+
+
 def main():
     wall0 = time.perf_counter()
     import torch
@@ -820,6 +1409,9 @@ def main():
     from idsp_tpu_torch.filters.hbf_cuda import (
         hbf_dec_cascade_bank, hbf_int_cascade_bank,
     )
+    from idsp_tpu_torch.filters.ddc_lockin_cuda import ddc_lockin_bank
+    from idsp_tpu_torch.filters.fm_cuda import fm_disc_bank
+    from idsp_tpu_torch.pipelines.channelizer_cuda import channelize_fused
     from idsp_tpu_torch.ops import accu
     from idsp_tpu_torch.ops.fastlo import fastlo_mix
     from idsp_tpu_torch.ops.trig import atan2, cossin
@@ -828,6 +1420,8 @@ def main():
     from idsp_tpu_torch.profiling import measure_rate
 
     dev = torch.device("cuda", 0)
+    # the plain versions' and the planes path's f32 products in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
@@ -961,6 +1555,7 @@ def main():
         f"max |d| {err}")
     check_rate_kernels(dev, rng, errs)
     check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba)
+    check_slice5_kernels(dev, rng, errs)
 
     # ---- phase 4: the main path ---------------------------------------
     steps_np = rng.integers(1 << 24, 1 << 30, size=(C_WIDE,)).astype(np.int32)
@@ -981,7 +1576,8 @@ def main():
                 lowpass_bank, pll_bank, fastlo_ddc_bank_block_lp,
                 hbf_dec_cascade_bank, hbf_int_cascade_bank, cic_dec_bank,
                 cic_int_bank, df1_bank_q_dec, fastlo_df1_dec_bank,
-                fastlo_ddc_bank_block, ddc_mix_df1_bank)
+                fastlo_ddc_bank_block, ddc_mix_df1_bank, fm_disc_bank,
+                ddc_lockin_bank, channelize_fused)
     chain_kernels = ("df1_bank_q", "df1_hbf_cascade_bank",
                      "fastlo_ddc_cascade_bank", "ddc_mix_df1_bank")
     bank_kernels = ("lowpass_bank", "pll_bank", "fastlo_ddc_bank_block_lp")
@@ -989,6 +1585,9 @@ def main():
                       "fastlo_ddc_bank_block")
     rate_kernels = ("hbf_dec_cascade_bank", "hbf_int_cascade_bank",
                     "cic_dec_bank", "cic_int_bank")
+    # BASELINE #1-#3: each kernel's width in the kernels line (K17: frames)
+    slice5_c = {"fm_disc_bank": C_FM, "ddc_lockin_bank": C_LOCKIN,
+                "channelize_fused": N_CH[-1]}
     for w in wrappers:
         w.launches = 0
     # every mode at c = C_MAIN; the exact-LO modes also at c = C_WIDE
@@ -1129,6 +1728,12 @@ def main():
     counts = rate_main_path(dev, rng, wrappers)
     for k in rate_kernels:
         launches[k] = counts[k]
+
+    # ---- phase 4 (BASELINE #1-#3): FM, lock-in, channelizer -----------
+    for path, name in ((fm_main_path, "fm_disc_bank"),
+                       (lockin_main_path, "ddc_lockin_bank"),
+                       (channelizer_main_path, "channelize_fused")):
+        launches[name] = path(dev, rng, wrappers)[name]
 
     # ---- phase 5: the main paths went through every kernel ------------
     for name, n in launches.items():
@@ -1291,6 +1896,7 @@ def main():
             log_busy(timings, f"biquad_bank_{m}", c, sec, card, bank,
                      bank.init_state(), bq_x[0])
     time_rate(dev, rng, card, timings)
+    time_slice5(dev, rng, card, timings)
     print(json.dumps({"timings": timings}), flush=True)
 
     sources = {
@@ -1322,27 +1928,34 @@ def main():
                          "idsp_tpu/filters/cic_pallas.py:83"),
         "cic_int_bank": ("idsp_tpu_torch/csrc/cic_bank.cu",
                          "idsp_tpu/filters/cic_pallas.py:131"),
+        "fm_disc_bank": ("idsp_tpu_torch/csrc/fm_disc.cu",
+                         "idsp_tpu/filters/fm_pallas.py:93"),
+        "ddc_lockin_bank": ("idsp_tpu_torch/csrc/ddc_lockin.cu",
+                            "idsp_tpu/filters/ddc_pallas.py:1359"),
+        "channelize_fused": ("idsp_tpu_torch/csrc/channelize.cu",
+                             "idsp_tpu/pipelines/channelizer_pallas.py:54"),
     }
     sm_mhz = sm_clock_mhz()
     kernels = []
     for name, (src, rep) in sources.items():
         c = (C_MAIN if name in chain_kernels else
-             C_BANK if name in bank_kernels + biquad_kernels else C_RATE)
+             C_BANK if name in bank_kernels + biquad_kernels else
+             slice5_c.get(name, C_RATE))
         timed = timings["kernels"][name][c]
-        bound_ms, bound_by, floor_ms = bounds(name, c, sm_mhz)
+        bound_ms, bound_by, _ = bounds(name, c, sm_mhz)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": timed.get("library_ms"), "c": c})
-        nbytes, f32_ops, i32_ops, steps, chain = work(name, c)
-        log(f"bound {name} at c={c}: {bound_ms:.6f} ms ({bound_by}: "
-            f"{nbytes / 1e6:.2f} MB, {f32_ops / 1e6:.1f} M f32 ops, "
-            f"{i32_ops / 1e6:.1f} M int32 ops); estimated latency floor "
-            f"{floor_ms} ms ({steps} steps x {chain} dependent ops x "
-            f"{CYCLES_PER_DEPENDENT_OP} cycles at {sm_mhz:.0f} MHz, not "
-            f"measured); kernel {timed['ms']:.4f} ms")
+        log_bound(name, c, timed["ms"], sm_mhz)
+    # the other instantiations of K15 and K17, on their log lines only
+    for name, c in (("fm_disc_bank_fast", C_FM),
+                    ("channelize_fused", N_CH[0]),
+                    ("channelize_fused_f32", N_CH[0]),
+                    ("channelize_fused_f32", N_CH[-1])):
+        log_bound(name, c, timings["kernels"][name][c]["ms"], sm_mhz)
     log(f"wall time {time.perf_counter() - wall0:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,8 @@
-"""idsp_tpu_torch — the DDC and rate-conversion paths of `idsp_tpu` on
-PyTorch and CUDA.
+"""idsp_tpu_torch — the DDC, rate-conversion, FM, lock-in and
+channelizer paths of `idsp_tpu` on PyTorch and CUDA.
 
 A second package beside `idsp_tpu` (the JAX reference, which stays as
-it is).  It carries three main paths with the same numerics and the same
+it is).  It carries these main paths with the same numerics and the same
 public layouts:
 
 * the headline DDC chain `bench.py` measures (`chain.DdcChain`) —
@@ -13,7 +13,15 @@ public layouts:
   the channel filter on I and Q, keep 1 in d, `atan2`, per-channel PLL;
 * the BASELINE #4 rate conversion (`pipelines.rate_conversion`,
   `RoundTrip`) — half-band decimate by 16 then interpolate by 16, and
-  the CIC + half-band composite decimator.
+  the CIC + half-band composite decimator;
+* BASELINE #1, the FM discriminator bank (`pipelines.fm_disc`,
+  `FmReceiver`) — conjugate product, atan2, carrier subtract, Q32<30>
+  deemphasis DF1;
+* BASELINE #2, the float lock-in DDC bank (`pipelines.ddc_lockin`,
+  `DdcLockinBank`) — factored f32 LO mix, f32 DF1 on the I|Q lanes;
+* BASELINE #3, the polyphase channelizer (`pipelines.channelizer`) —
+  8-tap polyphase FIR over m-branch frames, DFT as matrix products or
+  FFT.
 
 Layouts: time-major ``(t, 2c)`` lanes, I in ``[0, c)`` and Q in
 ``[c, 2c)``; ``Df1State.x/.y`` of shape ``(lanes, 2)``;
@@ -21,7 +29,8 @@ Layouts: time-major ``(t, 2c)`` lanes, I in ``[0, c)`` and Q in
 leaves; fused-cascade tails ``(3m-2, lanes)`` f32, ``2m-1`` odd rows
 then ``m-1`` even rows per stage; `HbfIntState.x` ``(2m-1, lanes)``;
 `CicState` with combs ``(c, N, M)``, integrators ``(c, N)`` and zoh
-``(c,)``, all int32.
+``(c,)``, all int32; `FmDiscState` with ``(c,)`` leaves; channelizer
+`PlanesState` history planes ``(taps-1, m)`` f32.
 
 Every Pallas kernel on those paths is a hand-written CUDA C++ kernel
 (``csrc/*.cu``, built with nvcc for ``sm_90a`` at first use).  Each
@@ -43,15 +52,25 @@ from .filters.ddc_bank_cuda import (  # noqa: F401
     fastlo_ddc_bank_block, fastlo_df1_dec_bank,
 )
 from .filters.ddc_cuda import ddc_mix_df1_bank  # noqa: F401
-from .pipelines import rate_conversion  # noqa: F401
+from .filters.ddc_lockin_cuda import ddc_lockin_bank  # noqa: F401
+from .filters.fm_cuda import fm_disc_bank  # noqa: F401
+from .pipelines import (  # noqa: F401
+    channelizer, ddc_lockin, fm_disc, rate_conversion,
+)
+from .pipelines.channelizer_cuda import channelize_fused  # noqa: F401
+from .pipelines.ddc_lockin import DdcLockinBank  # noqa: F401
+from .pipelines.fm_disc import FmReceiver  # noqa: F401
 from .pipelines.ddc_bank import (  # noqa: F401
     DdcBankBiquad, DdcBankBiquadState, init_biquad,
 )
 from .pipelines.rate_conversion import RoundTrip  # noqa: F401
 
-__all__ = ["DdcBankBiquad", "DdcBankBiquadState", "RoundTrip", "accu", "cic",
-           "cossin", "ddc_mix_df1_bank", "df1_bank_q_dec", "fastlo",
-           "fastlo_ddc_bank_block", "fastlo_df1_dec_bank", "fxp", "hbf",
-           "init_biquad", "luts", "rate_conversion", "trig"]
+__all__ = ["DdcBankBiquad", "DdcBankBiquadState", "DdcLockinBank",
+           "FmReceiver", "RoundTrip", "accu", "channelize_fused",
+           "channelizer", "cic", "cossin", "ddc_lockin", "ddc_lockin_bank",
+           "ddc_mix_df1_bank", "df1_bank_q_dec", "fastlo",
+           "fastlo_ddc_bank_block", "fastlo_df1_dec_bank", "fm_disc",
+           "fm_disc_bank", "fxp", "hbf", "init_biquad", "luts",
+           "rate_conversion", "trig"]
 
 __version__ = "0.1.0"

@@ -6,9 +6,9 @@ shared library with a plain C interface, under ``build/idsp_tpu_torch/``
 at the root of the checkout, keyed by a hash of the sources, the nvcc
 path and version, and torch's CUDA version.  The
 library is loaded with ctypes: pointers and the stream go as
-``c_void_p``, sizes as ``c_int``.  Every C entry point launches on the
-stream it is given and returns ``cudaGetLastError()``; `check` raises
-if that is not 0.
+``c_void_p``, sizes as ``c_int``, f32 coefficients as ``c_float``.
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; `check` raises if that is not 0.
 
 Nothing here runs at import: the CPU tests import every module, and a
 CPU-only machine has no nvcc.
@@ -28,12 +28,16 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "idsp_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# No --use_fast_math / -ftz=true: subnormals must survive (the 1e-38
+# divide guard of csrc/atan2_f32.cuh), and f32 divides must round exactly.
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures (see the .cu files): pointers, then ints, then the stream.
+_F = ctypes.c_float
+# C signatures (see the .cu files): pointers, then ints (and floats), then
+# the stream.
 _SIGNATURES = {
     "idsp_df1_bank_q": [_P] * 6 + [_I] * 9 + [_P],
     "idsp_df1_bank_q_dec": [_P] * 6 + [_I] * 10 + [_P],
@@ -47,6 +51,9 @@ _SIGNATURES = {
     "idsp_hbf_int_cascade": [_P] * 4 + [_I] * 4 + [_P, _P, _P],
     "idsp_cic_dec_bank": [_P] * 4 + [_I] * 4 + [_P],
     "idsp_cic_int_bank": [_P] * 4 + [_I] * 4 + [_P],
+    "idsp_fm_disc_bank": [_P] * 13 + [_I] * 10 + [_P],
+    "idsp_ddc_lockin": [_P] * 10 + [_I] * 3 + [_F] * 5 + [_P],
+    "idsp_channelize": [_P] * 11 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

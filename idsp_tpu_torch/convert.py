@@ -7,9 +7,12 @@ names: ``(x, y)`` is a `Df1State`, ``(odd, even)`` an `HbfDecState`,
 `ClampWrapState`, the PLL fields a `PllState`, ``(nco_phase, lp_i,
 lp_q, pll)`` a `DdcBankState`, ``(nco_phase, bq, pll)`` a
 `DdcBankBiquadState`, ``(combs, integrators, zoh)`` a
-`CicState` and ``(dec, int_)`` a `RateConvState`; tuples (per-stage tails, cascade states) keep their
+`CicState`, ``(dec, int_)`` a `RateConvState`, ``(prev_re, prev_im,
+prev_valid, deemph)`` an `FmDiscState`, ``(hist_r, hist_i)`` a
+`PlanesState` and ``(hist,)`` a channelizer `BankState`; tuples (per-stage tails, cascade states) keep their
 structure and ``None`` stays ``None``.  Dtypes cross unchanged (the
-PLL's clamp indicator stays int8).
+PLL's clamp indicator stays int8, FM's validity bool, a float
+`Df1State` f32).
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ import torch
 
 from .filters.biquad import Df1State
 from .filters.cic import CicState
+from .filters.fm_cuda import FmDiscState
 from .filters.hbf import HbfDecState, HbfIntState
 from .filters.lowpass import LowpassState
 from .filters.pll import PllState
 from .ops.unwrap import ClampWrapState
+from .pipelines.channelizer import BankState, PlanesState
 from .pipelines.ddc_bank import DdcBankBiquadState, DdcBankState
 from .pipelines.rate_conversion import RateConvState
 
@@ -30,7 +35,7 @@ _STATES = {
     cls._fields: cls
     for cls in (Df1State, HbfDecState, HbfIntState, LowpassState,
                 ClampWrapState, PllState, DdcBankState, DdcBankBiquadState,
-                CicState, RateConvState)
+                CicState, RateConvState, FmDiscState, PlanesState, BankState)
 }
 
 

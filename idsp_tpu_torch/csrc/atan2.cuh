@@ -10,7 +10,10 @@
 // Q32<32> Horner form.  The LUT is luts.atan2_divi_table() (build.rs:
 // 43-67) in __constant__ memory: every thread of a warp reads its own
 // entry, so the reads serialize over the distinct indices of the warp;
-// a kept row needs two such reads.
+// a kept row needs two such reads.  A kernel that takes an angle on every
+// row copies the LUT to shared memory (`load_atan2_lut`) and passes a
+// `SharedLut`: its 32 words sit in 32 distinct banks, so a warp's reads
+// of one table take one pass.
 #pragma once
 
 #include <cstdint>
@@ -38,18 +41,41 @@ __device__ __forceinline__ uint32_t mul_q31(uint32_t x, uint32_t y) {
   return static_cast<uint32_t>((static_cast<uint64_t>(x) * y) >> 31);
 }
 
-// y/x in Q31 for 0 <= y <= x (src/atan2.rs:12-29); 0 for x == 0
-__device__ __forceinline__ uint32_t divi(uint32_t y, uint32_t x) {
-  if (x == 0) return 0;
+// the seed LUT read from __constant__ memory
+struct ConstLut {
+  __device__ __forceinline__ uint32_t base(uint32_t i) const {
+    return kBase[i];
+  }
+  __device__ __forceinline__ int32_t slope(uint32_t i) const {
+    return kSlope[i];
+  }
+};
+
+// the seed LUT read from a shared-memory copy (`load_atan2_lut`)
+struct SharedLut {
+  const uint32_t* b;
+  const int32_t* s;
+  __device__ __forceinline__ uint32_t base(uint32_t i) const { return b[i]; }
+  __device__ __forceinline__ int32_t slope(uint32_t i) const { return s[i]; }
+};
+
+// y/x in Q31 for 0 <= y <= x (src/atan2.rs:12-29); 0 for x == 0.
+// Branch-free (selects only), so a caller's unrolled rows schedule
+// together.
+template <class Lut>
+__device__ __forceinline__ uint32_t divi(uint32_t y, uint32_t x0,
+                                         const Lut& lut) {
+  const uint32_t x = x0 ? x0 : 1u;
   const int shift = __clz(static_cast<int>(x));
   y <<= shift;
   const uint32_t xn = x << shift;
   const uint32_t rem = xn & ((1u << kFracBits) - 1);
   const uint32_t idx = (xn << 1) >> (1 + kFracBits);
   const uint32_t step = static_cast<uint32_t>(
-      (int64_t{kSlope[idx]} * int64_t{rem}) >> kFracBits);
-  const uint32_t r0 = kBase[idx] + step;  // wrapping u32 add
-  return mul_q31(y, mul_q31(r0, 0u - mul_q31(xn, r0)));
+      (int64_t{lut.slope(idx)} * int64_t{rem}) >> kFracBits);
+  const uint32_t r0 = lut.base(idx) + step;  // wrapping u32 add
+  const uint32_t r = mul_q31(y, mul_q31(r0, 0u - mul_q31(xn, r0)));
+  return x0 ? r : 0u;
 }
 
 // atan on the first octant, x u32 Q31 in [0, 1] (src/atan2.rs:32-48)
@@ -74,25 +100,35 @@ __device__ __forceinline__ uint32_t atani(uint32_t x) {
 
 }  // namespace atan2_detail
 
+// Copy the seed LUT to shared memory (16 + 16 words) with the block's
+// first 16 threads; the caller synchronizes the block before using it.
+__device__ __forceinline__ atan2_detail::SharedLut load_atan2_lut(
+    uint32_t* base, int32_t* slope) {
+  if (threadIdx.x < 16) {
+    base[threadIdx.x] = atan2_detail::kBase[threadIdx.x];
+    slope[threadIdx.x] = atan2_detail::kSlope[threadIdx.x];
+  }
+  return atan2_detail::SharedLut{base, slope};
+}
+
 // atan2(y, x) of i32: the circle maps to i32, i32::MIN = -pi (== +pi)
-__device__ __forceinline__ int32_t atan2_i32(int32_t y, int32_t x) {
-  uint32_t k = 0;
-  if (y < 0) {
-    y = y == INT32_MIN ? INT32_MAX : -y;
-    k ^= 0xFFFFFFFFu;
-  }
-  if (x < 0) {
-    x = x == INT32_MIN ? INT32_MAX : -x;
-    k ^= 0x7FFFFFFFu;
-  }
-  if (y > x) {
-    const int32_t s = y;
-    y = x;
-    x = s;
-    k ^= 0x3FFFFFFFu;
-  }
+template <class Lut = atan2_detail::ConstLut>
+__device__ __forceinline__ int32_t atan2_i32(int32_t y, int32_t x,
+                                             const Lut& lut = Lut{}) {
+  // saturating |v| (i32::MIN -> i32::MAX), as selects
+  auto sat_abs = [](int32_t v) {
+    const int32_t neg = static_cast<int32_t>(0u - static_cast<uint32_t>(v));
+    return v == INT32_MIN ? INT32_MAX : (v < 0 ? neg : v);
+  };
+  uint32_t k = y < 0 ? 0xFFFFFFFFu : 0u;
+  k ^= x < 0 ? 0x7FFFFFFFu : 0u;
+  const int32_t ay = sat_abs(y);
+  const int32_t ax = sat_abs(x);
+  const bool swap = ay > ax;
+  k ^= swap ? 0x3FFFFFFFu : 0u;
   const uint32_t r = atan2_detail::atani(atan2_detail::divi(
-      static_cast<uint32_t>(y), static_cast<uint32_t>(x)));
+      static_cast<uint32_t>(swap ? ax : ay),
+      static_cast<uint32_t>(swap ? ay : ax), lut));
   return static_cast<int32_t>(r ^ k);
 }
 

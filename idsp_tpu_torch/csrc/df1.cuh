@@ -1,4 +1,5 @@
-// Shared device code of the DDC-chain kernels: the Q<f> DF1 biquad step.
+// Shared device code of the DDC-chain kernels: the Q<f> DF1 biquad step,
+// and its f32 twin.
 //
 // y0 = (b0*x0 + b1*x1 + b2*x2 + a1*y1 + a2*y2) >> f   (biquad.rs:366-383)
 //
@@ -6,6 +7,10 @@
 // mod 2^64 and is formed in uint64, where wrapping is defined.  The
 // shift is arithmetic (truncating toward -inf), and the result keeps
 // the low 32 bits: bit-identical to the scan `df1_process_q`.
+//
+// The f32 step (`Df1LaneF32`) has no shift; each product and each sum is
+// a single-rounding intrinsic, left to right, so nvcc cannot contract
+// them into FMAs: bit-identical to the plain `df1_process`.
 #pragma once
 
 #include <cstdint>
@@ -45,6 +50,43 @@ struct Df1Lane {
                          static_cast<uint64_t>(int64_t{k.a2} * y2);
     const int32_t y0 = static_cast<int32_t>(static_cast<uint32_t>(
         static_cast<uint64_t>(static_cast<int64_t>(acc) >> k.f)));
+    x2 = x1;
+    x1 = x0;
+    y2 = y1;
+    y1 = y0;
+    return y0;
+  }
+};
+
+struct Df1CoefsF32 {
+  float b0, b1, b2, a1, a2;
+};
+
+struct Df1LaneF32 {
+  float x1, x2, y1, y2;
+
+  __device__ __forceinline__ void load(const float* sx, const float* sy,
+                                       int lane) {
+    x1 = sx[2 * lane];
+    x2 = sx[2 * lane + 1];
+    y1 = sy[2 * lane];
+    y2 = sy[2 * lane + 1];
+  }
+
+  __device__ __forceinline__ void store(float* sx, float* sy,
+                                        int lane) const {
+    sx[2 * lane] = x1;
+    sx[2 * lane + 1] = x2;
+    sy[2 * lane] = y1;
+    sy[2 * lane + 1] = y2;
+  }
+
+  __device__ __forceinline__ float step(const Df1CoefsF32& k, float x0) {
+    float acc = __fmul_rn(k.b0, x0);
+    acc = __fadd_rn(acc, __fmul_rn(k.b1, x1));
+    acc = __fadd_rn(acc, __fmul_rn(k.b2, x2));
+    acc = __fadd_rn(acc, __fmul_rn(k.a1, y1));
+    const float y0 = __fadd_rn(acc, __fmul_rn(k.a2, y2));
     x2 = x1;
     x1 = x0;
     y2 = y1;

@@ -1,1 +1,2 @@
-"""Filters of the DDC chain: DF1 biquad, half-band decimators, kernels."""
+"""Filters of the port: DF1 biquads, half-band, CIC, lowpass, PLL,
+lock-in, and the kernels over them."""

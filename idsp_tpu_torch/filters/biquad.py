@@ -1,4 +1,5 @@
-"""Fixed-point DF1 biquad (port of the DF1 part of `idsp_tpu.filters.biquad`).
+"""DF1 biquad, fixed point and float (port of the DF1 part of
+`idsp_tpu.filters.biquad`).
 
 Coefficients are ``ba = [b0, b1, b2, a1, a2]`` in Q<f> with the
 reference's sign convention (biquad.rs:96-116):
@@ -6,8 +7,10 @@ reference's sign convention (biquad.rs:96-116):
     y0 = (b0*x0 + b1*x1 + b2*x2 + a1*y1 + a2*y2) >> f
 
 Five i32 x i32 products summed in int64 (wrapping), one truncating
-arithmetic shift, one explicit wrap to int32.  State tensors have shape
-(..., 2); x has shape (...,).  Time is axis 0 of a block.
+arithmetic shift, one explicit wrap to int32.  The float DF1
+(`df1_step`, `df1_process`) takes float coefficients and sums without
+the shift.  State tensors have shape (..., 2); x has shape (...,).
+Time is axis 0 of a block.
 """
 
 from __future__ import annotations
@@ -61,6 +64,40 @@ def _ba_list(ba) -> list[int]:
     return [int(v) for v in np.asarray(
         ba.cpu() if isinstance(ba, torch.Tensor) else ba
     ).reshape(-1)[:5]]
+
+
+def df1_step(ba, state: Df1State, x0):
+    """Float DF1 step (biquad.rs:366-383): ``b0*x0 + b1*x1 + b2*x2 +
+    a1*y1 + a2*y2``, each product and sum rounded on its own, left to
+    right.  ``ba`` (..., 5) is a tensor of the state's dtype.  Returns
+    (state, y0)."""
+    y0 = (ba[..., 0] * x0 + ba[..., 1] * state.x[..., 0]
+          + ba[..., 2] * state.x[..., 1] + ba[..., 3] * state.y[..., 0]
+          + ba[..., 4] * state.y[..., 1])
+    return (
+        Df1State(
+            x=torch.stack([x0, state.x[..., 0]], dim=-1),
+            y=torch.stack([y0, state.y[..., 0]], dim=-1),
+        ),
+        y0,
+    )
+
+
+def df1_process(ba, state: Df1State, xs):
+    """`df1_step` scanned over time axis 0 of ``xs`` (t, ...).  Returns
+    (state, ys) with ys like xs."""
+    ba = torch.as_tensor(ba, dtype=xs.dtype, device=xs.device)
+    b0, b1, b2, a1, a2 = (ba[..., i] for i in range(5))
+    x1, x2 = state.x[..., 0], state.x[..., 1]
+    y1, y2 = state.y[..., 0], state.y[..., 1]
+    ys = torch.empty_like(xs)
+    for i in range(xs.shape[0]):
+        x0 = xs[i]
+        y0 = b0 * x0 + b1 * x1 + b2 * x2 + a1 * y1 + a2 * y2
+        ys[i] = y0
+        x1, x2, y1, y2 = x0, x1, y0, y1
+    return Df1State(x=torch.stack([x1, x2], dim=-1),
+                    y=torch.stack([y1, y2], dim=-1)), ys
 
 
 def df1_step_q(ba, f: int, state: Df1State, x0):

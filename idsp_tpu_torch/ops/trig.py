@@ -11,6 +11,9 @@ arithmetic runs in int64 and is wrapped to int32 at the end.
 reference src/atan2.rs:6-82, bit-exact with the JAX package's gather
 lookup; u32/u64 arithmetic runs in int64 with explicit masks.
 
+`atan2_f32_word` is the fast f32 angle of the FM discriminator, returned
+as an int32 phase word.
+
 Phase convention: 32-bit wrapping phase, i32::MIN = -pi.
 """
 
@@ -147,3 +150,57 @@ def atan2(y, x):
     k = torch.where(swap, k ^ 0x3FFFFFFF, k)
 
     return wrap_i32(_atani(_divi(y, x)) ^ k)
+
+
+# --- f32 atan2 to a phase word (the FM discriminator's fast angle) ----------
+
+# deg-13 odd fit of atan on [0, 1] (Chebyshev-node least squares; max
+# error 2.7e-7 rad, 3.4e-7 rad in f32 Horner), as idsp_tpu/filters/
+# ddc_pallas.py:405-409; ``csrc/atan2_f32.cuh`` holds the same f32 values.
+_ATAN_F32_COEFFS = (
+    0.9999966346012426, -0.33318302540856615, 0.19813210086072103,
+    -0.13247509251117956, 0.0798109508479018, -0.03372571225910291,
+    0.006842548554979471,
+)
+
+
+def atan2_f32_word(y, x):
+    """Full-circle atan2 of f32 tensors as the int32 phase word
+    (i32::MIN = -pi), port of `idsp_tpu.filters.ddc_pallas.atan2_f32_word`.
+
+    The fast angle (SNR-gated): octant fold by min/max, one divide, the
+    odd polynomial in Horner form, the quadrant unfold, the scale to the
+    word, round half away from zero, saturation at the largest f32 below
+    2^31 and a truncating cast.  Every f32 operation rounds on its own,
+    in the order ``csrc/atan2_f32.cuh`` issues them, so kernel and plain
+    version agree bit for bit.  Max error 3.4e-7 rad plus input rounding.
+
+    Domain caveats (as the JAX package's): the 1e-38 divide guard sends
+    inputs with max(|x|, |y|) below ~1e-38 to 0 rad, and -0.0 counts as
+    +0.0.
+    """
+    f32 = torch.float32
+    y = y.to(f32)
+    x = x.to(f32)
+
+    def k(v):
+        return torch.tensor(v, dtype=f32, device=x.device)
+
+    ax = x.abs()
+    ay = y.abs()
+    den = torch.maximum(ax, ay)
+    num = torch.minimum(ax, ay)
+    q = num / torch.maximum(den, k(1e-38))
+    q2 = q * q
+    p = k(_ATAN_F32_COEFFS[-1])
+    for cc in _ATAN_F32_COEFFS[-2::-1]:
+        p = p * q2 + k(cc)
+    t = p * q
+    t = torch.where(ay > ax, k(np.pi / 2) - t, t)
+    t = torch.where(x < 0, k(np.pi) - t, t)
+    t = torch.where(y < 0, -t, t)
+    w = t * k(2147483648.0 / np.pi)
+    # round half away (the cast truncates toward zero), saturating at +pi
+    w = w + torch.where(w >= 0, k(0.5), k(-0.5))
+    w = torch.minimum(w, k(2147483520.0))  # the largest f32 below 2^31
+    return w.to(torch.int32)

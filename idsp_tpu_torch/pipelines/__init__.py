@@ -1,1 +1,1 @@
-"""Pipelines of the port: BASELINE #5, the wideband DDC bank."""
+"""Pipelines of the port: the BASELINE configurations #1-#5."""

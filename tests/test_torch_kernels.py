@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K14 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K17 against their plain PyTorch versions, on the card.
 
 Marked ``requires_cuda``; each test skips (inside its fixture) where no
 CUDA device is present.  No jax here, so the file also runs where only
@@ -6,10 +6,13 @@ PyTorch is installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
 
-On the card every K1-K14 output must equal its plain version bit for bit:
+On the card every K1-K16 output must equal its plain version bit for bit:
 the integer paths are the same int64 arithmetic, and the kernels' f32
 operations are single-rounding intrinsics in the plain versions' order,
-as eager PyTorch rounds each operation.
+as eager PyTorch rounds each operation.  K17's matrix products sum in
+another order than torch.matmul: its outputs are held within 2e-5 of
+the output scale (the JAX package's own fused-vs-planes gate), its
+history bit for bit.
 """
 
 import numpy as np
@@ -55,8 +58,18 @@ from idsp_tpu_torch.filters.hbf_cuda import (
     hbf_int_cascade_bank,
     hbf_int_cascade_bank_plain,
 )
+from idsp_tpu_torch.filters.ddc_lockin_cuda import (
+    ddc_lockin_bank,
+    ddc_lockin_bank_plain,
+)
+from idsp_tpu_torch.filters.fm_cuda import fm_disc_bank, fm_disc_bank_plain
 from idsp_tpu_torch.filters.lowpass_cuda import lowpass_bank, lowpass_bank_plain
 from idsp_tpu_torch.filters.pll_cuda import pll_bank, pll_bank_plain
+from idsp_tpu_torch.pipelines import channelizer, fm_disc
+from idsp_tpu_torch.pipelines.channelizer_cuda import (
+    channelize_fused,
+    channelize_fused_plain,
+)
 
 BA_Q = biquad.quantize_ba(
     biquad.from_cookbook(Filter().critical_frequency(0.02).lowpass()), 29)
@@ -409,3 +422,131 @@ def test_refused_launch_leaves_no_pending_error(cuda):
     xs = torch.ones((64, 128), dtype=torch.int32, device=cuda)
     _equal(df1_bank_q_dec(BA_Q, st, xs, 29, d=16),
            df1_bank_q_dec_plain(BA_Q, st, xs, 29, d=16))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("angle", ["exact", "fast"])
+def test_fm_disc_kernel_equals_plain(cuda, angle):
+    # 100 channels: not a multiple of the 32-lane block; t = 1000 leaves a
+    # tail after the last prefetch group; rows of -2^31 take the conjugate
+    # product's sums to 2^63; half the channels start valid
+    c, t = 100, 1000
+    rng = np.random.default_rng(50)
+    ba = fm_disc.deemphasis_coefficients(0.02)
+    st = fm_disc.FmDiscState(
+        prev_re=_i32(rng, (c,), device=cuda),
+        prev_im=_i32(rng, (c,), device=cuda),
+        prev_valid=torch.from_numpy(np.arange(c) % 2 == 0).to(cuda),
+        deemph=biquad.Df1State(x=_i32(rng, (c, 2), device=cuda),
+                               y=_i32(rng, (c, 2), -(2**28), 2**28,
+                                      device=cuda)))
+    st_p = st
+    for b in range(3):
+        re, im = _i32(rng, (t, c), device=cuda), _i32(rng, (t, c), device=cuda)
+        if b == 0:
+            re[:3] = -(2**31)
+            im[:3] = -(2**31)
+        st, y = fm_disc_bank(ba, st, re, im, 0x1934_1234, angle=angle)
+        st_p, y_p = fm_disc_bank_plain(ba, st_p, re, im, 0x1934_1234,
+                                       angle=angle)
+        torch.cuda.synchronize()
+        _equal((st.prev_re, st.prev_im, st.prev_valid, st.deemph.x,
+                st.deemph.y, y),
+               (st_p.prev_re, st_p.prev_im, st_p.prev_valid, st_p.deemph.x,
+                st_p.deemph.y, y_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tc", [64, 256])
+def test_ddc_lockin_kernel_equals_plain(cuda, tc):
+    c, t = 100, 1024  # 200 lanes: not a multiple of the 32-lane block
+    rng = np.random.default_rng(51)
+    lo = np.linspace(0.05, 0.45, c)
+    ba = biquad.from_cookbook(
+        Filter().critical_frequency(0.002).lowpass()).astype(np.float32)
+    st = biquad.Df1State(
+        x=torch.from_numpy(rng.normal(size=(2 * c, 2)).astype(np.float32)).to(
+            cuda),
+        y=torch.from_numpy(rng.normal(size=(2 * c, 2)).astype(np.float32)).to(
+            cuda))
+    st_p = st
+    for b in range(3):
+        x = torch.from_numpy(rng.normal(size=t).astype(np.float32)).to(cuda)
+        st, y = ddc_lockin_bank(ba, st, x, lo, b * t, time_chunk=tc)
+        st_p, y_p = ddc_lockin_bank_plain(ba, st_p, x, lo, b * t,
+                                          time_chunk=tc)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, y), (st_p.x, st_p.y, y_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tw", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,taps", [(128, 100, 8), (256, 5, 8),
+                                      (128, 70, 16), (128, 64, 2)])
+def test_channelize_fused_kernel_matches_plain(cuda, tw, m, n, taps):
+    # n = 100: a ragged last frame tile; n = 5 < taps - 1: the new history
+    # reaches back into the old one; 16 and 2 taps: the staged tile's ends
+    rng = np.random.default_rng(52)
+
+    def planes(rows):
+        return (torch.from_numpy(rng.normal(size=(rows, m)).astype(
+            np.float32)).to(cuda) for _ in range(2))
+
+    st = channelizer.PlanesState(*planes(taps - 1))
+    st_p = st
+    for _ in range(3):
+        zr, zi = planes(n)
+        st, yr, yi = channelize_fused(st, zr, zi, m=m, taps=taps,
+                                      twiddle_dtype=tw)
+        st_p, yr_p, yi_p = channelize_fused_plain(st_p, zr, zi, m=m,
+                                                  taps=taps, twiddle_dtype=tw)
+        torch.cuda.synchronize()
+        _equal((st.hist_r, st.hist_i), (st_p.hist_r, st_p.hist_i))
+        scale = float(torch.maximum(yr_p.abs().max(), yi_p.abs().max()))
+        for got, want in ((yr, yr_p), (yi, yi_p)):
+            assert float((got - want).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tw", [torch.float32, torch.bfloat16])
+def test_channelize_fused_streaming_equals_one_shot(cuda, tw):
+    m, taps, n = 128, 8, 256
+    rng = np.random.default_rng(53)
+    zr, zi = (torch.from_numpy(rng.normal(size=(n, m)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    st0 = channelizer.init_planes(m, taps, device=cuda)
+    _, yr, yi = channelize_fused(st0, zr, zi, m=m, taps=taps,
+                                 twiddle_dtype=tw)
+    st, ar, ai = channelize_fused(st0, zr[:128], zi[:128], m=m, taps=taps,
+                                  twiddle_dtype=tw)
+    _, br, bi = channelize_fused(st, zr[128:], zi[128:], m=m, taps=taps,
+                                 twiddle_dtype=tw)
+    _equal((torch.cat([ar, br]), torch.cat([ai, bi])), (yr, yi))
+
+
+@pytest.mark.requires_cuda
+def test_baseline_1_3_wrappers_reject_bad_input(cuda):
+    c = 64
+    st = fm_disc.init_state((c,), device=cuda)
+    re = torch.zeros((16, c), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        fm_disc_bank(BA_Q, st, re, re, 0, angle="approx")
+    with pytest.raises(ValueError):  # the IQ planes are int32
+        fm_disc_bank(BA_Q, st, re.float(), re.float(), 0)
+    lo = np.linspace(0.1, 0.2, c)
+    sl = biquad.df1_init((2 * c,), torch.float32, device=cuda)
+    x = torch.zeros((1000,), device=cuda)
+    with pytest.raises(ValueError):  # 1000 % 256 != 0
+        ddc_lockin_bank(np.ones(5, np.float32), sl, x, lo)
+    with pytest.raises(ValueError):  # the lock-in state is (2c, 2) f32
+        ddc_lockin_bank(np.ones(5, np.float32),
+                        biquad.df1_init((c,), torch.float32, device=cuda),
+                        x[:512], lo)
+    sp = channelizer.init_planes(96, 8, device=cuda)
+    z = torch.zeros((64, 96), device=cuda)
+    with pytest.raises(ValueError):  # m % 128 != 0
+        channelize_fused(sp, z, z, m=96)
+    sp = channelizer.init_planes(128, 8, device=cuda)
+    z = torch.zeros((64, 128), device=cuda)
+    with pytest.raises(ValueError):
+        channelize_fused(sp, z, z, m=128, twiddle_dtype=torch.float16)
