@@ -3,7 +3,8 @@
 
 Builds the CUDA kernels from ``idsp_tpu_torch/csrc``, holds each kernel
 against its plain PyTorch version, drives the main paths -- the
-headline DDC chain (`DdcChain`), the BASELINE #5 DDC bank in its Lowpass
+headline DDC chain (`DdcChain`) and its anti-windup (clamped) front
+ends, the BASELINE #5 DDC bank in its Lowpass
 (`DdcBank`) and biquad (`DdcBankBiquad`) variants, the BASELINE #4
 rate conversion (`RoundTrip`, the CIC + half-band composite decimator,
 CIC interpolation), and BASELINE #1-#3 (`FmReceiver`, `DdcLockinBank`,
@@ -30,16 +31,31 @@ Phases, each reported on its own line:
    (c=512, time chunk 512, x ~ N(0, 1), n0 carried); state, tails and
    outputs bit for bit (tolerance 0); K17 `channelize_fused` (m=1024,
    n=1024 frames, f32 and bf16) within 2e-5 of the output scale, its
-   history and two chained blocks against one bit for bit;
+   history and two chained blocks against one bit for bit; K18
+   `df1_clamp_bank_q`, K19 `df1_clamp_hbf_cascade_bank` (depth 3), K20
+   `df1_hbf1_bank` and K21 `df1_hbf12_bank` (time chunk 512) on the same
+   3 blocks of the chain's exact mix (c=512, x uniform in +-2^27), K3's
+   ``clamp=`` form at c=512 and K12's at c=1024 (d=16, time chunk 128),
+   clamped with CLAMP, bit for bit, each plain call timed, with the share
+   of DF1 outputs the clamp pinned (> 0); K19 once with the suite's clamp
+   row CLAMP_SUITE;
 4. the main paths, each with every launch counter reset just before it
    and read just after:
-   * `DdcChain` in ``split`` (K1), ``fused`` (K14), ``fold3`` (K2) and
-     ``fastlo_fused`` (K3) over 3 blocks of a coherent carrier at c=512,
-     and ``scan``, ``split``, ``fused`` at c=1024; ``split``/``fold3``
-     integer state bit for bit against the ``scan`` oracle (outputs
-     within 16 ULP of the output scale), ``fused`` output equal to
-     ``split``'s and its state to ``scan``'s at both widths,
-     ``fastlo_fused`` > 80 dB SNR on the expected bin;
+   * `DdcChain` in ``split`` (K1), ``fused`` (K14), ``fold`` (K20),
+     ``fold2`` (K21), ``fold3`` (K2), ``fold3_fastlo`` (plain fast mix,
+     K2) and ``fastlo_fused`` (K3) over 3 blocks of a coherent carrier at
+     c=512, and ``scan``, ``split``, ``fused`` at c=1024;
+     ``split``/``fold``/``fold2``/``fold3`` integer state bit for bit
+     against the ``scan`` oracle (outputs within 16 ULP of the output
+     scale), ``fused`` output equal to ``split``'s and its state to
+     ``scan``'s at both widths, ``fastlo_fused`` and ``fold3_fastlo``
+     > 80 dB SNR on the expected bin;
+   * the clamped front ends over 3 blocks of the same carrier at c=512:
+     the exact mix then K19 against the exact mix, K18 and the plain
+     time-major HBF, and K3 ``clamp=`` against the plain fast mix, K18 and
+     that HBF (integer state bit for bit, output within 16 ULP); at
+     c=1024 on the bank's blocks K12 ``clamp=`` against the fast mix, K18
+     and keep 1 in 16 (bit for bit);
    * `DdcBank` in ``scan``, ``exact`` (K4, K5), ``fast`` (K4, K5) and
      ``one_kernel`` (K6) over 3 blocks at its published width (c=1024,
      t=32768, d=16, gains2(0.004), PLL bandwidth 2e-2, x uniform in
@@ -81,12 +97,16 @@ Phases, each reported on its own line:
      bf16 and f32: fused within 2e-5 of the scale; a tone at channel 100
      through the fused path, p[100] > 1e4 x the rest at f32, > 10x at
      bf16;
-5. every kernel's launch counter > 0 from its main path's run;
-6. CUDA-event times of each kernel and its plain version, of the plain
-   layers around them (exact mix, time-major HBF, fast mix, atan2),
-   chain rates at c=512 and c=1024 and bank rates at c=1024, in c*t
-   full-rate samples/s, t=32768 (K14 and chain ``fused`` at c=512 and
-   1024; K11-K13 and the biquad bank's five modes at c=1024); K7-K10 at
+5. every kernel's launch counter > 0 from its main path's run (the
+   ``clamp=`` forms of K3 and K12 counted on their own);
+6. CUDA-event times of each kernel and its plain version (one call of
+   each plain version and ``scan``, `ONCE`), of the plain layers around
+   them (exact mix, time-major HBF, fast mix, atan2),
+   chain rates (every mode but ``scan`` with its busy share) at c=512
+   and c=1024 and bank rates at c=1024, in c*t full-rate samples/s,
+   t=32768 (K14, K18-K21 and K3's clamp form at c=512 and 1024, their
+   plain versions' times from phase 3; K11-K13, K12's clamp form and the
+   biquad bank's five modes at c=1024); K7-K10 at
    c=512 and 1024 beside their
    library yardsticks (grouped `F.conv1d` per half-band stage, TF32
    off; chained `torch.cumsum` and `torch.diff` for the CIC),
@@ -148,7 +168,17 @@ BF16_MMA_FLOPS_PER_S = 989e12
 # 4 cycles each (the fixed-latency ALU pipes) at the SM's maximum clock.
 CYCLES_PER_DEPENDENT_OP = 4
 BUSY_ITERS = 5  # chained blocks under the profiler per busy-share reading
+# A plain version or scan takes seconds a block and compiles nothing, and
+# phases 3-4 have run it at the same shape: phase 6 times one call of it.
+ONCE = {"iters": 1, "trials": 1, "warmup": False}
 M_DEC3, M_DEC4, M_INT4 = (5, 10, 23), (4, 5, 10, 23), (23, 10, 5, 4)
+# The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
+# the chain's mixed stream the 0.02 lowpass output peaks near 2.6e7, under
+# the 2^26 bound of tests/test_biquad_pallas.py:896, so that bound never
+# engages there; 2^23 pins a few % of the DF1 outputs (the bank's 0.004
+# lowpass: ~0.1 %).  CLAMP_SUITE is benches/suite.py:644-660's row.
+CLAMP = (1 << 10, -(1 << 23), 1 << 23)
+CLAMP_SUITE = (0, -(1 << 29), (1 << 29) - 1)
 # BASELINE #1-#3 at the widths of benches/suite.py:751-1012
 C_FM, FM_CARRIER = 512, 12345  # FM bank; carrier word of suite.py:760
 C_LOCKIN, TC_LOCKIN = 512, 512  # lock-in channels, LO table chunk
@@ -178,20 +208,32 @@ def _w(nbytes, f32, i32, steps, chain, fma=0, mma=0):
 
 def work(name, c, t=T):
     """The `_w` work of one call of a kernel at the shapes phase 6 times
-    it: c channels (2c I|Q lanes for K1-K6 and K11-K14, c lanes for
-    K7-K10, c channels for K15 and K16, c frames of M_CH branches for K17),
-    t full-rate rows.  Operation counts are read off the kernels' sources."""
+    it: c channels (2c I|Q lanes for K1-K6, K11-K14 and K18-K21, c lanes
+    for K7-K10, c channels for K15 and K16, c frames of M_CH branches for
+    K17), t full-rate rows.  A name ending in ``_clamp`` is the ``clamp=``
+    form of K3 or K12.  Operation counts are read off the kernels'
+    sources."""
     c2 = 2 * c
     tails3 = 2 * 4 * sum(3 * m - 2 for m in M_DEC3) * c2
     tables = 2 * 4 * (t // TC + TC) * c  # fast-LO factor tables
+    # the anti-windup clamp: add, max, min per sample, on the serial chain
+    base = name.removesuffix("_clamp")
+    df1, chain = (14, 6) if "clamp" in name else (11, 3)
     if name == "df1_bank_q":  # 5 products, 4 adds, shift, convert
         return _w(8 * t * c2 + 32 * c2, 0, 11 * t * c2, t, 3)
-    if name == "df1_hbf_cascade_bank":
-        return _w(4 * t * c2 + 4 * (t // 8) * c2 + tails3 + 32 * c2,
-                  fir_dec_ops(t, M_DEC3) * c2, 11 * t * c2, t, 3)
-    if name == "fastlo_ddc_cascade_bank":  # + 6 f32 ops of mix per sample
+    if name == "df1_clamp_bank_q":  # K1's DF1 + the clamp, int32 out
+        return _w(8 * t * c2 + 32 * c2, 0, df1 * t * c2, t, chain)
+    if name in ("df1_hbf_cascade_bank", "df1_clamp_hbf_cascade_bank",
+                "df1_hbf1_bank", "df1_hbf12_bank"):
+        ms = {"df1_hbf1_bank": M_DEC3[:1],
+              "df1_hbf12_bank": M_DEC3[:2]}.get(name, M_DEC3)
+        return _w(4 * t * c2 + 4 * (t >> len(ms)) * c2
+                  + 2 * 4 * sum(3 * m - 2 for m in ms) * c2 + 32 * c2,
+                  fir_dec_ops(t, ms) * c2, df1 * t * c2, t, chain)
+    if base == "fastlo_ddc_cascade_bank":  # + 6 f32 ops of mix per sample
         return _w(4 * t + tables + 4 * (t // 8) * c2 + tails3 + 32 * c2,
-                  (6 * t + fir_dec_ops(t, M_DEC3)) * c2, 11 * t * c2, t, 3)
+                  (6 * t + fir_dec_ops(t, M_DEC3)) * c2, df1 * t * c2, t,
+                  chain)
     if name == "lowpass_bank":  # Lowpass<2>: 9 int ops per sample
         return _w(4 * t * c2 + 4 * (t // DEC) * c2 + 32 * c2, 0,
                   9 * t * c2, t, 8)
@@ -204,9 +246,9 @@ def work(name, c, t=T):
     if name == "df1_bank_q_dec":  # K1's DF1, t/d rows out
         return _w(4 * t * c2 + 4 * (t // DEC) * c2 + 32 * c2, 0,
                   11 * t * c2, t, 3)
-    if name == "fastlo_df1_dec_bank":  # mix, 2 DF1s, t/d rows out
+    if base == "fastlo_df1_dec_bank":  # mix, 2 DF1s, t/d rows out
         return _w(4 * t + tables + 8 * (t // DEC) * c + 32 * c2, 6 * t * c2,
-                  11 * t * c2, t, 3)
+                  df1 * t * c2, t, chain)
     if name == "fastlo_ddc_bank_block":  # K12, then atan2 + PLL
         return _w(4 * t + tables + 8 * (t // DEC) * c + 32 * c2 + 72 * c,
                   6 * t * c2, 11 * t * c2 + 55 * (t // DEC) * c, t, 3)
@@ -460,8 +502,7 @@ def rate_main_path(dev, rng, wrappers):
     comp_x = [ints((T, c), 2**20) for _ in range(BLOCKS)]
     int_x = [ints((T // CIC_R, c), 2**10) for _ in range(BLOCKS)]
 
-    for w in wrappers:
-        w.launches = 0
+    reset(wrappers)
     rt = {}
     for m in ("scan", "kernel"):
         mod = RoundTrip(m, DEPTH, c, device=dev)
@@ -491,7 +532,7 @@ def rate_main_path(dev, rng, wrappers):
             outs.append((st, y))
         itp[kern] = outs
     torch.cuda.synchronize()
-    counts = {w.__name__: w.launches for w in wrappers}
+    counts = launch_counts(wrappers)
     log(f"phase 4 main path: RoundTrip (scan, kernel), cic_hbf_decimate_t "
         f"(plain, kernel), CIC interpolation (plain, kernel) x {BLOCKS} "
         f"blocks at c={c}, t={T}; launches {counts}")
@@ -717,21 +758,189 @@ def time_rate(dev, rng, card, timings):
                 log_busy(timings, name, c, sec, card, step, st, xb)
 
 
-def hold(name, kern, plain, carry, make_x):
+def hold(name, kern, plain, carry, make_x, plain_s=None):
     """Phase 3: ``kern`` against ``plain`` over BLOCKS carried blocks,
     tolerance 0.  Both are called as ``fn(*carry, x)``; the first
-    len(carry) results are the next carry.  Returns the largest |d|."""
+    len(carry) results are the next carry.  With a dict ``plain_s``, each
+    plain call is timed with CUDA events and ``plain_s[name]`` gets their
+    median in seconds.  Returns the largest |d|."""
+    import statistics
+
     import torch
 
-    err = 0.0
+    err, times = 0.0, []
     for _ in range(BLOCKS):
         x = make_x()
         got = kern(*carry, x)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         want = plain(*carry, x)
+        end.record()
         torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
         err = max(err, compare(name, got, want))
         carry = got[:len(carry)]
+    if plain_s is not None:
+        plain_s[name] = statistics.median(times)
     return err
+
+
+def reset(wrappers):
+    """Every launch counter of the wrappers to 0 (the clamp forms' too)."""
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "clamp_launches"):
+            w.clamp_launches = 0
+
+
+def launch_counts(wrappers):
+    """Each wrapper's launches; a wrapper with a ``clamp=`` form also
+    reports that form's launches as ``<name>_clamp``."""
+    counts = {w.__name__: w.launches for w in wrappers}
+    counts.update({f"{w.__name__}_clamp": w.clamp_launches for w in wrappers
+                   if hasattr(w, "clamp_launches")})
+    return counts
+
+
+def pinned(ys, clamp):
+    """Share of the DF1 output words pinned at a clamp bound."""
+    _, lo, hi = clamp
+    return float(((ys == lo) | (ys == hi)).double().mean())
+
+
+def check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank):
+    """Phase 3 for K18-K21 and the clamp forms of K3 and K12, each over
+    BLOCKS carried blocks against its plain version, tolerance 0, its plain
+    calls timed: K18, K19 (depth 3), K20, K21 on the chain's exact mix of x
+    uniform in +-2^27 at c = C_MAIN (the same blocks for all four), K3
+    ``clamp=`` at c = C_MAIN, K12 ``clamp=`` at c = C_BANK (d = DEC, time
+    chunk TC), all clamped with CLAMP; then K19 once with the suite's
+    clamp row.  Logs the share of DF1 outputs the clamp pinned (K18's
+    output on K18/K19's input, on K3's fast mix of its first block; K12's
+    kept rows)."""
+    import torch
+    from idsp_tpu_torch.chain import exact_mix
+    from idsp_tpu_torch.filters import biquad
+    from idsp_tpu_torch.filters.biquad_cuda import (
+        df1_clamp_bank_q, df1_clamp_bank_q_plain,
+    )
+    from idsp_tpu_torch.filters.ddc_bank_cuda import (
+        fastlo_df1_dec_bank, fastlo_df1_dec_bank_plain,
+    )
+    from idsp_tpu_torch.filters.ddc_cuda import (
+        df1_clamp_hbf_cascade_bank, df1_clamp_hbf_cascade_bank_plain,
+        df1_hbf1_bank, df1_hbf1_bank_plain, df1_hbf12_bank,
+        df1_hbf12_bank_plain, fastlo_ddc_cascade_bank,
+        fastlo_ddc_cascade_bank_plain, hbf1_tail_init,
+    )
+    from idsp_tpu_torch.ops.fastlo import fastlo_mix
+
+    u, lo, hi = CLAMP
+    c, c2 = C_MAIN, 2 * C_MAIN
+    steps = i32((c,), 1 << 24, 1 << 30)
+    blocks = [exact_mix(i32((T,), -(2**27), 2**27), i32((c,)), steps)
+              for _ in range(BLOCKS)]
+
+    def df1_state(lanes):
+        return biquad.df1_init((lanes,), device=dev)
+
+    def tails(ms, lanes=c2):
+        return tuple(hbf1_tail_init(lanes, m, device=dev) for m in ms)
+
+    cases = (
+        ("df1_clamp_bank_q",
+         lambda s, xs: df1_clamp_bank_q(ba, s, xs, 29, u=u, lo=lo, hi=hi),
+         lambda s, xs: df1_clamp_bank_q_plain(ba, s, xs, 29, u=u, lo=lo,
+                                              hi=hi),
+         (df1_state(c2),)),
+        ("df1_clamp_hbf_cascade_bank",
+         lambda s, tl, xs: df1_clamp_hbf_cascade_bank(
+             ba, s, tl, xs, 29, u=u, lo=lo, hi=hi, time_chunk=TC),
+         lambda s, tl, xs: df1_clamp_hbf_cascade_bank_plain(
+             ba, s, tl, xs, 29, u=u, lo=lo, hi=hi),
+         (df1_state(c2), tails(M_DEC3))),
+        ("df1_hbf1_bank",
+         lambda s, tl, xs: df1_hbf1_bank(ba, s, tl, xs, 29),
+         lambda s, tl, xs: df1_hbf1_bank_plain(ba, s, tl, xs, 29),
+         (df1_state(c2), tails(M_DEC3[:1])[0])),
+        ("df1_hbf12_bank",
+         lambda s, t1, t2, xs: df1_hbf12_bank(ba, s, t1, t2, xs, 29),
+         lambda s, t1, t2, xs: df1_hbf12_bank_plain(ba, s, t1, t2, xs, 29),
+         (df1_state(c2), *tails(M_DEC3[:2]))),
+    )
+    for name, kern, plain, carry in cases:
+        errs[name] = hold(name, kern, plain, carry, iter(blocks).__next__,
+                          plain_s)
+    share = pinned(df1_clamp_bank_q(ba, df1_state(c2), blocks[0], 29, u=u,
+                                    lo=lo, hi=hi)[1], CLAMP)
+    if not share > 0:
+        raise AssertionError("K18/K19: the clamp never engaged")
+    log(f"phase 3 K18 df1_clamp_bank_q, K19 df1_clamp_hbf_cascade_bank "
+        f"(depth 3), K20 df1_hbf1_bank (time_chunk 512), K21 df1_hbf12_bank "
+        f"(512) == plain over {BLOCKS} blocks of the exact mix (c={c}, t={T},"
+        f" x in +-2^27, clamp {CLAMP}): max |d| {errs['df1_clamp_bank_q']}, "
+        f"{errs['df1_clamp_hbf_cascade_bank']}, {errs['df1_hbf1_bank']}, "
+        f"{errs['df1_hbf12_bank']}; DF1 outputs pinned by the clamp "
+        f"{share:.4%} (first block)")
+
+    ph = i32((c,))
+    wide = [i32((T,), -(2**27), 2**27) for _ in range(BLOCKS)]
+    name = "fastlo_ddc_cascade_bank_clamp"
+    errs[name] = hold(
+        name,
+        lambda s, tl, p0, x: fastlo_ddc_cascade_bank(
+            ba, s, tl, p0, steps, x, 29, clamp=CLAMP, time_chunk=TC),
+        lambda s, tl, p0, x: fastlo_ddc_cascade_bank_plain(
+            ba, s, tl, p0, steps, x, 29, clamp=CLAMP, time_chunk=TC),
+        (df1_state(c2), tails(M_DEC3), ph), iter(wide).__next__, plain_s)
+    share = pinned(df1_clamp_bank_q(
+        ba, df1_state(c2), fastlo_mix(wide[0], ph, steps, TC), 29, u=u, lo=lo,
+        hi=hi)[1], CLAMP)
+    if not share > 0:
+        raise AssertionError("K3 clamp=: the clamp never engaged")
+    log(f"phase 3 K3 fastlo_ddc_cascade_bank clamp={CLAMP} == plain over "
+        f"{BLOCKS} blocks (c={c}, t={T}, time_chunk={TC}): max |d| "
+        f"{errs[name]}; DF1 outputs pinned {share:.4%} (first block)")
+
+    cb = C_BANK
+    stp = i32((cb,), 1 << 24, 1 << 30)
+    kept = []
+    name = "fastlo_df1_dec_bank_clamp"
+    kw = {"d": DEC, "clamp": CLAMP, "time_chunk": TC}
+
+    def k12(s, p0, x):
+        out = fastlo_df1_dec_bank(ba_bank, s, p0, stp, x, 29, **kw)
+        kept.append(pinned(out[2], CLAMP))
+        return out
+
+    errs[name] = hold(
+        name, k12,
+        lambda s, p0, x: fastlo_df1_dec_bank_plain(ba_bank, s, p0, stp, x,
+                                                   29, **kw),
+        (df1_state(2 * cb), i32((cb,))),
+        lambda: i32((T,), -(2**27), 2**27), plain_s)
+    if not max(kept) > 0:
+        raise AssertionError("K12 clamp=: the clamp never engaged")
+    log(f"phase 3 K12 fastlo_df1_dec_bank clamp={CLAMP} == plain over "
+        f"{BLOCKS} blocks (c={cb}, t={T}, d={DEC}, time_chunk={TC}, the "
+        f"bank's lowpass at 0.004): max |d| {errs[name]}; kept rows pinned "
+        f"{max(kept):.4%}")
+
+    # the suite's clamp row (benches/suite.py:644-660), one block
+    su, slo, shi = CLAMP_SUITE
+    got = df1_clamp_hbf_cascade_bank(ba, df1_state(c2), tails(M_DEC3),
+                                     blocks[0], 29, u=su, lo=slo, hi=shi,
+                                     time_chunk=TC)
+    want = df1_clamp_hbf_cascade_bank_plain(ba, df1_state(c2), tails(M_DEC3),
+                                            blocks[0], 29, u=su, lo=slo,
+                                            hi=shi)
+    torch.cuda.synchronize()
+    err = compare("df1_clamp_hbf_cascade_bank (suite row)", got, want)
+    errs["df1_clamp_hbf_cascade_bank"] = max(errs["df1_clamp_hbf_cascade_bank"],
+                                             err)
+    log(f"phase 3 K19 with the suite's clamp {CLAMP_SUITE} == plain on one "
+        f"block (c={c}, t={T}): max |d| {err}")
 
 
 def check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba):
@@ -814,8 +1023,7 @@ def biquad_bank_main_path(dev, i32, rng, ba_bank, pll_ba, wrappers):
     banks = {m: DdcBankBiquad(m, steps, ba_bank, pll_ba, decimate=DEC,
                               time_chunk=TC) for m in BIQUAD_MODES}
     xs = [i32((T,), -(2**27), 2**27) for _ in range(BLOCKS)]
-    for w in wrappers:
-        w.launches = 0
+    reset(wrappers)
     runs = {}
     for m, bank in banks.items():
         state, outs = bank.init_state(), []
@@ -824,7 +1032,7 @@ def biquad_bank_main_path(dev, i32, rng, ba_bank, pll_ba, wrappers):
             outs.append((state, out))
         runs[m] = outs
     torch.cuda.synchronize()
-    counts = {w.__name__: w.launches for w in wrappers}
+    counts = launch_counts(wrappers)
     log(f"phase 4 main path: DdcBankBiquad {BIQUAD_MODES} x {BLOCKS} blocks "
         f"at c={C_BANK}, t={T}, d={DEC}; launches {counts}")
     for m, ref in (("exact", "scan"), ("fast_fused", "fast"),
@@ -879,6 +1087,106 @@ def biquad_bank_main_path(dev, i32, rng, ba_bank, pll_ba, wrappers):
     log(f"phase 4 DdcBankBiquad fast_fused tracks exact: median |freq - "
         f"exact| {track} < {1 << 12}, |freq err| median {lock} < {1 << 18}")
     return counts, banks, xs
+
+
+def clamp_main_path(dev, ba, ba_bank, xblocks, steps, bank_x, bank_steps,
+                    wrappers):
+    """Phase 4 for the anti-windup (clamped) front ends, every counter
+    reset just before and read just after: over BLOCKS blocks of the
+    coherent carrier at c = C_MAIN, the exact mix then K19 against the
+    exact mix, K18 and the plain time-major HBF (integer state bit for
+    bit, output within 16 ULP), and K3 ``clamp=`` against the plain fast
+    mix, K18 and the same HBF (the same gates); over the bank's blocks at
+    c = C_BANK, K12 ``clamp=`` against the fast mix, K18 and keep 1 in
+    DEC (bit for bit).  All clamped with CLAMP.  Returns the launch
+    counts of the run."""
+    import torch
+    from idsp_tpu_torch.chain import exact_mix
+    from idsp_tpu_torch.filters import biquad, hbf
+    from idsp_tpu_torch.filters.biquad_cuda import df1_clamp_bank_q
+    from idsp_tpu_torch.filters.ddc_bank_cuda import fastlo_df1_dec_bank
+    from idsp_tpu_torch.filters.ddc_cuda import (
+        df1_clamp_hbf_cascade_bank, fastlo_ddc_cascade_bank, hbf1_tail_init,
+    )
+    from idsp_tpu_torch.ops import accu
+    from idsp_tpu_torch.ops.fastlo import fastlo_mix
+
+    u, lo, hi = CLAMP
+    c, c2, cb = C_MAIN, 2 * C_MAIN, C_BANK
+
+    def zero(lanes, cascade):
+        tails = tuple(hbf1_tail_init(lanes, m, device=dev) for m in M_DEC3)
+        dec = hbf.hbf_dec_cascade_init(3, (lanes,), axis=0, device=dev)
+        return (biquad.df1_init((lanes,), device=dev),
+                tails if cascade else dec,
+                torch.zeros((lanes // 2,), dtype=torch.int32, device=dev))
+
+    def composed(state, miq):
+        """The unfused clamped front end: K18, then the time-major HBF."""
+        bq, dec, _ = state
+        bq, ys = df1_clamp_bank_q(ba, bq, miq, 29, u=u, lo=lo, hi=hi)
+        dec, y = hbf.hbf_dec_cascade(dec, ys.to(torch.float32), axis=0)
+        return (bq, dec), y, ys
+
+    reset(wrappers)
+    runs = {"exact": [], "fast": [], "bank": []}
+    for name, mix in (("exact", None), ("fast", TC)):
+        st_k, st_r = zero(c2, True), zero(c2, False)
+        for x in xblocks:
+            ph = st_r[2]
+            if mix is None:
+                miq = exact_mix(x, ph, steps)
+                bq, tails, y = df1_clamp_hbf_cascade_bank(
+                    ba, st_k[0], st_k[1], miq, 29, u=u, lo=lo, hi=hi,
+                    time_chunk=TC)
+                ph_k = accu.advance(st_k[2], steps, T)
+            else:
+                miq = fastlo_mix(x, ph, steps, mix)
+                bq, tails, ph_k, y = fastlo_ddc_cascade_bank(
+                    ba, st_k[0], st_k[1], st_k[2], steps, x, 29, clamp=CLAMP,
+                    time_chunk=TC)
+            (bq_r, dec), y_r, ys = composed(st_r, miq)
+            st_k = (bq, tails, ph_k)
+            st_r = (bq_r, dec, accu.advance(ph, steps, T))
+            runs[name].append((bq, ph_k, y, bq_r, st_r[2], y_r,
+                               pinned(ys, CLAMP)))
+    st_k = st_r = (biquad.df1_init((2 * cb,), device=dev),
+                   torch.zeros((cb,), dtype=torch.int32, device=dev))
+    for x in bank_x:
+        bq, ph_k, yk = fastlo_df1_dec_bank(ba_bank, *st_k, bank_steps, x, 29,
+                                           d=DEC, clamp=CLAMP, time_chunk=TC)
+        bq_r, ys = df1_clamp_bank_q(ba_bank, st_r[0],
+                                    fastlo_mix(x, st_r[1], bank_steps, TC), 29,
+                                    u=u, lo=lo, hi=hi)
+        st_k, st_r = (bq, ph_k), (bq_r, accu.advance(st_r[1], bank_steps, T))
+        runs["bank"].append((bq, ph_k, yk, bq_r, st_r[1], ys[::DEC],
+                             pinned(yk, CLAMP)))
+    torch.cuda.synchronize()
+    counts = launch_counts(wrappers)
+    log(f"phase 4 main path: clamped front ends x {BLOCKS} blocks, clamp "
+        f"{CLAMP}: exact mix + K19 and exact mix + K18 + HBF, K3 clamp= and "
+        f"fast mix + K18 + HBF at c={c} (the coherent carrier), K12 clamp= "
+        f"and fast mix + K18 + keep 1 in {DEC} at c={cb}; launches {counts}")
+    for name, outs in runs.items():
+        worst, share = 0.0, 0.0
+        for b, (bq, ph, y, bq_r, ph_r, y_r, pin) in enumerate(outs):
+            compare(f"clamped {name}: DF1 state and phase, block {b}",
+                    (bq.x, bq.y, ph), (bq_r.x, bq_r.y, ph_r))
+            if y.shape != y_r.shape or not bool(torch.isfinite(
+                    y.float()).all()):
+                raise AssertionError(f"clamped {name}: bad output")
+            worst = max(worst, max_abs(y, y_r))
+            share = max(share, pin)
+            bound = 0 if name == "bank" else ulp_bound(y_r, 16)
+            if worst > bound:
+                raise AssertionError(f"clamped {name}: output off the "
+                                     f"unfused composition by {worst} > "
+                                     f"{bound}")
+        log(f"phase 4 clamped {name}: DF1 state and phase bit for bit vs the "
+            f"unfused composition; max |output d| {worst} (gate "
+            f"{'0' if name == 'bank' else '16 ULP'}); DF1 outputs pinned "
+            f"{share:.4%}")
+    return counts
 
 
 def fm_inputs(dev, rng):
@@ -1014,8 +1322,7 @@ def fm_main_path(dev, rng, wrappers):
 
     ba = fm_disc.deemphasis_coefficients(0.02)
     blocks = [fm_inputs(dev, rng) for _ in range(BLOCKS)]
-    for w in wrappers:
-        w.launches = 0
+    reset(wrappers)
     runs = {}
     for m in fm_disc.MODES:
         rx = FmReceiver(m, ba, FM_CARRIER, C_FM, device=dev)
@@ -1027,7 +1334,7 @@ def fm_main_path(dev, rng, wrappers):
     gates = {k: fm_disc.run_fm_disc(kernel=k, device=dev)
              for k in ("exact", "fast")}
     torch.cuda.synchronize()
-    counts = {w.__name__: w.launches for w in wrappers}
+    counts = launch_counts(wrappers)
     log(f"phase 4 main path: FmReceiver {fm_disc.MODES} x {BLOCKS} blocks at "
         f"c={C_FM}, t={T}, carrier {FM_CARRIER}, deemphasis Q32<30> at 0.02; "
         f"run_fm_disc (exact, fast); launches {counts}")
@@ -1123,8 +1430,7 @@ def lockin_main_path(dev, rng, wrappers):
 
     lo_128 = np.linspace(0.05, 0.45, 128)
     x_128 = tone(lo_128[k_tone], 4096)
-    for w in wrappers:
-        w.launches = 0
+    reset(wrappers)
     runs, small = {}, {}
     for m in MODES:
         bank = DdcLockinBank(m, lo_fs, ba, time_chunk=TC_LOCKIN, device=dev)
@@ -1143,7 +1449,7 @@ def lockin_main_path(dev, rng, wrappers):
                          device=dev)
     _, y_tone = bank(bank.init_state(), tone(lo_fs[k_tone], T))
     torch.cuda.synchronize()
-    counts = {w.__name__: w.launches for w in wrappers}
+    counts = launch_counts(wrappers)
     log(f"phase 4 main path: DdcLockinBank {MODES} x {BLOCKS} blocks at "
         f"c={C_LOCKIN} ({2 * C_LOCKIN} I|Q lanes), t={T}, time_chunk="
         f"{TC_LOCKIN}, lowpass 0.002, and at c=128, t=4096 on a tone; a tone "
@@ -1193,8 +1499,7 @@ def channelizer_main_path(dev, rng, wrappers):
     x = chz.tone(100 / M_CH, M_CH * nfr, device=dev)
     tone = chz.planes_from_stream(x[..., 0].contiguous(),
                                   x[..., 1].contiguous(), M_CH)
-    for w in wrappers:
-        w.launches = 0
+    reset(wrappers)
     runs, powers = {}, {}
     for tw in (torch.bfloat16, torch.float32):
         for impl in ("fused", "xla"):
@@ -1213,7 +1518,7 @@ def channelizer_main_path(dev, rng, wrappers):
         powers[tw] = (yr.double() ** 2 + yi.double() ** 2)[128:].mean(
             0).cpu().numpy()
     torch.cuda.synchronize()
-    counts = {w.__name__: w.launches for w in wrappers}
+    counts = launch_counts(wrappers)
     log(f"phase 4 main path: channelize_planes (fused, xla) x (bf16, f32) at "
         f"m={M_CH}, taps={CH_TAPS}, n={N_CH[0]} x {BLOCKS} blocks and n="
         f"{N_CH[1]}; the tone at channel 100; launches {counts}")
@@ -1296,14 +1601,13 @@ def time_slice5(dev, rng, card, timings):
         k_s, _ = measure_rate(lambda s: fm_disc_bank(
             ba, s, re, im, FM_CARRIER, angle=angle), st0, iters=20, trials=3)
         p_s, _ = measure_rate(lambda s: fm_disc_bank_plain(
-            ba, s, re, im, FM_CARRIER, angle=angle), st0, iters=1, trials=1)
+            ba, s, re, im, FM_CARRIER, angle=angle), st0, **ONCE)
         record(name, C_FM, k_s, p_s, note=f"c={C_FM} ({angle} angle)")
     timings["fm_samples_per_s"] = {}
     for m in fm_disc.MODES:
         rx = FmReceiver(m, ba, FM_CARRIER, C_FM, device=dev)
-        iters, trials = (1, 1) if m == "scan" else (10, 3)
-        sec, _ = measure_rate(rx, rx.init_state(), re, im, iters=iters,
-                              trials=trials)
+        how = ONCE if m == "scan" else {"iters": 10, "trials": 3}
+        sec, _ = measure_rate(rx, rx.init_state(), re, im, **how)
         timings["fm_samples_per_s"][m] = C_FM * T / sec
         log(f"phase 6 c={C_FM} FmReceiver {m}: {sec * 1e3:.3f} ms/block, "
             f"{C_FM * T / sec:.6e} samples/s (c*t)  [{card}]")
@@ -1318,15 +1622,14 @@ def time_slice5(dev, rng, card, timings):
     k_s, _ = measure_rate(lambda s: ddc_lockin_bank(
         ba_lk, s, x, lo_fs, 0, time_chunk=TC_LOCKIN), sl0, iters=20, trials=3)
     p_s, _ = measure_rate(lambda s: ddc_lockin_bank_plain(
-        ba_lk, s, x, lo_fs, 0, time_chunk=TC_LOCKIN), sl0, iters=1, trials=1)
+        ba_lk, s, x, lo_fs, 0, time_chunk=TC_LOCKIN), sl0, **ONCE)
     record("ddc_lockin_bank", C_LOCKIN, k_s, p_s, note=f"c={C_LOCKIN}")
     timings["lockin_samples_per_s"] = {}
     for m in ("scan", "kernel"):
         bank = DdcLockinBank(m, lo_fs, ba_lk, time_chunk=TC_LOCKIN,
                              device=dev)
-        iters, trials = (1, 1) if m == "scan" else (10, 3)
-        sec, _ = measure_rate(bank, bank.init_state(), x, iters=iters,
-                              trials=trials)
+        how = ONCE if m == "scan" else {"iters": 10, "trials": 3}
+        sec, _ = measure_rate(bank, bank.init_state(), x, **how)
         timings["lockin_samples_per_s"][m] = C_LOCKIN * T / sec
         log(f"phase 6 c={C_LOCKIN} DdcLockinBank {m}: {sec * 1e3:.3f} "
             f"ms/block, {C_LOCKIN * T / sec:.6e} samples/s (c*t)  [{card}]")
@@ -1387,9 +1690,11 @@ def main():
     from idsp_tpu_torch.filters import biquad
     from idsp_tpu_torch.filters.biquad_cuda import (
         df1_bank_q, df1_bank_q_dec, df1_bank_q_dec_plain, df1_bank_q_plain,
+        df1_clamp_bank_q,
     )
     from idsp_tpu_torch.filters.ddc_cuda import (
         ddc_mix_df1_bank, ddc_mix_df1_bank_plain,
+        df1_clamp_hbf_cascade_bank, df1_hbf1_bank, df1_hbf12_bank,
         df1_hbf_cascade_bank, df1_hbf_cascade_bank_plain,
         fastlo_ddc_cascade_bank, fastlo_ddc_cascade_bank_plain,
         hbf1_tail_init,
@@ -1556,6 +1861,8 @@ def main():
     check_rate_kernels(dev, rng, errs)
     check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba)
     check_slice5_kernels(dev, rng, errs)
+    plain_s = {}  # K18-K21 and the clamp forms: their plain calls' times
+    check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank)
 
     # ---- phase 4: the main path ---------------------------------------
     steps_np = rng.integers(1 << 24, 1 << 30, size=(C_WIDE,)).astype(np.int32)
@@ -1569,7 +1876,8 @@ def main():
         torch.int32)
     xblocks = [carrier[i * T:(i + 1) * T].contiguous() for i in range(BLOCKS)]
 
-    modes = ("scan", "split", "fused", "fold3", "fastlo_fused")
+    modes = ("scan", "split", "fused", "fold", "fold2", "fold3",
+             "fold3_fastlo", "fastlo_fused")
     chains = {m: DdcChain(m, steps_all[:C_MAIN], ba, time_chunk=TC)
               for m in modes}
     wrappers = (df1_bank_q, df1_hbf_cascade_bank, fastlo_ddc_cascade_bank,
@@ -1577,9 +1885,15 @@ def main():
                 hbf_dec_cascade_bank, hbf_int_cascade_bank, cic_dec_bank,
                 cic_int_bank, df1_bank_q_dec, fastlo_df1_dec_bank,
                 fastlo_ddc_bank_block, ddc_mix_df1_bank, fm_disc_bank,
-                ddc_lockin_bank, channelize_fused)
+                ddc_lockin_bank, channelize_fused, df1_clamp_bank_q,
+                df1_clamp_hbf_cascade_bank, df1_hbf1_bank, df1_hbf12_bank)
     chain_kernels = ("df1_bank_q", "df1_hbf_cascade_bank",
-                     "fastlo_ddc_cascade_bank", "ddc_mix_df1_bank")
+                     "fastlo_ddc_cascade_bank", "ddc_mix_df1_bank",
+                     "df1_hbf1_bank", "df1_hbf12_bank")
+    # the clamped front ends (K12's clamp form at the bank's width)
+    clamp_kernels = ("df1_clamp_bank_q", "df1_clamp_hbf_cascade_bank",
+                     "fastlo_ddc_cascade_bank_clamp",
+                     "fastlo_df1_dec_bank_clamp")
     bank_kernels = ("lowpass_bank", "pll_bank", "fastlo_ddc_bank_block_lp")
     biquad_kernels = ("df1_bank_q_dec", "fastlo_df1_dec_bank",
                       "fastlo_ddc_bank_block")
@@ -1588,8 +1902,7 @@ def main():
     # BASELINE #1-#3: each kernel's width in the kernels line (K17: frames)
     slice5_c = {"fm_disc_bank": C_FM, "ddc_lockin_bank": C_LOCKIN,
                 "channelize_fused": N_CH[-1]}
-    for w in wrappers:
-        w.launches = 0
+    reset(wrappers)
     # every mode at c = C_MAIN; the exact-LO modes also at c = C_WIDE
     wide_modes = ("scan", "split", "fused")
     runs, wide_runs = {}, {}
@@ -1606,7 +1919,7 @@ def main():
                              state[3].clone()))
             into[m] = outs
     torch.cuda.synchronize()
-    counts = {w.__name__: w.launches for w in wrappers}
+    counts = launch_counts(wrappers)
     launches = {k: counts[k] for k in chain_kernels}
     log(f"phase 4 main path: DdcChain {modes} x {BLOCKS} blocks at "
         f"c={C_MAIN} and {wide_modes} at c={C_WIDE}, t={T}; launches "
@@ -1623,7 +1936,7 @@ def main():
         log(f"phase 4 fused at c={c}: (zi, zq) == split's and DF1 state and "
             f"phase == scan's, bit for bit over {BLOCKS} blocks")
 
-    for m in ("split", "fold3"):
+    for m in ("split", "fold", "fold2", "fold3"):
         worst = 0.0
         for (zi, zq, sx, sy, ph), (ri, rq, rx, ry, rph) in zip(runs[m],
                                                              runs["scan"]):
@@ -1644,19 +1957,21 @@ def main():
         log(f"phase 4 {m}: DF1 state and phase bit-exact vs scan; "
             f"max |output - scan| {worst}")
 
-    zi, zq = runs["fastlo_fused"][0][:2]
-    if tuple(zi.shape) != (T // 8, C_MAIN) or not bool(
-            torch.isfinite(zi).all() & torch.isfinite(zq).all()):
-        raise AssertionError("fastlo_fused: bad output")
-    z = (zi[:, 0].double().cpu().numpy()
-         + 1j * zq[:, 0].double().cpu().numpy())[1024:1024 + 2048]
-    snr, peak = snr_db(z)
-    expect = int(round(OFF_STEP * 8 / 2**32 * 2048)) % 2048
-    if min(abs(peak - expect), 2048 - abs(peak - expect)) > 2 or snr <= 80.0:
-        raise AssertionError(f"fastlo_fused: SNR {snr:.2f} dB at bin {peak}"
-                             f" (want > 80 dB at bin {expect})")
-    log(f"phase 4 fastlo_fused: SNR {snr:.3f} dB at bin {peak} "
-        f"(expected {expect}, gate > 80 dB)")
+    for m in ("fastlo_fused", "fold3_fastlo"):
+        zi, zq = runs[m][0][:2]
+        if tuple(zi.shape) != (T // 8, C_MAIN) or not bool(
+                torch.isfinite(zi).all() & torch.isfinite(zq).all()):
+            raise AssertionError(f"{m}: bad output")
+        z = (zi[:, 0].double().cpu().numpy()
+             + 1j * zq[:, 0].double().cpu().numpy())[1024:1024 + 2048]
+        snr, peak = snr_db(z)
+        expect = int(round(OFF_STEP * 8 / 2**32 * 2048)) % 2048
+        if min(abs(peak - expect),
+               2048 - abs(peak - expect)) > 2 or snr <= 80.0:
+            raise AssertionError(f"{m}: SNR {snr:.2f} dB at bin {peak} "
+                                 f"(want > 80 dB at bin {expect})")
+        log(f"phase 4 {m}: SNR {snr:.3f} dB at bin {peak} "
+            f"(expected {expect}, gate > 80 dB)")
 
     # ---- phase 4 (bank): the BASELINE #5 main path --------------------
     bank_modes = ("scan", "exact", "fast", "one_kernel")
@@ -1664,8 +1979,7 @@ def main():
     banks = {m: DdcBank(m, bank_steps, lp_gains, pll_ba, decimate=DEC,
                         time_chunk=TC) for m in bank_modes}
     bank_x = [i32((T,), -(2**27), 2**27) for _ in range(BLOCKS)]
-    for w in wrappers:
-        w.launches = 0
+    reset(wrappers)
     bank_runs = {}
     for m in bank_modes:
         state = banks[m].init_state()
@@ -1675,7 +1989,7 @@ def main():
             outs.append((state, out))
         bank_runs[m] = outs
     torch.cuda.synchronize()
-    counts = {w.__name__: w.launches for w in wrappers}
+    counts = launch_counts(wrappers)
     for k in bank_kernels:
         launches[k] = counts[k]
     log(f"phase 4 main path: DdcBank {bank_modes} x {BLOCKS} blocks at "
@@ -1722,6 +2036,12 @@ def main():
     counts, bq_banks, bq_x = biquad_bank_main_path(dev, i32, rng, ba_bank,
                                                    pll_ba, wrappers)
     for k in biquad_kernels:
+        launches[k] = counts[k]
+
+    # ---- phase 4 (clamp): the anti-windup front ends ------------------
+    counts = clamp_main_path(dev, ba, ba_bank, xblocks, steps_all[:C_MAIN],
+                             bank_x, bank_steps, wrappers)
+    for k in clamp_kernels:
         launches[k] = counts[k]
 
     # ---- phase 4 (rate conversion): the BASELINE #4 main path ---------
@@ -1774,11 +2094,34 @@ def main():
         }
         for name, (kern, plain) in cases.items():
             k_s, _ = measure_rate(kern, st, iters=20, trials=3)
-            p_s, _ = measure_rate(plain, st, iters=1, trials=2)
+            p_s, _ = measure_rate(plain, st, **ONCE)
             timings["kernels"].setdefault(name, {})[c] = {
                 "ms": k_s * 1e3, "plain_ms": p_s * 1e3}
             log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
                 f"{p_s * 1e3:.2f} ms  [{card}]")
+        # K18-K21 and K3's clamp form; their plain versions were timed in
+        # phase 3 (c = C_MAIN)
+        u, lo, hi = CLAMP
+        clamped = {
+            "df1_clamp_bank_q": lambda s: df1_clamp_bank_q(
+                ba, s, xs, 29, u=u, lo=lo, hi=hi),
+            "df1_clamp_hbf_cascade_bank": lambda s: df1_clamp_hbf_cascade_bank(
+                ba, s, tails, xs, 29, u=u, lo=lo, hi=hi, time_chunk=TC),
+            "df1_hbf1_bank": lambda s: df1_hbf1_bank(ba, s, tails[0], xs, 29),
+            "df1_hbf12_bank": lambda s: df1_hbf12_bank(ba, s, *tails[:2], xs,
+                                                       29),
+            "fastlo_ddc_cascade_bank_clamp": lambda s: fastlo_ddc_cascade_bank(
+                ba, s, tails, ph0, stp, x, 29, clamp=CLAMP, time_chunk=TC),
+        }
+        for name, kern in clamped.items():
+            k_s, _ = measure_rate(kern, st, iters=20, trials=3)
+            entry = {"ms": k_s * 1e3}
+            if c == C_MAIN:
+                entry["plain_ms"] = plain_s[name] * 1e3
+            timings["kernels"].setdefault(name, {})[c] = entry
+            log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms"
+                + (f", plain {entry['plain_ms']:.2f} ms (phase 3)"
+                   if c == C_MAIN else "") + f"  [{card}]")
         # the plain layers around the kernels in the split/fold3 modes
         split = DdcChain("split", stp, ba)
         yiq = torch.from_numpy(
@@ -1795,9 +2138,8 @@ def main():
                 f"[{card}]")
         for m in modes:
             chain = DdcChain(m, stp, ba, time_chunk=TC)
-            iters, trials = (1, 1) if m == "scan" else (10, 3)
-            sec, _ = measure_rate(chain, chain.init_state(), x, iters=iters,
-                                  trials=trials)
+            how = ONCE if m == "scan" else {"iters": 10, "trials": 3}
+            sec, _ = measure_rate(chain, chain.init_state(), x, **how)
             rate = c * T / sec
             timings["chain_samples_per_s"].setdefault(m, {})[c] = rate
             log(f"phase 6 c={c} chain {m}: {sec * 1e3:.3f} ms/block, "
@@ -1856,11 +2198,20 @@ def main():
     })
     for name, (kern, plain, st) in cases.items():
         k_s, _ = measure_rate(kern, st, iters=20, trials=3)
-        p_s, _ = measure_rate(plain, st, iters=1, trials=1)
+        p_s, _ = measure_rate(plain, st, **ONCE)
         timings["kernels"].setdefault(name, {})[c] = {
             "ms": k_s * 1e3, "plain_ms": p_s * 1e3}
         log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
             f"{p_s * 1e3:.2f} ms  [{card}]")
+    name = "fastlo_df1_dec_bank_clamp"  # plain timed in phase 3
+    k_s, _ = measure_rate(
+        lambda s: fastlo_df1_dec_bank(ba_bank, s, ph0, bank_steps, x, 29,
+                                      d=DEC, clamp=CLAMP, time_chunk=TC),
+        bq0, iters=20, trials=3)
+    timings["kernels"][name] = {c: {"ms": k_s * 1e3,
+                                    "plain_ms": plain_s[name] * 1e3}}
+    log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
+        f"{plain_s[name] * 1e3:.2f} ms (phase 3)  [{card}]")
     layers = {
         "fastlo_mix": lambda _: fastlo_mix(x, ph0, bank_steps, TC),
         "atan2_decimated": lambda _: atan2(phd, phd.flip(0)),
@@ -1873,9 +2224,8 @@ def main():
     timings["bank_samples_per_s"] = {}
     for m in bank_modes:
         bank = banks[m]
-        iters, trials = (1, 1) if m == "scan" else (10, 3)
-        sec, _ = measure_rate(bank, bank.init_state(), x, iters=iters,
-                              trials=trials)
+        how = ONCE if m == "scan" else {"iters": 10, "trials": 3}
+        sec, _ = measure_rate(bank, bank.init_state(), x, **how)
         rate = c * T / sec
         timings["bank_samples_per_s"][m] = rate
         log(f"phase 6 c={c} bank {m}: {sec * 1e3:.3f} ms/block, "
@@ -1885,9 +2235,8 @@ def main():
                      bank.init_state(), x)
     timings["biquad_bank_samples_per_s"] = {}
     for m, bank in bq_banks.items():
-        iters, trials = (1, 1) if m == "scan" else (10, 3)
-        sec, _ = measure_rate(bank, bank.init_state(), bq_x[0], iters=iters,
-                              trials=trials)
+        how = ONCE if m == "scan" else {"iters": 10, "trials": 3}
+        sec, _ = measure_rate(bank, bank.init_state(), bq_x[0], **how)
         rate = c * T / sec
         timings["biquad_bank_samples_per_s"][m] = rate
         log(f"phase 6 c={c} biquad bank {m}: {sec * 1e3:.3f} ms/block, "
@@ -1934,13 +2283,26 @@ def main():
                             "idsp_tpu/filters/ddc_pallas.py:1359"),
         "channelize_fused": ("idsp_tpu_torch/csrc/channelize.cu",
                              "idsp_tpu/pipelines/channelizer_pallas.py:54"),
+        "df1_clamp_bank_q": ("idsp_tpu_torch/csrc/df1_bank.cu",
+                             "idsp_tpu/filters/biquad_pallas.py:696"),
+        "df1_clamp_hbf_cascade_bank": ("idsp_tpu_torch/csrc/ddc_cascade.cu",
+                                       "idsp_tpu/filters/ddc_pallas.py:834"),
+        "df1_hbf1_bank": ("idsp_tpu_torch/csrc/ddc_cascade.cu",
+                          "idsp_tpu/filters/ddc_pallas.py:743"),
+        "df1_hbf12_bank": ("idsp_tpu_torch/csrc/ddc_cascade.cu",
+                           "idsp_tpu/filters/ddc_pallas.py:767"),
+        "fastlo_ddc_cascade_bank_clamp": (
+            "idsp_tpu_torch/csrc/ddc_cascade.cu",
+            "idsp_tpu/filters/ddc_pallas.py:1298"),
+        "fastlo_df1_dec_bank_clamp": ("idsp_tpu_torch/csrc/ddc_bank.cu",
+                                      "idsp_tpu/filters/ddc_pallas.py:870"),
     }
     sm_mhz = sm_clock_mhz()
     kernels = []
     for name, (src, rep) in sources.items():
-        c = (C_MAIN if name in chain_kernels else
-             C_BANK if name in bank_kernels + biquad_kernels else
-             slice5_c.get(name, C_RATE))
+        c = (C_MAIN if name in chain_kernels + clamp_kernels[:3] else
+             C_BANK if name in bank_kernels + biquad_kernels
+             + clamp_kernels[3:] else slice5_c.get(name, C_RATE))
         timed = timings["kernels"][name][c]
         bound_ms, bound_by, _ = bounds(name, c, sm_mhz)
         kernels.append({

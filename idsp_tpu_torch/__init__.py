@@ -5,9 +5,12 @@ A second package beside `idsp_tpu` (the JAX reference, which stays as
 it is).  It carries these main paths with the same numerics and the same
 public layouts:
 
-* the headline DDC chain `bench.py` measures (`chain.DdcChain`) —
-  per-channel conjugate NCO mix, Q32<29> DF1 biquad, three-stage
-  half-band decimate-by-8;
+* the headline DDC chain `bench.py` measures (`chain.DdcChain`, every
+  mode of bench.py but its TPU-only ``pallas``) — per-channel conjugate
+  NCO mix, Q32<29> DF1 biquad, three-stage half-band decimate-by-8 —
+  and the anti-windup (clamped) DF1 of the reference's production
+  biquad, alone (`df1_clamp_bank_q`) and fused with the cascade
+  (`df1_clamp_hbf_cascade_bank`, the ``clamp=`` of the fast-LO kernels);
 * the BASELINE #5 DDC bank (`pipelines.ddc_bank.DdcBank`, Lowpass
   variant, and `DdcBankBiquad`, Q<f> DF1 variant) — per-channel mix,
   the channel filter on I and Q, keep 1 in d, `atan2`, per-channel PLL;
@@ -47,11 +50,16 @@ from . import fxp, luts  # noqa: F401
 from .ops import accu, fastlo, trig  # noqa: F401
 from .ops.trig import cossin  # noqa: F401
 from .filters import cic, hbf  # noqa: F401
-from .filters.biquad_cuda import df1_bank_q_dec  # noqa: F401
+from .filters.biquad_cuda import (  # noqa: F401
+    df1_bank_q_dec, df1_clamp_bank_q,
+)
 from .filters.ddc_bank_cuda import (  # noqa: F401
     fastlo_ddc_bank_block, fastlo_df1_dec_bank,
 )
-from .filters.ddc_cuda import ddc_mix_df1_bank  # noqa: F401
+from .filters.ddc_cuda import (  # noqa: F401
+    ddc_mix_df1_bank, df1_clamp_hbf_cascade_bank, df1_hbf1_bank,
+    df1_hbf12_bank,
+)
 from .filters.ddc_lockin_cuda import ddc_lockin_bank  # noqa: F401
 from .filters.fm_cuda import fm_disc_bank  # noqa: F401
 from .pipelines import (  # noqa: F401
@@ -68,7 +76,9 @@ from .pipelines.rate_conversion import RoundTrip  # noqa: F401
 __all__ = ["DdcBankBiquad", "DdcBankBiquadState", "DdcLockinBank",
            "FmReceiver", "RoundTrip", "accu", "channelize_fused",
            "channelizer", "cic", "cossin", "ddc_lockin", "ddc_lockin_bank",
-           "ddc_mix_df1_bank", "df1_bank_q_dec", "fastlo",
+           "ddc_mix_df1_bank", "df1_bank_q_dec", "df1_clamp_bank_q",
+           "df1_clamp_hbf_cascade_bank", "df1_hbf12_bank", "df1_hbf1_bank",
+           "fastlo",
            "fastlo_ddc_bank_block", "fastlo_df1_dec_bank", "fm_disc",
            "fm_disc_bank", "fxp", "hbf", "init_biquad", "luts",
            "rate_conversion", "trig"]

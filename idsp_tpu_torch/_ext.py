@@ -41,12 +41,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "idsp_df1_bank_q": [_P] * 6 + [_I] * 9 + [_P],
     "idsp_df1_bank_q_dec": [_P] * 6 + [_I] * 10 + [_P],
-    "idsp_ddc_cascade": [_P] * 13 + [_I] * 10 + [_P, _P, _P],
+    "idsp_df1_clamp_bank_q": [_P] * 6 + [_I] * 11 + [_P],
+    "idsp_ddc_cascade": [_P] * 13 + [_I] * 14 + [_P, _P, _P],
     "idsp_ddc_mix_df1": [_P] * 8 + [_I] * 9 + [_P],
     "idsp_lowpass_bank": [_P] * 4 + [_I] * 6 + [_P],
     "idsp_pll_bank": [_P] * 4 + [_I] * 5 + [_P],
     "idsp_ddc_bank_lp": [_P] * 11 + [_I] * 10 + [_P],
-    "idsp_ddc_bank_df1": [_P] * 12 + [_I] * 13 + [_P],
+    "idsp_ddc_bank_df1": [_P] * 12 + [_I] * 17 + [_P],
     "idsp_hbf_dec_cascade": [_P] * 4 + [_I] * 4 + [_P, _P, _P],
     "idsp_hbf_int_cascade": [_P] * 4 + [_I] * 4 + [_P, _P, _P],
     "idsp_cic_dec_bank": [_P] * 4 + [_I] * 4 + [_P],

@@ -15,15 +15,25 @@ giving ``(t/8, 2c)`` f32.  Modes:
 * ``split`` — exact mix, K1 `df1_bank_q` (f32 out), time-major HBF.
 * ``fused`` — K14 `ddc_mix_df1_bank` (the exact mix in the DF1 kernel,
   f32 out), time-major HBF; bit-identical to ``split``.
+* ``fold`` — exact mix, K20 `df1_hbf1_bank` (DF1 + half-band stage 1),
+  time-major HBF stages 2-3 (bench.py:151-173).
+* ``fold2`` — exact mix, K21 `df1_hbf12_bank` (DF1 + stages 1-2),
+  time-major HBF stage 3 (bench.py:125-150).
 * ``fold3`` — exact mix, K2 `df1_hbf_cascade_bank`.
+* ``fold3_fastlo`` — the plain fast-LO mix `fastlo_mix`, then K2
+  (bench.py:81-99): SNR-gated, not bit-exact.
 * ``fastlo_fused`` — K3 `fastlo_ddc_cascade_bank`: the whole chain in
   one kernel with the SNR-gated fast LO.
 
-``scan``, ``split``, ``fused`` and ``fold3`` carry bit-identical integer
-state.
-State is ``(df1_state, dec_i, dec_q, phase0)`` as in bench.py; the
-output is ``(zi, zq)``, (c, t/8) each for ``scan`` and (t/8, c) each
-otherwise.
+``scan``, ``split``, ``fused``, ``fold``, ``fold2`` and ``fold3`` carry
+bit-identical integer state.  (bench.py's ``pallas`` mode, a TPU
+experiment, is not ported.)
+State is ``(df1_state, dec_i, dec_q, phase0)`` as in bench.py
+(bench.py:240-285): ``fold`` carries the stage-1 tail in ``dec_q`` and
+the two-stage `HbfDecState` cascade in ``dec_i``; ``fold2`` the stage-1
+and stage-2 tails in ``dec_q`` and the stage-3 `HbfDecState` in
+``dec_i``.  The output is ``(zi, zq)``, (c, t/8) each for ``scan`` and
+(t/8, c) each otherwise.
 """
 
 from __future__ import annotations
@@ -36,15 +46,25 @@ from .filters.biquad import df1_init, df1_process_q
 from .filters.biquad_cuda import df1_bank_q
 from .filters.ddc_cuda import (  # noqa: F401 (exact_mix: part of this API)
     ddc_mix_df1_bank,
+    df1_hbf1_bank,
+    df1_hbf12_bank,
     df1_hbf_cascade_bank,
     exact_mix,
     fastlo_ddc_cascade_bank,
     hbf1_tail_init,
 )
-from .filters.hbf import hbf_dec_cascade, hbf_dec_cascade_init
+from .filters.hbf import (
+    HBF_TAPS,
+    hbf_dec_block,
+    hbf_dec_cascade,
+    hbf_dec_cascade_init,
+    hbf_dec_init,
+)
 from .ops import accu
+from .ops.fastlo import fastlo_mix
 
-MODES = ("scan", "split", "fused", "fold3", "fastlo_fused")
+MODES = ("scan", "split", "fused", "fold", "fold2", "fold3", "fold3_fastlo",
+         "fastlo_fused")
 
 
 class DdcChain(nn.Module):
@@ -56,9 +76,10 @@ class DdcChain(nn.Module):
         chain's device (a buffer: ``.to(device)`` moves it).
       ba_q: (5,) int32 Q<f> DF1 coefficients.
       f: fractional bits of ``ba_q``.
-      time_chunk: chunk of the fused kernels (``fold3``,
-        ``fastlo_fused``); for ``fastlo_fused`` also the fine-table
-        length of the mix.
+      time_chunk: chunk of the fused kernels (``fold``, ``fold2``,
+        ``fold3``, ``fold3_fastlo``, ``fastlo_fused``); for
+        ``fold3_fastlo`` and ``fastlo_fused`` also the fine-table length
+        of the mix.
     """
 
     def __init__(self, mode: str, steps: torch.Tensor, ba_q, *, f: int = 29,
@@ -78,10 +99,18 @@ class DdcChain(nn.Module):
         dev = self.steps.device
         bq = df1_init((2 * c,), device=dev)
         phase0 = torch.zeros((c,), dtype=torch.int32, device=dev)
-        if self.mode in ("fold3", "fastlo_fused"):
+        if self.mode in ("fold3", "fold3_fastlo", "fastlo_fused"):
             tails = tuple(hbf1_tail_init(2 * c, m, device=dev)
                           for m in (5, 10, 23))
             return (bq, None, tails, phase0)
+        if self.mode == "fold2":
+            return (bq, hbf_dec_init(len(HBF_TAPS[0]), (2 * c,), axis=0,
+                                     device=dev),
+                    (hbf1_tail_init(2 * c, 5, device=dev),
+                     hbf1_tail_init(2 * c, 10, device=dev)), phase0)
+        if self.mode == "fold":
+            return (bq, hbf_dec_cascade_init(2, (2 * c,), axis=0, device=dev),
+                    hbf1_tail_init(2 * c, device=dev), phase0)
         if self.mode in ("split", "fused"):
             return (bq, hbf_dec_cascade_init(3, (2 * c,), axis=0, device=dev),
                     None, phase0)
@@ -104,9 +133,25 @@ class DdcChain(nn.Module):
                 out_dtype=torch.float32)
             dec_i, ziq = hbf_dec_cascade(dec_i, yiq, axis=0)
             return (bq_iq, dec_i, dec_q, phase0), (ziq[:, :c], ziq[:, c:])
-        miq = exact_mix(x, phase0, self.steps)
+        if self.mode == "fold3_fastlo":
+            miq = fastlo_mix(x, phase0, self.steps, self.time_chunk)
+        else:
+            miq = exact_mix(x, phase0, self.steps)
         phase0 = accu.advance(phase0, self.steps, t)
-        if self.mode == "fold3":
+        if self.mode == "fold":
+            bq_iq, tail, y2 = df1_hbf1_bank(self.ba_q, bq_iq, dec_q, miq,
+                                            self.f,
+                                            time_chunk=self.time_chunk)
+            dec_i, ziq = hbf_dec_cascade(dec_i, y2, axis=0)
+            return (bq_iq, dec_i, tail, phase0), (ziq[:, :c], ziq[:, c:])
+        if self.mode == "fold2":
+            bq_iq, tail1, tail2, y4 = df1_hbf12_bank(
+                self.ba_q, bq_iq, *dec_q, miq, self.f,
+                time_chunk=self.time_chunk)
+            dec_i, ziq = hbf_dec_block(HBF_TAPS[0], dec_i, y4, axis=0)
+            return ((bq_iq, dec_i, (tail1, tail2), phase0),
+                    (ziq[:, :c], ziq[:, c:]))
+        if self.mode in ("fold3", "fold3_fastlo"):
             bq_iq, tails, y8 = df1_hbf_cascade_bank(
                 self.ba_q, bq_iq, dec_q, miq, self.f,
                 time_chunk=self.time_chunk,

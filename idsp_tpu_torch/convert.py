@@ -9,8 +9,11 @@ lp_q, pll)`` a `DdcBankState`, ``(nco_phase, bq, pll)`` a
 `DdcBankBiquadState`, ``(combs, integrators, zoh)`` a
 `CicState`, ``(dec, int_)`` a `RateConvState`, ``(prev_re, prev_im,
 prev_valid, deemph)`` an `FmDiscState`, ``(hist_r, hist_i)`` a
-`PlanesState` and ``(hist,)`` a channelizer `BankState`; tuples (per-stage tails, cascade states) keep their
-structure and ``None`` stays ``None``.  Dtypes cross unchanged (the
+`PlanesState` and ``(hist,)`` a channelizer `BankState`; tuples
+(per-stage tails, cascade states, the ``(df1_state, dec_i, dec_q,
+phase0)`` state of every `chain.DdcChain` mode, e.g. ``fold``'s single
+tail and two-stage cascade) keep their structure and ``None`` stays
+``None``.  Dtypes cross unchanged (the
 PLL's clamp indicator stays int8, FM's validity bool, a float
 `Df1State` f32).
 """

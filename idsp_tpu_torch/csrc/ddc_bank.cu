@@ -2,7 +2,7 @@
 // fast-LO conjugate mix, a channel filter on I and Q, keep-1-in-d, and
 // (K6, K13) atan2 and one PLL step per kept row.
 //
-// One template, three instances, by channel filter and back end:
+// One template, four instances, by channel filter and back end:
 //  * K6, `Lowpass<N>`, PLL with its output: replaces the Pallas kernel of
 //    idsp_tpu/filters/ddc_pallas.py `fastlo_ddc_bank_block_lp` (:1066);
 //  * K13, the Q<f> DF1 biquad, PLL without its output (the JAX wrapper
@@ -10,7 +10,8 @@
 //  both `_fastlo_ddc_bank_impl` (:1156, pallas_call :1265);
 //  * K12, the DF1 without the back end: `fastlo_df1_dec_bank` (:870,
 //    `_fastlo_df1_dec_impl` :906, pallas_call :987; body `_iir_df1_body`
-//    :260).
+//    :260), and with its `clamp=` the anti-windup DF1 (body
+//    `_iir_df1_clamp_body` :273; `Df1ClampFilter`).
 // On the TPU the grid walked time chunks with the I|Q lanes on
 // (2c/128, 128) tiles: the chunk's mix and filter ran lane-parallel,
 // then atan2 ran vectorized over the kept rows with I in lane ch and Q
@@ -98,6 +99,18 @@ struct Df1Filter {
   }
   __device__ __forceinline__ int32_t step(const Coefs& k, int32_t x) {
     return s.step(k, x);
+  }
+};
+
+// The anti-windup DF1 (K12's `clamp=`): offset and clamp before
+// feedback (df1.cuh `Df1Clamp`).
+struct Df1ClampFilter : Df1Filter {
+  struct Coefs {
+    idsp::Df1Coefs k;
+    idsp::Df1Clamp cl;
+  };
+  __device__ __forceinline__ int32_t step(const Coefs& c, int32_t x) {
+    return s.step_clamp(c.k, c.cl, x);
   }
 };
 
@@ -238,7 +251,8 @@ extern "C" int idsp_ddc_bank_lp(const void* x, const void* ca, const void* sa,
 // K12 when pll_in is null, else K13: the same inputs with the Q<f> DF1
 // state sx/sy (2c, 2) i32 in and out; yiq (t/d, 2c) i32.  K13 steps the
 // PLL state (pll_in -> pll_out, coefficients pb0, pb1, pa1) and writes
-// no PLL output.
+// no PLL output.  clamp != 0 (K12 only) runs the anti-windup DF1 with
+// offset u and bounds lo, hi.
 extern "C" int idsp_ddc_bank_df1(const void* x, const void* ca,
                                  const void* sa, const void* cb,
                                  const void* sb, const void* sx,
@@ -247,12 +261,19 @@ extern "C" int idsp_ddc_bank_df1(const void* x, const void* ca,
                                  void* yiq, int t, int c, int tc, int d,
                                  int f, int b0, int b1, int b2, int a1,
                                  int a2, int pb0, int pb1, int pa1,
+                                 int clamp, int u, int lo, int hi,
                                  void* stream) {
   const Df1Filter::State fs{
       static_cast<const int32_t*>(sx), static_cast<const int32_t*>(sy),
       static_cast<int32_t*>(sx_out), static_cast<int32_t*>(sy_out)};
   const idsp::Df1Coefs k{b0, b1, b2, a1, a2, f};
   const idsp::PllCoefs pk{pb0, pb1, pa1};
+  if (clamp) {
+    if (pll_in != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<Df1ClampFilter, false, false>(
+        x, ca, sa, cb, sb, fs, Df1ClampFilter::Coefs{k, {u, lo, hi}},
+        nullptr, nullptr, yiq, nullptr, t, c, tc, d, pk, stream);
+  }
   if (pll_in == nullptr) {
     return launch<Df1Filter, false, false>(x, ca, sa, cb, sb, fs, k, nullptr,
                                            nullptr, yiq, nullptr, t, c, tc,

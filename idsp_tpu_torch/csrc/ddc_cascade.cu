@@ -1,11 +1,15 @@
-// K2 and K3: DF1 biquad bank fused with a half-band decimation cascade,
-// optionally with the fast-LO conjugate mix in its prologue.
+// K2, K3, K19, K20 and K21: DF1 biquad bank fused with a half-band
+// decimation cascade, optionally with the fast-LO conjugate mix in its
+// prologue and optionally with the anti-windup clamp in the DF1.
 //
 // Replaces the Pallas composer of idsp_tpu/filters/ddc_pallas.py
 // `_run_fused_cascade` (:519, pallas_call :691) as instantiated by
-// `df1_hbf_cascade_bank` (:789; K2, FastLo = false) and
-// `fastlo_ddc_cascade_bank` (:1298, mix prologue `_fastlo_mix_chunk`
-// :487; K3, FastLo = true).  On the TPU the grid walked time chunks in
+// `df1_hbf_cascade_bank` (:789; K2, FastLo = false) and its depth-1 and
+// depth-2 forms `df1_hbf1_bank` (:743; K20) and `df1_hbf12_bank` (:767;
+// K21), `df1_clamp_hbf_cascade_bank` (:834, body `_iir_df1_clamp_body`
+// :273; K19, Clamp = true) and `fastlo_ddc_cascade_bank` (:1298, mix
+// prologue `_fastlo_mix_chunk` :487; K3, FastLo = true, with Clamp = true
+// for its `clamp=`).  On the TPU the grid walked time chunks in
 // order and kept the state and tails in VMEM scratch between steps;
 // here a block owns kHbfLanes lanes for the whole block of time and walks
 // the chunks in a loop, the state in registers and the parity buffers
@@ -14,7 +18,8 @@
 // Per chunk of tc rows and per lane (one thread):
 //  1. (K3) mix: lo = coarse[chunk] * fine[row], x scaled by AMPLITUDE,
 //     rounded half away from zero to i32 (fastlo.cuh, shared with K6);
-//  2. the DF1 step; its f32 output goes to stage 0's parity buffers:
+//  2. the DF1 step (with Clamp, offset and clamp before feedback:
+//     df1.cuh `Df1Clamp`); its f32 output goes to stage 0's parity buffers:
 //     even rows behind the m-1 carried even-tail rows, odd rows behind
 //     the 2m-1 carried odd-tail rows (ddc_pallas.py:613-617);
 //  3. each FIR stage over the chunk and the tails' move to the front
@@ -27,7 +32,8 @@
 //
 // What bounds it on the H100: as for K1, the serial DF1 recurrence of
 // each lane (one thread per lane, 2c lanes in all), now with the FIR
-// work of the chunk added to the same thread.  The device memory
+// work of the chunk added to the same thread (with Clamp, an add, a max
+// and a min more on the serial chain of each step).  The device memory
 // traffic is small: K2 reads 4 B per full-rate sample and lane and
 // writes 4 B per eighth; K3 reads only x (t,) and the small factor
 // tables.  The FIR stages read shared memory only.
@@ -51,10 +57,11 @@ using idsp::kHbfLanes;
 
 struct CascadeParams {
   idsp::Df1Coefs k;
+  idsp::Df1Clamp cl;
   idsp::HbfTaps h;
 };
 
-template <bool FastLo>
+template <bool FastLo, bool Clamp>
 __global__ void __launch_bounds__(kHbfLanes) ddc_cascade_kernel(
     const int32_t* __restrict__ xs, const int32_t* __restrict__ x,
     const float* __restrict__ ca, const float* __restrict__ sa,
@@ -77,6 +84,14 @@ __global__ void __launch_bounds__(kHbfLanes) ddc_cascade_kernel(
   idsp::Df1Lane s;
   s.load(sx, sy, lane);
   const idsp::Df1Coefs k = p.k;
+  const idsp::Df1Clamp cl = p.cl;
+  auto df1 = [&](int32_t x) {
+    if constexpr (Clamp) {
+      return s.step_clamp(k, cl, x);
+    } else {
+      return s.step(k, x);
+    }
+  };
 
   // fast-LO lane geometry: I lanes [0, c), Q lanes [c, 2c)
   const int c = c2 / 2;
@@ -115,8 +130,8 @@ __global__ void __launch_bounds__(kHbfLanes) ddc_cascade_kernel(
     };
 #pragma unroll 4
     for (int u = 0; u < tc; u += 2) {
-      even0[(u >> 1) * kHbfLanes] = static_cast<float>(s.step(k, input(u)));
-      odd0[(u >> 1) * kHbfLanes] = static_cast<float>(s.step(k, input(u + 1)));
+      even0[(u >> 1) * kHbfLanes] = static_cast<float>(df1(input(u)));
+      odd0[(u >> 1) * kHbfLanes] = static_cast<float>(df1(input(u + 1)));
     }
     float* yq = y + static_cast<size_t>(q) * nout * c2 + lane;
     idsp::hbf_dec_stages(p.h, col, odd_off, even_off, tc, [&](int j, float v) {
@@ -131,24 +146,30 @@ __global__ void __launch_bounds__(kHbfLanes) ddc_cascade_kernel(
 
 }  // namespace
 
-// K2 when x is null (xs (t, c2) i32 is the DF1 input); K3 when x (t,)
-// i32 and the factor tables ca/sa (t/tc, c2/2), cb/sb (tc, c2/2) are
-// given.  ms (depth,) and taps (sum ms,) are host arrays, highest-rate
-// stage first.  y is (t >> depth, c2) f32; tails are packed (3m-2) rows
-// per stage.
+// K2 (K20, K21 at depth 1, 2) when x is null (xs (t, c2) i32 is the DF1
+// input); K3 when x (t,) i32 and the factor tables ca/sa (t/tc, c2/2),
+// cb/sb (tc, c2/2) are given.  clamp != 0 runs the anti-windup DF1 with
+// offset u and bounds lo, hi (K19, and K3's clamp form).  ms (depth,) and
+// taps (sum ms,) are host arrays, highest-rate stage first.  y is
+// (t >> depth, c2) f32; tails are packed (3m-2) rows per stage.
 extern "C" int idsp_ddc_cascade(
     const void* xs, const void* x, const void* ca, const void* sa,
     const void* cb, const void* sb, const void* sx, const void* sy,
     void* sx_out, void* sy_out, const void* tails_in, void* tails_out,
     void* y, int t, int c2, int tc, int f, int b0, int b1, int b2, int a1,
-    int a2, int depth, const int* ms, const float* taps, void* stream) {
+    int a2, int depth, int clamp, int u, int lo, int hi, const int* ms,
+    const float* taps, void* stream) {
   CascadeParams p{};
   p.k = idsp::Df1Coefs{b0, b1, b2, a1, a2, f};
+  p.cl = idsp::Df1Clamp{u, lo, hi};
   if (!idsp::hbf_taps_from_host(p.h, depth, ms, taps))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = idsp::hbf_dec_rows(p.h, tc) * kHbfLanes * sizeof(float);
   const bool fastlo = x != nullptr;
-  auto kernel = fastlo ? ddc_cascade_kernel<true> : ddc_cascade_kernel<false>;
+  auto kernel = fastlo ? (clamp ? ddc_cascade_kernel<true, true>
+                                : ddc_cascade_kernel<true, false>)
+                       : (clamp ? ddc_cascade_kernel<false, true>
+                                : ddc_cascade_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   // a refused size is also the runtime's last error: take it, or the

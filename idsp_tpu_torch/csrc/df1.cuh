@@ -6,7 +6,9 @@
 // Each i32 x i32 product is exact in int64; the five-term sum wraps
 // mod 2^64 and is formed in uint64, where wrapping is defined.  The
 // shift is arithmetic (truncating toward -inf), and the result keeps
-// the low 32 bits: bit-identical to the scan `df1_process_q`.
+// the low 32 bits: bit-identical to the scan `df1_process_q`.  The
+// anti-windup form (`Df1Clamp`, `step_clamp`) adds the offset and clamps
+// before the output is fed back: bit-identical to `df1_clamp_process_q`.
 //
 // The f32 step (`Df1LaneF32`) has no shift; each product and each sum is
 // a single-rounding intrinsic, left to right, so nvcc cannot contract
@@ -20,6 +22,21 @@ namespace idsp {
 struct Df1Coefs {
   int32_t b0, b1, b2, a1, a2;
   int f;
+};
+
+// The anti-windup clamp of the reference's production biquad
+// (`BiquadClamp`, biquad.rs:394-404): y0 + u at the summing junction,
+// wrapping as int32 addition does (formed in uint32: signed overflow is
+// undefined in C++), then min(max(v, lo), hi), jnp.clip's order, so
+// lo > hi gives hi.
+struct Df1Clamp {
+  int32_t u, lo, hi;
+
+  __device__ __forceinline__ int32_t operator()(int32_t y0) const {
+    const int32_t v = static_cast<int32_t>(static_cast<uint32_t>(y0) +
+                                           static_cast<uint32_t>(u));
+    return min(max(v, lo), hi);
+  }
 };
 
 struct Df1Lane {
@@ -42,19 +59,36 @@ struct Df1Lane {
     sy[2 * lane + 1] = y2;
   }
 
-  __device__ __forceinline__ int32_t step(const Df1Coefs& k, int32_t x0) {
+  // y0 of the next step, before the delay lines move
+  __device__ __forceinline__ int32_t output(const Df1Coefs& k,
+                                            int32_t x0) const {
     const uint64_t acc = static_cast<uint64_t>(int64_t{k.b0} * x0) +
                          static_cast<uint64_t>(int64_t{k.b1} * x1) +
                          static_cast<uint64_t>(int64_t{k.b2} * x2) +
                          static_cast<uint64_t>(int64_t{k.a1} * y1) +
                          static_cast<uint64_t>(int64_t{k.a2} * y2);
-    const int32_t y0 = static_cast<int32_t>(static_cast<uint32_t>(
+    return static_cast<int32_t>(static_cast<uint32_t>(
         static_cast<uint64_t>(static_cast<int64_t>(acc) >> k.f)));
+  }
+
+  __device__ __forceinline__ int32_t push(int32_t x0, int32_t y0) {
     x2 = x1;
     x1 = x0;
     y2 = y1;
     y1 = y0;
     return y0;
+  }
+
+  __device__ __forceinline__ int32_t step(const Df1Coefs& k, int32_t x0) {
+    return push(x0, output(k, x0));
+  }
+
+  // The anti-windup step: the clamped output is both the result and the
+  // fed-back y1; the unclamped value goes nowhere.
+  __device__ __forceinline__ int32_t step_clamp(const Df1Coefs& k,
+                                                const Df1Clamp& cl,
+                                                int32_t x0) {
+    return push(x0, cl(output(k, x0)));
   }
 };
 

@@ -9,8 +9,10 @@ reference's sign convention (biquad.rs:96-116):
 Five i32 x i32 products summed in int64 (wrapping), one truncating
 arithmetic shift, one explicit wrap to int32.  The float DF1
 (`df1_step`, `df1_process`) takes float coefficients and sums without
-the shift.  State tensors have shape (..., 2); x has shape (...,).
-Time is axis 0 of a block.
+the shift.  The anti-windup form of the reference's production biquad
+(`clamp_step`, `df1_clamp_process_q`; biquad.rs:394-404) adds an offset
+and clamps each output before it is fed back.  State tensors have shape
+(..., 2); x has shape (...,).  Time is axis 0 of a block.
 """
 
 from __future__ import annotations
@@ -118,16 +120,58 @@ def df1_step_q(ba, f: int, state: Df1State, x0):
     )
 
 
-def df1_process_q(ba, f: int, state: Df1State, xs):
+def clamp_params(u, lo, hi) -> tuple[int, int, int]:
+    """``(u, lo, hi)`` of the integer anti-windup clamp as Python ints,
+    each in the int32 range (the kernels take them as C ints)."""
+    out = tuple(int(v) for v in (u, lo, hi))
+    for name, v in zip(("u", "lo", "hi"), out):
+        if not -(2**31) <= v < 2**31:
+            raise ValueError(f"clamp {name} must be an int32, got {v}")
+    return out
+
+
+def clamp_step(step_out, u, lo, hi):
+    """Offset + clamp at the summing junction, the clamped output written
+    into the feedback state (biquad.rs:394-404): ``y0 = clip(y0 + u, lo,
+    hi)`` replaces ``state.y[..., 0]``; the x-state is untouched.
+
+    ``step_out`` is a ``(state, y0)`` step result, int or float.  For
+    int32 ``y0 + u`` wraps as int32 addition does; the clip takes the max
+    with ``lo`` first, then the min with ``hi`` (``jnp.clip``), so ``lo >
+    hi`` gives ``hi``.  Returns (state, y0).
+    """
+    state, y0 = step_out
+    if y0.dtype == torch.int32:
+        v = fxp.wrap_i32(y0.to(torch.int64) + int(u))
+    else:
+        v = y0 + u
+    y0 = torch.clamp(v, lo, hi)
+    y = torch.stack([y0, state.y[..., 1]], dim=-1)
+    return state._replace(y=y), y0
+
+
+def df1_clamp_process_q(ba, f: int, state: Df1State, xs, *, u: int = 0,
+                        lo: int, hi: int):
+    """Scan ``clamp_step(df1_step_q(...), u, lo, hi)`` over time axis 0
+    of ``xs`` (..., int32): the anti-windup DF1, bit-identical to the
+    step-by-step scan.  Returns (state, ys) with ys like xs."""
+    return df1_process_q(ba, f, state, xs, clamp=clamp_params(u, lo, hi))
+
+
+def df1_process_q(ba, f: int, state: Df1State, xs, *, clamp=None):
     """Scan `df1_step_q` over time axis 0 of ``xs`` (..., int32).
 
     The feed-forward part ``b0*x0 + b1*x1 + b2*x2`` of every step is
     formed for the whole block at once; only the feedback ``a1*y1 +
     a2*y2`` is sequential.  Sums are int64, wrapping, so the split
     leaves every accumulator — and so every output — bit-identical to
-    the step-by-step scan.  Returns (state, ys) with ys like xs.
+    the step-by-step scan.  With ``clamp = (u, lo, hi)`` each output is
+    `clamp_step`'s ``clip(y0 + u, lo, hi)`` (int32 ``+ u`` wrapping)
+    before it is fed back.  Returns (state, ys) with ys like xs.
     """
     b0, b1, b2, a1, a2 = _ba_list(ba)
+    if clamp is not None:
+        u, lo, hi = clamp_params(*clamp)
     t = xs.shape[0]
     xw = torch.cat(
         [state.x[..., 1][None], state.x[..., 0][None], xs], dim=0
@@ -138,7 +182,11 @@ def df1_process_q(ba, f: int, state: Df1State, xs):
     ys = torch.empty_like(ff)
     for i in range(t):
         # the int32 output, held sign-extended in int64 for the next MACs
-        y0 = fxp.wrap32((ff[i] + a1 * y1 + a2 * y2) >> f)
+        if clamp is None:
+            y0 = fxp.wrap32((ff[i] + a1 * y1 + a2 * y2) >> f)
+        else:  # wrap32(wrap32(v) + u) == wrap32(v + u): one wrap
+            y0 = torch.clamp(fxp.wrap32(((ff[i] + a1 * y1 + a2 * y2) >> f)
+                                        + u), lo, hi)
         ys[i] = y0
         y1, y2 = y0, y1
     new_state = Df1State(

@@ -1,10 +1,12 @@
-"""K1 and K11: the fixed-point DF1 biquad bank (port of
-`idsp_tpu.filters.biquad_pallas.df1_bank_q` and `df1_bank_q_dec`).
+"""K1, K11 and K18: the fixed-point DF1 biquad bank (port of
+`idsp_tpu.filters.biquad_pallas.df1_bank_q`, `df1_bank_q_dec` and
+`df1_clamp_bank_q`).
 
-`df1_bank_q` and `df1_bank_q_dec` run the CUDA kernels of
-``csrc/df1_bank.cu`` for a CUDA tensor and their plain PyTorch versions
-(``*_plain``) for a CPU tensor; any other device raises.  Both are
-bit-identical to `biquad.df1_process_q` (K11: then ``ys[::d]``).
+`df1_bank_q`, `df1_bank_q_dec` and `df1_clamp_bank_q` run the CUDA
+kernels of ``csrc/df1_bank.cu`` for a CUDA tensor and their plain
+PyTorch versions (``*_plain``) for a CPU tensor; any other device
+raises.  K1 and K11 are bit-identical to `biquad.df1_process_q` (K11:
+then ``ys[::d]``), K18 to `biquad.df1_clamp_process_q`.
 """
 
 from __future__ import annotations
@@ -12,7 +14,13 @@ from __future__ import annotations
 import torch
 
 from .. import _ext
-from .biquad import Df1State, _ba_list, df1_process_q
+from .biquad import (
+    Df1State,
+    _ba_list,
+    clamp_params,
+    df1_clamp_process_q,
+    df1_process_q,
+)
 
 
 def df1_bank_q_plain(ba, state: Df1State, xs, f: int = 29, *,
@@ -22,8 +30,10 @@ def df1_bank_q_plain(ba, state: Df1State, xs, f: int = 29, *,
     return state, ys if out_dtype is None else ys.to(out_dtype)
 
 
-def _launch(name, ba, state: Df1State, xs, f, out_dtype, d=None):
-    """Validate and launch K1 (``d`` None) or K11 on a CUDA tensor."""
+def _launch(name, ba, state: Df1State, xs, f, out_dtype, d=None,
+            clamp=None):
+    """Validate and launch K1 (``d`` None), K11 or K18 (``clamp``) on a
+    CUDA tensor."""
     if out_dtype not in (None, torch.int32, torch.float32):
         raise ValueError(f"out_dtype must be int32 or float32, got {out_dtype}")
     if not 0 < f < 64:
@@ -44,7 +54,10 @@ def _launch(name, ba, state: Df1State, xs, f, out_dtype, d=None):
             state.y.data_ptr(), new_x.data_ptr(), new_y.data_ptr(), t, c)
     lib = _ext.library()
     with torch.cuda.device(dev):
-        if d is None:
+        if clamp is not None:
+            err = lib.idsp_df1_clamp_bank_q(*ptrs, f, *_ba_list(ba), *clamp,
+                                            _ext.stream_ptr(dev))
+        elif d is None:
             err = lib.idsp_df1_bank_q(*ptrs, f, int(f32), *_ba_list(ba),
                                       _ext.stream_ptr(dev))
         else:
@@ -105,3 +118,31 @@ def df1_bank_q_dec(ba, state: Df1State, xs, f: int = 29, *, d: int = 16,
 
 
 df1_bank_q_dec.launches = 0  # kernel launches since the last reset
+
+
+def df1_clamp_bank_q_plain(ba, state: Df1State, xs, f: int = 29, *,
+                           u: int = 0, lo: int, hi: int):
+    """Plain PyTorch version of `df1_clamp_bank_q`: the clamped scan."""
+    return df1_clamp_process_q(ba, f, state, xs, u=u, lo=lo, hi=hi)
+
+
+def df1_clamp_bank_q(ba, state: Df1State, xs, f: int = 29, *, u: int = 0,
+                     lo: int, hi: int):
+    """Fixed-point DF1 with summing-junction offset and output clamp
+    (anti-windup, biquad.rs:394-404) over a bank of lanes: each output is
+    ``clip(y0 + u, lo, hi)`` (int32 ``+ u`` wrapping, ``lo > hi`` gives
+    ``hi``), and the clamped value is what the recurrence feeds back.
+
+    Args as `df1_bank_q`, plus the int32 clamp ``u, lo, hi``; the output
+    is int32.  Returns (state, ys), bit-identical to scanning
+    ``clamp_step(df1_step_q(...))`` (`biquad.df1_clamp_process_q`).
+    """
+    if xs.device.type == "cpu":
+        return df1_clamp_bank_q_plain(ba, state, xs, f, u=u, lo=lo, hi=hi)
+    out = _launch("df1_clamp_bank_q", ba, state, xs, f, None,
+                  clamp=clamp_params(u, lo, hi))
+    df1_clamp_bank_q.launches += 1
+    return out
+
+
+df1_clamp_bank_q.launches = 0  # kernel launches since the last reset

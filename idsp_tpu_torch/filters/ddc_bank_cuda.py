@@ -5,7 +5,8 @@
 * `fastlo_ddc_bank_block_lp` (K6): fast-LO mix, `Lowpass<N>` on I and Q,
   keep 1 in d, atan2, PLL;
 * `fastlo_df1_dec_bank` (K12): fast-LO mix, Q<f> DF1 on I and Q, keep 1
-  in d (the biquad bank's front end);
+  in d (the biquad bank's front end); with ``clamp=(u, lo, hi)`` the
+  anti-windup DF1 (offset and clamp before feedback);
 * `fastlo_ddc_bank_block` (K13): K12, then atan2 and the PLL.
 
 Each runs ``csrc/ddc_bank.cu`` (one kernel template, by channel filter
@@ -31,8 +32,7 @@ from .. import _ext
 from ..ops import accu
 from ..ops.fastlo import fastlo_mix_tables, fastlo_tables
 from ..ops.trig import atan2
-from .biquad import Df1State, _ba_list
-from .biquad_cuda import df1_bank_q_dec_plain
+from .biquad import Df1State, _ba_list, clamp_params, df1_process_q
 from .lowpass import LowpassState, _gains
 from .lowpass_cuda import lowpass_bank_plain
 from .pll import PllState, ba_list
@@ -124,14 +124,14 @@ fastlo_ddc_bank_block_lp.launches = 0  # kernel launches since the last reset
 
 
 def fastlo_df1_dec_bank_plain(ba, state: Df1State, phase0, steps, x,
-                              f: int = 29, *, d: int = 16,
+                              f: int = 29, *, d: int = 16, clamp=None,
                               time_chunk: int = 128):
     """Plain PyTorch version of `fastlo_df1_dec_bank`."""
     t = x.shape[0]
     _check_chunking(t, d, time_chunk)
     miq = fastlo_mix_tables(x, fastlo_tables(phase0, steps, t, time_chunk))
-    state, yiq_d = df1_bank_q_dec_plain(ba, state, miq, f, d=d)
-    return state, accu.advance(phase0, steps, t), yiq_d
+    state, yiq = df1_process_q(ba, f, state, miq, clamp=clamp)
+    return state, accu.advance(phase0, steps, t), yiq[::d].contiguous()
 
 
 def fastlo_ddc_bank_block_plain(ba, pll_ba, state: Df1State,
@@ -148,9 +148,10 @@ def fastlo_ddc_bank_block_plain(ba, pll_ba, state: Df1State,
 
 
 def _launch_df1(name, ba, state: Df1State, phase0, steps, x, f, d,
-                time_chunk, pll_ba=None, pll_state=None):
+                time_chunk, pll_ba=None, pll_state=None, clamp=None):
     """Validate and launch ``idsp_ddc_bank_df1``: K12 without a PLL
-    state, K13 with one.  Returns (state, pll words or None, yiq_d)."""
+    state (the anti-windup DF1 with ``clamp``), K13 with one.  Returns
+    (state, pll words or None, yiq_d)."""
     if not 0 < f < 64:
         raise ValueError(f"f must be in (0, 64), got {f}")
     t = x.shape[0]
@@ -180,14 +181,16 @@ def _launch_df1(name, ba, state: Df1State, phase0, steps, x, f, d,
             new_x.data_ptr(), new_y.data_ptr(),
             None if w_in is None else _ext.pointers(w_in),
             None if w_out is None else _ext.pointers(w_out), yiq.data_ptr(),
-            t, c, time_chunk, d, f, *_ba_list(ba), *pk, _ext.stream_ptr(dev),
+            t, c, time_chunk, d, f, *_ba_list(ba), *pk,
+            int(clamp is not None), *(clamp or (0, 0, 0)),
+            _ext.stream_ptr(dev),
         )
     _ext.check(err, name)
     return Df1State(x=new_x, y=new_y), w_out, yiq
 
 
 def fastlo_df1_dec_bank(ba, state: Df1State, phase0, steps, x, f: int = 29,
-                        *, d: int = 16, time_chunk: int = 128):
+                        *, d: int = 16, clamp=None, time_chunk: int = 128):
     """Fast-LO conjugate mix + Q<f> DF1 on the I|Q lanes + keep-1-in-d,
     one kernel per block: the full-rate mixed stream never reaches
     device memory.
@@ -199,6 +202,9 @@ def fastlo_df1_dec_bank(ba, state: Df1State, phase0, steps, x, f: int = 29,
       steps: (c,) i32 per-channel frequency words.
       x: (t,) i32 wideband input.
       d: decimation (keep rows 0, d, 2d, ...).
+      clamp: optional int32 ``(u, lo, hi)``: each DF1 output is ``clip(y0
+        + u, lo, hi)`` (``+ u`` wrapping) before it is fed back
+        (biquad.rs:394-404).
       time_chunk: the fine-table length of the mix (t % time_chunk == 0,
         time_chunk % d == 0); the JAX package's default is 128.
 
@@ -207,14 +213,18 @@ def fastlo_df1_dec_bank(ba, state: Df1State, phase0, steps, x, f: int = 29,
     """
     if x.device.type == "cpu":
         return fastlo_df1_dec_bank_plain(ba, state, phase0, steps, x, f, d=d,
-                                         time_chunk=time_chunk)
+                                         clamp=clamp, time_chunk=time_chunk)
+    clamp = None if clamp is None else clamp_params(*clamp)
     state_out, _, yiq = _launch_df1("fastlo_df1_dec_bank", ba, state, phase0,
-                                    steps, x, f, d, time_chunk)
+                                    steps, x, f, d, time_chunk, clamp=clamp)
     fastlo_df1_dec_bank.launches += 1
+    if clamp is not None:
+        fastlo_df1_dec_bank.clamp_launches += 1
     return state_out, accu.advance(phase0, steps, x.shape[0]), yiq
 
 
 fastlo_df1_dec_bank.launches = 0  # kernel launches since the last reset
+fastlo_df1_dec_bank.clamp_launches = 0  # of them with ``clamp``
 
 
 def fastlo_ddc_bank_block(ba, pll_ba, state: Df1State, pll_state: PllState,

@@ -1,23 +1,30 @@
-"""K2, K3 and K14: the fused DDC kernels (port of the fused-cascade
-family and `ddc_mix_df1_bank` of `idsp_tpu.filters.ddc_pallas`).
+"""K2, K3, K14 and K19-K21: the fused DDC kernels (port of the
+fused-cascade family and `ddc_mix_df1_bank` of
+`idsp_tpu.filters.ddc_pallas`).
 
 * `df1_hbf_cascade_bank` (K2): Q<f> DF1 bank + 2**depth half-band
-  decimation in one kernel.
+  decimation in one kernel; `df1_hbf1_bank` (K20) and `df1_hbf12_bank`
+  (K21) are its depth-1 and depth-2 forms with the JAX package's
+  signatures, defaults and return shapes.
+* `df1_clamp_hbf_cascade_bank` (K19): K2 with the anti-windup DF1
+  (offset and clamp before feedback, `biquad.clamp_step`).
 * `fastlo_ddc_cascade_bank` (K3): K2 with the coarse/fine fast-LO
   conjugate mix computed in the kernel: the whole headline chain, which
-  reads only ``x (t,)`` and small LO tables.
+  reads only ``x (t,)`` and small LO tables; ``clamp=(u, lo, hi)`` runs
+  the anti-windup DF1 as K19 does.
 * `ddc_mix_df1_bank` (K14): the exact `cossin` conjugate mix
   (`exact_mix`) fused into the DF1 bank, bit-identical to mixing first.
 
-K2 and K3 run ``csrc/ddc_cascade.cu``, K14 ``csrc/ddc_mix_df1.cu``, for
-CUDA tensors, and their plain PyTorch versions (``*_plain``) for CPU
-tensors; any other device raises.  Carried state follows the JAX
-package: `Df1State` (2c, 2) and one (3m-2, 2c) f32 tail per stage
-(`hbf1_tail_init`), ``2m-1`` odd rows then ``m-1`` even rows, stages
-highest rate first.
+K2, K3 and K19-K21 run ``csrc/ddc_cascade.cu``, K14
+``csrc/ddc_mix_df1.cu``, for CUDA tensors, and their plain PyTorch
+versions (``*_plain``) for CPU tensors; any other device raises.
+Carried state follows the JAX package: `Df1State` (2c, 2) and one
+(3m-2, 2c) f32 tail per stage (`hbf1_tail_init`), ``2m-1`` odd rows
+then ``m-1`` even rows, stages highest rate first.
 
-The plain versions are the unfused composition: K2/K3 the DF1 scan, f32
-cast, `hbf.hbf_dec_block` per stage with each tail unpacked into its
+The plain versions are the unfused composition: K2/K3 and K19-K21 the
+DF1 scan (clamped for K19 and K3's ``clamp=``), f32 cast,
+`hbf.hbf_dec_block` per stage with each tail unpacked into its
 `HbfDecState`; K14 `exact_mix`, the DF1 scan and the cast.  Time
 chunking does not change any value of K2, so its plain version runs the
 whole block at once; K3's fine table has length ``time_chunk``, so its
@@ -35,7 +42,7 @@ from .. import _ext, fxp
 from ..ops import accu
 from ..ops.fastlo import fastlo_mix_tables, fastlo_tables
 from ..ops.trig import cossin
-from .biquad import Df1State, _ba_list, df1_process_q
+from .biquad import Df1State, _ba_list, clamp_params, df1_process_q
 from .biquad_cuda import df1_bank_q_plain
 from .hbf import HBF_TAPS, HbfDecState, hbf_dec_block
 
@@ -55,10 +62,11 @@ def _default_taps(taps):
 
 
 def df1_hbf_cascade_bank_plain(ba, state: Df1State, tails, xs, f: int = 29,
-                               *, taps=None):
-    """Plain PyTorch version of `df1_hbf_cascade_bank`."""
+                               *, taps=None, clamp=None):
+    """Plain PyTorch version of `df1_hbf_cascade_bank` (with ``clamp=(u,
+    lo, hi)``, of `df1_clamp_hbf_cascade_bank`)."""
     taps = _default_taps(taps)
-    state, ys = df1_process_q(ba, f, state, xs)
+    state, ys = df1_process_q(ba, f, state, xs, clamp=clamp)
     y = ys.to(torch.float32)
     new_tails = []
     for tv, tail in zip(taps, tails):
@@ -71,8 +79,9 @@ def df1_hbf_cascade_bank_plain(ba, state: Df1State, tails, xs, f: int = 29,
 
 
 def _launch_cascade(ba, state, tails, taps, f, t, c2, tc, dev, *, xs=None,
-                    x=None, tables=(None,) * 4):
-    """Validate and launch ``idsp_ddc_cascade`` (K2 if xs, K3 if x)."""
+                    x=None, tables=(None,) * 4, clamp=None):
+    """Validate and launch ``idsp_ddc_cascade`` (K2 if xs, K3 if x; the
+    clamped DF1 with ``clamp=(u, lo, hi)``)."""
     depth = len(taps)
     if not 1 <= depth <= 4:
         raise ValueError(f"depth must be 1..4, got {depth}")
@@ -106,7 +115,8 @@ def _launch_cascade(ba, state, tails, taps, f, t, c2, tc, dev, *, xs=None,
             *[None if tb is None else tb.data_ptr() for tb in tables],
             state.x.data_ptr(), state.y.data_ptr(), new_x.data_ptr(),
             new_y.data_ptr(), tails_in.data_ptr(), tails_out.data_ptr(),
-            y.data_ptr(), t, c2, tc, f, *_ba_list(ba), depth, ms_c, taps_c,
+            y.data_ptr(), t, c2, tc, f, *_ba_list(ba), depth,
+            int(clamp is not None), *(clamp or (0, 0, 0)), ms_c, taps_c,
             _ext.stream_ptr(dev),
         )
     _ext.check(err, "ddc_cascade")
@@ -146,23 +156,138 @@ def df1_hbf_cascade_bank(ba, state: Df1State, tails, xs, f: int = 29, *,
 df1_hbf_cascade_bank.launches = 0  # kernel launches since the last reset
 
 
+def df1_clamp_hbf_cascade_bank_plain(ba, state: Df1State, tails, xs,
+                                     f: int = 29, *, u: int = 0, lo: int,
+                                     hi: int, taps=None):
+    """Plain PyTorch version of `df1_clamp_hbf_cascade_bank`: the clamped
+    scan, the f32 cast, `hbf_dec_block` per stage."""
+    return df1_hbf_cascade_bank_plain(ba, state, tails, xs, f, taps=taps,
+                                      clamp=(u, lo, hi))
+
+
+def df1_clamp_hbf_cascade_bank(ba, state: Df1State, tails, xs, f: int = 29,
+                               *, u: int = 0, lo: int, hi: int, taps=None,
+                               time_chunk: int = 128):
+    """`df1_hbf_cascade_bank` with the anti-windup DF1 of the reference's
+    production biquad (biquad.rs:394-404): each DF1 output is ``clip(y0 +
+    u, lo, hi)`` (int32 ``+ u`` wrapping, ``lo > hi`` gives ``hi``)
+    before it is fed back and decimated.
+
+    Args as `df1_hbf_cascade_bank`, plus the int32 clamp ``u, lo, hi``.
+    Returns (state, tails, y) with y (t / 2**depth, c2) f32.
+    """
+    if xs.device.type == "cpu":
+        return df1_clamp_hbf_cascade_bank_plain(ba, state, tails, xs, f, u=u,
+                                                lo=lo, hi=hi, taps=taps)
+    clamp = clamp_params(u, lo, hi)
+    taps = _default_taps(taps)
+    t, c2 = xs.shape
+    _ext.require("xs", xs, xs.device, torch.int32, (t, c2))
+    out = _launch_cascade(ba, state, tails, taps, f, t, c2, time_chunk,
+                          xs.device, xs=xs, clamp=clamp)
+    df1_clamp_hbf_cascade_bank.launches += 1
+    return out
+
+
+df1_clamp_hbf_cascade_bank.launches = 0  # kernel launches since the last reset
+
+
+def _stage_taps(taps, stage: int):
+    return HBF_TAPS[stage] if taps is None else taps
+
+
+def df1_hbf1_bank_plain(ba, state: Df1State, tail, xs, f: int = 29, *,
+                        taps=None):
+    """Plain PyTorch version of `df1_hbf1_bank`."""
+    state, tails, y2 = df1_hbf_cascade_bank_plain(
+        ba, state, (tail,), xs, f, taps=(_stage_taps(taps, 2),))
+    return state, tails[0], y2
+
+
+def df1_hbf1_bank(ba, state: Df1State, tail, xs, f: int = 29, *, taps=None,
+                  time_chunk: int = 512):
+    """Q<f> DF1 bank + one half-band decimate-by-2 stage in one kernel:
+    K2 at depth 1.
+
+    Args:
+      tail: one (3m-2, c2) f32 carried tail (`hbf1_tail_init`).
+      taps: the stage's one-sided taps (default HBF_TAPS[2], the first
+        stage of the decimate-by-8 cascade).
+      time_chunk: the kernel's chunk (t % time_chunk == 0, even).
+    Other args as `df1_hbf_cascade_bank`.
+
+    Returns (state, tail, y2) with y2 (t/2, c2) f32.
+    """
+    if xs.device.type == "cpu":
+        return df1_hbf1_bank_plain(ba, state, tail, xs, f, taps=taps)
+    t, c2 = xs.shape
+    _ext.require("xs", xs, xs.device, torch.int32, (t, c2))
+    state, tails, y2 = _launch_cascade(
+        ba, state, (tail,), _default_taps((_stage_taps(taps, 2),)), f, t, c2,
+        time_chunk, xs.device, xs=xs)
+    df1_hbf1_bank.launches += 1
+    return state, tails[0], y2
+
+
+df1_hbf1_bank.launches = 0  # kernel launches since the last reset
+
+
+def df1_hbf12_bank_plain(ba, state: Df1State, tail1, tail2, xs, f: int = 29,
+                         *, taps1=None, taps2=None):
+    """Plain PyTorch version of `df1_hbf12_bank`."""
+    state, tails, y4 = df1_hbf_cascade_bank_plain(
+        ba, state, (tail1, tail2), xs, f,
+        taps=(_stage_taps(taps1, 2), _stage_taps(taps2, 1)))
+    return state, tails[0], tails[1], y4
+
+
+def df1_hbf12_bank(ba, state: Df1State, tail1, tail2, xs, f: int = 29, *,
+                   taps1=None, taps2=None, time_chunk: int = 512):
+    """Q<f> DF1 bank + two half-band decimate-by-2 stages in one kernel:
+    K2 at depth 2, quarter-rate output.
+
+    Args:
+      tail1, tail2: the stages' (3m-2, c2) f32 carried tails.
+      taps1, taps2: the stages' one-sided taps (default HBF_TAPS[2] and
+        HBF_TAPS[1], the first two stages of the decimate-by-8 cascade).
+      time_chunk: the kernel's chunk (t % time_chunk == 0,
+        time_chunk % 4 == 0).
+    Other args as `df1_hbf_cascade_bank`.
+
+    Returns (state, tail1, tail2, y4) with y4 (t/4, c2) f32.
+    """
+    if xs.device.type == "cpu":
+        return df1_hbf12_bank_plain(ba, state, tail1, tail2, xs, f,
+                                    taps1=taps1, taps2=taps2)
+    t, c2 = xs.shape
+    _ext.require("xs", xs, xs.device, torch.int32, (t, c2))
+    taps = _default_taps((_stage_taps(taps1, 2), _stage_taps(taps2, 1)))
+    state, tails, y4 = _launch_cascade(ba, state, (tail1, tail2), taps, f, t,
+                                       c2, time_chunk, xs.device, xs=xs)
+    df1_hbf12_bank.launches += 1
+    return state, tails[0], tails[1], y4
+
+
+df1_hbf12_bank.launches = 0  # kernel launches since the last reset
+
+
 def fastlo_ddc_cascade_bank_plain(ba, state: Df1State, tails, phase0, steps,
-                                  x, f: int = 29, *, taps=None,
+                                  x, f: int = 29, *, clamp=None, taps=None,
                                   time_chunk: int = 128):
     """Plain PyTorch version of `fastlo_ddc_cascade_bank`: the fast-LO
     mix from factor tables with fine length ``time_chunk``, then the
-    plain cascade."""
+    plain cascade (clamped with ``clamp``)."""
     t = x.shape[0]
     tables = fastlo_tables(phase0, steps, t, time_chunk)
     miq = fastlo_mix_tables(x, tables)
     state, tails, y = df1_hbf_cascade_bank_plain(
-        ba, state, tails, miq, f, taps=taps
+        ba, state, tails, miq, f, taps=taps, clamp=clamp
     )
     return state, tails, accu.advance(phase0, steps, t), y
 
 
 def fastlo_ddc_cascade_bank(ba, state: Df1State, tails, phase0, steps, x,
-                            f: int = 29, *, taps=None,
+                            f: int = 29, *, clamp=None, taps=None,
                             time_chunk: int = 128):
     """The whole headline DDC chain in one kernel: fast-LO conjugate mix
     + DF1 bank + half-band decimation cascade.
@@ -171,6 +296,8 @@ def fastlo_ddc_cascade_bank(ba, state: Df1State, tails, phase0, steps, x,
       phase0: (c,) i32 NCO phase before the first sample.
       steps: (c,) i32 per-channel frequency words.
       x: (t,) i32 wideband input; lanes are I|Q (c2 = 2c).
+      clamp: optional int32 ``(u, lo, hi)``: the anti-windup DF1 of
+        `df1_clamp_hbf_cascade_bank`.
       time_chunk: the kernel's chunk AND the fine-table length of the
         mix, so it changes the mix's rounding: pass the value the
         compared run used (the JAX package's default is 128).
@@ -180,9 +307,10 @@ def fastlo_ddc_cascade_bank(ba, state: Df1State, tails, phase0, steps, x,
     """
     if x.device.type == "cpu":
         return fastlo_ddc_cascade_bank_plain(
-            ba, state, tails, phase0, steps, x, f, taps=taps,
+            ba, state, tails, phase0, steps, x, f, clamp=clamp, taps=taps,
             time_chunk=time_chunk,
         )
+    clamp = None if clamp is None else clamp_params(*clamp)
     taps = _default_taps(taps)
     t = x.shape[0]
     c = phase0.shape[0]
@@ -193,13 +321,16 @@ def fastlo_ddc_cascade_bank(ba, state: Df1State, tails, phase0, steps, x,
     tables = fastlo_tables(phase0, steps, t, time_chunk)
     new_state, new_tails, y = _launch_cascade(
         ba, state, tails, taps, f, t, 2 * c, time_chunk, dev, x=x,
-        tables=tables,
+        tables=tables, clamp=clamp,
     )
     fastlo_ddc_cascade_bank.launches += 1
+    if clamp is not None:
+        fastlo_ddc_cascade_bank.clamp_launches += 1
     return new_state, new_tails, accu.advance(phase0, steps, t), y
 
 
 fastlo_ddc_cascade_bank.launches = 0  # kernel launches since the last reset
+fastlo_ddc_cascade_bank.clamp_launches = 0  # of them with ``clamp``
 
 
 def exact_mix(x: torch.Tensor, phase0: torch.Tensor, steps: torch.Tensor):

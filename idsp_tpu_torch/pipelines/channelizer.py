@@ -17,6 +17,7 @@ tensor-parallel `channelize_tp` waits for the port's ``parallel/``.
 
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -92,6 +93,21 @@ def init_planes(m: int = 4, taps: int = 8, shape=(), dtype=torch.float32, *,
                        hist_i=torch.zeros(shp, dtype=dtype, device=device))
 
 
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run the enclosed ``torch.matmul`` of f32 operands in full f32,
+    whatever the caller set: TF32 keeps 10 mantissa bits, and the f32 DFT
+    is gated at 2e-5 of the scale.  The card's setting is restored on
+    exit; the CPU never rounds to TF32."""
+    mm = torch.backends.cuda.matmul
+    old = mm.fp32_precision
+    mm.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        mm.fp32_precision = old
+
+
 def coefficients(proto, m: int, taps: int) -> np.ndarray:
     """The prototype as per-tap branch rows (taps, m) f32 (``prototype(m,
     taps)`` for None)."""
@@ -155,8 +171,9 @@ def channelize_planes(state: PlanesState, zr, zi, proto=None, *, m: int = 4,
         raise ValueError(f"unknown dft {dft!r}")
     # [yr yi] = [ar ai] @ [[wr, wi], [-wi, wr]], f32 accumulation
     ab = torch.cat([accr, acci], dim=-1)
-    y = torch.matmul(ab.to(twiddle_dtype).float(),
-                     _dft_block(m, twiddle_dtype, zr.device))
+    with full_f32_matmul():
+        y = torch.matmul(ab.to(twiddle_dtype).float(),
+                         _dft_block(m, twiddle_dtype, zr.device))
     return new_state, y[..., :m].contiguous(), y[..., m:].contiguous()
 
 

@@ -18,7 +18,13 @@ from __future__ import annotations
 import torch
 
 from .. import _ext
-from .channelizer import PlanesState, coefficients, polyphase_fir, twiddles
+from .channelizer import (
+    PlanesState,
+    coefficients,
+    full_f32_matmul,
+    polyphase_fir,
+    twiddles,
+)
 
 TWIDDLE_DTYPES = (torch.float32, torch.bfloat16)
 MAX_TAPS = 16  # csrc/channelize.cu kMaxTaps
@@ -46,8 +52,9 @@ def channelize_fused_plain(state: PlanesState, zr, zi, proto=None, *, m: int,
     # rounded operands, summed in f32
     ar = accr.to(twiddle_dtype).float()
     ai = acci.to(twiddle_dtype).float()
-    yr = ar @ wr - ai @ wi
-    yi = ar @ wi + ai @ wr
+    with full_f32_matmul():
+        yr = ar @ wr - ai @ wi
+        yi = ar @ wi + ai @ wr
     return PlanesState(hist_r=hist_r, hist_i=hist_i), yr, yi
 
 

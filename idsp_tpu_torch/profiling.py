@@ -15,20 +15,23 @@ import torch
 
 
 def measure_rate(step, state, *args, iters: int = 10, trials: int = 5,
-                 stateful: bool = True):
+                 stateful: bool = True, warmup: bool = True):
     """Median device seconds per call of ``step(state, *args)``.
 
     Each trial records a CUDA event, makes ``iters`` chained calls
     (with ``stateful``, the first element of each result is the next
     call's state, so calls cannot overlap), records a second event and
-    synchronizes.  One untimed call warms up first.  Returns
-    ``(seconds_per_call, per_trial_seconds)``.
+    synchronizes.  With ``warmup``, one untimed call comes first (leave
+    it out for a step of seconds that compiles nothing, such as a plain
+    scan already run at that shape).  Returns ``(seconds_per_call,
+    per_trial_seconds)``.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("measure_rate times the CUDA device; none found")
     if iters < 1 or trials < 1:
         raise ValueError(f"need iters, trials >= 1, got {iters}, {trials}")
-    step(state, *args)
+    if warmup:
+        step(state, *args)
     torch.cuda.synchronize()
     per_trial = []
     for _ in range(trials):

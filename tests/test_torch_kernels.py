@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K17 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K21 against their plain PyTorch versions, on the card.
 
 Marked ``requires_cuda``; each test skips (inside its fixture) where no
 CUDA device is present.  No jax here, so the file also runs where only
@@ -6,7 +6,8 @@ PyTorch is installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
 
-On the card every K1-K16 output must equal its plain version bit for bit:
+On the card every K1-K16 and K18-K21 output (with the ``clamp=`` forms of
+K3 and K12) must equal its plain version bit for bit:
 the integer paths are the same int64 arithmetic, and the kernels' f32
 operations are single-rounding intrinsics in the plain versions' order,
 as eager PyTorch rounds each operation.  K17's matrix products sum in
@@ -26,10 +27,18 @@ from idsp_tpu_torch.filters.biquad_cuda import (
     df1_bank_q_dec,
     df1_bank_q_dec_plain,
     df1_bank_q_plain,
+    df1_clamp_bank_q,
+    df1_clamp_bank_q_plain,
 )
 from idsp_tpu_torch.filters.ddc_cuda import (
     ddc_mix_df1_bank,
     ddc_mix_df1_bank_plain,
+    df1_clamp_hbf_cascade_bank,
+    df1_clamp_hbf_cascade_bank_plain,
+    df1_hbf1_bank,
+    df1_hbf1_bank_plain,
+    df1_hbf12_bank,
+    df1_hbf12_bank_plain,
     df1_hbf_cascade_bank,
     df1_hbf_cascade_bank_plain,
     fastlo_ddc_cascade_bank,
@@ -550,3 +559,160 @@ def test_baseline_1_3_wrappers_reject_bad_input(cuda):
     z = torch.zeros((64, 128), device=cuda)
     with pytest.raises(ValueError):
         channelize_fused(sp, z, z, m=128, twiddle_dtype=torch.float16)
+
+
+# (u, lo, hi): the JAX test's peaks (engages on raw +-2^27 inputs), an
+# offset that wraps int32 with bounds at its extremes, and lo > hi (every
+# output hi)
+CLAMPS = [(1 << 10, -(1 << 26), 1 << 26), (2**31 - 8, -(2**31), 2**31 - 1),
+          (0, 1 << 20, -(1 << 20))]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("clamp", CLAMPS)
+def test_df1_clamp_bank_q_kernel_equals_plain(cuda, clamp):
+    u, lo, hi = clamp
+    c, t = 200, 1000  # c not a multiple of the 32-lane block, a row tail
+    rng = np.random.default_rng(60)
+    st = biquad.Df1State(x=_i32(rng, (c, 2), device=cuda),
+                         y=_i32(rng, (c, 2), device=cuda))
+    st_p = st
+    for _ in range(3):
+        xs = _i32(rng, (t, c), -(2**27), 2**27, device=cuda)
+        st, ys = df1_clamp_bank_q(BA_Q, st, xs, 29, u=u, lo=lo, hi=hi)
+        st_p, ys_p = df1_clamp_bank_q_plain(BA_Q, st_p, xs, 29, u=u, lo=lo,
+                                            hi=hi)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, ys), (st_p.x, st_p.y, ys_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("depth,clamp", [(1, CLAMPS[0]), (3, CLAMPS[0]),
+                                         (3, CLAMPS[1]), (2, CLAMPS[2])])
+def test_df1_clamp_hbf_cascade_kernel_equals_plain(cuda, depth, clamp):
+    u, lo, hi = clamp
+    c2, t = 256, 1024
+    taps = tuple(HBF_TAPS[2 - d] for d in range(depth))
+    rng = np.random.default_rng(61)
+    st = biquad.df1_init((c2,), device=cuda)
+    tails = tuple(hbf1_tail_init(c2, len(tv), device=cuda) for tv in taps)
+    st_p, tails_p = st, tails
+    for _ in range(3):
+        xs = _i32(rng, (t, c2), -(2**27), 2**27, device=cuda)
+        st, tails, y = df1_clamp_hbf_cascade_bank(
+            BA_Q, st, tails, xs, 29, u=u, lo=lo, hi=hi, taps=taps,
+            time_chunk=128)
+        st_p, tails_p, y_p = df1_clamp_hbf_cascade_bank_plain(
+            BA_Q, st_p, tails_p, xs, 29, u=u, lo=lo, hi=hi, taps=taps)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, tails, y), (st_p.x, st_p.y, tails_p, y_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tc", [64, 512])
+def test_df1_hbf1_and_hbf12_kernels_equal_plain(cuda, tc):
+    """K20 and K21 (K2 at depth 1 and 2, their JAX default chunk 512)."""
+    c2, t = 200, 1024  # c2 not a multiple of the 32-lane block
+    rng = np.random.default_rng(62)
+    st = biquad.df1_init((c2,), device=cuda)
+    t1, t2 = (hbf1_tail_init(c2, m, device=cuda) for m in (5, 10))
+    a = a_p = (st, t1)
+    b = b_p = (st, t1, t2)
+    for _ in range(3):
+        xs = _i32(rng, (t, c2), -(2**27), 2**27, device=cuda)
+        out = df1_hbf1_bank(BA_Q, *a, xs, 29, time_chunk=tc)
+        out_p = df1_hbf1_bank_plain(BA_Q, *a_p, xs, 29)
+        out12 = df1_hbf12_bank(BA_Q, *b, xs, 29, time_chunk=tc)
+        out12_p = df1_hbf12_bank_plain(BA_Q, *b_p, xs, 29)
+        torch.cuda.synchronize()
+        _equal(out, out_p)
+        _equal(out12, out12_p)
+        assert tuple(out[2].shape) == (t // 2, c2)
+        assert tuple(out12[3].shape) == (t // 4, c2)
+        a, a_p, b, b_p = out[:2], out_p[:2], out12[:3], out12_p[:3]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("clamp", CLAMPS[:2])
+def test_fastlo_cascade_clamp_kernel_equals_plain(cuda, clamp):
+    c, t, tc = 128, 1024, 128
+    rng = np.random.default_rng(63)
+    p0 = _i32(rng, (c,), device=cuda)
+    steps = _i32(rng, (c,), 1 << 24, 1 << 30, device=cuda)
+    st = biquad.df1_init((2 * c,), device=cuda)
+    tails = tuple(hbf1_tail_init(2 * c, m, device=cuda) for m in (5, 10, 23))
+    ph, st_p, tails_p, ph_p = p0, st, tails, p0
+    for _ in range(3):
+        x = _i32(rng, (t,), -(2**27), 2**27, device=cuda)
+        st, tails, ph, y = fastlo_ddc_cascade_bank(
+            BA_Q, st, tails, ph, steps, x, 29, clamp=clamp, time_chunk=tc)
+        st_p, tails_p, ph_p, y_p = fastlo_ddc_cascade_bank_plain(
+            BA_Q, st_p, tails_p, ph_p, steps, x, 29, clamp=clamp,
+            time_chunk=tc)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, tails, ph, y), (st_p.x, st_p.y, tails_p, ph_p, y_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("clamp", CLAMPS[:2])
+def test_fastlo_df1_dec_bank_clamp_kernel_equals_plain(cuda, clamp):
+    c, t, d, tc = 100, 1024, 16, 128
+    rng = np.random.default_rng(64)
+    steps = _i32(rng, (c,), 1 << 24, 1 << 30, device=cuda)
+    carry = (biquad.df1_init((2 * c,), device=cuda),
+             _i32(rng, (c,), device=cuda))
+    carry_p = carry
+    for _ in range(3):
+        x = _i32(rng, (t,), -(2**27), 2**27, device=cuda)
+        out = fastlo_df1_dec_bank(BA_Q, carry[0], carry[1], steps, x, 29, d=d,
+                                  clamp=clamp, time_chunk=tc)
+        out_p = fastlo_df1_dec_bank_plain(BA_Q, carry_p[0], carry_p[1], steps,
+                                          x, 29, d=d, clamp=clamp,
+                                          time_chunk=tc)
+        torch.cuda.synchronize()
+        _equal(out, out_p)
+        carry, carry_p = out[:2], out_p[:2]
+
+
+@pytest.mark.requires_cuda
+def test_clamped_cascade_refused_launch_leaves_no_pending_error(cuda):
+    """K20 at a chunk of 4096 rows asks for 526 KB of shared memory a
+    block: the launch is refused and raises (no smaller chunk is taken),
+    and the next kernel of the library launches as usual."""
+    st = biquad.df1_init((128,), device=cuda)
+    xs = torch.ones((4096, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError):
+        df1_hbf1_bank(BA_Q, st, hbf1_tail_init(128, device=cuda), xs, 29,
+                      time_chunk=4096)
+    _equal(df1_clamp_bank_q(BA_Q, st, xs, 29, lo=-5, hi=5),
+           df1_clamp_bank_q_plain(BA_Q, st, xs, 29, lo=-5, hi=5))
+
+
+@pytest.mark.requires_cuda
+def test_channelizer_f32_products_ignore_global_tf32(cuda):
+    """The planes path and K17's plain version compute their f32 products
+    in full f32 even when the caller turned TF32 on."""
+    m, n = 256, 64
+    rng = np.random.default_rng(65)
+    zr, zi = (torch.from_numpy(rng.normal(size=(n, m)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    st = channelizer.init_planes(m, 8, device=cuda)
+    mm = torch.backends.cuda.matmul
+
+    def run():
+        return (channelizer.channelize_planes(
+                    st, zr, zi, m=m, taps=8, twiddle_dtype=torch.float32),
+                channelize_fused_plain(st, zr, zi, m=m, taps=8,
+                                       twiddle_dtype=torch.float32))
+
+    old = mm.fp32_precision
+    try:
+        mm.fp32_precision = "ieee"
+        want = run()
+        mm.fp32_precision = "tf32"
+        got = run()
+        assert mm.fp32_precision == "tf32"  # the caller's setting stays
+    finally:
+        mm.fp32_precision = old
+    torch.cuda.synchronize()
+    _equal(got, want)
