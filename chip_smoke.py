@@ -6,11 +6,11 @@ against its plain PyTorch version, drives the main paths -- the
 headline DDC chain (`DdcChain`) and its anti-windup (clamped) front
 ends, the BASELINE #5 DDC bank in its Lowpass
 (`DdcBank`) and biquad (`DdcBankBiquad`) variants, the BASELINE #4
-rate conversion (`RoundTrip`, the CIC + half-band composite decimator,
-CIC interpolation), and BASELINE #1-#3 (`FmReceiver`, `DdcLockinBank`,
-`channelize_planes`) -- through their kernel modes, checks the results
-and times kernels, chain, banks, rate conversion, FM, lock-in and
-channelizer.
+rate conversion (`RoundTrip` in its shift and banded-matrix forms, the
+CIC + half-band composite decimator, CIC interpolation), and BASELINE
+#1-#3 (`FmReceiver`, `DdcLockinBank`, `channelize_planes`) -- through
+their kernel modes, checks the results and times kernels, chain, banks,
+rate conversion, FM, lock-in and channelizer.
 Phases, each reported on its own line:
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
@@ -38,7 +38,10 @@ Phases, each reported on its own line:
    ``clamp=`` form at c=512 and K12's at c=1024 (d=16, time chunk 128),
    clamped with CLAMP, bit for bit, each plain call timed, with the share
    of DF1 outputs the clamp pinned (> 0); K19 once with the suite's clamp
-   row CLAMP_SUITE;
+   row CLAMP_SUITE; K22 `hbf_dec_cascade_mxu` ((32768, 512) f32) and K23
+   `hbf_int_cascade_mxu` ((2048, 512) f32), depth 4, with HBF_TAPS and
+   HBF_TAPS_98 from a random carried state, at two (block, sub) tilings,
+   bit for bit, and one block against its two halves, bit for bit;
 4. the main paths, each with every launch counter reset just before it
    and read just after:
    * `DdcChain` in ``split`` (K1), ``fused`` (K14), ``fold`` (K20),
@@ -74,14 +77,18 @@ Phases, each reported on its own line:
      ``exact`` and ``one_kernel``, and ``fast_fused`` tracks ``exact``
      (the gates of tests/test_rate_ddc_bank.py:278-281);
    * BASELINE #4 at the suite's widths (benches/suite.py:796-851,
-     c=512, t=32768): `RoundTrip` (depth 4, x ~ N(0, 1)) in ``scan`` and
-     ``kernel`` (K7, K8), `cic_hbf_decimate_t` (CIC N=3 by 4, then
-     half-band by 4; x in +-2^20) plain and with K9 + K7, and CIC
-     interpolation (N=3, R=16, x in +-2^10) plain and with K10, over 3
-     blocks: ``kernel`` within 32 ULP of ``scan``, the CIC state and the
-     CIC interpolation bit for bit, the composite output within 16 ULP;
-     then the quality gates of tests/test_rate_ddc_bank.py:11-54 in
-     kernel mode, each lane with its own tone or level;
+     c=512, t=32768): `RoundTrip` (depth 4, x ~ N(0, 1)) in ``scan``,
+     ``kernel`` (K7, K8) and ``mxu`` (K22, K23, once a block each),
+     `cic_hbf_decimate_t` (CIC N=3 by 4, then half-band by 4; x in
+     +-2^20) plain and with K9 + K7, and CIC interpolation (N=3, R=16, x
+     in +-2^10) plain and with K10, over 3 blocks: ``kernel`` within 32
+     ULP of ``scan``, ``mxu`` within 5e-5 of the scale of ``scan`` with
+     the decimator's stage-0 carry bit for bit, the CIC state and the CIC
+     interpolation bit for bit, the composite output within 16 ULP; then
+     the quality gates of tests/test_rate_ddc_bank.py:11-54 in kernel and
+     mxu modes, each lane with its own tone or level, and the HBF_TAPS_98
+     gates (tests/test_hbf.py:64-78: passband within 0.001 dB, stopband
+     below -98 dB) on the depth-4 round trip in all three modes;
    * BASELINE #1 (benches/suite.py:751-794): `FmReceiver` in ``scan``,
      ``composed`` (K1), ``kernel`` (K15) and ``kernel_fast`` at c=512,
      t=32768, carrier 12345, Q32<30> deemphasis at 0.02, over 3 blocks:
@@ -106,8 +113,8 @@ Phases, each reported on its own line:
    and c=1024 and bank rates at c=1024, in c*t full-rate samples/s,
    t=32768 (K14, K18-K21 and K3's clamp form at c=512 and 1024, their
    plain versions' times from phase 3; K11-K13, K12's clamp form and the
-   biquad bank's five modes at c=1024); K7-K10 at
-   c=512 and 1024 beside their
+   biquad bank's five modes at c=1024); K7-K10 and K22-K23 (also at
+   their second tiling) at c=512 and 1024 beside their
    library yardsticks (grouped `F.conv1d` per half-band stage, TF32
    off; chained `torch.cumsum` and `torch.diff` for the CIC),
    round-trip and composite
@@ -172,6 +179,8 @@ BUSY_ITERS = 5  # chained blocks under the profiler per busy-share reading
 # phases 3-4 have run it at the same shape: phase 6 times one call of it.
 ONCE = {"iters": 1, "trials": 1, "warmup": False}
 M_DEC3, M_DEC4, M_INT4 = (5, 10, 23), (4, 5, 10, 23), (23, 10, 5, 4)
+# K22/K23's (block, sub) tilings in phase 3: the defaults first
+MXU_DEC_TILES, MXU_INT_TILES = ((256, 32), (1024, 8)), ((64, 32), (16, 4))
 # The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
 # the chain's mixed stream the 0.02 lowpass output peaks near 2.6e7, under
 # the 2^26 bound of tests/test_biquad_pallas.py:896, so that bound never
@@ -257,6 +266,9 @@ def work(name, c, t=T):
         # the mix 2 and the DF1 11
         return _w(4 * t + 8 * c + 4 * t * c2 + 32 * c2, 0,
                   (38 + 2 * 2 + 2 * 11) * t * c, t, 3)
+    # K22/K23 compute K7/K8's functions: the same work, whatever the form
+    name = {"hbf_dec_cascade_mxu": "hbf_dec_cascade_bank",
+            "hbf_int_cascade_mxu": "hbf_int_cascade_bank"}.get(name, name)
     if name == "hbf_dec_cascade_bank":
         return _w(4 * t * c + 4 * (t >> DEPTH) * c
                   + 2 * 4 * sum(3 * m - 2 for m in M_DEC4) * c,
@@ -487,9 +499,11 @@ def ulp_bound(ref, k):
 
 
 def rate_main_path(dev, rng, wrappers):
-    """Phase 4 for BASELINE #4: the round trip, the composite decimator
-    and CIC interpolation, plain and through K7-K10, then the quality
-    gates in kernel mode.  Returns the launch counts of the run."""
+    """Phase 4 for BASELINE #4: the round trip (scan, K7-K8 and K22-K23),
+    the composite decimator and CIC interpolation, plain and through
+    K7-K10, then the quality gates in kernel and mxu modes and the
+    HBF_TAPS_98 gates in all three.  Returns the launch counts of the
+    run."""
     import torch
     from idsp_tpu_torch.filters import cic, hbf
     from idsp_tpu_torch.filters.cic_cuda import cic_int_bank
@@ -504,7 +518,7 @@ def rate_main_path(dev, rng, wrappers):
 
     reset(wrappers)
     rt = {}
-    for m in ("scan", "kernel"):
+    for m in ("scan", "kernel", "mxu"):
         mod = RoundTrip(m, DEPTH, c, device=dev)
         st, outs = mod.init_state(), []
         for xb in rt_x:
@@ -533,9 +547,13 @@ def rate_main_path(dev, rng, wrappers):
         itp[kern] = outs
     torch.cuda.synchronize()
     counts = launch_counts(wrappers)
-    log(f"phase 4 main path: RoundTrip (scan, kernel), cic_hbf_decimate_t "
-        f"(plain, kernel), CIC interpolation (plain, kernel) x {BLOCKS} "
-        f"blocks at c={c}, t={T}; launches {counts}")
+    for name in ("hbf_dec_cascade_mxu", "hbf_int_cascade_mxu"):
+        if counts[name] != BLOCKS:
+            raise AssertionError(f"RoundTrip mxu: {name} launched "
+                                 f"{counts[name]} times in {BLOCKS} blocks")
+    log(f"phase 4 main path: RoundTrip (scan, kernel, mxu), "
+        f"cic_hbf_decimate_t (plain, kernel), CIC interpolation (plain, "
+        f"kernel) x {BLOCKS} blocks at c={c}, t={T}; launches {counts}")
 
     worst = bound = 0.0
     for (st, y), (st_r, y_r) in zip(rt["kernel"], rt["scan"]):
@@ -569,42 +587,166 @@ def rate_main_path(dev, rng, wrappers):
     log(f"phase 4 CIC interpolation kernel == plain on every output and "
         f"state word over {BLOCKS} blocks")
 
-    # quality gates (tests/test_rate_ddc_bank.py:11-54), kernel mode, one
-    # tone or level per lane
-    lane = np.arange(c)
-    n = 1 << 14
-    f = (77 + lane * 153 // (c - 1)) / 12288  # whole periods from 4096 on
+    # mxu: outputs within 5e-5 of the scale of scan, the decimator's
+    # stage-0 carry (copies of the input) bit for bit
+    worst = bound = 0.0
+    for b, ((st, y), (st_r, y_r)) in enumerate(zip(rt["mxu"], rt["scan"])):
+        if tuple(y.shape) != (T, c) or not bool(torch.isfinite(y).all()):
+            raise AssertionError("RoundTrip mxu: bad output")
+        compare(f"RoundTrip mxu stage-0 carry, block {b}", st.dec[0],
+                st_r.dec[0])
+        bound = 5e-5 * float(y_r.abs().max())
+        for a, r in zip(leaves((st, y)), leaves((st_r, y_r)), strict=True):
+            worst = max(worst, max_abs(a, r))
+        if worst > bound:
+            raise AssertionError(f"RoundTrip mxu off scan by {worst} > "
+                                 f"{bound}")
+    log(f"phase 4 RoundTrip mxu vs scan over {BLOCKS} blocks: stage-0 carry "
+        f"bit for bit; max |d| of outputs and tails {worst} (gate 5e-5 x "
+        f"scale = {bound})")
+    for mode in ("kernel", "mxu"):
+        rate_gates(dev, mode)
+    for mode in ("scan", "kernel", "mxu"):
+        gates_98(dev, mode)
+    return counts
+
+
+def tone_power(dev, mod, f, n, skip, phased=False):
+    """Per lane, the power of ``mod``'s output from row ``skip`` on, driven
+    from its initial state by a cosine per lane at ``f`` cycles a sample
+    (with ``phased``, lane k at phase 2 pi k / c); and the input's power
+    likewise."""
+    import torch
+
+    c = len(f)
+    phase = 2 * np.pi * np.arange(c) / c if phased else np.zeros(c)
     x = np.cos(2 * np.pi * f[None] * np.arange(n)[:, None]
-               + 2 * np.pi * lane[None] / c).astype(np.float32)
-    mod = RoundTrip("kernel", 4, c, device=dev)
+               + phase[None]).astype(np.float32)
     _, y = mod(mod.init_state(), torch.from_numpy(x).to(dev))
     y = y.double().cpu().numpy()
-    ratio = (y[4096:] ** 2).mean(0) / (x[4096:].astype(np.float64) ** 2).mean(0)
-    tone = float(np.abs(ratio - 1).max())
-    n = 1 << 13
-    f = np.linspace(0.15, 0.45, c)
-    x = np.cos(2 * np.pi * f[None] * np.arange(n)[:, None]).astype(np.float32)
-    mod = RoundTrip("kernel", 2, c, device=dev)
-    _, y = mod(mod.init_state(), torch.from_numpy(x).to(dev))
-    stop = float((y.double().cpu().numpy()[2048:] ** 2).mean(0).max())
-    level = 1000 + lane
+    return (y[skip:] ** 2).mean(0), (x[skip:].astype(np.float64) ** 2).mean(0)
+
+
+def passband_f(c):
+    """A passband tone per lane, 0.1/16 to 0.3/16 cycles a sample, whole
+    periods from row 4096 on."""
+    return (77 + np.arange(c) * 153 // (c - 1)) / 12288
+
+
+def rate_gates(dev, mode):
+    """The quality gates of tests/test_rate_ddc_bank.py:11-54 through
+    `RoundTrip(mode)` and `cic_hbf_decimate_t(use_kernel=...)` at c =
+    C_RATE, one tone or level per lane."""
+    import torch
+    from idsp_tpu_torch.filters import cic, hbf
+    from idsp_tpu_torch.pipelines import rate_conversion as rc
+    from idsp_tpu_torch.pipelines.rate_conversion import RoundTrip
+
+    c = C_RATE
+    p_y, p_x = tone_power(dev, RoundTrip(mode, 4, c, device=dev),
+                          passband_f(c), 1 << 14, 4096, phased=True)
+    tone = float(np.abs(p_y / p_x - 1).max())
+    p_y, _ = tone_power(dev, RoundTrip(mode, 2, c, device=dev),
+                        np.linspace(0.15, 0.45, c), 1 << 13, 2048)
+    stop = float(p_y.max())
+    level = 1000 + np.arange(c)
     x = torch.from_numpy(np.broadcast_to(
         level[None], (20 * 64, c)).astype(np.int32).copy()).to(dev)
     (_, _), y = rc.cic_hbf_decimate_t(
         cic.init(3, 1, (c,), device=dev),
         hbf.hbf_dec_cascade_init(2, (c,), axis=0, device=dev), x, 4, 2,
-        use_kernel=True)
+        use_kernel=True if mode == "kernel" else mode)
     gain = cic.gain(4, 3, 1) * 4
     dc = float(np.abs(y[-1].double().cpu().numpy() / (level * gain) - 1).max())
     torch.cuda.synchronize()
     if not (tone < 1e-3 and stop < 0.5 * 10 ** (-98 / 10) and dc < 1e-3):
-        raise AssertionError(f"rate-conversion gates: tone {tone}, stopband "
-                             f"{stop}, DC {dc}")
-    log(f"phase 4 rate-conversion gates on {c} lanes (kernel mode): round-"
+        raise AssertionError(f"rate-conversion gates ({mode}): tone {tone}, "
+                             f"stopband {stop}, DC {dc}")
+    log(f"phase 4 rate-conversion gates on {c} lanes ({mode} mode): round-"
         f"trip tone power |ratio - 1| max {tone:.3e} < 1e-3; depth-2 "
         f"stopband power max {stop:.3e} < {0.5 * 10 ** (-98 / 10):.3e}; "
         f"composite DC gain |err| max {dc:.3e} < 1e-3")
-    return counts
+
+
+def gates_98(dev, mode):
+    """The HBF_TAPS_98 gates of tests/test_hbf.py:64-78 (> 98 dB stopband,
+    < 0.001 dB passband ripple) on the depth-4 round trip in ``mode`` at
+    c = C_RATE: a passband tone per lane (0.1/16 to 0.3/16 cycles a
+    sample) keeps its power within 0.001 dB, a stopband tone per lane
+    (above 0.6/16) leaves less than -98 dB of its power."""
+    from idsp_tpu_torch.filters.hbf import HBF_TAPS_98
+    from idsp_tpu_torch.pipelines.rate_conversion import RoundTrip
+
+    c, n = C_RATE, 1 << 14
+    mod = RoundTrip(mode, 4, c, taps=HBF_TAPS_98, device=dev)
+    p_y, p_x = tone_power(dev, mod, passband_f(c), n, 4096, phased=True)
+    ripple = float(np.abs(10 * np.log10(p_y / p_x)).max())
+    p_y, p_x = tone_power(dev, mod, np.linspace(0.6 / 16 + 1e-3, 0.5 - 1e-3,
+                                                c), n, 4096)
+    stop = float(10 * np.log10(p_y / p_x).max())
+    if not (ripple < 1e-3 and stop < -98.0):
+        raise AssertionError(f"HBF_TAPS_98 round trip ({mode}): ripple "
+                             f"{ripple} dB, stopband {stop} dB")
+    log(f"phase 4 HBF_TAPS_98 round trip on {c} lanes ({mode} mode): "
+        f"passband |power ratio| max {ripple:.6f} dB < 0.001 dB; stopband "
+        f"max {stop:.3f} dB < -98 dB")
+
+
+def check_mxu_kernels(dev, rng, errs, plain_s):
+    """Phase 3 for K22/K23 at c = C_RATE, depth DEPTH, with HBF_TAPS and
+    HBF_TAPS_98: each against its plain version over BLOCKS carried blocks
+    from a random state at two tilings (block, sub), then one block against
+    its two halves; tolerance 0.  ``plain_s`` gets the plain calls' median
+    time (HBF_TAPS, the first tiling)."""
+    import torch
+    from idsp_tpu_torch.filters import hbf
+    from idsp_tpu_torch.filters.hbf_mxu import (
+        hbf_dec_cascade_mxu, hbf_dec_cascade_mxu_plain, hbf_int_cascade_mxu,
+        hbf_int_cascade_mxu_plain,
+    )
+
+    normal, _ = rate_inputs(dev, rng)
+    c = C_RATE
+
+    def dec_state(taps):
+        return tuple(hbf.HbfDecState(normal(s.odd.shape), normal(s.even.shape))
+                     for s in hbf.hbf_dec_cascade_init(
+                         DEPTH, (c,), taps=taps, axis=0, device=dev))
+
+    def int_state(taps):
+        return tuple(hbf.HbfIntState(normal(s.x.shape))
+                     for s in hbf.hbf_int_cascade_init(
+                         DEPTH, (c,), taps=taps, axis=0, device=dev))
+
+    for tag, kern, plain, rows, state, tiles in (
+            ("K22", hbf_dec_cascade_mxu, hbf_dec_cascade_mxu_plain, T,
+             dec_state, MXU_DEC_TILES),
+            ("K23", hbf_int_cascade_mxu, hbf_int_cascade_mxu_plain,
+             T >> DEPTH, int_state, MXU_INT_TILES)):
+        name, err = kern.__name__, 0.0
+        for tname in ("HBF_TAPS", "HBF_TAPS_98"):
+            taps = getattr(hbf, tname)
+            st0 = state(taps)
+            for i, (block, sub) in enumerate(tiles):
+                err = max(err, hold(
+                    name,
+                    lambda s, x: kern(s, x, taps=taps, block=block, sub=sub),
+                    lambda s, x: plain(s, x, taps=taps), (st0,),
+                    lambda: normal((rows, c)),
+                    plain_s if tname == "HBF_TAPS" and i == 0 else None))
+            x = normal((rows, c))
+            whole = kern(st0, x, taps=taps)
+            st_a, y_a = kern(st0, x[:rows // 2], taps=taps)
+            st_b, y_b = kern(st_a, x[rows // 2:], taps=taps)
+            torch.cuda.synchronize()
+            compare(f"{name} ({tname}): two halves vs one block",
+                    (st_b, torch.cat([y_a, y_b])), whole)
+        errs[name] = err
+        log(f"phase 3 {tag} {name} == plain over {BLOCKS} blocks (c={c}, "
+            f"x ({rows}, {c}), depth {DEPTH}, HBF_TAPS and HBF_TAPS_98, "
+            f"random carried state, (block, sub) {tiles}): max |d| {err}; "
+            f"two halves == one block bit for bit; plain "
+            f"{plain_s[name] * 1e3:.3f} ms")
 
 
 def library_calls(x, low, xi, xl):
@@ -682,8 +824,9 @@ def library_calls(x, low, xi, xl):
 
 
 def time_rate(dev, rng, card, timings):
-    """Phase 6 for BASELINE #4: K7-K10 beside their plain versions and
-    library yardsticks, round-trip and composite rates, busy shares."""
+    """Phase 6 for BASELINE #4: K7-K10 and K22-K23 beside their plain
+    versions and library yardsticks (K22/K23 also at their second phase-3
+    tiling), round-trip and composite rates, busy shares."""
     import torch
     from idsp_tpu_torch.filters import cic, hbf
     from idsp_tpu_torch.filters.cic_cuda import (
@@ -692,6 +835,10 @@ def time_rate(dev, rng, card, timings):
     from idsp_tpu_torch.filters.hbf_cuda import (
         hbf_dec_cascade_bank, hbf_dec_cascade_bank_plain,
         hbf_int_cascade_bank, hbf_int_cascade_bank_plain,
+    )
+    from idsp_tpu_torch.filters.hbf_mxu import (
+        hbf_dec_cascade_mxu, hbf_dec_cascade_mxu_plain, hbf_int_cascade_mxu,
+        hbf_int_cascade_mxu_plain,
     )
     from idsp_tpu_torch.pipelines import rate_conversion as rc
     from idsp_tpu_torch.pipelines.rate_conversion import RoundTrip
@@ -718,8 +865,16 @@ def time_rate(dev, rng, card, timings):
                              lambda s: cic_dec_bank_plain(s, xi, rate), cic0),
             "cic_int_bank": (lambda s: cic_int_bank(s, xl, rate),
                              lambda s: cic_int_bank_plain(s, xl, rate), cic0),
+            "hbf_dec_cascade_mxu": (
+                lambda s: hbf_dec_cascade_mxu(s, x),
+                lambda s: hbf_dec_cascade_mxu_plain(s, x), dec0),
+            "hbf_int_cascade_mxu": (
+                lambda s: hbf_int_cascade_mxu(s, low),
+                lambda s: hbf_int_cascade_mxu_plain(s, low), int0),
         }
         libs = library_calls(x, low, xi, xl)
+        libs["hbf_dec_cascade_mxu"] = libs["hbf_dec_cascade_bank"]
+        libs["hbf_int_cascade_mxu"] = libs["hbf_int_cascade_bank"]
         for name, (kern, plain, st) in cases.items():
             lib_out = libs[name](None).double()
             ker_out = kern(st)[1].double()
@@ -737,13 +892,27 @@ def time_rate(dev, rng, card, timings):
                 f"library vs kernel {lib_d:.3e}, scale "
                 f"{float(ker_out.abs().max()):.3e})  [{card}]")
 
+        # K22/K23 at their second phase-3 tiling
+        for name, kern, st, xb, (block, sub) in (
+                ("hbf_dec_cascade_mxu", hbf_dec_cascade_mxu, dec0, x,
+                 MXU_DEC_TILES[1]),
+                ("hbf_int_cascade_mxu", hbf_int_cascade_mxu, int0, low,
+                 MXU_INT_TILES[1])):
+            k_s, _ = measure_rate(
+                lambda s: kern(s, xb, block=block, sub=sub), st, iters=20,
+                trials=3)
+            timings["kernels"][name][c]["ms_tiles"] = {
+                f"{block},{sub}": k_s * 1e3}
+            log(f"phase 6 c={c} {name} (block={block}, sub={sub}): kernel "
+                f"{k_s * 1e3:.4f} ms  [{card}]")
+
         def comp(s, xb, uk):
             return rc.cic_hbf_decimate_t(s[0], s[1], xb, 3, 2, use_kernel=uk)
 
         xc = ints((T, c), 2**20)
         comp0 = (cic0, hbf.hbf_dec_cascade_init(2, (c,), axis=0, device=dev))
         runs = {f"round_trip_{m}": (RoundTrip(m, DEPTH, c, device=dev), None)
-                for m in ("scan", "kernel")}
+                for m in ("scan", "kernel", "mxu")}
         runs["composite_plain"] = (lambda s, xb: comp(s, xb, False), comp0)
         runs["composite_kernel"] = (lambda s, xb: comp(s, xb, True), comp0)
         for name, (step, st) in runs.items():
@@ -754,7 +923,7 @@ def time_rate(dev, rng, card, timings):
             timings["rate_samples_per_s"].setdefault(name, {})[c] = rate_s
             log(f"phase 6 c={c} {name}: {sec * 1e3:.4f} ms/block, "
                 f"{rate_s:.6e} samples/s (c*t)  [{card}]")
-            if "kernel" in name:
+            if "kernel" in name or "mxu" in name:
                 log_busy(timings, name, c, sec, card, step, st, xb)
 
 
@@ -1714,6 +1883,9 @@ def main():
     from idsp_tpu_torch.filters.hbf_cuda import (
         hbf_dec_cascade_bank, hbf_int_cascade_bank,
     )
+    from idsp_tpu_torch.filters.hbf_mxu import (
+        hbf_dec_cascade_mxu, hbf_int_cascade_mxu,
+    )
     from idsp_tpu_torch.filters.ddc_lockin_cuda import ddc_lockin_bank
     from idsp_tpu_torch.filters.fm_cuda import fm_disc_bank
     from idsp_tpu_torch.pipelines.channelizer_cuda import channelize_fused
@@ -1859,9 +2031,10 @@ def main():
         f"blocks (c={C_BANK}, t={T}, d={DEC}, time_chunk={TC}): "
         f"max |d| {err}")
     check_rate_kernels(dev, rng, errs)
+    plain_s = {}  # K18-K23 and the clamp forms: their plain calls' times
+    check_mxu_kernels(dev, rng, errs, plain_s)
     check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba)
     check_slice5_kernels(dev, rng, errs)
-    plain_s = {}  # K18-K21 and the clamp forms: their plain calls' times
     check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank)
 
     # ---- phase 4: the main path ---------------------------------------
@@ -1886,7 +2059,8 @@ def main():
                 cic_int_bank, df1_bank_q_dec, fastlo_df1_dec_bank,
                 fastlo_ddc_bank_block, ddc_mix_df1_bank, fm_disc_bank,
                 ddc_lockin_bank, channelize_fused, df1_clamp_bank_q,
-                df1_clamp_hbf_cascade_bank, df1_hbf1_bank, df1_hbf12_bank)
+                df1_clamp_hbf_cascade_bank, df1_hbf1_bank, df1_hbf12_bank,
+                hbf_dec_cascade_mxu, hbf_int_cascade_mxu)
     chain_kernels = ("df1_bank_q", "df1_hbf_cascade_bank",
                      "fastlo_ddc_cascade_bank", "ddc_mix_df1_bank",
                      "df1_hbf1_bank", "df1_hbf12_bank")
@@ -1898,7 +2072,8 @@ def main():
     biquad_kernels = ("df1_bank_q_dec", "fastlo_df1_dec_bank",
                       "fastlo_ddc_bank_block")
     rate_kernels = ("hbf_dec_cascade_bank", "hbf_int_cascade_bank",
-                    "cic_dec_bank", "cic_int_bank")
+                    "cic_dec_bank", "cic_int_bank", "hbf_dec_cascade_mxu",
+                    "hbf_int_cascade_mxu")
     # BASELINE #1-#3: each kernel's width in the kernels line (K17: frames)
     slice5_c = {"fm_disc_bank": C_FM, "ddc_lockin_bank": C_LOCKIN,
                 "channelize_fused": N_CH[-1]}
@@ -2273,6 +2448,10 @@ def main():
                                  "idsp_tpu/filters/hbf_pallas.py:52"),
         "hbf_int_cascade_bank": ("idsp_tpu_torch/csrc/hbf_cascade.cu",
                                  "idsp_tpu/filters/hbf_pallas.py:210"),
+        "hbf_dec_cascade_mxu": ("idsp_tpu_torch/csrc/hbf_mxu.cu",
+                                "idsp_tpu/filters/hbf_pallas.py:409"),
+        "hbf_int_cascade_mxu": ("idsp_tpu_torch/csrc/hbf_mxu.cu",
+                                "idsp_tpu/filters/hbf_pallas.py:612"),
         "cic_dec_bank": ("idsp_tpu_torch/csrc/cic_bank.cu",
                          "idsp_tpu/filters/cic_pallas.py:83"),
         "cic_int_bank": ("idsp_tpu_torch/csrc/cic_bank.cu",

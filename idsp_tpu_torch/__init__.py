@@ -15,8 +15,10 @@ public layouts:
   variant, and `DdcBankBiquad`, Q<f> DF1 variant) — per-channel mix,
   the channel filter on I and Q, keep 1 in d, `atan2`, per-channel PLL;
 * the BASELINE #4 rate conversion (`pipelines.rate_conversion`,
-  `RoundTrip`) — half-band decimate by 16 then interpolate by 16, and
-  the CIC + half-band composite decimator;
+  `RoundTrip`) — half-band decimate by 16 then interpolate by 16, in
+  the shift form (K7/K8) or the banded-matrix form
+  (`hbf_dec_cascade_mxu`, `hbf_int_cascade_mxu`), and the CIC +
+  half-band composite decimator;
 * BASELINE #1, the FM discriminator bank (`pipelines.fm_disc`,
   `FmReceiver`) — conjugate product, atan2, carrier subtract, Q32<30>
   deemphasis DF1;
@@ -62,6 +64,9 @@ from .filters.ddc_cuda import (  # noqa: F401
 )
 from .filters.ddc_lockin_cuda import ddc_lockin_bank  # noqa: F401
 from .filters.fm_cuda import fm_disc_bank  # noqa: F401
+from .filters.hbf_mxu import (  # noqa: F401
+    hbf_dec_cascade_mxu, hbf_int_cascade_mxu,
+)
 from .pipelines import (  # noqa: F401
     channelizer, ddc_lockin, fm_disc, rate_conversion,
 )
@@ -80,7 +85,8 @@ __all__ = ["DdcBankBiquad", "DdcBankBiquadState", "DdcLockinBank",
            "df1_clamp_hbf_cascade_bank", "df1_hbf12_bank", "df1_hbf1_bank",
            "fastlo",
            "fastlo_ddc_bank_block", "fastlo_df1_dec_bank", "fm_disc",
-           "fm_disc_bank", "fxp", "hbf", "init_biquad", "luts",
+           "fm_disc_bank", "fxp", "hbf", "hbf_dec_cascade_mxu",
+           "hbf_int_cascade_mxu", "init_biquad", "luts",
            "rate_conversion", "trig"]
 
 __version__ = "0.1.0"

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "idsp_ddc_bank_df1": [_P] * 12 + [_I] * 17 + [_P],
     "idsp_hbf_dec_cascade": [_P] * 4 + [_I] * 4 + [_P, _P, _P],
     "idsp_hbf_int_cascade": [_P] * 4 + [_I] * 4 + [_P, _P, _P],
+    "idsp_hbf_dec_mxu": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
+    "idsp_hbf_int_mxu": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
     "idsp_cic_dec_bank": [_P] * 4 + [_I] * 4 + [_P],
     "idsp_cic_int_bank": [_P] * 4 + [_I] * 4 + [_P],
     "idsp_fm_disc_bank": [_P] * 13 + [_I] * 10 + [_P],

@@ -44,6 +44,28 @@ HBF_TAPS: tuple[np.ndarray, ...] = tuple(
 )
 
 
+#: 98 dB-stopband variant (hbf.rs:258-292), tap counts (15, 6, 3, 3, 2).
+HBF_TAPS_98: tuple[np.ndarray, ...] = tuple(
+    np.array(t, dtype=np.float32)
+    for t in (
+        [
+            7.02144012e-05, -2.43279582e-04, 6.35026936e-04, -1.39782541e-03,
+            2.74613582e-03, -4.96403839e-03, 8.41806912e-03, -1.35827601e-02,
+            2.11004053e-02, -3.19267647e-02, 4.77024289e-02, -7.18014345e-02,
+            1.12942004e-01, -2.03279594e-01, 6.33592923e-01,
+        ],
+        [-0.00086943, 0.00577837, -0.02201674, 0.06357869, -0.16627679,
+         0.61979312],
+        [0.01414651, -0.10439639, 0.59026742],
+        [0.01227974, -0.09930782, 0.58702834],
+        [-0.06291796, 0.5629161],
+    )
+)
+
+#: Passband width in units of the lowest sample rate (hbf.rs:352).
+HBF_PASSBAND = 0.4
+
+
 def fir_len(m: int, odd: bool) -> int:
     """Response length minus one: LEN = 2M - 1 + odd (hbf.rs:78)."""
     return 2 * m - 1 + int(odd)
@@ -76,6 +98,26 @@ def symmetric_fir(taps, x_ext, *, odd: bool, sym: bool, axis: int = -1):
     if odd and sym:
         acc = acc + _sl(x_ext, m, m + n, axis)
     return acc
+
+
+def fir_init(m: int, odd: bool, shape=(), dtype=torch.float32,
+             axis: int = -1, *, device) -> torch.Tensor:
+    """Tail state of a plain (not rate-changing) FIR stage: LEN samples
+    on the time axis (last, or first for the time-major layout)."""
+    ln, shape = (fir_len(m, odd),), tuple(shape)
+    return torch.zeros(ln + shape if axis == 0 else shape + ln, dtype=dtype,
+                       device=device)
+
+
+def fir_block(taps, state, x, *, odd: bool, sym: bool, axis: int = -1):
+    """Streaming FIR of any of the four linear-phase types: prepend the
+    carried tail, convolve, carry the new tail (the overlap-save form of
+    hbf.rs:93-101).  Returns (new_state, y), y as long as x."""
+    dim = 0 if axis == 0 else x.dim() - 1
+    ext = torch.cat([state, x], dim=dim)
+    y = symmetric_fir(taps, ext, odd=odd, sym=sym, axis=axis)
+    ne = ext.shape[axis]
+    return _sl(ext, ne - state.shape[axis], ne, axis), y
 
 
 class HbfDecState(NamedTuple):

@@ -66,10 +66,12 @@ def _chunked(fn, states, xs, time_chunk):
     return states, torch.cat(ys, dim=0)
 
 
-def _launch(name, tails, packed_rows, xs, stage_taps, y_rows, tc):
-    """Validate and launch ``idsp_hbf_{dec,int}_cascade``; returns the
-    packed new tails and y.  A chunk whose stage buffers exceed a
-    block's shared memory is refused by the launch (RuntimeError)."""
+def _launch(name, tails, packed_rows, xs, stage_taps, y_rows, *sizes):
+    """Validate and launch ``idsp_<name>`` (K7, K8, and K22, K23 of
+    `hbf_mxu`), which takes ``xs, tails_in, tails_out, y, t, c, *sizes,
+    depth, ms, taps, stream``; returns the packed new tails and y.  A
+    tile whose buffers exceed a block's shared memory is refused by the
+    launch (RuntimeError)."""
     depth = len(stage_taps)
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"depth must be 1..{MAX_DEPTH}, got {depth}")
@@ -92,7 +94,8 @@ def _launch(name, tails, packed_rows, xs, stage_taps, y_rows, tc):
     with torch.cuda.device(dev):
         err = getattr(lib, f"idsp_{name}")(
             xs.data_ptr(), tails_in.data_ptr(), tails_out.data_ptr(),
-            y.data_ptr(), t, c, tc, depth, ms_c, taps_c, _ext.stream_ptr(dev))
+            y.data_ptr(), t, c, *sizes, depth, ms_c, taps_c,
+            _ext.stream_ptr(dev))
     _ext.check(err, name)
     return tails_out, y
 

@@ -7,11 +7,15 @@ streaming with carried overlap-save tails.
 
 * `round_trip` / `round_trip_t`: the round trip, time last or time-major
   ``(t, c)``; with ``use_kernel=True`` the time-major one runs K7
-  `hbf_dec_cascade_bank` then K8 `hbf_int_cascade_bank`.
+  `hbf_dec_cascade_bank` then K8 `hbf_int_cascade_bank`, with
+  ``use_kernel="mxu"`` the banded-matrix cascades K22
+  `hbf_dec_cascade_mxu` then K23 `hbf_int_cascade_mxu`.
 * `cic_hbf_decimate` / `cic_hbf_decimate_t`: CIC by (rate+1), then the
-  half-band cascade; with ``use_kernel=True`` K9 `cic_dec_bank` then K7.
+  half-band cascade; with a true ``use_kernel`` (``"mxu"`` included, as
+  in the JAX package) K9 `cic_dec_bank` then K7.
 * `RoundTrip`: the time-major round trip as a module, modes ``scan``
-  (the plain composition, the oracle) and ``kernel`` (K7 then K8).
+  (the plain composition, the oracle), ``kernel`` (K7 then K8) and
+  ``mxu`` (K22 then K23).
 
 Quality gates (tests/test_rate_ddc_bank.py:11-54): a passband tone
 survives the round trip at unity gain, content above the decimated
@@ -29,8 +33,10 @@ from torch import nn
 from ..filters import cic, hbf
 from ..filters.cic_cuda import cic_dec_bank
 from ..filters.hbf_cuda import hbf_dec_cascade_bank, hbf_int_cascade_bank
+from ..filters.hbf_mxu import hbf_dec_cascade_mxu, hbf_int_cascade_mxu
 
-MODES = ("scan", "kernel")
+MODES = ("scan", "kernel", "mxu")
+_USE_KERNEL = {"scan": False, "kernel": True, "mxu": "mxu"}
 
 
 class RateConvState(NamedTuple):
@@ -72,25 +78,20 @@ def init_t(depth: int = 4, shape=(), dtype=torch.float32,
     )
 
 
-def _no_mxu(use_kernel):
-    if use_kernel == "mxu":
-        raise NotImplementedError(
-            "use_kernel='mxu' (the banded-matmul cascades "
-            "hbf_dec_cascade_mxu / hbf_int_cascade_mxu) is not ported yet: "
-            "ROADMAP Queue 2 items 16-17")
-
-
 def round_trip_t(state: RateConvState, x, taps=hbf.HBF_TAPS, *,
                  use_kernel=False):
     """Time-major round trip: x (t, c) f32 -> (state, (t, c)).
 
     ``use_kernel=True`` runs the two cascades as K7 and K8 (one launch
-    each way, the stages' intermediates on chip); ``False`` the plain
-    stage-by-stage composition.  ``"mxu"`` raises NotImplementedError.
+    each way, the stages' intermediates on chip), ``"mxu"`` as K22 and
+    K23 (the banded-matrix form, its outputs within 5e-5 of the scale of
+    the others); ``False`` the plain stage-by-stage composition.
     """
-    _no_mxu(use_kernel)
     depth = len(state.dec)
-    if use_kernel:
+    if use_kernel == "mxu":
+        st_dec, low = hbf_dec_cascade_mxu(state.dec, x, taps=taps)
+        st_int, y = hbf_int_cascade_mxu(state.int_, low, taps=taps)
+    elif use_kernel:
         st_dec, low = hbf_dec_cascade_bank(state.dec, x, taps=taps)
         st_int, y = hbf_int_cascade_bank(state.int_, low, taps=taps)
     else:
@@ -137,10 +138,9 @@ def cic_hbf_decimate_t(cic_state: cic.CicState, hbf_states, x,
 
     ``use_kernel=True`` runs the CIC integrators as K9 and the half-band
     cascade as K7; the CIC leg is bit-identical to the plain path and so
-    is the half-band leg on the card.  ``"mxu"`` raises
-    NotImplementedError.
+    is the half-band leg on the card.  Any true ``use_kernel``, ``"mxu"``
+    included, takes that path (as the JAX package does).
     """
-    _no_mxu(use_kernel)
     if use_kernel:
         cic_state, mid = cic_dec_bank(cic_state, x, cic_rate)
         hbf_states, y = hbf_dec_cascade_bank(
@@ -157,28 +157,31 @@ class RoundTrip(nn.Module):
     x and y (t, lanes) f32, t a multiple of 2**depth.
 
     Args:
-      mode: ``scan`` (the plain composition, the oracle) or ``kernel``
-        (K7 then K8).
+      mode: ``scan`` (the plain composition, the oracle), ``kernel`` (K7
+        then K8) or ``mxu`` (K22 then K23).
       depth: half-band stages each way (2**depth down, then up).
       lanes: channels c.
+      taps: the half-band tap table (`hbf.HBF_TAPS`, or
+        `hbf.HBF_TAPS_98`).
       device: where `init_state` puts the state (the card unless the
         caller asks for another device).
-
-    The half-band taps are `hbf.HBF_TAPS`.
     """
 
     def __init__(self, mode: str, depth: int = 4, lanes: int = 512, *,
-                 device="cuda"):
+                 taps=hbf.HBF_TAPS, device="cuda"):
         super().__init__()
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         self.mode = mode
         self.depth = depth
         self.lanes = lanes
+        self.taps = taps
         self.device = torch.device(device)
 
     def init_state(self) -> RateConvState:
-        return init_t(self.depth, (self.lanes,), device=self.device)
+        return init_t(self.depth, (self.lanes,), taps=self.taps,
+                      device=self.device)
 
     def forward(self, state: RateConvState, x: torch.Tensor):
-        return round_trip_t(state, x, use_kernel=self.mode == "kernel")
+        return round_trip_t(state, x, self.taps,
+                            use_kernel=_USE_KERNEL[self.mode])

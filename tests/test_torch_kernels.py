@@ -67,6 +67,12 @@ from idsp_tpu_torch.filters.hbf_cuda import (
     hbf_int_cascade_bank,
     hbf_int_cascade_bank_plain,
 )
+from idsp_tpu_torch.filters.hbf_mxu import (
+    hbf_dec_cascade_mxu,
+    hbf_dec_cascade_mxu_plain,
+    hbf_int_cascade_mxu,
+    hbf_int_cascade_mxu_plain,
+)
 from idsp_tpu_torch.filters.ddc_lockin_cuda import (
     ddc_lockin_bank,
     ddc_lockin_bank_plain,
@@ -716,3 +722,58 @@ def test_channelizer_f32_products_ignore_global_tf32(cuda):
         mm.fp32_precision = old
     torch.cuda.synchronize()
     _equal(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind,c,t,block,sub,taps", [
+    ("dec", 200, 2048, 256, 32, hbf.HBF_TAPS),  # c not a multiple of 32
+    ("dec", 37, 96, 256, 5, hbf.HBF_TAPS_98),  # one segment
+    ("dec", 64, 1024, 64, 3, hbf.HBF_TAPS),  # segments inside the halo
+    ("int", 200, 256, 64, 32, hbf.HBF_TAPS),
+    ("int", 37, 20, 64, 7, hbf.HBF_TAPS_98),  # one segment
+    ("int", 64, 100, 3, 1, hbf.HBF_TAPS),  # ragged last segment
+])
+def test_hbf_mxu_kernels_equal_plain(cuda, kind, c, t, block, sub, taps):
+    """K22/K23 against their plain versions over 3 carried blocks from a
+    random state, bit for bit."""
+    rng = np.random.default_rng(39)
+
+    def rand(v):
+        return torch.from_numpy(rng.normal(size=tuple(v.shape)).astype(
+            np.float32)).to(cuda)
+
+    if kind == "dec":
+        kern, plain = hbf_dec_cascade_mxu, hbf_dec_cascade_mxu_plain
+        st = tuple(hbf.HbfDecState(rand(s.odd), rand(s.even))
+                   for s in hbf.hbf_dec_cascade_init(4, (c,), taps=taps,
+                                                     axis=0, device=cuda))
+    else:
+        kern, plain = hbf_int_cascade_mxu, hbf_int_cascade_mxu_plain
+        st = tuple(hbf.HbfIntState(rand(s.x))
+                   for s in hbf.hbf_int_cascade_init(4, (c,), taps=taps,
+                                                     axis=0, device=cuda))
+    st_p = st
+    for _ in range(3):
+        x = torch.from_numpy(rng.normal(size=(t, c)).astype(np.float32)).to(
+            cuda)
+        st, y = kern(st, x, taps=taps, block=block, sub=sub)
+        st_p, y_p = plain(st_p, x, taps=taps)
+        torch.cuda.synchronize()
+        _equal((st, y), (st_p, y_p))
+
+
+@pytest.mark.requires_cuda
+def test_hbf_mxu_refused_launch_leaves_no_pending_error(cuda):
+    """K22 with segments of 4096 rows at depth 4 asks for 555 KB of shared
+    memory a block: the launch is refused and raises, and the next kernel
+    of the library launches as usual; the same for K23 at 512 rows."""
+    dec = hbf.hbf_dec_cascade_init(4, (64,), axis=0, device=cuda)
+    with pytest.raises(RuntimeError):
+        hbf_dec_cascade_mxu(dec, torch.zeros((8192, 64), device=cuda),
+                            block=4096)
+    itp = hbf.hbf_int_cascade_init(4, (64,), axis=0, device=cuda)
+    with pytest.raises(RuntimeError):
+        hbf_int_cascade_mxu(itp, torch.zeros((1024, 64), device=cuda),
+                            block=512)
+    x = torch.ones((64, 64), device=cuda)
+    _equal(hbf_dec_cascade_mxu(dec, x), hbf_dec_cascade_mxu_plain(dec, x))

@@ -445,11 +445,16 @@ def test_rejects_bad_input():
     with pytest.raises(ValueError):  # int32 where f32 is wanted
         hbf_dec_cascade_bank(dec, torch.zeros((32, 4), dtype=torch.int32))
     st_t = rc.init_t(2, (4,), device=CPU)
-    x = torch.zeros((32, 4))
-    with pytest.raises(NotImplementedError, match="items 16-17"):
-        rc.round_trip_t(st_t, x, use_kernel="mxu")
-    with pytest.raises(NotImplementedError, match="items 16-17"):
-        rc.cic_hbf_decimate_t(st, dec, torch.zeros((32, 4), dtype=torch.int32), 3,
-                              2, use_kernel="mxu")
+    with pytest.raises(ValueError):  # t % 2**depth != 0 in the mxu cascade
+        rc.round_trip_t(st_t, torch.zeros((30, 4)), use_kernel="mxu")
+    # a true use_kernel, "mxu" included, runs K9 + K7 as in the JAX package
+    xi = torch.from_numpy(np.arange(128, dtype=np.int32).reshape(32, 4))
+    (cs, hs), y = rc.cic_hbf_decimate_t(st, dec, xi, 3, 2, use_kernel="mxu")
+    (cs_k, hs_k), y_k = rc.cic_hbf_decimate_t(st, dec, xi, 3, 2,
+                                              use_kernel=True)
+    _eq((cs, hs, y), to_numpy((cs_k, hs_k, y_k)))
+    assert float(y.abs().max()) > 0
+    # the mxu round trip builds on the card unless asked for the CPU
+    assert RoundTrip("mxu").device == torch.device("cuda")
     with pytest.raises(ValueError):
-        RoundTrip("mxu")
+        RoundTrip("pallas")
