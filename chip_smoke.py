@@ -8,9 +8,11 @@ ends, the BASELINE #5 DDC bank in its Lowpass
 (`DdcBank`) and biquad (`DdcBankBiquad`) variants, the BASELINE #4
 rate conversion (`RoundTrip` in its shift and banded-matrix forms, the
 CIC + half-band composite decimator, CIC interpolation), and BASELINE
-#1-#3 (`FmReceiver`, `DdcLockinBank`, `channelize_planes`) -- through
-their kernel modes, checks the results and times kernels, chain, banks,
-rate conversion, FM, lock-in and channelizer.
+#1-#3 (`FmReceiver`, `DdcLockinBank`, `channelize_planes`), and the
+Stabilizer IIR control path (`compat.sos`, `compat.sos_clamp_wide`, the
+per-channel config bank `ConfigBank`) -- through their kernel modes,
+checks the results and times kernels, chain, banks, rate conversion,
+FM, lock-in, channelizer and control path.
 Phases, each reported on its own line:
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
@@ -41,7 +43,12 @@ Phases, each reported on its own line:
    row CLAMP_SUITE; K22 `hbf_dec_cascade_mxu` ((32768, 512) f32) and K23
    `hbf_int_cascade_mxu` ((2048, 512) f32), depth 4, with HBF_TAPS and
    HBF_TAPS_98 from a random carried state, at two (block, sub) tilings,
-   bit for bit, and one block against its two halves, bit for bit;
+   bit for bit, and one block against its two halves, bit for bit; K24
+   `sos_bank_q` (4 stages), K25 `df1_wide_bank` (clamped with the suite's
+   row), K26 `df1_bank_q_coef` and K27 `df1_clamp_bank_q_coef` (per-lane
+   planes of 1024 `BiquadConfig`s) at c=1024 lanes on one block of
+   full-range x, bit for bit, each plain call timed; K25 unclamped and K26
+   with a shared (5,) set on T_PREFIX rows;
 4. the main paths, each with every launch counter reset just before it
    and read just after:
    * `DdcChain` in ``split`` (K1), ``fused`` (K14), ``fold`` (K20),
@@ -90,7 +97,7 @@ Phases, each reported on its own line:
      gates (tests/test_hbf.py:64-78: passband within 0.001 dB, stopband
      below -98 dB) on the depth-4 round trip in all three modes;
    * BASELINE #1 (benches/suite.py:751-794): `FmReceiver` in ``scan``,
-     ``composed`` (K1), ``kernel`` (K15) and ``kernel_fast`` at c=512,
+     ``composed`` (K26), ``kernel`` (K15) and ``kernel_fast`` at c=512,
      t=32768, carrier 12345, Q32<30> deemphasis at 0.02, over 3 blocks:
      ``kernel`` == ``composed`` == ``scan`` on every word,
      ``kernel_fast`` within 1024 LSB; `run_fm_disc` with K15 (both
@@ -99,6 +106,17 @@ Phases, each reported on its own line:
      ``kernel`` (K16) at c=512, t=32768, lowpass 0.002, over 3 blocks:
      within 2e-5; a tone at channel 40 against the gates of
      tests/test_structures_pallas.py:214-229;
+   * the control path at c=1024 lanes, t=32768, over 3 blocks:
+     `compat.sos` (K24, 4 stages of the suite's Q29 lowpass at 0.1, x in
+     +-2^24), `compat.sos_clamp_wide` (K25, 2 stages clamped at (0,
+     +-2^30), x full range), `ConfigBank` clamped (K27) and not (K26) over
+     1024 configs (Filter lowpass/notch/bandpass, Pid I/PI; limits
+     +-2^26; x in +-2^27), half the channels retuned after the first
+     block: the first T_PREFIX rows of each compat output equal the plain
+     versions on the CPU, K24/K25/K27 over two half-blocks equal one
+     block, and after the retune every channel equals the plain K27/K26
+     with the new planes on T_PREFIX rows while the channels not retuned
+     equal a bank never retuned on every word;
    * BASELINE #3 (suite.py:960-1012): `channelize_planes` ``fused``
      (K17) and ``xla`` at m=1024, 8 taps, n=1024 (3 blocks) and 16384,
      bf16 and f32: fused within 2e-5 of the scale; a tone at channel 100
@@ -122,7 +140,9 @@ Phases, each reported on its own line:
    FM and lock-in modes' block times; K17 (bf16 and f32) at n=1024 and
    16384 beside its plain version and its library yardstick (the FIR in
    torch ops and `torch.matmul` of the four products, TF32 off), with
-   the planes path's rates (n*m samples/s); for each kernel mode, the device's busy
+   the planes path's rates (n*m samples/s); K24-K27 at c=1024 lanes with
+   their plain versions' times from phase 3, and the control legs' block
+   times; for each kernel mode, the device's busy
    share (`torch.profiler` device time over the CUDA-event block time)
    with each device event's span count and time; the run's wall time.
    Each kernel's roofline bound (bytes over 3.35 TB/s or operations over
@@ -193,6 +213,15 @@ C_FM, FM_CARRIER = 512, 12345  # FM bank; carrier word of suite.py:760
 C_LOCKIN, TC_LOCKIN = 512, 512  # lock-in channels, LO table chunk
 M_CH, CH_TAPS = 1024, 8  # channelizer branches, prototype taps
 N_CH = (1024, 16384)  # frames per block (suite.py:960, 1005)
+# The Stabilizer IIR control path at the port's bank width: compat.sos
+# through the reference's "q32 cascade4" row (benches/suite.py:397-417),
+# compat.sos_clamp_wide with the suite's clamp row (suite.py:323), the
+# config bank's shared limits; the plain versions' prefix checks and the
+# unclamped K25 / shared-set K26 holds run on T_PREFIX rows.
+C_CTL, SOS_STAGES, WIDE_STAGES = 1024, 4, 2
+WIDE_CLAMP = (0, -(2**30), 2**30)
+CONFIG_LIMITS = (-(2**26), 2**26)
+T_PREFIX = 4096
 
 
 def fir_dec_ops(t, ms):
@@ -230,6 +259,18 @@ def work(name, c, t=T):
     df1, chain = (14, 6) if "clamp" in name else (11, 3)
     if name == "df1_bank_q":  # 5 products, 4 adds, shift, convert
         return _w(8 * t * c2 + 32 * c2, 0, 11 * t * c2, t, 3)
+    # K24-K27 at c lanes (not I|Q pairs): x in, y out, the state in and out
+    if name == "sos_bank_q":  # SOS_STAGES chained DF1s a row
+        return _w(8 * t * c + 32 * SOS_STAGES * c, 0,
+                  11 * SOS_STAGES * t * c, t, 3 * SOS_STAGES)
+    if name == "df1_wide_bank":  # clamped: 3 products, 2 split-word
+        # products (mask, multiply, shift, high word, multiply, add: 6
+        # each), 4 adds, the shift, the high word, the clamp 3, the splice
+        # 3; on the chain: split product, add, shift, clamp, splice
+        return _w(8 * t * c + 48 * c, 0, 27 * t * c, t, 9)
+    if name in ("df1_bank_q_coef", "df1_clamp_bank_q_coef"):  # K1 / K18
+        # with the lane's five coefficients read once
+        return _w(8 * t * c + 52 * c, 0, df1 * t * c, t, chain)
     if name == "df1_clamp_bank_q":  # K1's DF1 + the clamp, int32 out
         return _w(8 * t * c2 + 32 * c2, 0, df1 * t * c2, t, chain)
     if name in ("df1_hbf_cascade_bank", "df1_clamp_hbf_cascade_bank",
@@ -365,7 +406,7 @@ def max_abs(a, b):
 
 
 def leaves(x):
-    if isinstance(x, tuple):
+    if isinstance(x, (tuple, list)):
         for v in x:
             yield from leaves(v)
     else:
@@ -927,8 +968,8 @@ def time_rate(dev, rng, card, timings):
                 log_busy(timings, name, c, sec, card, step, st, xb)
 
 
-def hold(name, kern, plain, carry, make_x, plain_s=None):
-    """Phase 3: ``kern`` against ``plain`` over BLOCKS carried blocks,
+def hold(name, kern, plain, carry, make_x, plain_s=None, blocks=BLOCKS):
+    """Phase 3: ``kern`` against ``plain`` over ``blocks`` carried blocks,
     tolerance 0.  Both are called as ``fn(*carry, x)``; the first
     len(carry) results are the next carry.  With a dict ``plain_s``, each
     plain call is timed with CUDA events and ``plain_s[name]`` gets their
@@ -938,7 +979,7 @@ def hold(name, kern, plain, carry, make_x, plain_s=None):
     import torch
 
     err, times = 0.0, []
-    for _ in range(BLOCKS):
+    for _ in range(blocks):
         x = make_x()
         got = kern(*carry, x)
         start = torch.cuda.Event(enable_timing=True)
@@ -1481,8 +1522,8 @@ def biquad_f32_state(dev, rng, lanes):
 
 def fm_main_path(dev, rng, wrappers):
     """Phase 4 for BASELINE #1: `FmReceiver` in its four modes over BLOCKS
-    blocks at c = C_FM, t = T; ``kernel`` == ``composed`` == ``scan`` on
-    every word, ``kernel_fast`` within 1024 LSB of ``kernel``; then
+    blocks at c = C_FM, t = T; ``kernel`` == ``composed`` (K26 once a
+    block) == ``scan`` on every word, ``kernel_fast`` within 1024 LSB of ``kernel``; then
     `run_fm_disc` through K15 (both angles) against the reference's gates.
     Returns the launch counts of the run."""
     import torch
@@ -1510,6 +1551,10 @@ def fm_main_path(dev, rng, wrappers):
     for m in ("composed", "kernel"):
         for b, (got, want) in enumerate(zip(runs[m], runs["scan"])):
             compare(f"FmReceiver {m} vs scan, block {b}", got, want)
+    if counts["df1_bank_q_coef"] != BLOCKS:  # composed: K26 once a block
+        raise AssertionError(f"FmReceiver composed launched K26 "
+                             f"{counts['df1_bank_q_coef']} times in {BLOCKS} "
+                             "blocks")
     fast = max(max_abs(f[1], k[1])
                for f, k in zip(runs["kernel_fast"], runs["kernel"]))
     for m, outs in runs.items():
@@ -1519,9 +1564,9 @@ def fm_main_path(dev, rng, wrappers):
                                  f"{tuple(y.shape)}")
     if fast > 1024:
         raise AssertionError(f"FmReceiver kernel_fast off kernel by {fast}")
-    log(f"phase 4 FmReceiver kernel == composed == scan on every output and "
-        f"state word over {BLOCKS} blocks; kernel_fast max |d| {fast} <= 1024 "
-        f"LSB")
+    log(f"phase 4 FmReceiver kernel == composed (K26, {BLOCKS} launches) == "
+        f"scan on every output and state word over {BLOCKS} blocks; "
+        f"kernel_fast max |d| {fast} <= 1024 LSB")
     for k, r in gates.items():
         if not (r["corr"] > 0.999 and 0.95 < r["gain"] < 1.05
                 and r["rms"] < 5e-4):
@@ -1846,6 +1891,304 @@ def time_slice5(dev, rng, card, timings):
                              step, sc0)
 
 
+# ---- the Stabilizer IIR control path (K24-K27) ------------------------------
+
+
+def control_rows():
+    """The compat legs' rows: the suite's Q29 lowpass at 0.1 four times
+    ("q32 cascade4", benches/suite.py:221, 397-417) as (4, 6) cookbook
+    rows, and two of them with the clamp WIDE_CLAMP as (2, 9) rows."""
+    from idsp_tpu_torch.design import Filter
+
+    ba = Filter().critical_frequency(0.1).lowpass()
+    row = np.concatenate([ba[0], ba[1]])
+    sos = np.stack([row] * SOS_STAGES)
+    wide = np.stack([np.concatenate([row, WIDE_CLAMP])] * WIDE_STAGES)
+    return sos, wide
+
+
+def control_configs(c, seed):
+    """c `BiquadConfig`s built with f = 29, one per channel, sharing the
+    offset 0 and the limits CONFIG_LIMITS (K27 takes one triple): Filter
+    lowpass, notch and bandpass at spread frequencies, Pid "I" and "PI"."""
+    from idsp_tpu_torch.design.config import (
+        BiquadConfig, FilterConfig, GainsConfig, PidConfig,
+    )
+
+    rng = np.random.default_rng(seed)
+    lo, hi = CONFIG_LIMITS
+    out = []
+    for k in range(c):
+        fc = float(rng.uniform(0.005, 0.2))
+        if k % 5 < 3:
+            cfg = BiquadConfig("Filter", FilterConfig(
+                typ=("lowpass", "notch", "bandpass")[k % 5], frequency=fc,
+                min=lo, max=hi))
+        else:
+            gain = (GainsConfig(i=fc * 1e-2) if k % 5 == 3
+                    else GainsConfig(i=fc * 1e-2, p=0.5))
+            cfg = BiquadConfig("Pid", PidConfig(order="I", gain=gain, min=lo,
+                                                max=hi))
+        out.append(cfg.build(f=29))
+    return out
+
+
+def check_control_kernels(dev, i32, i64, errs, plain_s):
+    """Phase 3 for K24-K27 at c = C_CTL lanes, x full range: each kernel
+    against its plain version on one carried block of T rows, tolerance 0,
+    the plain call timed (K24 with SOS_STAGES stages and random state, K25
+    clamped with WIDE_CLAMP and a random int64 state, K26 and K27 with
+    per-lane planes of the config bank); then K25 unclamped and K26 with a
+    shared (5,) set on T_PREFIX rows."""
+    import torch
+    from idsp_tpu_torch.filters import biquad
+    from idsp_tpu_torch.filters.biquad_cuda import (
+        df1_bank_q_coef, df1_bank_q_coef_plain, df1_clamp_bank_q_coef,
+        df1_clamp_bank_q_coef_plain, df1_wide_bank, df1_wide_bank_plain,
+        sos_bank_q, sos_bank_q_plain,
+    )
+    from idsp_tpu_torch.pipelines.config_bank import stack_coeffs
+
+    c = C_CTL
+    sos_rows, _ = control_rows()
+    ba_sos = biquad.quantize_ba(biquad.from_cookbook(
+        sos_rows.reshape(-1, 2, 3)), 29)
+    ba_wide = ba_sos[0]
+    planes, (u, lo, hi) = stack_coeffs(control_configs(c, 1))
+    planes = torch.from_numpy(planes).to(dev)
+
+    def df1(lo=-(2**31), hi=2**31):
+        return biquad.Df1State(x=i32((c, 2)), y=i32((c, 2), lo, hi))
+
+    wide_st = biquad.Df1WideState(x=i32((c, 2)), y=i64((c, 2)))
+    cases = (
+        ("sos_bank_q",
+         lambda s, x: sos_bank_q(ba_sos, s, x, 29),
+         lambda s, x: sos_bank_q_plain(ba_sos, s, x, 29),
+         ([df1(-(2**26), 2**26) for _ in range(SOS_STAGES)],)),
+        ("df1_wide_bank",
+         lambda s, x: df1_wide_bank(ba_wide, s, x, 29, clamp=WIDE_CLAMP),
+         lambda s, x: df1_wide_bank_plain(ba_wide, s, x, 29,
+                                          clamp=WIDE_CLAMP),
+         (wide_st,)),
+        ("df1_bank_q_coef",
+         lambda s, x: df1_bank_q_coef(planes, s, x, 29),
+         lambda s, x: df1_bank_q_coef_plain(planes, s, x, 29), (df1(),)),
+        ("df1_clamp_bank_q_coef",
+         lambda s, x: df1_clamp_bank_q_coef(planes, s, x, 29, u=u, lo=lo,
+                                            hi=hi),
+         lambda s, x: df1_clamp_bank_q_coef_plain(planes, s, x, 29, u=u,
+                                                  lo=lo, hi=hi), (df1(),)),
+    )
+    for name, kern, plain, carry in cases:
+        errs[name] = hold(name, kern, plain, carry, lambda: i32((T, c)),
+                          plain_s, blocks=1)
+    prefix = (
+        ("df1_wide_bank (unclamped)",
+         lambda s, x: df1_wide_bank(ba_wide, s, x, 29),
+         lambda s, x: df1_wide_bank_plain(ba_wide, s, x, 29), (wide_st,)),
+        ("df1_bank_q_coef (shared (5,))",
+         lambda s, x: df1_bank_q_coef(ba_wide, s, x, 29),
+         lambda s, x: df1_bank_q_coef_plain(ba_wide, s, x, 29), (df1(),)),
+    )
+    for name, kern, plain, carry in prefix:
+        err = hold(name, kern, plain, carry, lambda: i32((T_PREFIX, c)),
+                   blocks=1)
+        errs[name.split()[0]] = max(errs[name.split()[0]], err)
+    log(f"phase 3 K24 sos_bank_q ({SOS_STAGES} stages), K25 df1_wide_bank "
+        f"(clamp {WIDE_CLAMP}), K26 df1_bank_q_coef and K27 "
+        f"df1_clamp_bank_q_coef (per-lane planes of the config bank, clamp "
+        f"{(u, lo, hi)}) == plain on one block (c={c}, t={T}, x full range; "
+        f"plain {', '.join(f'{k} {plain_s[k]:.2f} s' for k, *_ in cases)}); "
+        f"K25 unclamped and K26 with a shared (5,) set on {T_PREFIX} rows: "
+        f"max |d| {[errs[k] for k, *_ in cases]}")
+
+
+def halves(name, fn, carry, x):
+    """``fn(*carry, x)`` over x whole and over its two halves in turn:
+    raises unless state and output agree bit for bit."""
+    import torch
+
+    whole = fn(*carry, x)
+    h = x.shape[0] // 2
+    first = fn(*carry, x[:h].contiguous())
+    second = fn(*first[:len(carry)], x[h:].contiguous())
+    compare(f"{name}: two halves vs one block", (
+        second[:len(carry)], torch.cat([first[-1], second[-1]])), (
+        whole[:len(carry)], whole[-1]))
+
+
+def control_main_path(dev, i32, wrappers):
+    """Phase 4 for the Stabilizer IIR control path at c = C_CTL lanes,
+    t = T, over BLOCKS blocks: `compat.sos` (K24, SOS_STAGES stages, x in
+    +-2^24 as benches/suite.py:223), `compat.sos_clamp_wide` (K25,
+    WIDE_STAGES clamped stages, x full range) and the config bank
+    (`ConfigBank`: c `BiquadConfig`s, K27 clamped, K26 unclamped; x in
+    +-2^27), half its channels retuned after the first block.  Checks: the first
+    T_PREFIX rows of each compat output against the plain versions on
+    those rows (the legs start from zero state each call); K24, K25 and
+    K27 over two half-blocks == one block; after the retune, every channel
+    against the plain K27 / K26 with the new planes on T_PREFIX rows, and
+    the channels not retuned against a bank never retuned, on every row
+    and state word.  Returns the launch counts of the run."""
+    import torch
+    from idsp_tpu_torch import compat
+    from idsp_tpu_torch.filters import biquad
+    from idsp_tpu_torch.filters.biquad_cuda import (
+        df1_bank_q_coef_plain, df1_clamp_bank_q_coef_plain, df1_wide_bank,
+        sos_bank_q,
+    )
+    from idsp_tpu_torch.pipelines.config_bank import ConfigBank
+
+    c = C_CTL
+    sos_rows, wide_rows = control_rows()
+    xa = [i32((T, c), -(2**24), 2**24) for _ in range(BLOCKS)]
+    xb = [i32((T, c)) for _ in range(BLOCKS)]
+    xc = [i32((T, c), -(2**27), 2**27) for _ in range(BLOCKS)]
+    coeffs = control_configs(c, 1)
+    retuned = torch.arange(0, c, 2, device=dev)
+    new = control_configs(len(retuned), 2)
+    banks = {clamp: ConfigBank(coeffs, clamp=clamp, device=dev)
+             for clamp in (True, False)}
+
+    reset(wrappers)
+    ya = [compat.sos(sos_rows, x, device=dev) for x in xa]
+    yb = [compat.sos_clamp_wide(wide_rows, x, device=dev) for x in xb]
+    runs = {}
+    for clamp, bank in banks.items():
+        st, outs = bank.init_state(), []
+        for b, x in enumerate(xc):
+            if b == 1:
+                bank.retune(retuned.cpu().numpy(), new)
+            st, y = bank(st, x)
+            outs.append((st, y))
+        runs[clamp] = outs
+    torch.cuda.synchronize()
+    counts = launch_counts(wrappers)
+    log(f"phase 4 main path: compat.sos ({SOS_STAGES} stages), "
+        f"compat.sos_clamp_wide ({WIDE_STAGES} stages, clamp {WIDE_CLAMP}) "
+        f"and ConfigBank (clamped and not; {len(retuned)} of {c} channels "
+        f"retuned after block 0) x {BLOCKS} blocks at c={c}, t={T}; "
+        f"launches {counts}")
+    for name, ys in (("compat.sos", ya), ("compat.sos_clamp_wide", yb)):
+        for y in ys:
+            if tuple(y.shape) != (T, c) or y.dtype != torch.int32:
+                raise AssertionError(f"{name}: output {y.dtype}"
+                                     f"{tuple(y.shape)}")
+    want_a = compat.sos(sos_rows, xa[0][:T_PREFIX].cpu(),
+                        device=torch.device("cpu"))
+    compare("compat.sos vs plain (prefix)", ya[0][:T_PREFIX].cpu(), want_a)
+    want_b = compat.sos_clamp_wide(wide_rows, xb[0][:T_PREFIX].cpu(),
+                                   device=torch.device("cpu"))
+    compare("compat.sos_clamp_wide vs plain (prefix)",
+            yb[0][:T_PREFIX].cpu(), want_b)
+    pinned_b = pinned(yb[0], WIDE_CLAMP)
+    log(f"phase 4 compat.sos and compat.sos_clamp_wide: (t, c) int32; the "
+        f"first {T_PREFIX} rows == the plain versions (CPU) bit for bit; "
+        f"the wide clamp pinned {pinned_b:.4f} of the outputs")
+
+    ba_sos = biquad.quantize_ba(biquad.from_cookbook(
+        sos_rows.reshape(-1, 2, 3)), 29)
+    halves("sos_bank_q", lambda s, x: sos_bank_q(ba_sos, s, x, 29),
+           ([biquad.df1_init((c,), device=dev)] * SOS_STAGES,), xa[1])
+    halves("df1_wide_bank", lambda s, x: df1_wide_bank(
+        ba_sos[0], s, x, 29, clamp=WIDE_CLAMP),
+        (biquad.df1_wide_init((c,), device=dev),), xb[1])
+    bank = ConfigBank(coeffs, device=dev)
+    halves("ConfigBank (K27)", lambda s, x: bank(s, x), (bank.init_state(),),
+           xc[0])
+    log("phase 4 K24, K25 and K27: two half-blocks == one block, state and "
+        "output bit for bit")
+
+    keep = torch.arange(1, c, 2, device=dev)
+    for clamp, outs in runs.items():
+        ref = ConfigBank(coeffs, clamp=clamp, device=dev)
+        st = ref.init_state()
+        plain = (df1_clamp_bank_q_coef_plain if clamp
+                 else df1_bank_q_coef_plain)
+        kw = dict(zip(("u", "lo", "hi"), ref.bounds)) if clamp else {}
+        for b, x in enumerate(xc):
+            if b == 1:
+                pre = plain(banks[clamp].planes, st_prev, x[:T_PREFIX], 29,
+                            **kw)
+                compare(f"ConfigBank clamp={clamp} after the retune vs plain "
+                        "(prefix)", outs[1][1][:T_PREFIX], pre[1])
+            st_prev = outs[b][0]
+            st, y = ref(st, x)
+            compare(f"ConfigBank clamp={clamp} channels not retuned, block "
+                    f"{b}", (outs[b][0].x[keep], outs[b][0].y[keep],
+                             outs[b][1][:, keep]),
+                    (st.x[keep], st.y[keep], y[:, keep]))
+            moved = float((outs[b][1][:, retuned] != y[:, retuned]).double()
+                          .mean())
+            if b >= 1 and moved < 0.1:
+                raise AssertionError(f"ConfigBank clamp={clamp}: retuned "
+                                     f"channels moved on only {moved:.3f} of "
+                                     "the rows")
+        pin = (f"; the clamp {ref.bounds} pinned "
+               f"{pinned(outs[-1][1], ref.bounds):.4f} of the last block's "
+               "outputs" if clamp else "")
+        log(f"phase 4 ConfigBank clamp={clamp}: after the retune every channel"
+            f" == plain {'K27' if clamp else 'K26'} with the new planes on "
+            f"{T_PREFIX} rows; channels not retuned == a bank never retuned "
+            f"on every row and state word over {BLOCKS} blocks; retuned "
+            f"channels differ from the old filter on {moved:.4f} of the last "
+            f"block's rows (> 0.1){pin}")
+    return counts
+
+
+def time_control(dev, i32, card, timings, plain_s):
+    """Phase 6 for K24-K27 at c = C_CTL, t = T: each kernel (K25 in its
+    clamped form) beside its plain version (timed in phase 3), and the
+    three legs' block times."""
+    import torch
+    from idsp_tpu_torch import compat
+    from idsp_tpu_torch.filters import biquad
+    from idsp_tpu_torch.filters.biquad_cuda import (
+        df1_bank_q_coef, df1_clamp_bank_q_coef, df1_wide_bank, sos_bank_q,
+    )
+    from idsp_tpu_torch.pipelines.config_bank import ConfigBank
+    from idsp_tpu_torch.profiling import measure_rate
+
+    c = C_CTL
+    sos_rows, wide_rows = control_rows()
+    ba_sos = biquad.quantize_ba(biquad.from_cookbook(
+        sos_rows.reshape(-1, 2, 3)), 29)
+    bank = ConfigBank(control_configs(c, 1), device=dev)
+    u, lo, hi = bank.bounds
+    x = i32((T, c))
+    df1 = biquad.df1_init((c,), device=dev)
+    cases = {
+        "sos_bank_q": (lambda s: sos_bank_q(ba_sos, s, x, 29),
+                       [df1] * SOS_STAGES),
+        "df1_wide_bank": (lambda s: df1_wide_bank(ba_sos[0], s, x, 29,
+                                                  clamp=WIDE_CLAMP),
+                          biquad.df1_wide_init((c,), device=dev)),
+        "df1_bank_q_coef": (lambda s: df1_bank_q_coef(bank.planes, s, x, 29),
+                            df1),
+        "df1_clamp_bank_q_coef": (lambda s: df1_clamp_bank_q_coef(
+            bank.planes, s, x, 29, u=u, lo=lo, hi=hi), df1),
+    }
+    for name, (kern, st) in cases.items():
+        k_s, _ = measure_rate(kern, st, iters=20, trials=3)
+        timings["kernels"][name] = {c: {"ms": k_s * 1e3,
+                                        "plain_ms": plain_s[name] * 1e3}}
+        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
+            f"{plain_s[name] * 1e3:.2f} ms (phase 3)  [{card}]")
+    timings["control_samples_per_s"] = {}
+    legs = {
+        "compat.sos": lambda _: compat.sos(sos_rows, x, device=dev),
+        "compat.sos_clamp_wide": lambda _: compat.sos_clamp_wide(
+            wide_rows, x, device=dev),
+        "ConfigBank": lambda _: bank(bank.init_state(), x),
+    }
+    for name, step in legs.items():
+        sec, _ = measure_rate(step, None, iters=10, trials=3, stateful=False)
+        timings["control_samples_per_s"][name] = c * T / sec
+        log(f"phase 6 c={c} {name}: {sec * 1e3:.3f} ms/block, "
+            f"{c * T / sec:.6e} samples/s (c*t)  [{card}]")
+
+
 def main():
     wall0 = time.perf_counter()
     import torch
@@ -1858,8 +2201,9 @@ def main():
     from idsp_tpu_torch.design import Filter
     from idsp_tpu_torch.filters import biquad
     from idsp_tpu_torch.filters.biquad_cuda import (
-        df1_bank_q, df1_bank_q_dec, df1_bank_q_dec_plain, df1_bank_q_plain,
-        df1_clamp_bank_q,
+        df1_bank_q, df1_bank_q_coef, df1_bank_q_dec, df1_bank_q_dec_plain,
+        df1_bank_q_plain, df1_clamp_bank_q, df1_clamp_bank_q_coef,
+        df1_wide_bank, sos_bank_q,
     )
     from idsp_tpu_torch.filters.ddc_cuda import (
         ddc_mix_df1_bank, ddc_mix_df1_bank_plain,
@@ -2036,6 +2380,7 @@ def main():
     check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba)
     check_slice5_kernels(dev, rng, errs)
     check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank)
+    check_control_kernels(dev, i32, i64, errs, plain_s)
 
     # ---- phase 4: the main path ---------------------------------------
     steps_np = rng.integers(1 << 24, 1 << 30, size=(C_WIDE,)).astype(np.int32)
@@ -2060,7 +2405,8 @@ def main():
                 fastlo_ddc_bank_block, ddc_mix_df1_bank, fm_disc_bank,
                 ddc_lockin_bank, channelize_fused, df1_clamp_bank_q,
                 df1_clamp_hbf_cascade_bank, df1_hbf1_bank, df1_hbf12_bank,
-                hbf_dec_cascade_mxu, hbf_int_cascade_mxu)
+                hbf_dec_cascade_mxu, hbf_int_cascade_mxu, sos_bank_q,
+                df1_wide_bank, df1_bank_q_coef, df1_clamp_bank_q_coef)
     chain_kernels = ("df1_bank_q", "df1_hbf_cascade_bank",
                      "fastlo_ddc_cascade_bank", "ddc_mix_df1_bank",
                      "df1_hbf1_bank", "df1_hbf12_bank")
@@ -2074,6 +2420,8 @@ def main():
     rate_kernels = ("hbf_dec_cascade_bank", "hbf_int_cascade_bank",
                     "cic_dec_bank", "cic_int_bank", "hbf_dec_cascade_mxu",
                     "hbf_int_cascade_mxu")
+    control_kernels = ("sos_bank_q", "df1_wide_bank", "df1_bank_q_coef",
+                       "df1_clamp_bank_q_coef")
     # BASELINE #1-#3: each kernel's width in the kernels line (K17: frames)
     slice5_c = {"fm_disc_bank": C_FM, "ddc_lockin_bank": C_LOCKIN,
                 "channelize_fused": N_CH[-1]}
@@ -2229,6 +2577,11 @@ def main():
                        (lockin_main_path, "ddc_lockin_bank"),
                        (channelizer_main_path, "channelize_fused")):
         launches[name] = path(dev, rng, wrappers)[name]
+
+    # ---- phase 4 (control): compat.sos, sos_clamp_wide, config bank ---
+    counts = control_main_path(dev, i32, wrappers)
+    for k in control_kernels:
+        launches[k] = counts[k]
 
     # ---- phase 5: the main paths went through every kernel ------------
     for name, n in launches.items():
@@ -2421,6 +2774,7 @@ def main():
                      bank.init_state(), bq_x[0])
     time_rate(dev, rng, card, timings)
     time_slice5(dev, rng, card, timings)
+    time_control(dev, i32, card, timings, plain_s)
     print(json.dumps({"timings": timings}), flush=True)
 
     sources = {
@@ -2475,13 +2829,22 @@ def main():
             "idsp_tpu/filters/ddc_pallas.py:1298"),
         "fastlo_df1_dec_bank_clamp": ("idsp_tpu_torch/csrc/ddc_bank.cu",
                                       "idsp_tpu/filters/ddc_pallas.py:870"),
+        "sos_bank_q": ("idsp_tpu_torch/csrc/biquad_bank.cu",
+                       "idsp_tpu/filters/biquad_pallas.py:147"),
+        "df1_wide_bank": ("idsp_tpu_torch/csrc/biquad_bank.cu",
+                          "idsp_tpu/filters/biquad_pallas.py:796"),
+        "df1_bank_q_coef": ("idsp_tpu_torch/csrc/df1_bank.cu",
+                            "idsp_tpu/filters/biquad_pallas.py:932"),
+        "df1_clamp_bank_q_coef": ("idsp_tpu_torch/csrc/df1_bank.cu",
+                                  "idsp_tpu/filters/biquad_pallas.py:999"),
     }
     sm_mhz = sm_clock_mhz()
     kernels = []
     for name, (src, rep) in sources.items():
         c = (C_MAIN if name in chain_kernels + clamp_kernels[:3] else
              C_BANK if name in bank_kernels + biquad_kernels
-             + clamp_kernels[3:] else slice5_c.get(name, C_RATE))
+             + clamp_kernels[3:] else C_CTL if name in control_kernels
+             else slice5_c.get(name, C_RATE))
         timed = timings["kernels"][name][c]
         bound_ms, bound_by, _ = bounds(name, c, sm_mhz)
         kernels.append({

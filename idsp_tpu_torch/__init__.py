@@ -26,7 +26,14 @@ public layouts:
   `DdcLockinBank`) — factored f32 LO mix, f32 DF1 on the I|Q lanes;
 * BASELINE #3, the polyphase channelizer (`pipelines.channelizer`) —
   8-tap polyphase FIR over m-branch frames, DFT as matrix products or
-  FFT.
+  FFT;
+* the Stabilizer IIR control path — the reference's Python surface
+  (`compat`: `cossin`, `atan2`, the SOS cascade `sos` on K24
+  `sos_bank_q`, the clamped wide-state stages `sos_clamp_wide` on K25
+  `df1_wide_bank`), the coefficient design and control plane (`design`:
+  cookbook `Filter`, `WebAudio`, `Pid`, `BiquadConfig`) and the
+  runtime-coefficient DF1 banks (K26 `df1_bank_q_coef`, K27
+  `df1_clamp_bank_q_coef`) that apply a retune without rebuilding.
 
 Layouts: time-major ``(t, 2c)`` lanes, I in ``[0, c)`` and Q in
 ``[c, 2c)``; ``Df1State.x/.y`` of shape ``(lanes, 2)``;
@@ -48,12 +55,13 @@ explicit wrap back to int32 (`fxp.wrap_i32`), truncating ``>> f``.
 Importing this package imports torch and numpy only — never jax.
 """
 
-from . import fxp, luts  # noqa: F401
+from . import compat, design, fxp, luts  # noqa: F401
 from .ops import accu, fastlo, trig  # noqa: F401
 from .ops.trig import cossin  # noqa: F401
 from .filters import cic, hbf  # noqa: F401
 from .filters.biquad_cuda import (  # noqa: F401
-    df1_bank_q_dec, df1_clamp_bank_q,
+    df1_bank_q_coef, df1_bank_q_dec, df1_clamp_bank_q, df1_clamp_bank_q_coef,
+    df1_wide_bank, sos_bank_q,
 )
 from .filters.ddc_bank_cuda import (  # noqa: F401
     fastlo_ddc_bank_block, fastlo_df1_dec_bank,
@@ -80,13 +88,14 @@ from .pipelines.rate_conversion import RoundTrip  # noqa: F401
 
 __all__ = ["DdcBankBiquad", "DdcBankBiquadState", "DdcLockinBank",
            "FmReceiver", "RoundTrip", "accu", "channelize_fused",
-           "channelizer", "cic", "cossin", "ddc_lockin", "ddc_lockin_bank",
-           "ddc_mix_df1_bank", "df1_bank_q_dec", "df1_clamp_bank_q",
-           "df1_clamp_hbf_cascade_bank", "df1_hbf12_bank", "df1_hbf1_bank",
-           "fastlo",
+           "channelizer", "cic", "compat", "cossin", "ddc_lockin",
+           "ddc_lockin_bank", "ddc_mix_df1_bank", "design",
+           "df1_bank_q_coef", "df1_bank_q_dec", "df1_clamp_bank_q",
+           "df1_clamp_bank_q_coef", "df1_clamp_hbf_cascade_bank",
+           "df1_hbf12_bank", "df1_hbf1_bank", "df1_wide_bank", "fastlo",
            "fastlo_ddc_bank_block", "fastlo_df1_dec_bank", "fm_disc",
            "fm_disc_bank", "fxp", "hbf", "hbf_dec_cascade_mxu",
            "hbf_int_cascade_mxu", "init_biquad", "luts",
-           "rate_conversion", "trig"]
+           "rate_conversion", "sos_bank_q", "trig"]
 
 __version__ = "0.1.0"

@@ -42,6 +42,10 @@ _SIGNATURES = {
     "idsp_df1_bank_q": [_P] * 6 + [_I] * 9 + [_P],
     "idsp_df1_bank_q_dec": [_P] * 6 + [_I] * 10 + [_P],
     "idsp_df1_clamp_bank_q": [_P] * 6 + [_I] * 11 + [_P],
+    "idsp_df1_bank_q_coef": [_P] * 7 + [_I] * 3 + [_P],
+    "idsp_df1_clamp_bank_q_coef": [_P] * 7 + [_I] * 6 + [_P],
+    "idsp_sos_bank_q": [_P] * 6 + [_I] * 4 + [_P, _P],
+    "idsp_df1_wide_bank": [_P] * 6 + [_I] * 12 + [_P],
     "idsp_ddc_cascade": [_P] * 13 + [_I] * 14 + [_P, _P, _P],
     "idsp_ddc_mix_df1": [_P] * 8 + [_I] * 9 + [_P],
     "idsp_lowpass_bank": [_P] * 4 + [_I] * 6 + [_P],

@@ -9,11 +9,16 @@ lp_q, pll)`` a `DdcBankState`, ``(nco_phase, bq, pll)`` a
 `DdcBankBiquadState`, ``(combs, integrators, zoh)`` a
 `CicState`, ``(dec, int_)`` a `RateConvState`, ``(prev_re, prev_im,
 prev_valid, deemph)`` an `FmDiscState`, ``(hist_r, hist_i)`` a
-`PlanesState` and ``(hist,)`` a channelizer `BankState`; tuples
+`PlanesState` and ``(hist,)`` a channelizer `BankState`; ``(x, y)`` with
+an int32 x and an int64 y is a `Df1WideState`, ``(xy, e)`` a
+`Df1DitherState` (its u32 error word crosses as int64 in ``[0, 2**32)``
+and comes back as uint32), ``(s,)`` a `Df2tState`; tuples
 (per-stage tails, cascade states, the ``(df1_state, dec_i, dec_q,
 phase0)`` state of every `chain.DdcChain` mode, e.g. ``fold``'s single
-tail and two-stage cascade) keep their structure and ``None`` stays
-``None``.  Dtypes cross unchanged (the
+tail and two-stage cascade) and lists (an SOS cascade's N `Df1State`s)
+keep their structure and ``None`` stays ``None``.  `to_planes` makes
+runtime coefficients (5,) or (5, c) the kernels' planes, and
+`clamped_coeffs` carries a design `ClampedCoeffs` over.  Dtypes cross unchanged (the
 PLL's clamp indicator stays int8, FM's validity bool, a float
 `Df1State` f32).
 """
@@ -23,7 +28,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .filters.biquad import Df1State
+from .design.pid import ClampedCoeffs
+from .filters.biquad import Df1DitherState, Df1State, Df1WideState, Df2tState
+from .filters.biquad_cuda import coef_planes
 from .filters.cic import CicState
 from .filters.fm_cuda import FmDiscState
 from .filters.hbf import HbfDecState, HbfIntState
@@ -36,23 +43,47 @@ from .pipelines.rate_conversion import RateConvState
 
 _STATES = {
     cls._fields: cls
-    for cls in (Df1State, HbfDecState, HbfIntState, LowpassState,
+    for cls in (Df1State, Df1DitherState, Df2tState, HbfDecState, HbfIntState, LowpassState,
                 ClampWrapState, PllState, DdcBankState, DdcBankBiquadState,
                 CicState, RateConvState, FmDiscState, PlanesState, BankState)
 }
 
 
+def _is_wide(obj) -> bool:
+    return (np.asarray(obj.x).dtype == np.int32
+            and np.asarray(obj.y).dtype == np.int64)
+
+
 def to_torch(obj, device):
-    """Numpy arrays (in tuples / state NamedTuples) -> port tensors."""
+    """Numpy arrays (in tuples, lists / state NamedTuples) -> port
+    tensors."""
     if obj is None:
         return None
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         cls = _STATES[tuple(obj._fields)]
+        if cls is Df1State and _is_wide(obj):
+            cls = Df1WideState
         return cls(*(to_torch(v, device) for v in obj))
-    if isinstance(obj, (tuple, list)):
+    if isinstance(obj, list):
+        return [to_torch(v, device) for v in obj]
+    if isinstance(obj, tuple):
         return tuple(to_torch(v, device) for v in obj)
     # np.array copies: the tensor owns writable memory
-    return torch.from_numpy(np.array(obj)).to(device)
+    a = np.array(obj)
+    if a.dtype == np.uint32:  # torch's uint32 has few ops: int64 holds it
+        a = a.astype(np.int64)
+    return torch.from_numpy(a).to(device)
+
+
+def to_planes(ba, c: int, device) -> torch.Tensor:
+    """(5,) or (5, c) runtime coefficients -> (5, c) int32 planes."""
+    return coef_planes(np.asarray(ba), c, device)
+
+
+def clamped_coeffs(cc) -> ClampedCoeffs:
+    """A JAX-side design `ClampedCoeffs` as the port's (numpy
+    coefficients, the offset and limits as they are)."""
+    return ClampedCoeffs(ba=np.array(cc.ba), u=cc.u, min=cc.min, max=cc.max)
 
 
 def from_jax(ba_q, df1_state, tails, phase0, steps, device):
@@ -76,8 +107,13 @@ def to_numpy(obj):
     """Port tensors (in tuples / state NamedTuples) -> numpy arrays."""
     if obj is None:
         return None
+    if isinstance(obj, Df1DitherState):
+        return Df1DitherState(to_numpy(obj.xy),
+                              to_numpy(obj.e).astype(np.uint32))
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return type(obj)(*(to_numpy(v) for v in obj))
-    if isinstance(obj, (tuple, list)):
+    if isinstance(obj, list):
+        return [to_numpy(v) for v in obj]
+    if isinstance(obj, tuple):
         return tuple(to_numpy(v) for v in obj)
     return obj.detach().cpu().numpy()

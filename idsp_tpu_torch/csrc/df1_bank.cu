@@ -1,10 +1,14 @@
 // K1, K11 and K18: fixed-point DF1 biquad over a bank of lanes, every
 // row out (K1), only the rows 0, d, 2d, ... (K11), or every row of the
-// anti-windup DF1 (K18: offset and clamp before feedback).
+// anti-windup DF1 (K18: offset and clamp before feedback).  K26 and K27
+// are K1 and K18 with runtime coefficients: each lane loads its five
+// words once from (5, c) int32 planes (`df1.cuh` `load_coefs`), so a
+// retune is a new planes tensor and nothing is rebuilt.
 //
 // Replaces the Pallas kernels of idsp_tpu/filters/biquad_pallas.py
 // `df1_bank_q` (:225), `df1_bank_q_dec` (:290, `_df1_bank_q_dec_impl`
-// :319) and `df1_clamp_bank_q` (:696), all `_seq_bank_kernel` (:471; K11
+// :319), `df1_clamp_bank_q` (:696), `df1_bank_q_coef` (:932) and
+// `df1_clamp_bank_q_coef` (:999), all `_seq_bank_kernel` (:471; K11
 // with its `dec` epilogue) run by `_bank_call` (:395, pallas_call :453).  Those kernels emulated the
 // 64-bit MACs in 16-bit limbs and tiled lanes as (c/128, 128) for the
 // TPU's vector unit; here each product is a native 32x32->64 multiply
@@ -40,15 +44,17 @@ namespace {
 
 using idsp::kBankLanes;
 
-template <bool F32Out, bool Decimate, bool Clamp>
+template <bool F32Out, bool Decimate, bool Clamp, bool Planes = false>
 __global__ void __launch_bounds__(kBankLanes)
     df1_bank_kernel(const int32_t* __restrict__ xs, void* __restrict__ ys,
                     const int32_t* __restrict__ sx,
                     const int32_t* __restrict__ sy, int32_t* __restrict__ sx_out,
                     int32_t* __restrict__ sy_out, int t, int c, int dec,
-                    idsp::Df1Coefs k, idsp::Df1Clamp cl) {
+                    idsp::Df1Coefs k, idsp::Df1Clamp cl,
+                    const int32_t* __restrict__ planes = nullptr) {
   const int lane = blockIdx.x * kBankLanes + threadIdx.x;
   if (lane >= c) return;
+  if constexpr (Planes) k = idsp::load_coefs(planes, c, lane, k.f);
   idsp::Df1Lane s;
   s.load(sx, sy, lane);
   idsp::seq_bank<Decimate>(
@@ -95,6 +101,23 @@ int launch(const void* xs, void* ys, const void* sx, const void* sy,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K26 (Clamp false) and K27: K1 / K18 with each lane's coefficients from
+// (5, c) int32 planes; int32 out.
+template <bool Clamp>
+int launch_coef(const void* xs, void* ys, const void* sx, const void* sy,
+                void* sx_out, void* sy_out, const void* planes, int t, int c,
+                int f, const idsp::Df1Clamp& cl, void* stream) {
+  const dim3 grid((c + kBankLanes - 1) / kBankLanes);
+  df1_bank_kernel<false, false, Clamp, true>
+      <<<grid, kBankLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int32_t*>(xs), ys,
+          static_cast<const int32_t*>(sx), static_cast<const int32_t*>(sy),
+          static_cast<int32_t*>(sx_out), static_cast<int32_t*>(sy_out), t, c,
+          1, idsp::Df1Coefs{0, 0, 0, 0, 0, f}, cl,
+          static_cast<const int32_t*>(planes));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K1: xs (t, c) i32 -> ys (t, c) i32 or f32; state (c, 2) i32 x2 in and
@@ -128,4 +151,25 @@ extern "C" int idsp_df1_clamp_bank_q(const void* xs, void* ys, const void* sx,
   return launch<false, true>(xs, ys, sx, sy, sx_out, sy_out, t, c, 1, 0,
                              idsp::Df1Coefs{b0, b1, b2, a1, a2, f}, stream,
                              idsp::Df1Clamp{u, lo, hi});
+}
+
+// K26: xs (t, c) i32 -> ys (t, c) i32; planes (5, c) i32; state (c, 2)
+// i32 x2 in and out.
+extern "C" int idsp_df1_bank_q_coef(const void* xs, void* ys, const void* sx,
+                                    const void* sy, void* sx_out,
+                                    void* sy_out, const void* planes, int t,
+                                    int c, int f, void* stream) {
+  return launch_coef<false>(xs, ys, sx, sy, sx_out, sy_out, planes, t, c, f,
+                            idsp::Df1Clamp{}, stream);
+}
+
+// K27: K26 with the anti-windup clamp (u, lo, hi).
+extern "C" int idsp_df1_clamp_bank_q_coef(const void* xs, void* ys,
+                                          const void* sx, const void* sy,
+                                          void* sx_out, void* sy_out,
+                                          const void* planes, int t, int c,
+                                          int f, int u, int lo, int hi,
+                                          void* stream) {
+  return launch_coef<true>(xs, ys, sx, sy, sx_out, sy_out, planes, t, c, f,
+                           idsp::Df1Clamp{u, lo, hi}, stream);
 }

@@ -22,3 +22,11 @@ class DesignError(ValueError):
     @staticmethod
     def out_of_range(name: str) -> "DesignError":
         return DesignError("OutOfRange", name)
+
+    @staticmethod
+    def inverted_range(name: str) -> "DesignError":
+        return DesignError("InvertedRange", name)
+
+    @staticmethod
+    def sign_mismatch(name: str) -> "DesignError":
+        return DesignError("SignMismatch", name)

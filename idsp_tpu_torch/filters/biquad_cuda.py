@@ -1,26 +1,37 @@
-"""K1, K11 and K18: the fixed-point DF1 biquad bank (port of
-`idsp_tpu.filters.biquad_pallas.df1_bank_q`, `df1_bank_q_dec` and
-`df1_clamp_bank_q`).
+"""The fixed-point DF1 biquad banks (port of
+`idsp_tpu.filters.biquad_pallas`): K1 `df1_bank_q`, K11
+`df1_bank_q_dec`, K18 `df1_clamp_bank_q`, K24 `sos_bank_q`, K25
+`df1_wide_bank`, K26 `df1_bank_q_coef` and K27 `df1_clamp_bank_q_coef`.
 
-`df1_bank_q`, `df1_bank_q_dec` and `df1_clamp_bank_q` run the CUDA
-kernels of ``csrc/df1_bank.cu`` for a CUDA tensor and their plain
-PyTorch versions (``*_plain``) for a CPU tensor; any other device
-raises.  K1 and K11 are bit-identical to `biquad.df1_process_q` (K11:
-then ``ys[::d]``), K18 to `biquad.df1_clamp_process_q`.
+Each runs its CUDA kernel (``csrc/df1_bank.cu``; K24 and K25
+``csrc/biquad_bank.cu``) for a CUDA tensor and its plain PyTorch version
+(``*_plain``) for a CPU tensor; any other device raises.  K1 and K11 are
+bit-identical to `biquad.df1_process_q` (K11: then ``ys[::d]``), K18 to
+`biquad.df1_clamp_process_q`, K24 to chaining `df1_process_q` stage by
+stage, K25 to `biquad.df1_wide_process`, K26 and K27 to K1 and K18 with
+one coefficient set per lane.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from .. import _ext
 from .biquad import (
     Df1State,
+    Df1WideState,
     _ba_list,
+    check_wide_f,
     clamp_params,
     df1_clamp_process_q,
     df1_process_q,
+    df1_wide_process,
 )
+
+SOS_MAX_STAGES = 8  # stages of one K24 launch (csrc/biquad_bank.cu)
 
 
 def df1_bank_q_plain(ba, state: Df1State, xs, f: int = 29, *,
@@ -36,8 +47,7 @@ def _launch(name, ba, state: Df1State, xs, f, out_dtype, d=None,
     CUDA tensor."""
     if out_dtype not in (None, torch.int32, torch.float32):
         raise ValueError(f"out_dtype must be int32 or float32, got {out_dtype}")
-    if not 0 < f < 64:
-        raise ValueError(f"f must be in (0, 64), got {f}")
+    check_f(f)
     t, c = xs.shape
     if d is not None:
         check_dec(t, d)
@@ -65,6 +75,12 @@ def _launch(name, ba, state: Df1State, xs, f, out_dtype, d=None,
                                           *_ba_list(ba), _ext.stream_ptr(dev))
     _ext.check(err, name)
     return Df1State(x=new_x, y=new_y), ys
+
+
+def check_f(f: int) -> None:
+    """A Q32<f> DF1 shifts its int64 sum right by f: 0 < f < 64."""
+    if not 0 < f < 64:
+        raise ValueError(f"f must be in (0, 64), got {f}")
 
 
 def df1_bank_q(ba, state: Df1State, xs, f: int = 29, *, out_dtype=None):
@@ -146,3 +162,227 @@ def df1_clamp_bank_q(ba, state: Df1State, xs, f: int = 29, *, u: int = 0,
 
 
 df1_clamp_bank_q.launches = 0  # kernel launches since the last reset
+
+
+# --- K24: the N-stage SOS cascade --------------------------------------------
+
+
+def _stage_table(ba_stages) -> np.ndarray:
+    """(N, 5) int64 coefficients of an (N, 5) array or tensor."""
+    a = ba_stages.cpu() if isinstance(ba_stages, torch.Tensor) else ba_stages
+    return np.asarray(a).astype(np.int64).reshape(-1, 5)
+
+
+def sos_bank_q_plain(ba_stages, states, xs, f: int = 29):
+    """Plain PyTorch version of `sos_bank_q`: `df1_process_q` chained
+    stage by stage."""
+    out, y = [], xs
+    for ba, st in zip(_stage_table(ba_stages), states, strict=True):
+        st, y = df1_process_q(ba, f, st, y)
+        out.append(st)
+    return out, y
+
+
+def sos_bank_q(ba_stages, states, xs, f: int = 29):
+    """N-stage fixed-point SOS cascade over a bank of lanes, every stage
+    advanced each row (the reference's `sos` path, py.rs:51-74).
+
+    Args:
+      ba_stages: (N, 5) i32 Q<f> coefficients, one row per stage.
+      states: N `Df1State`s, x/y (c, 2) int32 each.
+      xs: (t, c) int32.
+      f: fractional bits, 0 < f < 64.
+
+    Returns (states, ys): a list of N `Df1State`s and ys (t, c) int32,
+    bit-identical to chaining `df1_process_q` stage-major.  A cascade of
+    more than SOS_MAX_STAGES stages runs as successive launches over
+    groups of stages.
+    """
+    table = _stage_table(ba_stages)
+    if len(states) != len(table):
+        raise ValueError(f"{len(table)} stages but {len(states)} states")
+    if xs.device.type == "cpu":
+        return sos_bank_q_plain(table, states, xs, f)
+    check_f(f)
+    t, c = xs.shape
+    dev = xs.device
+    _ext.require("xs", xs, dev, torch.int32, (t, c))
+    for i, st in enumerate(states):
+        _ext.require(f"states[{i}].x", st.x, dev, torch.int32, (c, 2))
+        _ext.require(f"states[{i}].y", st.y, dev, torch.int32, (c, 2))
+    lib = _ext.library()
+    out, y = [], xs
+    for g in range(0, len(table), SOS_MAX_STAGES):
+        group = table[g:g + SOS_MAX_STAGES]
+        n = len(group)
+        sx = torch.stack([st.x for st in states[g:g + n]])
+        sy = torch.stack([st.y for st in states[g:g + n]])
+        nx, ny = torch.empty_like(sx), torch.empty_like(sy)
+        ys = torch.empty_like(xs)
+        ba = (ctypes.c_int32 * (5 * n))(*group.reshape(-1).tolist())
+        with torch.cuda.device(dev):
+            err = lib.idsp_sos_bank_q(
+                y.data_ptr(), ys.data_ptr(), sx.data_ptr(), sy.data_ptr(),
+                nx.data_ptr(), ny.data_ptr(), t, c, f, n, ba,
+                _ext.stream_ptr(dev))
+        _ext.check(err, "sos_bank_q")
+        sos_bank_q.launches += 1
+        out += [Df1State(x=nx[i], y=ny[i]) for i in range(n)]
+        y = ys
+    return out, y
+
+
+sos_bank_q.launches = 0  # kernel launches since the last reset
+
+
+# --- K25: the wide-state DF1 -------------------------------------------------
+
+
+def df1_wide_bank_plain(ba, state: Df1WideState, xs, f: int = 29, *,
+                        clamp=None):
+    """Plain PyTorch version of `df1_wide_bank`: the wide scan."""
+    return df1_wide_process(ba, f, state, xs, clamp=clamp)
+
+
+def df1_wide_bank(ba, state: Df1WideState, xs, f: int = 29, *, clamp=None):
+    """Wide-state DF1 (int64 feedback words) over a bank of lanes
+    (biquad.rs:456-472; with ``clamp = (u, lo, hi)`` the clamped form,
+    :474-480).
+
+    Args:
+      ba: (5,) i32 Q<f> coefficients shared by all lanes.
+      state: `Df1WideState`, x (c, 2) int32 and y (c, 2) int64.
+      xs: (t, c) int32.
+      f: fractional bits, 0 < f <= 32 (the sum is shifted left by 32 - f).
+      clamp: None or int32 (u, lo, hi): ``clip(y0 + u, lo, hi)`` is the
+        output and replaces the high word of the fed-back word.
+
+    Returns (state, ys int32), bit-identical to scanning `df1_wide_step`
+    (`df1_wide_clamp_step`).  ``launches`` counts both forms.
+    """
+    if xs.device.type == "cpu":
+        return df1_wide_bank_plain(ba, state, xs, f, clamp=clamp)
+    check_wide_f(f)
+    cl = (0, 0, 0) if clamp is None else clamp_params(*clamp)
+    t, c = xs.shape
+    dev = xs.device
+    _ext.require("xs", xs, dev, torch.int32, (t, c))
+    _ext.require("state.x", state.x, dev, torch.int32, (c, 2))
+    _ext.require("state.y", state.y, dev, torch.int64, (c, 2))
+    ys = torch.empty_like(xs)
+    nx, ny = torch.empty_like(state.x), torch.empty_like(state.y)
+    with torch.cuda.device(dev):
+        err = _ext.library().idsp_df1_wide_bank(
+            xs.data_ptr(), ys.data_ptr(), state.x.data_ptr(),
+            state.y.data_ptr(), nx.data_ptr(), ny.data_ptr(), t, c, f,
+            *_ba_list(ba), int(clamp is not None), *cl, _ext.stream_ptr(dev))
+    _ext.check(err, "df1_wide_bank")
+    df1_wide_bank.launches += 1
+    return Df1WideState(x=nx, y=ny), ys
+
+
+df1_wide_bank.launches = 0  # kernel launches since the last reset
+
+
+# --- K26, K27: runtime (per-lane) coefficients -------------------------------
+
+
+def _lane_coefs(ba_planes):
+    """(5,) stays a shared set; (5, c) planes become (c, 5), one set per
+    lane, as the plain scan takes them."""
+    if isinstance(ba_planes, torch.Tensor):
+        return ba_planes if ba_planes.dim() == 1 else ba_planes.T
+    a = np.asarray(ba_planes)
+    return a if a.ndim == 1 else a.T
+
+
+def coef_planes(ba_planes, c: int, device) -> torch.Tensor:
+    """Runtime coefficients as contiguous (5, c) int32 planes on
+    ``device``: a shared (5,) set is broadcast over the lanes."""
+    p = torch.as_tensor(ba_planes, dtype=torch.int32, device=device)
+    if tuple(p.shape) == (5,):
+        p = p[:, None].expand(5, c)
+    if tuple(p.shape) != (5, c):
+        raise ValueError(f"coefficients must be (5,) or (5, {c}), got "
+                         f"{tuple(p.shape)}")
+    return p.contiguous()
+
+
+def df1_bank_q_coef_plain(ba_planes, state: Df1State, xs, f: int = 29):
+    """Plain PyTorch version of `df1_bank_q_coef`."""
+    return df1_process_q(_lane_coefs(ba_planes), f, state, xs)
+
+
+def _launch_coef(name, ba_planes, state: Df1State, xs, f, clamp=None):
+    """Validate and launch K26 (``clamp`` None) or K27 on a CUDA tensor."""
+    check_f(f)
+    t, c = xs.shape
+    dev = xs.device
+    _ext.require("xs", xs, dev, torch.int32, (t, c))
+    _ext.require("state.x", state.x, dev, torch.int32, (c, 2))
+    _ext.require("state.y", state.y, dev, torch.int32, (c, 2))
+    planes = coef_planes(ba_planes, c, dev)
+    ys = torch.empty_like(xs)
+    nx, ny = torch.empty_like(state.x), torch.empty_like(state.y)
+    ptrs = (xs.data_ptr(), ys.data_ptr(), state.x.data_ptr(),
+            state.y.data_ptr(), nx.data_ptr(), ny.data_ptr(),
+            planes.data_ptr(), t, c, f)
+    lib = _ext.library()
+    with torch.cuda.device(dev):
+        if clamp is None:
+            err = lib.idsp_df1_bank_q_coef(*ptrs, _ext.stream_ptr(dev))
+        else:
+            err = lib.idsp_df1_clamp_bank_q_coef(*ptrs, *clamp,
+                                                 _ext.stream_ptr(dev))
+    _ext.check(err, name)
+    return Df1State(x=nx, y=ny), ys
+
+
+def df1_bank_q_coef(ba_planes, state: Df1State, xs, f: int = 29):
+    """Fixed-point DF1 bank with runtime coefficients: a retune is a new
+    coefficient tensor, and nothing is rebuilt.
+
+    Args:
+      ba_planes: (5,) i32 Q<f> coefficients shared by all lanes (the
+        reference's atomic swap, biquad.rs:34-36), or (5, c) planes, one
+        set per lane.
+      state, xs, f: as `df1_bank_q`.
+
+    Returns (state, ys int32), bit-identical to `df1_process_q` with the
+    lanes' coefficients (to `df1_bank_q` for a shared set).
+    """
+    if xs.device.type == "cpu":
+        return df1_bank_q_coef_plain(ba_planes, state, xs, f)
+    out = _launch_coef("df1_bank_q_coef", ba_planes, state, xs, f)
+    df1_bank_q_coef.launches += 1
+    return out
+
+
+df1_bank_q_coef.launches = 0  # kernel launches since the last reset
+
+
+def df1_clamp_bank_q_coef_plain(ba_planes, state: Df1State, xs,
+                                f: int = 29, *, u: int = 0, lo: int,
+                                hi: int):
+    """Plain PyTorch version of `df1_clamp_bank_q_coef`."""
+    return df1_clamp_process_q(_lane_coefs(ba_planes), f, state, xs, u=u,
+                               lo=lo, hi=hi)
+
+
+def df1_clamp_bank_q_coef(ba_planes, state: Df1State, xs, f: int = 29, *,
+                          u: int = 0, lo: int, hi: int):
+    """`df1_bank_q_coef` with the anti-windup clamp of `df1_clamp_bank_q`
+    (int32 ``u, lo, hi``, fixed per call: they are range constants, not
+    tuning targets, biquad.rs:121-157).  Returns (state, ys int32),
+    bit-identical to `df1_clamp_process_q` with the lanes' coefficients.
+    """
+    if xs.device.type == "cpu":
+        return df1_clamp_bank_q_coef_plain(ba_planes, state, xs, f, u=u,
+                                           lo=lo, hi=hi)
+    out = _launch_coef("df1_clamp_bank_q_coef", ba_planes, state, xs, f,
+                       clamp=clamp_params(u, lo, hi))
+    df1_clamp_bank_q_coef.launches += 1
+    return out
+
+
+df1_clamp_bank_q_coef.launches = 0  # kernel launches since the last reset

@@ -11,10 +11,10 @@ sequential.  Blocks stream with a small carry (`FmDiscState`).
 
 * ``scan`` -- the oracle, all plain: `fm_receiver` (discriminator, then
   `biquad.df1_process_q`).
-* ``composed`` -- the plain discriminator, then K1 `df1_bank_q` with
-  ``f = 30`` (the JAX package takes the runtime-coefficient bank
-  `df1_bank_q_coef` here, fm_disc.py:75-86; K1 already takes its
-  coefficients at run time); bit-identical to ``scan``.
+* ``composed`` -- the plain discriminator, then K26 `df1_bank_q_coef`,
+  the runtime-coefficient DF1 bank, with the shared (5,) coefficients
+  and ``f = 30``, as the JAX package runs it (fm_disc.py:75-86);
+  bit-identical to ``scan``.
 * ``kernel`` -- K15 `fm_disc_bank` with the exact angle; bit-identical
   to ``scan``.
 * ``kernel_fast`` -- K15 with the f32 angle, SNR-gated.
@@ -31,7 +31,7 @@ from torch import nn
 
 from ..design import Filter
 from ..filters import biquad
-from ..filters.biquad_cuda import df1_bank_q
+from ..filters.biquad_cuda import df1_bank_q_coef
 from ..filters.fm_cuda import (
     FmDiscState, discriminate, fm_disc_bank, fm_disc_bank_plain, next_state,
     wrap_carrier,
@@ -96,6 +96,9 @@ class FmReceiver(nn.Module):
         self.channels = channels
         self.f = f
         self.device = torch.device(device)
+        # K26's shared coefficients, on ``device`` (made at the first
+        # ``composed`` call: a receiver for the card is built anywhere)
+        self._ba_planes = None
 
     def init_state(self) -> FmDiscState:
         return init_state((self.channels,), device=self.device)
@@ -105,7 +108,11 @@ class FmReceiver(nn.Module):
             return fm_receiver(state, re, im, self.carrier, self.ba_q, self.f)
         if self.mode == "composed":
             dphi = discriminate(state, re, im, self.carrier)
-            deemph, y = df1_bank_q(self.ba_q, state.deemph, dphi, self.f)
+            if self._ba_planes is None or self._ba_planes.device != dphi.device:
+                self._ba_planes = torch.tensor(self.ba_q, dtype=torch.int32,
+                                               device=dphi.device)
+            deemph, y = df1_bank_q_coef(self._ba_planes, state.deemph, dphi,
+                                        self.f)
             return next_state(state, re, im, deemph), y
         angle = "exact" if self.mode == "kernel" else "fast"
         return fm_disc_bank(self.ba_q, state, re, im, self.carrier, self.f,

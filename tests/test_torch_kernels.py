@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K21 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K27 against their plain PyTorch versions, on the card.
 
 Marked ``requires_cuda``; each test skips (inside its fixture) where no
 CUDA device is present.  No jax here, so the file also runs where only
@@ -6,8 +6,8 @@ PyTorch is installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
 
-On the card every K1-K16 and K18-K21 output (with the ``clamp=`` forms of
-K3 and K12) must equal its plain version bit for bit:
+On the card every K1-K16 and K18-K27 output but K22/K23's (with the
+``clamp=`` forms of K3 and K12) must equal its plain version bit for bit:
 the integer paths are the same int64 arithmetic, and the kernels' f32
 operations are single-rounding intrinsics in the plain versions' order,
 as eager PyTorch rounds each operation.  K17's matrix products sum in
@@ -27,8 +27,16 @@ from idsp_tpu_torch.filters.biquad_cuda import (
     df1_bank_q_dec,
     df1_bank_q_dec_plain,
     df1_bank_q_plain,
+    df1_bank_q_coef,
+    df1_bank_q_coef_plain,
     df1_clamp_bank_q,
+    df1_clamp_bank_q_coef,
+    df1_clamp_bank_q_coef_plain,
     df1_clamp_bank_q_plain,
+    df1_wide_bank,
+    df1_wide_bank_plain,
+    sos_bank_q,
+    sos_bank_q_plain,
 )
 from idsp_tpu_torch.filters.ddc_cuda import (
     ddc_mix_df1_bank,
@@ -777,3 +785,129 @@ def test_hbf_mxu_refused_launch_leaves_no_pending_error(cuda):
                             block=512)
     x = torch.ones((64, 64), device=cuda)
     _equal(hbf_dec_cascade_mxu(dec, x), hbf_dec_cascade_mxu_plain(dec, x))
+
+
+# --- K24-K27: the Stabilizer IIR control path --------------------------------
+
+
+def _stages(n, f=29):
+    fcs = np.linspace(0.02, 0.3, n)
+    return np.stack([biquad.quantize_ba(biquad.from_cookbook(
+        Filter().critical_frequency(fc).lowpass()), f) for fc in fcs])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1, 4, 8, 11])
+def test_sos_bank_q_kernel_equals_plain(cuda, n):
+    # 100 lanes: not a multiple of the 32-lane block; t = 1000 leaves a
+    # tail after the last prefetch group; 11 stages take two launches
+    c, t = 100, 1000
+    rng = np.random.default_rng(80)
+    ba = _stages(n)
+    sts = [biquad.Df1State(x=_i32(rng, (c, 2), device=cuda),
+                           y=_i32(rng, (c, 2), -(2**26), 2**26, device=cuda))
+           for _ in range(n)]
+    sts_p = sts
+    launches = sos_bank_q.launches
+    for _ in range(3):
+        xs = _i32(rng, (t, c), -(2**26), 2**26, device=cuda)
+        sts, ys = sos_bank_q(ba, sts, xs, 29)
+        sts_p, ys_p = sos_bank_q_plain(ba, sts_p, xs, 29)
+        torch.cuda.synchronize()
+        _equal((tuple(sts), ys), (tuple(sts_p), ys_p))
+    assert sos_bank_q.launches - launches == 3 * -(-n // 8)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f", [29, 32, 16])
+@pytest.mark.parametrize("clamp", [None, (-777, -(2**27), 2**27),
+                                   (2**31 - 9, -(2**31), 2**31 - 1)])
+def test_df1_wide_bank_kernel_equals_plain(cuda, f, clamp):
+    c, t = 100, 1000
+    rng = np.random.default_rng(81)
+    top = min(2**31 - 1, 2 << f)
+    ba = rng.integers(-top, top + 1, size=5).astype(np.int32)
+    st = biquad.Df1WideState(
+        x=_i32(rng, (c, 2), device=cuda),
+        y=torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, size=(c, 2),
+                                        dtype=np.int64)).to(cuda))
+    st_p = st
+    for _ in range(3):
+        xs = _i32(rng, (t, c), device=cuda)
+        st, ys = df1_wide_bank(ba, st, xs, f, clamp=clamp)
+        st_p, ys_p = df1_wide_bank_plain(ba, st_p, xs, f, clamp=clamp)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, ys), (st_p.x, st_p.y, ys_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("clamp", [None, (321, -(2**28), 2**28)])
+def test_coef_bank_kernels_equal_plain(cuda, shared, clamp):
+    """Shared (5,) and per-lane (5, c) coefficients, retuned between
+    blocks: the state carries across each retune."""
+    c, t = 100, 1000
+    rng = np.random.default_rng(82)
+    st = biquad.Df1State(x=_i32(rng, (c, 2), device=cuda),
+                         y=_i32(rng, (c, 2), device=cuda))
+    st_p = st
+    for b in range(3):
+        ba = (_stages(1)[0] if shared else
+              np.roll(_stages(c).T, 17 * b, axis=1).copy())
+        planes = torch.from_numpy(ba).to(cuda)
+        xs = _i32(rng, (t, c), device=cuda)
+        if clamp is None:
+            st, ys = df1_bank_q_coef(planes, st, xs, 29)
+            st_p, ys_p = df1_bank_q_coef_plain(planes, st_p, xs, 29)
+        else:
+            u, lo, hi = clamp
+            st, ys = df1_clamp_bank_q_coef(planes, st, xs, 29, u=u, lo=lo,
+                                           hi=hi)
+            st_p, ys_p = df1_clamp_bank_q_coef_plain(planes, st_p, xs, 29,
+                                                     u=u, lo=lo, hi=hi)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, ys), (st_p.x, st_p.y, ys_p))
+    if shared and clamp is None:  # a shared set is K1's filter
+        st0 = biquad.df1_init((c,), device=cuda)
+        _equal(df1_bank_q_coef(_stages(1)[0], st0, xs, 29),
+               df1_bank_q(_stages(1)[0], st0, xs, 29))
+
+
+@pytest.mark.requires_cuda
+def test_control_path_wrappers_reject_bad_input(cuda):
+    st = biquad.df1_init((64,), device=cuda)
+    xs = torch.zeros((32, 64), dtype=torch.int32, device=cuda)
+    wide = biquad.df1_wide_init((64,), device=cuda)
+    with pytest.raises(ValueError):  # the shift 32 - f needs f <= 32
+        df1_wide_bank(BA_Q, wide, xs, 33)
+    with pytest.raises(ValueError):  # y is int64
+        df1_wide_bank(BA_Q, biquad.Df1WideState(x=wide.x, y=st.y), xs, 29)
+    with pytest.raises(ValueError):  # planes (5, c)
+        df1_bank_q_coef(torch.zeros((5, 63), dtype=torch.int32,
+                                    device=cuda), st, xs, 29)
+    with pytest.raises(ValueError):
+        df1_clamp_bank_q_coef(BA_Q, st, xs, 64, lo=-1, hi=1)
+    with pytest.raises(ValueError):  # one state per stage
+        sos_bank_q(_stages(2), [st], xs, 29)
+
+
+@pytest.mark.requires_cuda
+def test_control_path_launch_after_refused_launch(cuda):
+    """After a launch refused for its shared memory, K24-K27 launch as
+    usual and match their plain versions: no CUDA error is left pending."""
+    itp = hbf.hbf_int_cascade_init(4, (128,), axis=0, device=cuda)
+    with pytest.raises(RuntimeError):
+        hbf_int_cascade_bank(itp, torch.zeros((128, 128), device=cuda),
+                             time_chunk=128)
+    st = biquad.df1_init((128,), device=cuda)
+    xs = torch.ones((64, 128), dtype=torch.int32, device=cuda)
+    sts, ys = sos_bank_q(_stages(2), [st, st], xs, 29)
+    sts_p, ys_p = sos_bank_q_plain(_stages(2), [st, st], xs, 29)
+    _equal((tuple(sts), ys), (tuple(sts_p), ys_p))
+    wide = biquad.df1_wide_init((128,), device=cuda)
+    _equal(df1_wide_bank(BA_Q, wide, xs, 29, clamp=(0, -5, 5)),
+           df1_wide_bank_plain(BA_Q, wide, xs, 29, clamp=(0, -5, 5)))
+    _equal(df1_bank_q_coef(BA_Q, st, xs, 29),
+           df1_bank_q_coef_plain(BA_Q, st, xs, 29))
+    _equal(df1_clamp_bank_q_coef(BA_Q, st, xs, 29, lo=-5, hi=5),
+           df1_clamp_bank_q_coef_plain(BA_Q, st, xs, 29, lo=-5, hi=5))
