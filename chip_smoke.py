@@ -10,9 +10,11 @@ rate conversion (`RoundTrip` in its shift and banded-matrix forms, the
 CIC + half-band composite decimator, CIC interpolation), and BASELINE
 #1-#3 (`FmReceiver`, `DdcLockinBank`, `channelize_planes`), and the
 Stabilizer IIR control path (`compat.sos`, `compat.sos_clamp_wide`, the
-per-channel config bank `ConfigBank`) -- through their kernel modes,
-checks the results and times kernels, chain, banks, rate conversion,
-FM, lock-in, channelizer and control path.
+per-channel config bank `ConfigBank`), and the biquad precision ladder
+(Q16, Q64, f32, dither and the runtime-coefficient wide and dither
+banks) -- through their kernel modes, checks the results and times
+kernels, chain, banks, rate conversion, FM, lock-in, channelizer,
+control path and ladder.
 Phases, each reported on its own line:
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
@@ -48,7 +50,14 @@ Phases, each reported on its own line:
    row), K26 `df1_bank_q_coef` and K27 `df1_clamp_bank_q_coef` (per-lane
    planes of 1024 `BiquadConfig`s) at c=1024 lanes on one block of
    full-range x, bit for bit, each plain call timed; K25 unclamped and K26
-   with a shared (5,) set on T_PREFIX rows;
+   with a shared (5,) set on T_PREFIX rows; K28 `df1_bank_q16`, K29
+   `df1_bank_q64`, K30 `df1_bank_f32`, K31 `df1_dither_bank`, K32
+   `df1_wide_bank_coef` and K33 `df1_dither_bank_coef` (per-lane planes)
+   at c=1024 lanes on one block of the suite's inputs from a random
+   state, bit for bit, each plain call timed; K31-K33 clamped with CLAMP
+   on one block, with the share of outputs the clamp pinned (> 0), and
+   K32/K33 with a shared (5,) set on T_PREFIX rows; each of K28-K33
+   over two half-blocks against one block, bit for bit;
 4. the main paths, each with every launch counter reset just before it
    and read just after:
    * `DdcChain` in ``split`` (K1), ``fused`` (K14), ``fold`` (K20),
@@ -117,6 +126,15 @@ Phases, each reported on its own line:
      block, and after the retune every channel equals the plain K27/K26
      with the new planes on T_PREFIX rows while the channels not retuned
      equal a bank never retuned on every word;
+   * the precision ladder (benches/suite.py:279-388) at c=1024 lanes,
+     t=32768, over 3 blocks from zero state, the suite's lowpass at 0.1:
+     K28 (Q16<13>, x in +-2^14), K29 (Q64<61>, x in +-2^55), K30 (f32,
+     x ~ N(0, 1)), K31 (Q29, x in +-2^24) unclamped and with the suite's
+     clamp row (0, +-2^30), K32 and K33 with per-lane planes; after the
+     counts are read, K32/K33 with a shared (5,) set equal K25/K31 on one
+     block; each rung within
+     `rung_error`'s bound of the float64 DF1 of its coefficients on
+     T_PREFIX rows;
    * BASELINE #3 (suite.py:960-1012): `channelize_planes` ``fused``
      (K17) and ``xla`` at m=1024, 8 taps, n=1024 (3 blocks) and 16384,
      bf16 and f32: fused within 2e-5 of the scale; a tone at channel 100
@@ -142,7 +160,9 @@ Phases, each reported on its own line:
    torch ops and `torch.matmul` of the four products, TF32 off), with
    the planes path's rates (n*m samples/s); K24-K27 at c=1024 lanes with
    their plain versions' times from phase 3, and the control legs' block
-   times; for each kernel mode, the device's busy
+   times; K28-K33 at c=1024 lanes with their plain versions' times from
+   phase 3 (K31 clamped and K32/K33 with a shared set on the log only);
+   for each kernel mode, the device's busy
    share (`torch.profiler` device time over the CUDA-event block time)
    with each device event's span count and time; the run's wall time.
    Each kernel's roofline bound (bytes over 3.35 TB/s or operations over
@@ -219,9 +239,12 @@ N_CH = (1024, 16384)  # frames per block (suite.py:960, 1005)
 # config bank's shared limits; the plain versions' prefix checks and the
 # unclamped K25 / shared-set K26 holds run on T_PREFIX rows.
 C_CTL, SOS_STAGES, WIDE_STAGES = 1024, 4, 2
-WIDE_CLAMP = (0, -(2**30), 2**30)
+WIDE_CLAMP = (0, -(2**30), 2**30)  # also the dither clamp row, suite.py:323
 CONFIG_LIMITS = (-(2**26), 2**26)
 T_PREFIX = 4096
+# The biquad precision ladder (benches/suite.py:279-388) at the port's
+# bank width; its plain versions' second forms run on T_PREFIX rows.
+C_PREC = 1024
 
 
 def fir_dec_ops(t, ms):
@@ -271,6 +294,27 @@ def work(name, c, t=T):
     if name in ("df1_bank_q_coef", "df1_clamp_bank_q_coef"):  # K1 / K18
         # with the lane's five coefficients read once
         return _w(8 * t * c + 52 * c, 0, df1 * t * c, t, chain)
+    # K28-K33 at c lanes: x in, y out, the state in and out
+    if name == "df1_bank_q16":  # K1's 11 ops on 2-byte words
+        return _w(4 * t * c + 16 * c, 0, 11 * t * c, t, 3)
+    if name == "df1_bank_q64":  # what the function needs, not what the
+        # kernel issues: per signed 64 x 64 -> 128-bit product one full
+        # product of 32-bit limbs (12), per 128-bit sum four carry-chained
+        # 32-bit adds (4 x 4), the funnel shift's two output words (2): 78;
+        # on the chain the high-word product of y1, its carry and the shift
+        return _w(16 * t * c + 64 * c, 0, 78 * t * c, t, 10)
+    if name == "df1_bank_f32":  # 5 products and 4 adds, one by one
+        return _w(8 * t * c + 32 * c, 9 * t * c, 0, t, 3)
+    if name in ("df1_dither_bank", "df1_dither_bank_coef"):  # K1's 11
+        # and the error word's add, the shift left, its mask and shift
+        # right; on the chain the product, the adds, the shift, the high
+        # word; e in and out as int64; K33 reads its five planes once
+        planes = 20 * c if name.endswith("coef") else 0
+        return _w(8 * t * c + 48 * c + planes, 0, 15 * t * c, t, 4)
+    if name == "df1_wide_bank_coef":  # K25 unclamped: 3 products, 2
+        # split-word products (6 each), 4 adds, the shift, the high word;
+        # on the chain the split product, the add, the shift
+        return _w(8 * t * c + 68 * c, 0, 21 * t * c, t, 6)
     if name == "df1_clamp_bank_q":  # K1's DF1 + the clamp, int32 out
         return _w(8 * t * c2 + 32 * c2, 0, df1 * t * c2, t, chain)
     if name in ("df1_hbf_cascade_bank", "df1_clamp_hbf_cascade_bank",
@@ -2189,6 +2233,312 @@ def time_control(dev, i32, card, timings, plain_s):
             f"{c * T / sec:.6e} samples/s (c*t)  [{card}]")
 
 
+# ---- the biquad precision ladder (K28-K33) ----------------------------------
+
+
+def precision_setup(rng, dev):
+    """The ladder's filters and input makers at c = C_PREC lanes: the
+    suite's lowpass at 0.1 (benches/suite.py:221) as Q16<13> (int16 x in
+    +-2^14, suite.py:279-300), Q64<61> (int64 x in +-2^55, :302-315), f32
+    (x ~ N(0, 1), :374-388) and Q32<29> (int32 x in +-2^24, the suite's
+    ``xs_i``, for the dither rows :319-372); per-lane Q29 planes of lowpass
+    filters at frequencies spread over [0.01, 0.2] for K32/K33.  Returns
+    (coefficients by rung, input makers by rung, planes)."""
+    import torch
+    from idsp_tpu_torch.design import Filter
+    from idsp_tpu_torch.filters import biquad
+
+    lp = biquad.from_cookbook(Filter().critical_frequency(0.1).lowpass())
+    ba = {"q16": biquad.quantize_ba(lp, 13, dtype=np.int16),
+          "q64": biquad.quantize_ba(lp, 61, dtype=np.int64),
+          "f32": lp.astype(np.float32), "q29": biquad.quantize_ba(lp, 29)}
+
+    def ints(shape, lim, dtype):
+        a = rng.integers(-lim, lim, size=shape, dtype=np.int64)
+        return torch.from_numpy(a.astype(dtype)).to(dev)
+
+    make = {
+        "q16": lambda shape: ints(shape, 2**14, np.int16),
+        "q64": lambda shape: ints(shape, 2**55, np.int64),
+        "f32": lambda shape: torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).to(dev),
+        "q29": lambda shape: ints(shape, 2**24, np.int32),
+    }
+    fcs = rng.uniform(0.01, 0.2, C_PREC)
+    planes = torch.from_numpy(np.stack([biquad.quantize_ba(
+        biquad.from_cookbook(Filter().critical_frequency(fc).lowpass()), 29)
+        for fc in fcs], axis=1)).to(dev)
+    return ba, make, planes
+
+
+def precision_states(rng, dev, c):
+    """Random carried states of each rung (phase 3 holds): x and y in the
+    inputs' ranges, the dither error word in [0, 2^32), the wide words in
+    +-2^55."""
+    import torch
+    from idsp_tpu_torch.filters import biquad
+
+    def ints(lim, dtype, shape=(c, 2)):
+        a = rng.integers(-lim, lim, size=shape, dtype=np.int64)
+        return torch.from_numpy(a.astype(dtype)).to(dev)
+
+    xy29 = biquad.Df1State(x=ints(2**24, np.int32), y=ints(2**24, np.int32))
+    return {
+        "q16": biquad.Df1State(x=ints(2**14, np.int16),
+                               y=ints(2**14, np.int16)),
+        "q64": biquad.Df1State(x=ints(2**55, np.int64),
+                               y=ints(2**55, np.int64)),
+        "f32": biquad.Df1State(
+            x=torch.from_numpy(rng.normal(size=(c, 2)).astype(np.float32))
+            .to(dev),
+            y=torch.from_numpy(rng.normal(size=(c, 2)).astype(np.float32))
+            .to(dev)),
+        "dither": biquad.Df1DitherState(xy=xy29, e=torch.from_numpy(
+            rng.integers(0, 2**32, c)).to(dev)),
+        "wide": biquad.Df1WideState(x=ints(2**24, np.int32),
+                                    y=ints(2**55, np.int64)),
+    }
+
+
+def precision_cases(ba, planes, clamp=None, shared=False):
+    """name -> (kernel, plain, state key, input rung) of K28-K33; K31-K33
+    with ``clamp``, K32/K33 with the shared (5,) set when ``shared``."""
+    from idsp_tpu_torch.filters import biquad_cuda as bc
+
+    p = ba["q29"] if shared else planes
+    return {
+        "df1_bank_q16": (lambda s, x: bc.df1_bank_q16(ba["q16"], s, x, 13),
+                         lambda s, x: bc.df1_bank_q16_plain(ba["q16"], s, x,
+                                                            13),
+                         "q16", "q16"),
+        "df1_bank_q64": (lambda s, x: bc.df1_bank_q64(ba["q64"], s, x, 61),
+                         lambda s, x: bc.df1_bank_q64_plain(ba["q64"], s, x,
+                                                            61),
+                         "q64", "q64"),
+        "df1_bank_f32": (lambda s, x: bc.df1_bank_f32(ba["f32"], s, x),
+                         lambda s, x: bc.df1_bank_f32_plain(ba["f32"], s, x),
+                         "f32", "f32"),
+        "df1_dither_bank": (
+            lambda s, x: bc.df1_dither_bank(ba["q29"], s, x, 29, clamp=clamp),
+            lambda s, x: bc.df1_dither_bank_plain(ba["q29"], s, x, 29,
+                                                  clamp=clamp),
+            "dither", "q29"),
+        "df1_wide_bank_coef": (
+            lambda s, x: bc.df1_wide_bank_coef(p, s, x, 29, clamp=clamp),
+            lambda s, x: bc.df1_wide_bank_coef_plain(p, s, x, 29,
+                                                     clamp=clamp),
+            "wide", "q29"),
+        "df1_dither_bank_coef": (
+            lambda s, x: bc.df1_dither_bank_coef(p, s, x, 29, clamp=clamp),
+            lambda s, x: bc.df1_dither_bank_coef_plain(p, s, x, 29,
+                                                       clamp=clamp),
+            "dither", "q29"),
+    }
+
+
+def check_precision_kernels(dev, rng, errs, plain_s):
+    """Phase 3 for K28-K33 at c = C_PREC lanes: each kernel against its
+    plain version on one block of T rows from a random carried state,
+    tolerance 0, the plain call timed (K31 unclamped, K32/K33 with per-lane
+    planes); then K31-K33 clamped with CLAMP on one block, raising unless
+    the clamp pinned some of their outputs, and K32/K33 with the shared
+    (5,) set on T_PREFIX rows."""
+    ba, make, planes = precision_setup(rng, dev)
+    c = C_PREC
+    for name, (kern, plain, key, rung) in precision_cases(ba,
+                                                          planes).items():
+        st = precision_states(rng, dev, c)[key]
+        errs[name] = hold(name, kern, plain, (st,),
+                          lambda: make[rung]((T, c)), plain_s, blocks=1)
+    second = {**{f"{k} (clamp {CLAMP})": (v, T) for k, v in precision_cases(
+        ba, planes, CLAMP).items() if "dither" in k or "coef" in k},
+              **{f"{k} (shared (5,))": (v, T_PREFIX) for k, v in
+                 precision_cases(ba, planes, shared=True).items()
+                 if "coef" in k}}
+    pins = {}
+    for name, ((kern, plain, key, rung), rows) in second.items():
+        st, outs = precision_states(rng, dev, c)[key], []
+
+        def kept(s, x, kern=kern):
+            out = kern(s, x)
+            outs.append(out[1])
+            return out
+
+        err = hold(name, kept, plain, (st,),
+                   lambda: make[rung]((rows, c)), blocks=1)
+        errs[name.split()[0]] = max(errs[name.split()[0]], err)
+        if "clamp" in name:
+            pins[name.split()[0]] = pinned(outs[0], CLAMP)
+            if not pins[name.split()[0]] > 0:
+                raise AssertionError(f"{name}: the clamp pinned no output")
+    for name, (kern, _, key, rung) in precision_cases(ba, planes).items():
+        halves(name, kern, (precision_states(rng, dev, c)[key],),
+               make[rung]((T, c)))
+    names = list(precision_cases(ba, planes))
+    log(f"phase 3 K28-K33 {', '.join(names)} == plain on one block (c={c}, "
+        f"t={T}, the suite's inputs, random carried state; plain "
+        f"{', '.join(f'{k} {plain_s[k]:.2f} s' for k in names)}); K31-K33 "
+        f"clamped with {CLAMP} on one block (pinned "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in pins.items())}) and "
+        f"K32/K33 with a shared (5,) set on {T_PREFIX} rows: max |d| "
+        f"{[errs[k] for k in names]}; each over two half-blocks == one "
+        "block, state and output bit for bit")
+
+
+def df1_f64(ba5, xs):
+    """The float64 DF1 of real coefficients ``ba5`` over ``xs`` (t, c),
+    from zero state: the reference the ladder's rungs approximate."""
+    import torch
+    from idsp_tpu_torch.filters import biquad
+
+    x = xs.to(torch.float64)
+    st = biquad.df1_init((x.shape[1],), torch.float64, device=x.device)
+    return biquad.df1_process(torch.tensor(ba5, dtype=torch.float64,
+                                           device=x.device), st, x)[1]
+
+
+def feedback_l1(a1, a2, n=T):
+    """||h||_1 of the feedback 1 / (1 - a1 z^-1 - a2 z^-2): the most an
+    error of 1 injected at every step can add up to in the output."""
+    h = np.zeros(n)
+    h[0] = 1.0
+    for k in range(1, n):
+        h[k] = a1 * h[k - 1] + (a2 * h[k - 2] if k >= 2 else 0.0)
+    return float(np.abs(h).sum())
+
+
+def rung_error(y, ref, ba5, lsb, u_dut, xs):
+    """(max |y - ref| in output units, its bound): a truncating rung
+    injects at most ``lsb`` a step, a rounding one ``u_dut`` of the step's
+    terms, the float64 reference 2^-53 of them (its input, coefficients,
+    five products and four sums: 12 roundings at most), each carried on by
+    the feedback's ||h||_1."""
+    err = float((y.double() - ref).abs().max())
+    s = (float(np.abs(ba5[:3]).sum()) * float(xs.double().abs().max())
+         + float(np.abs(ba5[3:]).sum()) * float(ref.abs().max()))
+    bound = feedback_l1(ba5[3], ba5[4]) * (lsb + 12 * (2.0**-53 + u_dut) * s)
+    return err, bound
+
+
+def precision_main_path(dev, rng, wrappers):
+    """Phase 4 for the precision ladder at c = C_PREC lanes, t = T, over
+    BLOCKS blocks from zero state, through the port's entry points with
+    the suite's inputs: K28 Q16<13>, K29 Q64<61>, K30 f32, K31 Q29 dither
+    unclamped and clamped with the suite's row WIDE_CLAMP ("q32 dither",
+    "q32 clamp+dither", suite.py:319-372), K32 and K33 with per-lane
+    planes; the launch counts read, then K32/K33 once with the shared (5,)
+    set (== K25 / K31, their static twins, on every word), a check whose
+    launches are not counted.  Checks: outputs of the expected dtype and
+    shape, f32 finite; each rung against the float64 DF1 of its own
+    coefficients on the first T_PREFIX rows of block 0, within the bound of
+    `rung_error`.  Returns the launch counts of the run."""
+    import torch
+    from idsp_tpu_torch.filters import biquad
+    from idsp_tpu_torch.filters import biquad_cuda as bc
+
+    c = C_PREC
+    ba, make, planes = precision_setup(rng, dev)
+    xb = {k: [m((T, c)) for _ in range(BLOCKS)] for k, m in make.items()}
+    init = {
+        "q16": lambda: biquad.df1_init((c,), torch.int16, device=dev),
+        "q64": lambda: biquad.df1_init((c,), torch.int64, device=dev),
+        "f32": lambda: biquad.df1_init((c,), torch.float32, device=dev),
+        "dither": lambda: biquad.df1_dither_init((c,), device=dev),
+        "wide": lambda: biquad.df1_wide_init((c,), device=dev),
+    }
+    legs = {**precision_cases(ba, planes),
+            "df1_dither_bank (clamped)": precision_cases(
+                ba, planes, WIDE_CLAMP)["df1_dither_bank"]}
+    reset(wrappers)
+    runs = {}
+    for name, (kern, _, key, rung) in legs.items():
+        st, outs = init[key](), []
+        for x in xb[rung]:
+            st, y = kern(st, x)
+            outs.append(y)
+        runs[name] = outs
+    shared = precision_cases(ba, planes, shared=True)
+    twins = {
+        "df1_wide_bank_coef": lambda s, x: bc.df1_wide_bank(ba["q29"], s, x,
+                                                            29),
+        "df1_dither_bank_coef": lambda s, x: bc.df1_dither_bank(ba["q29"], s,
+                                                                x, 29)}
+    torch.cuda.synchronize()
+    counts = launch_counts(wrappers)
+    for name, twin in twins.items():
+        kern, _, key, rung = shared[name]
+        compare(f"{name} (shared (5,)) vs its static twin",
+                kern(init[key](), xb[rung][0]), twin(init[key](), xb[rung][0]))
+    log(f"phase 4 main path: the precision ladder (Q16<13>, Q64<61>, f32, "
+        f"Q29 dither unclamped and clamped {WIDE_CLAMP}, K32/K33 per-lane) x "
+        f"{BLOCKS} blocks at c={c}, t={T}; launches {counts}; then K32/K33 "
+        "with a shared (5,) set == K25 / K31 on one block")
+    want = {"df1_bank_q16": torch.int16, "df1_bank_q64": torch.int64,
+            "df1_bank_f32": torch.float32}
+    for name, outs in runs.items():
+        dt = want.get(name.split()[0], torch.int32)
+        for y in outs:
+            if y.dtype != dt or tuple(y.shape) != (T, c):
+                raise AssertionError(f"{name}: output {y.dtype}"
+                                     f"{tuple(y.shape)}")
+        if dt == torch.float32 and not bool(torch.isfinite(
+                torch.stack(outs)).all()):
+            raise AssertionError(f"{name}: non-finite output")
+    # each rung against the float64 DF1 of its own coefficients
+    scaled = {"df1_bank_q16": (ba["q16"].astype(np.float64) / 2.0**13, 1.0,
+                               0.0, "q16"),
+              "df1_bank_q64": (ba["q64"].astype(np.float64) / 2.0**61, 1.0,
+                               0.0, "q64"),
+              "df1_bank_f32": (ba["f32"].astype(np.float64), 0.0, 2.0**-24,
+                               "f32"),
+              "df1_dither_bank": (ba["q29"].astype(np.float64) / 2.0**29, 1.0,
+                                  0.0, "q29")}
+    ref_errs = {}
+    for name, (ba5, lsb, u_dut, rung) in scaled.items():
+        xs = xb[rung][0][:T_PREFIX]
+        ref = df1_f64(ba5, xs)
+        err, bound = rung_error(runs[name][0][:T_PREFIX], ref, ba5, lsb,
+                                u_dut, xs)
+        if not err <= bound:
+            raise AssertionError(f"{name}: max |y - float64 DF1| {err} > "
+                                 f"{bound}")
+        ref_errs[name] = (err, bound)
+    log("phase 4 precision ladder vs the float64 DF1 of each rung's "
+        f"coefficients, first {T_PREFIX} rows of block 0 (max |d| in output "
+        "units <= bound): " + ", ".join(
+            f"{k} {e:.6g} <= {b:.6g}" for k, (e, b) in ref_errs.items())
+        + f"; the suite's clamp {WIDE_CLAMP} pinned "
+        f"{pinned(torch.stack(runs['df1_dither_bank (clamped)']), WIDE_CLAMP):.4f}"
+        " of the clamped dither outputs")
+    return counts
+
+
+def time_precision(dev, rng, card, timings, plain_s):
+    """Phase 6 for K28-K33 at c = C_PREC, t = T, the suite's inputs: each
+    kernel (K31 unclamped, K32/K33 per-lane) beside its plain version
+    (timed in phase 3); K31 clamped with the suite's row, and K32/K33 with
+    the shared (5,) set, on the log only."""
+    from idsp_tpu_torch.profiling import measure_rate
+
+    c = C_PREC
+    ba, make, planes = precision_setup(rng, dev)
+    states = precision_states(rng, dev, c)
+    x = {k: make[k]((T, c)) for k in make}
+    for name, (kern, _, key, rung) in precision_cases(ba, planes).items():
+        k_s, _ = measure_rate(kern, states[key], x[rung], iters=20, trials=3)
+        timings["kernels"][name] = {c: {"ms": k_s * 1e3,
+                                        "plain_ms": plain_s[name] * 1e3}}
+        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
+            f"{plain_s[name] * 1e3:.2f} ms (phase 3)  [{card}]")
+    extra = {"df1_dither_bank (clamped)": precision_cases(
+        ba, planes, WIDE_CLAMP)["df1_dither_bank"]}
+    extra.update({f"{k} (shared (5,))": v for k, v in precision_cases(
+        ba, planes, shared=True).items() if "coef" in k})
+    for name, (kern, _, key, rung) in extra.items():
+        k_s, _ = measure_rate(kern, states[key], x[rung], iters=20, trials=3)
+        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms  [{card}]")
+
+
 def main():
     wall0 = time.perf_counter()
     import torch
@@ -2201,9 +2551,11 @@ def main():
     from idsp_tpu_torch.design import Filter
     from idsp_tpu_torch.filters import biquad
     from idsp_tpu_torch.filters.biquad_cuda import (
-        df1_bank_q, df1_bank_q_coef, df1_bank_q_dec, df1_bank_q_dec_plain,
+        df1_bank_f32, df1_bank_q, df1_bank_q16, df1_bank_q64,
+        df1_bank_q_coef, df1_bank_q_dec, df1_bank_q_dec_plain,
         df1_bank_q_plain, df1_clamp_bank_q, df1_clamp_bank_q_coef,
-        df1_wide_bank, sos_bank_q,
+        df1_dither_bank, df1_dither_bank_coef, df1_wide_bank,
+        df1_wide_bank_coef, sos_bank_q,
     )
     from idsp_tpu_torch.filters.ddc_cuda import (
         ddc_mix_df1_bank, ddc_mix_df1_bank_plain,
@@ -2381,6 +2733,7 @@ def main():
     check_slice5_kernels(dev, rng, errs)
     check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank)
     check_control_kernels(dev, i32, i64, errs, plain_s)
+    check_precision_kernels(dev, rng, errs, plain_s)
 
     # ---- phase 4: the main path ---------------------------------------
     steps_np = rng.integers(1 << 24, 1 << 30, size=(C_WIDE,)).astype(np.int32)
@@ -2406,7 +2759,9 @@ def main():
                 ddc_lockin_bank, channelize_fused, df1_clamp_bank_q,
                 df1_clamp_hbf_cascade_bank, df1_hbf1_bank, df1_hbf12_bank,
                 hbf_dec_cascade_mxu, hbf_int_cascade_mxu, sos_bank_q,
-                df1_wide_bank, df1_bank_q_coef, df1_clamp_bank_q_coef)
+                df1_wide_bank, df1_bank_q_coef, df1_clamp_bank_q_coef,
+                df1_bank_q16, df1_bank_q64, df1_bank_f32, df1_dither_bank,
+                df1_wide_bank_coef, df1_dither_bank_coef)
     chain_kernels = ("df1_bank_q", "df1_hbf_cascade_bank",
                      "fastlo_ddc_cascade_bank", "ddc_mix_df1_bank",
                      "df1_hbf1_bank", "df1_hbf12_bank")
@@ -2422,6 +2777,9 @@ def main():
                     "hbf_int_cascade_mxu")
     control_kernels = ("sos_bank_q", "df1_wide_bank", "df1_bank_q_coef",
                        "df1_clamp_bank_q_coef")
+    precision_kernels = ("df1_bank_q16", "df1_bank_q64", "df1_bank_f32",
+                         "df1_dither_bank", "df1_wide_bank_coef",
+                         "df1_dither_bank_coef")
     # BASELINE #1-#3: each kernel's width in the kernels line (K17: frames)
     slice5_c = {"fm_disc_bank": C_FM, "ddc_lockin_bank": C_LOCKIN,
                 "channelize_fused": N_CH[-1]}
@@ -2581,6 +2939,11 @@ def main():
     # ---- phase 4 (control): compat.sos, sos_clamp_wide, config bank ---
     counts = control_main_path(dev, i32, wrappers)
     for k in control_kernels:
+        launches[k] = counts[k]
+
+    # ---- phase 4 (precision ladder): Q16, Q64, f32, dither, _coef -----
+    counts = precision_main_path(dev, rng, wrappers)
+    for k in precision_kernels:
         launches[k] = counts[k]
 
     # ---- phase 5: the main paths went through every kernel ------------
@@ -2775,6 +3138,7 @@ def main():
     time_rate(dev, rng, card, timings)
     time_slice5(dev, rng, card, timings)
     time_control(dev, i32, card, timings, plain_s)
+    time_precision(dev, rng, card, timings, plain_s)
     print(json.dumps({"timings": timings}), flush=True)
 
     sources = {
@@ -2837,6 +3201,18 @@ def main():
                             "idsp_tpu/filters/biquad_pallas.py:932"),
         "df1_clamp_bank_q_coef": ("idsp_tpu_torch/csrc/df1_bank.cu",
                                   "idsp_tpu/filters/biquad_pallas.py:999"),
+        "df1_bank_q16": ("idsp_tpu_torch/csrc/biquad_precision.cu",
+                         "idsp_tpu/filters/biquad_pallas.py:1352"),
+        "df1_bank_q64": ("idsp_tpu_torch/csrc/biquad_precision.cu",
+                         "idsp_tpu/filters/biquad_pallas.py:1250"),
+        "df1_bank_f32": ("idsp_tpu_torch/csrc/biquad_precision.cu",
+                         "idsp_tpu/filters/biquad_pallas.py:98"),
+        "df1_dither_bank": ("idsp_tpu_torch/csrc/biquad_precision.cu",
+                            "idsp_tpu/filters/biquad_pallas.py:872"),
+        "df1_wide_bank_coef": ("idsp_tpu_torch/csrc/biquad_bank.cu",
+                               "idsp_tpu/filters/biquad_pallas.py:1053"),
+        "df1_dither_bank_coef": ("idsp_tpu_torch/csrc/biquad_precision.cu",
+                                 "idsp_tpu/filters/biquad_pallas.py:1104"),
     }
     sm_mhz = sm_clock_mhz()
     kernels = []
@@ -2844,6 +3220,7 @@ def main():
         c = (C_MAIN if name in chain_kernels + clamp_kernels[:3] else
              C_BANK if name in bank_kernels + biquad_kernels
              + clamp_kernels[3:] else C_CTL if name in control_kernels
+             else C_PREC if name in precision_kernels
              else slice5_c.get(name, C_RATE))
         timed = timings["kernels"][name][c]
         bound_ms, bound_by, _ = bounds(name, c, sm_mhz)

@@ -33,7 +33,12 @@ public layouts:
   `df1_wide_bank`), the coefficient design and control plane (`design`:
   cookbook `Filter`, `WebAudio`, `Pid`, `BiquadConfig`) and the
   runtime-coefficient DF1 banks (K26 `df1_bank_q_coef`, K27
-  `df1_clamp_bank_q_coef`) that apply a retune without rebuilding.
+  `df1_clamp_bank_q_coef`) that apply a retune without rebuilding;
+* the rest of the reference's biquad precision ladder — Q16<13> (K28
+  `df1_bank_q16`), Q64<61> (K29 `df1_bank_q64`, 128-bit sums on
+  `fxp.I128`), f32 (K30 `df1_bank_f32`), the noise-shaping DF1 (K31
+  `df1_dither_bank`) and the runtime-coefficient wide and dither banks
+  (K32 `df1_wide_bank_coef`, K33 `df1_dither_bank_coef`).
 
 Layouts: time-major ``(t, 2c)`` lanes, I in ``[0, c)`` and Q in
 ``[c, 2c)``; ``Df1State.x/.y`` of shape ``(lanes, 2)``;
@@ -50,7 +55,8 @@ kernel wrapper runs its plain PyTorch version for a CPU tensor and
 launches the kernel (or raises) for a CUDA tensor.
 
 Integer semantics: i32 x i32 products and accumulators in int64,
-explicit wrap back to int32 (`fxp.wrap_i32`), truncating ``>> f``.
+explicit wrap back to int32 (`fxp.wrap_i32`), truncating ``>> f``; the
+int16 base sums in 32 bits, the int64 base in 128 (`fxp.I128`).
 
 Importing this package imports torch and numpy only — never jax.
 """
@@ -60,8 +66,10 @@ from .ops import accu, fastlo, trig  # noqa: F401
 from .ops.trig import cossin  # noqa: F401
 from .filters import cic, hbf  # noqa: F401
 from .filters.biquad_cuda import (  # noqa: F401
-    df1_bank_q_coef, df1_bank_q_dec, df1_clamp_bank_q, df1_clamp_bank_q_coef,
-    df1_wide_bank, sos_bank_q,
+    df1_bank_f32, df1_bank_q16, df1_bank_q64, df1_bank_q_coef,
+    df1_bank_q_dec, df1_clamp_bank_q, df1_clamp_bank_q_coef,
+    df1_dither_bank, df1_dither_bank_coef, df1_wide_bank,
+    df1_wide_bank_coef, sos_bank_q,
 )
 from .filters.ddc_bank_cuda import (  # noqa: F401
     fastlo_ddc_bank_block, fastlo_df1_dec_bank,
@@ -90,9 +98,11 @@ __all__ = ["DdcBankBiquad", "DdcBankBiquadState", "DdcLockinBank",
            "FmReceiver", "RoundTrip", "accu", "channelize_fused",
            "channelizer", "cic", "compat", "cossin", "ddc_lockin",
            "ddc_lockin_bank", "ddc_mix_df1_bank", "design",
+           "df1_bank_f32", "df1_bank_q16", "df1_bank_q64",
            "df1_bank_q_coef", "df1_bank_q_dec", "df1_clamp_bank_q",
            "df1_clamp_bank_q_coef", "df1_clamp_hbf_cascade_bank",
-           "df1_hbf12_bank", "df1_hbf1_bank", "df1_wide_bank", "fastlo",
+           "df1_dither_bank", "df1_dither_bank_coef", "df1_hbf12_bank",
+           "df1_hbf1_bank", "df1_wide_bank", "df1_wide_bank_coef", "fastlo",
            "fastlo_ddc_bank_block", "fastlo_df1_dec_bank", "fm_disc",
            "fm_disc_bank", "fxp", "hbf", "hbf_dec_cascade_mxu",
            "hbf_int_cascade_mxu", "init_biquad", "luts",

@@ -6,7 +6,8 @@ shared library with a plain C interface, under ``build/idsp_tpu_torch/``
 at the root of the checkout, keyed by a hash of the sources, the nvcc
 path and version, and torch's CUDA version.  The
 library is loaded with ctypes: pointers and the stream go as
-``c_void_p``, sizes as ``c_int``, f32 coefficients as ``c_float``.
+``c_void_p``, sizes as ``c_int``, f32 coefficients as ``c_float``, int64
+ones as ``c_longlong``.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; `check` raises if that is not 0.
 
@@ -36,6 +37,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures (see the .cu files): pointers, then ints (and floats), then
 # the stream.
 _SIGNATURES = {
@@ -46,6 +48,12 @@ _SIGNATURES = {
     "idsp_df1_clamp_bank_q_coef": [_P] * 7 + [_I] * 6 + [_P],
     "idsp_sos_bank_q": [_P] * 6 + [_I] * 4 + [_P, _P],
     "idsp_df1_wide_bank": [_P] * 6 + [_I] * 12 + [_P],
+    "idsp_df1_wide_bank_coef": [_P] * 7 + [_I] * 7 + [_P],
+    "idsp_df1_bank_q16": [_P] * 6 + [_I] * 8 + [_P],
+    "idsp_df1_bank_q64": [_P] * 6 + [_I] * 3 + [_L] * 5 + [_P],
+    "idsp_df1_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P],
+    "idsp_df1_dither_bank": [_P] * 8 + [_I] * 12 + [_P],
+    "idsp_df1_dither_bank_coef": [_P] * 9 + [_I] * 7 + [_P],
     "idsp_ddc_cascade": [_P] * 13 + [_I] * 14 + [_P, _P, _P],
     "idsp_ddc_mix_df1": [_P] * 8 + [_I] * 9 + [_P],
     "idsp_lowpass_bank": [_P] * 4 + [_I] * 6 + [_P],

@@ -12,7 +12,10 @@ prev_valid, deemph)`` an `FmDiscState`, ``(hist_r, hist_i)`` a
 `PlanesState` and ``(hist,)`` a channelizer `BankState`; ``(x, y)`` with
 an int32 x and an int64 y is a `Df1WideState`, ``(xy, e)`` a
 `Df1DitherState` (its u32 error word crosses as int64 in ``[0, 2**32)``
-and comes back as uint32), ``(s,)`` a `Df2tState`; tuples
+and comes back as uint32), ``(s,)`` a `Df2tState`; an int16 or int64
+``(x, y)`` is a Q16 or Q64 `Df1State`, and an ``I128`` accumulator
+crosses as `fxp.I128` (its uint64 low word held as the int64 bit
+pattern) and comes back as ``(hi int64, lo uint64)``; tuples
 (per-stage tails, cascade states, the ``(df1_state, dec_i, dec_q,
 phase0)`` state of every `chain.DdcChain` mode, e.g. ``fold``'s single
 tail and two-stage cascade) and lists (an SOS cascade's N `Df1State`s)
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from .design.pid import ClampedCoeffs
+from .fxp import I128
 from .filters.biquad import Df1DitherState, Df1State, Df1WideState, Df2tState
 from .filters.biquad_cuda import coef_planes
 from .filters.cic import CicState
@@ -59,6 +63,8 @@ def to_torch(obj, device):
     tensors."""
     if obj is None:
         return None
+    if type(obj).__name__ == "I128":  # (hi int64, lo uint64) limbs
+        return I128(*(to_torch(v, device) for v in obj))
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         cls = _STATES[tuple(obj._fields)]
         if cls is Df1State and _is_wide(obj):
@@ -72,6 +78,8 @@ def to_torch(obj, device):
     a = np.array(obj)
     if a.dtype == np.uint32:  # torch's uint32 has few ops: int64 holds it
         a = a.astype(np.int64)
+    elif a.dtype == np.uint64:  # an I128's low word: its bit pattern
+        a = a.view(np.int64)
     return torch.from_numpy(a).to(device)
 
 
@@ -107,6 +115,8 @@ def to_numpy(obj):
     """Port tensors (in tuples / state NamedTuples) -> numpy arrays."""
     if obj is None:
         return None
+    if isinstance(obj, I128):  # the JAX package's (hi int64, lo uint64)
+        return (to_numpy(obj.hi), to_numpy(obj.lo).view(np.uint64))
     if isinstance(obj, Df1DitherState):
         return Df1DitherState(to_numpy(obj.xy),
                               to_numpy(obj.e).astype(np.uint32))

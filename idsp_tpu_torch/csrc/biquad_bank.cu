@@ -1,11 +1,13 @@
 // K24 and K25: the compat surface's two banks.  K24 runs an N-stage
 // fixed-point SOS cascade (every stage a Q32<f> DF1), K25 the wide-state
-// DF1 (int64 feedback words), optionally clamped.
+// DF1 (int64 feedback words), optionally clamped.  K32 is K25 with
+// runtime coefficients: each lane loads its five words once from (5, c)
+// int32 planes (`df1.cuh` `load_coefs`, as K26/K27 do for K1/K18).
 //
 // Replaces the Pallas kernels of idsp_tpu/filters/biquad_pallas.py
-// `sos_bank_q` (:147, `_sos_bank_q_impl` :176) and `df1_wide_bank` (:796,
-// body `_wide_body` :763), both `_seq_bank_kernel` (:471) run by
-// `_bank_call` (:395, pallas_call :453).  The TPU kernels emulated every
+// `sos_bank_q` (:147, `_sos_bank_q_impl` :176), `df1_wide_bank` (:796,
+// body `_wide_body` :763) and `df1_wide_bank_coef` (:1053), all
+// `_seq_bank_kernel` (:471) run by `_bank_call` (:395, pallas_call :453).  The TPU kernels emulated every
 // 64-bit product, add and shift in 16-bit limbs (`_mac5_q`,
 // `_mul_u32_coef`, `_shl_i64`); Hopper has native int64, so the wide step
 // is `df1_wide_step`'s arithmetic as written (biquad.rs:456-480).
@@ -73,15 +75,17 @@ __global__ void __launch_bounds__(kBankLanes)
     s[n].store(sx_out + n * plane, sy_out + n * plane, lane);
 }
 
-template <bool Clamp>
+template <bool Clamp, bool Planes = false>
 __global__ void __launch_bounds__(kBankLanes)
     df1_wide_kernel(const int32_t* __restrict__ xs, int32_t* __restrict__ ys,
                     const int32_t* __restrict__ sx,
                     const int64_t* __restrict__ sy,
                     int32_t* __restrict__ sx_out, int64_t* __restrict__ sy_out,
-                    int t, int c, idsp::Df1Coefs k, idsp::Df1Clamp cl) {
+                    int t, int c, idsp::Df1Coefs k, idsp::Df1Clamp cl,
+                    const int32_t* __restrict__ planes = nullptr) {
   const int lane = blockIdx.x * kBankLanes + threadIdx.x;
   if (lane >= c) return;
+  if constexpr (Planes) k = idsp::load_coefs(planes, c, lane, k.f);
   idsp::Df1WideLane s;
   s.load(sx, sy, lane);
   idsp::seq_bank<false>(
@@ -104,6 +108,32 @@ void launch_sos(const dim3& grid, cudaStream_t st, const int32_t* xs,
                 const SosCoefs& ba) {
   sos_bank_kernel<N><<<grid, kBankLanes, 0, st>>>(xs, ys, sx, sy, sx_out,
                                                   sy_out, t, c, f, ba);
+}
+
+// K25 (Planes false) and K32, clamped or not; 0 < f <= 32.
+template <bool Planes>
+int launch_wide(const void* xs, void* ys, const void* sx, const void* sy,
+                void* sx_out, void* sy_out, const void* planes, int t, int c,
+                const idsp::Df1Coefs& k, int clamp, const idsp::Df1Clamp& cl,
+                void* stream) {
+  if (k.f <= 0 || k.f > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((c + kBankLanes - 1) / kBankLanes);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto x = static_cast<const int32_t*>(xs);
+  auto y = static_cast<int32_t*>(ys);
+  auto ix = static_cast<const int32_t*>(sx);
+  auto iy = static_cast<const int64_t*>(sy);
+  auto ox = static_cast<int32_t*>(sx_out);
+  auto oy = static_cast<int64_t*>(sy_out);
+  auto p = static_cast<const int32_t*>(planes);
+  if (clamp) {
+    df1_wide_kernel<true, Planes><<<grid, kBankLanes, 0, st>>>(
+        x, y, ix, iy, ox, oy, t, c, k, cl, p);
+  } else {
+    df1_wide_kernel<false, Planes><<<grid, kBankLanes, 0, st>>>(
+        x, y, ix, iy, ox, oy, t, c, k, cl, p);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -147,23 +177,19 @@ extern "C" int idsp_df1_wide_bank(const void* xs, void* ys, const void* sx,
                                   int t, int c, int f, int b0, int b1, int b2,
                                   int a1, int a2, int clamp, int u, int lo,
                                   int hi, void* stream) {
-  if (f <= 0 || f > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((c + kBankLanes - 1) / kBankLanes);
-  auto st = static_cast<cudaStream_t>(stream);
-  const idsp::Df1Coefs k{b0, b1, b2, a1, a2, f};
-  const idsp::Df1Clamp cl{u, lo, hi};
-  auto x = static_cast<const int32_t*>(xs);
-  auto y = static_cast<int32_t*>(ys);
-  auto ix = static_cast<const int32_t*>(sx);
-  auto iy = static_cast<const int64_t*>(sy);
-  auto ox = static_cast<int32_t*>(sx_out);
-  auto oy = static_cast<int64_t*>(sy_out);
-  if (clamp) {
-    df1_wide_kernel<true><<<grid, kBankLanes, 0, st>>>(x, y, ix, iy, ox, oy,
-                                                       t, c, k, cl);
-  } else {
-    df1_wide_kernel<false><<<grid, kBankLanes, 0, st>>>(x, y, ix, iy, ox, oy,
-                                                        t, c, k, cl);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_wide<false>(xs, ys, sx, sy, sx_out, sy_out, nullptr, t, c,
+                            idsp::Df1Coefs{b0, b1, b2, a1, a2, f}, clamp,
+                            idsp::Df1Clamp{u, lo, hi}, stream);
+}
+
+// K32: K25 with each lane's coefficients from (5, c) i32 planes.
+extern "C" int idsp_df1_wide_bank_coef(const void* xs, void* ys,
+                                       const void* sx, const void* sy,
+                                       void* sx_out, void* sy_out,
+                                       const void* planes, int t, int c,
+                                       int f, int clamp, int u, int lo,
+                                       int hi, void* stream) {
+  return launch_wide<true>(xs, ys, sx, sy, sx_out, sy_out, planes, t, c,
+                           idsp::Df1Coefs{0, 0, 0, 0, 0, f}, clamp,
+                           idsp::Df1Clamp{u, lo, hi}, stream);
 }

@@ -16,6 +16,12 @@
 // split-word a*y, the sum shifted left by 32 - f, the output its high
 // word; bit-identical to `df1_wide_process`.
 //
+// The other rungs of the reference's precision ladder: Q16 (`Df1LaneQ16`,
+// int16 storage, 32-bit sums), Q64 (`Df1LaneQ64`, int64 storage, 128-bit
+// sums) and the error-feedback DF1 (`Df1DitherLane`), each bit-identical
+// to its plain scan (`df1_process_q` at int16, `df1_process_q64`,
+// `df1_dither_process`).
+//
 // The f32 step (`Df1LaneF32`) has no shift; each product and each sum is
 // a single-rounding intrinsic, left to right, so nvcc cannot contract
 // them into FMAs: bit-identical to the plain `df1_process`.
@@ -178,6 +184,164 @@ struct Df1WideLane {
     push(x0, (static_cast<uint64_t>(static_cast<uint32_t>(y0)) << 32) |
                  (w & 0xFFFFFFFFull));
     return y0;
+  }
+};
+
+// The reference's Q16 (`Q<i16, i32, f>`, tests/embedded/README.md:62):
+// int16 taps, each product and the five-term sum in 32 bits, wrapping
+// (formed in uint32), the arithmetic >> f, the low 16 bits.  The
+// coefficients ride in Df1Coefs' int32 words.
+struct Df1LaneQ16 {
+  int16_t x1, x2, y1, y2;
+
+  __device__ __forceinline__ void load(const int16_t* sx, const int16_t* sy,
+                                       int lane) {
+    x1 = sx[2 * lane];
+    x2 = sx[2 * lane + 1];
+    y1 = sy[2 * lane];
+    y2 = sy[2 * lane + 1];
+  }
+
+  __device__ __forceinline__ void store(int16_t* sx, int16_t* sy,
+                                        int lane) const {
+    sx[2 * lane] = x1;
+    sx[2 * lane + 1] = x2;
+    sy[2 * lane] = y1;
+    sy[2 * lane + 1] = y2;
+  }
+
+  static __device__ __forceinline__ uint32_t mul(int32_t a, int16_t v) {
+    return static_cast<uint32_t>(a) *
+           static_cast<uint32_t>(static_cast<int32_t>(v));
+  }
+
+  __device__ __forceinline__ int16_t step(const Df1Coefs& k, int16_t x0) {
+    const uint32_t acc = mul(k.b0, x0) + mul(k.b1, x1) + mul(k.b2, x2) +
+                         mul(k.a1, y1) + mul(k.a2, y2);
+    const int16_t y0 = static_cast<int16_t>(static_cast<uint16_t>(
+        static_cast<uint32_t>(static_cast<int32_t>(acc) >> k.f)));
+    x2 = x1;
+    x1 = x0;
+    y2 = y1;
+    y1 = y0;
+    return y0;
+  }
+};
+
+// The reference's Q64 (`Q<i64, i128, f>`, dsp-fixedpoint/src/lib.rs:
+// 473-492): int64 taps and coefficients, each product the full 128-bit
+// one (the low word a plain multiply, the high word `__mul64hi`), the
+// five summed in two uint64 words with the carry, wrapping mod 2^128; the
+// output is the low 64 bits of the arithmetic >> f, 0 < f < 64.
+struct Df1CoefsQ64 {
+  int64_t b0, b1, b2, a1, a2;
+  int f;
+};
+
+struct Df1LaneQ64 {
+  int64_t x1, x2, y1, y2;
+
+  __device__ __forceinline__ void load(const int64_t* sx, const int64_t* sy,
+                                       int lane) {
+    x1 = sx[2 * lane];
+    x2 = sx[2 * lane + 1];
+    y1 = sy[2 * lane];
+    y2 = sy[2 * lane + 1];
+  }
+
+  __device__ __forceinline__ void store(int64_t* sx, int64_t* sy,
+                                        int lane) const {
+    sx[2 * lane] = x1;
+    sx[2 * lane + 1] = x2;
+    sy[2 * lane] = y1;
+    sy[2 * lane + 1] = y2;
+  }
+
+  // (hi:lo) += a * v, the signed 128-bit product
+  static __device__ __forceinline__ void mac(uint64_t& hi, uint64_t& lo,
+                                             int64_t a, int64_t v) {
+    const uint64_t plo = static_cast<uint64_t>(a) * static_cast<uint64_t>(v);
+    const uint64_t phi = static_cast<uint64_t>(
+        __mul64hi(static_cast<long long>(a), static_cast<long long>(v)));
+    lo += plo;
+    hi += phi + (lo < plo ? 1u : 0u);
+  }
+
+  __device__ __forceinline__ int64_t step(const Df1CoefsQ64& k, int64_t x0) {
+    uint64_t hi = 0, lo = 0;
+    mac(hi, lo, k.b0, x0);
+    mac(hi, lo, k.b1, x1);
+    mac(hi, lo, k.b2, x2);
+    mac(hi, lo, k.a1, y1);
+    mac(hi, lo, k.a2, y2);
+    const int64_t y0 =
+        static_cast<int64_t>((lo >> k.f) | (hi << (64 - k.f)));
+    x2 = x1;
+    x1 = x0;
+    y2 = y1;
+    y1 = y0;
+    return y0;
+  }
+};
+
+// The error-feedback DF1 (biquad.rs:511-538): e, the truncated fraction
+// of the previous step, joins the int64 sum; the sum is shifted left by
+// 32 - f (wrapping, formed in uint64), the output is its high word and
+// the next e its low word >> (32 - f).  The clamped step clamps the
+// output, which is fed back; e keeps the unclamped fraction.
+struct Df1DitherLane {
+  int32_t x1, x2, y1, y2;
+  uint32_t e;
+
+  // state rows as in Df1DitherState: xy.x, xy.y (lanes, 2) i32; e (lanes,)
+  // the u32 error word held in int64
+  __device__ __forceinline__ void load(const int32_t* sx, const int32_t* sy,
+                                       const int64_t* se, int lane) {
+    x1 = sx[2 * lane];
+    x2 = sx[2 * lane + 1];
+    y1 = sy[2 * lane];
+    y2 = sy[2 * lane + 1];
+    e = static_cast<uint32_t>(se[lane]);
+  }
+
+  __device__ __forceinline__ void store(int32_t* sx, int32_t* sy,
+                                        int64_t* se, int lane) const {
+    sx[2 * lane] = x1;
+    sx[2 * lane + 1] = x2;
+    sy[2 * lane] = y1;
+    sy[2 * lane + 1] = y2;
+    se[lane] = static_cast<int64_t>(e);
+  }
+
+  // the high word of the shifted sum; e moves to the new fraction
+  __device__ __forceinline__ int32_t output(const Df1Coefs& k, int32_t x0) {
+    uint64_t acc = static_cast<uint64_t>(e) +
+                   static_cast<uint64_t>(int64_t{k.b0} * x0) +
+                   static_cast<uint64_t>(int64_t{k.b1} * x1) +
+                   static_cast<uint64_t>(int64_t{k.b2} * x2) +
+                   static_cast<uint64_t>(int64_t{k.a1} * y1) +
+                   static_cast<uint64_t>(int64_t{k.a2} * y2);
+    acc <<= 32 - k.f;
+    e = static_cast<uint32_t>(acc) >> (32 - k.f);
+    return static_cast<int32_t>(static_cast<uint32_t>(acc >> 32));
+  }
+
+  __device__ __forceinline__ int32_t push(int32_t x0, int32_t y0) {
+    x2 = x1;
+    x1 = x0;
+    y2 = y1;
+    y1 = y0;
+    return y0;
+  }
+
+  __device__ __forceinline__ int32_t step(const Df1Coefs& k, int32_t x0) {
+    return push(x0, output(k, x0));
+  }
+
+  __device__ __forceinline__ int32_t step_clamp(const Df1Coefs& k,
+                                                const Df1Clamp& cl,
+                                                int32_t x0) {
+    return push(x0, cl(output(k, x0)));
   }
 };
 

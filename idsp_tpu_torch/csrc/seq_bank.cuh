@@ -9,7 +9,8 @@
 //
 // `seq_rows` loads the next kBankGroup rows while the current group
 // computes, so global-load latency stays off the serial chain of the
-// recurrence.  `seq_bank` applies it to a time-major (t, c) i32 input,
+// recurrence.  `seq_bank` applies it to a time-major (t, c) input of
+// int16, int32, int64 or float rows (the row type a template argument),
 // with an optional keep-1-in-dec output (rows 0, dec, 2*dec, ...; the
 // state still carries the full-rate recurrence), as the TPU kernel's
 // `dec` epilogue did.
@@ -17,6 +18,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace idsp {
 
@@ -59,19 +61,31 @@ struct Keep {
   }
 };
 
-// One lane of a bank over xs (t, c) i32, time-major: y = step(x) for
-// every row; put(k, y) stores the k-th output row's value (flat index
-// k * c + lane), for every row, or with Decimate for rows 0, dec, ...
-template <bool Decimate, class Step, class Put>
-__device__ __forceinline__ void seq_bank(const int32_t* __restrict__ xs,
-                                         int t, int c, int lane, int dec,
-                                         Step step, Put put) {
-  const int32_t* xp = xs + lane;
-  auto load = [&](int i) { return __ldg(xp + static_cast<size_t>(i) * c); };
+// One read-only global load of a row element: int16, int32, float and,
+// through long long, the 64-bit integers.
+template <class T>
+__device__ __forceinline__ T ldg(const T* p) {
+  if constexpr (std::is_integral_v<T> && sizeof(T) == 8) {
+    return static_cast<T>(__ldg(reinterpret_cast<const long long*>(p)));
+  } else {
+    return __ldg(p);
+  }
+}
+
+// One lane of a bank over xs (t, c) of T (int16, int32, int64 or float),
+// time-major: y = step(x) for every row; put(k, y) stores the k-th
+// output row's value (flat index k * c + lane), for every row, or with
+// Decimate for rows 0, dec, ...
+template <bool Decimate, class T, class Step, class Put>
+__device__ __forceinline__ void seq_bank(const T* __restrict__ xs, int t,
+                                         int c, int lane, int dec, Step step,
+                                         Put put) {
+  const T* xp = xs + lane;
+  auto load = [&](int i) { return ldg(xp + static_cast<size_t>(i) * c); };
   if constexpr (Decimate) {
     Keep keep(dec);
     size_t out = lane;
-    seq_rows(t, load, [&](int, int32_t x) {
+    seq_rows(t, load, [&](int, T x) {
       const auto y = step(x);
       if (keep.next()) {
         put(out, y);
@@ -79,7 +93,7 @@ __device__ __forceinline__ void seq_bank(const int32_t* __restrict__ xs,
       }
     });
   } else {
-    seq_rows(t, load, [&](int i, int32_t x) {
+    seq_rows(t, load, [&](int i, T x) {
       put(static_cast<size_t>(i) * c + lane, step(x));
     });
   }

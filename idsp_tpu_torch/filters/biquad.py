@@ -22,10 +22,16 @@ path's arithmetic is that of the step-by-step scan.
 The rest of the reference's biquad architectures (biquad.rs:258-538):
 the float DF2T (`df2t_step`), the wide-state DF1 with int64 feedback
 (`df1_wide_step`, the split-word ``a * y``), the error-feedback DF1
-(`df1_dither_step`; its u32 error word is held as int64 in
-``[0, 2**32)``), each with its clamp step; the interleaved cascade
-(`cascade_step`, `cascade_step_q`); and the float block path
-`df1_block_float` (the feedback as an affine prefix scan).
+(`df1_dither_step`, scanned by `df1_dither_process`; its u32 error word
+is held as int64 in ``[0, 2**32)``), each with its clamp step; the
+interleaved cascade (`cascade_step`, `cascade_step_q`); and the float
+block path `df1_block_float` (the feedback as an affine prefix scan).
+
+The other storage types of the reference's precision ladder
+(``dtype=`` of `df1_step_q` and `cascade_step_q`): Q16, int16 storage
+with the sum wrapping in int32 (`df1_process_q(dtype=int16)`), and
+Q64, int64 storage with the 128-bit sum of `fxp.I128` (`df1_step_q64`,
+`df1_process_q64`).
 """
 
 from __future__ import annotations
@@ -55,10 +61,11 @@ def from_cookbook(ba: np.ndarray) -> np.ndarray:
     )
 
 
-def quantize_ba(ba5: np.ndarray, f: int) -> np.ndarray:
-    """Quantize normalized float coefficients to int32 Q<f> bits
-    (round-half-away encode, num_traits_impl.rs:30-45)."""
-    return fxp.from_float(ba5, f, dtype=np.int32)
+def quantize_ba(ba5: np.ndarray, f: int, *, dtype=np.int32) -> np.ndarray:
+    """Quantize normalized float coefficients to Q<f> bits of ``dtype``
+    (int16, int32 or int64; round-half-away encode, saturating,
+    num_traits_impl.rs:30-45)."""
+    return fxp.from_float(ba5, f, dtype=dtype)
 
 
 class Df1State(NamedTuple):
@@ -178,16 +185,29 @@ def df1_process(ba, state: Df1State, xs):
                     y=torch.stack([y1, y2], dim=-1)), ys
 
 
-def df1_step_q(ba, f: int, state: Df1State, x0):
+def _acc_wide(coefs, taps, dtype):
+    """The five DF1 products of ``coefs`` and ``taps`` summed in the
+    accumulator of ``dtype``: an int64 sum for int8-int32 (exact for
+    int8/int16, whose quantize wraps it to the accumulator's width), an
+    `fxp.I128` for int64."""
+    if dtype == torch.int64:
+        return sum(fxp.mul_wide(c, v, dtype=torch.int64)
+                   for c, v in zip(coefs, taps))
+    return sum(c * v.to(torch.int64) for c, v in zip(coefs, taps))
+
+
+def df1_step_q(ba, f: int, state: Df1State, x0, *, dtype=torch.int32):
     """One fixed-point DF1 step: 5 wide MACs, one truncating shift
-    (biquad.rs:366-383).  ``ba`` is (5,) or (..., 5) per lane.  Returns
-    (state, y0)."""
-    b0, b1, b2, a1, a2 = _coefs(ba, x0.device)
-    x1, x2 = state.x[..., 0].to(torch.int64), state.x[..., 1].to(torch.int64)
-    y1, y2 = state.y[..., 0].to(torch.int64), state.y[..., 1].to(torch.int64)
-    acc = (b0 * x0.to(torch.int64) + b1 * x1 + b2 * x2
-           + a1 * y1 + a2 * y2)
-    y0 = fxp.quantize(acc, f)
+    (biquad.rs:366-383 with ``Q<T, A, f>`` coefficients).  ``ba`` is (5,)
+    or (..., 5) per lane.  ``dtype`` is the storage type: int32 (int64
+    sums), int16 (i16 x i16 products, the sum wrapping in int32, the
+    shifted result wrapped to int16; the reference's Q16) or int64 (the
+    128-bit `fxp.I128` sum; Q64).  Returns (state, y0)."""
+    dtype = fxp.as_dtype(dtype)
+    acc = _acc_wide(_coefs(ba, x0.device),
+                    (x0, state.x[..., 0], state.x[..., 1],
+                     state.y[..., 0], state.y[..., 1]), dtype)
+    y0 = fxp.quantize(acc, f, dtype=dtype)
     return (
         Df1State(
             x=torch.stack([x0, state.x[..., 0]], dim=-1),
@@ -235,8 +255,17 @@ def df1_clamp_process_q(ba, f: int, state: Df1State, xs, *, u: int = 0,
     return df1_process_q(ba, f, state, xs, clamp=clamp_params(u, lo, hi))
 
 
-def df1_process_q(ba, f: int, state: Df1State, xs, *, clamp=None):
-    """Scan `df1_step_q` over time axis 0 of ``xs`` (..., int32).
+def _feed_forward(b0, b1, b2, sx, xs):
+    """``(xw, ff)``: the inputs behind the x taps, ``xw`` (t + 2, ...) int64,
+    and ``b0*x0 + b1*x1 + b2*x2`` of every row, int64 (wrapping)."""
+    xw = torch.cat([sx[..., 1][None], sx[..., 0][None], xs],
+                   dim=0).to(torch.int64)
+    return xw, b0 * xw[2:] + b1 * xw[1:-1] + b2 * xw[:-2]
+
+
+def df1_process_q(ba, f: int, state: Df1State, xs, *, clamp=None,
+                  dtype=torch.int32):
+    """Scan `df1_step_q` over time axis 0 of ``xs`` (..., ``dtype``).
 
     The feed-forward part ``b0*x0 + b1*x1 + b2*x2`` of every step is
     formed for the whole block at once; only the feedback ``a1*y1 +
@@ -245,22 +274,30 @@ def df1_process_q(ba, f: int, state: Df1State, xs, *, clamp=None):
     the step-by-step scan.  ``ba`` is (5,) shared or (..., 5), one set per
     lane.  With ``clamp = (u, lo, hi)`` each output is `clamp_step`'s
     ``clip(y0 + u, lo, hi)`` (int32 ``+ u`` wrapping) before it is fed
-    back.  Returns (state, ys) with ys like xs.
+    back.  ``dtype`` is the storage type, int32 or int16 (the reference's
+    Q16, ``Q<i16, i32, f>``: each sum wrapped to int32 before the shift,
+    the output wrapped to int16; no clamp).  Returns (state, ys) with ys
+    like xs.
     """
+    dtype = fxp.as_dtype(dtype)
+    if dtype not in (torch.int32, torch.int16):
+        raise ValueError(f"df1_process_q stores int32 or int16, not {dtype}")
+    if clamp is not None and dtype != torch.int32:
+        raise ValueError("the clamp is for int32 storage")
     b0, b1, b2, a1, a2 = _coefs(ba, xs.device)
     if clamp is not None:
         u, lo, hi = clamp_params(*clamp)
     t = xs.shape[0]
-    xw = torch.cat(
-        [state.x[..., 1][None], state.x[..., 0][None], xs], dim=0
-    ).to(torch.int64)
-    ff = b0 * xw[2:] + b1 * xw[1:-1] + b2 * xw[:-2]
+    xw, ff = _feed_forward(b0, b1, b2, state.x, xs)
     y1 = state.y[..., 0].to(torch.int64)
     y2 = state.y[..., 1].to(torch.int64)
     ys = torch.empty_like(ff)
     for i in range(t):
-        # the int32 output, held sign-extended in int64 for the next MACs
-        if clamp is None:
+        # the output, held sign-extended in int64 for the next MACs
+        if dtype == torch.int16:
+            y0 = fxp.wrap_bits(fxp.wrap32(ff[i] + a1 * y1 + a2 * y2) >> f,
+                               16)
+        elif clamp is None:
             y0 = fxp.wrap32((ff[i] + a1 * y1 + a2 * y2) >> f)
         else:  # wrap32(wrap32(v) + u) == wrap32(v + u): one wrap
             y0 = torch.clamp(fxp.wrap32(((ff[i] + a1 * y1 + a2 * y2) >> f)
@@ -268,10 +305,51 @@ def df1_process_q(ba, f: int, state: Df1State, xs, *, clamp=None):
         ys[i] = y0
         y1, y2 = y0, y1
     new_state = Df1State(
-        x=torch.stack([xw[-1], xw[-2]], dim=-1).to(torch.int32),
-        y=torch.stack([y1, y2], dim=-1).to(torch.int32),
+        x=torch.stack([xw[-1], xw[-2]], dim=-1).to(dtype),
+        y=torch.stack([y1, y2], dim=-1).to(dtype),
     )
-    return new_state, ys.to(torch.int32)
+    return new_state, ys.to(dtype)
+
+
+# --- Q64 (int64 storage, 128-bit accumulator) --------------------------------
+
+
+def df1_step_q64(ba, f: int, state: Df1State, x0):
+    """Q64 DF1 step: int64 storage, the five products summed in 128 bits
+    (`fxp.I128`), the low 64 bits of the truncating ``>> f`` (the
+    reference's ``Q64<61>`` row, tests/embedded/README.md:63, ``Q<i64,
+    i128, F>`` of dsp-fixedpoint/src/lib.rs:473-492).  Returns (state,
+    y0)."""
+    return df1_step_q(ba, f, state, x0, dtype=torch.int64)
+
+
+def df1_process_q64(ba, f: int, state: Df1State, xs):
+    """Scan `df1_step_q64` over time axis 0 of ``xs`` (..., int64).
+
+    The 128-bit feed-forward sums of every row are formed for the block
+    at once; the 128-bit sum wraps mod 2^128, so the split leaves every
+    output bit-identical to the step-by-step scan.  Returns (state, ys
+    int64)."""
+    b0, b1, b2, a1, a2 = _coefs(ba, xs.device)
+    xs = xs.to(torch.int64)
+    xw = torch.cat([state.x[..., 1][None], state.x[..., 0][None], xs],
+                   dim=0).to(torch.int64)
+    ff = (fxp.mul_wide(b0, xw[2:], dtype=torch.int64)
+          + fxp.mul_wide(b1, xw[1:-1], dtype=torch.int64)
+          + fxp.mul_wide(b2, xw[:-2], dtype=torch.int64))
+    y1 = state.y[..., 0].to(torch.int64)
+    y2 = state.y[..., 1].to(torch.int64)
+    ys = torch.empty_like(xs)
+    for i in range(xs.shape[0]):
+        acc = (fxp.I128(ff.hi[i], ff.lo[i])
+               + fxp.mul_wide(a1, y1, dtype=torch.int64)
+               + fxp.mul_wide(a2, y2, dtype=torch.int64))
+        y0 = fxp.quantize(acc, f, dtype=torch.int64)
+        ys[i] = y0
+        y1, y2 = y0, y1
+    new_state = Df1State(x=torch.stack([xw[-1], xw[-2]], dim=-1),
+                         y=torch.stack([y1, y2], dim=-1))
+    return new_state, ys
 
 
 # --- DF2T (float) -----------------------------------------------------------
@@ -375,10 +453,7 @@ def df1_wide_process(ba, f: int, state: Df1WideState, xs, *, clamp=None):
     b0, b1, b2, a1, a2 = _coefs(ba, xs.device)
     if clamp is not None:
         u, lo, hi = clamp_params(*clamp)
-    xw = torch.cat(
-        [state.x[..., 1][None], state.x[..., 0][None], xs], dim=0
-    ).to(torch.int64)
-    ff = b0 * xw[2:] + b1 * xw[1:-1] + b2 * xw[:-2]
+    xw, ff = _feed_forward(b0, b1, b2, state.x, xs)
     y1w, y2w = state.y[..., 0], state.y[..., 1]
     ys = torch.empty_like(ff)
     for i in range(xs.shape[0]):
@@ -444,6 +519,39 @@ def df1_dither_clamp_step(ba, f: int, state: Df1DitherState, x0, u, lo, hi):
     return state._replace(xy=xy), y0
 
 
+def df1_dither_process(ba, f: int, state: Df1DitherState, xs, *,
+                       clamp=None):
+    """Scan `df1_dither_step` (with ``clamp = (u, lo, hi)``:
+    `df1_dither_clamp_step`) over time axis 0 of ``xs`` (..., int32).
+
+    The feed-forward ``b0*x0 + b1*x1 + b2*x2`` of every row is formed for
+    the block at once; the sums wrap in int64, so every output and error
+    word is bit-identical to the step-by-step scan.  ``ba`` is (5,) or
+    (..., 5) per lane.  Returns (state, ys int32)."""
+    check_wide_f(f)
+    b0, b1, b2, a1, a2 = _coefs(ba, xs.device)
+    if clamp is not None:
+        u, lo, hi = clamp_params(*clamp)
+    xw, ff = _feed_forward(b0, b1, b2, state.xy.x, xs)
+    y1 = state.xy.y[..., 0].to(torch.int64)
+    y2 = state.xy.y[..., 1].to(torch.int64)
+    e = state.e
+    ys = torch.empty_like(ff)
+    for i in range(xs.shape[0]):
+        acc = (e + ff[i] + a1 * y1 + a2 * y2) << (32 - f)
+        e = (acc & _LO32) >> (32 - f)
+        y0 = acc >> 32
+        if clamp is not None:
+            y0 = torch.clamp(fxp.wrap32(y0 + u), lo, hi)
+        ys[i] = y0
+        y1, y2 = y0, y1
+    new_state = Df1DitherState(
+        xy=Df1State(x=torch.stack([xw[-1], xw[-2]], dim=-1).to(torch.int32),
+                    y=torch.stack([y1, y2], dim=-1).to(torch.int32)),
+        e=e)
+    return new_state, ys.to(torch.int32)
+
+
 # --- cascades ---------------------------------------------------------------
 
 
@@ -487,16 +595,18 @@ def cascade_step(ba, state: Df1State, x0):
     return _cascade_step(ba, state, x0, out)
 
 
-def cascade_step_q(ba, f: int, state: Df1State, x0):
+def cascade_step_q(ba, f: int, state: Df1State, x0, *, dtype=torch.int32):
     """Fixed-point cascade step (the `sos` path, src/py.rs:51-74 /
     biquad.rs:339-364): each stage quantizes at its summing junction.
-    ``ba``: (n_stages, ..., 5) int32 Q<f>."""
+    ``ba``: (n_stages, ..., 5) Q<f> of the storage ``dtype`` (int16,
+    int32 or int64, as `df1_step_q`)."""
+    dtype = fxp.as_dtype(dtype)
     ba = torch.as_tensor(ba, dtype=torch.int64, device=x0.device)
 
     def out(i, cur, px, y):
         w = (cur, px[..., 0], px[..., 1], y[..., 0], y[..., 1])
-        acc = sum(ba[i, ..., k] * w[k].to(torch.int64) for k in range(5))
-        return fxp.quantize(acc, f)
+        acc = _acc_wide([ba[i, ..., k] for k in range(5)], w, dtype)
+        return fxp.quantize(acc, f, dtype=dtype)
 
     return _cascade_step(ba, state, x0, out)
 

@@ -1,15 +1,22 @@
-"""The fixed-point DF1 biquad banks (port of
-`idsp_tpu.filters.biquad_pallas`): K1 `df1_bank_q`, K11
-`df1_bank_q_dec`, K18 `df1_clamp_bank_q`, K24 `sos_bank_q`, K25
-`df1_wide_bank`, K26 `df1_bank_q_coef` and K27 `df1_clamp_bank_q_coef`.
+"""The DF1 biquad banks (port of `idsp_tpu.filters.biquad_pallas`): K1
+`df1_bank_q`, K11 `df1_bank_q_dec`, K18 `df1_clamp_bank_q`, K24
+`sos_bank_q`, K25 `df1_wide_bank`, K26 `df1_bank_q_coef`, K27
+`df1_clamp_bank_q_coef`, and the rest of the precision ladder: K28
+`df1_bank_q16`, K29 `df1_bank_q64`, K30 `df1_bank_f32`, K31
+`df1_dither_bank`, K32 `df1_wide_bank_coef` and K33
+`df1_dither_bank_coef`.
 
-Each runs its CUDA kernel (``csrc/df1_bank.cu``; K24 and K25
-``csrc/biquad_bank.cu``) for a CUDA tensor and its plain PyTorch version
-(``*_plain``) for a CPU tensor; any other device raises.  K1 and K11 are
-bit-identical to `biquad.df1_process_q` (K11: then ``ys[::d]``), K18 to
+Each runs its CUDA kernel (``csrc/df1_bank.cu``; K24, K25 and K32
+``csrc/biquad_bank.cu``; K28-K31 and K33 ``csrc/biquad_precision.cu``)
+for a CUDA tensor and its plain PyTorch version (``*_plain``) for a CPU
+tensor; any other device raises.  K1 and K11 are bit-identical to
+`biquad.df1_process_q` (K11: then ``ys[::d]``), K18 to
 `biquad.df1_clamp_process_q`, K24 to chaining `df1_process_q` stage by
 stage, K25 to `biquad.df1_wide_process`, K26 and K27 to K1 and K18 with
-one coefficient set per lane.
+one coefficient set per lane, K28 to `biquad.df1_process_q` with
+``dtype=int16``, K29 to `biquad.df1_process_q64`, K30 to
+`biquad.df1_process`, K31 to `biquad.df1_dither_process`, K32 and K33 to
+K25 and K31 with one coefficient set per lane.
 """
 
 from __future__ import annotations
@@ -21,13 +28,17 @@ import torch
 
 from .. import _ext
 from .biquad import (
+    Df1DitherState,
     Df1State,
     Df1WideState,
     _ba_list,
     check_wide_f,
     clamp_params,
     df1_clamp_process_q,
+    df1_dither_process,
+    df1_process,
     df1_process_q,
+    df1_process_q64,
     df1_wide_process,
 )
 
@@ -386,3 +397,278 @@ def df1_clamp_bank_q_coef(ba_planes, state: Df1State, xs, f: int = 29, *,
 
 
 df1_clamp_bank_q_coef.launches = 0  # kernel launches since the last reset
+
+
+# --- K28-K33: the rest of the precision ladder -------------------------------
+
+
+def check_q16_f(f: int) -> None:
+    """Q16 shifts its int32 sum right by f: 0 < f < 32."""
+    if not 0 < f < 32:
+        raise ValueError(f"f must be in (0, 32), got {f}")
+
+
+def check_q64_f(f: int) -> None:
+    """Q64 keeps the low word of its 128-bit sum >> f: 32 < f < 64, the
+    JAX kernel's domain (the reference's row is Q64<61>)."""
+    if not 32 < f < 64:
+        raise ValueError(f"f must be in (32, 64), got {f}")
+
+
+def _check_planes(ba_planes, c: int) -> None:
+    shape = tuple(ba_planes.shape if isinstance(ba_planes, torch.Tensor)
+                  else np.shape(ba_planes))
+    if shape not in ((5,), (5, c)):
+        raise ValueError(f"coefficients must be (5,) or (5, {c}), got "
+                         f"{shape}")
+
+
+def _launch_typed(name, fn, coefs, state, xs, dtype, f=None):
+    """Validate and launch K28 (int16), K29 (int64) or K30 (float32)."""
+    t, c = xs.shape
+    dev = xs.device
+    _ext.require("xs", xs, dev, dtype, (t, c))
+    _ext.require("state.x", state.x, dev, dtype, (c, 2))
+    _ext.require("state.y", state.y, dev, dtype, (c, 2))
+    ys = torch.empty_like(xs)
+    nx, ny = torch.empty_like(state.x), torch.empty_like(state.y)
+    size = (t, c) if f is None else (t, c, f)
+    with torch.cuda.device(dev):
+        err = fn(xs.data_ptr(), ys.data_ptr(), state.x.data_ptr(),
+                 state.y.data_ptr(), nx.data_ptr(), ny.data_ptr(), *size,
+                 *coefs, _ext.stream_ptr(dev))
+    _ext.check(err, name)
+    return Df1State(x=nx, y=ny), ys
+
+
+def df1_bank_q16_plain(ba, state: Df1State, xs, f: int = 13):
+    """Plain PyTorch version of `df1_bank_q16`."""
+    check_q16_f(f)
+    return df1_process_q(ba, f, state, xs, dtype=torch.int16)
+
+
+def df1_bank_q16(ba, state: Df1State, xs, f: int = 13):
+    """Q16<f> DF1 over a bank of lanes (the reference's ``Q16<13>`` row,
+    tests/embedded/README.md:62): int16 storage, each product and the
+    five-term sum in int32 (wrapping), one truncating shift, wrap to int16.
+
+    Args:
+      ba: (5,) int16 Q<f> coefficients shared by all lanes.
+      state: Df1State with x/y (c, 2) int16.
+      xs: (t, c) int16.
+      f: fractional bits, 0 < f < 32.
+
+    Returns (state, ys int16), bit-identical to scanning
+    ``biquad.df1_step_q(ba, f, s, x, dtype=int16)``.
+    """
+    check_q16_f(f)
+    if xs.device.type == "cpu":
+        return df1_bank_q16_plain(ba, state, xs, f)
+    out = _launch_typed("df1_bank_q16", _ext.library().idsp_df1_bank_q16,
+                        _ba_list(ba), state, xs, torch.int16, f)
+    df1_bank_q16.launches += 1
+    return out
+
+
+df1_bank_q16.launches = 0  # kernel launches since the last reset
+
+
+def df1_bank_q64_plain(ba, state: Df1State, xs, f: int = 61):
+    """Plain PyTorch version of `df1_bank_q64`."""
+    check_q64_f(f)
+    return df1_process_q64(ba, f, state, xs)
+
+
+def df1_bank_q64(ba, state: Df1State, xs, f: int = 61):
+    """Q64<f> DF1 over a bank of lanes (the reference's ``Q64<61>`` row,
+    tests/embedded/README.md:63): int64 storage, the five products summed
+    in 128 bits, the low 64 bits of the truncating shift.
+
+    Args:
+      ba: (5,) int64 Q<f> coefficients shared by all lanes.
+      state: Df1State with x/y (c, 2) int64.
+      xs: (t, c) int64.
+      f: fractional bits, 32 < f < 64.
+
+    Returns (state, ys int64), bit-identical to `df1_process_q64`.
+    """
+    check_q64_f(f)
+    if xs.device.type == "cpu":
+        return df1_bank_q64_plain(ba, state, xs, f)
+    out = _launch_typed("df1_bank_q64", _ext.library().idsp_df1_bank_q64,
+                        _ba_list(ba), state, xs, torch.int64, f)
+    df1_bank_q64.launches += 1
+    return out
+
+
+df1_bank_q64.launches = 0  # kernel launches since the last reset
+
+
+def _f32_coefs(ba) -> list[float]:
+    """The five coefficients rounded to float32, as Python floats."""
+    a = ba.cpu() if isinstance(ba, torch.Tensor) else ba
+    return [float(v) for v in np.asarray(a, np.float64).reshape(-1)[:5]
+            .astype(np.float32)]
+
+
+def df1_bank_f32_plain(ba, state: Df1State, xs):
+    """Plain PyTorch version of `df1_bank_f32`: the float scan."""
+    return df1_process(_f32_coefs(ba), state, xs)
+
+
+def df1_bank_f32(ba, state: Df1State, xs):
+    """Float DF1 over a bank of lanes, sequential: each product and sum
+    rounded on its own, left to right, as `biquad.df1_process` (unlike the
+    reassociating `df1_block_float`).
+
+    Args:
+      ba: (5,) float coefficients shared by all lanes (rounded to f32).
+      state: Df1State with x/y (c, 2) float32.
+      xs: (t, c) float32.
+
+    Returns (state, ys float32), bit-identical to `df1_process`.
+    """
+    if xs.device.type == "cpu":
+        return df1_bank_f32_plain(ba, state, xs)
+    out = _launch_typed("df1_bank_f32", _ext.library().idsp_df1_bank_f32,
+                        _f32_coefs(ba), state, xs, torch.float32)
+    df1_bank_f32.launches += 1
+    return out
+
+
+df1_bank_f32.launches = 0  # kernel launches since the last reset
+
+
+def _launch_dither(name, ba, state: Df1DitherState, xs, f, clamp,
+                   planes=None):
+    """Validate and launch K31 (``planes`` None) or K33."""
+    check_wide_f(f)
+    cl = (0, 0, 0) if clamp is None else clamp_params(*clamp)
+    t, c = xs.shape
+    dev = xs.device
+    _ext.require("xs", xs, dev, torch.int32, (t, c))
+    _ext.require("state.xy.x", state.xy.x, dev, torch.int32, (c, 2))
+    _ext.require("state.xy.y", state.xy.y, dev, torch.int32, (c, 2))
+    _ext.require("state.e", state.e, dev, torch.int64, (c,))
+    ys = torch.empty_like(xs)
+    nx, ny = torch.empty_like(state.xy.x), torch.empty_like(state.xy.y)
+    ne = torch.empty_like(state.e)
+    ptrs = (xs.data_ptr(), ys.data_ptr(), state.xy.x.data_ptr(),
+            state.xy.y.data_ptr(), state.e.data_ptr(), nx.data_ptr(),
+            ny.data_ptr(), ne.data_ptr())
+    lib = _ext.library()
+    with torch.cuda.device(dev):
+        if planes is None:
+            err = lib.idsp_df1_dither_bank(*ptrs, t, c, f, *_ba_list(ba),
+                                           int(clamp is not None), *cl,
+                                           _ext.stream_ptr(dev))
+        else:
+            err = lib.idsp_df1_dither_bank_coef(
+                *ptrs, planes.data_ptr(), t, c, f, int(clamp is not None),
+                *cl, _ext.stream_ptr(dev))
+    _ext.check(err, name)
+    return Df1DitherState(xy=Df1State(x=nx, y=ny), e=ne), ys
+
+
+def df1_dither_bank_plain(ba, state: Df1DitherState, xs, f: int = 29, *,
+                          clamp=None):
+    """Plain PyTorch version of `df1_dither_bank`."""
+    return df1_dither_process(ba, f, state, xs, clamp=clamp)
+
+
+def df1_dither_bank(ba, state: Df1DitherState, xs, f: int = 29, *,
+                    clamp=None):
+    """Error-feedback (noise-shaping) DF1 over a bank of lanes
+    (biquad.rs:511-530; with ``clamp = (u, lo, hi)`` the clamped form,
+    :532-538).
+
+    Args:
+      ba: (5,) i32 Q<f> coefficients shared by all lanes.
+      state: `Df1DitherState`: xy x/y (c, 2) int32, e (c,) int64 holding
+        the u32 error word.
+      xs: (t, c) int32.
+      f: fractional bits, 0 < f <= 32 (the sum is shifted left by 32 - f).
+      clamp: None or int32 (u, lo, hi): ``clip(y0 + u, lo, hi)`` (int32
+        ``+ u`` wrapping) is the output and is fed back.
+
+    Returns (state, ys int32), bit-identical to scanning `df1_dither_step`
+    (`df1_dither_clamp_step`).  ``launches`` counts both forms.
+    """
+    if xs.device.type == "cpu":
+        return df1_dither_bank_plain(ba, state, xs, f, clamp=clamp)
+    out = _launch_dither("df1_dither_bank", ba, state, xs, f, clamp)
+    df1_dither_bank.launches += 1
+    return out
+
+
+df1_dither_bank.launches = 0  # kernel launches since the last reset
+
+
+def df1_wide_bank_coef_plain(ba_planes, state: Df1WideState, xs,
+                             f: int = 29, *, clamp=None):
+    """Plain PyTorch version of `df1_wide_bank_coef`."""
+    _check_planes(ba_planes, xs.shape[1])
+    return df1_wide_process(_lane_coefs(ba_planes), f, state, xs,
+                            clamp=clamp)
+
+
+def df1_wide_bank_coef(ba_planes, state: Df1WideState, xs, f: int = 29, *,
+                       clamp=None):
+    """`df1_wide_bank` with runtime coefficients: a shared (5,) set or
+    (5, c) planes, one set per lane.  Returns (state, ys int32),
+    bit-identical to `df1_wide_process` with the lanes' coefficients (to
+    `df1_wide_bank` for a shared set).  ``launches`` counts both forms."""
+    _check_planes(ba_planes, xs.shape[1])
+    if xs.device.type == "cpu":
+        return df1_wide_bank_coef_plain(ba_planes, state, xs, f, clamp=clamp)
+    check_wide_f(f)
+    cl = (0, 0, 0) if clamp is None else clamp_params(*clamp)
+    t, c = xs.shape
+    dev = xs.device
+    _ext.require("xs", xs, dev, torch.int32, (t, c))
+    _ext.require("state.x", state.x, dev, torch.int32, (c, 2))
+    _ext.require("state.y", state.y, dev, torch.int64, (c, 2))
+    planes = coef_planes(ba_planes, c, dev)
+    ys = torch.empty_like(xs)
+    nx, ny = torch.empty_like(state.x), torch.empty_like(state.y)
+    with torch.cuda.device(dev):
+        err = _ext.library().idsp_df1_wide_bank_coef(
+            xs.data_ptr(), ys.data_ptr(), state.x.data_ptr(),
+            state.y.data_ptr(), nx.data_ptr(), ny.data_ptr(),
+            planes.data_ptr(), t, c, f, int(clamp is not None), *cl,
+            _ext.stream_ptr(dev))
+    _ext.check(err, "df1_wide_bank_coef")
+    df1_wide_bank_coef.launches += 1
+    return Df1WideState(x=nx, y=ny), ys
+
+
+df1_wide_bank_coef.launches = 0  # kernel launches since the last reset
+
+
+def df1_dither_bank_coef_plain(ba_planes, state: Df1DitherState, xs,
+                               f: int = 29, *, clamp=None):
+    """Plain PyTorch version of `df1_dither_bank_coef`."""
+    _check_planes(ba_planes, xs.shape[1])
+    return df1_dither_process(_lane_coefs(ba_planes), f, state, xs,
+                              clamp=clamp)
+
+
+def df1_dither_bank_coef(ba_planes, state: Df1DitherState, xs, f: int = 29,
+                         *, clamp=None):
+    """`df1_dither_bank` with runtime coefficients: a shared (5,) set or
+    (5, c) planes, one set per lane.  Returns (state, ys int32),
+    bit-identical to `df1_dither_process` with the lanes' coefficients
+    (to `df1_dither_bank` for a shared set).  ``launches`` counts both
+    forms."""
+    _check_planes(ba_planes, xs.shape[1])
+    if xs.device.type == "cpu":
+        return df1_dither_bank_coef_plain(ba_planes, state, xs, f,
+                                          clamp=clamp)
+    planes = coef_planes(ba_planes, xs.shape[1], xs.device)
+    out = _launch_dither("df1_dither_bank_coef", None, state, xs, f, clamp,
+                         planes)
+    df1_dither_bank_coef.launches += 1
+    return out
+
+
+df1_dither_bank_coef.launches = 0  # kernel launches since the last reset

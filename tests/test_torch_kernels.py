@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K27 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K33 against their plain PyTorch versions, on the card.
 
 Marked ``requires_cuda``; each test skips (inside its fixture) where no
 CUDA device is present.  No jax here, so the file also runs where only
@@ -6,7 +6,7 @@ PyTorch is installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
 
-On the card every K1-K16 and K18-K27 output but K22/K23's (with the
+On the card every K1-K16 and K18-K33 output but K22/K23's (with the
 ``clamp=`` forms of K3 and K12) must equal its plain version bit for bit:
 the integer paths are the same int64 arithmetic, and the kernels' f32
 operations are single-rounding intrinsics in the plain versions' order,
@@ -23,6 +23,18 @@ import torch
 from idsp_tpu_torch.design import Filter
 from idsp_tpu_torch.filters import biquad
 from idsp_tpu_torch.filters.biquad_cuda import (
+    df1_bank_f32,
+    df1_bank_f32_plain,
+    df1_bank_q16,
+    df1_bank_q16_plain,
+    df1_bank_q64,
+    df1_bank_q64_plain,
+    df1_dither_bank,
+    df1_dither_bank_coef,
+    df1_dither_bank_coef_plain,
+    df1_dither_bank_plain,
+    df1_wide_bank_coef,
+    df1_wide_bank_coef_plain,
     df1_bank_q,
     df1_bank_q_dec,
     df1_bank_q_dec_plain,
@@ -911,3 +923,186 @@ def test_control_path_launch_after_refused_launch(cuda):
            df1_bank_q_coef_plain(BA_Q, st, xs, 29))
     _equal(df1_clamp_bank_q_coef(BA_Q, st, xs, 29, lo=-5, hi=5),
            df1_clamp_bank_q_coef_plain(BA_Q, st, xs, 29, lo=-5, hi=5))
+
+
+# --- K28-K33: the rest of the precision ladder -------------------------------
+
+
+def _ints(rng, shape, bits, lo=None, hi=None, device=None):
+    lo = -(2 ** (bits - 1)) if lo is None else lo
+    hi = 2 ** (bits - 1) if hi is None else hi
+    a = rng.integers(lo, hi, size=shape, dtype=np.int64)
+    return torch.from_numpy(a.astype(f"int{bits}")).to(device)
+
+
+def _dither_state(rng, c, device):
+    return biquad.Df1DitherState(
+        xy=biquad.Df1State(x=_i32(rng, (c, 2), device=device),
+                           y=_i32(rng, (c, 2), device=device)),
+        e=torch.from_numpy(rng.integers(0, 2**32, c)).to(device))
+
+
+def _carried(kern, plain, st, make_x, blocks=3):
+    """``kern`` == ``plain`` over carried blocks, every word."""
+    st_p = st
+    for _ in range(blocks):
+        xs = make_x()
+        st, ys = kern(st, xs)
+        st_p, ys_p = plain(st_p, xs)
+        torch.cuda.synchronize()
+        _equal((tuple(st), ys), (tuple(st_p), ys_p))
+
+
+LOWPASS = biquad.from_cookbook(Filter().critical_frequency(0.1).lowpass())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rung", ["q16", "q64", "q64_full_range", "f32"])
+def test_precision_banks_kernel_equal_plain(cuda, rung):
+    # 100 lanes and t = 1000: a ragged block of lanes and a tail of rows
+    c, t = 100, 1000
+    rng = np.random.default_rng(90)
+    if rung == "q16":
+        ba, f = biquad.quantize_ba(LOWPASS, 13, dtype=np.int16), 13
+        kern, plain = df1_bank_q16, df1_bank_q16_plain
+        args = (f,)
+
+        def make(shape):
+            return _ints(rng, shape, 16, device=cuda)
+    elif rung == "f32":
+        ba, kern, plain, args = LOWPASS, df1_bank_f32, df1_bank_f32_plain, ()
+
+        def make(shape):
+            return torch.from_numpy(rng.normal(size=shape).astype(
+                np.float32)).to(cuda)
+    else:
+        full = rung == "q64_full_range"
+        ba = (rng.integers(-(2**63), 2**63, 5, dtype=np.int64) if full
+              else biquad.quantize_ba(LOWPASS, 61, dtype=np.int64))
+        kern, plain, args = df1_bank_q64, df1_bank_q64_plain, (47 if full
+                                                              else 61,)
+        top = 64 if full else 56
+
+        def make(shape):
+            return _ints(rng, shape, 64, -(2 ** (top - 1)), 2 ** (top - 1),
+                         device=cuda)
+    launches = kern.launches
+    _carried(lambda s, x: kern(ba, s, x, *args),
+             lambda s, x: plain(ba, s, x, *args),
+             biquad.Df1State(x=make((c, 2)), y=make((c, 2))),
+             lambda: make((t, c)))
+    assert kern.launches - launches == 3
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f", [29, 32, 16])
+@pytest.mark.parametrize("clamp", [None, (1 << 10, -(1 << 23), 1 << 23),
+                                   (2**31 - 9, -(2**31), 2**31 - 1)])
+def test_df1_dither_bank_kernel_equals_plain(cuda, f, clamp):
+    c, t = 100, 1000
+    rng = np.random.default_rng(91)
+    top = min(2**31 - 1, 2 << f)
+    ba = rng.integers(-top, top + 1, size=5).astype(np.int32)
+    _carried(lambda s, x: df1_dither_bank(ba, s, x, f, clamp=clamp),
+             lambda s, x: df1_dither_bank_plain(ba, s, x, f, clamp=clamp),
+             _dither_state(rng, c, cuda),
+             lambda: _i32(rng, (t, c), device=cuda))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["wide", "dither"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("clamp", [None, (321, -(2**28), 2**28)])
+def test_runtime_coef_wide_dither_kernels_equal_plain(cuda, kind, shared,
+                                                      clamp):
+    """Shared (5,) and per-lane (5, c) coefficients, retuned between
+    blocks; a shared set equals the static twin (K25, K31)."""
+    c, t = 100, 1000
+    rng = np.random.default_rng(92)
+    if kind == "wide":
+        kern, plain, twin = (df1_wide_bank_coef, df1_wide_bank_coef_plain,
+                             df1_wide_bank)
+        st = biquad.Df1WideState(
+            x=_i32(rng, (c, 2), device=cuda),
+            y=torch.from_numpy(rng.integers(-(2**62), 2**62, (c, 2))).to(cuda))
+    else:
+        kern, plain, twin = (df1_dither_bank_coef, df1_dither_bank_coef_plain,
+                             df1_dither_bank)
+        st = _dither_state(rng, c, cuda)
+    st_p = st
+    for b in range(3):
+        ba = (_stages(1)[0] if shared else
+              np.roll(_stages(c).T, 17 * b, axis=1).copy())
+        planes = torch.from_numpy(ba).to(cuda)
+        xs = _i32(rng, (t, c), device=cuda)
+        st, ys = kern(planes, st, xs, 29, clamp=clamp)
+        st_p, ys_p = plain(planes, st_p, xs, 29, clamp=clamp)
+        torch.cuda.synchronize()
+        _equal((tuple(st), ys), (tuple(st_p), ys_p))
+        if shared:
+            _equal(kern(planes, st, xs, 29, clamp=clamp),
+                   twin(ba, st, xs, 29, clamp=clamp))
+
+
+@pytest.mark.requires_cuda
+def test_precision_wrappers_reject_bad_input(cuda):
+    c = 64
+    q16 = biquad.df1_init((c,), torch.int16, device=cuda)
+    q64 = biquad.df1_init((c,), torch.int64, device=cuda)
+    f32 = biquad.df1_init((c,), torch.float32, device=cuda)
+    dither = biquad.df1_dither_init((c,), device=cuda)
+    x32 = torch.zeros((32, c), dtype=torch.int32, device=cuda)
+    b16 = biquad.quantize_ba(LOWPASS, 13, dtype=np.int16)
+    b64 = biquad.quantize_ba(LOWPASS, 61, dtype=np.int64)
+    with pytest.raises(ValueError):  # int16 rows
+        df1_bank_q16(b16, q16, x32, 13)
+    with pytest.raises(ValueError):  # int64 state
+        df1_bank_q64(b64, q16, x32.to(torch.int64), 61)
+    with pytest.raises(ValueError):  # 32 < f < 64
+        df1_bank_q64(b64, q64, x32.to(torch.int64), 32)
+    with pytest.raises(ValueError):  # float32 rows
+        df1_bank_f32(LOWPASS, f32, x32)
+    with pytest.raises(ValueError):  # e is (c,) int64
+        df1_dither_bank(BA_Q, dither._replace(e=dither.e.to(torch.int32)),
+                        x32, 29)
+    with pytest.raises(ValueError):  # 0 < f <= 32
+        df1_dither_bank_coef(BA_Q, dither, x32, 0)
+    with pytest.raises(ValueError):  # planes (5, c)
+        df1_wide_bank_coef(torch.zeros((5, c + 1), dtype=torch.int32,
+                                       device=cuda),
+                           biquad.df1_wide_init((c,), device=cuda), x32, 29)
+
+
+@pytest.mark.requires_cuda
+def test_precision_banks_launch_after_refused_launch(cuda):
+    """After a launch refused for its shared memory, K28-K33 launch as
+    usual and match their plain versions: no CUDA error is left pending."""
+    itp = hbf.hbf_int_cascade_init(4, (128,), axis=0, device=cuda)
+    with pytest.raises(RuntimeError):
+        hbf_int_cascade_bank(itp, torch.zeros((128, 128), device=cuda),
+                             time_chunk=128)
+    c = 128
+    xs = torch.ones((64, c), dtype=torch.int32, device=cuda)
+    b16 = biquad.quantize_ba(LOWPASS, 13, dtype=np.int16)
+    b64 = biquad.quantize_ba(LOWPASS, 61, dtype=np.int64)
+    for kern, plain, ba, st, x in (
+            (df1_bank_q16, df1_bank_q16_plain, b16,
+             biquad.df1_init((c,), torch.int16, device=cuda),
+             xs.to(torch.int16)),
+            (df1_bank_q64, df1_bank_q64_plain, b64,
+             biquad.df1_init((c,), torch.int64, device=cuda),
+             xs.to(torch.int64) << 40),
+            (df1_bank_f32, df1_bank_f32_plain, LOWPASS,
+             biquad.df1_init((c,), torch.float32, device=cuda),
+             xs.to(torch.float32))):
+        _equal(kern(ba, st, x), plain(ba, st, x))
+    dither = biquad.df1_dither_init((c,), device=cuda)
+    wide = biquad.df1_wide_init((c,), device=cuda)
+    for kern, plain, st in ((df1_dither_bank, df1_dither_bank_plain, dither),
+                            (df1_dither_bank_coef, df1_dither_bank_coef_plain,
+                             dither),
+                            (df1_wide_bank_coef, df1_wide_bank_coef_plain,
+                             wide)):
+        got = kern(BA_Q, st, xs, 29, clamp=(0, -5, 5))
+        want = plain(BA_Q, st, xs, 29, clamp=(0, -5, 5))
+        _equal((tuple(got[0]), got[1]), (tuple(want[0]), want[1]))
