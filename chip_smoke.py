@@ -10,11 +10,12 @@ rate conversion (`RoundTrip` in its shift and banded-matrix forms, the
 CIC + half-band composite decimator, CIC interpolation), and BASELINE
 #1-#3 (`FmReceiver`, `DdcLockinBank`, `channelize_planes`), and the
 Stabilizer IIR control path (`compat.sos`, `compat.sos_clamp_wide`, the
-per-channel config bank `ConfigBank`), and the biquad precision ladder
+per-channel config bank `ConfigBank`), the biquad precision ladder
 (Q16, Q64, f32, dither and the runtime-coefficient wide and dither
-banks) -- through their kernel modes, checks the results and times
-kernels, chain, banks, rate conversion, FM, lock-in, channelizer,
-control path and ladder.
+banks), and the filter structures (SVF, normal form, RPLL, WDF allpass
+chains and complementary pairs) -- through their kernel modes, checks
+the results and times kernels, chain, banks, rate conversion, FM,
+lock-in, channelizer, control path, ladder and structures.
 Phases, each reported on its own line:
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
@@ -57,7 +58,16 @@ Phases, each reported on its own line:
    state, bit for bit, each plain call timed; K31-K33 clamped with CLAMP
    on one block, with the share of outputs the clamp pinned (> 0), and
    K32/K33 with a shared (5,) set on T_PREFIX rows; each of K28-K33
-   over two half-blocks against one block, bit for bit;
+   over two half-blocks against one block, bit for bit; K34 `svf_bank`
+   (the suite's row, x ~ N(0, 1)), K35 `normal_bank_q` (Q29, x in
+   +-2^24), K36 `normal_bank_f32`, K37 `rpll_bank` (full-range
+   timestamps, 1 in 64 valid), K38 `wdf_bank` (wdf-ca-7's first chain),
+   K39 `wdf_chain_bank` (wdf-ca-19's branch 0) and K40 `wdf_pair_bank`
+   (wdf-ca-7 and wdf-ca-19, x in +-2^24) at c=1024 lanes over 2 carried
+   blocks from a random state, bit for bit (K39 and K40's first block of
+   T_PREFIX rows, every other block of t=32768), each full-block plain
+   call timed, the SVF's other three outputs on T_PREFIX rows each, and
+   each of K34-K40 over two half-blocks against one block, bit for bit;
 4. the main paths, each with every launch counter reset just before it
    and read just after:
    * `DdcChain` in ``split`` (K1), ``fused`` (K14), ``fold`` (K20),
@@ -135,6 +145,23 @@ Phases, each reported on its own line:
      block; each rung within
      `rung_error`'s bound of the float64 DF1 of its coefficients on
      T_PREFIX rows;
+   * the filter structures (benches/suite.py:442-569) at c=1024 lanes,
+     t=32768, over 3 blocks from zero state: K34 with each of its four
+     outputs, K35 and K36 (the suite's lowpass at 0.06), K37 on the
+     suite's row and on the reference's default and wide-fast scenarios
+     (tests/test_loops.py:262-280; one timestamp stream a lane, lane 0
+     from the test's first timestamp, every other lane from its own, each
+     with its own noise), K38, K39, K40 over
+     wdf-ca-7 and over wdf-ca-19 with an impulse on lane 0; then the
+     gates: the SVF's br == hp + lp bit for bit and, on one more block at
+     f0 0.02, Q 1/sqrt(2), tests/test_structures.py:11-32's band gains;
+     the normal form against the f32 DF1 of its cookbook filter
+     (:35-59); each RPLL scenario within the reference's limits, lane 0
+     after the test's settling rows and every lane after twice them (the
+     readings of every lane after the test's rows logged); K38 and K39
+     allpass; wdf-ca-7's complementary half-band (:80-114) on every lane
+     and wdf-ca-19's response on lane 0 (:150-200: DC within 1e-5,
+     ripple within 1e-5 dB, stopband below -75 dB);
    * BASELINE #3 (suite.py:960-1012): `channelize_planes` ``fused``
      (K17) and ``xla`` at m=1024, 8 taps, n=1024 (3 blocks) and 16384,
      bf16 and f32: fused within 2e-5 of the scale; a tone at channel 100
@@ -162,6 +189,8 @@ Phases, each reported on its own line:
    their plain versions' times from phase 3, and the control legs' block
    times; K28-K33 at c=1024 lanes with their plain versions' times from
    phase 3 (K31 clamped and K32/K33 with a shared set on the log only);
+   K34-K40 at c=1024 lanes with their rates and their plain versions'
+   times from phase 3 (K40 over wdf-ca-7 on the log only);
    for each kernel mode, the device's busy
    share (`torch.profiler` device time over the CUDA-event block time)
    with each device event's span count and time; the run's wall time.
@@ -245,6 +274,32 @@ T_PREFIX = 4096
 # The biquad precision ladder (benches/suite.py:279-388) at the port's
 # bank width; its plain versions' second forms run on T_PREFIX rows.
 C_PREC = 1024
+# The filter structures (benches/suite.py:442-569) at the same bank width:
+# the SVF row (f0, Q), the normal form's cookbook lowpass, the RPLL row
+# (dt2, shift_frequency, shift_phase), and the WDF complementary pairs
+# (tests/embedded/src/bin/biquad.rs:120-173) as (nibble word, adapters, g)
+# stages of branch 0 and branch 1.
+C_STRUCT = 1024
+SVF_ROW, SVF_GATE = (0.01, 0.7), (0.02, 1 / np.sqrt(2.0))
+NORMAL_FC = 0.06
+RPLL_ROW = (8, 12, 11)
+WDF_CA7 = ([(0xAD, 2, [-0.9, 0.9]), (0xAD, 2, [-0.6, 0.7])],
+           [(0xAD, 2, [-0.7, 0.6]), (0xA, 1, [0.8])])
+WDF_CA19 = ([(0x1, 1, [0.0]), (0x1C, 2, [-0.226119, 0.0]),
+             (0x1D, 2, [-0.602422, 0.0]), (0x1D, 2, [-0.83932, 0.0]),
+             (0x1D, 2, [-0.950847, 0.0])],
+            [(0x1C, 2, [-0.063978, 0.0]), (0x1C, 2, [-0.423068, 0.0]),
+             (0x1D, 2, [-0.741327, 0.0]), (0x1D, 2, [-0.905567, 0.0]),
+             (0x1D, 2, [-0.984721, 0.0])])
+# The reference's RPLL scenarios that settle within BLOCKS blocks
+# (tests/test_loops.py:262-280): (dt2, sf, sp), period, the test's first
+# timestamp, noise, the limits of (mean, standard error) of the frequency
+# and of the phase error, and the rows measured.
+RPLL_SCENARIOS = {
+    "default": ((8, 9, 8), 333, 111, 0, (1e-11, 4e-8, 2e-8, 2e-8), 1 << 14),
+    "wide-fast": ((8, 10, 9), 990, 351, 5, (2e-5, 3e-1, 2e-4, 2e-1),
+                  1 << 16),
+}
 
 
 def fir_dec_ops(t, ms):
@@ -401,6 +456,37 @@ def work(name, c, t=T):
         if name == "channelize_fused":
             return _w(nbytes, fir, 0, 0, 0, mma=dft)
         return _w(nbytes, fir, 0, 0, 0, fma=dft)
+    # K34-K40 at c lanes: read off csrc/structures_bank.cu and wdf_bank.cu
+    if name == "svf_bank":  # lp: 4 products and 3 adds; 3 words in and out
+        return _w(8 * t * c + 24 * c, 7 * t * c, 0, t, 6)
+    if name == "normal_bank_q":  # 7 products, 5 adds, 2 shifts, 2 narrows;
+        # on the chain the y1 product, two adds, the shift
+        return _w(8 * t * c + 32 * c, 0, 16 * t * c, t, 4)
+    if name == "normal_bank_f32":  # 7 products and 5 adds, one by one
+        return _w(8 * t * c + 32 * c, 12 * t * c, 0, t, 3)
+    if name == "rpll_bank":  # 4 B x, a mask byte in, phase and frequency
+        # out; per sample the phase add, dx, the u32 x u32 -> u64 product,
+        # the 64-bit bias add 2 and shift 2, ff2 2, dt 2, the y_ref shift and
+        # product, dy's subtract and shift, f2, 3 selects: 19; on the chain
+        # ff -> product, bias, shift, two adds, select (and f's 6)
+        return _w(13 * t * c + 32 * c, 0, 19 * t * c, t, 7)
+    if name in ("wdf_bank", "wdf_chain_bank", "wdf_pair_bank",
+                "wdf_pair_bank_ca7"):
+        # 4 ops an adapter but X and Z (subtract, high-word product, two
+        # adds), the pair's butterfly 2; z in and out; on the chain the
+        # adapters of one stage (a stage's input comes from the stage before
+        # in the same sample, so stages pipeline across samples)
+        spec = {"wdf_bank": ([WDF_CA7[0][0]],),
+                "wdf_chain_bank": (WDF_CA19[0],),
+                "wdf_pair_bank": WDF_CA19,
+                "wdf_pair_bank_ca7": WDF_CA7}[name]
+        stages = [(m, n) for br in spec for m, n, _ in br]
+        arith = [sum((m >> (4 * j)) & 0xF in (0xA, 0xB, 0xE, 0xC, 0xF, 0xD)
+                     for j in range(n)) for m, n in stages]
+        pair = len(spec) == 2
+        return _w(4 * t * c * (3 if pair else 2)
+                  + 8 * c * sum(n for _, n in stages), 0,
+                  (4 * sum(arith) + 2 * pair) * t * c, t, 4 * max(arith))
     raise KeyError(name)
 
 
@@ -1015,9 +1101,10 @@ def time_rate(dev, rng, card, timings):
 def hold(name, kern, plain, carry, make_x, plain_s=None, blocks=BLOCKS):
     """Phase 3: ``kern`` against ``plain`` over ``blocks`` carried blocks,
     tolerance 0.  Both are called as ``fn(*carry, x)``; the first
-    len(carry) results are the next carry.  With a dict ``plain_s``, each
-    plain call is timed with CUDA events and ``plain_s[name]`` gets their
-    median in seconds.  Returns the largest |d|."""
+    len(carry) results are the next carry.  ``make_x`` may make blocks of
+    different lengths.  With a dict ``plain_s``, each plain call is timed
+    with CUDA events and ``plain_s[name]`` gets the median over the
+    longest blocks in seconds.  Returns the largest |d|."""
     import statistics
 
     import torch
@@ -1032,11 +1119,12 @@ def hold(name, kern, plain, carry, make_x, plain_s=None, blocks=BLOCKS):
         want = plain(*carry, x)
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
+        times.append((next(leaves(x)).shape[0], start.elapsed_time(end) / 1e3))
         err = max(err, compare(name, got, want))
         carry = got[:len(carry)]
     if plain_s is not None:
-        plain_s[name] = statistics.median(times)
+        rows = max(n for n, _ in times)
+        plain_s[name] = statistics.median(s for n, s in times if n == rows)
     return err
 
 
@@ -2050,15 +2138,24 @@ def check_control_kernels(dev, i32, i64, errs, plain_s):
 
 def halves(name, fn, carry, x):
     """``fn(*carry, x)`` over x whole and over its two halves in turn:
-    raises unless state and output agree bit for bit."""
+    raises unless state and output agree bit for bit.  ``x`` and the
+    output may be tensors or tuples of tensors with time on axis 0."""
     import torch
 
+    def cut(v, sl):
+        return (tuple(u[sl].contiguous() for u in v) if isinstance(v, tuple)
+                else v[sl].contiguous())
+
+    def cat(a, b):
+        return (tuple(torch.cat([u, w]) for u, w in zip(a, b))
+                if isinstance(a, tuple) else torch.cat([a, b]))
+
     whole = fn(*carry, x)
-    h = x.shape[0] // 2
-    first = fn(*carry, x[:h].contiguous())
-    second = fn(*first[:len(carry)], x[h:].contiguous())
+    h = (x[0] if isinstance(x, tuple) else x).shape[0] // 2
+    first = fn(*carry, cut(x, slice(None, h)))
+    second = fn(*first[:len(carry)], cut(x, slice(h, None)))
     compare(f"{name}: two halves vs one block", (
-        second[:len(carry)], torch.cat([first[-1], second[-1]])), (
+        second[:len(carry)], cat(first[-1], second[-1])), (
         whole[:len(carry)], whole[-1]))
 
 
@@ -2539,6 +2636,477 @@ def time_precision(dev, rng, card, timings, plain_s):
         log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms  [{card}]")
 
 
+# ---- the filter structures (K34-K40) ----------------------------------------
+
+
+def structure_setup():
+    """The structure rows' coefficients: the SVF's (f, qi), the normal
+    form's Q29 and float (b, p), the RPLL's config, and the WDF pairs'
+    branches as lists of (tpas, a) stages."""
+    from idsp_tpu_torch import fxp
+    from idsp_tpu_torch.design import Filter
+    from idsp_tpu_torch.filters import normal, rpll, svf, wdf
+
+    def stages(spec):
+        return [(wdf.nibbles(m, n), wdf.quantize(wdf.nibbles(m, n), g))
+                for m, n, g in spec]
+
+    b, p = normal.from_cookbook(
+        Filter().critical_frequency(NORMAL_FC).lowpass())
+    return {"svf": svf.coefficients(*SVF_ROW),
+            "normal_q": (fxp.from_float(b, 29), fxp.from_float(p, 29)),
+            "normal_f32": (b, p), "rpll": rpll.RpllConfig(*RPLL_ROW),
+            "ca7": tuple(stages(br) for br in WDF_CA7),
+            "ca19": tuple(stages(br) for br in WDF_CA19)}
+
+
+def structure_inputs(rng, dev, c):
+    """Input makers by kind, each of ``rows``: x ~ N(0, 1) f32, x uniform
+    in +-2^24 int32, and the RPLL row's full-range int32 timestamps with
+    a timestamp in 1 of 64 cycles (benches/suite.py:540-549)."""
+    import torch
+
+    def i32(rows, lim=2**31):
+        return torch.from_numpy(rng.integers(-lim, lim, size=(rows, c))
+                                .astype(np.int32)).to(dev)
+
+    return {
+        "f32": lambda rows: torch.from_numpy(
+            rng.normal(size=(rows, c)).astype(np.float32)).to(dev),
+        "i24": lambda rows: i32(rows, 2**24),
+        "rpll": lambda rows: (i32(rows), torch.from_numpy(
+            rng.integers(0, 64, size=(rows, c)) == 0).to(dev)),
+    }
+
+
+def structure_state(key, c, dev, rng=None):
+    """A state of the structure ``key``: zero, or random in the inputs'
+    ranges with ``rng`` (phase 3's carried states)."""
+    import torch
+    from idsp_tpu_torch.filters import biquad, rpll, svf, wdf
+
+    def ints(shape, lim=2**24):
+        if rng is None:
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+        return torch.from_numpy(rng.integers(-lim, lim, size=shape)
+                                .astype(np.int32)).to(dev)
+
+    def floats(shape):
+        if rng is None:
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dev)
+
+    def chain(spec):
+        return [wdf.WdfState(z=ints((c, n))) for _, n, _ in spec]
+
+    if key == "svf":
+        return svf.SvfState(*(floats((c,)) for _ in range(3)))
+    if key == "normal_q":
+        return biquad.Df1State(x=ints((c, 2)), y=ints((c, 2)))
+    if key == "normal_f32":
+        return biquad.Df1State(x=floats((c, 2)), y=floats((c, 2)))
+    if key == "rpll":
+        return rpll.RpllState(*(ints((c,), 2**31) for _ in range(4)))
+    if key == "wdf_bank":
+        return chain(WDF_CA7[0][:1])[0]
+    if key == "ca19_0":
+        return chain(WDF_CA19[0])
+    spec = WDF_CA7 if key == "ca7" else WDF_CA19
+    return tuple(chain(br) for br in spec)
+
+
+def structure_cases(k, output="lp"):
+    """name -> (kernel, plain, state key, input kind, rows of each carried
+    block of the plain check) of K34-K40, each called as ``fn(state, x)``;
+    K40 over wdf-ca-19 (``wdf_pair_bank``) and wdf-ca-7
+    (``wdf_pair_bank_ca7``).  K39/K40's plain versions take tens of
+    seconds a block (4 torch ops an adapter a row): their first block is
+    T_PREFIX rows, their second a full one."""
+    from idsp_tpu_torch.filters.normal_cuda import (
+        normal_bank_f32, normal_bank_f32_plain, normal_bank_q,
+        normal_bank_q_plain,
+    )
+    from idsp_tpu_torch.filters.rpll_cuda import rpll_bank, rpll_bank_plain
+    from idsp_tpu_torch.filters.svf_cuda import svf_bank, svf_bank_plain
+    from idsp_tpu_torch.filters.wdf_cuda import (
+        wdf_bank, wdf_bank_plain, wdf_chain_bank, wdf_chain_bank_plain,
+        wdf_pair_bank, wdf_pair_bank_plain,
+    )
+
+    f, qi = k["svf"]
+    bq, pq = k["normal_q"]
+    b, p = k["normal_f32"]
+    cfg = k["rpll"]
+    (tp, a), = k["ca7"][0][:1]
+    return {
+        "svf_bank": (
+            lambda s, x: svf_bank(f, qi, s, x, output=output),
+            lambda s, x: svf_bank_plain(f, qi, s, x, output=output),
+            "svf", "f32", (T, T)),
+        "normal_bank_q": (
+            lambda s, x: normal_bank_q(bq, pq, s, x, 29),
+            lambda s, x: normal_bank_q_plain(bq, pq, s, x, 29),
+            "normal_q", "i24", (T, T)),
+        "normal_bank_f32": (
+            lambda s, x: normal_bank_f32(b, p, s, x),
+            lambda s, x: normal_bank_f32_plain(b, p, s, x),
+            "normal_f32", "f32", (T, T)),
+        "rpll_bank": (
+            lambda s, xv: rpll_bank(cfg, s, *xv),
+            lambda s, xv: rpll_bank_plain(cfg, s, *xv), "rpll", "rpll", (T, T)),
+        "wdf_bank": (
+            lambda s, x: wdf_bank(tp, a, s, x),
+            lambda s, x: wdf_bank_plain(tp, a, s, x), "wdf_bank", "i24", (T, T)),
+        "wdf_chain_bank": (
+            lambda s, x: wdf_chain_bank(k["ca19"][0], s, x),
+            lambda s, x: wdf_chain_bank_plain(k["ca19"][0], s, x), "ca19_0",
+            "i24", (T_PREFIX, T)),
+        "wdf_pair_bank": (
+            lambda s, x: wdf_pair_bank(*k["ca19"], s, x),
+            lambda s, x: wdf_pair_bank_plain(*k["ca19"], s, x), "ca19",
+            "i24", (T_PREFIX, T)),
+        "wdf_pair_bank_ca7": (
+            lambda s, x: wdf_pair_bank(*k["ca7"], s, x),
+            lambda s, x: wdf_pair_bank_plain(*k["ca7"], s, x), "ca7", "i24",
+            (T_PREFIX, T)),
+    }
+
+
+def check_structure_kernels(dev, rng, errs, plain_s):
+    """Phase 3 for K34-K40 at c = C_STRUCT lanes: each kernel against its
+    plain version over 2 carried blocks from a random state (K39/K40's
+    first of T_PREFIX rows, the others of T), tolerance 0, each plain call
+    over T rows timed; the SVF's hp, bp and br outputs on T_PREFIX rows
+    each; then each kernel over two half-blocks against one block of T
+    rows."""
+    c = C_STRUCT
+    k = structure_setup()
+    make = structure_inputs(rng, dev, c)
+    cases = structure_cases(k)
+    for name, (kern, plain, key, kind, rows) in cases.items():
+        sizes = iter(rows)
+        errs[name] = hold(name, kern, plain,
+                          (structure_state(key, c, dev, rng),),
+                          lambda: make[kind](next(sizes)), plain_s,
+                          blocks=len(rows))
+    for out in ("hp", "bp", "br"):
+        kern, plain, key, kind, _ = structure_cases(k, out)["svf_bank"]
+        errs["svf_bank"] = max(errs["svf_bank"], hold(
+            f"svf_bank ({out})", kern, plain,
+            (structure_state(key, c, dev, rng),),
+            lambda: make[kind](T_PREFIX), blocks=1))
+    for name, (kern, _, key, kind, _) in cases.items():
+        halves(name, kern, (structure_state(key, c, dev, rng),),
+               make[kind](T))
+    errs["wdf_pair_bank"] = max(errs["wdf_pair_bank"],
+                                errs.pop("wdf_pair_bank_ca7"))
+    log(f"phase 3 K34-K40 {', '.join(cases)} == plain over 2 carried blocks "
+        f"(c={c}, random state; t={T}, K39/K40's first {T_PREFIX} rows; "
+        f"plain over {T} rows "
+        f"{', '.join(f'{n} {plain_s[n]:.2f} s' for n in cases)}); the SVF's "
+        f"hp, bp, br on {T_PREFIX} rows: max |d| "
+        f"{[errs[n] for n in cases if n in errs]}; each over two half-blocks "
+        f"== one block of {T}, state and output bit for bit")
+
+
+def rpll_scenario(dt2, period, first, noise, rows, c, rng):
+    """The reference's timestamp harness (tests/test_loops.py:210-232,
+    rpll.rs:105-173), one stream a lane, vectorized across lanes: lane 0's
+    first timestamp the test's ``first``, every other lane's uniform in
+    [0, period), each lane with its own noise draws.  Returns (xs (rows, c)
+    int32, valids bool, the int32 phase t - nxt of each row)."""
+    nxt = rng.integers(0, period, size=c).astype(np.int32)
+    nxt[0] = first
+    nxt_noisy = nxt.copy()
+    xs = np.zeros((rows, c), np.int32)
+    valids = np.zeros((rows, c), bool)
+    dphase = np.zeros((rows, c), np.int32)
+    step = np.int32(period)
+    for i in range(rows):
+        tt = np.array(i << dt2, np.int64).astype(np.int32)
+        hit = (tt - nxt_noisy) >= 0
+        nxt = np.where(hit, nxt + step, nxt)
+        xs[i] = np.where(hit, nxt_noisy, 0)
+        valids[i] = hit
+        jitter = (rng.integers(-noise, noise + 1, size=c).astype(np.int32)
+                  if noise else np.int32(0))
+        nxt_noisy = np.where(hit, nxt + jitter, nxt_noisy)
+        dphase[i] = tt - nxt
+    return xs, valids, dphase
+
+
+def rpll_ratios(phase, freq, dphase, dt2, period, limits, w0, n):
+    """Per lane, the reference's four statistics (tests/test_loops.py:
+    235-259) over rows w0..w0 + n, each as |value| / limit: (4, c)."""
+    import torch
+
+    ys = phase[w0:w0 + n].to(torch.int64)
+    fs = freq[w0:w0 + n].to(torch.int64)
+    y_ref = dphase[w0:w0 + n].double() * 2.0**32 / period
+    y_err = (ys.double() - y_ref) / 2.0**32
+    y_err -= torch.round(y_err)
+    f_err = (((fs & 0xFFFFFFFF).double() * period - 2.0 ** (32 + dt2))
+             / 2.0 ** (32 + dt2))
+    stats = torch.stack([f_err.mean(0), f_err.std(0, unbiased=False) / n**0.5,
+                         y_err.mean(0), y_err.std(0, unbiased=False) / n**0.5])
+    return stats.abs() / torch.tensor(limits, dtype=torch.float64,
+                                      device=stats.device)[:, None]
+
+
+def rpll_gates(name, phase, freq, dphase, dt2, sf, sp, period, limits, n):
+    """The reference's gates on each lane of a scenario.  Lane 0, which
+    starts at the test's first timestamp, is measured as the test measures
+    it: n rows after the t_settle = 2^(sf-dt2+4) + 2^(sp-dt2+4) rows of
+    the formula.  Every lane is measured n rows after 2 t_settle: with its
+    own first timestamp the loop, starting from f = 0, may take longer to
+    acquire, and the readings of all lanes at t_settle are logged to show
+    how many.  Raises unless both hold; returns the log text."""
+    settle = (1 << (sf - dt2 + 4)) + (1 << (sp - dt2 + 4))
+    at1, at2 = (rpll_ratios(phase, freq, dphase, dt2, period, limits,
+                            k * settle, n) for k in (1, 2))
+    if not (bool((at1[:, 0] <= 1).all()) and bool((at2 <= 1).all())):
+        raise AssertionError(
+            f"RPLL {name}: lane 0 at t_settle |stat| / limit "
+            f"{at1[:, 0].tolist()}; lanes over the limits at 2 t_settle "
+            f"{(at2 > 1).sum(dim=1).tolist()}")
+
+    def worst(r):
+        return [f"{v:.3f}" for v in r.max(dim=1).values.tolist()]
+
+    return (f"lane 0 (first timestamp of the test) over rows {settle}.."
+            f"{settle + n}: |stat| / limit {worst(at1[:, :1])}; every lane "
+            f"over rows {2 * settle}..{2 * settle + n}: worst {worst(at2)}; "
+            f"every lane at rows {settle}..{settle + n} (logged): worst "
+            f"{worst(at1)}, lanes over {(at1 > 1).sum(dim=1).tolist()}")
+
+
+def spectra(v, skip=0):
+    """|rfft| along time of (t, c) rows from ``skip`` on, Hann-windowed,
+    float64."""
+    import torch
+
+    x = v[skip:].double()
+    w = torch.hann_window(x.shape[0], periodic=False, dtype=torch.float64,
+                          device=x.device)[:, None]
+    return torch.fft.rfft(x * w, dim=0).abs()
+
+
+def structure_gates(dev, k, x, runs):
+    """Phase 4's checks of the structures (after the counts are read; the
+    extra SVF block launches K34 outside the counted window).  Returns the
+    log text."""
+    import torch
+    from idsp_tpu_torch.design import Filter
+    from idsp_tpu_torch.filters import biquad, svf
+    from idsp_tpu_torch.filters.svf_cuda import svf_bank
+
+    c = C_STRUCT
+    notes = []
+    # SVF: br == hp + lp bit for bit; the spectral gates at the test's
+    # corner (tests/test_structures.py:11-32)
+    for i in range(BLOCKS):
+        compare("svf br == hp + lp", runs["svf br"][i],
+                runs["svf hp"][i] + runs["svf lp"][i])
+    f, qi = svf.coefficients(*SVF_GATE)
+    xg = x["f32"][0]
+    _, lp = svf_bank(f, qi, svf.init((c,), device=dev), xg)
+    ratio = spectra(lp) / spectra(xg).clamp(min=1e-9)
+    n = ratio.shape[0]
+    hi = ratio[int(0.3 * n):].mean(0)
+    lo = ratio[1:int(0.02 * n)].mean(0)
+    if not (bool((hi < 0.1).all()) and bool(((lo > 0.5) & (lo < 1.5)).all())):
+        raise AssertionError(f"SVF gates: high band max {float(hi.max())}, "
+                             f"low band {float(lo.min())}..{float(lo.max())}")
+    notes.append(f"SVF br == hp + lp on {BLOCKS} blocks; at f0 {SVF_GATE[0]}, "
+                 f"Q 1/sqrt(2) high-band gain max {float(hi.max()):.4f} < 0.1, "
+                 f"low-band {float(lo.min()):.3f}..{float(lo.max()):.3f} in "
+                 "(0.5, 1.5)")
+    # normal form: the spectral match against the f32 DF1 of the same
+    # cookbook filter (tests/test_structures.py:35-59), per lane
+    ba5 = torch.from_numpy(biquad.from_cookbook(Filter().critical_frequency(
+        NORMAL_FC).lowpass()).astype(np.float32)).to(dev)
+    for key, kind in (("normal q29", "i24"), ("normal f32", "f32")):
+        xs = x[kind][0][:T_PREFIX].float()
+        _, yd = biquad.df1_process(ba5, biquad.df1_init(
+            (c,), torch.float32, device=dev), xs)
+        ratio = ((spectra(runs[key][0][:T_PREFIX], 200) + 1e-9)
+                 / (spectra(yd, 200) + 1e-9))
+        med = ratio.median(dim=0).values
+        dev_med = (ratio / med - 1.0).abs().median(dim=0).values
+        if not bool((dev_med < 0.2).all()):
+            raise AssertionError(f"{key}: spectral mismatch vs the f32 DF1 "
+                                 f"{float(dev_med.max())}")
+        notes.append(f"{key} vs the f32 DF1: median |ratio/median - 1| max "
+                     f"{float(dev_med.max()):.4f} < 0.2")
+    # RPLL: the reference's scenarios, one stream a lane
+    for name, (cfg, period, _, _, limits, nrows) in RPLL_SCENARIOS.items():
+        ph, fr, dph = runs[f"rpll {name}"]
+        notes.append(f"RPLL {name} on {c} lanes: " + rpll_gates(
+            name, ph, fr, dph, *cfg, period, limits, nrows))
+    # WDF allpasses (tests/test_structures.py:62-77), per lane
+    for key in ("wdf_bank", "wdf_chain_bank"):
+        ratio = (spectra(runs[key][0], 512)[10:-10]
+                 / spectra(x["i24"][0], 512)[10:-10].clamp(min=1.0))
+        med = ratio.median(dim=0).values
+        if not bool(((med - 1).abs() < 0.05).all()):
+            raise AssertionError(f"{key}: not an allpass, median |H| "
+                                 f"{float(med.min())}..{float(med.max())}")
+        notes.append(f"{key} allpass: median |H| {float(med.min()):.4f}.."
+                     f"{float(med.max()):.4f}")
+    # wdf-ca-7: the complementary half-band (tests/test_structures.py:
+    # 80-114), per lane
+    lp, hp = runs["wdf-ca-7"][0]
+    sl, sh = spectra(lp, 512) ** 2, spectra(hp, 512) ** 2
+    sx = spectra(x["i24"][0], 512) ** 2
+    m = sl.shape[0]
+    low_ok = sl[:m // 4].sum(0) > 10 * sl[3 * m // 4:].sum(0)
+    high_ok = sh[3 * m // 4:].sum(0) > 2 * sh[:m // 4].sum(0)
+    total = ((sl + sh)[10:m - 10] / (4 * sx[10:m - 10]).clamp(min=1.0)
+             ).median(dim=0).values
+    if not (bool(low_ok.all()) and bool(high_ok.all())
+            and bool(((total - 1).abs() < 0.1).all())):
+        raise AssertionError("wdf-ca-7: half-band gates failed")
+    notes.append(f"wdf-ca-7 half-band gates on {c} lanes, |L|^2 + |H|^2 over "
+                 f"4|X|^2 median {float(total.min()):.4f}.."
+                 f"{float(total.max()):.4f}")
+    # wdf-ca-19: lane 0's impulse response (tests/test_structures.py:
+    # 150-200)
+    h = runs["wdf-ca-19"][0][0][:4096, 0].double() / (1 << 28)
+    mag = torch.fft.rfft(h).abs()
+    fq = torch.linspace(0, 0.5, mag.shape[0], dtype=torch.float64,
+                        device=dev)
+    pb, sb = mag[fq < 0.20], mag[fq > 0.30]
+    gates = (abs(float(mag[0]) - 1.0), 20 * float(torch.log10(pb.max())),
+             20 * float(torch.log10(pb.min())),
+             20 * float(torch.log10(sb.max())))
+    if not (gates[0] < 1e-5 and gates[1] < 1e-5 and gates[2] > -1e-5
+            and gates[3] < -75.0):
+        raise AssertionError(f"wdf-ca-19 response gates: {gates}")
+    notes.append(f"wdf-ca-19 lane 0: |DC - 1| {gates[0]:.3g} < 1e-5, ripple "
+                 f"{gates[2]:.3g}..{gates[1]:.3g} dB within 1e-5, stopband "
+                 f"{gates[3]:.2f} dB < -75")
+    return "; ".join(notes)
+
+
+def structures_main_path(dev, rng, wrappers):
+    """Phase 4 for the structures at c = C_STRUCT lanes, t = T, BLOCKS
+    carried blocks from zero state through the port's entry points: the
+    SVF row (x ~ N(0, 1)) with each of its four outputs, the normal form
+    in Q29 (x in +-2^24) and f32 (N(0, 1)), the RPLL row (full-range
+    timestamps, 1 in 64 valid) and the reference's default and wide-fast
+    scenarios, K38 (wdf-ca-7's first chain), K39 (wdf-ca-19's branch 0),
+    K40 over wdf-ca-7 and over wdf-ca-19 with an impulse on lane 0 (x in
+    +-2^24 on the rest).  Checks (after the counts are read):
+    `structure_gates`, and every output of the expected dtype and shape,
+    the floats finite.  Returns the launch counts of the run."""
+    import torch
+    from idsp_tpu_torch.filters import biquad, rpll, svf, wdf
+    from idsp_tpu_torch.filters.normal_cuda import (
+        normal_bank_f32, normal_bank_q,
+    )
+    from idsp_tpu_torch.filters.rpll_cuda import rpll_bank
+    from idsp_tpu_torch.filters.svf_cuda import OUTPUTS, svf_bank
+    from idsp_tpu_torch.filters.wdf_cuda import (
+        wdf_bank, wdf_chain_bank, wdf_pair_bank,
+    )
+
+    c = C_STRUCT
+    k = structure_setup()
+    make = structure_inputs(rng, dev, c)
+    x = {kind: [m(T) for _ in range(BLOCKS)] for kind, m in make.items()}
+    impulse = [v.clone() for v in x["i24"]]
+    for v in impulse:
+        v[:, 0] = 0
+    impulse[0][0, 0] = 1 << 27
+    scen = {}
+    for name, ((dt2, _, _), period, first, noise, _, _) in \
+            RPLL_SCENARIOS.items():
+        xs, valids, dph = rpll_scenario(dt2, period, first, noise,
+                                        BLOCKS * T, c, rng)
+        scen[name] = (torch.from_numpy(xs).to(dev),
+                      torch.from_numpy(valids).to(dev),
+                      torch.from_numpy(dph).to(dev))
+    f, qi = k["svf"]
+    (tp, a), = k["ca7"][0][:1]
+    legs = {f"svf {o}": (lambda s, v, o=o: svf_bank(f, qi, s, v, output=o),
+                         lambda: svf.init((c,), device=dev), x["f32"])
+            for o in OUTPUTS}
+    legs.update({
+        "normal q29": (lambda s, v: normal_bank_q(*k["normal_q"], s, v, 29),
+                       lambda: biquad.df1_init((c,), device=dev), x["i24"]),
+        "normal f32": (lambda s, v: normal_bank_f32(*k["normal_f32"], s, v),
+                       lambda: biquad.df1_init((c,), torch.float32,
+                                               device=dev), x["f32"]),
+        "rpll row": (lambda s, v: rpll_bank(k["rpll"], s, *v),
+                     lambda: rpll.init((c,), device=dev), x["rpll"]),
+        "wdf_bank": (lambda s, v: wdf_bank(tp, a, s, v),
+                     lambda: wdf.init(len(tp), (c,), device=dev), x["i24"]),
+        "wdf_chain_bank": (
+            lambda s, v: wdf_chain_bank(k["ca19"][0], s, v),
+            lambda: [wdf.init(len(t_), (c,), device=dev)
+                     for t_, _ in k["ca19"][0]], x["i24"]),
+        "wdf-ca-7": (lambda s, v: wdf_pair_bank(*k["ca7"], s, v),
+                     lambda: tuple([wdf.init(len(t_), (c,), device=dev)
+                                    for t_, _ in br] for br in k["ca7"]),
+                     x["i24"]),
+        "wdf-ca-19": (lambda s, v: wdf_pair_bank(*k["ca19"], s, v),
+                      lambda: tuple([wdf.init(len(t_), (c,), device=dev)
+                                     for t_, _ in br] for br in k["ca19"]),
+                      impulse),
+    })
+    for name, (cfg, *_) in RPLL_SCENARIOS.items():
+        xs, valids, _ = scen[name]
+        legs[f"rpll {name}"] = (
+            lambda s, v, cfg=rpll.RpllConfig(*cfg): rpll_bank(cfg, s, *v),
+            lambda: rpll.init((c,), device=dev),
+            [(xs[i * T:(i + 1) * T], valids[i * T:(i + 1) * T])
+             for i in range(BLOCKS)])
+    reset(wrappers)
+    runs = {}
+    for name, (fn, init, blocks) in legs.items():
+        st, runs[name] = init(), []
+        for v in blocks:
+            st, y = fn(st, v)
+            runs[name].append(y)
+    torch.cuda.synchronize()
+    counts = launch_counts(wrappers)
+    for name, outs in runs.items():
+        for y in leaves(outs):
+            want = torch.float32 if name.startswith(("svf", "normal f32")) \
+                else torch.int32
+            if y.dtype != want or tuple(y.shape) != (T, c):
+                raise AssertionError(f"{name}: output {y.dtype}"
+                                     f"{tuple(y.shape)}")
+            if y.dtype == torch.float32 and not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"{name}: non-finite output")
+    for name in RPLL_SCENARIOS:
+        ph, fr = (torch.cat(v) for v in zip(*runs[f"rpll {name}"]))
+        runs[f"rpll {name}"] = (ph, fr, scen[name][2])
+    log(f"phase 4 main path: the structures ({', '.join(legs)}) x {BLOCKS} "
+        f"blocks at c={c}, t={T}; launches {counts}")
+    log(f"phase 4 structure gates: {structure_gates(dev, k, x, runs)}")
+    return counts
+
+
+def time_structures(dev, rng, card, timings, plain_s):
+    """Phase 6 for K34-K40 at c = C_STRUCT, t = T: each kernel beside its
+    plain version (timed in phase 3) and its rate in c*t samples/s; K40 over wdf-ca-7 on the log only."""
+    from idsp_tpu_torch.profiling import measure_rate
+
+    c = C_STRUCT
+    make = structure_inputs(rng, dev, c)
+    for name, (kern, _, key, kind, _) in structure_cases(
+            structure_setup()).items():
+        k_s, _ = measure_rate(kern, structure_state(key, c, dev, rng),
+                              make[kind](T), iters=20, trials=3)
+        timings["kernels"][name] = {c: {
+            "ms": k_s * 1e3, "plain_ms": plain_s[name] * 1e3}}
+        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms "
+            f"({c * T / k_s:.4g} samples/s), plain {plain_s[name] * 1e3:.2f} "
+            f"ms (phase 3)  [{card}]")
+
+
 def main():
     wall0 = time.perf_counter()
     import torch
@@ -2584,6 +3152,14 @@ def main():
     )
     from idsp_tpu_torch.filters.ddc_lockin_cuda import ddc_lockin_bank
     from idsp_tpu_torch.filters.fm_cuda import fm_disc_bank
+    from idsp_tpu_torch.filters.normal_cuda import (
+        normal_bank_f32, normal_bank_q,
+    )
+    from idsp_tpu_torch.filters.rpll_cuda import rpll_bank
+    from idsp_tpu_torch.filters.svf_cuda import svf_bank
+    from idsp_tpu_torch.filters.wdf_cuda import (
+        wdf_bank, wdf_chain_bank, wdf_pair_bank,
+    )
     from idsp_tpu_torch.pipelines.channelizer_cuda import channelize_fused
     from idsp_tpu_torch.ops import accu
     from idsp_tpu_torch.ops.fastlo import fastlo_mix
@@ -2734,6 +3310,8 @@ def main():
     check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank)
     check_control_kernels(dev, i32, i64, errs, plain_s)
     check_precision_kernels(dev, rng, errs, plain_s)
+    check_structure_kernels(dev, rng, errs, plain_s)
+    log(f"phase 3 done at {time.perf_counter() - wall0:.1f} s")
 
     # ---- phase 4: the main path ---------------------------------------
     steps_np = rng.integers(1 << 24, 1 << 30, size=(C_WIDE,)).astype(np.int32)
@@ -2761,7 +3339,9 @@ def main():
                 hbf_dec_cascade_mxu, hbf_int_cascade_mxu, sos_bank_q,
                 df1_wide_bank, df1_bank_q_coef, df1_clamp_bank_q_coef,
                 df1_bank_q16, df1_bank_q64, df1_bank_f32, df1_dither_bank,
-                df1_wide_bank_coef, df1_dither_bank_coef)
+                df1_wide_bank_coef, df1_dither_bank_coef, svf_bank,
+                normal_bank_q, normal_bank_f32, rpll_bank, wdf_bank,
+                wdf_chain_bank, wdf_pair_bank)
     chain_kernels = ("df1_bank_q", "df1_hbf_cascade_bank",
                      "fastlo_ddc_cascade_bank", "ddc_mix_df1_bank",
                      "df1_hbf1_bank", "df1_hbf12_bank")
@@ -2780,6 +3360,9 @@ def main():
     precision_kernels = ("df1_bank_q16", "df1_bank_q64", "df1_bank_f32",
                          "df1_dither_bank", "df1_wide_bank_coef",
                          "df1_dither_bank_coef")
+    structure_kernels = ("svf_bank", "normal_bank_q", "normal_bank_f32",
+                         "rpll_bank", "wdf_bank", "wdf_chain_bank",
+                         "wdf_pair_bank")
     # BASELINE #1-#3: each kernel's width in the kernels line (K17: frames)
     slice5_c = {"fm_disc_bank": C_FM, "ddc_lockin_bank": C_LOCKIN,
                 "channelize_fused": N_CH[-1]}
@@ -2945,6 +3528,12 @@ def main():
     counts = precision_main_path(dev, rng, wrappers)
     for k in precision_kernels:
         launches[k] = counts[k]
+
+    # ---- phase 4 (structures): SVF, normal form, RPLL, WDF -------------
+    counts = structures_main_path(dev, rng, wrappers)
+    for k in structure_kernels:
+        launches[k] = counts[k]
+    log(f"phase 4 done at {time.perf_counter() - wall0:.1f} s")
 
     # ---- phase 5: the main paths went through every kernel ------------
     for name, n in launches.items():
@@ -3139,6 +3728,7 @@ def main():
     time_slice5(dev, rng, card, timings)
     time_control(dev, i32, card, timings, plain_s)
     time_precision(dev, rng, card, timings, plain_s)
+    time_structures(dev, rng, card, timings, plain_s)
     print(json.dumps({"timings": timings}), flush=True)
 
     sources = {
@@ -3213,6 +3803,20 @@ def main():
                                "idsp_tpu/filters/biquad_pallas.py:1053"),
         "df1_dither_bank_coef": ("idsp_tpu_torch/csrc/biquad_precision.cu",
                                  "idsp_tpu/filters/biquad_pallas.py:1104"),
+        "svf_bank": ("idsp_tpu_torch/csrc/structures_bank.cu",
+                     "idsp_tpu/filters/svf_pallas.py:28"),
+        "normal_bank_q": ("idsp_tpu_torch/csrc/structures_bank.cu",
+                          "idsp_tpu/filters/normal_pallas.py:35"),
+        "normal_bank_f32": ("idsp_tpu_torch/csrc/structures_bank.cu",
+                            "idsp_tpu/filters/normal_pallas.py:105"),
+        "rpll_bank": ("idsp_tpu_torch/csrc/structures_bank.cu",
+                      "idsp_tpu/filters/rpll_pallas.py:35"),
+        "wdf_bank": ("idsp_tpu_torch/csrc/wdf_bank.cu",
+                     "idsp_tpu/filters/wdf_pallas.py:109"),
+        "wdf_chain_bank": ("idsp_tpu_torch/csrc/wdf_bank.cu",
+                           "idsp_tpu/filters/wdf_pallas.py:220"),
+        "wdf_pair_bank": ("idsp_tpu_torch/csrc/wdf_bank.cu",
+                          "idsp_tpu/filters/wdf_pallas.py:280"),
     }
     sm_mhz = sm_clock_mhz()
     kernels = []
@@ -3221,6 +3825,7 @@ def main():
              C_BANK if name in bank_kernels + biquad_kernels
              + clamp_kernels[3:] else C_CTL if name in control_kernels
              else C_PREC if name in precision_kernels
+             else C_STRUCT if name in structure_kernels
              else slice5_c.get(name, C_RATE))
         timed = timings["kernels"][name][c]
         bound_ms, bound_by, _ = bounds(name, c, sm_mhz)
@@ -3235,7 +3840,8 @@ def main():
     for name, c in (("fm_disc_bank_fast", C_FM),
                     ("channelize_fused", N_CH[0]),
                     ("channelize_fused_f32", N_CH[0]),
-                    ("channelize_fused_f32", N_CH[-1])):
+                    ("channelize_fused_f32", N_CH[-1]),
+                    ("wdf_pair_bank_ca7", C_STRUCT)):
         log_bound(name, c, timings["kernels"][name][c]["ms"], sm_mhz)
     log(f"wall time {time.perf_counter() - wall0:.1f} s")
     print(card, flush=True)

@@ -38,7 +38,14 @@ public layouts:
   `df1_bank_q16`), Q64<61> (K29 `df1_bank_q64`, 128-bit sums on
   `fxp.I128`), f32 (K30 `df1_bank_f32`), the noise-shaping DF1 (K31
   `df1_dither_bank`) and the runtime-coefficient wide and dither banks
-  (K32 `df1_wide_bank_coef`, K33 `df1_dither_bank_coef`).
+  (K32 `df1_wide_bank_coef`, K33 `df1_dither_bank_coef`);
+* the filter structures beside the biquad and the Option-stream
+  calculus they use (`masked`): the Chamberlin SVF (`filters.svf`, K34
+  `svf_bank`), the normal-form section (`filters.normal`, K35
+  `normal_bank_q`, K36 `normal_bank_f32`), the reciprocal PLL over
+  masked timestamps (`filters.rpll`, K37 `rpll_bank`) and the
+  wave-digital allpass chains and complementary pairs (`filters.wdf`, K38
+  `wdf_bank`, K39 `wdf_chain_bank`, K40 `wdf_pair_bank`).
 
 Layouts: time-major ``(t, 2c)`` lanes, I in ``[0, c)`` and Q in
 ``[c, 2c)``; ``Df1State.x/.y`` of shape ``(lanes, 2)``;
@@ -47,7 +54,9 @@ leaves; fused-cascade tails ``(3m-2, lanes)`` f32, ``2m-1`` odd rows
 then ``m-1`` even rows per stage; `HbfIntState.x` ``(2m-1, lanes)``;
 `CicState` with combs ``(c, N, M)``, integrators ``(c, N)`` and zoh
 ``(c,)``, all int32; `FmDiscState` with ``(c,)`` leaves; channelizer
-`PlanesState` history planes ``(taps-1, m)`` f32.
+`PlanesState` history planes ``(taps-1, m)`` f32; `SvfState` and
+`RpllState` with ``(c,)`` leaves (the RPLL's u32 words as int32 bit
+patterns); `WdfState.z` ``(c, N)`` int32.
 
 Every Pallas kernel on those paths is a hand-written CUDA C++ kernel
 (``csrc/*.cu``, built with nvcc for ``sm_90a`` at first use).  Each
@@ -61,10 +70,10 @@ int16 base sums in 32 bits, the int64 base in 128 (`fxp.I128`).
 Importing this package imports torch and numpy only — never jax.
 """
 
-from . import compat, design, fxp, luts  # noqa: F401
+from . import compat, design, fxp, luts, masked  # noqa: F401
 from .ops import accu, fastlo, trig  # noqa: F401
 from .ops.trig import cossin  # noqa: F401
-from .filters import cic, hbf  # noqa: F401
+from .filters import cic, hbf, normal, rpll, svf, wdf  # noqa: F401
 from .filters.biquad_cuda import (  # noqa: F401
     df1_bank_f32, df1_bank_q16, df1_bank_q64, df1_bank_q_coef,
     df1_bank_q_dec, df1_clamp_bank_q, df1_clamp_bank_q_coef,
@@ -80,6 +89,14 @@ from .filters.ddc_cuda import (  # noqa: F401
 )
 from .filters.ddc_lockin_cuda import ddc_lockin_bank  # noqa: F401
 from .filters.fm_cuda import fm_disc_bank  # noqa: F401
+from .filters.normal_cuda import (  # noqa: F401
+    normal_bank_f32, normal_bank_q,
+)
+from .filters.rpll_cuda import rpll_bank  # noqa: F401
+from .filters.svf_cuda import svf_bank  # noqa: F401
+from .filters.wdf_cuda import (  # noqa: F401
+    wdf_bank, wdf_chain_bank, wdf_pair_bank,
+)
 from .filters.hbf_mxu import (  # noqa: F401
     hbf_dec_cascade_mxu, hbf_int_cascade_mxu,
 )
@@ -105,7 +122,9 @@ __all__ = ["DdcBankBiquad", "DdcBankBiquadState", "DdcLockinBank",
            "df1_hbf1_bank", "df1_wide_bank", "df1_wide_bank_coef", "fastlo",
            "fastlo_ddc_bank_block", "fastlo_df1_dec_bank", "fm_disc",
            "fm_disc_bank", "fxp", "hbf", "hbf_dec_cascade_mxu",
-           "hbf_int_cascade_mxu", "init_biquad", "luts",
-           "rate_conversion", "sos_bank_q", "trig"]
+           "hbf_int_cascade_mxu", "init_biquad", "luts", "masked",
+           "normal", "normal_bank_f32", "normal_bank_q", "rate_conversion",
+           "rpll", "rpll_bank", "sos_bank_q", "svf", "svf_bank", "trig",
+           "wdf", "wdf_bank", "wdf_chain_bank", "wdf_pair_bank"]
 
 __version__ = "0.1.0"

@@ -24,6 +24,14 @@ runtime coefficients (5,) or (5, c) the kernels' planes, and
 `clamped_coeffs` carries a design `ClampedCoeffs` over.  Dtypes cross unchanged (the
 PLL's clamp indicator stays int8, FM's validity bool, a float
 `Df1State` f32).
+
+The structures: ``(lp, hp, bp)`` is an `SvfState`, ``(x, ff, f, y)`` an
+`RpllState`, ``(z,)`` a `WdfState` and ``(valid, value)`` a
+`masked.Masked`; normal-form states are `Df1State`s already.  This
+PyTorch's ``uint32`` has no add, shift or comparison, so the port's
+`RpllState` holds the u32 words ``ff`` and ``f`` as int32 bit patterns:
+a JAX ``uint32`` crosses as that view (``0xFFFFFFFF`` is -1) and comes
+back as ``uint32``.
 """
 
 from __future__ import annotations
@@ -40,6 +48,10 @@ from .filters.fm_cuda import FmDiscState
 from .filters.hbf import HbfDecState, HbfIntState
 from .filters.lowpass import LowpassState
 from .filters.pll import PllState
+from .filters.rpll import RpllState
+from .filters.svf import SvfState
+from .filters.wdf import WdfState
+from .masked import Masked
 from .ops.unwrap import ClampWrapState
 from .pipelines.channelizer import BankState, PlanesState
 from .pipelines.ddc_bank import DdcBankBiquadState, DdcBankState
@@ -49,7 +61,8 @@ _STATES = {
     cls._fields: cls
     for cls in (Df1State, Df1DitherState, Df2tState, HbfDecState, HbfIntState, LowpassState,
                 ClampWrapState, PllState, DdcBankState, DdcBankBiquadState,
-                CicState, RateConvState, FmDiscState, PlanesState, BankState)
+                CicState, RateConvState, FmDiscState, PlanesState, BankState,
+                SvfState, RpllState, WdfState, Masked)
 }
 
 
@@ -69,6 +82,9 @@ def to_torch(obj, device):
         cls = _STATES[tuple(obj._fields)]
         if cls is Df1State and _is_wide(obj):
             cls = Df1WideState
+        if cls is RpllState:  # the u32 words as their int32 bit patterns
+            return cls(*(to_torch(np.asarray(v).view(np.int32), device)
+                         for v in obj))
         return cls(*(to_torch(v, device) for v in obj))
     if isinstance(obj, list):
         return [to_torch(v, device) for v in obj]
@@ -120,6 +136,9 @@ def to_numpy(obj):
     if isinstance(obj, Df1DitherState):
         return Df1DitherState(to_numpy(obj.xy),
                               to_numpy(obj.e).astype(np.uint32))
+    if isinstance(obj, RpllState):
+        return RpllState(to_numpy(obj.x), to_numpy(obj.ff).view(np.uint32),
+                         to_numpy(obj.f).view(np.uint32), to_numpy(obj.y))
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return type(obj)(*(to_numpy(v) for v in obj))
     if isinstance(obj, list):

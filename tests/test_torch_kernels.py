@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K33 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K40 against their plain PyTorch versions, on the card.
 
 Marked ``requires_cuda``; each test skips (inside its fixture) where no
 CUDA device is present.  No jax here, so the file also runs where only
@@ -6,7 +6,7 @@ PyTorch is installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
 
-On the card every K1-K16 and K18-K33 output but K22/K23's (with the
+On the card every K1-K16 and K18-K40 output but K22/K23's (with the
 ``clamp=`` forms of K3 and K12) must equal its plain version bit for bit:
 the integer paths are the same int64 arithmetic, and the kernels' f32
 operations are single-rounding intrinsics in the plain versions' order,
@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from idsp_tpu_torch import fxp
 from idsp_tpu_torch.design import Filter
 from idsp_tpu_torch.filters import biquad
 from idsp_tpu_torch.filters.biquad_cuda import (
@@ -100,6 +101,24 @@ from idsp_tpu_torch.filters.ddc_lockin_cuda import (
 from idsp_tpu_torch.filters.fm_cuda import fm_disc_bank, fm_disc_bank_plain
 from idsp_tpu_torch.filters.lowpass_cuda import lowpass_bank, lowpass_bank_plain
 from idsp_tpu_torch.filters.pll_cuda import pll_bank, pll_bank_plain
+from idsp_tpu_torch.filters import normal, rpll, svf, wdf
+from idsp_tpu_torch.filters.normal_cuda import (
+    normal_bank_f32,
+    normal_bank_f32_plain,
+    normal_bank_q,
+    normal_bank_q_plain,
+)
+from idsp_tpu_torch.filters.rpll_cuda import rpll_bank, rpll_bank_plain
+from idsp_tpu_torch.filters.svf_cuda import svf_bank, svf_bank_plain
+from idsp_tpu_torch.filters.wdf_cuda import (
+    WDF_MAX,
+    wdf_bank,
+    wdf_bank_plain,
+    wdf_chain_bank,
+    wdf_chain_bank_plain,
+    wdf_pair_bank,
+    wdf_pair_bank_plain,
+)
 from idsp_tpu_torch.pipelines import channelizer, fm_disc
 from idsp_tpu_torch.pipelines.channelizer_cuda import (
     channelize_fused,
@@ -1106,3 +1125,207 @@ def test_precision_banks_launch_after_refused_launch(cuda):
         got = kern(BA_Q, st, xs, 29, clamp=(0, -5, 5))
         want = plain(BA_Q, st, xs, 29, clamp=(0, -5, 5))
         _equal((tuple(got[0]), got[1]), (tuple(want[0]), want[1]))
+
+
+# --- K34-K40: the filter structures -------------------------------------------
+
+
+def _same(a, b):
+    """Every tensor of two nested results (tuples, lists, NamedTuples)
+    equal, dtype and shape too."""
+    if isinstance(a, (tuple, list)):
+        assert len(a) == len(b)
+        for u, v in zip(a, b):
+            _same(u, v)
+    else:
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b), (a != b).sum().item()
+
+
+def _structure_hold(kern, plain, carry, make, t):
+    """``kern`` == ``plain`` over 2 carried blocks of ``make(t)`` inputs,
+    then one block == its two halves; each called as ``fn(carry, *x)``."""
+    for _ in range(2):
+        x = make(t)
+        got = kern(carry, *x)
+        torch.cuda.synchronize()
+        _same(got, plain(carry, *x))
+        carry = got[0]
+    x = make(t)
+    whole = kern(carry, *x)
+    h = t // 2
+    first = kern(carry, *(v[:h].contiguous() for v in x))
+    second = kern(first[0], *(v[h:].contiguous() for v in x))
+    _same(second[0], whole[0])
+    outs = [first[1], second[1]]
+    if isinstance(whole[1], tuple):
+        _same(tuple(torch.cat(p) for p in zip(*outs)), whole[1])
+    else:
+        _same(torch.cat(outs), whole[1])
+
+
+CA7 = ([(0xAD, 2, [-0.9, 0.9]), (0xAD, 2, [-0.6, 0.7])],
+       [(0xAD, 2, [-0.7, 0.6]), (0xA, 1, [0.8])])
+CA19 = ([(0x1, 1, [0.0]), (0x1C, 2, [-0.226119, 0.0]),
+         (0x1D, 2, [-0.602422, 0.0]), (0x1D, 2, [-0.83932, 0.0]),
+         (0x1D, 2, [-0.950847, 0.0])],
+        [(0x1C, 2, [-0.063978, 0.0]), (0x1C, 2, [-0.423068, 0.0]),
+         (0x1D, 2, [-0.741327, 0.0]), (0x1D, 2, [-0.905567, 0.0]),
+         (0x1D, 2, [-0.984721, 0.0])])
+
+
+def _wdf_stages(spec):
+    return [(wdf.nibbles(m, n), wdf.quantize(wdf.nibbles(m, n), g))
+            for m, n, g in spec]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("output", ["lp", "hp", "bp", "br"])
+def test_svf_bank_kernel_equals_plain(cuda, output):
+    # 100 lanes and t = 1000: a ragged block of lanes and a tail of rows
+    c, t = 100, 1000
+    rng = np.random.default_rng(100)
+    f, qi = svf.coefficients(0.01, 0.7)
+
+    def make(rows):
+        return (torch.from_numpy(rng.normal(size=(rows, c)).astype(
+            np.float32)).to(cuda),)
+
+    st = svf.SvfState(*(torch.from_numpy(rng.normal(size=c).astype(
+        np.float32)).to(cuda) for _ in range(3)))
+    launches = svf_bank.launches
+    _structure_hold(lambda s, x: svf_bank(f, qi, s, x, output=output),
+                    lambda s, x: svf_bank_plain(f, qi, s, x, output=output),
+                    st, make, t)
+    assert svf_bank.launches - launches == 5
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("form", ["q29", "q29_full_range", "f32"])
+def test_normal_bank_kernels_equal_plain(cuda, form):
+    c, t = 100, 1000
+    rng = np.random.default_rng(101)
+    b, p = normal.from_cookbook(Filter().critical_frequency(0.06).lowpass())
+    if form == "f32":
+        kern, plain, args = normal_bank_f32, normal_bank_f32_plain, (b, p)
+
+        def make(shape):
+            return torch.from_numpy(rng.normal(size=shape).astype(
+                np.float32)).to(cuda)
+    else:
+        bq, pq = fxp.from_float(b, 29), fxp.from_float(p, 29)
+        kern, plain, args = normal_bank_q, normal_bank_q_plain, (bq, pq)
+        lim = 2**31 if form == "q29_full_range" else 2**24
+
+        def make(shape):
+            return _i32(rng, shape, -lim, lim, device=cuda)
+
+    _structure_hold(lambda s, x: kern(*args, s, x),
+                    lambda s, x: plain(*args, s, x),
+                    biquad.Df1State(x=make((c, 2)), y=make((c, 2))),
+                    lambda rows: (make((rows, c)),), t)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("sf", [9, 12, 32, 36, 40])
+def test_rpll_bank_kernel_equals_plain(cuda, sf):
+    """Full-range timestamps and state, at shifts below, at and above 32."""
+    c, t = 100, 1000
+    rng = np.random.default_rng(sf)
+    cfg = rpll.RpllConfig(dt2=8, shift_frequency=sf, shift_phase=11)
+
+    def make(rows):
+        return (_i32(rng, (rows, c), device=cuda),
+                torch.from_numpy(rng.random((rows, c)) < 0.3).to(cuda))
+
+    st = rpll.RpllState(*(_i32(rng, (c,), device=cuda) for _ in range(4)))
+    _structure_hold(lambda s, x, v: rpll_bank(cfg, s, x, v),
+                    lambda s, x, v: rpll_bank_plain(cfg, s, x, v), st, make,
+                    t)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["every-type", "bank", "chain-ca19",
+                                  "pair-ca7", "pair-ca19"])
+def test_wdf_kernels_equal_plain(cuda, kind):
+    c, t = 100, 300
+    rng = np.random.default_rng(len(kind))
+
+    def z(n):
+        return wdf.WdfState(z=_i32(rng, (c, n), device=cuda))
+
+    def make(rows):
+        return (_i32(rng, (rows, c), device=cuda),)
+
+    if kind == "every-type":
+        tp = [wdf.Tpa(v) for v in (0xA, 0xB, 0xE, 0x1, 0xC, 0xF, 0xD, 0x0)]
+        a = wdf.quantize(tp, [0.7, 0.3, 0.2, 0.0, -0.3, -0.45, -0.8, 0.0])
+        kern, plain = wdf_bank, wdf_bank_plain
+        args, st = (tp, a), z(8)
+    elif kind == "bank":
+        (tp, a), = _wdf_stages(CA7[0][:1])
+        kern, plain, args, st = wdf_bank, wdf_bank_plain, (tp, a), z(2)
+    elif kind == "chain-ca19":
+        kern, plain = wdf_chain_bank, wdf_chain_bank_plain
+        args = (_wdf_stages(CA19[0]),)
+        st = [z(n) for _, n, _ in CA19[0]]
+    else:
+        spec = CA7 if kind == "pair-ca7" else CA19
+        kern, plain = wdf_pair_bank, wdf_pair_bank_plain
+        args = tuple(_wdf_stages(br) for br in spec)
+        st = tuple([z(n) for _, n, _ in br] for br in spec)
+    launches = kern.launches
+    _structure_hold(lambda s, x: kern(*args, s, x),
+                    lambda s, x: plain(*args, s, x), st, make, t)
+    assert kern.launches - launches == 5
+
+
+@pytest.mark.requires_cuda
+def test_structures_wrappers_reject_bad_input(cuda):
+    c = 64
+    xf = torch.zeros((32, c), device=cuda)
+    xi = torch.zeros((32, c), dtype=torch.int32, device=cuda)
+    b, p = normal.from_cookbook(Filter().critical_frequency(0.06).lowpass())
+    bq, pq = fxp.from_float(b, 29), fxp.from_float(p, 29)
+    with pytest.raises(ValueError):  # float32 rows
+        svf_bank(0.1, 1.0, svf.init((c,), device=cuda), xi)
+    with pytest.raises(ValueError):  # no such output
+        svf_bank(0.1, 1.0, svf.init((c,), device=cuda), xf, output="x")
+    with pytest.raises(ValueError):  # int32 state
+        normal_bank_q(bq, pq, normal.init((c,), device=cuda), xi)
+    with pytest.raises(ValueError):  # p_im == INT32_MIN
+        normal_bank_q(bq, np.array([pq[0], -(2**31)], np.int32),
+                      normal.init((c,), torch.int32, device=cuda), xi)
+    with pytest.raises(ValueError):  # float32 rows
+        normal_bank_f32(b, p, normal.init((c,), device=cuda), xi)
+    with pytest.raises(ValueError):  # bool valids
+        rpll_bank(rpll.RpllConfig(8, 12, 11), rpll.init((c,), device=cuda),
+                  xi, xi)
+    with pytest.raises(ValueError):  # sf > 32 + dt2
+        rpll_bank(rpll.RpllConfig(8, 41, 11), rpll.init((c,), device=cuda),
+                  xi, xi.bool())
+    tp = wdf.nibbles(0xAD, 2)
+    with pytest.raises(ValueError):  # z is (c, 2)
+        wdf_bank(tp, wdf.quantize(tp, [-0.9, 0.9]),
+                 wdf.init(3, (c,), device=cuda), xi)
+    with pytest.raises(ValueError):  # one coefficient set per stage
+        wdf_bank(tp, np.zeros((c, 2), np.int32),
+                 wdf.init(2, (c,), device=cuda), xi)
+
+
+@pytest.mark.requires_cuda
+def test_wdf_chain_over_max_raises_and_leaves_no_pending_error(cuda):
+    """A chain of more than WDF_MAX adapters is refused before any launch,
+    never truncated, and the next launch runs as usual."""
+    c = 64
+    stages = _wdf_stages(CA19[0] + CA19[1] + CA7[0] + CA7[1])
+    assert sum(len(tp) for tp, _ in stages) > WDF_MAX
+    xi = torch.ones((64, c), dtype=torch.int32, device=cuda) << 20
+    states = [wdf.init(len(tp), (c,), device=cuda) for tp, _ in stages]
+    launches = wdf_chain_bank.launches
+    with pytest.raises(ValueError):
+        wdf_chain_bank(stages, states, xi)
+    assert wdf_chain_bank.launches == launches
+    ca19 = _wdf_stages(CA19[0])
+    st = [wdf.init(len(tp), (c,), device=cuda) for tp, _ in ca19]
+    _same(wdf_chain_bank(ca19, st, xi), wdf_chain_bank_plain(ca19, st, xi))
