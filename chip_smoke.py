@@ -12,8 +12,9 @@ CIC + half-band composite decimator, CIC interpolation), and BASELINE
 Stabilizer IIR control path (`compat.sos`, `compat.sos_clamp_wide`, the
 per-channel config bank `ConfigBank`), the biquad precision ladder
 (Q16, Q64, f32, dither and the runtime-coefficient wide and dither
-banks), and the filter structures (SVF, normal form, RPLL, WDF allpass
-chains and complementary pairs) -- through their kernel modes, checks
+banks), the filter structures (SVF, normal form, RPLL, WDF allpass
+chains and complementary pairs), and the scale-out layer on four
+processes sharing the card -- through their kernel modes, checks
 the results and times kernels, chain, banks, rate conversion, FM,
 lock-in, channelizer, control path, ladder and structures.
 Phases, each reported on its own line:
@@ -162,13 +163,34 @@ Phases, each reported on its own line:
      allpass; wdf-ca-7's complementary half-band (:80-114) on every lane
      and wdf-ca-19's response on lane 0 (:150-200: DC within 1e-5,
      ripple within 1e-5 dB, stopband below -75 dB);
+   * the scale-out layer (`idsp_tpu_torch.parallel`) on P_PAR = 4
+     processes sharing the card, spawned after the others (one gloo group
+     through `distributed.initialize_from_env` and `make_mesh`; K41 moves
+     every shift): K41 `halo_exchange_prev_rdma` against its plain version
+     (the gloo ring on CPU copies) on (8192, 1024) int32 and f32 blocks at
+     h = 1, 2, 90, 3 blocks back to back on the same slots, and the ring
+     of one (all fill), bit for bit; then, K41's count from 0 in every
+     rank, `sharded_hbf_dec` (rdma, HBF_TAPS[0], 1024 lanes of f32,
+     time-last, 3 blocks) within 2e-6 of `hbf_dec_block` on the whole
+     stream with the state bit for bit; `sharded_df1_q_relay` (Q29 at
+     0.05, 1024 lanes, one block) equal to `df1_process_q` over the whole
+     stream; `sharded_df1_float` (float64, 3 blocks) within 1e-9 + 1e-9
+     |y| of `df1_block_float`; `pipelined_sos_cascade_sharded` (4 Q29
+     stages at 0.05-0.14, 1024 lanes, 8 blocks of 4096) equal to the
+     stage-major sweep; `channelize_tp` (m = 1024, 8 taps, n = 1024, f32,
+     both ``out_mode``s, 3 blocks) within 2e-5 of `channelize`'s scale,
+     history bit for bit; `DdcChain` ``fold3`` on each rank's quarter of
+     c = 1024 channels equal to the whole bank's columns (3 blocks).  The
+     parent computes the relay's and the pipeline's references with the
+     plain scans while the ranks run;
    * BASELINE #3 (suite.py:960-1012): `channelize_planes` ``fused``
      (K17) and ``xla`` at m=1024, 8 taps, n=1024 (3 blocks) and 16384,
      bf16 and f32: fused within 2e-5 of the scale; a tone at channel 100
      through the fused path, p[100] > 1e4 x the rest at f32, > 10x at
      bf16;
 5. every kernel's launch counter > 0 from its main path's run (the
-   ``clamp=`` forms of K3 and K12 counted on their own);
+   ``clamp=`` forms of K3 and K12 counted on their own; K41 summed over
+   the ranks);
 6. CUDA-event times of each kernel and its plain version (one call of
    each plain version and ``scan``, `ONCE`), of the plain layers around
    them (exact mix, time-major HBF, fast mix, atan2),
@@ -191,6 +213,12 @@ Phases, each reported on its own line:
    phase 3 (K31 clamped and K32/K33 with a shared set on the log only);
    K34-K40 at c=1024 lanes with their rates and their plain versions'
    times from phase 3 (K40 over wdf-ca-7 on the log only);
+   K41 at h = 1, 2, 90 on (8192, 1024) f32 blocks, timed by the ranks
+   at the end of phase 4 once the parent is done: the median of 20 calls
+   with CUDA events (host gate included; 4 time-sliced processes on one
+   card, not link latency), its plain version's (host clock) and the
+   yardstick's, torch's own CUDA IPC (`peer_view.copy_` between two host
+   barriers);
    for each kernel mode, the device's busy
    share (`torch.profiler` device time over the CUDA-event block time)
    with each device event's span count and time; the run's wall time.
@@ -300,6 +328,17 @@ RPLL_SCENARIOS = {
     "wide-fast": ((8, 10, 9), 990, 351, 5, (2e-5, 3e-1, 2e-4, 2e-1),
                   1 << 16),
 }
+# The scale-out layer (`idsp_tpu_torch.parallel`) at P_PAR ranks, each a
+# process on card 0 in one gloo group (its CUDA all-reduce carries the
+# sums) with K41 for every shift; each rank holds a quarter of a t = T
+# stream of C_PAR lanes.
+P_PAR, C_PAR = 4, 1024
+T_LOC = T // P_PAR
+HALO_HS = (1, 2, 90)  # 90 = 4 * 23 - 2, the halo of HBF_TAPS[0]
+HALO_H, HALO_FILL = 90, -7  # the kernels line's h; test_halo_rdma's fill
+K41_ROUNDS = 20
+PIPE_NB, PIPE_FCS = 8, (0.05, 0.08, 0.11, 0.14)  # S = 4 Q29 stages
+PAR_SEED = 1234
 
 
 def fir_dec_ops(t, ms):
@@ -487,6 +526,11 @@ def work(name, c, t=T):
         return _w(4 * t * c * (3 if pair else 2)
                   + 8 * c * sum(n for _, n in stages), 0,
                   (4 * sum(arith) + 2 * pair) * t * c, t, 4 * max(arith))
+    if name == "halo_exchange_prev_rdma":  # K41 at c lanes of f32: the
+        # sender's HALO_H rows read once and the receiver's written once
+        # (the slot between is the kernel's own).  Latency, not bytes,
+        # bounds it: the flag round trip between processes.
+        return _w(2 * HALO_H * 4 * c, 0, 0, 0, 0)
     raise KeyError(name)
 
 
@@ -3107,6 +3151,389 @@ def time_structures(dev, rng, card, timings, plain_s):
             f"ms (phase 3)  [{card}]")
 
 
+def par_input(dev, seed, shape, dtype, lo=None, hi=None):
+    """A seeded input on the card, the same in every process: int32 in
+    [lo, hi), or a float ~ N(0, 1)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.int32:
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+    return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+
+def relay_inputs(dev):
+    """(ba, state, xs) of the relay leg: tests/test_sp_relay.py:18-35 at
+    C_PAR lanes and t = T."""
+    import torch
+    from idsp_tpu_torch.design import Filter
+    from idsp_tpu_torch.filters import biquad
+
+    ba = biquad.quantize_ba(
+        biquad.from_cookbook(Filter().critical_frequency(0.05).lowpass()), 29)
+    st = biquad.Df1State(
+        x=par_input(dev, PAR_SEED + 21, (C_PAR, 2), torch.int32, -(2**20),
+                    2**20),
+        y=par_input(dev, PAR_SEED + 22, (C_PAR, 2), torch.int32, -(2**20),
+                    2**20))
+    xs = par_input(dev, PAR_SEED + 20, (T, C_PAR), torch.int32, -(2**24),
+                   2**24)
+    return ba, st, xs
+
+
+def pipeline_inputs(dev):
+    """(stage coefficients, blocks) of the pipeline leg:
+    tests/test_pipeline_parallel.py:17-26 at C_PAR lanes, PIPE_NB blocks
+    of T / PIPE_NB rows."""
+    import torch
+    from idsp_tpu_torch.design import Filter
+    from idsp_tpu_torch.filters import biquad
+
+    bas = np.stack([biquad.quantize_ba(biquad.from_cookbook(
+        Filter().critical_frequency(fc).lowpass()), 29) for fc in PIPE_FCS])
+    return bas, par_input(dev, PAR_SEED + 40, (PIPE_NB, T // PIPE_NB, C_PAR),
+                          torch.int32, -(2**24), 2**24)
+
+
+def scale_out_rank(rank, port, refs_ready, results):
+    """A rank of phase 4 (scale-out); sends (rank, result) or (rank,
+    traceback) to ``results``."""
+    import traceback
+
+    try:
+        results.put((rank, _scale_out_rank(rank, port, refs_ready)))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def _event_ms(fn):
+    """CUDA-event milliseconds of one call that ends synchronized."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _k41_holds(dev, g, g1, rank):
+    """K41 against its plain version (the gloo ring on CPU copies of the
+    same blocks), 3 blocks back to back on the same slots, at every h of
+    HALO_HS in int32 and f32; on rank 0 also the ring of one.  Returns the
+    largest |d|."""
+    import torch
+    from idsp_tpu_torch.parallel.halo_rdma import halo_exchange_prev_rdma
+
+    rows = slice(rank * T_LOC, (rank + 1) * T_LOC)
+    err = 0.0
+    for dtype in (torch.int32, torch.float32):
+        for h in HALO_HS:
+            for b in range(BLOCKS):
+                x = par_input(dev, PAR_SEED + b, (T, C_PAR), dtype, -(2**30),
+                              2**30)[rows]
+                got = halo_exchange_prev_rdma(x, g, h, fill=HALO_FILL)
+                want = halo_exchange_prev_rdma(x.cpu(), g, h, fill=HALO_FILL)
+                err = max(err, compare(f"K41 {dtype} h={h}", got.cpu(), want))
+            if rank == 0:  # the ring of one: all fill
+                got = halo_exchange_prev_rdma(x, g1, h, fill=HALO_FILL)
+                want = halo_exchange_prev_rdma(x.cpu(), g1, h,
+                                               fill=HALO_FILL)
+                compare(f"K41 self ring h={h}", got.cpu(), want)
+                if not bool((want == HALO_FILL).all()):
+                    raise AssertionError("the ring of one is not all fill")
+    return err
+
+
+def _scale_out_legs(dev, mesh, g, rank, lines, out):
+    """The main path's legs on this rank; the relay's and the pipeline's
+    results go to ``out`` for the parent, the rest are held here."""
+    import torch
+    from idsp_tpu_torch.chain import DdcChain
+    from idsp_tpu_torch.design import Filter
+    from idsp_tpu_torch.filters import biquad, hbf
+    from idsp_tpu_torch.parallel.pipeline import run_pipelined_sos
+    from idsp_tpu_torch.parallel.stream import (
+        channel_slice, sharded_df1_float, sharded_df1_q_relay,
+        sharded_hbf_dec,
+    )
+    from idsp_tpu_torch.pipelines import channelizer as chz
+
+    rows = slice(rank * T_LOC, (rank + 1) * T_LOC)
+    taps = hbf.HBF_TAPS[0]
+    st = st_ref = hbf.hbf_dec_init(len(taps), (C_PAR,), device=dev)
+    worst = 0.0
+    for b in range(BLOCKS):
+        x = par_input(dev, PAR_SEED + 10 + b, (C_PAR, T), torch.float32)
+        st, y = sharded_hbf_dec(taps, st, x[:, rows], g, use_rdma=True)
+        st_ref, y_ref = hbf.hbf_dec_block(taps, st_ref, x)
+        want = y_ref[:, rank * T_LOC // 2:(rank + 1) * T_LOC // 2]
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError("sharded_hbf_dec: non-finite output")
+        worst = max(worst, near(y, want, 1.0, rel=2e-6))
+        compare("sharded_hbf_dec state", tuple(st), tuple(st_ref))
+    lines.append(f"rank {rank}: sharded_hbf_dec (rdma, m={len(taps)}, "
+                 f"{C_PAR} lanes, t_loc={T_LOC}) x {BLOCKS} blocks: max |y - "
+                 f"hbf_dec_block| {worst} (gate 2e-6), state bit for bit")
+
+    ba_q, st_q, xq = relay_inputs(dev)
+    st_q, ys_q = sharded_df1_q_relay(ba_q, st_q, xq[rows], 29, g)
+    out["relay"] = (st_q.x.cpu().numpy(), st_q.y.cpu().numpy(),
+                    ys_q.cpu().numpy())
+
+    ba_f = torch.from_numpy(biquad.from_cookbook(
+        Filter().critical_frequency(0.05).lowpass())).to(dev)
+    st_f = st_fr = biquad.Df1State(
+        x=par_input(dev, PAR_SEED + 30, (C_PAR, 2), torch.float64),
+        y=par_input(dev, PAR_SEED + 31, (C_PAR, 2), torch.float64))
+    worst = 0.0
+    for b in range(BLOCKS):
+        xf = par_input(dev, PAR_SEED + 32 + b, (T, C_PAR), torch.float64)
+        st_f, ys_f = sharded_df1_float(ba_f, st_f, xf[rows], g)
+        st_fr, ys_fr = biquad.df1_block_float(ba_f, st_fr, xf)
+        for got, want in ((ys_f, ys_fr[rows]), (st_f.y, st_fr.y)):
+            d = (got - want).abs()
+            worst = max(worst, float(d.max()))
+            if not bool((d <= 1e-9 + 1e-9 * want.abs()).all()):
+                raise AssertionError(f"sharded_df1_float off by {worst}")
+        compare("sharded_df1_float state.x", st_f.x, st_fr.x)
+    lines.append(f"rank {rank}: sharded_df1_float (f64, {C_PAR} lanes) x "
+                 f"{BLOCKS} blocks: max |d| vs df1_block_float {worst} (gate "
+                 f"1e-9 + 1e-9 |y|), state.x bit for bit")
+
+    bas, xp = pipeline_inputs(dev)
+    out["pipeline"] = run_pipelined_sos(mesh, bas, xp, 29, "sp",
+                                        shard_io=True).cpu().numpy()
+
+    m_loc = M_CH // P_PAR
+    ch = slice(rank * m_loc, (rank + 1) * m_loc)
+    for mode in ("replicated", "scatter"):
+        st_tp = chz.BankState(hist=torch.zeros((CH_TAPS - 1, m_loc, 2),
+                                               device=dev))
+        st_cr = chz.init(M_CH, CH_TAPS, device=dev)
+        worst = 0.0
+        for b in range(BLOCKS):
+            xc = par_input(dev, PAR_SEED + 50 + b, (N_CH[0], M_CH, 2),
+                           torch.float32)
+            st_tp, y = chz.channelize_tp(st_tp, xc[:, ch], g, m=M_CH,
+                                         taps=CH_TAPS, out_mode=mode)
+            st_cr, y_ref = chz.channelize(st_cr, xc, m=M_CH, taps=CH_TAPS)
+            want = y_ref if mode == "replicated" else y_ref[:, ch]
+            worst = max(worst, near(y, want, float(y_ref.abs().max())))
+            compare("channelize_tp history", st_tp.hist,
+                    st_cr.hist[:, ch].contiguous())
+        lines.append(f"rank {rank}: channelize_tp {mode} (m={M_CH}, n="
+                     f"{N_CH[0]}) x {BLOCKS} blocks: max |d| vs channelize "
+                     f"{worst} (gate 2e-5 of the scale), history bit for bit")
+
+    ba = biquad.quantize_ba(
+        biquad.from_cookbook(Filter().critical_frequency(0.02).lowpass()), 29)
+    steps = par_input(dev, PAR_SEED + 60, (C_PAR,), torch.int32, 1 << 24,
+                      1 << 30)
+    part = DdcChain("fold3", channel_slice(steps, g), ba, time_chunk=TC)
+    whole = DdcChain("fold3", steps, ba, time_chunk=TC)
+    s_part, s_whole = part.init_state(), whole.init_state()
+    cols = slice(rank * C_PAR // P_PAR, (rank + 1) * C_PAR // P_PAR)
+    for b in range(BLOCKS):
+        x = par_input(dev, PAR_SEED + 61 + b, (T,), torch.int32, -(2**27),
+                      2**27)
+        s_part, zp = part(s_part, x)
+        s_whole, zw = whole(s_whole, x)
+        compare("DdcChain fold3 on a channel slice", zp,
+                tuple(z[:, cols] for z in zw))
+    lines.append(f"rank {rank}: DdcChain fold3 on channels {cols.start}:"
+                 f"{cols.stop} of {C_PAR} x {BLOCKS} blocks == the whole "
+                 f"bank's columns bit for bit")
+
+
+def _k41_times(dev, g, rank):
+    """{h: {ms, plain_ms, library_ms}}: medians of K41_ROUNDS calls of K41
+    (CUDA events, its host gate included), of its plain version (host
+    clock) and of the yardstick, torch's own CUDA IPC."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
+    from idsp_tpu_torch.parallel import halo_rdma
+    from idsp_tpu_torch.parallel.halo_rdma import halo_exchange_prev_rdma
+
+    rows = slice(rank * T_LOC, (rank + 1) * T_LOC)
+    x = par_input(dev, PAR_SEED, (T, C_PAR), torch.float32)[rows]
+    xc = x.cpu()
+    times = {}
+    for h in HALO_HS:
+        k41 = [_event_ms(lambda: halo_exchange_prev_rdma(x, g, h,
+                                                          fill=HALO_FILL))
+               for _ in range(K41_ROUNDS)]
+        plain = []
+        for _ in range(K41_ROUNDS):
+            t1 = time.perf_counter()
+            halo_exchange_prev_rdma(xc, g, h, fill=HALO_FILL)
+            plain.append((time.perf_counter() - t1) * 1e3)
+        # the yardstick: torch's own CUDA IPC (a tensor shared as
+        # torch.multiprocessing shares it), peer_view.copy_ under the host
+        # barrier, a second barrier to tell the receiver
+        recv = torch.empty((h, C_PAR), dtype=torch.float32, device=dev)
+        rebuild, args = reduce_tensor(recv)
+        shared = [None] * P_PAR
+        dist.all_gather_object(shared, args, group=g)
+        peer_view = rebuild(*shared[(rank + 1) % P_PAR])
+
+        def ipc_copy():
+            torch.cuda.current_stream().synchronize()
+            dist.barrier(group=g)
+            peer_view.copy_(x[-h:])
+            torch.cuda.current_stream().synchronize()
+            dist.barrier(group=g)
+
+        ipc = [_event_ms(ipc_copy) for _ in range(K41_ROUNDS)]
+        compare(f"IPC copy_ yardstick h={h} vs K41", recv,
+                halo_rdma.ring_put(x[-h:], g))
+        times[h] = {"ms": statistics.median(k41),
+                    "plain_ms": statistics.median(plain),
+                    "library_ms": statistics.median(ipc)}
+        del peer_view
+        dist.barrier(group=g)
+    return times
+
+
+def _scale_out_rank(rank, port, refs_ready):
+    """One rank: K41 against its plain version, the main path's legs (K41
+    launches counted), then the timings.  Returns numpy and numbers."""
+    import torch
+    import torch.distributed as dist
+    from idsp_tpu_torch.parallel import distributed, halo_rdma, make_mesh
+    from idsp_tpu_torch.parallel.halo_rdma import halo_exchange_prev_rdma
+
+    t_start = time.perf_counter()
+    distributed.initialize_from_env(f"tcp://localhost:{port}", P_PAR, rank)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh({"sp": P_PAR})
+    g = mesh.get_group("sp")
+    g1 = dist.new_group([0])  # the ring of one, on rank 0
+    lines, out = [], {}
+    lines.append(f"rank {rank}: up in {time.perf_counter() - t_start:.1f} s,"
+                 f" {dist.get_backend()} group of {dist.get_world_size(g)} on"
+                 f" {dev}")
+    out["err"] = _k41_holds(dev, g, g1, rank)
+
+    # the main path; K41's count from 0
+    halo_exchange_prev_rdma.launches = 0
+    t0 = time.perf_counter()
+    _scale_out_legs(dev, mesh, g, rank, lines, out)
+    torch.cuda.synchronize()
+    out["launches"] = halo_exchange_prev_rdma.launches
+    out["main_s"] = time.perf_counter() - t0
+    lines.append(f"rank {rank}: main path {out['main_s']:.1f} s, K41 "
+                 f"launches {out['launches']}")
+
+    # times, once the parent no longer uses the card for its references
+    if not refs_ready.wait(timeout=600):
+        raise RuntimeError("the parent's references never came")
+    out["times"] = _k41_times(dev, g, rank)
+    halo_rdma.close(g)
+    if rank == 0:
+        halo_rdma.close(g1)
+    dist.destroy_process_group()
+    out["lines"] = lines
+    return out
+
+
+def scale_out_main_path(dev):
+    """Phase 4 (scale-out): spawns P_PAR ranks on the card, computes the
+    relay's and the pipeline's references with the plain scans while they
+    run, holds their results, and returns (K41 launches summed over the
+    ranks, K41's max |d| against its plain version, rank 0's times per
+    h)."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as tmp
+    from idsp_tpu_torch.filters import biquad
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the earlier phases' blocks, for the ranks
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = tmp.get_context("spawn")
+    results, refs_ready = ctx.Queue(), ctx.Event()
+    procs = [ctx.Process(target=scale_out_rank,
+                         args=(r, port, refs_ready, results))
+             for r in range(P_PAR)]
+    for q in procs:
+        q.start()
+    got = {}
+    try:
+        ba_q, st_q, xq = relay_inputs(dev)
+        st_ref, ys_ref = biquad.df1_process_q(ba_q, 29, st_q, xq)
+        bas, xp = pipeline_inputs(dev)
+        y = xp.reshape(T, C_PAR)
+        for ba in bas:  # the stage-major sweep
+            _, y = biquad.df1_process_q(ba, 29, biquad.df1_init(
+                (C_PAR,), device=dev), y)
+        sweep = y.reshape(xp.shape).cpu().numpy()
+        ys_ref, st_ref = ys_ref.cpu().numpy(), tuple(
+            v.cpu().numpy() for v in st_ref)
+        t_refs = time.perf_counter() - t0
+        refs_ready.set()
+        for _ in range(P_PAR):
+            rank, out = results.get(timeout=900)
+            if isinstance(out, str):
+                raise RuntimeError(f"scale-out rank {rank} failed:\n{out}")
+            got[rank] = out
+    finally:
+        refs_ready.set()
+        for q in procs:
+            q.join(timeout=60)
+            if q.is_alive():
+                q.kill()
+                q.join()
+    if any(q.exitcode != 0 for q in procs):
+        raise RuntimeError(f"scale-out ranks exited with "
+                           f"{[q.exitcode for q in procs]}")
+    wall = time.perf_counter() - t0
+    for r in range(P_PAR):
+        for line in got[r]["lines"]:
+            log(f"phase 4 scale-out {line}")
+    ys = np.concatenate([got[r]["relay"][2] for r in range(P_PAR)])
+    if not np.array_equal(ys, ys_ref) or not all(
+            np.array_equal(got[r]["relay"][i], st_ref[i])
+            for r in range(P_PAR) for i in (0, 1)):
+        raise AssertionError("sharded_df1_q_relay differs from df1_process_q")
+    log(f"phase 4 scale-out sharded_df1_q_relay (Q29 at 0.05, {C_PAR} lanes,"
+        f" t={T} over {P_PAR} ranks): outputs and the replicated state == "
+        f"df1_process_q over the whole stream, bit for bit")
+    for b in range(PIPE_NB):
+        if not np.array_equal(got[b % P_PAR]["pipeline"][b // P_PAR],
+                              sweep[b]):
+            raise AssertionError(f"pipelined_sos_cascade_sharded block {b} "
+                                 "differs from the stage-major sweep")
+    log(f"phase 4 scale-out pipelined_sos_cascade_sharded (S={P_PAR} Q29 "
+        f"stages {PIPE_FCS}, {C_PAR} lanes, {PIPE_NB} blocks of "
+        f"{T // PIPE_NB}) == the stage-major sweep, bit for bit")
+    launches = sum(got[r]["launches"] for r in range(P_PAR))
+    err = max(got[r]["err"] for r in range(P_PAR))
+    for h in HALO_HS:
+        per = ", ".join(
+            f"rank {r} {got[r]['times'][h]['ms']:.4f}/"
+            f"{got[r]['times'][h]['plain_ms']:.4f}/"
+            f"{got[r]['times'][h]['library_ms']:.4f}" for r in range(P_PAR))
+        log(f"phase 4 scale-out K41 h={h} ({h} x {C_PAR} f32), median of "
+            f"{K41_ROUNDS} calls, ms kernel/plain/IPC copy_: {per} "
+            f"({P_PAR} time-sliced processes on one card, host gate "
+            f"included: not link latency)")
+    log(f"phase 4 scale-out: {P_PAR} ranks, K41 launches {launches} "
+        f"(per rank {[got[r]['launches'] for r in range(P_PAR)]}), max |d| "
+        f"vs plain {err}; references {t_refs:.1f} s; phase wall {wall:.1f} s")
+    return launches, err, got[0]["times"], wall
+
+
 def main():
     wall0 = time.perf_counter()
     import torch
@@ -3533,6 +3960,10 @@ def main():
     counts = structures_main_path(dev, rng, wrappers)
     for k in structure_kernels:
         launches[k] = counts[k]
+
+    # ---- phase 4 (scale-out): the parallel layer on P_PAR ranks --------
+    (launches["halo_exchange_prev_rdma"], errs["halo_exchange_prev_rdma"],
+     k41_times, _) = scale_out_main_path(dev)
     log(f"phase 4 done at {time.perf_counter() - wall0:.1f} s")
 
     # ---- phase 5: the main paths went through every kernel ------------
@@ -3729,6 +4160,9 @@ def main():
     time_control(dev, i32, card, timings, plain_s)
     time_precision(dev, rng, card, timings, plain_s)
     time_structures(dev, rng, card, timings, plain_s)
+    # K41, timed in phase 4 by the ranks (rank 0's medians)
+    timings["kernels"]["halo_exchange_prev_rdma"] = {C_PAR: k41_times[HALO_H]}
+    timings["halo_exchange_prev_rdma_by_h"] = k41_times
     print(json.dumps({"timings": timings}), flush=True)
 
     sources = {
@@ -3817,6 +4251,8 @@ def main():
                            "idsp_tpu/filters/wdf_pallas.py:220"),
         "wdf_pair_bank": ("idsp_tpu_torch/csrc/wdf_bank.cu",
                           "idsp_tpu/filters/wdf_pallas.py:280"),
+        "halo_exchange_prev_rdma": ("idsp_tpu_torch/csrc/halo.cu",
+                                    "idsp_tpu/parallel/halo_rdma.py:30"),
     }
     sm_mhz = sm_clock_mhz()
     kernels = []
@@ -3826,6 +4262,7 @@ def main():
              + clamp_kernels[3:] else C_CTL if name in control_kernels
              else C_PREC if name in precision_kernels
              else C_STRUCT if name in structure_kernels
+             else C_PAR if name == "halo_exchange_prev_rdma"
              else slice5_c.get(name, C_RATE))
         timed = timings["kernels"][name][c]
         bound_ms, bound_by, _ = bounds(name, c, sm_mhz)

@@ -45,7 +45,12 @@ public layouts:
   `normal_bank_q`, K36 `normal_bank_f32`), the reciprocal PLL over
   masked timestamps (`filters.rpll`, K37 `rpll_bank`) and the
   wave-digital allpass chains and complementary pairs (`filters.wdf`, K38
-  `wdf_bank`, K39 `wdf_chain_bank`, K40 `wdf_pair_bank`).
+  `wdf_bank`, K39 `wdf_chain_bank`, K40 `wdf_pair_bank`);
+* the scale-out layer over `torch.distributed` (`parallel`): meshes,
+  multi-process start-up, time-sharded halos (K41
+  `halo_exchange_prev_rdma`, a CUDA IPC peer put), the sharded float and
+  fixed-point DF1s and half-band decimator, channel sharding, pipelined
+  SOS cascades, and the tensor-parallel `channelizer.channelize_tp`.
 
 Layouts: time-major ``(t, 2c)`` lanes, I in ``[0, c)`` and Q in
 ``[c, 2c)``; ``Df1State.x/.y`` of shape ``(lanes, 2)``;
@@ -71,6 +76,7 @@ Importing this package imports torch and numpy only — never jax.
 """
 
 from . import compat, design, fxp, luts, masked  # noqa: F401
+from . import parallel  # noqa: F401
 from .ops import accu, fastlo, trig  # noqa: F401
 from .ops.trig import cossin  # noqa: F401
 from .filters import cic, hbf, normal, rpll, svf, wdf  # noqa: F401
@@ -123,7 +129,8 @@ __all__ = ["DdcBankBiquad", "DdcBankBiquadState", "DdcLockinBank",
            "fastlo_ddc_bank_block", "fastlo_df1_dec_bank", "fm_disc",
            "fm_disc_bank", "fxp", "hbf", "hbf_dec_cascade_mxu",
            "hbf_int_cascade_mxu", "init_biquad", "luts", "masked",
-           "normal", "normal_bank_f32", "normal_bank_q", "rate_conversion",
+           "normal", "normal_bank_f32", "normal_bank_q", "parallel",
+           "rate_conversion",
            "rpll", "rpll_bank", "sos_bank_q", "svf", "svf_bank", "trig",
            "wdf", "wdf_bank", "wdf_chain_bank", "wdf_pair_bank"]
 

@@ -6,8 +6,9 @@ shared library with a plain C interface, under ``build/idsp_tpu_torch/``
 at the root of the checkout, keyed by a hash of the sources, the nvcc
 path and version, and torch's CUDA version.  The
 library is loaded with ctypes: pointers and the stream go as
-``c_void_p``, sizes as ``c_int``, f32 coefficients as ``c_float``, int64
-ones as ``c_longlong``.
+``c_void_p``, sizes as ``c_int`` (byte counts and epochs as
+``c_longlong``), f32 coefficients as ``c_float``, int64 ones as
+``c_longlong``.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; `check` raises if that is not 0.
 
@@ -74,6 +75,12 @@ _SIGNATURES = {
     "idsp_normal_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P],
     "idsp_rpll_bank": [_P] * 12 + [_I] * 5 + [_P],
     "idsp_wdf_bank": [_P] * 8 + [_I] * 4 + [_P],
+    "idsp_halo_slot_alloc": [_L, _P, _P],
+    "idsp_halo_slot_open": [_P, _P],
+    "idsp_halo_slot_close": [_P],
+    "idsp_halo_slot_free": [_P],
+    "idsp_halo_max_blocks": [],
+    "idsp_halo_put": [_P] * 4 + [_L, _I, _L, _L, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -11,8 +11,9 @@ exp(-2 pi j k m / M)``, unnormalized.
 
 `channelize_planes` takes I/Q planes ``(..., n, m)``; ``impl="xla"`` is
 the plain composition (the JAX package's name for it: there XLA runs
-it), ``impl="fused"`` the one-kernel K17 `channelize_fused`.  The
-tensor-parallel `channelize_tp` waits for the port's ``parallel/``.
+it), ``impl="fused"`` the one-kernel K17 `channelize_fused`.
+`channelize_tp` is the tensor-parallel form over a `torch.distributed`
+group (the branch axis split over the ranks).
 """
 
 from __future__ import annotations
@@ -188,6 +189,70 @@ def channelize(state: BankState, x, proto=None, *, m: int = 4, taps: int = 8,
                                     taps=taps, dft=dft)
     return (BankState(hist=torch.stack([pst.hist_r, pst.hist_i], dim=-1)),
             torch.stack([yr, yi], dim=-1))
+
+
+def channelize_tp(state: BankState, x_local, group=None, *, m: int,
+                  taps: int = 8, proto=None, out_mode: str = "replicated"):
+    """Tensor-parallel channelizer: the DFT *contraction* axis (the
+    polyphase branches k) split over the ranks of ``group``.
+
+    Each rank runs the polyphase FIR on its ``m/P`` branch slice and
+    contributes a partial DFT for ALL output channels; one sum over the
+    ranks combines the partials -- the tensor-parallel matmul pattern
+    (split the contraction axis, all-reduce the output) applied to the
+    channelizer's DFT (polyphase_channelizer.rs:77-101).  The per-rank
+    body of a `torch.distributed` program (JAX: a `shard_map` body).
+
+    Args:
+      state: this rank's BankState, hist (..., taps-1, m_loc, 2).
+      x_local: (..., n, m_loc, 2), this rank's branch slice of the (..., n,
+        m, 2) frame stream (rank r holds branches [r m_loc, (r+1) m_loc)).
+
+    Returns (state, y).  ``out_mode="replicated"`` sums the partials on
+    every rank, y the full (..., n, m, 2); ``"scatter"`` reduce-scatters
+    over the output-channel axis, y this rank's (..., n, m/P, 2) slice --
+    1/P of the collective's output bytes, for a consumer that is itself
+    channel-sharded.  Matches `channelize` up to f32 summation order (the
+    sum over ranks reassociates the k-sum).
+    """
+    from ..parallel import _comm
+
+    p, idx = _comm.size(group), _comm.rank(group)
+    if m % p:
+        raise ValueError(f"m={m} branches do not split over {p} ranks")
+    m_loc = x_local.shape[-2]
+    if m_loc * p != m:
+        raise ValueError(f"x_local holds {m_loc} branches, not m/P = {m // p}")
+    if out_mode not in ("replicated", "scatter"):
+        raise ValueError(f"unknown out_mode {out_mode!r}")
+    rows = slice(idx * m_loc, (idx + 1) * m_loc)
+    dev = x_local.device
+    coeff = torch.from_numpy(np.ascontiguousarray(
+        coefficients(proto, m, taps)[:, rows])).to(dev)  # (taps, m_loc)
+
+    n = x_local.shape[-3]
+    ext = torch.cat([state.hist, x_local], dim=-3)
+    acc = None
+    for tap in range(taps):
+        term = ext[..., taps - 1 - tap:taps - 1 - tap + n, :, :] * coeff[
+            tap][:, None]
+        acc = term if acc is None else acc + term
+    new_hist = ext[..., n:, :, :].clone()
+
+    # partial DFT from this rank's k rows, real/imag planes
+    w = _dft_matrix(m)[rows]
+    wr, wi = (torch.from_numpy(np.ascontiguousarray(
+        part(w).astype(np.float32))).to(dev) for part in (np.real, np.imag))
+    zr, zi = acc[..., 0], acc[..., 1]  # (..., n, m_loc)
+    with full_f32_matmul():
+        yr = zr @ wr - zi @ wi
+        yi = zr @ wi + zi @ wr
+    stacked = torch.stack([yr, yi], dim=-1)
+    if out_mode == "scatter":
+        y = _comm.psum_scatter(stacked, group, dim=-2)
+    else:
+        y = _comm.psum(stacked, group)
+    return BankState(hist=new_hist), y
 
 
 def frames_from_stream(x_iq, m: int):

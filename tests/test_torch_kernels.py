@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K40 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K41 against their plain PyTorch versions, on the card.
 
 Marked ``requires_cuda``; each test skips (inside its fixture) where no
 CUDA device is present.  No jax here, so the file also runs where only
@@ -13,7 +13,9 @@ operations are single-rounding intrinsics in the plain versions' order,
 as eager PyTorch rounds each operation.  K17's matrix products sum in
 another order than torch.matmul: its outputs are held within 2e-5 of
 the output scale (the JAX package's own fused-vs-planes gate), its
-history bit for bit.
+history bit for bit.  K41 (the peer put of `halo_exchange_prev_rdma`)
+runs in 2 spawned processes on one card (`torch_ranks.spawn`), against
+the gloo ring on CPU copies, bit for bit.
 """
 
 import numpy as np
@@ -1329,3 +1331,47 @@ def test_wdf_chain_over_max_raises_and_leaves_no_pending_error(cuda):
     ca19 = _wdf_stages(CA19[0])
     st = [wdf.init(len(tp), (c,), device=cuda) for tp, _ in ca19]
     _same(wdf_chain_bank(ca19, st, xi), wdf_chain_bank_plain(ca19, st, xi))
+
+
+# K41 cases: (dtype, lanes, h) -- 16-byte words (f32 and f64 rows, several
+# blocks at h = 90), 4-byte (int32 rows of 12 bytes) and 1-byte (int8)
+K41_CASES = {"i32x8_h3": (np.int32, 8, 3),
+             "f32x1024_h90": (np.float32, 1024, 90),
+             "i32x3_h3": (np.int32, 3, 3), "i8x3_h3": (np.int8, 3, 3),
+             "f64x1024_h2": (np.float64, 1024, 2)}
+
+
+@pytest.fixture(scope="module")
+def k41_runs():
+    """Every K41 case in one spawn of 2 ranks on card 0 (the library built
+    here first, so the ranks find it and run no nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: compares a CUDA kernel with its "
+                    "plain PyTorch version")
+    import torch_ranks
+    from idsp_tpu_torch import _ext
+
+    _ext.library()
+    rng = np.random.default_rng(41)
+    blocks = {k: [rng.integers(-100, 100, size=(2 * 96, c)).astype(dt)
+                  for _ in range(3)] for k, (dt, c, _) in K41_CASES.items()}
+    cases = {k: ("halo_rdma_vs_plain", 2, dict(xs=blocks[k], h=h, fill=-7))
+             for k, (_, _, h) in K41_CASES.items()}
+    return blocks, torch_ranks.spawn(2, cases, device="cuda")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", sorted(K41_CASES))
+def test_halo_exchange_prev_rdma_kernel_equals_plain(k41_runs, case):
+    """Three puts back to back on the same slots (epochs 1-3): each rank's
+    halo equals the plain version's and the left block's last h rows."""
+    blocks, runs = k41_runs
+    h = K41_CASES[case][2]
+    for r, out in enumerate(runs):
+        same, launches, got = out[case]
+        assert same and launches == 3
+        for x, g in zip(blocks[case], got):
+            want = (np.full_like(x[:h], -7) if r == 0
+                    else np.split(x, 2)[r - 1][-h:])
+            np.testing.assert_array_equal(g, want)
+    assert not any(out["jax_imported"] for out in runs)
