@@ -27,7 +27,10 @@ Phases, each reported on its own line:
    `lowpass_bank` (dec 16), K5 `pll_bank` (t/16 rows) and K6
    `fastlo_ddc_bank_block_lp` at c=1024 (2048 lanes), d=16; K7
    `hbf_dec_cascade_bank` (depth 4, (32768, 512) f32), K8
-   `hbf_int_cascade_bank` (depth 4, (2048, 512) f32), K9 `cic_dec_bank`
+   `hbf_int_cascade_bank` (depth 4, (2048, 512) f32), each also from a
+   random carried state at HBF_RANGE_CASES (depths 1-4, c=512 and the
+   ragged c=200, HBF_TAPS and HBF_TAPS_98, forced range counts from one
+   to one row a range), K9 `cic_dec_bank`
    (N=3, R=16, (32768, 512) i32 in +-2^16) and K10 `cic_int_bank`
    ((2048, 512) i32 in +-2^10); K11 `df1_bank_q_dec`, K12
    `fastlo_df1_dec_bank` and K13 `fastlo_ddc_bank_block` at c=1024,
@@ -199,7 +202,10 @@ Phases, each reported on its own line:
    t=32768 (K14, K18-K21 and K3's clamp form at c=512 and 1024, their
    plain versions' times from phase 3; K11-K13, K12's clamp form and the
    biquad bank's five modes at c=1024); K7-K10 and K22-K23 (also at
-   their second tiling) at c=512 and 1024 beside their
+   their second tiling; K7, K8, K22 and K23 also by their profiler
+   spans, device ms a launch, and K7/K8 so at the chunks of HBF_CHUNKS
+   and the range counts of HBF_BLOCKS_PER_SM blocks an SM) at c=512 and
+   1024 beside their
    library yardsticks (grouped `F.conv1d` per half-band stage, TF32
    off; chained `torch.cumsum` and `torch.diff` for the CIC),
    round-trip and composite
@@ -278,6 +284,20 @@ ONCE = {"iters": 1, "trials": 1, "warmup": False}
 M_DEC3, M_DEC4, M_INT4 = (5, 10, 23), (4, 5, 10, 23), (23, 10, 5, 4)
 # K22/K23's (block, sub) tilings in phase 3: the defaults first
 MXU_DEC_TILES, MXU_INT_TILES = ((256, 32), (1024, 8)), ((64, 32), (16, 4))
+# K7/K8 in phase 3 beside the default launch: (depth, c, forced ranges,
+# taps); None is the default count, 10**6 one output row a range
+HBF_RANGE_CASES = ((1, 200, 3, "HBF_TAPS_98"), (2, C_RATE, 1, "HBF_TAPS"),
+                   (3, 200, None, "HBF_TAPS"), (4, C_RATE, 2, "HBF_TAPS"),
+                   (4, 200, 64, "HBF_TAPS_98"), (4, C_RATE, 10**6, "HBF_TAPS"))
+# K7/K8 in phase 6 at other chunks and range counts (blocks an SM)
+HBF_CHUNKS = {"hbf_dec_cascade_bank": (128, 256, 512),
+              "hbf_int_cascade_bank": (16, 32, 64)}
+HBF_BLOCKS_PER_SM = (1, 2, 4, 8)
+# the device symbols of the half-band cascade kernels, for their device time
+HBF_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
+               "hbf_int_cascade_bank": "hbf_int_cascade_kernel",
+               "hbf_dec_cascade_mxu": "hbf_dec_mxu_kernel",
+               "hbf_int_cascade_mxu": "hbf_int_mxu_kernel"}
 # The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
 # the chain's mixed stream the 0.02 lowpass output peaks near 2.6e7, under
 # the 2^26 bound of tests/test_biquad_pallas.py:896, so that bound never
@@ -706,6 +726,35 @@ def check_rate_kernels(dev, rng, errs):
         log(f"phase 3 {tag} {name} == plain over {BLOCKS} blocks (c={c}, "
             f"x {tuple(args[0].shape)}): max |d| {err}")
 
+    # K7/K8 at forced range counts, a ragged lane tile, both tap tables and
+    # every depth, from a random carried state
+    for tag, kern, plain in (
+            ("K7", hbf_dec_cascade_bank, hbf_dec_cascade_bank_plain),
+            ("K8", hbf_int_cascade_bank, hbf_int_cascade_bank_plain)):
+        name, err = kern.__name__, 0.0
+        for depth, cc, ranges, tname in HBF_RANGE_CASES:
+            taps = getattr(hbf, tname)
+            if tag == "K7":
+                st0 = tuple(hbf.HbfDecState(normal(s.odd.shape),
+                                            normal(s.even.shape))
+                            for s in hbf.hbf_dec_cascade_init(
+                                depth, (cc,), taps=taps, axis=0, device=dev))
+                rows = T
+            else:
+                st0 = tuple(hbf.HbfIntState(normal(s.x.shape))
+                            for s in hbf.hbf_int_cascade_init(
+                                depth, (cc,), taps=taps, axis=0, device=dev))
+                rows = T >> depth
+            err = max(err, hold(
+                name,
+                lambda s, x: kern(s, x, taps=taps, ranges=ranges),
+                lambda s, x: plain(s, x, taps=taps), (st0,),
+                lambda: normal((rows, cc))))
+        errs[name] = max(errs[name], err)
+        log(f"phase 3 {tag} {name} == plain over {BLOCKS} blocks from a "
+            f"random state at (depth, c, ranges, taps) {HBF_RANGE_CASES}: "
+            f"max |d| {err}")
+
 
 def ulp_bound(ref, k):
     """k * spacing(max |ref|) in f32 (tests/test_hbf_pallas.py:23-27)."""
@@ -1048,7 +1097,7 @@ def time_rate(dev, rng, card, timings):
         cic_dec_bank, cic_dec_bank_plain, cic_int_bank, cic_int_bank_plain,
     )
     from idsp_tpu_torch.filters.hbf_cuda import (
-        hbf_dec_cascade_bank, hbf_dec_cascade_bank_plain,
+        LANES, hbf_dec_cascade_bank, hbf_dec_cascade_bank_plain,
         hbf_int_cascade_bank, hbf_int_cascade_bank_plain,
     )
     from idsp_tpu_torch.filters.hbf_mxu import (
@@ -1102,9 +1151,14 @@ def time_rate(dev, rng, card, timings):
             timings["kernels"].setdefault(name, {})[c] = {
                 "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
                 "library_ms": l_s * 1e3}
-            log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
-                f"{p_s * 1e3:.4f} ms, library {l_s * 1e3:.4f} ms (max |d| "
-                f"library vs kernel {lib_d:.3e}, scale "
+            note = ""
+            if name in HBF_SYMBOLS:
+                dev_ms = launch_device_ms(name, kern, st)
+                timings["kernels"][name][c]["device_ms"] = dev_ms
+                note = f", device {dev_ms} ms a launch (profiler spans)"
+            log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms{note}, "
+                f"plain {p_s * 1e3:.4f} ms, library {l_s * 1e3:.4f} ms (max "
+                f"|d| library vs kernel {lib_d:.3e}, scale "
                 f"{float(ker_out.abs().max()):.3e})  [{card}]")
 
         # K22/K23 at their second phase-3 tiling
@@ -1120,6 +1174,24 @@ def time_rate(dev, rng, card, timings):
                 f"{block},{sub}": k_s * 1e3}
             log(f"phase 6 c={c} {name} (block={block}, sub={sub}): kernel "
                 f"{k_s * 1e3:.4f} ms  [{card}]")
+
+        # K7/K8 at other chunks and range counts, device time a launch
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        tiles = -(-c // LANES)
+        for name, kern, st, xb in (
+                ("hbf_dec_cascade_bank", hbf_dec_cascade_bank, dec0, x),
+                ("hbf_int_cascade_bank", hbf_int_cascade_bank, int0, low)):
+            sweep = timings["kernels"][name][c]["device_ms_sweep"] = {}
+            for tc in HBF_CHUNKS[name]:
+                for k in HBF_BLOCKS_PER_SM:
+                    r = -(-k * sms // tiles)
+                    dev_ms = launch_device_ms(
+                        name, lambda s, tc=tc, r=r: kern(
+                            s, xb, time_chunk=tc, ranges=r), st)
+                    sweep[f"{tc},{r}"] = dev_ms
+                    log(f"phase 6 c={c} {name} (time_chunk={tc}, ranges={r}:"
+                        f" {k} blocks an SM): device {dev_ms} ms a launch  "
+                        f"[{card}]")
 
         def comp(s, xb, uk):
             return rc.cic_hbf_decimate_t(s[0], s[1], xb, 3, 2, use_kernel=uk)
@@ -1140,6 +1212,19 @@ def time_rate(dev, rng, card, timings):
                 f"{rate_s:.6e} samples/s (c*t)  [{card}]")
             if "kernel" in name or "mxu" in name:
                 log_busy(timings, name, c, sec, card, step, st, xb)
+
+
+def launch_device_ms(name, step, state, iters=20):
+    """Device ms of one launch of ``name``'s kernel (HBF_SYMBOLS): the
+    profiler's spans of it over ``iters`` chained calls of ``step``
+    (`profiling.busy_share`), per call; None if it recorded none.  For
+    kernels of tenths of a millisecond, whose CUDA-event time takes in
+    the wrapper's host work between launches."""
+    from idsp_tpu_torch.profiling import busy_share
+
+    _, _, by_name = busy_share(step, state, iters=iters)
+    secs = [s for k, (_, s) in by_name.items() if HBF_SYMBOLS[name] in k]
+    return round(sum(secs) * 1e3, 4) if secs else None
 
 
 def hold(name, kern, plain, carry, make_x, plain_s=None, blocks=BLOCKS):

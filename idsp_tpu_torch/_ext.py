@@ -61,8 +61,8 @@ _SIGNATURES = {
     "idsp_pll_bank": [_P] * 4 + [_I] * 5 + [_P],
     "idsp_ddc_bank_lp": [_P] * 11 + [_I] * 10 + [_P],
     "idsp_ddc_bank_df1": [_P] * 12 + [_I] * 17 + [_P],
-    "idsp_hbf_dec_cascade": [_P] * 4 + [_I] * 4 + [_P, _P, _P],
-    "idsp_hbf_int_cascade": [_P] * 4 + [_I] * 4 + [_P, _P, _P],
+    "idsp_hbf_dec_cascade": [_P] * 4 + [_I] * 6 + [_P] * 4,
+    "idsp_hbf_int_cascade": [_P] * 4 + [_I] * 6 + [_P] * 4,
     "idsp_hbf_dec_mxu": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
     "idsp_hbf_int_mxu": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
     "idsp_cic_dec_bank": [_P] * 4 + [_I] * 4 + [_P],

@@ -1,4 +1,5 @@
-"""Time K1 and K6 of two checkouts of the port in turns, in one process.
+"""Time K1, K6, K7 and K8 of two checkouts of the port in turns, in one
+process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -8,8 +9,11 @@ Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
 loaded under a name of its own, so both live in this process, and each
 builds its kernels into its own ``build/``.  One set of inputs, made from
 a seed, goes to both: K1 `df1_bank_q` (f32 out) at c = 512 and 1024
-channels (2c I|Q lanes, t = 32768, as `chip_smoke.py` phase 6 times it)
-and K6 `fastlo_ddc_bank_block_lp` at c = 1024 (d = 16, time chunk 128).
+channels (2c I|Q lanes, t = 32768, as `chip_smoke.py` phase 6 times it),
+K6 `fastlo_ddc_bank_block_lp` at c = 1024 (d = 16, time chunk 128), and
+K7 `hbf_dec_cascade_bank` on (32768, c) and K8 `hbf_int_cascade_bank` on
+(2048, c) f32 at c = 512 and 1024 (depth 4, `HBF_TAPS`, zero state, each
+tree's default chunk and launch shape).
 One sample is the CUDA-event time of ITERS launches on the same inputs,
 per launch.  Each of ROUNDS rounds r takes one sample of each tree in
 the order parent, change, change, parent (r even) or change, parent,
@@ -37,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-T, DEC, TC = 32768, 16, 128
+T, DEC, TC, DEPTH = 32768, 16, 128, 4
 ROUNDS, ITERS = 30, 20
 
 
@@ -58,7 +62,8 @@ def cases(alias: str, dev, inputs):
     on ``inputs`` (shared by both trees)."""
     sub = {m: importlib.import_module(f"{alias}.{m}") for m in (
         "design", "filters.biquad", "filters.biquad_cuda", "filters.lowpass",
-        "filters.pll", "filters.ddc_bank_cuda")}
+        "filters.pll", "filters.ddc_bank_cuda", "filters.hbf",
+        "filters.hbf_cuda")}
     biquad, lowpass, pll = (sub["filters.biquad"], sub["filters.lowpass"],
                             sub["filters.pll"])
     ba = biquad.quantize_ba(biquad.from_cookbook(
@@ -79,6 +84,16 @@ def cases(alias: str, dev, inputs):
     out["fastlo_ddc_bank_block_lp c=1024"] = lambda: k6(
         gains, pll_ba, lp0, pll0, inputs["ph0"], inputs["steps"],
         inputs["x"], d=DEC, time_chunk=TC)
+    hbf, hbf_cuda = sub["filters.hbf"], sub["filters.hbf_cuda"]
+    for c in (512, 1024):
+        dec0 = hbf.hbf_dec_cascade_init(DEPTH, (c,), axis=0, device=dev)
+        int0 = hbf.hbf_int_cascade_init(DEPTH, (c,), axis=0, device=dev)
+        out[f"hbf_dec_cascade_bank c={c}"] = (
+            lambda st=dec0, x=inputs[f"hbf{c}"]:
+            hbf_cuda.hbf_dec_cascade_bank(st, x))
+        out[f"hbf_int_cascade_bank c={c}"] = (
+            lambda st=int0, x=inputs[f"low{c}"]:
+            hbf_cuda.hbf_int_cascade_bank(st, x))
     return out
 
 
@@ -125,6 +140,11 @@ def main() -> None:
                                 .astype(np.int32)).to(dev)
 
     inputs = {f"xs{c}": i32((T, 2 * c), -(2**27), 2**27) for c in (512, 1024)}
+    for c in (512, 1024):
+        inputs[f"hbf{c}"] = torch.from_numpy(
+            rng.normal(size=(T, c)).astype(np.float32)).to(dev)
+        inputs[f"low{c}"] = torch.from_numpy(
+            rng.normal(size=(T >> DEPTH, c)).astype(np.float32)).to(dev)
     inputs.update(x=i32((T,), -(2**27), 2**27),
                   ph0=torch.zeros((1024,), dtype=torch.int32, device=dev),
                   steps=i32((1024,), 1 << 24, 1 << 30))

@@ -23,7 +23,7 @@
 //     even rows behind the m-1 carried even-tail rows, odd rows behind
 //     the 2m-1 carried odd-tail rows (ddc_pallas.py:613-617);
 //  3. each FIR stage over the chunk and the tails' move to the front
-//     of their buffers: the stage loop of hbf_stage.cuh, shared with K7.
+//     of their buffers: the stage loop of hbf_stage.cuh.
 //
 // Numerics: every f32 operation is one __f*_rn intrinsic, in the order
 // of the plain PyTorch version, so nvcc cannot contract a*b - c*d into

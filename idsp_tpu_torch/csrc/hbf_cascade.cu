@@ -2,219 +2,389 @@
 // interpolate by 2^depth, each in one kernel.
 //
 // Replaces the Pallas kernels of idsp_tpu/filters/hbf_pallas.py
-// `hbf_dec_cascade_bank` (:52, pallas_call :174; K7) and
-// `hbf_int_cascade_bank` (:210, pallas_call :332; K8).  On the TPU the
-// grid walked time chunks in order with the tails in VMEM scratch; here
-// a block owns kHbfLanes lanes for the whole block of time and walks the
-// chunks in a loop, one thread per lane, its stage buffers and tails in
-// its own column of shared memory (row r at smem[r * kHbfLanes + tid]:
-// conflict-free, no barrier).
+// `hbf_dec_cascade_bank` (:52, `_hbf_dec_cascade_impl` :88, pallas_call
+// :174; K7) and `hbf_int_cascade_bank` (:210, :242, pallas_call :332; K8).
+// On the TPU the grid walked time chunks in order with the tails in VMEM
+// scratch.  Here:
+//
+// * The grid is lane tiles (blockIdx.x, tile::kLanes lanes) x time ranges
+//   (blockIdx.y).  Range k owns rows [k*seg, (k+1)*seg) of the last
+//   stage's output (K7) or of the input (K8).  The host's plan
+//   (filters/hbf_cuda.py `dec_range_plan` / `int_range_plan`) gives seg,
+//   the input halo and each stage's halo; the number of ranges changes no
+//   value.
+// * A block walks its range in chunks of tc input rows, from `halo` input
+//   rows before the range's start (never before row 0).  Stage d computes
+//   its output rows from stage_halo[d] rows (K7) or row pairs (K8) before
+//   the range's first on: what the range's outputs need, the halo
+//   recomputed from xs.  A walk that starts at row 0 takes the carried
+//   tails as its first carried rows; any other starts from zeros, which
+//   feed only rows below those the range needs.  The recomputed rows are
+//   the same fixed-order sums of the same inputs, so they are the same
+//   bits as the range before computed.  The last range writes the new
+//   tails.
+// * Each stage's input lives in shared memory, its carried rows (4m-3
+//   for K7, 2m-1 for K8) in front of the chunk's new rows; after the
+//   chunk they move to the front (tile::move_front), so a range pays for
+//   its halo once.  Stage 0's buffer holds two chunks behind its carried
+//   rows: the next chunk of xs streams in through cp.async while the
+//   current one is computed, and its carried rows move to the front after
+//   every second chunk.  Within a chunk every warp works on one stage's
+//   rows (hbf_tile.cuh), a barrier between stages; the last stage writes
+//   y straight from registers.  Stage 0 takes the input rows in order
+//   (parity is an index: a 128-byte row is conflict-free at any stride).
 //
 // K7 (stage d uses the caller's taps[d], highest rate and fewest taps
-// first): per chunk of tc rows the input splits by parity into stage 0's
-// buffers, then the stage loop of hbf_stage.cuh (shared with K2/K3) runs
-// every stage and writes the last one's tc >> depth rows to y.
+// first): output j of stage d reads its input rows 2j-4m+3 .. 2j+1.  The
+// carried tails cross device memory packed (3m-2, c) a stage, 2m-1 odd
+// rows then m-1 even rows (hbf_pallas.py:71-82); in shared memory the
+// 4m-3 carried rows are contiguous, the even rows below 2m-2 unused.
 //
-// K8 (stage d uses taps[d], lowest rate and most taps first): stage d's
-// buffer holds its 2m-1 carried input rows, then the n = tc << d new
-// ones.  Output j of a stage is the FIR sum in slot 2j and the M-delayed
-// input (the center tap) in slot 2j+1 (hbf.py:196-221,
-// hbf_pallas.py:292-309); it goes behind the next stage's carried rows,
-// or, for the last stage, straight to y.  The last 2m-1 input rows are
-// carried.  Shared memory per lane is sum_d (2m_d - 1 + tc << d) rows,
-// so it doubles with every stage: at depth 4 with HBF_TAPS and the JAX
-// kernel's chunk of 128 a 32-lane block would need 256 KB, above the
-// 227 KB a block can have, and the launch would be refused; the wrapper's
-// default chunk is 64 (133 KB).  Writing the last stage to y and not to
-// shared memory keeps its 2x-wider output out of the budget.
+// K8 (stage d uses taps[d], lowest rate and most taps first): output pair
+// j of stage d reads its input rows j-2m+1 .. j and is the FIR sum in slot
+// 2j and the input row j-m+1 (the center tap) in slot 2j+1 (hbf.py
+// `hbf_int_block`); the tails are the last 2m-1 input rows of each stage.
 //
 // Numerics: every f32 operation is one __f*_rn intrinsic in the plain
-// version's order (acc = (b + a) * tap[0]; acc += (b + a) * tap[i], i
-// ascending; K7 then + even), so the kernels equal the eager plain
-// versions bit for bit, and the chunk changes no value.
+// version's order (hbf_tile.cuh), so the kernels equal the eager plain
+// versions bit for bit, and neither the chunk nor the ranges change a
+// value.
 //
-// What bounds them on the H100: as written, latency.  A FIR has no
-// recurrence, but one thread walks its lane's whole block of time: at
-// c = 512 lanes that is 16 warps on 132 SMs, each waiting on its own
-// shared-memory loads and its serial chain of m adds per output.  The
-// roofline bound is device-memory bytes (K7 reads 4 B per input sample,
-// K8 writes 4 B per output sample), tens of microseconds at the suite's
-// widths.  What the design does: keeps every intermediate stage on chip
-// (the TPU kernel's point), and nothing else yet; a grid over lane tiles
-// and time segments (each segment warmed up on enough earlier rows to
-// rebuild every stage's tail exactly) is the next step.
+// What bounds them on the H100: device-memory bytes by the roofline (xs
+// read once, y written once: about 21 us at c = 512, t = 32768).  What
+// holds them above it: the halo (at the default 33 ranges for c = 512 a
+// K7 range does about two thirds more tap work than it keeps, 907
+// full-rate rows of halo for HBF_TAPS at depth 4; K8 about 6 %), the
+// sums (three f32 operations a tap and row, one at a time, the short
+// late stages on few warps), and a fixed cost a chunk (a barrier a
+// stage, the carried rows' moves, the chunk's bookkeeping).  What the
+// design does about them: lane tiles x ranges fill the card
+// (BLOCKS_PER_SM of filters/hbf_cuda.py), each range pays for its halo
+// once, every stage stays on chip, the xs rows stream in behind the
+// sums, the depth is a template argument (the per-stage numbers stay in
+// registers), and a move loads all its rows before it stores any (one
+// barrier where the rows overlap, no chain of dependent copies).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "hbf_stage.cuh"
+#include "hbf_tile.cuh"
 
 namespace {
 
-using idsp::kHbfLanes;
+using idsp::tile::kLanes;
+using idsp::tile::kMaxDepth;
+using idsp::tile::kWarps;
+using idsp::tile::Taps;
 
-__global__ void __launch_bounds__(kHbfLanes) hbf_dec_cascade_kernel(
-    const float* __restrict__ xs, const float* __restrict__ tails_in,
-    float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
-    int tc, idsp::HbfTaps p) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int lane = blockIdx.x * kHbfLanes + tid;
-  if (lane >= c) return;  // no block-wide barrier below
+constexpr int kMaxSmem = 232448;  // bytes a block may have
 
-  float* col = smem + tid;
-  int odd_off[idsp::kHbfMaxDepth], even_off[idsp::kHbfMaxDepth];
-  idsp::hbf_dec_offsets(p, tc, odd_off, even_off);
-  idsp::hbf_dec_tails<true>(p, col, odd_off, even_off, tails_in, c,
-                            lane);
-  float* odd0 = col + (odd_off[0] + 2 * p.m[0] - 1) * kHbfLanes;
-  float* even0 = col + (even_off[0] + p.m[0] - 1) * kHbfLanes;
-  const int nout = tc >> p.depth;
-  for (int q = 0; q < t / tc; ++q) {
-    const float* xq = xs + static_cast<size_t>(q) * tc * c + lane;
-#pragma unroll 8
-    for (int u = 0; u < tc; u += 2) {
-      even0[(u >> 1) * kHbfLanes] = __ldg(xq + static_cast<size_t>(u) * c);
-      odd0[(u >> 1) * kHbfLanes] = __ldg(xq + static_cast<size_t>(u + 1) * c);
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// Per-stage halos of the range plan (a kernel parameter).
+struct Halos {
+  int rows[kMaxDepth];
+};
+
+// Stage buffers in shared memory: stage d at rows off[d] of a lane's
+// column, carry[d] carried rows then its chunk's input rows (stage 0: two
+// chunks).  Dec: K7 (carries 4m-3, stage d takes tc >> d rows a chunk);
+// else K8 (carries 2m-1, tc << d rows).  The kernels take the depth as a
+// template argument, so that these per-stage numbers live in registers.
+template <int D>
+struct Layout {
+  int off[D], carry[D];
+  int rows;
+
+  __host__ __device__ Layout(const Taps& p, int tc, bool dec) : rows(0) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      carry[d] = dec ? 4 * p.m[d] - 3 : 2 * p.m[d] - 1;
+      off[d] = rows;
+      rows += carry[d] + (d == 0 ? 2 * tc : dec ? tc >> d : tc << d);
     }
-    float* yq = y + static_cast<size_t>(q) * nout * c + lane;
-    idsp::hbf_dec_stages(p, col, odd_off, even_off, tc, [&](int j, float v) {
-      yq[static_cast<size_t>(j) * c] = v;
-    });
   }
-  idsp::hbf_dec_tails<false>(p, col, odd_off, even_off, tails_out, c, lane);
+};
+
+// The carried row r of stage d's buffer at the start of the block of time
+// (input row r - carry): K7's packed tail holds the odd rows (the even
+// buffer rows) and the even rows from 2m-2 on (odd buffer rows from 2m-1).
+__device__ __forceinline__ float dec_tail(const float* tails, int toff,
+                                          int m, int c, int lane, int r) {
+  if (!(r & 1)) return tails[static_cast<size_t>(toff + r / 2) * c + lane];
+  if (r >= 2 * m - 1)
+    return tails[static_cast<size_t>(toff + 2 * m - 1 + (r - 2 * m + 1) / 2) *
+                     c + lane];
+  return 0.f;
 }
 
-// Shared-memory rows per lane of the interpolation cascade; *off gets
-// each stage's buffer offset.
-__host__ __device__ inline int hbf_int_rows(const idsp::HbfTaps& p, int tc,
-                                            int* off) {
-  int rows = 0;
-  for (int d = 0; d < p.depth; ++d) {
-    if (off != nullptr) off[d] = rows;
-    rows += 2 * p.m[d] - 1 + (tc << d);
-  }
-  return rows;
-}
-
-__global__ void __launch_bounds__(kHbfLanes) hbf_int_cascade_kernel(
-    const float* __restrict__ xs, const float* __restrict__ tails_in,
-    float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
-    int tc, idsp::HbfTaps p) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int lane = blockIdx.x * kHbfLanes + tid;
-  if (lane >= c) return;  // no block-wide barrier below
-  const int depth = p.depth;
-  float* col = smem + tid;
-  int off[idsp::kHbfMaxDepth];
-  hbf_int_rows(p, tc, off);
-
-  // carried tails in: (2m-1, c) per stage, packed one after another
-  int trow = 0;
-  for (int d = 0; d < depth; ++d) {
-    const int ln = 2 * p.m[d] - 1;
-    for (int r = 0; r < ln; ++r)
-      col[(off[d] + r) * kHbfLanes] =
-          tails_in[static_cast<size_t>(trow + r) * c + lane];
-    trow += ln;
-  }
-
-  const size_t ny = static_cast<size_t>(tc) << depth;  // y rows per chunk
-  for (int q = 0; q < t / tc; ++q) {
-    float* in0 = col + (off[0] + 2 * p.m[0] - 1) * kHbfLanes;
-    const float* xq = xs + static_cast<size_t>(q) * tc * c + lane;
-#pragma unroll 8
-    for (int u = 0; u < tc; ++u)
-      in0[u * kHbfLanes] = __ldg(xq + static_cast<size_t>(u) * c);
-    float* yq = y + q * ny * c + lane;
-
-    for (int d = 0; d < depth; ++d) {
-      const int m = p.m[d], ln = 2 * m - 1, n = tc << d;
-      const float* tp = p.taps[d];
-      float* ext = col + off[d] * kHbfLanes;
-      const bool last = d + 1 == depth;
-      float* next = last ? nullptr
-                         : col + (off[d + 1] + 2 * p.m[d + 1] - 1) * kHbfLanes;
-      for (int j = 0; j < n; ++j) {
-        float acc = __fmul_rn(
-            __fadd_rn(ext[(ln + j) * kHbfLanes], ext[j * kHbfLanes]), tp[0]);
-        for (int i = 1; i < m; ++i)
-          acc = __fadd_rn(
-              acc, __fmul_rn(__fadd_rn(ext[(ln - i + j) * kHbfLanes],
-                                       ext[(i + j) * kHbfLanes]),
-                             tp[i]));
-        const float cen = ext[(m + j) * kHbfLanes];
-        if (last) {
-          yq[static_cast<size_t>(2 * j) * c] = acc;
-          yq[static_cast<size_t>(2 * j + 1) * c] = cen;
-        } else {
-          next[(2 * j) * kHbfLanes] = acc;
-          next[(2 * j + 1) * kHbfLanes] = cen;
-        }
+// The block's walk of its range, the same for both kernels.  The range's
+// input rows end at `end`, its walk starts at p0; chunk q takes input
+// rows [p0 + q*tc, min(p0 + (q+1)*tc, end)).  Per chunk: wait for its xs
+// rows, a barrier, then for each stage stage(d, q, cs, ce) and a barrier,
+// after it the stage's carried rows to the front (stage 0's after every
+// second chunk) and, after stage 0, the next chunk's fetch.  Returns the
+// last chunk's index.
+template <int D, class Stage>
+__device__ __forceinline__ int walk(const Layout<D>& L, float* col,
+                                    const float* xs, int c, int lane,
+                                    bool live, int p0, int end, int tc,
+                                    bool dec, Stage stage) {
+  const int chunks = (end - p0 + tc - 1) / tc;
+  auto fetch = [&](int q) {
+    const int r0 = p0 + q * tc;
+    idsp::tile::fetch_rows(
+        col + (L.off[0] + L.carry[0] + (q & 1) * tc) * kLanes, xs, c, lane,
+        live, r0, imin(r0 + tc, end));
+  };
+  fetch(0);
+  for (int q = 0; q < chunks; ++q) {
+    const int cs = p0 + q * tc, ce = imin(cs + tc, end);
+    const bool more = q + 1 < chunks;
+    __pipeline_wait_prior(0);
+    __syncthreads();
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      stage(d, q, cs, ce);
+      __syncthreads();
+      if (!more) continue;  // the last chunk's rows stay for the tails
+      if (d == 0) {
+        // the moved rows may reach into the slot the fetch refills
+        if (q & 1)
+          idsp::tile::move_front(col + L.off[0] * kLanes, L.carry[0], 2 * tc,
+                                 tc < L.carry[0]);
+        fetch(q + 1);
+      } else {
+        const int n = dec ? (ce - cs) >> d : (ce - cs) << d;
+        idsp::tile::move_front(col + L.off[d] * kLanes, L.carry[d], n, false);
       }
-      // carry: the last ln input rows move to the front (ascending copy;
-      // the source always lies after the destination)
-      for (int r = 0; r < ln; ++r) ext[r * kHbfLanes] = ext[(n + r) * kHbfLanes];
     }
   }
+  return chunks - 1;
+}
 
-  trow = 0;
-  for (int d = 0; d < depth; ++d) {
-    const int ln = 2 * p.m[d] - 1;
-    for (int r = 0; r < ln; ++r)
-      tails_out[static_cast<size_t>(trow + r) * c + lane] =
-          col[(off[d] + r) * kHbfLanes];
-    trow += ln;
+template <int D>
+__global__ void __launch_bounds__(kLanes* kWarps) hbf_dec_cascade_kernel(
+    const float* __restrict__ xs, const float* __restrict__ tails_in,
+    float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
+    int tc, int seg, int halo, Taps p, Halos h) {
+  extern __shared__ float smem[];
+  const int lane = blockIdx.x * kLanes + threadIdx.x;
+  const bool live = lane < c;  // dead lanes still reach every barrier
+  const Layout<D> L(p, tc, true);
+  float* col = smem + threadIdx.x;
+  const int s = blockIdx.y * seg, e = imin(s + seg, t >> D);
+  const int end = e << D, p0 = imax(0, (s << D) - halo);
+  int a[D];  // each stage's first output row the range needs
+#pragma unroll
+  for (int d = 0; d < D; ++d) a[d] = imax(0, (s << (D - 1 - d)) - h.rows[d]);
+
+  int toff = 0;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const int m = p.m[d];
+    for (int r = threadIdx.y; r < L.carry[d]; r += kWarps)
+      col[(L.off[d] + r) * kLanes] =
+          p0 == 0 && live ? dec_tail(tails_in, toff, m, c, lane, r) : 0.f;
+    toff += 3 * m - 2;
+  }
+
+  // stage d's input row u sits at row u - base(d, q, cs) of its buffer
+  auto base = [&](int d, int q, int cs) {
+    return (cs >> d) - L.carry[d] - (d == 0 ? (q & 1) * tc : 0);
+  };
+  const int q_last = walk<D>(
+      L, col, xs, c, lane, live, p0, end, tc, true,
+      [&](int d, int q, int cs, int ce) {
+        const int sd = L.off[d] - base(d, q, cs);
+        auto in = [&](int u) { return col[(sd + u) * kLanes]; };
+        const int lo = imax(cs >> (d + 1), a[d]), hi = ce >> (d + 1);
+        if (d + 1 < D) {
+          const int so = L.off[d + 1] - base(d + 1, q, cs);
+          idsp::tile::dec_stage(
+              lo, hi, p.m[d], p.taps[d], in,
+              [&](int j, float v) { col[(so + j) * kLanes] = v; });
+        } else {
+          idsp::tile::dec_stage(lo, hi, p.m[d], p.taps[d], in,
+                                [&](int j, float v) {
+                                  if (live)
+                                    y[static_cast<size_t>(j) * c + lane] = v;
+                                });
+        }
+      });
+
+  if (!live || blockIdx.y + 1 != gridDim.y) return;
+  // new tails: the last 4m-3 input rows of each stage, odd rows then the
+  // even rows from 2m-2 (hbf_stage.cuh's packing)
+  const int cs = p0 + q_last * tc;
+  toff = 0;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const int m = p.m[d];
+    const int sl = L.off[d] + (end >> d) - L.carry[d] - base(d, q_last, cs);
+    for (int r = threadIdx.y; r < 3 * m - 2; r += kWarps)
+      tails_out[static_cast<size_t>(toff + r) * c + lane] =
+          col[(sl + (r < 2 * m - 1 ? 2 * r : 2 * r - 2 * m + 1)) * kLanes];
+    toff += 3 * m - 2;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kLanes* kWarps) hbf_int_cascade_kernel(
+    const float* __restrict__ xs, const float* __restrict__ tails_in,
+    float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
+    int tc, int seg, int halo, Taps p, Halos h) {
+  extern __shared__ float smem[];
+  const int lane = blockIdx.x * kLanes + threadIdx.x;
+  const bool live = lane < c;
+  const Layout<D> L(p, tc, false);
+  float* col = smem + threadIdx.x;
+  const int s = blockIdx.y * seg, end = imin(s + seg, t);
+  const int p0 = imax(0, s - halo);
+  int a[D];  // each stage's first output pair the range needs
+#pragma unroll
+  for (int d = 0; d < D; ++d) a[d] = imax(0, (s << d) - h.rows[d]);
+
+  int toff = 0;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    for (int r = threadIdx.y; r < L.carry[d]; r += kWarps)
+      col[(L.off[d] + r) * kLanes] =
+          p0 == 0 && live
+              ? tails_in[static_cast<size_t>(toff + r) * c + lane]
+              : 0.f;
+    toff += L.carry[d];
+  }
+
+  auto base = [&](int d, int q, int cs) {
+    return (cs << d) - L.carry[d] - (d == 0 ? (q & 1) * tc : 0);
+  };
+  const int q_last = walk<D>(
+      L, col, xs, c, lane, live, p0, end, tc, false,
+      [&](int d, int q, int cs, int ce) {
+        const int sd = L.off[d] - base(d, q, cs);
+        auto in = [&](int u) { return col[(sd + u) * kLanes]; };
+        const int lo = imax(cs << d, a[d]), hi = ce << d;
+        if (d + 1 < D) {
+          const int so = L.off[d + 1] - base(d + 1, q, cs);
+          idsp::tile::int_stage(lo, hi, p.m[d], p.taps[d], in,
+                                [&](int j, float fir, float cen) {
+                                  col[(so + 2 * j) * kLanes] = fir;
+                                  col[(so + 2 * j + 1) * kLanes] = cen;
+                                });
+        } else {
+          idsp::tile::int_stage(
+              lo, hi, p.m[d], p.taps[d], in,
+              [&](int j, float fir, float cen) {
+                if (!live) return;
+                y[static_cast<size_t>(2 * j) * c + lane] = fir;
+                y[static_cast<size_t>(2 * j + 1) * c + lane] = cen;
+              });
+        }
+      });
+
+  if (!live || blockIdx.y + 1 != gridDim.y) return;
+  // new tails: the last 2m-1 input rows of each stage
+  const int cs = p0 + q_last * tc;
+  toff = 0;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const int sl = L.off[d] + (end << d) - L.carry[d] - base(d, q_last, cs);
+    for (int r = threadIdx.y; r < L.carry[d]; r += kWarps)
+      tails_out[static_cast<size_t>(toff + r) * c + lane] =
+          col[(sl + r) * kLanes];
+    toff += L.carry[d];
   }
 }
 
 using Kernel = void (*)(const float*, const float*, float*, float*, int, int,
-                        int, idsp::HbfTaps);
+                        int, int, int, Taps, Halos);
 
-int launch(Kernel kernel, size_t rows, const void* xs, const void* tails_in,
-           void* tails_out, void* y, int t, int c, int tc,
-           const idsp::HbfTaps& p, void* stream) {
-  const size_t smem = rows * kHbfLanes * sizeof(float);
+template <int D>
+int launch(bool dec, const void* xs, const void* tails_in, void* tails_out,
+           void* y, int t, int c, int tc, int seg, int halo, const Taps& p,
+           const Halos& h, void* stream) {
+  const Kernel kernel =
+      dec ? hbf_dec_cascade_kernel<D> : hbf_int_cascade_kernel<D>;
+  const int rows = dec ? t >> D : t;  // the rows the ranges cut
+  const int ranges = (rows + seg - 1) / seg;
+  if (ranges > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(Layout<D>(p, tc, dec).rows) *
+                      kLanes * sizeof(float);
+  // a refused size leaves no CUDA error pending
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  // a refused size is also the runtime's last error: take it, or the
-  // next launch of any kernel in this library would report it
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((c + kHbfLanes - 1) / kHbfLanes);
-  kernel<<<grid, kHbfLanes, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((c + kLanes - 1) / kLanes, ranges);
+  const dim3 block(kLanes, kWarps);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xs), static_cast<const float*>(tails_in),
-      static_cast<float*>(tails_out), static_cast<float*>(y), t, c, tc, p);
+      static_cast<float*>(tails_out), static_cast<float*>(y), t, c, tc, seg,
+      halo, p, h);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch(bool dec, const void* xs, const void* tails_in, void* tails_out,
+           void* y, int t, int c, int tc, int seg, int halo, int depth,
+           const int* ms, const float* taps, const int* stage_halo,
+           void* stream) {
+  Taps p{};
+  if (!idsp::tile::taps_from_host(p, depth, ms, taps) || c < 1 || tc < 1 ||
+      seg < 1 || halo < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Halos h{};
+  for (int d = 0; d < depth; ++d) {
+    if (stage_halo[d] < 0) return static_cast<int>(cudaErrorInvalidValue);
+    h.rows[d] = stage_halo[d];
+  }
+  switch (depth) {
+    case 1:
+      return launch<1>(dec, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+                       p, h, stream);
+    case 2:
+      return launch<2>(dec, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+                       p, h, stream);
+    case 3:
+      return launch<3>(dec, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+                       p, h, stream);
+    default:
+      return launch<4>(dec, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+                       p, h, stream);
+  }
 }
 
 }  // namespace
 
 // K7: xs (t, c) f32 -> y (t >> depth, c) f32; tails (3m-2, c) per stage,
-// packed.  t % tc == 0, tc % 2^depth == 0.  ms (depth,) and taps
-// (sum ms,) are host arrays in stage order.
+// packed.  t a positive multiple of 2^depth; tc, seg*2^depth and halo
+// multiples of 2^depth.  ms (depth,), taps (sum ms,) and stage_halo
+// (depth,) are host arrays in stage order.
 extern "C" int idsp_hbf_dec_cascade(const void* xs, const void* tails_in,
                                     void* tails_out, void* y, int t, int c,
-                                    int tc, int depth, const int* ms,
-                                    const float* taps, void* stream) {
-  idsp::HbfTaps p{};
-  if (!idsp::hbf_taps_from_host(p, depth, ms, taps) || tc <= 0 ||
-      t % tc != 0 || tc % (1 << depth) != 0)
+                                    int tc, int seg, int halo, int depth,
+                                    const int* ms, const float* taps,
+                                    const int* stage_halo, void* stream) {
+  if (depth < 1 || depth > kMaxDepth)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch(hbf_dec_cascade_kernel, idsp::hbf_dec_rows(p, tc), xs,
-                tails_in, tails_out, y, t, c, tc, p, stream);
+  const int r = 1 << depth;
+  if (t <= 0 || t % r != 0 || tc % r != 0 || halo % r != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(true, xs, tails_in, tails_out, y, t, c, tc, seg, halo, depth,
+                ms, taps, stage_halo, stream);
 }
 
 // K8: xs (t, c) f32 -> y (t << depth, c) f32; tails (2m-1, c) per stage,
-// packed.  t % tc == 0.
+// packed.  seg and tc low-rate rows.
 extern "C" int idsp_hbf_int_cascade(const void* xs, const void* tails_in,
                                     void* tails_out, void* y, int t, int c,
-                                    int tc, int depth, const int* ms,
-                                    const float* taps, void* stream) {
-  idsp::HbfTaps p{};
-  if (!idsp::hbf_taps_from_host(p, depth, ms, taps) || tc <= 0 ||
-      t % tc != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch(hbf_int_cascade_kernel, hbf_int_rows(p, tc, nullptr), xs,
-                tails_in, tails_out, y, t, c, tc, p, stream);
+                                    int tc, int seg, int halo, int depth,
+                                    const int* ms, const float* taps,
+                                    const int* stage_halo, void* stream) {
+  if (t <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(false, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+                depth, ms, taps, stage_halo, stream);
 }

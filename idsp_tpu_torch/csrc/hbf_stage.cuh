@@ -1,11 +1,11 @@
 // The half-band decimation cascade over one chunk of a lane, in shared
-// memory: the FIR-stage loop shared by K2/K3 (ddc_cascade.cu, behind the
-// DF1) and K7 (hbf_cascade.cu, straight from the input).
+// memory: the FIR-stage loop of K2, K3 and K19-K21 (ddc_cascade.cu,
+// behind the DF1).  K7 and K8 have their own (hbf_tile.cuh), and K22/K23
+// read only HbfTaps from here.
 //
 // Replaces the stage loop of idsp_tpu/filters/ddc_pallas.py
-// `_run_fused_cascade` (:519; stages :620-644, `_fir_even` :506) and of
-// idsp_tpu/filters/hbf_pallas.py `_hbf_dec_cascade_impl` (:88; stages
-// :136-152): the same parity-plane layout and carried-tail choreography.
+// `_run_fused_cascade` (:519; stages :620-644, `_fir_even` :506): the
+// same parity-plane layout and carried-tail choreography.
 //
 // Layout: one thread per lane, kHbfLanes lanes per block; row r of a
 // thread's column is smem[r * kHbfLanes + tid], so a warp's accesses are

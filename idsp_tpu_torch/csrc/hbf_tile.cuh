@@ -1,0 +1,166 @@
+// The half-band FIR stages of one lane tile, every warp of the block on
+// the rows of one stage: the stage code of K7 and K8 (hbf_cascade.cu).
+//
+// Layout: a block is kLanes lanes (threadIdx.x: a warp reads a 128-byte
+// row) x kWarps warps (threadIdx.y).  A stage's input rows sit in shared
+// memory, row r of a buffer at buf[r * kLanes + lane], so any row a warp
+// reads or writes is one conflict-free access.  A stage's output rows are
+// cut into groups of kIlp consecutive rows, dealt round robin to the
+// warps; a thread sums its group's rows side by side, kIlp independent
+// chains that hide the load and add latencies.  A barrier separates the
+// stages (the caller's).
+//
+// Numerics: each output is the plain version's sum in its order (hbf.py
+// `symmetric_fir`): acc = (b + a) * tap[0], acc += (b + a) * tap[i] for i
+// ascending, then + even (decimation), every f32 operation one __f*_rn
+// intrinsic, so nvcc cannot contract them into FMAs and the kernels equal
+// the eager plain versions bit for bit.
+#pragma once
+
+#include <cuda_pipeline.h>
+
+namespace idsp {
+namespace tile {
+
+constexpr int kLanes = 32;   // lanes of a tile (threadIdx.x)
+constexpr int kWarps = 8;    // warps of a block (threadIdx.y)
+constexpr int kIlp = 4;      // rows a thread sums side by side
+constexpr int kMaxDepth = 4;  // half-band stages
+constexpr int kMaxTaps = 32;  // one-sided taps per stage
+
+// Per-stage one-sided taps in stage order (a kernel parameter).
+struct Taps {
+  int depth;
+  int m[kMaxDepth];
+  float taps[kMaxDepth][kMaxTaps];
+};
+
+// Host side: fill p from ms (depth,) and the concatenated taps; false
+// if a size is out of range.
+inline bool taps_from_host(Taps& p, int depth, const int* ms,
+                           const float* taps) {
+  if (depth < 1 || depth > kMaxDepth) return false;
+  p.depth = depth;
+  int off = 0;
+  for (int d = 0; d < depth; ++d) {
+    const int m = ms[d];
+    if (m < 1 || m > kMaxTaps) return false;
+    p.m[d] = m;
+    for (int i = 0; i < m; ++i) p.taps[d][i] = taps[off + i];
+    off += m;
+  }
+  return true;
+}
+
+template <int N>
+struct Ilp {
+  static constexpr int n = N;
+};
+
+// Calls rows(j, Ilp<N>{}) for this warp's groups of the rows [a, b):
+// groups of kIlp rows round robin over the warps, a short last group row
+// by row.
+template <class Rows>
+__device__ __forceinline__ void for_rows(int a, int b, Rows rows) {
+  for (int j = a + threadIdx.y * kIlp; j < b; j += kWarps * kIlp) {
+    if (j + kIlp <= b) {
+      rows(j, Ilp<kIlp>{});
+    } else {
+      for (int k = j; k < b; ++k) rows(k, Ilp<1>{});
+    }
+  }
+}
+
+// A decimating stage's output rows [a, b): output j reads input rows
+// 2j-4m+3 .. 2j+1 through in(u) (odd rows: the FIR, b = x[2j+1-2i],
+// a = x[2j-4m+3+2i]; even row 2j-2m+2: the center) and goes to out(j, v).
+template <class In, class Out>
+__device__ __forceinline__ void dec_stage(int a, int b, int m,
+                                          const float* tp, In in, Out out) {
+  for_rows(a, b, [&](int j, auto ilp) {
+    constexpr int N = decltype(ilp)::n;
+    const int lo = 2 * j - 4 * m + 3, hi = 2 * j + 1;
+    float acc[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      acc[r] = __fmul_rn(__fadd_rn(in(hi + 2 * r), in(lo + 2 * r)), tp[0]);
+    for (int i = 1; i < m; ++i) {
+      const float w = tp[i];
+#pragma unroll
+      for (int r = 0; r < N; ++r)
+        acc[r] = __fadd_rn(
+            acc[r], __fmul_rn(__fadd_rn(in(hi + 2 * (r - i)),
+                                        in(lo + 2 * (r + i))),
+                              w));
+    }
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      out(j + r, __fadd_rn(acc[r], in(lo + 2 * m - 1 + 2 * r)));
+  });
+}
+
+// An interpolating stage's output row pairs [a, b): pair j reads input
+// rows j-2m+1 .. j through in(u) (b = x[j-i], a = x[j-2m+1+i]) and goes
+// to out(j, fir, center), fir for row 2j, the center x[j-m+1] for 2j+1.
+template <class In, class Out>
+__device__ __forceinline__ void int_stage(int a, int b, int m,
+                                          const float* tp, In in, Out out) {
+  for_rows(a, b, [&](int j, auto ilp) {
+    constexpr int N = decltype(ilp)::n;
+    const int lo = j - 2 * m + 1;
+    float acc[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      acc[r] = __fmul_rn(__fadd_rn(in(j + r), in(lo + r)), tp[0]);
+    for (int i = 1; i < m; ++i) {
+      const float w = tp[i];
+#pragma unroll
+      for (int r = 0; r < N; ++r)
+        acc[r] = __fadd_rn(
+            acc[r], __fmul_rn(__fadd_rn(in(j + r - i), in(lo + r + i)), w));
+    }
+#pragma unroll
+    for (int r = 0; r < N; ++r) out(j + r, acc[r], in(lo + m + r));
+  });
+}
+
+// Rows [shift, shift + carry) of the column col move to [0, carry), for
+// carry <= kMaxCarry.  Every thread loads its rows into registers, then
+// stores them.  Where the two ranges overlap (shift < carry), or where the
+// caller asks for it (sync, the same in every thread: it will overwrite
+// source rows next), a barrier between the loads and the stores keeps a
+// row from being overwritten before every thread has read it.
+constexpr int kMaxCarry = 4 * kMaxTaps - 3;
+__device__ __forceinline__ void move_front(float* col, int carry, int shift,
+                                           bool sync) {
+  constexpr int kRows = (kMaxCarry + kWarps - 1) / kWarps;
+  float v[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int r = threadIdx.y + k * kWarps;
+    if (r < carry) v[k] = col[(r + shift) * kLanes];
+  }
+  if (sync || shift < carry) __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int r = threadIdx.y + k * kWarps;
+    if (r < carry) col[r * kLanes] = v[k];
+  }
+}
+
+// Rows [r0, r1) of xs (row stride c) to col's rows 0 .. r1-r0-1 through
+// cp.async, the warps taking rows round robin; one commit group.  A dead
+// lane (live false) copies nothing.
+__device__ __forceinline__ void fetch_rows(float* col, const float* xs,
+                                           int c, int lane, bool live,
+                                           int r0, int r1) {
+  if (live)
+    for (int r = r0 + threadIdx.y; r < r1; r += kWarps)
+      __pipeline_memcpy_async(col + (r - r0) * kLanes,
+                              xs + static_cast<size_t>(r) * c + lane,
+                              sizeof(float));
+  __pipeline_commit();
+}
+
+}  // namespace tile
+}  // namespace idsp

@@ -12,14 +12,18 @@ they drop in for `hbf.hbf_dec_cascade` / `hbf.hbf_int_cascade`:
 * K8: `HbfIntState`s, lowest-rate stage first; stage i uses ``taps[i]``.
 
 The kernels' f32 operations are the plain versions' in the same order,
-one rounding each, so on the card they agree bit for bit.  No value
-depends on the time chunk: every output is the same sum in the same
-order, so the chunk only sizes the kernel's shared memory.
+one rounding each, so on the card they agree bit for bit.  The kernels
+cut the block of time into ranges, one CUDA block per lane tile and
+range, each range warmed up on its halo recomputed from the input
+(`dec_range_plan`, `int_range_plan`).  No value depends on the time
+chunk or on the number of ranges: every output is the same sum in the
+same order.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,18 +38,105 @@ from .hbf import (
 )
 
 MAX_DEPTH, MAX_TAPS = 4, 32
+LANES = 32  # lanes of a tile (kLanes of csrc/hbf_tile.cuh)
+BLOCKS_PER_SM = 4  # CUDA blocks an SM at the default number of ranges
 
 
 def pick_chunk(t: int, want: int, mult: int) -> int:
-    """The largest multiple of ``mult`` that divides ``t`` and is at
-    most ``want`` (the kernels walk whole chunks)."""
+    """The kernels' time chunk: ``want`` lowered to at most ``t`` and to
+    a multiple of ``mult`` (a chunk need not divide ``t``)."""
     if t <= 0 or t % mult:
         raise ValueError(f"block length {t} must be a positive multiple "
                          f"of {mult}")
-    for tc in range(min(want, t) // mult * mult, 0, -mult):
-        if t % tc == 0:
-            return tc
-    raise ValueError(f"time_chunk {want} is below {mult}")
+    tc = min(want, t) // mult * mult
+    if tc < mult:
+        raise ValueError(f"time_chunk {want} is below {mult}")
+    return tc
+
+
+class RangePlan(NamedTuple):
+    """How K7/K8 cut a block of time into ranges.
+
+    Range k owns rows ``[k*seg, min((k+1)*seg, rows))`` of the last
+    stage's output (K7) or of the input (K8); ``scale`` input rows make
+    one such row.  Its CUDA block starts ``halo`` input rows before the
+    range (not before row 0: there the carried tails come in), and stage
+    d computes its output rows (K7) or row pairs (K8) from
+    ``stage_halo[d]`` before the range's first on, the least that the
+    range's outputs need.
+    """
+
+    rows: int
+    seg: int
+    ranges: int
+    halo: int
+    stage_halo: tuple[int, ...]
+    scale: int
+
+    def span(self, k: int) -> tuple[int, int, int]:
+        """Range k's input rows: (walk start, start, stop)."""
+        start = k * self.seg * self.scale
+        stop = min((k + 1) * self.seg, self.rows) * self.scale
+        return max(0, start - self.halo), start, stop
+
+
+def _plan(rows, ranges, halo, stage_halo, scale):
+    if ranges < 1:
+        raise ValueError(f"ranges must be >= 1, got {ranges}")
+    seg = -(-rows // ranges)
+    return RangePlan(rows, seg, -(-rows // seg), halo, tuple(stage_halo),
+                     scale)
+
+
+def dec_range_plan(ms, t: int, ranges: int) -> RangePlan:
+    """K7's plan for stage tap counts ``ms`` (stage order, highest rate
+    first) over t full-rate rows in at most ``ranges`` ranges of output
+    rows.  Output j of a stage reads its input rows 2j-4m+3 .. 2j+1, so
+    stage d starts h[d] = 2*h[d+1] + 4m[d+1]-3 output rows early
+    (h[depth-1] = 0); the input halo, 2*h[0] + 4m[0]-3 rows, is rounded
+    up to whole last-stage rows (907 to 912 for `HBF_TAPS` at depth 4)."""
+    depth = len(ms)
+    r = 1 << depth
+    if t <= 0 or t % r:
+        raise ValueError(f"block length {t} must be a positive multiple "
+                         f"of {r}")
+    h = [0] * depth
+    for d in range(depth - 2, -1, -1):
+        h[d] = 2 * h[d + 1] + 4 * ms[d + 1] - 3
+    halo = -(-(2 * h[0] + 4 * ms[0] - 3) // r) * r
+    return _plan(t >> depth, ranges, halo, h, r)
+
+
+def int_range_plan(ms, t: int, ranges: int) -> RangePlan:
+    """K8's plan for stage tap counts ``ms`` (stage order, lowest rate
+    first) over t input rows in at most ``ranges`` ranges.  Output pair j
+    of a stage is the FIR of its input rows j-2m+1 .. j in row 2j and the
+    input row j-m+1 in row 2j+1, so a stage whose first needed output
+    row is odd needs no FIR of that row's pair.  With g[d] the input rows
+    stage d needs before the range (g[depth-1] = 2m-1, g[d] =
+    floor(g[d+1] / 2) + 2m[d]-1), the input halo is g[0] (57 for
+    `HBF_TAPS` at depth 4) and stage d starts ceil(g[d+1] / 2) pairs
+    early, at the pair of its first needed row."""
+    depth = len(ms)
+    if t <= 0:
+        raise ValueError(f"block length {t} must be positive")
+    g = [0] * depth
+    g[-1] = 2 * ms[-1] - 1
+    for d in range(depth - 2, -1, -1):
+        g[d] = g[d + 1] // 2 + 2 * ms[d] - 1
+    h = [-(-g[d + 1] // 2) for d in range(depth - 1)] + [0]
+    return _plan(t, ranges, g[0], h, 1)
+
+
+def default_ranges(rows: int, c: int, device: torch.device) -> int:
+    """Ranges enough for BLOCKS_PER_SM blocks on every SM of the card
+    with ceil(c / LANES) lane tiles, at most one a row (`chip_smoke.py`
+    phase 6 times 1, 2, 4 and 8 an SM)."""
+    if device.type != "cuda":
+        raise ValueError(f"xs must be on a CUDA device, got {device}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-c // LANES)
+    return max(1, min(rows, -(-BLOCKS_PER_SM * sms // tiles)))
 
 
 def _chunked(fn, states, xs, time_chunk):
@@ -66,12 +157,13 @@ def _chunked(fn, states, xs, time_chunk):
     return states, torch.cat(ys, dim=0)
 
 
-def _launch(name, tails, packed_rows, xs, stage_taps, y_rows, *sizes):
+def _launch(name, tails, packed_rows, xs, stage_taps, y_rows, *sizes,
+            extra=()):
     """Validate and launch ``idsp_<name>`` (K7, K8, and K22, K23 of
     `hbf_mxu`), which takes ``xs, tails_in, tails_out, y, t, c, *sizes,
-    depth, ms, taps, stream``; returns the packed new tails and y.  A
-    tile whose buffers exceed a block's shared memory is refused by the
-    launch (RuntimeError)."""
+    depth, ms, taps, *extra, stream``, ``extra`` host int arrays; returns
+    the packed new tails and y.  A tile whose buffers exceed a block's
+    shared memory is refused by the launch (RuntimeError)."""
     depth = len(stage_taps)
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"depth must be 1..{MAX_DEPTH}, got {depth}")
@@ -95,6 +187,7 @@ def _launch(name, tails, packed_rows, xs, stage_taps, y_rows, *sizes):
         err = getattr(lib, f"idsp_{name}")(
             xs.data_ptr(), tails_in.data_ptr(), tails_out.data_ptr(),
             y.data_ptr(), t, c, *sizes, depth, ms_c, taps_c,
+            *[(ctypes.c_int * len(v))(*v) for v in extra],
             _ext.stream_ptr(dev))
     _ext.check(err, name)
     return tails_out, y
@@ -127,7 +220,8 @@ def hbf_dec_cascade_bank_plain(states, xs, *, taps=None, time_chunk=None):
                     tuple(states), xs, time_chunk)
 
 
-def hbf_dec_cascade_bank(states, xs, *, taps=None, time_chunk: int = 512):
+def hbf_dec_cascade_bank(states, xs, *, taps=None, time_chunk: int = 256,
+                         ranges: int | None = None):
     """Decimate-by-2**depth half-band cascade in one kernel,
     depth = len(states).
 
@@ -137,8 +231,11 @@ def hbf_dec_cascade_bank(states, xs, *, taps=None, time_chunk: int = 512):
       xs: (t, c) f32 full-rate block, t % 2**depth == 0.
       taps: the full tap table (default `HBF_TAPS`); stage i uses
         ``taps[depth-1-i]``.
-      time_chunk: the kernel's chunk, lowered to the largest multiple of
-        2**depth that divides t; sizes shared memory only.
+      time_chunk: the full-rate rows a CUDA block takes at a time,
+        lowered to a multiple of 2**depth and to t; sizes shared memory
+        only (256: 114 KB at depth 4 with HBF_TAPS, two blocks an SM).
+      ranges: the most time ranges to cut t into (`dec_range_plan`);
+        default `default_ranges`.  Changes no value.
 
     Returns (new_states, y) with y (t // 2**depth, c) f32.
     """
@@ -146,11 +243,15 @@ def hbf_dec_cascade_bank(states, xs, *, taps=None, time_chunk: int = 512):
         return hbf_dec_cascade_bank_plain(states, xs, taps=taps)
     stage_taps = _dec_taps(states, HBF_TAPS if taps is None else taps)
     depth = len(stage_taps)
-    t = xs.shape[0]
+    t, c = xs.shape
     tc = pick_chunk(t, time_chunk, 1 << depth)
-    rows = [(2 * len(tv) - 1, len(tv) - 1) for tv in stage_taps]
+    ms = [len(tv) for tv in stage_taps]
+    plan = dec_range_plan(ms, t, default_ranges(t >> depth, c, xs.device)
+                          if ranges is None else ranges)
+    rows = [(2 * m - 1, m - 1) for m in ms]
     packed, y = _launch("hbf_dec_cascade", [(s.odd, s.even) for s in states],
-                        rows, xs, stage_taps, t >> depth, tc)
+                        rows, xs, stage_taps, t >> depth, tc, plan.seg,
+                        plan.halo, extra=(plan.stage_halo,))
     hbf_dec_cascade_bank.launches += 1
     new = tuple(HbfDecState(odd=o, even=e) for o, e in _split(packed, rows))
     return new, y
@@ -168,7 +269,8 @@ def hbf_int_cascade_bank_plain(states, xs, *, taps=None, time_chunk=None):
                     tuple(states), xs, time_chunk)
 
 
-def hbf_int_cascade_bank(states, xs, *, taps=None, time_chunk: int = 64):
+def hbf_int_cascade_bank(states, xs, *, taps=None, time_chunk: int = 32,
+                         ranges: int | None = None):
     """Interpolate-by-2**depth half-band cascade in one kernel,
     depth = len(states).
 
@@ -178,9 +280,11 @@ def hbf_int_cascade_bank(states, xs, *, taps=None, time_chunk: int = 64):
       xs: (t, c) f32 low-rate block.
       taps: the full tap table (default `HBF_TAPS`); stage i uses
         ``taps[i]``.
-      time_chunk: the kernel's chunk in low-rate rows, lowered to the
-        largest divisor of t; sizes shared memory only, which doubles
-        per stage (64 keeps depth 4 with HBF_TAPS at 133 KB per block).
+      time_chunk: the low-rate rows a CUDA block takes at a time, lowered
+        to t; sizes shared memory only, which doubles per stage (32: 76 KB
+        at depth 4 with HBF_TAPS, three blocks an SM).
+      ranges: the most time ranges to cut t into (`int_range_plan`);
+        default `default_ranges`.  Changes no value.
 
     Returns (new_states, y) with y (t * 2**depth, c) f32: per stage the
     FIR output in the even slots, the M-delayed input in the odd slots.
@@ -190,11 +294,15 @@ def hbf_int_cascade_bank(states, xs, *, taps=None, time_chunk: int = 64):
     taps = HBF_TAPS if taps is None else taps
     depth = len(states)
     stage_taps = tuple(np.asarray(taps[i], np.float32) for i in range(depth))
-    t = xs.shape[0]
+    t, c = xs.shape
     tc = pick_chunk(t, time_chunk, 1)
-    rows = [(2 * len(tv) - 1,) for tv in stage_taps]
+    ms = [len(tv) for tv in stage_taps]
+    plan = int_range_plan(ms, t, default_ranges(t, c, xs.device)
+                          if ranges is None else ranges)
+    rows = [(2 * m - 1,) for m in ms]
     packed, y = _launch("hbf_int_cascade", [(s.x,) for s in states], rows,
-                        xs, stage_taps, t << depth, tc)
+                        xs, stage_taps, t << depth, tc, plan.seg, plan.halo,
+                        extra=(plan.stage_halo,))
     hbf_int_cascade_bank.launches += 1
     new = tuple(HbfIntState(x=x) for (x,) in _split(packed, rows))
     return new, y

@@ -288,39 +288,52 @@ def test_wrappers_reject_bad_input(cuda):
             (128,), device=cuda), xs.to(torch.int64))
 
 
+# forced range counts: one, two, ranges shorter than the halo (K7's is
+# 912 full-rate rows, K8's 57 low-rate rows at depth 4), one row each
+HBF_RANGES = [1, 2, 16, 10**6]
+
+
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("tname", ["HBF_TAPS", "HBF_TAPS_98"])
+@pytest.mark.parametrize("ranges", [None, *HBF_RANGES])
 @pytest.mark.parametrize("depth,tc", [(1, 64), (2, 512), (4, 512), (4, 64)])
-def test_hbf_dec_cascade_kernel_equals_plain(cuda, depth, tc):
-    c, t = 200, 2048  # c not a multiple of the 32-lane block
+def test_hbf_dec_cascade_kernel_equals_plain(cuda, depth, tc, ranges, tname):
+    c, t = 200, 2048  # c not a multiple of the 32-lane tile
+    taps = getattr(hbf, tname)
     rng = np.random.default_rng(36)
     st = tuple(hbf.HbfDecState(odd=torch.randn_like(s.odd),
                                even=torch.randn_like(s.even))
-               for s in hbf.hbf_dec_cascade_init(depth, (c,), axis=0,
-                                                 device=cuda))
+               for s in hbf.hbf_dec_cascade_init(depth, (c,), taps=taps,
+                                                 axis=0, device=cuda))
     st_p = st
     for _ in range(3):
         x = torch.from_numpy(rng.normal(size=(t, c)).astype(np.float32)).to(
             cuda)
-        st, y = hbf_dec_cascade_bank(st, x, time_chunk=tc)
-        st_p, y_p = hbf_dec_cascade_bank_plain(st_p, x)
+        st, y = hbf_dec_cascade_bank(st, x, taps=taps, time_chunk=tc,
+                                     ranges=ranges)
+        st_p, y_p = hbf_dec_cascade_bank_plain(st_p, x, taps=taps)
         torch.cuda.synchronize()
         _equal((st, y), (st_p, y_p))
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("tname", ["HBF_TAPS", "HBF_TAPS_98"])
+@pytest.mark.parametrize("ranges", [None, *HBF_RANGES])
 @pytest.mark.parametrize("depth,tc", [(1, 64), (3, 32), (4, 64), (4, 8)])
-def test_hbf_int_cascade_kernel_equals_plain(cuda, depth, tc):
+def test_hbf_int_cascade_kernel_equals_plain(cuda, depth, tc, ranges, tname):
     c, t = 200, 256
+    taps = getattr(hbf, tname)
     rng = np.random.default_rng(37)
     st = tuple(hbf.HbfIntState(x=torch.randn_like(s.x))
-               for s in hbf.hbf_int_cascade_init(depth, (c,), axis=0,
-                                                 device=cuda))
+               for s in hbf.hbf_int_cascade_init(depth, (c,), taps=taps,
+                                                 axis=0, device=cuda))
     st_p = st
     for _ in range(3):
         x = torch.from_numpy(rng.normal(size=(t, c)).astype(np.float32)).to(
             cuda)
-        st, y = hbf_int_cascade_bank(st, x, time_chunk=tc)
-        st_p, y_p = hbf_int_cascade_bank_plain(st_p, x)
+        st, y = hbf_int_cascade_bank(st, x, taps=taps, time_chunk=tc,
+                                     ranges=ranges)
+        st_p, y_p = hbf_int_cascade_bank_plain(st_p, x, taps=taps)
         torch.cuda.synchronize()
         _equal((st, y), (st_p, y_p))
 

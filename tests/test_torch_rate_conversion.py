@@ -289,13 +289,17 @@ def test_hbf_cascade_bank_plain_chunking_changes_no_word():
 
 
 def test_pick_chunk():
+    # the kernels walk chunks of ranges: a chunk need not divide t
     assert pick_chunk(32768, 512, 16) == 512
     assert pick_chunk(48, 512, 16) == 48
-    assert pick_chunk(96, 64, 16) == 48
+    assert pick_chunk(96, 64, 16) == 64
+    assert pick_chunk(96, 60, 16) == 48
     assert pick_chunk(2048, 64, 1) == 64
-    assert pick_chunk(100, 64, 1) == 50
+    assert pick_chunk(100, 64, 1) == 64
     with pytest.raises(ValueError):
         pick_chunk(100, 512, 16)
+    with pytest.raises(ValueError):
+        pick_chunk(96, 8, 16)
 
 
 # --- the slice as a whole ---------------------------------------------------
