@@ -282,8 +282,19 @@ BUSY_ITERS = 5  # chained blocks under the profiler per busy-share reading
 # phases 3-4 have run it at the same shape: phase 6 times one call of it.
 ONCE = {"iters": 1, "trials": 1, "warmup": False}
 M_DEC3, M_DEC4, M_INT4 = (5, 10, 23), (4, 5, 10, 23), (23, 10, 5, 4)
-# K22/K23's (block, sub) tilings in phase 3: the defaults first
-MXU_DEC_TILES, MXU_INT_TILES = ((256, 32), (1024, 8)), ((64, 32), (16, 4))
+# K22/K23's (block, sub) tilings in phase 3: the defaults first (for the
+# MMA kernels block is the chunk a CUDA block takes at a time: 1024 rows
+# at depth 4 would ask for 290 KB of shared memory)
+MXU_DEC_TILES, MXU_INT_TILES = ((256, 32), (512, 8)), ((64, 32), (16, 4))
+# K22/K23's precisions; "split3" (the round trip's) keeps the bare names
+MXU_PRECISIONS = ("split3", "default", "highest")
+# K22/K23's plain versions against the float64 truth (the band of float64
+# taps in float64), of the scale max |y|: hi + lo is within 2^-17 of a
+# stage input and of a weight (the kernels against their plain versions:
+# hbf_mxu.KERNEL_TOL)
+MXU_TRUTH = {"highest": 1e-6, "split3": 2.0 ** -15, "default": 1e-2}
+# K22/K23 in phase 3 at forced range counts (the private wrappers' ranges)
+MXU_RANGES = (1, 7)
 # K7/K8 in phase 3 beside the default launch: (depth, c, forced ranges,
 # taps); None is the default count, 10**6 one output row a range
 HBF_RANGE_CASES = ((1, 200, 3, "HBF_TAPS_98"), (2, C_RATE, 1, "HBF_TAPS"),
@@ -296,8 +307,12 @@ HBF_BLOCKS_PER_SM = (1, 2, 4, 8)
 # the device symbols of the half-band cascade kernels, for their device time
 HBF_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                "hbf_int_cascade_bank": "hbf_int_cascade_kernel",
-               "hbf_dec_cascade_mxu": "hbf_dec_mxu_kernel",
-               "hbf_int_cascade_mxu": "hbf_int_mxu_kernel"}
+               "hbf_dec_cascade_mxu": "hbf_dec_mma_kernel",
+               "hbf_int_cascade_mxu": "hbf_int_mma_kernel",
+               "hbf_dec_cascade_mxu_default": "hbf_dec_mma_kernel",
+               "hbf_int_cascade_mxu_default": "hbf_int_mma_kernel",
+               "hbf_dec_cascade_mxu_highest": "hbf_dec_mxu_kernel",
+               "hbf_int_cascade_mxu_highest": "hbf_int_mxu_kernel"}
 # The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
 # the chain's mixed stream the 0.02 lowpass output peaks near 2.6e7, under
 # the 2^26 bound of tests/test_biquad_pallas.py:896, so that bound never
@@ -466,8 +481,11 @@ def work(name, c, t=T):
         return _w(4 * t + 8 * c + 4 * t * c2 + 32 * c2, 0,
                   (38 + 2 * 2 + 2 * 11) * t * c, t, 3)
     # K22/K23 compute K7/K8's functions: the same work, whatever the form
-    name = {"hbf_dec_cascade_mxu": "hbf_dec_cascade_bank",
-            "hbf_int_cascade_mxu": "hbf_int_cascade_bank"}.get(name, name)
+    # or precision
+    for mxu, shift in (("hbf_dec_cascade_mxu", "hbf_dec_cascade_bank"),
+                       ("hbf_int_cascade_mxu", "hbf_int_cascade_bank")):
+        if name.startswith(mxu):
+            name = shift
     if name == "hbf_dec_cascade_bank":
         return _w(4 * t * c + 4 * (t >> DEPTH) * c
                   + 2 * 4 * sum(3 * m - 2 for m in M_DEC4) * c,
@@ -771,6 +789,9 @@ def rate_main_path(dev, rng, wrappers):
     import torch
     from idsp_tpu_torch.filters import cic, hbf
     from idsp_tpu_torch.filters.cic_cuda import cic_int_bank
+    from idsp_tpu_torch.filters.hbf_mxu import (
+        hbf_dec_cascade_mxu, hbf_int_cascade_mxu,
+    )
     from idsp_tpu_torch.pipelines import rate_conversion as rc
     from idsp_tpu_torch.pipelines.rate_conversion import RoundTrip
 
@@ -789,6 +810,17 @@ def rate_main_path(dev, rng, wrappers):
             st, y = mod(st, xb)
             outs.append((st, y))
         rt[m] = outs
+    # K22 then K23 at the other precisions, through their entry points (the
+    # round trip's composition, its 2^-depth gain)
+    for p in MXU_PRECISIONS[1:]:
+        sd = hbf.hbf_dec_cascade_init(DEPTH, (c,), axis=0, device=dev)
+        si = hbf.hbf_int_cascade_init(DEPTH, (c,), axis=0, device=dev)
+        outs = []
+        for xb in rt_x:
+            sd, low = hbf_dec_cascade_mxu(sd, xb, precision=p)
+            si, y = hbf_int_cascade_mxu(si, low, precision=p)
+            outs.append(y / (1 << DEPTH))
+        rt[f"mxu_{p}"] = outs
     comp = {}
     for uk in (False, True):
         cs = cic.init(3, 1, (c,), device=dev)
@@ -812,10 +844,13 @@ def rate_main_path(dev, rng, wrappers):
     torch.cuda.synchronize()
     counts = launch_counts(wrappers)
     for name in ("hbf_dec_cascade_mxu", "hbf_int_cascade_mxu"):
-        if counts[name] != BLOCKS:
-            raise AssertionError(f"RoundTrip mxu: {name} launched "
-                                 f"{counts[name]} times in {BLOCKS} blocks")
-    log(f"phase 4 main path: RoundTrip (scan, kernel, mxu), "
+        for form in ("", "_default", "_highest"):
+            if counts[name + form] != BLOCKS:
+                raise AssertionError(f"RoundTrip mxu: {name + form} launched "
+                                     f"{counts[name + form]} times in "
+                                     f"{BLOCKS} blocks")
+    log(f"phase 4 main path: RoundTrip (scan, kernel, mxu; K22 then K23 at "
+        f"{MXU_PRECISIONS[1:]}), "
         f"cic_hbf_decimate_t (plain, kernel), CIC interpolation (plain, "
         f"kernel) x {BLOCKS} blocks at c={c}, t={T}; launches {counts}")
 
@@ -851,23 +886,46 @@ def rate_main_path(dev, rng, wrappers):
     log(f"phase 4 CIC interpolation kernel == plain on every output and "
         f"state word over {BLOCKS} blocks")
 
-    # mxu: outputs within 5e-5 of the scale of scan, the decimator's
-    # stage-0 carry (copies of the input) bit for bit
-    worst = bound = 0.0
+    # mxu: outputs within 5e-5 of the scale of scan (tests/test_hbf_pallas.py
+    # :244-256), the decimator's stage-0 carry (copies of the input) bit for
+    # bit, every other tail within 5e-5 of its own scale (the stages' rows
+    # carry their gains, up to 2^depth; bf16x3 keeps about 16 bits of each)
+    worst = bound = tails = 0.0
     for b, ((st, y), (st_r, y_r)) in enumerate(zip(rt["mxu"], rt["scan"])):
         if tuple(y.shape) != (T, c) or not bool(torch.isfinite(y).all()):
             raise AssertionError("RoundTrip mxu: bad output")
         compare(f"RoundTrip mxu stage-0 carry, block {b}", st.dec[0],
                 st_r.dec[0])
         bound = 5e-5 * float(y_r.abs().max())
-        for a, r in zip(leaves((st, y)), leaves((st_r, y_r)), strict=True):
-            worst = max(worst, max_abs(a, r))
+        worst = max(worst, max_abs(y, y_r))
         if worst > bound:
             raise AssertionError(f"RoundTrip mxu off scan by {worst} > "
                                  f"{bound}")
+        for a, r in zip(leaves(st), leaves(st_r), strict=True):
+            d = max_abs(a, r) / max(float(r.abs().max()), 1e-30)
+            tails = max(tails, d)
+            if d > 5e-5:
+                raise AssertionError(f"RoundTrip mxu tail off scan by {d} of "
+                                     f"its scale")
     log(f"phase 4 RoundTrip mxu vs scan over {BLOCKS} blocks: stage-0 carry "
-        f"bit for bit; max |d| of outputs and tails {worst} (gate 5e-5 x "
-        f"scale = {bound})")
+        f"bit for bit; max |d| of outputs {worst} (gate 5e-5 x scale = "
+        f"{bound}); tails within {tails:.3e} of their own scales (gate "
+        f"5e-5)")
+    # the other precisions' outputs against scan's: "highest" within the
+    # round trip's 5e-5 of the scale, "default" (eight stages, each input
+    # and weight rounded to bf16, 2^-9 each) within 2^-5
+    for p, gate in (("highest", 5e-5), ("default", 2.0 ** -5)):
+        worst = 0.0
+        for y, (_, y_r) in zip(rt[f"mxu_{p}"], rt["scan"]):
+            if tuple(y.shape) != (T, c) or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"K22/K23 {p}: bad output")
+            scale = float(y_r.abs().max())
+            worst = max(worst, max_abs(y, y_r) / scale)
+        if worst > gate:
+            raise AssertionError(f"K22 then K23 ({p}) off scan by {worst} of "
+                                 f"the scale > {gate}")
+        log(f"phase 4 K22 then K23 ({p}) vs RoundTrip scan over {BLOCKS} "
+            f"blocks: max |d| {worst:.3e} of the scale (gate {gate:.3e})")
     for mode in ("kernel", "mxu"):
         rate_gates(dev, mode)
     for mode in ("scan", "kernel", "mxu"):
@@ -956,14 +1014,87 @@ def gates_98(dev, mode):
         f"max {stop:.3f} dB < -98 dB")
 
 
+def mxu_truth(states, x, taps, kind):
+    """K22's (``kind`` "dec") or K23's output in float64: the band of the
+    float64 taps over the float64 carried rows and input, stage by
+    stage."""
+    import torch
+
+    depth, cur = len(states), x.double()
+    order = range(depth - 1, -1, -1) if kind == "dec" else range(depth)
+    for st, i in zip(states, order):
+        tv = np.asarray(taps[i], np.float64)
+        m = len(tv)
+        if kind == "dec":
+            win = torch.zeros((4 * m - 2, x.shape[1]), dtype=torch.float64,
+                              device=x.device)
+            win[1::2], win[2 * m::2] = st.odd.double(), st.even.double()
+            ext, n = torch.cat([win, cur]), cur.shape[0] // 2
+            band = np.zeros(4 * m - 1)
+            band[0:2 * m:2], band[2 * m::2], band[2 * m - 1] = tv, tv[::-1], 1
+            cur = sum(float(w) * ext[1 + v:1 + v + 2 * n:2]
+                      for v, w in enumerate(band) if w)
+        else:
+            ext, n = torch.cat([st.x.double(), cur]), cur.shape[0]
+            band = np.concatenate([tv, tv[::-1]])
+            fir = sum(float(w) * ext[v:v + n] for v, w in enumerate(band))
+            cur = torch.stack([fir, ext[m:m + n]], dim=1).flatten(0, 1)
+    return cur
+
+
+def hold_near(name, kern, plain, carry, xs, tol, plain_s=None):
+    """Phase 3 for K22/K23: ``kern`` against ``plain`` (both ``fn(carry,
+    x) -> (carry, y)``) over the blocks ``xs``, within ``tol`` of each
+    block's scale max |y| (0: bit for bit), the stage-0 carry bit for bit.
+    With a dict ``plain_s``, ``plain_s[name]`` gets the plain calls'
+    median time (CUDA events).  Returns (max |d|, max |d| / scale,
+    outputs that differ, outputs, the kernel's results)."""
+    import statistics
+
+    import torch
+
+    err = rel = 0.0
+    ndiff = nout = 0
+    times, got_all = [], []
+    for x in xs:
+        got = kern(carry, x)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(carry, x)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+        compare(f"{name} stage-0 carry", got[0][0], want[0][0])
+        scale = float(want[1].abs().max())
+        for g, w in zip(leaves(got), leaves(want), strict=True):
+            if not bool(torch.isfinite(g).all()) or g.shape != w.shape:
+                raise AssertionError(f"{name}: bad output")
+            err = max(err, max_abs(g, w))
+        ndiff += int((got[1] != want[1]).sum())
+        nout += got[1].numel()
+        rel = max(rel, err / scale)
+        if err > tol * scale:
+            raise AssertionError(f"{name}: kernel off plain by {err} > "
+                                 f"{tol} x {scale}")
+        got_all.append(got)
+        carry = got[0]
+    if plain_s is not None:
+        plain_s[name] = statistics.median(times)
+    return err, rel, ndiff, nout, got_all
+
+
 def check_mxu_kernels(dev, rng, errs, plain_s):
     """Phase 3 for K22/K23 at c = C_RATE, depth DEPTH, with HBF_TAPS and
-    HBF_TAPS_98: each against its plain version over BLOCKS carried blocks
-    from a random state at two tilings (block, sub), then one block against
-    its two halves; tolerance 0.  ``plain_s`` gets the plain calls' median
-    time (HBF_TAPS, the first tiling)."""
+    HBF_TAPS_98, at each precision: against the plain version over BLOCKS
+    carried blocks from a random state at two tilings (block, sub), within
+    `hbf_mxu.KERNEL_TOL` of the scale, the stage-0 carry bit for bit; the
+    second tiling and MXU_RANGES range counts against the first bit for
+    bit; one block against its two halves bit for bit; the plain version
+    against the float64 truth within MXU_TRUTH.  ``plain_s`` gets the plain
+    calls' median time (HBF_TAPS, the first tiling)."""
     import torch
-    from idsp_tpu_torch.filters import hbf
+    from idsp_tpu_torch.filters import hbf, hbf_mxu
     from idsp_tpu_torch.filters.hbf_mxu import (
         hbf_dec_cascade_mxu, hbf_dec_cascade_mxu_plain, hbf_int_cascade_mxu,
         hbf_int_cascade_mxu_plain,
@@ -982,35 +1113,64 @@ def check_mxu_kernels(dev, rng, errs, plain_s):
                      for s in hbf.hbf_int_cascade_init(
                          DEPTH, (c,), taps=taps, axis=0, device=dev))
 
-    for tag, kern, plain, rows, state, tiles in (
-            ("K22", hbf_dec_cascade_mxu, hbf_dec_cascade_mxu_plain, T,
-             dec_state, MXU_DEC_TILES),
-            ("K23", hbf_int_cascade_mxu, hbf_int_cascade_mxu_plain,
-             T >> DEPTH, int_state, MXU_INT_TILES)):
-        name, err = kern.__name__, 0.0
-        for tname in ("HBF_TAPS", "HBF_TAPS_98"):
-            taps = getattr(hbf, tname)
-            st0 = state(taps)
-            for i, (block, sub) in enumerate(tiles):
-                err = max(err, hold(
-                    name,
-                    lambda s, x: kern(s, x, taps=taps, block=block, sub=sub),
-                    lambda s, x: plain(s, x, taps=taps), (st0,),
-                    lambda: normal((rows, c)),
-                    plain_s if tname == "HBF_TAPS" and i == 0 else None))
-            x = normal((rows, c))
-            whole = kern(st0, x, taps=taps)
-            st_a, y_a = kern(st0, x[:rows // 2], taps=taps)
-            st_b, y_b = kern(st_a, x[rows // 2:], taps=taps)
-            torch.cuda.synchronize()
-            compare(f"{name} ({tname}): two halves vs one block",
-                    (st_b, torch.cat([y_a, y_b])), whole)
-        errs[name] = err
-        log(f"phase 3 {tag} {name} == plain over {BLOCKS} blocks (c={c}, "
-            f"x ({rows}, {c}), depth {DEPTH}, HBF_TAPS and HBF_TAPS_98, "
-            f"random carried state, (block, sub) {tiles}): max |d| {err}; "
-            f"two halves == one block bit for bit; plain "
-            f"{plain_s[name] * 1e3:.3f} ms")
+    for tag, kind, kern, plain, private, rows, state, tiles in (
+            ("K22", "dec", hbf_dec_cascade_mxu, hbf_dec_cascade_mxu_plain,
+             hbf_mxu._dec, T, dec_state, MXU_DEC_TILES),
+            ("K23", "int", hbf_int_cascade_mxu, hbf_int_cascade_mxu_plain,
+             hbf_mxu._int, T >> DEPTH, int_state, MXU_INT_TILES)):
+        for prec in MXU_PRECISIONS:
+            name = kern.__name__ + ("" if prec == "split3" else f"_{prec}")
+            err = rel = truth = 0.0
+            ndiff = nout = 0
+            for tname in ("HBF_TAPS", "HBF_TAPS_98"):
+                taps = getattr(hbf, tname)
+                st0 = state(taps)
+                xs = [normal((rows, c)) for _ in range(BLOCKS)]
+                runs = []
+                for i, (block, sub) in enumerate(tiles):
+                    e, r, nd, no, got = hold_near(
+                        name,
+                        lambda s, x: kern(s, x, taps=taps, block=block,
+                                          sub=sub, precision=prec),
+                        lambda s, x: plain(s, x, taps=taps, precision=prec),
+                        st0, xs, hbf_mxu.KERNEL_TOL[prec],
+                        plain_s if tname == "HBF_TAPS" and i == 0 else None)
+                    err, rel = max(err, e), max(rel, r)
+                    ndiff, nout = ndiff + nd, nout + no
+                    runs.append(got)
+                compare(f"{name} ({tname}): tilings {tiles}", runs[1],
+                        runs[0])
+                block, sub = tiles[0]
+                if prec != "highest":
+                    for ranges in MXU_RANGES:
+                        compare(f"{name} ({tname}): {ranges} ranges",
+                                private(st0, xs[0], taps, block, sub, prec,
+                                        ranges), runs[0][0])
+                whole = kern(st0, xs[0], taps=taps, precision=prec)
+                st_a, y_a = kern(st0, xs[0][:rows // 2], taps=taps,
+                                 precision=prec)
+                st_b, y_b = kern(st_a, xs[0][rows // 2:], taps=taps,
+                                 precision=prec)
+                torch.cuda.synchronize()
+                compare(f"{name} ({tname}): two halves vs one block",
+                        (st_b, torch.cat([y_a, y_b])), whole)
+                want = mxu_truth(st0, xs[0], taps, kind)
+                y = plain(st0, xs[0], taps=taps, precision=prec)[1]
+                d = max_abs(y, want) / float(want.abs().max())
+                truth = max(truth, d)
+                if d > MXU_TRUTH[prec]:
+                    raise AssertionError(f"{name} ({tname}) plain off the "
+                                         f"float64 truth by {d} of the scale")
+            errs[name] = err
+            log(f"phase 3 {tag} {name} ({prec}) vs plain over {BLOCKS} "
+                f"blocks (c={c}, x ({rows}, {c}), depth {DEPTH}, HBF_TAPS "
+                f"and HBF_TAPS_98, random carried state, (block, sub) "
+                f"{tiles}): max |d| {err}, {rel:.3e} of the scale (gate "
+                f"{hbf_mxu.KERNEL_TOL[prec]:.3e}); outputs differing "
+                f"{ndiff} of {nout}; "
+                f"tilings, ranges {MXU_RANGES} and two halves bit for bit; "
+                f"plain vs float64 truth {truth:.3e} (gate "
+                f"{MXU_TRUTH[prec]:.1e}); plain {plain_s[name] * 1e3:.3f} ms")
 
 
 def library_calls(x, low, xi, xl):
@@ -1129,16 +1289,20 @@ def time_rate(dev, rng, card, timings):
                              lambda s: cic_dec_bank_plain(s, xi, rate), cic0),
             "cic_int_bank": (lambda s: cic_int_bank(s, xl, rate),
                              lambda s: cic_int_bank_plain(s, xl, rate), cic0),
-            "hbf_dec_cascade_mxu": (
-                lambda s: hbf_dec_cascade_mxu(s, x),
-                lambda s: hbf_dec_cascade_mxu_plain(s, x), dec0),
-            "hbf_int_cascade_mxu": (
-                lambda s: hbf_int_cascade_mxu(s, low),
-                lambda s: hbf_int_cascade_mxu_plain(s, low), int0),
         }
         libs = library_calls(x, low, xi, xl)
-        libs["hbf_dec_cascade_mxu"] = libs["hbf_dec_cascade_bank"]
-        libs["hbf_int_cascade_mxu"] = libs["hbf_int_cascade_bank"]
+        for p in MXU_PRECISIONS:  # K22/K23, "split3" under the bare names
+            tag = "" if p == "split3" else f"_{p}"
+            cases["hbf_dec_cascade_mxu" + tag] = (
+                lambda s, p=p: hbf_dec_cascade_mxu(s, x, precision=p),
+                lambda s, p=p: hbf_dec_cascade_mxu_plain(s, x, precision=p),
+                dec0)
+            cases["hbf_int_cascade_mxu" + tag] = (
+                lambda s, p=p: hbf_int_cascade_mxu(s, low, precision=p),
+                lambda s, p=p: hbf_int_cascade_mxu_plain(s, low,
+                                                         precision=p), int0)
+            libs["hbf_dec_cascade_mxu" + tag] = libs["hbf_dec_cascade_bank"]
+            libs["hbf_int_cascade_mxu" + tag] = libs["hbf_int_cascade_bank"]
         for name, (kern, plain, st) in cases.items():
             lib_out = libs[name](None).double()
             ker_out = kern(st)[1].double()
@@ -1257,20 +1421,27 @@ def hold(name, kern, plain, carry, make_x, plain_s=None, blocks=BLOCKS):
     return err
 
 
+# the wrappers' other forms, counted apart: ``<form>_launches``
+FORMS = ("clamp", "default", "highest")
+
+
 def reset(wrappers):
-    """Every launch counter of the wrappers to 0 (the clamp forms' too)."""
+    """Every launch counter of the wrappers to 0 (the other forms' too)."""
     for w in wrappers:
         w.launches = 0
-        if hasattr(w, "clamp_launches"):
-            w.clamp_launches = 0
+        for form in FORMS:
+            if hasattr(w, f"{form}_launches"):
+                setattr(w, f"{form}_launches", 0)
 
 
 def launch_counts(wrappers):
-    """Each wrapper's launches; a wrapper with a ``clamp=`` form also
-    reports that form's launches as ``<name>_clamp``."""
+    """Each wrapper's launches; a wrapper with other forms (K3/K12's
+    ``clamp=``, K22/K23's precisions) also reports each form's launches as
+    ``<name>_<form>``."""
     counts = {w.__name__: w.launches for w in wrappers}
-    counts.update({f"{w.__name__}_clamp": w.clamp_launches for w in wrappers
-                   if hasattr(w, "clamp_launches")})
+    counts.update({f"{w.__name__}_{form}": getattr(w, f"{form}_launches")
+                   for w in wrappers for form in FORMS
+                   if hasattr(w, f"{form}_launches")})
     return counts
 
 
@@ -3866,7 +4037,10 @@ def main():
                       "fastlo_ddc_bank_block")
     rate_kernels = ("hbf_dec_cascade_bank", "hbf_int_cascade_bank",
                     "cic_dec_bank", "cic_int_bank", "hbf_dec_cascade_mxu",
-                    "hbf_int_cascade_mxu")
+                    "hbf_int_cascade_mxu", "hbf_dec_cascade_mxu_default",
+                    "hbf_int_cascade_mxu_default",
+                    "hbf_dec_cascade_mxu_highest",
+                    "hbf_int_cascade_mxu_highest")
     control_kernels = ("sos_bank_q", "df1_wide_bank", "df1_bank_q_coef",
                        "df1_clamp_bank_q_coef")
     precision_kernels = ("df1_bank_q16", "df1_bank_q64", "df1_bank_f32",
@@ -4279,6 +4453,14 @@ def main():
                                 "idsp_tpu/filters/hbf_pallas.py:409"),
         "hbf_int_cascade_mxu": ("idsp_tpu_torch/csrc/hbf_mxu.cu",
                                 "idsp_tpu/filters/hbf_pallas.py:612"),
+        "hbf_dec_cascade_mxu_default": ("idsp_tpu_torch/csrc/hbf_mxu.cu",
+                                        "idsp_tpu/filters/hbf_pallas.py:409"),
+        "hbf_int_cascade_mxu_default": ("idsp_tpu_torch/csrc/hbf_mxu.cu",
+                                        "idsp_tpu/filters/hbf_pallas.py:612"),
+        "hbf_dec_cascade_mxu_highest": ("idsp_tpu_torch/csrc/hbf_mxu.cu",
+                                        "idsp_tpu/filters/hbf_pallas.py:409"),
+        "hbf_int_cascade_mxu_highest": ("idsp_tpu_torch/csrc/hbf_mxu.cu",
+                                        "idsp_tpu/filters/hbf_pallas.py:612"),
         "cic_dec_bank": ("idsp_tpu_torch/csrc/cic_bank.cu",
                          "idsp_tpu/filters/cic_pallas.py:83"),
         "cic_int_bank": ("idsp_tpu_torch/csrc/cic_bank.cu",

@@ -65,6 +65,9 @@ _SIGNATURES = {
     "idsp_hbf_int_cascade": [_P] * 4 + [_I] * 6 + [_P] * 4,
     "idsp_hbf_dec_mxu": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
     "idsp_hbf_int_mxu": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
+    "idsp_hbf_dec_mma": [_P] * 4 + [_I] * 7 + [_P, _P, _P],
+    "idsp_hbf_int_mma": [_P] * 4 + [_I] * 7 + [_P, _P, _P],
+    "idsp_hbf_mma_occupancy": [_I, _I, _P, _I, _I],
     "idsp_cic_dec_bank": [_P] * 4 + [_I] * 4 + [_P],
     "idsp_cic_int_bank": [_P] * 4 + [_I] * 4 + [_P],
     "idsp_fm_disc_bank": [_P] * 13 + [_I] * 10 + [_P],

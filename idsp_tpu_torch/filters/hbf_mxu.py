@@ -5,10 +5,15 @@ form (port of the MXU half of `idsp_tpu.filters.hbf_pallas`:
 On the TPU each stage was one product of a fixed banded Toeplitz
 operator (`_hbf_dec_band_matrix`, `_hbf_int_band_matrix`) with a window
 of ``[carry | block]`` rows, the carry being the stage's last ``kp``
-input rows.  The port keeps the operator and the carry layout and fixes
-the summation order itself: each output row is the sum of its band
-row's nonzero entries times their window rows, in ascending column
-order, one rounding per multiply and per add.
+input rows (hbf_pallas.py:567 and :749, the pallas_calls).  The port
+keeps the operator, the carry layout and the precisions; each output row
+is its band row's nonzero entries times their window rows.  On the card
+(``csrc/hbf_mxu.cu``, whose note says what bounds each kernel and what
+the design does about it) "split3" and "default" run the band product on
+the tensor cores, a 16-row tile of a stage against one Toeplitz A tile,
+over K7's walk of lane tiles x time ranges (`mma_chunk`, `mma_seg`),
+and "highest" sums in f32 on the CUDA cores.  All are bound by device
+memory at the roofline (xs read and y written once).
 
 * K22 `hbf_dec_cascade_mxu`: decimate by 2**depth; stage i uses
   ``taps[depth-1-i]`` (highest rate first).  A decimating row has 2m+1
@@ -21,31 +26,64 @@ order, one rounding per multiply and per add.
 Both take and return the time-major (``axis=0``) `HbfDecState` /
 `HbfIntState` tuples of `hbf` (the same as K7/K8), launch
 ``csrc/hbf_mxu.cu`` for CUDA tensors, run their plain PyTorch versions
-(``*_plain``) for CPU tensors, and raise for any other device.  The
-plain versions sum in the kernels' order (one torch multiply and one
-add per band column, over all rows and lanes at once), so on the card
-the two agree bit for bit.  That order is not the shift form's (K7 adds
-mirrored pairs first), so these outputs and later-stage states are held
-to K7/K8 and `hbf.hbf_*_cascade` within a tolerance, never bit for bit;
-the stage-0 state is copies of the input and equal.
+(``*_plain``) for CPU tensors, and raise for any other device.
 
-``block`` and ``sub`` size the kernel's tiles only (the time segment a
-CUDA block owns, the rows a warp takes at a time); no value depends on
-them.  ``precision`` names the TPU's ways to reach f32 on bf16 matrix
-units: ``"split3"`` and ``"highest"`` both run the full f32 sum here;
-``"default"`` (one bf16 pass, about 4.5e-3 relative on the TPU) is not
-ported and raises NotImplementedError.
+``precision`` keeps the TPU's meaning (hbf_pallas.py:426-434):
+
+* ``"split3"`` (the default): both operands split into bf16 parts, hi =
+  bf16(v) and lo = bf16(v - hi) (round to nearest even), and three
+  products Wh.Xh + Wh.Xl + Wl.Xh with f32 sums, about 4e-6 relative.  On
+  the card: bf16 ``mma.sync`` on the tensor cores, three passes.
+* ``"default"``: one bf16 pass Wh.Xh, about 4.5e-3 relative.  On the
+  card: the same kernel, one pass.
+* ``"highest"``: the band's f32 sum, about 2e-7 relative (Mosaic's own
+  f32 decomposition on the TPU).  On the card: the SIMT kernel, each
+  multiply and add one rounding in ascending band column order.
+
+The plain versions compute the same products (a bf16 product is exact in
+f32) and sum each pass in ascending band column order, the passes added
+as ``(hh + hl) + lh``; K23's odd rows, the M-delayed center copies whose
+band weight is 1, are ``xh + xl`` ("split3") or ``xh`` ("default"),
+exact.  For "highest" the kernel and its plain version agree bit for
+bit.  The tensor cores sum a k-step's products in their own order, so
+for "split3" and "default" they agree within a tolerance that grows with
+the depth: a last-bit difference in a stage's output can flip the bf16
+rounding of the next stage's input.  The stage-0 state is copies of the
+input in every precision.  Against K7/K8 and `hbf.hbf_*_cascade` (the
+shift form, another summation order) every precision is held within a
+tolerance, never bit for bit.
+
+``block`` and ``sub`` size the kernels' tiles only; no value depends on
+them, nor on the number of time ranges the MMA kernels cut a call into
+(about MMA_BLOCKS_PER_SM blocks an SM; the private `_dec` / `_int` take
+the count, for the tests).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
+from .. import _ext
 from .hbf import HBF_TAPS, HbfDecState, HbfIntState
-from .hbf_cuda import MAX_DEPTH, _launch, _split
+from .hbf_cuda import LANES, MAX_DEPTH, _launch, _split
 
-PRECISIONS = ("split3", "highest")
+PRECISIONS = ("split3", "default", "highest")
+PASSES = {"split3": 3, "default": 1}  # bf16 products a band entry
+# The kernels against their plain versions at depth 2-4, of the scale max
+# |y| ("highest": bit for bit).  The tensor cores sum a k-step's products
+# in their own order; a last-bit difference in a stage output can move
+# the next stage's bf16 lo part by one of its ulps, about 2^-16 of the
+# value ("split3"), or its hi part by one, up to 2^-7 ("default"); two such
+# moves under the band's largest weights stay within 2^-15 / 2^-6.  At
+# depth 1 only the sums' order differs: 1e-6.
+KERNEL_TOL = {"highest": 0.0, "split3": 2.0 ** -15, "default": 2.0 ** -6}
+# blocks an SM the MMA kernels' default range count fills at most (two fit
+# at K22's default chunk; more ranges recompute more halo)
+MMA_BLOCKS_PER_SM = 2
 
 
 def _ceil8(n: int) -> int:
@@ -165,6 +203,37 @@ def _sum_band(ext, cols, weights, n: int, step: int):
     return acc
 
 
+def bf16_split(v):
+    """(hi, lo) of an f32 tensor, each a bf16 value held in f32: hi =
+    bf16(v), lo = bf16(v - hi), both rounded to nearest even (the TPU's
+    split, `__float2bfloat16_rn` on the card)."""
+    hi = v.to(torch.bfloat16).to(torch.float32)
+    return hi, (v - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def _band(ext, cols, weights, n: int, step: int, precision: str):
+    """A stage's band rows at ``precision``: the f32 sum ("highest"), or
+    the bf16 passes, each summed ascending, added (hh + hl) + lh."""
+    if precision == "highest":
+        return _sum_band(ext, cols, weights, n, step)
+    wh, wl = (p.numpy() for p in bf16_split(torch.from_numpy(
+        np.asarray(weights, np.float32))))
+    xh, xl = bf16_split(ext)
+    hh = _sum_band(xh, cols, wh, n, step)
+    if precision == "default":
+        return hh
+    return (hh + _sum_band(xl, cols, wh, n, step)) + _sum_band(
+        xh, cols, wl, n, step)
+
+
+def _center(rows, precision: str):
+    """K23's odd rows, band weight 1: the rows as the passes see them."""
+    if precision == "highest":
+        return rows
+    hi, lo = bf16_split(rows)
+    return hi if precision == "default" else hi + lo
+
+
 def _check_args(xs, block: int, sub: int, precision: str, mult: int):
     if xs.dtype != torch.float32 or xs.dim() != 2:
         raise ValueError(f"xs must be (t, c) float32, got {xs.dtype} "
@@ -173,13 +242,9 @@ def _check_args(xs, block: int, sub: int, precision: str, mult: int):
     if t <= 0 or t % mult:
         raise ValueError(f"block length {t} must be a positive multiple of "
                          f"{mult}")
-    if precision == "default":
-        raise NotImplementedError(
-            "precision='default' (one bf16 pass, ~4.5e-3 rel on the TPU) is "
-            "not ported; 'split3' and 'highest' run the full f32 sum")
     if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS} or "
-                         f"'default', got {precision!r}")
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
     if block < mult or sub < 1:
         raise ValueError(f"block must be >= {mult} and sub >= 1, got "
                          f"{block}, {sub}")
@@ -196,11 +261,13 @@ def _stage_taps(states, taps, decimate: bool):
     return tuple(np.asarray(taps[i], np.float32) for i in order)
 
 
-def hbf_dec_cascade_mxu_plain(states, xs, *, taps=None):
+def hbf_dec_cascade_mxu_plain(states, xs, *, taps=None,
+                              precision: str = "split3"):
     """Plain PyTorch version of K22 `hbf_dec_cascade_mxu`: per stage the
-    carry window (`_carry_from_state`) before the stage's input, then
-    one shifted stride-2 slice times its weight per band column, summed
-    in ascending column order; the new carry is the last ``kp`` rows."""
+    carry window (`_carry_from_state`) before the stage's input, then per
+    pass one shifted stride-2 slice times its weight per band column,
+    summed in ascending column order (`_band`); the new carry is the last
+    ``kp`` rows."""
     stage_taps = _stage_taps(states, taps, True)
     c = xs.shape[1]
     new, cur = [], xs
@@ -208,16 +275,18 @@ def hbf_dec_cascade_mxu_plain(states, xs, *, taps=None):
         m, kp = len(tv), dec_kp(len(tv))
         ext = torch.cat([_carry_from_state(st, m, kp, c), cur], dim=0)
         cols, weights = dec_band_row(tv, kp)
-        cur = _sum_band(ext, cols, weights, cur.shape[0] // 2, 2)
+        cur = _band(ext, cols, weights, cur.shape[0] // 2, 2, precision)
         new.append(_state_from_carry(ext[ext.shape[0] - kp:], m, kp))
     return tuple(new), cur
 
 
-def hbf_int_cascade_mxu_plain(states, xs, *, taps=None):
+def hbf_int_cascade_mxu_plain(states, xs, *, taps=None,
+                              precision: str = "split3"):
     """Plain PyTorch version of K23 `hbf_int_cascade_mxu`: per stage the
-    right-aligned carry before the input, the even rows one shifted
-    slice times its weight per band column (ascending), the odd rows
-    the center column copied; the new carry is the last ``kp`` rows."""
+    right-aligned carry before the input, the even rows the band's FIR
+    row per pass (`_band`, ascending columns), the odd rows the center
+    column as the passes see it (`_center`); the new carry is the last
+    ``kp`` rows."""
     stage_taps = _stage_taps(states, taps, False)
     c = xs.shape[1]
     new, cur = [], xs
@@ -226,11 +295,116 @@ def hbf_int_cascade_mxu_plain(states, xs, *, taps=None):
         ext = torch.cat([_int_carry_from_state(st, kp, c), cur], dim=0)
         cols, weights, center = int_band_row(tv, kp)
         n = cur.shape[0]
-        fir = _sum_band(ext, cols, weights, n, 1)
-        cur = torch.stack([fir, ext[center:center + n]],
+        fir = _band(ext, cols, weights, n, 1, precision)
+        cur = torch.stack([fir, _center(ext[center:center + n], precision)],
                           dim=1).flatten(0, 1)
         new.append(_int_state_from_carry(ext[ext.shape[0] - kp:], m, kp))
     return tuple(new), cur
+
+
+def mma_chunk(block: int, t: int, q: int) -> int:
+    """The MMA kernels' chunk: ``block`` lowered to a multiple of q (16
+    output rows of every stage: 16 << depth full-rate rows for K22, 16
+    low-rate rows for K23), at least q and at most t rounded up to q."""
+    return max(q, min(block, -(-t // q) * q) // q * q)
+
+
+def mma_seg(rows: int, ranges: int) -> int:
+    """Rows a range owns (last-stage output rows for K22, input rows for
+    K23) for at most ``ranges`` ranges: a multiple of 16, so that every
+    stage's tiles start at multiples of 16 rows of the call."""
+    if ranges < 1:
+        raise ValueError(f"ranges must be >= 1, got {ranges}")
+    return -(-(-(-rows // ranges)) // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def _fit(dec: bool, ms: tuple, tc: int, passes: int, device: torch.device):
+    """Blocks of the MMA kernel that fit an SM of ``device`` (the CUDA
+    occupancy calculator; it depends only on these arguments)."""
+    with torch.cuda.device(device):
+        fit = _ext.library().idsp_hbf_mma_occupancy(
+            int(dec), len(ms), (ctypes.c_int * len(ms))(*ms), tc, passes)
+    if fit < 0:
+        _ext.check(-fit, "hbf_mma_occupancy")
+    return fit
+
+
+def mma_ranges(dec: bool, stage_taps, tc: int, passes: int, rows: int,
+               c: int, device: torch.device) -> int:
+    """The MMA kernels' default range count: at most MMA_BLOCKS_PER_SM
+    blocks, and no more than fit (the kernel's occupancy at chunk tc), on
+    every SM with ceil(c / LANES) lane tiles, so that the blocks run in
+    one wave (a second, nearly empty one costs as much as the first); at
+    least one, at most one a row."""
+    if device.type != "cuda":
+        raise ValueError(f"xs must be on a CUDA device, got {device}")
+    fit = _fit(dec, tuple(len(tv) for tv in stage_taps), tc, passes, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = max(1, min(MMA_BLOCKS_PER_SM, fit))
+    return max(1, min(rows, per_sm * sms // -(-c // LANES)))
+
+
+def _count(fn, precision: str) -> None:
+    """One launch of ``fn``'s kernel at ``precision``: ``launches`` counts
+    "split3" (the round trip's), ``default_launches`` and
+    ``highest_launches`` the others."""
+    if precision == "split3":
+        fn.launches += 1
+    else:
+        setattr(fn, f"{precision}_launches",
+                getattr(fn, f"{precision}_launches") + 1)
+
+
+def _dec(states, xs, taps, block, sub, precision, ranges):
+    stage_taps = _stage_taps(states, taps, True)
+    depth = len(stage_taps)
+    r = 1 << depth
+    _check_args(xs, block, sub, precision, r)
+    if xs.device.type == "cpu":
+        return hbf_dec_cascade_mxu_plain(states, xs, taps=taps,
+                                         precision=precision)
+    t, c = xs.shape
+    rows = [(2 * len(tv) - 1, len(tv) - 1) for tv in stage_taps]
+    tails = [(s.odd, s.even) for s in states]
+    if precision == "highest":
+        packed, y = _launch("hbf_dec_mxu", tails, rows, xs, stage_taps,
+                            t >> depth, min(block, t) // r * r, sub)
+    else:
+        n_out, tc = t >> depth, mma_chunk(block, t, 16 << depth)
+        seg = mma_seg(n_out, mma_ranges(True, stage_taps, tc,
+                                        PASSES[precision], n_out, c,
+                                        xs.device)
+                      if ranges is None else ranges)
+        packed, y = _launch("hbf_dec_mma", tails, rows, xs, stage_taps,
+                            n_out, tc, sub, seg, PASSES[precision])
+    _count(hbf_dec_cascade_mxu, precision)
+    return tuple(HbfDecState(odd=o, even=e)
+                 for o, e in _split(packed, rows)), y
+
+
+def _int(states, xs, taps, block, sub, precision, ranges):
+    stage_taps = _stage_taps(states, taps, False)
+    _check_args(xs, block, sub, precision, 1)
+    if xs.device.type == "cpu":
+        return hbf_int_cascade_mxu_plain(states, xs, taps=taps,
+                                         precision=precision)
+    depth = len(stage_taps)
+    t, c = xs.shape
+    rows = [(2 * len(tv) - 1,) for tv in stage_taps]
+    tails = [(s.x,) for s in states]
+    if precision == "highest":
+        packed, y = _launch("hbf_int_mxu", tails, rows, xs, stage_taps,
+                            t << depth, min(block, t), sub)
+    else:
+        tc = mma_chunk(block, t, 16)
+        seg = mma_seg(t, mma_ranges(False, stage_taps, tc, PASSES[precision],
+                                    t, c, xs.device)
+                      if ranges is None else ranges)
+        packed, y = _launch("hbf_int_mma", tails, rows, xs, stage_taps,
+                            t << depth, tc, sub, seg, PASSES[precision])
+    _count(hbf_int_cascade_mxu, precision)
+    return tuple(HbfIntState(x=x) for (x,) in _split(packed, rows)), y
 
 
 def hbf_dec_cascade_mxu(states, xs, *, taps=None, block: int = 256,
@@ -244,34 +418,25 @@ def hbf_dec_cascade_mxu(states, xs, *, taps=None, block: int = 256,
       xs: (t, c) f32 full-rate block, t % 2**depth == 0, any c.
       taps: the full tap table (default `HBF_TAPS`); stage i uses
         ``taps[depth-1-i]``.
-      block: the full-rate rows of a CUDA block's time segment (lowered
-        to a multiple of 2**depth, at most t); each segment also
-        recomputes the cascade's halo before it.  A segment whose stage
-        buffers exceed a block's shared memory is refused (RuntimeError).
+      block: "split3" and "default": the full-rate rows a CUDA block takes
+        at a time (`mma_chunk`: a multiple of 16 * 2**depth); "highest":
+        the rows of a CUDA block's time segment (lowered to a multiple of
+        2**depth, at most t), each segment also recomputing the cascade's
+        halo before it.  Sizes shared memory: a launch that would exceed a
+        block's is refused (RuntimeError).
       sub: output rows a warp takes at a time (at most its share of a
-        stage).
-      precision: ``"split3"`` or ``"highest"`` (both the full f32 sum);
-        ``"default"`` raises NotImplementedError.
+        stage; whole 16-row tiles for the MMA kernels).
+      precision: ``"split3"`` (three bf16 passes), ``"default"`` (one) or
+        ``"highest"`` (the f32 sum); see the module docstring.
 
     Returns (new_states, y) with y (t // 2**depth, c) f32.
     """
-    stage_taps = _stage_taps(states, taps, True)
-    depth = len(stage_taps)
-    r = 1 << depth
-    _check_args(xs, block, sub, precision, r)
-    if xs.device.type == "cpu":
-        return hbf_dec_cascade_mxu_plain(states, xs, taps=taps)
-    t = xs.shape[0]
-    seg = min(block, t) // r * r
-    rows = [(2 * len(tv) - 1, len(tv) - 1) for tv in stage_taps]
-    packed, y = _launch("hbf_dec_mxu", [(s.odd, s.even) for s in states],
-                        rows, xs, stage_taps, t >> depth, seg, sub)
-    hbf_dec_cascade_mxu.launches += 1
-    return tuple(HbfDecState(odd=o, even=e)
-                 for o, e in _split(packed, rows)), y
+    return _dec(states, xs, taps, block, sub, precision, None)
 
 
-hbf_dec_cascade_mxu.launches = 0  # kernel launches since the last reset
+hbf_dec_cascade_mxu.launches = 0  # "split3" launches since the last reset
+hbf_dec_cascade_mxu.default_launches = 0
+hbf_dec_cascade_mxu.highest_launches = 0
 
 
 def hbf_int_cascade_mxu(states, xs, *, taps=None, block: int = 64,
@@ -285,28 +450,21 @@ def hbf_int_cascade_mxu(states, xs, *, taps=None, block: int = 64,
       xs: (t, c) f32 low-rate block, t >= 1, any c.
       taps: the full tap table (default `HBF_TAPS`); stage i uses
         ``taps[i]``.
-      block: the low-rate rows of a CUDA block's time segment (at most
-        t); each segment also recomputes the cascade's halo before it.
-        A segment whose stage buffers exceed a block's shared memory is
-        refused (RuntimeError).
+      block: "split3" and "default": the low-rate rows a CUDA block takes
+        at a time (`mma_chunk`: a multiple of 16); "highest": the low-rate
+        rows of a CUDA block's time segment (at most t), each segment also
+        recomputing the cascade's halo before it.  A launch that would
+        exceed a block's shared memory is refused (RuntimeError).
       sub: output row pairs a warp takes at a time (at most its share of
-        a stage).
+        a stage; whole 16-pair tiles for the MMA kernels).
       precision: as for `hbf_dec_cascade_mxu`.
 
     Returns (new_states, y) with y (t * 2**depth, c) f32: per stage the
     FIR output in the even slots, the M-delayed input in the odd slots.
     """
-    stage_taps = _stage_taps(states, taps, False)
-    _check_args(xs, block, sub, precision, 1)
-    if xs.device.type == "cpu":
-        return hbf_int_cascade_mxu_plain(states, xs, taps=taps)
-    depth = len(stage_taps)
-    t = xs.shape[0]
-    rows = [(2 * len(tv) - 1,) for tv in stage_taps]
-    packed, y = _launch("hbf_int_mxu", [(s.x,) for s in states], rows, xs,
-                        stage_taps, t << depth, min(block, t), sub)
-    hbf_int_cascade_mxu.launches += 1
-    return tuple(HbfIntState(x=x) for (x,) in _split(packed, rows)), y
+    return _int(states, xs, taps, block, sub, precision, None)
 
 
-hbf_int_cascade_mxu.launches = 0  # kernel launches since the last reset
+hbf_int_cascade_mxu.launches = 0  # "split3" launches since the last reset
+hbf_int_cascade_mxu.default_launches = 0
+hbf_int_cascade_mxu.highest_launches = 0

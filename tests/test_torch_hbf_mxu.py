@@ -10,11 +10,13 @@ Tolerances are the JAX package's own:
 * the HBF_TAPS_98 cascade: > 98 dB stopband, < 0.001 dB passband ripple
   (tests/test_hbf.py:64-78);
 * K22/K23's plain versions against the interpret-mode JAX kernels
-  `hbf_dec_cascade_mxu` / `hbf_int_cascade_mxu`: outputs and later-stage
-  carries within 1e-5 / 5e-5 of the output scale, the stage-0 carry
-  (copies of the input) equal (tests/test_hbf_pallas.py:180-241).  The
-  JAX kernels split each f32 operand into bf16 parts ("split3"), the
-  port sums in full f32, hence a tolerance and not bit equality;
+  `hbf_dec_cascade_mxu` / `hbf_int_cascade_mxu` at their default
+  precision "split3": outputs and later-stage carries within 1e-5 /
+  5e-5 of the output scale, the stage-0 carry (copies of the input)
+  equal (tests/test_hbf_pallas.py:180-241).  Both split each f32
+  operand into bf16 parts and add three products; the sums' order
+  differs, hence a tolerance and not bit equality (the precisions
+  themselves: tests/test_torch_hbf_mxu_precision.py);
 * streaming (two half blocks against one) and the tile sizes: bit for
   bit;
 * the mxu round trip against JAX's within 5e-5 of the scale
@@ -124,7 +126,9 @@ def test_fir_block_impulse_symmetry(odd, sym):
 def test_taps_98_spectrum(mode):
     # hbf.rs:247-256 (tests/test_hbf.py:64-78): > 98 dB stopband and
     # < 0.001 dB ripple, through the plain cascade and through K23's plain
-    # version
+    # version summing in f32 ("highest"; JAX's bf16x3 "split3" lands just
+    # above the 98 dB line on this impulse:
+    # test_torch_hbf_mxu_precision.py)
     depth = 4
     r = hbf.hbf_int_response_length(depth, taps=hbf.HBF_TAPS_98)
     x = torch.zeros(((r >> depth) + 1, 1))
@@ -134,7 +138,8 @@ def test_taps_98_spectrum(mode):
     if mode == "scan":
         _, y = hbf.hbf_int_cascade(states, x, taps=hbf.HBF_TAPS_98, axis=0)
     else:
-        _, y = hbf_int_cascade_mxu(states, x, taps=hbf.HBF_TAPS_98)
+        _, y = hbf_int_cascade_mxu(states, x, taps=hbf.HBF_TAPS_98,
+                                   precision="highest")
     y = y[:, 0].double().numpy() / (1 << depth)
     y = np.concatenate([y, np.zeros((5 << 10) - len(y))])
     p = 10.0 * np.log10(np.abs(np.fft.fft(y)) ** 2 + 1e-300)
@@ -315,18 +320,21 @@ def test_round_trip_mxu_taps_98():
     assert not torch.equal(y140, ys["mxu"])
 
 
-def test_precision_modes():
+@pytest.mark.parametrize("precision", hbf_mxu.PRECISIONS)
+def test_precision_modes(precision):
+    # every precision runs (its plain version on CPU tensors); any other
+    # name raises ValueError
     st = hbf.hbf_dec_cascade_init(2, (4,), axis=0, device=CPU)
     x = torch.from_numpy(_f32(np.random.default_rng(7), (32, 4)))
-    _equal(hbf_dec_cascade_mxu(st, x, precision="highest"),
-           hbf_dec_cascade_mxu(st, x, precision="split3"))
-    with pytest.raises(NotImplementedError):
-        hbf_dec_cascade_mxu(st, x, precision="default")
+    _equal(hbf_dec_cascade_mxu(st, x, precision=precision),
+           hbf_dec_cascade_mxu_plain(st, x, precision=precision))
     ist = hbf.hbf_int_cascade_init(2, (4,), axis=0, device=CPU)
-    with pytest.raises(NotImplementedError):
-        hbf_int_cascade_mxu(ist, x, precision="default")
+    _equal(hbf_int_cascade_mxu(ist, x, precision=precision),
+           hbf_int_cascade_mxu_plain(ist, x, precision=precision))
     with pytest.raises(ValueError):
         hbf_int_cascade_mxu(ist, x, precision="bf16")
+    with pytest.raises(ValueError):
+        hbf_dec_cascade_mxu(st, x, precision="bf16")
 
 
 def test_mxu_rejects_bad_input():

@@ -6,16 +6,20 @@ PyTorch is installed:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
 
-On the card every K1-K16 and K18-K40 output but K22/K23's (with the
-``clamp=`` forms of K3 and K12) must equal its plain version bit for bit:
-the integer paths are the same int64 arithmetic, and the kernels' f32
-operations are single-rounding intrinsics in the plain versions' order,
-as eager PyTorch rounds each operation.  K17's matrix products sum in
-another order than torch.matmul: its outputs are held within 2e-5 of
-the output scale (the JAX package's own fused-vs-planes gate), its
-history bit for bit.  K41 (the peer put of `halo_exchange_prev_rdma`)
-runs in 2 spawned processes on one card (`torch_ranks.spawn`), against
-the gloo ring on CPU copies, bit for bit.
+On the card every K1-K16 and K18-K40 output (with the ``clamp=`` forms
+of K3 and K12; K22/K23 at precision "highest") must equal its plain
+version bit for bit: the integer paths are the same int64 arithmetic,
+and the kernels' f32 operations are single-rounding intrinsics in the
+plain versions' order, as eager PyTorch rounds each operation.  K17's
+matrix products sum in another order than torch.matmul: its outputs are
+held within 2e-5 of the output scale (the JAX package's own
+fused-vs-planes gate), its history bit for bit.  K22/K23 at "split3" and
+"default" run bf16 ``mma.sync`` products whose k-step sums are the
+tensor cores' own: they are held within MXU_TOL of the scale, and bit
+for bit across tilings, range counts and two half blocks.  K41 (the
+peer put of `halo_exchange_prev_rdma`) runs in 2 spawned processes on
+one card (`torch_ranks.spawn`), against the gloo ring on CPU copies,
+bit for bit.
 """
 
 import numpy as np
@@ -90,6 +94,7 @@ from idsp_tpu_torch.filters.hbf_cuda import (
     hbf_int_cascade_bank,
     hbf_int_cascade_bank_plain,
 )
+from idsp_tpu_torch.filters import hbf_mxu
 from idsp_tpu_torch.filters.hbf_mxu import (
     hbf_dec_cascade_mxu,
     hbf_dec_cascade_mxu_plain,
@@ -778,7 +783,47 @@ def test_channelizer_f32_products_ignore_global_tf32(cuda):
     _equal(got, want)
 
 
+# K22/K23 against their plain versions, of the scale max |y|: "highest"
+# bit for bit; "split3" and "default" sum each k-step on the tensor cores,
+# so at depth 1 only the sums' order differs (1e-6); deeper, a last-bit
+# difference in a stage output can move the next stage's bf16 lo part by
+# one of its ulps, about 2^-16 of the value ("split3"), or its hi part by
+# one, up to 2^-7 ("default"): two such moves under the largest weights
+# 2^-15 / 2^-6
+MXU_TOL = {"highest": 0.0, "split3": 2.0 ** -15, "default": 2.0 ** -6}
+
+
+def _mxu_states(kind, depth, c, taps, dev, rng):
+    def rand(v):
+        return torch.from_numpy(rng.normal(size=tuple(v.shape)).astype(
+            np.float32)).to(dev)
+
+    if kind == "dec":
+        return tuple(hbf.HbfDecState(rand(s.odd), rand(s.even))
+                     for s in hbf.hbf_dec_cascade_init(depth, (c,), taps=taps,
+                                                       axis=0, device=dev))
+    return tuple(hbf.HbfIntState(rand(s.x))
+                 for s in hbf.hbf_int_cascade_init(depth, (c,), taps=taps,
+                                                   axis=0, device=dev))
+
+
+def _near(got, want, tol):
+    """got within tol of want's scale max |y| (tol 0: bit for bit); the
+    stage-0 carry bit for bit."""
+    (st, y), (st_p, y_p) = got, want
+    _equal(st[0], st_p[0])
+    if tol == 0.0:
+        _equal(got, want)
+        return
+    scale = float(y_p.abs().max())
+    flat = [(a, b) for u, v in zip(st, st_p) for a, b in zip(u, v)]
+    for a, b in flat + [(y, y_p)]:
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert float((a.double() - b.double()).abs().max()) <= tol * scale
+
+
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("precision", ["split3", "default", "highest"])
 @pytest.mark.parametrize("kind,c,t,block,sub,taps", [
     ("dec", 200, 2048, 256, 32, hbf.HBF_TAPS),  # c not a multiple of 32
     ("dec", 37, 96, 256, 5, hbf.HBF_TAPS_98),  # one segment
@@ -787,50 +832,101 @@ def test_channelizer_f32_products_ignore_global_tf32(cuda):
     ("int", 37, 20, 64, 7, hbf.HBF_TAPS_98),  # one segment
     ("int", 64, 100, 3, 1, hbf.HBF_TAPS),  # ragged last segment
 ])
-def test_hbf_mxu_kernels_equal_plain(cuda, kind, c, t, block, sub, taps):
+def test_hbf_mxu_kernels_equal_plain(cuda, kind, c, t, block, sub, taps,
+                                     precision):
     """K22/K23 against their plain versions over 3 carried blocks from a
-    random state, bit for bit."""
+    random state, within MXU_TOL of the scale (bit for bit for
+    "highest")."""
     rng = np.random.default_rng(39)
-
-    def rand(v):
-        return torch.from_numpy(rng.normal(size=tuple(v.shape)).astype(
-            np.float32)).to(cuda)
-
-    if kind == "dec":
-        kern, plain = hbf_dec_cascade_mxu, hbf_dec_cascade_mxu_plain
-        st = tuple(hbf.HbfDecState(rand(s.odd), rand(s.even))
-                   for s in hbf.hbf_dec_cascade_init(4, (c,), taps=taps,
-                                                     axis=0, device=cuda))
-    else:
-        kern, plain = hbf_int_cascade_mxu, hbf_int_cascade_mxu_plain
-        st = tuple(hbf.HbfIntState(rand(s.x))
-                   for s in hbf.hbf_int_cascade_init(4, (c,), taps=taps,
-                                                     axis=0, device=cuda))
-    st_p = st
+    kern, plain = ((hbf_dec_cascade_mxu, hbf_dec_cascade_mxu_plain)
+                   if kind == "dec" else
+                   (hbf_int_cascade_mxu, hbf_int_cascade_mxu_plain))
+    st = st_p = _mxu_states(kind, 4, c, taps, cuda, rng)
     for _ in range(3):
         x = torch.from_numpy(rng.normal(size=(t, c)).astype(np.float32)).to(
             cuda)
-        st, y = kern(st, x, taps=taps, block=block, sub=sub)
-        st_p, y_p = plain(st_p, x, taps=taps)
+        st, y = kern(st, x, taps=taps, block=block, sub=sub,
+                     precision=precision)
+        st_p, y_p = plain(st_p, x, taps=taps, precision=precision)
         torch.cuda.synchronize()
-        _equal((st, y), (st_p, y_p))
+        _near((st, y), (st_p, y_p), MXU_TOL[precision])
 
 
 @pytest.mark.requires_cuda
-def test_hbf_mxu_refused_launch_leaves_no_pending_error(cuda):
-    """K22 with segments of 4096 rows at depth 4 asks for 555 KB of shared
-    memory a block: the launch is refused and raises, and the next kernel
-    of the library launches as usual; the same for K23 at 512 rows."""
+@pytest.mark.parametrize("precision", ["split3", "default"])
+@pytest.mark.parametrize("kind", ["dec", "int"])
+@pytest.mark.parametrize("tv", [[0.0] * 4, [0.0, 1.0, 0.0, 0.0],
+                                [1.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.5]])
+def test_hbf_mma_layout_unit_taps(cuda, kind, tv, precision):
+    """Depth 1 with a band of unit taps (the center alone, or one more
+    tap of 1 or 0.5): each output is one or two exact products, so the
+    MMA kernels equal their plain versions bit for bit; an error in a
+    fragment layout shows as a permuted copy."""
+    rng = np.random.default_rng(41)
+    taps = (np.asarray(tv, np.float64),)
+    kern, plain = ((hbf_dec_cascade_mxu, hbf_dec_cascade_mxu_plain)
+                   if kind == "dec" else
+                   (hbf_int_cascade_mxu, hbf_int_cascade_mxu_plain))
+    st = _mxu_states(kind, 1, 64, taps, cuda, rng)
+    x = torch.from_numpy(rng.normal(size=(512, 64)).astype(np.float32)).to(
+        cuda)
+    got = kern(st, x, taps=taps, precision=precision)
+    want = plain(st, x, taps=taps, precision=precision)
+    torch.cuda.synchronize()
+    _equal(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("precision", ["split3", "default"])
+@pytest.mark.parametrize("taps", [hbf.HBF_TAPS, hbf.HBF_TAPS_98])
+@pytest.mark.parametrize("kind", ["dec", "int"])
+def test_hbf_mma_tilings_ranges_and_halves_exact(cuda, kind, taps,
+                                                 precision):
+    """The MMA kernels at t = 32768 (K22; K23 2048), depth 4, c = 100:
+    every (block, sub) and range count gives the same bits, and two half
+    blocks equal one block (every stage's tiles start at multiples of 16
+    rows of the call)."""
+    rng = np.random.default_rng(43)
+    c = 100
+    st = _mxu_states(kind, 4, c, taps, cuda, rng)
+    if kind == "dec":
+        t, fn = 32768, hbf_mxu._dec
+        tiles = ((256, 32, None), (512, 8, None), (256, 64, 1), (768, 16, 5),
+                 (256, 1, 300))
+        kern = hbf_dec_cascade_mxu
+    else:
+        t, fn = 2048, hbf_mxu._int
+        tiles = ((64, 32, None), (16, 4, None), (32, 64, 1), (48, 16, 5),
+                 (64, 1, 300))
+        kern = hbf_int_cascade_mxu
+    x = torch.from_numpy(rng.normal(size=(t, c)).astype(np.float32)).to(cuda)
+    ref = fn(st, x, taps, *tiles[0][:2], precision, tiles[0][2])
+    for block, sub, ranges in tiles[1:]:
+        _equal(fn(st, x, taps, block, sub, precision, ranges), ref)
+    sa, ya = kern(st, x[:t // 2], taps=taps, precision=precision)
+    sb, yb = kern(sa, x[t // 2:], taps=taps, precision=precision)
+    torch.cuda.synchronize()
+    _equal((sb, torch.cat([ya, yb])), ref)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("precision", ["split3", "default", "highest"])
+def test_hbf_mxu_refused_launch_leaves_no_pending_error(cuda, precision):
+    """K22 taking 4096 rows at a time at depth 4 (a chunk for the MMA
+    kernels, a segment for "highest") asks for more shared memory than a
+    block has: the launch is refused and raises, and the next kernel of
+    the library launches as usual; the same for K23 at 512 rows."""
     dec = hbf.hbf_dec_cascade_init(4, (64,), axis=0, device=cuda)
     with pytest.raises(RuntimeError):
         hbf_dec_cascade_mxu(dec, torch.zeros((8192, 64), device=cuda),
-                            block=4096)
+                            block=4096, precision=precision)
     itp = hbf.hbf_int_cascade_init(4, (64,), axis=0, device=cuda)
     with pytest.raises(RuntimeError):
         hbf_int_cascade_mxu(itp, torch.zeros((1024, 64), device=cuda),
-                            block=512)
+                            block=512, precision=precision)
     x = torch.ones((64, 64), device=cuda)
-    _equal(hbf_dec_cascade_mxu(dec, x), hbf_dec_cascade_mxu_plain(dec, x))
+    _equal(hbf_dec_cascade_mxu(dec, x, precision="highest"),
+           hbf_dec_cascade_mxu_plain(dec, x, precision="highest"))
 
 
 # --- K24-K27: the Stabilizer IIR control path --------------------------------
