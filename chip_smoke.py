@@ -38,9 +38,12 @@ Phases, each reported on its own line:
    full range) at c=512 and 1024; K15 `fm_disc_bank` (exact and fast
    angle; c=512, IQ = cossin of random phases) and K16 `ddc_lockin_bank`
    (c=512, time chunk 512, x ~ N(0, 1), n0 carried); state, tails and
-   outputs bit for bit (tolerance 0); K17 `channelize_fused` (m=1024,
-   n=1024 frames, f32 and bf16) within 2e-5 of the output scale, its
-   history and two chained blocks against one bit for bit; K18
+   outputs bit for bit (tolerance 0); K17 `channelize_fused` (f32 and
+   bf16; m=1024 at n=1024 frames over 3 blocks and n=16384, m=384 and
+   2048 at n=1024: clusters of 8, 3 and 8 CTAs, the last two sharing the
+   FIR) within 2e-5 of the output scale, its history bit for bit, the 64-
+   and 128-frame plans and one block against its halves (split at frames
+   100, 1 and n/2) bit for bit; K18
    `df1_clamp_bank_q`, K19 `df1_clamp_hbf_cascade_bank` (depth 3), K20
    `df1_hbf1_bank` and K21 `df1_hbf12_bank` (time chunk 512) on the same
    3 blocks of the chain's exact mix (c=512, x uniform in +-2^27), K3's
@@ -211,7 +214,8 @@ Phases, each reported on its own line:
    round-trip and composite
    rates at c=512 and 1024; K15 (both angles) and K16 at c=512 with the
    FM and lock-in modes' block times; K17 (bf16 and f32) at n=1024 and
-   16384 beside its plain version and its library yardstick (the FIR in
+   16384 with its launch plan and its device ms a launch (profiler
+   spans), and the forced 64-frame plan's time, beside its plain version and its library yardstick (the FIR in
    torch ops and `torch.matmul` of the four products, TF32 off), with
    the planes path's rates (n*m samples/s); K24-K27 at c=1024 lanes with
    their plain versions' times from phase 3, and the control legs' block
@@ -304,15 +308,18 @@ HBF_RANGE_CASES = ((1, 200, 3, "HBF_TAPS_98"), (2, C_RATE, 1, "HBF_TAPS"),
 HBF_CHUNKS = {"hbf_dec_cascade_bank": (128, 256, 512),
               "hbf_int_cascade_bank": (16, 32, 64)}
 HBF_BLOCKS_PER_SM = (1, 2, 4, 8)
-# the device symbols of the half-band cascade kernels, for their device time
-HBF_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
-               "hbf_int_cascade_bank": "hbf_int_cascade_kernel",
-               "hbf_dec_cascade_mxu": "hbf_dec_mma_kernel",
-               "hbf_int_cascade_mxu": "hbf_int_mma_kernel",
-               "hbf_dec_cascade_mxu_default": "hbf_dec_mma_kernel",
-               "hbf_int_cascade_mxu_default": "hbf_int_mma_kernel",
-               "hbf_dec_cascade_mxu_highest": "hbf_dec_mxu_kernel",
-               "hbf_int_cascade_mxu_highest": "hbf_int_mxu_kernel"}
+# the device symbols of the half-band cascade and channelizer kernels, for
+# their device time
+DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
+                  "hbf_int_cascade_bank": "hbf_int_cascade_kernel",
+                  "hbf_dec_cascade_mxu": "hbf_dec_mma_kernel",
+                  "hbf_int_cascade_mxu": "hbf_int_mma_kernel",
+                  "hbf_dec_cascade_mxu_default": "hbf_dec_mma_kernel",
+                  "hbf_int_cascade_mxu_default": "hbf_int_mma_kernel",
+                  "hbf_dec_cascade_mxu_highest": "hbf_dec_mxu_kernel",
+                  "hbf_int_cascade_mxu_highest": "hbf_int_mxu_kernel",
+                  "channelize_fused": "channelize_kernel",
+                  "channelize_fused_f32": "channelize_kernel"}
 # The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
 # the chain's mixed stream the 0.02 lowpass output peaks near 2.6e7, under
 # the 2^26 bound of tests/test_biquad_pallas.py:896, so that bound never
@@ -325,6 +332,10 @@ C_FM, FM_CARRIER = 512, 12345  # FM bank; carrier word of suite.py:760
 C_LOCKIN, TC_LOCKIN = 512, 512  # lock-in channels, LO table chunk
 M_CH, CH_TAPS = 1024, 8  # channelizer branches, prototype taps
 N_CH = (1024, 16384)  # frames per block (suite.py:960, 1005)
+# K17 in phase 3: (m, n, carried blocks); m = 384 and 2048 run clusters of
+# 3 CTAs and of 8 with the FIR done twice
+K17_CASES = ((M_CH, N_CH[0], BLOCKS), (M_CH, N_CH[1], 1), (384, N_CH[0], 1),
+             (2048, N_CH[0], 1))
 # The Stabilizer IIR control path at the port's bank width: compat.sos
 # through the reference's "q32 cascade4" row (benches/suite.py:397-417),
 # compat.sos_clamp_wide with the suite's clamp row (suite.py:323), the
@@ -1316,7 +1327,7 @@ def time_rate(dev, rng, card, timings):
                 "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
                 "library_ms": l_s * 1e3}
             note = ""
-            if name in HBF_SYMBOLS:
+            if name in DEVICE_SYMBOLS:
                 dev_ms = launch_device_ms(name, kern, st)
                 timings["kernels"][name][c]["device_ms"] = dev_ms
                 note = f", device {dev_ms} ms a launch (profiler spans)"
@@ -1379,16 +1390,21 @@ def time_rate(dev, rng, card, timings):
 
 
 def launch_device_ms(name, step, state, iters=20):
-    """Device ms of one launch of ``name``'s kernel (HBF_SYMBOLS): the
-    profiler's spans of it over ``iters`` chained calls of ``step``
-    (`profiling.busy_share`), per call; None if it recorded none.  For
-    kernels of tenths of a millisecond, whose CUDA-event time takes in
-    the wrapper's host work between launches."""
+    """Device ms of one launch of ``name``'s kernel (DEVICE_SYMBOLS): the
+    mean of the profiler's spans of it over ``iters`` chained calls
+    (`profiling.busy_share`; each call launches it once, and the profiler
+    may lose some spans); None if it recorded none.  For kernels of
+    tenths of a millisecond, whose CUDA-event time takes in the wrapper's
+    host work between launches."""
     from idsp_tpu_torch.profiling import busy_share
 
     _, _, by_name = busy_share(step, state, iters=iters)
-    secs = [s for k, (_, s) in by_name.items() if HBF_SYMBOLS[name] in k]
-    return round(sum(secs) * 1e3, 4) if secs else None
+    kept = [(n, s) for k, (n, s) in by_name.items()
+            if DEVICE_SYMBOLS[name] in k]
+    spans = sum(n for n, _ in kept)
+    if not spans:
+        return None
+    return round(sum(s for _, s in kept) * iters / spans * 1e3, 4)
 
 
 def hold(name, kern, plain, carry, make_x, plain_s=None, blocks=BLOCKS):
@@ -1864,20 +1880,14 @@ def near(got, want, scale, rel=2e-5):
 
 
 def check_slice5_kernels(dev, rng, errs):
-    """Phase 3 for K15-K17 over BLOCKS carried blocks: K15 (both angles)
-    and K16 bit for bit at c = 512, t = T; K17 at m = M_CH, n = 1024 (f32
-    and bf16) within 2e-5 of the output scale, its history bit for bit,
-    and two chained blocks equal to one bit for bit."""
+    """Phase 3 for K15-K17: K15 (both angles) and K16 bit for bit over
+    BLOCKS carried blocks at c = 512, t = T; K17 (`check_k17`)."""
     import torch
     from idsp_tpu_torch.filters.ddc_lockin_cuda import (
         ddc_lockin_bank, ddc_lockin_bank_plain,
     )
     from idsp_tpu_torch.filters.fm_cuda import fm_disc_bank, fm_disc_bank_plain
-    from idsp_tpu_torch.pipelines import channelizer as chz
     from idsp_tpu_torch.pipelines import fm_disc
-    from idsp_tpu_torch.pipelines.channelizer_cuda import (
-        channelize_fused, channelize_fused_plain,
-    )
 
     ba_fm = fm_disc.deemphasis_coefficients(0.02)
     err = 0.0
@@ -1909,40 +1919,68 @@ def check_slice5_kernels(dev, rng, errs):
         f"(c={C_LOCKIN}, t={T}, time_chunk={TC_LOCKIN}, x ~ N(0, 1)): "
         f"max |d| {errs['ddc_lockin_bank']}")
 
-    n = N_CH[0]
+    check_k17(dev, rng, errs)
+
+
+def check_k17(dev, rng, errs):
+    """Phase 3 for K17 (f32 and bf16) at K17_CASES within 2e-5 of the
+    output scale, its history bit for bit; at m = M_CH, n = 1024 the 64-
+    and 128-frame plans, and one block against its halves split at frames
+    100, 1 and n/2, bit for bit."""
+    import torch
+    from idsp_tpu_torch.pipelines import channelizer as chz
+    from idsp_tpu_torch.pipelines.channelizer_cuda import (
+        channelize_fused, channelize_fused_plain, launch_plan,
+    )
+
+    errs["channelize_fused"] = 0.0
     for tw in (torch.float32, torch.bfloat16):
-        st = chz.PlanesState(*(normal_f32(dev, rng, (CH_TAPS - 1, M_CH))
+        for m, n, blocks in K17_CASES:
+            st = chz.PlanesState(*(normal_f32(dev, rng, (CH_TAPS - 1, m))
+                                   for _ in range(2)))
+            err = rel = 0.0
+            for _ in range(blocks):
+                zr, zi = (normal_f32(dev, rng, (n, m)) for _ in range(2))
+                got = channelize_fused(st, zr, zi, m=m, taps=CH_TAPS,
+                                       twiddle_dtype=tw)
+                want = channelize_fused_plain(st, zr, zi, m=m, taps=CH_TAPS,
+                                              twiddle_dtype=tw)
+                torch.cuda.synchronize()
+                compare("channelize_fused history", got[0], want[0])
+                scale = float(torch.maximum(want[1].abs().max(),
+                                            want[2].abs().max()))
+                for g, w in zip(got[1:], want[1:]):
+                    d = near(g, w, scale)
+                    err, rel = max(err, d), max(rel, d / scale)
+                st = got[0]
+            if tw == torch.bfloat16:
+                errs["channelize_fused"] = max(errs["channelize_fused"], err)
+            log(f"phase 3 K17 channelize_fused ({str(tw)[6:]}) vs plain over "
+                f"{blocks} block(s) (m={m}, n={n}, "
+                f"{launch_plan(n, m, CH_TAPS, tw)}): max |d| {err} = "
+                f"{rel:.3e} of the scale (gate 2e-5), history bit for bit")
+        # two plans and a block against its halves, bit for bit
+        m, n = M_CH, N_CH[0]
+        st = chz.PlanesState(*(normal_f32(dev, rng, (CH_TAPS - 1, m))
                                for _ in range(2)))
-        err = scale = 0.0
-        for _ in range(BLOCKS):
-            zr, zi = (normal_f32(dev, rng, (n, M_CH)) for _ in range(2))
-            got = channelize_fused(st, zr, zi, m=M_CH, taps=CH_TAPS,
-                                   twiddle_dtype=tw)
-            want = channelize_fused_plain(st, zr, zi, m=M_CH, taps=CH_TAPS,
-                                          twiddle_dtype=tw)
+        zr, zi = (normal_f32(dev, rng, (n, m)) for _ in range(2))
+        outs = [channelize_fused(st, zr, zi, m=m, taps=CH_TAPS,
+                                 twiddle_dtype=tw,
+                                 _plan=launch_plan(n, m, CH_TAPS, tw, frames=f))
+                for f in (64, 128)]
+        compare("channelize_fused 64- vs 128-frame plan", outs[0], outs[1])
+        for cut in (100, 1, n // 2):
+            a = channelize_fused(st, zr[:cut], zi[:cut], m=m, taps=CH_TAPS,
+                                 twiddle_dtype=tw)
+            b = channelize_fused(a[0], zr[cut:], zi[cut:], m=m, taps=CH_TAPS,
+                                 twiddle_dtype=tw)
             torch.cuda.synchronize()
-            compare("channelize_fused history", got[0], want[0])
-            scale = float(torch.maximum(want[1].abs().max(),
-                                        want[2].abs().max()))
-            for g, w in zip(got[1:], want[1:]):
-                err = max(err, near(g, w, scale))
-            st = got[0]
-        zr, zi = (normal_f32(dev, rng, (2 * n, M_CH)) for _ in range(2))
-        one = channelize_fused(st, zr, zi, m=M_CH, taps=CH_TAPS,
-                               twiddle_dtype=tw)
-        a = channelize_fused(st, zr[:n], zi[:n], m=M_CH, taps=CH_TAPS,
-                             twiddle_dtype=tw)
-        b = channelize_fused(a[0], zr[n:], zi[n:], m=M_CH, taps=CH_TAPS,
-                             twiddle_dtype=tw)
-        torch.cuda.synchronize()
-        compare("channelize_fused two blocks vs one", (
-            b[0], torch.cat([a[1], b[1]]), torch.cat([a[2], b[2]])), one)
-        if tw == torch.bfloat16:
-            errs["channelize_fused"] = err
-        log(f"phase 3 K17 channelize_fused ({str(tw)[6:]}) vs plain over "
-            f"{BLOCKS} blocks (m={M_CH}, n={n}): max |d| {err} (gate 2e-5 "
-            f"x scale {scale:.3f}), history bit for bit; two chained blocks "
-            f"== one block bit for bit")
+            compare(f"channelize_fused halves at {cut} vs one block", (
+                b[0], torch.cat([a[1], b[1]]), torch.cat([a[2], b[2]])),
+                outs[0])
+        log(f"phase 3 K17 channelize_fused ({str(tw)[6:]}, m={m}, n={n}): "
+            f"the 64- and 128-frame plans, and one block against its halves "
+            f"split at frames 100, 1 and {n // 2}, bit for bit")
 
 
 def biquad_f32_state(dev, rng, lanes):
@@ -2223,7 +2261,7 @@ def time_slice5(dev, rng, card, timings):
     from idsp_tpu_torch.pipelines import channelizer as chz
     from idsp_tpu_torch.pipelines import fm_disc
     from idsp_tpu_torch.pipelines.channelizer_cuda import (
-        channelize_fused, channelize_fused_plain,
+        channelize_fused, channelize_fused_plain, launch_plan,
     )
     from idsp_tpu_torch.pipelines.ddc_lockin import DdcLockinBank
     from idsp_tpu_torch.pipelines.fm_disc import FmReceiver
@@ -2304,7 +2342,21 @@ def time_slice5(dev, rng, card, timings):
             p_s, _ = measure_rate(plain, sc0, iters=5, trials=3)
             l_s, _ = measure_rate(lib, None, iters=10, trials=3,
                                   stateful=False)
-            record(name, n, k_s, p_s, l_s, note=f"n={n}, m={M_CH}")
+            dev_ms = launch_device_ms(name, kern, sc0)
+            plan = launch_plan(n, M_CH, CH_TAPS, tw)
+            # the 64-frame tiling the tests force, beside the default 128
+            p64 = launch_plan(n, M_CH, CH_TAPS, tw, frames=64)
+            k64_s, _ = measure_rate(
+                lambda s, tw=tw, p=p64: channelize_fused(
+                    s, zr, zi, m=M_CH, taps=CH_TAPS, twiddle_dtype=tw,
+                    _plan=p), sc0, iters=20, trials=3)
+            record(name, n, k_s, p_s, l_s,
+                   note=f"n={n}, m={M_CH}, {plan}, device {dev_ms} ms a "
+                        f"launch (profiler spans); the 64-frame plan "
+                        f"{k64_s * 1e3:.4f} ms")
+            timings["kernels"][name][n].update(
+                device_ms=dev_ms, plan=plan._asdict(),
+                ms_64_frames=k64_s * 1e3)
             for impl in ("fused", "xla"):
                 def step(s, impl=impl, tw=tw):
                     return chz.channelize_planes(s, zr, zi, m=M_CH,

@@ -72,7 +72,7 @@ _SIGNATURES = {
     "idsp_cic_int_bank": [_P] * 4 + [_I] * 4 + [_P],
     "idsp_fm_disc_bank": [_P] * 13 + [_I] * 10 + [_P],
     "idsp_ddc_lockin": [_P] * 10 + [_I] * 3 + [_F] * 5 + [_P],
-    "idsp_channelize": [_P] * 11 + [_I] * 4 + [_P],
+    "idsp_channelize": [_P] * 10 + [_I] * 8 + [_P],
     "idsp_svf_bank": [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],
     "idsp_normal_bank_q": [_P] * 6 + [_I] * 8 + [_P],
     "idsp_normal_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P],

@@ -13,10 +13,12 @@ and the kernels' f32 operations are single-rounding intrinsics in the
 plain versions' order, as eager PyTorch rounds each operation.  K17's
 matrix products sum in another order than torch.matmul: its outputs are
 held within 2e-5 of the output scale (the JAX package's own
-fused-vs-planes gate), its history bit for bit.  K22/K23 at "split3" and
-"default" run bf16 ``mma.sync`` products whose k-step sums are the
-tensor cores' own: they are held within MXU_TOL of the scale, and bit
-for bit across tilings, range counts and two half blocks.  K41 (the
+fused-vs-planes gate), its history bit for bit, at clusters of 1, 3 and 8
+CTAs; two plans (64- and 128-frame tiles) and a block against its two
+halves bit for bit; a plan beyond the shared memory raises.  K22/K23 at
+"split3" and "default" run bf16 ``mma.sync`` products whose k-step sums
+are the tensor cores' own: they are held within MXU_TOL of the scale, and
+bit for bit across tilings, range counts and two half blocks.  K41 (the
 peer put of `halo_exchange_prev_rdma`) runs in 2 spawned processes on
 one card (`torch_ranks.spawn`), against the gloo ring on CPU copies,
 bit for bit.
@@ -130,6 +132,7 @@ from idsp_tpu_torch.pipelines import channelizer, fm_disc
 from idsp_tpu_torch.pipelines.channelizer_cuda import (
     channelize_fused,
     channelize_fused_plain,
+    launch_plan,
 )
 
 BA_Q = biquad.quantize_ba(
@@ -553,13 +556,18 @@ def test_ddc_lockin_kernel_equals_plain(cuda, tc):
         _equal((st.x, st.y, y), (st_p.x, st_p.y, y_p))
 
 
+# m = 128, 384, 1024, 2048: clusters of 1, 3 and 8 CTAs, and 8 with the
+# FIR done by two clusters; n = 1 and 5 < taps - 1 (the new history reaches
+# back into the old one), 100 (a ragged frame tile), 1024; 2 to 16 taps
+K17_CASES = [(m, n, taps) for m in (128, 384, 1024, 2048)
+             for n in (1, 5, 100, 1024) for taps in (2, 8, 16)] + [
+                 (256, 5, 8), (128, 70, 16), (128, 64, 2)]
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("tw", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,n,taps", [(128, 100, 8), (256, 5, 8),
-                                      (128, 70, 16), (128, 64, 2)])
+@pytest.mark.parametrize("m,n,taps", K17_CASES)
 def test_channelize_fused_kernel_matches_plain(cuda, tw, m, n, taps):
-    # n = 100: a ragged last frame tile; n = 5 < taps - 1: the new history
-    # reaches back into the old one; 16 and 2 taps: the staged tile's ends
     rng = np.random.default_rng(52)
 
     def planes(rows):
@@ -596,6 +604,52 @@ def test_channelize_fused_streaming_equals_one_shot(cuda, tw):
     _, br, bi = channelize_fused(st, zr[128:], zi[128:], m=m, taps=taps,
                                  twiddle_dtype=tw)
     _equal((torch.cat([ar, br]), torch.cat([ai, bi])), (yr, yi))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tw", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,taps", [(1024, 8), (384, 16), (128, 2)])
+def test_channelize_fused_plans_and_halves_bit_for_bit(cuda, tw, m, taps):
+    # every output sums the same k16 steps whatever the plan or the block
+    n = 300
+    rng = np.random.default_rng(54)
+    zr, zi = (torch.from_numpy(rng.normal(size=(n, m)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    st = channelizer.PlanesState(*(torch.from_numpy(rng.normal(
+        size=(taps - 1, m)).astype(np.float32)).to(cuda) for _ in range(2)))
+    outs = [channelize_fused(st, zr, zi, m=m, taps=taps, twiddle_dtype=tw,
+                             _plan=launch_plan(n, m, taps, tw, frames=f))
+            for f in (64, 128)]
+    _equal(outs[0], outs[1])
+    for cut in (100, 1):
+        a = channelize_fused(st, zr[:cut], zi[:cut], m=m, taps=taps,
+                             twiddle_dtype=tw)
+        b = channelize_fused(a[0], zr[cut:], zi[cut:], m=m, taps=taps,
+                             twiddle_dtype=tw)
+        _equal((b[0].hist_r, b[0].hist_i, torch.cat([a[1], b[1]]),
+                torch.cat([a[2], b[2]])),
+               (outs[0][0].hist_r, outs[0][0].hist_i, outs[0][1],
+                outs[0][2]))
+
+
+@pytest.mark.requires_cuda
+def test_channelize_fused_refuses_plan_beyond_shared_memory(cuda):
+    m, taps, n = 1024, 16, 256
+    big = launch_plan(n, m, taps, torch.bfloat16, frames=128, stages=8)
+    sp = channelizer.init_planes(m, taps, device=cuda)
+    z = torch.zeros((n, m), device=cuda)
+    with pytest.raises(RuntimeError):
+        channelize_fused(sp, z, z, m=m, taps=taps, _plan=big)
+    # a plan whose shared memory is not the kernel's own sum is refused too
+    p = launch_plan(n, m, taps, torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        channelize_fused(sp, z, z, m=m, taps=taps,
+                         _plan=p._replace(smem=p.smem + 128))
+    got = channelize_fused(sp, z + 1, z, m=m, taps=taps)
+    want = channelize_fused_plain(sp, z + 1, z, m=m, taps=taps)
+    torch.cuda.synchronize()
+    scale = float(want[1].abs().max())
+    assert float((got[1] - want[1]).abs().max()) <= 2e-5 * scale
 
 
 @pytest.mark.requires_cuda
