@@ -53,7 +53,8 @@ Phases, each reported on its own line:
    row CLAMP_SUITE; K22 `hbf_dec_cascade_mxu` ((32768, 512) f32) and K23
    `hbf_int_cascade_mxu` ((2048, 512) f32), depth 4, with HBF_TAPS and
    HBF_TAPS_98 from a random carried state, at two (block, sub) tilings,
-   bit for bit, and one block against its two halves, bit for bit; K24
+   bit for bit (K22 also at the forced range counts MXU_RANGES), and one
+   block against its two halves, bit for bit; K24
    `sos_bank_q` (4 stages), K25 `df1_wide_bank` (clamped with the suite's
    row), K26 `df1_bank_q_coef` and K27 `df1_clamp_bank_q_coef` (per-lane
    planes of 1024 `BiquadConfig`s) at c=1024 lanes on one block of
@@ -75,6 +76,11 @@ Phases, each reported on its own line:
    T_PREFIX rows, every other block of t=32768), each full-block plain
    call timed, the SVF's other three outputs on T_PREFIX rows each, and
    each of K34-K40 over two half-blocks against one block, bit for bit;
+   then the WDF kernel off the suite's plans on T_PREFIX rows, bit for
+   bit: one stage of every adapter type (the generic loop), wdf-ca-19
+   with every stage on the generic loop and at a chunk of WDF_SMALL_CHUNK
+   rows, each launch's plan (warps, stage kinds, chunk, ring depth,
+   shared memory) on a line of its own;
 4. the main paths, each with every launch counter reset just before it
    and read just after:
    * `DdcChain` in ``split`` (K1), ``fused`` (K14), ``fold`` (K20),
@@ -222,7 +228,8 @@ Phases, each reported on its own line:
    times; K28-K33 at c=1024 lanes with their plain versions' times from
    phase 3 (K31 clamped and K32/K33 with a shared set on the log only);
    K34-K40 at c=1024 lanes with their rates and their plain versions'
-   times from phase 3 (K40 over wdf-ca-7 on the log only);
+   times from phase 3 (K40 over wdf-ca-7 on the log only), K38-K40 also
+   by their profiler spans, device ms a launch;
    K41 at h = 1, 2, 90 on (8192, 1024) f32 blocks, timed by the ranks
    at the end of phase 4 once the parent is done: the median of 20 calls
    with CUDA events (host gate included; 4 time-sliced processes on one
@@ -308,18 +315,22 @@ HBF_RANGE_CASES = ((1, 200, 3, "HBF_TAPS_98"), (2, C_RATE, 1, "HBF_TAPS"),
 HBF_CHUNKS = {"hbf_dec_cascade_bank": (128, 256, 512),
               "hbf_int_cascade_bank": (16, 32, 64)}
 HBF_BLOCKS_PER_SM = (1, 2, 4, 8)
-# the device symbols of the half-band cascade and channelizer kernels, for
-# their device time
+# the device symbols of the half-band cascade, channelizer and WDF kernels,
+# for their device time
 DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "hbf_int_cascade_bank": "hbf_int_cascade_kernel",
                   "hbf_dec_cascade_mxu": "hbf_dec_mma_kernel",
                   "hbf_int_cascade_mxu": "hbf_int_mma_kernel",
                   "hbf_dec_cascade_mxu_default": "hbf_dec_mma_kernel",
                   "hbf_int_cascade_mxu_default": "hbf_int_mma_kernel",
-                  "hbf_dec_cascade_mxu_highest": "hbf_dec_mxu_kernel",
+                  "hbf_dec_cascade_mxu_highest": "hbf_dec_band_kernel",
                   "hbf_int_cascade_mxu_highest": "hbf_int_mxu_kernel",
                   "channelize_fused": "channelize_kernel",
-                  "channelize_fused_f32": "channelize_kernel"}
+                  "channelize_fused_f32": "channelize_kernel",
+                  "wdf_bank": "wdf_pipeline_kernel",
+                  "wdf_chain_bank": "wdf_pipeline_kernel",
+                  "wdf_pair_bank": "wdf_pipeline_kernel",
+                  "wdf_pair_bank_ca7": "wdf_pipeline_kernel"}
 # The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
 # the chain's mixed stream the 0.02 lowpass output peaks near 2.6e7, under
 # the 2^26 bound of tests/test_biquad_pallas.py:896, so that bound never
@@ -365,6 +376,12 @@ WDF_CA19 = ([(0x1, 1, [0.0]), (0x1C, 2, [-0.226119, 0.0]),
             [(0x1C, 2, [-0.063978, 0.0]), (0x1C, 2, [-0.423068, 0.0]),
              (0x1D, 2, [-0.741327, 0.0]), (0x1D, 2, [-0.905567, 0.0]),
              (0x1D, 2, [-0.984721, 0.0])])
+# The WDF kernel off the suite's plans in phase 3 (on T_PREFIX rows): one
+# stage of every adapter type (outside the specialised set: the generic
+# loop) with coefficients in range, and a forced small chunk
+WDF_EVERY = ((0xA, 0.7), (0xB, 0.3), (0xE, 0.2), (0x1, 0.0), (0xC, -0.3),
+             (0xF, -0.45), (0xD, -0.8), (0x0, 0.0))
+WDF_SMALL_CHUNK = 5
 # The reference's RPLL scenarios that settle within BLOCKS blocks
 # (tests/test_loops.py:262-280): (dt2, sf, sp), period, the test's first
 # timestamp, noise, the limits of (mean, standard error) of the frequency
@@ -1152,7 +1169,8 @@ def check_mxu_kernels(dev, rng, errs, plain_s):
                 compare(f"{name} ({tname}): tilings {tiles}", runs[1],
                         runs[0])
                 block, sub = tiles[0]
-                if prec != "highest":
+                if prec != "highest" or kind == "dec":  # K23 "highest":
+                    # segments of its own, no range count
                     for ranges in MXU_RANGES:
                         compare(f"{name} ({tname}): {ranges} ranges",
                                 private(st0, xs[0], taps, block, sub, prec,
@@ -3131,7 +3149,7 @@ def check_structure_kernels(dev, rng, errs, plain_s):
     first of T_PREFIX rows, the others of T), tolerance 0, each plain call
     over T rows timed; the SVF's hp, bp and br outputs on T_PREFIX rows
     each; then each kernel over two half-blocks against one block of T
-    rows."""
+    rows; then `check_wdf_plans`."""
     c = C_STRUCT
     k = structure_setup()
     make = structure_inputs(rng, dev, c)
@@ -3152,7 +3170,8 @@ def check_structure_kernels(dev, rng, errs, plain_s):
         halves(name, kern, (structure_state(key, c, dev, rng),),
                make[kind](T))
     errs["wdf_pair_bank"] = max(errs["wdf_pair_bank"],
-                                errs.pop("wdf_pair_bank_ca7"))
+                                errs.pop("wdf_pair_bank_ca7"),
+                                check_wdf_plans(dev, rng, k, make))
     log(f"phase 3 K34-K40 {', '.join(cases)} == plain over 2 carried blocks "
         f"(c={c}, random state; t={T}, K39/K40's first {T_PREFIX} rows; "
         f"plain over {T} rows "
@@ -3160,6 +3179,60 @@ def check_structure_kernels(dev, rng, errs, plain_s):
         f"hp, bp, br on {T_PREFIX} rows: max |d| "
         f"{[errs[n] for n in cases if n in errs]}; each over two half-blocks "
         f"== one block of {T}, state and output bit for bit")
+
+
+def check_wdf_plans(dev, rng, k, make):
+    """Phase 3 for the WDF kernel off the suite's plans, at c = C_STRUCT
+    lanes on T_PREFIX rows from a random state against the plain version,
+    bit for bit: a chain of one stage of every adapter type (WDF_EVERY,
+    the generic loop), wdf-ca-19 with every stage on the generic loop and
+    at a chunk of WDF_SMALL_CHUNK rows.  Logs each launch's plan (the
+    suite's K38-K40 too) on a line of its own.  Returns the largest
+    |d|."""
+    import torch
+    from idsp_tpu_torch.filters import wdf, wdf_cuda
+
+    c = C_STRUCT
+    every = [wdf.Tpa(t) for t, _ in WDF_EVERY]
+    runs = {
+        "generic stage (every type)": (
+            [[(every, wdf.quantize(every, [g for _, g in WDF_EVERY]))]], {}),
+        "wdf-ca-19 generic loop": (list(k["ca19"]), {"generic": True}),
+        f"wdf-ca-19 chunk {WDF_SMALL_CHUNK}": (
+            list(k["ca19"]), {"chunk": WDF_SMALL_CHUNK}),
+    }
+    plans = {name: wdf_cuda.launch_plan([[tp for tp, _ in br]
+                                         for br in branches])
+             for name, branches in (("K38 wdf-ca-7's first chain",
+                                     [k["ca7"][0][:1]]),
+                                    ("K39 wdf-ca-19's branch 0",
+                                     [k["ca19"][0]]),
+                                    ("K40 wdf-ca-7", list(k["ca7"])),
+                                    ("K40 wdf-ca-19", list(k["ca19"])))}
+    err = 0.0
+    for name, (branches, kw) in runs.items():
+        plan = plans[name] = wdf_cuda.launch_plan(
+            [[tp for tp, _ in br] for br in branches], **kw)
+        sts = [[wdf.WdfState(z=torch.from_numpy(rng.integers(
+            -(2**24), 2**24, size=(c, len(tp))).astype(np.int32)).to(dev))
+                for tp, _ in br] for br in branches]
+        x = make["i24"](T_PREFIX)
+        new, ys = wdf_cuda._launch(name, branches, sts, x, plan=plan)
+        if len(branches) == 2:
+            got = ((new[0], new[1]), tuple(ys))
+            want = wdf_cuda.wdf_pair_bank_plain(*branches, tuple(sts), x)
+        else:
+            got = (new[0], ys[0])
+            want = wdf_cuda.wdf_chain_bank_plain(branches[0], sts[0], x)
+        err = max(err, compare(name, got, want))
+    log("phase 3 WDF plans (warps a block with the loader and store "
+        "warps; stage kinds, 0 the generic loop; chunk rows x ring depth; "
+        "shared memory): " + "; ".join(
+            f"{n}: {p.warps} warps, kinds {p.kinds}, {p.chunk} x {p.depth}, "
+            f"{p.smem} B" for n, p in plans.items()))
+    log(f"phase 3 WDF off the suite's plans ({', '.join(runs)}) == plain on "
+        f"{T_PREFIX} rows at c={c}, random state: max |d| {err}")
+    return err
 
 
 def rpll_scenario(dt2, period, first, noise, rows, c, rng):
@@ -3443,18 +3516,25 @@ def structures_main_path(dev, rng, wrappers):
 
 def time_structures(dev, rng, card, timings, plain_s):
     """Phase 6 for K34-K40 at c = C_STRUCT, t = T: each kernel beside its
-    plain version (timed in phase 3) and its rate in c*t samples/s; K40 over wdf-ca-7 on the log only."""
+    plain version (timed in phase 3) and its rate in c*t samples/s, K38-K40
+    also by their profiler spans (`launch_device_ms`); K40 over wdf-ca-7
+    on the log only."""
     from idsp_tpu_torch.profiling import measure_rate
 
     c = C_STRUCT
     make = structure_inputs(rng, dev, c)
     for name, (kern, _, key, kind, _) in structure_cases(
             structure_setup()).items():
-        k_s, _ = measure_rate(kern, structure_state(key, c, dev, rng),
-                              make[kind](T), iters=20, trials=3)
+        st, x = structure_state(key, c, dev, rng), make[kind](T)
+        k_s, _ = measure_rate(kern, st, x, iters=20, trials=3)
         timings["kernels"][name] = {c: {
             "ms": k_s * 1e3, "plain_ms": plain_s[name] * 1e3}}
-        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms "
+        note = ""
+        if name in DEVICE_SYMBOLS:
+            dev_ms = launch_device_ms(name, lambda s: kern(s, x), st)
+            timings["kernels"][name][c]["device_ms"] = dev_ms
+            note = f", device {dev_ms} ms a launch (profiler spans)"
+        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms{note} "
             f"({c * T / k_s:.4g} samples/s), plain {plain_s[name] * 1e3:.2f} "
             f"ms (phase 3)  [{card}]")
 
@@ -4509,7 +4589,7 @@ def main():
                                         "idsp_tpu/filters/hbf_pallas.py:409"),
         "hbf_int_cascade_mxu_default": ("idsp_tpu_torch/csrc/hbf_mxu.cu",
                                         "idsp_tpu/filters/hbf_pallas.py:612"),
-        "hbf_dec_cascade_mxu_highest": ("idsp_tpu_torch/csrc/hbf_mxu.cu",
+        "hbf_dec_cascade_mxu_highest": ("idsp_tpu_torch/csrc/hbf_cascade.cu",
                                         "idsp_tpu/filters/hbf_pallas.py:409"),
         "hbf_int_cascade_mxu_highest": ("idsp_tpu_torch/csrc/hbf_mxu.cu",
                                         "idsp_tpu/filters/hbf_pallas.py:612"),

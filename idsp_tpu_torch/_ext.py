@@ -63,7 +63,7 @@ _SIGNATURES = {
     "idsp_ddc_bank_df1": [_P] * 12 + [_I] * 17 + [_P],
     "idsp_hbf_dec_cascade": [_P] * 4 + [_I] * 6 + [_P] * 4,
     "idsp_hbf_int_cascade": [_P] * 4 + [_I] * 6 + [_P] * 4,
-    "idsp_hbf_dec_mxu": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
+    "idsp_hbf_dec_band": [_P] * 4 + [_I] * 6 + [_P] * 4,
     "idsp_hbf_int_mxu": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
     "idsp_hbf_dec_mma": [_P] * 4 + [_I] * 7 + [_P, _P, _P],
     "idsp_hbf_int_mma": [_P] * 4 + [_I] * 7 + [_P, _P, _P],
@@ -77,7 +77,7 @@ _SIGNATURES = {
     "idsp_normal_bank_q": [_P] * 6 + [_I] * 8 + [_P],
     "idsp_normal_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P],
     "idsp_rpll_bank": [_P] * 12 + [_I] * 5 + [_P],
-    "idsp_wdf_bank": [_P] * 8 + [_I] * 4 + [_P],
+    "idsp_wdf_bank": [_P] * 9 + [_I] * 7 + [_P],
     "idsp_halo_slot_alloc": [_L, _P, _P],
     "idsp_halo_slot_open": [_P, _P],
     "idsp_halo_slot_close": [_P],

@@ -1,9 +1,12 @@
-"""Time K1, K6, K7, K8 and K17 of two checkouts of the port in turns, in
-one process.
+"""Time K1, K6, K7, K8, K17, K22 "highest" and K38-K40 of two checkouts
+of the port in turns, in one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
-    python3 -m idsp_tpu_torch.ab_time PARENT_ROOT CHANGE_ROOT
+    python3 -m idsp_tpu_torch.ab_time PARENT_ROOT CHANGE_ROOT [--only A,B]
+
+``--only`` keeps the kernels whose name contains one of the given
+substrings (e.g. ``--only highest,wdf``).
 
 Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
 loaded under a name of its own, so both live in this process, and each
@@ -15,8 +18,13 @@ K7 `hbf_dec_cascade_bank` on (32768, c) and K8 `hbf_int_cascade_bank` on
 (2048, c) f32 at c = 512 and 1024 (depth 4, `HBF_TAPS`, zero state, each
 tree's default chunk and launch shape), and K17 `channelize_fused` at
 m = 1024, 8 taps, n = 1024 and 16384 frames, bf16 and f32 (zero history,
-each tree's default plan).  The two trees must compute the same words,
-K17 within 2e-5 of the scale (its sums run in another order).
+each tree's default plan), K22 `hbf_dec_cascade_mxu` at precision
+"highest" on K7's inputs, and K38 `wdf_bank` (wdf-ca-7's first chain),
+K39 `wdf_chain_bank` (wdf-ca-19's branch 0) and K40 `wdf_pair_bank`
+(wdf-ca-7 and wdf-ca-19) at c = 1024 lanes of x in +-2^24, t = 32768
+(zero state, `chip_smoke.py`'s chains).  The two trees must compute the
+same words, K17 within 2e-5 of the scale (its sums run in another
+order).
 One sample is the CUDA-event time of ITERS launches on the same inputs,
 per launch.  Each of ROUNDS rounds r takes one sample of each tree in
 the order parent, change, change, parent (r even) or change, parent,
@@ -47,6 +55,17 @@ import torch
 T, DEC, TC, DEPTH = 32768, 16, 128, 4
 M_CH, CH_TAPS, N_CH = 1024, 8, (1024, 16384)  # K17: branches, taps, frames
 ROUNDS, ITERS = 30, 20
+C_WDF = 1024  # K38-K40's lanes
+# wdf-ca-7 and wdf-ca-19 (benches/suite.py:442-500): per branch, stages of
+# (type nibbles, adapters, pole coefficients)
+WDF_CA7 = ([(0xAD, 2, [-0.9, 0.9]), (0xAD, 2, [-0.6, 0.7])],
+           [(0xAD, 2, [-0.7, 0.6]), (0xA, 1, [0.8])])
+WDF_CA19 = ([(0x1, 1, [0.0]), (0x1C, 2, [-0.226119, 0.0]),
+             (0x1D, 2, [-0.602422, 0.0]), (0x1D, 2, [-0.83932, 0.0]),
+             (0x1D, 2, [-0.950847, 0.0])],
+            [(0x1C, 2, [-0.063978, 0.0]), (0x1C, 2, [-0.423068, 0.0]),
+             (0x1D, 2, [-0.741327, 0.0]), (0x1D, 2, [-0.905567, 0.0]),
+             (0x1D, 2, [-0.984721, 0.0])])
 
 
 def load_tree(root: str, alias: str):
@@ -67,7 +86,8 @@ def cases(alias: str, dev, inputs):
     sub = {m: importlib.import_module(f"{alias}.{m}") for m in (
         "design", "filters.biquad", "filters.biquad_cuda", "filters.lowpass",
         "filters.pll", "filters.ddc_bank_cuda", "filters.hbf",
-        "filters.hbf_cuda", "pipelines.channelizer",
+        "filters.hbf_cuda", "filters.hbf_mxu", "filters.wdf",
+        "filters.wdf_cuda", "pipelines.channelizer",
         "pipelines.channelizer_cuda")}
     biquad, lowpass, pll = (sub["filters.biquad"], sub["filters.lowpass"],
                             sub["filters.pll"])
@@ -99,6 +119,31 @@ def cases(alias: str, dev, inputs):
         out[f"hbf_int_cascade_bank c={c}"] = (
             lambda st=int0, x=inputs[f"low{c}"]:
             hbf_cuda.hbf_int_cascade_bank(st, x))
+        out[f"hbf_dec_cascade_mxu highest c={c}"] = (
+            lambda st=dec0, x=inputs[f"hbf{c}"]:
+            sub["filters.hbf_mxu"].hbf_dec_cascade_mxu(
+                st, x, precision="highest"))
+    wdf, wdf_cuda = sub["filters.wdf"], sub["filters.wdf_cuda"]
+
+    def stages(spec):
+        return [(wdf.nibbles(m, n), wdf.quantize(wdf.nibbles(m, n), g))
+                for m, n, g in spec]
+
+    def zero(branch):
+        return [wdf.init(len(tp), (C_WDF,), device=dev) for tp, _ in branch]
+
+    ca7 = [stages(br) for br in WDF_CA7]
+    ca19 = [stages(br) for br in WDF_CA19]
+    (tp, a), = ca7[0][:1]
+    xw = inputs["wdf"]
+    out[f"wdf_bank c={C_WDF}"] = (
+        lambda st=zero([(tp, a)])[0]: wdf_cuda.wdf_bank(tp, a, st, xw))
+    out[f"wdf_chain_bank c={C_WDF}"] = (
+        lambda st=zero(ca19[0]): wdf_cuda.wdf_chain_bank(ca19[0], st, xw))
+    for name, pair in (("ca7", ca7), ("ca19", ca19)):
+        out[f"wdf_pair_bank {name} c={C_WDF}"] = (
+            lambda pair=pair, st=tuple(zero(br) for br in pair):
+            wdf_cuda.wdf_pair_bank(*pair, st, xw))
     chz = sub["pipelines.channelizer"]
     k17 = sub["pipelines.channelizer_cuda"].channelize_fused
     for n in N_CH:
@@ -126,6 +171,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parent")
     ap.add_argument("change")
+    ap.add_argument("--only", default="",
+                    help="comma-separated substrings of the kernels to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_time needs a CUDA device; none is available")
@@ -158,6 +205,7 @@ def main() -> None:
             rng.normal(size=(T, c)).astype(np.float32)).to(dev)
         inputs[f"low{c}"] = torch.from_numpy(
             rng.normal(size=(T >> DEPTH, c)).astype(np.float32)).to(dev)
+    inputs["wdf"] = i32((T, C_WDF), -(2**24), 2**24)
     inputs.update(x=i32((T,), -(2**27), 2**27),
                   ph0=torch.zeros((1024,), dtype=torch.int32, device=dev),
                   steps=i32((1024,), 1 << 24, 1 << 30))
@@ -165,13 +213,18 @@ def main() -> None:
         inputs[f"ch{n}"] = tuple(torch.from_numpy(rng.normal(
             size=(n, M_CH)).astype(np.float32)).to(dev) for _ in range(2))
     fns = {k: cases(f"ab_{k}", dev, inputs) for k in trees}
-    names = list(fns["parent"])
+    only = [o for o in args.only.split(",") if o]
+    names = [n for n in fns["parent"] if not only or any(o in n for o in only)]
     for k in trees:  # warm up, and the two trees compute the same words
         for n in names:
             fns[k][n]()
+    def outputs(res):  # the tensors of a call's outputs (its last item)
+        out = res[-1]
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
     for n in names:
         a, b = fns["parent"][n](), fns["change"][n]()
-        for u, v in zip(a[-1:], b[-1:]):
+        for u, v in zip(outputs(a), outputs(b), strict=True):
             same = (float((u - v).abs().max()) <= 2e-5 * float(u.abs().max())
                     if n.startswith("channelize") else torch.equal(u, v))
             if not same:

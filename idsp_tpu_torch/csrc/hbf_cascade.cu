@@ -1,5 +1,6 @@
 // K7 and K8: the pure-FIR half-band rate-change cascades, decimate and
-// interpolate by 2^depth, each in one kernel.
+// interpolate by 2^depth, each in one kernel; and K22 at precision
+// "highest", K7's walk with the stage's sum in the band order.
 //
 // Replaces the Pallas kernels of idsp_tpu/filters/hbf_pallas.py
 // `hbf_dec_cascade_bank` (:52, `_hbf_dec_cascade_impl` :88, pallas_call
@@ -39,6 +40,16 @@
 // carried tails cross device memory packed (3m-2, c) a stage, 2m-1 odd
 // rows then m-1 even rows (hbf_pallas.py:71-82); in shared memory the
 // 4m-3 carried rows are contiguous, the even rows below 2m-2 unused.
+//
+// K22 "highest" (hbf_dec_band_kernel; replaces the "highest" path of
+// idsp_tpu/filters/hbf_pallas.py `hbf_dec_cascade_mxu` :409, pallas_call
+// :567, precisions :426-434): the same cascade, support and tails as K7,
+// each output its band row's sum in ascending band column (hbf_tile.cuh
+// `dec_band_stage`, the order of filters/hbf_mxu.py `_sum_band`), so it
+// equals hbf_dec_cascade_mxu_plain(precision="highest") bit for bit and
+// no value depends on the chunk or the ranges.  The TPU ran it as an f32
+// banded-matrix product on the MXU; a band row has 2m+1 nonzero entries of
+// 4m-1, so here the products are the nonzero ones on the CUDA cores.
 //
 // K8 (stage d uses taps[d], lowest rate and most taps first): output pair
 // j of stage d reads its input rows j-2m+1 .. j and is the FIR sum in slot
@@ -164,11 +175,14 @@ __device__ __forceinline__ int walk(const Layout<D>& L, float* col,
   return chunks - 1;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kLanes* kWarps) hbf_dec_cascade_kernel(
+// The decimating walk of K7 (Band false: hbf.py's symmetric order) and
+// of K22 "highest" (Band true: the band order of filters/hbf_mxu.py);
+// the two differ only in the stage's sum.
+template <int D, bool Band>
+__device__ __forceinline__ void dec_cascade(
     const float* __restrict__ xs, const float* __restrict__ tails_in,
     float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
-    int tc, int seg, int halo, Taps p, Halos h) {
+    int tc, int seg, int halo, const Taps& p, const Halos& h) {
   extern __shared__ float smem[];
   const int lane = blockIdx.x * kLanes + threadIdx.x;
   const bool live = lane < c;  // dead lanes still reach every barrier
@@ -200,17 +214,19 @@ __global__ void __launch_bounds__(kLanes* kWarps) hbf_dec_cascade_kernel(
         const int sd = L.off[d] - base(d, q, cs);
         auto in = [&](int u) { return col[(sd + u) * kLanes]; };
         const int lo = imax(cs >> (d + 1), a[d]), hi = ce >> (d + 1);
+        auto sum = [&](auto out) {
+          if constexpr (Band)
+            idsp::tile::dec_band_stage(lo, hi, p.m[d], p.taps[d], in, out);
+          else
+            idsp::tile::dec_stage(lo, hi, p.m[d], p.taps[d], in, out);
+        };
         if (d + 1 < D) {
           const int so = L.off[d + 1] - base(d + 1, q, cs);
-          idsp::tile::dec_stage(
-              lo, hi, p.m[d], p.taps[d], in,
-              [&](int j, float v) { col[(so + j) * kLanes] = v; });
+          sum([&](int j, float v) { col[(so + j) * kLanes] = v; });
         } else {
-          idsp::tile::dec_stage(lo, hi, p.m[d], p.taps[d], in,
-                                [&](int j, float v) {
-                                  if (live)
-                                    y[static_cast<size_t>(j) * c + lane] = v;
-                                });
+          sum([&](int j, float v) {
+            if (live) y[static_cast<size_t>(j) * c + lane] = v;
+          });
         }
       });
 
@@ -228,6 +244,24 @@ __global__ void __launch_bounds__(kLanes* kWarps) hbf_dec_cascade_kernel(
           col[(sl + (r < 2 * m - 1 ? 2 * r : 2 * r - 2 * m + 1)) * kLanes];
     toff += 3 * m - 2;
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kLanes* kWarps) hbf_dec_cascade_kernel(
+    const float* __restrict__ xs, const float* __restrict__ tails_in,
+    float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
+    int tc, int seg, int halo, Taps p, Halos h) {
+  dec_cascade<D, false>(xs, tails_in, tails_out, y, t, c, tc, seg, halo, p,
+                        h);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kLanes* kWarps) hbf_dec_band_kernel(
+    const float* __restrict__ xs, const float* __restrict__ tails_in,
+    float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
+    int tc, int seg, int halo, Taps p, Halos h) {
+  dec_cascade<D, true>(xs, tails_in, tails_out, y, t, c, tc, seg, halo, p,
+                       h);
 }
 
 template <int D>
@@ -301,12 +335,16 @@ __global__ void __launch_bounds__(kLanes* kWarps) hbf_int_cascade_kernel(
 using Kernel = void (*)(const float*, const float*, float*, float*, int, int,
                         int, int, int, Taps, Halos);
 
+enum Kind { kDec, kDecBand, kInt };  // K7, K22 "highest", K8
+
 template <int D>
-int launch(bool dec, const void* xs, const void* tails_in, void* tails_out,
+int launch(Kind kind, const void* xs, const void* tails_in, void* tails_out,
            void* y, int t, int c, int tc, int seg, int halo, const Taps& p,
            const Halos& h, void* stream) {
-  const Kernel kernel =
-      dec ? hbf_dec_cascade_kernel<D> : hbf_int_cascade_kernel<D>;
+  const bool dec = kind != kInt;
+  const Kernel kernel = kind == kDec      ? hbf_dec_cascade_kernel<D>
+                        : kind == kDecBand ? hbf_dec_band_kernel<D>
+                                           : hbf_int_cascade_kernel<D>;
   const int rows = dec ? t >> D : t;  // the rows the ranges cut
   const int ranges = (rows + seg - 1) / seg;
   if (ranges > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -328,7 +366,7 @@ int launch(bool dec, const void* xs, const void* tails_in, void* tails_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(bool dec, const void* xs, const void* tails_in, void* tails_out,
+int launch(Kind kind, const void* xs, const void* tails_in, void* tails_out,
            void* y, int t, int c, int tc, int seg, int halo, int depth,
            const int* ms, const float* taps, const int* stage_halo,
            void* stream) {
@@ -343,18 +381,32 @@ int launch(bool dec, const void* xs, const void* tails_in, void* tails_out,
   }
   switch (depth) {
     case 1:
-      return launch<1>(dec, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+      return launch<1>(kind, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
                        p, h, stream);
     case 2:
-      return launch<2>(dec, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+      return launch<2>(kind, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
                        p, h, stream);
     case 3:
-      return launch<3>(dec, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+      return launch<3>(kind, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
                        p, h, stream);
     default:
-      return launch<4>(dec, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+      return launch<4>(kind, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
                        p, h, stream);
   }
+}
+
+// K7 and K22 "highest": the checks of a decimating call, then the launch.
+int launch_dec(Kind kind, const void* xs, const void* tails_in,
+               void* tails_out, void* y, int t, int c, int tc, int seg,
+               int halo, int depth, const int* ms, const float* taps,
+               const int* stage_halo, void* stream) {
+  if (depth < 1 || depth > kMaxDepth)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int r = 1 << depth;
+  if (t <= 0 || t % r != 0 || tc % r != 0 || halo % r != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(kind, xs, tails_in, tails_out, y, t, c, tc, seg, halo, depth,
+                ms, taps, stage_halo, stream);
 }
 
 }  // namespace
@@ -368,13 +420,19 @@ extern "C" int idsp_hbf_dec_cascade(const void* xs, const void* tails_in,
                                     int tc, int seg, int halo, int depth,
                                     const int* ms, const float* taps,
                                     const int* stage_halo, void* stream) {
-  if (depth < 1 || depth > kMaxDepth)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int r = 1 << depth;
-  if (t <= 0 || t % r != 0 || tc % r != 0 || halo % r != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch(true, xs, tails_in, tails_out, y, t, c, tc, seg, halo, depth,
-                ms, taps, stage_halo, stream);
+  return launch_dec(kDec, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+                    depth, ms, taps, stage_halo, stream);
+}
+
+// K22 "highest" (filters/hbf_mxu.py): K7's arguments, each output the
+// band row's sum in the band order.
+extern "C" int idsp_hbf_dec_band(const void* xs, const void* tails_in,
+                                 void* tails_out, void* y, int t, int c,
+                                 int tc, int seg, int halo, int depth,
+                                 const int* ms, const float* taps,
+                                 const int* stage_halo, void* stream) {
+  return launch_dec(kDecBand, xs, tails_in, tails_out, y, t, c, tc, seg,
+                    halo, depth, ms, taps, stage_halo, stream);
 }
 
 // K8: xs (t, c) f32 -> y (t << depth, c) f32; tails (2m-1, c) per stage,
@@ -385,6 +443,6 @@ extern "C" int idsp_hbf_int_cascade(const void* xs, const void* tails_in,
                                     const int* ms, const float* taps,
                                     const int* stage_halo, void* stream) {
   if (t <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(false, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+  return launch(kInt, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
                 depth, ms, taps, stage_halo, stream);
 }

@@ -47,10 +47,12 @@
 // * The last range writes the new tails: stage 0's from xs, the others'
 //   from the epilogues (4m-2 packed, K22; 2m-1, K23).
 //
-// "highest" (hbf_dec_mxu_kernel, hbf_int_mxu_kernel below, the port's
-// first design) sums the band's nonzero entries in f32 on the CUDA cores,
+// "highest" sums the band's nonzero entries in f32 on the CUDA cores,
 // each multiply and add one __f*_rn intrinsic in ascending band column
-// order, so it equals the plain version of filters/hbf_mxu.py bit for bit:
+// order, so it equals the plain version of filters/hbf_mxu.py bit for bit.
+// K22's runs on K7's walk (hbf_cascade.cu `hbf_dec_band_kernel`: lane
+// tiles x time ranges from exact halos, the band order being its only
+// change).  K23's is hbf_int_mxu_kernel below, the port's first design:
 // lane tiles x time segments, a block recomputing the cascade's halo
 // before its segment.
 //
@@ -92,8 +94,8 @@ constexpr int kD = idsp::kHbfMaxDepth;
 
 using idsp::HbfTaps;
 
-// One block's rows: stage d computes its output rows (K22) or row pairs
-// (K23) [a[d], b[d]) and reads its input rows [lo[d], hi[d]); the input of
+// One block of K23 "highest": stage d computes its output row pairs
+// [a[d], b[d]) and reads its input rows [lo[d], hi[d]); the input of
 // stage d >= 1 sits in shared memory at rows off[d] .. off[d] + hi[d] -
 // base[d], row u at off[d] + u - base[d].
 struct Plan {
@@ -122,25 +124,6 @@ __host__ __device__ inline void plan_buffers(const HbfTaps& p, Plan& q) {
   }
 }
 
-// K22, segment k of seg full-rate rows: output j of stage d reads input
-// rows 2j-4m+3 .. 2j+1; stage d's input rows are stage d-1's output rows.
-__host__ __device__ inline void dec_plan(const HbfTaps& p, int t, int seg,
-                                         int k, Plan& q) {
-  const int depth = p.depth;
-  const int n_out = t >> depth, s_out = seg >> depth;
-  int a = k * s_out, b = imin(a + s_out, n_out);
-  for (int d = depth - 1; d >= 0; --d) {
-    q.a[d] = imax(a, 0);
-    q.b[d] = b;
-    q.lo[d] = 2 * q.a[d] - (4 * p.m[d] - 3);
-    q.hi[d] = 2 * b;
-    q.base[d] = q.lo[d];
-    a = q.lo[d];
-    b = q.hi[d];
-  }
-  plan_buffers(p, q);
-}
-
 // K23, segment k of seg low-rate rows: output pair j of stage d reads
 // input rows j-2m+1 .. j; stage d's input rows are stage d-1's output
 // rows, two a pair.
@@ -163,31 +146,17 @@ __host__ __device__ inline void int_plan(const HbfTaps& p, int t, int seg,
   plan_buffers(p, q);
 }
 
-// Carried input row u < 0 of a decimating stage (window row w = 4m-2+u):
-// the packed tail holds odd rows (2m-1) then even rows from 2m (m-1);
-// the even rows below 2m are never read.
-__device__ __forceinline__ float dec_carried(const float* tails, int toff,
-                                             int m, int c, int lane, int u) {
-  const int w = 4 * m - 2 + u;
-  if (w & 1) return tails[static_cast<size_t>(toff + (w >> 1)) * c + lane];
-  if (w >= 2 * m)
-    return tails[static_cast<size_t>(toff + 2 * m - 1 + ((w - 2 * m) >> 1)) *
-                     c + lane];
-  return 0.f;
-}
-
 __device__ __forceinline__ float int_carried(const float* tails, int toff,
                                              int m, int c, int lane, int u) {
   return tails[static_cast<size_t>(toff + 2 * m - 1 + u) * c + lane];
 }
 
-// Tail offsets (rows) of each stage in the packed tails.
-__device__ __forceinline__ void tail_offsets(const HbfTaps& p, bool dec,
-                                             int* toff) {
+// Tail offsets (rows) of each stage in the packed tails (2m-1 a stage).
+__device__ __forceinline__ void tail_offsets(const HbfTaps& p, int* toff) {
   int r = 0;
   for (int d = 0; d < p.depth; ++d) {
     toff[d] = r;
-    r += dec ? 3 * p.m[d] - 2 : 2 * p.m[d] - 1;
+    r += 2 * p.m[d] - 1;
   }
 }
 
@@ -205,38 +174,6 @@ __device__ __forceinline__ void for_rows(int a, int b, int sub, Rows rows) {
     for (; j + kIlp <= r1; j += kIlp) rows(j, Ilp<kIlp>{});
     for (; j < r1; ++j) rows(j, Ilp<1>{});
   }
-}
-
-// One decimating stage over this thread's rows [a, b): in(u) reads input
-// row u, out(j, v) stores output row j.  N consecutive rows are summed side
-// by side (independent chains), each in its own fixed order.
-template <typename In, typename Out>
-__device__ __forceinline__ void dec_stage(int a, int b, int sub, int m,
-                                          const float* tp, In in, Out out) {
-  for_rows(a, b, sub, [&](int j, auto ilp) {
-    constexpr int N = decltype(ilp)::n;
-    const int u0 = 2 * j - 4 * m + 3;
-    float acc[N];
-#pragma unroll
-    for (int r = 0; r < N; ++r) acc[r] = __fmul_rn(tp[0], in(u0 + 2 * r));
-    for (int i = 1; i < m; ++i) {
-      const float w = tp[i];
-#pragma unroll
-      for (int r = 0; r < N; ++r)
-        acc[r] = __fadd_rn(acc[r], __fmul_rn(w, in(u0 + 2 * (r + i))));
-    }
-#pragma unroll
-    for (int r = 0; r < N; ++r)
-      acc[r] = __fadd_rn(acc[r], __fmul_rn(1.f, in(u0 + 2 * (r + m) - 1)));
-    for (int i = 0; i < m; ++i) {
-      const float w = tp[m - 1 - i];
-#pragma unroll
-      for (int r = 0; r < N; ++r)
-        acc[r] = __fadd_rn(acc[r], __fmul_rn(w, in(u0 + 2 * (r + m + i))));
-    }
-#pragma unroll
-    for (int r = 0; r < N; ++r) out(j + r, acc[r]);
-  });
 }
 
 // One interpolating stage over this thread's row pairs [a, b):
@@ -267,66 +204,6 @@ __device__ __forceinline__ void int_stage(int a, int b, int sub, int m,
   });
 }
 
-__global__ void __launch_bounds__(kMxuLanes* kMxuWarps) hbf_dec_mxu_kernel(
-    const float* __restrict__ xs, const float* __restrict__ tails_in,
-    float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
-    int seg, int sub, HbfTaps p) {
-  extern __shared__ float smem[];
-  const int lane = blockIdx.x * kMxuLanes + threadIdx.x;
-  const bool live = lane < c;  // dead lanes still reach every barrier
-  const int depth = p.depth;
-  Plan q;
-  dec_plan(p, t, seg, blockIdx.y, q);
-  int toff[kD];
-  tail_offsets(p, true, toff);
-  float* col = smem + threadIdx.x;
-  auto x0 = [&](int u) {  // stage 0's input row u
-    return u >= 0 ? __ldg(xs + static_cast<size_t>(u) * c + lane)
-                  : dec_carried(tails_in, toff[0], p.m[0], c, lane, u);
-  };
-
-  // carried rows (u < 0) of the shared buffers
-  if (live)
-    for (int d = 1; d < depth; ++d)
-      for (int u = q.lo[d] + threadIdx.y; u < imin(0, q.hi[d]);
-           u += kMxuWarps)
-        col[(q.off[d] + u - q.base[d]) * kMxuLanes] =
-            dec_carried(tails_in, toff[d], p.m[d], c, lane, u);
-
-  for (int d = 0; d < depth; ++d) {
-    if (live) {
-      const int sd = q.off[d] - q.base[d];
-      const int so = d + 1 < depth ? q.off[d + 1] - q.base[d + 1] : 0;
-      auto out = [&](int j, float v) {
-        if (d + 1 == depth)
-          y[static_cast<size_t>(j) * c + lane] = v;
-        else
-          col[(so + j) * kMxuLanes] = v;
-      };
-      if (d == 0)
-        dec_stage(q.a[d], q.b[d], sub, p.m[d], p.taps[d], x0, out);
-      else
-        dec_stage(q.a[d], q.b[d], sub, p.m[d], p.taps[d],
-                  [&](int u) { return col[(sd + u) * kMxuLanes]; }, out);
-    }
-    __syncthreads();
-  }
-
-  if (!live || blockIdx.y + 1 != gridDim.y) return;
-  // new carries: of the last 4m-2 input rows of each stage, the odd rows
-  // and the even rows from 2m
-  for (int d = 0; d < depth; ++d) {
-    const int m = p.m[d], u0 = (t >> d) - (4 * m - 2);
-    for (int w = threadIdx.y; w < 4 * m - 2; w += kMxuWarps) {
-      if (!(w & 1) && w < 2 * m) continue;
-      const int r = w & 1 ? w >> 1 : 2 * m - 1 + ((w - 2 * m) >> 1);
-      const int u = u0 + w;
-      tails_out[static_cast<size_t>(toff[d] + r) * c + lane] =
-          d == 0 ? x0(u) : col[(q.off[d] + u - q.base[d]) * kMxuLanes];
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kMxuLanes* kMxuWarps) hbf_int_mxu_kernel(
     const float* __restrict__ xs, const float* __restrict__ tails_in,
     float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
@@ -338,7 +215,7 @@ __global__ void __launch_bounds__(kMxuLanes* kMxuWarps) hbf_int_mxu_kernel(
   Plan q;
   int_plan(p, t, seg, blockIdx.y, q);
   int toff[kD];
-  tail_offsets(p, false, toff);
+  tail_offsets(p, toff);
   float* col = smem + threadIdx.x;
   auto x0 = [&](int u) {
     return u >= 0 ? __ldg(xs + static_cast<size_t>(u) * c + lane)
@@ -1017,25 +894,6 @@ int launch_mma(bool dec, const void* xs, const void* tails_in,
 
 }  // namespace
 
-// K22: xs (t, c) f32 -> y (t >> depth, c) f32; tails (3m-2, c) per stage,
-// packed (2m-1 odd rows, m-1 even rows).  t % 2^depth == 0; seg (the
-// segment in full-rate rows) a multiple of 2^depth.  ms (depth,) and taps
-// (sum ms,) are host arrays in stage order.
-extern "C" int idsp_hbf_dec_mxu(const void* xs, const void* tails_in,
-                                void* tails_out, void* y, int t, int c,
-                                int seg, int sub, int depth, const int* ms,
-                                const float* taps, void* stream) {
-  HbfTaps p{};
-  if (!idsp::hbf_taps_from_host(p, depth, ms, taps) || t <= 0 ||
-      t % (1 << depth) != 0 || seg < (1 << depth) ||
-      seg % (1 << depth) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int s_out = seg >> depth;
-  return launch(hbf_dec_mxu_kernel, dec_plan,
-                ((t >> depth) + s_out - 1) / s_out, xs, tails_in, tails_out,
-                y, t, c, seg, sub, p, stream);
-}
-
 // K23: xs (t, c) f32 -> y (t << depth, c) f32; tails (2m-1, c) per stage,
 // packed.  seg >= 1 low-rate rows a segment.
 extern "C" int idsp_hbf_int_mxu(const void* xs, const void* tails_in,
@@ -1075,9 +933,9 @@ extern "C" int idsp_hbf_mma_occupancy(int dec, int depth, const int* ms,
 }
 
 // K22 "split3" (passes 3) and "default" (passes 1): xs (t, c) f32 -> y
-// (t >> depth, c) f32, tails as idsp_hbf_dec_mxu.  tc full-rate rows a
-// chunk, a positive multiple of 16 << depth; seg last-stage output rows a
-// range, a positive multiple of 16.
+// (t >> depth, c) f32, tails as idsp_hbf_dec_cascade (hbf_cascade.cu).
+// tc full-rate rows a chunk, a positive multiple of 16 << depth; seg
+// last-stage output rows a range, a positive multiple of 16.
 extern "C" int idsp_hbf_dec_mma(const void* xs, const void* tails_in,
                                 void* tails_out, void* y, int t, int c,
                                 int tc, int sub, int seg, int passes,

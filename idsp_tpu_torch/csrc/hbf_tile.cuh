@@ -1,5 +1,6 @@
 // The half-band FIR stages of one lane tile, every warp of the block on
-// the rows of one stage: the stage code of K7 and K8 (hbf_cascade.cu).
+// the rows of one stage: the stage code of K7, K8 and K22 "highest"
+// (hbf_cascade.cu).
 //
 // Layout: a block is kLanes lanes (threadIdx.x: a warp reads a 128-byte
 // row) x kWarps warps (threadIdx.y).  A stage's input rows sit in shared
@@ -12,9 +13,9 @@
 //
 // Numerics: each output is the plain version's sum in its order (hbf.py
 // `symmetric_fir`): acc = (b + a) * tap[0], acc += (b + a) * tap[i] for i
-// ascending, then + even (decimation), every f32 operation one __f*_rn
-// intrinsic, so nvcc cannot contract them into FMAs and the kernels equal
-// the eager plain versions bit for bit.
+// ascending, then + even (decimation; K22's band order: dec_band_stage),
+// every f32 operation one __f*_rn intrinsic, so nvcc cannot contract them
+// into FMAs and the kernels equal the eager plain versions bit for bit.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -96,6 +97,41 @@ __device__ __forceinline__ void dec_stage(int a, int b, int m,
 #pragma unroll
     for (int r = 0; r < N; ++r)
       out(j + r, __fadd_rn(acc[r], in(lo + 2 * m - 1 + 2 * r)));
+  });
+}
+
+// dec_stage's rows in the band order of K22 "highest" (filters/hbf_mxu.py
+// `_sum_band`, `dec_band_row`): output j is the sum over its band row's
+// nonzero entries in ascending input row, u0 = 2j-4m+3: tap[i] * x[u0+2i]
+// for i ascending, the unit center 1 * x[u0+2m-1], tap[m-1-i] *
+// x[u0+2m+2i] for i ascending, the first product the sum's start.
+template <class In, class Out>
+__device__ __forceinline__ void dec_band_stage(int a, int b, int m,
+                                               const float* tp, In in,
+                                               Out out) {
+  for_rows(a, b, [&](int j, auto ilp) {
+    constexpr int N = decltype(ilp)::n;
+    const int u0 = 2 * j - 4 * m + 3;
+    float acc[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) acc[r] = __fmul_rn(tp[0], in(u0 + 2 * r));
+    for (int i = 1; i < m; ++i) {
+      const float w = tp[i];
+#pragma unroll
+      for (int r = 0; r < N; ++r)
+        acc[r] = __fadd_rn(acc[r], __fmul_rn(w, in(u0 + 2 * (r + i))));
+    }
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      acc[r] = __fadd_rn(acc[r], __fmul_rn(1.f, in(u0 + 2 * (r + m) - 1)));
+    for (int i = 0; i < m; ++i) {
+      const float w = tp[m - 1 - i];
+#pragma unroll
+      for (int r = 0; r < N; ++r)
+        acc[r] = __fadd_rn(acc[r], __fmul_rn(w, in(u0 + 2 * (r + m + i))));
+    }
+#pragma unroll
+    for (int r = 0; r < N; ++r) out(j + r, acc[r]);
   });
 }
 

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks as inline PTX, for K17's kernels
-// (channelize.cu): mbarriers, asynchronous copies of the TMA (1-D bulk
+// (channelize.cu) and K38-K40's (wdf_bank.cu): mbarriers, cp.async
+// arriving on them, asynchronous copies of the TMA (1-D bulk
 // copies, boxes of 2-D tensor maps), the thread-block cluster's ranks,
 // mapped addresses, asynchronous stores into peer CTAs and barrier,
 // warpgroup register rebalancing, and `wgmma` with shared-memory operand
@@ -74,6 +75,29 @@ __device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
                    "r"(bar),
                "r"(bytes)
                : "memory");
+}
+
+// 4 bytes device memory -> this CTA's shared memory (the non-bulk cp.async)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+// 16 bytes device memory -> this CTA's shared memory, both 16-byte aligned
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+// one arrival on the mbarrier once this thread's cp.asyncs so far have
+// landed (noinc: it counts against the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // ---- the cluster ----------------------------------------------------------

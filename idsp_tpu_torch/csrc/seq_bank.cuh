@@ -48,33 +48,6 @@ __device__ __forceinline__ void seq_rows(int t, Load load, Step step) {
   for (int i = full; i < t; ++i) step(i, load(i));
 }
 
-// seq_rows for a step too large to unroll kBankGroup times (its code
-// would overflow the instruction cache): the same prefetch of the next
-// group into registers, but the current group's rows sit in a small
-// local array (L1) indexed at run time, so the step's code is emitted
-// once.
-template <class Load, class Step>
-__device__ __forceinline__ void seq_rows_rolled(int t, Load load, Step step) {
-  using In = decltype(load(0));
-  const int full = t / kBankGroup * kBankGroup;
-  In cur[kBankGroup];
-#pragma unroll
-  for (int u = 0; u < kBankGroup; ++u) cur[u] = full > 0 ? load(u) : In{};
-  for (int i0 = 0; i0 < full; i0 += kBankGroup) {
-    const bool more = i0 + kBankGroup < full;
-    In nxt[kBankGroup];
-#pragma unroll
-    for (int u = 0; u < kBankGroup; ++u)
-      nxt[u] = more ? load(i0 + kBankGroup + u) : In{};
-#pragma unroll 1
-    for (int u = 0; u < kBankGroup; ++u) step(i0 + u, cur[u]);
-#pragma unroll
-    for (int u = 0; u < kBankGroup; ++u) cur[u] = nxt[u];
-  }
-#pragma unroll 1
-  for (int i = full; i < t; ++i) step(i, load(i));
-}
-
 // Keep-1-in-dec over a walk of rows: next() is true for the rows
 // 0, dec, 2*dec, ... (== ys[::dec]).
 struct Keep {

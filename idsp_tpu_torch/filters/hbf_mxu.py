@@ -37,8 +37,10 @@ Both take and return the time-major (``axis=0``) `HbfDecState` /
 * ``"default"``: one bf16 pass Wh.Xh, about 4.5e-3 relative.  On the
   card: the same kernel, one pass.
 * ``"highest"``: the band's f32 sum, about 2e-7 relative (Mosaic's own
-  f32 decomposition on the TPU).  On the card: the SIMT kernel, each
-  multiply and add one rounding in ascending band column order.
+  f32 decomposition on the TPU).  On the card: each multiply and add one
+  rounding in ascending band column order on the CUDA cores; K22's on
+  K7's walk of lane tiles x time ranges (``csrc/hbf_cascade.cu``
+  `hbf_dec_band_kernel`), K23's a SIMT kernel of time segments.
 
 The plain versions compute the same products (a bf16 product is exact in
 f32) and sum each pass in ascending band column order, the passes added
@@ -54,9 +56,10 @@ shift form, another summation order) every precision is held within a
 tolerance, never bit for bit.
 
 ``block`` and ``sub`` size the kernels' tiles only; no value depends on
-them, nor on the number of time ranges the MMA kernels cut a call into
-(about MMA_BLOCKS_PER_SM blocks an SM; the private `_dec` / `_int` take
-the count, for the tests).
+them, nor on the number of time ranges the kernels cut a call into (the
+MMA kernels about MMA_BLOCKS_PER_SM blocks an SM, K22 "highest" K7's
+`default_ranges`; the private `_dec` / `_int` take the count, for the
+tests).
 """
 
 from __future__ import annotations
@@ -69,7 +72,15 @@ import torch
 
 from .. import _ext
 from .hbf import HBF_TAPS, HbfDecState, HbfIntState
-from .hbf_cuda import LANES, MAX_DEPTH, _launch, _split
+from .hbf_cuda import (
+    LANES,
+    MAX_DEPTH,
+    _launch,
+    _split,
+    dec_range_plan,
+    default_ranges,
+    pick_chunk,
+)
 
 PRECISIONS = ("split3", "default", "highest")
 PASSES = {"split3": 3, "default": 1}  # bf16 products a band entry
@@ -367,9 +378,13 @@ def _dec(states, xs, taps, block, sub, precision, ranges):
     t, c = xs.shape
     rows = [(2 * len(tv) - 1, len(tv) - 1) for tv in stage_taps]
     tails = [(s.odd, s.even) for s in states]
-    if precision == "highest":
-        packed, y = _launch("hbf_dec_mxu", tails, rows, xs, stage_taps,
-                            t >> depth, min(block, t) // r * r, sub)
+    if precision == "highest":  # K7's walk, the band order (`_sum_band`)
+        ms = [len(tv) for tv in stage_taps]
+        plan = dec_range_plan(ms, t, default_ranges(t >> depth, c, xs.device)
+                              if ranges is None else ranges)
+        packed, y = _launch("hbf_dec_band", tails, rows, xs, stage_taps,
+                            t >> depth, pick_chunk(t, block, r), plan.seg,
+                            plan.halo, extra=(plan.stage_halo,))
     else:
         n_out, tc = t >> depth, mma_chunk(block, t, 16 << depth)
         seg = mma_seg(n_out, mma_ranges(True, stage_taps, tc,
@@ -418,14 +433,17 @@ def hbf_dec_cascade_mxu(states, xs, *, taps=None, block: int = 256,
       xs: (t, c) f32 full-rate block, t % 2**depth == 0, any c.
       taps: the full tap table (default `HBF_TAPS`); stage i uses
         ``taps[depth-1-i]``.
-      block: "split3" and "default": the full-rate rows a CUDA block takes
-        at a time (`mma_chunk`: a multiple of 16 * 2**depth); "highest":
-        the rows of a CUDA block's time segment (lowered to a multiple of
-        2**depth, at most t), each segment also recomputing the cascade's
-        halo before it.  Sizes shared memory: a launch that would exceed a
-        block's is refused (RuntimeError).
-      sub: output rows a warp takes at a time (at most its share of a
-        stage; whole 16-row tiles for the MMA kernels).
+      block: the full-rate rows a CUDA block takes at a time: "split3"
+        and "default" `mma_chunk` (a multiple of 16 * 2**depth);
+        "highest" the chunk of K7's walk (`hbf_cuda.pick_chunk`: lowered
+        to a multiple of 2**depth and to t), each range of time walked
+        from its exact halo (`dec_range_plan`, `default_ranges`).  Sizes
+        shared memory: a launch that would exceed a block's is refused
+        (RuntimeError).
+      sub: output rows a warp takes at a time ("split3" and "default":
+        whole 16-row tiles, at most a warp's share of a stage); "highest"
+        deals a stage's rows to the warps in groups of four and takes no
+        ``sub``.
       precision: ``"split3"`` (three bf16 passes), ``"default"`` (one) or
         ``"highest"`` (the f32 sum); see the module docstring.
 

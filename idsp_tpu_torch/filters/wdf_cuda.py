@@ -6,15 +6,18 @@ Each runs the CUDA kernel of ``csrc/wdf_bank.cu`` for a CUDA tensor and
 its plain PyTorch version (``*_plain``) for a CPU tensor; any other
 device raises.  K38 is bit-identical to `wdf.block`, K39 to
 `wdf.chain_block`, K40 to `wdf.pair_block`.  One kernel serves all
-three: the adapter types, Q32<32> coefficients and stage boundaries of
-up to WDF_MAX adapters in all (both branches of a pair together) go to
-it by value; K40 runs both branches and the butterfly in one launch.  A
-longer chain is refused (ValueError) before any launch.
+three: a CUDA block is a tile of 32 lanes with one warp per serial
+stage (both branches of a pair), a loader warp and a store warp, the
+stages passing chunks of rows through rings in shared memory
+(`launch_plan`); K40 runs both branches and the butterfly in one
+launch.  A chain of more than
+WDF_MAX adapters in all is refused (ValueError) before any launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -23,62 +26,154 @@ from .. import _ext
 from .wdf import Tpa, WdfState, block, chain_block, pair_block
 
 WDF_MAX = 24  # adapters of one launch, both branches (csrc/wdf_bank.cu)
-_FIRST, _LAST = 1, 2  # flags of an adapter that opens / closes its stage
+LANES = 32  # lanes of a CUDA block's tile
+# The stages (N adapters, type nibbles M: adapter j in nibble j, as
+# `wdf.nibbles` decodes them) with a loop of their own in the kernel
+# (kSpecs of csrc/wdf_bank.cu), kind i + 1 for entry i; kind 0 is the
+# generic loop.  The suite's chains (benches/suite.py:442-500): wdf-ca-7's
+# [D, A] and [A], wdf-ca-19's [X], [C, X] and [D, X].
+SPECIALISED = ((1, 0x1), (1, 0xA), (2, 0xAD), (2, 0x1C), (2, 0x1D))
+# rows a ring slot, slots a ring (the most): a chunk costs each warp a few
+# hundred cycles of barrier work, so 64 rows beat 32 by 12-17 % at any
+# depth from 2 to 4 (PERF.md, PR 15)
+CHUNK, DEPTH = 64, 4
+SMEM_BUDGET = 216 * 1024  # bytes of rings a plan takes at most
+MAX_SMEM = 232448  # bytes of shared memory a block may have
 
 
-def _flatten(stages):
-    """(types, coefficients, flags, stage lengths) of serial stages of
-    (tpas, a), each a list of Python ints."""
-    types, coefs, flags, lens = [], [], [], []
-    for tpas, a in stages:
-        n = len(tpas)
-        if n < 1:
-            raise ValueError("a WDF stage needs at least one adapter")
-        arr = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
-        if arr.ndim > 1:
-            raise ValueError("the kernels take one shared (N,) coefficient "
-                             f"set per stage, got shape {arr.shape}")
-        types += [int(Tpa(t)) for t in tpas]
-        coefs += [int(v) for v in arr.reshape(-1)[:n]]
-        flags += [(_FIRST if j == 0 else 0) | (_LAST if j == n - 1 else 0)
-                  for j in range(n)]
-        lens.append(n)
-    return types, coefs, flags, lens
+def stage_key(tpas) -> tuple[int, int]:
+    """(N, M) of a stage: its adapter count and its type nibbles, adapter
+    j in nibble j (the reference's `Wdf<N, M>`)."""
+    return len(tpas), sum(int(Tpa(t)) << (4 * j) for j, t in enumerate(tpas))
 
 
-def _launch(name, branches, states, xs):
+def stage_kind(tpas) -> int:
+    """The kernel loop of a stage: 1 + its index in SPECIALISED, or 0 (the
+    generic loop)."""
+    key = stage_key(tpas)
+    return SPECIALISED.index(key) + 1 if key in SPECIALISED else 0
+
+
+def ring_bytes(stages: int, chunk: int, depth: int) -> int:
+    """Shared memory of a launch of ``stages`` stages: stages + 1 rings
+    (the input's, one before every stage but each branch's first, one
+    after each branch's last), each of ``depth`` slots of ``chunk`` rows
+    x LANES int32 words and two 8-byte mbarriers (csrc/wdf_bank.cu
+    `ring_count`, `smem_bytes`)."""
+    return (stages + 1) * depth * (16 + chunk * LANES * 4)
+
+
+class WdfPlan(NamedTuple):
+    """How the kernel runs a launch: a CUDA block of LANES lanes has one
+    warp per stage, branch 0's then branch 1's, a loader warp and a store
+    warp (``warps`` in all); stage s runs loop ``kinds[s]``
+    (`stage_kind`) for its ``keys[s]`` (`stage_key`); chunks of ``chunk``
+    rows pass between the warps through rings of ``depth`` slots,
+    ``smem`` bytes in all."""
+
+    stages: tuple[int, int]  # (branch 0's, branch 1's); (n, 0): one chain
+    keys: tuple[tuple[int, int], ...]
+    kinds: tuple[int, ...]
+    chunk: int
+    depth: int
+    smem: int
+
+    @property
+    def warps(self) -> int:
+        """Warps of a CUDA block: the stages', the loader and the store
+        warp."""
+        return sum(self.stages) + 2
+
+
+def launch_plan(branches, *, chunk: int | None = None,
+                depth: int | None = None, generic: bool = False) -> WdfPlan:
+    """The plan of a launch over one branch (K38, K39) or two (K40), each
+    a list of stages, each stage a list of adapter types (`Tpa`).
+
+    The chunk is CHUNK rows and the depth the most of DEPTH .. 2 whose
+    rings fit SMEM_BUDGET (wdf-ca-7: 4, wdf-ca-19: 2), unless given; a
+    chunk too large for depth 2 is halved (24 stages: 32 rows, depth 2).  ``generic`` runs every stage on the
+    generic loop (for the tests).  Raises ValueError for no stages, an
+    empty stage, more than two branches or more than WDF_MAX adapters."""
+    if not 1 <= len(branches) <= 2 or not branches[0] or (
+            len(branches) == 2 and not branches[1]):
+        raise ValueError("a WDF launch takes one or two branches of stages")
+    flat = [list(tp) for br in branches for tp in br]
+    if any(len(tp) < 1 for tp in flat):
+        raise ValueError("a WDF stage needs at least one adapter")
+    n = sum(len(tp) for tp in flat)
+    if n > WDF_MAX:
+        raise ValueError(f"{n} adapters, more than the kernel's {WDF_MAX}")
+    stages = len(flat)
+    ch = CHUNK if chunk is None else chunk
+    if depth is None:
+        fits = [d for d in range(DEPTH, 1, -1)
+                if ring_bytes(stages, ch, d) <= SMEM_BUDGET]
+        while not fits and chunk is None and ch > 1:
+            ch //= 2
+            fits = [d for d in range(DEPTH, 1, -1)
+                    if ring_bytes(stages, ch, d) <= SMEM_BUDGET]
+        dp = fits[0] if fits else 2
+    else:
+        dp = depth
+    if ch < 1 or dp < 1:
+        raise ValueError(f"chunk and depth must be >= 1, got {ch}, {dp}")
+    return WdfPlan(
+        stages=(len(branches[0]), len(branches[1]) if len(branches) > 1
+                else 0),
+        keys=tuple(stage_key(tp) for tp in flat),
+        kinds=tuple(0 if generic else stage_kind(tp) for tp in flat),
+        chunk=ch, depth=dp, smem=ring_bytes(stages, ch, dp))
+
+
+def _coefs(tpas, a):
+    """One stage's shared (N,) coefficients as Python ints."""
+    arr = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+    if arr.ndim > 1:
+        raise ValueError("the kernels take one shared (N,) coefficient "
+                         f"set per stage, got shape {arr.shape}")
+    return [int(v) for v in arr.reshape(-1)[:len(tpas)]]
+
+
+def _launch(name, branches, states, xs, plan: WdfPlan | None = None):
     """Validate and launch the kernel over one branch (K38, K39) or two
-    (K40) of serial stages; ``states`` the matching lists of WdfState.
-    Returns (per-branch state lists, outputs)."""
+    (K40) of serial stages, each (tpas, a); ``states`` the matching lists
+    of WdfState; ``plan`` `launch_plan`'s by default.  Returns (per-branch
+    state lists, outputs).  A plan the kernel refuses raises
+    RuntimeError, having launched nothing."""
     t, c = xs.shape
     dev = xs.device
-    flat = [_flatten(b) for b in branches]
-    n_br = [sum(f[3]) for f in flat]
-    if sum(n_br) > WDF_MAX:
-        raise ValueError(f"{name}: {sum(n_br)} adapters, more than the "
-                         f"kernel's {WDF_MAX}")
+    if plan is None:
+        plan = launch_plan([[tp for tp, _ in br] for br in branches])
     _ext.require("xs", xs, dev, torch.int32, (t, c))
-    zs = []
-    for (_, _, _, lens), sts in zip(flat, states):
-        if len(sts) != len(lens):
-            raise ValueError(f"{name}: {len(lens)} stages, {len(sts)} states")
-        for n, st in zip(lens, sts):
-            _ext.require("state.z", st.z, dev, torch.int32, (c, n))
+    types, coefs, lens, zs = [], [], [], []
+    for br, sts in zip(branches, states):
+        if len(sts) != len(br):
+            raise ValueError(f"{name}: {len(br)} stages, {len(sts)} states")
+        for (tpas, a), st in zip(br, sts):
+            types += [int(Tpa(v)) for v in tpas]
+            coefs += _coefs(tpas, a)
+            lens.append(len(tpas))
+            _ext.require("state.z", st.z, dev, torch.int32, (c, len(tpas)))
             zs.append(st.z)
     z_in = torch.cat(zs, dim=1).t().contiguous()  # (n, c) planes
     z_out = torch.empty_like(z_in)
     ys = [torch.empty_like(xs) for _ in branches]
-    arrays = [(ctypes.c_int * WDF_MAX)(*sum((f[k] for f in flat), []))
-              for k in range(3)]
+
+    def ints(v):
+        return (ctypes.c_int * WDF_MAX)(*v)
+
     with torch.cuda.device(dev):
         err = _ext.library().idsp_wdf_bank(
             xs.data_ptr(), ys[0].data_ptr(),
             ys[1].data_ptr() if len(ys) > 1 else None, z_in.data_ptr(),
-            z_out.data_ptr(), *arrays, t, c, n_br[0],
-            n_br[1] if len(n_br) > 1 else 0, _ext.stream_ptr(dev))
+            z_out.data_ptr(), ints(types), ints(coefs), ints(lens),
+            ints(plan.kinds), t, c, plan.stages[0], plan.stages[1],
+            plan.chunk, plan.depth, plan.smem, _ext.stream_ptr(dev))
     _ext.check(err, name)
-    cols = iter(torch.split(z_out.t(), [n for f in flat for n in f[3]], dim=1))
-    new = [[WdfState(z=next(cols).contiguous()) for _ in f[3]] for f in flat]
+    cols = iter(torch.split(z_out.t(), lens, dim=1))
+    new = [[WdfState(z=next(cols).contiguous()) for _ in br]
+           for br in branches]
     return new, ys
 
 

@@ -16,7 +16,11 @@ it, the plan's numbers.  These tests show, for `HBF_TAPS` and
   other from a random state; ranges shorter than the halo included)
   equals the one-shot plain version bit for bit over two carried blocks,
   and the interpret-mode JAX kernels within the 16 ULP of
-  tests/test_torch_rate_conversion.py.
+  tests/test_torch_rate_conversion.py;
+* the same two for K22 `hbf_dec_cascade_mxu` at precision "highest",
+  which runs K7's walk with K7's plan (`hbf_dec_cascade_mxu_plain`, the
+  band order of `hbf_mxu._sum_band`): the halo is exact and one step
+  less is not, and the walk range by range equals one shot bit for bit.
 """
 
 import jax.numpy as jnp
@@ -31,6 +35,7 @@ from idsp_tpu.filters.hbf_pallas import (
 )
 
 from idsp_tpu_torch.filters import hbf
+from idsp_tpu_torch.filters.hbf_mxu import hbf_dec_cascade_mxu_plain
 from idsp_tpu_torch.filters.hbf_cuda import (
     RangePlan,
     dec_range_plan,
@@ -51,12 +56,12 @@ def _f32(rng, shape):
 
 def _ms(kernel, taps, depth):
     """Stage tap counts in stage order."""
-    order = reversed(range(depth)) if kernel == "dec" else range(depth)
+    order = reversed(range(depth)) if kernel != "int" else range(depth)
     return [len(taps[i]) for i in order]
 
 
 def _plan(kernel, taps, depth, t, ranges):
-    fn = dec_range_plan if kernel == "dec" else int_range_plan
+    fn = dec_range_plan if kernel != "int" else int_range_plan
     return fn(_ms(kernel, taps, depth), t, ranges)
 
 
@@ -65,7 +70,7 @@ def _state(kernel, taps, depth, c, rng, scale=1.0):
     def f(shape):
         return _f32(rng, shape) * scale
 
-    if kernel == "dec":
+    if kernel != "int":
         return tuple(hbf.HbfDecState(f(s.odd.shape), f(s.even.shape))
                      for s in hbf.hbf_dec_cascade_init(
                          depth, (c,), taps=taps, axis=0, device=CPU))
@@ -75,6 +80,9 @@ def _state(kernel, taps, depth, c, rng, scale=1.0):
 
 
 def _plain(kernel, states, xs, taps):
+    if kernel == "highest":  # K22 "highest": K7's cascade, the band order
+        return hbf_dec_cascade_mxu_plain(states, xs, taps=taps,
+                                         precision="highest")
     fn = (hbf_dec_cascade_bank_plain if kernel == "dec"
           else hbf_int_cascade_bank_plain)
     return fn(states, xs, taps=taps)
@@ -82,7 +90,7 @@ def _plain(kernel, states, xs, taps):
 
 def _out_rows(kernel, depth, n_in):
     """Output rows of n_in input rows."""
-    return n_in >> depth if kernel == "dec" else n_in << depth
+    return n_in >> depth if kernel != "int" else n_in << depth
 
 
 def _walk(kernel, plan, taps, depth, states, xs, rng):
@@ -153,13 +161,13 @@ def test_default_ranges_needs_a_card():
         default_ranges(2048, 512, CPU)
 
 
-@pytest.mark.parametrize("kernel", ["dec", "int"])
+@pytest.mark.parametrize("kernel", ["dec", "int", "highest"])
 @pytest.mark.parametrize("depth", DEPTHS)
 @pytest.mark.parametrize("tname", TAPS)
 def test_halo_warm_start_is_exact(kernel, depth, tname):
     taps = getattr(hbf, tname)
     rng = np.random.default_rng(80 + depth)
-    c, step = 4, (1 << depth if kernel == "dec" else 1)
+    c, step = 4, (1 << depth if kernel != "int" else 1)
     plan = _plan(kernel, taps, depth, 4096, 1)
     start = plan.halo + 3 * step  # a range start, one more step allowed
     xs = _f32(rng, (start + 8 * step, c))
@@ -216,3 +224,24 @@ def test_walk_by_ranges_equals_one_shot_and_jax(kernel, depth, tname):
     for s, js in zip(st, jst, strict=True):
         for a, b in zip(s, js, strict=True):
             _ulp_gate(a.numpy(), b)
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("tname", TAPS)
+def test_highest_walk_by_ranges_equals_one_shot(depth, tname):
+    """K22 "highest" walked as the kernel walks it (K7's plan) equals
+    its one-shot plain version bit for bit over two carried blocks, at
+    one range, a few, ranges shorter than the halo and one row each."""
+    taps = getattr(hbf, tname)
+    rng = np.random.default_rng(100 + depth)
+    c, t = 8, 2048
+    st0 = _state("highest", taps, depth, c, rng)
+    xs = [_f32(rng, (t, c)) for _ in range(2)]
+    rows = _plan("highest", taps, depth, t, 1).rows
+    for ranges in (1, 2, 5, rows // 8, rows):
+        plan = _plan("highest", taps, depth, t, ranges)
+        st, st_w = st0, st0
+        for x in xs:
+            st, y = _plain("highest", st, x, taps)
+            st_w, y_w = _walk("highest", plan, taps, depth, st_w, x, rng)
+            _equal((st_w, y_w), (st, y))

@@ -119,6 +119,7 @@ from idsp_tpu_torch.filters.normal_cuda import (
 )
 from idsp_tpu_torch.filters.rpll_cuda import rpll_bank, rpll_bank_plain
 from idsp_tpu_torch.filters.svf_cuda import svf_bank, svf_bank_plain
+from idsp_tpu_torch.filters import wdf_cuda
 from idsp_tpu_torch.filters.wdf_cuda import (
     WDF_MAX,
     wdf_bank,
@@ -983,6 +984,44 @@ def test_hbf_mxu_refused_launch_leaves_no_pending_error(cuda, precision):
            hbf_dec_cascade_mxu_plain(dec, x, precision="highest"))
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tname", ["HBF_TAPS", "HBF_TAPS_98"])
+@pytest.mark.parametrize("c", [200, 512, 1024])
+def test_hbf_dec_highest_walk_equals_plain(cuda, c, tname):
+    """K22 "highest" on K7's walk, depth 4, t = 8192 from a random state:
+    the default launch over 2 carried blocks, forced range counts (1, 7,
+    one output row a range) and chunks (64, 512, 256), and two half
+    blocks against one block, bit for bit with the plain version."""
+    taps = getattr(hbf, tname)
+    rng = np.random.default_rng(c + len(tname))
+    t = 8192
+    st = st_p = _mxu_states("dec", 4, c, taps, cuda, rng)
+
+    def rows():
+        return torch.from_numpy(rng.normal(size=(t, c)).astype(
+            np.float32)).to(cuda)
+
+    for _ in range(2):
+        x = rows()
+        got = hbf_dec_cascade_mxu(st, x, taps=taps, precision="highest")
+        want = hbf_dec_cascade_mxu_plain(st_p, x, taps=taps,
+                                         precision="highest")
+        torch.cuda.synchronize()
+        _equal(got, want)
+        for block, ranges in ((64, 1), (512, 7), (256, t >> 4)):
+            _equal(hbf_mxu._dec(st, x, taps, block, 32, "highest", ranges),
+                   want)
+        st, st_p = got[0], want[0]
+    x = rows()
+    whole = hbf_dec_cascade_mxu(st, x, taps=taps, precision="highest")
+    sa, ya = hbf_dec_cascade_mxu(st, x[:t // 2], taps=taps,
+                                 precision="highest")
+    sb, yb = hbf_dec_cascade_mxu(sa, x[t // 2:], taps=taps,
+                                 precision="highest")
+    torch.cuda.synchronize()
+    _equal((sb, torch.cat([ya, yb])), whole)
+
+
 # --- K24-K27: the Stabilizer IIR control path --------------------------------
 
 
@@ -1443,6 +1482,136 @@ def test_wdf_kernels_equal_plain(cuda, kind):
     _structure_hold(lambda s, x: kern(*args, s, x),
                     lambda s, x: plain(*args, s, x), st, make, t)
     assert kern.launches - launches == 5
+
+
+# K38-K40 at forced and default plans (`wdf_cuda.launch_plan`): (branches
+# as CA7 / CA19-style specs or "random", c, t, plan arguments)
+WDF_PLAN_CASES = {
+    "spec-X": ([[(0x1, 1, [0.0])]], 100, 300, {}),
+    "spec-A": ([[(0xA, 1, [0.8])]], 100, 300, {}),
+    "spec-DA": ([[(0xAD, 2, [-0.9, 0.9])]], 100, 300, {}),
+    "spec-CX": ([[(0x1C, 2, [-0.226119, 0.0])]], 100, 300, {}),
+    "spec-DX": ([[(0x1D, 2, [-0.602422, 0.0])]], 100, 300, {}),
+    "generic-ca7": (list(CA7), 100, 300, {"generic": True}),
+    "generic-ca19": (list(CA19), 100, 300, {"generic": True}),
+    "generic-24-stages": ([[(0xD, 1, [-0.8])] * 12] * 2, 64, 200, {}),
+    "generic-chain-D": ([[(0xD, 1, [-0.8]), (0xDA, 2, [0.9, -0.9])]], 64,
+                        200, {}),
+    "chunk5-ca19": (list(CA19), 100, 300, {"chunk": 5}),
+    "chunk1-depth1-ca7": (list(CA7), 100, 70, {"chunk": 1, "depth": 1}),
+    "chunk-edges-ca19": (list(CA19), 64, 193, {}),
+    "t1-ca19": (list(CA19), 100, 1, {}),
+    "t5-ca7": (list(CA7), 100, 5, {}),
+    "c37-ca19": (list(CA19), 37, 300, {}),
+    "c36-ca7": (list(CA7), 36, 300, {"chunk": 8}),
+    "unaligned-ca19": (list(CA19), 64, 300, {"unaligned": True}),
+    "random-0": ("random", 100, 300, {}),
+    "random-1": ("random", 100, 300, {"chunk": 7}),
+    "random-2": ("random", 64, 129, {}),
+}
+
+
+def _random_branches(rng):
+    """Two branches of 1-3 and 1-5 stages of 1-3 random adapters."""
+    g_of = {0xA: 0.7, 0xB: 0.3, 0xE: 0.2, 0xC: -0.3, 0xF: -0.45, 0xD: -0.8}
+    out = []
+    for most in (3, 5):
+        br = []
+        for _ in range(int(rng.integers(1, most + 1))):
+            tp = [wdf.Tpa(int(v)) for v in rng.choice(
+                [0xA, 0xB, 0xE, 0x1, 0xC, 0xF, 0xD, 0x0],
+                size=int(rng.integers(1, 4)))]
+            br.append((tp, wdf.quantize(tp, [g_of.get(int(v), 0.0)
+                                             for v in tp])))
+        out.append(br)
+    return out
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", sorted(WDF_PLAN_CASES))
+def test_wdf_plans_equal_plain(cuda, case):
+    """The stage-warp kernel (K38-K40's) at each specialised (N, M), the
+    generic loop (forced, or for stages outside the set), chunk edges, t
+    below a chunk, ragged and unaligned lanes (the 4-byte paths) and
+    random unequal pairs: 2 carried blocks from a random state against
+    the plain version, then one block against its halves, bit for bit."""
+    spec, c, t, kw = WDF_PLAN_CASES[case]
+    kw = dict(kw)
+    unaligned = kw.pop("unaligned", False)
+    rng = np.random.default_rng(sum(map(ord, case)))
+    branches = (_random_branches(rng) if spec == "random"
+                else [_wdf_stages(br) for br in spec])
+    plan = wdf_cuda.launch_plan([[tp for tp, _ in br] for br in branches],
+                                **kw)
+    if case.startswith("spec-"):
+        assert plan.kinds[0] > 0
+    if case.startswith("generic-"):
+        assert plan.kinds == (0,) * len(plan.kinds)
+
+    def rows(n):
+        x = _i32(rng, (n, c), device=cuda)
+        if not unaligned:
+            return x
+        buf = torch.zeros(n * c + 1, dtype=torch.int32, device=cuda)
+        buf[1:].view(n, c).copy_(x)
+        return buf[1:].view(n, c)
+
+    pair = len(branches) == 2
+    name = "wdf_pair_bank" if pair else "wdf_chain_bank"
+
+    def kern(sts, x, plan=plan):
+        new, ys = wdf_cuda._launch(name, branches, sts, x, plan=plan)
+        return (new, tuple(ys)) if pair else (new[0], ys[0])
+
+    def plain(sts, x):
+        if pair:
+            (s0, s1), ys = wdf_pair_bank_plain(branches[0], branches[1],
+                                               tuple(sts), x)
+            return [s0, s1], ys
+        return wdf_chain_bank_plain(branches[0], sts[0], x)
+
+    sts = [[wdf.WdfState(z=_i32(rng, (c, len(tp)), device=cuda))
+            for tp, _ in br] for br in branches]
+    for _ in range(2):
+        x = rows(t)
+        got, want = kern(sts, x), plain(sts, x)
+        torch.cuda.synchronize()
+        _same(got, want)
+        sts = got[0] if pair else [got[0]]
+    x = rows(t)
+    whole = kern(sts, x)
+    h = t // 2
+    first = kern(sts, x[:h].contiguous())
+    second = kern(first[0] if pair else [first[0]], x[h:].contiguous())
+    _same(second[0], whole[0])
+    if pair:
+        _same(tuple(torch.cat(p) for p in zip(first[1], second[1])),
+              whole[1])
+    else:
+        _same(torch.cat([first[1], second[1]]), whole[1])
+
+
+@pytest.mark.requires_cuda
+def test_wdf_refuses_bad_plans_and_leaves_no_pending_error(cuda):
+    """A plan the kernel cannot run -- shared memory not its own sum,
+    beyond a block's, or a stage claiming another stage's specialised
+    loop -- raises before any launch, and the next launch runs."""
+    c = 64
+    branches = [_wdf_stages(br) for br in CA7]
+    types = [[tp for tp, _ in br] for br in branches]
+    sts = [[wdf.init(len(tp), (c,), device=cuda) for tp, _ in br]
+           for br in branches]
+    x = torch.ones((64, c), dtype=torch.int32, device=cuda) << 20
+    good = wdf_cuda.launch_plan(types)
+    bad = [good._replace(smem=good.smem + 16),
+           wdf_cuda.launch_plan(types, chunk=256, depth=8),
+           good._replace(kinds=(3, 3, 3, 3))]  # [A] is not (2, 0xAD)
+    assert bad[1].smem > wdf_cuda.MAX_SMEM
+    for plan in bad:
+        with pytest.raises(RuntimeError):
+            wdf_cuda._launch("wdf_pair_bank", branches, sts, x, plan=plan)
+    (s0, s1), ys = wdf_pair_bank(*branches, tuple(sts), x)
+    _same(((s0, s1), ys), wdf_pair_bank_plain(*branches, tuple(sts), x))
 
 
 @pytest.mark.requires_cuda
