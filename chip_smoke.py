@@ -50,7 +50,11 @@ Phases, each reported on its own line:
    ``clamp=`` form at c=512 and K12's at c=1024 (d=16, time chunk 128),
    clamped with CLAMP, bit for bit, each plain call timed, with the share
    of DF1 outputs the clamp pinned (> 0); K19 once with the suite's clamp
-   row CLAMP_SUITE; K22 `hbf_dec_cascade_mxu` ((32768, 512) f32) and K23
+   row CLAMP_SUITE; K2, K3 (and its ``clamp=``), K19, K20 and K21 at the
+   shapes that stress their kernel's rings and tiles (t one kernel chunk,
+   t not a multiple of ring depth x chunk, c2 = 200 and 50, fine lengths
+   32 and 256 against the kernel's chunk, K19 with the clamp engaged,
+   HBF_TAPS_98 at depth 4, forced plans) over 2 blocks, bit for bit; K22 `hbf_dec_cascade_mxu` ((32768, 512) f32) and K23
    `hbf_int_cascade_mxu` ((2048, 512) f32), depth 4, with HBF_TAPS and
    HBF_TAPS_98 from a random carried state, at two (block, sub) tilings,
    bit for bit (K22 also at the forced range counts MXU_RANGES), and one
@@ -209,7 +213,9 @@ Phases, each reported on its own line:
    chain rates (every mode but ``scan`` with its busy share) at c=512
    and c=1024 and bank rates at c=1024, in c*t full-rate samples/s,
    t=32768 (K14, K18-K21 and K3's clamp form at c=512 and 1024, their
-   plain versions' times from phase 3; K11-K13, K12's clamp form and the
+   plain versions' times from phase 3; K2, K3, K19-K21 and K3's clamp
+   form also by their profiler spans, device ms a launch, and K2 beside
+   "K1 then K7", the two-kernel composition it fuses; K11-K13, K12's clamp form and the
    biquad bank's five modes at c=1024); K7-K10 and K22-K23 (also at
    their second tiling; K7, K8, K22 and K23 also by their profiler
    spans, device ms a launch, and K7/K8 so at the chunks of HBF_CHUNKS
@@ -315,8 +321,8 @@ HBF_RANGE_CASES = ((1, 200, 3, "HBF_TAPS_98"), (2, C_RATE, 1, "HBF_TAPS"),
 HBF_CHUNKS = {"hbf_dec_cascade_bank": (128, 256, 512),
               "hbf_int_cascade_bank": (16, 32, 64)}
 HBF_BLOCKS_PER_SM = (1, 2, 4, 8)
-# the device symbols of the half-band cascade, channelizer and WDF kernels,
-# for their device time
+# the device symbols of the half-band cascade, channelizer, WDF and fused
+# DDC-cascade kernels, for their device time
 DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "hbf_int_cascade_bank": "hbf_int_cascade_kernel",
                   "hbf_dec_cascade_mxu": "hbf_dec_mma_kernel",
@@ -330,7 +336,13 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "wdf_bank": "wdf_pipeline_kernel",
                   "wdf_chain_bank": "wdf_pipeline_kernel",
                   "wdf_pair_bank": "wdf_pipeline_kernel",
-                  "wdf_pair_bank_ca7": "wdf_pipeline_kernel"}
+                  "wdf_pair_bank_ca7": "wdf_pipeline_kernel",
+                  "df1_hbf_cascade_bank": "ddc_cascade_kernel",
+                  "fastlo_ddc_cascade_bank": "ddc_cascade_kernel",
+                  "df1_clamp_hbf_cascade_bank": "ddc_cascade_kernel",
+                  "df1_hbf1_bank": "ddc_cascade_kernel",
+                  "df1_hbf12_bank": "ddc_cascade_kernel",
+                  "fastlo_ddc_cascade_bank_clamp": "ddc_cascade_kernel"}
 # The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
 # the chain's mixed stream the 0.02 lowpass output peaks near 2.6e7, under
 # the 2^26 bound of tests/test_biquad_pallas.py:896, so that bound never
@@ -1617,6 +1629,134 @@ def check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank):
                                              err)
     log(f"phase 3 K19 with the suite's clamp {CLAMP_SUITE} == plain on one "
         f"block (c={c}, t={T}): max |d| {err}")
+
+
+def check_cascade_edges(dev, i32, errs, ba):
+    """Phase 3 for K2, K3 (and its ``clamp=``), K19, K20 and K21 at the
+    shapes that stress the kernel's rings and tiles (csrc/ddc_cascade.cu):
+    t equal to one kernel chunk, t not a multiple of ring depth x chunk,
+    c2 not a multiple of the lane tile (200; 50, whose rows the producer
+    copies 4 bytes at a time), K3 with fine lengths other than the
+    kernel's chunk, K19 with the clamp engaged, HBF_TAPS_98 at depth 4, and
+    forced plans (small chunks, two slots, 8 and 16 warps);
+    each over 2 carried blocks against its plain version, tolerance 0 (into
+    errs under the kernel's own name)."""
+    import torch
+    from idsp_tpu_torch.filters import biquad
+    from idsp_tpu_torch.filters.ddc_cuda import (
+        df1_clamp_hbf_cascade_bank, df1_clamp_hbf_cascade_bank_plain,
+        df1_hbf1_bank, df1_hbf1_bank_plain, df1_hbf12_bank,
+        df1_hbf12_bank_plain, df1_hbf_cascade_bank,
+        df1_hbf_cascade_bank_plain, fastlo_ddc_cascade_bank,
+        fastlo_ddc_cascade_bank_plain, launch_plan,
+    )
+    from idsp_tpu_torch.filters.hbf import HBF_TAPS, HBF_TAPS_98
+
+    chain = (HBF_TAPS[2], HBF_TAPS[1], HBF_TAPS[0])
+    t98 = tuple(HBF_TAPS_98[3 - d] for d in range(4))
+    u, lo, hi = CLAMP
+
+    def start(taps, c2):
+        st = biquad.Df1State(x=i32((c2, 2), -(2**26), 2**26),
+                             y=i32((c2, 2), -(2**26), 2**26))
+        tails = tuple(torch.from_numpy(np.random.default_rng(c2).normal(
+            0, 1e6, (3 * len(tv) - 2, c2)).astype(np.float32)).to(dev)
+            for tv in taps)
+        return st, tails
+
+    def hold(label, name, taps, c2, t, kern, plain, blocks=2):
+        st, tails = start(taps, c2)
+        ps, pt = st, tails
+        err = 0.0
+        for _ in range(blocks):
+            xs = i32((t, c2), -(2**27), 2**27)
+            got, want = kern(st, tails, xs), plain(ps, pt, xs)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"{name} ({label})", got, want))
+            st, tails = got[0], got[1]
+            ps, pt = want[0], want[1]
+        errs[name] = max(errs.get(name, 0.0), err)
+        return err
+
+    def k2(taps, plan=None):
+        tc = 1 << len(taps)  # checked, and no other use: the plan's chunk
+        return (lambda s, tl, xs: df1_hbf_cascade_bank(
+                    ba, s, tl, xs, 29, taps=taps, time_chunk=tc, _plan=plan),
+                lambda s, tl, xs: df1_hbf_cascade_bank_plain(
+                    ba, s, tl, xs, 29, taps=taps))
+
+    def plan(c2, **kw):
+        return launch_plan([5, 10, 23], c2, **kw)
+
+    name = "df1_hbf_cascade_bank"
+    for label, taps, c2, t, p in (
+            ("t = one chunk", chain, 2 * C_MAIN, 128, None),
+            ("t = 7 chunks + 40 rows", chain, 2 * C_MAIN, 7 * 128 + 40, None),
+            ("c2 = 200", chain, 200, 1024, None),
+            ("c2 = 50, 4-byte copies", chain, 50, 520, None),
+            ("t = 8", chain, 64, 8, None),
+            ("HBF_TAPS_98 depth 4", t98, 256, 2048, None),
+            ("chunk 24, 2 slots", chain, 96, 24 * 9, plan(96, chunk=24,
+                                                          ring=2)),
+            ("8 warps", chain, 200, 1024, plan(200, warps=8)),
+            ("16 warps, chunk 256, 2 slots", chain, 256, 2048,
+             plan(256, warps=16, chunk=256, ring=2))):
+        hold(label, name, taps, c2, t, *k2(taps, p))
+    name = "df1_clamp_hbf_cascade_bank"
+    c2, t = 200, 7 * 128 + 40
+    st, _ = start(chain, c2)
+    xs = i32((t, c2), -(2**27), 2**27)
+    _, ys = biquad.df1_clamp_process_q(ba, 29, st, xs, u=u, lo=lo, hi=hi)
+    share = pinned(ys, CLAMP)
+    if share <= 0:
+        raise AssertionError("K19 edge check: the clamp never engaged")
+    hold("c2 = 200, t = 7 chunks + 40 rows", name, chain, c2, t,
+         lambda s, tl, xs: df1_clamp_hbf_cascade_bank(
+             ba, s, tl, xs, 29, u=u, lo=lo, hi=hi, time_chunk=8),
+         lambda s, tl, xs: df1_clamp_hbf_cascade_bank_plain(
+             ba, s, tl, xs, 29, u=u, lo=lo, hi=hi))
+    hold("c2 = 200, t = 936", "df1_hbf1_bank", chain[:1], 200, 936,
+         lambda s, tl, xs: (lambda r: (r[0], (r[1],), r[2]))(
+             df1_hbf1_bank(ba, s, tl[0], xs, 29, time_chunk=8)),
+         lambda s, tl, xs: (lambda r: (r[0], (r[1],), r[2]))(
+             df1_hbf1_bank_plain(ba, s, tl[0], xs, 29)))
+    hold("c2 = 200, t = 936", "df1_hbf12_bank", chain[:2], 200, 936,
+         lambda s, tl, xs: (lambda r: (r[0], r[1:3], r[3]))(
+             df1_hbf12_bank(ba, s, *tl, xs, 29, time_chunk=8)),
+         lambda s, tl, xs: (lambda r: (r[0], r[1:3], r[3]))(
+             df1_hbf12_bank_plain(ba, s, *tl, xs, 29)))
+    # K3: the fine length (time_chunk) against the kernel's chunk of 128
+    for tc, c2, t, clamp, p in ((32, 200, 960, None, None),
+                                (256, 2 * C_MAIN, 1280, None, None),
+                                (32, 200, 960, CLAMP, None),
+                                (128, 96, 1024, None,
+                                 plan(96, fastlo=True, chunk=64, ring=2))):
+        nm = ("fastlo_ddc_cascade_bank" if clamp is None
+              else "fastlo_ddc_cascade_bank_clamp")
+        st, tails = start(chain, c2)
+        ps, pt = st, tails
+        ph = i32((c2 // 2,))
+        steps = i32((c2 // 2,), 1 << 24, 1 << 30)
+        pph = ph
+        err = 0.0
+        for _ in range(2):
+            x = i32((t,), -(2**27), 2**27)
+            got = fastlo_ddc_cascade_bank(ba, st, tails, ph, steps, x, 29,
+                                          clamp=clamp, time_chunk=tc,
+                                          _plan=p)
+            want = fastlo_ddc_cascade_bank_plain(ba, ps, pt, pph, steps, x,
+                                                 29, clamp=clamp,
+                                                 time_chunk=tc)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"{nm} (time_chunk {tc}, c2 = {c2})",
+                                   got, want))
+            st, tails, ph = got[0], got[1], got[2]
+            ps, pt, pph = want[0], want[1], want[2]
+        errs[nm] = max(errs.get(nm, 0.0), err)
+    log(f"phase 3 K2, K3 (and clamp=), K19-K21 at the ring and tile edges "
+        f"== plain over 2 blocks each (t = one chunk, t = 7 chunks + 40, "
+        f"c2 = 200 and 50, fine lengths 32 and 256, HBF_TAPS_98 depth 4, "
+        f"forced plans; K19's clamp pinned {share:.4%} of the DF1 outputs)")
 
 
 def check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba):
@@ -3953,7 +4093,9 @@ def main():
         fastlo_ddc_bank_block_lp_plain, fastlo_ddc_bank_block_plain,
         fastlo_df1_dec_bank, fastlo_df1_dec_bank_plain,
     )
-    from idsp_tpu_torch.filters.hbf import hbf_dec_cascade
+    from idsp_tpu_torch.filters.hbf import (
+        HBF_TAPS, hbf_dec_cascade, hbf_dec_cascade_init,
+    )
     from idsp_tpu_torch.filters.lowpass_cuda import (
         lowpass_bank, lowpass_bank_plain,
     )
@@ -4123,6 +4265,7 @@ def main():
     check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba)
     check_slice5_kernels(dev, rng, errs)
     check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank)
+    check_cascade_edges(dev, i32, errs, ba)
     check_control_kernels(dev, i32, i64, errs, plain_s)
     check_precision_kernels(dev, rng, errs, plain_s)
     check_structure_kernels(dev, rng, errs, plain_s)
@@ -4397,10 +4540,27 @@ def main():
         for name, (kern, plain) in cases.items():
             k_s, _ = measure_rate(kern, st, iters=20, trials=3)
             p_s, _ = measure_rate(plain, st, **ONCE)
-            timings["kernels"].setdefault(name, {})[c] = {
+            entry = timings["kernels"].setdefault(name, {})[c] = {
                 "ms": k_s * 1e3, "plain_ms": p_s * 1e3}
-            log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
-                f"{p_s * 1e3:.2f} ms  [{card}]")
+            note = ""
+            if name in DEVICE_SYMBOLS:
+                entry["device_ms"] = launch_device_ms(name, kern, st)
+                note = f", device {entry['device_ms']} ms a launch"
+            log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms{note}, "
+                f"plain {p_s * 1e3:.2f} ms  [{card}]")
+        # the two-kernel composition K2 fuses: K1 (f32 out), then K7 on the
+        # chain's three stages, on K2's input
+        dec3 = hbf_dec_cascade_init(3, (c2,), axis=0, device=dev)
+
+        def k1_then_k7(s):
+            s1, y = df1_bank_q(ba, s, xs, 29, out_dtype=torch.float32)
+            return s1, hbf_dec_cascade_bank(dec3, y, taps=HBF_TAPS[:3])
+
+        k_s, _ = measure_rate(k1_then_k7, st, iters=20, trials=3)
+        k2_t = timings["kernels"]["df1_hbf_cascade_bank"][c]
+        k2_t["k1_then_k7_ms"] = k_s * 1e3
+        log(f"phase 6 c={c} K1 then K7 (the composition K2 fuses): "
+            f"{k_s * 1e3:.4f} ms; K2 {k2_t['ms']:.4f} ms  [{card}]")
         # K18-K21 and K3's clamp form; their plain versions were timed in
         # phase 3 (c = C_MAIN)
         u, lo, hi = CLAMP
@@ -4420,8 +4580,12 @@ def main():
             entry = {"ms": k_s * 1e3}
             if c == C_MAIN:
                 entry["plain_ms"] = plain_s[name] * 1e3
+            if name in DEVICE_SYMBOLS:
+                entry["device_ms"] = launch_device_ms(name, kern, st)
             timings["kernels"].setdefault(name, {})[c] = entry
             log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms"
+                + (f", device {entry['device_ms']} ms a launch"
+                   if "device_ms" in entry else "")
                 + (f", plain {entry['plain_ms']:.2f} ms (phase 3)"
                    if c == C_MAIN else "") + f"  [{card}]")
         # the plain layers around the kernels in the split/fold3 modes

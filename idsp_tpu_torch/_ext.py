@@ -55,7 +55,7 @@ _SIGNATURES = {
     "idsp_df1_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P],
     "idsp_df1_dither_bank": [_P] * 8 + [_I] * 12 + [_P],
     "idsp_df1_dither_bank_coef": [_P] * 9 + [_I] * 7 + [_P],
-    "idsp_ddc_cascade": [_P] * 13 + [_I] * 14 + [_P, _P, _P],
+    "idsp_ddc_cascade": [_P] * 13 + [_I] * 14 + [_P, _P] + [_I] * 5 + [_P],
     "idsp_ddc_mix_df1": [_P] * 8 + [_I] * 9 + [_P],
     "idsp_lowpass_bank": [_P] * 4 + [_I] * 6 + [_P],
     "idsp_pll_bank": [_P] * 4 + [_I] * 5 + [_P],

@@ -1,19 +1,23 @@
-"""Time K1, K6, K7, K8, K17, K22 "highest" and K38-K40 of two checkouts
-of the port in turns, in one process.
+"""Time K1, K2, K3, K6, K7, K8, K17, K19, K22 "highest" and K38-K40 of
+two checkouts of the port in turns, in one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
     python3 -m idsp_tpu_torch.ab_time PARENT_ROOT CHANGE_ROOT [--only A,B]
 
 ``--only`` keeps the kernels whose name contains one of the given
-substrings (e.g. ``--only highest,wdf``).
+substrings (e.g. ``--only highest,wdf``; K2, K3, K19: ``--only
+df1_hbf,fastlo_ddc_cascade,df1_clamp``).
 
 Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
 loaded under a name of its own, so both live in this process, and each
 builds its kernels into its own ``build/``.  One set of inputs, made from
 a seed, goes to both: K1 `df1_bank_q` (f32 out) at c = 512 and 1024
 channels (2c I|Q lanes, t = 32768, as `chip_smoke.py` phase 6 times it),
-K6 `fastlo_ddc_bank_block_lp` at c = 1024 (d = 16, time chunk 128), and
+K2 `df1_hbf_cascade_bank` on the same xs and K3
+`fastlo_ddc_cascade_bank` (x, a zero phase, the K6 steps) at c = 512 and
+1024 and K19 `df1_clamp_hbf_cascade_bank` (clamp (2^10, +-2^23)) at
+c = 512 (the chain's taps (5, 10, 23), zero state, time chunk 128), K6 `fastlo_ddc_bank_block_lp` at c = 1024 (d = 16, time chunk 128), and
 K7 `hbf_dec_cascade_bank` on (32768, c) and K8 `hbf_int_cascade_bank` on
 (2048, c) f32 at c = 512 and 1024 (depth 4, `HBF_TAPS`, zero state, each
 tree's default chunk and launch shape), and K17 `channelize_fused` at
@@ -87,6 +91,7 @@ def cases(alias: str, dev, inputs):
         "design", "filters.biquad", "filters.biquad_cuda", "filters.lowpass",
         "filters.pll", "filters.ddc_bank_cuda", "filters.hbf",
         "filters.hbf_cuda", "filters.hbf_mxu", "filters.wdf",
+        "filters.ddc_cuda",
         "filters.wdf_cuda", "pipelines.channelizer",
         "pipelines.channelizer_cuda")}
     biquad, lowpass, pll = (sub["filters.biquad"], sub["filters.lowpass"],
@@ -104,6 +109,25 @@ def cases(alias: str, dev, inputs):
         out[f"df1_bank_q c={c}"] = (
             lambda st=st, xs=xs: df1_bank_q(ba, st, xs, 29,
                                             out_dtype=torch.float32))
+    ddc = sub["filters.ddc_cuda"]
+    for c in (512, 1024):
+        st = biquad.df1_init((2 * c,), device=dev)
+        tails = tuple(ddc.hbf1_tail_init(2 * c, m, device=dev)
+                      for m in (5, 10, 23))
+        xs = inputs[f"xs{c}"]
+        out[f"df1_hbf_cascade_bank c={c}"] = (
+            lambda st=st, tails=tails, xs=xs: ddc.df1_hbf_cascade_bank(
+                ba, st, tails, xs, 29, time_chunk=TC))
+        out[f"fastlo_ddc_cascade_bank c={c}"] = (
+            lambda st=st, tails=tails, c=c: ddc.fastlo_ddc_cascade_bank(
+                ba, st, tails, inputs["ph0"][:c], inputs["steps"][:c],
+                inputs["x"], 29, time_chunk=TC))
+        if c == 512:
+            out[f"df1_clamp_hbf_cascade_bank c={c}"] = (
+                lambda st=st, tails=tails, xs=xs:
+                ddc.df1_clamp_hbf_cascade_bank(
+                    ba, st, tails, xs, 29, u=1 << 10, lo=-(1 << 23),
+                    hi=1 << 23, time_chunk=TC))
     lp0 = lowpass.init(2, (2048,), device=dev)
     pll0 = pll.init((1024,), device=dev)
     out["fastlo_ddc_bank_block_lp c=1024"] = lambda: k6(

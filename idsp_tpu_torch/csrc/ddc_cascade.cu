@@ -9,139 +9,443 @@
 // K21), `df1_clamp_hbf_cascade_bank` (:834, body `_iir_df1_clamp_body`
 // :273; K19, Clamp = true) and `fastlo_ddc_cascade_bank` (:1298, mix
 // prologue `_fastlo_mix_chunk` :487; K3, FastLo = true, with Clamp = true
-// for its `clamp=`).  On the TPU the grid walked time chunks in
-// order and kept the state and tails in VMEM scratch between steps;
-// here a block owns kHbfLanes lanes for the whole block of time and walks
-// the chunks in a loop, the state in registers and the parity buffers
-// and tails in shared memory.
+// for its `clamp=`).  On the TPU the grid walked time chunks in order and
+// kept the state and tails in VMEM scratch between steps; here a block
+// owns a tile of lanes for the whole block of time.
 //
-// Per chunk of tc rows and per lane (one thread):
-//  1. (K3) mix: lo = coarse[chunk] * fine[row], x scaled by AMPLITUDE,
-//     rounded half away from zero to i32 (fastlo.cuh, shared with K6);
-//  2. the DF1 step (with Clamp, offset and clamp before feedback:
-//     df1.cuh `Df1Clamp`); its f32 output goes to stage 0's parity buffers:
-//     even rows behind the m-1 carried even-tail rows, odd rows behind
-//     the 2m-1 carried odd-tail rows (ddc_pallas.py:613-617);
-//  3. each FIR stage over the chunk and the tails' move to the front
-//     of their buffers: the stage loop of hbf_stage.cuh.
+// What bounds them on the H100: the DF1 recurrence, serial in time in
+// each lane.  Its loop-carried chain is one 64-bit multiply-add and the
+// shift (df1.cuh `output_y1_last`; with Clamp an add, a max and a min
+// more), the rest of a row's products off the chain; as compiled, the
+// add is a carry pair and the warp takes ~40 cycles a row (K20, K21).
+// The device memory traffic is small (K2 reads 4 B per full-rate sample
+// and lane and writes 4 B per 2^depth; K3 reads x (t,) and the factor
+// tables), and the FIR stages (three f32 operations a tap and output
+// row) are parallel across rows, but with a barrier a stage their warps
+// set K2's pace at the chain's taps (PERF.md §6).
 //
-// Numerics: every f32 operation is one __f*_rn intrinsic, in the order
-// of the plain PyTorch version, so nvcc cannot contract a*b - c*d into
-// an FMA and the kernel matches the eagerly-evaluated plain version bit
-// for bit.  The DF1 is the exact int64 recurrence of df1.cuh.
+// What the design does (the host's plan: filters/ddc_cuda.py
+// `launch_plan`, which the entry point checks):
 //
-// What bounds it on the H100: as for K1, the serial DF1 recurrence of
-// each lane (one thread per lane, 2c lanes in all), now with the FIR
-// work of the chunk added to the same thread (with Clamp, an add, a max
-// and a min more on the serial chain of each step).  The device memory
-// traffic is small: K2 reads 4 B per full-rate sample and lane and
-// writes 4 B per eighth; K3 reads only x (t,) and the small factor
-// tables.  The FIR stages read shared memory only.
+// * A block is one tile of kLanes lanes and warps with roles (a tile of
+//   16 lanes, each warp's upper half idle, measured no faster: PERF.md
+//   §6).  Warp 0 runs the DF1 of every lane of the tile over the whole
+//   block of time, its state in registers,
+//   reading its input rows from shared memory only and touching device
+//   memory only for the state at each end.  The other warps on its
+//   scheduler (warp % 4 == 0) exit at once, so that no warp competes with
+//   its issue.  Of the rest, in order, `producers` warps feed it (K2:
+//   cp.async of the xs rows; K3: the fast-LO mix and its rounding,
+//   fastlo.cuh) and the others are the FIR warps.
+// * Chunks of `chunk` rows pass through two rings of `depth` slots, each
+//   slot with a full and an empty mbarrier (chunk q uses slot q % depth
+//   at parity (q / depth) & 1, hopper.cuh `Cursor`): the producers' int32
+//   input ring, and stage 0's f32 buffer, whose slots lie one after
+//   another behind stage 0's 4m-3 carried rows, so that a chunk's stage-0
+//   input is contiguous with the rows before it: the previous slot's or,
+//   at slot 0, the carried rows, which the FIR warps move there from the
+//   last slot.  The FIR warps release a slot after stage 0 of the next
+//   chunk, which reads the slot's last rows.
+// * The FIR warps take each chunk through the stages with hbf_tile.cuh's
+//   `dec_stage` (K7's stage code), output rows dealt round robin in
+//   groups, a named barrier between stages (the DF1 and producer warps
+//   never wait on it); stages d >= 1 in K7's layout (4m-3 carried rows in
+//   front of the chunk's rows, moved to the front after each chunk); the
+//   last stage writes y rows straight from registers, a 128-byte row a
+//   warp.
 //
-// What the design does about it: everything between the input and the
-// 1/2^depth-rate output stays on chip; each thread reads and writes
-// only its own lane's column of shared memory (lane-contiguous rows, so
-// no bank conflicts and no block-wide barrier).  Splitting a lane's FIR
-// rows over several threads, and more lanes per SM, are later work.
+// Numerics: the DF1 is df1.cuh's exact int64 recurrence, the mix
+// fastlo.cuh's, the stages hbf_tile.cuh's single-rounding f32 sums in the
+// plain version's order: the kernel equals the plain versions bit for
+// bit, and neither its chunk nor its ring depth nor its lane tile changes
+// a value.  K3's fine table has the caller's length tc: row r mixes with
+// coarse[r / tc] and fine[r % tc], whatever the kernel's chunk.
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 #include "df1.cuh"
 #include "fastlo.cuh"
-#include "hbf_stage.cuh"
+#include "hbf_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using idsp::kHbfLanes;
+using idsp::sm90::bar_sync;
+using idsp::sm90::cp_async16;
+using idsp::sm90::cp_async4;
+using idsp::sm90::cp_async_arrive;
+using idsp::sm90::cp_async_wait_all;
+using idsp::sm90::Cursor;
+using idsp::sm90::mbar_arrive;
+using idsp::sm90::mbar_init;
+using idsp::sm90::mbar_wait;
+using idsp::sm90::smem_addr;
+using idsp::tile::kLanes;
+using idsp::tile::Taps;
 
-struct CascadeParams {
+constexpr int kMaxSmem = 232448;  // bytes a block may have
+constexpr int kMaxWarps = 16;     // warps of a block
+constexpr int kMinFir = 4;        // FIR warps of a block, at least
+constexpr int kMaxProducers = 4;
+constexpr uint32_t kFirBarrier = 1;  // the FIR warps' named barrier
+constexpr int kGroup = 8;  // DF1 rows whose inputs are read a group ahead
+
+// A launch's arguments (a kernel parameter).
+struct Args {
+  const int32_t* xs;  // K2: (t, c2) DF1 input
+  const int32_t* x;   // K3: (t,) wideband input
+  const float *ca, *sa, *cb, *sb;  // K3: coarse (t/tc, c), fine (tc, c)
+  const int32_t *sx, *sy;
+  int32_t *sx_out, *sy_out;
+  const float* tails_in;
+  float* tails_out;
+  float* y;
+  int t, c2, tc, warps, producers, chunk, ring, vec;
   idsp::Df1Coefs k;
   idsp::Df1Clamp cl;
-  idsp::HbfTaps h;
 };
 
-template <bool FastLo, bool Clamp>
-__global__ void __launch_bounds__(kHbfLanes) ddc_cascade_kernel(
-    const int32_t* __restrict__ xs, const int32_t* __restrict__ x,
-    const float* __restrict__ ca, const float* __restrict__ sa,
-    const float* __restrict__ cb, const float* __restrict__ sb,
-    const int32_t* __restrict__ sx, const int32_t* __restrict__ sy,
-    int32_t* __restrict__ sx_out, int32_t* __restrict__ sy_out,
-    const float* __restrict__ tails_in, float* __restrict__ tails_out,
-    float* __restrict__ y, int t, int c2, int tc, CascadeParams p) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int lane = blockIdx.x * kHbfLanes + tid;
-  if (lane >= c2) return;  // no block-wide barrier below
+// FIR warps of a block: every warp not on the DF1 warp's scheduler
+// (warp % 4 != 0), less the producers.
+__host__ __device__ inline int fir_warps(int warps, int producers) {
+  return warps - warps / 4 - producers;
+}
 
-  float* col = smem + tid;
-  int odd_off[idsp::kHbfMaxDepth], even_off[idsp::kHbfMaxDepth];
-  idsp::hbf_dec_offsets(p.h, tc, odd_off, even_off);
-  idsp::hbf_dec_tails<true>(p.h, col, odd_off, even_off, tails_in, c2,
-                            lane);
+// The FIR buffers in shared memory, in rows of kLanes floats: stage 0 its
+// 4m-3 carried rows then `depth` slots of `chunk` rows; stage d >= 1 its
+// 4m-3 carried rows then chunk >> d rows.  The depth is a template
+// argument, so that these per-stage numbers live in registers.
+template <int D>
+struct Layout {
+  int off[D], carry[D];
+  int rows;
 
-  idsp::Df1Lane s;
-  s.load(sx, sy, lane);
-  const idsp::Df1Coefs k = p.k;
-  const idsp::Df1Clamp cl = p.cl;
-  auto df1 = [&](int32_t x) {
-    if constexpr (Clamp) {
-      return s.step_clamp(k, cl, x);
-    } else {
-      return s.step(k, x);
+  __host__ __device__ Layout(const Taps& p, int chunk, int depth) : rows(0) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      carry[d] = 4 * p.m[d] - 3;
+      off[d] = rows;
+      rows += carry[d] + (d == 0 ? depth * chunk : chunk >> d);
     }
-  };
+  }
+};
 
-  // fast-LO lane geometry: I lanes [0, c), Q lanes [c, 2c)
-  const int c = c2 / 2;
+// Dynamic shared memory: the rings' mbarriers (32 bytes a slot), the
+// input ring (depth slots of chunk rows of kLanes int32), the FIR buffers
+// (`rows` rows of kLanes floats).
+__host__ __device__ inline size_t smem_bytes(int rows, int chunk,
+                                             int depth) {
+  return 32 * static_cast<size_t>(depth) +
+         (static_cast<size_t>(depth) * chunk + rows) * kLanes * 4;
+}
+
+// Slot k's barriers: the input ring's full and empty, stage 0's full and
+// empty; and the input ring's slots.
+struct Rings {
+  uint32_t bars;
+  int32_t* in;
+  int chunk;
+
+  __device__ uint32_t full_in(int k) const { return bars + 32 * k; }
+  __device__ uint32_t empty_in(int k) const { return bars + 32 * k + 8; }
+  __device__ uint32_t full0(int k) const { return bars + 32 * k + 16; }
+  __device__ uint32_t empty0(int k) const { return bars + 32 * k + 24; }
+  __device__ int32_t* in_slot(int k) const {
+    return in + static_cast<size_t>(k) * chunk * kLanes;
+  }
+};
+
+// The FIR warps as a hbf_tile.cuh team: rank of count, a named barrier.
+struct FirTeam {
+  static constexpr int kMin = kMinFir;
+  int rank, count;
+  __device__ __forceinline__ int id() const { return rank; }
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ void sync() const {
+    bar_sync(kFirBarrier, count * kLanes);
+  }
+};
+
+// K2's producer: the chunk's xs rows into the input ring through cp.async,
+// each lane's copies arriving on the slot's full barrier when they land:
+// 16 bytes a thread (8 threads a row, 4 rows a warp) where a.vec, else 4
+// bytes (its lane, every row).
+__device__ __forceinline__ void load(const Args& a, const Rings& R, int lid,
+                                     int lane, bool live) {
+  const size_t c = static_cast<size_t>(a.c2);
+  const int l4 = 4 * (lid % 8), lane4 = lane - lid + l4;
+  Cursor u;
+  for (int r0 = 0; r0 < a.t; r0 += a.chunk, u.next(a.ring)) {
+    const int rows = min(a.chunk, a.t - r0);
+    mbar_wait(R.empty_in(u.k), u.ph ^ 1);
+    const uint32_t slot = smem_addr(R.in_slot(u.k));
+    const int32_t* src = a.xs + static_cast<size_t>(r0) * c;
+    if (a.vec) {
+      if (lane4 < a.c2)
+        for (int r = lid / 8; r < rows; r += 4)
+          cp_async16(slot + 4 * (r * kLanes + l4), src + r * c + lane4);
+    } else if (live) {
+      for (int r = 0; r < rows; ++r)
+        cp_async4(slot + 4 * (r * kLanes + lid), src + r * c + lane);
+    }
+    cp_async_arrive(R.full_in(u.k));
+  }
+  cp_async_wait_all();
+}
+
+// K3's producer pw of P: the mixed rows pw, pw + P, ... of each chunk
+// into the input ring (I lanes [0, c), Q lanes [c, 2c)).  Row r mixes with
+// the coarse factor of r / tc and the fine factor of r % tc, counted as
+// the rows advance (P <= tc and chunk % P == 0: a producer's rows are the
+// rows = pw mod P of the block).  kMix rows at a time, every load of the
+// batch issued before any product, so that their latencies overlap.
+constexpr int kMix = 8;
+__device__ __forceinline__ void mix(const Args& a, const Rings& R, int pw,
+                                    int lid, int lane, bool live) {
+  const int P = a.producers, c = a.c2 / 2;
   const bool is_q = lane >= c;
-  const int ch = is_q ? lane - c : lane;
-
-  float* odd0 = col + (odd_off[0] + 2 * p.h.m[0] - 1) * kHbfLanes;
-  float* even0 = col + (even_off[0] + p.h.m[0] - 1) * kHbfLanes;
-  const int nchunks = t / tc;
-  const int nout = tc >> p.h.depth;
-  for (int q = 0; q < nchunks; ++q) {
-    float cav = 0.0f, sav = 0.0f;
-    if constexpr (FastLo) {
-      cav = __ldg(ca + static_cast<size_t>(q) * c + ch);
-      sav = __ldg(sa + static_cast<size_t>(q) * c + ch);
-    }
-    // the DF1 input of chunk row u
-    auto input = [&](int u) -> int32_t {
-      const int row = q * tc + u;
-      if constexpr (FastLo) {
-        const float xh = idsp::fastlo_scale(__ldg(x + row));
-        const float cbv = __ldg(cb + static_cast<size_t>(u) * c + ch);
-        const float sbv = __ldg(sb + static_cast<size_t>(u) * c + ch);
-        // one product and one rounding per lane: a select the compiler
-        // can if-convert, so the unrolled rows stay one basic block
-        float v;
-        if (is_q) {
-          v = idsp::fastlo_prod_q(cav, sav, cbv, sbv, xh);
-        } else {
-          v = idsp::fastlo_prod_i(cav, sav, cbv, sbv, xh);
-        }
-        return idsp::fastlo_round(v);
-      } else {
-        return __ldg(xs + static_cast<size_t>(row) * c2 + lane);
+  const size_t ch = static_cast<size_t>(is_q ? lane - c : lane);
+  int cq = 0, fr = pw;
+  Cursor u;
+  for (int r0 = 0; r0 < a.t; r0 += a.chunk, u.next(a.ring)) {
+    const int rows = min(a.chunk, a.t - r0);
+    mbar_wait(R.empty_in(u.k), u.ph ^ 1);
+    int32_t* s = R.in_slot(u.k) + lid;
+    for (int r = pw; r < rows; r += P * kMix) {
+      float xh[kMix], cav[kMix], sav[kMix], cbv[kMix], sbv[kMix];
+#pragma unroll
+      for (int v = 0; v < kMix; ++v) {
+        const int rv = r + v * P;
+        const bool in = live && rv < rows;
+        const size_t co = static_cast<size_t>(cq) * c + ch;
+        const size_t fo = static_cast<size_t>(fr) * c + ch;
+        xh[v] = idsp::fastlo_scale(in ? __ldg(a.x + r0 + rv) : 0);
+        cav[v] = in ? __ldg(a.ca + co) : 0.f;
+        sav[v] = in ? __ldg(a.sa + co) : 0.f;
+        cbv[v] = in ? __ldg(a.cb + fo) : 0.f;
+        sbv[v] = in ? __ldg(a.sb + fo) : 0.f;
+        const int step = rv < rows ? P : 0;  // the next row of this producer
+        const bool wrap = fr + step >= a.tc;
+        fr = wrap ? fr + step - a.tc : fr + step;
+        cq += wrap;
       }
-    };
-#pragma unroll 4
-    for (int u = 0; u < tc; u += 2) {
-      even0[(u >> 1) * kHbfLanes] = static_cast<float>(df1(input(u)));
-      odd0[(u >> 1) * kHbfLanes] = static_cast<float>(df1(input(u + 1)));
+#pragma unroll
+      for (int v = 0; v < kMix; ++v) {
+        const int rv = r + v * P;
+        if (rv < rows)
+          s[rv * kLanes] = idsp::fastlo_round(
+              is_q ? idsp::fastlo_prod_q(cav[v], sav[v], cbv[v], sbv[v], xh[v])
+                   : idsp::fastlo_prod_i(cav[v], sav[v], cbv[v], sbv[v],
+                                         xh[v]));
+      }
     }
-    float* yq = y + static_cast<size_t>(q) * nout * c2 + lane;
-    idsp::hbf_dec_stages(p.h, col, odd_off, even_off, tc, [&](int j, float v) {
-      yq[static_cast<size_t>(j) * c2] = v;
-    });
+    mbar_arrive(R.full_in(u.k));
+  }
+}
+
+// The DF1 warp's rows of one chunk, input slot x -> stage-0 slot y (this
+// lane's columns): in groups of kGroup rows, each group's inputs read
+// before the group before computes, so the loads stay off the chain.
+template <bool Clamp>
+__device__ __forceinline__ void df1_rows(idsp::Df1Lane& s,
+                                         const idsp::Df1Coefs& k,
+                                         const idsp::Df1Clamp& cl,
+                                         const int32_t* x, float* y,
+                                         int rows) {
+  auto step = [&](int32_t x0) {
+    int32_t y0 = s.output_y1_last(k, x0);
+    if constexpr (Clamp) y0 = cl(y0);
+    return static_cast<float>(s.push(x0, y0));
+  };
+  int r = 0;
+  if (rows >= kGroup) {
+    int32_t cur[kGroup];
+#pragma unroll
+    for (int v = 0; v < kGroup; ++v) cur[v] = x[v * kLanes];
+    for (; r + kGroup <= rows; r += kGroup) {
+      const bool more = r + 2 * kGroup <= rows;
+      int32_t nxt[kGroup];
+#pragma unroll
+      for (int v = 0; v < kGroup; ++v)
+        nxt[v] = more ? x[(r + kGroup + v) * kLanes] : 0;
+#pragma unroll
+      for (int v = 0; v < kGroup; ++v) y[(r + v) * kLanes] = step(cur[v]);
+#pragma unroll
+      for (int v = 0; v < kGroup; ++v) cur[v] = nxt[v];
+    }
+  }
+#pragma unroll 1
+  for (; r < rows; ++r) y[r * kLanes] = step(x[r * kLanes]);
+}
+
+// The DF1 warp: state in, every chunk from the input ring into stage 0's
+// slot, state out.  slot0 is stage 0's slot 0 in this lane's column.
+template <bool Clamp>
+__device__ __forceinline__ void df1_warp(const Args& a, const Rings& R,
+                                         float* slot0, int lid, int lane,
+                                         bool live) {
+  idsp::Df1Lane s{};
+  if (live) s.load(a.sx, a.sy, lane);
+  const idsp::Df1Coefs k = a.k;
+  const idsp::Df1Clamp cl = a.cl;
+  Cursor u;
+  for (int r0 = 0; r0 < a.t; r0 += a.chunk, u.next(a.ring)) {
+    const int rows = min(a.chunk, a.t - r0);
+    mbar_wait(R.full_in(u.k), u.ph);
+    mbar_wait(R.empty0(u.k), u.ph ^ 1);
+    df1_rows<Clamp>(s, k, cl, R.in_slot(u.k) + lid,
+                    slot0 + static_cast<size_t>(u.k) * a.chunk * kLanes,
+                    rows);
+    mbar_arrive(R.full0(u.k));
+    mbar_arrive(R.empty_in(u.k));
+  }
+  if (live) s.store(a.sx_out, a.sy_out, lane);
+}
+
+// The FIR warps: carried rows in, every chunk through the stages (y out
+// from the last), carried rows out.  col is this lane's column of the FIR
+// buffers.
+template <int D>
+__device__ __forceinline__ void fir(const Args& a, const Taps& p,
+                                    const Rings& R, float* col,
+                                    const FirTeam& team, int lane,
+                                    bool live) {
+  const Layout<D> L(p, a.chunk, a.ring);
+  const int K = a.chunk;
+  const size_t c = static_cast<size_t>(a.c2);
+  int toff = 0;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const int m = p.m[d];
+    for (int r = team.id(); r < L.carry[d]; r += team.n())
+      col[(L.off[d] + r) * kLanes] =
+          live ? idsp::tile::dec_tail(a.tails_in, toff, m, a.c2, lane, r)
+               : 0.f;
+    toff += 3 * m - 2;
   }
 
-  s.store(sx_out, sy_out, lane);
-  idsp::hbf_dec_tails<false>(p.h, col, odd_off, even_off, tails_out, c2,
-                             lane);
+  // stage d's input row v sits at row sd(d, k, cs) + v of the column:
+  // stage 0 in slot k, stages d >= 1 behind their carried rows
+  auto sd = [&](int d, int k, int cs) {
+    return d == 0 ? L.off[0] + L.carry[0] + k * K - cs
+                  : L.off[d] + L.carry[d] - (cs >> d);
+  };
+  Cursor u;
+  int k_last = 0, cs_last = 0;
+  for (int cs = 0; cs < a.t; cs += K, u.next(a.ring)) {
+    const int ce = min(cs + K, a.t);
+    const bool more = ce < a.t;
+    mbar_wait(R.full0(u.k), u.ph);
+    team.sync();  // the last chunk's moves (and the carried rows) landed
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int si = sd(d, u.k, cs);
+      auto in = [&](int v) { return col[(si + v) * kLanes]; };
+      const int lo = cs >> (d + 1), hi = ce >> (d + 1);
+      if (d + 1 < D) {
+        const int so = sd(d + 1, u.k, cs);
+        idsp::tile::dec_stage(
+            lo, hi, p.m[d], p.taps[d], in,
+            [&](int j, float v) { col[(so + j) * kLanes] = v; }, team);
+      } else {
+        idsp::tile::dec_stage(
+            lo, hi, p.m[d], p.taps[d], in,
+            [&](int j, float v) {
+              if (live) a.y[static_cast<size_t>(j) * c + lane] = v;
+            },
+            team);
+      }
+      team.sync();
+      if (d == 0) {
+        // stage 0 of this chunk read the previous slot's last rows
+        if (u.k > 0) mbar_arrive(R.empty0(u.k - 1));
+        if (more && u.k == a.ring - 1) {
+          idsp::tile::move_front(col + L.off[0] * kLanes, L.carry[0],
+                                 a.ring * K, false, team);
+          mbar_arrive(R.empty0(u.k));
+        }
+      } else if (more) {
+        idsp::tile::move_front(col + L.off[d] * kLanes, L.carry[d],
+                               (ce - cs) >> d, false, team);
+      }
+    }
+    k_last = u.k;
+    cs_last = cs;
+  }
+
+  // new tails: the last 4m-3 input rows of each stage, packed
+  team.sync();
+  if (!live) return;
+  toff = 0;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const int m = p.m[d];
+    const int sl = sd(d, k_last, cs_last) + (a.t >> d) - L.carry[d];
+    for (int r = team.id(); r < 3 * m - 2; r += team.n())
+      a.tails_out[static_cast<size_t>(toff + r) * c + lane] =
+          col[(sl + idsp::tile::dec_packed(m, r)) * kLanes];
+    toff += 3 * m - 2;
+  }
+}
+
+template <int D, bool FastLo, bool Clamp>
+__global__ void __launch_bounds__(kLanes* kMaxWarps)
+    ddc_cascade_kernel(const __grid_constant__ Args a,
+                       const __grid_constant__ Taps p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / kLanes, lid = threadIdx.x % kLanes;
+  const int lane = blockIdx.x * kLanes + lid;
+  const bool live = lane < a.c2;  // dead lanes still reach every barrier
+  const int nfir = fir_warps(a.warps, a.producers);
+  const Rings R{smem_addr(smem),
+                reinterpret_cast<int32_t*>(smem + 32 * a.ring), a.chunk};
+  float* col = reinterpret_cast<float*>(R.in_slot(a.ring)) + lid;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < a.ring; ++k) {
+      mbar_init(R.full_in(k), kLanes * a.producers);
+      mbar_init(R.empty_in(k), kLanes);
+      mbar_init(R.full0(k), kLanes);
+      mbar_init(R.empty0(k), kLanes * nfir);
+    }
+    idsp::sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  if (warp == 0) {
+    df1_warp<Clamp>(a, R, col + (4 * p.m[0] - 3) * kLanes, lid, lane, live);
+    return;
+  }
+  if (warp % 4 == 0) return;  // the DF1 warp's scheduler stays quiet
+  const int v = warp - warp / 4 - 1;  // index among the other warps
+  if (v < a.producers) {
+    if constexpr (FastLo) {
+      mix(a, R, v, lid, lane, live);
+    } else {
+      load(a, R, lid, lane, live);
+    }
+    return;
+  }
+  fir<D>(a, p, R, col, FirTeam{v - a.producers, nfir}, lane, live);
+}
+
+using Kernel = void (*)(Args, Taps);
+
+template <int D>
+Kernel pick(bool fastlo, bool clamp) {
+  return fastlo ? (clamp ? ddc_cascade_kernel<D, true, true>
+                         : ddc_cascade_kernel<D, true, false>)
+                : (clamp ? ddc_cascade_kernel<D, false, true>
+                         : ddc_cascade_kernel<D, false, false>);
+}
+
+template <int D>
+size_t fir_rows(const Taps& p, int chunk, int depth) {
+  return static_cast<size_t>(Layout<D>(p, chunk, depth).rows);
+}
+
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
 }  // namespace
@@ -151,38 +455,74 @@ __global__ void __launch_bounds__(kHbfLanes) ddc_cascade_kernel(
 // cb/sb (tc, c2/2) are given.  clamp != 0 runs the anti-windup DF1 with
 // offset u and bounds lo, hi (K19, and K3's clamp form).  ms (depth,) and
 // taps (sum ms,) are host arrays, highest-rate stage first.  y is
-// (t >> depth, c2) f32; tails are packed (3m-2) rows per stage.
+// (t >> depth, c2) f32; tails are packed (3m-2) rows per stage.  warps,
+// producers, chunk, ring (slots a ring) and smem are the host
+// plan's (filters/ddc_cuda.py `launch_plan`); a plan this entry would not
+// make (smem not its own sum, or more than a block may have) is refused.
+// A refused call launches nothing and leaves no CUDA error pending.
 extern "C" int idsp_ddc_cascade(
     const void* xs, const void* x, const void* ca, const void* sa,
     const void* cb, const void* sb, const void* sx, const void* sy,
     void* sx_out, void* sy_out, const void* tails_in, void* tails_out,
     void* y, int t, int c2, int tc, int f, int b0, int b1, int b2, int a1,
     int a2, int depth, int clamp, int u, int lo, int hi, const int* ms,
-    const float* taps, void* stream) {
-  CascadeParams p{};
-  p.k = idsp::Df1Coefs{b0, b1, b2, a1, a2, f};
-  p.cl = idsp::Df1Clamp{u, lo, hi};
-  if (!idsp::hbf_taps_from_host(p.h, depth, ms, taps))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = idsp::hbf_dec_rows(p.h, tc) * kHbfLanes * sizeof(float);
+    const float* taps, int warps, int producers, int chunk,
+    int ring, int smem, void* stream) {
+  Taps p{};
   const bool fastlo = x != nullptr;
-  auto kernel = fastlo ? (clamp ? ddc_cascade_kernel<true, true>
-                                : ddc_cascade_kernel<true, false>)
-                       : (clamp ? ddc_cascade_kernel<false, true>
-                                : ddc_cascade_kernel<false, false>);
+  if (!idsp::tile::taps_from_host(p, depth, ms, taps) || t < 0 || c2 < 1 ||
+      t % (1 << depth) != 0 || f <= 0 || f >= 64 ||
+      warps % 4 != 0 || warps < 8 ||
+      warps > kMaxWarps || producers < 1 || producers > kMaxProducers ||
+      fir_warps(warps, producers) < kMinFir || chunk < 1 ||
+      chunk % (1 << depth) != 0 || chunk % producers != 0 ||
+      chunk < 4 * p.m[0] - 3 || ring < 2 ||
+      (fastlo && (c2 % 2 != 0 || tc < producers || tc % producers != 0 ||
+                  t % tc != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t rows = depth == 1   ? fir_rows<1>(p, chunk, ring)
+                      : depth == 2 ? fir_rows<2>(p, chunk, ring)
+                      : depth == 3 ? fir_rows<3>(p, chunk, ring)
+                                   : fir_rows<4>(p, chunk, ring);
+  const size_t want = smem_bytes(static_cast<int>(rows), chunk, ring);
+  if (static_cast<size_t>(smem) != want ||
+      want > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Kernel kernel = depth == 1   ? pick<1>(fastlo, clamp != 0)
+                        : depth == 2 ? pick<2>(fastlo, clamp != 0)
+                        : depth == 3 ? pick<3>(fastlo, clamp != 0)
+                                     : pick<4>(fastlo, clamp != 0);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   // a refused size is also the runtime's last error: take it, or the
   // next launch of any kernel in this library would report it
   if (err != cudaSuccess) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((c2 + kHbfLanes - 1) / kHbfLanes);
-  kernel<<<grid, kHbfLanes, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(xs), static_cast<const int32_t*>(x),
-      static_cast<const float*>(ca), static_cast<const float*>(sa),
-      static_cast<const float*>(cb), static_cast<const float*>(sb),
-      static_cast<const int32_t*>(sx), static_cast<const int32_t*>(sy),
-      static_cast<int32_t*>(sx_out), static_cast<int32_t*>(sy_out),
-      static_cast<const float*>(tails_in), static_cast<float*>(tails_out),
-      static_cast<float*>(y), t, c2, tc, p);
+  Args a{};
+  a.xs = static_cast<const int32_t*>(xs);
+  a.x = static_cast<const int32_t*>(x);
+  a.ca = static_cast<const float*>(ca);
+  a.sa = static_cast<const float*>(sa);
+  a.cb = static_cast<const float*>(cb);
+  a.sb = static_cast<const float*>(sb);
+  a.sx = static_cast<const int32_t*>(sx);
+  a.sy = static_cast<const int32_t*>(sy);
+  a.sx_out = static_cast<int32_t*>(sx_out);
+  a.sy_out = static_cast<int32_t*>(sy_out);
+  a.tails_in = static_cast<const float*>(tails_in);
+  a.tails_out = static_cast<float*>(tails_out);
+  a.y = static_cast<float*>(y);
+  a.t = t;
+  a.c2 = c2;
+  a.tc = tc;
+  a.warps = warps;
+  a.producers = producers;
+  a.chunk = chunk;
+  a.ring = ring;
+  a.vec = !fastlo && c2 % 4 == 0 && aligned16(xs);
+  a.k = idsp::Df1Coefs{b0, b1, b2, a1, a2, f};
+  a.cl = idsp::Df1Clamp{u, lo, hi};
+  const dim3 grid((c2 + kLanes - 1) / kLanes);
+  kernel<<<grid, warps * kLanes, want, static_cast<cudaStream_t>(stream)>>>(
+      a, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -62,6 +62,20 @@ __device__ __forceinline__ Df1Coefs load_coefs(
                   __ldg(planes + 4 * n + lane), f};
 }
 
+// a * b + c on 64-bit words, wrapping mod 2^64 (the product of two int32
+// is exact in int64; the add wraps as PTX's integer add does)
+__device__ __forceinline__ int64_t mad_wide(int32_t a, int32_t b,
+                                            int64_t c) {
+#ifdef __CUDA_ARCH__
+  int64_t d;
+  asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(d) : "r"(a), "r"(b), "l"(c));
+  return d;
+#else
+  return static_cast<int64_t>(static_cast<uint64_t>(int64_t{a} * b) +
+                              static_cast<uint64_t>(c));
+#endif
+}
+
 struct Df1Lane {
   int32_t x1, x2, y1, y2;
 
@@ -92,6 +106,23 @@ struct Df1Lane {
                          static_cast<uint64_t>(int64_t{k.a2} * y2);
     return static_cast<int32_t>(static_cast<uint32_t>(
         static_cast<uint64_t>(static_cast<int64_t>(acc) >> k.f)));
+  }
+
+  // output() with a1*y1, the only term on the recurrence's loop-carried
+  // chain, added last: the other four products need only x0 and older
+  // outputs, so they are summed off the chain, which keeps one 64-bit
+  // multiply-add and the shift.  Each product-and-add is one signed
+  // 32 x 32 + 64 -> 64 multiply-add (`mad_wide`; nvcc made each product
+  // of sign-extended words four instructions); the sums wrap mod 2^64,
+  // where addition is associative and commutative: the same bits as
+  // output().
+  __device__ __forceinline__ int32_t output_y1_last(const Df1Coefs& k,
+                                                    int32_t x0) const {
+    const int64_t pre = mad_wide(
+        k.b0, x0, mad_wide(k.b1, x1, mad_wide(k.b2, x2,
+                                              mad_wide(k.a2, y2, 0))));
+    return static_cast<int32_t>(static_cast<uint32_t>(
+        static_cast<uint64_t>(mad_wide(k.a1, y1, pre) >> k.f)));
   }
 
   __device__ __forceinline__ int32_t push(int32_t x0, int32_t y0) {

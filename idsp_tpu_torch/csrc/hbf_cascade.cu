@@ -118,18 +118,6 @@ struct Layout {
   }
 };
 
-// The carried row r of stage d's buffer at the start of the block of time
-// (input row r - carry): K7's packed tail holds the odd rows (the even
-// buffer rows) and the even rows from 2m-2 on (odd buffer rows from 2m-1).
-__device__ __forceinline__ float dec_tail(const float* tails, int toff,
-                                          int m, int c, int lane, int r) {
-  if (!(r & 1)) return tails[static_cast<size_t>(toff + r / 2) * c + lane];
-  if (r >= 2 * m - 1)
-    return tails[static_cast<size_t>(toff + 2 * m - 1 + (r - 2 * m + 1) / 2) *
-                     c + lane];
-  return 0.f;
-}
-
 // The block's walk of its range, the same for both kernels.  The range's
 // input rows end at `end`, its walk starts at p0; chunk q takes input
 // rows [p0 + q*tc, min(p0 + (q+1)*tc, end)).  Per chunk: wait for its xs
@@ -200,7 +188,9 @@ __device__ __forceinline__ void dec_cascade(
     const int m = p.m[d];
     for (int r = threadIdx.y; r < L.carry[d]; r += kWarps)
       col[(L.off[d] + r) * kLanes] =
-          p0 == 0 && live ? dec_tail(tails_in, toff, m, c, lane, r) : 0.f;
+          p0 == 0 && live
+              ? idsp::tile::dec_tail(tails_in, toff, m, c, lane, r)
+              : 0.f;
     toff += 3 * m - 2;
   }
 
@@ -232,7 +222,7 @@ __device__ __forceinline__ void dec_cascade(
 
   if (!live || blockIdx.y + 1 != gridDim.y) return;
   // new tails: the last 4m-3 input rows of each stage, odd rows then the
-  // even rows from 2m-2 (hbf_stage.cuh's packing)
+  // even rows from 2m-2 (filters/ddc_cuda.py `hbf1_tail_init`'s packing)
   const int cs = p0 + q_last * tc;
   toff = 0;
 #pragma unroll
@@ -241,7 +231,7 @@ __device__ __forceinline__ void dec_cascade(
     const int sl = L.off[d] + (end >> d) - L.carry[d] - base(d, q_last, cs);
     for (int r = threadIdx.y; r < 3 * m - 2; r += kWarps)
       tails_out[static_cast<size_t>(toff + r) * c + lane] =
-          col[(sl + (r < 2 * m - 1 ? 2 * r : 2 * r - 2 * m + 1)) * kLanes];
+          col[(sl + idsp::tile::dec_packed(m, r)) * kLanes];
     toff += 3 * m - 2;
   }
 }

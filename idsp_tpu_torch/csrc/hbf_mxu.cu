@@ -82,7 +82,7 @@
 #include <cuda_pipeline.h>
 
 #include "hbf_mma.cuh"
-#include "hbf_stage.cuh"
+#include "hbf_tile.cuh"
 
 namespace {
 
@@ -90,9 +90,9 @@ constexpr int kMxuLanes = 32;  // lanes of a tile (threadIdx.x)
 constexpr int kMxuWarps = 32;  // warps of a block (threadIdx.y)
 constexpr int kIlp = 4;        // rows a thread sums side by side
 constexpr int kMaxSmem = 232448;
-constexpr int kD = idsp::kHbfMaxDepth;
+constexpr int kD = idsp::tile::kMaxDepth;
 
-using idsp::HbfTaps;
+using HbfTaps = idsp::tile::Taps;
 
 // One block of K23 "highest": stage d computes its output row pairs
 // [a[d], b[d]) and reads its input rows [lo[d], hi[d]); the input of
@@ -300,7 +300,7 @@ int launch(Kernel kernel, PlanFn plan, int segments, const void* xs,
 constexpr int kTileLanes = 32;  // lanes of a block's tile (4 n8 MMA tiles)
 constexpr int kMmaWarps = 8;    // warps of a block
 constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMaxBand = 4 * idsp::kHbfMaxTaps;  // >= 4m-1 band entries
+constexpr int kMaxBand = 4 * idsp::tile::kMaxTaps;  // >= 4m-1 band entries
 
 // Each stage's band in stage order as bf16 bits, its hi and lo parts (a
 // kernel parameter, split on the host): K22's row is 4m-1 entries (the m
@@ -368,7 +368,7 @@ __device__ __forceinline__ int ring_at(int r, int col, int w) {
 
 // The carried input row u < 0 of stage d (packed tails at row toff): K22's
 // window row w = 4m-2+u holds the odd rows and the even rows from 2m
-// (hbf_stage.cuh's packing), K23's the last 2m-1 rows; rows before the
+// (K7's packing, hbf_cascade.cu), K23's the last 2m-1 rows; rows before the
 // state are 0.
 template <bool Dec>
 __device__ __forceinline__ float carried(const float* tails, int toff, int m,
@@ -785,7 +785,7 @@ bool band_from_host(Band& b, int depth, const int* ms, const float* taps,
   int off = 0;
   for (int d = 0; d < depth; ++d) {
     const int m = ms[d];
-    if (m < 1 || m > idsp::kHbfMaxTaps) return false;
+    if (m < 1 || m > idsp::tile::kMaxTaps) return false;
     b.m[d] = m;
     const float* tv = taps + off;
     const int len = dec ? 4 * m - 1 : 2 * m;
@@ -901,7 +901,7 @@ extern "C" int idsp_hbf_int_mxu(const void* xs, const void* tails_in,
                                 int seg, int sub, int depth, const int* ms,
                                 const float* taps, void* stream) {
   HbfTaps p{};
-  if (!idsp::hbf_taps_from_host(p, depth, ms, taps) || t <= 0 || seg < 1)
+  if (!idsp::tile::taps_from_host(p, depth, ms, taps) || t <= 0 || seg < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(hbf_int_mxu_kernel, int_plan, (t + seg - 1) / seg, xs,
                 tails_in, tails_out, y, t, c, seg, sub, p, stream);
@@ -916,7 +916,7 @@ extern "C" int idsp_hbf_mma_occupancy(int dec, int depth, const int* ms,
     return -static_cast<int>(cudaErrorInvalidValue);
   int m[kD] = {};
   for (int d = 0; d < depth; ++d) {
-    if (ms[d] < 1 || ms[d] > idsp::kHbfMaxTaps)
+    if (ms[d] < 1 || ms[d] > idsp::tile::kMaxTaps)
       return -static_cast<int>(cudaErrorInvalidValue);
     m[d] = ms[d];
   }

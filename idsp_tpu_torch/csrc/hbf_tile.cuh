@@ -1,15 +1,17 @@
-// The half-band FIR stages of one lane tile, every warp of the block on
-// the rows of one stage: the stage code of K7, K8 and K22 "highest"
-// (hbf_cascade.cu).
+// The half-band FIR stages of one lane tile, a team of warps on the rows
+// of one stage: the stage code of K7, K8 and K22 "highest"
+// (hbf_cascade.cu; the team every warp of the block) and of K2, K3 and
+// K19-K21 (ddc_cascade.cu; the team the block's FIR warps).
 //
-// Layout: a block is kLanes lanes (threadIdx.x: a warp reads a 128-byte
-// row) x kWarps warps (threadIdx.y).  A stage's input rows sit in shared
-// memory, row r of a buffer at buf[r * kLanes + lane], so any row a warp
-// reads or writes is one conflict-free access.  A stage's output rows are
-// cut into groups of kIlp consecutive rows, dealt round robin to the
-// warps; a thread sums its group's rows side by side, kIlp independent
-// chains that hide the load and add latencies.  A barrier separates the
-// stages (the caller's).
+// Layout: a tile is kLanes lanes (a warp reads a 128-byte row); in
+// hbf_cascade.cu a block is kLanes (threadIdx.x) x kWarps warps
+// (threadIdx.y).  A stage's input rows sit in shared memory, row r of a
+// buffer at buf[r * kLanes + lane], so any row a warp reads or writes is
+// one conflict-free access.  A stage's output rows are cut into groups of
+// kIlp consecutive rows, dealt round robin to the team's warps; a thread
+// sums its group's rows side by side, kIlp independent chains that hide
+// the load and add latencies.  A barrier separates the stages (the
+// caller's).
 //
 // Numerics: each output is the plain version's sum in its order (hbf.py
 // `symmetric_fir`): acc = (b + a) * tap[0], acc += (b + a) * tap[i] for i
@@ -19,6 +21,8 @@
 #pragma once
 
 #include <cuda_pipeline.h>
+
+#include <cstddef>
 
 namespace idsp {
 namespace tile {
@@ -58,12 +62,23 @@ struct Ilp {
   static constexpr int n = N;
 };
 
+// The warps that share a stage's rows: this warp's index id() of n(), and
+// their barrier sync(); kMin bounds n() from below (move_front's
+// registers).  BlockTeam: every warp of a kLanes x kWarps block.
+struct BlockTeam {
+  static constexpr int kMin = kWarps;
+  __device__ __forceinline__ int id() const { return threadIdx.y; }
+  __device__ __forceinline__ int n() const { return kWarps; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
 // Calls rows(j, Ilp<N>{}) for this warp's groups of the rows [a, b):
-// groups of kIlp rows round robin over the warps, a short last group row
-// by row.
-template <class Rows>
-__device__ __forceinline__ void for_rows(int a, int b, Rows rows) {
-  for (int j = a + threadIdx.y * kIlp; j < b; j += kWarps * kIlp) {
+// groups of kIlp rows round robin over the team's warps, a short last
+// group row by row.
+template <class Team, class Rows>
+__device__ __forceinline__ void for_rows(int a, int b, const Team& team,
+                                         Rows rows) {
+  for (int j = a + team.id() * kIlp; j < b; j += team.n() * kIlp) {
     if (j + kIlp <= b) {
       rows(j, Ilp<kIlp>{});
     } else {
@@ -75,10 +90,11 @@ __device__ __forceinline__ void for_rows(int a, int b, Rows rows) {
 // A decimating stage's output rows [a, b): output j reads input rows
 // 2j-4m+3 .. 2j+1 through in(u) (odd rows: the FIR, b = x[2j+1-2i],
 // a = x[2j-4m+3+2i]; even row 2j-2m+2: the center) and goes to out(j, v).
-template <class In, class Out>
+template <class In, class Out, class Team = BlockTeam>
 __device__ __forceinline__ void dec_stage(int a, int b, int m,
-                                          const float* tp, In in, Out out) {
-  for_rows(a, b, [&](int j, auto ilp) {
+                                          const float* tp, In in, Out out,
+                                          const Team& team = Team{}) {
+  for_rows(a, b, team, [&](int j, auto ilp) {
     constexpr int N = decltype(ilp)::n;
     const int lo = 2 * j - 4 * m + 3, hi = 2 * j + 1;
     float acc[N];
@@ -109,7 +125,7 @@ template <class In, class Out>
 __device__ __forceinline__ void dec_band_stage(int a, int b, int m,
                                                const float* tp, In in,
                                                Out out) {
-  for_rows(a, b, [&](int j, auto ilp) {
+  for_rows(a, b, BlockTeam{}, [&](int j, auto ilp) {
     constexpr int N = decltype(ilp)::n;
     const int u0 = 2 * j - 4 * m + 3;
     float acc[N];
@@ -141,7 +157,7 @@ __device__ __forceinline__ void dec_band_stage(int a, int b, int m,
 template <class In, class Out>
 __device__ __forceinline__ void int_stage(int a, int b, int m,
                                           const float* tp, In in, Out out) {
-  for_rows(a, b, [&](int j, auto ilp) {
+  for_rows(a, b, BlockTeam{}, [&](int j, auto ilp) {
     constexpr int N = decltype(ilp)::n;
     const int lo = j - 2 * m + 1;
     float acc[N];
@@ -161,27 +177,51 @@ __device__ __forceinline__ void int_stage(int a, int b, int m,
 }
 
 // Rows [shift, shift + carry) of the column col move to [0, carry), for
-// carry <= kMaxCarry.  Every thread loads its rows into registers, then
-// stores them.  Where the two ranges overlap (shift < carry), or where the
-// caller asks for it (sync, the same in every thread: it will overwrite
-// source rows next), a barrier between the loads and the stores keeps a
-// row from being overwritten before every thread has read it.
+// carry <= kMaxCarry, the team's warps taking rows round robin.  Every
+// thread loads its rows into registers, then stores them.  Where the two
+// ranges overlap (shift < carry), or where the caller asks for it (sync,
+// the same in every thread: it will overwrite source rows next), the
+// team's barrier between the loads and the stores keeps a row from being
+// overwritten before every thread has read it.
 constexpr int kMaxCarry = 4 * kMaxTaps - 3;
+template <class Team = BlockTeam>
 __device__ __forceinline__ void move_front(float* col, int carry, int shift,
-                                           bool sync) {
-  constexpr int kRows = (kMaxCarry + kWarps - 1) / kWarps;
+                                           bool sync,
+                                           const Team& team = Team{}) {
+  constexpr int kRows = (kMaxCarry + Team::kMin - 1) / Team::kMin;
   float v[kRows];
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
-    const int r = threadIdx.y + k * kWarps;
+    const int r = team.id() + k * team.n();
     if (r < carry) v[k] = col[(r + shift) * kLanes];
   }
-  if (sync || shift < carry) __syncthreads();
+  if (sync || shift < carry) team.sync();
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
-    const int r = threadIdx.y + k * kWarps;
+    const int r = team.id() + k * team.n();
     if (r < carry) col[r * kLanes] = v[k];
   }
+}
+
+// The decimating stages' carried rows (K7's layout): stage d keeps its
+// last 4m-3 input rows, contiguous in shared memory; across device memory
+// they travel packed (3m-2, c) a stage (filters/ddc_cuda.py
+// `hbf1_tail_init`), 2m-1 odd rows then m-1 even rows.  Carried row r
+// (input row r - (4m-3)) in from the packed tail at row toff: the odd rows
+// (even r), the even rows from 2m-2 (odd r from 2m-1), the others unused
+// (0).
+__device__ __forceinline__ float dec_tail(const float* tails, int toff,
+                                          int m, int c, int lane, int r) {
+  if (!(r & 1)) return tails[static_cast<size_t>(toff + r / 2) * c + lane];
+  if (r >= 2 * m - 1)
+    return tails[static_cast<size_t>(toff + 2 * m - 1 + (r - 2 * m + 1) / 2) *
+                     c + lane];
+  return 0.f;
+}
+
+// ... and out: packed row r of 3m-2 is the carried row dec_packed(m, r).
+__host__ __device__ __forceinline__ int dec_packed(int m, int r) {
+  return r < 2 * m - 1 ? 2 * r : 2 * r - 2 * m + 1;
 }
 
 // Rows [r0, r1) of xs (row stride c) to col's rows 0 .. r1-r0-1 through

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks as inline PTX, for K17's kernels
-// (channelize.cu) and K38-K40's (wdf_bank.cu): mbarriers, cp.async
-// arriving on them, asynchronous copies of the TMA (1-D bulk
+// (channelize.cu), K38-K40's (wdf_bank.cu) and K2/K3/K19-K21's
+// (ddc_cascade.cu): mbarriers and the ring cursor over them, named
+// barriers, cp.async arriving on them, asynchronous copies of the TMA (1-D bulk
 // copies, boxes of 2-D tensor maps), the thread-block cluster's ranks,
 // mapped addresses, asynchronous stores into peer CTAs and barrier,
 // warpgroup register rebalancing, and `wgmma` with shared-memory operand
@@ -98,6 +99,27 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Chunk q's slot k = q % depth of a ring of mbarrier-guarded slots and its
+// phase parity ph = (q / depth) & 1, stepped chunk by chunk: a consumer
+// waits full(k) at ph, a producer empty(k) at ph ^ 1 (a fresh barrier
+// passes).
+struct Cursor {
+  int k = 0;
+  uint32_t ph = 0;
+  __device__ __forceinline__ void next(int depth) {
+    if (++k == depth) {
+      k = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// the named barrier `id` (1-15; 0 is __syncthreads') of `threads` threads,
+// whole warps
+__device__ __forceinline__ void bar_sync(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- the cluster ----------------------------------------------------------

@@ -57,6 +57,7 @@
 namespace {
 
 using idsp::sm90::cp_async16;
+using idsp::sm90::Cursor;
 using idsp::sm90::cp_async4;
 using idsp::sm90::cp_async_arrive;
 using idsp::sm90::cp_async_wait_all;
@@ -256,19 +257,6 @@ struct Rings {
   __device__ uint32_t empty(int r, int k) const { return full(r, k) + 8; }
   __device__ uint32_t* slot(int r, int k) const {
     return buf + static_cast<size_t>(r * depth + k) * chunk * kLanes;
-  }
-};
-
-// Chunk q's slot k = q % depth and its phase parity ph = (q / depth) & 1,
-// stepped chunk by chunk.
-struct Cursor {
-  int k = 0;
-  uint32_t ph = 0;
-  __device__ __forceinline__ void next(int depth) {
-    if (++k == depth) {
-      k = 0;
-      ph ^= 1;
-    }
   }
 };
 

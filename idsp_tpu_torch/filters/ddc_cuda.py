@@ -17,7 +17,12 @@ fused-cascade family and `ddc_mix_df1_bank` of
 
 K2, K3 and K19-K21 run ``csrc/ddc_cascade.cu``, K14
 ``csrc/ddc_mix_df1.cu``, for CUDA tensors, and their plain PyTorch
-versions (``*_plain``) for CPU tensors; any other device raises.
+versions (``*_plain``) for CPU tensors; any other device raises.  One
+kernel serves K2, K3 and K19-K21: a CUDA block is a tile of lanes with
+one DF1 warp, producer warps that feed it (K2 the xs rows, K3 the mixed
+rows) and FIR warps that run the half-band stages, chunks of rows
+passing between them through mbarrier rings in shared memory
+(`launch_plan`).
 Carried state follows the JAX package: `Df1State` (2c, 2) and one
 (3m-2, 2c) f32 tail per stage (`hbf1_tail_init`), ``2m-1`` odd rows
 then ``m-1`` even rows, stages highest rate first.
@@ -34,6 +39,7 @@ plain version builds the same tables.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,6 +51,118 @@ from ..ops.trig import cossin
 from .biquad import Df1State, _ba_list, clamp_params, df1_process_q
 from .biquad_cuda import df1_bank_q_plain
 from .hbf import HBF_TAPS, HbfDecState, hbf_dec_block
+
+
+LANES = 32  # lanes of a tile (csrc/ddc_cascade.cu kLanes)
+MAX_SMEM = 232448  # bytes of shared memory a block may have
+MAX_WARPS = 16  # warps of a block
+MIN_FIR = 4  # FIR warps of a block, at least
+# rows a chunk, slots a ring (the most), warps a block, K3's mix warps (the
+# most): the FIR warps wait at a barrier a stage, so the late stages of a
+# 128-row chunk leave most of them idle.  On an H100 (700 W) 256-row chunks
+# (2 slots for the chain's taps) took K2 from 1.04 to 0.84 ms, 12 warps beat
+# 8 and matched 16, and 4 mix warps took K3 from 1.69 to 1.18 ms (PERF.md
+# §6; `python3 -m idsp_tpu_torch.probe_cascade`)
+CHUNK, RING, WARPS, PRODUCERS = 256, 4, 12, 4
+
+
+def cascade_smem(ms, chunk: int, ring: int) -> int:
+    """Shared memory of a launch (csrc/ddc_cascade.cu `smem_bytes`): 32
+    bytes of mbarriers a slot, the input ring (``ring`` slots of ``chunk``
+    rows x LANES int32), the FIR buffers (stage 0: its 4m-3 carried rows
+    and ``ring`` slots of ``chunk`` rows; stage d >= 1: its 4m-3 carried
+    rows and chunk >> d rows), f32 rows of LANES."""
+    rows = sum(4 * m - 3 + (ring * chunk if d == 0 else chunk >> d)
+               for d, m in enumerate(ms))
+    return 32 * ring + (ring * chunk + rows) * LANES * 4
+
+
+class CascadePlan(NamedTuple):
+    """How the kernel runs a launch: a CUDA block is a tile of LANES lanes
+    and ``warps`` warps: warp 0
+    the DF1, the others of its scheduler (warp % 4 == 0) idle, of the rest
+    ``producers`` that feed the DF1 (K2: xs rows by cp.async; K3: the mix)
+    and ``fir_warps`` that run the stages; chunks of ``chunk`` rows pass
+    through rings of ``ring`` slots, ``smem`` bytes in all."""
+
+    warps: int
+    producers: int
+    chunk: int
+    ring: int
+    smem: int
+    tiles: int  # CUDA blocks: tiles of LANES over the launch's lanes
+
+    @property
+    def fir_warps(self) -> int:
+        return self.warps - self.warps // 4 - self.producers
+
+
+def launch_plan(ms, c2: int, *, fastlo: bool = False,
+                time_chunk: int = 128, warps: int | None = None,
+                producers: int | None = None,
+                chunk: int | None = None,
+                ring: int | None = None) -> CascadePlan:
+    """The plan of a launch over ``c2`` lanes whose stages have ``ms``
+    one-sided taps each (highest rate first; depth = len(ms)); ``fastlo``
+    for K3, whose producers take the rows of their index mod their count,
+    so that count divides ``time_chunk`` (the fine length) and the chunk.
+
+    WARPS warps, 1 producer (K3: the most of 4, 2, 1
+    up to PRODUCERS that divides time_chunk), a chunk of CHUNK
+    rows (at least stage 0's 4m-3 carried rows, a multiple of 2**depth)
+    and the most of RING .. 2 slots that fit MAX_SMEM, unless given; a
+    chunk too large for 2 slots is halved while it stays above the carried
+    rows.  Raises ValueError for a plan the kernel cannot run."""
+    ms = [int(m) for m in ms]
+    depth = len(ms)
+    if c2 < 1 or (fastlo and c2 % 2):
+        raise ValueError(f"need c2 >= 1 lanes (even for K3), got {c2}")
+    if not 1 <= depth <= 4:
+        raise ValueError(f"depth must be 1..4, got {depth}")
+    if not all(1 <= m <= 32 for m in ms):
+        raise ValueError(f"one-sided taps must be 1..32 a stage, got {ms}")
+    wp = WARPS if warps is None else warps
+    if producers is not None:
+        pr = producers
+    else:
+        pr = next(p for p in (4, 2, 1)
+                  if p <= PRODUCERS and time_chunk % p == 0) if fastlo else 1
+    if pr not in (1, 2, 4) or (fastlo and time_chunk % pr) or (
+            not fastlo and pr != 1):
+        raise ValueError(f"producers must be 1, 2 or 4 and divide "
+                         f"time_chunk (K2: 1), got {pr}")
+    if wp % 4 or not 8 <= wp <= MAX_WARPS or wp - wp // 4 - pr < MIN_FIR:
+        raise ValueError(f"warps must be 8, 12 or 16 and leave {MIN_FIR} "
+                         f"FIR warps, got {wp} ({pr} producers)")
+    step = max(1 << depth, pr)  # 2**depth and the producers divide chunk
+    least = -(-(4 * ms[0] - 3) // step) * step
+    ch = max(CHUNK, least) if chunk is None else chunk
+    if ch < least or ch % step:
+        raise ValueError(f"chunk must be a multiple of {step} of at least "
+                         f"{least} rows, got {ch}")
+
+    def fits(c):
+        return [r for r in range(RING, 1, -1)
+                if cascade_smem(ms, c, r) <= MAX_SMEM]
+
+    if ring is None:
+        while not fits(ch) and chunk is None and ch // 2 >= least and \
+                (ch // 2) % step == 0:
+            ch //= 2
+        if not fits(ch):
+            raise ValueError(f"no ring of 2+ slots of {ch} rows fits "
+                             f"{MAX_SMEM} bytes for taps {ms}")
+        rg = fits(ch)[0]
+    else:
+        rg = ring
+    if rg < 2:
+        raise ValueError(f"ring must have 2+ slots, got {rg}")
+    smem = cascade_smem(ms, ch, rg)
+    if smem > MAX_SMEM:
+        raise ValueError(f"{smem} bytes of shared memory, more than "
+                         f"{MAX_SMEM}")
+    return CascadePlan(warps=wp, producers=pr, chunk=ch, ring=rg,
+                       smem=smem, tiles=-(-c2 // LANES))
 
 
 def hbf1_tail_init(c2: int, m: int = 5, *, device):
@@ -79,9 +197,12 @@ def df1_hbf_cascade_bank_plain(ba, state: Df1State, tails, xs, f: int = 29,
 
 
 def _launch_cascade(ba, state, tails, taps, f, t, c2, tc, dev, *, xs=None,
-                    x=None, tables=(None,) * 4, clamp=None):
+                    x=None, tables=(None,) * 4, clamp=None,
+                    plan: CascadePlan | None = None):
     """Validate and launch ``idsp_ddc_cascade`` (K2 if xs, K3 if x; the
-    clamped DF1 with ``clamp=(u, lo, hi)``)."""
+    clamped DF1 with ``clamp=(u, lo, hi)``) with ``plan`` (`launch_plan`'s
+    by default).  A plan the kernel refuses raises RuntimeError, having
+    launched nothing."""
     depth = len(taps)
     if not 1 <= depth <= 4:
         raise ValueError(f"depth must be 1..4, got {depth}")
@@ -95,6 +216,8 @@ def _launch_cascade(ba, state, tails, taps, f, t, c2, tc, dev, *, xs=None,
     ms = [len(tv) for tv in taps]
     if max(ms) > 32:
         raise ValueError("at most 32 one-sided taps per stage")
+    if plan is None:
+        plan = launch_plan(ms, c2, fastlo=x is not None, time_chunk=tc)
     for d, (tail, m) in enumerate(zip(tails, ms)):
         _ext.require(f"tails[{d}]", tail, dev, torch.float32, (3 * m - 2, c2))
     _ext.require("state.x", state.x, dev, torch.int32, (c2, 2))
@@ -117,6 +240,7 @@ def _launch_cascade(ba, state, tails, taps, f, t, c2, tc, dev, *, xs=None,
             new_y.data_ptr(), tails_in.data_ptr(), tails_out.data_ptr(),
             y.data_ptr(), t, c2, tc, f, *_ba_list(ba), depth,
             int(clamp is not None), *(clamp or (0, 0, 0)), ms_c, taps_c,
+            plan.warps, plan.producers, plan.chunk, plan.ring, plan.smem,
             _ext.stream_ptr(dev),
         )
     _ext.check(err, "ddc_cascade")
@@ -126,7 +250,7 @@ def _launch_cascade(ba, state, tails, taps, f, t, c2, tc, dev, *, xs=None,
 
 
 def df1_hbf_cascade_bank(ba, state: Df1State, tails, xs, f: int = 29, *,
-                         taps=None, time_chunk: int = 128):
+                         taps=None, time_chunk: int = 128, _plan=None):
     """Fused Q<f> DF1 biquad bank + 2**depth half-band decimation,
     depth = len(taps).
 
@@ -137,8 +261,9 @@ def df1_hbf_cascade_bank(ba, state: Df1State, tails, xs, f: int = 29, *,
       xs: (t, c2) int32.
       taps: per-stage one-sided taps, highest rate first (default
         HBF_TAPS[2], [1], [0]).
-      time_chunk: rows per chunk of the kernel (t % time_chunk == 0,
-        time_chunk % 2**depth == 0); sets its shared-memory size only.
+      time_chunk: checked (t % time_chunk == 0, time_chunk % 2**depth ==
+        0) and otherwise unused: the kernel's chunk is its plan's
+        (`launch_plan`), and no chunk changes a value.
 
     Returns (state, tails, y) with y (t / 2**depth, c2) f32.
     """
@@ -148,7 +273,7 @@ def df1_hbf_cascade_bank(ba, state: Df1State, tails, xs, f: int = 29, *,
     t, c2 = xs.shape
     _ext.require("xs", xs, xs.device, torch.int32, (t, c2))
     out = _launch_cascade(ba, state, tails, taps, f, t, c2, time_chunk,
-                          xs.device, xs=xs)
+                          xs.device, xs=xs, plan=_plan)
     df1_hbf_cascade_bank.launches += 1
     return out
 
@@ -167,7 +292,7 @@ def df1_clamp_hbf_cascade_bank_plain(ba, state: Df1State, tails, xs,
 
 def df1_clamp_hbf_cascade_bank(ba, state: Df1State, tails, xs, f: int = 29,
                                *, u: int = 0, lo: int, hi: int, taps=None,
-                               time_chunk: int = 128):
+                               time_chunk: int = 128, _plan=None):
     """`df1_hbf_cascade_bank` with the anti-windup DF1 of the reference's
     production biquad (biquad.rs:394-404): each DF1 output is ``clip(y0 +
     u, lo, hi)`` (int32 ``+ u`` wrapping, ``lo > hi`` gives ``hi``)
@@ -184,7 +309,7 @@ def df1_clamp_hbf_cascade_bank(ba, state: Df1State, tails, xs, f: int = 29,
     t, c2 = xs.shape
     _ext.require("xs", xs, xs.device, torch.int32, (t, c2))
     out = _launch_cascade(ba, state, tails, taps, f, t, c2, time_chunk,
-                          xs.device, xs=xs, clamp=clamp)
+                          xs.device, xs=xs, clamp=clamp, plan=_plan)
     df1_clamp_hbf_cascade_bank.launches += 1
     return out
 
@@ -213,7 +338,8 @@ def df1_hbf1_bank(ba, state: Df1State, tail, xs, f: int = 29, *, taps=None,
       tail: one (3m-2, c2) f32 carried tail (`hbf1_tail_init`).
       taps: the stage's one-sided taps (default HBF_TAPS[2], the first
         stage of the decimate-by-8 cascade).
-      time_chunk: the kernel's chunk (t % time_chunk == 0, even).
+      time_chunk: checked (t % time_chunk == 0, even), as for
+        `df1_hbf_cascade_bank`.
     Other args as `df1_hbf_cascade_bank`.
 
     Returns (state, tail, y2) with y2 (t/2, c2) f32.
@@ -250,8 +376,8 @@ def df1_hbf12_bank(ba, state: Df1State, tail1, tail2, xs, f: int = 29, *,
       tail1, tail2: the stages' (3m-2, c2) f32 carried tails.
       taps1, taps2: the stages' one-sided taps (default HBF_TAPS[2] and
         HBF_TAPS[1], the first two stages of the decimate-by-8 cascade).
-      time_chunk: the kernel's chunk (t % time_chunk == 0,
-        time_chunk % 4 == 0).
+      time_chunk: checked (t % time_chunk == 0, time_chunk % 4 == 0), as
+        for `df1_hbf_cascade_bank`.
     Other args as `df1_hbf_cascade_bank`.
 
     Returns (state, tail1, tail2, y4) with y4 (t/4, c2) f32.
@@ -288,7 +414,7 @@ def fastlo_ddc_cascade_bank_plain(ba, state: Df1State, tails, phase0, steps,
 
 def fastlo_ddc_cascade_bank(ba, state: Df1State, tails, phase0, steps, x,
                             f: int = 29, *, clamp=None, taps=None,
-                            time_chunk: int = 128):
+                            time_chunk: int = 128, _plan=None):
     """The whole headline DDC chain in one kernel: fast-LO conjugate mix
     + DF1 bank + half-band decimation cascade.
 
@@ -298,9 +424,10 @@ def fastlo_ddc_cascade_bank(ba, state: Df1State, tails, phase0, steps, x,
       x: (t,) i32 wideband input; lanes are I|Q (c2 = 2c).
       clamp: optional int32 ``(u, lo, hi)``: the anti-windup DF1 of
         `df1_clamp_hbf_cascade_bank`.
-      time_chunk: the kernel's chunk AND the fine-table length of the
-        mix, so it changes the mix's rounding: pass the value the
-        compared run used (the JAX package's default is 128).
+      time_chunk: the fine-table length of the mix (t % time_chunk ==
+        0, time_chunk % 2**depth == 0), so it changes the mix's rounding:
+        pass the value the compared run used (the JAX package's default
+        is 128).  The kernel's own chunk is its plan's (`launch_plan`).
 
     Returns (state, tails, new_phase0, y) with y (t/2**depth, 2c) f32 and
     ``new_phase0 = phase0 + steps*t`` (wrapping).
@@ -321,7 +448,7 @@ def fastlo_ddc_cascade_bank(ba, state: Df1State, tails, phase0, steps, x,
     tables = fastlo_tables(phase0, steps, t, time_chunk)
     new_state, new_tails, y = _launch_cascade(
         ba, state, tails, taps, f, t, 2 * c, time_chunk, dev, x=x,
-        tables=tables, clamp=clamp,
+        tables=tables, clamp=clamp, plan=_plan,
     )
     fastlo_ddc_cascade_bank.launches += 1
     if clamp is not None:

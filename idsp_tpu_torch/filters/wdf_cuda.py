@@ -11,7 +11,8 @@ stage (both branches of a pair), a loader warp and a store warp, the
 stages passing chunks of rows through rings in shared memory
 (`launch_plan`); K40 runs both branches and the butterfly in one
 launch.  A chain of more than
-WDF_MAX adapters in all is refused (ValueError) before any launch.
+WDF_MAX adapters in all, or a stage with fewer coefficients than
+adapters, is refused (ValueError) before any launch.
 """
 
 from __future__ import annotations
@@ -127,12 +128,18 @@ def launch_plan(branches, *, chunk: int | None = None,
 
 
 def _coefs(tpas, a):
-    """One stage's shared (N,) coefficients as Python ints."""
+    """One stage's shared (N,) coefficients as Python ints: the first N of
+    ``a``; fewer than N raise ValueError (the plain version and the JAX
+    package raise for them too), before anything is launched."""
     arr = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
     if arr.ndim > 1:
         raise ValueError("the kernels take one shared (N,) coefficient "
                          f"set per stage, got shape {arr.shape}")
-    return [int(v) for v in arr.reshape(-1)[:len(tpas)]]
+    flat = arr.reshape(-1)
+    if flat.size < len(tpas):
+        raise ValueError(f"a stage of {len(tpas)} adapters needs "
+                         f"{len(tpas)} coefficients, got {flat.size}")
+    return [int(v) for v in flat[:len(tpas)]]
 
 
 def _launch(name, branches, states, xs, plan: WdfPlan | None = None):
@@ -145,17 +152,18 @@ def _launch(name, branches, states, xs, plan: WdfPlan | None = None):
     dev = xs.device
     if plan is None:
         plan = launch_plan([[tp for tp, _ in br] for br in branches])
-    _ext.require("xs", xs, dev, torch.int32, (t, c))
-    types, coefs, lens, zs = [], [], [], []
+    types, coefs, lens = [], [], []
     for br, sts in zip(branches, states):
         if len(sts) != len(br):
             raise ValueError(f"{name}: {len(br)} stages, {len(sts)} states")
-        for (tpas, a), st in zip(br, sts):
+        for tpas, a in br:
             types += [int(Tpa(v)) for v in tpas]
             coefs += _coefs(tpas, a)
             lens.append(len(tpas))
-            _ext.require("state.z", st.z, dev, torch.int32, (c, len(tpas)))
-            zs.append(st.z)
+    _ext.require("xs", xs, dev, torch.int32, (t, c))
+    zs = [st.z for sts in states for st in sts]
+    for z, n in zip(zs, lens):
+        _ext.require("state.z", z, dev, torch.int32, (c, n))
     z_in = torch.cat(zs, dim=1).t().contiguous()  # (n, c) planes
     z_out = torch.empty_like(z_in)
     ys = [torch.empty_like(xs) for _ in branches]

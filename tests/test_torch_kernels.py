@@ -752,6 +752,113 @@ def test_df1_hbf1_and_hbf12_kernels_equal_plain(cuda, tc):
         a, a_p, b, b_p = out[:2], out_p[:2], out12[:3], out12_p[:3]
 
 
+# K2, K19-K21 at the shapes that stress csrc/ddc_cascade.cu's rings and
+# tiles: (taps: "chain" depth 3, "chain1"/"chain2" depth 1/2 through K20 /
+# K21's entry points, "98" HBF_TAPS_98 at depth 4; c2, t, forced plan,
+# clamp)
+CASCADE_EDGES = {
+    "t-one-chunk": ("chain", 1024, 128, {}, None),
+    "t-not-ring-x-chunk": ("chain", 256, 7 * 128 + 40, {}, None),
+    "c2-200": ("chain", 200, 1024, {}, None),
+    "c2-50-4-byte-copies": ("chain", 50, 520, {}, None),
+    "t-8": ("chain", 64, 8, {}, None),
+    "t-0": ("chain", 64, 0, {}, None),
+    "chunk-24-two-slots": ("chain", 96, 24 * 9, dict(chunk=24, ring=2),
+                           None),
+    "8-warps": ("chain", 200, 1024, dict(warps=8), None),
+    "16-warps-chunk-256": ("chain", 256, 2048,
+                           dict(warps=16, chunk=256, ring=2), None),
+    "hbf98-depth4": ("98", 256, 2048, {}, None),
+    "k19-clamp-engaged": ("chain", 200, 936, {}, CLAMPS[0]),
+    "k19-lo-gt-hi": ("chain", 200, 936, {}, CLAMPS[2]),
+    "k20": ("chain1", 200, 936, {}, None),
+    "k21": ("chain2", 200, 936, {}, None),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", list(CASCADE_EDGES))
+def test_df1_hbf_cascade_kernel_edges_equal_plain(cuda, case):
+    from idsp_tpu_torch.filters.ddc_cuda import launch_plan
+    from idsp_tpu_torch.filters.hbf import HBF_TAPS_98
+
+    name, c2, t, kw, clamp = CASCADE_EDGES[case]
+    depth = {"chain1": 1, "chain2": 2}.get(name, 3)
+    taps = (tuple(HBF_TAPS_98[3 - d] for d in range(4)) if name == "98"
+            else tuple(HBF_TAPS[2 - d] for d in range(depth)))
+    plan = launch_plan([len(tv) for tv in taps], c2, **kw) if kw else None
+    rng = np.random.default_rng(68)
+    st = biquad.Df1State(x=_i32(rng, (c2, 2), -(2**26), 2**26, device=cuda),
+                         y=_i32(rng, (c2, 2), -(2**26), 2**26, device=cuda))
+    tails = tuple(torch.from_numpy(rng.normal(
+        0, 1e6, (3 * len(tv) - 2, c2)).astype(np.float32)).to(cuda)
+        for tv in taps)
+    st_p, tails_p = st, tails
+    for _ in range(3):
+        xs = _i32(rng, (t, c2), -(2**27), 2**27, device=cuda)
+        if name == "chain1":
+            st, tl, y = df1_hbf1_bank(BA_Q, st, tails[0], xs, 29,
+                                      time_chunk=8)
+            st_p, tl_p, y_p = df1_hbf1_bank_plain(BA_Q, st_p, tails_p[0], xs,
+                                                  29)
+            tails, tails_p = (tl,), (tl_p,)
+        elif name == "chain2":
+            st, t1, t2, y = df1_hbf12_bank(BA_Q, st, *tails, xs, 29,
+                                           time_chunk=8)
+            st_p, p1, p2, y_p = df1_hbf12_bank_plain(BA_Q, st_p, *tails_p,
+                                                     xs, 29)
+            tails, tails_p = (t1, t2), (p1, p2)
+        elif clamp is None:
+            st, tails, y = df1_hbf_cascade_bank(
+                BA_Q, st, tails, xs, 29, taps=taps,
+                time_chunk=1 << len(taps), _plan=plan)
+            st_p, tails_p, y_p = df1_hbf_cascade_bank_plain(
+                BA_Q, st_p, tails_p, xs, 29, taps=taps)
+        else:
+            u, lo, hi = clamp
+            st, tails, y = df1_clamp_hbf_cascade_bank(
+                BA_Q, st, tails, xs, 29, u=u, lo=lo, hi=hi, taps=taps,
+                time_chunk=8, _plan=plan)
+            st_p, tails_p, y_p = df1_clamp_hbf_cascade_bank_plain(
+                BA_Q, st_p, tails_p, xs, 29, u=u, lo=lo, hi=hi, taps=taps)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, tails, y), (st_p.x, st_p.y, tails_p, y_p))
+        assert tuple(y.shape) == (t >> len(taps), c2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("c,t,tc,kw,clamp", [
+    (100, 960, 32, {}, None),        # fine length 32; a tile straddles I|Q
+    (512, 1280, 256, {}, None),      # fine length 256 against chunks of 128
+    (64, 1024, 512, {}, None),       # 512 rows: the fine table not staged
+    (48, 1024, 128, dict(chunk=64, ring=2), None),
+    (100, 960, 32, {}, CLAMPS[0]),
+])
+def test_fastlo_cascade_kernel_edges_equal_plain(cuda, c, t, tc, kw, clamp):
+    """K3 (and its ``clamp=``) with fine lengths other than the kernel's
+    chunk, a forced plan, and a fine table too long to stage."""
+    from idsp_tpu_torch.filters.ddc_cuda import launch_plan
+
+    plan = (launch_plan([5, 10, 23], 2 * c, fastlo=True, time_chunk=tc, **kw)
+            if kw else None)
+    rng = np.random.default_rng(69)
+    p0 = _i32(rng, (c,), device=cuda)
+    steps = _i32(rng, (c,), 1 << 24, 1 << 30, device=cuda)
+    st = biquad.df1_init((2 * c,), device=cuda)
+    tails = tuple(hbf1_tail_init(2 * c, m, device=cuda) for m in (5, 10, 23))
+    ph, st_p, tails_p, ph_p = p0, st, tails, p0
+    for _ in range(3):
+        x = _i32(rng, (t,), -(2**27), 2**27, device=cuda)
+        st, tails, ph, y = fastlo_ddc_cascade_bank(
+            BA_Q, st, tails, ph, steps, x, 29, clamp=clamp, time_chunk=tc,
+            _plan=plan)
+        st_p, tails_p, ph_p, y_p = fastlo_ddc_cascade_bank_plain(
+            BA_Q, st_p, tails_p, ph_p, steps, x, 29, clamp=clamp,
+            time_chunk=tc)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, tails, ph, y), (st_p.x, st_p.y, tails_p, ph_p, y_p))
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("clamp", CLAMPS[:2])
 def test_fastlo_cascade_clamp_kernel_equals_plain(cuda, clamp):
@@ -796,14 +903,21 @@ def test_fastlo_df1_dec_bank_clamp_kernel_equals_plain(cuda, clamp):
 
 @pytest.mark.requires_cuda
 def test_clamped_cascade_refused_launch_leaves_no_pending_error(cuda):
-    """K20 at a chunk of 4096 rows asks for 526 KB of shared memory a
-    block: the launch is refused and raises (no smaller chunk is taken),
-    and the next kernel of the library launches as usual."""
+    """A cascade plan of 1024-row chunks in 4 slots asks for 590 KB of
+    shared memory a block, and one whose bytes are not the kernel's own
+    sum is refused too: each launch is refused and raises (no smaller plan
+    is taken), and the next kernel of the library launches as usual."""
+    from idsp_tpu_torch.filters.ddc_cuda import cascade_smem, launch_plan
+
     st = biquad.df1_init((128,), device=cuda)
     xs = torch.ones((4096, 128), dtype=torch.int32, device=cuda)
-    with pytest.raises(RuntimeError):
-        df1_hbf1_bank(BA_Q, st, hbf1_tail_init(128, device=cuda), xs, 29,
-                      time_chunk=4096)
+    tails = tuple(hbf1_tail_init(128, m, device=cuda) for m in (5, 10, 23))
+    plan = launch_plan([5, 10, 23], 128)
+    for bad in (plan._replace(chunk=1024, ring=4,
+                              smem=cascade_smem([5, 10, 23], 1024, 4)),
+                plan._replace(smem=plan.smem + 16)):
+        with pytest.raises(RuntimeError):
+            df1_hbf_cascade_bank(BA_Q, st, tails, xs, 29, _plan=bad)
     _equal(df1_clamp_bank_q(BA_Q, st, xs, 29, lo=-5, hi=5),
            df1_clamp_bank_q_plain(BA_Q, st, xs, 29, lo=-5, hi=5))
 

@@ -325,3 +325,41 @@ def test_pipeline_model_unequal_pairs_and_chains(seed):
     _hold([b0, b1], 2, 45, int(rng.integers(1, 9)), 3, seed)
     _hold([b1], 2, 45, 7, 2, seed)
     _hold([[(EVERY, wdf.quantize(EVERY, EVERY_G))]], 2, 20, 6, 4, seed)
+
+
+@pytest.mark.parametrize("kernel", ["wdf_bank", "wdf_chain_bank",
+                                    "wdf_pair_bank"])
+def test_short_coefficient_set_raises_before_launch(kernel, monkeypatch):
+    """K38-K40 on the kernel's path (tensors on the meta device) with a
+    stage given fewer coefficients than adapters raise ValueError and
+    launch nothing: the flat coefficient list would otherwise hand the
+    stage its neighbour's coefficients (the plain version and JAX raise
+    for the same call)."""
+    from idsp_tpu_torch import _ext
+    from idsp_tpu_torch.filters import wdf_cuda
+
+    def refuse():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(_ext, "library", refuse)
+    meta = torch.device("meta")
+    c, t = 8, 16
+    xs = torch.zeros((t, c), dtype=torch.int32, device=meta)
+    da = [wdf.Tpa.D, wdf.Tpa.A]
+    short = (da, wdf.quantize(da, [-0.9, 0.9])[:1])  # 1 coefficient for 2
+    full = ([wdf.Tpa.A], wdf.quantize([wdf.Tpa.A], [0.8]))
+
+    def zero(stages):
+        return [wdf.init(len(tp), (c,), device=meta) for tp, _ in stages]
+
+    fn = getattr(wdf_cuda, kernel)
+    n0 = fn.launches
+    with pytest.raises(ValueError, match="needs 2 coefficients, got 1"):
+        if kernel == "wdf_bank":
+            fn(*short, zero([short])[0], xs)
+        elif kernel == "wdf_chain_bank":
+            fn([full, short], zero([full, short]), xs)
+        else:
+            fn([full], [short, full], (zero([full]), zero([short, full])),
+               xs)
+    assert fn.launches == n0
