@@ -21,7 +21,8 @@ Phases, each reported on its own line:
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
 2. the kernel build (nvcc, sm_90a, one process per source) and its time;
-3. each kernel against its plain version over 3 carried blocks, t=32768:
+3. each kernel against its plain version over 3 carried blocks, t=32768
+   (the plain calls timed, for phase 6 too):
    K1 `df1_bank_q`, K2 `df1_hbf_cascade_bank`, K3
    `fastlo_ddc_cascade_bank` at c=512 channels (1024 I|Q lanes); K4
    `lowpass_bank` (dec 16), K5 `pll_bank` (t/16 rows) and K6
@@ -34,8 +35,8 @@ Phases, each reported on its own line:
    (N=3, R=16, (32768, 512) i32 in +-2^16) and K10 `cic_int_bank`
    ((2048, 512) i32 in +-2^10); K11 `df1_bank_q_dec`, K12
    `fastlo_df1_dec_bank` and K13 `fastlo_ddc_bank_block` at c=1024,
-   d=16, time chunk 128; K14 `ddc_mix_df1_bank` (f32 out, x and steps
-   full range) at c=512 and 1024; K15 `fm_disc_bank` (exact and fast
+   d=16, time chunk 128; K14 `ddc_mix_df1_bank` (int32 and f32 out, x
+   and steps full range) at c=512 and 1024; K15 `fm_disc_bank` (exact and fast
    angle; c=512, IQ = cossin of random phases) and K16 `ddc_lockin_bank`
    (c=512, time chunk 512, x ~ N(0, 1), n0 carried); state, tails and
    outputs bit for bit (tolerance 0); K17 `channelize_fused` (f32 and
@@ -54,7 +55,12 @@ Phases, each reported on its own line:
    shapes that stress their kernel's rings and tiles (t one kernel chunk,
    t not a multiple of ring depth x chunk, c2 = 200 and 50, fine lengths
    32 and 256 against the kernel's chunk, K19 with the clamp engaged,
-   HBF_TAPS_98 at depth 4, forced plans) over 2 blocks, bit for bit; K22 `hbf_dec_cascade_mxu` ((32768, 512) f32) and K23
+   HBF_TAPS_98 at depth 4, forced plans) over 2 blocks, bit for bit; K14
+   (int32 and f32 out) and K15 (exact and fast) at the edges of their
+   depth-0 pipeline (PIPE_EDGES: forced plans of 1 and 11 producers, 2
+   and 14 slots, 1-row chunks; c = 100 and 50; t one chunk and 7 chunks
+   + 40 rows) over 2 blocks, bit for bit; K22 `hbf_dec_cascade_mxu`
+   ((32768, 512) f32) and K23
    `hbf_int_cascade_mxu` ((2048, 512) f32), depth 4, with HBF_TAPS and
    HBF_TAPS_98 from a random carried state, at two (block, sub) tilings,
    bit for bit (K22 also at the forced range counts MXU_RANGES), and one
@@ -207,14 +213,16 @@ Phases, each reported on its own line:
 5. every kernel's launch counter > 0 from its main path's run (the
    ``clamp=`` forms of K3 and K12 counted on their own; K41 summed over
    the ranks);
-6. CUDA-event times of each kernel and its plain version (one call of
-   each plain version and ``scan``, `ONCE`), of the plain layers around
+6. CUDA-event times of each kernel and its plain version (the plain
+   calls timed in phase 3; one call, `ONCE`, of ``scan`` and of K1-K3's
+   plain versions at c=1024), of the plain
+   layers around
    them (exact mix, time-major HBF, fast mix, atan2),
    chain rates (every mode but ``scan`` with its busy share) at c=512
    and c=1024 and bank rates at c=1024, in c*t full-rate samples/s,
    t=32768 (K14, K18-K21 and K3's clamp form at c=512 and 1024, their
-   plain versions' times from phase 3; K2, K3, K19-K21 and K3's clamp
-   form also by their profiler spans, device ms a launch, and K2 beside
+   plain versions' times from phase 3; K2, K3, K14, K19-K21 and K3's
+   clamp form also by their profiler spans, device ms a launch, and K2 beside
    "K1 then K7", the two-kernel composition it fuses; K11-K13, K12's clamp form and the
    biquad bank's five modes at c=1024); K7-K10 and K22-K23 (also at
    their second tiling; K7, K8, K22 and K23 also by their profiler
@@ -224,8 +232,9 @@ Phases, each reported on its own line:
    library yardsticks (grouped `F.conv1d` per half-band stage, TF32
    off; chained `torch.cumsum` and `torch.diff` for the CIC),
    round-trip and composite
-   rates at c=512 and 1024; K15 (both angles) and K16 at c=512 with the
-   FM and lock-in modes' block times; K17 (bf16 and f32) at n=1024 and
+   rates at c=512 and 1024; K15 (both angles; also by its profiler
+   spans, device ms a launch) and K16 at c=512 with the FM and lock-in
+   modes' block times; K17 (bf16 and f32) at n=1024 and
    16384 with its launch plan and its device ms a launch (profiler
    spans), and the forced 64-frame plan's time, beside its plain version and its library yardstick (the FIR in
    torch ops and `torch.matmul` of the four products, TF32 off), with
@@ -321,8 +330,8 @@ HBF_RANGE_CASES = ((1, 200, 3, "HBF_TAPS_98"), (2, C_RATE, 1, "HBF_TAPS"),
 HBF_CHUNKS = {"hbf_dec_cascade_bank": (128, 256, 512),
               "hbf_int_cascade_bank": (16, 32, 64)}
 HBF_BLOCKS_PER_SM = (1, 2, 4, 8)
-# the device symbols of the half-band cascade, channelizer, WDF and fused
-# DDC-cascade kernels, for their device time
+# the device symbols of the half-band cascade, channelizer, WDF, fused
+# DDC-cascade, K14 and K15 kernels, for their device time
 DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "hbf_int_cascade_bank": "hbf_int_cascade_kernel",
                   "hbf_dec_cascade_mxu": "hbf_dec_mma_kernel",
@@ -342,7 +351,10 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "df1_clamp_hbf_cascade_bank": "ddc_cascade_kernel",
                   "df1_hbf1_bank": "ddc_cascade_kernel",
                   "df1_hbf12_bank": "ddc_cascade_kernel",
-                  "fastlo_ddc_cascade_bank_clamp": "ddc_cascade_kernel"}
+                  "fastlo_ddc_cascade_bank_clamp": "ddc_cascade_kernel",
+                  "ddc_mix_df1_bank": "ddc_mix_df1_kernel",
+                  "fm_disc_bank": "fm_disc_kernel",
+                  "fm_disc_bank_fast": "fm_disc_kernel"}
 # The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
 # the chain's mixed stream the 0.02 lowpass output peaks near 2.6e7, under
 # the 2^26 bound of tests/test_biquad_pallas.py:896, so that bound never
@@ -1759,9 +1771,193 @@ def check_cascade_edges(dev, i32, errs, ba):
         f"forced plans; K19's clamp pinned {share:.4%} of the DF1 outputs)")
 
 
-def check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba):
+def check_chain_bank_kernels(dev, i32, i64, errs, plain_s, ba, lp_gains,
+                             pll_ba):
+    """Phase 3 for K1-K3 at c = C_MAIN and K4-K6 at c = C_BANK (d = DEC,
+    time chunk TC), each over BLOCKS carried blocks of T rows against its
+    plain version, tolerance 0, its plain calls timed into plain_s."""
+    import torch
+    from idsp_tpu_torch.filters import biquad, lowpass, pll
+    from idsp_tpu_torch.filters.biquad_cuda import df1_bank_q, df1_bank_q_plain
+    from idsp_tpu_torch.filters.ddc_bank_cuda import (
+        fastlo_ddc_bank_block_lp, fastlo_ddc_bank_block_lp_plain,
+    )
+    from idsp_tpu_torch.filters.ddc_cuda import (
+        df1_hbf_cascade_bank, df1_hbf_cascade_bank_plain,
+        fastlo_ddc_cascade_bank, fastlo_ddc_cascade_bank_plain,
+        hbf1_tail_init,
+    )
+    from idsp_tpu_torch.filters.lowpass_cuda import (
+        lowpass_bank, lowpass_bank_plain,
+    )
+    from idsp_tpu_torch.filters.pll_cuda import pll_bank, pll_bank_plain
+    from idsp_tpu_torch.ops.unwrap import ClampWrapState
+
+    c2 = 2 * C_MAIN
+    taps_ms = (5, 10, 23)
+    errs["df1_bank_q"] = hold(
+        "df1_bank_q",
+        lambda s, xs: df1_bank_q(ba, s, xs, 29, out_dtype=torch.float32),
+        lambda s, xs: df1_bank_q_plain(ba, s, xs, 29,
+                                       out_dtype=torch.float32),
+        (biquad.Df1State(x=i32((c2, 2)), y=i32((c2, 2))),),
+        lambda: i32((T, c2)), plain_s)
+    log(f"phase 3 K1 df1_bank_q == plain over {BLOCKS} blocks "
+        f"(c2={c2}, t={T}): max |d| {errs['df1_bank_q']}")
+
+    errs["df1_hbf_cascade_bank"] = hold(
+        "df1_hbf_cascade_bank",
+        lambda s, tl, xs: df1_hbf_cascade_bank(ba, s, tl, xs, 29,
+                                               time_chunk=TC),
+        lambda s, tl, xs: df1_hbf_cascade_bank_plain(ba, s, tl, xs, 29),
+        (biquad.df1_init((c2,), device=dev),
+         tuple(hbf1_tail_init(c2, m, device=dev) for m in taps_ms)),
+        lambda: i32((T, c2), -(2**27), 2**27), plain_s)
+    log(f"phase 3 K2 df1_hbf_cascade_bank == plain over {BLOCKS} blocks "
+        f"(t={T}): max |d| {errs['df1_hbf_cascade_bank']}")
+
+    steps = i32((C_MAIN,), 1 << 24, 1 << 30)
+    errs["fastlo_ddc_cascade_bank"] = hold(
+        "fastlo_ddc_cascade_bank",
+        lambda s, tl, p0, x: fastlo_ddc_cascade_bank(
+            ba, s, tl, p0, steps, x, 29, time_chunk=TC),
+        lambda s, tl, p0, x: fastlo_ddc_cascade_bank_plain(
+            ba, s, tl, p0, steps, x, 29, time_chunk=TC),
+        (biquad.df1_init((c2,), device=dev),
+         tuple(hbf1_tail_init(c2, m, device=dev) for m in taps_ms),
+         i32((C_MAIN,))),
+        lambda: i32((T,), -(2**27), 2**27), plain_s)
+    log(f"phase 3 K3 fastlo_ddc_cascade_bank == plain over {BLOCKS} blocks "
+        f"(t={T}): max |d| {errs['fastlo_ddc_cascade_bank']}")
+
+    # K4-K6 at the bank's width: c = 1024 channels, 2048 I|Q lanes
+    cb2 = 2 * C_BANK
+    errs["lowpass_bank"] = hold(
+        "lowpass_bank",
+        lambda s, xs: lowpass_bank(lp_gains, s, xs, dec=DEC),
+        lambda s, xs: lowpass_bank_plain(lp_gains, s, xs, dec=DEC),
+        (lowpass.LowpassState(p=i64((cb2, 2), -(2**50), 2**50)),),
+        # full range: the saturating subtraction too
+        lambda: i32((T, cb2)), plain_s)
+    log(f"phase 3 K4 lowpass_bank == plain over {BLOCKS} blocks "
+        f"(lanes={cb2}, t={T}, dec={DEC}): max |d| "
+        f"{errs['lowpass_bank']}")
+
+    errs["pll_bank"] = hold(
+        "pll_bank",
+        lambda s, ph: pll_bank(pll_ba, s, ph),
+        lambda s, ph: pll_bank_plain(pll_ba, s, ph),
+        (pll.PllState(
+            clamp=ClampWrapState(
+                x0=i32((C_BANK,)),
+                clamp=i32((C_BANK,), -1, 2).to(torch.int8)),
+            z0=i32((C_BANK,)), y0=i32((C_BANK,)), f0=i64((C_BANK,)),
+            f=i64((C_BANK,)), y=i32((C_BANK,))),),
+        lambda: i32((T // DEC, C_BANK)), plain_s)
+    log(f"phase 3 K5 pll_bank == plain over {BLOCKS} blocks "
+        f"(c={C_BANK}, rows={T // DEC}): max |d| "
+        f"{errs['pll_bank']}")
+
+    steps = i32((C_BANK,), 1 << 24, 1 << 30)
+    errs["fastlo_ddc_bank_block_lp"] = hold(
+        "fastlo_ddc_bank_block_lp",
+        lambda lp, pl, p0, x: fastlo_ddc_bank_block_lp(
+            lp_gains, pll_ba, lp, pl, p0, steps, x, d=DEC, time_chunk=TC),
+        lambda lp, pl, p0, x: fastlo_ddc_bank_block_lp_plain(
+            lp_gains, pll_ba, lp, pl, p0, steps, x, d=DEC, time_chunk=TC),
+        (lowpass.init(2, (cb2,), device=dev),
+         pll.init((C_BANK,), device=dev), i32((C_BANK,))),
+        lambda: i32((T,), -(2**27), 2**27), plain_s)
+    log(f"phase 3 K6 fastlo_ddc_bank_block_lp == plain over {BLOCKS} "
+        f"blocks (c={C_BANK}, t={T}, d={DEC}, "
+        f"time_chunk={TC}): max |d| {errs['fastlo_ddc_bank_block_lp']}")
+
+
+# K14 and K15 at the edges of their depth-0 pipeline (csrc/df1_ring.cuh),
+# as tests/test_torch_kernels.py PIPE_EDGES: (c, t, plan keywords)
+PIPE_EDGES = {
+    "1 producer, 2 slots": (100, 7 * 64 + 40, dict(producers=1, chunk=64,
+                                                   ring=2)),
+    "most producers": (50, 7 * 64 + 40, dict(producers=11, warps=16,
+                                             chunk=64)),
+    "most slots": (100, 7 * 64 + 40, dict(chunk=64, ring=14)),
+    "chunk 1": (50, 40, dict(chunk=1, ring=2)),
+    "t = one chunk": (100, 256, {}),
+    "t = 7 chunks + 40": (50, 7 * 256 + 40, {}),
+}
+
+
+def check_pipe_edges(dev, i32, errs, ba):
+    """Phase 3 for K14 (int32 and f32 out) and K15 (exact and fast) at
+    PIPE_EDGES: forced plans (1 and the most producers, 2 slots and the
+    most, 1-row chunks), c = 100 and 50 (not multiples of
+    the 32-lane tile; 4-byte stores for K15's 50 channels), t = one chunk
+    and 7 chunks + 40 (K15 there also at the other CTAs a tile than its
+    angle's default); each over 2 carried blocks against its plain
+    version, tolerance 0 (into errs under the kernel's own name)."""
+    import torch
+    from idsp_tpu_torch.filters import biquad
+    from idsp_tpu_torch.filters.ddc_cuda import (
+        ddc_mix_df1_bank, ddc_mix_df1_bank_plain, mix_plan,
+    )
+    from idsp_tpu_torch.filters.fm_cuda import (
+        DISC_CLUSTER, disc_plan, fm_disc_bank, fm_disc_bank_plain,
+    )
+    from idsp_tpu_torch.pipelines import fm_disc
+
+    ba_fm = fm_disc.deemphasis_coefficients(0.02)
+    for label, (c, t, kw) in PIPE_EDGES.items():
+        mplan = mix_plan(2 * c, **kw) if kw else None
+        stp = i32((c,))
+        for od in (None, torch.float32):
+            st = biquad.Df1State(x=i32((2 * c, 2)),
+                                 y=i32((2 * c, 2), -(2**28), 2**28))
+            errs["ddc_mix_df1_bank"] = max(errs["ddc_mix_df1_bank"], hold(
+                f"ddc_mix_df1_bank ({label})",
+                lambda s, ph, x, od=od, p=mplan: ddc_mix_df1_bank(
+                    ba, s, ph, stp, x, 29, out_dtype=od, _plan=p),
+                lambda s, ph, x, od=od: ddc_mix_df1_bank_plain(
+                    ba, s, ph, stp, x, 29, out_dtype=od),
+                (st, i32((c,))), lambda t=t: i32((t,)), blocks=2))
+        for angle in ("exact", "fast"):
+            fplan = disc_plan(c, angle, **kw) if kw else None
+            st = fm_disc.FmDiscState(
+                prev_re=i32((c,)), prev_im=i32((c,)),
+                prev_valid=torch.arange(c, device=dev) % 3 == 0,
+                deemph=biquad.Df1State(x=i32((c, 2)),
+                                       y=i32((c, 2), -(2**28), 2**28)))
+            errs["fm_disc_bank"] = max(errs["fm_disc_bank"], hold(
+                f"fm_disc_bank ({label})",
+                lambda s, iq, a=angle, p=fplan: fm_disc_bank(
+                    ba_fm, s, *iq, FM_CARRIER, angle=a, _plan=p),
+                lambda s, iq, a=angle: fm_disc_bank_plain(
+                    ba_fm, s, *iq, FM_CARRIER, angle=a),
+                (st,), lambda t=t, c=c: (i32((t, c)), i32((t, c))),
+                blocks=2))
+        if label.startswith("t = 7"):  # K15 at the other CTAs a tile
+            for angle in ("exact", "fast"):
+                st = fm_disc.init_state((c,), device=dev)
+                other = disc_plan(c, angle,
+                                  cluster=3 - DISC_CLUSTER[angle])
+                errs["fm_disc_bank"] = max(errs["fm_disc_bank"], hold(
+                    f"fm_disc_bank ({label}, cluster {other.cluster})",
+                    lambda s, iq, a=angle, p=other: fm_disc_bank(
+                        ba_fm, s, *iq, FM_CARRIER, angle=a, _plan=p),
+                    lambda s, iq, a=angle: fm_disc_bank_plain(
+                        ba_fm, s, *iq, FM_CARRIER, angle=a),
+                    (st,), lambda t=t, c=c: (i32((t, c)), i32((t, c))),
+                    blocks=2))
+    log(f"phase 3 K14 (int32 and f32 out) and K15 (exact and fast; its "
+        f"exact angle a cluster of 2 CTAs a tile, and each angle once at "
+        f"the other) at the depth-0 pipeline's edges == plain over 2 "
+        f"blocks each ({', '.join(PIPE_EDGES)}; c = 100 and 50)")
+
+
+def check_biquad_kernels(dev, i32, errs, plain_s, ba, ba_bank, pll_ba):
     """Phase 3 for K11-K14 at full width: K11-K13 at c = C_BANK (d = 16,
-    time chunk TC), K14 at c = C_MAIN and C_WIDE with f32 output."""
+    time chunk TC), K14 at c = C_MAIN and C_WIDE with int32 and f32
+    output, each over BLOCKS carried blocks; plain calls timed into plain_s
+    (K14's f32 under ``ddc_mix_df1_bank c=<c>``)."""
     from idsp_tpu_torch.filters import biquad, pll
     from idsp_tpu_torch.filters.biquad_cuda import (
         df1_bank_q_dec, df1_bank_q_dec_plain,
@@ -1789,21 +1985,22 @@ def check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba):
         "df1_bank_q_dec",
         lambda s, xs: df1_bank_q_dec(ba_bank, s, xs, 29, d=DEC),
         lambda s, xs: df1_bank_q_dec_plain(ba_bank, s, xs, 29, d=DEC),
-        (df1_state(cb2),), lambda: i32((T, cb2)))
+        (df1_state(cb2),), lambda: i32((T, cb2)), plain_s)
     errs["fastlo_df1_dec_bank"] = hold(
         "fastlo_df1_dec_bank",
         lambda s, ph, x: fastlo_df1_dec_bank(ba_bank, s, ph, steps, x, 29,
                                              **kw),
         lambda s, ph, x: fastlo_df1_dec_bank_plain(ba_bank, s, ph, steps, x,
                                                    29, **kw),
-        (df1_state(cb2), i32((c,))), wide)
+        (df1_state(cb2), i32((c,))), wide, plain_s)
     errs["fastlo_ddc_bank_block"] = hold(
         "fastlo_ddc_bank_block",
         lambda s, p, ph, x: fastlo_ddc_bank_block(ba_bank, pll_ba, s, p, ph,
                                                   steps, x, 29, **kw),
         lambda s, p, ph, x: fastlo_ddc_bank_block_plain(
             ba_bank, pll_ba, s, p, ph, steps, x, 29, **kw),
-        (df1_state(cb2), pll.init((c,), device=dev), i32((c,))), wide)
+        (df1_state(cb2), pll.init((c,), device=dev), i32((c,))), wide,
+        plain_s)
     log(f"phase 3 K11 df1_bank_q_dec, K12 fastlo_df1_dec_bank, K13 "
         f"fastlo_ddc_bank_block == plain over {BLOCKS} blocks (c={c}, "
         f"t={T}, d={DEC}, time_chunk={TC}): max |d| "
@@ -1812,16 +2009,20 @@ def check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba):
     err = 0.0
     for c in (C_MAIN, C_WIDE):
         stp = i32((c,))  # full-range frequency words: every LO octant
-        err = max(err, hold(
-            "ddc_mix_df1_bank",
-            lambda s, ph, x: ddc_mix_df1_bank(ba, s, ph, stp, x, 29,
-                                              out_dtype=torch.float32),
-            lambda s, ph, x: ddc_mix_df1_bank_plain(
-                ba, s, ph, stp, x, 29, out_dtype=torch.float32),
-            (df1_state(2 * c), i32((c,))), lambda: i32((T,))))
+        for od in (None, torch.float32):
+            k14_s = {}
+            err = max(err, hold(
+                "ddc_mix_df1_bank",
+                lambda s, ph, x, od=od: ddc_mix_df1_bank(
+                    ba, s, ph, stp, x, 29, out_dtype=od),
+                lambda s, ph, x, od=od: ddc_mix_df1_bank_plain(
+                    ba, s, ph, stp, x, 29, out_dtype=od),
+                (df1_state(2 * c), i32((c,))), lambda: i32((T,)), k14_s))
+        plain_s[f"ddc_mix_df1_bank c={c}"] = k14_s["ddc_mix_df1_bank"]
     errs["ddc_mix_df1_bank"] = err
-    log(f"phase 3 K14 ddc_mix_df1_bank (f32 out) == plain over {BLOCKS} "
-        f"blocks at c={C_MAIN} and {C_WIDE} (x full range): max |d| {err}")
+    log(f"phase 3 K14 ddc_mix_df1_bank (int32 and f32 out) == plain over "
+        f"{BLOCKS} blocks at c={C_MAIN} and {C_WIDE} (x full range): max "
+        f"|d| {err}")
 
 
 def biquad_bank_main_path(dev, i32, rng, ba_bank, pll_ba, wrappers):
@@ -2037,9 +2238,11 @@ def near(got, want, scale, rel=2e-5):
     return err
 
 
-def check_slice5_kernels(dev, rng, errs):
+def check_slice5_kernels(dev, rng, errs, plain_s):
     """Phase 3 for K15-K17: K15 (both angles) and K16 bit for bit over
-    BLOCKS carried blocks at c = 512, t = T; K17 (`check_k17`)."""
+    BLOCKS carried blocks at c = 512, t = T, plain calls
+    timed into plain_s (K15 fast under ``fm_disc_bank_fast``); K17
+    (`check_k17`)."""
     import torch
     from idsp_tpu_torch.filters.ddc_lockin_cuda import (
         ddc_lockin_bank, ddc_lockin_bank_plain,
@@ -2049,7 +2252,9 @@ def check_slice5_kernels(dev, rng, errs):
 
     ba_fm = fm_disc.deemphasis_coefficients(0.02)
     err = 0.0
-    for angle in ("exact", "fast"):
+    for angle, key in (("exact", "fm_disc_bank"),
+                       ("fast", "fm_disc_bank_fast")):
+        k15_s = {}
         e = hold(
             "fm_disc_bank",
             lambda s, iq: fm_disc_bank(ba_fm, s, *iq, FM_CARRIER,
@@ -2057,7 +2262,8 @@ def check_slice5_kernels(dev, rng, errs):
             lambda s, iq: fm_disc_bank_plain(ba_fm, s, *iq, FM_CARRIER,
                                              angle=angle),
             (fm_disc.init_state((C_FM,), device=dev),),
-            lambda: fm_inputs(dev, rng))
+            lambda: fm_inputs(dev, rng), k15_s)
+        plain_s[key] = k15_s["fm_disc_bank"]
         err = max(err, e)
     errs["fm_disc_bank"] = err
     log(f"phase 3 K15 fm_disc_bank (exact and fast angle) == plain over "
@@ -2065,14 +2271,15 @@ def check_slice5_kernels(dev, rng, errs):
         f"max |d| {err}")
 
     lo_fs, ba_lk = lockin_setup()
-    n0 = iter(range(0, BLOCKS * T, T))
+    n0 = iter(range(0, BLOCKS * T, T))  # the sample index carried on
+
     errs["ddc_lockin_bank"] = hold(
         "ddc_lockin_bank",
         lambda s, xn: ddc_lockin_bank(ba_lk, s, *xn, time_chunk=TC_LOCKIN),
         lambda s, xn: ddc_lockin_bank_plain(ba_lk, s, *xn,
                                             time_chunk=TC_LOCKIN),
         (biquad_f32_state(dev, rng, 2 * C_LOCKIN),),
-        lambda: (normal_f32(dev, rng, (T,)), lo_fs, next(n0)))
+        lambda: (normal_f32(dev, rng, (T,)), lo_fs, next(n0)), plain_s)
     log(f"phase 3 K16 ddc_lockin_bank == plain over {BLOCKS} blocks "
         f"(c={C_LOCKIN}, t={T}, time_chunk={TC_LOCKIN}, x ~ N(0, 1)): "
         f"max |d| {errs['ddc_lockin_bank']}")
@@ -2407,15 +2614,16 @@ def channelizer_library(zr, zi, tw):
     return run
 
 
-def time_slice5(dev, rng, card, timings):
-    """Phase 6 for BASELINE #1-#3: K15-K17 beside their plain versions (and
-    K17 beside its library yardstick), the modes' block times and rates,
-    busy shares of the kernel modes."""
+def time_slice5(dev, rng, card, timings, plain_s):
+    """Phase 6 for BASELINE #1-#3: K15-K17 beside their plain versions
+    (K15's and K16's timed in phase 3; K17 also beside its library
+    yardstick), the modes' block times and rates, busy shares of the
+    kernel modes."""
     import torch
     from idsp_tpu_torch.filters.ddc_lockin_cuda import (
-        ddc_lockin_bank, ddc_lockin_bank_plain,
+        ddc_lockin_bank,
     )
-    from idsp_tpu_torch.filters.fm_cuda import fm_disc_bank, fm_disc_bank_plain
+    from idsp_tpu_torch.filters.fm_cuda import fm_disc_bank
     from idsp_tpu_torch.pipelines import channelizer as chz
     from idsp_tpu_torch.pipelines import fm_disc
     from idsp_tpu_torch.pipelines.channelizer_cuda import (
@@ -2440,11 +2648,15 @@ def time_slice5(dev, rng, card, timings):
     st0 = fm_disc.init_state((C_FM,), device=dev)
     for angle, name in (("exact", "fm_disc_bank"),
                         ("fast", "fm_disc_bank_fast")):
-        k_s, _ = measure_rate(lambda s: fm_disc_bank(
-            ba, s, re, im, FM_CARRIER, angle=angle), st0, iters=20, trials=3)
-        p_s, _ = measure_rate(lambda s: fm_disc_bank_plain(
-            ba, s, re, im, FM_CARRIER, angle=angle), st0, **ONCE)
-        record(name, C_FM, k_s, p_s, note=f"c={C_FM} ({angle} angle)")
+        def kern(s, angle=angle):
+            return fm_disc_bank(ba, s, re, im, FM_CARRIER, angle=angle)
+
+        k_s, _ = measure_rate(kern, st0, iters=20, trials=3)
+        p_s = plain_s[name]
+        dev_ms = launch_device_ms(name, kern, st0)
+        record(name, C_FM, k_s, p_s, note=f"c={C_FM} ({angle} angle), "
+               f"device {dev_ms} ms a launch (profiler spans)")
+        timings["kernels"][name][C_FM]["device_ms"] = dev_ms
     timings["fm_samples_per_s"] = {}
     for m in fm_disc.MODES:
         rx = FmReceiver(m, ba, FM_CARRIER, C_FM, device=dev)
@@ -2463,8 +2675,7 @@ def time_slice5(dev, rng, card, timings):
     sl0 = biquad_f32_state(dev, rng, 2 * C_LOCKIN)
     k_s, _ = measure_rate(lambda s: ddc_lockin_bank(
         ba_lk, s, x, lo_fs, 0, time_chunk=TC_LOCKIN), sl0, iters=20, trials=3)
-    p_s, _ = measure_rate(lambda s: ddc_lockin_bank_plain(
-        ba_lk, s, x, lo_fs, 0, time_chunk=TC_LOCKIN), sl0, **ONCE)
+    p_s = plain_s["ddc_lockin_bank"]
     record("ddc_lockin_bank", C_LOCKIN, k_s, p_s, note=f"c={C_LOCKIN}")
     timings["lockin_samples_per_s"] = {}
     for m in ("scan", "kernel"):
@@ -4075,31 +4286,26 @@ def main():
     from idsp_tpu_torch.filters import biquad
     from idsp_tpu_torch.filters.biquad_cuda import (
         df1_bank_f32, df1_bank_q, df1_bank_q16, df1_bank_q64,
-        df1_bank_q_coef, df1_bank_q_dec, df1_bank_q_dec_plain,
-        df1_bank_q_plain, df1_clamp_bank_q, df1_clamp_bank_q_coef,
-        df1_dither_bank, df1_dither_bank_coef, df1_wide_bank,
-        df1_wide_bank_coef, sos_bank_q,
+        df1_bank_q_coef, df1_bank_q_dec, df1_bank_q_plain, df1_clamp_bank_q,
+        df1_clamp_bank_q_coef, df1_dither_bank,
+        df1_dither_bank_coef, df1_wide_bank, df1_wide_bank_coef, sos_bank_q,
     )
     from idsp_tpu_torch.filters.ddc_cuda import (
-        ddc_mix_df1_bank, ddc_mix_df1_bank_plain,
-        df1_clamp_hbf_cascade_bank, df1_hbf1_bank, df1_hbf12_bank,
-        df1_hbf_cascade_bank, df1_hbf_cascade_bank_plain,
+        ddc_mix_df1_bank, df1_clamp_hbf_cascade_bank, df1_hbf1_bank,
+        df1_hbf12_bank, df1_hbf_cascade_bank, df1_hbf_cascade_bank_plain,
         fastlo_ddc_cascade_bank, fastlo_ddc_cascade_bank_plain,
         hbf1_tail_init,
     )
     from idsp_tpu_torch.filters import lowpass, pll
     from idsp_tpu_torch.filters.ddc_bank_cuda import (
         fastlo_ddc_bank_block, fastlo_ddc_bank_block_lp,
-        fastlo_ddc_bank_block_lp_plain, fastlo_ddc_bank_block_plain,
-        fastlo_df1_dec_bank, fastlo_df1_dec_bank_plain,
+        fastlo_df1_dec_bank,
     )
     from idsp_tpu_torch.filters.hbf import (
         HBF_TAPS, hbf_dec_cascade, hbf_dec_cascade_init,
     )
-    from idsp_tpu_torch.filters.lowpass_cuda import (
-        lowpass_bank, lowpass_bank_plain,
-    )
-    from idsp_tpu_torch.filters.pll_cuda import pll_bank, pll_bank_plain
+    from idsp_tpu_torch.filters.lowpass_cuda import lowpass_bank
+    from idsp_tpu_torch.filters.pll_cuda import pll_bank
     from idsp_tpu_torch.filters.cic_cuda import cic_dec_bank, cic_int_bank
     from idsp_tpu_torch.filters.hbf_cuda import (
         hbf_dec_cascade_bank, hbf_int_cascade_bank,
@@ -4121,7 +4327,6 @@ def main():
     from idsp_tpu_torch.ops import accu
     from idsp_tpu_torch.ops.fastlo import fastlo_mix
     from idsp_tpu_torch.ops.trig import atan2, cossin
-    from idsp_tpu_torch.ops.unwrap import ClampWrapState
     from idsp_tpu_torch.pipelines.ddc_bank import DdcBank, make_tone_bank
     from idsp_tpu_torch.profiling import measure_rate
 
@@ -4164,108 +4369,16 @@ def main():
     taps_ms = (5, 10, 23)
     errs = {}
 
-    st = biquad.Df1State(x=i32((c2, 2)), y=i32((c2, 2)))
-    err = 0.0
-    for _ in range(BLOCKS):
-        xs = i32((T, c2))
-        got = df1_bank_q(ba, st, xs, 29, out_dtype=torch.float32)
-        want = df1_bank_q_plain(ba, st, xs, 29, out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        err = max(err, compare("df1_bank_q", got, want))
-        st = got[0]
-    errs["df1_bank_q"] = err
-    log(f"phase 3 K1 df1_bank_q == plain over {BLOCKS} blocks "
-        f"(c2={c2}, t={T}): max |d| {err}")
-
-    st = biquad.df1_init((c2,), device=dev)
-    tails = tuple(hbf1_tail_init(c2, m, device=dev) for m in taps_ms)
-    err = 0.0
-    for _ in range(BLOCKS):
-        xs = i32((T, c2), -(2**27), 2**27)
-        got = df1_hbf_cascade_bank(ba, st, tails, xs, 29, time_chunk=TC)
-        want = df1_hbf_cascade_bank_plain(ba, st, tails, xs, 29)
-        torch.cuda.synchronize()
-        err = max(err, compare("df1_hbf_cascade_bank", got, want))
-        st, tails = got[0], got[1]
-    errs["df1_hbf_cascade_bank"] = err
-    log(f"phase 3 K2 df1_hbf_cascade_bank == plain over {BLOCKS} blocks: "
-        f"max |d| {err}")
-
-    st = biquad.df1_init((c2,), device=dev)
-    tails = tuple(hbf1_tail_init(c2, m, device=dev) for m in taps_ms)
-    ph = i32((C_MAIN,))
-    steps = i32((C_MAIN,), 1 << 24, 1 << 30)
-    err = 0.0
-    for _ in range(BLOCKS):
-        x = i32((T,), -(2**27), 2**27)
-        got = fastlo_ddc_cascade_bank(ba, st, tails, ph, steps, x, 29,
-                                      time_chunk=TC)
-        want = fastlo_ddc_cascade_bank_plain(ba, st, tails, ph, steps, x, 29,
-                                             time_chunk=TC)
-        torch.cuda.synchronize()
-        err = max(err, compare("fastlo_ddc_cascade_bank", got, want))
-        st, tails, ph = got[0], got[1], got[2]
-    errs["fastlo_ddc_cascade_bank"] = err
-    log(f"phase 3 K3 fastlo_ddc_cascade_bank == plain over {BLOCKS} blocks: "
-        f"max |d| {err}")
-
-    # K4-K6 at the bank's width: c = 1024 channels, 2048 I|Q lanes
-    cb2 = 2 * C_BANK
-    st = lowpass.LowpassState(p=i64((cb2, 2), -(2**50), 2**50))
-    err = 0.0
-    for _ in range(BLOCKS):
-        xs = i32((T, cb2))  # full range: the saturating subtraction too
-        got = lowpass_bank(lp_gains, st, xs, dec=DEC)
-        want = lowpass_bank_plain(lp_gains, st, xs, dec=DEC)
-        torch.cuda.synchronize()
-        err = max(err, compare("lowpass_bank", got, want))
-        st = got[0]
-    errs["lowpass_bank"] = err
-    log(f"phase 3 K4 lowpass_bank == plain over {BLOCKS} blocks "
-        f"(lanes={cb2}, t={T}, dec={DEC}): max |d| {err}")
-
-    st = pll.PllState(
-        clamp=ClampWrapState(
-            x0=i32((C_BANK,)),
-            clamp=i32((C_BANK,), -1, 2).to(torch.int8)),
-        z0=i32((C_BANK,)), y0=i32((C_BANK,)), f0=i64((C_BANK,)),
-        f=i64((C_BANK,)), y=i32((C_BANK,)))
-    err = 0.0
-    for _ in range(BLOCKS):
-        ph = i32((T // DEC, C_BANK))
-        got = pll_bank(pll_ba, st, ph)
-        want = pll_bank_plain(pll_ba, st, ph)
-        torch.cuda.synchronize()
-        err = max(err, compare("pll_bank", got, want))
-        st = got[0]
-    errs["pll_bank"] = err
-    log(f"phase 3 K5 pll_bank == plain over {BLOCKS} blocks "
-        f"(c={C_BANK}, rows={T // DEC}): max |d| {err}")
-
-    carry = (lowpass.init(2, (cb2,), device=dev),
-             pll.init((C_BANK,), device=dev), i32((C_BANK,)))
-    steps = i32((C_BANK,), 1 << 24, 1 << 30)
-    err = 0.0
-    for _ in range(BLOCKS):
-        x = i32((T,), -(2**27), 2**27)
-        got = fastlo_ddc_bank_block_lp(lp_gains, pll_ba, *carry, steps, x,
-                                       d=DEC, time_chunk=TC)
-        want = fastlo_ddc_bank_block_lp_plain(lp_gains, pll_ba, *carry,
-                                              steps, x, d=DEC, time_chunk=TC)
-        torch.cuda.synchronize()
-        err = max(err, compare("fastlo_ddc_bank_block_lp", got, want))
-        carry = got[:3]
-    errs["fastlo_ddc_bank_block_lp"] = err
-    log(f"phase 3 K6 fastlo_ddc_bank_block_lp == plain over {BLOCKS} "
-        f"blocks (c={C_BANK}, t={T}, d={DEC}, time_chunk={TC}): "
-        f"max |d| {err}")
+    plain_s = {}  # phase 3's plain calls' times, read again in phase 6
+    check_chain_bank_kernels(dev, i32, i64, errs, plain_s, ba, lp_gains,
+                             pll_ba)
     check_rate_kernels(dev, rng, errs)
-    plain_s = {}  # K18-K23 and the clamp forms: their plain calls' times
     check_mxu_kernels(dev, rng, errs, plain_s)
-    check_biquad_kernels(dev, i32, errs, ba, ba_bank, pll_ba)
-    check_slice5_kernels(dev, rng, errs)
+    check_biquad_kernels(dev, i32, errs, plain_s, ba, ba_bank, pll_ba)
+    check_slice5_kernels(dev, rng, errs, plain_s)
     check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank)
     check_cascade_edges(dev, i32, errs, ba)
+    check_pipe_edges(dev, i32, errs, ba)
     check_control_kernels(dev, i32, i64, errs, plain_s)
     check_precision_kernels(dev, rng, errs, plain_s)
     check_structure_kernels(dev, rng, errs, plain_s)
@@ -4533,13 +4646,17 @@ def main():
                     ba, s, tails, ph0, stp, x, 29, time_chunk=TC)),
             "ddc_mix_df1_bank": (
                 lambda s: ddc_mix_df1_bank(ba, s, ph0, stp, x, 29,
-                                           out_dtype=torch.float32),
-                lambda s: ddc_mix_df1_bank_plain(ba, s, ph0, stp, x, 29,
-                                                 out_dtype=torch.float32)),
+                                           out_dtype=torch.float32), None),
         }
         for name, (kern, plain) in cases.items():
             k_s, _ = measure_rate(kern, st, iters=20, trials=3)
-            p_s, _ = measure_rate(plain, st, **ONCE)
+            # the plain calls timed in phase 3 on the same shapes (K1-K3's
+            # there at c = C_MAIN only, K14's at both widths)
+            key = f"{name} c={c}" if name == "ddc_mix_df1_bank" else name
+            if c == C_MAIN or plain is None:
+                p_s, where = plain_s[key], " (phase 3)"
+            else:
+                (p_s, _), where = measure_rate(plain, st, **ONCE), ""
             entry = timings["kernels"].setdefault(name, {})[c] = {
                 "ms": k_s * 1e3, "plain_ms": p_s * 1e3}
             note = ""
@@ -4547,7 +4664,7 @@ def main():
                 entry["device_ms"] = launch_device_ms(name, kern, st)
                 note = f", device {entry['device_ms']} ms a launch"
             log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms{note}, "
-                f"plain {p_s * 1e3:.2f} ms  [{card}]")
+                f"plain {p_s * 1e3:.2f} ms{where}  [{card}]")
         # the two-kernel composition K2 fuses: K1 (f32 out), then K7 on the
         # chain's three stages, on K2's input
         dec3 = hbf_dec_cascade_init(3, (c2,), axis=0, device=dev)
@@ -4631,13 +4748,10 @@ def main():
 
     cases = {
         "lowpass_bank": (
-            lambda s: lowpass_bank(lp_gains, s, xs, dec=DEC),
-            lambda s: lowpass_bank_plain(lp_gains, s, xs, dec=DEC), lp0),
-        "pll_bank": (lambda s: pll_bank(pll_ba, s, phd),
-                     lambda s: pll_bank_plain(pll_ba, s, phd), pll0),
-        "fastlo_ddc_bank_block_lp": (
-            k6(fastlo_ddc_bank_block_lp),
-            k6(fastlo_ddc_bank_block_lp_plain), (lp0, pll0)),
+            lambda s: lowpass_bank(lp_gains, s, xs, dec=DEC), lp0),
+        "pll_bank": (lambda s: pll_bank(pll_ba, s, phd), pll0),
+        "fastlo_ddc_bank_block_lp": (k6(fastlo_ddc_bank_block_lp),
+                                     (lp0, pll0)),
     }
 
     def k13(fn):
@@ -4650,25 +4764,19 @@ def main():
     bq0 = biquad.df1_init((2 * c,), device=dev)
     cases.update({
         "df1_bank_q_dec": (
-            lambda s: df1_bank_q_dec(ba_bank, s, xs, 29, d=DEC),
-            lambda s: df1_bank_q_dec_plain(ba_bank, s, xs, 29, d=DEC), bq0),
+            lambda s: df1_bank_q_dec(ba_bank, s, xs, 29, d=DEC), bq0),
         "fastlo_df1_dec_bank": (
             lambda s: fastlo_df1_dec_bank(ba_bank, s, ph0, bank_steps, x, 29,
-                                          d=DEC, time_chunk=TC),
-            lambda s: fastlo_df1_dec_bank_plain(ba_bank, s, ph0, bank_steps,
-                                                x, 29, d=DEC, time_chunk=TC),
-            bq0),
-        "fastlo_ddc_bank_block": (
-            k13(fastlo_ddc_bank_block), k13(fastlo_ddc_bank_block_plain),
-            (bq0, pll0)),
+                                          d=DEC, time_chunk=TC), bq0),
+        "fastlo_ddc_bank_block": (k13(fastlo_ddc_bank_block), (bq0, pll0)),
     })
-    for name, (kern, plain, st) in cases.items():
+    for name, (kern, st) in cases.items():
         k_s, _ = measure_rate(kern, st, iters=20, trials=3)
-        p_s, _ = measure_rate(plain, st, **ONCE)
+        p_s = plain_s[name]  # timed in phase 3 on the same shapes
         timings["kernels"].setdefault(name, {})[c] = {
             "ms": k_s * 1e3, "plain_ms": p_s * 1e3}
         log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
-            f"{p_s * 1e3:.2f} ms  [{card}]")
+            f"{p_s * 1e3:.2f} ms (phase 3)  [{card}]")
     name = "fastlo_df1_dec_bank_clamp"  # plain timed in phase 3
     k_s, _ = measure_rate(
         lambda s: fastlo_df1_dec_bank(ba_bank, s, ph0, bank_steps, x, 29,
@@ -4711,7 +4819,7 @@ def main():
             log_busy(timings, f"biquad_bank_{m}", c, sec, card, bank,
                      bank.init_state(), bq_x[0])
     time_rate(dev, rng, card, timings)
-    time_slice5(dev, rng, card, timings)
+    time_slice5(dev, rng, card, timings, plain_s)
     time_control(dev, i32, card, timings, plain_s)
     time_precision(dev, rng, card, timings, plain_s)
     time_structures(dev, rng, card, timings, plain_s)

@@ -56,7 +56,7 @@ _SIGNATURES = {
     "idsp_df1_dither_bank": [_P] * 8 + [_I] * 12 + [_P],
     "idsp_df1_dither_bank_coef": [_P] * 9 + [_I] * 7 + [_P],
     "idsp_ddc_cascade": [_P] * 13 + [_I] * 14 + [_P, _P] + [_I] * 5 + [_P],
-    "idsp_ddc_mix_df1": [_P] * 8 + [_I] * 9 + [_P],
+    "idsp_ddc_mix_df1": [_P] * 8 + [_I] * 14 + [_P],
     "idsp_lowpass_bank": [_P] * 4 + [_I] * 6 + [_P],
     "idsp_pll_bank": [_P] * 4 + [_I] * 5 + [_P],
     "idsp_ddc_bank_lp": [_P] * 11 + [_I] * 10 + [_P],
@@ -70,7 +70,7 @@ _SIGNATURES = {
     "idsp_hbf_mma_occupancy": [_I, _I, _P, _I, _I],
     "idsp_cic_dec_bank": [_P] * 4 + [_I] * 4 + [_P],
     "idsp_cic_int_bank": [_P] * 4 + [_I] * 4 + [_P],
-    "idsp_fm_disc_bank": [_P] * 13 + [_I] * 10 + [_P],
+    "idsp_fm_disc_bank": [_P] * 13 + [_I] * 16 + [_P],
     "idsp_ddc_lockin": [_P] * 10 + [_I] * 3 + [_F] * 5 + [_P],
     "idsp_channelize": [_P] * 10 + [_I] * 8 + [_P],
     "idsp_svf_bank": [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],

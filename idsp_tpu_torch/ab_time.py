@@ -1,5 +1,5 @@
-"""Time K1, K2, K3, K6, K7, K8, K17, K19, K22 "highest" and K38-K40 of
-two checkouts of the port in turns, in one process.
+"""Time K1, K2, K3, K6, K7, K8, K14, K15, K17, K19, K22 "highest" and
+K38-K40 of two checkouts of the port in turns, in one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -7,7 +7,8 @@ Usage (on a CUDA machine, from the root of a checkout)::
 
 ``--only`` keeps the kernels whose name contains one of the given
 substrings (e.g. ``--only highest,wdf``; K2, K3, K19: ``--only
-df1_hbf,fastlo_ddc_cascade,df1_clamp``).
+df1_hbf,fastlo_ddc_cascade,df1_clamp``; K14, K15: ``--only
+mix_df1,fm_disc``).
 
 Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
 loaded under a name of its own, so both live in this process, and each
@@ -26,9 +27,12 @@ each tree's default plan), K22 `hbf_dec_cascade_mxu` at precision
 "highest" on K7's inputs, and K38 `wdf_bank` (wdf-ca-7's first chain),
 K39 `wdf_chain_bank` (wdf-ca-19's branch 0) and K40 `wdf_pair_bank`
 (wdf-ca-7 and wdf-ca-19) at c = 1024 lanes of x in +-2^24, t = 32768
-(zero state, `chip_smoke.py`'s chains).  The two trees must compute the
-same words, K17 within 2e-5 of the scale (its sums run in another
-order).
+(zero state, `chip_smoke.py`'s chains), K14 `ddc_mix_df1_bank` (f32
+out; x, a zero phase, the K6 steps) at c = 512 and 1024, and K15
+`fm_disc_bank` (exact and fast angle; IQ full range, carrier 12345, the
+deemphasis lowpass at 0.02, zero state) at c = 512.  The two trees must
+compute the same words, K17 within 2e-5 of the scale (its sums run in
+another order).
 One sample is the CUDA-event time of ITERS launches on the same inputs,
 per launch.  Each of ROUNDS rounds r takes one sample of each tree in
 the order parent, change, change, parent (r even) or change, parent,
@@ -60,6 +64,7 @@ T, DEC, TC, DEPTH = 32768, 16, 128, 4
 M_CH, CH_TAPS, N_CH = 1024, 8, (1024, 16384)  # K17: branches, taps, frames
 ROUNDS, ITERS = 30, 20
 C_WDF = 1024  # K38-K40's lanes
+C_FM, FM_CARRIER = 512, 12345  # K15's channels and carrier word
 # wdf-ca-7 and wdf-ca-19 (benches/suite.py:442-500): per branch, stages of
 # (type nibbles, adapters, pole coefficients)
 WDF_CA7 = ([(0xAD, 2, [-0.9, 0.9]), (0xAD, 2, [-0.6, 0.7])],
@@ -91,7 +96,7 @@ def cases(alias: str, dev, inputs):
         "design", "filters.biquad", "filters.biquad_cuda", "filters.lowpass",
         "filters.pll", "filters.ddc_bank_cuda", "filters.hbf",
         "filters.hbf_cuda", "filters.hbf_mxu", "filters.wdf",
-        "filters.ddc_cuda",
+        "filters.ddc_cuda", "filters.fm_cuda", "pipelines.fm_disc",
         "filters.wdf_cuda", "pipelines.channelizer",
         "pipelines.channelizer_cuda")}
     biquad, lowpass, pll = (sub["filters.biquad"], sub["filters.lowpass"],
@@ -128,6 +133,17 @@ def cases(alias: str, dev, inputs):
                 ddc.df1_clamp_hbf_cascade_bank(
                     ba, st, tails, xs, 29, u=1 << 10, lo=-(1 << 23),
                     hi=1 << 23, time_chunk=TC))
+        out[f"ddc_mix_df1_bank c={c}"] = (
+            lambda st=st, c=c: ddc.ddc_mix_df1_bank(
+                ba, st, inputs["ph0"][:c], inputs["steps"][:c], inputs["x"],
+                29, out_dtype=torch.float32))
+    fm, fm_cuda = sub["pipelines.fm_disc"], sub["filters.fm_cuda"]
+    ba_fm = fm.deemphasis_coefficients(0.02)
+    for angle in ("exact", "fast"):
+        out[f"fm_disc_bank {angle} c={C_FM}"] = (
+            lambda st=fm.init_state((C_FM,), device=dev), angle=angle:
+            fm_cuda.fm_disc_bank(ba_fm, st, *inputs["iq"], FM_CARRIER,
+                                 angle=angle))
     lp0 = lowpass.init(2, (2048,), device=dev)
     pll0 = pll.init((1024,), device=dev)
     out["fastlo_ddc_bank_block_lp c=1024"] = lambda: k6(
@@ -230,6 +246,7 @@ def main() -> None:
         inputs[f"low{c}"] = torch.from_numpy(
             rng.normal(size=(T >> DEPTH, c)).astype(np.float32)).to(dev)
     inputs["wdf"] = i32((T, C_WDF), -(2**24), 2**24)
+    inputs["iq"] = (i32((T, C_FM)), i32((T, C_FM)))
     inputs.update(x=i32((T,), -(2**27), 2**27),
                   ph0=torch.zeros((1024,), dtype=torch.int32, device=dev),
                   steps=i32((1024,), 1 << 24, 1 << 30))

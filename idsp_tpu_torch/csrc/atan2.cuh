@@ -4,6 +4,9 @@
 // and `_atani_kernel`), which emulated the 64-bit products in 16-bit
 // limbs; here they are native 32x32->64 multiplies.
 //
+// The signed 32 x 32 -> 64 products are `mul_wide`'s one instruction
+// each (as a product of sign-extended words nvcc made four).
+//
 // Octant reduction with saturating negation (i32::MIN -> i32::MAX) and
 // an XOR unmap key; y/x in Q31 by a reciprocal seeded from a 16-entry
 // base/slope LUT and one Newton step; atan by an odd polynomial in
@@ -18,6 +21,7 @@
 
 #include <cstdint>
 
+#include "df1.cuh"  // mul_wide
 #include "seq_bank.cuh"
 
 namespace idsp {
@@ -72,7 +76,7 @@ __device__ __forceinline__ uint32_t divi(uint32_t y, uint32_t x0,
   const uint32_t rem = xn & ((1u << kFracBits) - 1);
   const uint32_t idx = (xn << 1) >> (1 + kFracBits);
   const uint32_t step = static_cast<uint32_t>(
-      (int64_t{lut.slope(idx)} * int64_t{rem}) >> kFracBits);
+      mul_wide(lut.slope(idx), static_cast<int32_t>(rem)) >> kFracBits);
   const uint32_t r0 = lut.base(idx) + step;  // wrapping u32 add
   const uint32_t r = mul_q31(y, mul_q31(r0, 0u - mul_q31(xn, r0)));
   return x0 ? r : 0u;
@@ -91,8 +95,8 @@ __device__ __forceinline__ uint32_t atani(uint32_t x) {
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
     // Q32<32> multiply: widen, >> 32, truncate to i32; wrapping add
-    const int32_t hi = static_cast<int32_t>(
-        static_cast<uint32_t>((int64_t{r} * x2) >> 32));
+    const int32_t hi =
+        static_cast<int32_t>(static_cast<uint32_t>(mul_wide(r, x2) >> 32));
     r = wadd32(hi, kAtani[i]);
   }
   return static_cast<uint32_t>((int64_t{r} * int64_t{x}) >> 28);

@@ -30,9 +30,10 @@
 // * A block is one tile of kLanes lanes and warps with roles (a tile of
 //   16 lanes, each warp's upper half idle, measured no faster: PERF.md
 //   §6).  Warp 0 runs the DF1 of every lane of the tile over the whole
-//   block of time, its state in registers,
-//   reading its input rows from shared memory only and touching device
-//   memory only for the state at each end.  The other warps on its
+//   block of time, its state in registers, reading its input rows from
+//   shared memory only and touching device memory only for the state at
+//   each end (df1_ring.cuh's DF1 warp, which K14 and K15 run too; its
+//   output ring here is stage 0's buffer).  The other warps on its
 //   scheduler (warp % 4 == 0) exit at once, so that no warp competes with
 //   its issue.  Of the rest, in order, `producers` warps feed it (K2:
 //   cp.async of the xs rows; K3: the fast-LO mix and its rounding,
@@ -66,6 +67,7 @@
 #include <cstdint>
 
 #include "df1.cuh"
+#include "df1_ring.cuh"
 #include "fastlo.cuh"
 #include "hbf_tile.cuh"
 #include "hopper.cuh"
@@ -79,18 +81,18 @@ using idsp::sm90::cp_async_arrive;
 using idsp::sm90::cp_async_wait_all;
 using idsp::sm90::Cursor;
 using idsp::sm90::mbar_arrive;
-using idsp::sm90::mbar_init;
 using idsp::sm90::mbar_wait;
 using idsp::sm90::smem_addr;
+using idsp::ring::Rings;
 using idsp::tile::kLanes;
 using idsp::tile::Taps;
+static_assert(kLanes == idsp::ring::kLanes, "the DF1 warp's lane tile");
 
 constexpr int kMaxSmem = 232448;  // bytes a block may have
-constexpr int kMaxWarps = 16;     // warps of a block
+constexpr int kMaxWarps = idsp::ring::kMaxWarps;  // warps of a block
 constexpr int kMinFir = 4;        // FIR warps of a block, at least
 constexpr int kMaxProducers = 4;
 constexpr uint32_t kFirBarrier = 1;  // the FIR warps' named barrier
-constexpr int kGroup = 8;  // DF1 rows whose inputs are read a group ahead
 
 // A launch's arguments (a kernel parameter).
 struct Args {
@@ -140,22 +142,6 @@ __host__ __device__ inline size_t smem_bytes(int rows, int chunk,
   return 32 * static_cast<size_t>(depth) +
          (static_cast<size_t>(depth) * chunk + rows) * kLanes * 4;
 }
-
-// Slot k's barriers: the input ring's full and empty, stage 0's full and
-// empty; and the input ring's slots.
-struct Rings {
-  uint32_t bars;
-  int32_t* in;
-  int chunk;
-
-  __device__ uint32_t full_in(int k) const { return bars + 32 * k; }
-  __device__ uint32_t empty_in(int k) const { return bars + 32 * k + 8; }
-  __device__ uint32_t full0(int k) const { return bars + 32 * k + 16; }
-  __device__ uint32_t empty0(int k) const { return bars + 32 * k + 24; }
-  __device__ int32_t* in_slot(int k) const {
-    return in + static_cast<size_t>(k) * chunk * kLanes;
-  }
-};
 
 // The FIR warps as a hbf_tile.cuh team: rank of count, a named barrier.
 struct FirTeam {
@@ -245,65 +231,6 @@ __device__ __forceinline__ void mix(const Args& a, const Rings& R, int pw,
   }
 }
 
-// The DF1 warp's rows of one chunk, input slot x -> stage-0 slot y (this
-// lane's columns): in groups of kGroup rows, each group's inputs read
-// before the group before computes, so the loads stay off the chain.
-template <bool Clamp>
-__device__ __forceinline__ void df1_rows(idsp::Df1Lane& s,
-                                         const idsp::Df1Coefs& k,
-                                         const idsp::Df1Clamp& cl,
-                                         const int32_t* x, float* y,
-                                         int rows) {
-  auto step = [&](int32_t x0) {
-    int32_t y0 = s.output_y1_last(k, x0);
-    if constexpr (Clamp) y0 = cl(y0);
-    return static_cast<float>(s.push(x0, y0));
-  };
-  int r = 0;
-  if (rows >= kGroup) {
-    int32_t cur[kGroup];
-#pragma unroll
-    for (int v = 0; v < kGroup; ++v) cur[v] = x[v * kLanes];
-    for (; r + kGroup <= rows; r += kGroup) {
-      const bool more = r + 2 * kGroup <= rows;
-      int32_t nxt[kGroup];
-#pragma unroll
-      for (int v = 0; v < kGroup; ++v)
-        nxt[v] = more ? x[(r + kGroup + v) * kLanes] : 0;
-#pragma unroll
-      for (int v = 0; v < kGroup; ++v) y[(r + v) * kLanes] = step(cur[v]);
-#pragma unroll
-      for (int v = 0; v < kGroup; ++v) cur[v] = nxt[v];
-    }
-  }
-#pragma unroll 1
-  for (; r < rows; ++r) y[r * kLanes] = step(x[r * kLanes]);
-}
-
-// The DF1 warp: state in, every chunk from the input ring into stage 0's
-// slot, state out.  slot0 is stage 0's slot 0 in this lane's column.
-template <bool Clamp>
-__device__ __forceinline__ void df1_warp(const Args& a, const Rings& R,
-                                         float* slot0, int lid, int lane,
-                                         bool live) {
-  idsp::Df1Lane s{};
-  if (live) s.load(a.sx, a.sy, lane);
-  const idsp::Df1Coefs k = a.k;
-  const idsp::Df1Clamp cl = a.cl;
-  Cursor u;
-  for (int r0 = 0; r0 < a.t; r0 += a.chunk, u.next(a.ring)) {
-    const int rows = min(a.chunk, a.t - r0);
-    mbar_wait(R.full_in(u.k), u.ph);
-    mbar_wait(R.empty0(u.k), u.ph ^ 1);
-    df1_rows<Clamp>(s, k, cl, R.in_slot(u.k) + lid,
-                    slot0 + static_cast<size_t>(u.k) * a.chunk * kLanes,
-                    rows);
-    mbar_arrive(R.full0(u.k));
-    mbar_arrive(R.empty_in(u.k));
-  }
-  if (live) s.store(a.sx_out, a.sy_out, lane);
-}
-
 // The FIR warps: carried rows in, every chunk through the stages (y out
 // from the last), carried rows out.  col is this lane's column of the FIR
 // buffers.
@@ -337,7 +264,7 @@ __device__ __forceinline__ void fir(const Args& a, const Taps& p,
   for (int cs = 0; cs < a.t; cs += K, u.next(a.ring)) {
     const int ce = min(cs + K, a.t);
     const bool more = ce < a.t;
-    mbar_wait(R.full0(u.k), u.ph);
+    mbar_wait(R.full_out(u.k), u.ph);
     team.sync();  // the last chunk's moves (and the carried rows) landed
 #pragma unroll
     for (int d = 0; d < D; ++d) {
@@ -360,11 +287,11 @@ __device__ __forceinline__ void fir(const Args& a, const Taps& p,
       team.sync();
       if (d == 0) {
         // stage 0 of this chunk read the previous slot's last rows
-        if (u.k > 0) mbar_arrive(R.empty0(u.k - 1));
+        if (u.k > 0) mbar_arrive(R.empty_out(u.k - 1));
         if (more && u.k == a.ring - 1) {
           idsp::tile::move_front(col + L.off[0] * kLanes, L.carry[0],
                                  a.ring * K, false, team);
-          mbar_arrive(R.empty0(u.k));
+          mbar_arrive(R.empty_out(u.k));
         }
       } else if (more) {
         idsp::tile::move_front(col + L.off[d] * kLanes, L.carry[d],
@@ -402,18 +329,13 @@ __global__ void __launch_bounds__(kLanes* kMaxWarps)
   const Rings R{smem_addr(smem),
                 reinterpret_cast<int32_t*>(smem + 32 * a.ring), a.chunk};
   float* col = reinterpret_cast<float*>(R.in_slot(a.ring)) + lid;
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < a.ring; ++k) {
-      mbar_init(R.full_in(k), kLanes * a.producers);
-      mbar_init(R.empty_in(k), kLanes);
-      mbar_init(R.full0(k), kLanes);
-      mbar_init(R.empty0(k), kLanes * nfir);
-    }
-    idsp::sm90::fence_barrier_init();
-  }
+  idsp::ring::init_rings(R, a.ring, a.producers, nfir);
   __syncthreads();
   if (warp == 0) {
-    df1_warp<Clamp>(a, R, col + (4 * p.m[0] - 3) * kLanes, lid, lane, live);
+    const idsp::ring::Df1Ring d{a.t,      a.chunk,  a.ring, a.sx, a.sy,
+                                a.sx_out, a.sy_out, a.k,    a.cl};
+    idsp::ring::df1_warp<Clamp>(d, R, col + (4 * p.m[0] - 3) * kLanes, lid,
+                                lane, live);
     return;
   }
   if (warp % 4 == 0) return;  // the DF1 warp's scheduler stays quiet

@@ -17,90 +17,143 @@
 // the high word of the exact i64 product (`__mulhi`), which equals
 // `fxp.q_apply(., x, 32)`; then the df1.cuh step, out as i32 or as f32.
 //
-// What bounds it on the H100: the DF1 recurrence, as in K1: one thread
-// per lane, a serial chain of 64-bit multiply-adds per row, 2c/32 warps
-// on as many SMs.  The mix adds ~30 integer operations per row (the
-// cossin, the multiply), none of them on that chain.  The device memory
-// traffic is x (t,) in and 4 B per lane and row out: the (t, 2c) mixed
-// stream of the split path never reaches device memory.
+// What bounds it on the H100: the DF1 recurrence, serial in time in each
+// lane: ~42 cycles a row for the DF1 warp of df1_ring.cuh (K20's pace,
+// PERF.md §6).  The mix is ~45 instructions a row and lane (the cossin,
+// the multiply), none of them on that chain; the device memory traffic is
+// x (t,) in and 4 B per lane and row out.
 //
-// What the design does about it: the mix is the `load` of the
-// sequential-bank template (seq_bank.cuh `seq_rows`), so each thread
-// computes its lane's LO and mixed sample for the next group of rows
-// while the DF1 steps through the current one, off the serial chain.
-// The LUT is read from shared memory (cossin.cuh), x[i] is one word for
-// the whole warp.
+// What the design does about it: K3's pipeline at depth 0 (df1_ring.cuh
+// `run_pipe`).  A block is one 32-lane tile of the 2c lanes; `producers`
+// warps compute the mixed rows of their index mod their count into the
+// input ring (the LUT in shared memory, x[i] one word for the whole warp,
+// kMix rows' loads issued before their products), the DF1 warp alone on
+// its scheduler turns each slot into a slot of the output ring, and a
+// store warp writes those rows out, 128 bytes a row.  The LO is
+// computed per lane, by the I and the Q tiles of a channel each.  The plan
+// (warps, roles, chunk, ring depth, shared memory) is the host's
+// (filters/pipe_plan.py `pipe_plan`), which the entry point checks.
+//
+// Numerics: cossin.cuh's exact LO, `__mulhi`, df1.cuh's exact int64
+// recurrence, the f32 output one rounding of the int32 word: bit for bit
+// the plain version's, and no plan changes a value.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "cossin.cuh"
 #include "df1.cuh"
-#include "seq_bank.cuh"
+#include "df1_ring.cuh"
 
 namespace {
 
-using idsp::kBankLanes;
+using idsp::ring::kLanes;
+using idsp::ring::Pipe;
+using idsp::ring::Rings;
+using idsp::sm90::Cursor;
+using idsp::sm90::mbar_arrive;
+using idsp::sm90::mbar_wait;
 
-template <bool F32Out>
-__global__ void __launch_bounds__(kBankLanes) ddc_mix_df1_kernel(
-    const int32_t* __restrict__ x, const int32_t* __restrict__ phase0,
-    const int32_t* __restrict__ steps, const int32_t* __restrict__ sx,
-    const int32_t* __restrict__ sy, int32_t* __restrict__ sx_out,
-    int32_t* __restrict__ sy_out, void* __restrict__ ys, int t, int c,
-    idsp::Df1Coefs k) {
-  __shared__ uint32_t lut[idsp::kCosSinLutSize];
-  idsp::load_cossin_lut(lut);  // before the early return: a block barrier
-  const int c2 = 2 * c;
-  const int lane = blockIdx.x * kBankLanes + threadIdx.x;
-  if (lane >= c2) return;
+struct MixArgs {
+  Pipe p;
+  const int32_t *x, *phase0, *steps;
+};
+
+// Producer pw of P: the mixed rows pw, pw + P, ... of each chunk into the
+// input ring, kMix of them at a time.
+constexpr int kMix = 8;
+__device__ __forceinline__ void mix(const MixArgs& a, const Rings& R,
+                                    const uint32_t* lut, int pw, int lid,
+                                    int lane, bool live) {
+  const Pipe& p = a.p;
+  const int P = p.producers, c = p.c2 / 2;
   const bool is_q = lane >= c;
   const int ch = is_q ? lane - c : lane;
-  const uint32_t p0 = static_cast<uint32_t>(phase0[ch]);
-  const uint32_t step = static_cast<uint32_t>(steps[ch]);
-  idsp::Df1Lane s;
-  s.load(sx, sy, lane);
-  idsp::seq_rows(
-      t,
-      [&](int i) {
-        // the mixed sample of row i, one prefetch group ahead
+  const uint32_t p0 = live ? static_cast<uint32_t>(a.phase0[ch]) : 0u;
+  const uint32_t step = live ? static_cast<uint32_t>(a.steps[ch]) : 0u;
+  Cursor u;
+  for (int r0 = 0; r0 < p.d.t; r0 += p.d.chunk, u.next(p.d.depth)) {
+    const int rows = min(p.d.chunk, p.d.t - r0);
+    mbar_wait(R.empty_in(u.k), u.ph ^ 1);
+    int32_t* s = R.in_slot(u.k) + lid;
+    for (int r = pw; r < rows; r += P * kMix) {
+      // every row of a batch computed (one past the chunk re-reads its
+      // last x), so the kMix LOs are straight-line code that schedules
+      // together; the stores keep the chunk's rows
+      int32_t m[kMix];
+#pragma unroll
+      for (int v = 0; v < kMix; ++v) {
+        const int rv = r + v * P;
+        const int32_t xv = __ldg(a.x + r0 + min(rv, rows - 1));
         const idsp::CosSin lo =
-            idsp::cossin(lut, p0 + step * static_cast<uint32_t>(i + 1));
-        const int32_t g = is_q ? static_cast<int32_t>(
-                                     0u - static_cast<uint32_t>(lo.sin))
-                               : lo.cos;
-        return __mulhi(g, __ldg(x + i));
-      },
-      [&](int i, int32_t m) {
-        const int32_t y = s.step(k, m);
-        const size_t o = static_cast<size_t>(i) * c2 + lane;
-        if constexpr (F32Out) {
-          static_cast<float*>(ys)[o] = static_cast<float>(y);
-        } else {
-          static_cast<int32_t*>(ys)[o] = y;
-        }
+            idsp::cossin(lut, p0 + step * static_cast<uint32_t>(r0 + rv + 1));
+        const int32_t g =
+            is_q ? static_cast<int32_t>(0u - static_cast<uint32_t>(lo.sin))
+                 : lo.cos;
+        m[v] = __mulhi(g, xv);
+      }
+#pragma unroll
+      for (int v = 0; v < kMix; ++v)
+        if (r + v * P < rows) s[(r + v * P) * kLanes] = m[v];
+    }
+    mbar_arrive(R.full_in(u.k));
+  }
+}
+
+template <class Out>
+__global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
+    ddc_mix_df1_kernel(const __grid_constant__ MixArgs a) {
+  __shared__ uint32_t lut[idsp::kCosSinLutSize];
+  extern __shared__ __align__(16) unsigned char smem[];
+  for (int i = threadIdx.x; i < idsp::kCosSinLutSize; i += blockDim.x)
+    lut[i] = idsp::kCosSinLut[i];  // published by run_pipe's barrier
+  idsp::ring::run_pipe<Out>(
+      a.p, smem,
+      [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
+        mix(a, R, lut, pw, lid, lane, live);  // one CTA a tile
       });
-  s.store(sx_out, sy_out, lane);
 }
 
 }  // namespace
 
 // x (t,) i32, phase0/steps (c,) i32 -> ys (t, 2c) i32 or f32 (f32_out);
-// DF1 state (2c, 2) i32 x2 in and out.
+// DF1 state (2c, 2) i32 x2 in and out.  warps, producers, chunk, ring
+// (slots a ring) and smem are the host plan's (filters/ddc_cuda.py
+// `mix_plan`); a plan the kernel cannot run (smem not its own sum, or
+// more than a block may have) is refused.  A refused call launches
+// nothing and leaves no CUDA error pending.
 extern "C" int idsp_ddc_mix_df1(const void* x, const void* phase0,
                                 const void* steps, const void* sx,
                                 const void* sy, void* sx_out, void* sy_out,
                                 void* ys, int t, int c, int f, int f32_out,
                                 int b0, int b1, int b2, int a1, int a2,
-                                void* stream) {
-  const idsp::Df1Coefs k{b0, b1, b2, a1, a2, f};
-  const dim3 grid((2 * c + kBankLanes - 1) / kBankLanes);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto kernel = f32_out ? ddc_mix_df1_kernel<true> : ddc_mix_df1_kernel<false>;
-  kernel<<<grid, kBankLanes, 0, st>>>(
-      static_cast<const int32_t*>(x), static_cast<const int32_t*>(phase0),
-      static_cast<const int32_t*>(steps), static_cast<const int32_t*>(sx),
-      static_cast<const int32_t*>(sy), static_cast<int32_t*>(sx_out),
-      static_cast<int32_t*>(sy_out), ys, t, c, k);
-  return static_cast<int>(cudaGetLastError());
+                                int warps, int producers, int chunk,
+                                int ring, int smem, void* stream) {
+  if (c < 1 || f <= 0 || f >= 64 ||
+      !idsp::ring::pipe_plan_ok(t, 2 * c, warps, producers, chunk, ring,
+                                smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MixArgs a{};
+  a.p.d = idsp::ring::Df1Ring{t,
+                              chunk,
+                              ring,
+                              static_cast<const int32_t*>(sx),
+                              static_cast<const int32_t*>(sy),
+                              static_cast<int32_t*>(sx_out),
+                              static_cast<int32_t*>(sy_out),
+                              idsp::Df1Coefs{b0, b1, b2, a1, a2, f},
+                              idsp::Df1Clamp{}};
+  a.p.y = ys;
+  a.p.c2 = 2 * c;
+  a.p.warps = warps;
+  a.p.producers = producers;
+  a.p.cluster = 1;
+  a.p.vec = (2 * c) % 4 == 0 && reinterpret_cast<uintptr_t>(ys) % 16 == 0;
+  a.x = static_cast<const int32_t*>(x);
+  a.phase0 = static_cast<const int32_t*>(phase0);
+  a.steps = static_cast<const int32_t*>(steps);
+  return f32_out ? idsp::ring::launch_pipe(ddc_mix_df1_kernel<float>, a, a.p,
+                                           smem, stream)
+                 : idsp::ring::launch_pipe(ddc_mix_df1_kernel<int32_t>, a,
+                                           a.p, smem, stream);
 }

@@ -76,6 +76,18 @@ __device__ __forceinline__ int64_t mad_wide(int32_t a, int32_t b,
 #endif
 }
 
+// a * b as a 64-bit word (exact: the product of two int32 fits int64),
+// one signed 32 x 32 -> 64 multiply (`mul.wide.s32`)
+__device__ __forceinline__ int64_t mul_wide(int32_t a, int32_t b) {
+#ifdef __CUDA_ARCH__
+  int64_t d;
+  asm("mul.wide.s32 %0, %1, %2;" : "=l"(d) : "r"(a), "r"(b));
+  return d;
+#else
+  return int64_t{a} * b;
+#endif
+}
+
 struct Df1Lane {
   int32_t x1, x2, y1, y2;
 

@@ -1,0 +1,298 @@
+// The DF1 warp behind mbarrier rings: the serial Q<f> DF1 of a 32-lane
+// tile, fed int32 rows through an input ring and writing its outputs into
+// an output ring.  One copy of it serves K2, K3 and K19-K21
+// (ddc_cascade.cu: its output ring is stage 0's FIR buffer), K14
+// (ddc_mix_df1.cu) and K15 (fm_disc.cu): these two run it at depth 0,
+// with no FIR stage, in the pipeline at the end of this file (`run_pipe`):
+// producer warps fill the input ring, the DF1 warp turns each slot into a
+// slot of the output ring, a store warp writes those rows to device
+// memory.
+// Where the producers' work is more than one SM's other three schedulers
+// issue in the DF1 warp's time (K15's exact angle), a tile is a cluster
+// of 2 CTAs: every warp of the partner CTA is a producer too, storing its
+// rows into the home CTA's input slots (`st.async`, counted on the slot's
+// full barrier), and the DF1 warp releases each slot to the partner as
+// well as to its own producers.
+//
+// Why a warp alone: the DF1's loop-carried chain (one 64-bit multiply-add
+// and the shift, df1.cuh `output_y1_last`) sets the pace of a tile, ~42
+// cycles a row on the H100 (PERF.md §6).  Anything else that warp issues
+// -- the producers' work, a global store of its own row (78 cycles a row
+// against 11 without, the WDF kernel's measurement, PERF.md §6) -- adds to
+// that chain's time.  So the
+// DF1 warp reads its rows from shared memory only, touches device memory
+// for its state at each end only, and is alone on its scheduler: the
+// other warps with warp % 4 == 0 exit at once.
+//
+// The rings: chunk q of `chunk` rows uses slot q % depth of each ring at
+// phase parity (q / depth) & 1 (hopper.cuh `Cursor`); slot k has four
+// mbarriers, the input ring's full and empty and the output ring's full
+// and empty.  A slot holds `chunk` rows of kLanes 32-bit words, row r of
+// lane l at r * kLanes + l, so a warp reads or writes a 128-byte row.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+#include "df1.cuh"
+#include "hopper.cuh"
+
+namespace idsp {
+namespace ring {
+
+constexpr int kLanes = 32;   // lanes of a tile (threadIdx.x % 32)
+constexpr int kGroup = 8;    // DF1 rows whose inputs are read a group ahead
+constexpr int kMaxWarps = 16;
+
+// Slot k's barriers, and the input ring's slots (int32 rows).
+struct Rings {
+  uint32_t bars;
+  int32_t* in;
+  int chunk;
+
+  __device__ uint32_t full_in(int k) const { return bars + 32 * k; }
+  __device__ uint32_t empty_in(int k) const { return bars + 32 * k + 8; }
+  __device__ uint32_t full_out(int k) const { return bars + 32 * k + 16; }
+  __device__ uint32_t empty_out(int k) const { return bars + 32 * k + 24; }
+  __device__ int32_t* in_slot(int k) const {
+    return in + static_cast<size_t>(k) * chunk * kLanes;
+  }
+};
+
+// Thread 0 initialises `depth` slots' barriers: `producers` and
+// `consumers` warps arrive on the input ring's full and the output ring's
+// empty barriers, each thread, and `peers` more arrivals on the full one
+// (a partner CTA's warps, one each); the DF1 warp on the other two.  The
+// caller then synchronises the block (the cluster, with a partner).
+__device__ __forceinline__ void init_rings(const Rings& R, int depth,
+                                           int producers, int consumers,
+                                           int peers = 0) {
+  if (threadIdx.x != 0) return;
+  for (int k = 0; k < depth; ++k) {
+    sm90::mbar_init(R.full_in(k), kLanes * producers + peers);
+    sm90::mbar_init(R.empty_in(k), kLanes);
+    sm90::mbar_init(R.full_out(k), kLanes);
+    sm90::mbar_init(R.empty_out(k), kLanes * consumers);
+  }
+  sm90::fence_barrier_init();
+}
+
+// The DF1 warp's launch-wide arguments: rows, the ring, the state in and
+// out ((lanes, 2) int32 each), the coefficients and the clamp.
+struct Df1Ring {
+  int t, chunk, depth;
+  const int32_t *sx, *sy;
+  int32_t *sx_out, *sy_out;
+  Df1Coefs k;
+  Df1Clamp cl;
+};
+
+// The DF1 warp's rows of one chunk, input slot x -> output slot y (this
+// lane's column), the output as Out (int32, or float for the FIR stages
+// and K14's f32 output): in groups of kGroup rows, each group's inputs
+// read before the group before computes, so the loads stay off the chain.
+template <bool Clamp, class Out>
+__device__ __forceinline__ void df1_rows(Df1Lane& s, const Df1Coefs& k,
+                                         const Df1Clamp& cl, const int32_t* x,
+                                         Out* y, int rows) {
+  auto step = [&](int32_t x0) {
+    int32_t y0 = s.output_y1_last(k, x0);
+    if constexpr (Clamp) y0 = cl(y0);
+    return static_cast<Out>(s.push(x0, y0));
+  };
+  int r = 0;
+  if (rows >= kGroup) {
+    int32_t cur[kGroup];
+#pragma unroll
+    for (int v = 0; v < kGroup; ++v) cur[v] = x[v * kLanes];
+    for (; r + kGroup <= rows; r += kGroup) {
+      const bool more = r + 2 * kGroup <= rows;
+      int32_t nxt[kGroup];
+#pragma unroll
+      for (int v = 0; v < kGroup; ++v)
+        nxt[v] = more ? x[(r + kGroup + v) * kLanes] : 0;
+#pragma unroll
+      for (int v = 0; v < kGroup; ++v) y[(r + v) * kLanes] = step(cur[v]);
+#pragma unroll
+      for (int v = 0; v < kGroup; ++v) cur[v] = nxt[v];
+    }
+  }
+#pragma unroll 1
+  for (; r < rows; ++r) y[r * kLanes] = step(x[r * kLanes]);
+}
+
+// The DF1 warp: state in, every chunk from its input slot into its output
+// slot, state out.  out is the output ring's slot 0 in this lane's column;
+// slot k lies chunk * kLanes words further per slot.  peer: 0, or the
+// partner CTA's input-ring empty barrier of slot 0 (`map_rank`ed): the
+// partner stores into the input slots too, so the DF1 warp acquires them
+// at cluster scope and releases each slot to the partner as well, for
+// the chunks the partner has still to fill (after its last, the partner
+// may have exited).
+template <bool Clamp, class Out>
+__device__ __forceinline__ void df1_warp(const Df1Ring& a, const Rings& R,
+                                         Out* out, int lid, int lane,
+                                         bool live, uint32_t peer = 0) {
+  Df1Lane s{};
+  if (live) s.load(a.sx, a.sy, lane);
+  const Df1Coefs k = a.k;
+  const Df1Clamp cl = a.cl;
+  sm90::Cursor u;
+  for (int r0 = 0; r0 < a.t; r0 += a.chunk, u.next(a.depth)) {
+    const int rows = min(a.chunk, a.t - r0);
+    if (peer) {
+      sm90::mbar_wait_cluster(R.full_in(u.k), u.ph);
+    } else {
+      sm90::mbar_wait(R.full_in(u.k), u.ph);
+    }
+    sm90::mbar_wait(R.empty_out(u.k), u.ph ^ 1);
+    df1_rows<Clamp>(s, k, cl, R.in_slot(u.k) + lid,
+                    out + static_cast<size_t>(u.k) * a.chunk * kLanes, rows);
+    sm90::mbar_arrive(R.full_out(u.k));
+    sm90::mbar_arrive(R.empty_in(u.k));
+    if (peer && r0 + a.depth * a.chunk < a.t)
+      sm90::mbar_arrive_remote(peer + 32 * u.k);
+  }
+  if (live) s.store(a.sx_out, a.sy_out, lane);
+}
+
+// ---- depth 0: producers -> DF1 warp -> store warps ------------------------
+
+// A depth-0 launch (K14, K15): the DF1 warp's arguments, y (t, c2) of
+// 32-bit words, and the plan (filters/pipe_plan.py `pipe_plan`): `warps`
+// warps a block, `producers` of them producers and the next one the store
+// warp, the rest idle; cluster: 1, or 2 (a partner CTA a tile, all
+// `warps` of it producers); vec: y's rows take 16-byte stores (c2 % 4 ==
+// 0, y aligned).
+struct Pipe {
+  Df1Ring d;
+  void* y;
+  int c2, warps, producers, cluster, vec;
+};
+
+// Shared memory: 32 bytes of mbarriers a slot, the input ring and the
+// output ring (depth slots of chunk rows of kLanes words each).
+__host__ __device__ inline size_t pipe_smem(int chunk, int depth) {
+  return 32 * static_cast<size_t>(depth) +
+         2 * static_cast<size_t>(depth) * chunk * kLanes * 4;
+}
+
+// Dynamic shared memory a depth-0 block may have: the 227 KB of an SM's
+// block less 1 KB for the kernels' static lookup tables.
+constexpr int kMaxPipeSmem = 232448 - 1024;
+
+// The plan checks of a depth-0 entry point (the host plan's own): false
+// for a plan the kernel cannot run.
+inline bool pipe_plan_ok(int t, int c2, int warps, int producers,
+                         int chunk, int depth, int smem, int cluster = 1) {
+  return t >= 0 && c2 >= 1 && (cluster == 1 || cluster == 2) &&
+         warps % 4 == 0 && warps >= 4 && warps <= kMaxWarps &&
+         producers >= 1 && producers + 1 <= warps - warps / 4 && chunk >= 1 &&
+         depth >= 2 && static_cast<size_t>(smem) == pipe_smem(chunk, depth) &&
+         smem <= kMaxPipeSmem;
+}
+
+// The store warp: each chunk's output slot (`out`: slot 0, column 0) to
+// y's rows, this tile's columns [col0, col0 + kLanes).  With vec, 16
+// bytes a thread (8 threads a row, 4 rows a warp instruction), else each
+// lane its own column.
+__device__ __forceinline__ void store_warp(const Pipe& p, const Rings& R,
+                                           const uint32_t* out, int lid,
+                                           int col0) {
+  const int chunk = p.d.chunk;
+  const size_t c2 = static_cast<size_t>(p.c2);
+  uint32_t* y = static_cast<uint32_t*>(p.y);
+  const int l4 = 4 * (lid % 8);
+  sm90::Cursor u;
+  for (int r0 = 0; r0 < p.d.t; r0 += chunk, u.next(p.d.depth)) {
+    const int rows = min(chunk, p.d.t - r0);
+    sm90::mbar_wait(R.full_out(u.k), u.ph);
+    const uint32_t* s = out + static_cast<size_t>(u.k) * chunk * kLanes;
+    uint32_t* yr = y + static_cast<size_t>(r0) * c2 + col0;
+    if (p.vec) {
+      if (col0 + l4 < p.c2)
+        for (int r = lid / 8; r < rows; r += 4)
+          *reinterpret_cast<uint4*>(yr + r * c2 + l4) =
+              *reinterpret_cast<const uint4*>(s + r * kLanes + l4);
+    } else if (col0 + lid < p.c2) {
+      for (int r = 0; r < rows; ++r) yr[r * c2 + lid] = s[r * kLanes + lid];
+    }
+    sm90::mbar_arrive(R.empty_out(u.k));
+  }
+}
+
+// A depth-0 block: the rings in `smem`, the DF1 warp (warp 0, its output
+// as Out), the warps of its scheduler idle, then `producers` warps calling
+// produce(R, pw, lid, lane, live, false) (pw their index) and the store
+// warp; warps past those exit.  With a cluster of 2, CTA rank 0 is
+// that block and every warp w of rank 1 calls produce(R, producers + w,
+// lid, lane, live, true): it stores into rank 0's input slots and arrives
+// on their full barriers, one arrival a warp.  The caller has set up
+// anything the producers read from shared memory, and the block (or
+// cluster) barrier here publishes it.
+template <class Out, class Produce>
+__device__ __forceinline__ void run_pipe(const Pipe& p, unsigned char* smem,
+                                         Produce produce) {
+  const int warp = threadIdx.x / kLanes, lid = threadIdx.x % kLanes;
+  const int col0 = blockIdx.x / p.cluster * kLanes, lane = col0 + lid;
+  const bool live = lane < p.c2;  // dead lanes still reach every barrier
+  const Rings R{sm90::smem_addr(smem),
+                reinterpret_cast<int32_t*>(smem + 32 * p.d.depth),
+                p.d.chunk};
+  uint32_t* out = reinterpret_cast<uint32_t*>(R.in_slot(p.d.depth));
+  const bool paired = p.cluster > 1;
+  init_rings(R, p.d.depth, p.producers, 1, paired ? p.warps : 0);
+  if (paired) {
+    sm90::cluster_sync();  // both CTAs' barriers initialised
+    if (sm90::cluster_rank() != 0) {
+      produce(R, p.producers + warp, lid, lane, live, true);
+      return;
+    }
+  } else {
+    __syncthreads();
+  }
+  if (warp == 0) {
+    df1_warp<false>(p.d, R, reinterpret_cast<Out*>(out) + lid, lid, lane,
+                    live, paired ? sm90::map_rank(R.empty_in(0), 1) : 0u);
+    return;
+  }
+  if (warp % 4 == 0) return;  // the DF1 warp's scheduler stays quiet
+  const int v = warp - warp / 4 - 1;  // index among the other warps
+  if (v < p.producers) {
+    produce(R, v, lid, lane, live, false);
+  } else if (v == p.producers) {
+    store_warp(p, R, out, lid, col0);
+  }
+}
+
+// Launches a depth-0 kernel over c2 / kLanes tiles of p.cluster CTAs each
+// (its plan checked by the caller); a refused shared-memory size launches
+// nothing and leaves no CUDA error pending.  A cluster launch gives every
+// CTA the same dynamic shared memory, so a partner CTA holds `smem` bytes
+// of which it uses its slots' barriers only (PERF.md §7).
+template <class Kernel, class A>
+int launch_pipe(Kernel kernel, const A& args, const Pipe& p, int smem,
+                void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.c2 + kLanes - 1) / kLanes * p.cluster);
+  cfg.blockDim = dim3(p.warps * kLanes);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ring
+}  // namespace idsp

@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks as inline PTX, for K17's kernels
-// (channelize.cu), K38-K40's (wdf_bank.cu) and K2/K3/K19-K21's
-// (ddc_cascade.cu): mbarriers and the ring cursor over them, named
-// barriers, cp.async arriving on them, asynchronous copies of the TMA (1-D bulk
-// copies, boxes of 2-D tensor maps), the thread-block cluster's ranks,
-// mapped addresses, asynchronous stores into peer CTAs and barrier,
-// warpgroup register rebalancing, and `wgmma` with shared-memory operand
-// descriptors.
+// (channelize.cu), K38-K40's (wdf_bank.cu) and the DF1 warp's rings of
+// K2/K3/K19-K21, K14 and K15 (df1_ring.cuh): mbarriers and the ring
+// cursor over them, named barriers, cp.async arriving on them,
+// asynchronous copies of the TMA (1-D bulk copies, boxes of 2-D tensor
+// maps), the thread-block cluster's ranks, mapped addresses, arrivals on
+// and asynchronous stores into peer CTAs and barrier, warpgroup register
+// rebalancing, and `wgmma` with shared-memory operand descriptors.
 //
 // Operand layout of the descriptors made here (no swizzle, both operands
 // K-major): a "core matrix" is 8 rows x 16 bytes (8 bf16 along k), its
@@ -141,6 +141,24 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
 }
+// the same, releasing at cluster scope what this thread did before (its
+// reads of a slot the peer then overwrites)
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+// one arrival on a cluster CTA's mbarrier that also expects `bytes` more
+// of asynchronous stores (`store_to_peer32`) into its phase
+__device__ __forceinline__ void mbar_arrive_tx_remote(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.release.cluster.shared::cluster.b64 _, "
+      "[%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
 // every thread of every CTA of the cluster
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(
@@ -178,6 +196,15 @@ __device__ __forceinline__ void store_to_peer(uint32_t dst, uint4 v,
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
       "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
       "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+// 4 bytes into a cluster CTA's shared memory, counted on its mbarrier
+__device__ __forceinline__ void store_to_peer32(uint32_t dst, uint32_t v,
+                                                uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(dst),
+      "r"(v), "r"(bar)
       : "memory");
 }
 // orders the generic-proxy shared-memory writes this thread has seen (its

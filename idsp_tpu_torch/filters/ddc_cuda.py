@@ -22,7 +22,9 @@ kernel serves K2, K3 and K19-K21: a CUDA block is a tile of lanes with
 one DF1 warp, producer warps that feed it (K2 the xs rows, K3 the mixed
 rows) and FIR warps that run the half-band stages, chunks of rows
 passing between them through mbarrier rings in shared memory
-(`launch_plan`).
+(`launch_plan`).  K14 (and K15, `fm_cuda`) run the same DF1 warp
+(``csrc/df1_ring.cuh``) at depth 0: producer warps mix the rows into its
+input ring, a store warp writes its output ring to y (`mix_plan`).
 Carried state follows the JAX package: `Df1State` (2c, 2) and one
 (3m-2, 2c) f32 tail per stage (`hbf1_tail_init`), ``2m-1`` odd rows
 then ``m-1`` even rows, stages highest rate first.
@@ -51,6 +53,7 @@ from ..ops.trig import cossin
 from .biquad import Df1State, _ba_list, clamp_params, df1_process_q
 from .biquad_cuda import df1_bank_q_plain
 from .hbf import HBF_TAPS, HbfDecState, hbf_dec_block
+from .pipe_plan import PipePlan, pipe_plan
 
 
 LANES = 32  # lanes of a tile (csrc/ddc_cascade.cu kLanes)
@@ -163,6 +166,18 @@ def launch_plan(ms, c2: int, *, fastlo: bool = False,
                          f"{MAX_SMEM}")
     return CascadePlan(warps=wp, producers=pr, chunk=ch, ring=rg,
                        smem=smem, tiles=-(-c2 // LANES))
+
+
+MIX_PRODUCERS = 5  # K14's mix warps (5 + a store warp: 8 warps a block)
+
+
+def mix_plan(c2: int, *, producers: int = MIX_PRODUCERS, **kw) -> PipePlan:
+    """K14's plan over ``c2`` I|Q lanes (`pipe_plan.pipe_plan`;
+    MIX_PRODUCERS mix warps by default, one CTA a tile)."""
+    plan = pipe_plan(c2, producers=producers, **kw)
+    if plan.cluster != 1:
+        raise ValueError("K14 runs one CTA a tile")
+    return plan
 
 
 def hbf1_tail_init(c2: int, m: int = 5, *, device):
@@ -481,7 +496,7 @@ def ddc_mix_df1_bank_plain(ba, state: Df1State, phase0, steps, x,
 
 
 def ddc_mix_df1_bank(ba, state: Df1State, phase0, steps, x, f: int = 29, *,
-                     out_dtype=None):
+                     out_dtype=None, _plan: PipePlan | None = None):
     """Exact-LO conjugate NCO mix + Q<f> DF1 bank in one kernel.
 
     Args:
@@ -494,7 +509,8 @@ def ddc_mix_df1_bank(ba, state: Df1State, phase0, steps, x, f: int = 29, *,
       out_dtype: None (int32) or torch.float32 (the state stays exact).
 
     Returns (state, new_phase0, yiq) with yiq (t, 2c), bit-identical to
-    `exact_mix` then `df1_bank_q`.
+    `exact_mix` then `df1_bank_q`.  The kernel's plan is `mix_plan`'s; no
+    plan changes a value.
     """
     if x.device.type == "cpu":
         return ddc_mix_df1_bank_plain(ba, state, phase0, steps, x, f,
@@ -506,6 +522,7 @@ def ddc_mix_df1_bank(ba, state: Df1State, phase0, steps, x, f: int = 29, *,
     t = x.shape[0]
     c = phase0.shape[0]
     dev = x.device
+    plan = mix_plan(2 * c) if _plan is None else _plan
     _ext.require("x", x, dev, torch.int32, (t,))
     _ext.require("phase0", phase0, dev, torch.int32, (c,))
     _ext.require("steps", steps, dev, torch.int32, (c,))
@@ -522,7 +539,8 @@ def ddc_mix_df1_bank(ba, state: Df1State, phase0, steps, x, f: int = 29, *,
             x.data_ptr(), phase0.data_ptr(), steps.data_ptr(),
             state.x.data_ptr(), state.y.data_ptr(), new_x.data_ptr(),
             new_y.data_ptr(), ys.data_ptr(), t, c, f, int(f32),
-            *_ba_list(ba), _ext.stream_ptr(dev),
+            *_ba_list(ba), plan.warps, plan.producers, plan.chunk,
+            plan.ring, plan.smem, _ext.stream_ptr(dev),
         )
     _ext.check(err, "ddc_mix_df1_bank")
     ddc_mix_df1_bank.launches += 1

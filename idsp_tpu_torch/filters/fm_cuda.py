@@ -3,7 +3,10 @@
 
 `fm_disc_bank` runs the CUDA kernel of ``csrc/fm_disc.cu`` for CUDA
 tensors and its plain PyTorch version, `fm_disc_bank_plain`, for CPU
-tensors; any other device raises.  The plain version is the unfused
+tensors; any other device raises.  The kernel is K14's depth-0 pipeline
+(``csrc/df1_ring.cuh``): a CUDA block is a tile of 32 channels, producer
+warps compute dphi into the DF1 warp's input ring, a store warp writes
+its output ring to y (`disc_plan`).  The plain version is the unfused
 composition: the discriminator of every row at once (`disc_rows`, or
 `disc_rows_fast` for ``angle="fast"``), row 0 masked until the stream's
 first sample has passed, then the Q<f> DF1 scan.  With
@@ -22,8 +25,26 @@ from ..fxp import wrap_i32
 from ..ops import complex as cplx
 from ..ops.trig import atan2, atan2_f32_word
 from .biquad import Df1State, _ba_list, df1_process_q
+from .pipe_plan import PipePlan, pipe_plan
 
 ANGLES = ("exact", "fast")
+DISC_PRODUCERS = 8  # dphi warps (8 + a store warp: 12 warps a block)
+# CTAs a tile by angle: the exact angle's dphi warps took 1.33x the DF1
+# warp's time on one SM's three other schedulers (H100, PERF.md §6), so a
+# partner CTA's warps compute spans too; the f32 angle keeps up alone
+DISC_CLUSTER = {"exact": 2, "fast": 1}
+
+
+def disc_plan(c: int, angle: str = "exact", *,
+              producers: int = DISC_PRODUCERS, cluster: int | None = None,
+              **kw) -> PipePlan:
+    """K15's plan over ``c`` channels (`pipe_plan.pipe_plan`): DISC_PRODUCERS
+    dphi warps and DISC_CLUSTER[angle] CTAs a tile by default, each dphi
+    warp -- the partner CTA's too -- a span of ceil(chunk /
+    plan.all_producers) rows of every chunk."""
+    _check_angle(angle)
+    return pipe_plan(c, producers=producers, cluster=(
+        DISC_CLUSTER[angle] if cluster is None else cluster), **kw)
 
 
 class FmDiscState(NamedTuple):
@@ -103,7 +124,7 @@ def fm_disc_bank_plain(ba, state: FmDiscState, re, im, carrier: int,
 
 
 def fm_disc_bank(ba, state: FmDiscState, re, im, carrier: int, f: int = 30,
-                 *, angle: str = "exact"):
+                 *, angle: str = "exact", _plan: PipePlan | None = None):
     """The whole FM receiver in one kernel over a channel bank.
 
     Args:
@@ -116,7 +137,8 @@ def fm_disc_bank(ba, state: FmDiscState, re, im, carrier: int, f: int = 30,
       angle: "exact" (bit-identical to `fm_receiver`) or "fast" (the f32
         discriminator, SNR-gated).
 
-    Returns (state, y) with y (t, c) int32.
+    Returns (state, y) with y (t, c) int32.  The kernel's plan is
+    `disc_plan`'s; no plan changes a value.
     """
     if re.device.type == "cpu":
         return fm_disc_bank_plain(ba, state, re, im, carrier, f, angle=angle)
@@ -127,6 +149,7 @@ def fm_disc_bank(ba, state: FmDiscState, re, im, carrier: int, f: int = 30,
     if t < 1:
         raise ValueError("need at least one row")
     dev = re.device
+    plan = disc_plan(c, angle) if _plan is None else _plan
     _ext.require("re", re, dev, torch.int32, (t, c))
     _ext.require("im", im, dev, torch.int32, (t, c))
     _ext.require("state.prev_re", state.prev_re, dev, torch.int32, (c,))
@@ -149,7 +172,8 @@ def fm_disc_bank(ba, state: FmDiscState, re, im, carrier: int, f: int = 30,
             prev_re.data_ptr(), prev_im.data_ptr(), valid.data_ptr(),
             new_x.data_ptr(), new_y.data_ptr(), ys.data_ptr(), t, c,
             wrap_carrier(carrier), int(angle == "fast"), f, *_ba_list(ba),
-            _ext.stream_ptr(dev),
+            plan.warps, plan.producers, plan.cluster, plan.chunk,
+            plan.ring, plan.smem, _ext.stream_ptr(dev),
         )
     _ext.check(err, "fm_disc_bank")
     fm_disc_bank.launches += 1

@@ -1,0 +1,93 @@
+"""The host plan of the depth-0 DF1 pipeline that K14 (`ddc_cuda`) and K15
+(`fm_cuda`) run: ``csrc/df1_ring.cuh`` `run_pipe`.
+
+A CUDA block is a tile of LANES lanes: the DF1 warp (warp 0), the other
+warps of its scheduler idle, ``producers`` warps that fill its input ring
+and one store warp that writes its output ring to y.  `pipe_plan` picks
+the warps, chunk and ring depth and sums the shared memory;
+``df1_ring.cuh`` `pipe_plan_ok` refuses a plan that is not its own.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+LANES = 32  # lanes of a tile (df1_ring.cuh kLanes)
+MAX_WARPS = 16  # warps of a block (kMaxWarps)
+# the dynamic shared memory a block may have: an SM's 227 KB less 1 KB for
+# the kernels' static lookup tables (kMaxPipeSmem)
+MAX_PIPE_SMEM = 232448 - 1024
+PIPE_CHUNK, PIPE_RING = 256, 3  # rows a chunk, slots a ring (the most)
+
+
+def pipe_smem(chunk: int, ring: int) -> int:
+    """Shared memory of a launch (df1_ring.cuh `pipe_smem`): 32 bytes of
+    mbarriers a slot, the input and the output ring (``ring`` slots of
+    ``chunk`` rows x LANES 32-bit words each)."""
+    return 32 * ring + 2 * ring * chunk * LANES * 4
+
+
+class PipePlan(NamedTuple):
+    """How K14 and K15 run a launch: a CUDA block is a tile of LANES lanes
+    and ``warps`` warps: warp 0 the DF1, the others of its scheduler (warp
+    % 4 == 0) idle, of the rest ``producers`` that fill its input ring
+    (K14: the mix of their rows mod their count; K15: dphi of a span of
+    each chunk) and the next one the store warp, the rest idle; with
+    ``cluster`` 2 (K15) a tile is a cluster of that block and a partner
+    CTA whose ``warps`` warps are all producers; chunks of ``chunk`` rows,
+    rings of ``ring`` slots, ``smem`` bytes a CTA."""
+
+    warps: int
+    producers: int
+    chunk: int
+    ring: int
+    smem: int
+    tiles: int  # tiles of LANES over the launch's lanes
+    cluster: int = 1  # CTAs a tile
+
+    @property
+    def all_producers(self) -> int:
+        """The producer warps of a tile, the partner CTA's too."""
+        return self.producers + (self.warps if self.cluster > 1 else 0)
+
+
+def pipe_plan(lanes: int, *, producers: int, warps: int | None = None,
+              chunk: int | None = None, ring: int | None = None,
+              cluster: int = 1) -> PipePlan:
+    """The plan of a launch over ``lanes`` lanes: the fewest warps (a
+    multiple of 4) that hold the DF1 warp, ``producers`` and the store
+    warp beside the DF1 warp's scheduler, PIPE_CHUNK rows a chunk and the
+    most of PIPE_RING .. 2 slots that fit MAX_PIPE_SMEM, unless given; one
+    CTA a tile, or ``cluster`` 2 (K15 only).  Raises ValueError for a plan
+    the kernel cannot run."""
+    if lanes < 1:
+        raise ValueError(f"need lanes >= 1, got {lanes}")
+    if cluster not in (1, 2):
+        raise ValueError(f"cluster must be 1 or 2 CTAs, got {cluster}")
+    if producers < 1:
+        raise ValueError(f"need producers >= 1, got {producers}")
+    if warps is None:
+        warps = 4 * -(-(producers + 1) // 3)
+    if warps % 4 or not 4 <= warps <= MAX_WARPS or \
+            producers + 1 > warps - warps // 4:
+        raise ValueError(f"warps must be a multiple of 4 up to {MAX_WARPS} "
+                         f"holding {producers} producers and the store warp "
+                         f"off the DF1 warp's scheduler, got {warps}")
+    ch = PIPE_CHUNK if chunk is None else chunk
+    if ch < 1:
+        raise ValueError(f"chunk must be at least 1 row, got {ch}")
+    if ring is None:
+        fits = [r for r in range(PIPE_RING, 1, -1)
+                if pipe_smem(ch, r) <= MAX_PIPE_SMEM]
+        if not fits:
+            raise ValueError(f"no ring of 2+ slots of {ch} rows fits "
+                             f"{MAX_PIPE_SMEM} bytes")
+        ring = fits[0]
+    if ring < 2:
+        raise ValueError(f"ring must have 2+ slots, got {ring}")
+    smem = pipe_smem(ch, ring)
+    if smem > MAX_PIPE_SMEM:
+        raise ValueError(f"{smem} bytes of shared memory, more than "
+                         f"{MAX_PIPE_SMEM}")
+    return PipePlan(warps=warps, producers=producers, chunk=ch, ring=ring,
+                    smem=smem, tiles=-(-lanes // LANES), cluster=cluster)

@@ -1,9 +1,10 @@
-"""Where K2, K3 and K19-K21 spend their time on the card
-(`csrc/ddc_cascade.cu`).
+"""Where K2, K3, K19-K21 (`csrc/ddc_cascade.cu`), K14 and K15
+(`csrc/ddc_mix_df1.cu`, `csrc/fm_disc.cu`, all on `csrc/df1_ring.cuh`'s
+DF1 warp) spend their time on the card.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
-    python3 -m idsp_tpu_torch.probe_cascade
+    python3 -m idsp_tpu_torch.probe_cascade [--only cascade|pipe]
 
 One set of inputs, made from a seed: the chain's Q<29> lowpass at 0.02
 and taps (5, 10, 23), t = 32768, xs uniform in +-2^27, x in +-2^30 with
@@ -25,6 +26,18 @@ a fine length of 128 for K3, a random DF1 state, zero tails.  Two parts:
   K20 and K3 at c = 512, each at its default plan; "output" and "stamps"
   are held to the package's kernel bit for bit.
 
+K14 and K15 (``pipe``), on the same kind of inputs (K14: x in
++-2^27, full-range steps, f32 out; K15: IQ full range, carrier 12345, the
+deemphasis lowpass at 0.02):
+
+* the plan sweep (`ddc_cuda.mix_plan` / `fm_cuda.disc_plan`: producers,
+  CTAs a tile, chunk, ring): K14 at c = 512 and 1024, K15 exact and fast
+  at c = 512, each plan's words held to the default plan's;
+* variants of the two kernels, built as above: "stamps" (clock64 stamps
+  of block 0 a chunk: the DF1 warp's compute, producer 0's chunk, the
+  store warp's chunk, each start and end) and "df1_copy" (the DF1 warp
+  passes its input through: the pace of the other roles alone).
+
 A time is the median of 3 trials of 20 chained launches (CUDA events,
 `profiling.measure_rate`); a stamp is SM clock cycles, the median over
 the launch's chunks.  The last line is one JSON object with all of it.
@@ -32,16 +45,20 @@ the launch's chunks.  The last line is one JSON object with all of it.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
+import re
 import subprocess
+import types
 
 import numpy as np
 import torch
 
 from . import _ext, design
-from .filters import biquad, ddc_cuda, hbf
+from .filters import biquad, ddc_cuda, fm_cuda, hbf
 from .ops.fastlo import fastlo_tables
+from .pipelines import fm_disc
 from .profiling import measure_rate
 
 T, TC = 32768, 128
@@ -52,7 +69,7 @@ STAMPS = 1024  # chunks a stamp series holds
 
 def _patch(src: str, old: str, new: str) -> str:
     if src.count(old) != 1:
-        raise RuntimeError(f"not found once in ddc_cascade.cu: {old[:60]!r}")
+        raise RuntimeError(f"not found once: {old[:60]!r}")
     return src.replace(old, new)
 
 
@@ -63,37 +80,75 @@ def _no_fir(src):
 
 
 def _df1_copy(src):
+    """df1_ring.cuh with the DF1 warp passing its input through."""
     return _patch(src, "    int32_t y0 = s.output_y1_last(k, x0);",
                   "    int32_t y0 = x0;")
 
 
-def _stamps(src):
-    """clock64 stamps of block 0 into g_stamps[series][chunk]: 0/1 the DF1
+def _pipe_stamps(ring, kernel):
+    """K14's or K15's stamps of block 0 (df1_ring.cuh, the kernel's .cu):
+    0/1 the DF1 warp's compute start/end, 2/3 producer 0's chunk start
+    (after its wait) and end, 4/5 the store warp's."""
+    g = "idsp::ring::g_stamps"
+    at = f"blockIdx.x == 0 && lid == 0 && q < {STAMPS}"
+    ring = _df1_stamps(ring)
+    ring = _patch(ring, "    sm90::mbar_wait(R.full_out(u.k), u.ph);\n",
+                  "    sm90::mbar_wait(R.full_out(u.k), u.ph);\n"
+                  "    const int q = r0 / chunk;\n"
+                  f"    if ({at}) g_stamps[4][q] = clock64();\n")
+    ring = _patch(ring, "    sm90::mbar_arrive(R.empty_out(u.k));\n",
+                  f"    if ({at}) g_stamps[5][q] = clock64();\n"
+                  "    sm90::mbar_arrive(R.empty_out(u.k));\n")
+    loop = re.findall(r"for \(int r0 = 0;[^\n]*u\.next\(p\.d\.depth\)\) \{\n",
+                      kernel)
+    if len(loop) != 1:
+        raise RuntimeError("the producer's chunk loop not found once")
+    kernel = _patch(kernel, loop[0],
+                    loop[0] + "    const int q = r0 / p.d.chunk;\n")
+    kernel = _patch(kernel, "mbar_wait(R.empty_in(u.k), u.ph ^ 1);",
+                    "mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n"
+                    f"      if (pw == 0 && {at}) {g}[2][q] = clock64();")
+    kernel = _patch(kernel, "mbar_arrive(R.full_in(u.k));",
+                    f"if (pw == 0 && {at}) {g}[3][q] = clock64();\n"
+                    "      mbar_arrive(R.full_in(u.k));")
+    return ring, kernel + STAMPS_READER
+
+
+def _df1_stamps(ring):
+    """df1_ring.cuh with g_stamps[6][STAMPS] (idsp::ring) and the DF1
+    warp's stamps of block 0: series 0/1 its compute start/end a chunk."""
+    at = f"blockIdx.x == 0 && lid == 0 && q < {STAMPS}"
+    ring = _patch(ring, "constexpr int kMaxWarps = 16;\n",
+                  "constexpr int kMaxWarps = 16;\n"
+                  f"static __device__ long long g_stamps[6][{STAMPS}];\n")
+    ring = _patch(ring, "    sm90::mbar_wait(R.empty_out(u.k), u.ph ^ 1);\n",
+                  "    sm90::mbar_wait(R.empty_out(u.k), u.ph ^ 1);\n"
+                  "    const int q = r0 / a.chunk;\n"
+                  f"    if ({at}) g_stamps[0][q] = clock64();\n")
+    return _patch(ring, "    sm90::mbar_arrive(R.full_out(u.k));\n"
+                        "    sm90::mbar_arrive(R.empty_in(u.k));\n",
+                  f"    if ({at}) g_stamps[1][q] = clock64();\n"
+                  "    sm90::mbar_arrive(R.full_out(u.k));\n"
+                  "    sm90::mbar_arrive(R.empty_in(u.k));\n")
+
+
+STAMPS_READER = (
+    "\nextern \"C\" int probe_stamps(void* dst) {\n"
+    "  return static_cast<int>(cudaMemcpyFromSymbol(\n"
+    "      dst, idsp::ring::g_stamps, sizeof(idsp::ring::g_stamps)));\n}\n")
+
+
+def _stamps(src, ring):
+    """K2's stamps of block 0 (ddc_cascade.cu, df1_ring.cuh): 0/1 the DF1
     warp's compute start/end, 2 the producer's issue start, 3 the FIR
     warps' chunk start, 4 their stage 0 end, 5 their chunk end."""
-    src = _patch(src, "namespace {\n\nusing idsp::sm90::bar_sync;",
-                 f"__device__ long long g_stamps[6][{STAMPS}];\n"
-                 "extern \"C\" int probe_stamps(void* dst) {\n"
-                 "  return static_cast<int>(cudaMemcpyFromSymbol(\n"
-                 "      dst, g_stamps, sizeof(g_stamps)));\n}\n"
-                 "namespace {\n\nusing idsp::sm90::bar_sync;")
+    g = "idsp::ring::g_stamps"
     at = f"blockIdx.x == 0 && threadIdx.x % 32 == 0 && q < {STAMPS}"
-    src = _patch(src, "    mbar_wait(R.empty0(u.k), u.ph ^ 1);\n"
-                      "    df1_rows<Clamp>",
-                 "    mbar_wait(R.empty0(u.k), u.ph ^ 1);\n"
-                 "    const int q = r0 / a.chunk;\n"
-                 f"    if ({at}) g_stamps[0][q] = clock64();\n"
-                 "    df1_rows<Clamp>")
-    src = _patch(src, "    mbar_arrive(R.full0(u.k));\n"
-                      "    mbar_arrive(R.empty_in(u.k));",
-                 f"    if ({at}) g_stamps[1][q] = clock64();\n"
-                 "    mbar_arrive(R.full0(u.k));\n"
-                 "    mbar_arrive(R.empty_in(u.k));")
     src = _patch(src, "    mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n"
                       "    const uint32_t slot",
                  "    mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n"
                  "    const int q = r0 / a.chunk;\n"
-                 f"    if ({at}) g_stamps[2][q] = clock64();\n"
+                 f"    if ({at}) {g}[2][q] = clock64();\n"
                  "    const uint32_t slot")
     fir = "blockIdx.x == 0 && team.rank == 0 && threadIdx.x % 32 == 0"
     src = _patch(src, "    team.sync();  // the last chunk's moves (and the "
@@ -102,48 +157,86 @@ def _stamps(src):
                  "carried rows) landed\n"
                  "    const int q = cs / K;\n"
                  f"    const bool stamp = {fir} && q < {STAMPS};\n"
-                 "    if (stamp) g_stamps[3][q] = clock64();")
+                 f"    if (stamp) {g}[3][q] = clock64();")
     src = _patch(src, "      team.sync();\n      if (d == 0) {",
                  "      team.sync();\n"
-                 "      if (d == 0 && stamp) g_stamps[4][q] = clock64();\n"
+                 f"      if (d == 0 && stamp) {g}[4][q] = clock64();\n"
                  "      if (d == 0) {")
-    return _patch(src, "    k_last = u.k;\n    cs_last = cs;",
-                  "    if (stamp) g_stamps[5][q] = clock64();\n"
-                  "    k_last = u.k;\n    cs_last = cs;")
+    src = _patch(src, "    k_last = u.k;\n    cs_last = cs;",
+                 f"    if (stamp) {g}[5][q] = clock64();\n"
+                 "    k_last = u.k;\n    cs_last = cs;")
+    return {"ddc_cascade.cu": src + STAMPS_READER,
+            "df1_ring.cuh": _df1_stamps(ring)}
+
+
+def _read(name):
+    return (_ext.CSRC / name).read_text()
 
 
 def variants() -> dict:
-    src = (_ext.CSRC / "ddc_cascade.cu").read_text()
+    """K2's variants: name -> {file: source}; each builds ddc_cascade.cu
+    (the DF1 warp's variants patch df1_ring.cuh beside it)."""
+    src, ring = _read("ddc_cascade.cu"), _read("df1_ring.cuh")
     return {
-        "output": _patch(src, "s.output_y1_last(k, x0)", "s.output(k, x0)"),
-        "df1_copy": _df1_copy(src),
-        "no_fir": _no_fir(src),
-        "df1_copy_no_fir": _no_fir(_df1_copy(src)),
-        "stamps": _stamps(src),
+        "output": {"ddc_cascade.cu": src, "df1_ring.cuh": _patch(
+            ring, "s.output_y1_last(k, x0)", "s.output(k, x0)")},
+        "df1_copy": {"ddc_cascade.cu": src, "df1_ring.cuh": _df1_copy(ring)},
+        "no_fir": {"ddc_cascade.cu": _no_fir(src)},
+        "df1_copy_no_fir": {"ddc_cascade.cu": _no_fir(src),
+                            "df1_ring.cuh": _df1_copy(ring)},
+        "stamps": _stamps(src, ring),
     }
 
 
+PIPE_SOURCES = ("ddc_mix_df1.cu", "fm_disc.cu")
+
+
+def pipe_variants() -> dict:
+    """K14's and K15's variants: name -> {file: source}; each builds its
+    .cu files."""
+    ring = _read("df1_ring.cuh")
+    out = {"df1_copy": {"df1_ring.cuh": _df1_copy(ring),
+                        **{f: _read(f) for f in PIPE_SOURCES}}}
+    for f in PIPE_SOURCES:  # one library each: one g_stamps a library
+        r, k = _pipe_stamps(ring, _read(f))
+        out[f"stamps_{f[:-3]}"] = {"df1_ring.cuh": r, f: k}
+    return out
+
+
 def build(sources: dict) -> dict:
-    """name -> the bound library of that variant (built all at once)."""
+    """name -> the bound entry points of that variant's .cu files, each
+    built into a library of its own with nvcc (all at once) in a
+    directory that holds every header of csrc/, the variant's in place of
+    theirs (a header includes its neighbours)."""
     nvcc = _ext._nvcc()
     procs = {}
-    for name, src in sources.items():
+    for name, files in sources.items():
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "ddc_cascade.cu").write_text(src)
-        procs[name] = subprocess.Popen(
-            [nvcc, *_ext.NVCC_FLAGS, "-I", str(_ext.CSRC), "-shared", "-o",
-             str(d / "lib.so"), str(d / "ddc_cascade.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
+        for h in _ext.CSRC.glob("*.cuh"):
+            (d / h.name).write_text(h.read_text())
+        for f, text in files.items():
+            (d / f).write_text(text)
+        for f in files:
+            if f.endswith(".cu"):
+                procs[(name, f)] = subprocess.Popen(
+                    [nvcc, *_ext.NVCC_FLAGS, "-shared", "-o",
+                     str(d / f"{f}.so"), str(d / f)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+    libs = {name: types.SimpleNamespace() for name in sources}
+    for (name, f), proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        lib.idsp_ddc_cascade.argtypes = _ext._SIGNATURES["idsp_ddc_cascade"]
-        lib.idsp_ddc_cascade.restype = ctypes.c_int
-        libs[name] = lib
+            raise RuntimeError(f"nvcc failed for {name} {f}:\n{log}")
+        lib = ctypes.CDLL(str(OUT / name / f"{f}.so"))
+        for fn, argtypes in _ext._SIGNATURES.items():
+            if hasattr(lib, fn):
+                entry = getattr(lib, fn)
+                entry.argtypes, entry.restype = argtypes, ctypes.c_int
+                setattr(libs[name], fn, entry)
+        if hasattr(lib, "probe_stamps"):
+            libs[name].probe_stamps = lib.probe_stamps
     return libs
 
 
@@ -159,19 +252,8 @@ def _same(a, b) -> bool:
     return all(_same(u, v) for u, v in zip(a, b, strict=True))
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("probe_cascade times the CUDA device; none is "
-                         "available")
-    dev = torch.device("cuda", 0)
-    _ext.library()
-    package = _ext._lib
-    libs = build(variants())
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
+def _cascade(dev, card, libs, package, result) -> None:
+    """K2, K3 and K19-K21: the plan sweep, the variants, the stamps."""
     ba = biquad.quantize_ba(biquad.from_cookbook(
         design.Filter().critical_frequency(0.02).lowpass()), 29)
     taps = tuple(np.asarray(hbf.HBF_TAPS[2 - d], np.float32)
@@ -204,7 +286,7 @@ def main() -> None:
             ba, st, tails[:depth], taps[:depth], 29, T, c2, TC, dev, xs=xs,
             clamp=clamp, plan=plan)
 
-    result = {"card": card, "sweep": {}, "variants": {}, "stamps": {}}
+    result.update(sweep={}, variants={}, stamps={})
     plans = [dict(warps=w, chunk=ch, ring=r) for w in (8, 12, 16)
              for ch in (128, 256) for r in (2, 3, 4)]
     for c in (512, 1024):
@@ -242,6 +324,8 @@ def main() -> None:
     _ext._lib = package
     want = launch(ins)
     for name, lib in libs.items():
+        if name.startswith("pipe_"):
+            continue
         _ext._lib = lib
         if name in ("output", "stamps") and not _same(launch(ins), want):
             raise AssertionError(f"variant {name}: another value")
@@ -273,6 +357,131 @@ def main() -> None:
             row["producer_first_chunk"] = float(b[2, 1] - b[2, 0])
         result["stamps"][key] = row
         print(f"stamps {key} (cycles a chunk): {row}  [{card}]", flush=True)
+
+
+def _stamp_rows(lib, launch, chunk, series) -> dict:
+    """One launch of a stamps variant; the medians over its chunks of each
+    named span (start series, end series) and of the waits between."""
+    _ext._lib = lib
+    launch()
+    torch.cuda.synchronize()
+    buf = np.zeros((6, STAMPS), np.int64)
+    if lib.probe_stamps(ctypes.c_void_p(buf.ctypes.data)) != 0:
+        raise RuntimeError("probe_stamps failed")
+    n = min(-(-T // chunk), STAMPS)
+    b = buf[:, :n].astype(np.float64)
+    row = {"chunks": n, "period": float(np.median(np.diff(b[0])))}
+    for name, (s0, s1) in series.items():
+        row[name] = float(np.median(b[s1] - b[s0]))
+        row[f"{name}_wait"] = float(np.median(b[s0, 1:] - b[s1, :-1]))
+    return row
+
+
+def _pipe(dev, card, libs, package, result) -> None:
+    """K14 and K15: the plan sweep, the variants, the per-role stamps."""
+    ba = biquad.quantize_ba(biquad.from_cookbook(
+        design.Filter().critical_frequency(0.02).lowpass()), 29)
+    bf = fm_disc.deemphasis_coefficients(0.02)
+    rng = np.random.default_rng(1)
+
+    def i32(shape, lo=-(2**31), hi=2**31):
+        return torch.from_numpy(rng.integers(lo, hi, size=shape).astype(
+            np.int32)).to(dev)
+
+    x = i32((T,), -(2**27), 2**27)
+    k14_in = {c: (biquad.df1_init((2 * c,), device=dev),
+                  torch.zeros((c,), dtype=torch.int32, device=dev),
+                  i32((c,))) for c in (512, 1024)}
+    iq = (i32((T, 512)), i32((T, 512)))
+    st15 = fm_disc.init_state((512,), device=dev)
+
+    def k14(c, plan=None):
+        return ddc_cuda.ddc_mix_df1_bank(ba, *k14_in[c], x, 29,
+                                         out_dtype=torch.float32, _plan=plan)
+
+    def k15(angle, plan=None):
+        return fm_cuda.fm_disc_bank(bf, st15, *iq, 12345, angle=angle,
+                                    _plan=plan)
+
+    _ext._lib = package
+    result.update(pipe_sweep={}, pipe_variants={}, pipe_stamps={})
+    cases = [(f"K14 c={c}", lambda p, c=c: k14(c, p),
+              lambda c=c, **kw: ddc_cuda.mix_plan(2 * c, **kw),
+              [dict(producers=p) for p in (5, 8, 11)]
+              + [dict(producers=8, chunk=128, ring=4),
+                 dict(producers=10, warps=16)])
+             for c in (512, 1024)]
+    cases += [(f"K15 {a} c=512", lambda p, a=a: k15(a, p),
+               lambda a=a, **kw: fm_cuda.disc_plan(512, a, **kw),
+               [dict(cluster=cl, producers=p) for cl in (1, 2)
+                for p in (5, 8, 11)]
+               + [dict(chunk=128, ring=4)])
+              for a in ("exact", "fast")]
+    for name, run, plan_of, forced in cases:
+        want = run(None)
+        for kw in forced:
+            try:
+                plan = plan_of(**kw)
+            except ValueError:
+                continue  # a plan the kernel cannot run
+            if not _same(run(plan), want):
+                raise AssertionError(f"{name} {kw}: another value")
+            key = (f"{name} w{plan.warps} p{plan.producers} "
+                   f"cl{plan.cluster} ch{plan.chunk} r{plan.ring}")
+            result["pipe_sweep"][key] = _ms(lambda: run(plan))
+            print(f"{key}: {result['pipe_sweep'][key]} ms  [{card}]",
+                  flush=True)
+
+    timed = {"K14 c=512": lambda: k14(512), "K15 exact": lambda: k15("exact"),
+             "K15 fast": lambda: k15("fast")}
+    result["pipe_variants"]["package"] = {k: _ms(fn)
+                                          for k, fn in timed.items()}
+    _ext._lib = libs["pipe_df1_copy"]
+    result["pipe_variants"]["df1_copy"] = {k: _ms(fn)
+                                           for k, fn in timed.items()}
+    _ext._lib = package
+    for name, row in result["pipe_variants"].items():
+        print(f"variant {name}: {row} ms  [{card}]", flush=True)
+    roles = {"df1": (0, 1), "producer": (2, 3), "store": (4, 5)}
+    for key, lib, fn in (
+            ("K14 c=512", "stamps_ddc_mix_df1", timed["K14 c=512"]),
+            ("K15 exact", "stamps_fm_disc", timed["K15 exact"]),
+            ("K15 fast", "stamps_fm_disc", timed["K15 fast"])):
+        chunk = (ddc_cuda.mix_plan(1024) if key.startswith("K14")
+                 else fm_cuda.disc_plan(512, key[4:])).chunk
+        row = _stamp_rows(libs[f"pipe_{lib}"], fn, chunk, roles)
+        row["pace"] = max(roles, key=lambda r: row[r])
+        result["pipe_stamps"][key] = row
+        print(f"stamps {key} (cycles a chunk): {row}  [{card}]", flush=True)
+    _ext._lib = package
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=("cascade", "pipe"),
+                    help="K2/K3/K19-K21 or K14/K15 alone")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_cascade times the CUDA device; none is "
+                         "available")
+    dev = torch.device("cuda", 0)
+    _ext.library()
+    package = _ext._lib
+    parts = ("cascade", "pipe") if args.only is None else (args.only,)
+    sources = variants() if "cascade" in parts else {}
+    if "pipe" in parts:
+        sources.update({f"pipe_{k}": v for k, v in pipe_variants().items()})
+    libs = build(sources)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    result = {"card": card}
+    if "cascade" in parts:
+        _cascade(dev, card, libs, package, result)
+    if "pipe" in parts:
+        _pipe(dev, card, libs, package, result)
     _ext._lib = package
     print(json.dumps(result), flush=True)
 

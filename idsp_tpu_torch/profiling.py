@@ -10,6 +10,7 @@ canary answered a shared remote TPU and have no counterpart here.)
 from __future__ import annotations
 
 import statistics
+import warnings
 
 import torch
 
@@ -68,7 +69,7 @@ def short_name(name: str) -> str:
     return name.replace("(anonymous namespace)::", "").split("(")[0].strip()
 
 
-def busy_share(step, state, *args, iters: int = 5):
+def busy_share(step, state, *args, iters: int = 5, attempts: int = 3):
     """How much of a run of ``iters`` chained calls the card is busy.
 
     `torch.profiler` runs on a schedule of two steps: a warm-up step (one
@@ -76,24 +77,53 @@ def busy_share(step, state, *args, iters: int = 5):
     tracer before the measured calls), then the recorded step, in which
     CUDA events bracket the chained calls as in `measure_rate`.  Device
     time is the union of the spans of the profiler's device events
-    (kernels, copies, memsets) -- host-side operator rows and the step's
-    own range are not counted.  Returns ``(busy_s_per_call,
-    window_s_per_call, by_name)``: device time and the CUDA-event time of
-    the recorded step, each divided by ``iters``, and for each device
-    event name (`short_name`) its ``(spans, seconds_per_call)``.  A kernel
-    launched k times per call shows ``k * iters`` spans unless the
-    profiler lost some of its records.  The profiler slows the host, not
-    the card, so ``busy / window`` is a lower bound on the busy share of
-    a run without it.  ``busy`` is None when the profiler recorded no
-    device event at all: late in a long process it can lose every record
-    of a step whose only device work is the kernel library's launches, so
-    the share is then not measured.
+    (kernels, copies, memsets) inside the recorded step's own range on the
+    host (`in_step`) -- host-side operator rows, the step's range and any
+    device record the profiler places outside it are not counted.
+    Returns ``(busy_s_per_call, window_s_per_call, by_name)``: device
+    time and the CUDA-event time of the recorded step, each divided by
+    ``iters``, and for each device event name (`short_name`) its
+    ``(spans, seconds_per_call)``.  A kernel launched k times per call
+    shows ``k * iters`` spans unless the profiler lost some of its
+    records.  The profiler slows the host, not the card, so ``busy /
+    window`` is a lower bound on the busy share of a run without it.
+    ``busy`` is None when the profiler recorded no device event at all:
+    late in a long process it can lose every record of a step whose only
+    device work is the kernel library's launches, so the share is then
+    not measured.  A profile whose device time exceeds the window by more
+    than 1 % is inconsistent and is never returned: the run is profiled
+    again, up to ``attempts`` times in all, and RuntimeError is raised if
+    every profile was inconsistent.
     """
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
     if not torch.cuda.is_available():
         raise RuntimeError("busy_share profiles the CUDA device; none found")
+    if iters < 1 or attempts < 1:
+        raise ValueError(f"need iters, attempts >= 1, got {iters}, "
+                         f"{attempts}")
+    bad = []
+    for _ in range(attempts):
+        events, window = _profile_step(step, state, args, iters)
+        if not events:
+            return None, window / iters, {}
+        busy = union_length([(e.time_range.start, e.time_range.end)
+                             for e in events]) / 1e6  # profiler times: us
+        if busy <= 1.01 * window:
+            break
+        bad.append(f"device {busy} s in a window of {window} s "
+                   f"({_top_names(events)})")
+        warnings.warn(f"inconsistent profile, profiled again: {bad[-1]}")
+    else:
+        raise RuntimeError("device time exceeds the CUDA-event window in "
+                           f"every profile, inconsistent: {'; '.join(bad)}")
+    return busy / iters, window / iters, {
+        k: (n, us / 1e6 / iters) for k, (n, us) in _by_name(events).items()}
+
+
+def _profile_step(step, state, args, iters):
+    """One profile of `busy_share`'s schedule: the recorded step's device
+    events (`in_step`) and its CUDA-event window in seconds."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -110,20 +140,39 @@ def busy_share(step, state, *args, iters: int = 5):
         end.synchronize()
         prof.step()
     window = start.elapsed_time(end) / 1e3
-    # the schedule's own "ProfilerStep#n" range also shows on the device:
-    # it spans the whole step and is no device work
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("ProfilerStep")]
-    if not events:
-        return None, window / iters, {}
-    spans = [(e.time_range.start, e.time_range.end) for e in events]
-    busy = union_length(spans) / 1e6  # profiler times are in us
-    if busy > 1.01 * window:
-        raise RuntimeError(f"device time {busy} s exceeds the CUDA-event "
-                           f"window {window} s: the profile is inconsistent")
-    by_name = {}
+    return in_step(prof.events()), window
+
+
+def in_step(events):
+    """The device events of the recorded step among a profile's
+    ``events``: those inside the host-side range "ProfilerStep#n" of the
+    latest step (every launch of the step is made, and has finished,
+    within it), or all of them if the profile holds no such range.  The
+    range's device-side copy spans the whole step and is no device work,
+    so it is left out."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("ProfilerStep")]
+    steps = [e for e in events if e.device_type == DeviceType.CPU
+             and e.name.startswith("ProfilerStep")]
+    if not steps:
+        return dev
+    step = max(steps, key=lambda e: e.time_range.start).time_range
+    return [e for e in dev if e.time_range.start >= step.start
+            and e.time_range.end <= step.end]
+
+
+def _by_name(events):
+    """Each device event name's (spans, total us)."""
+    tot = {}
     for e in events:
-        n, us = by_name.get(short_name(e.name), (0, 0.0))
-        by_name[short_name(e.name)] = (n + 1, us + e.time_range.elapsed_us())
-    return busy / iters, window / iters, {
-        k: (n, us / 1e6 / iters) for k, (n, us) in by_name.items()}
+        n, us = tot.get(short_name(e.name), (0, 0.0))
+        tot[short_name(e.name)] = (n + 1, us + e.time_range.elapsed_us())
+    return tot
+
+
+def _top_names(events, k=3):
+    """The ``k`` device event names of the most time, for a diagnosis."""
+    top = sorted(_by_name(events).items(), key=lambda kv: -kv[1][1])[:k]
+    return ", ".join(f"{name} x{n} {us:.1f} us" for name, (n, us) in top)

@@ -1,7 +1,9 @@
 """The launch plan of K2, K3 and K19-K21 (`filters/ddc_cuda.py`
 `launch_plan`), a CPU model of the kernel's schedule
 (``csrc/ddc_cascade.cu``) held against the plain versions and the
-interpret-mode JAX kernels, and the DF1 sum in the kernel's order.
+interpret-mode JAX kernels, and the DF1 sum in the kernel's order; the
+same for K14 (`mix_plan`, ``csrc/ddc_mix_df1.cu`` on ``csrc/df1_ring.cuh``'s
+depth-0 pipeline).
 
 The kernel runs a CUDA block of one lane tile: a DF1 warp, producer warps
 that feed it (K2: the xs rows; K3: the fast-LO mix) and FIR warps that
@@ -26,7 +28,14 @@ empty mbarrier.  These tests show:
 * the DF1 sum with a1*y1 added last (`df1.cuh` `output_y1_last`), formed
   in wrapping int64, equals `df1.cuh`'s order and JAX `df1_process_q`
   bit for bit with full-range int32 coefficients and states, where the
-  sum wraps, with and without the clamp.
+  sum wraps, with and without the clamp;
+* K14's plan (warps, mix and store warps, chunk, ring, shared memory) and
+  its refusals; a model of its schedule (tests/torch_pipe_model.py: mix
+  warps by row index mod their count, the DF1 warp, store warps, slots
+  and parities chunk by chunk) equals `ddc_mix_df1_bank_plain` bit for
+  bit, int32 and f32, over two carried blocks, at t under a chunk, one
+  chunk and several chunks and a tail, c2 not a multiple of 32, and the
+  interpret-mode JAX kernel at c = 128, t = 256.
 """
 
 import jax
@@ -39,28 +48,42 @@ from idsp_tpu.design import Filter as JFilter
 from idsp_tpu.filters import biquad as jbiquad
 from idsp_tpu.filters import hbf as jhbf
 from idsp_tpu.filters.ddc_pallas import (
+    ddc_mix_df1_bank as j_ddc_mix_df1_bank,
     df1_clamp_hbf_cascade_bank as j_df1_clamp_hbf_cascade_bank,
     df1_hbf_cascade_bank as j_df1_hbf_cascade_bank,
     fastlo_ddc_cascade_bank as j_fastlo_ddc_cascade_bank,
     hbf1_tail_init as j_hbf1_tail_init,
 )
 
-from idsp_tpu_torch import _ext
+from idsp_tpu_torch import _ext, fxp
 from idsp_tpu_torch.filters import biquad, ddc_cuda
 from idsp_tpu_torch.filters.ddc_cuda import (
     CHUNK,
     LANES,
     MAX_SMEM,
+    MIX_PRODUCERS,
     RING,
     WARPS,
     cascade_smem,
+    ddc_mix_df1_bank_plain,
     df1_clamp_hbf_cascade_bank_plain,
     df1_hbf_cascade_bank_plain,
     fastlo_ddc_cascade_bank_plain,
     launch_plan,
+    mix_plan,
+)
+from idsp_tpu_torch.filters.pipe_plan import (
+    MAX_PIPE_SMEM,
+    PIPE_CHUNK,
+    PIPE_RING,
+    pipe_smem,
 )
 from idsp_tpu_torch.filters.hbf import HBF_TAPS, HBF_TAPS_98
 from idsp_tpu_torch.ops.fastlo import AMPLITUDE, fastlo_tables
+from idsp_tpu_torch.ops.trig import cossin
+from torch_pipe_model import Bar as _Bar
+from torch_pipe_model import df1_rows as _df1_rows
+from torch_pipe_model import mix_rows, pipe_model, run_roles
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 CHAIN = (HBF_TAPS[2], HBF_TAPS[1], HBF_TAPS[0])  # the chain's (5, 10, 23)
@@ -206,28 +229,20 @@ def test_wrappers_refuse_before_the_library(no_library, monkeypatch):
         ddc_cuda.df1_hbf_cascade_bank(
             BA, st, tails, xs, _plan=launch_plan([5, 10, 23], c2, chunk=20))
     assert ddc_cuda.df1_hbf_cascade_bank.launches == n0
+    # K14: an output type, a shift or a plan it cannot run
+    ph = torch.zeros((c2 // 2,), dtype=torch.int32, device=meta)
+    x = torch.zeros((t,), dtype=torch.int32, device=meta)
+    n0 = ddc_cuda.ddc_mix_df1_bank.launches
+    with pytest.raises(ValueError, match="out_dtype"):
+        ddc_cuda.ddc_mix_df1_bank(BA, st, ph, ph, x, out_dtype=torch.int64)
+    with pytest.raises(ValueError, match="f must be"):
+        ddc_cuda.ddc_mix_df1_bank(BA, st, ph, ph, x, 64)
+    with pytest.raises(ValueError, match="lanes"):
+        ddc_cuda.ddc_mix_df1_bank(BA, st, ph[:0], ph[:0], x)
+    assert ddc_cuda.ddc_mix_df1_bank.launches == n0
 
 
 # ---- a model of the kernel's schedule ---------------------------------------
-
-
-class _Bar:
-    """An mbarrier: ``count`` arrivals complete a phase; a wait on parity
-    p passes while the current phase's parity is not p (a fresh barrier's
-    wait on parity 1 passes)."""
-
-    def __init__(self, count):
-        self.count, self.pending, self.done = count, count, 0
-
-    def arrive(self, n=1):
-        self.pending -= n
-        assert self.pending >= 0
-        if self.pending == 0:
-            self.done += 1
-            self.pending = self.count
-
-    def passes(self, parity):
-        return self.done % 2 != parity
 
 
 def _dec_tail(tail, m, r):
@@ -242,26 +257,6 @@ def _dec_tail(tail, m, r):
 
 def _dec_packed(m, r):
     return 2 * r if r < 2 * m - 1 else 2 * r - 2 * m + 1
-
-
-def _df1_rows(ba, f, s, xs, clamp):
-    """The DF1 warp's rows: a1*y1 added last, int64 wrapping, then the
-    clamp; ``s`` the (x1, x2, y1, y2) int64 lane vectors, updated."""
-    b0, b1, b2, a1, a2 = (int(v) for v in ba)
-    x1, x2, y1, y2 = s
-    out = []
-    for x0 in xs.to(torch.int64):
-        pre = b0 * x0 + b1 * x1 + b2 * x2 + a2 * y2
-        y0 = ((pre + a1 * y1) >> f).to(torch.int32)
-        if clamp is not None:
-            u, lo, hi = clamp
-            y0 = torch.minimum(torch.maximum(y0 + u, torch.tensor(lo)),
-                               torch.tensor(hi))  # int32 + u wraps
-        x2, x1, y2, y1 = x1, x0, y1, y0.to(torch.int64)
-        out.append(y0)
-    s[:] = [x1, x2, y1, y2]
-    return torch.stack(out) if out else torch.zeros((0, xs.shape[1]),
-                                                     dtype=torch.int32)
 
 
 def _mix_rows(x, tables, tc, r0, rows):
@@ -364,14 +359,7 @@ def _model(ba, f, state, tails, taps, t, c2, plan, *, xs=None, x=None,
             tails_out[d] = torch.stack([buf[d][sl + _dec_packed(ms[d], r)]
                                         for r in range(3 * ms[d] - 2)])
 
-    rng = np.random.default_rng(seed)
-    roles = [producer(), df1(), fir()]
-    waits = [next(g, None) for g in roles]
-    while any(wt is not None for wt in waits):
-        ready = [i for i, wt in enumerate(waits) if wt is not None and wt()]
-        assert ready, "the schedule deadlocked"
-        i = ready[rng.integers(len(ready))]
-        waits[i] = next(roles[i], None)
+    run_roles([producer(), df1(), fir()], seed)
     x1, x2, y1, y2 = s
     new = biquad.Df1State(
         x=torch.stack([x1, x2], 1).to(torch.int32),
@@ -599,3 +587,139 @@ def test_df1_sum_with_a1_y1_last_is_bitexact(clamp):
                 jbiquad.df1_step_q(jba, 29, st, xv), u, lo, hi),
             jst, jnp.asarray(xs))
     np.testing.assert_array_equal(ys.numpy(), np.asarray(jys))
+
+
+# ---- K14: the depth-0 pipeline ----------------------------------------------
+
+
+def test_mix_plan_defaults(no_library):
+    """MIX_PRODUCERS mix warps and a store warp in the fewest warps that
+    hold them beside the DF1 warp's scheduler, PIPE_CHUNK rows, the most
+    slots that fit: 3 of 256 rows, 32 bytes of barriers a slot and two
+    rings of 128-byte rows (a fourth slot would take 256 KB)."""
+    for c2 in (2, 50, 100, 1024, 2048):
+        p = mix_plan(c2)
+        assert (p.warps, p.producers, p.chunk, p.ring) == (
+            8, MIX_PRODUCERS, PIPE_CHUNK, PIPE_RING)
+        assert p.producers + 1 <= p.warps - p.warps // 4
+        assert p.tiles == -(-c2 // LANES)
+        assert p.smem == pipe_smem(p.chunk, p.ring) <= MAX_PIPE_SMEM
+    assert pipe_smem(256, 3) == 32 * 3 + 2 * 3 * 256 * 128 == 196704
+    assert pipe_smem(256, 4) > MAX_PIPE_SMEM == MAX_SMEM - 1024
+    # the fewest warps: 3 roles a scheduler off the DF1 warp's
+    assert [mix_plan(64, producers=p).warps for p in (1, 2, 3, 5, 8, 11)] == [
+        4, 4, 8, 8, 12, 16]
+    assert mix_plan(64, chunk=384).ring == 2
+    forced = mix_plan(200, warps=16, producers=3, chunk=24, ring=4)
+    assert (forced.warps, forced.tiles, forced.smem) == (
+        16, 7, pipe_smem(24, 4))
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(producers=0), "producers"),
+    (dict(producers=12), "warps"),            # 13 roles: 20 warps
+    (dict(warps=8, producers=6), "warps"),    # 7 roles in 6 places
+    (dict(warps=6), "warps"),
+    (dict(warps=20, producers=13), "warps"),
+    (dict(chunk=0), "chunk"),
+    (dict(ring=1), "2\\+ slots"),
+    (dict(chunk=512, ring=3), "more than"),   # 393 KB of rings
+    (dict(chunk=2048), "no ring"),
+    (dict(cluster=2), "one CTA"),               # K15's partner CTA only
+    (dict(cluster=3), "cluster"),
+])
+def test_mix_plan_refuses_what_the_kernel_cannot_run(kw, match, no_library):
+    with pytest.raises(ValueError, match=match):
+        mix_plan(1024, **kw)
+    with pytest.raises(ValueError, match="lanes"):
+        mix_plan(0)
+
+
+def _wrap32(v):
+    return ((v + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def _k14_produce(x, phase0, steps):
+    """K14's mix warps, row by row as the kernel forms it: the LO of row i
+    at phase0 + steps*(i+1) (wrapping), g = cos (I) or -sin (Q, int32
+    negation), the high word of the exact product g*x (`__mulhi`)."""
+    i64 = torch.int64
+
+    def produce(r0, idx):
+        rows = (r0 + idx).to(i64)
+        ph = _wrap32(phase0.to(i64)[None, :]
+                     + steps.to(i64)[None, :] * (rows[:, None] + 1))
+        co, si = cossin(ph)
+        g = torch.cat([co.to(i64), _wrap32(-si.to(i64)).to(i64)], dim=1)
+        return ((g * x[rows].to(i64)[:, None]) >> 32).to(torch.int32)
+
+    return produce
+
+
+K14_CASES = [
+    # (c, t, plan keywords): lanes 2c
+    (16, 40, dict(chunk=64)),                               # t under a chunk
+    (20, 48, dict(chunk=48, ring=2)),                       # t = one chunk
+    (25, 3 * 32 + 13, dict(chunk=32, ring=2, producers=3)),
+    (8, 5 * 24 + 7, dict(chunk=24, ring=3)),                # 5 mix warps
+    (36, 200, dict(chunk=16, ring=4, producers=1)),
+    (40, 130, dict(chunk=20, ring=2, producers=11)),
+    (6, 0, dict(chunk=16)),                                 # no rows
+]
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("c,t,kw", K14_CASES)
+def test_k14_schedule_model_equals_plain(c, t, kw, out_dtype):
+    """Two carried blocks; c2 = 40, 50, 72 and 80 are not multiples of the
+    32-lane tile, c2 = 50 takes 4-byte stores."""
+    rng = np.random.default_rng(300 + c)
+    plan = mix_plan(2 * c, **kw)
+    st = biquad.Df1State(x=torch.from_numpy(_i32(rng, (2 * c, 2))),
+                         y=torch.from_numpy(_i32(rng, (2 * c, 2), -(2**28),
+                                                 2**28)))
+    ph = torch.from_numpy(_i32(rng, (c,)))
+    steps = torch.from_numpy(_i32(rng, (c,)))  # every LO octant
+    ps, pph = st, ph
+    for blk in range(2):
+        x = torch.from_numpy(_i32(rng, (t,)))
+        st, y = pipe_model(BA, 29, st, t, 2 * c, plan,
+                           _k14_produce(x, ph, steps), mix_rows,
+                           out_dtype=out_dtype or torch.int32, seed=blk)
+        ph = _wrap32(ph.to(torch.int64) + steps.to(torch.int64) * t)
+        ps, pph, py = ddc_mix_df1_bank_plain(BA, ps, pph, steps, x, 29,
+                                             out_dtype=out_dtype)
+        _same((st, ph, y), (ps, pph, py))
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_k14_schedule_model_vs_jax_kernel(out_dtype):
+    """K14 as modelled (the default plan's roles, 64-row chunks) against
+    the interpret-mode JAX kernel, as tests/test_torch_ddc_bank_biquad.py
+    holds the plain version: state, phase and output bit for bit."""
+    c, t = 128, 256  # the JAX kernel takes channels in 128s
+    rng = np.random.default_rng(86)
+    phase0 = _i32(rng, (c,))
+    steps = _i32(rng, (c,), 1 << 24, 1 << 30)
+    x = _i32(rng, (t,))
+    sx, sy = _i32(rng, (2 * c, 2)), _i32(rng, (2 * c, 2), -(2**28), 2**28)
+    jst, jph, jy = j_ddc_mix_df1_bank(
+        jnp.asarray(BA), jbiquad.Df1State(x=jnp.asarray(sx),
+                                          y=jnp.asarray(sy)),
+        jnp.asarray(phase0), jnp.asarray(steps), jnp.asarray(x), 29,
+        time_chunk=128, lookup="select", interpret=True,
+        out_dtype=jnp.int32 if out_dtype is None else jnp.float32)
+    st, y = pipe_model(
+        BA, 29, biquad.Df1State(x=torch.from_numpy(sx),
+                                y=torch.from_numpy(sy)), t, 2 * c,
+        mix_plan(2 * c, chunk=64),
+        _k14_produce(torch.from_numpy(x), torch.from_numpy(phase0),
+                     torch.from_numpy(steps)), mix_rows,
+        out_dtype=out_dtype or torch.int32)
+    np.testing.assert_array_equal(st.x.numpy(), np.asarray(jst.x))
+    np.testing.assert_array_equal(st.y.numpy(), np.asarray(jst.y))
+    np.testing.assert_array_equal(
+        fxp.wrap_i32(torch.from_numpy(phase0).to(torch.int64)
+                     + torch.from_numpy(steps).to(torch.int64) * t).numpy(),
+        np.asarray(jph))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jy))

@@ -534,6 +534,116 @@ def test_fm_disc_kernel_equals_plain(cuda, angle):
                 st_p.deemph.y, y_p))
 
 
+# K14 and K15 at the depth-0 pipeline's edges (csrc/df1_ring.cuh): forced
+# plans (1 and the most producers in 16 warps, 2 slots and the most that
+# fit, the smallest chunk), c = 100 and 50 (not multiples
+# of the 32-lane tile; K14's 200 and 100 lanes, K15's 50 channels take
+# 4-byte stores), t = one chunk and 7 chunks + 40 rows
+PIPE_EDGES = {
+    "1 producer, 2 slots": (100, 7 * 64 + 40, dict(producers=1, chunk=64,
+                                                   ring=2)),
+    "most producers": (50, 7 * 64 + 40, dict(producers=11, warps=16,
+                                             chunk=64)),
+    "most slots": (100, 7 * 64 + 40, dict(chunk=64, ring=14)),
+    "chunk 1": (50, 40, dict(chunk=1, ring=2)),
+    "t = one chunk": (100, 256, {}),
+    "t = 7 chunks + 40": (50, 7 * 256 + 40, {}),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("case", sorted(PIPE_EDGES))
+def test_ddc_mix_df1_kernel_at_pipe_edges(cuda, case, out_dtype):
+    from idsp_tpu_torch.filters.ddc_cuda import mix_plan
+
+    c, t, kw = PIPE_EDGES[case]
+    plan = mix_plan(2 * c, **kw) if kw else None
+    rng = np.random.default_rng(44)
+    steps = _i32(rng, (c,), device=cuda)
+    st = biquad.Df1State(x=_i32(rng, (2 * c, 2), device=cuda),
+                         y=_i32(rng, (2 * c, 2), -(2**28), 2**28, device=cuda))
+    ph = _i32(rng, (c,), device=cuda)
+    st_p, ph_p = st, ph
+    for _ in range(2):
+        x = _i32(rng, (t,), device=cuda)
+        st, ph, y = ddc_mix_df1_bank(BA_Q, st, ph, steps, x, 29,
+                                     out_dtype=out_dtype, _plan=plan)
+        st_p, ph_p, y_p = ddc_mix_df1_bank_plain(BA_Q, st_p, ph_p, steps, x,
+                                                 29, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, ph, y), (st_p.x, st_p.y, ph_p, y_p))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("angle", ["exact", "fast"])
+@pytest.mark.parametrize("case", sorted(PIPE_EDGES) + ["the other cluster"])
+def test_fm_disc_kernel_at_pipe_edges(cuda, case, angle):
+    """The edges at each angle's default CTAs a tile (exact: a cluster of
+    2), and the 7-chunk case with the other (exact 1, fast 2)."""
+    from idsp_tpu_torch.filters.fm_cuda import DISC_CLUSTER, disc_plan
+
+    if case == "the other cluster":
+        c, t, kw = 50, 7 * 64 + 40, dict(chunk=64,
+                                         cluster=3 - DISC_CLUSTER[angle])
+    else:
+        c, t, kw = PIPE_EDGES[case]
+    plan = disc_plan(c, angle, **kw) if kw else None
+    rng = np.random.default_rng(54)
+    ba = fm_disc.deemphasis_coefficients(0.02)
+    st = fm_disc.FmDiscState(
+        prev_re=_i32(rng, (c,), device=cuda),
+        prev_im=_i32(rng, (c,), device=cuda),
+        prev_valid=torch.from_numpy(np.arange(c) % 3 == 0).to(cuda),
+        deemph=biquad.Df1State(x=_i32(rng, (c, 2), device=cuda),
+                               y=_i32(rng, (c, 2), -(2**28), 2**28,
+                                      device=cuda)))
+    st_p = st
+    for b in range(2):
+        re, im = _i32(rng, (t, c), device=cuda), _i32(rng, (t, c), device=cuda)
+        if b == 0:
+            re[:3], im[:3] = -(2**31), -(2**31)
+        st, y = fm_disc_bank(ba, st, re, im, 0x1934_1234, angle=angle,
+                             _plan=plan)
+        st_p, y_p = fm_disc_bank_plain(ba, st_p, re, im, 0x1934_1234,
+                                       angle=angle)
+        torch.cuda.synchronize()
+        _equal((st.prev_re, st.prev_im, st.prev_valid, st.deemph.x,
+                st.deemph.y, y),
+               (st_p.prev_re, st_p.prev_im, st_p.prev_valid, st_p.deemph.x,
+                st_p.deemph.y, y_p))
+
+
+@pytest.mark.requires_cuda
+def test_pipe_entries_refuse_a_plan_not_their_own(cuda):
+    """K14's and K15's entry points refuse a plan whose shared memory is
+    not the kernel's own sum, or more than a block may have (RuntimeError,
+    nothing launched), and the next launch runs as usual."""
+    from idsp_tpu_torch.filters.ddc_cuda import mix_plan
+    from idsp_tpu_torch.filters.fm_cuda import disc_plan
+    from idsp_tpu_torch.filters.pipe_plan import pipe_smem
+
+    c, t = 64, 300
+    st = biquad.df1_init((2 * c,), device=cuda)
+    ph = torch.zeros((c,), dtype=torch.int32, device=cuda)
+    x = torch.ones((t,), dtype=torch.int32, device=cuda)
+    plan = mix_plan(2 * c)
+    big = plan._replace(chunk=512, ring=2, smem=pipe_smem(512, 2))  # 256 KB
+    for bad in (plan._replace(smem=plan.smem - 32), big):
+        with pytest.raises(RuntimeError):
+            ddc_mix_df1_bank(BA_Q, st, ph, ph, x, 29, _plan=bad)
+    fst = fm_disc.init_state((c,), device=cuda)
+    re = torch.ones((t, c), dtype=torch.int32, device=cuda)
+    ba = fm_disc.deemphasis_coefficients(0.02)
+    with pytest.raises(RuntimeError):
+        fm_disc_bank(ba, fst, re, re, 5, _plan=disc_plan(c)._replace(
+            producers=12))  # 13 roles in 12 warps
+    _equal(ddc_mix_df1_bank(BA_Q, st, ph, ph, x, 29),
+           ddc_mix_df1_bank_plain(BA_Q, st, ph, ph, x, 29))
+    _equal(fm_disc_bank(ba, fst, re, re, 5)[1],
+           fm_disc_bank_plain(ba, fst, re, re, 5)[1])
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("tc", [64, 256])
 def test_ddc_lockin_kernel_equals_plain(cuda, tc):

@@ -7,6 +7,7 @@ bit, the f32 fast-LO tables to a measured ULP bound.
 
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -57,6 +58,29 @@ def test_union_length_and_timers_need_cuda():
             profiling.measure_rate(step, None)
         with pytest.raises(RuntimeError, match="CUDA"):
             profiling.busy_share(step, None)
+
+
+def _event(name, start, end, device="CUDA"):
+    from torch.autograd import DeviceType
+
+    return SimpleNamespace(name=name, device_type=getattr(DeviceType, device),
+                           time_range=SimpleNamespace(start=start, end=end))
+
+
+@pytest.mark.parametrize("steps, kept", [
+    # the latest step's host range bounds the device events kept
+    ([(-5, -2), (0, 10)], ["k(int)", "Memcpy DtoD"]),
+    # no such range: every device event is kept
+    ([], ["early(int)", "k(int)", "Memcpy DtoD", "late(int)"]),
+])
+def test_busy_share_keeps_the_device_events_of_the_step(steps, kept):
+    events = ([_event("early(int)", -3, -1), _event("k(int)", 1, 4),
+               _event("Memcpy DtoD", 5, 9), _event("late(int)", 9, 12),
+               _event("ProfilerStep#1", 0, 10),  # its device-side copy
+               _event("aten::add", 1, 2, device="CPU")]
+              + [_event(f"ProfilerStep#{i}", a, b, device="CPU")
+                 for i, (a, b) in enumerate(steps)])
+    assert [e.name for e in profiling.in_step(events)] == kept
 
 
 @pytest.mark.parametrize("name, short", [

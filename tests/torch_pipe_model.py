@@ -1,0 +1,149 @@
+"""A CPU model of the DF1 warp's mbarrier rings (``csrc/df1_ring.cuh``),
+shared by the schedule tests of K2/K3 (tests/test_torch_ddc_cascade_plan.py)
+and K14/K15 (that file and tests/test_torch_fm_plan.py).
+
+Each role of a CUDA block is a coroutine that yields a test before each
+mbarrier wait; the roles run in a seeded random order among those whose
+wait passes, and the work between two waits runs at once.  The barriers'
+phase parities follow the PTX: a wait on parity p passes while the
+current phase's parity is not p, so a fresh barrier's wait on 1 passes.
+"""
+
+import numpy as np
+import torch
+
+
+class Bar:
+    """An mbarrier: ``count`` arrivals complete a phase; a wait on parity
+    p passes while the current phase's parity is not p (a fresh barrier's
+    wait on parity 1 passes)."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.done = count, count, 0
+
+    def arrive(self, n=1):
+        self.pending -= n
+        assert self.pending >= 0
+        if self.pending == 0:
+            self.done += 1
+            self.pending = self.count
+
+    def passes(self, parity):
+        return self.done % 2 != parity
+
+
+def df1_rows(ba, f, s, xs, clamp):
+    """The DF1 warp's rows: a1*y1 added last, int64 wrapping, then the
+    clamp; ``s`` the (x1, x2, y1, y2) int64 lane vectors, updated."""
+    b0, b1, b2, a1, a2 = (int(v) for v in ba)
+    x1, x2, y1, y2 = s
+    out = []
+    for x0 in xs.to(torch.int64):
+        pre = b0 * x0 + b1 * x1 + b2 * x2 + a2 * y2
+        y0 = ((pre + a1 * y1) >> f).to(torch.int32)
+        if clamp is not None:
+            u, lo, hi = clamp
+            y0 = torch.minimum(torch.maximum(y0 + u, torch.tensor(lo)),
+                               torch.tensor(hi))  # int32 + u wraps
+        x2, x1, y2, y1 = x1, x0, y1, y0.to(torch.int64)
+        out.append(y0)
+    s[:] = [x1, x2, y1, y2]
+    return torch.stack(out) if out else torch.zeros((0, xs.shape[1]),
+                                                     dtype=torch.int32)
+
+
+def run_roles(roles, seed):
+    """Runs the coroutines ``roles`` to their ends in a seeded random order
+    among those whose pending wait passes; fails on a deadlock."""
+    rng = np.random.default_rng(seed)
+    waits = [next(g, None) for g in roles]
+    while any(wt is not None for wt in waits):
+        ready = [i for i, wt in enumerate(waits) if wt is not None and wt()]
+        assert ready, "the schedule deadlocked"
+        i = ready[rng.integers(len(ready))]
+        waits[i] = next(roles[i], None)
+
+
+def mix_rows(pw, rows, plan):
+    """K14's producer pw: its rows of a chunk, index mod the producers."""
+    return list(range(pw, rows, plan.producers))
+
+
+def span_rows(pw, rows, plan):
+    """K15's producer pw (the partner CTA's warps after the home CTA's
+    producers): its span of a chunk, ceil(chunk / all producers) rows."""
+    span = -(-plan.chunk // plan.all_producers)
+    lo = min(pw * span, rows)
+    return list(range(lo, min(lo + span, rows)))
+
+
+def pipe_model(ba, f, state, t, lanes, plan, produce, rows_of, *,
+               out_dtype=torch.int32, seed=0):
+    """A depth-0 launch (``run_pipe``: K14, K15) as the kernel schedules
+    it: ``plan.all_producers`` producer roles, the DF1 warp and the store
+    warp over rings of ``plan.ring`` slots of
+    ``plan.chunk`` rows.  Producer pw fills the rows ``rows_of(pw, rows,
+    plan)`` of each chunk with ``produce(r0, idx)`` (int32, (len(idx),
+    lanes), rows r0 + idx of the block); the store warp copies the output
+    slot's rows to y.  With a cluster of 2 the producers from
+    ``plan.producers`` on are the partner CTA's warps: each waits on the
+    partner's own copy of the slot's empty barrier, which the DF1 warp
+    arrives on only for a chunk the partner has still to fill, and
+    arrives once on the home slot's full barrier.  Slots start as garbage,
+    so a row read before it is written shows.  Returns (Df1State, y (t,
+    lanes) of ``out_dtype``)."""
+    from idsp_tpu_torch.filters.biquad import Df1State
+
+    K, R, P = plan.chunk, plan.ring, plan.all_producers
+    gen = torch.Generator().manual_seed(seed)
+    ring_in = torch.randint(-2**31, 2**31, (R, K, lanes), generator=gen,
+                            dtype=torch.int64).to(torch.int32)
+    ring_out = torch.randint(-2**31, 2**31, (R, K, lanes), generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+    full_in = [Bar(P) for _ in range(R)]
+    empty_in = [Bar(1) for _ in range(R)]
+    full_out = [Bar(1) for _ in range(R)]
+    empty_out = [Bar(1) for _ in range(R)]
+    empty_peer = [Bar(1) for _ in range(R)]  # the partner CTA's copies
+    y = torch.full((t, lanes), -1, dtype=torch.int32)
+    written = torch.zeros(t, dtype=torch.int64)
+    chunks = [(cs, min(cs + K, t)) for cs in range(0, t, K)]
+    s = [state.x[:, 0].to(torch.int64), state.x[:, 1].to(torch.int64),
+         state.y[:, 0].to(torch.int64), state.y[:, 1].to(torch.int64)]
+
+    def producer(pw):
+        empty = empty_in if pw < plan.producers else empty_peer
+        for q, (cs, ce) in enumerate(chunks):
+            k, ph = q % R, (q // R) & 1
+            yield lambda: empty[k].passes(ph ^ 1)
+            idx = rows_of(pw, ce - cs, plan)
+            if idx:
+                ring_in[k, idx] = produce(cs, torch.tensor(idx))
+            full_in[k].arrive()
+
+    def df1():
+        for q, (cs, ce) in enumerate(chunks):
+            k, ph = q % R, (q // R) & 1
+            yield lambda: full_in[k].passes(ph)
+            yield lambda: empty_out[k].passes(ph ^ 1)
+            ring_out[k, :ce - cs] = df1_rows(ba, f, s, ring_in[k, :ce - cs],
+                                             None)
+            full_out[k].arrive()
+            empty_in[k].arrive()
+            if P > plan.producers and q + R < len(chunks):
+                empty_peer[k].arrive()
+
+    def store():
+        for q, (cs, ce) in enumerate(chunks):
+            k, ph = q % R, (q // R) & 1
+            yield lambda: full_out[k].passes(ph)
+            y[cs:ce] = ring_out[k, :ce - cs]
+            written[cs:ce] += 1
+            empty_out[k].arrive()
+
+    run_roles([producer(pw) for pw in range(P)] + [df1(), store()], seed)
+    assert bool((written == 1).all()), "a row was stored twice or never"
+    x1, x2, y1, y2 = s
+    new = Df1State(x=torch.stack([x1, x2], 1).to(torch.int32),
+                   y=torch.stack([y1, y2], 1).to(torch.int32))
+    return new, y.to(out_dtype)
