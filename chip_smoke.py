@@ -59,7 +59,14 @@ Phases, each reported on its own line:
    (int32 and f32 out) and K15 (exact and fast) at the edges of their
    depth-0 pipeline (PIPE_EDGES: forced plans of 1 and 11 producers, 2
    and 14 slots, 1-row chunks; c = 100 and 50; t one chunk and 7 chunks
-   + 40 rows) over 2 blocks, bit for bit; K22 `hbf_dec_cascade_mxu`
+   + 40 rows) over 2 blocks, bit for bit; K29 and K37 at the same
+   edges of the same pipeline at their own 128-row chunk (forced plans of
+   1 and 11 producers, 2 slots and the most that fit, 1-row chunks; c =
+   100, 50 and 51; t one chunk and 7 chunks + 40; K29 with the Q64<61>
+   lowpass and, on the 7-chunk row, full-range coefficients at f = 47 and
+   int64's edge values at f = 33; K37 with 1 in 4 rows valid and 1.5
+   chunks without one, at sf 12 and on the 7-chunk row also sf 32 and 40)
+   over 2 blocks, bit for bit; K22 `hbf_dec_cascade_mxu`
    ((32768, 512) f32) and K23
    `hbf_int_cascade_mxu` ((2048, 512) f32), depth 4, with HBF_TAPS and
    HBF_TAPS_98 from a random carried state, at two (block, sub) tilings,
@@ -243,8 +250,8 @@ Phases, each reported on its own line:
    times; K28-K33 at c=1024 lanes with their plain versions' times from
    phase 3 (K31 clamped and K32/K33 with a shared set on the log only);
    K34-K40 at c=1024 lanes with their rates and their plain versions'
-   times from phase 3 (K40 over wdf-ca-7 on the log only), K38-K40 also
-   by their profiler spans, device ms a launch;
+   times from phase 3 (K40 over wdf-ca-7 on the log only), K29 and
+   K37-K40 also by their profiler spans, device ms a launch;
    K41 at h = 1, 2, 90 on (8192, 1024) f32 blocks, timed by the ranks
    at the end of phase 4 once the parent is done: the median of 20 calls
    with CUDA events (host gate included; 4 time-sliced processes on one
@@ -353,6 +360,8 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "df1_hbf12_bank": "ddc_cascade_kernel",
                   "fastlo_ddc_cascade_bank_clamp": "ddc_cascade_kernel",
                   "ddc_mix_df1_bank": "ddc_mix_df1_kernel",
+                  "df1_bank_q64": "df1_q64_kernel",
+                  "rpll_bank": "rpll_kernel",
                   "fm_disc_bank": "fm_disc_kernel",
                   "fm_disc_bank_fast": "fm_disc_kernel"}
 # The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
@@ -1953,6 +1962,117 @@ def check_pipe_edges(dev, i32, errs, ba):
         f"blocks each ({', '.join(PIPE_EDGES)}; c = 100 and 50)")
 
 
+def most_slots(plan, c, chunk):
+    """The most slots of ``chunk`` rows that a depth-0 plan function
+    (`q64_plan`, `rpll_plan`) fits in a block's shared memory."""
+    ring = 2
+    while True:
+        try:
+            plan(c, chunk=chunk, ring=ring + 1)
+        except ValueError:
+            return ring
+        ring += 1
+
+
+def check_serial_pipe_edges(dev, i32, errs):
+    """Phase 3 for K29 and K37 at the edges of the depth-0 pipeline, as
+    PIPE_EDGES at their own chunk (128 rows by default): forced plans (1
+    and the most producers, 2 slots and the most that fit, 1-row chunks),
+    c = 100 and 50 (not
+    multiples of the 32-lane tile; K37's 50 lanes and K29's 51 in the
+    1-row case take the stores of a lane each, the rest 16 bytes a
+    thread), t = one chunk and 7 chunks + 40; each over 2 carried blocks
+    against its plain version, tolerance 0 (into errs under the kernel's
+    own name).  K29 with the suite's Q64<61> lowpass, x and
+    state in +-2^55, and at "t = 7 chunks + 40" also with full-range
+    coefficients, x and state at f = 47 and int64's edge values at f = 33
+    (the 128-bit sum wraps); K37 on the suite's row (sf 12) with 1 in 4
+    rows valid and a stretch of 1.5 chunks with no valid row, and at "t = 7
+    chunks + 40" also at sf 32 and 40 (the other two shift instances)."""
+    import torch
+    from idsp_tpu_torch.design import Filter
+    from idsp_tpu_torch.filters import biquad, rpll
+    from idsp_tpu_torch.filters.biquad_cuda import (
+        df1_bank_q64, df1_bank_q64_plain, q64_plan,
+    )
+    from idsp_tpu_torch.filters.rpll_cuda import (
+        rpll_bank, rpll_bank_plain, rpll_plan,
+    )
+
+    rng = np.random.default_rng(18)
+    edges64 = np.array([-(2**63), -(2**63) + 1, -(2**62), -1, 0, 1, 2**62,
+                        2**63 - 1], np.int64)
+
+    def words(shape, kind):
+        if kind == "edges":
+            return rng.choice(edges64, shape)
+        lim = 2**63 if kind == "full" else 2**55
+        return rng.integers(-lim, lim, shape, dtype=np.int64)
+
+    def i64(shape, kind):
+        return torch.from_numpy(words(shape, kind)).to(dev)
+
+    lp = biquad.quantize_ba(biquad.from_cookbook(
+        Filter().critical_frequency(0.1).lowpass()), 61, dtype=np.int64)
+    labels = []
+    for name, plan_of, chunk in (("df1_bank_q64", q64_plan, 128),
+                                 ("rpll_bank", rpll_plan, 128)):
+        most = most_slots(plan_of, 100, 64)
+        k37 = name == "rpll_bank"
+        edges = {
+            "1 producer, 2 slots": (100, 7 * 64 + 40,
+                                    dict(producers=1, chunk=64, ring=2)),
+            "most producers": (50, 7 * 64 + 40, dict(producers=11,
+                                                     warps=16, chunk=64)),
+            f"most slots ({most})": (100, 7 * 64 + 40,
+                                     dict(chunk=64, ring=most)),
+            "chunk 1": (50 if k37 else 51, 40, dict(chunk=1, ring=2)),
+            "t = one chunk": (100, chunk, {}),
+            "t = 7 chunks + 40": (50, 7 * chunk + 40, {}),
+        }
+        for label, (c, t, kw) in edges.items():
+            plan = plan_of(c, **kw) if kw else None
+            if k37:
+                for sf in ((12, 32, 40) if label.startswith("t = 7")
+                           else (12,)):
+                    cfg = rpll.RpllConfig(RPLL_ROW[0], sf, RPLL_ROW[2])
+
+                    def make(t=t, c=c):
+                        v = rng.integers(0, 4, size=(t, c)) == 0
+                        v[t // 3: t // 3 + 3 * chunk // 2] = False
+                        return (i32((t, c)), torch.from_numpy(v).to(dev))
+
+                    st = rpll.RpllState(*(i32((c,)) for _ in range(4)))
+                    errs[name] = max(errs[name], hold(
+                        f"{name} ({label}, sf {sf})",
+                        lambda s, xv, cfg=cfg, p=plan: rpll_bank(
+                            cfg, s, *xv, _plan=p),
+                        lambda s, xv, cfg=cfg: rpll_bank_plain(cfg, s, *xv),
+                        (st,), make, blocks=2))
+            else:
+                for kind, f in ((("lowpass", 61), ("full", 47),
+                                 ("edges", 33)) if label.startswith("t = 7")
+                                else (("lowpass", 61),)):
+                    ba = lp if kind == "lowpass" else words((5,), kind)
+                    st = biquad.Df1State(x=i64((c, 2), kind),
+                                         y=i64((c, 2), kind))
+                    errs[name] = max(errs[name], hold(
+                        f"{name} ({label}, {kind}, f {f})",
+                        lambda s, x, ba=ba, f=f, p=plan: df1_bank_q64(
+                            ba, s, x, f, _plan=p),
+                        lambda s, x, ba=ba, f=f: df1_bank_q64_plain(
+                            ba, s, x, f),
+                        (st,), lambda t=t, c=c, kind=kind: i64((t, c), kind),
+                        blocks=2))
+        labels.append(f"{name}: {', '.join(edges)}")
+    log("phase 3 K29 (the Q64<61> lowpass; full range at f 47 and int64's "
+        "edges at f 33 on the 7-chunk row) and K37 (sf 12, 1 in 4 rows "
+        "valid, 1.5 chunks without one; sf 32 and 40 on the 7-chunk row) at "
+        "the depth-0 pipeline's edges == plain over 2 blocks each ("
+        + "; ".join(labels) + "; c = 100 and 50): max |d| "
+        f"{errs['df1_bank_q64']}, {errs['rpll_bank']}")
+
+
 def check_biquad_kernels(dev, i32, errs, plain_s, ba, ba_bank, pll_ba):
     """Phase 3 for K11-K14 at full width: K11-K13 at c = C_BANK (d = 16,
     time chunk TC), K14 at c = C_MAIN and C_WIDE with int32 and f32
@@ -3334,8 +3454,9 @@ def precision_main_path(dev, rng, wrappers):
 def time_precision(dev, rng, card, timings, plain_s):
     """Phase 6 for K28-K33 at c = C_PREC, t = T, the suite's inputs: each
     kernel (K31 unclamped, K32/K33 per-lane) beside its plain version
-    (timed in phase 3); K31 clamped with the suite's row, and K32/K33 with
-    the shared (5,) set, on the log only."""
+    (timed in phase 3), K29 also by its profiler spans (`launch_device_ms`);
+    K31 clamped with the suite's row, and K32/K33 with the shared (5,)
+    set, on the log only."""
     from idsp_tpu_torch.profiling import measure_rate
 
     c = C_PREC
@@ -3346,7 +3467,13 @@ def time_precision(dev, rng, card, timings, plain_s):
         k_s, _ = measure_rate(kern, states[key], x[rung], iters=20, trials=3)
         timings["kernels"][name] = {c: {"ms": k_s * 1e3,
                                         "plain_ms": plain_s[name] * 1e3}}
-        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
+        note = ""
+        if name in DEVICE_SYMBOLS:
+            dev_ms = launch_device_ms(name, lambda s, kern=kern, rung=rung:
+                                      kern(s, x[rung]), states[key])
+            timings["kernels"][name][c]["device_ms"] = dev_ms
+            note = f", device {dev_ms} ms a launch (profiler spans)"
+        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms{note}, plain "
             f"{plain_s[name] * 1e3:.2f} ms (phase 3)  [{card}]")
     extra = {"df1_dither_bank (clamped)": precision_cases(
         ba, planes, WIDE_CLAMP)["df1_dither_bank"]}
@@ -3867,7 +3994,7 @@ def structures_main_path(dev, rng, wrappers):
 
 def time_structures(dev, rng, card, timings, plain_s):
     """Phase 6 for K34-K40 at c = C_STRUCT, t = T: each kernel beside its
-    plain version (timed in phase 3) and its rate in c*t samples/s, K38-K40
+    plain version (timed in phase 3) and its rate in c*t samples/s, K37-K40
     also by their profiler spans (`launch_device_ms`); K40 over wdf-ca-7
     on the log only."""
     from idsp_tpu_torch.profiling import measure_rate
@@ -4382,6 +4509,7 @@ def main():
     check_control_kernels(dev, i32, i64, errs, plain_s)
     check_precision_kernels(dev, rng, errs, plain_s)
     check_structure_kernels(dev, rng, errs, plain_s)
+    check_serial_pipe_edges(dev, i32, errs)
     log(f"phase 3 done at {time.perf_counter() - wall0:.1f} s")
 
     # ---- phase 4: the main path ---------------------------------------

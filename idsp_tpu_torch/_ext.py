@@ -51,7 +51,7 @@ _SIGNATURES = {
     "idsp_df1_wide_bank": [_P] * 6 + [_I] * 12 + [_P],
     "idsp_df1_wide_bank_coef": [_P] * 7 + [_I] * 7 + [_P],
     "idsp_df1_bank_q16": [_P] * 6 + [_I] * 8 + [_P],
-    "idsp_df1_bank_q64": [_P] * 6 + [_I] * 3 + [_L] * 5 + [_P],
+    "idsp_df1_bank_q64": [_P] * 6 + [_I] * 3 + [_L] * 5 + [_I] * 5 + [_P],
     "idsp_df1_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P],
     "idsp_df1_dither_bank": [_P] * 8 + [_I] * 12 + [_P],
     "idsp_df1_dither_bank_coef": [_P] * 9 + [_I] * 7 + [_P],
@@ -76,7 +76,7 @@ _SIGNATURES = {
     "idsp_svf_bank": [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],
     "idsp_normal_bank_q": [_P] * 6 + [_I] * 8 + [_P],
     "idsp_normal_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P],
-    "idsp_rpll_bank": [_P] * 12 + [_I] * 5 + [_P],
+    "idsp_rpll_bank": [_P] * 12 + [_I] * 10 + [_P],
     "idsp_wdf_bank": [_P] * 9 + [_I] * 7 + [_P],
     "idsp_halo_slot_alloc": [_L, _P, _P],
     "idsp_halo_slot_open": [_P, _P],

@@ -1,5 +1,5 @@
-"""Time K1, K2, K3, K6, K7, K8, K14, K15, K17, K19, K22 "highest" and
-K38-K40 of two checkouts of the port in turns, in one process.
+"""Time K1, K2, K3, K6, K7, K8, K14, K15, K17, K19, K22 "highest", K29,
+K37 and K38-K40 of two checkouts of the port in turns, in one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -8,7 +8,7 @@ Usage (on a CUDA machine, from the root of a checkout)::
 ``--only`` keeps the kernels whose name contains one of the given
 substrings (e.g. ``--only highest,wdf``; K2, K3, K19: ``--only
 df1_hbf,fastlo_ddc_cascade,df1_clamp``; K14, K15: ``--only
-mix_df1,fm_disc``).
+mix_df1,fm_disc``; K29, K37: ``--only q64,rpll``).
 
 Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
 loaded under a name of its own, so both live in this process, and each
@@ -30,7 +30,11 @@ K39 `wdf_chain_bank` (wdf-ca-19's branch 0) and K40 `wdf_pair_bank`
 (zero state, `chip_smoke.py`'s chains), K14 `ddc_mix_df1_bank` (f32
 out; x, a zero phase, the K6 steps) at c = 512 and 1024, and K15
 `fm_disc_bank` (exact and fast angle; IQ full range, carrier 12345, the
-deemphasis lowpass at 0.02, zero state) at c = 512.  The two trees must
+deemphasis lowpass at 0.02, zero state) at c = 512, K29 `df1_bank_q64`
+(the Q64<61> lowpass at 0.1, x in +-2^55, zero state) and K37
+`rpll_bank` (the RPLL row (8, 12, 11), full-range timestamps, 1 in 64
+valid, zero state) at c = 1024 lanes, t = 32768, as `chip_smoke.py`'s
+ladder and structures.  The two trees must
 compute the same words, K17 within 2e-5 of the scale (its sums run in
 another order).
 One sample is the CUDA-event time of ITERS launches on the same inputs,
@@ -65,6 +69,7 @@ M_CH, CH_TAPS, N_CH = 1024, 8, (1024, 16384)  # K17: branches, taps, frames
 ROUNDS, ITERS = 30, 20
 C_WDF = 1024  # K38-K40's lanes
 C_FM, FM_CARRIER = 512, 12345  # K15's channels and carrier word
+C_SERIAL = 1024  # K29's and K37's lanes
 # wdf-ca-7 and wdf-ca-19 (benches/suite.py:442-500): per branch, stages of
 # (type nibbles, adapters, pole coefficients)
 WDF_CA7 = ([(0xAD, 2, [-0.9, 0.9]), (0xAD, 2, [-0.6, 0.7])],
@@ -98,7 +103,7 @@ def cases(alias: str, dev, inputs):
         "filters.hbf_cuda", "filters.hbf_mxu", "filters.wdf",
         "filters.ddc_cuda", "filters.fm_cuda", "pipelines.fm_disc",
         "filters.wdf_cuda", "pipelines.channelizer",
-        "pipelines.channelizer_cuda")}
+        "pipelines.channelizer_cuda", "filters.rpll", "filters.rpll_cuda")}
     biquad, lowpass, pll = (sub["filters.biquad"], sub["filters.lowpass"],
                             sub["filters.pll"])
     ba = biquad.quantize_ba(biquad.from_cookbook(
@@ -144,6 +149,17 @@ def cases(alias: str, dev, inputs):
             lambda st=fm.init_state((C_FM,), device=dev), angle=angle:
             fm_cuda.fm_disc_bank(ba_fm, st, *inputs["iq"], FM_CARRIER,
                                  angle=angle))
+    ba64 = biquad.quantize_ba(biquad.from_cookbook(
+        sub["design"].Filter().critical_frequency(0.1).lowpass()), 61,
+        dtype=np.int64)
+    out[f"df1_bank_q64 c={C_SERIAL}"] = (
+        lambda st=biquad.df1_init((C_SERIAL,), torch.int64, device=dev):
+        sub["filters.biquad_cuda"].df1_bank_q64(ba64, st, inputs["x64"], 61))
+    rpll = sub["filters.rpll"]
+    out[f"rpll_bank c={C_SERIAL}"] = (
+        lambda st=rpll.init((C_SERIAL,), device=dev):
+        sub["filters.rpll_cuda"].rpll_bank(rpll.RpllConfig(8, 12, 11), st,
+                                           *inputs["rpll"]))
     lp0 = lowpass.init(2, (2048,), device=dev)
     pll0 = pll.init((1024,), device=dev)
     out["fastlo_ddc_bank_block_lp c=1024"] = lambda: k6(
@@ -247,6 +263,10 @@ def main() -> None:
             rng.normal(size=(T >> DEPTH, c)).astype(np.float32)).to(dev)
     inputs["wdf"] = i32((T, C_WDF), -(2**24), 2**24)
     inputs["iq"] = (i32((T, C_FM)), i32((T, C_FM)))
+    inputs["x64"] = torch.from_numpy(rng.integers(
+        -(2**55), 2**55, size=(T, C_SERIAL), dtype=np.int64)).to(dev)
+    inputs["rpll"] = (i32((T, C_SERIAL)), torch.from_numpy(
+        rng.integers(0, 64, size=(T, C_SERIAL)) == 0).to(dev))
     inputs.update(x=i32((T,), -(2**27), 2**27),
                   ph0=torch.zeros((1024,), dtype=torch.int32, device=dev),
                   steps=i32((1024,), 1 << 24, 1 << 30))

@@ -14,35 +14,55 @@
 // integers: Q64 kept each int64 as two 32-bit limbs and the 128-bit sum
 // as four, built from 16-bit limb products (:1166-1248), and the dither
 // step emulated its 64-bit sum in 16-bit limbs too.  Here Q64's products
-// are a 64-bit multiply and `__mul64hi`, the dither sum native int64, and
-// Q16 runs on 32-bit integers as the reference's accumulator does.
+// are 32 x 32 -> 64 multiplies of 32-bit limbs (`df1.cuh` `mac_q64`), the
+// dither sum native int64, and Q16 runs on 32-bit integers as the
+// reference's accumulator does.
 //
 // What bounds them on the H100: the recurrence, as K1 (df1_bank.cu): y0
 // of a step feeds the next step's products, one lane a serial chain.  Per
 // sample the bytes are 2 B in and out (K28), 8 B (K29), 4 B (K30, K31,
-// K33).  K29's chain is the longest: each 64x64 -> 128-bit product is
-// several 32-bit multiply-adds, and the two feedback products, their
-// carries and the funnel shift sit on the chain.  K30 rounds every
-// product and sum on its own (`__fmul_rn`, `__fadd_rn`, in the plain
-// version's order), so nvcc cannot contract them into FMAs: bit-identical
-// to the plain `df1_process`.
+// K33).  K29's chain is the longest: a 64 x 64 -> 128-bit product, its
+// column sums and the funnel shift sit on it.  K30 rounds every product
+// and sum on its own (`__fmul_rn`, `__fadd_rn`, in the plain version's
+// order), so nvcc cannot contract them into FMAs: bit-identical to the
+// plain `df1_process`.
 //
-// What the design does: one thread per lane with the state in registers,
-// on the sequential-bank template of seq_bank.cuh over the row type of
-// each rung (int16, int64, float or int32 rows, coalesced along lanes,
-// the next 16 rows prefetched).  Simple first: speed is later work.
+// What the design does: K28, K30, K31 and K33 run one thread per lane
+// with the state in registers, on the sequential-bank template of
+// seq_bank.cuh over the row type of each rung (int16, float or int32
+// rows, coalesced along lanes, the next 16 rows prefetched).  K29 runs on
+// df1_ring.cuh's depth-0 pipeline, a block a 32-lane tile: producer warps,
+// each a span of every chunk, form the feed-forward sum b0 x0 + b1 x1 +
+// b2 x2 mod 2^128 of each row (rows 0 and 1 of a block take x1, x2 from
+// the state, every other row its predecessors from xs, so spans are
+// independent) into the input ring, four 32-bit limbs a row and lane; the
+// serial warp, alone on its scheduler, holds y1 and y2, adds a2 y2 (off
+// the chain) and a1 y1 and shifts, into the output ring; the store warp
+// writes the int64 rows, 16 bytes a thread where c is even.  The sums wrap
+// mod 2^128, so the split is bit-identical to the plain `df1_process_q64`.
+// The plan (warps, producers, chunk, ring depth, shared memory) is the
+// host's (filters/biquad_cuda.py `q64_plan`), which the entry point
+// checks.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "df1.cuh"
+#include "df1_ring.cuh"
 #include "seq_bank.cuh"
 
 namespace {
 
 using idsp::kBankLanes;
+using idsp::Q64Coef;
+using idsp::mac_q64;
+using idsp::ring::Batch;
+using idsp::ring::kLanes;
+using idsp::ring::Pipe;
+using idsp::ring::Rings;
 
-// K28, K29 and K30: one lane type, its row type T and its coefficients.
+// K28 and K30: one lane type, its row type T and its coefficients.
+
 template <class Lane, class T, class Coefs>
 __global__ void __launch_bounds__(kBankLanes)
     df1_typed_kernel(const T* __restrict__ xs, T* __restrict__ ys,
@@ -103,6 +123,160 @@ int launch_typed(const void* xs, void* ys, const void* sx, const void* sy,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K29: a launch; p.d holds the rows, chunk and ring depth (no DF1), p.y
+// the (t, c) int64 output.
+struct Q64Args {
+  Pipe p;
+  const int64_t* xs;
+  const int64_t *sx, *sy;
+  int64_t *sx_out, *sy_out;
+  Q64Coef b0, b1, b2, a1, a2;
+  int f;
+};
+
+// Producer pw of P: its span of each chunk (df1_ring.cuh `span_batches`),
+// in batches of kQ64 rows, each row's feed-forward sum b0 x0 + b1 x1 + b2
+// x2 mod 2^128 into the input ring as four 32-bit limbs.  A batch takes
+// its two rows before from the batch before where that was of the same
+// span, else loads them, rows -1 and -2 of the block from the state.
+// Producer 0 also writes the last two rows out as the state's x.
+constexpr int kQ64 = 8;
+struct Q64Rows {  // x[0], x[1] the two rows before a batch, x[v + 2] row v
+  int64_t x[kQ64 + 2];
+};
+
+__device__ __forceinline__ void q64_feed(const Q64Args& a, const Rings& R,
+                                         int pw, int lid, int lane,
+                                         bool live) {
+  const Pipe& p = a.p;
+  const int t = p.d.t;
+  const size_t c = static_cast<size_t>(p.c2);
+  const int ch = live ? lane : 0;  // dead lanes read lane 0's words
+  const int64_t* xp = a.xs + ch;
+  const int64_t x1 = a.sx[2 * ch], x2 = a.sx[2 * ch + 1];
+  auto row = [&](int g) {  // x of block row g >= -2
+    return g >= 0 ? idsp::ldg(xp + static_cast<size_t>(g) * c)
+                  : g == -1 ? x1 : x2;
+  };
+  idsp::ring::span_batches<kQ64, Q64Rows>(
+      t, p.d.chunk, p.d.depth, p.producers, pw, R,
+      [&](const Batch& b, Q64Rows& n, const Q64Rows& cur, bool same) {
+        if (b.r0 >= t) return;
+        const int g = b.r0 + b.r;
+        n.x[0] = same ? cur.x[kQ64] : row(g - 2);
+        n.x[1] = same ? cur.x[kQ64 + 1] : row(g - 1);
+#pragma unroll
+        for (int v = 0; v < kQ64; ++v)
+          n.x[v + 2] = row(b.r0 + min(b.r + v, b.hi - 1));
+      },
+      [&](const Batch& b, const Q64Rows& xv, int slot) {
+        uint4* s = reinterpret_cast<uint4*>(R.in_slot<4>(slot)) + lid;
+        uint4 w[kQ64];
+#pragma unroll
+        for (int v = 0; v < kQ64; ++v) {
+          uint64_t lo = 0, hi = 0;
+          mac_q64(lo, hi, a.b0, static_cast<uint64_t>(xv.x[v + 2]));
+          mac_q64(lo, hi, a.b1, static_cast<uint64_t>(xv.x[v + 1]));
+          mac_q64(lo, hi, a.b2, static_cast<uint64_t>(xv.x[v]));
+          w[v] = make_uint4(static_cast<uint32_t>(lo),
+                            static_cast<uint32_t>(lo >> 32),
+                            static_cast<uint32_t>(hi),
+                            static_cast<uint32_t>(hi >> 32));
+        }
+#pragma unroll
+        for (int v = 0; v < kQ64; ++v)
+          if (b.r + v < b.hi) s[(b.r + v) * kLanes] = w[v];
+      });
+  if (pw == 0 && live) {
+    a.sx_out[2 * lane] = row(t - 1);
+    a.sx_out[2 * lane + 1] = row(t - 2);
+  }
+}
+
+// The chain's step: the low 64 bits of ((hi:lo) + c y) >> (32 + sh), 0 <
+// sh < 32 -- `mac_q64`'s sums, ordered for the chain: y's words pass the
+// four products (lo's words and hi their addends), then the middle column
+// m and, beside it, the high columns less the correction, then their sum
+// with m's carry, then two funnel shifts (y0 is bits 32 + sh .. 95 + sh of
+// the sum; the low word only carries into it).
+__device__ __forceinline__ uint64_t q64_y0(uint64_t lo, uint64_t hi,
+                                           const Q64Coef& c, uint64_t y,
+                                           int sh) {
+  const uint32_t yl = static_cast<uint32_t>(y);
+  const uint32_t yh = static_cast<uint32_t>(y >> 32);
+  const uint32_t cl = static_cast<uint32_t>(c.bits);
+  const uint32_t ch = static_cast<uint32_t>(c.bits >> 32);
+  const uint64_t p00 = idsp::mad_wide_u32(yl, cl, static_cast<uint32_t>(lo));
+  const uint64_t p01 = idsp::mad_wide_u32(yl, ch, lo >> 32);
+  const uint64_t p10 = idsp::mul_wide_u32(yh, cl);
+  const uint64_t p11 = idsp::mad_wide_u32(yh, ch, hi);
+  const uint64_t sign = static_cast<uint64_t>(static_cast<int64_t>(y) >> 63);
+  const uint64_t corr = (c.bits & sign) + (y & c.neg);
+  const uint64_t m = (p00 >> 32) + static_cast<uint32_t>(p01) +
+                     static_cast<uint32_t>(p10);
+  const uint64_t x = p11 + (p01 >> 32) + (p10 >> 32) - corr;
+  const uint64_t h = x + (m >> 32);
+  const uint32_t l = __funnelshift_r(static_cast<uint32_t>(m),
+                                     static_cast<uint32_t>(h), sh);
+  const uint32_t u = __funnelshift_r(static_cast<uint32_t>(h),
+                                     static_cast<uint32_t>(h >> 32), sh);
+  return uint64_t{u} << 32 | l;
+}
+
+// The serial warp: y1, y2 of its lane in registers; each row's sum W from
+// the input ring, y0 = the low 64 bits of (W + a2 y2 + a1 y1) >> f into
+// the output ring.  W + a2 y2 waits on no step of the row before, so the
+// chain holds a1 y1's limb products, its column sums and the two funnel
+// shifts (`q64_y0`, 32 < f < 64).
+struct Q64Serial {
+  const Q64Args* a;
+
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int lane, bool live,
+                                             uint32_t) const {
+    const Pipe& p = a->p;
+    const Q64Coef a1 = a->a1, a2 = a->a2;
+    const int sh = a->f - 32;
+    uint64_t y1 = 0, y2 = 0;
+    if (live) {
+      y1 = static_cast<uint64_t>(a->sy[2 * lane]);
+      y2 = static_cast<uint64_t>(a->sy[2 * lane + 1]);
+    }
+    idsp::ring::serial_chunks(
+        p.d.t, p.d.chunk, p.d.depth, R, [&](int slot, int rows) {
+          const uint4* in =
+              reinterpret_cast<const uint4*>(R.in_slot<4>(slot)) + lid;
+          uint2* o = reinterpret_cast<uint2*>(out) +
+                     static_cast<size_t>(slot) * p.d.chunk * kLanes + lid;
+          idsp::ring::group_rows(
+              rows, [&](int r) { return in[r * kLanes]; },
+              [&](int r, uint4 w) {
+                uint64_t lo = uint64_t{w.y} << 32 | w.x;
+                uint64_t hi = uint64_t{w.w} << 32 | w.z;
+                mac_q64(lo, hi, a2, y2);  // off the chain
+                y2 = y1;
+                y1 = q64_y0(lo, hi, a1, y1, sh);
+                o[r * kLanes] = make_uint2(static_cast<uint32_t>(y1),
+                                           static_cast<uint32_t>(y1 >> 32));
+              });
+        });
+    if (live) {
+      a->sy_out[2 * lane] = static_cast<int64_t>(y1);
+      a->sy_out[2 * lane + 1] = static_cast<int64_t>(y2);
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
+    df1_q64_kernel(const __grid_constant__ Q64Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  idsp::ring::run_pipe<4, 2, idsp::ring::Layout::kWide>(
+      a.p, smem, Q64Serial{&a},
+      [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
+        q64_feed(a, R, pw, lid, lane, live);  // one CTA a tile
+      });
+}
+
 template <bool Planes>
 int launch_dither(const void* xs, void* ys, const void* sx, const void* sy,
                   const void* se, void* sx_out, void* sy_out, void* se_out,
@@ -145,16 +319,43 @@ extern "C" int idsp_df1_bank_q16(const void* xs, void* ys, const void* sx,
 }
 
 // K29: xs (t, c) i64 -> ys (t, c) i64; state (c, 2) i64 x2 in and out;
-// 0 < f < 64 (the wrapper holds the JAX kernel's 32 < f < 64).
+// 32 < f < 64 (the JAX kernel's domain).  warps, producers, chunk, ring
+// (slots a ring) and smem are the host plan's (filters/biquad_cuda.py
+// `q64_plan`); a plan the kernel cannot run is refused.  A refused call
+// launches nothing and leaves no CUDA error pending.
 extern "C" int idsp_df1_bank_q64(const void* xs, void* ys, const void* sx,
                                  const void* sy, void* sx_out, void* sy_out,
                                  int t, int c, int f, long long b0,
                                  long long b1, long long b2, long long a1,
-                                 long long a2, void* stream) {
-  if (f <= 0 || f >= 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_typed<idsp::Df1LaneQ64, int64_t>(
-      xs, ys, sx, sy, sx_out, sy_out, t, c,
-      idsp::Df1CoefsQ64{b0, b1, b2, a1, a2, f}, stream);
+                                 long long a2, int warps, int producers,
+                                 int chunk, int ring, int smem,
+                                 void* stream) {
+  if (f <= 32 || f >= 64 ||
+      !idsp::ring::pipe_plan_ok(t, c, warps, producers, chunk, ring, smem, 1,
+                                4, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Q64Args a{};
+  a.p.d.t = t;
+  a.p.d.chunk = chunk;
+  a.p.d.depth = ring;
+  a.p.y[0] = ys;
+  a.p.c2 = c;
+  a.p.warps = warps;
+  a.p.producers = producers;
+  a.p.cluster = 1;
+  a.p.vec = c % 2 == 0 && reinterpret_cast<uintptr_t>(ys) % 16 == 0;
+  a.xs = static_cast<const int64_t*>(xs);
+  a.sx = static_cast<const int64_t*>(sx);
+  a.sy = static_cast<const int64_t*>(sy);
+  a.sx_out = static_cast<int64_t*>(sx_out);
+  a.sy_out = static_cast<int64_t*>(sy_out);
+  a.b0 = Q64Coef::of(b0);
+  a.b1 = Q64Coef::of(b1);
+  a.b2 = Q64Coef::of(b2);
+  a.a1 = Q64Coef::of(a1);
+  a.a2 = Q64Coef::of(a2);
+  a.f = f;
+  return idsp::ring::launch_pipe(df1_q64_kernel, a, a.p, smem, stream);
 }
 
 // K30: xs (t, c) f32 -> ys (t, c) f32; state (c, 2) f32 x2 in and out.

@@ -107,8 +107,8 @@ __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
   extern __shared__ __align__(16) unsigned char smem[];
   for (int i = threadIdx.x; i < idsp::kCosSinLutSize; i += blockDim.x)
     lut[i] = idsp::kCosSinLut[i];  // published by run_pipe's barrier
-  idsp::ring::run_pipe<Out>(
-      a.p, smem,
+  idsp::ring::run_pipe<1, 1, idsp::ring::Layout::kWide>(
+      a.p, smem, idsp::ring::Df1Serial<Out>{&a.p.d},
       [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
         mix(a, R, lut, pw, lid, lane, live);  // one CTA a tile
       });
@@ -143,7 +143,7 @@ extern "C" int idsp_ddc_mix_df1(const void* x, const void* phase0,
                               static_cast<int32_t*>(sy_out),
                               idsp::Df1Coefs{b0, b1, b2, a1, a2, f},
                               idsp::Df1Clamp{}};
-  a.p.y = ys;
+  a.p.y[0] = ys;
   a.p.c2 = 2 * c;
   a.p.warps = warps;
   a.p.producers = producers;

@@ -17,7 +17,7 @@
 // word; bit-identical to `df1_wide_process`.
 //
 // The other rungs of the reference's precision ladder: Q16 (`Df1LaneQ16`,
-// int16 storage, 32-bit sums), Q64 (`Df1LaneQ64`, int64 storage, 128-bit
+// int16 storage, 32-bit sums), Q64 (`mac_q64`, int64 storage, 128-bit
 // sums) and the error-feedback DF1 (`Df1DitherLane`), each bit-identical
 // to its plain scan (`df1_process_q` at int16, `df1_process_q64`,
 // `df1_dither_process`).
@@ -85,6 +85,30 @@ __device__ __forceinline__ int64_t mul_wide(int32_t a, int32_t b) {
   return d;
 #else
   return int64_t{a} * b;
+#endif
+}
+
+// a * b + c, unsigned 32 x 32 -> 64 plus a 64-bit word, wrapping mod
+// 2^64 (`mad.wide.u32`)
+__device__ __forceinline__ uint64_t mad_wide_u32(uint32_t a, uint32_t b,
+                                                 uint64_t c) {
+#ifdef __CUDA_ARCH__
+  uint64_t d;
+  asm("mad.wide.u32 %0, %1, %2, %3;" : "=l"(d) : "r"(a), "r"(b), "l"(c));
+  return d;
+#else
+  return uint64_t{a} * b + c;
+#endif
+}
+
+// a * b, unsigned 32 x 32 -> 64 (`mul.wide.u32`)
+__device__ __forceinline__ uint64_t mul_wide_u32(uint32_t a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+  uint64_t d;
+  asm("mul.wide.u32 %0, %1, %2;" : "=l"(d) : "r"(a), "r"(b));
+  return d;
+#else
+  return uint64_t{a} * b;
 #endif
 }
 
@@ -272,60 +296,46 @@ struct Df1LaneQ16 {
 };
 
 // The reference's Q64 (`Q<i64, i128, f>`, dsp-fixedpoint/src/lib.rs:
-// 473-492): int64 taps and coefficients, each product the full 128-bit
-// one (the low word a plain multiply, the high word `__mul64hi`), the
-// five summed in two uint64 words with the carry, wrapping mod 2^128; the
-// output is the low 64 bits of the arithmetic >> f, 0 < f < 64.
-struct Df1CoefsQ64 {
-  int64_t b0, b1, b2, a1, a2;
-  int f;
-};
+// 473-492): int64 taps and coefficients, each product the full signed
+// 128-bit one, the five summed mod 2^128, the output the low 64 bits of
+// the arithmetic >> f.  K29 (biquad_precision.cu) splits the sum: its
+// producer warps form b0*x0 + b1*x1 + b2*x2, its serial warp adds a2*y2
+// and a1*y1 (`mac_q64`); the sum wraps mod 2^128, where addition is
+// associative, so every split gives the same bits.
+//
+// A coefficient as `mac_q64` takes it: its bits, and all ones where it is
+// negative.
+struct Q64Coef {
+  uint64_t bits, neg;
 
-struct Df1LaneQ64 {
-  int64_t x1, x2, y1, y2;
-
-  __device__ __forceinline__ void load(const int64_t* sx, const int64_t* sy,
-                                       int lane) {
-    x1 = sx[2 * lane];
-    x2 = sx[2 * lane + 1];
-    y1 = sy[2 * lane];
-    y2 = sy[2 * lane + 1];
-  }
-
-  __device__ __forceinline__ void store(int64_t* sx, int64_t* sy,
-                                        int lane) const {
-    sx[2 * lane] = x1;
-    sx[2 * lane + 1] = x2;
-    sy[2 * lane] = y1;
-    sy[2 * lane + 1] = y2;
-  }
-
-  // (hi:lo) += a * v, the signed 128-bit product
-  static __device__ __forceinline__ void mac(uint64_t& hi, uint64_t& lo,
-                                             int64_t a, int64_t v) {
-    const uint64_t plo = static_cast<uint64_t>(a) * static_cast<uint64_t>(v);
-    const uint64_t phi = static_cast<uint64_t>(
-        __mul64hi(static_cast<long long>(a), static_cast<long long>(v)));
-    lo += plo;
-    hi += phi + (lo < plo ? 1u : 0u);
-  }
-
-  __device__ __forceinline__ int64_t step(const Df1CoefsQ64& k, int64_t x0) {
-    uint64_t hi = 0, lo = 0;
-    mac(hi, lo, k.b0, x0);
-    mac(hi, lo, k.b1, x1);
-    mac(hi, lo, k.b2, x2);
-    mac(hi, lo, k.a1, y1);
-    mac(hi, lo, k.a2, y2);
-    const int64_t y0 =
-        static_cast<int64_t>((lo >> k.f) | (hi << (64 - k.f)));
-    x2 = x1;
-    x1 = x0;
-    y2 = y1;
-    y1 = y0;
-    return y0;
+  static __host__ __device__ Q64Coef of(int64_t v) {
+    return Q64Coef{static_cast<uint64_t>(v), v < 0 ? ~uint64_t{0} : 0};
   }
 };
+
+// (hi:lo) += c * y mod 2^128, c and y signed 64-bit.  With C, Y the
+// unsigned readings of their bits, c * y = C * Y - 2^64 (C [y < 0] + Y
+// [c < 0]) mod 2^128; C * Y is four 32 x 32 -> 64 products of 32-bit
+// limbs, side by side, summed by columns: bits 0-31 one multiply-add, bits
+// 32-63 (m) under 2^34, bits 64-127 mod 2^64 (the high product takes hi
+// less the correction as its addend).
+__device__ __forceinline__ void mac_q64(uint64_t& lo, uint64_t& hi,
+                                        const Q64Coef& c, uint64_t y) {
+  const uint32_t yl = static_cast<uint32_t>(y);
+  const uint32_t yh = static_cast<uint32_t>(y >> 32);
+  const uint32_t cl = static_cast<uint32_t>(c.bits);
+  const uint32_t ch = static_cast<uint32_t>(c.bits >> 32);
+  const uint64_t sign = static_cast<uint64_t>(static_cast<int64_t>(y) >> 63);
+  const uint64_t corr = (c.bits & sign) + (y & c.neg);
+  const uint64_t p00 = mad_wide_u32(yl, cl, static_cast<uint32_t>(lo));
+  const uint64_t p01 = mul_wide_u32(yl, ch);
+  const uint64_t p10 = mul_wide_u32(yh, cl);
+  const uint64_t p11 = mad_wide_u32(yh, ch, hi - corr);
+  const uint64_t m = (p00 >> 32) + (lo >> 32) + static_cast<uint32_t>(p01) +
+                     static_cast<uint32_t>(p10);
+  hi = p11 + (p01 >> 32) + (p10 >> 32) + (m >> 32);
+  lo = (m << 32) | static_cast<uint32_t>(p00);
+}
 
 // The error-feedback DF1 (biquad.rs:511-538): e, the truncated fraction
 // of the previous step, joins the int64 sum; the sum is shifted left by

@@ -1,34 +1,37 @@
-// The DF1 warp behind mbarrier rings: the serial Q<f> DF1 of a 32-lane
-// tile, fed int32 rows through an input ring and writing its outputs into
-// an output ring.  One copy of it serves K2, K3 and K19-K21
-// (ddc_cascade.cu: its output ring is stage 0's FIR buffer), K14
-// (ddc_mix_df1.cu) and K15 (fm_disc.cu): these two run it at depth 0,
-// with no FIR stage, in the pipeline at the end of this file (`run_pipe`):
-// producer warps fill the input ring, the DF1 warp turns each slot into a
-// slot of the output ring, a store warp writes those rows to device
-// memory.
+// The depth-0 pipeline of a serial recurrence over a 32-lane tile, and the
+// DF1 warp that runs in it.  A serial warp alone on its scheduler turns
+// each slot of an input ring into a slot of an output ring (`serial_chunks`);
+// producer warps fill the input ring, a store warp writes the output ring
+// to device memory (`run_pipe`).  Four kernels run it: K14 (ddc_mix_df1.cu)
+// and K15 (fm_disc.cu) with the DF1 warp as the serial warp (`Df1Serial`),
+// K37 (structures_bank.cu, the RPLL) and K29 (biquad_precision.cu, the Q64
+// DF1) with their own.  The DF1 warp also serves K2, K3 and K19-K21
+// (ddc_cascade.cu: its output ring is stage 0's FIR buffer).
 // Where the producers' work is more than one SM's other three schedulers
-// issue in the DF1 warp's time (K15's exact angle), a tile is a cluster
+// issue in the serial warp's time (K15's exact angle), a tile is a cluster
 // of 2 CTAs: every warp of the partner CTA is a producer too, storing its
 // rows into the home CTA's input slots (`st.async`, counted on the slot's
-// full barrier), and the DF1 warp releases each slot to the partner as
+// full barrier), and the serial warp releases each slot to the partner as
 // well as to its own producers.
 //
-// Why a warp alone: the DF1's loop-carried chain (one 64-bit multiply-add
-// and the shift, df1.cuh `output_y1_last`) sets the pace of a tile, ~42
-// cycles a row on the H100 (PERF.md §6).  Anything else that warp issues
-// -- the producers' work, a global store of its own row (78 cycles a row
-// against 11 without, the WDF kernel's measurement, PERF.md §6) -- adds to
-// that chain's time.  So the
-// DF1 warp reads its rows from shared memory only, touches device memory
-// for its state at each end only, and is alone on its scheduler: the
-// other warps with warp % 4 == 0 exit at once.
+// Why a warp alone: a recurrence's loop-carried chain sets the pace of a
+// tile (the DF1's 64-bit multiply-add and shift, df1.cuh `output_y1_last`:
+// ~42 cycles a row on the H100, PERF.md §6).  Anything else that warp
+// issues -- the producers' work, a global store of its own row (78 cycles
+// a row against 11 without, the WDF kernel's measurement, PERF.md §6) --
+// adds to that chain's time.  So the serial warp reads its rows from
+// shared memory only, touches device memory for its state at each end
+// only, and is alone on its scheduler: the other warps with warp % 4 == 0
+// exit at once.
 //
 // The rings: chunk q of `chunk` rows uses slot q % depth of each ring at
 // phase parity (q / depth) & 1 (hopper.cuh `Cursor`); slot k has four
 // mbarriers, the input ring's full and empty and the output ring's full
-// and empty.  A slot holds `chunk` rows of kLanes 32-bit words, row r of
-// lane l at r * kLanes + l, so a warp reads or writes a 128-byte row.
+// and empty.  An input slot holds `chunk` rows of kLanes x `Win` 32-bit
+// words, word w of row r and lane l at (r * kLanes + l) * Win + w, an
+// output slot the same with `Wout` words (K14, K15: 1 and 1; K37: 2 and 2;
+// K29: 4 and 2), so a warp reads or writes a row as one 4-, 8- or 16-byte
+// word a lane, contiguous across the lanes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,10 +46,11 @@ namespace idsp {
 namespace ring {
 
 constexpr int kLanes = 32;   // lanes of a tile (threadIdx.x % 32)
-constexpr int kGroup = 8;    // DF1 rows whose inputs are read a group ahead
+constexpr int kGroup = 8;    // serial rows whose inputs are read a group ahead
 constexpr int kMaxWarps = 16;
 
-// Slot k's barriers, and the input ring's slots (int32 rows).
+// Slot k's barriers, and the input ring's slots (rows of kLanes x W
+// 32-bit words).
 struct Rings {
   uint32_t bars;
   int32_t* in;
@@ -56,8 +60,9 @@ struct Rings {
   __device__ uint32_t empty_in(int k) const { return bars + 32 * k + 8; }
   __device__ uint32_t full_out(int k) const { return bars + 32 * k + 16; }
   __device__ uint32_t empty_out(int k) const { return bars + 32 * k + 24; }
+  template <int W = 1>
   __device__ int32_t* in_slot(int k) const {
-    return in + static_cast<size_t>(k) * chunk * kLanes;
+    return in + static_cast<size_t>(k) * chunk * kLanes * W;
   }
 };
 
@@ -89,10 +94,56 @@ struct Df1Ring {
   Df1Clamp cl;
 };
 
+// step(r, load(r)) for the rows r = 0 .. rows-1 of a slot in order, in
+// groups of kGroup rows, each group's inputs read before the group before
+// computes, so the loads stay off the chain (K29, K37; a read past the
+// slot's rows takes its last row, unused).
+template <class Load, class Step>
+__device__ __forceinline__ void group_rows(int rows, Load load, Step step) {
+  using In = decltype(load(0));
+  int r = 0;
+  if (rows >= kGroup) {
+    In cur[kGroup];
+#pragma unroll
+    for (int v = 0; v < kGroup; ++v) cur[v] = load(v);
+    for (; r + kGroup <= rows; r += kGroup) {
+      In nxt[kGroup];
+#pragma unroll
+      for (int v = 0; v < kGroup; ++v)
+        nxt[v] = load(min(r + kGroup + v, rows - 1));
+#pragma unroll
+      for (int v = 0; v < kGroup; ++v) step(r + v, cur[v]);
+#pragma unroll
+      for (int v = 0; v < kGroup; ++v) cur[v] = nxt[v];
+    }
+  }
+#pragma unroll 1
+  for (; r < rows; ++r) step(r, load(r));
+}
+
+// The serial warp's walk over the chunks (K29, K37; one CTA a tile): chunk
+// q's input slot full and its output slot empty, rows(k, n) on slot k's n
+// rows, then both released.
+template <class Rows>
+__device__ __forceinline__ void serial_chunks(int t, int chunk, int depth,
+                                              const Rings& R, Rows rows) {
+  sm90::Cursor u;
+  for (int r0 = 0; r0 < t; r0 += chunk, u.next(depth)) {
+    const int n = min(chunk, t - r0);
+    sm90::mbar_wait(R.full_in(u.k), u.ph);
+    sm90::mbar_wait(R.empty_out(u.k), u.ph ^ 1);
+    rows(u.k, n);
+    sm90::mbar_arrive(R.full_out(u.k));
+    sm90::mbar_arrive(R.empty_in(u.k));
+  }
+}
+
 // The DF1 warp's rows of one chunk, input slot x -> output slot y (this
 // lane's column), the output as Out (int32, or float for the FIR stages
 // and K14's f32 output): in groups of kGroup rows, each group's inputs
-// read before the group before computes, so the loads stay off the chain.
+// read before the group before computes, so the loads stay off the chain
+// (`group_rows`' loop ran K14 and K15's exact angle 1-2 % slower and K2 2 %
+// faster on the H100, PERF.md §6: this one is kept).
 template <bool Clamp, class Out>
 __device__ __forceinline__ void df1_rows(Df1Lane& s, const Df1Coefs& k,
                                          const Df1Clamp& cl, const int32_t* x,
@@ -124,13 +175,15 @@ __device__ __forceinline__ void df1_rows(Df1Lane& s, const Df1Coefs& k,
 }
 
 // The DF1 warp: state in, every chunk from its input slot into its output
-// slot, state out.  out is the output ring's slot 0 in this lane's column;
+// slot, state out, on `serial_chunks`' protocol (written out: through that
+// function's callback the DF1 warp ran K14 and K15 3 % slower on the H100,
+// PERF.md §6).  out is the output ring's slot 0 in this lane's column;
 // slot k lies chunk * kLanes words further per slot.  peer: 0, or the
 // partner CTA's input-ring empty barrier of slot 0 (`map_rank`ed): the
 // partner stores into the input slots too, so the DF1 warp acquires them
-// at cluster scope and releases each slot to the partner as well, for
-// the chunks the partner has still to fill (after its last, the partner
-// may have exited).
+// at cluster scope and releases each slot to the partner as well, for the
+// chunks the partner has still to fill (after its last, the partner may
+// have exited).
 template <bool Clamp, class Out>
 __device__ __forceinline__ void df1_warp(const Df1Ring& a, const Rings& R,
                                          Out* out, int lid, int lane,
@@ -158,25 +211,33 @@ __device__ __forceinline__ void df1_warp(const Df1Ring& a, const Rings& R,
   if (live) s.store(a.sx_out, a.sy_out, lane);
 }
 
-// ---- depth 0: producers -> DF1 warp -> store warps ------------------------
+// ---- depth 0: producers -> serial warp -> store warp -----------------------
 
-// A depth-0 launch (K14, K15): the DF1 warp's arguments, y (t, c2) of
-// 32-bit words, and the plan (filters/pipe_plan.py `pipe_plan`): `warps`
-// warps a block, `producers` of them producers and the next one the store
-// warp, the rest idle; cluster: 1, or 2 (a partner CTA a tile, all
-// `warps` of it producers); vec: y's rows take 16-byte stores (c2 % 4 ==
-// 0, y aligned).
+// How the store warp lays a row's wout words a lane out in device memory:
+// kWide, one (t, c2) plane of wout-word elements (K14, K15: int32 or f32;
+// K29: int64); kPlanes, wout (t, c2) planes of 32-bit words, word w to
+// plane w (K37: phase and frequency).
+enum class Layout { kWide, kPlanes };
+
+// A depth-0 launch: d, the serial warp's rows (t), chunk and ring depth
+// (with the DF1 warp, its state and coefficients too); y, the output
+// planes (y[0] alone for kWide); the plan (filters/pipe_plan.py
+// `pipe_plan`): `warps` warps a block, `producers` of them producers and
+// the next one the store warp, the rest idle; cluster: 1, or 2 (a partner
+// CTA a tile, all `warps` of it producers); vec: y's rows take 16-byte
+// stores (each plane 16-byte aligned, its rows too).
 struct Pipe {
   Df1Ring d;
-  void* y;
+  void* y[2];
   int c2, warps, producers, cluster, vec;
 };
 
 // Shared memory: 32 bytes of mbarriers a slot, the input ring and the
-// output ring (depth slots of chunk rows of kLanes words each).
-__host__ __device__ inline size_t pipe_smem(int chunk, int depth) {
+// output ring (depth slots of chunk rows of kLanes x win and x wout words).
+__host__ __device__ inline size_t pipe_smem(int chunk, int depth,
+                                            int win = 1, int wout = 1) {
   return 32 * static_cast<size_t>(depth) +
-         2 * static_cast<size_t>(depth) * chunk * kLanes * 4;
+         static_cast<size_t>(depth) * chunk * kLanes * 4 * (win + wout);
 }
 
 // Dynamic shared memory a depth-0 block may have: the 227 KB of an SM's
@@ -186,62 +247,153 @@ constexpr int kMaxPipeSmem = 232448 - 1024;
 // The plan checks of a depth-0 entry point (the host plan's own): false
 // for a plan the kernel cannot run.
 inline bool pipe_plan_ok(int t, int c2, int warps, int producers,
-                         int chunk, int depth, int smem, int cluster = 1) {
+                         int chunk, int depth, int smem, int cluster = 1,
+                         int win = 1, int wout = 1) {
   return t >= 0 && c2 >= 1 && (cluster == 1 || cluster == 2) &&
          warps % 4 == 0 && warps >= 4 && warps <= kMaxWarps &&
          producers >= 1 && producers + 1 <= warps - warps / 4 && chunk >= 1 &&
-         depth >= 2 && static_cast<size_t>(smem) == pipe_smem(chunk, depth) &&
+         depth >= 2 &&
+         static_cast<size_t>(smem) == pipe_smem(chunk, depth, win, wout) &&
          smem <= kMaxPipeSmem;
 }
 
-// The store warp: each chunk's output slot (`out`: slot 0, column 0) to
-// y's rows, this tile's columns [col0, col0 + kLanes).  With vec, 16
-// bytes a thread (8 threads a row, 4 rows a warp instruction), else each
-// lane its own column.
+// The store warp: each chunk's output slot (`out`: slot 0) to the planes'
+// rows, this tile's columns [col0, col0 + kLanes).  With vec, 16 bytes a
+// thread (kWide: 4 x wout lanes a row and 4 / wout rows a warp
+// instruction; kPlanes: 8 threads a row of 4 lanes each, 4 rows an
+// instruction a plane), else each lane its own column.
+template <int Wout, Layout L>
 __device__ __forceinline__ void store_warp(const Pipe& p, const Rings& R,
                                            const uint32_t* out, int lid,
                                            int col0) {
+  constexpr int kRow = kLanes * Wout;  // words of a slot's row
+  constexpr int kT = L == Layout::kWide ? kRow / 4 : kLanes / 4;
   const int chunk = p.d.chunk;
   const size_t c2 = static_cast<size_t>(p.c2);
-  uint32_t* y = static_cast<uint32_t*>(p.y);
-  const int l4 = 4 * (lid % 8);
+  const int w4 = 4 * (lid % kT);  // kWide: word; kPlanes: lane of the row
   sm90::Cursor u;
   for (int r0 = 0; r0 < p.d.t; r0 += chunk, u.next(p.d.depth)) {
     const int rows = min(chunk, p.d.t - r0);
     sm90::mbar_wait(R.full_out(u.k), u.ph);
-    const uint32_t* s = out + static_cast<size_t>(u.k) * chunk * kLanes;
-    uint32_t* yr = y + static_cast<size_t>(r0) * c2 + col0;
-    if (p.vec) {
-      if (col0 + l4 < p.c2)
-        for (int r = lid / 8; r < rows; r += 4)
-          *reinterpret_cast<uint4*>(yr + r * c2 + l4) =
-              *reinterpret_cast<const uint4*>(s + r * kLanes + l4);
-    } else if (col0 + lid < p.c2) {
-      for (int r = 0; r < rows; ++r) yr[r * c2 + lid] = s[r * kLanes + lid];
+    const uint32_t* s = out + static_cast<size_t>(u.k) * chunk * kRow;
+    if constexpr (L == Layout::kWide) {
+      uint32_t* yr = static_cast<uint32_t*>(p.y[0]) +
+                     (static_cast<size_t>(r0) * c2 + col0) * Wout;
+      if (p.vec) {
+        if (col0 * Wout + w4 < p.c2 * Wout)
+          for (int r = lid / kT; r < rows; r += kLanes / kT)
+            *reinterpret_cast<uint4*>(yr + r * c2 * Wout + w4) =
+                *reinterpret_cast<const uint4*>(s + r * kRow + w4);
+      } else if (col0 + lid < p.c2) {
+        for (int r = 0; r < rows; ++r)
+#pragma unroll
+          for (int w = 0; w < Wout; ++w)
+            yr[(r * c2 + lid) * Wout + w] = s[r * kRow + lid * Wout + w];
+      }
+    } else {
+      const size_t at = static_cast<size_t>(r0) * c2 + col0;
+      if (p.vec) {
+        if (col0 + w4 < p.c2)
+          for (int r = lid / kT; r < rows; r += kLanes / kT) {
+            const uint32_t* v = s + r * kRow + w4 * Wout;
+#pragma unroll
+            for (int w = 0; w < Wout; ++w)
+              *reinterpret_cast<uint4*>(static_cast<uint32_t*>(p.y[w]) + at +
+                                        r * c2 + w4) =
+                  make_uint4(v[w], v[Wout + w], v[2 * Wout + w],
+                             v[3 * Wout + w]);
+          }
+      } else if (col0 + lid < p.c2) {
+        for (int r = 0; r < rows; ++r)
+#pragma unroll
+          for (int w = 0; w < Wout; ++w)
+            static_cast<uint32_t*>(p.y[w])[at + r * c2 + lid] =
+                s[r * kRow + lid * Wout + w];
+      }
     }
     sm90::mbar_arrive(R.empty_out(u.k));
   }
 }
 
-// A depth-0 block: the rings in `smem`, the DF1 warp (warp 0, its output
-// as Out), the warps of its scheduler idle, then `producers` warps calling
-// produce(R, pw, lid, lane, live, false) (pw their index) and the store
-// warp; warps past those exit.  With a cluster of 2, CTA rank 0 is
-// that block and every warp w of rank 1 calls produce(R, producers + w,
-// lid, lane, live, true): it stores into rank 0's input slots and arrives
-// on their full barriers, one arrival a warp.  The caller has set up
-// anything the producers read from shared memory, and the block (or
-// cluster) barrier here publishes it.
-template <class Out, class Produce>
+// Rows [r, min(r + B, hi)) of the chunk at r0: a producer's batch.
+struct Batch {
+  int r0, r, hi;
+};
+
+// Producer pw of P's walk over its span of every chunk, rows [pw * span,
+// (pw + 1) * span) (span = ceil(chunk / P)), in batches of B rows (K29,
+// K37): for each chunk its input slot empty, then for each of its batches
+// load(next, rows, cur_rows, same) -- the next batch, the next chunk's
+// first too, loaded while this one is formed -- and form(batch, rows,
+// slot k), then one arrival on the slot's full barrier.  same: the next
+// batch continues this one's span, so it may take rows from cur_rows.
+// load sees a batch at r0 >= t past the last and loads nothing.
+template <int B, class Rows, class Load, class Form>
+__device__ __forceinline__ void span_batches(int t, int chunk, int depth,
+                                             int P, int pw, const Rings& R,
+                                             Load load, Form form) {
+  const int span = (chunk + P - 1) / P;
+  auto first = [&](int r0) {  // this producer's first non-empty batch
+    for (;; r0 += chunk) {
+      const int rows = min(chunk, t - r0);
+      const int lo = min(pw * span, rows);
+      if (r0 >= t || lo < min(lo + span, rows))
+        return Batch{r0, lo, min(lo + span, rows)};
+    }
+  };
+  auto next = [&](const Batch& b) {
+    return b.r + B < b.hi ? Batch{b.r0, b.r + B, b.hi} : first(b.r0 + chunk);
+  };
+  Batch cur = first(0);
+  Rows a;
+  load(cur, a, a, false);
+  sm90::Cursor u;
+  for (int r0 = 0; r0 < t; r0 += chunk, u.next(depth)) {
+    sm90::mbar_wait(R.empty_in(u.k), u.ph ^ 1);
+    for (; cur.r0 == r0;) {
+      const Batch nb = next(cur);
+      Rows n;
+      load(nb, n, a, nb.r0 == cur.r0);
+      form(cur, a, u.k);
+      cur = nb;
+      a = n;
+    }
+    sm90::mbar_arrive(R.full_in(u.k));
+  }
+}
+
+// The DF1 warp as `run_pipe`'s serial warp, its output as Out (K14, K15).
+template <class Out>
+struct Df1Serial {
+  const Df1Ring* d;
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int lane, bool live,
+                                             uint32_t peer) const {
+    df1_warp<false>(*d, R, reinterpret_cast<Out*>(out) + lid, lid, lane,
+                    live, peer);
+  }
+};
+
+// A depth-0 block: the rings in `smem` (Win words a row and lane in, Wout
+// out), the serial warp (warp 0) calling serial(R, out, lid, lane, live,
+// peer) with out the output ring's slot 0, the warps of its scheduler
+// idle, then `producers` warps calling produce(R, pw, lid, lane, live,
+// false) (pw their index) and the store warp; warps past those exit.
+// With a cluster of 2, CTA rank 0 is that block and every warp w of rank
+// 1 calls produce(R, producers + w, lid, lane, live, true): it stores into
+// rank 0's input slots and arrives on their full barriers, one arrival a
+// warp.  The caller has set up anything the producers read from shared
+// memory, and the block (or cluster) barrier here publishes it.
+template <int Win, int Wout, Layout L, class Serial, class Produce>
 __device__ __forceinline__ void run_pipe(const Pipe& p, unsigned char* smem,
-                                         Produce produce) {
+                                         Serial serial, Produce produce) {
   const int warp = threadIdx.x / kLanes, lid = threadIdx.x % kLanes;
   const int col0 = blockIdx.x / p.cluster * kLanes, lane = col0 + lid;
   const bool live = lane < p.c2;  // dead lanes still reach every barrier
   const Rings R{sm90::smem_addr(smem),
                 reinterpret_cast<int32_t*>(smem + 32 * p.d.depth),
                 p.d.chunk};
-  uint32_t* out = reinterpret_cast<uint32_t*>(R.in_slot(p.d.depth));
+  uint32_t* out = reinterpret_cast<uint32_t*>(R.in_slot<Win>(p.d.depth));
   const bool paired = p.cluster > 1;
   init_rings(R, p.d.depth, p.producers, 1, paired ? p.warps : 0);
   if (paired) {
@@ -254,16 +406,16 @@ __device__ __forceinline__ void run_pipe(const Pipe& p, unsigned char* smem,
     __syncthreads();
   }
   if (warp == 0) {
-    df1_warp<false>(p.d, R, reinterpret_cast<Out*>(out) + lid, lid, lane,
-                    live, paired ? sm90::map_rank(R.empty_in(0), 1) : 0u);
+    serial(R, out, lid, lane, live,
+           paired ? sm90::map_rank(R.empty_in(0), 1) : 0u);
     return;
   }
-  if (warp % 4 == 0) return;  // the DF1 warp's scheduler stays quiet
+  if (warp % 4 == 0) return;  // the serial warp's scheduler stays quiet
   const int v = warp - warp / 4 - 1;  // index among the other warps
   if (v < p.producers) {
     produce(R, v, lid, lane, live, false);
   } else if (v == p.producers) {
-    store_warp(p, R, out, lid, col0);
+    store_warp<Wout, L>(p, R, out, lid, col0);
   }
 }
 

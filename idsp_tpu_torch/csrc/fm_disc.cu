@@ -250,8 +250,8 @@ __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
   extern __shared__ __align__(16) unsigned char smem[];
   // published by run_pipe's barrier
   const auto lut = idsp::load_atan2_lut(lut_base, lut_slope);
-  idsp::ring::run_pipe<int32_t>(
-      a.p, smem,
+  idsp::ring::run_pipe<1, 1, idsp::ring::Layout::kWide>(
+      a.p, smem, idsp::ring::Df1Serial<int32_t>{&a.p.d},
       [&](const Rings& R, int pw, int lid, int lane, bool live, bool remote) {
         discriminate<Fast>(a, R, lut, pw, lid, lane, live, remote);
       });
@@ -292,7 +292,7 @@ extern "C" int idsp_fm_disc_bank(const void* re, const void* im,
                               static_cast<int32_t*>(sy_out),
                               idsp::Df1Coefs{b0, b1, b2, a1, a2, f},
                               idsp::Df1Clamp{}};
-  a.p.y = ys;
+  a.p.y[0] = ys;
   a.p.c2 = c;
   a.p.warps = warps;
   a.p.producers = producers;

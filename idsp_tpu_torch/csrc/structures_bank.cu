@@ -21,19 +21,35 @@
 // in the plain version's order, so nvcc cannot contract them into FMAs:
 // bit-identical to the plain scans.
 //
-// What the design does: one thread per lane with the state in registers,
-// on the sequential-bank template of seq_bank.cuh (the next 16 rows
-// prefetched, rows coalesced along lanes).  Simple first: speed is later
-// work.
+// What the design does: K34-K36 run one thread per lane with the state in
+// registers, on the sequential-bank template of seq_bank.cuh (the next 16
+// rows prefetched, rows coalesced along lanes).  K37 runs on df1_ring.cuh's
+// depth-0 pipeline, a block a 32-lane tile: producer warps, each a span of
+// every chunk, load the timestamps and masks a batch ahead and form each
+// row's words -- x, and dt = -x mod 2^dt2 with the mask in bit 31 -- into
+// the input ring; the serial warp, alone on its scheduler, carries the
+// last valid timestamp (dx and one select a row, off the chain) and runs
+// the ff / f / y chain (rpll.rs:47-77) from shared memory into the output
+// ring, its `>> sf` one template instance a regime (the host picks it);
+// the store warp writes the phase and frequency planes, 16 bytes a
+// thread where c % 4 == 0.  The plan (warps, chunk, ring depth, shared
+// memory) is the host's (filters/rpll_cuda.py `rpll_plan`), which the
+// entry point checks.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "df1.cuh"
+#include "df1_ring.cuh"
 #include "seq_bank.cuh"
 
 namespace {
 
 using idsp::kBankLanes;
+using idsp::ring::Batch;
+using idsp::ring::kLanes;
+using idsp::ring::Pipe;
+using idsp::ring::Rings;
 
 // K34: svf.rs:47-60.  Out selects lp (0), hp (1), bp (2) or br = hp + lp.
 struct SvfLane {
@@ -151,78 +167,140 @@ struct RpllParams {
   uint32_t p_ref, dt_mask;
 };
 
-struct RpllIn {
-  int32_t x;
-  uint8_t valid;
+// A launch: p.d holds the rows, chunk and ring depth (no DF1), p.y the
+// phase and frequency planes.
+struct RpllArgs {
+  Pipe p;
+  const int32_t* xs;
+  const uint8_t* valids;
+  const int32_t *sx, *sff, *sf, *sy;
+  int32_t *sx_out, *sff_out, *sf_out, *sy_out;
+  RpllParams k;
 };
 
-struct RpllOut {
-  int32_t phase, freq;
+// Producer pw of P: its span of each chunk (df1_ring.cuh `span_batches`),
+// in batches of kRpll rows, each row's two words into the input ring: x
+// and dt = -x mod 2^dt2 with the mask in bit 31 (dt2 < 32 leaves it
+// free).  Every row stands alone: the running last valid timestamp is
+// the serial warp's, one select a row off its chain.
+constexpr int kRpll = 16;
+struct RpllRows {
+  uint32_t x[kRpll], v[kRpll];
 };
 
-struct RpllLane {
-  int32_t x_prev, y;
-  uint32_t ff, f;
+__device__ __forceinline__ void rpll_feed(const RpllArgs& a, const Rings& R,
+                                          int pw, int lid, int lane,
+                                          bool live) {
+  const Pipe& p = a.p;
+  const size_t c = static_cast<size_t>(p.c2);
+  const int ch = live ? lane : 0;  // dead lanes read lane 0's words
+  const int32_t* xp = a.xs + ch;
+  const uint8_t* vp = a.valids + ch;
+  const uint32_t mask = a.k.dt_mask;
+  idsp::ring::span_batches<kRpll, RpllRows>(
+      p.d.t, p.d.chunk, p.d.depth, p.producers, pw, R,
+      [&](const Batch& b, RpllRows& n, const RpllRows&, bool) {
+        if (b.r0 >= p.d.t) return;
+#pragma unroll
+        for (int u = 0; u < kRpll; ++u) {
+          const size_t o =
+              static_cast<size_t>(b.r0 + min(b.r + u, b.hi - 1)) * c;
+          n.x[u] = static_cast<uint32_t>(__ldg(xp + o));
+          n.v[u] = __ldg(vp + o) != 0;
+        }
+      },
+      [&](const Batch& b, const RpllRows& in, int slot) {
+        uint2* s = reinterpret_cast<uint2*>(R.in_slot<2>(slot)) + lid;
+#pragma unroll
+        for (int u = 0; u < kRpll; ++u)
+          if (b.r + u < b.hi)
+            s[(b.r + u) * kLanes] =
+                make_uint2(in.x[u], ((0u - in.x[u]) & mask) | (in.v[u] << 31));
+      });
+}
 
-  __device__ __forceinline__ RpllOut step(const RpllParams& k, RpllIn in) {
-    // advance phase: y += f, wrapping i32
-    y = static_cast<int32_t>(static_cast<uint32_t>(y) + f);
-    // frequency lock: the reference phase over dx at the current estimate,
-    // rounded half up, against the ideal 2^(32 + dt2)
-    const uint32_t dx =
-        static_cast<uint32_t>(in.x) - static_cast<uint32_t>(x_prev);
-    const uint64_t p64 = static_cast<uint64_t>(ff) * dx + k.bias;
-    const uint32_t p_sig = static_cast<uint32_t>(p64 >> k.sf);
-    const uint32_t ff2 = ff + (k.p_ref - p_sig);
-    // phase lock: the predicted reference phase "now" (f from before this
-    // update) against the estimate; dy an arithmetic i32 shift
-    const uint32_t dt = (0u - static_cast<uint32_t>(in.x)) & k.dt_mask;
-    const int32_t y_ref = static_cast<int32_t>((f >> k.dt2) * dt);
-    const int32_t dy =
-        static_cast<int32_t>(static_cast<uint32_t>(y_ref) -
-                             static_cast<uint32_t>(y)) >>
-        (k.sp - k.dt2);
-    const uint32_t f2 = ff2 + static_cast<uint32_t>(dy);
-    if (in.valid) {
-      x_prev = in.x;
-      ff = ff2;
-      f = f2;
+// The serial warp: x_prev (the last valid timestamp), ff, f and y of its
+// lane in registers, each row's (x, dt | valid << 31) from the input ring
+// to (y, f) in the output ring.
+// Shift: the regime of `>> sf` (0: sf < 32, a funnel shift of the
+// product's words; 1: sf == 32, its high word; 2: sf > 32, that word
+// shifted).  On the chain: the product's multiply-add, the shift, the add
+// to ff + p_ref, the select (ff); the shift, the multiply, the subtract,
+// the shift, the add, the select (f).
+template <int Shift>
+struct RpllSerial {
+  const RpllArgs* a;
+
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int lane, bool live,
+                                             uint32_t) const {
+    const RpllParams k = a->k;
+    const Pipe& p = a->p;
+    uint32_t x_prev = 0, ff = 0, f = 0, y = 0;
+    if (live) {
+      x_prev = static_cast<uint32_t>(a->sx[lane]);
+      ff = static_cast<uint32_t>(a->sff[lane]);
+      f = static_cast<uint32_t>(a->sf[lane]);
+      y = static_cast<uint32_t>(a->sy[lane]);
     }
-    return RpllOut{y, static_cast<int32_t>(f)};
+    const int sh = Shift == 2 ? k.sf - 32 : k.sf, sdy = k.sp - k.dt2;
+    idsp::ring::serial_chunks(
+        p.d.t, p.d.chunk, p.d.depth, R, [&](int slot, int rows) {
+          const uint2* in =
+              reinterpret_cast<const uint2*>(R.in_slot<2>(slot)) + lid;
+          uint2* o = reinterpret_cast<uint2*>(out) +
+                     static_cast<size_t>(slot) * p.d.chunk * kLanes + lid;
+          idsp::ring::group_rows(
+              rows, [&](int r) { return in[r * kLanes]; },
+              [&](int r, uint2 w) {
+                const bool valid = static_cast<int32_t>(w.y) < 0;
+                const uint32_t dx = w.x - x_prev;
+                x_prev = valid ? w.x : x_prev;
+                // advance phase: y += f, wrapping
+                y += f;
+                // frequency lock: the reference phase over dx at the
+                // current estimate, rounded half up, against 2^(32 + dt2)
+                const uint64_t p64 = idsp::mad_wide_u32(ff, dx, k.bias);
+                const uint32_t hi = static_cast<uint32_t>(p64 >> 32);
+                uint32_t p_sig;
+                if constexpr (Shift == 0) {
+                  p_sig = __funnelshift_r(static_cast<uint32_t>(p64), hi, sh);
+                } else if constexpr (Shift == 1) {
+                  p_sig = hi;
+                } else {
+                  p_sig = hi >> sh;
+                }
+                const uint32_t ff2 = ff + (k.p_ref - p_sig);
+                // phase lock: the predicted reference phase "now" (f from
+                // before this update) against the estimate; dy an
+                // arithmetic i32 shift
+                const uint32_t y_ref = (f >> k.dt2) * (w.y & 0x7FFFFFFFu);
+                const uint32_t dy = static_cast<uint32_t>(
+                    static_cast<int32_t>(y_ref - y) >> sdy);
+                const uint32_t f2 = ff2 + dy;
+                ff = valid ? ff2 : ff;
+                f = valid ? f2 : f;
+                o[r * kLanes] = make_uint2(y, f);
+              });
+        });
+    if (live) {
+      a->sx_out[lane] = static_cast<int32_t>(x_prev);
+      a->sff_out[lane] = static_cast<int32_t>(ff);
+      a->sf_out[lane] = static_cast<int32_t>(f);
+      a->sy_out[lane] = static_cast<int32_t>(y);
+    }
   }
 };
 
-__global__ void __launch_bounds__(kBankLanes)
-    rpll_kernel(const int32_t* __restrict__ xs,
-                const uint8_t* __restrict__ valids,
-                int32_t* __restrict__ phase, int32_t* __restrict__ freq,
-                const int32_t* __restrict__ sx, const int32_t* __restrict__ sff,
-                const int32_t* __restrict__ sf, const int32_t* __restrict__ sy,
-                int32_t* __restrict__ sx_out, int32_t* __restrict__ sff_out,
-                int32_t* __restrict__ sf_out, int32_t* __restrict__ sy_out,
-                int t, int c, RpllParams k) {
-  const int lane = blockIdx.x * kBankLanes + threadIdx.x;
-  if (lane >= c) return;
-  RpllLane s{sx[lane], sy[lane], static_cast<uint32_t>(sff[lane]),
-             static_cast<uint32_t>(sf[lane])};
-  const int32_t* xp = xs + lane;
-  const uint8_t* vp = valids + lane;
-  idsp::seq_rows(
-      t,
-      [&](int i) {
-        const size_t o = static_cast<size_t>(i) * c;
-        return RpllIn{__ldg(xp + o), __ldg(vp + o)};
-      },
-      [&](int i, RpllIn in) {
-        const RpllOut o = s.step(k, in);
-        const size_t at = static_cast<size_t>(i) * c + lane;
-        phase[at] = o.phase;
-        freq[at] = o.freq;
+template <int Shift>
+__global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
+    rpll_kernel(const __grid_constant__ RpllArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  idsp::ring::run_pipe<2, 2, idsp::ring::Layout::kPlanes>(
+      a.p, smem, RpllSerial<Shift>{&a},
+      [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
+        rpll_feed(a, R, pw, lid, lane, live);  // one CTA a tile
       });
-  sx_out[lane] = s.x_prev;
-  sff_out[lane] = static_cast<int32_t>(s.ff);
-  sf_out[lane] = static_cast<int32_t>(s.f);
-  sy_out[lane] = s.y;
 }
 
 dim3 grid_of(int c) { return dim3((c + kBankLanes - 1) / kBankLanes); }
@@ -308,29 +386,54 @@ extern "C" int idsp_normal_bank_f32(const void* xs, void* ys, const void* sx,
 // K37: xs (t, c) i32 timestamps and valids (t, c) bytes (0 or 1) ->
 // phase, freq (t, c) i32; state x, ff, f, y (c,) i32 each (ff, f the u32
 // bit patterns), in and out; 0 <= dt2 < 32, 0 < sf < 64, sf <= 32 + dt2,
-// 0 <= sp - dt2 < 32.
+// 0 <= sp - dt2 < 32.  warps, producers, chunk, ring (slots a ring) and
+// smem are the host plan's (filters/rpll_cuda.py `rpll_plan`); a plan
+// the kernel cannot run is refused.  A refused call launches nothing and
+// leaves no CUDA error pending.
 extern "C" int idsp_rpll_bank(const void* xs, const void* valids, void* phase,
                               void* freq, const void* x, const void* ff,
                               const void* f, const void* y, void* x_out,
                               void* ff_out, void* f_out, void* y_out, int t,
-                              int c, int dt2, int sf, int sp, void* stream) {
+                              int c, int dt2, int sf, int sp, int warps,
+                              int producers, int chunk, int ring, int smem,
+                              void* stream) {
   if (dt2 < 0 || dt2 >= 32 || sf <= 0 || sf >= 64 || sf > 32 + dt2 ||
-      sp < dt2 || sp - dt2 >= 32)
+      sp < dt2 || sp - dt2 >= 32 ||
+      !idsp::ring::pipe_plan_ok(t, c, warps, producers, chunk, ring, smem, 1,
+                                2, 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const RpllParams k{
+  RpllArgs a{};
+  a.p.d.t = t;
+  a.p.d.chunk = chunk;
+  a.p.d.depth = ring;
+  a.p.y[0] = phase;
+  a.p.y[1] = freq;
+  a.p.c2 = c;
+  a.p.warps = warps;
+  a.p.producers = producers;
+  a.p.cluster = 1;
+  a.p.vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(phase) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(freq) % 16 == 0;
+  a.xs = static_cast<const int32_t*>(xs);
+  a.valids = static_cast<const uint8_t*>(valids);
+  a.sx = static_cast<const int32_t*>(x);
+  a.sff = static_cast<const int32_t*>(ff);
+  a.sf = static_cast<const int32_t*>(f);
+  a.sy = static_cast<const int32_t*>(y);
+  a.sx_out = static_cast<int32_t*>(x_out);
+  a.sff_out = static_cast<int32_t*>(ff_out);
+  a.sf_out = static_cast<int32_t*>(f_out);
+  a.sy_out = static_cast<int32_t*>(y_out);
+  a.k = RpllParams{
       dt2,
       sf,
       sp,
       uint64_t{1} << (sf - 1),
       static_cast<uint32_t>((uint64_t{1} << (32 + dt2 - sf)) & 0xFFFFFFFFu),
       static_cast<uint32_t>((uint64_t{1} << dt2) - 1)};
-  rpll_kernel<<<grid_of(c), kBankLanes, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(xs), static_cast<const uint8_t*>(valids),
-      static_cast<int32_t*>(phase), static_cast<int32_t*>(freq),
-      static_cast<const int32_t*>(x), static_cast<const int32_t*>(ff),
-      static_cast<const int32_t*>(f), static_cast<const int32_t*>(y),
-      static_cast<int32_t*>(x_out), static_cast<int32_t*>(ff_out),
-      static_cast<int32_t*>(f_out), static_cast<int32_t*>(y_out), t, c, k);
-  return static_cast<int>(cudaGetLastError());
+  if (sf < 32)
+    return idsp::ring::launch_pipe(rpll_kernel<0>, a, a.p, smem, stream);
+  if (sf == 32)
+    return idsp::ring::launch_pipe(rpll_kernel<1>, a, a.p, smem, stream);
+  return idsp::ring::launch_pipe(rpll_kernel<2>, a, a.p, smem, stream);
 }

@@ -7,8 +7,9 @@
 `df1_dither_bank_coef`.
 
 Each runs its CUDA kernel (``csrc/df1_bank.cu``; K24, K25 and K32
-``csrc/biquad_bank.cu``; K28-K31 and K33 ``csrc/biquad_precision.cu``)
-for a CUDA tensor and its plain PyTorch version (``*_plain``) for a CPU
+``csrc/biquad_bank.cu``; K28-K31 and K33 ``csrc/biquad_precision.cu``,
+K29 on the depth-0 pipeline of ``csrc/df1_ring.cuh``, `q64_plan`) for a
+CUDA tensor and its plain PyTorch version (``*_plain``) for a CPU
 tensor; any other device raises.  K1 and K11 are bit-identical to
 `biquad.df1_process_q` (K11: then ``ys[::d]``), K18 to
 `biquad.df1_clamp_process_q`, K24 to chaining `df1_process_q` stage by
@@ -41,8 +42,11 @@ from .biquad import (
     df1_process_q64,
     df1_wide_process,
 )
+from .pipe_plan import PipePlan, pipe_plan
 
 SOS_MAX_STAGES = 8  # stages of one K24 launch (csrc/biquad_bank.cu)
+# K29's producer warps by default (and a store warp: 8 warps a block)
+Q64_PRODUCERS = 5
 
 
 def df1_bank_q_plain(ba, state: Df1State, xs, f: int = 29, *,
@@ -479,7 +483,19 @@ def df1_bank_q64_plain(ba, state: Df1State, xs, f: int = 61):
     return df1_process_q64(ba, f, state, xs)
 
 
-def df1_bank_q64(ba, state: Df1State, xs, f: int = 61):
+def q64_plan(c: int, *, producers: int = Q64_PRODUCERS, **kw) -> PipePlan:
+    """K29's plan over ``c`` lanes (`pipe_plan.pipe_plan`): Q64_PRODUCERS
+    producer warps by default, each a span of ceil(chunk / producers) rows
+    of every chunk; four 32-bit words a row and lane in (the feed-forward
+    sum), two out (y), so PIPE_CHUNK / 2 rows a chunk in 2 slots by
+    default; one CTA a tile."""
+    if kw.get("cluster", 1) != 1:
+        raise ValueError("K29 runs one CTA a tile")
+    return pipe_plan(c, producers=producers, win=4, wout=2, **kw)
+
+
+def df1_bank_q64(ba, state: Df1State, xs, f: int = 61, *,
+                 _plan: PipePlan | None = None):
     """Q64<f> DF1 over a bank of lanes (the reference's ``Q64<61>`` row,
     tests/embedded/README.md:63): int64 storage, the five products summed
     in 128 bits, the low 64 bits of the truncating shift.
@@ -490,13 +506,18 @@ def df1_bank_q64(ba, state: Df1State, xs, f: int = 61):
       xs: (t, c) int64.
       f: fractional bits, 32 < f < 64.
 
-    Returns (state, ys int64), bit-identical to `df1_process_q64`.
+    Returns (state, ys int64), bit-identical to `df1_process_q64`.  The
+    kernel's plan is `q64_plan`'s; no plan changes a value.
     """
     check_q64_f(f)
     if xs.device.type == "cpu":
         return df1_bank_q64_plain(ba, state, xs, f)
+    t, c = xs.shape
+    plan = q64_plan(c) if _plan is None else _plan
     out = _launch_typed("df1_bank_q64", _ext.library().idsp_df1_bank_q64,
-                        _ba_list(ba), state, xs, torch.int64, f)
+                        [*_ba_list(ba), plan.warps, plan.producers,
+                         plan.chunk, plan.ring, plan.smem], state, xs,
+                        torch.int64, f)
     df1_bank_q64.launches += 1
     return out
 

@@ -1,11 +1,14 @@
-"""The host plan of the depth-0 DF1 pipeline that K14 (`ddc_cuda`) and K15
-(`fm_cuda`) run: ``csrc/df1_ring.cuh`` `run_pipe`.
+"""The host plan of the depth-0 pipeline of a serial recurrence that K14
+(`ddc_cuda`), K15 (`fm_cuda`), K29 (`biquad_cuda`) and K37 (`rpll_cuda`)
+run: ``csrc/df1_ring.cuh`` `run_pipe`.
 
-A CUDA block is a tile of LANES lanes: the DF1 warp (warp 0), the other
-warps of its scheduler idle, ``producers`` warps that fill its input ring
-and one store warp that writes its output ring to y.  `pipe_plan` picks
-the warps, chunk and ring depth and sums the shared memory;
-``df1_ring.cuh`` `pipe_plan_ok` refuses a plan that is not its own.
+A CUDA block is a tile of LANES lanes: the serial warp (warp 0; the DF1
+warp of K14 and K15), the other warps of its scheduler idle,
+``producers`` warps that fill its input ring and one store warp that
+writes its output ring to device memory.  A row of a slot holds ``win``
+(input) or ``wout`` (output) 32-bit words a lane.  `pipe_plan` picks the
+warps, chunk and ring depth and sums the shared memory; ``df1_ring.cuh``
+`pipe_plan_ok` refuses a plan that is not its own.
 """
 
 from __future__ import annotations
@@ -20,22 +23,24 @@ MAX_PIPE_SMEM = 232448 - 1024
 PIPE_CHUNK, PIPE_RING = 256, 3  # rows a chunk, slots a ring (the most)
 
 
-def pipe_smem(chunk: int, ring: int) -> int:
+def pipe_smem(chunk: int, ring: int, win: int = 1, wout: int = 1) -> int:
     """Shared memory of a launch (df1_ring.cuh `pipe_smem`): 32 bytes of
     mbarriers a slot, the input and the output ring (``ring`` slots of
-    ``chunk`` rows x LANES 32-bit words each)."""
-    return 32 * ring + 2 * ring * chunk * LANES * 4
+    ``chunk`` rows x LANES x ``win`` and x ``wout`` 32-bit words)."""
+    return 32 * ring + ring * chunk * LANES * 4 * (win + wout)
 
 
 class PipePlan(NamedTuple):
-    """How K14 and K15 run a launch: a CUDA block is a tile of LANES lanes
-    and ``warps`` warps: warp 0 the DF1, the others of its scheduler (warp
-    % 4 == 0) idle, of the rest ``producers`` that fill its input ring
-    (K14: the mix of their rows mod their count; K15: dphi of a span of
-    each chunk) and the next one the store warp, the rest idle; with
-    ``cluster`` 2 (K15) a tile is a cluster of that block and a partner
-    CTA whose ``warps`` warps are all producers; chunks of ``chunk`` rows,
-    rings of ``ring`` slots, ``smem`` bytes a CTA."""
+    """How K14, K15, K29 and K37 run a launch: a CUDA block is a tile of
+    LANES lanes and ``warps`` warps: warp 0 the serial warp, the others of
+    its scheduler (warp % 4 == 0) idle, of the rest ``producers`` that
+    fill its input ring (K14: the mix of their rows mod their count; K15:
+    dphi of a span of each chunk; K29: the feed-forward sums of a span;
+    K37: one warp, every row) and the next one the store warp, the rest
+    idle; with ``cluster`` 2 (K15) a tile is a cluster of that block and a
+    partner CTA whose ``warps`` warps are all producers; chunks of
+    ``chunk`` rows, rings of ``ring`` slots of ``win`` (input) and
+    ``wout`` (output) 32-bit words a row and lane, ``smem`` bytes a CTA."""
 
     warps: int
     producers: int
@@ -44,6 +49,8 @@ class PipePlan(NamedTuple):
     smem: int
     tiles: int  # tiles of LANES over the launch's lanes
     cluster: int = 1  # CTAs a tile
+    win: int = 1  # 32-bit words a row and lane of an input slot
+    wout: int = 1  # ... of an output slot
 
     @property
     def all_producers(self) -> int:
@@ -53,13 +60,15 @@ class PipePlan(NamedTuple):
 
 def pipe_plan(lanes: int, *, producers: int, warps: int | None = None,
               chunk: int | None = None, ring: int | None = None,
-              cluster: int = 1) -> PipePlan:
-    """The plan of a launch over ``lanes`` lanes: the fewest warps (a
-    multiple of 4) that hold the DF1 warp, ``producers`` and the store
-    warp beside the DF1 warp's scheduler, PIPE_CHUNK rows a chunk and the
-    most of PIPE_RING .. 2 slots that fit MAX_PIPE_SMEM, unless given; one
-    CTA a tile, or ``cluster`` 2 (K15 only).  Raises ValueError for a plan
-    the kernel cannot run."""
+              cluster: int = 1, win: int = 1, wout: int = 1) -> PipePlan:
+    """The plan of a launch over ``lanes`` lanes with ``win`` / ``wout``
+    words a row and lane in the input / output slots: the fewest warps (a
+    multiple of 4) that hold the serial warp, ``producers`` and the store
+    warp beside the serial warp's scheduler; unless given, the largest of
+    PIPE_CHUNK, PIPE_CHUNK / 2, ... rows a chunk of which 2 slots fit
+    MAX_PIPE_SMEM, and the most of PIPE_RING .. 2 slots that fit; one CTA a
+    tile, or ``cluster`` 2 (K15 only).  Raises ValueError for a plan the
+    kernel cannot run."""
     if lanes < 1:
         raise ValueError(f"need lanes >= 1, got {lanes}")
     if cluster not in (1, 2):
@@ -72,22 +81,26 @@ def pipe_plan(lanes: int, *, producers: int, warps: int | None = None,
             producers + 1 > warps - warps // 4:
         raise ValueError(f"warps must be a multiple of 4 up to {MAX_WARPS} "
                          f"holding {producers} producers and the store warp "
-                         f"off the DF1 warp's scheduler, got {warps}")
-    ch = PIPE_CHUNK if chunk is None else chunk
-    if ch < 1:
-        raise ValueError(f"chunk must be at least 1 row, got {ch}")
+                         f"off the serial warp's scheduler, got {warps}")
+    if chunk is None:
+        chunk = PIPE_CHUNK
+        while chunk > 1 and pipe_smem(chunk, 2, win, wout) > MAX_PIPE_SMEM:
+            chunk //= 2
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1 row, got {chunk}")
     if ring is None:
         fits = [r for r in range(PIPE_RING, 1, -1)
-                if pipe_smem(ch, r) <= MAX_PIPE_SMEM]
+                if pipe_smem(chunk, r, win, wout) <= MAX_PIPE_SMEM]
         if not fits:
-            raise ValueError(f"no ring of 2+ slots of {ch} rows fits "
+            raise ValueError(f"no ring of 2+ slots of {chunk} rows fits "
                              f"{MAX_PIPE_SMEM} bytes")
         ring = fits[0]
     if ring < 2:
         raise ValueError(f"ring must have 2+ slots, got {ring}")
-    smem = pipe_smem(ch, ring)
+    smem = pipe_smem(chunk, ring, win, wout)
     if smem > MAX_PIPE_SMEM:
         raise ValueError(f"{smem} bytes of shared memory, more than "
                          f"{MAX_PIPE_SMEM}")
-    return PipePlan(warps=warps, producers=producers, chunk=ch, ring=ring,
-                    smem=smem, tiles=-(-lanes // LANES), cluster=cluster)
+    return PipePlan(warps=warps, producers=producers, chunk=chunk, ring=ring,
+                    smem=smem, tiles=-(-lanes // LANES), cluster=cluster,
+                    win=win, wout=wout)

@@ -1,6 +1,8 @@
 """Where K2, K3, K19-K21 (`csrc/ddc_cascade.cu`), K14 and K15
 (`csrc/ddc_mix_df1.cu`, `csrc/fm_disc.cu`, all on `csrc/df1_ring.cuh`'s
-DF1 warp) spend their time on the card.
+DF1 warp), K29 and K37 (`csrc/biquad_precision.cu`,
+`csrc/structures_bank.cu`, on its depth-0 pipeline with serial warps of
+their own) spend their time on the card.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -36,7 +38,13 @@ deemphasis lowpass at 0.02):
 * variants of the two kernels, built as above: "stamps" (clock64 stamps
   of block 0 a chunk: the DF1 warp's compute, producer 0's chunk, the
   store warp's chunk, each start and end) and "df1_copy" (the DF1 warp
-  passes its input through: the pace of the other roles alone).
+  passes its input through: the pace of the other roles alone);
+* K29 (the Q64<61> lowpass at 0.1, x in +-2^55) and K37 (the RPLL row
+  (8, 12, 11), full-range timestamps, 1 in 64 valid) at c = 1024 lanes:
+  the plan sweep (`biquad_cuda.q64_plan`: producers, chunk, ring;
+  `rpll_cuda.rpll_plan`: warps, chunk, ring), each plan's words held to
+  the default plan's, and the "stamps" of their serial warp, producer 0
+  and store warp.
 
 A time is the median of 3 trials of 20 chained launches (CUDA events,
 `profiling.measure_rate`); a stamp is SM clock cycles, the median over
@@ -56,7 +64,8 @@ import numpy as np
 import torch
 
 from . import _ext, design
-from .filters import biquad, ddc_cuda, fm_cuda, hbf
+from .filters import biquad, biquad_cuda, ddc_cuda, fm_cuda, hbf, rpll
+from .filters import rpll_cuda
 from .ops.fastlo import fastlo_tables
 from .pipelines import fm_disc
 from .profiling import measure_rate
@@ -86,9 +95,9 @@ def _df1_copy(src):
 
 
 def _pipe_stamps(ring, kernel):
-    """K14's or K15's stamps of block 0 (df1_ring.cuh, the kernel's .cu):
-    0/1 the DF1 warp's compute start/end, 2/3 producer 0's chunk start
-    (after its wait) and end, 4/5 the store warp's."""
+    """A depth-0 kernel's stamps of block 0 (df1_ring.cuh, the kernel's
+    .cu): 0/1 the serial warp's compute start/end, 2/3 producer 0's chunk
+    start (after its wait) and end, 4/5 the store warp's."""
     g = "idsp::ring::g_stamps"
     at = f"blockIdx.x == 0 && lid == 0 && q < {STAMPS}"
     ring = _df1_stamps(ring)
@@ -99,6 +108,16 @@ def _pipe_stamps(ring, kernel):
     ring = _patch(ring, "    sm90::mbar_arrive(R.empty_out(u.k));\n",
                   f"    if ({at}) g_stamps[5][q] = clock64();\n"
                   "    sm90::mbar_arrive(R.empty_out(u.k));\n")
+    if "span_batches" in kernel:  # K29, K37: df1_ring.cuh's producer walk
+        at = (f"blockIdx.x == 0 && threadIdx.x % 32 == 0 && pw == 0 && "
+              f"r0 / chunk < {STAMPS}")
+        ring = _patch(ring, "    sm90::mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n",
+                      "    sm90::mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n"
+                      f"    if ({at}) g_stamps[2][r0 / chunk] = clock64();\n")
+        ring = _patch(ring, "    sm90::mbar_arrive(R.full_in(u.k));\n",
+                      f"    if ({at}) g_stamps[3][r0 / chunk] = clock64();\n"
+                      "    sm90::mbar_arrive(R.full_in(u.k));\n")
+        return ring, kernel + STAMPS_READER
     loop = re.findall(r"for \(int r0 = 0;[^\n]*u\.next\(p\.d\.depth\)\) \{\n",
                       kernel)
     if len(loop) != 1:
@@ -115,21 +134,26 @@ def _pipe_stamps(ring, kernel):
 
 
 def _df1_stamps(ring):
-    """df1_ring.cuh with g_stamps[6][STAMPS] (idsp::ring) and the DF1
-    warp's stamps of block 0: series 0/1 its compute start/end a chunk."""
-    at = f"blockIdx.x == 0 && lid == 0 && q < {STAMPS}"
+    """df1_ring.cuh with g_stamps[6][STAMPS] (idsp::ring) and the serial
+    warp's stamps of block 0 (`serial_chunks`, K29 and K37, and the DF1
+    warp's loop): series 0/1 its compute start/end a chunk."""
+    at = f"blockIdx.x == 0 && threadIdx.x == 0 && q < {STAMPS}"
     ring = _patch(ring, "constexpr int kMaxWarps = 16;\n",
                   "constexpr int kMaxWarps = 16;\n"
                   f"static __device__ long long g_stamps[6][{STAMPS}];\n")
-    ring = _patch(ring, "    sm90::mbar_wait(R.empty_out(u.k), u.ph ^ 1);\n",
-                  "    sm90::mbar_wait(R.empty_out(u.k), u.ph ^ 1);\n"
-                  "    const int q = r0 / a.chunk;\n"
-                  f"    if ({at}) g_stamps[0][q] = clock64();\n")
-    return _patch(ring, "    sm90::mbar_arrive(R.full_out(u.k));\n"
-                        "    sm90::mbar_arrive(R.empty_in(u.k));\n",
-                  f"    if ({at}) g_stamps[1][q] = clock64();\n"
-                  "    sm90::mbar_arrive(R.full_out(u.k));\n"
-                  "    sm90::mbar_arrive(R.empty_in(u.k));\n")
+    wait = "    sm90::mbar_wait(R.empty_out(u.k), u.ph ^ 1);\n"
+    done = ("    sm90::mbar_arrive(R.full_out(u.k));\n"
+            "    sm90::mbar_arrive(R.empty_in(u.k));\n")
+    parts = ring.split(wait)
+    if len(parts) != 3 or ring.count(done) != 2:
+        raise RuntimeError("the two serial loops not found")
+    # serial_chunks, then the DF1 warp (its chunk is a.chunk)
+    ring = (parts[0] + wait + "    const int q = r0 / chunk;\n"
+            f"    if ({at}) g_stamps[0][q] = clock64();\n" + parts[1] + wait
+            + "    const int q = r0 / a.chunk;\n"
+            f"    if ({at}) g_stamps[0][q] = clock64();\n" + parts[2])
+    return ring.replace(done, f"    if ({at}) g_stamps[1][q] = clock64();\n"
+                        + done)
 
 
 STAMPS_READER = (
@@ -188,15 +212,17 @@ def variants() -> dict:
     }
 
 
-PIPE_SOURCES = ("ddc_mix_df1.cu", "fm_disc.cu")
+DF1_PIPE_SOURCES = ("ddc_mix_df1.cu", "fm_disc.cu")  # K14, K15
+PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K29
+                                   "structures_bank.cu")  # K37
 
 
 def pipe_variants() -> dict:
-    """K14's and K15's variants: name -> {file: source}; each builds its
-    .cu files."""
+    """K14's, K15's, K29's and K37's variants: name -> {file: source};
+    each builds its .cu files."""
     ring = _read("df1_ring.cuh")
     out = {"df1_copy": {"df1_ring.cuh": _df1_copy(ring),
-                        **{f: _read(f) for f in PIPE_SOURCES}}}
+                        **{f: _read(f) for f in DF1_PIPE_SOURCES}}}
     for f in PIPE_SOURCES:  # one library each: one g_stamps a library
         r, k = _pipe_stamps(ring, _read(f))
         out[f"stamps_{f[:-3]}"] = {"df1_ring.cuh": r, f: k}
@@ -403,6 +429,24 @@ def _pipe(dev, card, libs, package, result) -> None:
         return fm_cuda.fm_disc_bank(bf, st15, *iq, 12345, angle=angle,
                                     _plan=plan)
 
+    x64 = torch.from_numpy(rng.integers(-(2**55), 2**55, size=(T, 1024),
+                                        dtype=np.int64)).to(dev)
+    ba64 = biquad.quantize_ba(biquad.from_cookbook(
+        design.Filter().critical_frequency(0.1).lowpass()), 61,
+        dtype=np.int64)
+    xr = (i32((T, 1024)), torch.from_numpy(
+        rng.integers(0, 64, size=(T, 1024)) == 0).to(dev))
+
+    def k29(plan=None):
+        return biquad_cuda.df1_bank_q64(
+            ba64, biquad.df1_init((1024,), torch.int64, device=dev), x64, 61,
+            _plan=plan)
+
+    def k37(plan=None):
+        return rpll_cuda.rpll_bank(rpll.RpllConfig(8, 12, 11),
+                                   rpll.init((1024,), device=dev), *xr,
+                                   _plan=plan)
+
     _ext._lib = package
     result.update(pipe_sweep={}, pipe_variants={}, pipe_stamps={})
     cases = [(f"K14 c={c}", lambda p, c=c: k14(c, p),
@@ -417,6 +461,15 @@ def _pipe(dev, card, libs, package, result) -> None:
                 for p in (5, 8, 11)]
                + [dict(chunk=128, ring=4)])
               for a in ("exact", "fast")]
+    cases += [("K29 c=1024", k29,
+               lambda **kw: biquad_cuda.q64_plan(1024, **kw),
+               [dict(producers=p) for p in (2, 3, 8, 11)]
+               + [dict(chunk=64, ring=r) for r in (2, 3, 4)]
+               + [dict(chunk=32, ring=8), dict(chunk=128, producers=8)]),
+              ("K37 c=1024", k37, lambda **kw: rpll_cuda.rpll_plan(1024, **kw),
+               [dict(chunk=128, ring=2), dict(chunk=64, ring=3),
+                dict(chunk=64, ring=7), dict(chunk=32, ring=8),
+                dict(warps=8)])]
     for name, run, plan_of, forced in cases:
         want = run(None)
         for kw in forced:
@@ -436,19 +489,27 @@ def _pipe(dev, card, libs, package, result) -> None:
              "K15 fast": lambda: k15("fast")}
     result["pipe_variants"]["package"] = {k: _ms(fn)
                                           for k, fn in timed.items()}
+    result["pipe_variants"]["package"].update(
+        {"K29 c=1024": _ms(k29), "K37 c=1024": _ms(k37)})
     _ext._lib = libs["pipe_df1_copy"]
     result["pipe_variants"]["df1_copy"] = {k: _ms(fn)
                                            for k, fn in timed.items()}
     _ext._lib = package
     for name, row in result["pipe_variants"].items():
         print(f"variant {name}: {row} ms  [{card}]", flush=True)
-    roles = {"df1": (0, 1), "producer": (2, 3), "store": (4, 5)}
+    roles = {"serial": (0, 1), "producer": (2, 3), "store": (4, 5)}
+    chunks = {"K14 c=512": ddc_cuda.mix_plan(1024).chunk,
+              "K15 exact": fm_cuda.disc_plan(512, "exact").chunk,
+              "K15 fast": fm_cuda.disc_plan(512, "fast").chunk,
+              "K29 c=1024": biquad_cuda.q64_plan(1024).chunk,
+              "K37 c=1024": rpll_cuda.rpll_plan(1024).chunk}
     for key, lib, fn in (
             ("K14 c=512", "stamps_ddc_mix_df1", timed["K14 c=512"]),
             ("K15 exact", "stamps_fm_disc", timed["K15 exact"]),
-            ("K15 fast", "stamps_fm_disc", timed["K15 fast"])):
-        chunk = (ddc_cuda.mix_plan(1024) if key.startswith("K14")
-                 else fm_cuda.disc_plan(512, key[4:])).chunk
+            ("K15 fast", "stamps_fm_disc", timed["K15 fast"]),
+            ("K29 c=1024", "stamps_biquad_precision", k29),
+            ("K37 c=1024", "stamps_structures_bank", k37)):
+        chunk = chunks[key]
         row = _stamp_rows(libs[f"pipe_{lib}"], fn, chunk, roles)
         row["pace"] = max(roles, key=lambda r: row[r])
         result["pipe_stamps"][key] = row

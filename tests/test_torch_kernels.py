@@ -644,6 +644,102 @@ def test_pipe_entries_refuse_a_plan_not_their_own(cuda):
            fm_disc_bank_plain(ba, fst, re, re, 5)[1])
 
 
+# K29 and K37 at the depth-0 pipeline's edges, at their own chunk (128
+# rows); the most slots that fit a block at 64-row chunks are 4 (K29) and
+# 7 (K37)
+SERIAL_EDGES = {
+    "1 producer, 2 slots": (100, 7 * 64 + 40, dict(producers=1, chunk=64,
+                                                   ring=2)),
+    "most producers": (50, 7 * 64 + 40, dict(producers=11, warps=16,
+                                             chunk=64)),
+    "most slots": (100, 7 * 64 + 40, dict(chunk=64, ring=0)),
+    "chunk 1": (51, 40, dict(chunk=1, ring=2)),
+    "t = one chunk": (100, 128, {}),
+    "t = 7 chunks + 40": (50, 7 * 128 + 40, {}),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f,kind", [(61, "lowpass"), (47, "full")])
+@pytest.mark.parametrize("case", sorted(SERIAL_EDGES))
+def test_df1_bank_q64_kernel_at_pipe_edges(cuda, case, f, kind):
+    from idsp_tpu_torch.filters.biquad_cuda import q64_plan
+
+    c, t, kw = SERIAL_EDGES[case]
+    if kw.get("ring") == 0:
+        kw = {**kw, "ring": 4}  # the most slots of 64 rows
+    plan = q64_plan(c, **kw) if kw else None
+    rng = np.random.default_rng(29)
+    top = 64 if kind == "full" else 56
+    ba = (rng.integers(-(2**63), 2**63, 5, dtype=np.int64) if kind == "full"
+          else biquad.quantize_ba(LOWPASS, 61, dtype=np.int64))
+
+    def make(shape):
+        return _ints(rng, shape, 64, -(2 ** (top - 1)), 2 ** (top - 1),
+                     device=cuda)
+
+    _carried(lambda s, x: df1_bank_q64(ba, s, x, f, _plan=plan),
+             lambda s, x: df1_bank_q64_plain(ba, s, x, f),
+             biquad.Df1State(x=make((c, 2)), y=make((c, 2))),
+             lambda: make((t, c)), blocks=2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("sf", [12, 32, 40])
+@pytest.mark.parametrize("case", sorted(SERIAL_EDGES))
+def test_rpll_kernel_at_pipe_edges(cuda, case, sf):
+    """Full-range timestamps, 1 in 4 valid, none over 1.5 chunks."""
+    from idsp_tpu_torch.filters.rpll_cuda import rpll_plan
+
+    c, t, kw = SERIAL_EDGES[case]
+    if kw.get("ring") == 0:
+        kw = {**kw, "ring": 7}  # the most slots of 64 rows
+    plan = rpll_plan(c, **kw) if kw else None
+    rng = np.random.default_rng(37)
+    cfg = rpll.RpllConfig(dt2=8, shift_frequency=sf, shift_phase=11)
+
+    def make(rows):
+        v = rng.random((rows, c)) < 0.25
+        v[rows // 3: rows // 3 + 192] = False
+        return (_i32(rng, (rows, c), device=cuda),
+                torch.from_numpy(v).to(cuda))
+
+    st = rpll.RpllState(*(_i32(rng, (c,), device=cuda) for _ in range(4)))
+    _structure_hold(lambda s, x, v: rpll_bank(cfg, s, x, v, _plan=plan),
+                    lambda s, x, v: rpll_bank_plain(cfg, s, x, v), st, make,
+                    t)
+
+
+@pytest.mark.requires_cuda
+def test_serial_pipe_entries_refuse_a_plan_not_their_own(cuda):
+    """K29's and K37's entry points refuse a plan whose shared memory is
+    not the kernel's own sum, or roles that do not fit the warps
+    (RuntimeError, nothing launched); the next launch runs as usual."""
+    from idsp_tpu_torch.filters.biquad_cuda import q64_plan
+    from idsp_tpu_torch.filters.rpll_cuda import rpll_plan
+
+    c, t = 64, 300
+    st = biquad.df1_init((c,), torch.int64, device=cuda)
+    x = torch.ones((t, c), dtype=torch.int64, device=cuda)
+    b64 = biquad.quantize_ba(LOWPASS, 61, dtype=np.int64)
+    plan = q64_plan(c)
+    for bad in (plan._replace(smem=plan.smem - 32),
+                plan._replace(producers=7)):  # 9 roles in 8 warps
+        with pytest.raises(RuntimeError):
+            df1_bank_q64(b64, st, x, 61, _plan=bad)
+    rst = rpll.init((c,), device=cuda)
+    xi = torch.ones((t, c), dtype=torch.int32, device=cuda)
+    plan = rpll_plan(c)
+    for bad in (plan._replace(smem=plan.smem + 32),
+                plan._replace(producers=7)):  # 9 roles in 8 warps
+        with pytest.raises(RuntimeError):
+            rpll_bank(rpll.RpllConfig(8, 12, 11), rst, xi, xi.bool(),
+                      _plan=bad)
+    _equal(df1_bank_q64(b64, st, x, 61), df1_bank_q64_plain(b64, st, x, 61))
+    _equal(rpll_bank(rpll.RpllConfig(8, 12, 11), rst, xi, xi.bool())[1],
+           rpll_bank_plain(rpll.RpllConfig(8, 12, 11), rst, xi, xi.bool())[1])
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("tc", [64, 256])
 def test_ddc_lockin_kernel_equals_plain(cuda, tc):

@@ -1,6 +1,7 @@
-"""A CPU model of the DF1 warp's mbarrier rings (``csrc/df1_ring.cuh``),
-shared by the schedule tests of K2/K3 (tests/test_torch_ddc_cascade_plan.py)
-and K14/K15 (that file and tests/test_torch_fm_plan.py).
+"""A CPU model of the serial warp's mbarrier rings (``csrc/df1_ring.cuh``),
+shared by the schedule tests of K2/K3 (tests/test_torch_ddc_cascade_plan.py),
+K14/K15 (that file and tests/test_torch_fm_plan.py), K37
+(tests/test_torch_rpll_plan.py) and K29 (tests/test_torch_q64_plan.py).
 
 Each role of a CUDA block is a coroutine that yields a test before each
 mbarrier wait; the roles run in a seeded random order among those whose
@@ -77,39 +78,36 @@ def span_rows(pw, rows, plan):
     return list(range(lo, min(lo + span, rows)))
 
 
-def pipe_model(ba, f, state, t, lanes, plan, produce, rows_of, *,
-               out_dtype=torch.int32, seed=0):
-    """A depth-0 launch (``run_pipe``: K14, K15) as the kernel schedules
-    it: ``plan.all_producers`` producer roles, the DF1 warp and the store
-    warp over rings of ``plan.ring`` slots of
-    ``plan.chunk`` rows.  Producer pw fills the rows ``rows_of(pw, rows,
-    plan)`` of each chunk with ``produce(r0, idx)`` (int32, (len(idx),
-    lanes), rows r0 + idx of the block); the store warp copies the output
-    slot's rows to y.  With a cluster of 2 the producers from
+def pipe_run(t, lanes, plan, produce, rows_of, serial, *, seed=0):
+    """A depth-0 launch (``run_pipe``) as the kernel schedules it:
+    ``plan.all_producers`` producer roles, the serial warp and the store
+    warp over rings of ``plan.ring`` slots of ``plan.chunk`` rows of
+    ``lanes`` x ``plan.win`` (input) or x ``plan.wout`` (output) words.
+    Producer pw fills the rows ``rows_of(pw, rows, plan)`` of each chunk
+    with ``produce(r0, idx)`` ((len(idx), lanes, win) words of the rows r0
+    + idx of the block); the serial warp turns each chunk's input rows
+    into its output rows with ``serial(words)`` ((rows, lanes, win) ->
+    (rows, lanes, wout)), keeping its state; the store warp copies the
+    output slot's rows to y.  With a cluster of 2 the producers from
     ``plan.producers`` on are the partner CTA's warps: each waits on the
-    partner's own copy of the slot's empty barrier, which the DF1 warp
+    partner's own copy of the slot's empty barrier, which the serial warp
     arrives on only for a chunk the partner has still to fill, and
     arrives once on the home slot's full barrier.  Slots start as garbage,
-    so a row read before it is written shows.  Returns (Df1State, y (t,
-    lanes) of ``out_dtype``)."""
-    from idsp_tpu_torch.filters.biquad import Df1State
-
+    so a row read before it is written shows.  Returns y, (t, lanes,
+    wout) int64 words."""
     K, R, P = plan.chunk, plan.ring, plan.all_producers
-    gen = torch.Generator().manual_seed(seed)
-    ring_in = torch.randint(-2**31, 2**31, (R, K, lanes), generator=gen,
-                            dtype=torch.int64).to(torch.int32)
-    ring_out = torch.randint(-2**31, 2**31, (R, K, lanes), generator=gen,
-                             dtype=torch.int64).to(torch.int32)
+    win, wout = getattr(plan, "win", 1), getattr(plan, "wout", 1)
+    gen = np.random.default_rng(seed)
+    ring_in = gen.integers(-2**31, 2**31, (R, K, lanes, win))
+    ring_out = gen.integers(-2**31, 2**31, (R, K, lanes, wout))
     full_in = [Bar(P) for _ in range(R)]
     empty_in = [Bar(1) for _ in range(R)]
     full_out = [Bar(1) for _ in range(R)]
     empty_out = [Bar(1) for _ in range(R)]
     empty_peer = [Bar(1) for _ in range(R)]  # the partner CTA's copies
-    y = torch.full((t, lanes), -1, dtype=torch.int32)
-    written = torch.zeros(t, dtype=torch.int64)
+    y = np.full((t, lanes, wout), -1, dtype=np.int64)
+    written = np.zeros(t, dtype=np.int64)
     chunks = [(cs, min(cs + K, t)) for cs in range(0, t, K)]
-    s = [state.x[:, 0].to(torch.int64), state.x[:, 1].to(torch.int64),
-         state.y[:, 0].to(torch.int64), state.y[:, 1].to(torch.int64)]
 
     def producer(pw):
         empty = empty_in if pw < plan.producers else empty_peer
@@ -118,16 +116,15 @@ def pipe_model(ba, f, state, t, lanes, plan, produce, rows_of, *,
             yield lambda: empty[k].passes(ph ^ 1)
             idx = rows_of(pw, ce - cs, plan)
             if idx:
-                ring_in[k, idx] = produce(cs, torch.tensor(idx))
+                ring_in[k, idx] = produce(cs, np.asarray(idx))
             full_in[k].arrive()
 
-    def df1():
+    def serial_warp():
         for q, (cs, ce) in enumerate(chunks):
             k, ph = q % R, (q // R) & 1
             yield lambda: full_in[k].passes(ph)
             yield lambda: empty_out[k].passes(ph ^ 1)
-            ring_out[k, :ce - cs] = df1_rows(ba, f, s, ring_in[k, :ce - cs],
-                                             None)
+            ring_out[k, :ce - cs] = serial(ring_in[k, :ce - cs].copy())
             full_out[k].arrive()
             empty_in[k].arrive()
             if P > plan.producers and q + R < len(chunks):
@@ -141,9 +138,32 @@ def pipe_model(ba, f, state, t, lanes, plan, produce, rows_of, *,
             written[cs:ce] += 1
             empty_out[k].arrive()
 
-    run_roles([producer(pw) for pw in range(P)] + [df1(), store()], seed)
+    run_roles([producer(pw) for pw in range(P)] + [serial_warp(), store()],
+              seed)
     assert bool((written == 1).all()), "a row was stored twice or never"
+    return y
+
+
+def pipe_model(ba, f, state, t, lanes, plan, produce, rows_of, *,
+               out_dtype=torch.int32, seed=0):
+    """`pipe_run` with the DF1 warp as the serial warp (K14, K15): one
+    int32 word a row and lane each way; ``produce(r0, idx)`` gives the
+    DF1's int32 inputs ((len(idx), lanes) tensors).  Returns (Df1State,
+    y (t, lanes) of ``out_dtype``)."""
+    from idsp_tpu_torch.filters.biquad import Df1State
+
+    s = [state.x[:, 0].to(torch.int64), state.x[:, 1].to(torch.int64),
+         state.y[:, 0].to(torch.int64), state.y[:, 1].to(torch.int64)]
+
+    def words(r0, idx):
+        return produce(r0, torch.from_numpy(idx)).numpy()[..., None]
+
+    def df1(rows):
+        return df1_rows(ba, f, s, torch.from_numpy(rows[..., 0]),
+                        None).numpy()[..., None]
+
+    y = pipe_run(t, lanes, plan, words, rows_of, df1, seed=seed)
     x1, x2, y1, y2 = s
     new = Df1State(x=torch.stack([x1, x2], 1).to(torch.int32),
                    y=torch.stack([y1, y2], 1).to(torch.int32))
-    return new, y.to(out_dtype)
+    return new, torch.from_numpy(y[..., 0]).to(torch.int32).to(out_dtype)
