@@ -66,7 +66,12 @@ Phases, each reported on its own line:
    lowpass and, on the 7-chunk row, full-range coefficients at f = 47 and
    int64's edge values at f = 33; K37 with 1 in 4 rows valid and 1.5
    chunks without one, at sf 12 and on the 7-chunk row also sf 32 and 40)
-   over 2 blocks, bit for bit; K22 `hbf_dec_cascade_mxu`
+   over 2 blocks, bit for bit; K31, K33 and K34 at that pipeline's edges
+   (t = 1, t under a chunk, t = 3 chunks + 17, a forced plan of 16-row
+   chunks; c = 200, 50, 1 and 200; K31 at f 29 unclamped and clamped, f
+   1 and f 32, K33 per-lane and shared, K34 each output) over 2 blocks,
+   and K31 at f 1 and 32 on a block whose 64-bit sums wrap, bit for bit;
+   K22 `hbf_dec_cascade_mxu`
    ((32768, 512) f32) and K23
    `hbf_int_cascade_mxu` ((2048, 512) f32), depth 4, with HBF_TAPS and
    HBF_TAPS_98 from a random carried state, at two (block, sub) tilings,
@@ -250,8 +255,9 @@ Phases, each reported on its own line:
    times; K28-K33 at c=1024 lanes with their plain versions' times from
    phase 3 (K31 clamped and K32/K33 with a shared set on the log only);
    K34-K40 at c=1024 lanes with their rates and their plain versions'
-   times from phase 3 (K40 over wdf-ca-7 on the log only), K29 and
-   K37-K40 also by their profiler spans, device ms a launch;
+   times from phase 3 (K40 over wdf-ca-7 on the log only), K29, K31,
+   K33, K34 and K37-K40 also by their profiler spans, device ms a
+   launch;
    K41 at h = 1, 2, 90 on (8192, 1024) f32 blocks, timed by the ranks
    at the end of phase 4 once the parent is done: the median of 20 calls
    with CUDA events (host gate included; 4 time-sliced processes on one
@@ -361,6 +367,9 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "fastlo_ddc_cascade_bank_clamp": "ddc_cascade_kernel",
                   "ddc_mix_df1_bank": "ddc_mix_df1_kernel",
                   "df1_bank_q64": "df1_q64_kernel",
+                  "df1_dither_bank": "df1_dither_kernel",
+                  "df1_dither_bank_coef": "df1_dither_kernel",
+                  "svf_bank": "svf_kernel",
                   "rpll_bank": "rpll_kernel",
                   "fm_disc_bank": "fm_disc_kernel",
                   "fm_disc_bank_fast": "fm_disc_kernel"}
@@ -2073,6 +2082,121 @@ def check_serial_pipe_edges(dev, i32, errs):
         f"{errs['df1_bank_q64']}, {errs['rpll_bank']}")
 
 
+def check_depth0_edges(dev, i32, errs):
+    """Phase 3 for K31, K33 and K34 at the edges of the depth-0 pipeline,
+    each against its plain version over 2 carried blocks, tolerance 0
+    (into errs under the kernel's own name): t = 1 (c = 200), t under a
+    chunk (c = 50), t = 3 chunks + 17 (c = 1: one live lane of a tile),
+    and a forced plan of 16-row chunks, 3 slots and 2 producers (c = 200:
+    a tile's tail lanes).  K31 unclamped and clamped with CLAMP at f = 29,
+    at f = 1 and at f = 32 (coefficients in +-2^(f + 1), full-range x and
+    state), K33 with per-lane and with shared planes at f = 29 (and
+    CLAMP); then K31 at f = 1 and 32, clamped and not, on a block whose
+    rows' five products and e pass 2^63 (coefficients, state and the first
+    row at -2^31, e at 2^32 - 1; the rest at int32's edges: the sum
+    wraps); K34 with each of its four outputs from a random state."""
+    import torch
+    from idsp_tpu_torch.filters import biquad, svf
+    from idsp_tpu_torch.filters.biquad_cuda import (
+        df1_dither_bank, df1_dither_bank_coef, df1_dither_bank_coef_plain,
+        df1_dither_bank_plain, dither_plan,
+    )
+    from idsp_tpu_torch.filters.svf_cuda import (
+        OUTPUTS, svf_bank, svf_bank_plain, svf_plan,
+    )
+
+    rng = np.random.default_rng(19)
+
+    def dither_state(c):
+        return biquad.Df1DitherState(
+            xy=biquad.Df1State(x=i32((c, 2)), y=i32((c, 2))),
+            e=torch.from_numpy(rng.integers(0, 2**32, c)).to(dev))
+
+    def chunk_of(plan_of):
+        return plan_of(1).chunk
+
+    edges = {
+        "t = 1": (200, 1, {}),
+        "t under a chunk": (50, 100, {}),
+        "t = 3 chunks + 17": (1, None, {}),
+        "16-row chunks": (200, 5 * 16 + 3, dict(chunk=16, ring=3,
+                                                producers=2)),
+    }
+    for label, (c, t, kw) in edges.items():
+        for name, plan_of in (("dither", dither_plan), ("svf", svf_plan)):
+            rows = 3 * chunk_of(plan_of) + 17 if t is None else t
+            plan = plan_of(c, **kw) if kw else None
+            if name == "svf":
+                f, qi = svf.coefficients(*SVF_ROW)
+                for out in OUTPUTS:
+                    st = svf.SvfState(*(torch.from_numpy(rng.normal(
+                        size=c).astype(np.float32)).to(dev)
+                        for _ in range(3)))
+                    errs["svf_bank"] = max(errs["svf_bank"], hold(
+                        f"svf_bank ({label}, {out})",
+                        lambda s, x, o=out, p=plan: svf_bank(
+                            f, qi, s, x, output=o, _plan=p),
+                        lambda s, x, o=out: svf_bank_plain(
+                            f, qi, s, x, output=o),
+                        (st,), lambda rows=rows, c=c: torch.from_numpy(
+                            rng.normal(size=(rows, c)).astype(np.float32))
+                        .to(dev), blocks=2))
+                continue
+            for f, clamp in ((29, None), (29, CLAMP), (1, None), (32, None),
+                             (32, CLAMP)):
+                top = min(2**31 - 1, 2 << f)
+                ba = rng.integers(-top, top + 1, size=5).astype(np.int32)
+                errs["df1_dither_bank"] = max(errs["df1_dither_bank"], hold(
+                    f"df1_dither_bank ({label}, f {f}, clamp {clamp})",
+                    lambda s, x, ba=ba, f=f, cl=clamp, p=plan:
+                    df1_dither_bank(ba, s, x, f, clamp=cl, _plan=p),
+                    lambda s, x, ba=ba, f=f, cl=clamp: df1_dither_bank_plain(
+                        ba, s, x, f, clamp=cl),
+                    (dither_state(c),), lambda rows=rows, c=c: i32((rows, c)),
+                    blocks=2))
+            for shared, clamp in ((False, None), (True, None), (False, CLAMP)):
+                planes = torch.from_numpy(rng.integers(
+                    -(2**30), 2**30, size=(5,) if shared else (5, c)).astype(
+                    np.int32)).to(dev)
+                errs["df1_dither_bank_coef"] = max(
+                    errs["df1_dither_bank_coef"], hold(
+                        f"df1_dither_bank_coef ({label}, "
+                        f"{'shared' if shared else 'per-lane'}, "
+                        f"clamp {clamp})",
+                        lambda s, x, pl=planes, cl=clamp, p=plan:
+                        df1_dither_bank_coef(pl, s, x, 29, clamp=cl,
+                                             _plan=p),
+                        lambda s, x, pl=planes, cl=clamp:
+                        df1_dither_bank_coef_plain(pl, s, x, 29, clamp=cl),
+                        (dither_state(c),),
+                        lambda rows=rows, c=c: i32((rows, c)), blocks=2))
+    c, t = 50, 300
+    edge = np.array([-(2**31), -(2**31) + 1, -1, 0, 1, 2**31 - 1], np.int32)
+    xs = rng.choice(edge, (t, c))
+    xs[0] = -(2**31)
+    low = torch.full((c, 2), -(2**31), dtype=torch.int32, device=dev)
+    st = biquad.Df1DitherState(
+        xy=biquad.Df1State(x=low, y=low.clone()),
+        e=torch.full((c,), 2**32 - 1, dtype=torch.int64, device=dev))
+    ba = np.full(5, -(2**31), np.int32)
+    for f in (1, 32):
+        for clamp in (None, (2**31 - 9, -(2**31), 2**31 - 1)):
+            errs["df1_dither_bank"] = max(errs["df1_dither_bank"], hold(
+                f"df1_dither_bank (the sum wraps, f {f}, clamp {clamp})",
+                lambda s, x, f=f, cl=clamp: df1_dither_bank(
+                    ba, s, x, f, clamp=cl),
+                lambda s, x, f=f, cl=clamp: df1_dither_bank_plain(
+                    ba, s, x, f, clamp=cl),
+                (st,), lambda: torch.from_numpy(xs).to(dev), blocks=1))
+    log(f"phase 3 K31 (f 29 unclamped and clamped {CLAMP}, f 1, f 32 "
+        f"unclamped and clamped), K33 (per-lane and shared planes, clamped "
+        f"per-lane) and K34 (lp, hp, bp, br) at the depth-0 pipeline's "
+        f"edges == plain over 2 blocks each ({', '.join(edges)}: c = 200, "
+        f"50, 1 and 200); K31 at f 1 and 32 where the 64-bit sum wraps, "
+        f"clamped and not: max |d| {errs['df1_dither_bank']}, "
+        f"{errs['df1_dither_bank_coef']}, {errs['svf_bank']}")
+
+
 def check_biquad_kernels(dev, i32, errs, plain_s, ba, ba_bank, pll_ba):
     """Phase 3 for K11-K14 at full width: K11-K13 at c = C_BANK (d = 16,
     time chunk TC), K14 at c = C_MAIN and C_WIDE with int32 and f32
@@ -3454,7 +3578,8 @@ def precision_main_path(dev, rng, wrappers):
 def time_precision(dev, rng, card, timings, plain_s):
     """Phase 6 for K28-K33 at c = C_PREC, t = T, the suite's inputs: each
     kernel (K31 unclamped, K32/K33 per-lane) beside its plain version
-    (timed in phase 3), K29 also by its profiler spans (`launch_device_ms`);
+    (timed in phase 3), K29, K31 and K33 also by their profiler spans
+    (`launch_device_ms`);
     K31 clamped with the suite's row, and K32/K33 with the shared (5,)
     set, on the log only."""
     from idsp_tpu_torch.profiling import measure_rate
@@ -3994,9 +4119,9 @@ def structures_main_path(dev, rng, wrappers):
 
 def time_structures(dev, rng, card, timings, plain_s):
     """Phase 6 for K34-K40 at c = C_STRUCT, t = T: each kernel beside its
-    plain version (timed in phase 3) and its rate in c*t samples/s, K37-K40
-    also by their profiler spans (`launch_device_ms`); K40 over wdf-ca-7
-    on the log only."""
+    plain version (timed in phase 3) and its rate in c*t samples/s, K34 and
+    K37-K40 also by their profiler spans (`launch_device_ms`); K40 over
+    wdf-ca-7 on the log only."""
     from idsp_tpu_torch.profiling import measure_rate
 
     c = C_STRUCT
@@ -4510,6 +4635,7 @@ def main():
     check_precision_kernels(dev, rng, errs, plain_s)
     check_structure_kernels(dev, rng, errs, plain_s)
     check_serial_pipe_edges(dev, i32, errs)
+    check_depth0_edges(dev, i32, errs)
     log(f"phase 3 done at {time.perf_counter() - wall0:.1f} s")
 
     # ---- phase 4: the main path ---------------------------------------

@@ -1,5 +1,6 @@
 """Time K1, K2, K3, K6, K7, K8, K14, K15, K17, K19, K22 "highest", K29,
-K37 and K38-K40 of two checkouts of the port in turns, in one process.
+K31, K33, K34, K37 and K38-K40 of two checkouts of the port in turns, in
+one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -8,7 +9,8 @@ Usage (on a CUDA machine, from the root of a checkout)::
 ``--only`` keeps the kernels whose name contains one of the given
 substrings (e.g. ``--only highest,wdf``; K2, K3, K19: ``--only
 df1_hbf,fastlo_ddc_cascade,df1_clamp``; K14, K15: ``--only
-mix_df1,fm_disc``; K29, K37: ``--only q64,rpll``).
+mix_df1,fm_disc``; K29, K37: ``--only q64,rpll``; K31, K33, K34:
+``--only dither,svf``).
 
 Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
 loaded under a name of its own, so both live in this process, and each
@@ -34,7 +36,12 @@ deemphasis lowpass at 0.02, zero state) at c = 512, K29 `df1_bank_q64`
 (the Q64<61> lowpass at 0.1, x in +-2^55, zero state) and K37
 `rpll_bank` (the RPLL row (8, 12, 11), full-range timestamps, 1 in 64
 valid, zero state) at c = 1024 lanes, t = 32768, as `chip_smoke.py`'s
-ladder and structures.  The two trees must
+ladder and structures; K31 `df1_dither_bank` (the Q29 lowpass at 0.1, x
+in +-2^24, zero state; unclamped and clamped with the suite's row (0,
++-2^30), which pins nothing), K33 `df1_dither_bank_coef` (per-lane Q29
+lowpass planes at 1024 frequencies in [0.01, 0.2], and the shared set)
+and K34 `svf_bank` (the suite's row (0.01, 0.7), x ~ N(0, 1), zero
+state; each of its four outputs) at the same width.  The two trees must
 compute the same words, K17 within 2e-5 of the scale (its sums run in
 another order).
 One sample is the CUDA-event time of ITERS launches on the same inputs,
@@ -69,7 +76,9 @@ M_CH, CH_TAPS, N_CH = 1024, 8, (1024, 16384)  # K17: branches, taps, frames
 ROUNDS, ITERS = 30, 20
 C_WDF = 1024  # K38-K40's lanes
 C_FM, FM_CARRIER = 512, 12345  # K15's channels and carrier word
-C_SERIAL = 1024  # K29's and K37's lanes
+C_SERIAL = 1024  # K29's, K31's, K33's, K34's and K37's lanes
+DITHER_CLAMP = (0, -(2**30), 2**30)  # the suite's clamped-dither row
+SVF_ROW = (0.01, 0.7)  # the suite's SVF row (f0, Q)
 # wdf-ca-7 and wdf-ca-19 (benches/suite.py:442-500): per branch, stages of
 # (type nibbles, adapters, pole coefficients)
 WDF_CA7 = ([(0xAD, 2, [-0.9, 0.9]), (0xAD, 2, [-0.6, 0.7])],
@@ -103,7 +112,8 @@ def cases(alias: str, dev, inputs):
         "filters.hbf_cuda", "filters.hbf_mxu", "filters.wdf",
         "filters.ddc_cuda", "filters.fm_cuda", "pipelines.fm_disc",
         "filters.wdf_cuda", "pipelines.channelizer",
-        "pipelines.channelizer_cuda", "filters.rpll", "filters.rpll_cuda")}
+        "pipelines.channelizer_cuda", "filters.rpll", "filters.rpll_cuda",
+        "filters.svf", "filters.svf_cuda")}
     biquad, lowpass, pll = (sub["filters.biquad"], sub["filters.lowpass"],
                             sub["filters.pll"])
     ba = biquad.quantize_ba(biquad.from_cookbook(
@@ -155,6 +165,26 @@ def cases(alias: str, dev, inputs):
     out[f"df1_bank_q64 c={C_SERIAL}"] = (
         lambda st=biquad.df1_init((C_SERIAL,), torch.int64, device=dev):
         sub["filters.biquad_cuda"].df1_bank_q64(ba64, st, inputs["x64"], 61))
+    bc = sub["filters.biquad_cuda"]
+    ba29 = biquad.quantize_ba(biquad.from_cookbook(
+        sub["design"].Filter().critical_frequency(0.1).lowpass()), 29)
+    for label, clamp in (("", None), (" clamped", DITHER_CLAMP)):
+        out[f"df1_dither_bank{label} c={C_SERIAL}"] = (
+            lambda st=biquad.df1_dither_init((C_SERIAL,), device=dev),
+            clamp=clamp: bc.df1_dither_bank(ba29, st, inputs["x29"], 29,
+                                            clamp=clamp))
+    for label, planes in (("per-lane", inputs["planes29"]),
+                          ("shared", torch.from_numpy(ba29).to(dev))):
+        out[f"df1_dither_bank_coef {label} c={C_SERIAL}"] = (
+            lambda st=biquad.df1_dither_init((C_SERIAL,), device=dev),
+            planes=planes: bc.df1_dither_bank_coef(planes, st,
+                                                   inputs["x29"], 29))
+    svf, svf_cuda = sub["filters.svf"], sub["filters.svf_cuda"]
+    f, qi = svf.coefficients(*SVF_ROW)
+    for o in svf_cuda.OUTPUTS:
+        out[f"svf_bank {o} c={C_SERIAL}"] = (
+            lambda st=svf.init((C_SERIAL,), device=dev), o=o:
+            svf_cuda.svf_bank(f, qi, st, inputs["xf"], output=o))
     rpll = sub["filters.rpll"]
     out[f"rpll_bank c={C_SERIAL}"] = (
         lambda st=rpll.init((C_SERIAL,), device=dev):
@@ -250,6 +280,9 @@ def main() -> None:
         e.library()  # raises here if a build failed
 
     rng = np.random.default_rng(0)
+    # the parent tree's design code makes the shared inputs' planes
+    trees_biquad = importlib.import_module("ab_parent.filters.biquad")
+    trees_design = importlib.import_module("ab_parent.design")
 
     def i32(shape, lo=-(2**31), hi=2**31):
         return torch.from_numpy(rng.integers(lo, hi, size=shape, dtype=np.int64)
@@ -273,6 +306,13 @@ def main() -> None:
     for n in N_CH:
         inputs[f"ch{n}"] = tuple(torch.from_numpy(rng.normal(
             size=(n, M_CH)).astype(np.float32)).to(dev) for _ in range(2))
+    inputs["x29"] = i32((T, C_SERIAL), -(2**24), 2**24)
+    inputs["xf"] = torch.from_numpy(
+        rng.normal(size=(T, C_SERIAL)).astype(np.float32)).to(dev)
+    inputs["planes29"] = torch.from_numpy(np.stack([
+        trees_biquad.quantize_ba(trees_biquad.from_cookbook(
+            trees_design.Filter().critical_frequency(fc).lowpass()), 29)
+        for fc in rng.uniform(0.01, 0.2, C_SERIAL)], axis=1)).to(dev)
     fns = {k: cases(f"ab_{k}", dev, inputs) for k in trees}
     only = [o for o in args.only.split(",") if o]
     names = [n for n in fns["parent"] if not only or any(o in n for o in only)]

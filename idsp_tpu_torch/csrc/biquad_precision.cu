@@ -2,8 +2,8 @@
 // a bank of lanes.  K28 runs Q16 (int16 storage, 32-bit sums), K29 Q64
 // (int64 storage, 128-bit sums), K30 the f32 DF1, K31 the error-feedback
 // (dither) DF1, optionally clamped, and K33 is K31 with runtime
-// coefficients (shared (5,) or per-lane (5, c) planes, `df1.cuh`
-// `load_coefs`, as K26/K27).  K32, K25 with runtime coefficients, is in
+// coefficients ((5, c) planes: a shared (5,) set broadcast, or one set a
+// lane, as K26/K27).  K32, K25 with runtime coefficients, is in
 // biquad_bank.cu beside K25.
 //
 // Replaces the Pallas kernels of idsp_tpu/filters/biquad_pallas.py
@@ -27,22 +27,28 @@
 // order), so nvcc cannot contract them into FMAs: bit-identical to the
 // plain `df1_process`.
 //
-// What the design does: K28, K30, K31 and K33 run one thread per lane
-// with the state in registers, on the sequential-bank template of
-// seq_bank.cuh over the row type of each rung (int16, float or int32
-// rows, coalesced along lanes, the next 16 rows prefetched).  K29 runs on
-// df1_ring.cuh's depth-0 pipeline, a block a 32-lane tile: producer warps,
-// each a span of every chunk, form the feed-forward sum b0 x0 + b1 x1 +
-// b2 x2 mod 2^128 of each row (rows 0 and 1 of a block take x1, x2 from
-// the state, every other row its predecessors from xs, so spans are
-// independent) into the input ring, four 32-bit limbs a row and lane; the
-// serial warp, alone on its scheduler, holds y1 and y2, adds a2 y2 (off
-// the chain) and a1 y1 and shifts, into the output ring; the store warp
-// writes the int64 rows, 16 bytes a thread where c is even.  The sums wrap
-// mod 2^128, so the split is bit-identical to the plain `df1_process_q64`.
-// The plan (warps, producers, chunk, ring depth, shared memory) is the
-// host's (filters/biquad_cuda.py `q64_plan`), which the entry point
-// checks.
+// What the design does: K28 and K30 run one thread per lane with the
+// state in registers, on the sequential-bank template of seq_bank.cuh over
+// the row type of each rung (int16 or float rows, coalesced along lanes,
+// the next 16 rows prefetched).  K29, K31 and K33 run on df1_ring.cuh's
+// depth-0 pipeline, a block a 32-lane tile: producer warps, each a span of
+// every chunk, form each row's feed-forward sum W = b0 x0 + b1 x1 + b2 x2
+// (rows 0 and 1 of a block take x1, x2 from the state, every other row its
+// predecessors from xs, so spans are independent) into the input ring; the
+// serial warp, alone on its scheduler, holds the feedback state, adds a2
+// y2 a row ahead (off the chain) and runs the chain from shared memory
+// into the output ring; the store warp writes the rows.  K29: W mod 2^128
+// as four 32-bit limbs (`df1.cuh` `mac_q64`), the chain a1 y1 and two
+// funnel shifts, int64 rows, 16 bytes a thread where c is even.  K31/K33:
+// W mod 2^64 as two words (K33's producers read the lane's b0-b2 planes
+// once, its serial warp a1 and a2); on the chain V + e, the multiply-add
+// of a1 y1 onto it, one funnel shift (y, bits [f, f + 32) of the sum) and
+// the clamp if any, e the sum's low f bits beside it; int32 rows, 16 bytes a
+// thread where c % 4 == 0.  The sums wrap (mod 2^128, mod 2^64), so the
+// splits are bit-identical to the plain `df1_process_q64` and
+// `df1_dither_process`.  The plans (warps, producers, chunk, ring depth,
+// shared memory) are the host's (filters/biquad_cuda.py `q64_plan`,
+// `dither_plan`), which the entry points check.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -79,37 +85,6 @@ __global__ void __launch_bounds__(kBankLanes)
   s.store(sx_out, sy_out, lane);
 }
 
-// K31 (Planes false) and K33: the dither DF1, clamped or not.
-template <bool Clamp, bool Planes>
-__global__ void __launch_bounds__(kBankLanes)
-    df1_dither_kernel(const int32_t* __restrict__ xs,
-                      int32_t* __restrict__ ys,
-                      const int32_t* __restrict__ sx,
-                      const int32_t* __restrict__ sy,
-                      const int64_t* __restrict__ se,
-                      int32_t* __restrict__ sx_out,
-                      int32_t* __restrict__ sy_out,
-                      int64_t* __restrict__ se_out, int t, int c,
-                      idsp::Df1Coefs k, idsp::Df1Clamp cl,
-                      const int32_t* __restrict__ planes) {
-  const int lane = blockIdx.x * kBankLanes + threadIdx.x;
-  if (lane >= c) return;
-  if constexpr (Planes) k = idsp::load_coefs(planes, c, lane, k.f);
-  idsp::Df1DitherLane s;
-  s.load(sx, sy, se, lane);
-  idsp::seq_bank<false>(
-      xs, t, c, lane, 1,
-      [&](int32_t x) {
-        if constexpr (Clamp) {
-          return s.step_clamp(k, cl, x);
-        } else {
-          return s.step(k, x);
-        }
-      },
-      [&](size_t i, int32_t y) { ys[i] = y; });
-  s.store(sx_out, sy_out, se_out, lane);
-}
-
 template <class Lane, class T, class Coefs>
 int launch_typed(const void* xs, void* ys, const void* sx, const void* sy,
                  void* sx_out, void* sy_out, int t, int c, const Coefs& k,
@@ -134,42 +109,63 @@ struct Q64Args {
   int f;
 };
 
-// Producer pw of P: its span of each chunk (df1_ring.cuh `span_batches`),
-// in batches of kQ64 rows, each row's feed-forward sum b0 x0 + b1 x1 + b2
-// x2 mod 2^128 into the input ring as four 32-bit limbs.  A batch takes
-// its two rows before from the batch before where that was of the same
-// span, else loads them, rows -1 and -2 of the block from the state.
-// Producer 0 also writes the last two rows out as the state's x.
-constexpr int kQ64 = 8;
-struct Q64Rows {  // x[0], x[1] the two rows before a batch, x[v + 2] row v
-  int64_t x[kQ64 + 2];
+// A DF1 producer's rows (K29, K31/K33): x[0], x[1] the two rows before a
+// batch of B rows, x[v + 2] row v.
+template <class T, int B>
+struct TapRows {
+  T x[B + 2];
 };
 
-__device__ __forceinline__ void q64_feed(const Q64Args& a, const Rings& R,
-                                         int pw, int lid, int lane,
-                                         bool live) {
-  const Pipe& p = a.p;
+// Producer pw of P's walk for a DF1's feed-forward sum (K29, K31/K33): its
+// span of each chunk (df1_ring.cuh `span_batches`) in batches of B rows of
+// xs (t, c), form(batch, rows, slot) writing each row's sum into the input
+// ring.  A batch takes its two rows before from the batch before where
+// that was of the same span, else loads them, rows -1 and -2 of the block
+// from the state sx ((c, 2): x1, x2), so spans are independent.  Producer
+// 0 also writes the last two rows out as the state's x.
+template <int B, class T, class Form>
+__device__ __forceinline__ void tap_feed(const Pipe& p, const Rings& R,
+                                         int pw, int lane, bool live,
+                                         const T* xs, const T* sx,
+                                         T* sx_out, Form form) {
   const int t = p.d.t;
   const size_t c = static_cast<size_t>(p.c2);
   const int ch = live ? lane : 0;  // dead lanes read lane 0's words
-  const int64_t* xp = a.xs + ch;
-  const int64_t x1 = a.sx[2 * ch], x2 = a.sx[2 * ch + 1];
+  const T* xp = xs + ch;
+  const T x1 = sx[2 * ch], x2 = sx[2 * ch + 1];
   auto row = [&](int g) {  // x of block row g >= -2
     return g >= 0 ? idsp::ldg(xp + static_cast<size_t>(g) * c)
                   : g == -1 ? x1 : x2;
   };
-  idsp::ring::span_batches<kQ64, Q64Rows>(
+  idsp::ring::span_batches<B, TapRows<T, B>>(
       t, p.d.chunk, p.d.depth, p.producers, pw, R,
-      [&](const Batch& b, Q64Rows& n, const Q64Rows& cur, bool same) {
+      [&](const Batch& b, TapRows<T, B>& n, const TapRows<T, B>& cur,
+          bool same) {
         if (b.r0 >= t) return;
         const int g = b.r0 + b.r;
-        n.x[0] = same ? cur.x[kQ64] : row(g - 2);
-        n.x[1] = same ? cur.x[kQ64 + 1] : row(g - 1);
+        n.x[0] = same ? cur.x[B] : row(g - 2);
+        n.x[1] = same ? cur.x[B + 1] : row(g - 1);
 #pragma unroll
-        for (int v = 0; v < kQ64; ++v)
+        for (int v = 0; v < B; ++v)
           n.x[v + 2] = row(b.r0 + min(b.r + v, b.hi - 1));
       },
-      [&](const Batch& b, const Q64Rows& xv, int slot) {
+      form);
+  if (pw == 0 && live) {
+    sx_out[2 * lane] = row(t - 1);
+    sx_out[2 * lane + 1] = row(t - 2);
+  }
+}
+
+// K29's producers: `tap_feed` in batches of kQ64 rows, each row's sum b0
+// x0 + b1 x1 + b2 x2 mod 2^128 into the input ring as four 32-bit limbs.
+constexpr int kQ64 = 8;
+
+__device__ __forceinline__ void q64_feed(const Q64Args& a, const Rings& R,
+                                         int pw, int lid, int lane,
+                                         bool live) {
+  tap_feed<kQ64>(
+      a.p, R, pw, lane, live, a.xs, a.sx, a.sx_out,
+      [&](const Batch& b, const TapRows<int64_t, kQ64>& xv, int slot) {
         uint4* s = reinterpret_cast<uint4*>(R.in_slot<4>(slot)) + lid;
         uint4 w[kQ64];
 #pragma unroll
@@ -187,10 +183,6 @@ __device__ __forceinline__ void q64_feed(const Q64Args& a, const Rings& R,
         for (int v = 0; v < kQ64; ++v)
           if (b.r + v < b.hi) s[(b.r + v) * kLanes] = w[v];
       });
-  if (pw == 0 && live) {
-    a.sx_out[2 * lane] = row(t - 1);
-    a.sx_out[2 * lane + 1] = row(t - 2);
-  }
 }
 
 // The chain's step: the low 64 bits of ((hi:lo) + c y) >> (32 + sh), 0 <
@@ -277,32 +269,182 @@ __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
       });
 }
 
+// K31 and K33: a launch; p.d holds the rows, chunk and ring depth (no
+// DF1), p.y the (t, c) int32 output.  K33 (Planes) takes each lane's
+// coefficients from (5, c) planes, K31 k's; f and the clamp are k's and
+// cl's either way.
+struct DitherArgs {
+  Pipe p;
+  const int32_t* xs;
+  const int32_t *sx, *sy;
+  const int64_t* se;
+  int32_t *sx_out, *sy_out;
+  int64_t* se_out;
+  const int32_t* planes;
+  idsp::Df1Coefs k;
+  idsp::Df1Clamp cl;
+  uint32_t emask;  // the sum's low f bits: the next e
+};
+
+// K31's and K33's producers: `tap_feed` in batches of kDither rows, each
+// row's sum W = b0 x0 + b1 x1 + b2 x2 mod 2^64 into the input ring as two
+// 32-bit words; K33's take the lane's b0-b2 from the planes once.
+constexpr int kDither = 16;
+
 template <bool Planes>
+__device__ __forceinline__ void dither_feed(const DitherArgs& a,
+                                            const Rings& R, int pw, int lid,
+                                            int lane, bool live) {
+  int32_t b0 = a.k.b0, b1 = a.k.b1, b2 = a.k.b2;
+  if constexpr (Planes) {
+    const size_t c = static_cast<size_t>(a.p.c2);
+    const int ch = live ? lane : 0;
+    b0 = __ldg(a.planes + ch);
+    b1 = __ldg(a.planes + c + ch);
+    b2 = __ldg(a.planes + 2 * c + ch);
+  }
+  tap_feed<kDither>(
+      a.p, R, pw, lane, live, a.xs, a.sx, a.sx_out,
+      [&](const Batch& b, const TapRows<int32_t, kDither>& xv, int slot) {
+        uint2* s = reinterpret_cast<uint2*>(R.in_slot<2>(slot)) + lid;
+#pragma unroll
+        for (int v = 0; v < kDither; ++v) {
+          const uint64_t w = static_cast<uint64_t>(idsp::mad_wide(
+              b0, xv.x[v + 2],
+              idsp::mad_wide(b1, xv.x[v + 1], idsp::mul_wide(b2, xv.x[v]))));
+          if (b.r + v < b.hi)
+            s[(b.r + v) * kLanes] = make_uint2(static_cast<uint32_t>(w),
+                                               static_cast<uint32_t>(w >> 32));
+        }
+      });
+}
+
+// The serial warp: y1, y2 and e of its lane in registers; each row's W
+// from the input ring, y0 into the output ring.  V = W + a2 y2 waits on
+// no step of the row before (y2 is the row before's y1), so it is formed
+// a row ahead, off the chain; on the chain are V + e (e is ready beside
+// y1: one mask of the sum's low word), a1 y1's multiply-add onto it, one
+// funnel shift and the clamp if any (a1 y1 + (V + e): 2.6 % faster than
+// (a1 y1 + V) + e unclamped, 3.9 % clamped, on the H100, PERF.md §6).  y0
+// is bits [f, f + 32) of the sum acc (the high word of acc << (32 - f), as
+// the plain step forms it: `__funnelshift_rc` takes the high word at f =
+// 32), the next e its low f bits ((u32)(acc << (32 - f)) >> (32 - f), the
+// whole low word at f = 32).  The clamped form feeds the clamped y0 back;
+// e keeps the unclamped fraction.  acc wraps mod 2^64, so any order of its
+// terms gives the plain version's bits.
+template <bool Clamp, bool Planes>
+struct DitherSerial {
+  const DitherArgs* a;
+
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int lane, bool live,
+                                             uint32_t) const {
+    const Pipe& p = a->p;
+    const size_t c = static_cast<size_t>(p.c2);
+    const int ch = live ? lane : 0;
+    int32_t a1 = a->k.a1, a2 = a->k.a2;
+    if constexpr (Planes) {
+      a1 = __ldg(a->planes + 3 * c + ch);
+      a2 = __ldg(a->planes + 4 * c + ch);
+    }
+    const idsp::Df1Clamp cl = a->cl;
+    const int f = a->k.f;
+    const uint32_t emask = a->emask;
+    int32_t y1 = 0, y2 = 0;
+    uint32_t e = 0;
+    if (live) {
+      y1 = a->sy[2 * lane];
+      y2 = a->sy[2 * lane + 1];
+      e = static_cast<uint32_t>(a->se[lane]);
+    }
+    idsp::ring::serial_chunks(
+        p.d.t, p.d.chunk, p.d.depth, R, [&](int slot, int rows) {
+          const uint2* in =
+              reinterpret_cast<const uint2*>(R.in_slot<2>(slot)) + lid;
+          int32_t* o = reinterpret_cast<int32_t*>(out) +
+                       static_cast<size_t>(slot) * p.d.chunk * kLanes + lid;
+          idsp::ring::group_rows(
+              rows, [&](int r) { return in[r * kLanes]; },
+              [&](int r, uint2 w) {
+                const int64_t v = idsp::mad_wide(  // off the chain
+                    a2, y2, static_cast<int64_t>(uint64_t{w.y} << 32 | w.x));
+                const uint64_t acc = static_cast<uint64_t>(idsp::mad_wide(
+                    a1, y1, static_cast<int64_t>(static_cast<uint64_t>(v) + e)));
+                const uint32_t lo = static_cast<uint32_t>(acc);
+                int32_t y0 = static_cast<int32_t>(
+                    __funnelshift_rc(lo, static_cast<uint32_t>(acc >> 32), f));
+                e = lo & emask;
+                if constexpr (Clamp) y0 = cl(y0);
+                y2 = y1;
+                y1 = y0;
+                o[r * kLanes] = y0;
+              });
+        });
+    if (live) {
+      a->sy_out[2 * lane] = y1;
+      a->sy_out[2 * lane + 1] = y2;
+      a->se_out[lane] = static_cast<int64_t>(e);
+    }
+  }
+};
+
+template <bool Clamp, bool Planes>
+__global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
+    df1_dither_kernel(const __grid_constant__ DitherArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  idsp::ring::run_pipe<2, 1, idsp::ring::Layout::kWide>(
+      a.p, smem, DitherSerial<Clamp, Planes>{&a},
+      [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
+        dither_feed<Planes>(a, R, pw, lid, lane, live);  // one CTA a tile
+      });
+}
+
+// K31 (planes null) or K33: checks the plan, then launches the instance
+// of the clamp and the coefficients' source.
 int launch_dither(const void* xs, void* ys, const void* sx, const void* sy,
                   const void* se, void* sx_out, void* sy_out, void* se_out,
                   const void* planes, int t, int c, const idsp::Df1Coefs& k,
-                  int clamp, const idsp::Df1Clamp& cl, void* stream) {
-  if (k.f <= 0 || k.f > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((c + kBankLanes - 1) / kBankLanes);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto x = static_cast<const int32_t*>(xs);
-  auto y = static_cast<int32_t*>(ys);
-  auto ix = static_cast<const int32_t*>(sx);
-  auto iy = static_cast<const int32_t*>(sy);
-  auto ie = static_cast<const int64_t*>(se);
-  auto ox = static_cast<int32_t*>(sx_out);
-  auto oy = static_cast<int32_t*>(sy_out);
-  auto oe = static_cast<int64_t*>(se_out);
-  auto p = static_cast<const int32_t*>(planes);
-  if (clamp) {
-    df1_dither_kernel<true, Planes><<<grid, kBankLanes, 0, st>>>(
-        x, y, ix, iy, ie, ox, oy, oe, t, c, k, cl, p);
-  } else {
-    df1_dither_kernel<false, Planes><<<grid, kBankLanes, 0, st>>>(
-        x, y, ix, iy, ie, ox, oy, oe, t, c, k, cl, p);
+                  int clamp, const idsp::Df1Clamp& cl, int warps,
+                  int producers, int chunk, int ring, int smem,
+                  void* stream) {
+  if (k.f <= 0 || k.f > 32 ||
+      !idsp::ring::pipe_plan_ok(t, c, warps, producers, chunk, ring, smem, 1,
+                                2, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DitherArgs a{};
+  a.p.d.t = t;
+  a.p.d.chunk = chunk;
+  a.p.d.depth = ring;
+  a.p.y[0] = ys;
+  a.p.c2 = c;
+  a.p.warps = warps;
+  a.p.producers = producers;
+  a.p.cluster = 1;
+  a.p.vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(ys) % 16 == 0;
+  a.xs = static_cast<const int32_t*>(xs);
+  a.sx = static_cast<const int32_t*>(sx);
+  a.sy = static_cast<const int32_t*>(sy);
+  a.se = static_cast<const int64_t*>(se);
+  a.sx_out = static_cast<int32_t*>(sx_out);
+  a.sy_out = static_cast<int32_t*>(sy_out);
+  a.se_out = static_cast<int64_t*>(se_out);
+  a.planes = static_cast<const int32_t*>(planes);
+  a.k = k;
+  a.cl = cl;
+  a.emask = k.f == 32 ? 0xFFFFFFFFu : (1u << k.f) - 1;
+  using idsp::ring::launch_pipe;
+  if (planes) {
+    return clamp ? launch_pipe(df1_dither_kernel<true, true>, a, a.p, smem,
+                               stream)
+                 : launch_pipe(df1_dither_kernel<false, true>, a, a.p, smem,
+                               stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return clamp ? launch_pipe(df1_dither_kernel<true, false>, a, a.p, smem,
+                             stream)
+               : launch_pipe(df1_dither_kernel<false, false>, a, a.p, smem,
+                             stream);
 }
+
 
 }  // namespace
 
@@ -370,28 +512,34 @@ extern "C" int idsp_df1_bank_f32(const void* xs, void* ys, const void* sx,
 
 // K31: xs (t, c) i32 -> ys (t, c) i32; state xy (c, 2) i32 x2 and e (c,)
 // i64 in [0, 2^32), in and out; 0 < f <= 32; clamp != 0 runs the clamped
-// step (u, lo, hi).
+// step (u, lo, hi).  warps, producers, chunk, ring (slots a ring) and smem
+// are the host plan's (filters/biquad_cuda.py `dither_plan`); a plan the
+// kernel cannot run is refused.  A refused call launches nothing and
+// leaves no CUDA error pending.
 extern "C" int idsp_df1_dither_bank(const void* xs, void* ys, const void* sx,
                                     const void* sy, const void* se,
                                     void* sx_out, void* sy_out, void* se_out,
                                     int t, int c, int f, int b0, int b1,
                                     int b2, int a1, int a2, int clamp, int u,
-                                    int lo, int hi, void* stream) {
-  return launch_dither<false>(xs, ys, sx, sy, se, sx_out, sy_out, se_out,
-                              nullptr, t, c,
-                              idsp::Df1Coefs{b0, b1, b2, a1, a2, f}, clamp,
-                              idsp::Df1Clamp{u, lo, hi}, stream);
+                                    int lo, int hi, int warps, int producers,
+                                    int chunk, int ring, int smem,
+                                    void* stream) {
+  return launch_dither(xs, ys, sx, sy, se, sx_out, sy_out, se_out, nullptr,
+                       t, c, idsp::Df1Coefs{b0, b1, b2, a1, a2, f}, clamp,
+                       idsp::Df1Clamp{u, lo, hi}, warps, producers, chunk,
+                       ring, smem, stream);
 }
 
-// K33: K31 with each lane's coefficients from (5, c) i32 planes.
-extern "C" int idsp_df1_dither_bank_coef(const void* xs, void* ys,
-                                         const void* sx, const void* sy,
-                                         const void* se, void* sx_out,
-                                         void* sy_out, void* se_out,
-                                         const void* planes, int t, int c,
-                                         int f, int clamp, int u, int lo,
-                                         int hi, void* stream) {
-  return launch_dither<true>(xs, ys, sx, sy, se, sx_out, sy_out, se_out,
-                             planes, t, c, idsp::Df1Coefs{0, 0, 0, 0, 0, f},
-                             clamp, idsp::Df1Clamp{u, lo, hi}, stream);
+// K33: K31 with each lane's coefficients from (5, c) i32 planes (not
+// null).
+extern "C" int idsp_df1_dither_bank_coef(
+    const void* xs, void* ys, const void* sx, const void* sy, const void* se,
+    void* sx_out, void* sy_out, void* se_out, const void* planes, int t,
+    int c, int f, int clamp, int u, int lo, int hi, int warps, int producers,
+    int chunk, int ring, int smem, void* stream) {
+  if (!planes) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dither(xs, ys, sx, sy, se, sx_out, sy_out, se_out, planes, t,
+                       c, idsp::Df1Coefs{0, 0, 0, 0, 0, f}, clamp,
+                       idsp::Df1Clamp{u, lo, hi}, warps, producers, chunk,
+                       ring, smem, stream);
 }

@@ -16,11 +16,11 @@
 // split-word a*y, the sum shifted left by 32 - f, the output its high
 // word; bit-identical to `df1_wide_process`.
 //
-// The other rungs of the reference's precision ladder: Q16 (`Df1LaneQ16`,
-// int16 storage, 32-bit sums), Q64 (`mac_q64`, int64 storage, 128-bit
-// sums) and the error-feedback DF1 (`Df1DitherLane`), each bit-identical
-// to its plain scan (`df1_process_q` at int16, `df1_process_q64`,
-// `df1_dither_process`).
+// Two other rungs of the reference's precision ladder: Q16
+// (`Df1LaneQ16`, int16 storage, 32-bit sums) and Q64 (`mac_q64`, int64
+// storage, 128-bit sums), each bit-identical to its plain scan
+// (`df1_process_q` at int16, `df1_process_q64`).  The error-feedback DF1
+// is K31/K33's serial warp (biquad_precision.cu `DitherSerial`).
 //
 // The f32 step (`Df1LaneF32`) has no shift; each product and each sum is
 // a single-rounding intrinsic, left to right, so nvcc cannot contract
@@ -336,67 +336,6 @@ __device__ __forceinline__ void mac_q64(uint64_t& lo, uint64_t& hi,
   hi = p11 + (p01 >> 32) + (p10 >> 32) + (m >> 32);
   lo = (m << 32) | static_cast<uint32_t>(p00);
 }
-
-// The error-feedback DF1 (biquad.rs:511-538): e, the truncated fraction
-// of the previous step, joins the int64 sum; the sum is shifted left by
-// 32 - f (wrapping, formed in uint64), the output is its high word and
-// the next e its low word >> (32 - f).  The clamped step clamps the
-// output, which is fed back; e keeps the unclamped fraction.
-struct Df1DitherLane {
-  int32_t x1, x2, y1, y2;
-  uint32_t e;
-
-  // state rows as in Df1DitherState: xy.x, xy.y (lanes, 2) i32; e (lanes,)
-  // the u32 error word held in int64
-  __device__ __forceinline__ void load(const int32_t* sx, const int32_t* sy,
-                                       const int64_t* se, int lane) {
-    x1 = sx[2 * lane];
-    x2 = sx[2 * lane + 1];
-    y1 = sy[2 * lane];
-    y2 = sy[2 * lane + 1];
-    e = static_cast<uint32_t>(se[lane]);
-  }
-
-  __device__ __forceinline__ void store(int32_t* sx, int32_t* sy,
-                                        int64_t* se, int lane) const {
-    sx[2 * lane] = x1;
-    sx[2 * lane + 1] = x2;
-    sy[2 * lane] = y1;
-    sy[2 * lane + 1] = y2;
-    se[lane] = static_cast<int64_t>(e);
-  }
-
-  // the high word of the shifted sum; e moves to the new fraction
-  __device__ __forceinline__ int32_t output(const Df1Coefs& k, int32_t x0) {
-    uint64_t acc = static_cast<uint64_t>(e) +
-                   static_cast<uint64_t>(int64_t{k.b0} * x0) +
-                   static_cast<uint64_t>(int64_t{k.b1} * x1) +
-                   static_cast<uint64_t>(int64_t{k.b2} * x2) +
-                   static_cast<uint64_t>(int64_t{k.a1} * y1) +
-                   static_cast<uint64_t>(int64_t{k.a2} * y2);
-    acc <<= 32 - k.f;
-    e = static_cast<uint32_t>(acc) >> (32 - k.f);
-    return static_cast<int32_t>(static_cast<uint32_t>(acc >> 32));
-  }
-
-  __device__ __forceinline__ int32_t push(int32_t x0, int32_t y0) {
-    x2 = x1;
-    x1 = x0;
-    y2 = y1;
-    y1 = y0;
-    return y0;
-  }
-
-  __device__ __forceinline__ int32_t step(const Df1Coefs& k, int32_t x0) {
-    return push(x0, output(k, x0));
-  }
-
-  __device__ __forceinline__ int32_t step_clamp(const Df1Coefs& k,
-                                                const Df1Clamp& cl,
-                                                int32_t x0) {
-    return push(x0, cl(output(k, x0)));
-  }
-};
 
 struct Df1CoefsF32 {
   float b0, b1, b2, a1, a2;

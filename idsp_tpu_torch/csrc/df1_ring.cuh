@@ -2,11 +2,12 @@
 // DF1 warp that runs in it.  A serial warp alone on its scheduler turns
 // each slot of an input ring into a slot of an output ring (`serial_chunks`);
 // producer warps fill the input ring, a store warp writes the output ring
-// to device memory (`run_pipe`).  Four kernels run it: K14 (ddc_mix_df1.cu)
-// and K15 (fm_disc.cu) with the DF1 warp as the serial warp (`Df1Serial`),
-// K37 (structures_bank.cu, the RPLL) and K29 (biquad_precision.cu, the Q64
-// DF1) with their own.  The DF1 warp also serves K2, K3 and K19-K21
-// (ddc_cascade.cu: its output ring is stage 0's FIR buffer).
+// to device memory (`run_pipe`).  Seven kernels run it: K14
+// (ddc_mix_df1.cu) and K15 (fm_disc.cu) with the DF1 warp as the serial
+// warp (`Df1Serial`), K37 and K34 (structures_bank.cu, the RPLL and the
+// SVF), K29 and K31/K33 (biquad_precision.cu, the Q64 and the
+// error-feedback DF1) with their own.  The DF1 warp also serves K2, K3 and
+// K19-K21 (ddc_cascade.cu: its output ring is stage 0's FIR buffer).
 // Where the producers' work is more than one SM's other three schedulers
 // issue in the serial warp's time (K15's exact angle), a tile is a cluster
 // of 2 CTAs: every warp of the partner CTA is a producer too, storing its
@@ -29,9 +30,9 @@
 // mbarriers, the input ring's full and empty and the output ring's full
 // and empty.  An input slot holds `chunk` rows of kLanes x `Win` 32-bit
 // words, word w of row r and lane l at (r * kLanes + l) * Win + w, an
-// output slot the same with `Wout` words (K14, K15: 1 and 1; K37: 2 and 2;
-// K29: 4 and 2), so a warp reads or writes a row as one 4-, 8- or 16-byte
-// word a lane, contiguous across the lanes.
+// output slot the same with `Wout` words (K14, K15, K34: 1 and 1; K31/K33:
+// 2 and 1; K37: 2 and 2; K29: 4 and 2), so a warp reads or writes a row as
+// one 4-, 8- or 16-byte word a lane, contiguous across the lanes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -96,8 +97,8 @@ struct Df1Ring {
 
 // step(r, load(r)) for the rows r = 0 .. rows-1 of a slot in order, in
 // groups of kGroup rows, each group's inputs read before the group before
-// computes, so the loads stay off the chain (K29, K37; a read past the
-// slot's rows takes its last row, unused).
+// computes, so the loads stay off the chain (K29, K31/K33, K34, K37; a
+// read past the slot's rows takes its last row, unused).
 template <class Load, class Step>
 __device__ __forceinline__ void group_rows(int rows, Load load, Step step) {
   using In = decltype(load(0));
@@ -121,9 +122,9 @@ __device__ __forceinline__ void group_rows(int rows, Load load, Step step) {
   for (; r < rows; ++r) step(r, load(r));
 }
 
-// The serial warp's walk over the chunks (K29, K37; one CTA a tile): chunk
-// q's input slot full and its output slot empty, rows(k, n) on slot k's n
-// rows, then both released.
+// The serial warp's walk over the chunks (K29, K31/K33, K34, K37; one CTA
+// a tile): chunk q's input slot full and its output slot empty, rows(k, n)
+// on slot k's n rows, then both released.
 template <class Rows>
 __device__ __forceinline__ void serial_chunks(int t, int chunk, int depth,
                                               const Rings& R, Rows rows) {
@@ -215,8 +216,8 @@ __device__ __forceinline__ void df1_warp(const Df1Ring& a, const Rings& R,
 
 // How the store warp lays a row's wout words a lane out in device memory:
 // kWide, one (t, c2) plane of wout-word elements (K14, K15: int32 or f32;
-// K29: int64); kPlanes, wout (t, c2) planes of 32-bit words, word w to
-// plane w (K37: phase and frequency).
+// K31/K33: int32; K34: f32; K29: int64); kPlanes, wout (t, c2) planes of
+// 32-bit words, word w to plane w (K37: phase and frequency).
 enum class Layout { kWide, kPlanes };
 
 // A depth-0 launch: d, the serial warp's rows (t), chunk and ring depth
@@ -322,7 +323,7 @@ struct Batch {
 
 // Producer pw of P's walk over its span of every chunk, rows [pw * span,
 // (pw + 1) * span) (span = ceil(chunk / P)), in batches of B rows (K29,
-// K37): for each chunk its input slot empty, then for each of its batches
+// K31/K33, K34, K37): for each chunk its input slot empty, then for each of its batches
 // load(next, rows, cur_rows, same) -- the next batch, the next chunk's
 // first too, loaded while this one is formed -- and form(batch, rows,
 // slot k), then one arrival on the slot's full barrier.  same: the next

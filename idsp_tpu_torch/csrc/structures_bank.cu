@@ -21,20 +21,26 @@
 // in the plain version's order, so nvcc cannot contract them into FMAs:
 // bit-identical to the plain scans.
 //
-// What the design does: K34-K36 run one thread per lane with the state in
-// registers, on the sequential-bank template of seq_bank.cuh (the next 16
-// rows prefetched, rows coalesced along lanes).  K37 runs on df1_ring.cuh's
-// depth-0 pipeline, a block a 32-lane tile: producer warps, each a span of
-// every chunk, load the timestamps and masks a batch ahead and form each
-// row's words -- x, and dt = -x mod 2^dt2 with the mask in bit 31 -- into
-// the input ring; the serial warp, alone on its scheduler, carries the
-// last valid timestamp (dx and one select a row, off the chain) and runs
-// the ff / f / y chain (rpll.rs:47-77) from shared memory into the output
-// ring, its `>> sf` one template instance a regime (the host picks it);
-// the store warp writes the phase and frequency planes, 16 bytes a
-// thread where c % 4 == 0.  The plan (warps, chunk, ring depth, shared
-// memory) is the host's (filters/rpll_cuda.py `rpll_plan`), which the
-// entry point checks.
+// What the design does: K35 and K36 run one thread per lane with the
+// state in registers, on the sequential-bank template of seq_bank.cuh (the
+// next 16 rows prefetched, rows coalesced along lanes).  K34 and K37 run
+// on df1_ring.cuh's depth-0 pipeline, a block a 32-lane tile: producer
+// warps, each a span of every chunk, load their rows a batch ahead into
+// the input ring; the serial warp, alone on its scheduler, runs the
+// recurrence from shared memory into the output ring; the store warp
+// writes the rows, 16 bytes a thread where c % 4 == 0.  K34: the
+// producers copy x; the serial warp holds lp, hp and bp, forms bp qi
+// beside bp f (off the chain) and bp f, + lp, x - lp, - bp qi, hp f, + bp
+// on it, each rounded on its own, br's hp + lp off it; one template
+// instance an output.  K37: the producers form each row's
+// words -- x, and dt = -x mod 2^dt2 with the mask in bit 31; the serial
+// warp carries the last valid timestamp (dx and one select a row, off the
+// chain) and runs the ff / f / y chain (rpll.rs:47-77), its `>> sf` one
+// template instance a regime (the host picks it); the store warp writes
+// the phase and frequency planes.  The plans (warps, producers, chunk,
+// ring depth, shared memory) are the host's (filters/svf_cuda.py
+// `svf_plan`, filters/rpll_cuda.py `rpll_plan`), which the entry points
+// check.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -51,38 +57,107 @@ using idsp::ring::kLanes;
 using idsp::ring::Pipe;
 using idsp::ring::Rings;
 
-// K34: svf.rs:47-60.  Out selects lp (0), hp (1), bp (2) or br = hp + lp.
-struct SvfLane {
-  float lp, hp, bp;
+// K34 (svf.rs:47-60): a launch; p.d holds the rows, chunk and ring depth
+// (no DF1), p.y the (t, c) f32 output; state lp, hp, bp (c,) each.
+struct SvfArgs {
+  Pipe p;
+  const float* xs;
+  const float *lp, *hp, *bp;
+  float *lp_out, *hp_out, *bp_out;
+  float f, qi;
+};
 
-  template <int Out>
-  __device__ __forceinline__ float step(float f, float qi, float x) {
-    lp = __fadd_rn(__fmul_rn(bp, f), lp);
-    hp = __fsub_rn(__fsub_rn(x, lp), __fmul_rn(bp, qi));
-    bp = __fadd_rn(__fmul_rn(hp, f), bp);
-    if constexpr (Out == 0) return lp;
-    if constexpr (Out == 1) return hp;
-    if constexpr (Out == 2) return bp;
-    return __fadd_rn(hp, lp);
+// Producer pw of P: its span of each chunk (df1_ring.cuh `span_batches`),
+// in batches of kSvf rows loaded a batch ahead, each row's x into the
+// input ring.
+constexpr int kSvf = 16;
+struct SvfRows {
+  float x[kSvf];
+};
+
+__device__ __forceinline__ void svf_feed(const SvfArgs& a, const Rings& R,
+                                         int pw, int lid, int lane,
+                                         bool live) {
+  const Pipe& p = a.p;
+  const size_t c = static_cast<size_t>(p.c2);
+  const float* xp = a.xs + (live ? lane : 0);  // dead lanes read lane 0's
+  idsp::ring::span_batches<kSvf, SvfRows>(
+      p.d.t, p.d.chunk, p.d.depth, p.producers, pw, R,
+      [&](const Batch& b, SvfRows& n, const SvfRows&, bool) {
+        if (b.r0 >= p.d.t) return;
+#pragma unroll
+        for (int u = 0; u < kSvf; ++u)
+          n.x[u] = __ldg(xp + static_cast<size_t>(
+                                  b.r0 + min(b.r + u, b.hi - 1)) * c);
+      },
+      [&](const Batch& b, const SvfRows& in, int slot) {
+        float* s = reinterpret_cast<float*>(R.in_slot<1>(slot)) + lid;
+#pragma unroll
+        for (int u = 0; u < kSvf; ++u)
+          if (b.r + u < b.hi) s[(b.r + u) * kLanes] = in.x[u];
+      });
+}
+
+// The serial warp: lp, hp and bp of its lane in registers, each row's x
+// from the input ring to the output Out -- lp (0), hp (1), bp (2) or br =
+// hp + lp (3) -- in the output ring.  Each product and sum is rounded on
+// its own in the plain version's order (`__f*_rn`: no contraction); bp qi
+// is formed beside bp f, so the chain is bp f, + lp, x - lp, - bp qi, hp
+// f, + bp: six rounded ops a row.
+template <int Out>
+struct SvfSerial {
+  const SvfArgs* a;
+
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int lane, bool live,
+                                             uint32_t) const {
+    const Pipe& p = a->p;
+    const float f = a->f, qi = a->qi;
+    float lp = 0.f, hp = 0.f, bp = 0.f;
+    if (live) {
+      lp = a->lp[lane];
+      hp = a->hp[lane];
+      bp = a->bp[lane];
+    }
+    idsp::ring::serial_chunks(
+        p.d.t, p.d.chunk, p.d.depth, R, [&](int slot, int rows) {
+          const float* in =
+              reinterpret_cast<const float*>(R.in_slot<1>(slot)) + lid;
+          float* o = reinterpret_cast<float*>(out) +
+                     static_cast<size_t>(slot) * p.d.chunk * kLanes + lid;
+          idsp::ring::group_rows(
+              rows, [&](int r) { return in[r * kLanes]; },
+              [&](int r, float x) {
+                const float bf = __fmul_rn(bp, f);
+                const float bq = __fmul_rn(bp, qi);  // off the chain
+                lp = __fadd_rn(bf, lp);
+                hp = __fsub_rn(__fsub_rn(x, lp), bq);
+                bp = __fadd_rn(__fmul_rn(hp, f), bp);
+                float y;
+                if constexpr (Out == 0) y = lp;
+                if constexpr (Out == 1) y = hp;
+                if constexpr (Out == 2) y = bp;
+                if constexpr (Out == 3) y = __fadd_rn(hp, lp);
+                o[r * kLanes] = y;
+              });
+        });
+    if (live) {
+      a->lp_out[lane] = lp;
+      a->hp_out[lane] = hp;
+      a->bp_out[lane] = bp;
+    }
   }
 };
 
 template <int Out>
-__global__ void __launch_bounds__(kBankLanes)
-    svf_kernel(const float* __restrict__ xs, float* __restrict__ ys,
-               const float* __restrict__ lp, const float* __restrict__ hp,
-               const float* __restrict__ bp, float* __restrict__ lp_out,
-               float* __restrict__ hp_out, float* __restrict__ bp_out, int t,
-               int c, float f, float qi) {
-  const int lane = blockIdx.x * kBankLanes + threadIdx.x;
-  if (lane >= c) return;
-  SvfLane s{lp[lane], hp[lane], bp[lane]};
-  idsp::seq_bank<false>(
-      xs, t, c, lane, 1, [&](float x) { return s.template step<Out>(f, qi, x); },
-      [&](size_t i, float y) { ys[i] = y; });
-  lp_out[lane] = s.lp;
-  hp_out[lane] = s.hp;
-  bp_out[lane] = s.bp;
+__global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
+    svf_kernel(const __grid_constant__ SvfArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  idsp::ring::run_pipe<1, 1, idsp::ring::Layout::kWide>(
+      a.p, smem, SvfSerial<Out>{&a},
+      [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
+        svf_feed(a, R, pw, lid, lane, live);  // one CTA a tile
+      });
 }
 
 // K35: normal.rs:38-58 in Q<f>: the sums of i32 x i32 products wrap mod
@@ -305,18 +380,6 @@ __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
 
 dim3 grid_of(int c) { return dim3((c + kBankLanes - 1) / kBankLanes); }
 
-template <int Out>
-void launch_svf(const void* xs, void* ys, const void* const* st_in,
-                void* const* st_out, int t, int c, float f, float qi,
-                cudaStream_t stream) {
-  svf_kernel<Out><<<grid_of(c), kBankLanes, 0, stream>>>(
-      static_cast<const float*>(xs), static_cast<float*>(ys),
-      static_cast<const float*>(st_in[0]), static_cast<const float*>(st_in[1]),
-      static_cast<const float*>(st_in[2]), static_cast<float*>(st_out[0]),
-      static_cast<float*>(st_out[1]), static_cast<float*>(st_out[2]), t, c, f,
-      qi);
-}
-
 template <class Lane, class T, class Coefs>
 int launch_normal(const void* xs, void* ys, const void* sx, const void* sy,
                   void* sx_out, void* sy_out, int t, int c, const Coefs& k,
@@ -332,31 +395,49 @@ int launch_normal(const void* xs, void* ys, const void* sx, const void* sy,
 }  // namespace
 
 // K34: xs (t, c) f32 -> ys (t, c) f32; state lp, hp, bp (c,) f32 each, in
-// and out; output 0 lp, 1 hp, 2 bp, 3 br.
+// and out; output 0 lp, 1 hp, 2 bp, 3 br.  warps, producers, chunk, ring
+// (slots a ring) and smem are the host plan's (filters/svf_cuda.py
+// `svf_plan`); a plan the kernel cannot run is refused.  A refused call
+// launches nothing and leaves no CUDA error pending.
 extern "C" int idsp_svf_bank(const void* xs, void* ys, const void* lp,
                              const void* hp, const void* bp, void* lp_out,
                              void* hp_out, void* bp_out, int t, int c,
-                             int output, float f, float qi, void* stream) {
-  const void* st_in[3] = {lp, hp, bp};
-  void* st_out[3] = {lp_out, hp_out, bp_out};
-  auto st = static_cast<cudaStream_t>(stream);
+                             int output, float f, float qi, int warps,
+                             int producers, int chunk, int ring, int smem,
+                             void* stream) {
+  if (output < 0 || output > 3 ||
+      !idsp::ring::pipe_plan_ok(t, c, warps, producers, chunk, ring, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SvfArgs a{};
+  a.p.d.t = t;
+  a.p.d.chunk = chunk;
+  a.p.d.depth = ring;
+  a.p.y[0] = ys;
+  a.p.c2 = c;
+  a.p.warps = warps;
+  a.p.producers = producers;
+  a.p.cluster = 1;
+  a.p.vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(ys) % 16 == 0;
+  a.xs = static_cast<const float*>(xs);
+  a.lp = static_cast<const float*>(lp);
+  a.hp = static_cast<const float*>(hp);
+  a.bp = static_cast<const float*>(bp);
+  a.lp_out = static_cast<float*>(lp_out);
+  a.hp_out = static_cast<float*>(hp_out);
+  a.bp_out = static_cast<float*>(bp_out);
+  a.f = f;
+  a.qi = qi;
+  using idsp::ring::launch_pipe;
   switch (output) {
     case 0:
-      launch_svf<0>(xs, ys, st_in, st_out, t, c, f, qi, st);
-      break;
+      return launch_pipe(svf_kernel<0>, a, a.p, smem, stream);
     case 1:
-      launch_svf<1>(xs, ys, st_in, st_out, t, c, f, qi, st);
-      break;
+      return launch_pipe(svf_kernel<1>, a, a.p, smem, stream);
     case 2:
-      launch_svf<2>(xs, ys, st_in, st_out, t, c, f, qi, st);
-      break;
-    case 3:
-      launch_svf<3>(xs, ys, st_in, st_out, t, c, f, qi, st);
-      break;
+      return launch_pipe(svf_kernel<2>, a, a.p, smem, stream);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_pipe(svf_kernel<3>, a, a.p, smem, stream);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // K35: xs (t, c) i32 -> ys (t, c) i32; state x, y (c, 2) i32 each, in and

@@ -8,9 +8,9 @@
 
 Each runs its CUDA kernel (``csrc/df1_bank.cu``; K24, K25 and K32
 ``csrc/biquad_bank.cu``; K28-K31 and K33 ``csrc/biquad_precision.cu``,
-K29 on the depth-0 pipeline of ``csrc/df1_ring.cuh``, `q64_plan`) for a
-CUDA tensor and its plain PyTorch version (``*_plain``) for a CPU
-tensor; any other device raises.  K1 and K11 are bit-identical to
+K29, K31 and K33 on the depth-0 pipeline of ``csrc/df1_ring.cuh``,
+`q64_plan` and `dither_plan`) for a CUDA tensor and its plain PyTorch
+version (``*_plain``) for a CPU tensor; any other device raises.  K1 and K11 are bit-identical to
 `biquad.df1_process_q` (K11: then ``ys[::d]``), K18 to
 `biquad.df1_clamp_process_q`, K24 to chaining `df1_process_q` stage by
 stage, K25 to `biquad.df1_wide_process`, K26 and K27 to K1 and K18 with
@@ -47,6 +47,9 @@ from .pipe_plan import PipePlan, pipe_plan
 SOS_MAX_STAGES = 8  # stages of one K24 launch (csrc/biquad_bank.cu)
 # K29's producer warps by default (and a store warp: 8 warps a block)
 Q64_PRODUCERS = 5
+# K31's and K33's producer warps by default (and a store warp: 12 warps a
+# block; with 5 the producers' loads set the pace, PERF.md §6)
+DITHER_PRODUCERS = 8
 
 
 def df1_bank_q_plain(ba, state: Df1State, xs, f: int = 29, *,
@@ -560,12 +563,26 @@ def df1_bank_f32(ba, state: Df1State, xs):
 df1_bank_f32.launches = 0  # kernel launches since the last reset
 
 
+def dither_plan(c: int, *, producers: int = DITHER_PRODUCERS,
+                **kw) -> PipePlan:
+    """K31's and K33's plan over ``c`` lanes (`pipe_plan.pipe_plan`):
+    DITHER_PRODUCERS producer warps by default, each a span of ceil(chunk
+    / producers) rows of every chunk; two 32-bit words a row and lane in
+    (the feed-forward sum mod 2^64), one out (y), so PIPE_CHUNK rows a
+    chunk in 2 slots by default; one CTA a tile."""
+    if kw.get("cluster", 1) != 1:
+        raise ValueError("K31 and K33 run one CTA a tile")
+    return pipe_plan(c, producers=producers, win=2, wout=1, **kw)
+
+
 def _launch_dither(name, ba, state: Df1DitherState, xs, f, clamp,
-                   planes=None):
-    """Validate and launch K31 (``planes`` None) or K33."""
+                   planes=None, plan=None):
+    """Validate and launch K31 (``planes`` None) or K33 at ``plan``
+    (`dither_plan`'s by default)."""
     check_wide_f(f)
     cl = (0, 0, 0) if clamp is None else clamp_params(*clamp)
     t, c = xs.shape
+    plan = dither_plan(c) if plan is None else plan
     dev = xs.device
     _ext.require("xs", xs, dev, torch.int32, (t, c))
     _ext.require("state.xy.x", state.xy.x, dev, torch.int32, (c, 2))
@@ -577,16 +594,17 @@ def _launch_dither(name, ba, state: Df1DitherState, xs, f, clamp,
     ptrs = (xs.data_ptr(), ys.data_ptr(), state.xy.x.data_ptr(),
             state.xy.y.data_ptr(), state.e.data_ptr(), nx.data_ptr(),
             ny.data_ptr(), ne.data_ptr())
+    shape = (plan.warps, plan.producers, plan.chunk, plan.ring, plan.smem)
     lib = _ext.library()
     with torch.cuda.device(dev):
         if planes is None:
             err = lib.idsp_df1_dither_bank(*ptrs, t, c, f, *_ba_list(ba),
                                            int(clamp is not None), *cl,
-                                           _ext.stream_ptr(dev))
+                                           *shape, _ext.stream_ptr(dev))
         else:
             err = lib.idsp_df1_dither_bank_coef(
                 *ptrs, planes.data_ptr(), t, c, f, int(clamp is not None),
-                *cl, _ext.stream_ptr(dev))
+                *cl, *shape, _ext.stream_ptr(dev))
     _ext.check(err, name)
     return Df1DitherState(xy=Df1State(x=nx, y=ny), e=ne), ys
 
@@ -598,7 +616,7 @@ def df1_dither_bank_plain(ba, state: Df1DitherState, xs, f: int = 29, *,
 
 
 def df1_dither_bank(ba, state: Df1DitherState, xs, f: int = 29, *,
-                    clamp=None):
+                    clamp=None, _plan: PipePlan | None = None):
     """Error-feedback (noise-shaping) DF1 over a bank of lanes
     (biquad.rs:511-530; with ``clamp = (u, lo, hi)`` the clamped form,
     :532-538).
@@ -613,11 +631,13 @@ def df1_dither_bank(ba, state: Df1DitherState, xs, f: int = 29, *,
         ``+ u`` wrapping) is the output and is fed back.
 
     Returns (state, ys int32), bit-identical to scanning `df1_dither_step`
-    (`df1_dither_clamp_step`).  ``launches`` counts both forms.
+    (`df1_dither_clamp_step`).  ``launches`` counts both forms.  The
+    kernel's plan is `dither_plan`'s; no plan changes a value.
     """
     if xs.device.type == "cpu":
         return df1_dither_bank_plain(ba, state, xs, f, clamp=clamp)
-    out = _launch_dither("df1_dither_bank", ba, state, xs, f, clamp)
+    out = _launch_dither("df1_dither_bank", ba, state, xs, f, clamp,
+                         plan=_plan)
     df1_dither_bank.launches += 1
     return out
 
@@ -675,19 +695,19 @@ def df1_dither_bank_coef_plain(ba_planes, state: Df1DitherState, xs,
 
 
 def df1_dither_bank_coef(ba_planes, state: Df1DitherState, xs, f: int = 29,
-                         *, clamp=None):
+                         *, clamp=None, _plan: PipePlan | None = None):
     """`df1_dither_bank` with runtime coefficients: a shared (5,) set or
     (5, c) planes, one set per lane.  Returns (state, ys int32),
     bit-identical to `df1_dither_process` with the lanes' coefficients
     (to `df1_dither_bank` for a shared set).  ``launches`` counts both
-    forms."""
+    forms.  The kernel's plan is `dither_plan`'s, as K31's."""
     _check_planes(ba_planes, xs.shape[1])
     if xs.device.type == "cpu":
         return df1_dither_bank_coef_plain(ba_planes, state, xs, f,
                                           clamp=clamp)
     planes = coef_planes(ba_planes, xs.shape[1], xs.device)
     out = _launch_dither("df1_dither_bank_coef", None, state, xs, f, clamp,
-                         planes)
+                         planes, _plan)
     df1_dither_bank_coef.launches += 1
     return out
 

@@ -1,6 +1,6 @@
 """The host plan of the depth-0 pipeline of a serial recurrence that K14
-(`ddc_cuda`), K15 (`fm_cuda`), K29 (`biquad_cuda`) and K37 (`rpll_cuda`)
-run: ``csrc/df1_ring.cuh`` `run_pipe`.
+(`ddc_cuda`), K15 (`fm_cuda`), K29, K31 and K33 (`biquad_cuda`), K34
+(`svf_cuda`) and K37 (`rpll_cuda`) run: ``csrc/df1_ring.cuh`` `run_pipe`.
 
 A CUDA block is a tile of LANES lanes: the serial warp (warp 0; the DF1
 warp of K14 and K15), the other warps of its scheduler idle,
@@ -31,12 +31,13 @@ def pipe_smem(chunk: int, ring: int, win: int = 1, wout: int = 1) -> int:
 
 
 class PipePlan(NamedTuple):
-    """How K14, K15, K29 and K37 run a launch: a CUDA block is a tile of
-    LANES lanes and ``warps`` warps: warp 0 the serial warp, the others of
-    its scheduler (warp % 4 == 0) idle, of the rest ``producers`` that
-    fill its input ring (K14: the mix of their rows mod their count; K15:
-    dphi of a span of each chunk; K29: the feed-forward sums of a span;
-    K37: one warp, every row) and the next one the store warp, the rest
+    """How K14, K15, K29, K31/K33, K34 and K37 run a launch: a CUDA block
+    is a tile of LANES lanes and ``warps`` warps: warp 0 the serial warp,
+    the others of its scheduler (warp % 4 == 0) idle, of the rest
+    ``producers`` that fill its input ring (K14: the mix of their rows mod
+    their count; K15: dphi of a span of each chunk; K29, K31/K33: the
+    feed-forward sums of a span; K34: the x rows of a span; K37: the x and
+    dt words of a span) and the next one the store warp, the rest
     idle; with ``cluster`` 2 (K15) a tile is a cluster of that block and a
     partner CTA whose ``warps`` warps are all producers; chunks of
     ``chunk`` rows, rings of ``ring`` slots of ``win`` (input) and

@@ -1,6 +1,6 @@
 """Where K2, K3, K19-K21 (`csrc/ddc_cascade.cu`), K14 and K15
 (`csrc/ddc_mix_df1.cu`, `csrc/fm_disc.cu`, all on `csrc/df1_ring.cuh`'s
-DF1 warp), K29 and K37 (`csrc/biquad_precision.cu`,
+DF1 warp), K29, K31 and K37, K34 (`csrc/biquad_precision.cu`,
 `csrc/structures_bank.cu`, on its depth-0 pipeline with serial warps of
 their own) spend their time on the card.
 
@@ -44,7 +44,11 @@ deemphasis lowpass at 0.02):
   the plan sweep (`biquad_cuda.q64_plan`: producers, chunk, ring;
   `rpll_cuda.rpll_plan`: warps, chunk, ring), each plan's words held to
   the default plan's, and the "stamps" of their serial warp, producer 0
-  and store warp.
+  and store warp;
+* K31 (the Q29 lowpass at 0.1, x in +-2^24, unclamped) and K34 (the
+  suite's SVF row (0.01, 0.7), x ~ N(0, 1), lp) at c = 1024 lanes: the
+  same plan sweep (`biquad_cuda.dither_plan`, `svf_cuda.svf_plan`:
+  producers, chunk, ring) and stamps.
 
 A time is the median of 3 trials of 20 chained launches (CUDA events,
 `profiling.measure_rate`); a stamp is SM clock cycles, the median over
@@ -65,7 +69,7 @@ import torch
 
 from . import _ext, design
 from .filters import biquad, biquad_cuda, ddc_cuda, fm_cuda, hbf, rpll
-from .filters import rpll_cuda
+from .filters import rpll_cuda, svf, svf_cuda
 from .ops.fastlo import fastlo_tables
 from .pipelines import fm_disc
 from .profiling import measure_rate
@@ -213,12 +217,13 @@ def variants() -> dict:
 
 
 DF1_PIPE_SOURCES = ("ddc_mix_df1.cu", "fm_disc.cu")  # K14, K15
-PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K29
-                                   "structures_bank.cu")  # K37
+PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K29, K31/K33
+                                   "structures_bank.cu")  # K34, K37
 
 
 def pipe_variants() -> dict:
-    """K14's, K15's, K29's and K37's variants: name -> {file: source};
+    """K14's, K15's, K29's, K31's, K34's and K37's variants: name ->
+    {file: source};
     each builds its .cu files."""
     ring = _read("df1_ring.cuh")
     out = {"df1_copy": {"df1_ring.cuh": _df1_copy(ring),
@@ -404,7 +409,8 @@ def _stamp_rows(lib, launch, chunk, series) -> dict:
 
 
 def _pipe(dev, card, libs, package, result) -> None:
-    """K14 and K15: the plan sweep, the variants, the per-role stamps."""
+    """K14, K15, K29, K31, K34 and K37: the plan sweep, the variants, the
+    per-role stamps."""
     ba = biquad.quantize_ba(biquad.from_cookbook(
         design.Filter().critical_frequency(0.02).lowpass()), 29)
     bf = fm_disc.deemphasis_coefficients(0.02)
@@ -442,6 +448,22 @@ def _pipe(dev, card, libs, package, result) -> None:
             ba64, biquad.df1_init((1024,), torch.int64, device=dev), x64, 61,
             _plan=plan)
 
+    x29 = i32((T, 1024), -(2**24), 2**24)
+    ba29 = biquad.quantize_ba(biquad.from_cookbook(
+        design.Filter().critical_frequency(0.1).lowpass()), 29)
+    xf = torch.from_numpy(rng.normal(size=(T, 1024)).astype(
+        np.float32)).to(dev)
+    f_svf, qi_svf = svf.coefficients(0.01, 0.7)
+
+    def k31(plan=None):
+        return biquad_cuda.df1_dither_bank(
+            ba29, biquad.df1_dither_init((1024,), device=dev), x29, 29,
+            _plan=plan)
+
+    def k34(plan=None):
+        return svf_cuda.svf_bank(f_svf, qi_svf, svf.init((1024,), device=dev),
+                                 xf, _plan=plan)
+
     def k37(plan=None):
         return rpll_cuda.rpll_bank(rpll.RpllConfig(8, 12, 11),
                                    rpll.init((1024,), device=dev), *xr,
@@ -469,7 +491,18 @@ def _pipe(dev, card, libs, package, result) -> None:
               ("K37 c=1024", k37, lambda **kw: rpll_cuda.rpll_plan(1024, **kw),
                [dict(chunk=128, ring=2), dict(chunk=64, ring=3),
                 dict(chunk=64, ring=7), dict(chunk=32, ring=8),
-                dict(warps=8)])]
+                dict(warps=8)]),
+              ("K31 c=1024", k31,
+               lambda **kw: biquad_cuda.dither_plan(1024, **kw),
+               [dict(producers=p) for p in (2, 3, 8, 11)]
+               + [dict(chunk=128, ring=r) for r in (2, 3)]
+               + [dict(chunk=64, ring=r) for r in (2, 4, 9)]
+               + [dict(chunk=32, ring=8)]),
+              ("K34 c=1024", k34, lambda **kw: svf_cuda.svf_plan(1024, **kw),
+               [dict(producers=p) for p in (1, 2, 3, 8, 11)]
+               + [dict(chunk=256, ring=2), dict(chunk=128, ring=2),
+                  dict(chunk=128, ring=6), dict(chunk=64, ring=4),
+                  dict(chunk=32, ring=8)])]
     for name, run, plan_of, forced in cases:
         want = run(None)
         for kw in forced:
@@ -490,7 +523,8 @@ def _pipe(dev, card, libs, package, result) -> None:
     result["pipe_variants"]["package"] = {k: _ms(fn)
                                           for k, fn in timed.items()}
     result["pipe_variants"]["package"].update(
-        {"K29 c=1024": _ms(k29), "K37 c=1024": _ms(k37)})
+        {"K29 c=1024": _ms(k29), "K37 c=1024": _ms(k37),
+         "K31 c=1024": _ms(k31), "K34 c=1024": _ms(k34)})
     _ext._lib = libs["pipe_df1_copy"]
     result["pipe_variants"]["df1_copy"] = {k: _ms(fn)
                                            for k, fn in timed.items()}
@@ -502,13 +536,17 @@ def _pipe(dev, card, libs, package, result) -> None:
               "K15 exact": fm_cuda.disc_plan(512, "exact").chunk,
               "K15 fast": fm_cuda.disc_plan(512, "fast").chunk,
               "K29 c=1024": biquad_cuda.q64_plan(1024).chunk,
-              "K37 c=1024": rpll_cuda.rpll_plan(1024).chunk}
+              "K37 c=1024": rpll_cuda.rpll_plan(1024).chunk,
+              "K31 c=1024": biquad_cuda.dither_plan(1024).chunk,
+              "K34 c=1024": svf_cuda.svf_plan(1024).chunk}
     for key, lib, fn in (
             ("K14 c=512", "stamps_ddc_mix_df1", timed["K14 c=512"]),
             ("K15 exact", "stamps_fm_disc", timed["K15 exact"]),
             ("K15 fast", "stamps_fm_disc", timed["K15 fast"]),
             ("K29 c=1024", "stamps_biquad_precision", k29),
-            ("K37 c=1024", "stamps_structures_bank", k37)):
+            ("K37 c=1024", "stamps_structures_bank", k37),
+            ("K31 c=1024", "stamps_biquad_precision", k31),
+            ("K34 c=1024", "stamps_structures_bank", k34)):
         chunk = chunks[key]
         row = _stamp_rows(libs[f"pipe_{lib}"], fn, chunk, roles)
         row["pace"] = max(roles, key=lambda r: row[r])
@@ -520,7 +558,8 @@ def _pipe(dev, card, libs, package, result) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("cascade", "pipe"),
-                    help="K2/K3/K19-K21 or K14/K15 alone")
+                    help="K2/K3/K19-K21, or the depth-0 kernels (K14, K15, "
+                         "K29, K31, K34, K37) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_cascade times the CUDA device; none is "

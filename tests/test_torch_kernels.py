@@ -740,6 +740,140 @@ def test_serial_pipe_entries_refuse_a_plan_not_their_own(cuda):
            rpll_bank_plain(rpll.RpllConfig(8, 12, 11), rst, xi, xi.bool())[1])
 
 
+# K31/K33 and K34 at the depth-0 pipeline's edges (their default chunk is
+# 256 rows): t = 1, t under a chunk, t not a multiple of it, c = 200, 50
+# and 1 (a tile's tail lanes), and a forced plan of short chunks
+DEPTH0_EDGES = {
+    "t = 1": (200, 1, {}),
+    "t under a chunk": (50, 100, {}),
+    "t = 3 chunks + 17": (1, 3 * 256 + 17, {}),
+    "16-row chunks, 2 producers": (200, 5 * 16 + 3,
+                                   dict(chunk=16, ring=3, producers=2)),
+}
+CLAMP_Q = (1 << 10, -(1 << 23), 1 << 23)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f,clamp", [(29, None), (29, CLAMP_Q), (1, None),
+                                     (32, None), (32, CLAMP_Q)])
+@pytest.mark.parametrize("case", sorted(DEPTH0_EDGES))
+def test_df1_dither_kernels_at_pipe_edges(cuda, case, f, clamp):
+    """K31, and K33 with per-lane and shared planes, over 2 carried blocks
+    against their plain versions, coefficients in +-2^(f + 1)."""
+    from idsp_tpu_torch.filters.biquad_cuda import dither_plan
+
+    c, t, kw = DEPTH0_EDGES[case]
+    plan = dither_plan(c, **kw) if kw else None
+    rng = np.random.default_rng(310 + f)
+    top = min(2**31 - 1, 2 << f)
+    ba = rng.integers(-top, top + 1, size=5).astype(np.int32)
+    planes = torch.from_numpy(rng.integers(-top, top + 1, size=(5, c))
+                              .astype(np.int32)).to(cuda)
+    _carried(lambda s, x: df1_dither_bank(ba, s, x, f, clamp=clamp,
+                                          _plan=plan),
+             lambda s, x: df1_dither_bank_plain(ba, s, x, f, clamp=clamp),
+             _dither_state(rng, c, cuda),
+             lambda: _i32(rng, (t, c), device=cuda), blocks=2)
+    for p in (planes, ba):
+        _carried(lambda s, x, p=p: df1_dither_bank_coef(
+                     p, s, x, f, clamp=clamp, _plan=plan),
+                 lambda s, x, p=p: df1_dither_bank_coef_plain(
+                     p, s, x, f, clamp=clamp),
+                 _dither_state(rng, c, cuda),
+                 lambda: _i32(rng, (t, c), device=cuda), blocks=2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f", [1, 32])
+@pytest.mark.parametrize("clamp", [None, (2**31 - 9, -(2**31), 2**31 - 1)])
+def test_df1_dither_kernel_where_the_sum_wraps(cuda, f, clamp):
+    """Coefficients, state and the first row at -2^31, e at 2^32 - 1: the
+    five products and e pass 2^63 and wrap mod 2^64; the other rows at
+    int32's edges."""
+    c, t = 50, 300
+    rng = np.random.default_rng(64 + f)
+    ba = np.full(5, -(2**31), np.int32)
+    edges = np.array([-(2**31), -(2**31) + 1, -1, 0, 1, 2**31 - 1], np.int32)
+    xs = rng.choice(edges, (t, c))
+    xs[0] = -(2**31)
+    full = torch.full((c, 2), -(2**31), dtype=torch.int32, device=cuda)
+    st = biquad.Df1DitherState(
+        xy=biquad.Df1State(x=full, y=full.clone()),
+        e=torch.full((c,), 2**32 - 1, dtype=torch.int64, device=cuda))
+    x = torch.from_numpy(xs).to(cuda)
+    _equal(df1_dither_bank(ba, st, x, f, clamp=clamp),
+           df1_dither_bank_plain(ba, st, x, f, clamp=clamp))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("output", ["lp", "hp", "bp", "br"])
+@pytest.mark.parametrize("case", sorted(DEPTH0_EDGES))
+def test_svf_kernel_at_pipe_edges(cuda, case, output):
+    """Two carried blocks from a random state, x ~ N(0, 1), then one block
+    against its two halves (t >= 2)."""
+    from idsp_tpu_torch.filters.svf_cuda import svf_plan
+
+    c, t, kw = DEPTH0_EDGES[case]
+    plan = svf_plan(c, **kw) if kw else None
+    rng = np.random.default_rng(34)
+    f, qi = svf.coefficients(0.04, 1.3)
+
+    def make(rows):
+        return (torch.from_numpy(rng.normal(size=(rows, c)).astype(
+            np.float32)).to(cuda),)
+
+    st = svf.SvfState(*(torch.from_numpy(rng.normal(size=c).astype(
+        np.float32)).to(cuda) for _ in range(3)))
+    def kern(s, x):
+        return svf_bank(f, qi, s, x, output=output, _plan=plan)
+
+    def plain(s, x):
+        return svf_bank_plain(f, qi, s, x, output=output)
+
+    if t >= 2:
+        _structure_hold(kern, plain, st, make, t)
+    else:
+        for _ in range(2):
+            x, = make(t)
+            got = kern(st, x)
+            _same(got, plain(st, x))
+            st = got[0]
+
+
+@pytest.mark.requires_cuda
+def test_dither_and_svf_entries_refuse_a_plan_not_their_own(cuda):
+    """K31's, K33's and K34's entry points refuse a plan whose shared
+    memory is not the kernel's own sum, or roles that do not fit the
+    warps (RuntimeError, nothing launched); the next launch runs as
+    usual."""
+    from idsp_tpu_torch.filters.biquad_cuda import dither_plan
+    from idsp_tpu_torch.filters.svf_cuda import svf_plan
+
+    c, t = 64, 300
+    st = biquad.df1_dither_init((c,), device=cuda)
+    x = torch.ones((t, c), dtype=torch.int32, device=cuda)
+    plan = dither_plan(c)
+    for bad in (plan._replace(smem=plan.smem - 32),
+                plan._replace(producers=9),  # 10 roles in 9 places
+                svf_plan(c)):  # another kernel's words a row
+        with pytest.raises(RuntimeError):
+            df1_dither_bank(BA_Q, st, x, 29, _plan=bad)
+        with pytest.raises(RuntimeError):
+            df1_dither_bank_coef(BA_Q, st, x, 29, _plan=bad)
+    sst = svf.init((c,), device=cuda)
+    xf = x.to(torch.float32)
+    plan = svf_plan(c)
+    for bad in (plan._replace(smem=plan.smem + 32),
+                plan._replace(producers=7), dither_plan(c)):
+        with pytest.raises(RuntimeError):
+            svf_bank(0.1, 1.0, sst, xf, _plan=bad)
+    _equal(df1_dither_bank(BA_Q, st, x, 29),
+           df1_dither_bank_plain(BA_Q, st, x, 29))
+    _equal(df1_dither_bank_coef(BA_Q, st, x, 29),
+           df1_dither_bank_plain(BA_Q, st, x, 29))
+    _same(svf_bank(0.1, 1.0, sst, xf), svf_bank_plain(0.1, 1.0, sst, xf))
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("tc", [64, 256])
 def test_ddc_lockin_kernel_equals_plain(cuda, tc):

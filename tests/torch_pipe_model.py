@@ -1,7 +1,10 @@
 """A CPU model of the serial warp's mbarrier rings (``csrc/df1_ring.cuh``),
 shared by the schedule tests of K2/K3 (tests/test_torch_ddc_cascade_plan.py),
 K14/K15 (that file and tests/test_torch_fm_plan.py), K37
-(tests/test_torch_rpll_plan.py) and K29 (tests/test_torch_q64_plan.py).
+(tests/test_torch_rpll_plan.py), K29 (tests/test_torch_q64_plan.py), K31/K33
+(tests/test_torch_dither_plan.py) and K34 (tests/test_torch_svf_plan.py),
+with the producer and serial-warp arithmetic of K31/K33 (`dither_model`)
+and K34 (`svf_model`).
 
 Each role of a CUDA block is a coroutine that yields a test before each
 mbarrier wait; the roles run in a seeded random order among those whose
@@ -167,3 +170,108 @@ def pipe_model(ba, f, state, t, lanes, plan, produce, rows_of, *,
     new = Df1State(x=torch.stack([x1, x2], 1).to(torch.int32),
                    y=torch.stack([y1, y2], 1).to(torch.int32))
     return new, torch.from_numpy(y[..., 0]).to(torch.int32).to(out_dtype)
+
+
+U32 = np.uint64(0xFFFFFFFF)
+
+
+def _u64(a):
+    """int64 words as uint64 (their bits), where sums wrap mod 2^64."""
+    return np.asarray(a, np.int64).view(np.uint64)
+
+
+def dither_model(ba, f, state, xs, plan, *, clamp=None, seed=0):
+    """K31 (``ba`` (5,)) or K33 (``ba`` (5, c) planes) as the kernel runs
+    it (``csrc/biquad_precision.cu``): the producers' W = b0 x0 + b1 x1 +
+    b2 x2 mod 2^64 as two 32-bit words a row and lane (rows -1, -2 of the
+    block from the state), the serial warp's V = W + a2 y2 (off its chain),
+    acc = a1 y1 + (V + e) mod 2^64, y0 bits [f, f + 32) of acc (the funnel
+    shift), the next e acc's low f bits, then the clamp; numpy uint64
+    words.  Returns (Df1DitherState, ys int32) like
+    `df1_dither_bank_plain`."""
+    from idsp_tpu_torch.filters.biquad import Df1DitherState, Df1State
+
+    t, c = xs.shape
+    coef = np.asarray(ba, np.int64)
+    coef = np.broadcast_to(coef.reshape(5, -1), (5, c))
+    b0, b1, b2, a1, a2 = (_u64(v) for v in coef)
+    xw = _u64(np.concatenate([state.xy.x[:, 1].numpy()[None],
+                              state.xy.x[:, 0].numpy()[None],
+                              xs.numpy()]).astype(np.int64))
+    y1 = _u64(state.xy.y[:, 0].numpy().astype(np.int64)).copy()
+    y2 = _u64(state.xy.y[:, 1].numpy().astype(np.int64)).copy()
+    e = state.e.numpy().astype(np.uint64)
+    emask = np.uint64((1 << f) - 1)
+
+    def produce(r0, idx):
+        g = r0 + idx + 2  # rows of xw
+        w = b0 * xw[g] + b1 * xw[g - 1] + b2 * xw[g - 2]
+        return np.stack([w & U32, w >> np.uint64(32)], axis=-1).astype(
+            np.int64)
+
+    def serial(words):
+        nonlocal y1, y2, e
+        out = np.empty((len(words), c, 1), np.int64)
+        for j, w in enumerate(words.astype(np.uint64) & U32):
+            v = (w[:, 1] << np.uint64(32) | w[:, 0]) + a2 * y2  # off the chain
+            acc = a1 * y1 + (v + e)
+            y0 = ((acc >> np.uint64(f)) & U32).astype(np.uint32).view(np.int32)
+            e = acc & emask
+            if clamp is not None:
+                u, lo, hi = clamp
+                y0 = np.clip((y0.astype(np.int64) + u).astype(np.int32),
+                             lo, hi).astype(np.int32)
+            y2, y1 = y1, _u64(y0.astype(np.int64))
+            out[j, :, 0] = y0
+        return out
+
+    with np.errstate(over="ignore"):
+        words = pipe_run(t, c, plan, produce, span_rows, serial, seed=seed)
+    new = Df1DitherState(
+        xy=Df1State(
+            x=torch.from_numpy(np.stack([xw[-1], xw[-2]], 1).view(
+                np.int64).astype(np.int32)),
+            y=torch.from_numpy(np.stack([y1, y2], 1).view(np.int64).astype(
+                np.int32))),
+        e=torch.from_numpy(e.astype(np.int64)))
+    return new, torch.from_numpy(words[..., 0].astype(np.int32))
+
+
+SVF_OUTPUTS = ("lp", "hp", "bp", "br")
+
+
+def svf_model(f, qi, state, xs, plan, *, output="lp", seed=0):
+    """K34 as the kernel runs it (``csrc/structures_bank.cu``): the
+    producers copy x, the serial warp forms bp qi beside bp f, then lp =
+    bp f + lp, hp = (x - lp) - bp qi, bp = hp f + bp, and br = hp + lp, in
+    numpy float32, each product and sum rounded on its own; the words are
+    the f32 bits.  Returns (SvfState, ys f32) like `svf_bank_plain`."""
+    from idsp_tpu_torch.filters.svf import SvfState
+
+    t, c = xs.shape
+    f, qi = np.float32(f), np.float32(qi)
+    lp, hp, bp = (w.numpy().astype(np.float32) for w in state)
+    xb = xs.numpy().astype(np.float32).view(np.int32)
+    sel = SVF_OUTPUTS.index(output)
+
+    def produce(r0, idx):
+        return xb[r0 + idx][..., None].astype(np.int64)
+
+    def serial(words):
+        nonlocal lp, hp, bp
+        out = np.empty((len(words), c, 1), np.int64)
+        for j, w in enumerate(words[..., 0]):
+            x = w.astype(np.int32).view(np.float32)
+            bf, bq = bp * f, bp * qi  # bq off the chain
+            lp = bf + lp
+            hp = (x - lp) - bq
+            bp = hp * f + bp
+            y = (lp, hp, bp, hp + lp)[sel]
+            out[j, :, 0] = y.astype(np.float32).view(np.int32)
+        return out
+
+    words = pipe_run(t, c, plan, produce, span_rows, serial, seed=seed)
+    ys = words[..., 0].astype(np.int32).view(np.float32)
+    new = SvfState(*(torch.from_numpy(np.array(v, np.float32))
+                     for v in (lp, hp, bp)))
+    return new, torch.from_numpy(ys)
