@@ -71,6 +71,13 @@ Phases, each reported on its own line:
    chunks; c = 200, 50, 1 and 200; K31 at f 29 unclamped and clamped, f
    1 and f 32, K33 per-lane and shared, K34 each output) over 2 blocks,
    and K31 at f 1 and 32 on a block whose 64-bit sums wrap, bit for bit;
+   K12 (unclamped and with CLAMP) and K13 at that pipeline's edges
+   (chunks other than the time chunk and not multiples of d, chunks
+   under d, t not a multiple of the chunk, c = 17, 3, 1, d = 1, 5 and 3
+   producers, spans across a time chunk of 12, the int64 sum wrapping) and K16 (t = the time chunk, t not
+   a multiple of the chunk, time chunks under a span, 2-row spans, 11
+   producers, t = 1, a time chunk of 16384 rows) at small t and c over 2
+   blocks, bit for bit;
    K22 `hbf_dec_cascade_mxu`
    ((32768, 512) f32) and K23
    `hbf_int_cascade_mxu` ((2048, 512) f32), depth 4, with HBF_TAPS and
@@ -372,7 +379,11 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "svf_bank": "svf_kernel",
                   "rpll_bank": "rpll_kernel",
                   "fm_disc_bank": "fm_disc_kernel",
-                  "fm_disc_bank_fast": "fm_disc_kernel"}
+                  "fm_disc_bank_fast": "fm_disc_kernel",
+                  "fastlo_df1_dec_bank": "ddc_bank_df1_kernel",
+                  "fastlo_df1_dec_bank_clamp": "ddc_bank_df1_kernel",
+                  "fastlo_ddc_bank_block": "ddc_bank_df1_kernel",
+                  "ddc_lockin_bank": "ddc_lockin_kernel"}
 # The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
 # the chain's mixed stream the 0.02 lowpass output peaks near 2.6e7, under
 # the 2^26 bound of tests/test_biquad_pallas.py:896, so that bound never
@@ -2197,6 +2208,123 @@ def check_depth0_edges(dev, i32, errs):
         f"{errs['df1_dither_bank_coef']}, {errs['svf_bank']}")
 
 
+def check_bank_lockin_edges(dev, i32, errs):
+    """Phase 3 for K12 (and its ``clamp=``), K13 and K16 at the edges of
+    the depth-0 pipeline, at small t and c, each over 2 carried blocks
+    against its plain version, tolerance 0 (into errs under the kernel's
+    own name).  K12/K13 (x in +-2^27, full-range phases and steps, the
+    chain's Q29 lowpass, CLAMP): chunks other than the time chunk and not
+    multiples of d, chunks under d, t not a multiple of the chunk, c not a
+    multiple of the 16-channel tile, d = 1, one channel, 5 and 3
+    producers, spans across a time chunk of 12, and where the DF1's int64
+    sum wraps (coefficients and state at int32's
+    edges).  K16 (the lowpass at 0.2, x ~ N(0, 1), a random state, n0 >
+    0): t = the time chunk, t not a multiple of the chunk, a time chunk
+    under a span, 2-row spans, 11 producers, t = 1, and a time chunk of
+    16384 rows (above the old kernel's 8192-row limit)."""
+    import torch
+    from idsp_tpu_torch.design import Filter
+    from idsp_tpu_torch.filters import biquad, pll
+    from idsp_tpu_torch.filters.ddc_bank_cuda import (
+        bank_plan, fastlo_ddc_bank_block, fastlo_ddc_bank_block_plain,
+        fastlo_df1_dec_bank, fastlo_df1_dec_bank_plain,
+    )
+    from idsp_tpu_torch.filters.ddc_lockin_cuda import (
+        ddc_lockin_bank, ddc_lockin_bank_plain, lockin_plan,
+    )
+
+    rng = np.random.default_rng(20)
+    lp = biquad.quantize_ba(biquad.from_cookbook(
+        Filter().critical_frequency(0.02).lowpass()), 29)
+    pll_ba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    int_edges = np.array([-(2**31), 2**31 - 1], np.int32)
+    bank = {  # (c, t, d, time chunk, plan keywords)
+        "chunk 24, d 16": (16, 256, 16, 32, dict(chunk=24, ring=2)),
+        "17 channels, t % chunk": (17, 192, 4, 64, dict(chunk=40, ring=3)),
+        "chunks under d": (3, 96, 16, 48, dict(chunk=8, ring=4)),
+        "d = 1": (20, 40, 1, 8, dict(chunk=16, ring=2)),
+        "one channel": (1, 64, 4, 16, dict(chunk=12, ring=3, producers=1)),
+        "5 producers": (9, 120, 8, 24, dict(chunk=24, producers=5)),
+        "14-row spans, time chunk 12": (7, 180, 4, 12, dict(chunk=40,
+                                                            producers=3)),
+        "a batch's last row past the coarse block": (5, 170, 1, 17, dict(
+            chunk=30, producers=3)),
+        "the sum wraps": (18, 160, 8, 32, dict(chunk=20, ring=3)),
+    }
+    for label, (c, t, d, tc, kw) in bank.items():
+        plan = bank_plan(c, **kw)
+        wraps = label == "the sum wraps"
+        ba = np.full(5, -(2**31), np.int32) if wraps else lp
+        st = (biquad.Df1State(
+            x=torch.from_numpy(rng.choice(int_edges, (2 * c, 2))).to(dev),
+            y=torch.from_numpy(rng.choice(int_edges, (2 * c, 2))).to(dev))
+            if wraps else biquad.Df1State(x=i32((2 * c, 2), -(2**27), 2**27),
+                                          y=i32((2 * c, 2), -(2**26),
+                                                2**26)))
+        steps = i32((c,))
+        pst = pll.block(pll_ba, pll.init((c,), device=dev), i32((7, c)))[0]
+
+        def x_of(t=t):
+            return i32((t,)) if wraps else i32((t,), -(2**27), 2**27)
+
+        for clamp in (None,) if wraps else (None, CLAMP):
+            key = "fastlo_df1_dec_bank" + ("_clamp" if clamp else "")
+            errs[key] = max(errs[key], hold(
+                f"fastlo_df1_dec_bank ({label}, clamp {clamp})",
+                lambda s, ph, x, ba=ba, d=d, tc=tc, cl=clamp, p=plan:
+                fastlo_df1_dec_bank(ba, s, ph, steps, x, 29, d=d, clamp=cl,
+                                    time_chunk=tc, _plan=p),
+                lambda s, ph, x, ba=ba, d=d, tc=tc, cl=clamp:
+                fastlo_df1_dec_bank_plain(ba, s, ph, steps, x, 29, d=d,
+                                          clamp=cl, time_chunk=tc),
+                (st, i32((c,))), x_of, blocks=2))
+        errs["fastlo_ddc_bank_block"] = max(errs["fastlo_ddc_bank_block"],
+                                            hold(
+            f"fastlo_ddc_bank_block ({label})",
+            lambda s, ps, ph, x, ba=ba, d=d, tc=tc, p=plan:
+            fastlo_ddc_bank_block(ba, pll_ba, s, ps, ph, steps, x, 29, d=d,
+                                  time_chunk=tc, _plan=p),
+            lambda s, ps, ph, x, ba=ba, d=d, tc=tc:
+            fastlo_ddc_bank_block_plain(ba, pll_ba, s, ps, ph, steps, x, 29,
+                                        d=d, time_chunk=tc),
+            (st, pst, i32((c,))), x_of, blocks=2))
+    bf = biquad.from_cookbook(
+        Filter().critical_frequency(0.2).lowpass()).astype(np.float32)
+    lockin = {  # (c, t, time chunk, n0, plan keywords)
+        "t = time chunk": (16, 256, 256, 0, {}),
+        "t % chunk, 3 producers": (20, 240, 48, 1000,
+                                   dict(chunk=44, ring=2, producers=3)),
+        "time chunk under a span": (3, 96, 8, 17, dict(chunk=24,
+                                                       producers=5)),
+        "2-row spans": (9, 60, 12, 5, dict(chunk=7, ring=4, producers=4)),
+        "11 producers": (40, 130, 13, 0, dict(chunk=32, ring=4,
+                                              producers=11, warps=16)),
+        "t = 1": (4, 1, 1, 9, dict(chunk=8)),
+        "time chunk 16384": (2, 16384, 16384, 77, {}),
+    }
+    for label, (c, t, tc, n0, kw) in lockin.items():
+        plan = lockin_plan(c, **kw) if kw else None
+        lo = rng.uniform(0.01, 0.49, c)
+        st = biquad.Df1State(*(torch.from_numpy(rng.normal(size=(
+            2 * c, 2)).astype(np.float32)).to(dev) for _ in range(2)))
+        n = iter(range(2))
+        errs["ddc_lockin_bank"] = max(errs["ddc_lockin_bank"], hold(
+            f"ddc_lockin_bank ({label})",
+            lambda s, xn, tc=tc, p=plan: ddc_lockin_bank(
+                bf, s, *xn, time_chunk=tc, _plan=p),
+            lambda s, xn, tc=tc: ddc_lockin_bank_plain(
+                bf, s, *xn, time_chunk=tc),
+            (st,), lambda t=t, lo=lo, n0=n0, n=n: (torch.from_numpy(
+                rng.normal(size=t).astype(np.float32)).to(dev), lo,
+                n0 + next(n) * t), blocks=2))
+    log(f"phase 3 K12 (unclamped and clamped {CLAMP}), K13 and K16 at the "
+        f"depth-0 pipeline's edges == plain over 2 blocks each (K12/K13: "
+        f"{', '.join(bank)}; K16: {', '.join(lockin)}): max |d| "
+        f"{errs['fastlo_df1_dec_bank']}, "
+        f"{errs['fastlo_df1_dec_bank_clamp']}, "
+        f"{errs['fastlo_ddc_bank_block']}, {errs['ddc_lockin_bank']}")
+
+
 def check_biquad_kernels(dev, i32, errs, plain_s, ba, ba_bank, pll_ba):
     """Phase 3 for K11-K14 at full width: K11-K13 at c = C_BANK (d = 16,
     time chunk TC), K14 at c = C_MAIN and C_WIDE with int32 and f32
@@ -2917,10 +3045,15 @@ def time_slice5(dev, rng, card, timings, plain_s):
     lo_fs, ba_lk = lockin_setup()
     x = normal_f32(dev, rng, (T,))
     sl0 = biquad_f32_state(dev, rng, 2 * C_LOCKIN)
-    k_s, _ = measure_rate(lambda s: ddc_lockin_bank(
-        ba_lk, s, x, lo_fs, 0, time_chunk=TC_LOCKIN), sl0, iters=20, trials=3)
+    def k16(s):
+        return ddc_lockin_bank(ba_lk, s, x, lo_fs, 0, time_chunk=TC_LOCKIN)
+
+    k_s, _ = measure_rate(k16, sl0, iters=20, trials=3)
     p_s = plain_s["ddc_lockin_bank"]
-    record("ddc_lockin_bank", C_LOCKIN, k_s, p_s, note=f"c={C_LOCKIN}")
+    dev_ms = launch_device_ms("ddc_lockin_bank", k16, sl0)
+    record("ddc_lockin_bank", C_LOCKIN, k_s, p_s, note=f"c={C_LOCKIN}, "
+           f"device {dev_ms} ms a launch (profiler spans)")
+    timings["kernels"]["ddc_lockin_bank"][C_LOCKIN]["device_ms"] = dev_ms
     timings["lockin_samples_per_s"] = {}
     for m in ("scan", "kernel"):
         bank = DdcLockinBank(m, lo_fs, ba_lk, time_chunk=TC_LOCKIN,
@@ -4636,6 +4769,7 @@ def main():
     check_structure_kernels(dev, rng, errs, plain_s)
     check_serial_pipe_edges(dev, i32, errs)
     check_depth0_edges(dev, i32, errs)
+    check_bank_lockin_edges(dev, i32, errs)
     log(f"phase 3 done at {time.perf_counter() - wall0:.1f} s")
 
     # ---- phase 4: the main path ---------------------------------------
@@ -5024,22 +5158,21 @@ def main():
                                           d=DEC, time_chunk=TC), bq0),
         "fastlo_ddc_bank_block": (k13(fastlo_ddc_bank_block), (bq0, pll0)),
     })
+    cases["fastlo_df1_dec_bank_clamp"] = (
+        lambda s: fastlo_df1_dec_bank(ba_bank, s, ph0, bank_steps, x, 29,
+                                      d=DEC, clamp=CLAMP, time_chunk=TC),
+        bq0)
     for name, (kern, st) in cases.items():
         k_s, _ = measure_rate(kern, st, iters=20, trials=3)
         p_s = plain_s[name]  # timed in phase 3 on the same shapes
-        timings["kernels"].setdefault(name, {})[c] = {
+        entry = timings["kernels"].setdefault(name, {})[c] = {
             "ms": k_s * 1e3, "plain_ms": p_s * 1e3}
-        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
+        note = ""
+        if name in DEVICE_SYMBOLS:
+            entry["device_ms"] = launch_device_ms(name, kern, st)
+            note = f", device {entry['device_ms']} ms a launch"
+        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms{note}, plain "
             f"{p_s * 1e3:.2f} ms (phase 3)  [{card}]")
-    name = "fastlo_df1_dec_bank_clamp"  # plain timed in phase 3
-    k_s, _ = measure_rate(
-        lambda s: fastlo_df1_dec_bank(ba_bank, s, ph0, bank_steps, x, 29,
-                                      d=DEC, clamp=CLAMP, time_chunk=TC),
-        bq0, iters=20, trials=3)
-    timings["kernels"][name] = {c: {"ms": k_s * 1e3,
-                                    "plain_ms": plain_s[name] * 1e3}}
-    log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
-        f"{plain_s[name] * 1e3:.2f} ms (phase 3)  [{card}]")
     layers = {
         "fastlo_mix": lambda _: fastlo_mix(x, ph0, bank_steps, TC),
         "atan2_decimated": lambda _: atan2(phd, phd.flip(0)),

@@ -55,12 +55,12 @@ _SIGNATURES = {
     "idsp_df1_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P],
     "idsp_df1_dither_bank": [_P] * 8 + [_I] * 17 + [_P],
     "idsp_df1_dither_bank_coef": [_P] * 9 + [_I] * 12 + [_P],
-    "idsp_ddc_cascade": [_P] * 13 + [_I] * 14 + [_P, _P] + [_I] * 5 + [_P],
+    "idsp_ddc_cascade": [_P] * 11 + [_I] * 14 + [_P, _P] + [_I] * 5 + [_P],
     "idsp_ddc_mix_df1": [_P] * 8 + [_I] * 14 + [_P],
     "idsp_lowpass_bank": [_P] * 4 + [_I] * 6 + [_P],
     "idsp_pll_bank": [_P] * 4 + [_I] * 5 + [_P],
     "idsp_ddc_bank_lp": [_P] * 11 + [_I] * 10 + [_P],
-    "idsp_ddc_bank_df1": [_P] * 12 + [_I] * 17 + [_P],
+    "idsp_ddc_bank_df1": [_P] * 10 + [_I] * 22 + [_P],
     "idsp_hbf_dec_cascade": [_P] * 4 + [_I] * 6 + [_P] * 4,
     "idsp_hbf_int_cascade": [_P] * 4 + [_I] * 6 + [_P] * 4,
     "idsp_hbf_dec_band": [_P] * 4 + [_I] * 6 + [_P] * 4,
@@ -71,7 +71,7 @@ _SIGNATURES = {
     "idsp_cic_dec_bank": [_P] * 4 + [_I] * 4 + [_P],
     "idsp_cic_int_bank": [_P] * 4 + [_I] * 4 + [_P],
     "idsp_fm_disc_bank": [_P] * 13 + [_I] * 16 + [_P],
-    "idsp_ddc_lockin": [_P] * 10 + [_I] * 3 + [_F] * 5 + [_P],
+    "idsp_ddc_lockin": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_I] * 5 + [_P],
     "idsp_channelize": [_P] * 10 + [_I] * 8 + [_P],
     "idsp_svf_bank": [_P] * 8 + [_I] * 3 + [_F] * 2 + [_I] * 5 + [_P],
     "idsp_normal_bank_q": [_P] * 6 + [_I] * 8 + [_P],

@@ -1,6 +1,6 @@
-"""Time K1, K2, K3, K6, K7, K8, K14, K15, K17, K19, K22 "highest", K29,
-K31, K33, K34, K37 and K38-K40 of two checkouts of the port in turns, in
-one process.
+"""Time K1, K2, K3, K6, K7, K8, K12 (and its ``clamp=``), K13, K14, K15,
+K16, K17, K19, K22 "highest", K29, K31, K33, K34, K37 and K38-K40 of two
+checkouts of the port in turns, in one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -10,7 +10,8 @@ Usage (on a CUDA machine, from the root of a checkout)::
 substrings (e.g. ``--only highest,wdf``; K2, K3, K19: ``--only
 df1_hbf,fastlo_ddc_cascade,df1_clamp``; K14, K15: ``--only
 mix_df1,fm_disc``; K29, K37: ``--only q64,rpll``; K31, K33, K34:
-``--only dither,svf``).
+``--only dither,svf``; K12, its ``clamp=``, K13, K6 and K16: ``--only
+fastlo_df1_dec,fastlo_ddc_bank,ddc_lockin``).
 
 Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
 loaded under a name of its own, so both live in this process, and each
@@ -41,7 +42,13 @@ in +-2^24, zero state; unclamped and clamped with the suite's row (0,
 +-2^30), which pins nothing), K33 `df1_dither_bank_coef` (per-lane Q29
 lowpass planes at 1024 frequencies in [0.01, 0.2], and the shared set)
 and K34 `svf_bank` (the suite's row (0.01, 0.7), x ~ N(0, 1), zero
-state; each of its four outputs) at the same width.  The two trees must
+state; each of its four outputs) at the same width; K12
+`fastlo_df1_dec_bank` (unclamped and with ``clamp=`` (2^10, +-2^23)) and
+K13 `fastlo_ddc_bank_block` at c = 1024 (the suite's bank filter, the
+Q29 lowpass at 0.004; d = 16, time chunk 128; x, a zero phase, the K6
+steps; zero state) and K16 `ddc_lockin_bank` at c = 512 (LO frequencies
+0.05-0.45, the lowpass at 0.002, x ~ N(0, 1), time chunk 512, zero
+state), as `chip_smoke.py` runs them.  The two trees must
 compute the same words, K17 within 2e-5 of the scale (its sums run in
 another order).
 One sample is the CUDA-event time of ITERS launches on the same inputs,
@@ -77,6 +84,8 @@ ROUNDS, ITERS = 30, 20
 C_WDF = 1024  # K38-K40's lanes
 C_FM, FM_CARRIER = 512, 12345  # K15's channels and carrier word
 C_SERIAL = 1024  # K29's, K31's, K33's, K34's and K37's lanes
+C_BANK, C_LOCKIN, TC_LOCKIN = 1024, 512, 512  # K12/K13's, K16's widths
+BANK_CLAMP = (1 << 10, -(1 << 23), 1 << 23)  # K12's clamp= in chip_smoke
 DITHER_CLAMP = (0, -(2**30), 2**30)  # the suite's clamped-dither row
 SVF_ROW = (0.01, 0.7)  # the suite's SVF row (f0, Q)
 # wdf-ca-7 and wdf-ca-19 (benches/suite.py:442-500): per branch, stages of
@@ -113,7 +122,7 @@ def cases(alias: str, dev, inputs):
         "filters.ddc_cuda", "filters.fm_cuda", "pipelines.fm_disc",
         "filters.wdf_cuda", "pipelines.channelizer",
         "pipelines.channelizer_cuda", "filters.rpll", "filters.rpll_cuda",
-        "filters.svf", "filters.svf_cuda")}
+        "filters.svf", "filters.svf_cuda", "filters.ddc_lockin_cuda")}
     biquad, lowpass, pll = (sub["filters.biquad"], sub["filters.lowpass"],
                             sub["filters.pll"])
     ba = biquad.quantize_ba(biquad.from_cookbook(
@@ -190,6 +199,28 @@ def cases(alias: str, dev, inputs):
         lambda st=rpll.init((C_SERIAL,), device=dev):
         sub["filters.rpll_cuda"].rpll_bank(rpll.RpllConfig(8, 12, 11), st,
                                            *inputs["rpll"]))
+    bank = sub["filters.ddc_bank_cuda"]
+    ba_bank = biquad.quantize_ba(biquad.from_cookbook(
+        sub["design"].Filter().critical_frequency(0.004).lowpass()), 29)
+    for label, clamp in (("", None), (" clamp", BANK_CLAMP)):
+        out[f"fastlo_df1_dec_bank{label} c={C_BANK}"] = (
+            lambda st=biquad.df1_init((2 * C_BANK,), device=dev), cl=clamp:
+            bank.fastlo_df1_dec_bank(ba_bank, st, inputs["ph0"],
+                                     inputs["steps"], inputs["x"], 29,
+                                     d=DEC, clamp=cl, time_chunk=TC))
+    out[f"fastlo_ddc_bank_block c={C_BANK}"] = (
+        lambda st=biquad.df1_init((2 * C_BANK,), device=dev),
+        pst=pll.init((C_BANK,), device=dev): bank.fastlo_ddc_bank_block(
+            ba_bank, pll_ba, st, pst, inputs["ph0"], inputs["steps"],
+            inputs["x"], 29, d=DEC, time_chunk=TC))
+    ba_lk = biquad.from_cookbook(sub["design"].Filter().critical_frequency(
+        0.002).lowpass()).astype(np.float32)
+    lo_fs = np.linspace(0.05, 0.45, C_LOCKIN)
+    out[f"ddc_lockin_bank c={C_LOCKIN}"] = (
+        lambda st=biquad.df1_init((2 * C_LOCKIN,), torch.float32,
+                                  device=dev):
+        sub["filters.ddc_lockin_cuda"].ddc_lockin_bank(
+            ba_lk, st, inputs["xlk"], lo_fs, 0, time_chunk=TC_LOCKIN))
     lp0 = lowpass.init(2, (2048,), device=dev)
     pll0 = pll.init((1024,), device=dev)
     out["fastlo_ddc_bank_block_lp c=1024"] = lambda: k6(
@@ -309,6 +340,8 @@ def main() -> None:
     inputs["x29"] = i32((T, C_SERIAL), -(2**24), 2**24)
     inputs["xf"] = torch.from_numpy(
         rng.normal(size=(T, C_SERIAL)).astype(np.float32)).to(dev)
+    inputs["xlk"] = torch.from_numpy(
+        rng.normal(size=T).astype(np.float32)).to(dev)
     inputs["planes29"] = torch.from_numpy(np.stack([
         trees_biquad.quantize_ba(trees_biquad.from_cookbook(
             trees_design.Filter().critical_frequency(fc).lowpass()), 29)

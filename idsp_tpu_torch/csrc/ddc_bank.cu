@@ -2,55 +2,82 @@
 // fast-LO conjugate mix, a channel filter on I and Q, keep-1-in-d, and
 // (K6, K13) atan2 and one PLL step per kept row.
 //
-// One template, four instances, by channel filter and back end:
-//  * K6, `Lowpass<N>`, PLL with its output: replaces the Pallas kernel of
-//    idsp_tpu/filters/ddc_pallas.py `fastlo_ddc_bank_block_lp` (:1066);
-//  * K13, the Q<f> DF1 biquad, PLL without its output (the JAX wrapper
-//    drops it): `fastlo_ddc_bank_block` (:1018);
-//  both `_fastlo_ddc_bank_impl` (:1156, pallas_call :1265);
-//  * K12, the DF1 without the back end: `fastlo_df1_dec_bank` (:870,
+// Two kernels:
+//  * K12 and K13 (`ddc_bank_df1_kernel`), the Q<f> DF1 biquad:
+//    `fastlo_df1_dec_bank` (K12; idsp_tpu/filters/ddc_pallas.py :870,
 //    `_fastlo_df1_dec_impl` :906, pallas_call :987; body `_iir_df1_body`
-//    :260), and with its `clamp=` the anti-windup DF1 (body
-//    `_iir_df1_clamp_body` :273; `Df1ClampFilter`).
+//    :260, and with its `clamp=` the anti-windup DF1, body
+//    `_iir_df1_clamp_body` :273) and `fastlo_ddc_bank_block` (K13, :1018:
+//    K12, then atan2 and the PLL, whose output the JAX wrapper drops);
+//  * K6 (`ddc_bank_lp_kernel`), `Lowpass<N>` and the PLL with its output:
+//    `fastlo_ddc_bank_block_lp` (:1066);
+//  K6 and K13 both `_fastlo_ddc_bank_impl` (:1156, pallas_call :1265).
 // On the TPU the grid walked time chunks with the I|Q lanes on
 // (2c/128, 128) tiles: the chunk's mix and filter ran lane-parallel,
 // then atan2 ran vectorized over the kept rows with I in lane ch and Q
-// in lane c + ch, then the PLL scanned them.  Here one thread owns one
-// channel (I and Q both) for the whole block: it needs no traffic
-// between threads, and it computes the same values, since atan2 is
-// elementwise and the PLL a scan over the kept rows in order.
+// in lane c + ch, then the PLL scanned them.
 //
-// Per chunk q of tc rows (tc % d == 0) the thread makes two passes, as
-// the TPU kernel did: (A) it reads the chunk's coarse LO factor; per
-// row it reads x[row] (the same word for every thread) and the fine
-// factor of its channel, mixes (fastlo.cuh, shared with K3) and steps
-// the two filter recurrences (lowpass.cuh, shared with K4, or df1.cuh,
-// shared with K1-K3 and K11; two independent chains), storing I and Q
-// of the rows 0, d, 2d, ...; (B, not K12) over the chunk's tc/d kept
-// rows, in order, it reads I and Q back, computes atan2_i32 (atan2.cuh)
-// and steps the PLL (pll.cuh, shared with K5).
+// K12/K13.  What bounds them on the H100: the DF1 recurrence, serial in
+// time in each of the 2c lanes: the DF1 warp of df1_ring.cuh takes ~42
+// cycles a row (PERF.md §6), 0.70 ms for a block of 32768 rows.  The mix
+// is three loads (x, the coarse and the fine (cos, sin) pairs) and eight
+// f32 operations a row and lane, off that chain, but with the addresses,
+// the selects and the rounding the producers' compiled batch loop holds
+// ~70 instructions a row (both of its load paths): 4 producers set the
+// pace (~73 cycles a row, PERF.md §6), 8 keep up; the back end
+// (K13: atan2 and the PLL's 64-bit update, itself serial in each channel)
+// runs on 1 row in d.  Per block the kernel reads x (t,) and the LO
+// factor tables and writes only the kept rows (8 B per channel and kept
+// row) and the state.
 //
-// What bounds it on the H100: the serial recurrences of the thread:
-// the filter chain every row and the PLL update every d-th row, with
-// c channels in c/32 warps, one warp on each of c/32 SMs.  Per block it
-// reads x (t,) and the small LO tables and writes only the decimated
-// outputs (8 B per channel and kept row, 12 B with K6's PLL output) and
-// the state.
+// What the design does about it: df1_ring.cuh's depth-0 pipeline
+// (`run_roles`).  A block is a tile of 16 channels, paired: lane lid < 16
+// is the I lane of channel ch0 + lid, lane lid >= 16 its Q lane (state
+// row c + ch), so that a channel's I and Q meet in one CTA for atan2
+// without a cluster; c / 16 tiles (64 at c = 1024, one CTA an SM).
+// `producers` warps (8 by default), each a span of every chunk, compute
+// the mixed rows into the input ring (fastlo.cuh `fastlo_mix_rows`, K3's
+// producer: a batch's loads issued while the batch before is mixed, one
+// coarse load a batch, the I and Q lanes one sequence of operations); the
+// DF1 warp alone on its scheduler turns each slot into a slot of the
+// output ring (`df1_warp`, clamped for K12's `clamp=`); a back-end warp in
+// the store warp's place takes each slot's kept rows -- the block's rows r
+// with r % d == 0, whatever the chunk -- to yiq, two runs of 16 words a
+// row (I at column ch0, Q at c + ch0), and for K13 computes atan2(Q, I) of
+// two kept rows at once (lanes 0-15 the first, 16-31 the second; the seed
+// LUT in shared memory, `load_atan2_lut`) and steps the PLL over the kept
+// rows in order on lanes 0-15, one a channel.  The plan (warps, roles,
+// chunk, ring depth, shared memory) is the host's (filters/ddc_bank_cuda.py
+// `bank_plan` on filters/pipe_plan.py), which the entry point checks.
 //
-// What the design does about it: pass A's inputs are prefetched one
-// group ahead (seq_bank.cuh `seq_rows`) and its I and Q chains
-// interleave (ILP 2); pass B keeps atan2 and the PLL update out of the
-// unrolled row loop, so that loop stays one small basic block (a first
-// version with them inside the unrolled rows, behind the keep test,
-// took 3.6x K4's time on an H100), and it loads the next kept row while
-// the current one computes.  The mix's f32 operations are single
-// roundings in the plain version's order (bit-identical to it).
+// K6.  One thread owns one channel (I and Q both) for the whole block:
+// per chunk q of tc rows (tc % d == 0) it makes two passes, as the TPU
+// kernel did: (A) it reads the chunk's coarse LO factor; per row it reads
+// x[row] (the same word for every thread) and the fine factor of its
+// channel, mixes (fastlo.cuh) and steps the two Lowpass recurrences
+// (lowpass.cuh, shared with K4; two independent chains), storing I and Q
+// of the rows 0, d, 2d, ...; (B) over the chunk's tc/d kept rows, in
+// order, it reads I and Q back, computes atan2_i32 (atan2.cuh) and steps
+// the PLL (pll.cuh, shared with K5).  What bounds it: the thread's serial
+// recurrences, the filter chain every row and the PLL update every d-th
+// row, with c channels in c/32 warps, one warp on each of c/32 SMs.  Pass
+// A's inputs are prefetched one group ahead (seq_bank.cuh `seq_rows`) and
+// its I and Q chains interleave (ILP 2); pass B keeps atan2 and the PLL
+// update out of the unrolled row loop (a first version with them inside
+// the unrolled rows, behind the keep test, took 3.6x K4's time on an
+// H100), and it loads the next kept row while the current one computes.
+//
+// Numerics: the mix's f32 operations are single roundings in the plain
+// version's order, the rest exact integer arithmetic: bit-identical to
+// the plain versions, and no plan changes a value.
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 #include "atan2.cuh"
 #include "df1.cuh"
+#include "df1_ring.cuh"
 #include "fastlo.cuh"
 #include "lowpass.cuh"
 #include "pll.cuh"
@@ -59,10 +86,132 @@
 namespace {
 
 using idsp::kBankLanes;
+using idsp::ring::kLanes;
+using idsp::ring::Pipe;
+using idsp::ring::Rings;
 
-// The channel filter of one lane behind one interface: its coefficients
-// (Coefs), where its state is read and written (State), load/store of
-// lane `lane`'s state and one step.
+// ---- K12 and K13: the depth-0 pipeline ------------------------------------
+
+constexpr int kPair = kLanes / 2;  // channels of a K12/K13 tile
+
+// A launch: p.d the DF1 (rows, chunk, ring depth, state (2c, 2) in and
+// out, coefficients, clamp), p.c2 = 2c; m the mix's inputs; yiq (t/d, 2c);
+// K13's PLL state words in and out and its coefficients.
+struct BankArgs {
+  Pipe p;
+  idsp::FastLoPlanes m;
+  int32_t* yiq;
+  int d;
+  idsp::PllWords pll_in, pll_out;
+  idsp::PllCoefs pk;
+};
+
+// Lane lid of tile blockIdx.x: channel ch, its I lane (lid < kPair) or Q
+// lane; row, the lane's state row and yiq column (I: ch, Q: c + ch); a
+// lane of a channel past c is dead (it still reaches every barrier).
+struct PairLane {
+  int ch, row;
+  bool is_q, live;
+};
+
+__device__ __forceinline__ PairLane pair_lane(int c, int lid) {
+  const int ch = blockIdx.x * kPair + lid % kPair;
+  const bool is_q = lid >= kPair;
+  return PairLane{ch, is_q ? c + ch : ch, is_q, ch < c};
+}
+
+// The serial warp: the DF1 warp on the tile's paired lanes.
+template <bool Clamp>
+struct BankSerial {
+  const BankArgs* a;
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int, bool,
+                                             uint32_t) const {
+    const PairLane me = pair_lane(a->m.c, lid);
+    idsp::ring::df1_warp<Clamp>(a->p.d, R, reinterpret_cast<int32_t*>(out) +
+                                               lid,
+                                lid, me.row, me.live);
+  }
+};
+
+// The back end, in the store warp's place: for each output slot (out:
+// slot 0) its kept rows -- block rows r with r % d == 0 -- to yiq; with
+// Pll (K13), then atan2(Q, I) of two kept rows at once (lanes 0-15 the
+// first, 16-31 the second, handed to lanes 0-15 by a shuffle) and the
+// PLL's steps over them in order on lanes 0-15, one lane a channel; the
+// PLL state stored at the end.
+template <bool Pll>
+__device__ __forceinline__ void back_end(
+    const BankArgs& a, const Rings& R, const int32_t* out, int lid,
+    const idsp::atan2_detail::SharedLut& lut) {
+  const Pipe& p = a.p;
+  const int d = a.d, chunk = p.d.chunk;
+  const size_t c2 = 2 * static_cast<size_t>(a.m.c);
+  const PairLane me = pair_lane(a.m.c, lid);
+  const int pc = lid % kPair;  // the channel's I word of a slot row
+  const bool pll_lane = Pll && lid < kPair && me.live;
+  idsp::PllLane pll{};
+  if (pll_lane) pll.load(a.pll_in, me.ch);
+  int first = 0;  // the chunk's first kept row
+  idsp::sm90::Cursor u;
+  for (int r0 = 0; r0 < p.d.t; r0 += chunk, u.next(p.d.depth)) {
+    const int rows = min(chunk, p.d.t - r0);
+    idsp::sm90::mbar_wait(R.full_out(u.k), u.ph);
+    const int32_t* s = out + static_cast<size_t>(u.k) * chunk * kLanes;
+    if (me.live) {
+      int32_t* y =
+          a.yiq + static_cast<size_t>((r0 + first) / d) * c2 + me.row;
+      for (int r = first; r < rows; r += d, y += c2) *y = s[r * kLanes + lid];
+    }
+    if constexpr (Pll) {
+      for (int r = first; r < rows; r += 2 * d) {
+        const int32_t* w = s + min(r + lid / kPair * d, rows - 1) * kLanes;
+        const int32_t ang = idsp::atan2_i32(w[kPair + pc], w[pc], lut);
+        const int32_t next = __shfl_down_sync(0xFFFFFFFFu, ang, kPair);
+        if (lid < kPair) {
+          pll.step(a.pk, ang);
+          if (r + d < rows) pll.step(a.pk, next);
+        }
+      }
+    }
+    idsp::sm90::mbar_arrive(R.empty_out(u.k));
+    const int kept = first < rows ? (rows - first + d - 1) / d : 0;
+    first += kept * d - rows;
+  }
+  if (pll_lane) pll.store(a.pll_out, me.ch);
+}
+
+template <bool Clamp, bool Pll>
+__global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
+    ddc_bank_df1_kernel(const __grid_constant__ BankArgs a) {
+  __shared__ uint32_t lut_base[16];
+  __shared__ int32_t lut_slope[16];
+  extern __shared__ __align__(16) unsigned char smem[];
+  // published by run_roles' barrier
+  const auto lut = idsp::load_atan2_lut(lut_base, lut_slope);
+  idsp::ring::run_roles<1>(
+      a.p, smem, BankSerial<Clamp>{&a},
+      [&](const Rings& R, int pw, int lid, int, bool, bool) {
+        const PairLane me = pair_lane(a.m.c, lid);
+        idsp::fastlo_mix_rows(a.m, a.p.d.t, a.p.d.chunk, a.p.d.depth, R,
+                              a.p.producers, pw, lid, me.ch, me.is_q,
+                              me.live);
+      },
+      [&](const Rings& R, const uint32_t* out, int lid, int) {
+        back_end<Pll>(a, R, reinterpret_cast<const int32_t*>(out), lid, lut);
+      });
+}
+
+idsp::PllWords words(void* const* p) {
+  idsp::PllWords w{};
+  for (int i = 0; i < 7; ++i) w.p[i] = p[i];
+  return w;
+}
+
+// ---- K6: a thread a channel -------------------------------------------------
+
+// The Lowpass<N> of one lane: its gains, where its state is read and
+// written, load/store of lane `lane`'s state and one step.
 template <int N>
 struct LpFilter {
   using Coefs = idsp::LpGains;
@@ -82,46 +231,13 @@ struct LpFilter {
   }
 };
 
-struct Df1Filter {
-  using Coefs = idsp::Df1Coefs;
-  struct State {
-    const int32_t* x_in;  // Df1State.x, .y (2c, 2)
-    const int32_t* y_in;
-    int32_t* x_out;
-    int32_t* y_out;
-  };
-  idsp::Df1Lane s;
-  __device__ __forceinline__ void load(const State& st, int lane) {
-    s.load(st.x_in, st.y_in, lane);
-  }
-  __device__ __forceinline__ void store(const State& st, int lane) const {
-    s.store(st.x_out, st.y_out, lane);
-  }
-  __device__ __forceinline__ int32_t step(const Coefs& k, int32_t x) {
-    return s.step(k, x);
-  }
-};
-
-// The anti-windup DF1 (K12's `clamp=`): offset and clamp before
-// feedback (df1.cuh `Df1Clamp`).
-struct Df1ClampFilter : Df1Filter {
-  struct Coefs {
-    idsp::Df1Coefs k;
-    idsp::Df1Clamp cl;
-  };
-  __device__ __forceinline__ int32_t step(const Coefs& c, int32_t x) {
-    return s.step_clamp(c.k, c.cl, x);
-  }
-};
-
 struct MixIn {
   int32_t x;
   float cb, sb;  // the row's fine LO factor for this channel
 };
 
-// Pll: pass B (atan2 and the PLL); PllOut: with the PLL's output ypll.
-template <class Filter, bool Pll, bool PllOut>
-__global__ void __launch_bounds__(kBankLanes) ddc_bank_kernel(
+template <class Filter>
+__global__ void __launch_bounds__(kBankLanes) ddc_bank_lp_kernel(
     const int32_t* __restrict__ x, const float* __restrict__ ca,
     const float* __restrict__ sa, const float* __restrict__ cb,
     const float* __restrict__ sb, typename Filter::State fs,
@@ -134,7 +250,7 @@ __global__ void __launch_bounds__(kBankLanes) ddc_bank_kernel(
   f_i.load(fs, ch);
   f_q.load(fs, c + ch);
   idsp::PllLane pll;
-  if constexpr (Pll) pll.load(pll_in, ch);
+  pll.load(pll_in, ch);
   const size_t c2 = 2 * static_cast<size_t>(c);
   const int nkeep = tc / d;  // kept rows per chunk
   const int nchunks = t / tc;
@@ -164,54 +280,43 @@ __global__ void __launch_bounds__(kBankLanes) ddc_bank_kernel(
             out += c2;
           }
         });
-    if constexpr (Pll) {
-      // (B) atan2 and the PLL over the kept rows (this thread's own
-      // stores above, read back in program order)
-      int32_t* yp = ypll + static_cast<size_t>(q) * nkeep * c + ch;
-      int32_t ni = iq_rows[0], nq = iq_rows[c];
+    // (B) atan2 and the PLL over the kept rows (this thread's own stores
+    // above, read back in program order)
+    int32_t* yp = ypll + static_cast<size_t>(q) * nkeep * c + ch;
+    int32_t ni = iq_rows[0], nq = iq_rows[c];
 #pragma unroll 1
-      for (int j = 0; j < nkeep; ++j) {
-        const int32_t ci = ni, cq = nq;
-        if (j + 1 < nkeep) {
-          ni = iq_rows[(j + 1) * c2];
-          nq = iq_rows[(j + 1) * c2 + c];
-        }
-        const int32_t y = pll.step(pk, idsp::atan2_i32(cq, ci));
-        if constexpr (PllOut) yp[static_cast<size_t>(j) * c] = y;
+    for (int j = 0; j < nkeep; ++j) {
+      const int32_t ci = ni, cq = nq;
+      if (j + 1 < nkeep) {
+        ni = iq_rows[(j + 1) * c2];
+        nq = iq_rows[(j + 1) * c2 + c];
       }
+      yp[static_cast<size_t>(j) * c] = pll.step(pk, idsp::atan2_i32(cq, ci));
     }
   }
   f_i.store(fs, ch);
   f_q.store(fs, c + ch);
-  if constexpr (Pll) pll.store(pll_out, ch);
+  pll.store(pll_out, ch);
 }
 
-idsp::PllWords words(void* const* p) {
-  idsp::PllWords w{};
-  for (int i = 0; i < 7; ++i) w.p[i] = p[i];
-  return w;
-}
-
-template <class Filter, bool Pll, bool PllOut>
-int launch(const void* x, const void* ca, const void* sa, const void* cb,
-           const void* sb, const typename Filter::State& fs,
-           const typename Filter::Coefs& fk, void* const* pll_in,
-           void* const* pll_out, void* yiq, void* ypll, int t, int c,
-           int tc, int d, const idsp::PllCoefs& pk, void* stream) {
+template <int N>
+int launch_lp(const void* x, const void* ca, const void* sa, const void* cb,
+              const void* sb, const void* lp_in, void* lp_out,
+              void* const* pll_in, void* const* pll_out, void* yiq,
+              void* ypll, int t, int c, int tc, int d,
+              const idsp::LpGains& g, const idsp::PllCoefs& pk,
+              void* stream) {
   if (d < 1 || tc < 1) return static_cast<int>(cudaErrorInvalidValue);
-  idsp::PllWords w_in{}, w_out{};
-  if constexpr (Pll) {
-    w_in = words(pll_in);
-    w_out = words(pll_out);
-  }
+  const typename LpFilter<N>::State fs{static_cast<const int64_t*>(lp_in),
+                                       static_cast<int64_t*>(lp_out)};
   const dim3 grid((c + kBankLanes - 1) / kBankLanes);
-  ddc_bank_kernel<Filter, Pll, PllOut>
+  ddc_bank_lp_kernel<LpFilter<N>>
       <<<grid, kBankLanes, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int32_t*>(x), static_cast<const float*>(ca),
           static_cast<const float*>(sa), static_cast<const float*>(cb),
-          static_cast<const float*>(sb), fs, fk, w_in, w_out,
-          static_cast<int32_t*>(yiq), static_cast<int32_t*>(ypll), t, c, tc,
-          d, pk);
+          static_cast<const float*>(sb), fs, g, words(pll_in),
+          words(pll_out), static_cast<int32_t*>(yiq),
+          static_cast<int32_t*>(ypll), t, c, tc, d, pk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,55 +336,71 @@ extern "C" int idsp_ddc_bank_lp(const void* x, const void* ca, const void* sa,
                                 int a1, void* stream) {
   const idsp::LpGains g{k0, k1};
   const idsp::PllCoefs pk{b0, b1, a1};
-  if (n == 1) {
-    const LpFilter<1>::State fs{static_cast<const int64_t*>(lp_in),
-                                static_cast<int64_t*>(lp_out)};
-    return launch<LpFilter<1>, true, true>(x, ca, sa, cb, sb, fs, g, pll_in,
-                                           pll_out, yiq, ypll, t, c, tc, d,
-                                           pk, stream);
-  }
-  if (n == 2) {
-    const LpFilter<2>::State fs{static_cast<const int64_t*>(lp_in),
-                                static_cast<int64_t*>(lp_out)};
-    return launch<LpFilter<2>, true, true>(x, ca, sa, cb, sb, fs, g, pll_in,
-                                           pll_out, yiq, ypll, t, c, tc, d,
-                                           pk, stream);
-  }
+  if (n == 1)
+    return launch_lp<1>(x, ca, sa, cb, sb, lp_in, lp_out, pll_in, pll_out,
+                        yiq, ypll, t, c, tc, d, g, pk, stream);
+  if (n == 2)
+    return launch_lp<2>(x, ca, sa, cb, sb, lp_in, lp_out, pll_in, pll_out,
+                        yiq, ypll, t, c, tc, d, g, pk, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K12 when pll_in is null, else K13: the same inputs with the Q<f> DF1
-// state sx/sy (2c, 2) i32 in and out; yiq (t/d, 2c) i32.  K13 steps the
+// K12 when pll_in is null, else K13: x (t,) i32 and the fast-LO factor
+// tables, coarse the (ca, sa) pairs (t/tc, c) and fine the (cb, sb) pairs
+// (tc, c), float2 each; the Q<f> DF1 state sx/sy (2c, 2) i32 in and out;
+// yiq (t/d, 2c) i32.  K13 steps the
 // PLL state (pll_in -> pll_out, coefficients pb0, pb1, pa1) and writes
 // no PLL output.  clamp != 0 (K12 only) runs the anti-windup DF1 with
-// offset u and bounds lo, hi.
-extern "C" int idsp_ddc_bank_df1(const void* x, const void* ca,
-                                 const void* sa, const void* cb,
-                                 const void* sb, const void* sx,
+// offset u and bounds lo, hi.  warps, producers, chunk, ring (slots a
+// ring) and smem are the host plan's (filters/ddc_bank_cuda.py
+// `bank_plan`) over 2c lanes in c / 16 tiles.  A plan the kernel cannot
+// run is refused; a refused call launches nothing and leaves no CUDA error
+// pending.
+extern "C" int idsp_ddc_bank_df1(const void* x, const void* coarse,
+                                 const void* fine, const void* sx,
                                  const void* sy, void* sx_out, void* sy_out,
                                  void* const* pll_in, void* const* pll_out,
                                  void* yiq, int t, int c, int tc, int d,
                                  int f, int b0, int b1, int b2, int a1,
                                  int a2, int pb0, int pb1, int pa1,
-                                 int clamp, int u, int lo, int hi,
+                                 int clamp, int u, int lo, int hi, int warps,
+                                 int producers, int chunk, int ring, int smem,
                                  void* stream) {
-  const Df1Filter::State fs{
-      static_cast<const int32_t*>(sx), static_cast<const int32_t*>(sy),
-      static_cast<int32_t*>(sx_out), static_cast<int32_t*>(sy_out)};
-  const idsp::Df1Coefs k{b0, b1, b2, a1, a2, f};
-  const idsp::PllCoefs pk{pb0, pb1, pa1};
-  if (clamp) {
-    if (pll_in != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<Df1ClampFilter, false, false>(
-        x, ca, sa, cb, sb, fs, Df1ClampFilter::Coefs{k, {u, lo, hi}},
-        nullptr, nullptr, yiq, nullptr, t, c, tc, d, pk, stream);
+  if (c < 1 || d < 1 || tc < 1 || f <= 0 || f >= 64 ||
+      (clamp && pll_in != nullptr) ||
+      !idsp::ring::pipe_plan_ok(t, 2 * c, warps, producers, chunk, ring,
+                                smem) ||
+      t % tc != 0 || t % d != 0 || !idsp::fastlo_offsets_ok(t, tc, c))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BankArgs a{};
+  a.p.d = idsp::ring::Df1Ring{t,
+                              chunk,
+                              ring,
+                              static_cast<const int32_t*>(sx),
+                              static_cast<const int32_t*>(sy),
+                              static_cast<int32_t*>(sx_out),
+                              static_cast<int32_t*>(sy_out),
+                              idsp::Df1Coefs{b0, b1, b2, a1, a2, f},
+                              idsp::Df1Clamp{u, lo, hi}};
+  a.p.c2 = 2 * c;  // c / 16 tiles of 32 lanes
+  a.p.warps = warps;
+  a.p.producers = producers;
+  a.p.cluster = 1;
+  a.m = idsp::FastLoPlanes{static_cast<const int32_t*>(x),
+                           static_cast<const float2*>(coarse),
+                           static_cast<const float2*>(fine), c, tc};
+  a.yiq = static_cast<int32_t*>(yiq);
+  a.d = d;
+  a.pk = idsp::PllCoefs{pb0, pb1, pa1};
+  using idsp::ring::launch_pipe;
+  if (pll_in != nullptr) {
+    a.pll_in = words(pll_in);
+    a.pll_out = words(pll_out);
+    return launch_pipe(ddc_bank_df1_kernel<false, true>, a, a.p, smem,
+                       stream);
   }
-  if (pll_in == nullptr) {
-    return launch<Df1Filter, false, false>(x, ca, sa, cb, sb, fs, k, nullptr,
-                                           nullptr, yiq, nullptr, t, c, tc,
-                                           d, pk, stream);
-  }
-  return launch<Df1Filter, true, false>(x, ca, sa, cb, sb, fs, k, pll_in,
-                                        pll_out, yiq, nullptr, t, c, tc, d,
-                                        pk, stream);
+  return clamp ? launch_pipe(ddc_bank_df1_kernel<true, false>, a, a.p, smem,
+                             stream)
+               : launch_pipe(ddc_bank_df1_kernel<false, false>, a, a.p, smem,
+                             stream);
 }

@@ -98,7 +98,7 @@ constexpr uint32_t kFirBarrier = 1;  // the FIR warps' named barrier
 struct Args {
   const int32_t* xs;  // K2: (t, c2) DF1 input
   const int32_t* x;   // K3: (t,) wideband input
-  const float *ca, *sa, *cb, *sb;  // K3: coarse (t/tc, c), fine (tc, c)
+  const float2 *coarse, *fine;  // K3: (ca, sa) (t/tc, c), (cb, sb) (tc, c)
   const int32_t *sx, *sy;
   int32_t *sx_out, *sy_out;
   const float* tails_in;
@@ -179,56 +179,6 @@ __device__ __forceinline__ void load(const Args& a, const Rings& R, int lid,
     cp_async_arrive(R.full_in(u.k));
   }
   cp_async_wait_all();
-}
-
-// K3's producer pw of P: the mixed rows pw, pw + P, ... of each chunk
-// into the input ring (I lanes [0, c), Q lanes [c, 2c)).  Row r mixes with
-// the coarse factor of r / tc and the fine factor of r % tc, counted as
-// the rows advance (P <= tc and chunk % P == 0: a producer's rows are the
-// rows = pw mod P of the block).  kMix rows at a time, every load of the
-// batch issued before any product, so that their latencies overlap.
-constexpr int kMix = 8;
-__device__ __forceinline__ void mix(const Args& a, const Rings& R, int pw,
-                                    int lid, int lane, bool live) {
-  const int P = a.producers, c = a.c2 / 2;
-  const bool is_q = lane >= c;
-  const size_t ch = static_cast<size_t>(is_q ? lane - c : lane);
-  int cq = 0, fr = pw;
-  Cursor u;
-  for (int r0 = 0; r0 < a.t; r0 += a.chunk, u.next(a.ring)) {
-    const int rows = min(a.chunk, a.t - r0);
-    mbar_wait(R.empty_in(u.k), u.ph ^ 1);
-    int32_t* s = R.in_slot(u.k) + lid;
-    for (int r = pw; r < rows; r += P * kMix) {
-      float xh[kMix], cav[kMix], sav[kMix], cbv[kMix], sbv[kMix];
-#pragma unroll
-      for (int v = 0; v < kMix; ++v) {
-        const int rv = r + v * P;
-        const bool in = live && rv < rows;
-        const size_t co = static_cast<size_t>(cq) * c + ch;
-        const size_t fo = static_cast<size_t>(fr) * c + ch;
-        xh[v] = idsp::fastlo_scale(in ? __ldg(a.x + r0 + rv) : 0);
-        cav[v] = in ? __ldg(a.ca + co) : 0.f;
-        sav[v] = in ? __ldg(a.sa + co) : 0.f;
-        cbv[v] = in ? __ldg(a.cb + fo) : 0.f;
-        sbv[v] = in ? __ldg(a.sb + fo) : 0.f;
-        const int step = rv < rows ? P : 0;  // the next row of this producer
-        const bool wrap = fr + step >= a.tc;
-        fr = wrap ? fr + step - a.tc : fr + step;
-        cq += wrap;
-      }
-#pragma unroll
-      for (int v = 0; v < kMix; ++v) {
-        const int rv = r + v * P;
-        if (rv < rows)
-          s[rv * kLanes] = idsp::fastlo_round(
-              is_q ? idsp::fastlo_prod_q(cav[v], sav[v], cbv[v], sbv[v], xh[v])
-                   : idsp::fastlo_prod_i(cav[v], sav[v], cbv[v], sbv[v],
-                                         xh[v]));
-      }
-    }
-    mbar_arrive(R.full_in(u.k));
-  }
 }
 
 // The FIR warps: carried rows in, every chunk through the stages (y out
@@ -342,7 +292,13 @@ __global__ void __launch_bounds__(kLanes* kMaxWarps)
   const int v = warp - warp / 4 - 1;  // index among the other warps
   if (v < a.producers) {
     if constexpr (FastLo) {
-      mix(a, R, v, lid, lane, live);
+      // K3's producer: the fast-LO mix of its rows (I lanes [0, c), Q
+      // lanes [c, 2c))
+      const int c = a.c2 / 2;
+      const bool is_q = lane >= c;
+      idsp::fastlo_mix_rows({a.x, a.coarse, a.fine, c, a.tc}, a.t, a.chunk,
+                            a.ring, R, a.producers, v, lid,
+                            is_q ? lane - c : lane, is_q, live);
     } else {
       load(a, R, lid, lane, live);
     }
@@ -373,8 +329,9 @@ bool aligned16(const void* ptr) {
 }  // namespace
 
 // K2 (K20, K21 at depth 1, 2) when x is null (xs (t, c2) i32 is the DF1
-// input); K3 when x (t,) i32 and the factor tables ca/sa (t/tc, c2/2),
-// cb/sb (tc, c2/2) are given.  clamp != 0 runs the anti-windup DF1 with
+// input); K3 when x (t,) i32 and the factor tables are given: coarse, the
+// (ca, sa) pairs (t/tc, c2/2), and fine, the (cb, sb) pairs (tc, c2/2),
+// float2 each.  clamp != 0 runs the anti-windup DF1 with
 // offset u and bounds lo, hi (K19, and K3's clamp form).  ms (depth,) and
 // taps (sum ms,) are host arrays, highest-rate stage first.  y is
 // (t >> depth, c2) f32; tails are packed (3m-2) rows per stage.  warps,
@@ -383,8 +340,8 @@ bool aligned16(const void* ptr) {
 // make (smem not its own sum, or more than a block may have) is refused.
 // A refused call launches nothing and leaves no CUDA error pending.
 extern "C" int idsp_ddc_cascade(
-    const void* xs, const void* x, const void* ca, const void* sa,
-    const void* cb, const void* sb, const void* sx, const void* sy,
+    const void* xs, const void* x, const void* coarse, const void* fine,
+    const void* sx, const void* sy,
     void* sx_out, void* sy_out, const void* tails_in, void* tails_out,
     void* y, int t, int c2, int tc, int f, int b0, int b1, int b2, int a1,
     int a2, int depth, int clamp, int u, int lo, int hi, const int* ms,
@@ -400,7 +357,8 @@ extern "C" int idsp_ddc_cascade(
       chunk % (1 << depth) != 0 || chunk % producers != 0 ||
       chunk < 4 * p.m[0] - 3 || ring < 2 ||
       (fastlo && (c2 % 2 != 0 || tc < producers || tc % producers != 0 ||
-                  t % tc != 0)))
+                  t % tc != 0 ||
+                  !idsp::fastlo_offsets_ok(t, tc, c2 / 2))))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t rows = depth == 1   ? fir_rows<1>(p, chunk, ring)
                       : depth == 2 ? fir_rows<2>(p, chunk, ring)
@@ -422,10 +380,8 @@ extern "C" int idsp_ddc_cascade(
   Args a{};
   a.xs = static_cast<const int32_t*>(xs);
   a.x = static_cast<const int32_t*>(x);
-  a.ca = static_cast<const float*>(ca);
-  a.sa = static_cast<const float*>(sa);
-  a.cb = static_cast<const float*>(cb);
-  a.sb = static_cast<const float*>(sb);
+  a.coarse = static_cast<const float2*>(coarse);
+  a.fine = static_cast<const float2*>(fine);
   a.sx = static_cast<const int32_t*>(sx);
   a.sy = static_cast<const int32_t*>(sy);
   a.sx_out = static_cast<int32_t*>(sx_out);

@@ -2,12 +2,15 @@
 // DF1 warp that runs in it.  A serial warp alone on its scheduler turns
 // each slot of an input ring into a slot of an output ring (`serial_chunks`);
 // producer warps fill the input ring, a store warp writes the output ring
-// to device memory (`run_pipe`).  Seven kernels run it: K14
+// to device memory (`run_pipe`).  Ten kernels run it: K14
 // (ddc_mix_df1.cu) and K15 (fm_disc.cu) with the DF1 warp as the serial
-// warp (`Df1Serial`), K37 and K34 (structures_bank.cu, the RPLL and the
-// SVF), K29 and K31/K33 (biquad_precision.cu, the Q64 and the
-// error-feedback DF1) with their own.  The DF1 warp also serves K2, K3 and
-// K19-K21 (ddc_cascade.cu: its output ring is stage 0's FIR buffer).
+// warp (`Df1Serial`), K12/K13 (ddc_bank.cu) with the DF1 warp over paired
+// I|Q channels and a back-end warp in the store warp's place (`run_roles`),
+// K37 and K34 (structures_bank.cu, the RPLL and the SVF), K29 and K31/K33
+// (biquad_precision.cu, the Q64 and the error-feedback DF1) and K16
+// (ddc_lockin.cu, the f32 DF1 after the lock-in mix) with their own.  The
+// DF1 warp also serves K2, K3 and K19-K21 (ddc_cascade.cu: its output ring
+// is stage 0's FIR buffer).
 // Where the producers' work is more than one SM's other three schedulers
 // issue in the serial warp's time (K15's exact angle), a tile is a cluster
 // of 2 CTAs: every warp of the partner CTA is a producer too, storing its
@@ -30,9 +33,10 @@
 // mbarriers, the input ring's full and empty and the output ring's full
 // and empty.  An input slot holds `chunk` rows of kLanes x `Win` 32-bit
 // words, word w of row r and lane l at (r * kLanes + l) * Win + w, an
-// output slot the same with `Wout` words (K14, K15, K34: 1 and 1; K31/K33:
-// 2 and 1; K37: 2 and 2; K29: 4 and 2), so a warp reads or writes a row as
-// one 4-, 8- or 16-byte word a lane, contiguous across the lanes.
+// output slot the same with `Wout` words (K12/K13, K14, K15, K16, K34: 1
+// and 1; K31/K33: 2 and 1; K37: 2 and 2; K29: 4 and 2), so a warp reads or
+// writes a row as one 4-, 8- or 16-byte word a lane, contiguous across the
+// lanes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -97,7 +101,7 @@ struct Df1Ring {
 
 // step(r, load(r)) for the rows r = 0 .. rows-1 of a slot in order, in
 // groups of kGroup rows, each group's inputs read before the group before
-// computes, so the loads stay off the chain (K29, K31/K33, K34, K37; a
+// computes, so the loads stay off the chain (K16, K29, K31/K33, K34, K37; a
 // read past the slot's rows takes its last row, unused).
 template <class Load, class Step>
 __device__ __forceinline__ void group_rows(int rows, Load load, Step step) {
@@ -122,9 +126,9 @@ __device__ __forceinline__ void group_rows(int rows, Load load, Step step) {
   for (; r < rows; ++r) step(r, load(r));
 }
 
-// The serial warp's walk over the chunks (K29, K31/K33, K34, K37; one CTA
-// a tile): chunk q's input slot full and its output slot empty, rows(k, n)
-// on slot k's n rows, then both released.
+// The serial warp's walk over the chunks (K16, K29, K31/K33, K34, K37; one
+// CTA a tile): chunk q's input slot full and its output slot empty, rows(k,
+// n) on slot k's n rows, then both released.
 template <class Rows>
 __device__ __forceinline__ void serial_chunks(int t, int chunk, int depth,
                                               const Rings& R, Rows rows) {
@@ -322,12 +326,13 @@ struct Batch {
 };
 
 // Producer pw of P's walk over its span of every chunk, rows [pw * span,
-// (pw + 1) * span) (span = ceil(chunk / P)), in batches of B rows (K29,
-// K31/K33, K34, K37): for each chunk its input slot empty, then for each of its batches
-// load(next, rows, cur_rows, same) -- the next batch, the next chunk's
-// first too, loaded while this one is formed -- and form(batch, rows,
-// slot k), then one arrival on the slot's full barrier.  same: the next
-// batch continues this one's span, so it may take rows from cur_rows.
+// (pw + 1) * span) (span = ceil(chunk / P)), in batches of B rows (K3,
+// K12/K13, K16, K29, K31/K33, K34, K37): for each chunk its input slot
+// empty, then for each of its batches load(next, rows, cur_rows, same) --
+// the next batch, the next chunk's first too, loaded while this one is
+// formed -- and form(batch, rows, slot k), then one arrival on the slot's
+// full barrier.  same: the next batch continues this one's span, so it may
+// take rows from cur_rows.
 // load sees a batch at r0 >= t past the last and loads nothing.
 template <int B, class Rows, class Load, class Form>
 __device__ __forceinline__ void span_batches(int t, int chunk, int depth,
@@ -375,19 +380,23 @@ struct Df1Serial {
   }
 };
 
-// A depth-0 block: the rings in `smem` (Win words a row and lane in, Wout
-// out), the serial warp (warp 0) calling serial(R, out, lid, lane, live,
-// peer) with out the output ring's slot 0, the warps of its scheduler
-// idle, then `producers` warps calling produce(R, pw, lid, lane, live,
-// false) (pw their index) and the store warp; warps past those exit.
-// With a cluster of 2, CTA rank 0 is that block and every warp w of rank
-// 1 calls produce(R, producers + w, lid, lane, live, true): it stores into
-// rank 0's input slots and arrives on their full barriers, one arrival a
-// warp.  The caller has set up anything the producers read from shared
-// memory, and the block (or cluster) barrier here publishes it.
-template <int Win, int Wout, Layout L, class Serial, class Produce>
-__device__ __forceinline__ void run_pipe(const Pipe& p, unsigned char* smem,
-                                         Serial serial, Produce produce) {
+// A depth-0 block: the rings in `smem` (Win words a row and lane in), the
+// serial warp (warp 0) calling serial(R, out, lid, lane, live, peer) with
+// out the output ring's slot 0, the warps of its scheduler idle, then
+// `producers` warps calling produce(R, pw, lid, lane, live, false) (pw
+// their index) and the next one store(R, out, lid, col0), the warp that
+// empties the output ring; warps past those exit.  With a cluster of 2,
+// CTA rank 0 is that block and every warp w of rank 1 calls produce(R,
+// producers + w, lid, lane, live, true): it stores into rank 0's input
+// slots and arrives on their full barriers, one arrival a warp.  The
+// caller has set up anything the warps read from shared memory, and the
+// block (or cluster) barrier here publishes it.  A tile whose lanes are
+// not kLanes consecutive lanes (K12/K13's paired I|Q channels) maps lid
+// to its own lanes in its functors.
+template <int Win, class Serial, class Produce, class Store>
+__device__ __forceinline__ void run_roles(const Pipe& p, unsigned char* smem,
+                                          Serial serial, Produce produce,
+                                          Store store) {
   const int warp = threadIdx.x / kLanes, lid = threadIdx.x % kLanes;
   const int col0 = blockIdx.x / p.cluster * kLanes, lane = col0 + lid;
   const bool live = lane < p.c2;  // dead lanes still reach every barrier
@@ -416,8 +425,19 @@ __device__ __forceinline__ void run_pipe(const Pipe& p, unsigned char* smem,
   if (v < p.producers) {
     produce(R, v, lid, lane, live, false);
   } else if (v == p.producers) {
-    store_warp<Wout, L>(p, R, out, lid, col0);
+    store(R, out, lid, col0);
   }
+}
+
+// `run_roles` with the store warp writing the output ring (Wout words a
+// row and lane) to device memory in layout L (`store_warp`).
+template <int Win, int Wout, Layout L, class Serial, class Produce>
+__device__ __forceinline__ void run_pipe(const Pipe& p, unsigned char* smem,
+                                         Serial serial, Produce produce) {
+  run_roles<Win>(p, smem, serial, produce,
+                 [&](const Rings& R, const uint32_t* out, int lid, int col0) {
+                   store_warp<Wout, L>(p, R, out, lid, col0);
+                 });
 }
 
 // Launches a depth-0 kernel over c2 / kLanes tiles of p.cluster CTAs each

@@ -9,9 +9,10 @@
   anti-windup DF1 (offset and clamp before feedback);
 * `fastlo_ddc_bank_block` (K13): K12, then atan2 and the PLL.
 
-Each runs ``csrc/ddc_bank.cu`` (one kernel template, by channel filter
-and back end) for CUDA tensors and its plain PyTorch version (``*_plain``)
-for CPU tensors; any other device raises.  The plain versions are the
+Each runs ``csrc/ddc_bank.cu`` for CUDA tensors (K6 a thread a channel;
+K12 and K13 on ``csrc/df1_ring.cuh``'s depth-0 pipeline, their plan
+`bank_plan`) and its plain PyTorch version (``*_plain``) for CPU tensors;
+any other device raises.  The plain versions are the
 unfused composition: the fast-LO mix from factor tables with fine length
 ``time_chunk``, the filter bank's plain version with keep-1-in-d on the
 I|Q lanes, `trig.atan2` of the kept rows and `pll_bank_plain`.  The
@@ -21,7 +22,8 @@ order, the rest exact integer arithmetic).
 The time chunk is the fine-table length of the mix, so it changes the
 mix's rounding.  The JAX kernel clamps the chunk it is asked for through
 its TPU memory model (`_pick_time_chunk`); this port runs the chunk it
-is given.
+is given.  K12/K13's own pipeline chunk is their plan's and changes no
+value.
 """
 
 from __future__ import annotations
@@ -30,13 +32,33 @@ import torch
 
 from .. import _ext
 from ..ops import accu
-from ..ops.fastlo import fastlo_mix_tables, fastlo_tables
+from ..ops.fastlo import factor_pairs, fastlo_mix_tables, fastlo_tables
 from ..ops.trig import atan2
 from .biquad import Df1State, _ba_list, clamp_params, df1_process_q
 from .lowpass import LowpassState, _gains
 from .lowpass_cuda import lowpass_bank_plain
+from .pipe_plan import PipePlan, pipe_plan
 from .pll import PllState, ba_list
 from .pll_cuda import pll_bank_plain, pll_state_from_words, pll_words
+
+# K12/K13's mix warps by default (and the back-end warp: 12 warps a block)
+BANK_PRODUCERS = 8
+
+
+def bank_plan(c: int, *, producers: int = BANK_PRODUCERS,
+              **kw) -> PipePlan:
+    """K12's and K13's plan over ``c`` channels (`pipe_plan.pipe_plan` over
+    their 2c I|Q lanes): a tile is the I and the Q lanes of 16 channels,
+    so ``tiles`` is ceil(c / 16); BANK_PRODUCERS mix warps by default,
+    each a span of ceil(chunk / producers) rows of every chunk; one word a
+    row and lane in (the mixed sample) and out (the DF1's y), so
+    PIPE_CHUNK rows a chunk in 3 slots by default; one CTA a tile.  Raises
+    ValueError for a plan the kernel cannot run."""
+    if c < 1:
+        raise ValueError(f"need c >= 1 channels, got {c}")
+    if kw.get("cluster", 1) != 1:
+        raise ValueError("K12 and K13 run one CTA a tile")
+    return pipe_plan(2 * c, producers=producers, **kw)
 
 
 def _check_chunking(t: int, d: int, time_chunk: int) -> None:
@@ -148,16 +170,19 @@ def fastlo_ddc_bank_block_plain(ba, pll_ba, state: Df1State,
 
 
 def _launch_df1(name, ba, state: Df1State, phase0, steps, x, f, d,
-                time_chunk, pll_ba=None, pll_state=None, clamp=None):
-    """Validate and launch ``idsp_ddc_bank_df1``: K12 without a PLL
-    state (the anti-windup DF1 with ``clamp``), K13 with one.  Returns
-    (state, pll words or None, yiq_d)."""
+                time_chunk, pll_ba=None, pll_state=None, clamp=None,
+                plan=None):
+    """Validate and launch ``idsp_ddc_bank_df1`` at ``plan`` (`bank_plan`'s
+    by default): K12 without a PLL state (the anti-windup DF1 with
+    ``clamp``), K13 with one.  Returns (state, pll words or None,
+    yiq_d)."""
     if not 0 < f < 64:
         raise ValueError(f"f must be in (0, 64), got {f}")
     t = x.shape[0]
     c = phase0.shape[0]
     dev = x.device
     _check_chunking(t, d, time_chunk)
+    plan = bank_plan(c) if plan is None else plan
     _ext.require("x", x, dev, torch.int32, (t,))
     _ext.require("phase0", phase0, dev, torch.int32, (c,))
     _ext.require("steps", steps, dev, torch.int32, (c,))
@@ -169,20 +194,21 @@ def _launch_df1(name, ba, state: Df1State, phase0, steps, x, f, d,
         w_in = pll_words(pll_state, c, dev)
         w_out = [torch.empty_like(w) for w in w_in]
         pk = ba_list(pll_ba)
-    ca, sa, cb, sb = fastlo_tables(phase0, steps, t, time_chunk)
+    coarse, fine = factor_pairs(fastlo_tables(phase0, steps, t, time_chunk))
     new_x = torch.empty_like(state.x)
     new_y = torch.empty_like(state.y)
     yiq = torch.empty((t // d, 2 * c), dtype=torch.int32, device=dev)
     lib = _ext.library()
     with torch.cuda.device(dev):
         err = lib.idsp_ddc_bank_df1(
-            x.data_ptr(), ca.data_ptr(), sa.data_ptr(), cb.data_ptr(),
-            sb.data_ptr(), state.x.data_ptr(), state.y.data_ptr(),
+            x.data_ptr(), coarse.data_ptr(), fine.data_ptr(),
+            state.x.data_ptr(), state.y.data_ptr(),
             new_x.data_ptr(), new_y.data_ptr(),
             None if w_in is None else _ext.pointers(w_in),
             None if w_out is None else _ext.pointers(w_out), yiq.data_ptr(),
             t, c, time_chunk, d, f, *_ba_list(ba), *pk,
-            int(clamp is not None), *(clamp or (0, 0, 0)),
+            int(clamp is not None), *(clamp or (0, 0, 0)), plan.warps,
+            plan.producers, plan.chunk, plan.ring, plan.smem,
             _ext.stream_ptr(dev),
         )
     _ext.check(err, name)
@@ -190,7 +216,8 @@ def _launch_df1(name, ba, state: Df1State, phase0, steps, x, f, d,
 
 
 def fastlo_df1_dec_bank(ba, state: Df1State, phase0, steps, x, f: int = 29,
-                        *, d: int = 16, clamp=None, time_chunk: int = 128):
+                        *, d: int = 16, clamp=None, time_chunk: int = 128,
+                        _plan: PipePlan | None = None):
     """Fast-LO conjugate mix + Q<f> DF1 on the I|Q lanes + keep-1-in-d,
     one kernel per block: the full-rate mixed stream never reaches
     device memory.
@@ -209,14 +236,16 @@ def fastlo_df1_dec_bank(ba, state: Df1State, phase0, steps, x, f: int = 29,
         time_chunk % d == 0); the JAX package's default is 128.
 
     Returns (state, new_phase0, yiq_d): yiq_d (t/d, 2c) i32 and
-    ``new_phase0 = phase0 + steps*t`` (wrapping).
+    ``new_phase0 = phase0 + steps*t`` (wrapping).  The kernel's plan is
+    `bank_plan`'s; no plan changes a value.
     """
     if x.device.type == "cpu":
         return fastlo_df1_dec_bank_plain(ba, state, phase0, steps, x, f, d=d,
                                          clamp=clamp, time_chunk=time_chunk)
     clamp = None if clamp is None else clamp_params(*clamp)
     state_out, _, yiq = _launch_df1("fastlo_df1_dec_bank", ba, state, phase0,
-                                    steps, x, f, d, time_chunk, clamp=clamp)
+                                    steps, x, f, d, time_chunk, clamp=clamp,
+                                    plan=_plan)
     fastlo_df1_dec_bank.launches += 1
     if clamp is not None:
         fastlo_df1_dec_bank.clamp_launches += 1
@@ -229,7 +258,8 @@ fastlo_df1_dec_bank.clamp_launches = 0  # of them with ``clamp``
 
 def fastlo_ddc_bank_block(ba, pll_ba, state: Df1State, pll_state: PllState,
                           phase0, steps, x, f: int = 29, *, d: int = 16,
-                          time_chunk: int = 128):
+                          time_chunk: int = 128,
+                          _plan: PipePlan | None = None):
     """`fastlo_df1_dec_bank`, then per kept row `atan2(Q, I)` and one
     PLL step, one kernel per block.
 
@@ -238,7 +268,8 @@ def fastlo_ddc_bank_block(ba, pll_ba, state: Df1State, pll_state: PllState,
       pll_state: PllState with (c,) leaves.
 
     Returns (state, pll_state, new_phase0, yiq_d); the PLL's output
-    phases are not kept (the JAX wrapper drops them too).
+    phases are not kept (the JAX wrapper drops them too).  The kernel's
+    plan is `bank_plan`'s, as K12's.
     """
     if x.device.type == "cpu":
         return fastlo_ddc_bank_block_plain(
@@ -246,7 +277,7 @@ def fastlo_ddc_bank_block(ba, pll_ba, state: Df1State, pll_state: PllState,
             time_chunk=time_chunk)
     state_out, w_out, yiq = _launch_df1(
         "fastlo_ddc_bank_block", ba, state, phase0, steps, x, f, d,
-        time_chunk, pll_ba, pll_state)
+        time_chunk, pll_ba, pll_state, plan=_plan)
     fastlo_ddc_bank_block.launches += 1
     return (state_out, pll_state_from_words(w_out),
             accu.advance(phase0, steps, x.shape[0]), yiq)

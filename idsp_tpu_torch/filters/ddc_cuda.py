@@ -48,7 +48,7 @@ import torch
 
 from .. import _ext, fxp
 from ..ops import accu
-from ..ops.fastlo import fastlo_mix_tables, fastlo_tables
+from ..ops.fastlo import factor_pairs, fastlo_mix_tables, fastlo_tables
 from ..ops.trig import cossin
 from .biquad import Df1State, _ba_list, clamp_params, df1_process_q
 from .biquad_cuda import df1_bank_q_plain
@@ -107,8 +107,9 @@ def launch_plan(ms, c2: int, *, fastlo: bool = False,
                 ring: int | None = None) -> CascadePlan:
     """The plan of a launch over ``c2`` lanes whose stages have ``ms``
     one-sided taps each (highest rate first; depth = len(ms)); ``fastlo``
-    for K3, whose producers take the rows of their index mod their count,
-    so that count divides ``time_chunk`` (the fine length) and the chunk.
+    for K3, whose producer count divides ``time_chunk`` (the fine length)
+    and the chunk (a rule of this plan; the producers' spans of
+    fastlo.cuh `fastlo_mix_rows` do not need it).
 
     WARPS warps, 1 producer (K3: the most of 4, 2, 1
     up to PRODUCERS that divides time_chunk), a chunk of CHUNK
@@ -212,11 +213,12 @@ def df1_hbf_cascade_bank_plain(ba, state: Df1State, tails, xs, f: int = 29,
 
 
 def _launch_cascade(ba, state, tails, taps, f, t, c2, tc, dev, *, xs=None,
-                    x=None, tables=(None,) * 4, clamp=None,
+                    x=None, tables=(None, None), clamp=None,
                     plan: CascadePlan | None = None):
-    """Validate and launch ``idsp_ddc_cascade`` (K2 if xs, K3 if x; the
-    clamped DF1 with ``clamp=(u, lo, hi)``) with ``plan`` (`launch_plan`'s
-    by default).  A plan the kernel refuses raises RuntimeError, having
+    """Validate and launch ``idsp_ddc_cascade`` (K2 if xs, K3 if x and the
+    factor tables as `ops.fastlo.factor_pairs` packs them; the clamped DF1
+    with ``clamp=(u, lo, hi)``) with ``plan`` (`launch_plan`'s by
+    default).  A plan the kernel refuses raises RuntimeError, having
     launched nothing."""
     depth = len(taps)
     if not 1 <= depth <= 4:
@@ -460,7 +462,7 @@ def fastlo_ddc_cascade_bank(ba, state: Df1State, tails, phase0, steps, x,
     _ext.require("x", x, dev, torch.int32, (t,))
     _ext.require("phase0", phase0, dev, torch.int32, (c,))
     _ext.require("steps", steps, dev, torch.int32, (c,))
-    tables = fastlo_tables(phase0, steps, t, time_chunk)
+    tables = factor_pairs(fastlo_tables(phase0, steps, t, time_chunk))
     new_state, new_tails, y = _launch_cascade(
         ba, state, tails, taps, f, t, 2 * c, time_chunk, dev, x=x,
         tables=tables, clamp=clamp, plan=_plan,

@@ -40,9 +40,10 @@ def round_half_away(v: torch.Tensor) -> torch.Tensor:
 
 def _angle_trig(phase_i32: torch.Tensor):
     """Unit f32 cos/sin of a wrapping-i32 phase (i32::MIN = -pi)."""
-    ang = phase_i32.to(torch.float32) * torch.tensor(
-        _RAD_PER_LSB, device=phase_i32.device
-    )
+    # a Python scalar, not a device tensor: a host-to-device copy of a
+    # pageable scalar waits on the stream, so a kernel's wrapper would wait
+    # for the launch before it (the f32 product is the same)
+    ang = phase_i32.to(torch.float32) * float(_RAD_PER_LSB)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -70,6 +71,15 @@ def fastlo_tables(phase0, steps, t: int, k: int):
     ca, sa = _angle_trig(coarse_ph)
     cb, sb = _angle_trig(fine_ph)
     return ca, sa, cb, sb
+
+
+def factor_pairs(tables):
+    """The factor tables as the kernels read them (csrc/fastlo.cuh
+    `FastLoPlanes`): the (ca, sa) pairs (t//k, c, 2) and the (cb, sb)
+    pairs (k, c, 2), f32, each pair one 8-byte word."""
+    ca, sa, cb, sb = tables
+    return (torch.stack((ca, sa), dim=-1).contiguous(),
+            torch.stack((cb, sb), dim=-1).contiguous())
 
 
 def _lo_planes(ca, sa, cb, sb):

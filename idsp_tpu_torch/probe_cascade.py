@@ -1,6 +1,7 @@
-"""Where K2, K3, K19-K21 (`csrc/ddc_cascade.cu`), K14 and K15
-(`csrc/ddc_mix_df1.cu`, `csrc/fm_disc.cu`, all on `csrc/df1_ring.cuh`'s
-DF1 warp), K29, K31 and K37, K34 (`csrc/biquad_precision.cu`,
+"""Where K2, K3, K19-K21 (`csrc/ddc_cascade.cu`), K12/K13, K14 and K15
+(`csrc/ddc_bank.cu`, `csrc/ddc_mix_df1.cu`, `csrc/fm_disc.cu`, all on
+`csrc/df1_ring.cuh`'s DF1 warp), K16, K29, K31 and K37, K34
+(`csrc/ddc_lockin.cu`, `csrc/biquad_precision.cu`,
 `csrc/structures_bank.cu`, on its depth-0 pipeline with serial warps of
 their own) spend their time on the card.
 
@@ -48,7 +49,14 @@ deemphasis lowpass at 0.02):
 * K31 (the Q29 lowpass at 0.1, x in +-2^24, unclamped) and K34 (the
   suite's SVF row (0.01, 0.7), x ~ N(0, 1), lp) at c = 1024 lanes: the
   same plan sweep (`biquad_cuda.dither_plan`, `svf_cuda.svf_plan`:
-  producers, chunk, ring) and stamps.
+  producers, chunk, ring) and stamps;
+* K13 (the suite's bank filter, the Q29 lowpass at 0.004, d = 16, time
+  chunk 128, x in +-2^27, full-range steps) at c = 1024 channels and K16
+  (LO frequencies 0.05-0.45, the lowpass at 0.002, x ~ N(0, 1), time
+  chunk 512) at c = 512: the plan sweep (`ddc_bank_cuda.bank_plan`,
+  `ddc_lockin_cuda.lockin_plan`: producers, chunk, ring; K12 and its
+  ``clamp=`` at K13's default plan too) and the stamps: the serial warp,
+  producer 0 and, in the store warp's place, K13's back end.
 
 A time is the median of 3 trials of 20 chained launches (CUDA events,
 `profiling.measure_rate`); a stamp is SM clock cycles, the median over
@@ -68,9 +76,10 @@ import numpy as np
 import torch
 
 from . import _ext, design
-from .filters import biquad, biquad_cuda, ddc_cuda, fm_cuda, hbf, rpll
-from .filters import rpll_cuda, svf, svf_cuda
-from .ops.fastlo import fastlo_tables
+from .filters import biquad, biquad_cuda, ddc_bank_cuda, ddc_cuda, fm_cuda
+from .filters import ddc_lockin_cuda, hbf, pll, rpll, rpll_cuda, svf
+from .filters import svf_cuda
+from .ops.fastlo import factor_pairs, fastlo_tables
 from .pipelines import fm_disc
 from .profiling import measure_rate
 
@@ -112,7 +121,7 @@ def _pipe_stamps(ring, kernel):
     ring = _patch(ring, "    sm90::mbar_arrive(R.empty_out(u.k));\n",
                   f"    if ({at}) g_stamps[5][q] = clock64();\n"
                   "    sm90::mbar_arrive(R.empty_out(u.k));\n")
-    if "span_batches" in kernel:  # K29, K37: df1_ring.cuh's producer walk
+    if "span_batches" in kernel:  # df1_ring.cuh's producer walk
         at = (f"blockIdx.x == 0 && threadIdx.x % 32 == 0 && pw == 0 && "
               f"r0 / chunk < {STAMPS}")
         ring = _patch(ring, "    sm90::mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n",
@@ -158,6 +167,24 @@ def _df1_stamps(ring):
             f"    if ({at}) g_stamps[0][q] = clock64();\n" + parts[2])
     return ring.replace(done, f"    if ({at}) g_stamps[1][q] = clock64();\n"
                         + done)
+
+
+def _bank_stamps(ring, bank):
+    """K12/K13's stamps of block 0: the DF1 warp's and producer 0's
+    (`_pipe_stamps`: fastlo.cuh's producers walk df1_ring.cuh's
+    `span_batches`), 4/5 the back end's (ddc_bank.cu) in the store warp's
+    place."""
+    ring, _ = _pipe_stamps(ring, "span_batches")
+    at = f"blockIdx.x == 0 && threadIdx.x % 32 == 0 && q < {STAMPS}"
+    g = "idsp::ring::g_stamps"
+    bank = _patch(bank, "    idsp::sm90::mbar_wait(R.full_out(u.k), u.ph);\n",
+                  "    idsp::sm90::mbar_wait(R.full_out(u.k), u.ph);\n"
+                  "    const int q = r0 / chunk;\n"
+                  f"    if ({at}) {g}[4][q] = clock64();\n")
+    bank = _patch(bank, "    idsp::sm90::mbar_arrive(R.empty_out(u.k));\n",
+                  f"    if ({at}) {g}[5][q] = clock64();\n"
+                  "    idsp::sm90::mbar_arrive(R.empty_out(u.k));\n")
+    return {"df1_ring.cuh": ring, "ddc_bank.cu": bank + STAMPS_READER}
 
 
 STAMPS_READER = (
@@ -218,19 +245,20 @@ def variants() -> dict:
 
 DF1_PIPE_SOURCES = ("ddc_mix_df1.cu", "fm_disc.cu")  # K14, K15
 PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K29, K31/K33
-                                   "structures_bank.cu")  # K34, K37
+                                   "structures_bank.cu",  # K34, K37
+                                   "ddc_lockin.cu")  # K16
 
 
 def pipe_variants() -> dict:
-    """K14's, K15's, K29's, K31's, K34's and K37's variants: name ->
-    {file: source};
-    each builds its .cu files."""
+    """K13's, K14's, K15's, K16's, K29's, K31's, K34's and K37's
+    variants: name -> {file: source}; each builds its .cu files."""
     ring = _read("df1_ring.cuh")
     out = {"df1_copy": {"df1_ring.cuh": _df1_copy(ring),
                         **{f: _read(f) for f in DF1_PIPE_SOURCES}}}
     for f in PIPE_SOURCES:  # one library each: one g_stamps a library
         r, k = _pipe_stamps(ring, _read(f))
         out[f"stamps_{f[:-3]}"] = {"df1_ring.cuh": r, f: k}
+    out["stamps_ddc_bank"] = _bank_stamps(ring, _read("ddc_bank.cu"))
     return out
 
 
@@ -304,7 +332,8 @@ def _cascade(dev, card, libs, package, result) -> None:
         ph = i32((c,), -(2**31), 2**31)
         steps = i32((c,), 1 << 24, 1 << 30)
         return (st, tails, i32((T, c2), -(2**27), 2**27),
-                i32((T,), -(2**30), 2**30), fastlo_tables(ph, steps, T, TC))
+                i32((T,), -(2**30), 2**30),
+                factor_pairs(fastlo_tables(ph, steps, T, TC)))
 
     def launch(ins, depth=3, plan=None, k3=False, clamp=None):
         st, tails, xs, x, tables = ins
@@ -409,8 +438,8 @@ def _stamp_rows(lib, launch, chunk, series) -> dict:
 
 
 def _pipe(dev, card, libs, package, result) -> None:
-    """K14, K15, K29, K31, K34 and K37: the plan sweep, the variants, the
-    per-role stamps."""
+    """K12/K13, K14, K15, K16, K29, K31, K34 and K37: the plan sweep, the
+    variants, the per-role stamps."""
     ba = biquad.quantize_ba(biquad.from_cookbook(
         design.Filter().critical_frequency(0.02).lowpass()), 29)
     bf = fm_disc.deemphasis_coefficients(0.02)
@@ -469,6 +498,33 @@ def _pipe(dev, card, libs, package, result) -> None:
                                    rpll.init((1024,), device=dev), *xr,
                                    _plan=plan)
 
+    ba_bank = biquad.quantize_ba(biquad.from_cookbook(
+        design.Filter().critical_frequency(0.004).lowpass()), 29)
+    pll_ba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    bank_in = (torch.zeros((1024,), dtype=torch.int32, device=dev),
+               i32((1024,)))
+
+    def k12(plan=None, clamp=None):
+        return ddc_bank_cuda.fastlo_df1_dec_bank(
+            ba_bank, biquad.df1_init((2048,), device=dev), *bank_in, x, 29,
+            d=16, clamp=clamp, time_chunk=TC, _plan=plan)
+
+    def k13(plan=None):
+        return ddc_bank_cuda.fastlo_ddc_bank_block(
+            ba_bank, pll_ba, biquad.df1_init((2048,), device=dev),
+            pll.init((1024,), device=dev), *bank_in, x, 29, d=16,
+            time_chunk=TC, _plan=plan)
+
+    ba_lk = biquad.from_cookbook(design.Filter().critical_frequency(
+        0.002).lowpass()).astype(np.float32)
+    lo_lk = np.linspace(0.05, 0.45, 512)
+    x_lk = torch.from_numpy(rng.normal(size=T).astype(np.float32)).to(dev)
+
+    def k16(plan=None):
+        return ddc_lockin_cuda.ddc_lockin_bank(
+            ba_lk, biquad.df1_init((1024,), torch.float32, device=dev), x_lk,
+            lo_lk, 0, time_chunk=512, _plan=plan)
+
     _ext._lib = package
     result.update(pipe_sweep={}, pipe_variants={}, pipe_stamps={})
     cases = [(f"K14 c={c}", lambda p, c=c: k14(c, p),
@@ -502,7 +558,17 @@ def _pipe(dev, card, libs, package, result) -> None:
                [dict(producers=p) for p in (1, 2, 3, 8, 11)]
                + [dict(chunk=256, ring=2), dict(chunk=128, ring=2),
                   dict(chunk=128, ring=6), dict(chunk=64, ring=4),
-                  dict(chunk=32, ring=8)])]
+                  dict(chunk=32, ring=8)]),
+              ("K13 c=1024", k13,
+               lambda **kw: ddc_bank_cuda.bank_plan(1024, **kw),
+               [dict(producers=p) for p in (4, 5, 11)]
+               + [dict(chunk=256, ring=2), dict(chunk=128, ring=6),
+                  dict(chunk=64, ring=4), dict(chunk=32, ring=8)]),
+              ("K16 c=512", k16,
+               lambda **kw: ddc_lockin_cuda.lockin_plan(512, **kw),
+               [dict(producers=p) for p in (3, 5, 11)]
+               + [dict(chunk=256, ring=2), dict(chunk=128, ring=6),
+                  dict(chunk=64, ring=4), dict(chunk=32, ring=8)])]
     for name, run, plan_of, forced in cases:
         want = run(None)
         for kw in forced:
@@ -524,7 +590,11 @@ def _pipe(dev, card, libs, package, result) -> None:
                                           for k, fn in timed.items()}
     result["pipe_variants"]["package"].update(
         {"K29 c=1024": _ms(k29), "K37 c=1024": _ms(k37),
-         "K31 c=1024": _ms(k31), "K34 c=1024": _ms(k34)})
+         "K31 c=1024": _ms(k31), "K34 c=1024": _ms(k34),
+         "K12 c=1024": _ms(k12),
+         "K12 clamp c=1024": _ms(lambda: k12(clamp=(1 << 10, -(1 << 23),
+                                                    1 << 23))),
+         "K13 c=1024": _ms(k13), "K16 c=512": _ms(k16)})
     _ext._lib = libs["pipe_df1_copy"]
     result["pipe_variants"]["df1_copy"] = {k: _ms(fn)
                                            for k, fn in timed.items()}
@@ -538,7 +608,9 @@ def _pipe(dev, card, libs, package, result) -> None:
               "K29 c=1024": biquad_cuda.q64_plan(1024).chunk,
               "K37 c=1024": rpll_cuda.rpll_plan(1024).chunk,
               "K31 c=1024": biquad_cuda.dither_plan(1024).chunk,
-              "K34 c=1024": svf_cuda.svf_plan(1024).chunk}
+              "K34 c=1024": svf_cuda.svf_plan(1024).chunk,
+              "K13 c=1024": ddc_bank_cuda.bank_plan(1024).chunk,
+              "K16 c=512": ddc_lockin_cuda.lockin_plan(512).chunk}
     for key, lib, fn in (
             ("K14 c=512", "stamps_ddc_mix_df1", timed["K14 c=512"]),
             ("K15 exact", "stamps_fm_disc", timed["K15 exact"]),
@@ -546,7 +618,9 @@ def _pipe(dev, card, libs, package, result) -> None:
             ("K29 c=1024", "stamps_biquad_precision", k29),
             ("K37 c=1024", "stamps_structures_bank", k37),
             ("K31 c=1024", "stamps_biquad_precision", k31),
-            ("K34 c=1024", "stamps_structures_bank", k34)):
+            ("K34 c=1024", "stamps_structures_bank", k34),
+            ("K13 c=1024", "stamps_ddc_bank", k13),
+            ("K16 c=512", "stamps_ddc_lockin", k16)):
         chunk = chunks[key]
         row = _stamp_rows(libs[f"pipe_{lib}"], fn, chunk, roles)
         row["pace"] = max(roles, key=lambda r: row[r])
@@ -558,8 +632,8 @@ def _pipe(dev, card, libs, package, result) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("cascade", "pipe"),
-                    help="K2/K3/K19-K21, or the depth-0 kernels (K14, K15, "
-                         "K29, K31, K34, K37) alone")
+                    help="K2/K3/K19-K21, or the depth-0 kernels (K12/K13, "
+                         "K14, K15, K16, K29, K31, K34, K37) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_cascade times the CUDA device; none is "

@@ -897,6 +897,184 @@ def test_ddc_lockin_kernel_equals_plain(cuda, tc):
         _equal((st.x, st.y, y), (st_p.x, st_p.y, y_p))
 
 
+# K12/K13 at the depth-0 pipeline's edges: (c, t, d, time chunk, plan
+# keywords); chunks other than the time chunk and not multiples of d,
+# chunks under d, t not a multiple of the chunk, c not a multiple of the
+# 16-channel tile, d = 1, t = 0, one live channel, spans crossing the
+# time chunk's coarse blocks
+BANK_EDGES = {
+    "chunk 24, d 16": (16, 256, 16, 32, dict(chunk=24, ring=2)),
+    "17 channels, t % chunk": (17, 192, 4, 64, dict(chunk=40, ring=3)),
+    "chunks under d": (3, 96, 16, 48, dict(chunk=8, ring=4)),
+    "d = 1": (20, 40, 1, 8, dict(chunk=16, ring=2)),
+    "one channel, 1 producer": (1, 64, 4, 16,
+                                dict(chunk=12, ring=3, producers=1)),
+    "5 producers": (9, 120, 8, 24, dict(chunk=24, producers=5)),
+    "14-row spans, time chunk 12": (7, 180, 4, 12,
+                                    dict(chunk=40, producers=3)),
+    "a batch's last row past the coarse block": (5, 170, 1, 17,
+                                                 dict(chunk=30, producers=3)),
+    "default plan, 3 chunks + 128": (40, 3 * 256 + 128, 16, 128, {}),
+    "t = 0": (6, 0, 16, 128, {}),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["k12", "k12_clamp", "k13"])
+@pytest.mark.parametrize("case", sorted(BANK_EDGES))
+def test_fastlo_bank_kernels_at_pipe_edges(cuda, case, kind):
+    """K12, its ``clamp=`` and K13 over 2 carried blocks against their
+    plain versions, x in +-2^27, full-range phases and steps."""
+    from idsp_tpu_torch.filters.ddc_bank_cuda import bank_plan
+
+    c, t, d, tc, kw = BANK_EDGES[case]
+    plan = bank_plan(c, **kw) if kw else None
+    rng = np.random.default_rng(120 + c)
+    ba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    clamp = CLAMP_Q if kind == "k12_clamp" else None
+    steps = _i32(rng, (c,), device=cuda)
+    st = biquad.Df1State(x=_i32(rng, (2 * c, 2), -(2**27), 2**27, device=cuda),
+                         y=_i32(rng, (2 * c, 2), -(2**26), 2**26, device=cuda))
+    pst = pll.block(ba, pll.init((c,), device=cuda),
+                    _i32(rng, (7, c), device=cuda))[0]
+    carry = carry_p = (st, pst, _i32(rng, (c,), device=cuda))
+    for _ in range(2):
+        x = _i32(rng, (t,), -(2**27), 2**27, device=cuda)
+        if kind == "k13":
+            out = fastlo_ddc_bank_block(BA_Q, ba, *carry, steps, x, 29, d=d,
+                                        time_chunk=tc, _plan=plan)
+            out_p = fastlo_ddc_bank_block_plain(BA_Q, ba, *carry_p, steps, x,
+                                                29, d=d, time_chunk=tc)
+            carry, carry_p = out[:3], out_p[:3]
+        else:
+            out = fastlo_df1_dec_bank(BA_Q, carry[0], carry[2], steps, x, 29,
+                                      d=d, clamp=clamp, time_chunk=tc,
+                                      _plan=plan)
+            out_p = fastlo_df1_dec_bank_plain(BA_Q, carry_p[0], carry_p[2],
+                                              steps, x, 29, d=d, clamp=clamp,
+                                              time_chunk=tc)
+            carry = (out[0], carry[1], out[1])
+            carry_p = (out_p[0], carry_p[1], out_p[1])
+        torch.cuda.synchronize()
+        _equal(out, out_p)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f", [29, 45])
+def test_fastlo_bank_kernels_where_the_sum_wraps(cuda, f):
+    """Coefficients and state at int32's edges, full-range x: the DF1's
+    five-term int64 sum wraps; K12 and K13 at a chunk other than the time
+    chunk and not a multiple of d."""
+    from idsp_tpu_torch.filters.ddc_bank_cuda import bank_plan
+
+    c, t, d, tc = 18, 160, 8, 32
+    rng = np.random.default_rng(77)
+    edges = np.array([-(2**31), 2**31 - 1], np.int32)
+    ba = np.full(5, -(2**31), np.int32)
+    plan = bank_plan(c, chunk=20, ring=3)
+    st = biquad.Df1State(
+        x=torch.from_numpy(rng.choice(edges, (2 * c, 2))).to(cuda),
+        y=torch.from_numpy(rng.choice(edges, (2 * c, 2))).to(cuda))
+    pba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    pst = pll.init((c,), device=cuda)
+    ph, steps = _i32(rng, (c,), device=cuda), _i32(rng, (c,), device=cuda)
+    x = _i32(rng, (t,), device=cuda)
+    _equal(fastlo_df1_dec_bank(ba, st, ph, steps, x, f, d=d, time_chunk=tc,
+                               _plan=plan),
+           fastlo_df1_dec_bank_plain(ba, st, ph, steps, x, f, d=d,
+                                     time_chunk=tc))
+    _equal(fastlo_ddc_bank_block(ba, pba, st, pst, ph, steps, x, f, d=d,
+                                 time_chunk=tc, _plan=plan),
+           fastlo_ddc_bank_block_plain(ba, pba, st, pst, ph, steps, x, f,
+                                       d=d, time_chunk=tc))
+
+
+# K16 at the depth-0 pipeline's edges: (c, t, time chunk, n0, plan
+# keywords); span and chunk edges, t = time chunk, time chunks other than
+# the pipeline's chunk (one above the old 8192-row limit), t = 1 and 0
+LOCKIN_EDGES = {
+    "t = time chunk": (16, 256, 256, 0, {}),
+    "t % chunk, 3 producers": (20, 240, 48, 1000,
+                               dict(chunk=44, ring=2, producers=3)),
+    "time chunk under a span": (3, 96, 8, 17, dict(chunk=24, producers=5)),
+    "2-row spans": (9, 60, 12, 5, dict(chunk=7, ring=4, producers=4)),
+    "11 producers": (40, 130, 13, 0,
+                     dict(chunk=32, ring=4, producers=11, warps=16)),
+    "t = 1": (4, 1, 1, 9, dict(chunk=8)),
+    "t = 0": (2, 0, 4, 0, {}),
+    "time chunk 16384": (50, 16384, 16384, 77, {}),
+    "default plan, c = 100": (100, 3 * 256 + 64, 64, 5, {}),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", sorted(LOCKIN_EDGES))
+def test_ddc_lockin_kernel_at_pipe_edges(cuda, case):
+    """K16 over 2 carried blocks (n0 carried) from a random state, the
+    wideband lowpass at 0.2 and x ~ N(0, 1), against the plain version."""
+    from idsp_tpu_torch.filters.ddc_lockin_cuda import lockin_plan
+
+    c, t, tc, n0, kw = LOCKIN_EDGES[case]
+    plan = lockin_plan(c, **kw) if kw else None
+    rng = np.random.default_rng(160 + c)
+    lo = rng.uniform(0.01, 0.49, c)
+    ba = biquad.from_cookbook(
+        Filter().critical_frequency(0.2).lowpass()).astype(np.float32)
+    st = biquad.Df1State(
+        x=torch.from_numpy(rng.normal(size=(2 * c, 2)).astype(np.float32)).to(
+            cuda),
+        y=torch.from_numpy(rng.normal(size=(2 * c, 2)).astype(np.float32)).to(
+            cuda))
+    st_p = st
+    for b in range(2):
+        x = torch.from_numpy(rng.normal(size=t).astype(np.float32)).to(cuda)
+        st, y = ddc_lockin_bank(ba, st, x, lo, n0 + b * t, time_chunk=tc,
+                                _plan=plan)
+        st_p, y_p = ddc_lockin_bank_plain(ba, st_p, x, lo, n0 + b * t,
+                                          time_chunk=tc)
+        torch.cuda.synchronize()
+        _equal((st.x, st.y, y), (st_p.x, st_p.y, y_p))
+
+
+@pytest.mark.requires_cuda
+def test_bank_and_lockin_entries_refuse_a_plan_not_their_own(cuda):
+    """K12's, K13's and K16's entry points refuse a plan whose shared
+    memory is not the kernel's own sum, or roles that do not fit the warps
+    (RuntimeError, nothing launched); the next launch runs as usual."""
+    from idsp_tpu_torch.filters.ddc_bank_cuda import bank_plan
+    from idsp_tpu_torch.filters.ddc_lockin_cuda import lockin_plan
+
+    c, t = 64, 256
+    rng = np.random.default_rng(3)
+    st = biquad.df1_init((2 * c,), device=cuda)
+    pst = pll.init((c,), device=cuda)
+    ph = _i32(rng, (c,), device=cuda)
+    x = _i32(rng, (t,), -(2**27), 2**27, device=cuda)
+    pba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    plan = bank_plan(c)
+    for bad in (plan._replace(smem=plan.smem - 32),
+                plan._replace(producers=9)):  # 10 roles in 9 places
+        with pytest.raises(RuntimeError):
+            fastlo_df1_dec_bank(BA_Q, st, ph, ph, x, 29, _plan=bad)
+        with pytest.raises(RuntimeError):
+            fastlo_ddc_bank_block(BA_Q, pba, st, pst, ph, ph, x, 29,
+                                  _plan=bad)
+    lo = np.linspace(0.1, 0.2, c)
+    bf = biquad.from_cookbook(
+        Filter().critical_frequency(0.02).lowpass()).astype(np.float32)
+    sl = biquad.df1_init((2 * c,), torch.float32, device=cuda)
+    xf = torch.ones((t,), device=cuda)
+    lplan = lockin_plan(c)
+    for bad in (lplan._replace(smem=lplan.smem + 32),
+                lplan._replace(producers=12)):  # 13 roles in 12 places
+        with pytest.raises(RuntimeError):
+            ddc_lockin_bank(bf, sl, xf, lo, _plan=bad)
+    _equal(fastlo_ddc_bank_block(BA_Q, pba, st, pst, ph, ph, x, 29),
+           fastlo_ddc_bank_block_plain(BA_Q, pba, st, pst, ph, ph, x, 29))
+    _equal(ddc_lockin_bank(bf, sl, xf, lo),
+           ddc_lockin_bank_plain(bf, sl, xf, lo))
+
+
 # m = 128, 384, 1024, 2048: clusters of 1, 3 and 8 CTAs, and 8 with the
 # FIR done by two clusters; n = 1 and 5 < taps - 1 (the new history reaches
 # back into the old one), 100 (a ragged frame tile), 1024; 2 to 16 taps

@@ -2,9 +2,11 @@
 shared by the schedule tests of K2/K3 (tests/test_torch_ddc_cascade_plan.py),
 K14/K15 (that file and tests/test_torch_fm_plan.py), K37
 (tests/test_torch_rpll_plan.py), K29 (tests/test_torch_q64_plan.py), K31/K33
-(tests/test_torch_dither_plan.py) and K34 (tests/test_torch_svf_plan.py),
-with the producer and serial-warp arithmetic of K31/K33 (`dither_model`)
-and K34 (`svf_model`).
+(tests/test_torch_dither_plan.py), K34 (tests/test_torch_svf_plan.py),
+K12/K13 (tests/test_torch_ddc_bank_plan.py) and K16
+(tests/test_torch_lockin_plan.py), with the producer and serial-warp
+arithmetic of K31/K33 (`dither_model`), K34 (`svf_model`), K12/K13
+(`bank_model`, with its back end) and K16 (`lockin_model`).
 
 Each role of a CUDA block is a coroutine that yields a test before each
 mbarrier wait; the roles run in a seeded random order among those whose
@@ -81,7 +83,8 @@ def span_rows(pw, rows, plan):
     return list(range(lo, min(lo + span, rows)))
 
 
-def pipe_run(t, lanes, plan, produce, rows_of, serial, *, seed=0):
+def pipe_run(t, lanes, plan, produce, rows_of, serial, *, seed=0,
+             back=None):
     """A depth-0 launch (``run_pipe``) as the kernel schedules it:
     ``plan.all_producers`` producer roles, the serial warp and the store
     warp over rings of ``plan.ring`` slots of ``plan.chunk`` rows of
@@ -91,7 +94,8 @@ def pipe_run(t, lanes, plan, produce, rows_of, serial, *, seed=0):
     + idx of the block); the serial warp turns each chunk's input rows
     into its output rows with ``serial(words)`` ((rows, lanes, win) ->
     (rows, lanes, wout)), keeping its state; the store warp copies the
-    output slot's rows to y.  With a cluster of 2 the producers from
+    output slot's rows to y, or, with ``back``, calls ``back(r0, words)``
+    on them (K12/K13's back-end warp in its place).  With a cluster of 2 the producers from
     ``plan.producers`` on are the partner CTA's warps: each waits on the
     partner's own copy of the slot's empty barrier, which the serial warp
     arrives on only for a chunk the partner has still to fill, and
@@ -137,7 +141,10 @@ def pipe_run(t, lanes, plan, produce, rows_of, serial, *, seed=0):
         for q, (cs, ce) in enumerate(chunks):
             k, ph = q % R, (q // R) & 1
             yield lambda: full_out[k].passes(ph)
-            y[cs:ce] = ring_out[k, :ce - cs]
+            if back is None:
+                y[cs:ce] = ring_out[k, :ce - cs]
+            else:
+                back(cs, ring_out[k, :ce - cs].copy())
             written[cs:ce] += 1
             empty_out[k].arrive()
 
@@ -275,3 +282,160 @@ def svf_model(f, qi, state, xs, plan, *, output="lp", seed=0):
     new = SvfState(*(torch.from_numpy(np.array(v, np.float32))
                      for v in (lp, hp, bp)))
     return new, torch.from_numpy(ys)
+
+
+PAIR = 16  # channels of a K12/K13 tile
+
+
+def pair_lanes(c):
+    """K12/K13's paired lane map over ceil(c / PAIR) tiles of 32 lanes:
+    model lane L is lane lid = L % 32 of tile L // 32, channel ch = PAIR *
+    (L // 32) + lid % PAIR, its I lane (lid < PAIR) or its Q lane; row is
+    the lane's state row and yiq column (I: ch, Q: c + ch); a lane of a
+    channel past c is dead.  Returns (ch, is_q, live, row) numpy arrays."""
+    lane = np.arange(-(-c // PAIR) * 2 * PAIR)
+    lid = lane % (2 * PAIR)
+    ch = lane // (2 * PAIR) * PAIR + lid % PAIR
+    is_q = lid >= PAIR
+    return ch, is_q, ch < c, np.where(is_q, c + ch, ch)
+
+
+def bank_model(ba, f, state, phase0, steps, x, plan, *, d, time_chunk,
+               clamp=None, pll_ba=None, pll_state=None, seed=0):
+    """K12 (``pll_state`` None; with ``clamp`` the anti-windup DF1) or K13
+    as the kernel runs it (``csrc/ddc_bank.cu``): the paired lane map
+    (`pair_lanes`); the mix warps by spans, row r with the coarse factor
+    r // ``time_chunk`` and the fine factor r % ``time_chunk`` (fastlo.cuh
+    `fastlo_mix_rows`: numpy float32 operations, the rounding trunc(v +
+    copysign(0.5, v)), the LO as u*cb -+ v*sb with u, v = ca, sa (I) or sa,
+    ca (Q), 0 on a dead lane); the DF1 warp on the paired state
+    rows; the back-end warp in the store warp's place: a chunk's kept rows
+    -- block rows r with r % d == 0 -- to yiq, then for K13 atan2(Q, I) of
+    two kept rows at once (the second row index clamped to the chunk's
+    last) and one PLL step each, the second only where it is in the
+    chunk.  Returns (Df1State, PllState or None, yiq int32) like
+    `fastlo_df1_dec_bank_plain` / `fastlo_ddc_bank_block_plain`."""
+    from idsp_tpu_torch.filters.biquad import Df1State
+    from idsp_tpu_torch.filters.pll_cuda import pll_bank_plain
+    from idsp_tpu_torch.ops.fastlo import AMPLITUDE, fastlo_tables
+    from idsp_tpu_torch.ops.trig import atan2
+
+    t, c, tc, P = x.shape[0], phase0.shape[0], time_chunk, plan.producers
+    ch, is_q, live, row = pair_lanes(c)
+    lanes = len(ch)
+    chs, rows_live = np.where(live, ch, 0), np.where(live, row, 0)
+    ca, sa, cb, sb = (v.numpy() for v in fastlo_tables(phase0, steps, t, tc))
+    xn = x.numpy()
+    amp, half = np.float32(AMPLITUDE), np.float32(0.5)
+    def produce(r0, idx):
+        out = np.zeros((len(idx), lanes), np.int64)
+        for j, r in enumerate(idx):
+            cq, fr = divmod(r0 + int(r), tc)
+            xh = np.float32(xn[r0 + r]) * amp
+            u = np.where(is_q, sa[cq, chs], ca[cq, chs])
+            w = np.where(is_q, ca[cq, chs], sa[cq, chs])
+            p, q = u * cb[fr, chs], w * sb[fr, chs]
+            v = (p + np.where(is_q, q, -q)) * xh
+            v = np.where(is_q, -v, v)
+            m = np.trunc(v + np.copysign(half, v)).astype(np.int64)
+            out[j] = np.where(live, m, 0)
+        return out[..., None]
+
+    def lanes_of(v):
+        return torch.from_numpy(np.where(live, v.numpy()[rows_live], 0))
+
+    s = [lanes_of(state.x[:, 0].to(torch.int64)),
+         lanes_of(state.x[:, 1].to(torch.int64)),
+         lanes_of(state.y[:, 0].to(torch.int64)),
+         lanes_of(state.y[:, 1].to(torch.int64))]
+
+    def df1(words):
+        return df1_rows(ba, f, s, torch.from_numpy(words[..., 0]),
+                        clamp).numpy()[..., None]
+
+    yiq = np.zeros((t // d, 2 * c), np.int64)
+    kept_once = np.zeros(t // d, np.int64)
+    i_lanes, q_lanes = live & ~is_q, live & is_q  # each in channel order
+    pll = [pll_state]
+
+    def back(r0, words):
+        n = len(words)
+        kept = np.arange((-r0) % d, n, d)
+        yiq[np.ix_((r0 + kept) // d, row[live])] = words[kept][:, live, 0]
+        kept_once[(r0 + kept) // d] += 1
+        if pll_state is None:
+            return
+        for r in range((-r0) % d, n, 2 * d):
+            pair = [r, min(r + d, n - 1)]
+            w = words[pair, :, 0].astype(np.int32)
+            ang = atan2(torch.from_numpy(w[:, q_lanes]),
+                        torch.from_numpy(w[:, i_lanes]))
+            pll[0], _ = pll_bank_plain(pll_ba, pll[0],
+                                       ang[:2 if r + d < n else 1])
+
+    pipe_run(t, lanes, plan, produce, span_rows, df1, seed=seed, back=back)
+    assert bool((kept_once == 1).all()), "a kept row written twice or never"
+    sx, sy = state.x.clone(), state.y.clone()
+    at, on = torch.from_numpy(row[live]), torch.from_numpy(live)
+    for j, v in enumerate(s):
+        (sx if j < 2 else sy)[at, j % 2] = v[on].to(torch.int32)
+    return (Df1State(x=sx, y=sy), pll[0],
+            torch.from_numpy(yiq.astype(np.int32)))
+
+
+def lockin_model(ba, state, x, lo_freqs, n0, plan, *, time_chunk, seed=0):
+    """K16 as the kernel runs it (``csrc/ddc_lockin.cu``) over the 2c I|Q
+    lanes: the producers by spans form each row's LO as u*cb -+ v*sb (u, v
+    = ca, sa for I, sa, ca for Q), the mix x*lo (negated for Q) and W =
+    (b0 x0 + b1 x1) + b2 x2, a span's two rows before from their own mix
+    (rows -1, -2 of the block: the state's x); the serial warp's y0 = (W +
+    a1 y1) + a2 y2, a2 y2 formed a row ahead; numpy float32, each product
+    and sum rounded on its own, the words the f32 bits.  Returns
+    (Df1State, ys f32) like `ddc_lockin_bank_plain`."""
+    from idsp_tpu_torch.filters.biquad import Df1State
+    from idsp_tpu_torch.filters.ddc_lockin_cuda import _ba_f32, lockin_tables
+
+    t, c, tc = x.shape[0], len(lo_freqs), time_chunk
+    ca, sa, cb, sb = (v.numpy() for v in lockin_tables(
+        lo_freqs, n0, t, tc, device=torch.device("cpu")))
+    is_q = np.arange(2 * c) >= c
+    ch = np.arange(2 * c) % c
+    xn = x.numpy().astype(np.float32)
+    b0, b1, b2, a1, a2 = (np.float32(v) for v in _ba_f32(ba))
+    x1, x2 = (state.x[:, j].numpy().astype(np.float32) for j in (0, 1))
+    y1, y2 = (state.y[:, j].numpy().astype(np.float32) for j in (0, 1))
+
+    def mix(g):  # the mixed samples of block row g >= -2
+        if g < 0:
+            return x1 if g == -1 else x2
+        k, b = divmod(g, tc)
+        u = np.where(is_q, sa[k, ch], ca[k, ch])
+        v = np.where(is_q, ca[k, ch], sa[k, ch])
+        p, q = u * cb[b, ch], v * sb[b, ch]
+        m = np.float32(xn[g]) * (p + np.where(is_q, q, -q))
+        return np.where(is_q, -m, m)
+
+    def produce(r0, idx):
+        g = r0 + idx  # a span: consecutive rows
+        m = [mix(int(g[0]) - 2), mix(int(g[0]) - 1)] + [mix(int(v))
+                                                        for v in g]
+        w = np.stack([(b0 * m[j + 2] + b1 * m[j + 1]) + b2 * m[j]
+                      for j in range(len(g))])
+        return w.view(np.int32).astype(np.int64)[..., None]
+
+    def serial(words):
+        nonlocal y1, y2
+        out = np.empty((len(words), 2 * c, 1), np.int64)
+        v = a2 * y2
+        for j, w in enumerate(words[..., 0]):
+            y0 = (w.astype(np.int32).view(np.float32) + a1 * y1) + v
+            v = a2 * y1  # off the chain
+            y2, y1 = y1, y0
+            out[j, :, 0] = y0.view(np.int32)
+        return out
+
+    words = pipe_run(t, 2 * c, plan, produce, span_rows, serial, seed=seed)
+    new = Df1State(x=torch.from_numpy(np.stack([mix(t - 1), mix(t - 2)], 1)),
+                   y=torch.from_numpy(np.stack([y1, y2], 1)))
+    return new, torch.from_numpy(words[..., 0].astype(np.int32).view(
+        np.float32))
