@@ -77,7 +77,13 @@ Phases, each reported on its own line:
    producers, spans across a time chunk of 12, the int64 sum wrapping) and K16 (t = the time chunk, t not
    a multiple of the chunk, time chunks under a span, 2-row spans, 11
    producers, t = 1, a time chunk of 16384 rows) at small t and c over 2
-   blocks, bit for bit;
+   blocks, bit for bit; K1 (int32 at f 29, 33 and 63, f32 at f 33), K11
+   (d 3, 4 and 1: kept rows across chunk edges), K18 (CLAMP at f 29 and
+   33), K26 (per-lane and shared planes at f 63) and K27 (per-lane, CLAMP,
+   f 33) at the edges of the same pipeline (`df1_plan`: t = 1, t under a
+   chunk, t = 3 chunks + 17, a forced plan of 16-row chunks; c = 200, 50,
+   1 and 200) over 2 blocks, and K1, K18 at f 32 and 63 and K27 at f 63
+   on a block whose 64-bit sums wrap, bit for bit;
    K22 `hbf_dec_cascade_mxu`
    ((32768, 512) f32) and K23
    `hbf_int_cascade_mxu` ((2048, 512) f32), depth 4, with HBF_TAPS and
@@ -240,9 +246,10 @@ Phases, each reported on its own line:
    chain rates (every mode but ``scan`` with its busy share) at c=512
    and c=1024 and bank rates at c=1024, in c*t full-rate samples/s,
    t=32768 (K14, K18-K21 and K3's clamp form at c=512 and 1024, their
-   plain versions' times from phase 3; K2, K3, K14, K19-K21 and K3's
+   plain versions' times from phase 3; K1, K2, K3, K14, K18-K21 and K3's
    clamp form also by their profiler spans, device ms a launch, and K2 beside
-   "K1 then K7", the two-kernel composition it fuses; K11-K13, K12's clamp form and the
+   "K1 then K7", the two-kernel composition it fuses; K11-K13 (each
+   with its device ms), K12's clamp form and the
    biquad bank's five modes at c=1024); K7-K10 and K22-K23 (also at
    their second tiling; K7, K8, K22 and K23 also by their profiler
    spans, device ms a launch, and K7/K8 so at the chunks of HBF_CHUNKS
@@ -258,7 +265,8 @@ Phases, each reported on its own line:
    spans), and the forced 64-frame plan's time, beside its plain version and its library yardstick (the FIR in
    torch ops and `torch.matmul` of the four products, TF32 off), with
    the planes path's rates (n*m samples/s); K24-K27 at c=1024 lanes with
-   their plain versions' times from phase 3, and the control legs' block
+   their plain versions' times from phase 3 (K26, K27 also by their
+   profiler spans, device ms a launch), and the control legs' block
    times; K28-K33 at c=1024 lanes with their plain versions' times from
    phase 3 (K31 clamped and K32/K33 with a shared set on the log only);
    K34-K40 at c=1024 lanes with their rates and their plain versions'
@@ -383,7 +391,12 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "fastlo_df1_dec_bank": "ddc_bank_df1_kernel",
                   "fastlo_df1_dec_bank_clamp": "ddc_bank_df1_kernel",
                   "fastlo_ddc_bank_block": "ddc_bank_df1_kernel",
-                  "ddc_lockin_bank": "ddc_lockin_kernel"}
+                  "ddc_lockin_bank": "ddc_lockin_kernel",
+                  "df1_bank_q": "df1_pipe_kernel",
+                  "df1_bank_q_dec": "df1_pipe_kernel",
+                  "df1_clamp_bank_q": "df1_pipe_kernel",
+                  "df1_bank_q_coef": "df1_pipe_kernel",
+                  "df1_clamp_bank_q_coef": "df1_pipe_kernel"}
 # The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
 # the chain's mixed stream the 0.02 lowpass output peaks near 2.6e7, under
 # the 2^26 bound of tests/test_biquad_pallas.py:896, so that bound never
@@ -2208,6 +2221,131 @@ def check_depth0_edges(dev, i32, errs):
         f"{errs['df1_dither_bank_coef']}, {errs['svf_bank']}")
 
 
+def check_df1_pipe_edges(dev, i32, errs):
+    """Phase 3 for K1, K11, K18, K26 and K27 at the edges of the depth-0
+    pipeline (`df1_plan`), each against its plain version over 2 carried
+    blocks, tolerance 0 (into errs under the kernel's own name): t = 1 (c
+    = 200), t under a chunk (c = 50), t = 3 chunks + 17 (c = 1: one live
+    lane of a tile) and a forced plan of 16-row chunks, 3 slots and 2
+    producers (c = 200: a tile's tail lanes; t not a multiple of the
+    chunk).  Full-range x and state, coefficients in +-2^(f + 1): K1 int32
+    at f 29, 33 and 63 (the funnel shift and the high word's) and f32 at f
+    33; K11 at d 3 (4 under a chunk; 1 at t = 1; kept rows across chunk
+    edges where the chunk is not a multiple of d) at f 29 and 63; K18
+    with CLAMP at f 29 and 33; K26 per-lane and shared at f 63, K27
+    per-lane with CLAMP at f 33.  Then K1, K18 at f 32 and 63 and K27 at
+    f 63 on a block whose five products pass 2^63 (coefficients, state
+    and the first row at -2^31, the rest at int32's edges: the sum
+    wraps)."""
+    import torch
+    from idsp_tpu_torch.filters import biquad
+    from idsp_tpu_torch.filters.biquad_cuda import (
+        df1_bank_q, df1_bank_q_coef, df1_bank_q_coef_plain, df1_bank_q_dec,
+        df1_bank_q_dec_plain, df1_bank_q_plain, df1_clamp_bank_q,
+        df1_clamp_bank_q_coef, df1_clamp_bank_q_coef_plain,
+        df1_clamp_bank_q_plain, df1_plan,
+    )
+
+    rng = np.random.default_rng(21)
+    u, lo, hi = CLAMP
+
+    def coefs(f, shape=(5,)):
+        top = min(2**31 - 1, 2 << f)
+        return torch.from_numpy(rng.integers(-top, top + 1, size=shape)
+                                .astype(np.int32)).to(dev)
+
+    def state(c):
+        return (biquad.Df1State(x=i32((c, 2)), y=i32((c, 2))),)
+
+    def run(name, label, kern, plain, c, t):
+        errs[name] = max(errs.get(name, 0.0), hold(
+            f"{name} ({label})", kern, plain, state(c),
+            lambda: i32((t, c)), blocks=2))
+
+    chunk = df1_plan(1).chunk
+    edges = {
+        "t = 1": (200, 1, {}, 1),
+        "t under a chunk": (50, 100, {}, 4),
+        "t = 3 chunks + 17": (1, 3 * chunk + 17, {}, 3),
+        "16-row chunks": (200, 5 * 16 + 3, dict(chunk=16, ring=3,
+                                                producers=2), 3),
+    }
+    for label, (c, t, kw, d) in edges.items():
+        p = df1_plan(c, **kw) if kw else None
+        for f, f32 in ((29, False), (33, False), (63, False), (33, True)):
+            ba = coefs(f)
+            dt = torch.float32 if f32 else None
+            run("df1_bank_q", f"{label}, f {f}, {'f32' if f32 else 'i32'}",
+                lambda s, x, ba=ba, f=f, dt=dt, p=p: df1_bank_q(
+                    ba, s, x, f, out_dtype=dt, _plan=p),
+                lambda s, x, ba=ba, f=f, dt=dt: df1_bank_q_plain(
+                    ba, s, x, f, out_dtype=dt), c, t)
+        td = -(-t // d) * d  # K11's rows: a multiple of d
+        for f in (29, 63):
+            ba = coefs(f)
+            run("df1_bank_q_dec", f"{label}, d {d}, f {f}",
+                lambda s, x, ba=ba, f=f, d=d, p=p: df1_bank_q_dec(
+                    ba, s, x, f, d=d, _plan=p),
+                lambda s, x, ba=ba, f=f, d=d: df1_bank_q_dec_plain(
+                    ba, s, x, f, d=d), c, td)
+        for f in (29, 33):
+            ba = coefs(f)
+            run("df1_clamp_bank_q", f"{label}, f {f}, clamp {CLAMP}",
+                lambda s, x, ba=ba, f=f, p=p: df1_clamp_bank_q(
+                    ba, s, x, f, u=u, lo=lo, hi=hi, _plan=p),
+                lambda s, x, ba=ba, f=f: df1_clamp_bank_q_plain(
+                    ba, s, x, f, u=u, lo=lo, hi=hi), c, t)
+        for shape in ((5, c), (5,)):
+            pl = coefs(63, shape)
+            run("df1_bank_q_coef", f"{label}, f 63, planes {shape}",
+                lambda s, x, pl=pl, p=p: df1_bank_q_coef(pl, s, x, 63,
+                                                         _plan=p),
+                lambda s, x, pl=pl: df1_bank_q_coef_plain(pl, s, x, 63),
+                c, t)
+        pl = coefs(33, (5, c))
+        run("df1_clamp_bank_q_coef", f"{label}, f 33, clamp {CLAMP}",
+            lambda s, x, pl=pl, p=p: df1_clamp_bank_q_coef(
+                pl, s, x, 33, u=u, lo=lo, hi=hi, _plan=p),
+            lambda s, x, pl=pl: df1_clamp_bank_q_coef_plain(
+                pl, s, x, 33, u=u, lo=lo, hi=hi), c, t)
+    c, t = 50, 300
+    edge = np.array([-(2**31), -(2**31) + 1, -1, 0, 1, 2**31 - 1], np.int32)
+    xs = rng.choice(edge, (t, c))
+    xs[0] = -(2**31)
+    low = torch.full((c, 2), -(2**31), dtype=torch.int32, device=dev)
+    st = (biquad.Df1State(x=low, y=low.clone()),)
+    ba = torch.full((5,), -(2**31), dtype=torch.int32, device=dev)
+    pl = ba[:, None].expand(5, c).contiguous()
+    wide = (2**31 - 9, -(2**31), 2**31 - 1)
+    cases = [("df1_bank_q", f, lambda s, x, f=f: df1_bank_q(ba, s, x, f),
+              lambda s, x, f=f: df1_bank_q_plain(ba, s, x, f))
+             for f in (32, 63)]
+    cases += [("df1_clamp_bank_q", f,
+               lambda s, x, f=f: df1_clamp_bank_q(ba, s, x, f, u=wide[0],
+                                                  lo=wide[1], hi=wide[2]),
+               lambda s, x, f=f: df1_clamp_bank_q_plain(
+                   ba, s, x, f, u=wide[0], lo=wide[1], hi=wide[2]))
+              for f in (32, 63)]
+    cases.append(("df1_clamp_bank_q_coef", 63,
+                  lambda s, x: df1_clamp_bank_q_coef(
+                      pl, s, x, 63, u=wide[0], lo=wide[1], hi=wide[2]),
+                  lambda s, x: df1_clamp_bank_q_coef_plain(
+                      pl, s, x, 63, u=wide[0], lo=wide[1], hi=wide[2])))
+    for name, f, kern, plain in cases:
+        errs[name] = max(errs.get(name, 0.0), hold(
+            f"{name} (the sum wraps, f {f})", kern, plain, st,
+            lambda: torch.from_numpy(xs).to(dev), blocks=1))
+    log(f"phase 3 K1 (i32 at f 29, 33, 63; f32 at f 33), K11 (d 3, 4, 1; f "
+        f"29 and 63), K18 (f 29, 33, clamp {CLAMP}), K26 (f 63, per-lane and "
+        f"shared planes) and K27 (f 33, per-lane, clamped) at the depth-0 "
+        f"pipeline's edges == plain over 2 blocks each ({', '.join(edges)}: "
+        f"c = 200, 50, 1 and 200); K1, K18 at f 32 and 63 and K27 at f 63 "
+        f"where the 64-bit sum wraps: max |d| "
+        + ", ".join(str(errs[k]) for k in (
+            "df1_bank_q", "df1_bank_q_dec", "df1_clamp_bank_q",
+            "df1_bank_q_coef", "df1_clamp_bank_q_coef")))
+
+
 def check_bank_lockin_edges(dev, i32, errs):
     """Phase 3 for K12 (and its ``clamp=``), K13 and K16 at the edges of
     the depth-0 pipeline, at small t and c, each over 2 carried blocks
@@ -3410,9 +3548,13 @@ def time_control(dev, i32, card, timings, plain_s):
     }
     for name, (kern, st) in cases.items():
         k_s, _ = measure_rate(kern, st, iters=20, trials=3)
-        timings["kernels"][name] = {c: {"ms": k_s * 1e3,
-                                        "plain_ms": plain_s[name] * 1e3}}
-        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms, plain "
+        entry = {"ms": k_s * 1e3, "plain_ms": plain_s[name] * 1e3}
+        note = ""
+        if name in DEVICE_SYMBOLS:
+            entry["device_ms"] = launch_device_ms(name, kern, st)
+            note = f", device {entry['device_ms']} ms a launch"
+        timings["kernels"][name] = {c: entry}
+        log(f"phase 6 c={c} {name}: kernel {k_s * 1e3:.4f} ms{note}, plain "
             f"{plain_s[name] * 1e3:.2f} ms (phase 3)  [{card}]")
     timings["control_samples_per_s"] = {}
     legs = {
@@ -4769,6 +4911,7 @@ def main():
     check_structure_kernels(dev, rng, errs, plain_s)
     check_serial_pipe_edges(dev, i32, errs)
     check_depth0_edges(dev, i32, errs)
+    check_df1_pipe_edges(dev, i32, errs)
     check_bank_lockin_edges(dev, i32, errs)
     log(f"phase 3 done at {time.perf_counter() - wall0:.1f} s")
 

@@ -42,11 +42,11 @@ _L = ctypes.c_longlong
 # C signatures (see the .cu files): pointers, then ints (and floats), then
 # the stream.
 _SIGNATURES = {
-    "idsp_df1_bank_q": [_P] * 6 + [_I] * 9 + [_P],
-    "idsp_df1_bank_q_dec": [_P] * 6 + [_I] * 10 + [_P],
-    "idsp_df1_clamp_bank_q": [_P] * 6 + [_I] * 11 + [_P],
-    "idsp_df1_bank_q_coef": [_P] * 7 + [_I] * 3 + [_P],
-    "idsp_df1_clamp_bank_q_coef": [_P] * 7 + [_I] * 6 + [_P],
+    "idsp_df1_bank_q": [_P] * 6 + [_I] * 14 + [_P],
+    "idsp_df1_bank_q_dec": [_P] * 6 + [_I] * 15 + [_P],
+    "idsp_df1_clamp_bank_q": [_P] * 6 + [_I] * 16 + [_P],
+    "idsp_df1_bank_q_coef": [_P] * 7 + [_I] * 8 + [_P],
+    "idsp_df1_clamp_bank_q_coef": [_P] * 7 + [_I] * 11 + [_P],
     "idsp_sos_bank_q": [_P] * 6 + [_I] * 4 + [_P, _P],
     "idsp_df1_wide_bank": [_P] * 6 + [_I] * 12 + [_P],
     "idsp_df1_wide_bank_coef": [_P] * 7 + [_I] * 7 + [_P],

@@ -1,6 +1,6 @@
-"""Time K1, K2, K3, K6, K7, K8, K12 (and its ``clamp=``), K13, K14, K15,
-K16, K17, K19, K22 "highest", K29, K31, K33, K34, K37 and K38-K40 of two
-checkouts of the port in turns, in one process.
+"""Time K1, K2, K3, K6, K7, K8, K11, K12 (and its ``clamp=``), K13, K14,
+K15, K16, K17, K18, K19, K22 "highest", K26, K27, K29, K31, K33, K34, K37
+and K38-K40 of two checkouts of the port in turns, in one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -11,13 +11,19 @@ substrings (e.g. ``--only highest,wdf``; K2, K3, K19: ``--only
 df1_hbf,fastlo_ddc_cascade,df1_clamp``; K14, K15: ``--only
 mix_df1,fm_disc``; K29, K37: ``--only q64,rpll``; K31, K33, K34:
 ``--only dither,svf``; K12, its ``clamp=``, K13, K6 and K16: ``--only
-fastlo_df1_dec,fastlo_ddc_bank,ddc_lockin``).
+fastlo_df1_dec,fastlo_ddc_bank,ddc_lockin``; K1, K11, K18, K26, K27:
+``--only df1_bank_q,df1_clamp_bank_q``).
 
 Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
 loaded under a name of its own, so both live in this process, and each
 builds its kernels into its own ``build/``.  One set of inputs, made from
 a seed, goes to both: K1 `df1_bank_q` (f32 out) at c = 512 and 1024
 channels (2c I|Q lanes, t = 32768, as `chip_smoke.py` phase 6 times it),
+K18 `df1_clamp_bank_q` (clamp (2^10, +-2^23)) on the same xs at c = 512
+and 1024, K11 `df1_bank_q_dec` (the suite's bank filter, the Q29 lowpass
+at 0.004, d = 16) on the c = 1024 xs, K26 `df1_bank_q_coef` and K27
+`df1_clamp_bank_q_coef` (clamp (0, +-2^26), the config bank's) with the
+per-lane Q29 lowpass planes below on full-range x at c = 1024 lanes,
 K2 `df1_hbf_cascade_bank` on the same xs and K3
 `fastlo_ddc_cascade_bank` (x, a zero phase, the K6 steps) at c = 512 and
 1024 and K19 `df1_clamp_hbf_cascade_bank` (clamp (2^10, +-2^23)) at
@@ -138,6 +144,10 @@ def cases(alias: str, dev, inputs):
         out[f"df1_bank_q c={c}"] = (
             lambda st=st, xs=xs: df1_bank_q(ba, st, xs, 29,
                                             out_dtype=torch.float32))
+        out[f"df1_clamp_bank_q c={c}"] = (
+            lambda st=st, xs=xs: sub["filters.biquad_cuda"].df1_clamp_bank_q(
+                ba, st, xs, 29, u=BANK_CLAMP[0], lo=BANK_CLAMP[1],
+                hi=BANK_CLAMP[2]))
     ddc = sub["filters.ddc_cuda"]
     for c in (512, 1024):
         st = biquad.df1_init((2 * c,), device=dev)
@@ -202,6 +212,16 @@ def cases(alias: str, dev, inputs):
     bank = sub["filters.ddc_bank_cuda"]
     ba_bank = biquad.quantize_ba(biquad.from_cookbook(
         sub["design"].Filter().critical_frequency(0.004).lowpass()), 29)
+    out[f"df1_bank_q_dec c={C_BANK}"] = (
+        lambda st=biquad.df1_init((2 * C_BANK,), device=dev):
+        bc.df1_bank_q_dec(ba_bank, st, inputs["xs1024"], 29, d=DEC))
+    out[f"df1_bank_q_coef c={C_SERIAL}"] = (
+        lambda st=biquad.df1_init((C_SERIAL,), device=dev):
+        bc.df1_bank_q_coef(inputs["planes29"], st, inputs["x32"], 29))
+    out[f"df1_clamp_bank_q_coef c={C_SERIAL}"] = (
+        lambda st=biquad.df1_init((C_SERIAL,), device=dev):
+        bc.df1_clamp_bank_q_coef(inputs["planes29"], st, inputs["x32"], 29,
+                                 u=0, lo=-(2**26), hi=2**26))
     for label, clamp in (("", None), (" clamp", BANK_CLAMP)):
         out[f"fastlo_df1_dec_bank{label} c={C_BANK}"] = (
             lambda st=biquad.df1_init((2 * C_BANK,), device=dev), cl=clamp:
@@ -338,6 +358,7 @@ def main() -> None:
         inputs[f"ch{n}"] = tuple(torch.from_numpy(rng.normal(
             size=(n, M_CH)).astype(np.float32)).to(dev) for _ in range(2))
     inputs["x29"] = i32((T, C_SERIAL), -(2**24), 2**24)
+    inputs["x32"] = i32((T, C_SERIAL))
     inputs["xf"] = torch.from_numpy(
         rng.normal(size=(T, C_SERIAL)).astype(np.float32)).to(dev)
     inputs["xlk"] = torch.from_numpy(

@@ -2,7 +2,7 @@
 // fixed-point SOS cascade (every stage a Q32<f> DF1), K25 the wide-state
 // DF1 (int64 feedback words), optionally clamped.  K32 is K25 with
 // runtime coefficients: each lane loads its five words once from (5, c)
-// int32 planes (`df1.cuh` `load_coefs`, as K26/K27 do for K1/K18).
+// int32 planes (`df1.cuh` `load_coefs`).
 //
 // Replaces the Pallas kernels of idsp_tpu/filters/biquad_pallas.py
 // `sos_bank_q` (:147, `_sos_bank_q_impl` :176), `df1_wide_bank` (:796,

@@ -44,8 +44,11 @@
 // once, its serial warp a1 and a2); on the chain V + e, the multiply-add
 // of a1 y1 onto it, one funnel shift (y, bits [f, f + 32) of the sum) and
 // the clamp if any, e the sum's low f bits beside it; int32 rows, 16 bytes a
-// thread where c % 4 == 0.  The sums wrap (mod 2^128, mod 2^64), so the
-// splits are bit-identical to the plain `df1_process_q64` and
+// thread where c % 4 == 0.  The producers' walk (`tap_feed`), K31/K33's W
+// (`w_feed`) and serial warp (`Df1WSerial` with its dither flag) are
+// df1_ring.cuh's, shared with K1, K11, K18, K26 and K27 (df1_bank.cu),
+// which are the same DF1 without e.  The sums wrap (mod 2^128, mod 2^64),
+// so the splits are bit-identical to the plain `df1_process_q64` and
 // `df1_dither_process`.  The plans (warps, producers, chunk, ring depth,
 // shared memory) are the host's (filters/biquad_cuda.py `q64_plan`,
 // `dither_plan`), which the entry points check.
@@ -63,9 +66,11 @@ using idsp::kBankLanes;
 using idsp::Q64Coef;
 using idsp::mac_q64;
 using idsp::ring::Batch;
+using idsp::ring::Df1WArgs;
 using idsp::ring::kLanes;
 using idsp::ring::Pipe;
 using idsp::ring::Rings;
+using idsp::ring::TapRows;
 
 // K28 and K30: one lane type, its row type T and its coefficients.
 
@@ -109,53 +114,6 @@ struct Q64Args {
   int f;
 };
 
-// A DF1 producer's rows (K29, K31/K33): x[0], x[1] the two rows before a
-// batch of B rows, x[v + 2] row v.
-template <class T, int B>
-struct TapRows {
-  T x[B + 2];
-};
-
-// Producer pw of P's walk for a DF1's feed-forward sum (K29, K31/K33): its
-// span of each chunk (df1_ring.cuh `span_batches`) in batches of B rows of
-// xs (t, c), form(batch, rows, slot) writing each row's sum into the input
-// ring.  A batch takes its two rows before from the batch before where
-// that was of the same span, else loads them, rows -1 and -2 of the block
-// from the state sx ((c, 2): x1, x2), so spans are independent.  Producer
-// 0 also writes the last two rows out as the state's x.
-template <int B, class T, class Form>
-__device__ __forceinline__ void tap_feed(const Pipe& p, const Rings& R,
-                                         int pw, int lane, bool live,
-                                         const T* xs, const T* sx,
-                                         T* sx_out, Form form) {
-  const int t = p.d.t;
-  const size_t c = static_cast<size_t>(p.c2);
-  const int ch = live ? lane : 0;  // dead lanes read lane 0's words
-  const T* xp = xs + ch;
-  const T x1 = sx[2 * ch], x2 = sx[2 * ch + 1];
-  auto row = [&](int g) {  // x of block row g >= -2
-    return g >= 0 ? idsp::ldg(xp + static_cast<size_t>(g) * c)
-                  : g == -1 ? x1 : x2;
-  };
-  idsp::ring::span_batches<B, TapRows<T, B>>(
-      t, p.d.chunk, p.d.depth, p.producers, pw, R,
-      [&](const Batch& b, TapRows<T, B>& n, const TapRows<T, B>& cur,
-          bool same) {
-        if (b.r0 >= t) return;
-        const int g = b.r0 + b.r;
-        n.x[0] = same ? cur.x[B] : row(g - 2);
-        n.x[1] = same ? cur.x[B + 1] : row(g - 1);
-#pragma unroll
-        for (int v = 0; v < B; ++v)
-          n.x[v + 2] = row(b.r0 + min(b.r + v, b.hi - 1));
-      },
-      form);
-  if (pw == 0 && live) {
-    sx_out[2 * lane] = row(t - 1);
-    sx_out[2 * lane + 1] = row(t - 2);
-  }
-}
-
 // K29's producers: `tap_feed` in batches of kQ64 rows, each row's sum b0
 // x0 + b1 x1 + b2 x2 mod 2^128 into the input ring as four 32-bit limbs.
 constexpr int kQ64 = 8;
@@ -163,7 +121,7 @@ constexpr int kQ64 = 8;
 __device__ __forceinline__ void q64_feed(const Q64Args& a, const Rings& R,
                                          int pw, int lid, int lane,
                                          bool live) {
-  tap_feed<kQ64>(
+  idsp::ring::tap_feed<kQ64>(
       a.p, R, pw, lane, live, a.xs, a.sx, a.sx_out,
       [&](const Batch& b, const TapRows<int64_t, kQ64>& xv, int slot) {
         uint4* s = reinterpret_cast<uint4*>(R.in_slot<4>(slot)) + lid;
@@ -269,133 +227,15 @@ __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
       });
 }
 
-// K31 and K33: a launch; p.d holds the rows, chunk and ring depth (no
-// DF1), p.y the (t, c) int32 output.  K33 (Planes) takes each lane's
-// coefficients from (5, c) planes, K31 k's; f and the clamp are k's and
-// cl's either way.
-struct DitherArgs {
-  Pipe p;
-  const int32_t* xs;
-  const int32_t *sx, *sy;
-  const int64_t* se;
-  int32_t *sx_out, *sy_out;
-  int64_t* se_out;
-  const int32_t* planes;
-  idsp::Df1Coefs k;
-  idsp::Df1Clamp cl;
-  uint32_t emask;  // the sum's low f bits: the next e
-};
-
-// K31's and K33's producers: `tap_feed` in batches of kDither rows, each
-// row's sum W = b0 x0 + b1 x1 + b2 x2 mod 2^64 into the input ring as two
-// 32-bit words; K33's take the lane's b0-b2 from the planes once.
-constexpr int kDither = 16;
-
-template <bool Planes>
-__device__ __forceinline__ void dither_feed(const DitherArgs& a,
-                                            const Rings& R, int pw, int lid,
-                                            int lane, bool live) {
-  int32_t b0 = a.k.b0, b1 = a.k.b1, b2 = a.k.b2;
-  if constexpr (Planes) {
-    const size_t c = static_cast<size_t>(a.p.c2);
-    const int ch = live ? lane : 0;
-    b0 = __ldg(a.planes + ch);
-    b1 = __ldg(a.planes + c + ch);
-    b2 = __ldg(a.planes + 2 * c + ch);
-  }
-  tap_feed<kDither>(
-      a.p, R, pw, lane, live, a.xs, a.sx, a.sx_out,
-      [&](const Batch& b, const TapRows<int32_t, kDither>& xv, int slot) {
-        uint2* s = reinterpret_cast<uint2*>(R.in_slot<2>(slot)) + lid;
-#pragma unroll
-        for (int v = 0; v < kDither; ++v) {
-          const uint64_t w = static_cast<uint64_t>(idsp::mad_wide(
-              b0, xv.x[v + 2],
-              idsp::mad_wide(b1, xv.x[v + 1], idsp::mul_wide(b2, xv.x[v]))));
-          if (b.r + v < b.hi)
-            s[(b.r + v) * kLanes] = make_uint2(static_cast<uint32_t>(w),
-                                               static_cast<uint32_t>(w >> 32));
-        }
-      });
-}
-
-// The serial warp: y1, y2 and e of its lane in registers; each row's W
-// from the input ring, y0 into the output ring.  V = W + a2 y2 waits on
-// no step of the row before (y2 is the row before's y1), so it is formed
-// a row ahead, off the chain; on the chain are V + e (e is ready beside
-// y1: one mask of the sum's low word), a1 y1's multiply-add onto it, one
-// funnel shift and the clamp if any (a1 y1 + (V + e): 2.6 % faster than
-// (a1 y1 + V) + e unclamped, 3.9 % clamped, on the H100, PERF.md §6).  y0
-// is bits [f, f + 32) of the sum acc (the high word of acc << (32 - f), as
-// the plain step forms it: `__funnelshift_rc` takes the high word at f =
-// 32), the next e its low f bits ((u32)(acc << (32 - f)) >> (32 - f), the
-// whole low word at f = 32).  The clamped form feeds the clamped y0 back;
-// e keeps the unclamped fraction.  acc wraps mod 2^64, so any order of its
-// terms gives the plain version's bits.
-template <bool Clamp, bool Planes>
-struct DitherSerial {
-  const DitherArgs* a;
-
-  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
-                                             int lid, int lane, bool live,
-                                             uint32_t) const {
-    const Pipe& p = a->p;
-    const size_t c = static_cast<size_t>(p.c2);
-    const int ch = live ? lane : 0;
-    int32_t a1 = a->k.a1, a2 = a->k.a2;
-    if constexpr (Planes) {
-      a1 = __ldg(a->planes + 3 * c + ch);
-      a2 = __ldg(a->planes + 4 * c + ch);
-    }
-    const idsp::Df1Clamp cl = a->cl;
-    const int f = a->k.f;
-    const uint32_t emask = a->emask;
-    int32_t y1 = 0, y2 = 0;
-    uint32_t e = 0;
-    if (live) {
-      y1 = a->sy[2 * lane];
-      y2 = a->sy[2 * lane + 1];
-      e = static_cast<uint32_t>(a->se[lane]);
-    }
-    idsp::ring::serial_chunks(
-        p.d.t, p.d.chunk, p.d.depth, R, [&](int slot, int rows) {
-          const uint2* in =
-              reinterpret_cast<const uint2*>(R.in_slot<2>(slot)) + lid;
-          int32_t* o = reinterpret_cast<int32_t*>(out) +
-                       static_cast<size_t>(slot) * p.d.chunk * kLanes + lid;
-          idsp::ring::group_rows(
-              rows, [&](int r) { return in[r * kLanes]; },
-              [&](int r, uint2 w) {
-                const int64_t v = idsp::mad_wide(  // off the chain
-                    a2, y2, static_cast<int64_t>(uint64_t{w.y} << 32 | w.x));
-                const uint64_t acc = static_cast<uint64_t>(idsp::mad_wide(
-                    a1, y1, static_cast<int64_t>(static_cast<uint64_t>(v) + e)));
-                const uint32_t lo = static_cast<uint32_t>(acc);
-                int32_t y0 = static_cast<int32_t>(
-                    __funnelshift_rc(lo, static_cast<uint32_t>(acc >> 32), f));
-                e = lo & emask;
-                if constexpr (Clamp) y0 = cl(y0);
-                y2 = y1;
-                y1 = y0;
-                o[r * kLanes] = y0;
-              });
-        });
-    if (live) {
-      a->sy_out[2 * lane] = y1;
-      a->sy_out[2 * lane + 1] = y2;
-      a->se_out[lane] = static_cast<int64_t>(e);
-    }
-  }
-};
-
 template <bool Clamp, bool Planes>
 __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
-    df1_dither_kernel(const __grid_constant__ DitherArgs a) {
+    df1_dither_kernel(const __grid_constant__ Df1WArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   idsp::ring::run_pipe<2, 1, idsp::ring::Layout::kWide>(
-      a.p, smem, DitherSerial<Clamp, Planes>{&a},
+      a.p, smem, idsp::ring::Df1WSerial<true, Clamp, Planes>{&a},
       [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
-        dither_feed<Planes>(a, R, pw, lid, lane, live);  // one CTA a tile
+        // one CTA a tile
+        idsp::ring::w_feed<Planes>(a, R, pw, lid, lane, live);
       });
 }
 
@@ -411,7 +251,7 @@ int launch_dither(const void* xs, void* ys, const void* sx, const void* sy,
       !idsp::ring::pipe_plan_ok(t, c, warps, producers, chunk, ring, smem, 1,
                                 2, 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  DitherArgs a{};
+  Df1WArgs a{};
   a.p.d.t = t;
   a.p.d.chunk = chunk;
   a.p.d.depth = ring;

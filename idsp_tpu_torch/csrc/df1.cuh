@@ -7,8 +7,10 @@
 // mod 2^64 and is formed in uint64, where wrapping is defined.  The
 // shift is arithmetic (truncating toward -inf), and the result keeps
 // the low 32 bits: bit-identical to the scan `df1_process_q`.  The
-// anti-windup form (`Df1Clamp`, `step_clamp`) adds the offset and clamps
-// before the output is fed back: bit-identical to `df1_clamp_process_q`.
+// anti-windup form (`Df1Clamp`) adds the offset and clamps before the
+// output is fed back (the clamped value is both the result and the next
+// y1; the unclamped one goes nowhere): bit-identical to
+// `df1_clamp_process_q`.
 //
 // Per-lane coefficients (`load_coefs`) come from (5, c) int32 planes, the
 // runtime-coefficient banks' layout.  The wide-state DF1 (`Df1WideLane`)
@@ -20,7 +22,8 @@
 // (`Df1LaneQ16`, int16 storage, 32-bit sums) and Q64 (`mac_q64`, int64
 // storage, 128-bit sums), each bit-identical to its plain scan
 // (`df1_process_q` at int16, `df1_process_q64`).  The error-feedback DF1
-// is K31/K33's serial warp (biquad_precision.cu `DitherSerial`).
+// is K31/K33's serial warp (df1_ring.cuh `Df1WSerial` with its dither
+// flag).
 //
 // The f32 step (`Df1LaneF32`) has no shift; each product and each sum is
 // a single-rounding intrinsic, left to right, so nvcc cannot contract
@@ -171,14 +174,6 @@ struct Df1Lane {
 
   __device__ __forceinline__ int32_t step(const Df1Coefs& k, int32_t x0) {
     return push(x0, output(k, x0));
-  }
-
-  // The anti-windup step: the clamped output is both the result and the
-  // fed-back y1; the unclamped value goes nowhere.
-  __device__ __forceinline__ int32_t step_clamp(const Df1Coefs& k,
-                                                const Df1Clamp& cl,
-                                                int32_t x0) {
-    return push(x0, cl(output(k, x0)));
   }
 };
 

@@ -2,13 +2,15 @@
 // DF1 warp that runs in it.  A serial warp alone on its scheduler turns
 // each slot of an input ring into a slot of an output ring (`serial_chunks`);
 // producer warps fill the input ring, a store warp writes the output ring
-// to device memory (`run_pipe`).  Ten kernels run it: K14
+// to device memory (`run_pipe`).  Fifteen kernels run it: K14
 // (ddc_mix_df1.cu) and K15 (fm_disc.cu) with the DF1 warp as the serial
 // warp (`Df1Serial`), K12/K13 (ddc_bank.cu) with the DF1 warp over paired
 // I|Q channels and a back-end warp in the store warp's place (`run_roles`),
-// K37 and K34 (structures_bank.cu, the RPLL and the SVF), K29 and K31/K33
-// (biquad_precision.cu, the Q64 and the error-feedback DF1) and K16
-// (ddc_lockin.cu, the f32 DF1 after the lock-in mix) with their own.  The
+// K37 and K34 (structures_bank.cu, the RPLL and the SVF), K29
+// (biquad_precision.cu, the Q64) and K16 (ddc_lockin.cu, the f32 DF1 after
+// the lock-in mix) with their own, and K1, K11, K18, K26, K27 (df1_bank.cu)
+// and K31/K33 (biquad_precision.cu, the error-feedback DF1) with one
+// serial warp over the producers' feed-forward sums (`Df1WSerial`).  The
 // DF1 warp also serves K2, K3 and K19-K21 (ddc_cascade.cu: its output ring
 // is stage 0's FIR buffer).
 // Where the producers' work is more than one SM's other three schedulers
@@ -34,9 +36,9 @@
 // and empty.  An input slot holds `chunk` rows of kLanes x `Win` 32-bit
 // words, word w of row r and lane l at (r * kLanes + l) * Win + w, an
 // output slot the same with `Wout` words (K12/K13, K14, K15, K16, K34: 1
-// and 1; K31/K33: 2 and 1; K37: 2 and 2; K29: 4 and 2), so a warp reads or
-// writes a row as one 4-, 8- or 16-byte word a lane, contiguous across the
-// lanes.
+// and 1; K1, K11, K18, K26, K27, K31/K33: 2 and 1; K37: 2 and 2; K29: 4
+// and 2), so a warp reads or writes a row as one 4-, 8- or 16-byte word a
+// lane, contiguous across the lanes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,6 +48,7 @@
 
 #include "df1.cuh"
 #include "hopper.cuh"
+#include "seq_bank.cuh"
 
 namespace idsp {
 namespace ring {
@@ -466,6 +469,187 @@ int launch_pipe(Kernel kernel, const A& args, const Pipe& p, int smem,
   cudaLaunchKernelEx(&cfg, kernel, args);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---- the Q32<f> DF1 at depth 0: W by the producers, the chain alone --------
+
+// A DF1 producer's rows (K1, K11, K18, K26, K27, K29, K31/K33): x[0], x[1]
+// the two rows before a batch of B rows, x[v + 2] row v.
+template <class T, int B>
+struct TapRows {
+  T x[B + 2];
+};
+
+// Producer pw of P's walk for a DF1's feed-forward sum: its span of each
+// chunk (`span_batches`) in batches of B rows of xs (t, c), form(batch,
+// rows, slot) writing each row's sum into the input ring.  A batch takes
+// its two rows before from the batch before where that was of the same
+// span, else loads them, rows -1 and -2 of the block from the state sx
+// ((c, 2): x1, x2), so spans are independent.  Producer 0 also writes the
+// last two rows out as the state's x.
+template <int B, class T, class Form>
+__device__ __forceinline__ void tap_feed(const Pipe& p, const Rings& R,
+                                         int pw, int lane, bool live,
+                                         const T* xs, const T* sx,
+                                         T* sx_out, Form form) {
+  const int t = p.d.t;
+  const size_t c = static_cast<size_t>(p.c2);
+  const int ch = live ? lane : 0;  // dead lanes read lane 0's words
+  const T* xp = xs + ch;
+  const T x1 = sx[2 * ch], x2 = sx[2 * ch + 1];
+  auto row = [&](int g) {  // x of block row g >= -2
+    return g >= 0 ? idsp::ldg(xp + static_cast<size_t>(g) * c)
+                  : g == -1 ? x1 : x2;
+  };
+  span_batches<B, TapRows<T, B>>(
+      t, p.d.chunk, p.d.depth, p.producers, pw, R,
+      [&](const Batch& b, TapRows<T, B>& n, const TapRows<T, B>& cur,
+          bool same) {
+        if (b.r0 >= t) return;
+        const int g = b.r0 + b.r;
+        n.x[0] = same ? cur.x[B] : row(g - 2);
+        n.x[1] = same ? cur.x[B + 1] : row(g - 1);
+#pragma unroll
+        for (int v = 0; v < B; ++v)
+          n.x[v + 2] = row(b.r0 + min(b.r + v, b.hi - 1));
+      },
+      form);
+  if (pw == 0 && live) {
+    sx_out[2 * lane] = row(t - 1);
+    sx_out[2 * lane + 1] = row(t - 2);
+  }
+}
+
+// A launch of the int32 DF1 whose producers form W (K1, K11, K18, K26,
+// K27 in df1_bank.cu; K31/K33 in biquad_precision.cu): p.d holds the
+// rows, chunk and ring depth (no DF1 warp), p.y the output.  With planes
+// (K26, K27, K33) each lane's coefficients come from (5, c) planes, else
+// k's; f and the clamp are k's and cl's either way.  K31/K33 carry the
+// error word e (se, se_out; emask, the sum's low f bits); K11 keeps the
+// rows 0, dec, 2 dec, ... of its block.
+struct Df1WArgs {
+  Pipe p;
+  const int32_t* xs;
+  const int32_t *sx, *sy;
+  const int64_t* se;
+  int32_t *sx_out, *sy_out;
+  int64_t* se_out;
+  const int32_t* planes;
+  Df1Coefs k;
+  Df1Clamp cl;
+  uint32_t emask;
+  int dec;
+};
+
+// The producers: `tap_feed` in batches of kWRows rows, each row's sum W =
+// b0 x0 + b1 x1 + b2 x2 mod 2^64 into the input ring as two 32-bit words;
+// with Planes they take the lane's b0-b2 from the planes once.
+constexpr int kWRows = 16;
+
+template <bool Planes>
+__device__ __forceinline__ void w_feed(const Df1WArgs& a, const Rings& R,
+                                       int pw, int lid, int lane, bool live) {
+  int32_t b0 = a.k.b0, b1 = a.k.b1, b2 = a.k.b2;
+  if constexpr (Planes) {
+    const size_t c = static_cast<size_t>(a.p.c2);
+    const int ch = live ? lane : 0;
+    b0 = __ldg(a.planes + ch);
+    b1 = __ldg(a.planes + c + ch);
+    b2 = __ldg(a.planes + 2 * c + ch);
+  }
+  tap_feed<kWRows>(
+      a.p, R, pw, lane, live, a.xs, a.sx, a.sx_out,
+      [&](const Batch& b, const TapRows<int32_t, kWRows>& xv, int slot) {
+        uint2* s = reinterpret_cast<uint2*>(R.in_slot<2>(slot)) + lid;
+#pragma unroll
+        for (int v = 0; v < kWRows; ++v) {
+          const uint64_t w = static_cast<uint64_t>(
+              mad_wide(b0, xv.x[v + 2],
+                       mad_wide(b1, xv.x[v + 1], mul_wide(b2, xv.x[v]))));
+          if (b.r + v < b.hi)
+            s[(b.r + v) * kLanes] = make_uint2(static_cast<uint32_t>(w),
+                                               static_cast<uint32_t>(w >> 32));
+        }
+      });
+}
+
+// The serial warp: y1, y2 (and with Dither e) of its lane in registers;
+// each row's W from the input ring, y0 into the output ring.  V = W + a2
+// y2 waits on no step of the row before (y2 is the row before's y1), so
+// it is formed a row ahead, off the chain; on the chain are a1 y1's
+// multiply-add onto V (K31/K33: onto V + e, e ready beside y1: a1 y1 + (V
+// + e) ran 2.6 % faster than (a1 y1 + V) + e unclamped, 3.9 % clamped, on
+// the H100, PERF.md §6), one shift and the clamp if any.  The shift keeps
+// the low word of acc >> f: for f <= 32 bits [f, f + 32) of acc, one
+// funnel shift (`__funnelshift_rc` takes the high word at f = 32); for 32
+// < f < 64 (Hi) the high word shifted right by f - 32, sign-filled.  With
+// Dither (0 < f <= 32) the next e is acc's low f bits, the dither step's
+// (u32)(acc << (32 - f)) >> (32 - f).  The clamped form feeds the clamped
+// y0 back and drops the unclamped one (df1.cuh `Df1Clamp`); e keeps
+// the unclamped fraction.  acc wraps mod 2^64, so any order of its terms
+// gives the plain version's bits.
+template <bool Dither, bool Clamp, bool Planes, bool Hi = false>
+struct Df1WSerial {
+  const Df1WArgs* a;
+
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int lane, bool live,
+                                             uint32_t) const {
+    const Pipe& p = a->p;
+    const size_t c = static_cast<size_t>(p.c2);
+    const int ch = live ? lane : 0;
+    int32_t a1 = a->k.a1, a2 = a->k.a2;
+    if constexpr (Planes) {
+      a1 = __ldg(a->planes + 3 * c + ch);
+      a2 = __ldg(a->planes + 4 * c + ch);
+    }
+    const Df1Clamp cl = a->cl;
+    const int f = a->k.f;
+    const int sh = f - 32;
+    const uint32_t emask = a->emask;
+    int32_t y1 = 0, y2 = 0;
+    uint32_t e = 0;
+    if (live) {
+      y1 = a->sy[2 * lane];
+      y2 = a->sy[2 * lane + 1];
+      if constexpr (Dither) e = static_cast<uint32_t>(a->se[lane]);
+    }
+    serial_chunks(p.d.t, p.d.chunk, p.d.depth, R, [&](int slot, int rows) {
+      const uint2* in =
+          reinterpret_cast<const uint2*>(R.in_slot<2>(slot)) + lid;
+      int32_t* o = reinterpret_cast<int32_t*>(out) +
+                   static_cast<size_t>(slot) * p.d.chunk * kLanes + lid;
+      group_rows(
+          rows, [&](int r) { return in[r * kLanes]; },
+          [&](int r, uint2 w) {
+            const int64_t v = mad_wide(  // off the chain
+                a2, y2, static_cast<int64_t>(uint64_t{w.y} << 32 | w.x));
+            int64_t sum = v;
+            if constexpr (Dither)
+              sum = static_cast<int64_t>(static_cast<uint64_t>(v) + e);
+            const uint64_t acc =
+                static_cast<uint64_t>(mad_wide(a1, y1, sum));
+            const uint32_t lo = static_cast<uint32_t>(acc);
+            const uint32_t hi = static_cast<uint32_t>(acc >> 32);
+            int32_t y0;
+            if constexpr (Hi) {
+              y0 = static_cast<int32_t>(hi) >> sh;
+            } else {
+              y0 = static_cast<int32_t>(__funnelshift_rc(lo, hi, f));
+            }
+            if constexpr (Dither) e = lo & emask;
+            if constexpr (Clamp) y0 = cl(y0);
+            y2 = y1;
+            y1 = y0;
+            o[r * kLanes] = y0;
+          });
+    });
+    if (live) {
+      a->sy_out[2 * lane] = y1;
+      a->sy_out[2 * lane + 1] = y2;
+      if constexpr (Dither) a->se_out[lane] = static_cast<int64_t>(e);
+    }
+  }
+};
 
 }  // namespace ring
 }  // namespace idsp

@@ -14,7 +14,7 @@
 // and 4/dec B out.
 //
 // What the design does about it: the sequential-bank template
-// (seq_bank.cuh), as K1 runs on: state in registers, inputs prefetched
+// (seq_bank.cuh): state in registers, inputs prefetched
 // one group ahead, the kept rows written straight from the loop so only
 // t/dec rows reach device memory.
 #include <cuda_runtime.h>

@@ -6,12 +6,13 @@
 `df1_dither_bank`, K32 `df1_wide_bank_coef` and K33
 `df1_dither_bank_coef`.
 
-Each runs its CUDA kernel (``csrc/df1_bank.cu``; K24, K25 and K32
-``csrc/biquad_bank.cu``; K28-K31 and K33 ``csrc/biquad_precision.cu``,
-K29, K31 and K33 on the depth-0 pipeline of ``csrc/df1_ring.cuh``,
-`q64_plan` and `dither_plan`) for a CUDA tensor and its plain PyTorch
-version (``*_plain``) for a CPU tensor; any other device raises.  K1 and K11 are bit-identical to
-`biquad.df1_process_q` (K11: then ``ys[::d]``), K18 to
+Each runs its CUDA kernel (K1, K11, K18, K26, K27 ``csrc/df1_bank.cu``;
+K24, K25 and K32 ``csrc/biquad_bank.cu``; K28-K31 and K33
+``csrc/biquad_precision.cu``; K1, K11, K18, K26, K27, K29, K31 and K33 on
+the depth-0 pipeline of ``csrc/df1_ring.cuh``, `df1_plan`, `q64_plan` and
+`dither_plan`) for a CUDA tensor and its plain PyTorch version
+(``*_plain``) for a CPU tensor; any other device raises.  K1 and K11
+are bit-identical to `biquad.df1_process_q` (K11: then ``ys[::d]``), K18 to
 `biquad.df1_clamp_process_q`, K24 to chaining `df1_process_q` stage by
 stage, K25 to `biquad.df1_wide_process`, K26 and K27 to K1 and K18 with
 one coefficient set per lane, K28 to `biquad.df1_process_q` with
@@ -45,11 +46,13 @@ from .biquad import (
 from .pipe_plan import PipePlan, pipe_plan
 
 SOS_MAX_STAGES = 8  # stages of one K24 launch (csrc/biquad_bank.cu)
+# The producer warps of K1, K11, K18, K26, K27, K31 and K33 by default (and
+# a store warp: 12 warps a block; with 5 the producers' loads set K31's
+# pace, PERF.md §6)
+DF1_PRODUCERS = 8
 # K29's producer warps by default (and a store warp: 8 warps a block)
 Q64_PRODUCERS = 5
-# K31's and K33's producer warps by default (and a store warp: 12 warps a
-# block; with 5 the producers' loads set the pace, PERF.md §6)
-DITHER_PRODUCERS = 8
+DITHER_PRODUCERS = DF1_PRODUCERS  # K31's and K33's name for it
 
 
 def df1_bank_q_plain(ba, state: Df1State, xs, f: int = 29, *,
@@ -59,16 +62,38 @@ def df1_bank_q_plain(ba, state: Df1State, xs, f: int = 29, *,
     return state, ys if out_dtype is None else ys.to(out_dtype)
 
 
+def df1_plan(c: int, *, producers: int = DF1_PRODUCERS, **kw) -> PipePlan:
+    """The plan over ``c`` lanes (`pipe_plan.pipe_plan`) of K1, K11, K18,
+    K26, K27 and (as `dither_plan`) K31 and K33, one serial warp over the
+    same words: DF1_PRODUCERS producer warps by default, each a span of
+    ceil(chunk / producers) rows of every chunk; two 32-bit words a row
+    and lane in (the feed-forward sum mod 2^64), one out (y), so PIPE_CHUNK
+    rows a chunk in 2 slots by default; one CTA a tile."""
+    if kw.get("cluster", 1) != 1:
+        raise ValueError("K1, K11, K18, K26, K27, K31 and K33 run one CTA a "
+                         "tile")
+    return pipe_plan(c, producers=producers, win=2, wout=1, **kw)
+
+
+dither_plan = df1_plan  # K31's and K33's name for it
+
+
+def _plan_args(plan: PipePlan) -> tuple:
+    """A depth-0 plan as its C entry takes it, after the old arguments."""
+    return plan.warps, plan.producers, plan.chunk, plan.ring, plan.smem
+
+
 def _launch(name, ba, state: Df1State, xs, f, out_dtype, d=None,
-            clamp=None):
+            clamp=None, plan=None):
     """Validate and launch K1 (``d`` None), K11 or K18 (``clamp``) on a
-    CUDA tensor."""
+    CUDA tensor at ``plan`` (`df1_plan`'s by default)."""
     if out_dtype not in (None, torch.int32, torch.float32):
         raise ValueError(f"out_dtype must be int32 or float32, got {out_dtype}")
     check_f(f)
     t, c = xs.shape
     if d is not None:
         check_dec(t, d)
+    shape = _plan_args(df1_plan(c) if plan is None else plan)
     dev = xs.device
     _ext.require("xs", xs, dev, torch.int32, (t, c))
     _ext.require("state.x", state.x, dev, torch.int32, (c, 2))
@@ -84,13 +109,14 @@ def _launch(name, ba, state: Df1State, xs, f, out_dtype, d=None,
     with torch.cuda.device(dev):
         if clamp is not None:
             err = lib.idsp_df1_clamp_bank_q(*ptrs, f, *_ba_list(ba), *clamp,
-                                            _ext.stream_ptr(dev))
+                                            *shape, _ext.stream_ptr(dev))
         elif d is None:
             err = lib.idsp_df1_bank_q(*ptrs, f, int(f32), *_ba_list(ba),
-                                      _ext.stream_ptr(dev))
+                                      *shape, _ext.stream_ptr(dev))
         else:
             err = lib.idsp_df1_bank_q_dec(*ptrs, d, f, int(f32),
-                                          *_ba_list(ba), _ext.stream_ptr(dev))
+                                          *_ba_list(ba), *shape,
+                                          _ext.stream_ptr(dev))
     _ext.check(err, name)
     return Df1State(x=new_x, y=new_y), ys
 
@@ -101,7 +127,8 @@ def check_f(f: int) -> None:
         raise ValueError(f"f must be in (0, 64), got {f}")
 
 
-def df1_bank_q(ba, state: Df1State, xs, f: int = 29, *, out_dtype=None):
+def df1_bank_q(ba, state: Df1State, xs, f: int = 29, *, out_dtype=None,
+               _plan: PipePlan | None = None):
     """Fixed-point DF1 biquad over a bank of lanes.
 
     Args:
@@ -112,11 +139,12 @@ def df1_bank_q(ba, state: Df1State, xs, f: int = 29, *, out_dtype=None):
       out_dtype: None (int32) or torch.float32 (the cast is done in the
         kernel's store; the state stays exact int32).
 
-    Returns (state, ys), bit-identical to `df1_process_q` scanned.
+    Returns (state, ys), bit-identical to `df1_process_q` scanned.  The
+    kernel's plan is `df1_plan`'s; no plan changes a value.
     """
     if xs.device.type == "cpu":
         return df1_bank_q_plain(ba, state, xs, f, out_dtype=out_dtype)
-    out = _launch("df1_bank_q", ba, state, xs, f, out_dtype)
+    out = _launch("df1_bank_q", ba, state, xs, f, out_dtype, plan=_plan)
     df1_bank_q.launches += 1
     return out
 
@@ -140,13 +168,15 @@ def df1_bank_q_dec_plain(ba, state: Df1State, xs, f: int = 29, *,
 
 
 def df1_bank_q_dec(ba, state: Df1State, xs, f: int = 29, *, d: int = 16,
-                   out_dtype=None):
+                   out_dtype=None, _plan: PipePlan | None = None):
     """`df1_bank_q` keeping only the rows 0, d, 2d, ... of its output
     (``ys[::d]``, t % d == 0); the state carries the full-rate
-    recurrence.  Returns (state, ys) with ys (t // d, c)."""
+    recurrence.  Returns (state, ys) with ys (t // d, c).  The kernel's
+    plan is `df1_plan`'s."""
     if xs.device.type == "cpu":
         return df1_bank_q_dec_plain(ba, state, xs, f, d=d, out_dtype=out_dtype)
-    out = _launch("df1_bank_q_dec", ba, state, xs, f, out_dtype, d)
+    out = _launch("df1_bank_q_dec", ba, state, xs, f, out_dtype, d,
+                  plan=_plan)
     df1_bank_q_dec.launches += 1
     return out
 
@@ -161,7 +191,7 @@ def df1_clamp_bank_q_plain(ba, state: Df1State, xs, f: int = 29, *,
 
 
 def df1_clamp_bank_q(ba, state: Df1State, xs, f: int = 29, *, u: int = 0,
-                     lo: int, hi: int):
+                     lo: int, hi: int, _plan: PipePlan | None = None):
     """Fixed-point DF1 with summing-junction offset and output clamp
     (anti-windup, biquad.rs:394-404) over a bank of lanes: each output is
     ``clip(y0 + u, lo, hi)`` (int32 ``+ u`` wrapping, ``lo > hi`` gives
@@ -169,12 +199,13 @@ def df1_clamp_bank_q(ba, state: Df1State, xs, f: int = 29, *, u: int = 0,
 
     Args as `df1_bank_q`, plus the int32 clamp ``u, lo, hi``; the output
     is int32.  Returns (state, ys), bit-identical to scanning
-    ``clamp_step(df1_step_q(...))`` (`biquad.df1_clamp_process_q`).
+    ``clamp_step(df1_step_q(...))`` (`biquad.df1_clamp_process_q`).  The
+    kernel's plan is `df1_plan`'s.
     """
     if xs.device.type == "cpu":
         return df1_clamp_bank_q_plain(ba, state, xs, f, u=u, lo=lo, hi=hi)
     out = _launch("df1_clamp_bank_q", ba, state, xs, f, None,
-                  clamp=clamp_params(u, lo, hi))
+                  clamp=clamp_params(u, lo, hi), plan=_plan)
     df1_clamp_bank_q.launches += 1
     return out
 
@@ -331,10 +362,13 @@ def df1_bank_q_coef_plain(ba_planes, state: Df1State, xs, f: int = 29):
     return df1_process_q(_lane_coefs(ba_planes), f, state, xs)
 
 
-def _launch_coef(name, ba_planes, state: Df1State, xs, f, clamp=None):
-    """Validate and launch K26 (``clamp`` None) or K27 on a CUDA tensor."""
+def _launch_coef(name, ba_planes, state: Df1State, xs, f, clamp=None,
+                 plan=None):
+    """Validate and launch K26 (``clamp`` None) or K27 on a CUDA tensor at
+    ``plan`` (`df1_plan`'s by default)."""
     check_f(f)
     t, c = xs.shape
+    shape = _plan_args(df1_plan(c) if plan is None else plan)
     dev = xs.device
     _ext.require("xs", xs, dev, torch.int32, (t, c))
     _ext.require("state.x", state.x, dev, torch.int32, (c, 2))
@@ -348,15 +382,17 @@ def _launch_coef(name, ba_planes, state: Df1State, xs, f, clamp=None):
     lib = _ext.library()
     with torch.cuda.device(dev):
         if clamp is None:
-            err = lib.idsp_df1_bank_q_coef(*ptrs, _ext.stream_ptr(dev))
+            err = lib.idsp_df1_bank_q_coef(*ptrs, *shape,
+                                           _ext.stream_ptr(dev))
         else:
-            err = lib.idsp_df1_clamp_bank_q_coef(*ptrs, *clamp,
+            err = lib.idsp_df1_clamp_bank_q_coef(*ptrs, *clamp, *shape,
                                                  _ext.stream_ptr(dev))
     _ext.check(err, name)
     return Df1State(x=nx, y=ny), ys
 
 
-def df1_bank_q_coef(ba_planes, state: Df1State, xs, f: int = 29):
+def df1_bank_q_coef(ba_planes, state: Df1State, xs, f: int = 29, *,
+                    _plan: PipePlan | None = None):
     """Fixed-point DF1 bank with runtime coefficients: a retune is a new
     coefficient tensor, and nothing is rebuilt.
 
@@ -367,11 +403,13 @@ def df1_bank_q_coef(ba_planes, state: Df1State, xs, f: int = 29):
       state, xs, f: as `df1_bank_q`.
 
     Returns (state, ys int32), bit-identical to `df1_process_q` with the
-    lanes' coefficients (to `df1_bank_q` for a shared set).
+    lanes' coefficients (to `df1_bank_q` for a shared set).  The kernel's
+    plan is `df1_plan`'s.
     """
     if xs.device.type == "cpu":
         return df1_bank_q_coef_plain(ba_planes, state, xs, f)
-    out = _launch_coef("df1_bank_q_coef", ba_planes, state, xs, f)
+    out = _launch_coef("df1_bank_q_coef", ba_planes, state, xs, f,
+                       plan=_plan)
     df1_bank_q_coef.launches += 1
     return out
 
@@ -388,17 +426,19 @@ def df1_clamp_bank_q_coef_plain(ba_planes, state: Df1State, xs,
 
 
 def df1_clamp_bank_q_coef(ba_planes, state: Df1State, xs, f: int = 29, *,
-                          u: int = 0, lo: int, hi: int):
+                          u: int = 0, lo: int, hi: int,
+                          _plan: PipePlan | None = None):
     """`df1_bank_q_coef` with the anti-windup clamp of `df1_clamp_bank_q`
     (int32 ``u, lo, hi``, fixed per call: they are range constants, not
     tuning targets, biquad.rs:121-157).  Returns (state, ys int32),
     bit-identical to `df1_clamp_process_q` with the lanes' coefficients.
+    The kernel's plan is `df1_plan`'s.
     """
     if xs.device.type == "cpu":
         return df1_clamp_bank_q_coef_plain(ba_planes, state, xs, f, u=u,
                                            lo=lo, hi=hi)
     out = _launch_coef("df1_clamp_bank_q_coef", ba_planes, state, xs, f,
-                       clamp=clamp_params(u, lo, hi))
+                       clamp=clamp_params(u, lo, hi), plan=_plan)
     df1_clamp_bank_q_coef.launches += 1
     return out
 
@@ -563,18 +603,6 @@ def df1_bank_f32(ba, state: Df1State, xs):
 df1_bank_f32.launches = 0  # kernel launches since the last reset
 
 
-def dither_plan(c: int, *, producers: int = DITHER_PRODUCERS,
-                **kw) -> PipePlan:
-    """K31's and K33's plan over ``c`` lanes (`pipe_plan.pipe_plan`):
-    DITHER_PRODUCERS producer warps by default, each a span of ceil(chunk
-    / producers) rows of every chunk; two 32-bit words a row and lane in
-    (the feed-forward sum mod 2^64), one out (y), so PIPE_CHUNK rows a
-    chunk in 2 slots by default; one CTA a tile."""
-    if kw.get("cluster", 1) != 1:
-        raise ValueError("K31 and K33 run one CTA a tile")
-    return pipe_plan(c, producers=producers, win=2, wout=1, **kw)
-
-
 def _launch_dither(name, ba, state: Df1DitherState, xs, f, clamp,
                    planes=None, plan=None):
     """Validate and launch K31 (``planes`` None) or K33 at ``plan``
@@ -594,7 +622,7 @@ def _launch_dither(name, ba, state: Df1DitherState, xs, f, clamp,
     ptrs = (xs.data_ptr(), ys.data_ptr(), state.xy.x.data_ptr(),
             state.xy.y.data_ptr(), state.e.data_ptr(), nx.data_ptr(),
             ny.data_ptr(), ne.data_ptr())
-    shape = (plan.warps, plan.producers, plan.chunk, plan.ring, plan.smem)
+    shape = _plan_args(plan)
     lib = _ext.library()
     with torch.cuda.device(dev):
         if planes is None:

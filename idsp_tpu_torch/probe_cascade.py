@@ -1,9 +1,9 @@
 """Where K2, K3, K19-K21 (`csrc/ddc_cascade.cu`), K12/K13, K14 and K15
 (`csrc/ddc_bank.cu`, `csrc/ddc_mix_df1.cu`, `csrc/fm_disc.cu`, all on
-`csrc/df1_ring.cuh`'s DF1 warp), K16, K29, K31 and K37, K34
-(`csrc/ddc_lockin.cu`, `csrc/biquad_precision.cu`,
-`csrc/structures_bank.cu`, on its depth-0 pipeline with serial warps of
-their own) spend their time on the card.
+`csrc/df1_ring.cuh`'s DF1 warp), K16, K29, K31 and K37, K34, K1, K11,
+K18, K26 (`csrc/ddc_lockin.cu`, `csrc/biquad_precision.cu`,
+`csrc/structures_bank.cu`, `csrc/df1_bank.cu`, on its depth-0 pipeline
+with serial warps of their own) spend their time on the card.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -56,7 +56,13 @@ deemphasis lowpass at 0.02):
   chunk 512) at c = 512: the plan sweep (`ddc_bank_cuda.bank_plan`,
   `ddc_lockin_cuda.lockin_plan`: producers, chunk, ring; K12 and its
   ``clamp=`` at K13's default plan too) and the stamps: the serial warp,
-  producer 0 and, in the store warp's place, K13's back end.
+  producer 0 and, in the store warp's place, K13's back end;
+* K1 (the chain's lowpass, f32 out) and K18 (clamp (2^10, +-2^23)) at c =
+  512 channels (1024 lanes), K11 (the bank filter, d = 16) at c = 1024
+  (2048 lanes) on xs in +-2^27, K26 with per-lane Q29 lowpass planes on
+  full-range x at 1024 lanes: K1's plan sweep (`biquad_cuda.df1_plan`:
+  producers, chunk, ring) and the stamps of all four (the serial warp,
+  producer 0, df1_bank.cu's own store warp, `keep_store`).
 
 A time is the median of 3 trials of 20 chained launches (CUDA events,
 `profiling.measure_rate`); a stamp is SM clock cycles, the median over
@@ -121,7 +127,9 @@ def _pipe_stamps(ring, kernel):
     ring = _patch(ring, "    sm90::mbar_arrive(R.empty_out(u.k));\n",
                   f"    if ({at}) g_stamps[5][q] = clock64();\n"
                   "    sm90::mbar_arrive(R.empty_out(u.k));\n")
-    if "span_batches" in kernel:  # df1_ring.cuh's producer walk
+    loop = re.findall(r"for \(int r0 = 0;[^\n]*u\.next\(p\.d\.depth\)\) \{\n",
+                      kernel)
+    if "span_batches" in kernel or not loop:  # df1_ring.cuh's producer walk
         at = (f"blockIdx.x == 0 && threadIdx.x % 32 == 0 && pw == 0 && "
               f"r0 / chunk < {STAMPS}")
         ring = _patch(ring, "    sm90::mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n",
@@ -131,8 +139,6 @@ def _pipe_stamps(ring, kernel):
                       f"    if ({at}) g_stamps[3][r0 / chunk] = clock64();\n"
                       "    sm90::mbar_arrive(R.full_in(u.k));\n")
         return ring, kernel + STAMPS_READER
-    loop = re.findall(r"for \(int r0 = 0;[^\n]*u\.next\(p\.d\.depth\)\) \{\n",
-                      kernel)
     if len(loop) != 1:
         raise RuntimeError("the producer's chunk loop not found once")
     kernel = _patch(kernel, loop[0],
@@ -169,11 +175,13 @@ def _df1_stamps(ring):
                         + done)
 
 
-def _bank_stamps(ring, bank):
-    """K12/K13's stamps of block 0: the DF1 warp's and producer 0's
-    (`_pipe_stamps`: fastlo.cuh's producers walk df1_ring.cuh's
-    `span_batches`), 4/5 the back end's (ddc_bank.cu) in the store warp's
-    place."""
+def _back_stamps(ring, name):
+    """The stamps of block 0 of a `run_roles` kernel whose store warp is
+    its own (K12/K13's back end, ddc_bank.cu; K1, K11, K18, K26 and K27's
+    `keep_store`, df1_bank.cu): the serial warp's and producer 0's
+    (`_pipe_stamps`: their producers walk df1_ring.cuh's `span_batches`),
+    4/5 the kernel's own store warp's."""
+    bank = _read(name)
     ring, _ = _pipe_stamps(ring, "span_batches")
     at = f"blockIdx.x == 0 && threadIdx.x % 32 == 0 && q < {STAMPS}"
     g = "idsp::ring::g_stamps"
@@ -184,7 +192,7 @@ def _bank_stamps(ring, bank):
     bank = _patch(bank, "    idsp::sm90::mbar_arrive(R.empty_out(u.k));\n",
                   f"    if ({at}) {g}[5][q] = clock64();\n"
                   "    idsp::sm90::mbar_arrive(R.empty_out(u.k));\n")
-    return {"df1_ring.cuh": ring, "ddc_bank.cu": bank + STAMPS_READER}
+    return {"df1_ring.cuh": ring, name: bank + STAMPS_READER}
 
 
 STAMPS_READER = (
@@ -258,7 +266,8 @@ def pipe_variants() -> dict:
     for f in PIPE_SOURCES:  # one library each: one g_stamps a library
         r, k = _pipe_stamps(ring, _read(f))
         out[f"stamps_{f[:-3]}"] = {"df1_ring.cuh": r, f: k}
-    out["stamps_ddc_bank"] = _bank_stamps(ring, _read("ddc_bank.cu"))
+    for f in ("ddc_bank.cu", "df1_bank.cu"):  # K12/K13; K1, K11, K18, K26
+        out[f"stamps_{f[:-3]}"] = _back_stamps(ring, f)  # and K27
     return out
 
 
@@ -438,8 +447,8 @@ def _stamp_rows(lib, launch, chunk, series) -> dict:
 
 
 def _pipe(dev, card, libs, package, result) -> None:
-    """K12/K13, K14, K15, K16, K29, K31, K34 and K37: the plan sweep, the
-    variants, the per-role stamps."""
+    """K1, K11, K12/K13, K14, K15, K16, K18, K26, K29, K31, K34 and K37:
+    the plan sweep, the variants, the per-role stamps."""
     ba = biquad.quantize_ba(biquad.from_cookbook(
         design.Filter().critical_frequency(0.02).lowpass()), 29)
     bf = fm_disc.deemphasis_coefficients(0.02)
@@ -525,6 +534,34 @@ def _pipe(dev, card, libs, package, result) -> None:
             ba_lk, biquad.df1_init((1024,), torch.float32, device=dev), x_lk,
             lo_lk, 0, time_chunk=512, _plan=plan)
 
+    xs1 = i32((T, 1024), -(2**27), 2**27)
+    xs2 = i32((T, 2048), -(2**27), 2**27)
+    x32 = i32((T, 1024))
+    planes = torch.from_numpy(np.stack([biquad.quantize_ba(
+        biquad.from_cookbook(design.Filter().critical_frequency(
+            fc).lowpass()), 29) for fc in rng.uniform(0.01, 0.2, 1024)],
+        axis=1)).to(dev)
+
+    def k1(plan=None):
+        return biquad_cuda.df1_bank_q(ba, biquad.df1_init((1024,), device=dev),
+                                      xs1, 29, out_dtype=torch.float32,
+                                      _plan=plan)
+
+    def k11(plan=None):
+        return biquad_cuda.df1_bank_q_dec(
+            ba_bank, biquad.df1_init((2048,), device=dev), xs2, 29, d=16,
+            _plan=plan)
+
+    def k18(plan=None):
+        return biquad_cuda.df1_clamp_bank_q(
+            ba, biquad.df1_init((1024,), device=dev), xs1, 29, u=CLAMP[0],
+            lo=CLAMP[1], hi=CLAMP[2], _plan=plan)
+
+    def k26(plan=None):
+        return biquad_cuda.df1_bank_q_coef(
+            planes, biquad.df1_init((1024,), device=dev), x32, 29,
+            _plan=plan)
+
     _ext._lib = package
     result.update(pipe_sweep={}, pipe_variants={}, pipe_stamps={})
     cases = [(f"K14 c={c}", lambda p, c=c: k14(c, p),
@@ -568,7 +605,11 @@ def _pipe(dev, card, libs, package, result) -> None:
                lambda **kw: ddc_lockin_cuda.lockin_plan(512, **kw),
                [dict(producers=p) for p in (3, 5, 11)]
                + [dict(chunk=256, ring=2), dict(chunk=128, ring=6),
-                  dict(chunk=64, ring=4), dict(chunk=32, ring=8)])]
+                  dict(chunk=64, ring=4), dict(chunk=32, ring=8)]),
+              ("K1 c=512", k1, lambda **kw: biquad_cuda.df1_plan(1024, **kw),
+               [dict(producers=p) for p in (3, 5, 11)]
+               + [dict(chunk=128, ring=r) for r in (2, 3)]
+               + [dict(chunk=64, ring=4), dict(chunk=32, ring=8)])]
     for name, run, plan_of, forced in cases:
         want = run(None)
         for kw in forced:
@@ -594,7 +635,9 @@ def _pipe(dev, card, libs, package, result) -> None:
          "K12 c=1024": _ms(k12),
          "K12 clamp c=1024": _ms(lambda: k12(clamp=(1 << 10, -(1 << 23),
                                                     1 << 23))),
-         "K13 c=1024": _ms(k13), "K16 c=512": _ms(k16)})
+         "K13 c=1024": _ms(k13), "K16 c=512": _ms(k16),
+         "K1 c=512": _ms(k1), "K11 c=1024": _ms(k11),
+         "K18 c=512": _ms(k18), "K26 c=1024": _ms(k26)})
     _ext._lib = libs["pipe_df1_copy"]
     result["pipe_variants"]["df1_copy"] = {k: _ms(fn)
                                            for k, fn in timed.items()}
@@ -611,6 +654,8 @@ def _pipe(dev, card, libs, package, result) -> None:
               "K34 c=1024": svf_cuda.svf_plan(1024).chunk,
               "K13 c=1024": ddc_bank_cuda.bank_plan(1024).chunk,
               "K16 c=512": ddc_lockin_cuda.lockin_plan(512).chunk}
+    chunks.update({k: biquad_cuda.df1_plan(1024).chunk for k in (
+        "K1 c=512", "K11 c=1024", "K18 c=512", "K26 c=1024")})
     for key, lib, fn in (
             ("K14 c=512", "stamps_ddc_mix_df1", timed["K14 c=512"]),
             ("K15 exact", "stamps_fm_disc", timed["K15 exact"]),
@@ -620,7 +665,11 @@ def _pipe(dev, card, libs, package, result) -> None:
             ("K31 c=1024", "stamps_biquad_precision", k31),
             ("K34 c=1024", "stamps_structures_bank", k34),
             ("K13 c=1024", "stamps_ddc_bank", k13),
-            ("K16 c=512", "stamps_ddc_lockin", k16)):
+            ("K16 c=512", "stamps_ddc_lockin", k16),
+            ("K1 c=512", "stamps_df1_bank", k1),
+            ("K11 c=1024", "stamps_df1_bank", k11),
+            ("K18 c=512", "stamps_df1_bank", k18),
+            ("K26 c=1024", "stamps_df1_bank", k26)):
         chunk = chunks[key]
         row = _stamp_rows(libs[f"pipe_{lib}"], fn, chunk, roles)
         row["pace"] = max(roles, key=lambda r: row[r])
@@ -632,8 +681,9 @@ def _pipe(dev, card, libs, package, result) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("cascade", "pipe"),
-                    help="K2/K3/K19-K21, or the depth-0 kernels (K12/K13, "
-                         "K14, K15, K16, K29, K31, K34, K37) alone")
+                    help="K2/K3/K19-K21, or the depth-0 kernels (K1, K11, "
+                         "K12/K13, K14, K15, K16, K18, K26, K29, K31, K34, "
+                         "K37) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_cascade times the CUDA device; none is "

@@ -51,6 +51,17 @@ CPU = torch.device("cpu")
 I32_MIN = -(2**31)
 
 
+@pytest.fixture(autouse=True)
+def fresh_coef_jit_caches():
+    """After each test, empties the jit caches of the JAX K26/K27 entry
+    points this file calls, as a fresh process has them: JAX's own retune
+    test (tests/test_biquad_pallas.py) counts a new cache entry at the
+    shapes these tests use, on the same worker."""
+    yield
+    jbp._df1_bank_q_coef_impl.clear_cache()
+    jbp._df1_clamp_bank_q_coef_impl.clear_cache()
+
+
 def _i32(rng, shape, lo=I32_MIN, hi=2**31):
     return rng.integers(lo, hi, size=shape, dtype=np.int64).astype(np.int32)
 

@@ -874,6 +874,111 @@ def test_dither_and_svf_entries_refuse_a_plan_not_their_own(cuda):
     _same(svf_bank(0.1, 1.0, sst, xf), svf_bank_plain(0.1, 1.0, sst, xf))
 
 
+# K1, K11, K18, K26 and K27 at the same edges (`df1_plan`: 256-row chunks)
+DF1_KINDS = ("K1", "K1 f32", "K11", "K18", "K26", "K26 shared", "K27")
+
+
+def _df1_call(kind, ba, f, plan, d):
+    """(kernel, plain) of ``kind`` as ``fn(state, xs)``."""
+    from idsp_tpu_torch.filters import biquad_cuda as bc
+
+    u, lo, hi = CLAMP_Q
+    if kind in ("K1", "K1 f32"):
+        dt = torch.float32 if kind == "K1 f32" else None
+        return (lambda s, x: bc.df1_bank_q(ba, s, x, f, out_dtype=dt,
+                                           _plan=plan),
+                lambda s, x: bc.df1_bank_q_plain(ba, s, x, f, out_dtype=dt))
+    if kind == "K11":
+        return (lambda s, x: bc.df1_bank_q_dec(ba, s, x, f, d=d, _plan=plan),
+                lambda s, x: bc.df1_bank_q_dec_plain(ba, s, x, f, d=d))
+    if kind == "K18":
+        return (lambda s, x: bc.df1_clamp_bank_q(ba, s, x, f, u=u, lo=lo,
+                                                 hi=hi, _plan=plan),
+                lambda s, x: bc.df1_clamp_bank_q_plain(ba, s, x, f, u=u,
+                                                       lo=lo, hi=hi))
+    if kind.startswith("K26"):
+        return (lambda s, x: bc.df1_bank_q_coef(ba, s, x, f, _plan=plan),
+                lambda s, x: bc.df1_bank_q_coef_plain(ba, s, x, f))
+    return (lambda s, x: bc.df1_clamp_bank_q_coef(ba, s, x, f, u=u, lo=lo,
+                                                  hi=hi, _plan=plan),
+            lambda s, x: bc.df1_clamp_bank_q_coef_plain(ba, s, x, f, u=u,
+                                                        lo=lo, hi=hi))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f", [1, 29, 31, 32, 33, 62, 63])
+@pytest.mark.parametrize("kind", DF1_KINDS)
+@pytest.mark.parametrize("case", sorted(DEPTH0_EDGES))
+def test_df1_kernels_at_pipe_edges(cuda, case, kind, f):
+    """K1 (int32 and f32 out), K11 (d = 3, 4 under a chunk, 1 at t = 1:
+    kept rows across chunk edges), K18, K26 (per-lane and shared planes)
+    and K27 over 2 carried blocks against their plain versions: full-range
+    x and state, coefficients in +-2^(f + 1), both shifts (f <= 32, > 32),
+    the clamp engaged."""
+    from idsp_tpu_torch.filters.biquad_cuda import df1_plan
+
+    c, t, kw = DEPTH0_EDGES[case]
+    plan = df1_plan(c, **kw) if kw else None
+    d = 1 if t == 1 else 4 if t == 100 else 3
+    t = -(-t // d) * d if kind == "K11" else t
+    rng = np.random.default_rng(2100 + f)
+    top = min(2**31 - 1, 2 << f)
+    shape = (5, c) if kind in ("K26", "K27") else (5,)
+    ba = torch.from_numpy(rng.integers(-top, top + 1, size=shape).astype(
+        np.int32)).to(cuda)
+    kern, plain = _df1_call(kind, ba, f, plan, d)
+    st = biquad.Df1State(x=_i32(rng, (c, 2), device=cuda),
+                         y=_i32(rng, (c, 2), device=cuda))
+    _carried(kern, plain, st, lambda: _i32(rng, (t, c), device=cuda),
+             blocks=2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f", [1, 32, 33, 63])
+@pytest.mark.parametrize("kind", DF1_KINDS)
+def test_df1_kernels_where_the_sum_wraps(cuda, kind, f):
+    """Coefficients, state and the first row at -2^31: the five products
+    pass 2^63 and wrap mod 2^64; the other rows at int32's edges; K18/K27
+    clamped near int32's top."""
+    c, t = 50, 300
+    rng = np.random.default_rng(640 + f)
+    edges = np.array([-(2**31), -(2**31) + 1, -1, 0, 1, 2**31 - 1], np.int32)
+    xs = rng.choice(edges, (t, c))
+    xs[0] = -(2**31)
+    full = torch.full((c, 2), -(2**31), dtype=torch.int32, device=cuda)
+    st = biquad.Df1State(x=full, y=full.clone())
+    shape = (5, c) if kind in ("K26", "K27") else (5,)
+    ba = torch.full(shape, -(2**31), dtype=torch.int32, device=cuda)
+    kern, plain = _df1_call(kind, ba, f, None, 3)
+    x = torch.from_numpy(xs).to(cuda)
+    _equal(kern(st, x), plain(st, x))
+
+
+@pytest.mark.requires_cuda
+def test_df1_entries_refuse_a_plan_not_their_own(cuda):
+    """K1's, K11's, K18's, K26's and K27's entry points refuse a plan whose
+    shared memory is not the kernel's own sum, roles that do not fit the
+    warps, or another kernel's words a row (RuntimeError, nothing
+    launched); the next launch runs as usual."""
+    from idsp_tpu_torch.filters.biquad_cuda import df1_plan
+    from idsp_tpu_torch.filters.svf_cuda import svf_plan
+
+    c, t = 64, 300
+    st = biquad.df1_init((c,), device=cuda)
+    x = torch.ones((t, c), dtype=torch.int32, device=cuda)
+    plan = df1_plan(c)
+    for bad in (plan._replace(smem=plan.smem - 32),
+                plan._replace(producers=9),  # 10 roles in 9 places
+                svf_plan(c)):  # another kernel's words a row
+        for kind in DF1_KINDS:
+            kern, _ = _df1_call(kind, BA_Q, 29, bad, 4)
+            with pytest.raises(RuntimeError):
+                kern(st, x)
+    for kind in DF1_KINDS:
+        kern, plain = _df1_call(kind, BA_Q, 29, None, 4)
+        _equal(kern(st, x), plain(st, x))
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("tc", [64, 256])
 def test_ddc_lockin_kernel_equals_plain(cuda, tc):

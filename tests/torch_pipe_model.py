@@ -5,7 +5,8 @@ K14/K15 (that file and tests/test_torch_fm_plan.py), K37
 (tests/test_torch_dither_plan.py), K34 (tests/test_torch_svf_plan.py),
 K12/K13 (tests/test_torch_ddc_bank_plan.py) and K16
 (tests/test_torch_lockin_plan.py), with the producer and serial-warp
-arithmetic of K31/K33 (`dither_model`), K34 (`svf_model`), K12/K13
+arithmetic of K31/K33 (`dither_model`), K1, K11, K18, K26 and K27
+(`df1w_model`, tests/test_torch_df1_plan.py), K34 (`svf_model`), K12/K13
 (`bank_model`, with its back end) and K16 (`lockin_model`).
 
 Each role of a CUDA block is a coroutine that yields a test before each
@@ -187,6 +188,28 @@ def _u64(a):
     return np.asarray(a, np.int64).view(np.uint64)
 
 
+def _w_feed(ba, sx, xs):
+    """The DF1 producers of K1, K11, K18, K26, K27 and K31/K33: ``ba`` (5,)
+    or (5, c) planes as uint64 lane vectors, the rows x2, x1 (the state
+    ``sx``) and xs as uint64 words ``xw`` (t + 2, c), and produce(r0, idx),
+    each row's W = b0 x0 + b1 x1 + b2 x2 mod 2^64 as two 32-bit words.
+    Returns ((a1, a2), xw, produce)."""
+    c = xs.shape[1]
+    coef = np.broadcast_to(np.asarray(ba, np.int64).reshape(5, -1), (5, c))
+    b0, b1, b2, a1, a2 = (_u64(v) for v in coef)
+    xw = _u64(np.concatenate([sx[:, 1].numpy()[None], sx[:, 0].numpy()[None],
+                              xs.numpy()]).astype(np.int64))
+
+    def produce(r0, idx):
+        g = r0 + idx + 2  # rows of xw
+        with np.errstate(over="ignore"):
+            w = b0 * xw[g] + b1 * xw[g - 1] + b2 * xw[g - 2]
+        return np.stack([w & U32, w >> np.uint64(32)], axis=-1).astype(
+            np.int64)
+
+    return (a1, a2), xw, produce
+
+
 def dither_model(ba, f, state, xs, plan, *, clamp=None, seed=0):
     """K31 (``ba`` (5,)) or K33 (``ba`` (5, c) planes) as the kernel runs
     it (``csrc/biquad_precision.cu``): the producers' W = b0 x0 + b1 x1 +
@@ -199,22 +222,11 @@ def dither_model(ba, f, state, xs, plan, *, clamp=None, seed=0):
     from idsp_tpu_torch.filters.biquad import Df1DitherState, Df1State
 
     t, c = xs.shape
-    coef = np.asarray(ba, np.int64)
-    coef = np.broadcast_to(coef.reshape(5, -1), (5, c))
-    b0, b1, b2, a1, a2 = (_u64(v) for v in coef)
-    xw = _u64(np.concatenate([state.xy.x[:, 1].numpy()[None],
-                              state.xy.x[:, 0].numpy()[None],
-                              xs.numpy()]).astype(np.int64))
+    (a1, a2), xw, produce = _w_feed(ba, state.xy.x, xs)
     y1 = _u64(state.xy.y[:, 0].numpy().astype(np.int64)).copy()
     y2 = _u64(state.xy.y[:, 1].numpy().astype(np.int64)).copy()
     e = state.e.numpy().astype(np.uint64)
     emask = np.uint64((1 << f) - 1)
-
-    def produce(r0, idx):
-        g = r0 + idx + 2  # rows of xw
-        w = b0 * xw[g] + b1 * xw[g - 1] + b2 * xw[g - 2]
-        return np.stack([w & U32, w >> np.uint64(32)], axis=-1).astype(
-            np.int64)
 
     def serial(words):
         nonlocal y1, y2, e
@@ -242,6 +254,67 @@ def dither_model(ba, f, state, xs, plan, *, clamp=None, seed=0):
                 np.int32))),
         e=torch.from_numpy(e.astype(np.int64)))
     return new, torch.from_numpy(words[..., 0].astype(np.int32))
+
+
+def df1w_model(ba, f, state, xs, plan, *, clamp=None, d=1, out_dtype=None,
+               seed=0):
+    """K1 (``ba`` (5,)), K11 (``d`` > 1), K18 (``clamp``), K26 and K27
+    (``ba`` (5, c) planes) as the kernel runs them (``csrc/df1_bank.cu``
+    on df1_ring.cuh's `Df1WSerial` without the dither term): the producers'
+    W = b0 x0 + b1 x1 + b2 x2 mod 2^64 as two 32-bit words a row and lane
+    (rows -1, -2 of the block from the state), the serial warp's V = W + a2
+    y2 (off its chain), acc = a1 y1 + V mod 2^64, y0 the low word of acc >>
+    f -- for f <= 32 bits [f, f + 32) of acc (the funnel shift), for f >
+    32 the high word shifted right by f - 32, sign-filled --, then the
+    clamp, fed back; the store warp keeps the rows at block row % d == 0
+    (``back``) and converts to ``out_dtype`` (f32: round to nearest);
+    numpy uint64 words.  Returns (Df1State, ys) like the plain versions."""
+    from idsp_tpu_torch.filters.biquad import Df1State
+
+    t, c = xs.shape
+    (a1, a2), xw, produce = _w_feed(ba, state.x, xs)
+    y1 = _u64(state.y[:, 0].numpy().astype(np.int64)).copy()
+    y2 = _u64(state.y[:, 1].numpy().astype(np.int64)).copy()
+
+    def serial(words):
+        nonlocal y1, y2
+        out = np.empty((len(words), c, 1), np.int64)
+        for j, w in enumerate(words.astype(np.uint64) & U32):
+            v = (w[:, 1] << np.uint64(32) | w[:, 0]) + a2 * y2  # off the chain
+            acc = a1 * y1 + v
+            if f <= 32:
+                y0 = ((acc >> np.uint64(f)) & U32).astype(np.uint32).view(
+                    np.int32)
+            else:
+                hi = (acc >> np.uint64(32)).astype(np.uint32).view(np.int32)
+                y0 = hi >> np.int32(f - 32)
+            if clamp is not None:
+                u, lo, hi_ = clamp
+                y0 = np.clip((y0.astype(np.int64) + u).astype(np.int32),
+                             lo, hi_).astype(np.int32)
+            y2, y1 = y1, _u64(y0.astype(np.int64))
+            out[j, :, 0] = y0
+        return out
+
+    kept = np.zeros((t // d, c), np.int64)
+
+    def back(r0, words):
+        r = np.arange(len(words))
+        keep = (r0 + r) % d == 0
+        kept[(r0 + r[keep]) // d] = words[keep, :, 0]
+
+    with np.errstate(over="ignore"):
+        pipe_run(t, c, plan, produce, span_rows, serial, seed=seed,
+                 back=back)
+    ys = kept.astype(np.int32)
+    new = Df1State(
+        x=torch.from_numpy(np.stack([xw[-1], xw[-2]], 1).view(
+            np.int64).astype(np.int32)),
+        y=torch.from_numpy(np.stack([y1, y2], 1).view(np.int64).astype(
+            np.int32)))
+    ys = torch.from_numpy(ys.astype(np.float32) if out_dtype == torch.float32
+                          else ys)
+    return new, ys
 
 
 SVF_OUTPUTS = ("lp", "hp", "bp", "br")
