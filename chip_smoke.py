@@ -83,7 +83,16 @@ Phases, each reported on its own line:
    f 33) at the edges of the same pipeline (`df1_plan`: t = 1, t under a
    chunk, t = 3 chunks + 17, a forced plan of 16-row chunks; c = 200, 50,
    1 and 200) over 2 blocks, and K1, K18 at f 32 and 63 and K27 at f 63
-   on a block whose 64-bit sums wrap, bit for bit;
+   on a block whose 64-bit sums wrap, bit for bit; K24 on its cluster
+   chain (`sos_plan`: c = 1, 50 and 200 lanes, t not a multiple of the
+   chunk, under a chunk and 1 row, N = 1, 3 and 8 stages at g = 1, 2 and
+   N stages a rank and at two one-stage ranks a CTA, f 1, 32 and 33, and f
+   1-63 where the sum wraps) and
+   K25 (unclamped, CLAMP, lo > hi) and K32 (per-lane and shared planes)
+   at their depth-0 pipeline's edges (`wide_plan`, f 1-32, full-range
+   int64 y, the sum wrapping) over 2 blocks, bit for bit; the card's
+   co-resident K24 clusters (cudaOccupancyMaxActiveClusters) of 1-8 CTAs
+   of one rank and 1-4 of two, and the plans it picks;
    K22 `hbf_dec_cascade_mxu`
    ((32768, 512) f32) and K23
    `hbf_int_cascade_mxu` ((2048, 512) f32), depth 4, with HBF_TAPS and
@@ -265,10 +274,11 @@ Phases, each reported on its own line:
    spans), and the forced 64-frame plan's time, beside its plain version and its library yardstick (the FIR in
    torch ops and `torch.matmul` of the four products, TF32 off), with
    the planes path's rates (n*m samples/s); K24-K27 at c=1024 lanes with
-   their plain versions' times from phase 3 (K26, K27 also by their
+   their plain versions' times from phase 3 (K24-K27 also by their
    profiler spans, device ms a launch), and the control legs' block
    times; K28-K33 at c=1024 lanes with their plain versions' times from
-   phase 3 (K31 clamped and K32/K33 with a shared set on the log only);
+   phase 3 (K31 clamped and K32/K33 with a shared set on the log only;
+   K32 also by its profiler spans);
    K34-K40 at c=1024 lanes with their rates and their plain versions'
    times from phase 3 (K40 over wdf-ca-7 on the log only), K29, K31,
    K33, K34 and K37-K40 also by their profiler spans, device ms a
@@ -396,7 +406,10 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "df1_bank_q_dec": "df1_pipe_kernel",
                   "df1_clamp_bank_q": "df1_pipe_kernel",
                   "df1_bank_q_coef": "df1_pipe_kernel",
-                  "df1_clamp_bank_q_coef": "df1_pipe_kernel"}
+                  "df1_clamp_bank_q_coef": "df1_pipe_kernel",
+                  "sos_bank_q": "sos_chain_kernel",
+                  "df1_wide_bank": "df1_wide_pipe_kernel",
+                  "df1_wide_bank_coef": "df1_wide_pipe_kernel"}
 # The anti-windup clamp (u, lo, hi) of the clamped kernels' checks.  On
 # the chain's mixed stream the 0.02 lowpass output peaks near 2.6e7, under
 # the 2^26 bound of tests/test_biquad_pallas.py:896, so that bound never
@@ -2344,6 +2357,186 @@ def check_df1_pipe_edges(dev, i32, errs):
         + ", ".join(str(errs[k]) for k in (
             "df1_bank_q", "df1_bank_q_dec", "df1_clamp_bank_q",
             "df1_bank_q_coef", "df1_clamp_bank_q_coef")))
+
+
+# K24's plan edges: (c, t) pairs (t not a multiple of the 128-row chunk,
+# under a chunk, one row), stage counts, and each count's stages a CTA
+SOS_EDGE_SHAPES = ((1, 3 * 128 + 17), (50, 100), (200, 2 * 128 + 5))
+SOS_EDGE_STAGES = {1: (1,), 3: (1, 2, 3), 8: (1, 2, 8)}
+SOS_EDGE_F = (1, 32, 33)
+
+
+def check_chain_edges(dev, i32, i64, errs):
+    """Phase 3 for K24 on its cluster chain (`pipe_plan.sos_plan`) and K25
+    / K32 on the depth-0 pipeline (`biquad_cuda.wide_plan`), each against
+    its plain version over 2 carried blocks, tolerance 0 (into errs under
+    the kernel's own name).  K24 at SOS_EDGE_SHAPES (c = 1, 50 and 200
+    lanes; t = 3 chunks + 17, under a chunk, 2 chunks + 5) with N = 1, 3
+    and 8 stages at g = 1, 2 and N stages a CTA (SOS_EDGE_STAGES:
+    clusters of 1-8 CTAs), f cycling through 1, 32 and 33; N = 3 at t = 1
+    (g 1 and 3); N = 8 in one CTA over 4-row chunks in 3 slots and 1-row
+    chunks in 8; two one-stage ranks a CTA at SOS_EDGE_SHAPES for N = 2, 3
+    (a CTA's second rank unused) and 8; then N = 3, g = 1 at f 1, 32, 33
+    and 63 on a block whose
+    products pass 2^63 (coefficients, state and the first row at -2^31:
+    the sums wrap).  Coefficients in +-2^(f + 1), full-range x and state.
+    K25 and K32 (per-lane and shared planes) at t = 1 (c = 200), t under a
+    chunk (c = 50), t = 3 chunks + 17 (c = 1) and a forced plan of 16-row
+    chunks, 3 slots and 2 producers (c = 200): K25 at f 1 and 32, clamped
+    with CLAMP and not, and at f 29 with a clamp whose lo > hi (its hi);
+    K32 per-lane at f 29 with CLAMP, shared at f 16; full-range int64 y
+    state; then K25 at f 1 and 32 and K32 at f 32 where the sum wraps (y
+    words at int64's edges, coefficients and x at -2^31).  Returns the
+    plans' g and clusters it ran."""
+    import torch
+    from idsp_tpu_torch.filters import biquad
+    from idsp_tpu_torch.filters.biquad_cuda import (
+        df1_wide_bank, df1_wide_bank_coef, df1_wide_bank_coef_plain,
+        df1_wide_bank_plain, sos_bank_q, sos_bank_q_plain, wide_plan,
+    )
+    from idsp_tpu_torch.filters.pipe_plan import sos_plan
+
+    rng = np.random.default_rng(22)
+
+    def coefs(f, shape=(5,)):
+        top = min(2**31 - 1, 2 << f)
+        return rng.integers(-top, top + 1, size=shape).astype(np.int32)
+
+    def run(name, label, kern, plain, carry, c, t):
+        errs[name] = max(errs.get(name, 0.0), hold(
+            f"{name} ({label})", kern, plain, carry, lambda: i32((t, c)),
+            blocks=2))
+
+    def stages(c, n):
+        return [biquad.Df1State(x=i32((c, 2)), y=i32((c, 2)))
+                for _ in range(n)]
+
+    ran, i = set(), 0
+    cases = [(c, t, n, g, {}) for c, t in SOS_EDGE_SHAPES
+             for n, gs in SOS_EDGE_STAGES.items() for g in gs]
+    cases += [(200, 1, 3, 1, {}), (200, 1, 3, 3, {}),
+              (50, 45, 8, 8, dict(chunk=4, ring=3)),
+              (33, 23, 8, 8, dict(chunk=1, ring=8))]
+    cases += [(c, t, n, 1, dict(halves=2)) for c, t in SOS_EDGE_SHAPES
+              for n in (2, 3, 8)]
+    for c, t, n, g, kw in cases:
+        f = SOS_EDGE_F[i % len(SOS_EDGE_F)]
+        i += 1
+        ba = coefs(f, (n, 5))
+        plan = sos_plan(c, n, group=g, **kw)
+        ran.add((n, g, plan.halves, plan.cluster))
+        run("sos_bank_q", f"c {c}, t {t}, {n} stages, g {g}, {kw}, f {f}",
+            lambda s, x, ba=ba, f=f, p=plan: sos_bank_q(ba, s, x, f,
+                                                        _plan=p),
+            lambda s, x, ba=ba, f=f: sos_bank_q_plain(ba, s, x, f),
+            (stages(c, n),), c, t)
+    c, t = 50, 300
+    edge = np.array([-(2**31), -(2**31) + 1, -1, 0, 1, 2**31 - 1], np.int32)
+    xs = rng.choice(edge, (t, c))
+    xs[0] = -(2**31)
+    ba = np.full((3, 5), -(2**31), np.int32)
+    low = torch.full((c, 2), -(2**31), dtype=torch.int32, device=dev)
+    st = [biquad.Df1State(x=low, y=low.clone()) for _ in range(3)]
+    for f in (1, 32, 33, 63):
+        errs["sos_bank_q"] = max(errs["sos_bank_q"], hold(
+            f"sos_bank_q (the sum wraps, f {f})",
+            lambda s, x, f=f: sos_bank_q(ba, s, x, f,
+                                         _plan=sos_plan(c, 3, group=1)),
+            lambda s, x, f=f: sos_bank_q_plain(ba, s, x, f), (st,),
+            lambda: torch.from_numpy(xs).to(dev), blocks=1))
+
+    def wide_state(c):
+        return (biquad.Df1WideState(x=i32((c, 2)), y=i64((c, 2), -(2**63),
+                                                         2**63 - 1)),)
+
+    chunk = wide_plan(1).chunk
+    edges = {
+        "t = 1": (200, 1, {}),
+        "t under a chunk": (50, 100, {}),
+        "t = 3 chunks + 17": (1, 3 * chunk + 17, {}),
+        "16-row chunks": (200, 5 * 16 + 3, dict(chunk=16, ring=3,
+                                                producers=2)),
+    }
+    u, lo, hi = CLAMP
+    for label, (c, t, kw) in edges.items():
+        p = wide_plan(c, **kw) if kw else None
+        for f, clamp in ((1, None), (1, CLAMP), (32, None), (32, CLAMP),
+                         (29, (5, 2**20, -(2**20)))):
+            ba = coefs(f)
+            run("df1_wide_bank", f"{label}, f {f}, clamp {clamp}",
+                lambda s, x, ba=ba, f=f, cl=clamp, p=p: df1_wide_bank(
+                    ba, s, x, f, clamp=cl, _plan=p),
+                lambda s, x, ba=ba, f=f, cl=clamp: df1_wide_bank_plain(
+                    ba, s, x, f, clamp=cl), wide_state(c), c, t)
+        for shape, f, clamp in (((5, c), 29, CLAMP), ((5,), 16, None)):
+            pl = torch.from_numpy(coefs(f, shape)).to(dev)
+            run("df1_wide_bank_coef", f"{label}, f {f}, planes {shape}, "
+                f"clamp {clamp}",
+                lambda s, x, pl=pl, f=f, cl=clamp, p=p: df1_wide_bank_coef(
+                    pl, s, x, f, clamp=cl, _plan=p),
+                lambda s, x, pl=pl, f=f, cl=clamp: df1_wide_bank_coef_plain(
+                    pl, s, x, f, clamp=cl), wide_state(c), c, t)
+    c, t = 50, 300
+    ends = np.array([-(2**63), -(2**63) + 1, -1, 0, 2**63 - 1], np.int64)
+    yw = torch.from_numpy(rng.choice(ends, (c, 2))).to(dev)
+    wst = (biquad.Df1WideState(x=low, y=yw),)
+    ba = np.full((5,), -(2**31), np.int32)
+    pl = torch.full((5, c), -(2**31), dtype=torch.int32, device=dev)
+    wraps = [("df1_wide_bank", f, lambda s, x, f=f: df1_wide_bank(ba, s, x, f),
+              lambda s, x, f=f: df1_wide_bank_plain(ba, s, x, f))
+             for f in (1, 32)]
+    wraps.append(("df1_wide_bank_coef", 32,
+                  lambda s, x: df1_wide_bank_coef(pl, s, x, 32, clamp=CLAMP),
+                  lambda s, x: df1_wide_bank_coef_plain(pl, s, x, 32,
+                                                        clamp=CLAMP)))
+    for name, f, kern, plain in wraps:
+        errs[name] = max(errs[name], hold(
+            f"{name} (the sum wraps, f {f})", kern, plain, wst,
+            lambda: torch.from_numpy(xs).to(dev), blocks=1))
+    log(f"phase 3 K24 on its cluster chain at c, t = {SOS_EDGE_SHAPES} and "
+        f"(200, 1), (stages, g, ranks a CTA, CTAs a tile) {sorted(ran)}, 8 "
+        f"stages over "
+        f"4- and 1-row chunks, f 1, 32, 33; f "
+        f"1, 32, 33, 63 where the sum wraps; K25 (f 1, 32 with and without "
+        f"clamp {CLAMP}, f 29 with lo > hi) and K32 (per-lane f 29 clamped, "
+        f"shared f 16) at the depth-0 pipeline's edges ({', '.join(edges)}: "
+        f"c = 200, 50, 1 and 200), full-range int64 y; K25 f 1, 32 and K32 "
+        f"f 32 where the sum wraps: == plain over 2 blocks each, max |d| "
+        + ", ".join(str(errs[k]) for k in (
+            "sos_bank_q", "df1_wide_bank", "df1_wide_bank_coef")))
+    return sorted(ran)
+
+
+def log_sos_plans(dev):
+    """Logs the K24 clusters of 1-8 CTAs of one rank and of 1-4 CTAs of two
+    one-stage ranks the card holds at once (cudaOccupancyMaxActiveClusters
+    of the kernel at its plan's shape) and
+    the plans `sos_launch_plan` picks at C_CTL and 2 C_CTL lanes for
+    SOS_STAGES and 8 stages; returns the plan at C_CTL lanes and
+    SOS_STAGES stages as the kernels line names it."""
+    from idsp_tpu_torch.filters.biquad_cuda import (
+        _max_clusters, sos_launch_plan,
+    )
+    from idsp_tpu_torch.filters.pipe_plan import sos_plan
+
+    fit = {}
+    for h in (1, 2):
+        for cl in range(1, 8 // h + 1):  # cl CTAs of h one-stage ranks
+            p = sos_plan(C_CTL, cl * h, group=1, halves=h)
+            fit[h, cl] = _max_clusters(dev, cl, h, p.warps, p.smem)
+    plans = {(c, n): sos_launch_plan(c, n, dev)
+             for c in (C_CTL, 2 * C_CTL) for n in (SOS_STAGES, 8)}
+    log(f"phase 3 K24 co-resident clusters of 1-8 CTAs (one CTA an SM) of "
+        f"one rank: {[fit[1, cl] for cl in range(1, 9)]}, of 1-4 CTAs of two "
+        f"one-stage ranks: {[fit[2, cl] for cl in range(1, 5)]}; plans "
+        f"(lanes, stages) "
+        f"-> (g, ranks a CTA, CTAs a tile, CTAs): " + ", ".join(
+            f"{k}: ({p.group}, {p.halves}, {p.cluster}, "
+            f"{p.tiles * p.cluster})" for k, p in plans.items()))
+    p = plans[(C_CTL, SOS_STAGES)]
+    return {"stages": p.stages, "group": p.group, "halves": p.halves,
+            "cluster": p.cluster, "chunk": p.chunk, "ring": p.ring,
+            "co_resident_clusters": fit[p.halves, p.cluster]}
 
 
 def check_bank_lockin_edges(dev, i32, errs):
@@ -4912,6 +5105,8 @@ def main():
     check_serial_pipe_edges(dev, i32, errs)
     check_depth0_edges(dev, i32, errs)
     check_df1_pipe_edges(dev, i32, errs)
+    check_chain_edges(dev, i32, i64, errs)
+    sos_plans = log_sos_plans(dev)
     check_bank_lockin_edges(dev, i32, errs)
     log(f"phase 3 done at {time.perf_counter() - wall0:.1f} s")
 
@@ -5472,7 +5667,8 @@ def main():
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": timed.get("library_ms"), "c": c})
+            "library_ms": timed.get("library_ms"), "c": c,
+            **({"plan": sos_plans} if name == "sos_bank_q" else {})})
         log_bound(name, c, timed["ms"], sm_mhz)
     # the other instantiations of K15 and K17, on their log lines only
     for name, c in (("fm_disc_bank_fast", C_FM),

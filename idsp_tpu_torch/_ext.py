@@ -47,9 +47,10 @@ _SIGNATURES = {
     "idsp_df1_clamp_bank_q": [_P] * 6 + [_I] * 16 + [_P],
     "idsp_df1_bank_q_coef": [_P] * 7 + [_I] * 8 + [_P],
     "idsp_df1_clamp_bank_q_coef": [_P] * 7 + [_I] * 11 + [_P],
-    "idsp_sos_bank_q": [_P] * 6 + [_I] * 4 + [_P, _P],
-    "idsp_df1_wide_bank": [_P] * 6 + [_I] * 12 + [_P],
-    "idsp_df1_wide_bank_coef": [_P] * 7 + [_I] * 7 + [_P],
+    "idsp_sos_bank_q": [_P] * 6 + [_I] * 4 + [_P] + [_I] * 7 + [_P],
+    "idsp_sos_max_clusters": [_I] * 4,
+    "idsp_df1_wide_bank": [_P] * 6 + [_I] * 17 + [_P],
+    "idsp_df1_wide_bank_coef": [_P] * 7 + [_I] * 12 + [_P],
     "idsp_df1_bank_q16": [_P] * 6 + [_I] * 8 + [_P],
     "idsp_df1_bank_q64": [_P] * 6 + [_I] * 3 + [_L] * 5 + [_I] * 5 + [_P],
     "idsp_df1_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P],

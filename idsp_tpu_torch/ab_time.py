@@ -1,6 +1,6 @@
 """Time K1, K2, K3, K6, K7, K8, K11, K12 (and its ``clamp=``), K13, K14,
-K15, K16, K17, K18, K19, K22 "highest", K26, K27, K29, K31, K33, K34, K37
-and K38-K40 of two checkouts of the port in turns, in one process.
+K15, K16, K17, K18, K19, K22 "highest", K24-K27, K29, K31-K34, K37 and
+K38-K40 of two checkouts of the port in turns, in one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -12,7 +12,8 @@ df1_hbf,fastlo_ddc_cascade,df1_clamp``; K14, K15: ``--only
 mix_df1,fm_disc``; K29, K37: ``--only q64,rpll``; K31, K33, K34:
 ``--only dither,svf``; K12, its ``clamp=``, K13, K6 and K16: ``--only
 fastlo_df1_dec,fastlo_ddc_bank,ddc_lockin``; K1, K11, K18, K26, K27:
-``--only df1_bank_q,df1_clamp_bank_q``).
+``--only df1_bank_q,df1_clamp_bank_q``; K24, K25, K32: ``--only
+sos,wide``).
 
 Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
 loaded under a name of its own, so both live in this process, and each
@@ -54,7 +55,12 @@ K13 `fastlo_ddc_bank_block` at c = 1024 (the suite's bank filter, the
 Q29 lowpass at 0.004; d = 16, time chunk 128; x, a zero phase, the K6
 steps; zero state) and K16 `ddc_lockin_bank` at c = 512 (LO frequencies
 0.05-0.45, the lowpass at 0.002, x ~ N(0, 1), time chunk 512, zero
-state), as `chip_smoke.py` runs them.  The two trees must
+state), as `chip_smoke.py` runs them; K24 `sos_bank_q` (4 stages of the
+Q29 lowpass at 0.1, `compat.sos`'s rows, x in +-2^24, zero state), K25
+`df1_wide_bank` (that lowpass, clamped with `chip_smoke.py`'s WIDE_CLAMP
+(0, +-2^30) and unclamped) and K32 `df1_wide_bank_coef` (the per-lane
+planes above, and the shared set as a device tensor) on full-range x at
+c = 1024 lanes, zero state.  The two trees must
 compute the same words, K17 within 2e-5 of the scale (its sums run in
 another order).
 One sample is the CUDA-event time of ITERS launches on the same inputs,
@@ -89,10 +95,12 @@ M_CH, CH_TAPS, N_CH = 1024, 8, (1024, 16384)  # K17: branches, taps, frames
 ROUNDS, ITERS = 30, 20
 C_WDF = 1024  # K38-K40's lanes
 C_FM, FM_CARRIER = 512, 12345  # K15's channels and carrier word
-C_SERIAL = 1024  # K29's, K31's, K33's, K34's and K37's lanes
+C_SERIAL = 1024  # K24's, K25's, K29's and K31-K34's, K37's lanes
 C_BANK, C_LOCKIN, TC_LOCKIN = 1024, 512, 512  # K12/K13's, K16's widths
 BANK_CLAMP = (1 << 10, -(1 << 23), 1 << 23)  # K12's clamp= in chip_smoke
 DITHER_CLAMP = (0, -(2**30), 2**30)  # the suite's clamped-dither row
+WIDE_CLAMP = DITHER_CLAMP  # K25's clamp in chip_smoke (its WIDE_CLAMP)
+SOS_STAGES = 4  # `compat.sos`'s "q32 cascade4" stages
 SVF_ROW = (0.01, 0.7)  # the suite's SVF row (f0, Q)
 # wdf-ca-7 and wdf-ca-19 (benches/suite.py:442-500): per branch, stages of
 # (type nibbles, adapters, pole coefficients)
@@ -218,6 +226,20 @@ def cases(alias: str, dev, inputs):
     out[f"df1_bank_q_coef c={C_SERIAL}"] = (
         lambda st=biquad.df1_init((C_SERIAL,), device=dev):
         bc.df1_bank_q_coef(inputs["planes29"], st, inputs["x32"], 29))
+    out[f"sos_bank_q c={C_SERIAL}"] = (
+        lambda st=[biquad.df1_init((C_SERIAL,), device=dev)] * SOS_STAGES:
+        bc.sos_bank_q(np.stack([ba29] * SOS_STAGES), st, inputs["x29"], 29))
+    for label, clamp in (("", None), (" clamped", WIDE_CLAMP)):
+        out[f"df1_wide_bank{label} c={C_SERIAL}"] = (
+            lambda st=biquad.df1_wide_init((C_SERIAL,), device=dev),
+            clamp=clamp: bc.df1_wide_bank(ba29, st, inputs["x32"], 29,
+                                          clamp=clamp))
+    for label, planes in (("per-lane", inputs["planes29"]),
+                          ("shared", torch.from_numpy(ba29).to(dev))):
+        out[f"df1_wide_bank_coef {label} c={C_SERIAL}"] = (
+            lambda st=biquad.df1_wide_init((C_SERIAL,), device=dev),
+            planes=planes: bc.df1_wide_bank_coef(planes, st, inputs["x32"],
+                                                 29))
     out[f"df1_clamp_bank_q_coef c={C_SERIAL}"] = (
         lambda st=biquad.df1_init((C_SERIAL,), device=dev):
         bc.df1_clamp_bank_q_coef(inputs["planes29"], st, inputs["x32"], 29,

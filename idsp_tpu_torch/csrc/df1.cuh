@@ -12,11 +12,8 @@
 // y1; the unclamped one goes nowhere): bit-identical to
 // `df1_clamp_process_q`.
 //
-// Per-lane coefficients (`load_coefs`) come from (5, c) int32 planes, the
-// runtime-coefficient banks' layout.  The wide-state DF1 (`Df1WideLane`)
-// keeps each fed-back output as a full int64 word: b*x in int64, the
-// split-word a*y, the sum shifted left by 32 - f, the output its high
-// word; bit-identical to `df1_wide_process`.
+// The wide-state DF1, which keeps each fed-back output as a full int64
+// word, is K25/K32's serial warp (df1_ring.cuh `Df1WideSerial`).
 //
 // Two other rungs of the reference's precision ladder: Q16
 // (`Df1LaneQ16`, int16 storage, 32-bit sums) and Q64 (`mac_q64`, int64
@@ -54,16 +51,6 @@ struct Df1Clamp {
     return min(max(v, lo), hi);
   }
 };
-
-// One lane's coefficients from (5, c) int32 planes: row i holds the i-th
-// of [b0, b1, b2, a1, a2] for every lane.
-__device__ __forceinline__ Df1Coefs load_coefs(
-    const int32_t* __restrict__ planes, int c, int lane, int f) {
-  const size_t n = static_cast<size_t>(c);
-  return Df1Coefs{__ldg(planes + lane), __ldg(planes + n + lane),
-                  __ldg(planes + 2 * n + lane), __ldg(planes + 3 * n + lane),
-                  __ldg(planes + 4 * n + lane), f};
-}
 
 // a * b + c on 64-bit words, wrapping mod 2^64 (the product of two int32
 // is exact in int64; the add wraps as PTX's integer add does)
@@ -174,78 +161,6 @@ struct Df1Lane {
 
   __device__ __forceinline__ int32_t step(const Df1Coefs& k, int32_t x0) {
     return push(x0, output(k, x0));
-  }
-};
-
-// The wide-state DF1 (biquad.rs:456-480): x taps int32, y taps the full
-// int64 words of the previous outputs.
-struct Df1WideLane {
-  int32_t x1, x2;
-  int64_t y1, y2;
-
-  // state rows as in Df1WideState: x (lanes, 2) i32, y (lanes, 2) i64
-  __device__ __forceinline__ void load(const int32_t* sx, const int64_t* sy,
-                                       int lane) {
-    x1 = sx[2 * lane];
-    x2 = sx[2 * lane + 1];
-    y1 = sy[2 * lane];
-    y2 = sy[2 * lane + 1];
-  }
-
-  __device__ __forceinline__ void store(int32_t* sx, int64_t* sy,
-                                        int lane) const {
-    sx[2 * lane] = x1;
-    sx[2 * lane + 1] = x2;
-    sy[2 * lane] = y1;
-    sy[2 * lane + 1] = y2;
-  }
-
-  // ((y_lo as u64 * a) >> 32) + y_hi * a: both products exact in int64
-  // (|y_lo * a| < 2^63), the shift arithmetic, the sum in range.
-  static __device__ __forceinline__ int64_t split_mul(int64_t yw, int32_t a) {
-    const int64_t lo = static_cast<int64_t>(static_cast<uint32_t>(yw));
-    return ((lo * a) >> 32) + (yw >> 32) * a;
-  }
-
-  // the new feedback word: the five terms summed and shifted left by
-  // 32 - f, wrapping (formed in uint64)
-  __device__ __forceinline__ uint64_t word(const Df1Coefs& k,
-                                           int32_t x0) const {
-    const uint64_t acc = static_cast<uint64_t>(int64_t{k.b0} * x0) +
-                         static_cast<uint64_t>(int64_t{k.b1} * x1) +
-                         static_cast<uint64_t>(int64_t{k.b2} * x2) +
-                         static_cast<uint64_t>(split_mul(y1, k.a1)) +
-                         static_cast<uint64_t>(split_mul(y2, k.a2));
-    return acc << (32 - k.f);
-  }
-
-  static __device__ __forceinline__ int32_t high(uint64_t w) {
-    return static_cast<int32_t>(static_cast<uint32_t>(w >> 32));
-  }
-
-  __device__ __forceinline__ void push(int32_t x0, uint64_t w) {
-    x2 = x1;
-    x1 = x0;
-    y2 = y1;
-    y1 = static_cast<int64_t>(w);
-  }
-
-  __device__ __forceinline__ int32_t step(const Df1Coefs& k, int32_t x0) {
-    const uint64_t w = word(k, x0);
-    push(x0, w);
-    return high(w);
-  }
-
-  // The clamped step: clip(high + u, lo, hi) is the output and replaces
-  // the high word of the fed-back word; the low word is kept.
-  __device__ __forceinline__ int32_t step_clamp(const Df1Coefs& k,
-                                                const Df1Clamp& cl,
-                                                int32_t x0) {
-    const uint64_t w = word(k, x0);
-    const int32_t y0 = cl(high(w));
-    push(x0, (static_cast<uint64_t>(static_cast<uint32_t>(y0)) << 32) |
-                 (w & 0xFFFFFFFFull));
-    return y0;
   }
 };
 

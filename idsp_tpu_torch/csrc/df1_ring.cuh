@@ -8,9 +8,14 @@
 // I|Q channels and a back-end warp in the store warp's place (`run_roles`),
 // K37 and K34 (structures_bank.cu, the RPLL and the SVF), K29
 // (biquad_precision.cu, the Q64) and K16 (ddc_lockin.cu, the f32 DF1 after
-// the lock-in mix) with their own, and K1, K11, K18, K26, K27 (df1_bank.cu)
+// the lock-in mix) with their own, K1, K11, K18, K26, K27 (df1_bank.cu)
 // and K31/K33 (biquad_precision.cu, the error-feedback DF1) with one
-// serial warp over the producers' feed-forward sums (`Df1WSerial`).  The
+// serial warp over the producers' feed-forward sums (`Df1WSerial`), and
+// K25/K32 (biquad_bank.cu, the wide DF1) with the same producers and a
+// serial warp over int64 feedback words (`Df1WideSerial`).  K24
+// (biquad_bank.cu, the SOS cascade) runs a chain of such blocks over a
+// thread-block cluster, one or two a CTA, its stages spread over them
+// (`run_chain`).  The
 // DF1 warp also serves K2, K3 and K19-K21 (ddc_cascade.cu: its output ring
 // is stage 0's FIR buffer).
 // Where the producers' work is more than one SM's other three schedulers
@@ -36,9 +41,9 @@
 // and empty.  An input slot holds `chunk` rows of kLanes x `Win` 32-bit
 // words, word w of row r and lane l at (r * kLanes + l) * Win + w, an
 // output slot the same with `Wout` words (K12/K13, K14, K15, K16, K34: 1
-// and 1; K1, K11, K18, K26, K27, K31/K33: 2 and 1; K37: 2 and 2; K29: 4
-// and 2), so a warp reads or writes a row as one 4-, 8- or 16-byte word a
-// lane, contiguous across the lanes.
+// and 1; K1, K11, K18, K24, K25, K26, K27, K31/K33, K32: 2 and 1; K37: 2
+// and 2; K29: 4 and 2), so a warp reads or writes a row as one 4-, 8- or
+// 16-byte word a lane, contiguous across the lanes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -541,9 +546,28 @@ struct Df1WArgs {
 };
 
 // The producers: `tap_feed` in batches of kWRows rows, each row's sum W =
-// b0 x0 + b1 x1 + b2 x2 mod 2^64 into the input ring as two 32-bit words;
-// with Planes they take the lane's b0-b2 from the planes once.
+// b0 x0 + b1 x1 + b2 x2 mod 2^64 into the input ring as two 32-bit words
+// (`put_w`); with Planes they take the lane's b0-b2 from the planes once.
 constexpr int kWRows = 16;
+
+// Batch b's rows' W into input slot `slot` (this lane's column), xv.x[v +
+// 2] row v of the batch and xv.x[0], xv.x[1] the two rows before it.
+template <int B>
+__device__ __forceinline__ void put_w(const Rings& R, int slot, int lid,
+                                      const Batch& b,
+                                      const TapRows<int32_t, B>& xv,
+                                      int32_t b0, int32_t b1, int32_t b2) {
+  uint2* s = reinterpret_cast<uint2*>(R.in_slot<2>(slot)) + lid;
+#pragma unroll
+  for (int v = 0; v < B; ++v) {
+    const uint64_t w = static_cast<uint64_t>(
+        mad_wide(b0, xv.x[v + 2],
+                 mad_wide(b1, xv.x[v + 1], mul_wide(b2, xv.x[v]))));
+    if (b.r + v < b.hi)
+      s[(b.r + v) * kLanes] = make_uint2(static_cast<uint32_t>(w),
+                                         static_cast<uint32_t>(w >> 32));
+  }
+}
 
 template <bool Planes>
 __device__ __forceinline__ void w_feed(const Df1WArgs& a, const Rings& R,
@@ -559,16 +583,7 @@ __device__ __forceinline__ void w_feed(const Df1WArgs& a, const Rings& R,
   tap_feed<kWRows>(
       a.p, R, pw, lane, live, a.xs, a.sx, a.sx_out,
       [&](const Batch& b, const TapRows<int32_t, kWRows>& xv, int slot) {
-        uint2* s = reinterpret_cast<uint2*>(R.in_slot<2>(slot)) + lid;
-#pragma unroll
-        for (int v = 0; v < kWRows; ++v) {
-          const uint64_t w = static_cast<uint64_t>(
-              mad_wide(b0, xv.x[v + 2],
-                       mad_wide(b1, xv.x[v + 1], mul_wide(b2, xv.x[v]))));
-          if (b.r + v < b.hi)
-            s[(b.r + v) * kLanes] = make_uint2(static_cast<uint32_t>(w),
-                                               static_cast<uint32_t>(w >> 32));
-        }
+        put_w(R, slot, lid, b, xv, b0, b1, b2);
       });
 }
 
@@ -650,6 +665,374 @@ struct Df1WSerial {
     }
   }
 };
+
+// ---- the wide DF1 at depth 0: int64 feedback words (K25, K32) -----------
+
+// A launch of the wide DF1 (biquad_bank.cu): w's producers (`w_feed`), its
+// plan, coefficients and clamp; the state's y as full int64 words (w.sy
+// and w.sy_out unused).
+struct WideArgs {
+  Df1WArgs w;
+  const int64_t* sy;
+  int64_t* sy_out;
+};
+
+// add + split_mul(y, a), split_mul(y, a) = ((y_lo as u64 * a) >> 32) +
+// y_hi * a (the wide DF1's product of a feedback word, biquad.rs:456-472),
+// y_lo the unsigned low word, y_hi the signed high word, mod 2^64.  With A the unsigned reading of a, y_lo a =
+// y_lo A - 2^32 y_lo [a < 0], so (y_lo a) >> 32 = umulhi(y_lo, A) - y_lo
+// [a < 0]: one unsigned high multiply and a multiply-add of y_lo by neg
+// (0, or -1 where a < 0, set once a launch).  It lies in int32, so 32-bit
+// words hold it; it is sign-extended and added last, beside y_hi a's
+// multiply-add onto add.
+__device__ __forceinline__ uint64_t split_mul(uint64_t y, int32_t a,
+                                              uint32_t neg, uint64_t add) {
+  const uint32_t lo = static_cast<uint32_t>(y);
+  const int32_t low = static_cast<int32_t>(
+      __umulhi(lo, static_cast<uint32_t>(a)) + lo * neg);
+  return static_cast<uint64_t>(mad_wide(static_cast<int32_t>(y >> 32), a,
+                                        static_cast<int64_t>(add))) +
+         static_cast<uint64_t>(static_cast<int64_t>(low));
+}
+
+// The wide serial warp (K25; K32 with Planes, a1 and a2 from the lane's
+// planes): y1 and y2 of its lane as int64 feedback words in registers; each
+// row's W from the input ring, y0 into the output ring.  V = W +
+// split_mul(y2, a2) waits on no step of the row before (y2 is the row
+// before's y1), so it is formed a row ahead, off the chain; on the chain
+// are split_mul(y1, a1) onto V, the shift left by s = 32 - f (two funnel
+// shifts: the new high word from (lo, hi), the new low word lo << s), y0
+// the high word; clamped, clip(y0 + u, lo, hi) (df1.cuh `Df1Clamp`) is the
+// output and replaces the high word of the fed-back word, its low word
+// kept.  The sums wrap mod 2^64, so any order of the five terms gives the
+// plain version's bits.  After the last row the serial warp writes y (c,
+// 2) int64.
+template <bool Clamp, bool Planes>
+struct Df1WideSerial {
+  const WideArgs* a;
+
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int lane, bool live,
+                                             uint32_t) const {
+    const Pipe& p = a->w.p;
+    const size_t c = static_cast<size_t>(p.c2);
+    const int ch = live ? lane : 0;
+    int32_t a1 = a->w.k.a1, a2 = a->w.k.a2;
+    if constexpr (Planes) {
+      a1 = __ldg(a->w.planes + 3 * c + ch);
+      a2 = __ldg(a->w.planes + 4 * c + ch);
+    }
+    const uint32_t n1 = a1 < 0 ? ~0u : 0u, n2 = a2 < 0 ? ~0u : 0u;
+    const int sh = 32 - a->w.k.f;
+    const Df1Clamp cl = a->w.cl;
+    uint64_t y1 = 0, y2 = 0;
+    if (live) {
+      y1 = static_cast<uint64_t>(a->sy[2 * lane]);
+      y2 = static_cast<uint64_t>(a->sy[2 * lane + 1]);
+    }
+    serial_chunks(p.d.t, p.d.chunk, p.d.depth, R, [&](int slot, int rows) {
+      const uint2* in =
+          reinterpret_cast<const uint2*>(R.in_slot<2>(slot)) + lid;
+      int32_t* o = reinterpret_cast<int32_t*>(out) +
+                   static_cast<size_t>(slot) * p.d.chunk * kLanes + lid;
+      group_rows(
+          rows, [&](int r) { return in[r * kLanes]; },
+          [&](int r, uint2 w) {
+            const uint64_t v =  // off the chain
+                split_mul(y2, a2, n2, uint64_t{w.y} << 32 | w.x);
+            const uint64_t acc = split_mul(y1, a1, n1, v);
+            const uint32_t lo = static_cast<uint32_t>(acc);
+            uint32_t hi =
+                __funnelshift_l(lo, static_cast<uint32_t>(acc >> 32), sh);
+            if constexpr (Clamp)
+              hi = static_cast<uint32_t>(cl(static_cast<int32_t>(hi)));
+            y2 = y1;
+            y1 = uint64_t{hi} << 32 | (lo << sh);
+            o[r * kLanes] = static_cast<int32_t>(hi);
+          });
+    });
+    if (live) {
+      a->sy_out[2 * lane] = static_cast<int64_t>(y1);
+      a->sy_out[2 * lane + 1] = static_cast<int64_t>(y2);
+    }
+  }
+};
+
+// ---- a chain of depth-0 blocks over a thread-block cluster (K24) ----------
+//
+// A tile is a chain of ranks over a cluster of `p.cluster` CTAs, each rank a
+// depth-0 block of its own (`run_chain`): a CTA holds one rank, or two
+// (`Halves` 2: their serial warps on schedulers 0 and 2, each with its own
+// rings, producers and store warp).  Rank 0's producers read the tile's
+// rows from device memory, every later rank's producers read its x ring,
+// which the rank before's store warp fills with its serial warp's output
+// rows (`peer_store`: `st.async` into a rank of another CTA, counted on the
+// x slot's full barrier; plain shared stores into the other half of its
+// own CTA); the last rank's store warp writes the rows to device memory.
+// An x slot holds its chunk's rows behind two rows ahead, the chunk
+// before's last two (the stage state's x2, x1 at chunk 0), so a producer's
+// span needs no row of another slot (`x_feed`).  The rank before
+// overwrites an x slot only after the rank's producers released it (an
+// arrival of each of their threads on the rank before's x empty barrier),
+// and only for the chunks it has still to fill, so no arrival reaches a
+// CTA that has exited; a rank exits only after its producers saw its last
+// x slot full, so no store reaches one either.
+
+// The x ring of a chain rank: after the input and output rings, 16 bytes
+// of mbarriers a slot (full: one arrival with the slot's bytes; empty: the
+// next rank's producers' threads), then `depth` slots of chunk + 2 rows of
+// kLanes int32 words.
+struct XRing {
+  uint32_t bars;
+  int32_t* x;
+  int chunk;
+
+  __device__ uint32_t full(int k) const { return bars + 16 * k; }
+  __device__ uint32_t empty(int k) const { return bars + 16 * k + 8; }
+  __device__ int32_t* slot(int k) const {
+    return x + static_cast<size_t>(k) * (chunk + 2) * kLanes;
+  }
+};
+
+// Shared memory of a chain CTA: `halves` ranks of `pipe_smem` with two
+// words a row and lane in and one out and, in a cluster of 2+ CTAs or a
+// CTA of two ranks, the x ring.
+__host__ __device__ inline size_t chain_smem(int chunk, int depth,
+                                             int cluster, int halves = 1) {
+  const size_t x =
+      cluster > 1 || halves > 1
+          ? static_cast<size_t>(depth) *
+                (16 + static_cast<size_t>(chunk + 2) * kLanes * 4)
+          : 0;
+  return static_cast<size_t>(halves) * (pipe_smem(chunk, depth, 2, 1) + x);
+}
+
+// The warps of a chain CTA: at most 12 with one rank, so that a thread may
+// hold 168 registers (a rank's stages' coefficients and state); at most 20
+// with two ranks of one stage each (102 registers).
+constexpr int kChainWarps = 12;
+constexpr int kChainWarps2 = 20;
+
+// Where a rank sits in the chain: its rank, its x ring, and the x rings of
+// the rank before (whose empty barriers its producers arrive on) and of the
+// next rank (which its store warp fills), each by the addresses of its own
+// CTA (`*_cta`: that CTA's rank; `*_here`: this CTA).
+struct ChainPos {
+  int rank;
+  XRing x, prev, next;
+  uint32_t prev_cta, next_cta;
+  bool prev_here, next_here;
+};
+
+// A chain CTA of `Halves` ranks of a chain of `ranks` (rank h of the CTA
+// is chain rank cluster_rank * Halves + h): each rank's rings in its share
+// of `smem`; its serial warp (warp 0, and warp 2 for the second) calling
+// serial(R, out, lid, lane, live, rank), the other warps of those
+// schedulers idle; of the rest, for each rank in turn, `producers` warps
+// calling produce(R, pos, pw, lid, lane, live) and the next one store(R,
+// pos, out, lid, col0); warps past those, and a rank past the chain's
+// last, exit.  Every CTA initialises its barriers, and the cluster barrier
+// publishes them before any rank stores into or arrives on another's.
+template <int Halves, class Serial, class Produce, class Store>
+__device__ __forceinline__ void run_chain(const Pipe& p, int ranks,
+                                          unsigned char* smem, Serial serial,
+                                          Produce produce, Store store) {
+  const int warp = threadIdx.x / kLanes, lid = threadIdx.x % kLanes;
+  const int col0 = blockIdx.x / p.cluster * kLanes, lane = col0 + lid;
+  const bool live = lane < p.c2;  // dead lanes still reach every barrier
+  const int depth = p.d.depth, chunk = p.d.chunk;
+  const size_t share = chain_smem(chunk, depth, p.cluster, Halves) / Halves;
+  auto rings = [&](int h) {
+    unsigned char* b = smem + h * share;
+    return Rings{sm90::smem_addr(b),
+                 reinterpret_cast<int32_t*>(b + 32 * depth), chunk};
+  };
+  auto xring = [&](int h) {
+    unsigned char* b = smem + h * share + pipe_smem(chunk, depth, 2, 1);
+    return XRing{sm90::smem_addr(b),
+                 reinterpret_cast<int32_t*>(b + 16 * depth), chunk};
+  };
+  const bool linked = p.cluster > 1 || Halves > 1;
+  if (threadIdx.x == 0) {
+    for (int h = 0; h < Halves; ++h) {
+      init_rings(rings(h), depth, p.producers, 1);
+      if (linked) {
+        const XRing X = xring(h);
+        for (int k = 0; k < depth; ++k) {
+          sm90::mbar_init(X.full(k), 1);
+          sm90::mbar_init(X.empty(k), kLanes * p.producers);
+        }
+      }
+    }
+    sm90::fence_barrier_init();
+  }
+  if (p.cluster > 1) {
+    sm90::cluster_sync();  // every rank's barriers initialised
+  } else {
+    __syncthreads();
+  }
+  // this warp's rank of the CTA and its role: -1 serial, 0 .. producers - 1
+  // a producer, producers the store warp
+  int h, role;
+  if constexpr (Halves == 1) {
+    if (warp % 4 == 0 && warp > 0) return;  // the serial warp's scheduler
+    h = 0;
+    role = warp == 0 ? -1 : warp - warp / 4 - 1;
+  } else {
+    if (warp % 2 == 0 && warp > 2) return;  // the serial warps' schedulers
+    if (warp == 0 || warp == 2) {
+      h = warp / 2;
+      role = -1;
+    } else {
+      const int w = warp / 4 * 2 + warp % 4 / 2;  // among the other warps
+      h = w / (p.producers + 1);
+      role = w % (p.producers + 1);
+    }
+  }
+  if (h >= Halves || role > p.producers) return;
+  const int cta = p.cluster > 1 ? static_cast<int>(sm90::cluster_rank()) : 0;
+  const int rank = cta * Halves + h;
+  if (rank >= ranks) return;
+  const Rings R = rings(h);
+  uint32_t* out = reinterpret_cast<uint32_t*>(R.in_slot<2>(depth));
+  if (role < 0) {
+    serial(R, out, lid, lane, live, rank);
+    return;
+  }
+  const int prev = rank - 1, next = rank + 1;
+  const ChainPos pos{rank,
+                     xring(h),
+                     xring((prev + Halves) % Halves),
+                     xring(next % Halves),
+                     static_cast<uint32_t>(prev / Halves),
+                     static_cast<uint32_t>(next / Halves),
+                     prev / Halves == cta,
+                     next / Halves == cta};
+  if (role < p.producers) {
+    produce(R, pos, role, lid, lane, live);
+  } else {
+    store(R, pos, out, lid, col0);
+  }
+}
+
+// Producer pw of P's walk of a chain rank past 0: for each chunk its input
+// slot empty and its x slot full, its span's rows r of the chunk -- x0, x1,
+// x2 the slot's rows r + 2, r + 1, r -- in batches of B rows into W (`put_w`),
+// one arrival on the input slot's full barrier, then one of each thread on
+// the rank before's x empty barrier (`mbar_arrive_remote` into another CTA)
+// for a chunk that rank has still to fill.  Producer 0 writes the rank's
+// first stage's x state: block rows t - 1 and t - 2 (the last slot's rows
+// n + 1 and n), or sx at t = 0.
+template <int B>
+__device__ __forceinline__ void x_feed(const Pipe& p, const Rings& R,
+                                       const ChainPos& pos, int pw, int lid,
+                                       int lane, bool live, int32_t b0,
+                                       int32_t b1, int32_t b2,
+                                       const int32_t* sx, int32_t* sx_out) {
+  const int t = p.d.t, chunk = p.d.chunk, depth = p.d.depth;
+  const int span = (chunk + p.producers - 1) / p.producers;
+  const XRing& X = pos.x;
+  const uint32_t up_empty = pos.prev_here
+                                ? pos.prev.empty(0)
+                                : sm90::map_rank(pos.prev.empty(0),
+                                                 pos.prev_cta);
+  int32_t x1 = 0, x2 = 0;
+  if (live) {
+    x1 = sx[2 * lane];
+    x2 = sx[2 * lane + 1];
+  }
+  sm90::Cursor u;
+  for (int r0 = 0; r0 < t; r0 += chunk, u.next(depth)) {
+    const int rows = min(chunk, t - r0);
+    const int lo = min(pw * span, rows), hi = min(lo + span, rows);
+    sm90::mbar_wait(R.empty_in(u.k), u.ph ^ 1);
+    sm90::mbar_wait_cluster(X.full(u.k), u.ph);
+    const int32_t* xs = X.slot(u.k) + lid;
+    for (int r = lo; r < hi; r += B) {
+      TapRows<int32_t, B> xv;
+#pragma unroll
+      for (int v = 0; v < B + 2; ++v) xv.x[v] = xs[min(r + v, hi + 1) * kLanes];
+      put_w(R, u.k, lid, Batch{r0, r, hi}, xv, b0, b1, b2);
+    }
+    if (r0 + rows >= t) {
+      x1 = xs[(rows + 1) * kLanes];
+      x2 = xs[rows * kLanes];
+    }
+    sm90::mbar_arrive(R.full_in(u.k));
+    if (r0 + depth * chunk < t) {
+      if (pos.prev_here) {
+        sm90::mbar_arrive(up_empty + 16 * u.k);
+      } else {
+        sm90::mbar_arrive_remote(up_empty + 16 * u.k);
+      }
+    }
+  }
+  if (pw == 0 && live) {
+    sx_out[2 * lane] = x1;
+    sx_out[2 * lane + 1] = x2;
+  }
+}
+
+// The store warp of a chain rank before the last: each chunk's output slot
+// (`out`: slot 0) into the next rank's x slot once that is empty: rows 0
+// and 1 the two rows before the chunk (x2, x1: the next rank's first
+// stage's x state at chunk 0, then the chunk before's last two rows, a
+// 4-byte store each a lane), rows 2 .. n + 1 the chunk's n rows, 16 bytes a
+// thread (8 threads a row of 4 lanes each, 4 rows a warp instruction: the
+// 4-byte form, a row an instruction, set the pace of a one-stage rank),
+// then one arrival on the next rank's x full barrier (lane 0's, after every
+// lane's stores were issued).  Into another CTA the stores are `st.async`s,
+// counted on that barrier, whose arrival expects the slot's bytes; into
+// this CTA's other rank, shared stores the arrival releases.
+__device__ __forceinline__ void peer_store(const Pipe& p, const Rings& R,
+                                           const ChainPos& pos,
+                                           const uint32_t* out, int lid,
+                                           int32_t x1, int32_t x2) {
+  const int t = p.d.t, chunk = p.d.chunk, depth = p.d.depth;
+  const bool here = pos.next_here;
+  const uint32_t slot0 =
+      here ? 0u
+           : sm90::map_rank(sm90::smem_addr(pos.next.slot(0)), pos.next_cta);
+  const uint32_t full0 =
+      here ? pos.next.full(0) : sm90::map_rank(pos.next.full(0), pos.next_cta);
+  const int w4 = 4 * (lid % 8);  // the first of this thread's 4 lanes
+  sm90::Cursor u;
+  for (int r0 = 0; r0 < t; r0 += chunk, u.next(depth)) {
+    const int rows = min(chunk, t - r0);
+    sm90::mbar_wait(R.full_out(u.k), u.ph);
+    sm90::mbar_wait_cluster(pos.x.empty(u.k), u.ph ^ 1);
+    const uint32_t full = full0 + 16 * u.k;
+    const uint32_t* s = out + static_cast<size_t>(u.k) * chunk * kLanes;
+    if (here) {
+      int32_t* d = pos.next.slot(u.k);
+      d[lid] = x2;
+      d[kLanes + lid] = x1;
+      for (int r = lid / 8; r < rows; r += kLanes / 8)
+        *reinterpret_cast<uint4*>(d + (r + 2) * kLanes + w4) =
+            *reinterpret_cast<const uint4*>(s + r * kLanes + w4);
+    } else {
+      const uint32_t dst = slot0 + 4 * u.k * (chunk + 2) * kLanes;
+      sm90::store_to_peer32(dst + 4 * lid, static_cast<uint32_t>(x2), full);
+      sm90::store_to_peer32(dst + 4 * (kLanes + lid),
+                            static_cast<uint32_t>(x1), full);
+      for (int r = lid / 8; r < rows; r += kLanes / 8)
+        sm90::store_to_peer(
+            dst + 4 * ((r + 2) * kLanes + w4),
+            *reinterpret_cast<const uint4*>(s + r * kLanes + w4), full);
+    }
+    x2 = rows >= 2 ? static_cast<int32_t>(s[(rows - 2) * kLanes + lid]) : x1;
+    x1 = static_cast<int32_t>(s[(rows - 1) * kLanes + lid]);
+    sm90::mbar_arrive(R.empty_out(u.k));
+    __syncwarp();
+    if (lid == 0) {
+      if (here) {
+        sm90::mbar_arrive(full);
+      } else {
+        sm90::mbar_arrive_tx_remote(full, 4 * (rows + 2) * kLanes);
+      }
+    }
+  }
+}
 
 }  // namespace ring
 }  // namespace idsp

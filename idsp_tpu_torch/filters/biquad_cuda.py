@@ -8,9 +8,11 @@
 
 Each runs its CUDA kernel (K1, K11, K18, K26, K27 ``csrc/df1_bank.cu``;
 K24, K25 and K32 ``csrc/biquad_bank.cu``; K28-K31 and K33
-``csrc/biquad_precision.cu``; K1, K11, K18, K26, K27, K29, K31 and K33 on
-the depth-0 pipeline of ``csrc/df1_ring.cuh``, `df1_plan`, `q64_plan` and
-`dither_plan`) for a CUDA tensor and its plain PyTorch version
+``csrc/biquad_precision.cu``; K1, K11, K18, K25-K27, K29 and K31-K33 on
+the depth-0 pipeline of ``csrc/df1_ring.cuh``, `df1_plan`, `wide_plan`,
+`q64_plan` and `dither_plan`; K24 on a chain of such blocks over a
+thread-block cluster, `pipe_plan.sos_plan`) for a CUDA tensor and its
+plain PyTorch version
 (``*_plain``) for a CPU tensor; any other device raises.  K1 and K11
 are bit-identical to `biquad.df1_process_q` (K11: then ``ys[::d]``), K18 to
 `biquad.df1_clamp_process_q`, K24 to chaining `df1_process_q` stage by
@@ -24,6 +26,7 @@ K25 and K31 with one coefficient set per lane.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -43,10 +46,9 @@ from .biquad import (
     df1_process_q64,
     df1_wide_process,
 )
-from .pipe_plan import PipePlan, pipe_plan
+from .pipe_plan import SOS_MAX_STAGES, PipePlan, SosPlan, pipe_plan, sos_plan
 
-SOS_MAX_STAGES = 8  # stages of one K24 launch (csrc/biquad_bank.cu)
-# The producer warps of K1, K11, K18, K26, K27, K31 and K33 by default (and
+# The producer warps of K1, K11, K18, K25-K27 and K31-K33 by default (and
 # a store warp: 12 warps a block; with 5 the producers' loads set K31's
 # pace, PERF.md §6)
 DF1_PRODUCERS = 8
@@ -64,18 +66,20 @@ def df1_bank_q_plain(ba, state: Df1State, xs, f: int = 29, *,
 
 def df1_plan(c: int, *, producers: int = DF1_PRODUCERS, **kw) -> PipePlan:
     """The plan over ``c`` lanes (`pipe_plan.pipe_plan`) of K1, K11, K18,
-    K26, K27 and (as `dither_plan`) K31 and K33, one serial warp over the
-    same words: DF1_PRODUCERS producer warps by default, each a span of
-    ceil(chunk / producers) rows of every chunk; two 32-bit words a row
-    and lane in (the feed-forward sum mod 2^64), one out (y), so PIPE_CHUNK
-    rows a chunk in 2 slots by default; one CTA a tile."""
+    K26, K27 and (as `dither_plan`, `wide_plan`) K31, K33, K25 and K32, a
+    serial warp over the same words: DF1_PRODUCERS producer warps by
+    default, each a span of ceil(chunk / producers) rows of every chunk;
+    two 32-bit words a row and lane in (the feed-forward sum mod 2^64), one
+    out (y), so PIPE_CHUNK rows a chunk in 2 slots by default; one CTA a
+    tile."""
     if kw.get("cluster", 1) != 1:
-        raise ValueError("K1, K11, K18, K26, K27, K31 and K33 run one CTA a "
+        raise ValueError("K1, K11, K18, K25-K27 and K31-K33 run one CTA a "
                          "tile")
     return pipe_plan(c, producers=producers, win=2, wout=1, **kw)
 
 
 dither_plan = df1_plan  # K31's and K33's name for it
+wide_plan = df1_plan  # K25's and K32's
 
 
 def _plan_args(plan: PipePlan) -> tuple:
@@ -232,7 +236,32 @@ def sos_bank_q_plain(ba_stages, states, xs, f: int = 29):
     return out, y
 
 
-def sos_bank_q(ba_stages, states, xs, f: int = 29):
+@functools.lru_cache(maxsize=None)
+def _max_clusters(device: torch.device, cluster: int, halves: int,
+                  warps: int, smem: int) -> int:
+    """K24's clusters of ``cluster`` CTAs (``halves`` ranks, ``warps`` warps
+    and ``smem`` bytes each) that ``device`` holds at once
+    (cudaOccupancyMaxActiveClusters; it depends only on these
+    arguments)."""
+    with torch.cuda.device(device):
+        n = _ext.library().idsp_sos_max_clusters(cluster, halves, warps,
+                                                 smem)
+    if n < 0:
+        _ext.check(-n, "sos_max_clusters")
+    return n
+
+
+def sos_launch_plan(c: int, n: int, device: torch.device) -> SosPlan:
+    """K24's default plan on ``device`` (`pipe_plan.sos_plan`): its SMs,
+    and a cluster shape only where the card holds every tile's cluster at
+    once."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sos_plan(c, n, sms=sms, co_resident=lambda p: _max_clusters(
+        device, p.cluster, p.halves, p.warps, p.smem))
+
+
+def sos_bank_q(ba_stages, states, xs, f: int = 29, *,
+               _plan: SosPlan | None = None):
     """N-stage fixed-point SOS cascade over a bank of lanes, every stage
     advanced each row (the reference's `sos` path, py.rs:51-74).
 
@@ -245,7 +274,8 @@ def sos_bank_q(ba_stages, states, xs, f: int = 29):
     Returns (states, ys): a list of N `Df1State`s and ys (t, c) int32,
     bit-identical to chaining `df1_process_q` stage-major.  A cascade of
     more than SOS_MAX_STAGES stages runs as successive launches over
-    groups of stages.
+    groups of stages, each at `sos_launch_plan`'s plan (a given ``_plan``
+    is for a cascade of at most SOS_MAX_STAGES); no plan changes a value.
     """
     table = _stage_table(ba_stages)
     if len(states) != len(table):
@@ -254,26 +284,37 @@ def sos_bank_q(ba_stages, states, xs, f: int = 29):
         return sos_bank_q_plain(table, states, xs, f)
     check_f(f)
     t, c = xs.shape
+    if c < 1:
+        raise ValueError(f"need lanes >= 1, got {c}")
+    if _plan is not None and (_plan.stages != len(table) or
+                              _plan != sos_plan(
+                                  c, _plan.stages, group=_plan.group,
+                                  halves=_plan.halves,
+                                  producers=_plan.producers,
+                                  warps=_plan.warps, chunk=_plan.chunk,
+                                  ring=_plan.ring)):
+        raise ValueError(f"the plan is not one of {len(table)} stages over "
+                         f"{c} lanes")
     dev = xs.device
     _ext.require("xs", xs, dev, torch.int32, (t, c))
     for i, st in enumerate(states):
         _ext.require(f"states[{i}].x", st.x, dev, torch.int32, (c, 2))
         _ext.require(f"states[{i}].y", st.y, dev, torch.int32, (c, 2))
-    lib = _ext.library()
     out, y = [], xs
     for g in range(0, len(table), SOS_MAX_STAGES):
         group = table[g:g + SOS_MAX_STAGES]
         n = len(group)
+        plan = sos_launch_plan(c, n, dev) if _plan is None else _plan
         sx = torch.stack([st.x for st in states[g:g + n]])
         sy = torch.stack([st.y for st in states[g:g + n]])
         nx, ny = torch.empty_like(sx), torch.empty_like(sy)
         ys = torch.empty_like(xs)
         ba = (ctypes.c_int32 * (5 * n))(*group.reshape(-1).tolist())
         with torch.cuda.device(dev):
-            err = lib.idsp_sos_bank_q(
+            err = _ext.library().idsp_sos_bank_q(
                 y.data_ptr(), ys.data_ptr(), sx.data_ptr(), sy.data_ptr(),
-                nx.data_ptr(), ny.data_ptr(), t, c, f, n, ba,
-                _ext.stream_ptr(dev))
+                nx.data_ptr(), ny.data_ptr(), t, c, f, n, ba, plan.group,
+                plan.halves, *_plan_args(plan), _ext.stream_ptr(dev))
         _ext.check(err, "sos_bank_q")
         sos_bank_q.launches += 1
         out += [Df1State(x=nx[i], y=ny[i]) for i in range(n)]
@@ -293,7 +334,38 @@ def df1_wide_bank_plain(ba, state: Df1WideState, xs, f: int = 29, *,
     return df1_wide_process(ba, f, state, xs, clamp=clamp)
 
 
-def df1_wide_bank(ba, state: Df1WideState, xs, f: int = 29, *, clamp=None):
+def _launch_wide(name, ba, state: Df1WideState, xs, f, clamp, planes=None,
+                 plan=None):
+    """Validate and launch K25 (``planes`` None) or K32 at ``plan``
+    (`wide_plan`'s by default)."""
+    check_wide_f(f)
+    cl = (0, 0, 0) if clamp is None else clamp_params(*clamp)
+    t, c = xs.shape
+    shape = _plan_args(wide_plan(c) if plan is None else plan)
+    dev = xs.device
+    _ext.require("xs", xs, dev, torch.int32, (t, c))
+    _ext.require("state.x", state.x, dev, torch.int32, (c, 2))
+    _ext.require("state.y", state.y, dev, torch.int64, (c, 2))
+    ys = torch.empty_like(xs)
+    nx, ny = torch.empty_like(state.x), torch.empty_like(state.y)
+    ptrs = (xs.data_ptr(), ys.data_ptr(), state.x.data_ptr(),
+            state.y.data_ptr(), nx.data_ptr(), ny.data_ptr())
+    lib = _ext.library()
+    with torch.cuda.device(dev):
+        if planes is None:
+            err = lib.idsp_df1_wide_bank(*ptrs, t, c, f, *_ba_list(ba),
+                                         int(clamp is not None), *cl, *shape,
+                                         _ext.stream_ptr(dev))
+        else:
+            err = lib.idsp_df1_wide_bank_coef(
+                *ptrs, planes.data_ptr(), t, c, f, int(clamp is not None),
+                *cl, *shape, _ext.stream_ptr(dev))
+    _ext.check(err, name)
+    return Df1WideState(x=nx, y=ny), ys
+
+
+def df1_wide_bank(ba, state: Df1WideState, xs, f: int = 29, *, clamp=None,
+                  _plan: PipePlan | None = None):
     """Wide-state DF1 (int64 feedback words) over a bank of lanes
     (biquad.rs:456-472; with ``clamp = (u, lo, hi)`` the clamped form,
     :474-480).
@@ -307,27 +379,14 @@ def df1_wide_bank(ba, state: Df1WideState, xs, f: int = 29, *, clamp=None):
         output and replaces the high word of the fed-back word.
 
     Returns (state, ys int32), bit-identical to scanning `df1_wide_step`
-    (`df1_wide_clamp_step`).  ``launches`` counts both forms.
+    (`df1_wide_clamp_step`).  ``launches`` counts both forms.  The
+    kernel's plan is `wide_plan`'s; no plan changes a value.
     """
     if xs.device.type == "cpu":
         return df1_wide_bank_plain(ba, state, xs, f, clamp=clamp)
-    check_wide_f(f)
-    cl = (0, 0, 0) if clamp is None else clamp_params(*clamp)
-    t, c = xs.shape
-    dev = xs.device
-    _ext.require("xs", xs, dev, torch.int32, (t, c))
-    _ext.require("state.x", state.x, dev, torch.int32, (c, 2))
-    _ext.require("state.y", state.y, dev, torch.int64, (c, 2))
-    ys = torch.empty_like(xs)
-    nx, ny = torch.empty_like(state.x), torch.empty_like(state.y)
-    with torch.cuda.device(dev):
-        err = _ext.library().idsp_df1_wide_bank(
-            xs.data_ptr(), ys.data_ptr(), state.x.data_ptr(),
-            state.y.data_ptr(), nx.data_ptr(), ny.data_ptr(), t, c, f,
-            *_ba_list(ba), int(clamp is not None), *cl, _ext.stream_ptr(dev))
-    _ext.check(err, "df1_wide_bank")
+    out = _launch_wide("df1_wide_bank", ba, state, xs, f, clamp, plan=_plan)
     df1_wide_bank.launches += 1
-    return Df1WideState(x=nx, y=ny), ys
+    return out
 
 
 df1_wide_bank.launches = 0  # kernel launches since the last reset
@@ -682,33 +741,21 @@ def df1_wide_bank_coef_plain(ba_planes, state: Df1WideState, xs,
 
 
 def df1_wide_bank_coef(ba_planes, state: Df1WideState, xs, f: int = 29, *,
-                       clamp=None):
+                       clamp=None, _plan: PipePlan | None = None):
     """`df1_wide_bank` with runtime coefficients: a shared (5,) set or
     (5, c) planes, one set per lane.  Returns (state, ys int32),
     bit-identical to `df1_wide_process` with the lanes' coefficients (to
-    `df1_wide_bank` for a shared set).  ``launches`` counts both forms."""
+    `df1_wide_bank` for a shared set).  ``launches`` counts both forms.
+    The kernel's plan is `wide_plan`'s, as K25's."""
     _check_planes(ba_planes, xs.shape[1])
     if xs.device.type == "cpu":
         return df1_wide_bank_coef_plain(ba_planes, state, xs, f, clamp=clamp)
     check_wide_f(f)
-    cl = (0, 0, 0) if clamp is None else clamp_params(*clamp)
-    t, c = xs.shape
-    dev = xs.device
-    _ext.require("xs", xs, dev, torch.int32, (t, c))
-    _ext.require("state.x", state.x, dev, torch.int32, (c, 2))
-    _ext.require("state.y", state.y, dev, torch.int64, (c, 2))
-    planes = coef_planes(ba_planes, c, dev)
-    ys = torch.empty_like(xs)
-    nx, ny = torch.empty_like(state.x), torch.empty_like(state.y)
-    with torch.cuda.device(dev):
-        err = _ext.library().idsp_df1_wide_bank_coef(
-            xs.data_ptr(), ys.data_ptr(), state.x.data_ptr(),
-            state.y.data_ptr(), nx.data_ptr(), ny.data_ptr(),
-            planes.data_ptr(), t, c, f, int(clamp is not None), *cl,
-            _ext.stream_ptr(dev))
-    _ext.check(err, "df1_wide_bank_coef")
+    planes = coef_planes(ba_planes, xs.shape[1], xs.device)
+    out = _launch_wide("df1_wide_bank_coef", None, state, xs, f, clamp,
+                       planes, _plan)
     df1_wide_bank_coef.launches += 1
-    return Df1WideState(x=nx, y=ny), ys
+    return out
 
 
 df1_wide_bank_coef.launches = 0  # kernel launches since the last reset

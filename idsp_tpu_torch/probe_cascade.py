@@ -1,9 +1,10 @@
 """Where K2, K3, K19-K21 (`csrc/ddc_cascade.cu`), K12/K13, K14 and K15
 (`csrc/ddc_bank.cu`, `csrc/ddc_mix_df1.cu`, `csrc/fm_disc.cu`, all on
 `csrc/df1_ring.cuh`'s DF1 warp), K16, K29, K31 and K37, K34, K1, K11,
-K18, K26 (`csrc/ddc_lockin.cu`, `csrc/biquad_precision.cu`,
-`csrc/structures_bank.cu`, `csrc/df1_bank.cu`, on its depth-0 pipeline
-with serial warps of their own) spend their time on the card.
+K18, K26, K25/K32 (`csrc/ddc_lockin.cu`, `csrc/biquad_precision.cu`,
+`csrc/structures_bank.cu`, `csrc/df1_bank.cu`, `csrc/biquad_bank.cu`,
+on its depth-0 pipeline with serial warps of their own) and K24 (on a
+chain of such blocks over a cluster) spend their time on the card.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -62,7 +63,20 @@ deemphasis lowpass at 0.02):
   (2048 lanes) on xs in +-2^27, K26 with per-lane Q29 lowpass planes on
   full-range x at 1024 lanes: K1's plan sweep (`biquad_cuda.df1_plan`:
   producers, chunk, ring) and the stamps of all four (the serial warp,
-  producer 0, df1_bank.cu's own store warp, `keep_store`).
+  producer 0, df1_bank.cu's own store warp, `keep_store`);
+* K24 (4 stages of the Q29 lowpass at 0.1, x in +-2^24) at 1024 lanes:
+  the plan sweep (`pipe_plan.sos_plan`: g = 1-4 stages a CTA, two
+  one-stage ranks a CTA, producers, chunk, ring) and the stamps of every
+  chain rank of tile 0 at g = 1, 2 and 4 and at two ranks a CTA (the
+  serial warp, producer 0 -- rank 0's from xs, a later rank's from its x
+  ring --, the store warp -- into the next rank's x ring, or the last
+  rank's to device memory); K25 (that lowpass on full-range x,
+  unclamped and clamped at (0, +-2^30)) and K32 (the per-lane planes):
+  K25's plan sweep (`biquad_cuda.wide_plan`) and the stamps of all
+  three;
+* the SASS of the built library (`cuobjdump -sass`): the largest loops of
+  K24's, K25/K32's and K1's kernels with their instruction counts (the
+  serial warp's 8-row group among them).
 
 A time is the median of 3 trials of 20 chained launches (CUDA events,
 `profiling.measure_rate`); a stamp is SM clock cycles, the median over
@@ -77,6 +91,7 @@ import json
 import re
 import subprocess
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -85,6 +100,7 @@ from . import _ext, design
 from .filters import biquad, biquad_cuda, ddc_bank_cuda, ddc_cuda, fm_cuda
 from .filters import ddc_lockin_cuda, hbf, pll, rpll, rpll_cuda, svf
 from .filters import svf_cuda
+from .filters.pipe_plan import sos_plan
 from .ops.fastlo import factor_pairs, fastlo_tables
 from .pipelines import fm_disc
 from .profiling import measure_rate
@@ -99,6 +115,14 @@ def _patch(src: str, old: str, new: str) -> str:
     if src.count(old) != 1:
         raise RuntimeError(f"not found once: {old[:60]!r}")
     return src.replace(old, new)
+
+
+def _patch_fn(src: str, head: str, old: str, new: str) -> str:
+    """`_patch` inside the function whose text starts at ``head`` (up to
+    the first line that closes a function after it)."""
+    i = src.index(head)
+    j = src.index("\n}\n", i)
+    return src[:i] + _patch(src[i:j], old, new) + src[j:]
 
 
 def _no_fir(src):
@@ -120,24 +144,30 @@ def _pipe_stamps(ring, kernel):
     g = "idsp::ring::g_stamps"
     at = f"blockIdx.x == 0 && lid == 0 && q < {STAMPS}"
     ring = _df1_stamps(ring)
-    ring = _patch(ring, "    sm90::mbar_wait(R.full_out(u.k), u.ph);\n",
-                  "    sm90::mbar_wait(R.full_out(u.k), u.ph);\n"
-                  "    const int q = r0 / chunk;\n"
-                  f"    if ({at}) g_stamps[4][q] = clock64();\n")
-    ring = _patch(ring, "    sm90::mbar_arrive(R.empty_out(u.k));\n",
-                  f"    if ({at}) g_stamps[5][q] = clock64();\n"
-                  "    sm90::mbar_arrive(R.empty_out(u.k));\n")
+    store = "void store_warp("
+    ring = _patch_fn(ring, store,
+                     "    sm90::mbar_wait(R.full_out(u.k), u.ph);\n",
+                     "    sm90::mbar_wait(R.full_out(u.k), u.ph);\n"
+                     "    const int q = r0 / chunk;\n"
+                     f"    if ({at}) g_stamps[4][q] = clock64();\n")
+    ring = _patch_fn(ring, store, "    sm90::mbar_arrive(R.empty_out(u.k));\n",
+                     f"    if ({at}) g_stamps[5][q] = clock64();\n"
+                     "    sm90::mbar_arrive(R.empty_out(u.k));\n")
     loop = re.findall(r"for \(int r0 = 0;[^\n]*u\.next\(p\.d\.depth\)\) \{\n",
                       kernel)
     if "span_batches" in kernel or not loop:  # df1_ring.cuh's producer walk
         at = (f"blockIdx.x == 0 && threadIdx.x % 32 == 0 && pw == 0 && "
               f"r0 / chunk < {STAMPS}")
-        ring = _patch(ring, "    sm90::mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n",
-                      "    sm90::mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n"
-                      f"    if ({at}) g_stamps[2][r0 / chunk] = clock64();\n")
-        ring = _patch(ring, "    sm90::mbar_arrive(R.full_in(u.k));\n",
-                      f"    if ({at}) g_stamps[3][r0 / chunk] = clock64();\n"
-                      "    sm90::mbar_arrive(R.full_in(u.k));\n")
+        walk = "void span_batches("
+        ring = _patch_fn(ring, walk,
+                         "    sm90::mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n",
+                         "    sm90::mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n"
+                         f"    if ({at}) g_stamps[2][r0 / chunk] = "
+                         "clock64();\n")
+        ring = _patch_fn(ring, walk, "    sm90::mbar_arrive(R.full_in(u.k));\n",
+                         f"    if ({at}) g_stamps[3][r0 / chunk] = "
+                         "clock64();\n"
+                         "    sm90::mbar_arrive(R.full_in(u.k));\n")
         return ring, kernel + STAMPS_READER
     if len(loop) != 1:
         raise RuntimeError("the producer's chunk loop not found once")
@@ -232,6 +262,105 @@ def _stamps(src, ring):
             "df1_ring.cuh": _df1_stamps(ring)}
 
 
+CHAIN_READER = (
+    "\nextern \"C\" int probe_chain_stamps(void* dst) {\n"
+    "  return static_cast<int>(cudaMemcpyFromSymbol(\n"
+    "      dst, idsp::ring::g_chain, sizeof(idsp::ring::g_chain)));\n}\n")
+
+
+def _chain_stamps(ring, bank):
+    """K24's stamps of tile 0, a series set for each chain rank (the CTAs of
+    cluster 0, one or two ranks each), g_chain[rank][6][STAMPS]
+    (df1_ring.cuh, biquad_bank.cu): 0/1 the serial warp's compute
+    start/end a chunk (`serial_chunks`), 2/3 producer 0's chunk start
+    (after its waits: rank 0's `span_batches`, a later rank's `x_feed`)
+    and end, 4/5 the store warp's (the last rank's `store_warp`, the
+    others' `peer_store`).  `run_chain` notes each warp's rank in shared
+    memory (g_chain_rank) for the stamps to read."""
+    g = "g_chain[g_chain_rank[threadIdx.x / 32]]"
+    lane0 = f"probe_tile0() && threadIdx.x % 32 == 0 && q < {STAMPS}"
+    ring = _patch(ring, "constexpr int kMaxWarps = 16;\n",
+                  "constexpr int kMaxWarps = 16;\n"
+                  f"static __device__ long long g_chain[8][6][{STAMPS}];\n"
+                  "static __shared__ int g_chain_rank[32];\n"
+                  "static __device__ __forceinline__ bool probe_tile0() {\n"
+                  "  uint32_t n;\n"
+                  "  asm(\"mov.u32 %0, %%cluster_nctarank;\" : \"=r\"(n));\n"
+                  "  return blockIdx.x < n;\n}\n")
+    ring = _patch_fn(ring, "void run_chain(", "  if (rank >= ranks) return;\n",
+                     "  if (rank >= ranks) return;\n"
+                     "  g_chain_rank[warp] = rank;\n")
+    serial = "void serial_chunks("
+    ring = _patch_fn(ring, serial,
+                     "    sm90::mbar_wait(R.empty_out(u.k), u.ph ^ 1);\n",
+                     "    sm90::mbar_wait(R.empty_out(u.k), u.ph ^ 1);\n"
+                     "    const int q = r0 / chunk;\n"
+                     f"    if ({lane0}) {g}[0][q] = clock64();\n")
+    ring = _patch_fn(ring, serial, "    sm90::mbar_arrive(R.full_out(u.k));\n",
+                     f"    if ({lane0}) {g}[1][q] = clock64();\n"
+                     "    sm90::mbar_arrive(R.full_out(u.k));\n")
+    for fn, wait in (("void span_batches(",
+                      "    sm90::mbar_wait(R.empty_in(u.k), u.ph ^ 1);\n"),
+                     ("void x_feed(",
+                      "    sm90::mbar_wait_cluster(X.full(u.k), u.ph);\n")):
+        at = f"pw == 0 && {lane0}"
+        ring = _patch_fn(ring, fn, wait, wait +
+                         "    const int q = r0 / chunk;\n"
+                         f"    if ({at}) {g}[2][q] = clock64();\n")
+        ring = _patch_fn(ring, fn, "    sm90::mbar_arrive(R.full_in(u.k));\n",
+                         f"    if ({at}) {g}[3][q] = clock64();\n"
+                         "    sm90::mbar_arrive(R.full_in(u.k));\n")
+    for fn, wait in (("void store_warp(",
+                      "    sm90::mbar_wait(R.full_out(u.k), u.ph);\n"),
+                     ("void peer_store(",
+                      "    sm90::mbar_wait_cluster(pos.x.empty(u.k), u.ph ^ 1);"
+                      "\n")):
+        ring = _patch_fn(ring, fn, wait, wait +
+                         f"    const int q = r0 / chunk;\n"
+                         f"    if ({lane0}) {g}[4][q] = clock64();\n")
+        ring = _patch_fn(ring, fn,
+                         "    sm90::mbar_arrive(R.empty_out(u.k));\n",
+                         f"    if ({lane0}) {g}[5][q] = clock64();\n"
+                         "    sm90::mbar_arrive(R.empty_out(u.k));\n")
+    return {"df1_ring.cuh": ring, "biquad_bank.cu": bank + CHAIN_READER}
+
+
+def sass_loops(lib_path: str, kernel: str) -> list:
+    """The serial warps' group loops of each function whose name holds
+    ``kernel`` in the library's SASS (`cuobjdump -sass`): the loops (a
+    branch back to an earlier address, and the instructions from there to
+    it) with one shared-memory store (STS) for each of the kGroup = 8 rows
+    of a group and at least as many loads (LDS); per loop its function,
+    instruction count and the count of 64-bit multiply-adds (IMAD.WIDE),
+    LDS and STS, smallest first."""
+    tool = str(Path(_ext._nvcc()).parent / "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    out = []
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        ins = []  # (address, instruction)
+        for line in part.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(2)))
+        loops = []
+        for i, (addr, op) in enumerate(ins):
+            m = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) <= addr:
+                body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr]
+                loops.append({
+                    "function": name[:90], "instructions": len(body),
+                    "imad_wide": sum("IMAD.WIDE" in b for b in body),
+                    "lds": sum(" LDS" in f" {b}" for b in body),
+                    "sts": sum(" STS" in f" {b}" for b in body)})
+        out += sorted((r for r in loops if r["sts"] == 8 and r["lds"] >= 8),
+                      key=lambda r: r["instructions"])
+    return out
+
+
 def _read(name):
     return (_ext.CSRC / name).read_text()
 
@@ -254,7 +383,8 @@ def variants() -> dict:
 DF1_PIPE_SOURCES = ("ddc_mix_df1.cu", "fm_disc.cu")  # K14, K15
 PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K29, K31/K33
                                    "structures_bank.cu",  # K34, K37
-                                   "ddc_lockin.cu")  # K16
+                                   "ddc_lockin.cu",  # K16
+                                   "biquad_bank.cu")  # K25/K32
 
 
 def pipe_variants() -> dict:
@@ -268,6 +398,7 @@ def pipe_variants() -> dict:
         out[f"stamps_{f[:-3]}"] = {"df1_ring.cuh": r, f: k}
     for f in ("ddc_bank.cu", "df1_bank.cu"):  # K12/K13; K1, K11, K18, K26
         out[f"stamps_{f[:-3]}"] = _back_stamps(ring, f)  # and K27
+    out["chain_stamps"] = _chain_stamps(ring, _read("biquad_bank.cu"))  # K24
     return out
 
 
@@ -303,8 +434,9 @@ def build(sources: dict) -> dict:
                 entry = getattr(lib, fn)
                 entry.argtypes, entry.restype = argtypes, ctypes.c_int
                 setattr(libs[name], fn, entry)
-        if hasattr(lib, "probe_stamps"):
-            libs[name].probe_stamps = lib.probe_stamps
+        for probe in ("probe_stamps", "probe_chain_stamps"):
+            if hasattr(lib, probe):
+                setattr(libs[name], probe, getattr(lib, probe))
     return libs
 
 
@@ -562,6 +694,23 @@ def _pipe(dev, card, libs, package, result) -> None:
             planes, biquad.df1_init((1024,), device=dev), x32, 29,
             _plan=plan)
 
+    ba_sos = np.stack([ba29] * 4)
+
+    def k24(plan=None):
+        return biquad_cuda.sos_bank_q(
+            ba_sos, [biquad.df1_init((1024,), device=dev)] * 4, x29, 29,
+            _plan=plan)
+
+    def k25(plan=None, clamp=None):
+        return biquad_cuda.df1_wide_bank(
+            ba29, biquad.df1_wide_init((1024,), device=dev), x32, 29,
+            clamp=clamp, _plan=plan)
+
+    def k32(plan=None):
+        return biquad_cuda.df1_wide_bank_coef(
+            planes, biquad.df1_wide_init((1024,), device=dev), x32, 29,
+            _plan=plan)
+
     _ext._lib = package
     result.update(pipe_sweep={}, pipe_variants={}, pipe_stamps={})
     cases = [(f"K14 c={c}", lambda p, c=c: k14(c, p),
@@ -609,7 +758,17 @@ def _pipe(dev, card, libs, package, result) -> None:
               ("K1 c=512", k1, lambda **kw: biquad_cuda.df1_plan(1024, **kw),
                [dict(producers=p) for p in (3, 5, 11)]
                + [dict(chunk=128, ring=r) for r in (2, 3)]
-               + [dict(chunk=64, ring=4), dict(chunk=32, ring=8)])]
+               + [dict(chunk=64, ring=4), dict(chunk=32, ring=8)]),
+              ("K24 c=1024", k24, lambda **kw: sos_plan(1024, 4, **kw),
+               [dict(group=g) for g in (1, 2, 3, 4)]
+               + [dict(group=1, halves=2, producers=p) for p in (2, 3)]
+               + [dict(group=1, halves=2, chunk=ch, ring=r)
+                  for ch, r in ((96, 2), (64, 2), (32, 6))]
+               + [dict(group=2, producers=p) for p in (3, 5)]),
+              ("K25 c=1024", k25, lambda **kw: biquad_cuda.wide_plan(1024,
+                                                                     **kw),
+               [dict(producers=p) for p in (3, 5, 11)]
+               + [dict(chunk=128, ring=r) for r in (2, 3)])]
     for name, run, plan_of, forced in cases:
         want = run(None)
         for kw in forced:
@@ -620,7 +779,9 @@ def _pipe(dev, card, libs, package, result) -> None:
             if not _same(run(plan), want):
                 raise AssertionError(f"{name} {kw}: another value")
             key = (f"{name} w{plan.warps} p{plan.producers} "
-                   f"cl{plan.cluster} ch{plan.chunk} r{plan.ring}")
+                   f"cl{plan.cluster} ch{plan.chunk} r{plan.ring}"
+                   + (f" g{plan.group} h{plan.halves}"
+                      if hasattr(plan, "group") else ""))
             result["pipe_sweep"][key] = _ms(lambda: run(plan))
             print(f"{key}: {result['pipe_sweep'][key]} ms  [{card}]",
                   flush=True)
@@ -637,7 +798,10 @@ def _pipe(dev, card, libs, package, result) -> None:
                                                     1 << 23))),
          "K13 c=1024": _ms(k13), "K16 c=512": _ms(k16),
          "K1 c=512": _ms(k1), "K11 c=1024": _ms(k11),
-         "K18 c=512": _ms(k18), "K26 c=1024": _ms(k26)})
+         "K18 c=512": _ms(k18), "K26 c=1024": _ms(k26),
+         "K24 c=1024": _ms(k24), "K25 c=1024": _ms(k25),
+         "K25 clamp c=1024": _ms(lambda: k25(clamp=(0, -(2**30), 2**30))),
+         "K32 c=1024": _ms(k32)})
     _ext._lib = libs["pipe_df1_copy"]
     result["pipe_variants"]["df1_copy"] = {k: _ms(fn)
                                            for k, fn in timed.items()}
@@ -656,6 +820,8 @@ def _pipe(dev, card, libs, package, result) -> None:
               "K16 c=512": ddc_lockin_cuda.lockin_plan(512).chunk}
     chunks.update({k: biquad_cuda.df1_plan(1024).chunk for k in (
         "K1 c=512", "K11 c=1024", "K18 c=512", "K26 c=1024")})
+    chunks.update({k: biquad_cuda.wide_plan(1024).chunk for k in (
+        "K25 c=1024", "K25 clamp c=1024", "K32 c=1024")})
     for key, lib, fn in (
             ("K14 c=512", "stamps_ddc_mix_df1", timed["K14 c=512"]),
             ("K15 exact", "stamps_fm_disc", timed["K15 exact"]),
@@ -669,13 +835,52 @@ def _pipe(dev, card, libs, package, result) -> None:
             ("K1 c=512", "stamps_df1_bank", k1),
             ("K11 c=1024", "stamps_df1_bank", k11),
             ("K18 c=512", "stamps_df1_bank", k18),
-            ("K26 c=1024", "stamps_df1_bank", k26)):
+            ("K26 c=1024", "stamps_df1_bank", k26),
+            ("K25 c=1024", "stamps_biquad_bank", k25),
+            ("K25 clamp c=1024", "stamps_biquad_bank",
+             lambda: k25(clamp=(0, -(2**30), 2**30))),
+            ("K32 c=1024", "stamps_biquad_bank", k32)):
         chunk = chunks[key]
         row = _stamp_rows(libs[f"pipe_{lib}"], fn, chunk, roles)
         row["pace"] = max(roles, key=lambda r: row[r])
         result["pipe_stamps"][key] = row
         print(f"stamps {key} (cycles a chunk): {row}  [{card}]", flush=True)
+    _chain(libs["pipe_chain_stamps"], k24, card, result)
     _ext._lib = package
+    so = next(_ext.BUILD_ROOT.glob("*/libidsp_tpu_torch.so"))
+    result["sass_loops"] = {k: sass_loops(str(so), sym) for k, sym in (
+        ("K24", "sos_chain_kernelILb0"), ("K25/K32", "df1_wide_pipe_kernel"),
+        ("K1", "df1_pipe_kernelILb0ELb0ELb0ELb0"))}
+    for k, loops in result["sass_loops"].items():
+        print(f"sass {k}: {loops}", flush=True)
+
+
+def _chain(lib, k24, card, result) -> None:
+    """K24's per-rank stamps (`_chain_stamps`) at 1024 lanes and 4
+    stages, at g = 1, 2 and 4 stages a CTA and two one-stage ranks a CTA:
+    a row per rank of tile 0."""
+    _ext._lib = lib
+    result["chain_stamps"] = {}
+    roles = {"serial": (0, 1), "producer": (2, 3), "store": (4, 5)}
+    for g, h in ((1, 1), (1, 2), (2, 1), (4, 1)):
+        plan = sos_plan(1024, 4, group=g, halves=h)
+        k24(plan)
+        torch.cuda.synchronize()
+        buf = np.zeros((8, 6, STAMPS), np.int64)
+        if lib.probe_chain_stamps(ctypes.c_void_p(buf.ctypes.data)) != 0:
+            raise RuntimeError("probe_chain_stamps failed")
+        n = min(-(-T // plan.chunk), STAMPS)
+        for rank in range(-(-4 // g)):
+            b = buf[rank, :, :n].astype(np.float64)
+            row = {"chunks": n, "period": float(np.median(np.diff(b[0])))}
+            for name, (s0, s1) in roles.items():
+                row[name] = float(np.median(b[s1] - b[s0]))
+                row[f"{name}_wait"] = float(np.median(b[s0, 1:] - b[s1, :-1]))
+            row["pace"] = max(roles, key=lambda r: row[r])
+            key = f"K24 g={g} halves={h} rank {rank}"
+            result["chain_stamps"][key] = row
+            print(f"stamps {key} (cycles a {plan.chunk}-row chunk): {row}  "
+                  f"[{card}]", flush=True)
 
 
 def main() -> None:

@@ -1885,6 +1885,128 @@ def test_control_path_launch_after_refused_launch(cuda):
            df1_clamp_bank_q_coef_plain(BA_Q, st, xs, 29, lo=-5, hi=5))
 
 
+SOS_EDGES = [
+    # (c, t, stages, stages a CTA, plan keywords): K24's clusters of 1-8
+    # CTAs at t not a multiple of the 128-row chunk, under a chunk and one
+    # row; 8 and 6 stages over chunks of 1-4 rows
+    (1, 3 * 128 + 17, 8, 1, {}), (1, 3 * 128 + 17, 3, 2, {}),
+    (50, 100, 3, 1, {}), (50, 100, 8, 2, {}), (50, 100, 8, 8, {}),
+    (200, 2 * 128 + 5, 1, 1, {}), (200, 2 * 128 + 5, 4, 1, {}),
+    (200, 2 * 128 + 5, 4, 4, {}), (200, 1, 3, 1, {}), (200, 1, 3, 3, {}),
+    (50, 45, 8, 8, dict(chunk=4, ring=3)), (33, 23, 8, 8, dict(chunk=1,
+                                                                ring=8)),
+    (40, 37, 6, 3, dict(chunk=2, ring=2, producers=2)),
+    # two one-stage ranks a CTA (a CTA's second rank unused at N = 3)
+    (200, 2 * 64 + 5, 4, 1, dict(halves=2)), (1, 3 * 64 + 17, 3, 1,
+                                              dict(halves=2)),
+    (50, 100, 8, 1, dict(halves=2)), (50, 45, 2, 1, dict(halves=2,
+                                                         chunk=4)),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f", [1, 29, 32, 33, 63])
+@pytest.mark.parametrize("case", SOS_EDGES)
+def test_sos_bank_q_kernel_at_plan_edges(cuda, case, f):
+    """K24 at forced stage groups (`sos_plan`'s g: clusters of
+    ceil(N / g) CTAs, a short last group where g does not divide N; two
+    one-stage ranks a CTA; forced chunks down to 1 row) over 2
+    carried blocks against the plain version: full-range x and state,
+    coefficients in +-2^(f + 1), both shifts."""
+    from idsp_tpu_torch.filters.pipe_plan import sos_plan
+
+    c, t, n, g, kw = case
+    rng = np.random.default_rng(2200 + f + n)
+    top = min(2**31 - 1, 2 << f)
+    ba = rng.integers(-top, top + 1, size=(n, 5)).astype(np.int32)
+    plan = sos_plan(c, n, group=g, **kw)
+    sts = [biquad.Df1State(x=_i32(rng, (c, 2), device=cuda),
+                           y=_i32(rng, (c, 2), device=cuda))
+           for _ in range(n)]
+    _carried(lambda s, x: sos_bank_q(ba, s, x, f, _plan=plan),
+             lambda s, x: sos_bank_q_plain(ba, s, x, f), sts,
+             lambda: _i32(rng, (t, c), device=cuda), blocks=2)
+
+
+WIDE_KINDS = ("K25", "K25 clamped", "K25 lo > hi", "K32", "K32 shared")
+
+
+def _wide_call(kind, ba, f, plan):
+    clamp = (CLAMP_Q if kind.endswith("clamped") else
+             (5, 1 << 20, -(1 << 20)) if kind.endswith("hi") else None)
+    if kind.startswith("K32"):
+        return (lambda s, x: df1_wide_bank_coef(ba, s, x, f, clamp=clamp,
+                                                _plan=plan),
+                lambda s, x: df1_wide_bank_coef_plain(ba, s, x, f,
+                                                      clamp=clamp))
+    return (lambda s, x: df1_wide_bank(ba, s, x, f, clamp=clamp, _plan=plan),
+            lambda s, x: df1_wide_bank_plain(ba, s, x, f, clamp=clamp))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f", [1, 16, 29, 32])
+@pytest.mark.parametrize("kind", WIDE_KINDS)
+@pytest.mark.parametrize("case", sorted(DEPTH0_EDGES))
+def test_wide_kernels_at_pipe_edges(cuda, case, kind, f):
+    """K25 (unclamped, clamped, lo > hi) and K32 (per-lane and shared
+    planes) at the depth-0 pipeline's edges (`wide_plan`) over 2 carried
+    blocks against their plain versions: full-range x and int64 y,
+    coefficients in +-2^(f + 1)."""
+    from idsp_tpu_torch.filters.biquad_cuda import wide_plan
+
+    c, t, kw = DEPTH0_EDGES[case]
+    plan = wide_plan(c, **kw) if kw else None
+    rng = np.random.default_rng(2500 + f)
+    top = min(2**31 - 1, 2 << f)
+    shape = (5, c) if kind == "K32" else (5,)
+    ba = torch.from_numpy(rng.integers(-top, top + 1, size=shape).astype(
+        np.int32)).to(cuda)
+    kern, plain = _wide_call(kind, ba, f, plan)
+    st = biquad.Df1WideState(
+        x=_i32(rng, (c, 2), device=cuda),
+        y=torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, size=(c, 2),
+                                        dtype=np.int64)).to(cuda))
+    _carried(kern, plain, st, lambda: _i32(rng, (t, c), device=cuda),
+             blocks=2)
+
+
+@pytest.mark.requires_cuda
+def test_sos_and_wide_entries_refuse_a_plan_not_their_own(cuda):
+    """K24 refuses a plan whose shared memory is not its own sum (the x
+    ring left out of a cluster's) or more warps than a chain block takes
+    (its wrapper, ValueError, before the entry); K25's and K32's entries a
+    plan of another kernel's words a row or shared memory (RuntimeError,
+    nothing launched); the next launches run as usual."""
+    from idsp_tpu_torch.filters.biquad_cuda import wide_plan
+    from idsp_tpu_torch.filters.pipe_plan import sos_plan
+    from idsp_tpu_torch.filters.svf_cuda import svf_plan
+
+    c, t = 64, 300
+    st = biquad.df1_init((c,), device=cuda)
+    x = torch.ones((t, c), dtype=torch.int32, device=cuda)
+    ba = _stages(3)
+    plan = sos_plan(c, 3, group=1)
+    two = sos_plan(c, 3, group=1, halves=2)
+    for bad in (plan._replace(smem=plan.smem - 16 * plan.ring - 1),
+                plan._replace(warps=16, producers=11),
+                two._replace(producers=8), two._replace(halves=1)):
+        with pytest.raises((RuntimeError, ValueError)):
+            sos_bank_q(ba, [st] * 3, x, 29, _plan=bad)
+    wst = biquad.df1_wide_init((c,), device=cuda)
+    wp = wide_plan(c)
+    for bad in (wp._replace(smem=wp.smem - 32), svf_plan(c)):
+        for kind in ("K25", "K32 shared"):
+            kern, _ = _wide_call(kind, BA_Q, 29, bad)
+            with pytest.raises(RuntimeError):
+                kern(wst, x)
+    sts, ys = sos_bank_q(ba, [st] * 3, x, 29)
+    sts_p, ys_p = sos_bank_q_plain(ba, [st] * 3, x, 29)
+    _equal((tuple(sts), ys), (tuple(sts_p), ys_p))
+    for kind in ("K25", "K32 shared"):
+        kern, plain = _wide_call(kind, BA_Q, 29, None)
+        _equal(kern(wst, x), plain(wst, x))
+
+
 # --- K28-K33: the rest of the precision ladder -------------------------------
 
 

@@ -6,8 +6,10 @@ K14/K15 (that file and tests/test_torch_fm_plan.py), K37
 K12/K13 (tests/test_torch_ddc_bank_plan.py) and K16
 (tests/test_torch_lockin_plan.py), with the producer and serial-warp
 arithmetic of K31/K33 (`dither_model`), K1, K11, K18, K26 and K27
-(`df1w_model`, tests/test_torch_df1_plan.py), K34 (`svf_model`), K12/K13
-(`bank_model`, with its back end) and K16 (`lockin_model`).
+(`df1w_model`, tests/test_torch_df1_plan.py), K25/K32 (`wide_model`,
+tests/test_torch_wide_plan.py), K34 (`svf_model`), K12/K13 (`bank_model`,
+with its back end) and K16 (`lockin_model`); and K24's chain of such
+blocks over a cluster (`sos_model`, tests/test_torch_sos_plan.py).
 
 Each role of a CUDA block is a coroutine that yields a test before each
 mbarrier wait; the roles run in a seeded random order among those whose
@@ -315,6 +317,237 @@ def df1w_model(ba, f, state, xs, plan, *, clamp=None, d=1, out_dtype=None,
     ys = torch.from_numpy(ys.astype(np.float32) if out_dtype == torch.float32
                           else ys)
     return new, ys
+
+
+def _i32_bits(w):
+    """The low 32 bits of uint64 words as int32."""
+    return (w & U32).astype(np.uint32).view(np.int32)
+
+
+def _sext(v):
+    """int32 (or int64) values as the uint64 bits of their int64."""
+    return np.asarray(v).astype(np.int64).view(np.uint64)
+
+
+def wide_split_mul(y, a, add):
+    """add + split_mul(y, a) as the wide serial warp forms it
+    (``csrc/df1_ring.cuh`` `split_mul`), numpy uint64 words: the low
+    product umulhi(y_lo, A) + y_lo * neg (A the unsigned reading of a, neg
+    0 or -1 where a < 0) kept as 32 bits, sign-extended, beside y_hi a
+    (y_hi the signed high word) multiplied onto add; mod 2^64."""
+    a_s = np.asarray(a).view(np.int64)
+    lo = y & U32
+    neg = np.where(a_s < 0, U32, np.uint64(0))
+    low = ((lo * (a & U32)) >> np.uint64(32)) + lo * neg
+    hi = _i32_bits(y >> np.uint64(32)).astype(np.int64)
+    return add + (hi * a_s).view(np.uint64) + _sext(_i32_bits(low))
+
+
+def wide_model(ba, f, state, xs, plan, *, clamp=None, seed=0):
+    """K25 (``ba`` (5,)) or K32 (``ba`` (5, c) planes) as the kernel runs
+    it (``csrc/biquad_bank.cu`` on df1_ring.cuh's `Df1WideSerial`): the
+    producers' W = b0 x0 + b1 x1 + b2 x2 mod 2^64 as two 32-bit words a row
+    and lane (rows -1, -2 of the block from the state), the serial warp's
+    V = W + split_mul(y2, a2) (off its chain), acc = V + split_mul(y1, a1)
+    (`wide_split_mul`), the new high word bits [32 - s, 64 - s) of acc and
+    the new low word acc's low word << s (s = 32 - f, the funnel shifts),
+    y0 the high word; clamped, clip(y0 + u, lo, hi) (int32 + u wrapping)
+    replaces it; numpy uint64 words.  Returns (Df1WideState, ys int32) like
+    `df1_wide_bank_plain`."""
+    from idsp_tpu_torch.filters.biquad import Df1WideState
+
+    t, c = xs.shape
+    (a1, a2), xw, produce = _w_feed(ba, state.x, xs)
+    y1 = _u64(state.y[:, 0].numpy()).copy()
+    y2 = _u64(state.y[:, 1].numpy()).copy()
+    sh = np.uint64(32 - f)
+
+    def serial(words):
+        nonlocal y1, y2
+        out = np.empty((len(words), c, 1), np.int64)
+        for j, w in enumerate(words.astype(np.uint64) & U32):
+            v = wide_split_mul(y2, a2, w[:, 1] << np.uint64(32) | w[:, 0])
+            acc = wide_split_mul(y1, a1, v)
+            hi = ((acc << sh) >> np.uint64(32)) & U32
+            lo = ((acc & U32) << sh) & U32
+            y0 = _i32_bits(hi)
+            if clamp is not None:
+                u, cl_lo, cl_hi = clamp
+                y0 = np.clip((y0.astype(np.int64) + u).astype(np.int32),
+                             cl_lo, cl_hi).astype(np.int32)
+                hi = y0.view(np.uint32).astype(np.uint64)
+            y2, y1 = y1, hi << np.uint64(32) | lo
+            out[j, :, 0] = y0
+        return out
+
+    with np.errstate(over="ignore"):
+        words = pipe_run(t, c, plan, produce, span_rows, serial, seed=seed)
+    new = Df1WideState(
+        x=torch.from_numpy(np.stack([xw[-1], xw[-2]], 1).view(
+            np.int64).astype(np.int32)),
+        y=torch.from_numpy(np.stack([y1, y2], 1).view(np.int64).copy()))
+    return new, torch.from_numpy(words[..., 0].astype(np.int32))
+
+
+def _shift_q(acc, f):
+    """The low word of int64(acc) >> f as the serial warps take it: bits
+    [f, f + 32) of acc for f <= 32, the high word shifted right by f - 32,
+    sign-filled, for f > 32; uint64 words in, int32 out."""
+    if f <= 32:
+        return _i32_bits(acc >> np.uint64(f))
+    return _i32_bits(acc >> np.uint64(32)) >> np.int32(f - 32)
+
+
+def sos_model(ba, f, states, xs, plan, *, seed=0):
+    """K24 as the kernel runs it (``csrc/biquad_bank.cu`` on df1_ring.cuh's
+    `run_chain`): a tile a chain of ceil(N / g) ranks (g =
+    ``plan.group``; ``plan.halves`` a CTA, which changes no value or
+    schedule), rank j running stages [j g, (j + 1) g), every rank a
+    depth-0 block -- ``plan.producers`` producers by spans, the serial
+    warp, the store warp -- over rings of ``plan.ring`` slots of
+    ``plan.chunk`` rows that start as garbage.  Rank 0's producers form
+    stage 0's W = b0 x0 + b1 x1 + b2 x2 mod 2^64 from xs (rows -1, -2 from
+    the state); a later rank's from its x slot: rows r + 2, r + 1, r for
+    the chunk's row r, rows 0 and 1 the two rows before the chunk, which
+    the rank before's store warp writes with the chunk's rows into an x
+    slot that the rank's producers released (one arrival each on the rank
+    before's x empty barrier, for a chunk it has still to fill), then
+    arrives on the x slot's full barrier; the rank's producer 0 keeps block
+    rows t - 1, t - 2 as its first stage's x state.  The serial warp runs
+    its first stage as a1 y1 + (W + a2 y2), each later one as a1 y1 + (b0 x0
+    + (b1 x1 + b2 x2 + a2 y2)), x0 the stage before's y0, each shifted by
+    `_shift_q`; the last rank's store warp writes ys.  The roles of all
+    ranks interleave at random (`run_roles`); numpy uint64 words.  Returns
+    (states, ys int32) like `sos_bank_q_plain`."""
+    from idsp_tpu_torch.filters.biquad import Df1State
+
+    t, c = xs.shape
+    table = np.asarray(ba, np.int64).reshape(-1, 5)
+    n, g = len(table), plan.group
+    G = -(-n // g)  # the chain's ranks, plan.halves a CTA
+    assert plan.cluster == -(-G // plan.halves)
+    K, R, P = plan.chunk, plan.ring, plan.producers
+    span = -(-K // P)
+    coef = [[_u64(np.full(c, v, np.int64)) for v in row] for row in table]
+    st = [[_u64(s.x[:, 0].numpy().astype(np.int64)),
+           _u64(s.x[:, 1].numpy().astype(np.int64)),
+           _u64(s.y[:, 0].numpy().astype(np.int64)),
+           _u64(s.y[:, 1].numpy().astype(np.int64))] for s in states]
+    first_x = [None] * n  # each rank's first stage's x state out
+    gen = np.random.default_rng(seed)
+    chunks = [(cs, min(cs + K, t)) for cs in range(0, t, K)]
+    ring_in = [gen.integers(0, 2**32, (R, K, c, 2)).astype(np.uint64)
+               for _ in range(G)]
+    ring_out = [gen.integers(0, 2**32, (R, K, c)).astype(np.uint64)
+                for _ in range(G)]
+    xring = [gen.integers(0, 2**32, (R, K + 2, c)).astype(np.uint64)
+             for _ in range(G)]
+    full_in = [[Bar(P) for _ in range(R)] for _ in range(G)]
+    empty_in = [[Bar(1) for _ in range(R)] for _ in range(G)]
+    full_out = [[Bar(1) for _ in range(R)] for _ in range(G)]
+    empty_out = [[Bar(1) for _ in range(R)] for _ in range(G)]
+    x_full = [[Bar(1) for _ in range(R)] for _ in range(G)]
+    x_empty = [[Bar(P) for _ in range(R)] for _ in range(G)]  # the next's
+    xw = _u64(np.concatenate([states[0].x[:, 1].numpy()[None],
+                              states[0].x[:, 0].numpy()[None],
+                              xs.numpy()]).astype(np.int64))
+    y = np.full((t, c), -1, np.int64)
+    written = np.zeros(t, np.int64)
+
+    def w_of(b, x0, x1, x2):
+        b0, b1, b2 = coef[b][:3]
+        return (b0 * x0 + b1 * x1 + b2 * x2) & ~np.uint64(0)
+
+    def producer(j, pw):
+        s0 = j * g
+        x1, x2 = st[s0][0].copy(), st[s0][1].copy()
+        for q, (cs, ce) in enumerate(chunks):
+            k, ph = q % R, (q // R) & 1
+            rows = ce - cs
+            yield lambda: empty_in[j][k].passes(ph ^ 1)
+            if j > 0:
+                yield lambda: x_full[j][k].passes(ph)
+            lo = min(pw * span, rows)
+            for r in range(lo, min(lo + span, rows)):
+                if j == 0:
+                    x = (xw[cs + r + 2], xw[cs + r + 1], xw[cs + r])
+                else:
+                    x = tuple(_sext(_i32_bits(xring[j][k, r + 2 - i]))
+                              for i in range(3))
+                w = w_of(s0, *x)
+                ring_in[j][k, r] = np.stack([w & U32, w >> np.uint64(32)], -1)
+            if j > 0 and ce == t:
+                x1, x2 = xring[j][k, rows + 1].copy(), xring[j][k, rows].copy()
+            full_in[j][k].arrive()
+            if j > 0 and q + R < len(chunks):
+                x_empty[j - 1][k].arrive()
+        if pw == 0:
+            first_x[s0] = (xw[-1], xw[-2]) if j == 0 else (x1, x2)
+
+    def serial(j):
+        s0 = j * g
+        ss = range(s0, min(s0 + g, n))
+        for q, (cs, ce) in enumerate(chunks):
+            k, ph = q % R, (q // R) & 1
+            yield lambda: full_in[j][k].passes(ph)
+            yield lambda: empty_out[j][k].passes(ph ^ 1)
+            for r in range(ce - cs):
+                w = ring_in[j][k, r]
+                v = None
+                for s in ss:
+                    x1, x2, y1, y2 = st[s]
+                    b0, b1, b2, a1, a2 = coef[s]
+                    if s == s0:
+                        acc = a1 * y1 + ((w[:, 1] << np.uint64(32) | w[:, 0])
+                                         + a2 * y2)
+                    else:
+                        acc = a1 * y1 + (b0 * v + (b1 * x1 + b2 * x2
+                                                   + a2 * y2))
+                    y0 = _sext(_shift_q(acc, f))
+                    st[s] = [v if s > s0 else x1, x1 if s > s0 else x2,
+                             y0, y1]
+                    v = y0
+                ring_out[j][k, r] = v & U32
+            full_out[j][k].arrive()
+            empty_in[j][k].arrive()
+
+    def store(j):
+        if j + 1 < G:  # into the next rank's x ring
+            s1 = (j + 1) * g
+            x1, x2 = st[s1][0].copy(), st[s1][1].copy()
+        for q, (cs, ce) in enumerate(chunks):
+            k, ph = q % R, (q // R) & 1
+            rows = ce - cs
+            yield lambda: full_out[j][k].passes(ph)
+            if j + 1 < G:
+                yield lambda: x_empty[j][k].passes(ph ^ 1)
+                xring[j + 1][k, 0], xring[j + 1][k, 1] = x2, x1
+                xring[j + 1][k, 2:rows + 2] = ring_out[j][k, :rows]
+                x2 = ring_out[j][k, rows - 2].copy() if rows >= 2 else x1
+                x1 = ring_out[j][k, rows - 1].copy()
+                empty_out[j][k].arrive()
+                x_full[j + 1][k].arrive()
+            else:
+                y[cs:ce] = ring_out[j][k, :rows].astype(np.int64)
+                written[cs:ce] += 1
+                empty_out[j][k].arrive()
+
+    roles = []
+    for j in range(G):
+        roles += [producer(j, pw) for pw in range(P)]
+        roles += [serial(j), store(j)]
+    with np.errstate(over="ignore"):
+        run_roles(roles, seed)
+    assert bool((written == 1).all()), "a row was stored twice or never"
+    out = []
+    for s in range(n):
+        x1, x2 = first_x[s] if first_x[s] is not None else st[s][:2]
+        out.append(Df1State(
+            x=torch.from_numpy(np.stack([x1, x2], 1).view(np.int64).astype(
+                np.int32)),
+            y=torch.from_numpy(np.stack(st[s][2:], 1).view(np.int64).astype(
+                np.int32))))
+    return out, torch.from_numpy(_i32_bits(y.view(np.uint64)).copy())
 
 
 SVF_OUTPUTS = ("lp", "hp", "bp", "br")
