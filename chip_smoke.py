@@ -21,8 +21,9 @@ Phases, each reported on its own line:
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
 2. the kernel build (nvcc, sm_90a, one process per source) and its time;
-3. each kernel against its plain version over 3 carried blocks, t=32768
-   (the plain calls timed, for phase 6 too):
+3. each kernel against its plain version over carried blocks of t=32768
+   (HOLD_BLOCKS = 2, `hold`; BLOCKS = 3 for K7-K10 and K22/K23), the
+   plain calls timed, for phase 6 too:
    K1 `df1_bank_q`, K2 `df1_hbf_cascade_bank`, K3
    `fastlo_ddc_cascade_bank` at c=512 channels (1024 I|Q lanes); K4
    `lowpass_bank` (dec 16), K5 `pll_bank` (t/16 rows) and K6
@@ -398,9 +399,11 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "rpll_bank": "rpll_kernel",
                   "fm_disc_bank": "fm_disc_kernel",
                   "fm_disc_bank_fast": "fm_disc_kernel",
-                  "fastlo_df1_dec_bank": "ddc_bank_df1_kernel",
-                  "fastlo_df1_dec_bank_clamp": "ddc_bank_df1_kernel",
-                  "fastlo_ddc_bank_block": "ddc_bank_df1_kernel",
+                  "fastlo_df1_dec_bank": "ddc_bank_kernel",
+                  "fastlo_df1_dec_bank_clamp": "ddc_bank_kernel",
+                  "fastlo_ddc_bank_block": "ddc_bank_kernel",
+                  "fastlo_ddc_bank_block_lp": "ddc_bank_kernel",
+                  "lowpass_bank": "lowpass_pipe_kernel",
                   "ddc_lockin_bank": "ddc_lockin_kernel",
                   "df1_bank_q": "df1_pipe_kernel",
                   "df1_bank_q_dec": "df1_pipe_kernel",
@@ -435,6 +438,11 @@ C_CTL, SOS_STAGES, WIDE_STAGES = 1024, 4, 2
 WIDE_CLAMP = (0, -(2**30), 2**30)  # also the dither clamp row, suite.py:323
 CONFIG_LIMITS = (-(2**26), 2**26)
 T_PREFIX = 4096
+# Phase 3's holds (`hold`) by default: HOLD_BLOCKS carried full blocks of
+# T rows each (phase 4's main path runs BLOCKS).  The plain versions' host
+# row loops set most of the run's wall time: 3 blocks a hold took the run
+# to 1232 s of its 1200 on a slow host (PERF.md §7).
+HOLD_BLOCKS = 2
 # The biquad precision ladder (benches/suite.py:279-388) at the port's
 # bank width; its plain versions' second forms run on T_PREFIX rows.
 C_PREC = 1024
@@ -876,7 +884,7 @@ def check_rate_kernels(dev, rng, errs):
                 lambda s, x: plain(s, x, taps=taps), (st0,),
                 lambda: normal((rows, cc))))
         errs[name] = max(errs[name], err)
-        log(f"phase 3 {tag} {name} == plain over {BLOCKS} blocks from a "
+        log(f"phase 3 {tag} {name} == plain over {HOLD_BLOCKS} blocks from a "
             f"random state at (depth, c, ranges, taps) {HBF_RANGE_CASES}: "
             f"max |d| {err}")
 
@@ -1504,7 +1512,8 @@ def launch_device_ms(name, step, state, iters=20):
     return round(sum(s for _, s in kept) * iters / spans * 1e3, 4)
 
 
-def hold(name, kern, plain, carry, make_x, plain_s=None, blocks=BLOCKS):
+def hold(name, kern, plain, carry, make_x, plain_s=None,
+         blocks=HOLD_BLOCKS):
     """Phase 3: ``kern`` against ``plain`` over ``blocks`` carried blocks,
     tolerance 0.  Both are called as ``fn(*carry, x)``; the first
     len(carry) results are the next carry.  ``make_x`` may make blocks of
@@ -1566,12 +1575,12 @@ def pinned(ys, clamp):
 
 def check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank):
     """Phase 3 for K18-K21 and the clamp forms of K3 and K12, each over
-    BLOCKS carried blocks against its plain version, tolerance 0, its plain
-    calls timed: K18, K19 (depth 3), K20, K21 on the chain's exact mix of x
-    uniform in +-2^27 at c = C_MAIN (the same blocks for all four), K3
-    ``clamp=`` at c = C_MAIN, K12 ``clamp=`` at c = C_BANK (d = DEC, time
-    chunk TC), all clamped with CLAMP; then K19 once with the suite's
-    clamp row.  Logs the share of DF1 outputs the clamp pinned (K18's
+    HOLD_BLOCKS carried blocks against its plain version, tolerance 0, its
+    plain calls timed: K18, K19 (depth 3), K20, K21 on the chain's exact
+    mix of x uniform in +-2^27 at c = C_MAIN (the same blocks for all
+    four), K3 ``clamp=`` at c = C_MAIN, K12 ``clamp=`` at c = C_BANK (d =
+    DEC, time chunk TC), all clamped with CLAMP; then K19 once with the
+    suite's clamp row.  Logs the share of DF1 outputs the clamp pinned (K18's
     output on K18/K19's input, on K3's fast mix of its first block; K12's
     kept rows)."""
     import torch
@@ -1633,8 +1642,9 @@ def check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank):
         raise AssertionError("K18/K19: the clamp never engaged")
     log(f"phase 3 K18 df1_clamp_bank_q, K19 df1_clamp_hbf_cascade_bank "
         f"(depth 3), K20 df1_hbf1_bank (time_chunk 512), K21 df1_hbf12_bank "
-        f"(512) == plain over {BLOCKS} blocks of the exact mix (c={c}, t={T},"
-        f" x in +-2^27, clamp {CLAMP}): max |d| {errs['df1_clamp_bank_q']}, "
+        f"(512) == plain over {HOLD_BLOCKS} blocks of the exact mix (c={c}, "
+        f"t={T}, x in +-2^27, clamp {CLAMP}): max |d| "
+        f"{errs['df1_clamp_bank_q']}, "
         f"{errs['df1_clamp_hbf_cascade_bank']}, {errs['df1_hbf1_bank']}, "
         f"{errs['df1_hbf12_bank']}; DF1 outputs pinned by the clamp "
         f"{share:.4%} (first block)")
@@ -1655,7 +1665,7 @@ def check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank):
     if not share > 0:
         raise AssertionError("K3 clamp=: the clamp never engaged")
     log(f"phase 3 K3 fastlo_ddc_cascade_bank clamp={CLAMP} == plain over "
-        f"{BLOCKS} blocks (c={c}, t={T}, time_chunk={TC}): max |d| "
+        f"{HOLD_BLOCKS} blocks (c={c}, t={T}, time_chunk={TC}): max |d| "
         f"{errs[name]}; DF1 outputs pinned {share:.4%} (first block)")
 
     cb = C_BANK
@@ -1678,7 +1688,7 @@ def check_clamp_kernels(dev, i32, errs, plain_s, ba, ba_bank):
     if not max(kept) > 0:
         raise AssertionError("K12 clamp=: the clamp never engaged")
     log(f"phase 3 K12 fastlo_df1_dec_bank clamp={CLAMP} == plain over "
-        f"{BLOCKS} blocks (c={cb}, t={T}, d={DEC}, time_chunk={TC}, the "
+        f"{HOLD_BLOCKS} blocks (c={cb}, t={T}, d={DEC}, time_chunk={TC}, the "
         f"bank's lowpass at 0.004): max |d| {errs[name]}; kept rows pinned "
         f"{max(kept):.4%}")
 
@@ -1829,7 +1839,7 @@ def check_cascade_edges(dev, i32, errs, ba):
 def check_chain_bank_kernels(dev, i32, i64, errs, plain_s, ba, lp_gains,
                              pll_ba):
     """Phase 3 for K1-K3 at c = C_MAIN and K4-K6 at c = C_BANK (d = DEC,
-    time chunk TC), each over BLOCKS carried blocks of T rows against its
+    time chunk TC), each over HOLD_BLOCKS carried blocks (`hold`) against its
     plain version, tolerance 0, its plain calls timed into plain_s."""
     import torch
     from idsp_tpu_torch.filters import biquad, lowpass, pll
@@ -1857,7 +1867,7 @@ def check_chain_bank_kernels(dev, i32, i64, errs, plain_s, ba, lp_gains,
                                        out_dtype=torch.float32),
         (biquad.Df1State(x=i32((c2, 2)), y=i32((c2, 2))),),
         lambda: i32((T, c2)), plain_s)
-    log(f"phase 3 K1 df1_bank_q == plain over {BLOCKS} blocks "
+    log(f"phase 3 K1 df1_bank_q == plain over {HOLD_BLOCKS} blocks "
         f"(c2={c2}, t={T}): max |d| {errs['df1_bank_q']}")
 
     errs["df1_hbf_cascade_bank"] = hold(
@@ -1868,7 +1878,7 @@ def check_chain_bank_kernels(dev, i32, i64, errs, plain_s, ba, lp_gains,
         (biquad.df1_init((c2,), device=dev),
          tuple(hbf1_tail_init(c2, m, device=dev) for m in taps_ms)),
         lambda: i32((T, c2), -(2**27), 2**27), plain_s)
-    log(f"phase 3 K2 df1_hbf_cascade_bank == plain over {BLOCKS} blocks "
+    log(f"phase 3 K2 df1_hbf_cascade_bank == plain over {HOLD_BLOCKS} blocks "
         f"(t={T}): max |d| {errs['df1_hbf_cascade_bank']}")
 
     steps = i32((C_MAIN,), 1 << 24, 1 << 30)
@@ -1882,8 +1892,8 @@ def check_chain_bank_kernels(dev, i32, i64, errs, plain_s, ba, lp_gains,
          tuple(hbf1_tail_init(c2, m, device=dev) for m in taps_ms),
          i32((C_MAIN,))),
         lambda: i32((T,), -(2**27), 2**27), plain_s)
-    log(f"phase 3 K3 fastlo_ddc_cascade_bank == plain over {BLOCKS} blocks "
-        f"(t={T}): max |d| {errs['fastlo_ddc_cascade_bank']}")
+    log(f"phase 3 K3 fastlo_ddc_cascade_bank == plain over {HOLD_BLOCKS} "
+        f"blocks (t={T}): max |d| {errs['fastlo_ddc_cascade_bank']}")
 
     # K4-K6 at the bank's width: c = 1024 channels, 2048 I|Q lanes
     cb2 = 2 * C_BANK
@@ -1894,7 +1904,7 @@ def check_chain_bank_kernels(dev, i32, i64, errs, plain_s, ba, lp_gains,
         (lowpass.LowpassState(p=i64((cb2, 2), -(2**50), 2**50)),),
         # full range: the saturating subtraction too
         lambda: i32((T, cb2)), plain_s)
-    log(f"phase 3 K4 lowpass_bank == plain over {BLOCKS} blocks "
+    log(f"phase 3 K4 lowpass_bank == plain over {HOLD_BLOCKS} blocks "
         f"(lanes={cb2}, t={T}, dec={DEC}): max |d| "
         f"{errs['lowpass_bank']}")
 
@@ -1909,7 +1919,7 @@ def check_chain_bank_kernels(dev, i32, i64, errs, plain_s, ba, lp_gains,
             z0=i32((C_BANK,)), y0=i32((C_BANK,)), f0=i64((C_BANK,)),
             f=i64((C_BANK,)), y=i32((C_BANK,))),),
         lambda: i32((T // DEC, C_BANK)), plain_s)
-    log(f"phase 3 K5 pll_bank == plain over {BLOCKS} blocks "
+    log(f"phase 3 K5 pll_bank == plain over {HOLD_BLOCKS} blocks "
         f"(c={C_BANK}, rows={T // DEC}): max |d| "
         f"{errs['pll_bank']}")
 
@@ -1923,7 +1933,7 @@ def check_chain_bank_kernels(dev, i32, i64, errs, plain_s, ba, lp_gains,
         (lowpass.init(2, (cb2,), device=dev),
          pll.init((C_BANK,), device=dev), i32((C_BANK,))),
         lambda: i32((T,), -(2**27), 2**27), plain_s)
-    log(f"phase 3 K6 fastlo_ddc_bank_block_lp == plain over {BLOCKS} "
+    log(f"phase 3 K6 fastlo_ddc_bank_block_lp == plain over {HOLD_BLOCKS} "
         f"blocks (c={C_BANK}, t={T}, d={DEC}, "
         f"time_chunk={TC}): max |d| {errs['fastlo_ddc_bank_block_lp']}")
 
@@ -2656,10 +2666,117 @@ def check_bank_lockin_edges(dev, i32, errs):
         f"{errs['fastlo_ddc_bank_block']}, {errs['ddc_lockin_bank']}")
 
 
+def check_lowpass_edges(dev, i32, errs):
+    """Phase 3 for K4 and K6 at the edges of the depth-0 pipeline, at small
+    t and c, each over 2 carried blocks against its plain version,
+    tolerance 0 (into errs under the kernel's own name).  K4 (N = 1 and
+    2): dec 1, 3 and 16 with chunks that are not multiples of dec, t = 1, t
+    under a chunk, t not a multiple of the chunk, 3 and 11 producers; the
+    #5 bank's gains, gains of 2^30 and opposite signs, and gains at int32's
+    ends (e k0 = 2^62), states within 2^40 of int64's ends and x a third
+    at int32's ends, so the subtract saturates both ways and the regrouped
+    sums wrap.  K6 (N = 1 and 2; the
+    three gains sets; states at int64's edges, so the subtract saturates on
+    the mixed stream): d = 1 and 16, chunks under d, c not a
+    multiple of the 16-channel tile, one channel, time chunks of 32, 128
+    and 512 against pipeline chunks of 64-256, 3-11 producers.  Logs K4's
+    and K6's default plans at the bank's width."""
+    import torch
+    from idsp_tpu_torch.filters import lowpass, pll
+    from idsp_tpu_torch.filters.ddc_bank_cuda import (
+        bank_plan, fastlo_ddc_bank_block_lp, fastlo_ddc_bank_block_lp_plain,
+    )
+    from idsp_tpu_torch.filters.lowpass_cuda import (
+        lowpass_bank, lowpass_bank_plain, lowpass_plan,
+    )
+
+    rng = np.random.default_rng(23)
+    gains = {  # the #5 bank's; 2^30 and opposite signs; int32's ends
+        "bank": {1: lowpass.gains1(0.01), 2: lowpass.gains2(0.004)},
+        "mixed": {1: np.array([-(2**30)], np.int32),
+                  2: np.array([2**30 - 1, -(2**30)], np.int32)},
+        "edge": {1: np.array([-(2**31)], np.int32),
+                 2: np.array([-(2**31), 2**31 - 1], np.int32)}}
+    pll_ba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+
+    def edge_state(rows, n):
+        base = rng.choice(np.array([-(2**63), 0, 2**63 - 1], np.int64),
+                          (rows, n))
+        off = rng.integers(0, 2**40, (rows, n), dtype=np.int64)
+        return lowpass.LowpassState(p=torch.from_numpy(
+            np.where(base < 0, base + off, base - off)).to(dev))
+
+    def edge_x(t, c):
+        x = i32((t, c))
+        x[::3] = 2**31 - 1
+        x[1::5] = -(2**31)
+        return x
+
+    lp = {  # (N, gains, lanes, t, dec, plan keywords)
+        "dec 3, chunk 40, t % chunk": (2, "edge", 64, 999, 3, dict(
+            chunk=40)),
+        "dec 16, chunk 24, 11 producers": (1, "mixed", 40, 7 * 64 + 48,
+                                           16, dict(chunk=24, producers=11,
+                                                    warps=16)),
+        "dec 16, 3 producers": (2, "bank", 96, 512, 16, dict(producers=3)),
+        "t = 1": (1, "bank", 33, 1, 1, {}),
+        "t under a chunk": (2, "mixed", 50, 100, 1, {}),
+        "dec 3, 2 slots": (1, "bank", 20, 300, 3, dict(chunk=64, ring=2)),
+        "dec 16, chunk 40": (2, "bank", 64, 640, 16, dict(chunk=40)),
+    }
+    for label, (n, g, c, t, dec, kw) in lp.items():
+        plan = lowpass_plan(c, **kw)
+        k = gains[g][n]
+        errs["lowpass_bank"] = max(errs["lowpass_bank"], hold(
+            f"lowpass_bank ({label}, N={n})",
+            lambda s, xs, k=k, dec=dec, p=plan: lowpass_bank(
+                k, s, xs, dec=dec, _plan=p),
+            lambda s, xs, k=k, dec=dec: lowpass_bank_plain(k, s, xs,
+                                                           dec=dec),
+            (edge_state(c, n),), lambda t=t, c=c: edge_x(t, c), blocks=2))
+    k6 = {  # (N, gains, c, t, d, time chunk, plan keywords)
+        "d = 1": (2, "bank", 20, 40, 1, 8, dict(chunk=16, ring=2)),
+        "17 channels, chunk 96": (1, "edge", 17, 256, 4, 128, dict(
+            chunk=96)),
+        "chunks under d": (2, "mixed", 3, 96, 16, 48, dict(chunk=8,
+                                                            ring=4)),
+        "one channel": (1, "bank", 1, 64, 4, 16, dict(chunk=12,
+                                                      producers=1)),
+        "time chunk 512, 11 producers": (2, "bank", 9, 1024, 8, 512, dict(
+            chunk=256, producers=11, warps=16)),
+        "time chunk 32, chunk 64, 3 producers": (2, "edge", 40, 768, 16, 32,
+                                                 dict(chunk=64, producers=3)),
+        "d = 16, time chunk 128": (1, "bank", 48, 1024, 16, 128, dict(
+            chunk=128, producers=5)),
+    }
+    for label, (n, g, c, t, d, tc, kw) in k6.items():
+        plan = bank_plan(c, **kw)
+        k = gains[g][n]
+        steps = i32((c,))
+        pst = pll.block(pll_ba, pll.init((c,), device=dev), i32((7, c)))[0]
+        errs["fastlo_ddc_bank_block_lp"] = max(
+            errs["fastlo_ddc_bank_block_lp"], hold(
+                f"fastlo_ddc_bank_block_lp ({label}, N={n})",
+                lambda s, ps, ph, x, k=k, d=d, tc=tc, p=plan, st=steps:
+                fastlo_ddc_bank_block_lp(k, pll_ba, s, ps, ph, st, x, d=d,
+                                         time_chunk=tc, _plan=p),
+                lambda s, ps, ph, x, k=k, d=d, tc=tc, st=steps:
+                fastlo_ddc_bank_block_lp_plain(k, pll_ba, s, ps, ph, st, x,
+                                               d=d, time_chunk=tc),
+                (edge_state(2 * c, n), pst, i32((c,))),
+                lambda t=t: i32((t,), -(2**27), 2**27), blocks=2))
+    log(f"phase 3 K4 and K6 at the depth-0 pipeline's edges == plain over 2 "
+        f"blocks each (K4: {', '.join(lp)}; K6: {', '.join(k6)}): max |d| "
+        f"{errs['lowpass_bank']}, {errs['fastlo_ddc_bank_block_lp']}; plans "
+        f"K4 {dict(lowpass_plan(2 * C_BANK)._asdict())}, K6 "
+        f"{dict(bank_plan(C_BANK)._asdict())}")
+
+
 def check_biquad_kernels(dev, i32, errs, plain_s, ba, ba_bank, pll_ba):
     """Phase 3 for K11-K14 at full width: K11-K13 at c = C_BANK (d = 16,
     time chunk TC), K14 at c = C_MAIN and C_WIDE with int32 and f32
-    output, each over BLOCKS carried blocks; plain calls timed into plain_s
+    output, each over HOLD_BLOCKS carried blocks; plain calls timed into
+    plain_s
     (K14's f32 under ``ddc_mix_df1_bank c=<c>``)."""
     from idsp_tpu_torch.filters import biquad, pll
     from idsp_tpu_torch.filters.biquad_cuda import (
@@ -2705,7 +2822,7 @@ def check_biquad_kernels(dev, i32, errs, plain_s, ba, ba_bank, pll_ba):
         (df1_state(cb2), pll.init((c,), device=dev), i32((c,))), wide,
         plain_s)
     log(f"phase 3 K11 df1_bank_q_dec, K12 fastlo_df1_dec_bank, K13 "
-        f"fastlo_ddc_bank_block == plain over {BLOCKS} blocks (c={c}, "
+        f"fastlo_ddc_bank_block == plain over {HOLD_BLOCKS} blocks (c={c}, "
         f"t={T}, d={DEC}, time_chunk={TC}): max |d| "
         f"{errs['df1_bank_q_dec']}, {errs['fastlo_df1_dec_bank']}, "
         f"{errs['fastlo_ddc_bank_block']}")
@@ -2724,7 +2841,7 @@ def check_biquad_kernels(dev, i32, errs, plain_s, ba, ba_bank, pll_ba):
         plain_s[f"ddc_mix_df1_bank c={c}"] = k14_s["ddc_mix_df1_bank"]
     errs["ddc_mix_df1_bank"] = err
     log(f"phase 3 K14 ddc_mix_df1_bank (int32 and f32 out) == plain over "
-        f"{BLOCKS} blocks at c={C_MAIN} and {C_WIDE} (x full range): max "
+        f"{HOLD_BLOCKS} blocks at c={C_MAIN} and {C_WIDE} (x full range): max "
         f"|d| {err}")
 
 
@@ -2943,7 +3060,7 @@ def near(got, want, scale, rel=2e-5):
 
 def check_slice5_kernels(dev, rng, errs, plain_s):
     """Phase 3 for K15-K17: K15 (both angles) and K16 bit for bit over
-    BLOCKS carried blocks at c = 512, t = T, plain calls
+    HOLD_BLOCKS carried blocks at c = 512, t = T, plain calls
     timed into plain_s (K15 fast under ``fm_disc_bank_fast``); K17
     (`check_k17`)."""
     import torch
@@ -2970,8 +3087,8 @@ def check_slice5_kernels(dev, rng, errs, plain_s):
         err = max(err, e)
     errs["fm_disc_bank"] = err
     log(f"phase 3 K15 fm_disc_bank (exact and fast angle) == plain over "
-        f"{BLOCKS} blocks (c={C_FM}, t={T}, IQ = cossin of random phases): "
-        f"max |d| {err}")
+        f"{HOLD_BLOCKS} blocks (c={C_FM}, t={T}, IQ = cossin of random "
+        f"phases): max |d| {err}")
 
     lo_fs, ba_lk = lockin_setup()
     n0 = iter(range(0, BLOCKS * T, T))  # the sample index carried on
@@ -2983,7 +3100,7 @@ def check_slice5_kernels(dev, rng, errs, plain_s):
                                             time_chunk=TC_LOCKIN),
         (biquad_f32_state(dev, rng, 2 * C_LOCKIN),),
         lambda: (normal_f32(dev, rng, (T,)), lo_fs, next(n0)), plain_s)
-    log(f"phase 3 K16 ddc_lockin_bank == plain over {BLOCKS} blocks "
+    log(f"phase 3 K16 ddc_lockin_bank == plain over {HOLD_BLOCKS} blocks "
         f"(c={C_LOCKIN}, t={T}, time_chunk={TC_LOCKIN}, x ~ N(0, 1)): "
         f"max |d| {errs['ddc_lockin_bank']}")
 
@@ -5108,6 +5225,7 @@ def main():
     check_chain_edges(dev, i32, i64, errs)
     sos_plans = log_sos_plans(dev)
     check_bank_lockin_edges(dev, i32, errs)
+    check_lowpass_edges(dev, i32, errs)
     log(f"phase 3 done at {time.perf_counter() - wall0:.1f} s")
 
     # ---- phase 4: the main path ---------------------------------------

@@ -1,4 +1,4 @@
-"""Time K1, K2, K3, K6, K7, K8, K11, K12 (and its ``clamp=``), K13, K14,
+"""Time K1, K2, K3, K4, K6, K7, K8, K11, K12 (and its ``clamp=``), K13, K14,
 K15, K16, K17, K18, K19, K22 "highest", K24-K27, K29, K31-K34, K37 and
 K38-K40 of two checkouts of the port in turns, in one process.
 
@@ -6,13 +6,13 @@ Usage (on a CUDA machine, from the root of a checkout)::
 
     python3 -m idsp_tpu_torch.ab_time PARENT_ROOT CHANGE_ROOT [--only A,B]
 
-``--only`` keeps the kernels whose name contains one of the given
-substrings (e.g. ``--only highest,wdf``; K2, K3, K19: ``--only
-df1_hbf,fastlo_ddc_cascade,df1_clamp``; K14, K15: ``--only
-mix_df1,fm_disc``; K29, K37: ``--only q64,rpll``; K31, K33, K34:
-``--only dither,svf``; K12, its ``clamp=``, K13, K6 and K16: ``--only
-fastlo_df1_dec,fastlo_ddc_bank,ddc_lockin``; K1, K11, K18, K26, K27:
-``--only df1_bank_q,df1_clamp_bank_q``; K24, K25, K32: ``--only
+``--only`` keeps the kernels whose name contains one of the given substrings
+(e.g. ``--only highest,wdf``; K2, K3, K19: ``--only
+df1_hbf,fastlo_ddc_cascade,df1_clamp``; K14, K15: ``--only mix_df1,fm_disc``;
+K29, K37: ``--only q64,rpll``; K31, K33, K34: ``--only dither,svf``; K12, its
+``clamp=``, K13, K6 and K16: ``--only
+fastlo_df1_dec,fastlo_ddc_bank,ddc_lockin``; K4: ``--only lowpass``; K1, K11,
+K18, K26, K27: ``--only df1_bank_q,df1_clamp_bank_q``; K24, K25, K32: ``--only
 sos,wide``).
 
 Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
@@ -28,7 +28,10 @@ per-lane Q29 lowpass planes below on full-range x at c = 1024 lanes,
 K2 `df1_hbf_cascade_bank` on the same xs and K3
 `fastlo_ddc_cascade_bank` (x, a zero phase, the K6 steps) at c = 512 and
 1024 and K19 `df1_clamp_hbf_cascade_bank` (clamp (2^10, +-2^23)) at
-c = 512 (the chain's taps (5, 10, 23), zero state, time chunk 128), K6 `fastlo_ddc_bank_block_lp` at c = 1024 (d = 16, time chunk 128), and
+c = 512 (the chain's taps (5, 10, 23), zero state, time chunk 128), K6
+`fastlo_ddc_bank_block_lp` at c = 1024 (d = 16, time chunk 128), K4
+`lowpass_bank` on the c = 1024 xs (2048 lanes, d = 16, zero state), both
+with the #5 bank's `lowpass.gains2(0.004)`, and
 K7 `hbf_dec_cascade_bank` on (32768, c) and K8 `hbf_int_cascade_bank` on
 (2048, c) f32 at c = 512 and 1024 (depth 4, `HBF_TAPS`, zero state, each
 tree's default chunk and launch shape), and K17 `channelize_fused` at
@@ -136,7 +139,8 @@ def cases(alias: str, dev, inputs):
         "filters.ddc_cuda", "filters.fm_cuda", "pipelines.fm_disc",
         "filters.wdf_cuda", "pipelines.channelizer",
         "pipelines.channelizer_cuda", "filters.rpll", "filters.rpll_cuda",
-        "filters.svf", "filters.svf_cuda", "filters.ddc_lockin_cuda")}
+        "filters.svf", "filters.svf_cuda", "filters.ddc_lockin_cuda",
+        "filters.lowpass_cuda")}
     biquad, lowpass, pll = (sub["filters.biquad"], sub["filters.lowpass"],
                             sub["filters.pll"])
     ba = biquad.quantize_ba(biquad.from_cookbook(
@@ -268,6 +272,10 @@ def cases(alias: str, dev, inputs):
     out["fastlo_ddc_bank_block_lp c=1024"] = lambda: k6(
         gains, pll_ba, lp0, pll0, inputs["ph0"], inputs["steps"],
         inputs["x"], d=DEC, time_chunk=TC)
+    out[f"lowpass_bank c={2 * C_BANK}"] = (
+        lambda st=lowpass.init(2, (2 * C_BANK,), device=dev):
+        sub["filters.lowpass_cuda"].lowpass_bank(gains, st, inputs["xs1024"],
+                                                 dec=DEC))
     hbf, hbf_cuda = sub["filters.hbf"], sub["filters.hbf_cuda"]
     for c in (512, 1024):
         dec0 = hbf.hbf_dec_cascade_init(DEPTH, (c,), axis=0, device=dev)

@@ -2,14 +2,15 @@
 // fast-LO conjugate mix, a channel filter on I and Q, keep-1-in-d, and
 // (K6, K13) atan2 and one PLL step per kept row.
 //
-// Two kernels:
-//  * K12 and K13 (`ddc_bank_df1_kernel`), the Q<f> DF1 biquad:
-//    `fastlo_df1_dec_bank` (K12; idsp_tpu/filters/ddc_pallas.py :870,
-//    `_fastlo_df1_dec_impl` :906, pallas_call :987; body `_iir_df1_body`
-//    :260, and with its `clamp=` the anti-windup DF1, body
-//    `_iir_df1_clamp_body` :273) and `fastlo_ddc_bank_block` (K13, :1018:
-//    K12, then atan2 and the PLL, whose output the JAX wrapper drops);
-//  * K6 (`ddc_bank_lp_kernel`), `Lowpass<N>` and the PLL with its output:
+// One kernel, `ddc_bank_kernel`, a template over its serial warp and back
+// end:
+//  * K12 and K13, the Q<f> DF1 biquad: `fastlo_df1_dec_bank` (K12;
+//    idsp_tpu/filters/ddc_pallas.py :870, `_fastlo_df1_dec_impl` :906,
+//    pallas_call :987; body `_iir_df1_body` :260, and with its `clamp=`
+//    the anti-windup DF1, body `_iir_df1_clamp_body` :273) and
+//    `fastlo_ddc_bank_block` (K13, :1018: K12, then atan2 and the PLL,
+//    whose output the JAX wrapper drops);
+//  * K6, `Lowpass<N>` and the PLL with its output:
 //    `fastlo_ddc_bank_block_lp` (:1066);
 //  K6 and K13 both `_fastlo_ddc_bank_impl` (:1156, pallas_call :1265).
 // On the TPU the grid walked time chunks with the I|Q lanes on
@@ -17,18 +18,20 @@
 // then atan2 ran vectorized over the kept rows with I in lane ch and Q
 // in lane c + ch, then the PLL scanned them.
 //
-// K12/K13.  What bounds them on the H100: the DF1 recurrence, serial in
-// time in each of the 2c lanes: the DF1 warp of df1_ring.cuh takes ~42
-// cycles a row (PERF.md §6), 0.70 ms for a block of 32768 rows.  The mix
-// is three loads (x, the coarse and the fine (cos, sin) pairs) and eight
-// f32 operations a row and lane, off that chain, but with the addresses,
-// the selects and the rounding the producers' compiled batch loop holds
-// ~70 instructions a row (both of its load paths): 4 producers set the
-// pace (~73 cycles a row, PERF.md §6), 8 keep up; the back end
-// (K13: atan2 and the PLL's 64-bit update, itself serial in each channel)
-// runs on 1 row in d.  Per block the kernel reads x (t,) and the LO
-// factor tables and writes only the kept rows (8 B per channel and kept
-// row) and the state.
+// What bounds them on the H100: the filter's recurrence, serial in time
+// in each of the 2c lanes: the DF1 warp of df1_ring.cuh takes ~42 cycles
+// a row (PERF.md §6), 0.70 ms for a block of 32768 rows; the Lowpass
+// serial warp (lowpass.cuh) the saturating subtract, a wide multiply and
+// a two-word add a row.  The mix is three loads (x, the coarse and the
+// fine (cos, sin) pairs) and eight f32 operations a row and lane, off that
+// chain, but with the addresses, the selects and the rounding the
+// producers' compiled batch loop holds ~70 instructions a row (both of its
+// load paths): 4 producers set the pace (~73 cycles a row, PERF.md §6), 8
+// keep up with the DF1; the back end (atan2 and the PLL's 64-bit update,
+// itself serial in each channel) runs on 1 row in d.  Per block the
+// kernel reads x (t,) and the LO factor tables and writes only the kept
+// rows (8 B per channel and kept row; K6 4 B more of PLL output) and the
+// state.
 //
 // What the design does about it: df1_ring.cuh's depth-0 pipeline
 // (`run_roles`).  A block is a tile of 16 channels, paired: lane lid < 16
@@ -39,37 +42,24 @@
 // the mixed rows into the input ring (fastlo.cuh `fastlo_mix_rows`, K3's
 // producer: a batch's loads issued while the batch before is mixed, one
 // coarse load a batch, the I and Q lanes one sequence of operations); the
-// DF1 warp alone on its scheduler turns each slot into a slot of the
-// output ring (`df1_warp`, clamped for K12's `clamp=`); a back-end warp in
-// the store warp's place takes each slot's kept rows -- the block's rows r
-// with r % d == 0, whatever the chunk -- to yiq, two runs of 16 words a
-// row (I at column ch0, Q at c + ch0), and for K13 computes atan2(Q, I) of
-// two kept rows at once (lanes 0-15 the first, 16-31 the second; the seed
-// LUT in shared memory, `load_atan2_lut`) and steps the PLL over the kept
-// rows in order on lanes 0-15, one a channel.  The plan (warps, roles,
-// chunk, ring depth, shared memory) is the host's (filters/ddc_bank_cuda.py
-// `bank_plan` on filters/pipe_plan.py), which the entry point checks.
-//
-// K6.  One thread owns one channel (I and Q both) for the whole block:
-// per chunk q of tc rows (tc % d == 0) it makes two passes, as the TPU
-// kernel did: (A) it reads the chunk's coarse LO factor; per row it reads
-// x[row] (the same word for every thread) and the fine factor of its
-// channel, mixes (fastlo.cuh) and steps the two Lowpass recurrences
-// (lowpass.cuh, shared with K4; two independent chains), storing I and Q
-// of the rows 0, d, 2d, ...; (B) over the chunk's tc/d kept rows, in
-// order, it reads I and Q back, computes atan2_i32 (atan2.cuh) and steps
-// the PLL (pll.cuh, shared with K5).  What bounds it: the thread's serial
-// recurrences, the filter chain every row and the PLL update every d-th
-// row, with c channels in c/32 warps, one warp on each of c/32 SMs.  Pass
-// A's inputs are prefetched one group ahead (seq_bank.cuh `seq_rows`) and
-// its I and Q chains interleave (ILP 2); pass B keeps atan2 and the PLL
-// update out of the unrolled row loop (a first version with them inside
-// the unrolled rows, behind the keep test, took 3.6x K4's time on an
-// H100), and it loads the next kept row while the current one computes.
+// serial warp alone on its scheduler turns each slot into a slot of the
+// output ring (K12/K13: the DF1 warp `df1_warp`, clamped for K12's
+// `clamp=`; K6: lowpass.cuh's `LpSerial`, shared with K4); a back-end
+// warp in the store warp's place takes each slot's kept rows -- the
+// block's rows r with r % d == 0, whatever the chunk -- to yiq, two runs
+// of 16 words a row (I at column ch0, Q at c + ch0), and for K6 and K13
+// computes atan2(Q, I) of two kept rows at once (lanes 0-15 the first,
+// 16-31 the second; the seed LUT in shared memory, `load_atan2_lut`) and
+// steps the PLL over the kept rows in order on lanes 0-15, one a channel;
+// K6 writes each step's output, 16 consecutive words a kept row.  The plan
+// (warps, roles, chunk, ring depth, shared memory) is the host's
+// (filters/ddc_bank_cuda.py `bank_plan` on filters/pipe_plan.py), which
+// the entry points check.
 //
 // Numerics: the mix's f32 operations are single roundings in the plain
-// version's order, the rest exact integer arithmetic: bit-identical to
-// the plain versions, and no plan changes a value.
+// version's order, the rest exact integer arithmetic (the Lowpass's sums
+// regrouped mod 2^64): bit-identical to the plain versions, and no plan
+// changes a value.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -81,29 +71,29 @@
 #include "fastlo.cuh"
 #include "lowpass.cuh"
 #include "pll.cuh"
-#include "seq_bank.cuh"
 
 namespace {
 
-using idsp::kBankLanes;
 using idsp::ring::kLanes;
 using idsp::ring::Pipe;
 using idsp::ring::Rings;
 
-// ---- K12 and K13: the depth-0 pipeline ------------------------------------
+constexpr int kPair = kLanes / 2;  // channels of a tile
 
-constexpr int kPair = kLanes / 2;  // channels of a K12/K13 tile
-
-// A launch: p.d the DF1 (rows, chunk, ring depth, state (2c, 2) in and
-// out, coefficients, clamp), p.c2 = 2c; m the mix's inputs; yiq (t/d, 2c);
-// K13's PLL state words in and out and its coefficients.
+// A launch: p.d the rows, chunk and ring depth (K12/K13: the DF1's state
+// (2c, 2) in and out, coefficients, clamp too), p.c2 = 2c; m the mix's
+// inputs; yiq (t/d, 2c); K6's and K13's PLL state words in and out and
+// its coefficients; K6's PLL output ypll (t/d, c) and its Lowpass state
+// (2c, N) in and out and gains.
 struct BankArgs {
   Pipe p;
   idsp::FastLoPlanes m;
   int32_t* yiq;
+  int32_t* ypll;
   int d;
   idsp::PllWords pll_in, pll_out;
   idsp::PllCoefs pk;
+  idsp::LpArgs lp;
 };
 
 // Lane lid of tile blockIdx.x: channel ch, its I lane (lid < kPair) or Q
@@ -120,7 +110,7 @@ __device__ __forceinline__ PairLane pair_lane(int c, int lid) {
   return PairLane{ch, is_q ? c + ch : ch, is_q, ch < c};
 }
 
-// The serial warp: the DF1 warp on the tile's paired lanes.
+// The serial warp of K12/K13: the DF1 warp on the tile's paired lanes.
 template <bool Clamp>
 struct BankSerial {
   const BankArgs* a;
@@ -134,22 +124,42 @@ struct BankSerial {
   }
 };
 
+// The serial warp of K6: lowpass.cuh's Lowpass<N> serial warp on the
+// tile's paired lanes' state rows.
+template <int N>
+struct BankLpSerial {
+  const BankArgs* a;
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int, bool,
+                                             uint32_t) const {
+    const PairLane me = pair_lane(a->m.c, lid);
+    idsp::LpSerial<N>{&a->p, &a->lp}(R, out, lid, me.row, me.live, 0);
+  }
+};
+
+// What the back end does past the kept rows: nothing (K12), atan2 and the
+// PLL's steps, its state stored (K13), and each step's output to ypll
+// (K6).
+enum class Back { kRows, kPll, kPllOut };
+
 // The back end, in the store warp's place: for each output slot (out:
-// slot 0) its kept rows -- block rows r with r % d == 0 -- to yiq; with
-// Pll (K13), then atan2(Q, I) of two kept rows at once (lanes 0-15 the
+// slot 0) its kept rows -- block rows r with r % d == 0 -- to yiq; with a
+// PLL (K6, K13), then atan2(Q, I) of two kept rows at once (lanes 0-15 the
 // first, 16-31 the second, handed to lanes 0-15 by a shuffle) and the
-// PLL's steps over them in order on lanes 0-15, one lane a channel; the
-// PLL state stored at the end.
-template <bool Pll>
+// PLL's steps over them in order on lanes 0-15, one lane a channel (K6:
+// each step's output to ypll at row (r0 + r) / d, 16 consecutive words a
+// kept row); the PLL state stored at the end.
+template <Back B>
 __device__ __forceinline__ void back_end(
     const BankArgs& a, const Rings& R, const int32_t* out, int lid,
     const idsp::atan2_detail::SharedLut& lut) {
+  constexpr bool kPll = B != Back::kRows;
   const Pipe& p = a.p;
-  const int d = a.d, chunk = p.d.chunk;
-  const size_t c2 = 2 * static_cast<size_t>(a.m.c);
-  const PairLane me = pair_lane(a.m.c, lid);
+  const int d = a.d, chunk = p.d.chunk, c = a.m.c;
+  const size_t c2 = 2 * static_cast<size_t>(c);
+  const PairLane me = pair_lane(c, lid);
   const int pc = lid % kPair;  // the channel's I word of a slot row
-  const bool pll_lane = Pll && lid < kPair && me.live;
+  const bool pll_lane = kPll && lid < kPair && me.live;
   idsp::PllLane pll{};
   if (pll_lane) pll.load(a.pll_in, me.ch);
   int first = 0;  // the chunk's first kept row
@@ -163,14 +173,24 @@ __device__ __forceinline__ void back_end(
           a.yiq + static_cast<size_t>((r0 + first) / d) * c2 + me.row;
       for (int r = first; r < rows; r += d, y += c2) *y = s[r * kLanes + lid];
     }
-    if constexpr (Pll) {
+    if constexpr (kPll) {
       for (int r = first; r < rows; r += 2 * d) {
         const int32_t* w = s + min(r + lid / kPair * d, rows - 1) * kLanes;
         const int32_t ang = idsp::atan2_i32(w[kPair + pc], w[pc], lut);
         const int32_t next = __shfl_down_sync(0xFFFFFFFFu, ang, kPair);
         if (lid < kPair) {
-          pll.step(a.pk, ang);
-          if (r + d < rows) pll.step(a.pk, next);
+          const bool two = r + d < rows;
+          [[maybe_unused]] const int32_t y0 = pll.step(a.pk, ang);
+          [[maybe_unused]] const int32_t y1 =
+              two ? pll.step(a.pk, next) : 0;
+          if constexpr (B == Back::kPllOut) {
+            if (pll_lane) {
+              int32_t* yp =
+                  a.ypll + static_cast<size_t>((r0 + r) / d) * c + me.ch;
+              yp[0] = y0;
+              if (two) yp[c] = y1;
+            }
+          }
         }
       }
     }
@@ -181,16 +201,18 @@ __device__ __forceinline__ void back_end(
   if (pll_lane) pll.store(a.pll_out, me.ch);
 }
 
-template <bool Clamp, bool Pll>
+// K12 (BankSerial, Back::kRows; clamped for its clamp=), K13 (BankSerial,
+// Back::kPll) and K6 (BankLpSerial, Back::kPllOut).
+template <class Serial, Back B>
 __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
-    ddc_bank_df1_kernel(const __grid_constant__ BankArgs a) {
+    ddc_bank_kernel(const __grid_constant__ BankArgs a) {
   __shared__ uint32_t lut_base[16];
   __shared__ int32_t lut_slope[16];
   extern __shared__ __align__(16) unsigned char smem[];
   // published by run_roles' barrier
   const auto lut = idsp::load_atan2_lut(lut_base, lut_slope);
   idsp::ring::run_roles<1>(
-      a.p, smem, BankSerial<Clamp>{&a},
+      a.p, smem, Serial{&a},
       [&](const Rings& R, int pw, int lid, int, bool, bool) {
         const PairLane me = pair_lane(a.m.c, lid);
         idsp::fastlo_mix_rows(a.m, a.p.d.t, a.p.d.chunk, a.p.d.depth, R,
@@ -198,7 +220,7 @@ __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
                               me.live);
       },
       [&](const Rings& R, const uint32_t* out, int lid, int) {
-        back_end<Pll>(a, R, reinterpret_cast<const int32_t*>(out), lid, lut);
+        back_end<B>(a, R, reinterpret_cast<const int32_t*>(out), lid, lut);
       });
 }
 
@@ -208,141 +230,75 @@ idsp::PllWords words(void* const* p) {
   return w;
 }
 
-// ---- K6: a thread a channel -------------------------------------------------
-
-// The Lowpass<N> of one lane: its gains, where its state is read and
-// written, load/store of lane `lane`'s state and one step.
-template <int N>
-struct LpFilter {
-  using Coefs = idsp::LpGains;
-  struct State {
-    const int64_t* in;  // LowpassState.p (2c, N)
-    int64_t* out;
-  };
-  idsp::LowpassLane<N> s;
-  __device__ __forceinline__ void load(const State& st, int lane) {
-    s.load(st.in, lane);
-  }
-  __device__ __forceinline__ void store(const State& st, int lane) const {
-    s.store(st.out, lane);
-  }
-  __device__ __forceinline__ int32_t step(const Coefs& g, int32_t x) {
-    return s.step(g, x);
-  }
-};
-
-struct MixIn {
-  int32_t x;
-  float cb, sb;  // the row's fine LO factor for this channel
-};
-
-template <class Filter>
-__global__ void __launch_bounds__(kBankLanes) ddc_bank_lp_kernel(
-    const int32_t* __restrict__ x, const float* __restrict__ ca,
-    const float* __restrict__ sa, const float* __restrict__ cb,
-    const float* __restrict__ sb, typename Filter::State fs,
-    typename Filter::Coefs fk, idsp::PllWords pll_in, idsp::PllWords pll_out,
-    int32_t* __restrict__ yiq, int32_t* __restrict__ ypll, int t, int c,
-    int tc, int d, idsp::PllCoefs pk) {
-  const int ch = blockIdx.x * kBankLanes + threadIdx.x;
-  if (ch >= c) return;
-  Filter f_i, f_q;
-  f_i.load(fs, ch);
-  f_q.load(fs, c + ch);
-  idsp::PllLane pll;
-  pll.load(pll_in, ch);
-  const size_t c2 = 2 * static_cast<size_t>(c);
-  const int nkeep = tc / d;  // kept rows per chunk
-  const int nchunks = t / tc;
-  for (int q = 0; q < nchunks; ++q) {
-    const float cav = __ldg(ca + static_cast<size_t>(q) * c + ch);
-    const float sav = __ldg(sa + static_cast<size_t>(q) * c + ch);
-    const int32_t* xq = x + static_cast<size_t>(q) * tc;
-    int32_t* iq_rows = yiq + static_cast<size_t>(q) * nkeep * c2 + ch;
-    // (A) mix and filter, the kept rows to yiq
-    idsp::Keep keep(d);
-    int32_t* out = iq_rows;
-    idsp::seq_rows(
-        tc,
-        [&](int u) {
-          const size_t f = static_cast<size_t>(u) * c + ch;
-          return MixIn{__ldg(xq + u), __ldg(cb + f), __ldg(sb + f)};
-        },
-        [&](int, const MixIn& m) {
-          const float xh = idsp::fastlo_scale(m.x);
-          const int32_t yi = f_i.step(fk, idsp::fastlo_round(
-              idsp::fastlo_prod_i(cav, sav, m.cb, m.sb, xh)));
-          const int32_t yq = f_q.step(fk, idsp::fastlo_round(
-              idsp::fastlo_prod_q(cav, sav, m.cb, m.sb, xh)));
-          if (keep.next()) {
-            out[0] = yi;
-            out[c] = yq;
-            out += c2;
-          }
-        });
-    // (B) atan2 and the PLL over the kept rows (this thread's own stores
-    // above, read back in program order)
-    int32_t* yp = ypll + static_cast<size_t>(q) * nkeep * c + ch;
-    int32_t ni = iq_rows[0], nq = iq_rows[c];
-#pragma unroll 1
-    for (int j = 0; j < nkeep; ++j) {
-      const int32_t ci = ni, cq = nq;
-      if (j + 1 < nkeep) {
-        ni = iq_rows[(j + 1) * c2];
-        nq = iq_rows[(j + 1) * c2 + c];
-      }
-      yp[static_cast<size_t>(j) * c] = pll.step(pk, idsp::atan2_i32(cq, ci));
-    }
-  }
-  f_i.store(fs, ch);
-  f_q.store(fs, c + ch);
-  pll.store(pll_out, ch);
+// The checks every entry makes (the host plan's own, the mix's offsets,
+// whole time chunks and kept rows); false for a call the kernel cannot
+// run.
+bool bank_ok(int t, int c, int tc, int d, int warps, int producers,
+             int chunk, int ring, int smem) {
+  return c >= 1 && d >= 1 && tc >= 1 &&
+         idsp::ring::pipe_plan_ok(t, 2 * c, warps, producers, chunk, ring,
+                                  smem) &&
+         t % tc == 0 && t % d == 0 && idsp::fastlo_offsets_ok(t, tc, c);
 }
 
-template <int N>
-int launch_lp(const void* x, const void* ca, const void* sa, const void* cb,
-              const void* sb, const void* lp_in, void* lp_out,
-              void* const* pll_in, void* const* pll_out, void* yiq,
-              void* ypll, int t, int c, int tc, int d,
-              const idsp::LpGains& g, const idsp::PllCoefs& pk,
-              void* stream) {
-  if (d < 1 || tc < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const typename LpFilter<N>::State fs{static_cast<const int64_t*>(lp_in),
-                                       static_cast<int64_t*>(lp_out)};
-  const dim3 grid((c + kBankLanes - 1) / kBankLanes);
-  ddc_bank_lp_kernel<LpFilter<N>>
-      <<<grid, kBankLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int32_t*>(x), static_cast<const float*>(ca),
-          static_cast<const float*>(sa), static_cast<const float*>(cb),
-          static_cast<const float*>(sb), fs, g, words(pll_in),
-          words(pll_out), static_cast<int32_t*>(yiq),
-          static_cast<int32_t*>(ypll), t, c, tc, d, pk);
-  return static_cast<int>(cudaGetLastError());
+// The launch-wide arguments every entry sets: the rows, the plan, the mix,
+// yiq and d.
+BankArgs bank_args(const void* x, const void* coarse, const void* fine,
+                   void* yiq, int t, int c, int tc, int d, int warps,
+                   int producers, int chunk, int ring) {
+  BankArgs a{};
+  a.p.d.t = t;
+  a.p.d.chunk = chunk;
+  a.p.d.depth = ring;
+  a.p.c2 = 2 * c;  // c / 16 tiles of 32 lanes
+  a.p.warps = warps;
+  a.p.producers = producers;
+  a.p.cluster = 1;
+  a.m = idsp::FastLoPlanes{static_cast<const int32_t*>(x),
+                           static_cast<const float2*>(coarse),
+                           static_cast<const float2*>(fine), c, tc};
+  a.yiq = static_cast<int32_t*>(yiq);
+  a.d = d;
+  return a;
 }
 
 }  // namespace
 
-// K6: x (t,) i32 and the fast-LO factor tables ca/sa (t/tc, c), cb/sb
-// (tc, c) f32 -> yiq (t/d, 2c) i32 (I lanes, then Q lanes) and ypll
-// (t/d, c) i32.  Lowpass state lp (2c, n) i64 in and out; PLL state as
-// two host arrays of the seven state-word device pointers (pll.cuh
-// PllWords), each (c,).
-extern "C" int idsp_ddc_bank_lp(const void* x, const void* ca, const void* sa,
-                                const void* cb, const void* sb,
-                                const void* lp_in, void* lp_out,
-                                void* const* pll_in, void* const* pll_out,
-                                void* yiq, void* ypll, int t, int c, int tc,
-                                int d, int n, int k0, int k1, int b0, int b1,
-                                int a1, void* stream) {
-  const idsp::LpGains g{k0, k1};
-  const idsp::PllCoefs pk{b0, b1, a1};
-  if (n == 1)
-    return launch_lp<1>(x, ca, sa, cb, sb, lp_in, lp_out, pll_in, pll_out,
-                        yiq, ypll, t, c, tc, d, g, pk, stream);
-  if (n == 2)
-    return launch_lp<2>(x, ca, sa, cb, sb, lp_in, lp_out, pll_in, pll_out,
-                        yiq, ypll, t, c, tc, d, g, pk, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+// K6: x (t,) i32 and the fast-LO factor tables, coarse the (ca, sa) pairs
+// (t/tc, c) and fine the (cb, sb) pairs (tc, c), float2 each, -> yiq
+// (t/d, 2c) i32 (I lanes, then Q lanes) and ypll (t/d, c) i32.  Lowpass
+// state lp (2c, n) i64 in and out, n = 1 or 2, gains k0 (and k1 for n =
+// 2); PLL state as two host arrays of the seven state-word device
+// pointers (pll.cuh PllWords), each (c,), coefficients b0, b1, a1.  warps,
+// producers, chunk, ring (slots a ring) and smem are the host plan's
+// (filters/ddc_bank_cuda.py `bank_plan`) over 2c lanes in c / 16 tiles.  A
+// plan the kernel cannot run is refused; a refused call launches nothing
+// and leaves no CUDA error pending.
+extern "C" int idsp_ddc_bank_lp(const void* x, const void* coarse,
+                                const void* fine, const void* lp_in,
+                                void* lp_out, void* const* pll_in,
+                                void* const* pll_out, void* yiq, void* ypll,
+                                int t, int c, int tc, int d, int n, int k0,
+                                int k1, int b0, int b1, int a1, int warps,
+                                int producers, int chunk, int ring, int smem,
+                                void* stream) {
+  if ((n != 1 && n != 2) || pll_in == nullptr || pll_out == nullptr ||
+      !bank_ok(t, c, tc, d, warps, producers, chunk, ring, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BankArgs a = bank_args(x, coarse, fine, yiq, t, c, tc, d, warps, producers,
+                         chunk, ring);
+  a.ypll = static_cast<int32_t*>(ypll);
+  a.pll_in = words(pll_in);
+  a.pll_out = words(pll_out);
+  a.pk = idsp::PllCoefs{b0, b1, a1};
+  a.lp = idsp::LpArgs{static_cast<const int64_t*>(lp_in),
+                      static_cast<int64_t*>(lp_out), idsp::LpGains{k0, k1}};
+  using idsp::ring::launch_pipe;
+  constexpr Back kOut = Back::kPllOut;
+  return n == 1 ? launch_pipe(ddc_bank_kernel<BankLpSerial<1>, kOut>, a, a.p,
+                              smem, stream)
+                : launch_pipe(ddc_bank_kernel<BankLpSerial<2>, kOut>, a, a.p,
+                              smem, stream);
 }
 
 // K12 when pll_in is null, else K13: x (t,) i32 and the fast-LO factor
@@ -366,13 +322,11 @@ extern "C" int idsp_ddc_bank_df1(const void* x, const void* coarse,
                                  int clamp, int u, int lo, int hi, int warps,
                                  int producers, int chunk, int ring, int smem,
                                  void* stream) {
-  if (c < 1 || d < 1 || tc < 1 || f <= 0 || f >= 64 ||
-      (clamp && pll_in != nullptr) ||
-      !idsp::ring::pipe_plan_ok(t, 2 * c, warps, producers, chunk, ring,
-                                smem) ||
-      t % tc != 0 || t % d != 0 || !idsp::fastlo_offsets_ok(t, tc, c))
+  if (f <= 0 || f >= 64 || (clamp && pll_in != nullptr) ||
+      !bank_ok(t, c, tc, d, warps, producers, chunk, ring, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  BankArgs a{};
+  BankArgs a = bank_args(x, coarse, fine, yiq, t, c, tc, d, warps, producers,
+                         chunk, ring);
   a.p.d = idsp::ring::Df1Ring{t,
                               chunk,
                               ring,
@@ -382,25 +336,16 @@ extern "C" int idsp_ddc_bank_df1(const void* x, const void* coarse,
                               static_cast<int32_t*>(sy_out),
                               idsp::Df1Coefs{b0, b1, b2, a1, a2, f},
                               idsp::Df1Clamp{u, lo, hi}};
-  a.p.c2 = 2 * c;  // c / 16 tiles of 32 lanes
-  a.p.warps = warps;
-  a.p.producers = producers;
-  a.p.cluster = 1;
-  a.m = idsp::FastLoPlanes{static_cast<const int32_t*>(x),
-                           static_cast<const float2*>(coarse),
-                           static_cast<const float2*>(fine), c, tc};
-  a.yiq = static_cast<int32_t*>(yiq);
-  a.d = d;
   a.pk = idsp::PllCoefs{pb0, pb1, pa1};
   using idsp::ring::launch_pipe;
   if (pll_in != nullptr) {
     a.pll_in = words(pll_in);
     a.pll_out = words(pll_out);
-    return launch_pipe(ddc_bank_df1_kernel<false, true>, a, a.p, smem,
-                       stream);
+    return launch_pipe(ddc_bank_kernel<BankSerial<false>, Back::kPll>, a,
+                       a.p, smem, stream);
   }
-  return clamp ? launch_pipe(ddc_bank_df1_kernel<true, false>, a, a.p, smem,
-                             stream)
-               : launch_pipe(ddc_bank_df1_kernel<false, false>, a, a.p, smem,
-                             stream);
+  return clamp ? launch_pipe(ddc_bank_kernel<BankSerial<true>, Back::kRows>,
+                             a, a.p, smem, stream)
+               : launch_pipe(ddc_bank_kernel<BankSerial<false>, Back::kRows>,
+                             a, a.p, smem, stream);
 }

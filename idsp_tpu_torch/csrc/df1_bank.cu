@@ -34,14 +34,14 @@
 // and runs the chain -- a1 y1's multiply-add onto V, the shift, the clamp
 // for K18/K27, whose clamped y0 is fed back -- from shared memory into the
 // output ring.  The shift is one funnel shift for f <= 32 and the high
-// word's arithmetic shift for 32 < f < 64, a template instance each.  A
-// store warp (`keep_store`) writes the rows: K11 only the block's rows at
-// r % d == 0 (the state still carries the full-rate recurrence; a chunk
-// need not be a multiple of d), K1's f32 output through one round-to-
-// nearest int32 -> f32 conversion, off the chain; 16 bytes a thread where
-// c % 4 == 0.  The sums wrap mod 2^64, so the split is bit-identical to
-// the plain `df1_process_q` and `df1_clamp_process_q`.  The plan (warps,
-// producers, chunk, ring depth, shared memory) is the host's
+// word's arithmetic shift for 32 < f < 64, a template instance each.  A store
+// warp (df1_ring.cuh `keep_store`, K4's too) writes the rows: K11 only the
+// block's rows at r % d == 0 (the state still carries the full-rate
+// recurrence; a chunk need not be a multiple of d), K1's f32 output through
+// one round-to-nearest int32 -> f32 conversion, off the chain; 16 bytes a
+// thread where c % 4 == 0.  The sums wrap mod 2^64, so the split is
+// bit-identical to the plain `df1_process_q` and `df1_clamp_process_q`.  The
+// plan (warps, producers, chunk, ring depth, shared memory) is the host's
 // (filters/biquad_cuda.py `df1_plan`), which the entry points check.
 #include <cuda_runtime.h>
 
@@ -57,57 +57,6 @@ using idsp::ring::kLanes;
 using idsp::ring::Pipe;
 using idsp::ring::Rings;
 
-// An output row's word: y's int32 bits, or (F32) y rounded to the nearest
-// f32 (the plain version's cast), as bits.
-template <bool F32>
-__device__ __forceinline__ uint32_t out_word(uint32_t y) {
-  if constexpr (F32) {
-    return __float_as_uint(__int2float_rn(static_cast<int>(y)));
-  } else {
-    return y;
-  }
-}
-
-// The store warp: each chunk's output slot (`out`: slot 0) to y's kept
-// rows (every row when dec is 1), this tile's columns [col0, col0 +
-// kLanes), as `out_word`s.  The kept rows of the chunk at r0 are its rows
-// r with (r0 + r) % dec == 0, output row (r0 + r) / dec.  With vec, 16
-// bytes a thread: 8 threads a row of 4 lanes each, 4 rows a warp
-// instruction; else each lane its own column.
-template <bool F32>
-__device__ __forceinline__ void keep_store(const Df1WArgs& a, const Rings& R,
-                                           const uint32_t* out, int lid,
-                                           int col0) {
-  const Pipe& p = a.p;
-  const int chunk = p.d.chunk, dec = a.dec;
-  const size_t c2 = static_cast<size_t>(p.c2);
-  const int w4 = 4 * (lid % 8);
-  idsp::sm90::Cursor u;
-  for (int r0 = 0; r0 < p.d.t; r0 += chunk, u.next(p.d.depth)) {
-    const int rows = min(chunk, p.d.t - r0);
-    idsp::sm90::mbar_wait(R.full_out(u.k), u.ph);
-    const uint32_t* s = out + static_cast<size_t>(u.k) * chunk * kLanes;
-    const int first = (dec - r0 % dec) % dec;  // the chunk's first kept row
-    const int kept = first < rows ? (rows - 1 - first) / dec + 1 : 0;
-    uint32_t* yr = static_cast<uint32_t*>(p.y[0]) +
-                   static_cast<size_t>((r0 + first) / dec) * c2 + col0;
-    if (p.vec) {
-      if (col0 + w4 < p.c2)
-        for (int j = lid / 8; j < kept; j += kLanes / 8) {
-          const uint4 v = *reinterpret_cast<const uint4*>(
-              s + (first + j * dec) * kLanes + w4);
-          *reinterpret_cast<uint4*>(yr + j * c2 + w4) =
-              make_uint4(out_word<F32>(v.x), out_word<F32>(v.y),
-                         out_word<F32>(v.z), out_word<F32>(v.w));
-        }
-    } else if (col0 + lid < p.c2) {
-      for (int j = 0; j < kept; ++j)
-        yr[j * c2 + lid] = out_word<F32>(s[(first + j * dec) * kLanes + lid]);
-    }
-    idsp::sm90::mbar_arrive(R.empty_out(u.k));
-  }
-}
-
 // K1 (F32 the f32 output), K11 (a.dec > 1), K18 (Clamp), K26 (Planes) and
 // K27 (both); Hi for 32 < f < 64.
 template <bool F32, bool Clamp, bool Planes, bool Hi>
@@ -121,7 +70,7 @@ __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
         idsp::ring::w_feed<Planes>(a, R, pw, lid, lane, live);
       },
       [&](const Rings& R, const uint32_t* out, int lid, int col0) {
-        keep_store<F32>(a, R, out, lid, col0);
+        idsp::ring::keep_store<F32>(a.p, a.dec, R, out, lid, col0);
       });
 }
 

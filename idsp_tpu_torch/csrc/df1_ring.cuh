@@ -2,11 +2,14 @@
 // DF1 warp that runs in it.  A serial warp alone on its scheduler turns
 // each slot of an input ring into a slot of an output ring (`serial_chunks`);
 // producer warps fill the input ring, a store warp writes the output ring
-// to device memory (`run_pipe`).  Fifteen kernels run it: K14
+// to device memory (`run_pipe`).  These kernels run it: K14
 // (ddc_mix_df1.cu) and K15 (fm_disc.cu) with the DF1 warp as the serial
 // warp (`Df1Serial`), K12/K13 (ddc_bank.cu) with the DF1 warp over paired
 // I|Q channels and a back-end warp in the store warp's place (`run_roles`),
-// K37 and K34 (structures_bank.cu, the RPLL and the SVF), K29
+// K6 (the same kernel) and K4 (lowpass_bank.cu: producers that copy x,
+// `copy_feed`, and a store warp that keeps rows, `keep_store`) with the
+// Lowpass serial warp (lowpass.cuh `LpSerial`), K37 and K34
+// (structures_bank.cu, the RPLL and the SVF), K29
 // (biquad_precision.cu, the Q64) and K16 (ddc_lockin.cu, the f32 DF1 after
 // the lock-in mix) with their own, K1, K11, K18, K26, K27 (df1_bank.cu)
 // and K31/K33 (biquad_precision.cu, the error-feedback DF1) with one
@@ -35,15 +38,15 @@
 // only, and is alone on its scheduler: the other warps with warp % 4 == 0
 // exit at once.
 //
-// The rings: chunk q of `chunk` rows uses slot q % depth of each ring at
-// phase parity (q / depth) & 1 (hopper.cuh `Cursor`); slot k has four
-// mbarriers, the input ring's full and empty and the output ring's full
-// and empty.  An input slot holds `chunk` rows of kLanes x `Win` 32-bit
-// words, word w of row r and lane l at (r * kLanes + l) * Win + w, an
-// output slot the same with `Wout` words (K12/K13, K14, K15, K16, K34: 1
-// and 1; K1, K11, K18, K24, K25, K26, K27, K31/K33, K32: 2 and 1; K37: 2
-// and 2; K29: 4 and 2), so a warp reads or writes a row as one 4-, 8- or
-// 16-byte word a lane, contiguous across the lanes.
+// The rings: chunk q of `chunk` rows uses slot q % depth of each ring at phase
+// parity (q / depth) & 1 (hopper.cuh `Cursor`); slot k has four mbarriers, the
+// input ring's full and empty and the output ring's full and empty.  An input
+// slot holds `chunk` rows of kLanes x `Win` 32-bit words, word w of row r and
+// lane l at (r * kLanes + l) * Win + w, an output slot the same with `Wout`
+// words (K4, K6, K12/K13, K14, K15, K16, K34: 1 and 1; K1, K11, K18, K24, K25,
+// K26, K27, K31/K33, K32: 2 and 1; K37: 2 and 2; K29: 4 and 2), so a warp
+// reads or writes a row as one 4-, 8- or 16-byte word a lane, contiguous
+// across the lanes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -109,8 +112,8 @@ struct Df1Ring {
 
 // step(r, load(r)) for the rows r = 0 .. rows-1 of a slot in order, in
 // groups of kGroup rows, each group's inputs read before the group before
-// computes, so the loads stay off the chain (K16, K29, K31/K33, K34, K37; a
-// read past the slot's rows takes its last row, unused).
+// computes, so the loads stay off the chain (K4, K6, K16, K29, K31/K33,
+// K34, K37; a read past the slot's rows takes its last row, unused).
 template <class Load, class Step>
 __device__ __forceinline__ void group_rows(int rows, Load load, Step step) {
   using In = decltype(load(0));
@@ -134,9 +137,9 @@ __device__ __forceinline__ void group_rows(int rows, Load load, Step step) {
   for (; r < rows; ++r) step(r, load(r));
 }
 
-// The serial warp's walk over the chunks (K16, K29, K31/K33, K34, K37; one
-// CTA a tile): chunk q's input slot full and its output slot empty, rows(k,
-// n) on slot k's n rows, then both released.
+// The serial warp's walk over the chunks (K4, K6, K16, K29, K31/K33, K34, K37;
+// one CTA a tile): chunk q's input slot full and its output slot empty,
+// rows(k, n) on slot k's n rows, then both released.
 template <class Rows>
 __device__ __forceinline__ void serial_chunks(int t, int chunk, int depth,
                                               const Rings& R, Rows rows) {
@@ -328,14 +331,67 @@ __device__ __forceinline__ void store_warp(const Pipe& p, const Rings& R,
   }
 }
 
+// An output row's word: y's int32 bits, or (F32) y rounded to the nearest
+// f32 (K1's plain version's cast), as bits.
+template <bool F32>
+__device__ __forceinline__ uint32_t out_word(uint32_t y) {
+  if constexpr (F32) {
+    return __float_as_uint(__int2float_rn(static_cast<int>(y)));
+  } else {
+    return y;
+  }
+}
+
+// The store warp that keeps rows (K1, K11, K18, K26, K27 in df1_bank.cu;
+// K4 in lowpass_bank.cu): each chunk's output slot (`out`: slot 0) to
+// p.y[0]'s kept rows (every row when dec is 1), this tile's columns [col0,
+// col0 + kLanes), as `out_word`s.  The kept rows of the chunk at r0 are
+// its rows r with (r0 + r) % dec == 0, output row (r0 + r) / dec, so a
+// chunk need not be a multiple of dec.  With p.vec, 16 bytes a thread: 8
+// threads a row of 4 lanes each, 4 rows a warp instruction; else each lane
+// its own column.
+template <bool F32>
+__device__ __forceinline__ void keep_store(const Pipe& p, int dec,
+                                           const Rings& R,
+                                           const uint32_t* out, int lid,
+                                           int col0) {
+  const int chunk = p.d.chunk;
+  const size_t c2 = static_cast<size_t>(p.c2);
+  const int w4 = 4 * (lid % 8);
+  sm90::Cursor u;
+  for (int r0 = 0; r0 < p.d.t; r0 += chunk, u.next(p.d.depth)) {
+    const int rows = min(chunk, p.d.t - r0);
+    sm90::mbar_wait(R.full_out(u.k), u.ph);
+    const uint32_t* s = out + static_cast<size_t>(u.k) * chunk * kLanes;
+    const int first = (dec - r0 % dec) % dec;  // the chunk's first kept row
+    const int kept = first < rows ? (rows - 1 - first) / dec + 1 : 0;
+    uint32_t* yr = static_cast<uint32_t*>(p.y[0]) +
+                   static_cast<size_t>((r0 + first) / dec) * c2 + col0;
+    if (p.vec) {
+      if (col0 + w4 < p.c2)
+        for (int j = lid / 8; j < kept; j += kLanes / 8) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              s + (first + j * dec) * kLanes + w4);
+          *reinterpret_cast<uint4*>(yr + j * c2 + w4) =
+              make_uint4(out_word<F32>(v.x), out_word<F32>(v.y),
+                         out_word<F32>(v.z), out_word<F32>(v.w));
+        }
+    } else if (col0 + lid < p.c2) {
+      for (int j = 0; j < kept; ++j)
+        yr[j * c2 + lid] = out_word<F32>(s[(first + j * dec) * kLanes + lid]);
+    }
+    sm90::mbar_arrive(R.empty_out(u.k));
+  }
+}
+
 // Rows [r, min(r + B, hi)) of the chunk at r0: a producer's batch.
 struct Batch {
   int r0, r, hi;
 };
 
 // Producer pw of P's walk over its span of every chunk, rows [pw * span,
-// (pw + 1) * span) (span = ceil(chunk / P)), in batches of B rows (K3,
-// K12/K13, K16, K29, K31/K33, K34, K37): for each chunk its input slot
+// (pw + 1) * span) (span = ceil(chunk / P)), in batches of B rows (K3, K4,
+// K6, K12/K13, K16, K29, K31/K33, K34, K37): for each chunk its input slot
 // empty, then for each of its batches load(next, rows, cur_rows, same) --
 // the next batch, the next chunk's first too, loaded while this one is
 // formed -- and form(batch, rows, slot k), then one arrival on the slot's
@@ -374,6 +430,40 @@ __device__ __forceinline__ void span_batches(int t, int chunk, int depth,
     }
     sm90::mbar_arrive(R.full_in(u.k));
   }
+}
+
+// Producers that copy x (K4: int32 in lowpass_bank.cu; K34: f32 in
+// structures_bank.cu): producer pw of P's span of each chunk
+// (`span_batches`), in batches of kCopyRows rows of xs (t, c2) loaded a
+// batch ahead, each row's word into the input ring (this lane's column).
+// A dead lane reads lane 0's words.
+constexpr int kCopyRows = 16;
+template <class T>
+struct CopyRows {
+  T x[kCopyRows];
+};
+
+template <class T>
+__device__ __forceinline__ void copy_feed(const Pipe& p, const Rings& R,
+                                          int pw, int lid, int lane,
+                                          bool live, const T* xs) {
+  const size_t c = static_cast<size_t>(p.c2);
+  const T* xp = xs + (live ? lane : 0);
+  span_batches<kCopyRows, CopyRows<T>>(
+      p.d.t, p.d.chunk, p.d.depth, p.producers, pw, R,
+      [&](const Batch& b, CopyRows<T>& n, const CopyRows<T>&, bool) {
+        if (b.r0 >= p.d.t) return;
+#pragma unroll
+        for (int u = 0; u < kCopyRows; ++u)
+          n.x[u] = __ldg(xp + static_cast<size_t>(
+                                  b.r0 + min(b.r + u, b.hi - 1)) * c);
+      },
+      [&](const Batch& b, const CopyRows<T>& in, int slot) {
+        T* s = reinterpret_cast<T*>(R.in_slot<1>(slot)) + lid;
+#pragma unroll
+        for (int u = 0; u < kCopyRows; ++u)
+          if (b.r + u < b.hi) s[(b.r + u) * kLanes] = in.x[u];
+      });
 }
 
 // The DF1 warp as `run_pipe`'s serial warp, its output as Out (K14, K15).

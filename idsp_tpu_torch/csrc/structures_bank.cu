@@ -21,26 +21,24 @@
 // in the plain version's order, so nvcc cannot contract them into FMAs:
 // bit-identical to the plain scans.
 //
-// What the design does: K35 and K36 run one thread per lane with the
-// state in registers, on the sequential-bank template of seq_bank.cuh (the
-// next 16 rows prefetched, rows coalesced along lanes).  K34 and K37 run
-// on df1_ring.cuh's depth-0 pipeline, a block a 32-lane tile: producer
-// warps, each a span of every chunk, load their rows a batch ahead into
-// the input ring; the serial warp, alone on its scheduler, runs the
-// recurrence from shared memory into the output ring; the store warp
-// writes the rows, 16 bytes a thread where c % 4 == 0.  K34: the
-// producers copy x; the serial warp holds lp, hp and bp, forms bp qi
-// beside bp f (off the chain) and bp f, + lp, x - lp, - bp qi, hp f, + bp
-// on it, each rounded on its own, br's hp + lp off it; one template
-// instance an output.  K37: the producers form each row's
-// words -- x, and dt = -x mod 2^dt2 with the mask in bit 31; the serial
-// warp carries the last valid timestamp (dx and one select a row, off the
-// chain) and runs the ff / f / y chain (rpll.rs:47-77), its `>> sf` one
-// template instance a regime (the host picks it); the store warp writes
-// the phase and frequency planes.  The plans (warps, producers, chunk,
-// ring depth, shared memory) are the host's (filters/svf_cuda.py
-// `svf_plan`, filters/rpll_cuda.py `rpll_plan`), which the entry points
-// check.
+// What the design does: K35 and K36 run one thread per lane with the state in
+// registers, on the sequential-bank template of seq_bank.cuh (the next 16 rows
+// prefetched, rows coalesced along lanes).  K34 and K37 run on df1_ring.cuh's
+// depth-0 pipeline, a block a 32-lane tile: producer warps, each a span of
+// every chunk, load their rows a batch ahead into the input ring; the serial
+// warp, alone on its scheduler, runs the recurrence from shared memory into
+// the output ring; the store warp writes the rows, 16 bytes a thread where
+// c % 4 == 0.  K34: the producers copy x (df1_ring.cuh `copy_feed`); the
+// serial warp holds lp, hp and bp, forms bp qi beside bp f (off the chain) and
+// bp f, + lp, x - lp, - bp qi, hp f, + bp on it, each rounded on its own, br's
+// hp + lp off it; one template instance an output.  K37: the producers form
+// each row's words -- x, and dt = -x mod 2^dt2 with the mask in bit 31; the
+// serial warp carries the last valid timestamp (dx and one select a row, off
+// the chain) and runs the ff / f / y chain (rpll.rs:47-77), its `>> sf` one
+// template instance a regime (the host picks it); the store warp writes the
+// phase and frequency planes.  The plans (warps, producers, chunk, ring depth,
+// shared memory) are the host's (filters/svf_cuda.py `svf_plan`,
+// filters/rpll_cuda.py `rpll_plan`), which the entry points check.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -66,37 +64,6 @@ struct SvfArgs {
   float *lp_out, *hp_out, *bp_out;
   float f, qi;
 };
-
-// Producer pw of P: its span of each chunk (df1_ring.cuh `span_batches`),
-// in batches of kSvf rows loaded a batch ahead, each row's x into the
-// input ring.
-constexpr int kSvf = 16;
-struct SvfRows {
-  float x[kSvf];
-};
-
-__device__ __forceinline__ void svf_feed(const SvfArgs& a, const Rings& R,
-                                         int pw, int lid, int lane,
-                                         bool live) {
-  const Pipe& p = a.p;
-  const size_t c = static_cast<size_t>(p.c2);
-  const float* xp = a.xs + (live ? lane : 0);  // dead lanes read lane 0's
-  idsp::ring::span_batches<kSvf, SvfRows>(
-      p.d.t, p.d.chunk, p.d.depth, p.producers, pw, R,
-      [&](const Batch& b, SvfRows& n, const SvfRows&, bool) {
-        if (b.r0 >= p.d.t) return;
-#pragma unroll
-        for (int u = 0; u < kSvf; ++u)
-          n.x[u] = __ldg(xp + static_cast<size_t>(
-                                  b.r0 + min(b.r + u, b.hi - 1)) * c);
-      },
-      [&](const Batch& b, const SvfRows& in, int slot) {
-        float* s = reinterpret_cast<float*>(R.in_slot<1>(slot)) + lid;
-#pragma unroll
-        for (int u = 0; u < kSvf; ++u)
-          if (b.r + u < b.hi) s[(b.r + u) * kLanes] = in.x[u];
-      });
-}
 
 // The serial warp: lp, hp and bp of its lane in registers, each row's x
 // from the input ring to the output Out -- lp (0), hp (1), bp (2) or br =
@@ -156,7 +123,8 @@ __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
   idsp::ring::run_pipe<1, 1, idsp::ring::Layout::kWide>(
       a.p, smem, SvfSerial<Out>{&a},
       [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
-        svf_feed(a, R, pw, lid, lane, live);  // one CTA a tile
+        // one CTA a tile
+        idsp::ring::copy_feed(a.p, R, pw, lid, lane, live, a.xs);
       });
 }
 

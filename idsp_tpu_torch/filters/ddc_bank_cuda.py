@@ -9,9 +9,10 @@
   anti-windup DF1 (offset and clamp before feedback);
 * `fastlo_ddc_bank_block` (K13): K12, then atan2 and the PLL.
 
-Each runs ``csrc/ddc_bank.cu`` for CUDA tensors (K6 a thread a channel;
-K12 and K13 on ``csrc/df1_ring.cuh``'s depth-0 pipeline, their plan
-`bank_plan`) and its plain PyTorch version (``*_plain``) for CPU tensors;
+Each runs ``csrc/ddc_bank.cu`` for CUDA tensors (one kernel on
+``csrc/df1_ring.cuh``'s depth-0 pipeline, its plan `bank_plan`; K6's
+serial warp the Lowpass<N> of ``csrc/lowpass.cuh``, K12/K13's the DF1) and
+its plain PyTorch version (``*_plain``) for CPU tensors;
 any other device raises.  The plain versions are the
 unfused composition: the fast-LO mix from factor tables with fine length
 ``time_chunk``, the filter bank's plain version with keep-1-in-d on the
@@ -22,7 +23,7 @@ order, the rest exact integer arithmetic).
 The time chunk is the fine-table length of the mix, so it changes the
 mix's rounding.  The JAX kernel clamps the chunk it is asked for through
 its TPU memory model (`_pick_time_chunk`); this port runs the chunk it
-is given.  K12/K13's own pipeline chunk is their plan's and changes no
+is given.  The kernel's own pipeline chunk is its plan's and changes no
 value.
 """
 
@@ -41,23 +42,24 @@ from .pipe_plan import PipePlan, pipe_plan
 from .pll import PllState, ba_list
 from .pll_cuda import pll_bank_plain, pll_state_from_words, pll_words
 
-# K12/K13's mix warps by default (and the back-end warp: 12 warps a block)
+# K6's and K12/K13's mix warps by default (and the back-end warp: 12
+# warps a block)
 BANK_PRODUCERS = 8
 
 
 def bank_plan(c: int, *, producers: int = BANK_PRODUCERS,
               **kw) -> PipePlan:
-    """K12's and K13's plan over ``c`` channels (`pipe_plan.pipe_plan` over
-    their 2c I|Q lanes): a tile is the I and the Q lanes of 16 channels,
+    """K6's, K12's and K13's plan over ``c`` channels (`pipe_plan.pipe_plan`
+    over their 2c I|Q lanes): a tile is the I and the Q lanes of 16 channels,
     so ``tiles`` is ceil(c / 16); BANK_PRODUCERS mix warps by default,
     each a span of ceil(chunk / producers) rows of every chunk; one word a
-    row and lane in (the mixed sample) and out (the DF1's y), so
+    row and lane in (the mixed sample) and out (the filter's y), so
     PIPE_CHUNK rows a chunk in 3 slots by default; one CTA a tile.  Raises
     ValueError for a plan the kernel cannot run."""
     if c < 1:
         raise ValueError(f"need c >= 1 channels, got {c}")
     if kw.get("cluster", 1) != 1:
-        raise ValueError("K12 and K13 run one CTA a tile")
+        raise ValueError("K6, K12 and K13 run one CTA a tile")
     return pipe_plan(2 * c, producers=producers, **kw)
 
 
@@ -84,7 +86,8 @@ def fastlo_ddc_bank_block_lp_plain(lp_gains, pll_ba, lp_state: LowpassState,
 
 def fastlo_ddc_bank_block_lp(lp_gains, pll_ba, lp_state: LowpassState,
                              pll_state: PllState, phase0, steps, x, *,
-                             d: int = 16, time_chunk: int = 128):
+                             d: int = 16, time_chunk: int = 128,
+                             _plan: PipePlan | None = None):
     """Fast-LO mix + Lowpass<N> I|Q bank + keep-1-in-d + atan2 + PLL,
     one kernel per block.
 
@@ -102,7 +105,8 @@ def fastlo_ddc_bank_block_lp(lp_gains, pll_ba, lp_state: LowpassState,
 
     Returns (lp_state, pll_state, new_phase0, yiq_d, y_pll): yiq_d
     (t/d, 2c) i32, y_pll (t/d, c) i32 and ``new_phase0 = phase0 +
-    steps*t`` (wrapping).
+    steps*t`` (wrapping).  The kernel's plan is `bank_plan`'s, as K12's;
+    no plan changes a value.
     """
     if x.device.type == "cpu":
         return fastlo_ddc_bank_block_lp_plain(
@@ -116,25 +120,26 @@ def fastlo_ddc_bank_block_lp(lp_gains, pll_ba, lp_state: LowpassState,
     c = phase0.shape[0]
     dev = x.device
     _check_chunking(t, d, time_chunk)
+    plan = bank_plan(c) if _plan is None else _plan
     _ext.require("x", x, dev, torch.int32, (t,))
     _ext.require("phase0", phase0, dev, torch.int32, (c,))
     _ext.require("steps", steps, dev, torch.int32, (c,))
     _ext.require("lp_state.p", lp_state.p, dev, torch.int64, (2 * c, n))
     w_in = pll_words(pll_state, c, dev)
     w_out = [torch.empty_like(w) for w in w_in]
-    ca, sa, cb, sb = fastlo_tables(phase0, steps, t, time_chunk)
+    coarse, fine = factor_pairs(fastlo_tables(phase0, steps, t, time_chunk))
     lp_out = torch.empty_like(lp_state.p)
     yiq = torch.empty((t // d, 2 * c), dtype=torch.int32, device=dev)
     ypll = torch.empty((t // d, c), dtype=torch.int32, device=dev)
     lib = _ext.library()
     with torch.cuda.device(dev):
         err = lib.idsp_ddc_bank_lp(
-            x.data_ptr(), ca.data_ptr(), sa.data_ptr(), cb.data_ptr(),
-            sb.data_ptr(), lp_state.p.data_ptr(), lp_out.data_ptr(),
-            _ext.pointers(w_in), _ext.pointers(w_out), yiq.data_ptr(),
-            ypll.data_ptr(), t, c, time_chunk, d, n, gains[0],
-            gains[1] if n == 2 else 0, *ba_list(pll_ba),
-            _ext.stream_ptr(dev),
+            x.data_ptr(), coarse.data_ptr(), fine.data_ptr(),
+            lp_state.p.data_ptr(), lp_out.data_ptr(), _ext.pointers(w_in),
+            _ext.pointers(w_out), yiq.data_ptr(), ypll.data_ptr(), t, c,
+            time_chunk, d, n, gains[0], gains[1] if n == 2 else 0,
+            *ba_list(pll_ba), plan.warps, plan.producers, plan.chunk,
+            plan.ring, plan.smem, _ext.stream_ptr(dev),
         )
     _ext.check(err, "fastlo_ddc_bank_block_lp")
     fastlo_ddc_bank_block_lp.launches += 1

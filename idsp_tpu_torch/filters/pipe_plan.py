@@ -1,20 +1,22 @@
-"""The host plan of the depth-0 pipeline of a serial recurrence that K12
-and K13 (`ddc_bank_cuda`), K14 (`ddc_cuda`), K15 (`fm_cuda`), K16
+"""The host plan of the depth-0 pipeline of a serial recurrence that K6,
+K12 and K13 (`ddc_bank_cuda`), K14 (`ddc_cuda`), K15 (`fm_cuda`), K16
 (`ddc_lockin_cuda`), K1, K11, K18, K25, K26, K27, K29, K31, K32 and K33
-(`biquad_cuda`), K34 (`svf_cuda`) and K37 (`rpll_cuda`) run:
-``csrc/df1_ring.cuh`` `run_pipe` (K1, K11, K18, K26, K27, K12/K13:
-`run_roles`); and K24's chain of such blocks, one or two a CTA, over a
-thread-block cluster (`sos_plan`, ``df1_ring.cuh`` `run_chain`).
+(`biquad_cuda`), K34 (`svf_cuda`), K37 (`rpll_cuda`) and K4
+(`lowpass_cuda`) run: ``csrc/df1_ring.cuh`` `run_pipe` (K1, K4, K11, K18,
+K26, K27, K6/K12/K13: `run_roles`); and K24's chain of such blocks, one
+or two a CTA, over a thread-block cluster (`sos_plan`, ``df1_ring.cuh``
+`run_chain`).
 
-A CUDA block is a tile of LANES lanes: the serial warp (warp 0; the DF1
-warp of K12-K15), the other warps of its scheduler idle, ``producers``
-warps that fill its input ring and one store warp that writes its output
-ring to device memory (K12/K13: a back-end warp that writes the kept
-rows, and for K13 steps the PLL; K1, K11, K18, K26, K27: a store warp
-that keeps K11's rows and converts K1's f32).  A row of a slot holds
-``win`` (input) or ``wout`` (output) 32-bit words a lane.  `pipe_plan`
-picks the warps, chunk and ring depth and sums the shared memory;
-``df1_ring.cuh`` `pipe_plan_ok` refuses a plan that is not its own.
+A CUDA block is a tile of LANES lanes: the serial warp (warp 0; the DF1 warp of
+K12-K15, the Lowpass serial warp of K4 and K6), the other warps of its
+scheduler idle, ``producers`` warps that fill its input ring and one store warp
+that writes its output ring to device memory (K6, K12/K13: a back-end warp that
+writes the kept rows, and for K6 and K13 steps the PLL, K6 writing its output;
+K1, K4, K11, K18, K26, K27: a store warp that keeps K4's and K11's rows and
+converts K1's f32).  A row of a slot holds ``win`` (input) or ``wout`` (output)
+32-bit words a lane.  `pipe_plan` picks the warps, chunk and ring depth and
+sums the shared memory; ``df1_ring.cuh`` `pipe_plan_ok` refuses a plan that is
+not its own.
 """
 
 from __future__ import annotations

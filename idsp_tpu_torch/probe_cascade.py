@@ -1,10 +1,11 @@
 """Where K2, K3, K19-K21 (`csrc/ddc_cascade.cu`), K12/K13, K14 and K15
 (`csrc/ddc_bank.cu`, `csrc/ddc_mix_df1.cu`, `csrc/fm_disc.cu`, all on
 `csrc/df1_ring.cuh`'s DF1 warp), K16, K29, K31 and K37, K34, K1, K11,
-K18, K26, K25/K32 (`csrc/ddc_lockin.cu`, `csrc/biquad_precision.cu`,
-`csrc/structures_bank.cu`, `csrc/df1_bank.cu`, `csrc/biquad_bank.cu`,
-on its depth-0 pipeline with serial warps of their own) and K24 (on a
-chain of such blocks over a cluster) spend their time on the card.
+K18, K26, K25/K32, K4 and K6 (`csrc/ddc_lockin.cu`,
+`csrc/biquad_precision.cu`, `csrc/structures_bank.cu`, `csrc/df1_bank.cu`,
+`csrc/biquad_bank.cu`, `csrc/lowpass_bank.cu`, `csrc/ddc_bank.cu`, on its
+depth-0 pipeline with serial warps of their own) and K24 (on a chain of
+such blocks over a cluster) spend their time on the card.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -74,9 +75,17 @@ deemphasis lowpass at 0.02):
   unclamped and clamped at (0, +-2^30)) and K32 (the per-lane planes):
   K25's plan sweep (`biquad_cuda.wide_plan`) and the stamps of all
   three;
+* K4 (2048 lanes of x in +-2^27, d = 16) and K6 (c = 1024 channels, x in
+  +-2^27, full-range steps, d = 16, time chunk 128), each with the #5
+  bank's gains (`lowpass.gains2(0.004)`; N = 1: `gains1(0.01)`): their plan
+  sweeps (`lowpass_cuda.lowpass_plan`: producers, chunk, ring;
+  `ddc_bank_cuda.bank_plan`: producers, chunk, ring), their times at N = 1
+  and 2, and the stamps (K4: the serial warp, producer 0, `keep_store`;
+  K6: the serial warp, producer 0, the back end);
 * the SASS of the built library (`cuobjdump -sass`): the largest loops of
-  K24's, K25/K32's and K1's kernels with their instruction counts (the
-  serial warp's 8-row group among them).
+  K24's, K25/K32's, K1's and the Lowpass serial warp's kernels (K4 and K6
+  at N = 1 and 2) with their instruction counts (the serial warp's 8-row
+  group among them).
 
 A time is the median of 3 trials of 20 chained launches (CUDA events,
 `profiling.measure_rate`); a stamp is SM clock cycles, the median over
@@ -98,8 +107,8 @@ import torch
 
 from . import _ext, design
 from .filters import biquad, biquad_cuda, ddc_bank_cuda, ddc_cuda, fm_cuda
-from .filters import ddc_lockin_cuda, hbf, pll, rpll, rpll_cuda, svf
-from .filters import svf_cuda
+from .filters import ddc_lockin_cuda, hbf, lowpass, lowpass_cuda, pll, rpll
+from .filters import rpll_cuda, svf, svf_cuda
 from .filters.pipe_plan import sos_plan
 from .ops.fastlo import factor_pairs, fastlo_tables
 from .pipelines import fm_disc
@@ -140,7 +149,8 @@ def _df1_copy(src):
 def _pipe_stamps(ring, kernel):
     """A depth-0 kernel's stamps of block 0 (df1_ring.cuh, the kernel's
     .cu): 0/1 the serial warp's compute start/end, 2/3 producer 0's chunk
-    start (after its wait) and end, 4/5 the store warp's."""
+    start (after its wait) and end, 4/5 the store warp's (`store_warp`, or
+    `keep_store`: K1, K11, K18, K26, K27 and K4)."""
     g = "idsp::ring::g_stamps"
     at = f"blockIdx.x == 0 && lid == 0 && q < {STAMPS}"
     ring = _df1_stamps(ring)
@@ -151,6 +161,15 @@ def _pipe_stamps(ring, kernel):
                      "    const int q = r0 / chunk;\n"
                      f"    if ({at}) g_stamps[4][q] = clock64();\n")
     ring = _patch_fn(ring, store, "    sm90::mbar_arrive(R.empty_out(u.k));\n",
+                     f"    if ({at}) g_stamps[5][q] = clock64();\n"
+                     "    sm90::mbar_arrive(R.empty_out(u.k));\n")
+    keep = "void keep_store("
+    ring = _patch_fn(ring, keep,
+                     "    sm90::mbar_wait(R.full_out(u.k), u.ph);\n",
+                     "    sm90::mbar_wait(R.full_out(u.k), u.ph);\n"
+                     "    const int q = r0 / chunk;\n"
+                     f"    if ({at}) g_stamps[4][q] = clock64();\n")
+    ring = _patch_fn(ring, keep, "    sm90::mbar_arrive(R.empty_out(u.k));\n",
                      f"    if ({at}) g_stamps[5][q] = clock64();\n"
                      "    sm90::mbar_arrive(R.empty_out(u.k));\n")
     loop = re.findall(r"for \(int r0 = 0;[^\n]*u\.next\(p\.d\.depth\)\) \{\n",
@@ -207,8 +226,8 @@ def _df1_stamps(ring):
 
 def _back_stamps(ring, name):
     """The stamps of block 0 of a `run_roles` kernel whose store warp is
-    its own (K12/K13's back end, ddc_bank.cu; K1, K11, K18, K26 and K27's
-    `keep_store`, df1_bank.cu): the serial warp's and producer 0's
+    its own (K6's and K12/K13's back end, ddc_bank.cu): the serial warp's
+    and producer 0's
     (`_pipe_stamps`: their producers walk df1_ring.cuh's `span_batches`),
     4/5 the kernel's own store warp's."""
     bank = _read(name)
@@ -384,20 +403,21 @@ DF1_PIPE_SOURCES = ("ddc_mix_df1.cu", "fm_disc.cu")  # K14, K15
 PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K29, K31/K33
                                    "structures_bank.cu",  # K34, K37
                                    "ddc_lockin.cu",  # K16
-                                   "biquad_bank.cu")  # K25/K32
+                                   "biquad_bank.cu",  # K25/K32
+                                   "df1_bank.cu",  # K1, K11, K18, K26, K27
+                                   "lowpass_bank.cu")  # K4
 
 
 def pipe_variants() -> dict:
-    """K13's, K14's, K15's, K16's, K29's, K31's, K34's and K37's
-    variants: name -> {file: source}; each builds its .cu files."""
+    """K4's, K6's, K13's, K14's, K15's, K16's, K29's, K31's, K34's and
+    K37's variants: name -> {file: source}; each builds its .cu files."""
     ring = _read("df1_ring.cuh")
     out = {"df1_copy": {"df1_ring.cuh": _df1_copy(ring),
                         **{f: _read(f) for f in DF1_PIPE_SOURCES}}}
     for f in PIPE_SOURCES:  # one library each: one g_stamps a library
         r, k = _pipe_stamps(ring, _read(f))
         out[f"stamps_{f[:-3]}"] = {"df1_ring.cuh": r, f: k}
-    for f in ("ddc_bank.cu", "df1_bank.cu"):  # K12/K13; K1, K11, K18, K26
-        out[f"stamps_{f[:-3]}"] = _back_stamps(ring, f)  # and K27
+    out["stamps_ddc_bank"] = _back_stamps(ring, "ddc_bank.cu")  # K6, K12/K13
     out["chain_stamps"] = _chain_stamps(ring, _read("biquad_bank.cu"))  # K24
     return out
 
@@ -579,8 +599,8 @@ def _stamp_rows(lib, launch, chunk, series) -> dict:
 
 
 def _pipe(dev, card, libs, package, result) -> None:
-    """K1, K11, K12/K13, K14, K15, K16, K18, K26, K29, K31, K34 and K37:
-    the plan sweep, the variants, the per-role stamps."""
+    """K1, K4, K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, K29, K31, K34
+    and K37: the plan sweep, the variants, the per-role stamps."""
     ba = biquad.quantize_ba(biquad.from_cookbook(
         design.Filter().critical_frequency(0.02).lowpass()), 29)
     bf = fm_disc.deemphasis_coefficients(0.02)
@@ -660,6 +680,20 @@ def _pipe(dev, card, libs, package, result) -> None:
         0.002).lowpass()).astype(np.float32)
     lo_lk = np.linspace(0.05, 0.45, 512)
     x_lk = torch.from_numpy(rng.normal(size=T).astype(np.float32)).to(dev)
+
+    lp_gains = {1: lowpass.gains1(0.01), 2: lowpass.gains2(0.004)}
+    xs_lp = i32((T, 2048), -(2**27), 2**27)
+
+    def k4(plan=None, n=2):
+        return lowpass_cuda.lowpass_bank(
+            lp_gains[n], lowpass.init(n, (2048,), device=dev), xs_lp, dec=16,
+            _plan=plan)
+
+    def k6(plan=None, n=2):
+        return ddc_bank_cuda.fastlo_ddc_bank_block_lp(
+            lp_gains[n], pll_ba, lowpass.init(n, (2048,), device=dev),
+            pll.init((1024,), device=dev), *bank_in, x, d=16, time_chunk=TC,
+            _plan=plan)
 
     def k16(plan=None):
         return ddc_lockin_cuda.ddc_lockin_bank(
@@ -750,6 +784,17 @@ def _pipe(dev, card, libs, package, result) -> None:
                [dict(producers=p) for p in (4, 5, 11)]
                + [dict(chunk=256, ring=2), dict(chunk=128, ring=6),
                   dict(chunk=64, ring=4), dict(chunk=32, ring=8)]),
+              ("K4 c=2048", k4,
+               lambda **kw: lowpass_cuda.lowpass_plan(2048, **kw),
+               [dict(producers=p) for p in (3, 4, 6, 7, 8, 11)]
+               + [dict(chunk=128, ring=r) for r in (2, 3, 6)]
+               + [dict(chunk=256, ring=2), dict(chunk=64, ring=4),
+                  dict(chunk=32, ring=8)]),
+              ("K6 c=1024", k6,
+               lambda **kw: ddc_bank_cuda.bank_plan(1024, **kw),
+               [dict(producers=p) for p in (4, 5, 6, 7, 9, 10, 11)]
+               + [dict(chunk=256, ring=2), dict(chunk=128, ring=6),
+                  dict(chunk=64, ring=4)]),
               ("K16 c=512", k16,
                lambda **kw: ddc_lockin_cuda.lockin_plan(512, **kw),
                [dict(producers=p) for p in (3, 5, 11)]
@@ -802,6 +847,10 @@ def _pipe(dev, card, libs, package, result) -> None:
          "K24 c=1024": _ms(k24), "K25 c=1024": _ms(k25),
          "K25 clamp c=1024": _ms(lambda: k25(clamp=(0, -(2**30), 2**30))),
          "K32 c=1024": _ms(k32)})
+    lp_timed = {"K4 c=2048": k4, "K4 N=1 c=2048": lambda: k4(n=1),
+                "K6 c=1024": k6, "K6 N=1 c=1024": lambda: k6(n=1)}
+    result["pipe_variants"]["package"].update(
+        {k: _ms(fn) for k, fn in lp_timed.items()})
     _ext._lib = libs["pipe_df1_copy"]
     result["pipe_variants"]["df1_copy"] = {k: _ms(fn)
                                            for k, fn in timed.items()}
@@ -817,7 +866,9 @@ def _pipe(dev, card, libs, package, result) -> None:
               "K31 c=1024": biquad_cuda.dither_plan(1024).chunk,
               "K34 c=1024": svf_cuda.svf_plan(1024).chunk,
               "K13 c=1024": ddc_bank_cuda.bank_plan(1024).chunk,
-              "K16 c=512": ddc_lockin_cuda.lockin_plan(512).chunk}
+              "K16 c=512": ddc_lockin_cuda.lockin_plan(512).chunk,
+              "K4 c=2048": lowpass_cuda.lowpass_plan(2048).chunk,
+              "K6 c=1024": ddc_bank_cuda.bank_plan(1024).chunk}
     chunks.update({k: biquad_cuda.df1_plan(1024).chunk for k in (
         "K1 c=512", "K11 c=1024", "K18 c=512", "K26 c=1024")})
     chunks.update({k: biquad_cuda.wide_plan(1024).chunk for k in (
@@ -832,6 +883,8 @@ def _pipe(dev, card, libs, package, result) -> None:
             ("K34 c=1024", "stamps_structures_bank", k34),
             ("K13 c=1024", "stamps_ddc_bank", k13),
             ("K16 c=512", "stamps_ddc_lockin", k16),
+            ("K4 c=2048", "stamps_lowpass_bank", k4),
+            ("K6 c=1024", "stamps_ddc_bank", k6),
             ("K1 c=512", "stamps_df1_bank", k1),
             ("K11 c=1024", "stamps_df1_bank", k11),
             ("K18 c=512", "stamps_df1_bank", k18),
@@ -848,9 +901,12 @@ def _pipe(dev, card, libs, package, result) -> None:
     _chain(libs["pipe_chain_stamps"], k24, card, result)
     _ext._lib = package
     so = next(_ext.BUILD_ROOT.glob("*/libidsp_tpu_torch.so"))
+    lp_syms = (("K4 N=1", "lowpass_pipe_kernelILi1"),
+               ("K4 N=2", "lowpass_pipe_kernelILi2"),
+               ("K6 N=1", "BankLpSerialILi1"), ("K6 N=2", "BankLpSerialILi2"))
     result["sass_loops"] = {k: sass_loops(str(so), sym) for k, sym in (
         ("K24", "sos_chain_kernelILb0"), ("K25/K32", "df1_wide_pipe_kernel"),
-        ("K1", "df1_pipe_kernelILb0ELb0ELb0ELb0"))}
+        ("K1", "df1_pipe_kernelILb0ELb0ELb0ELb0")) + lp_syms}
     for k, loops in result["sass_loops"].items():
         print(f"sass {k}: {loops}", flush=True)
 
@@ -886,9 +942,9 @@ def _chain(lib, k24, card, result) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("cascade", "pipe"),
-                    help="K2/K3/K19-K21, or the depth-0 kernels (K1, K11, "
-                         "K12/K13, K14, K15, K16, K18, K26, K29, K31, K34, "
-                         "K37) alone")
+                    help="K2/K3/K19-K21, or the depth-0 kernels (K1, K4, "
+                         "K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, "
+                         "K29, K31, K34, K37) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_cascade times the CUDA device; none is "

@@ -82,6 +82,7 @@ from idsp_tpu_torch.filters.cic_cuda import (
     cic_int_bank_plain,
 )
 from idsp_tpu_torch.filters.ddc_bank_cuda import (
+    bank_plan,
     fastlo_ddc_bank_block,
     fastlo_ddc_bank_block_lp,
     fastlo_ddc_bank_block_lp_plain,
@@ -108,7 +109,11 @@ from idsp_tpu_torch.filters.ddc_lockin_cuda import (
     ddc_lockin_bank_plain,
 )
 from idsp_tpu_torch.filters.fm_cuda import fm_disc_bank, fm_disc_bank_plain
-from idsp_tpu_torch.filters.lowpass_cuda import lowpass_bank, lowpass_bank_plain
+from idsp_tpu_torch.filters.lowpass_cuda import (
+    lowpass_bank,
+    lowpass_bank_plain,
+    lowpass_plan,
+)
 from idsp_tpu_torch.filters.pll_cuda import pll_bank, pll_bank_plain
 from idsp_tpu_torch.filters import normal, rpll, svf, wdf
 from idsp_tpu_torch.filters.normal_cuda import (
@@ -275,6 +280,124 @@ def test_fastlo_ddc_bank_lp_kernel_equals_plain(cuda, n, tc):
         torch.cuda.synchronize()
         _equal(out, out_p)
         carry, carry_p = out[:3], out_p[:3]
+
+
+def _lp_edge_state(rng, shape, device):
+    """Lowpass state words within 2^40 of int64's ends, or of 0."""
+    base = rng.choice(np.array([-(2**63), 0, 2**63 - 1], np.int64), shape)
+    off = rng.integers(0, 2**40, shape, dtype=np.int64)
+    return lowpass.LowpassState(p=torch.from_numpy(
+        np.where(base < 0, base + off, base - off)).to(device))
+
+
+# K4 at the depth-0 pipeline's edges: (N, lanes, t, dec, plan keywords);
+# states at int64's edges, x a third at int32's ends: the subtract
+# saturates and the regrouped sums wrap; `_lp_gains`
+LP_PIPE_EDGES = [
+    (2, 64, 999, 3, dict(chunk=40, ring=3)),       # chunk % dec, t % chunk
+    (1, 33, 1, 1, {}),                             # t = 1
+    (2, 50, 100, 1, dict(producers=3)),            # t under a chunk
+    (1, 40, 7 * 64 + 48, 16, dict(chunk=24, producers=11, warps=16)),
+    (2, 2048, 1024, 16, {}),                       # the bank's lanes
+]
+
+
+def _lp_gains(kind, n):
+    """Lowpass gains: the #5 bank's, gains of 2^30 and opposite signs, or
+    int32's ends (e k0 = 2^62)."""
+    if kind == "bank":
+        return lowpass.gains1(0.01) if n == 1 else lowpass.gains2(0.004)
+    if kind == "mixed":
+        return np.array([-(2**30), 2**30 - 1][:n], np.int32)
+    return np.array([-(2**31), 2**31 - 1][:n], np.int32)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("gains", ["bank", "mixed", "edge"])
+@pytest.mark.parametrize("n,c,t,dec,kw", LP_PIPE_EDGES)
+def test_lowpass_bank_kernel_at_the_edges(cuda, n, c, t, dec, kw, gains):
+    rng = np.random.default_rng(40 + c)
+    k = _lp_gains(gains, n)
+    st = _lp_edge_state(rng, (c, n), cuda)
+    st_p, plan = st, lowpass_plan(c, **kw)
+    for _ in range(2):
+        xs = _i32(rng, (t, c), device=cuda)
+        xs[::3] = 2**31 - 1
+        xs[1::5] = -(2**31)
+        st, ys = lowpass_bank(k, st, xs, dec=dec, _plan=plan)
+        st_p, ys_p = lowpass_bank_plain(k, st_p, xs, dec=dec)
+        torch.cuda.synchronize()
+        _equal((st.p, ys), (st_p.p, ys_p))
+
+
+# K6 at the edges of K12/K13's kernel: (N, c, t, d, time chunk, plan
+# keywords); states at int64's edges, so the subtract saturates on the
+# mixed stream
+K6_PIPE_EDGES = [
+    (2, 1024, 2048, 16, 128, {}),                       # the bank's width
+    (2, 20, 40, 1, 8, dict(chunk=16, ring=2)),          # every row kept
+    (1, 17, 256, 4, 128, dict(chunk=96)),               # 17 channels
+    (2, 3, 96, 16, 48, dict(chunk=8, ring=4)),          # chunks under d
+    (1, 1, 64, 4, 16, dict(chunk=12, producers=1)),     # one channel
+    (2, 9, 1024, 8, 512, dict(chunk=256, producers=11, warps=16)),
+    (2, 40, 768, 16, 32, dict(chunk=64, producers=3)),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("gains", ["bank", "mixed", "edge"])
+@pytest.mark.parametrize("n,c,t,d,tc,kw", K6_PIPE_EDGES)
+def test_fastlo_ddc_bank_lp_kernel_at_the_edges(cuda, n, c, t, d, tc, kw,
+                                                gains):
+    rng = np.random.default_rng(45 + c)
+    k = _lp_gains(gains, n)
+    ba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    steps = _i32(rng, (c,), device=cuda)
+    carry = (_lp_edge_state(rng, (2 * c, n), cuda),
+             pll_bank_plain(ba, pll.init((c,), device=cuda),
+                            _i32(rng, (7, c), device=cuda))[0],
+             _i32(rng, (c,), device=cuda))
+    carry_p, plan = carry, bank_plan(c, **kw)
+    for _ in range(2):
+        x = _i32(rng, (t,), -(2**27), 2**27, device=cuda)
+        out = fastlo_ddc_bank_block_lp(k, ba, *carry, steps, x, d=d,
+                                       time_chunk=tc, _plan=plan)
+        out_p = fastlo_ddc_bank_block_lp_plain(k, ba, *carry_p, steps, x,
+                                               d=d, time_chunk=tc)
+        torch.cuda.synchronize()
+        _equal(out, out_p)
+        carry, carry_p = out[:3], out_p[:3]
+
+
+@pytest.mark.requires_cuda
+def test_lowpass_entries_refuse_a_plan_not_their_own(cuda):
+    """K4's and K6's entry points refuse a plan whose shared memory is not
+    the kernel's own sum, or roles that do not fit the warps (RuntimeError,
+    nothing launched); the next launch runs as usual."""
+    c, t = 64, 256
+    rng = np.random.default_rng(4)
+    k = lowpass.gains2(0.004)
+    ba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    st = lowpass.init(2, (c,), device=cuda)
+    xs = _i32(rng, (t, c), -(2**27), 2**27, device=cuda)
+    plan = lowpass_plan(c)
+    lp = lowpass.init(2, (2 * c,), device=cuda)
+    pst = pll.init((c,), device=cuda)
+    ph = _i32(rng, (c,), device=cuda)
+    x = _i32(rng, (t,), -(2**27), 2**27, device=cuda)
+    bplan = bank_plan(c)
+    for bad, bbad in ((plan._replace(smem=plan.smem - 32),
+                       bplan._replace(smem=bplan.smem + 32)),
+                      (plan._replace(producers=6),  # 8 roles in 6 places
+                       bplan._replace(producers=9))):  # 10 roles in 9
+        with pytest.raises(RuntimeError):
+            lowpass_bank(k, st, xs, dec=16, _plan=bad)
+        with pytest.raises(RuntimeError):
+            fastlo_ddc_bank_block_lp(k, ba, lp, pst, ph, ph, x, _plan=bbad)
+    _equal(lowpass_bank(k, st, xs, dec=16),
+           lowpass_bank_plain(k, st, xs, dec=16))
+    _equal(fastlo_ddc_bank_block_lp(k, ba, lp, pst, ph, ph, x),
+           fastlo_ddc_bank_block_lp_plain(k, ba, lp, pst, ph, ph, x))
 
 
 @pytest.mark.requires_cuda

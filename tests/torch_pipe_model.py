@@ -7,9 +7,11 @@ K12/K13 (tests/test_torch_ddc_bank_plan.py) and K16
 (tests/test_torch_lockin_plan.py), with the producer and serial-warp
 arithmetic of K31/K33 (`dither_model`), K1, K11, K18, K26 and K27
 (`df1w_model`, tests/test_torch_df1_plan.py), K25/K32 (`wide_model`,
-tests/test_torch_wide_plan.py), K34 (`svf_model`), K12/K13 (`bank_model`,
-with its back end) and K16 (`lockin_model`); and K24's chain of such
-blocks over a cluster (`sos_model`, tests/test_torch_sos_plan.py).
+tests/test_torch_wide_plan.py), K34 (`svf_model`), K12/K13 and K6
+(`bank_model`, with its back end; K6 with the Lowpass serial warp), K16
+(`lockin_model`) and K4 (`lowpass_model`, tests/test_torch_lowpass_plan.py);
+and K24's chain of such blocks over a cluster (`sos_model`,
+tests/test_torch_sos_plan.py).
 
 Each role of a CUDA block is a coroutine that yields a test before each
 mbarrier wait; the roles run in a seeded random order among those whose
@@ -590,6 +592,81 @@ def svf_model(f, qi, state, xs, plan, *, output="lp", seed=0):
     return new, torch.from_numpy(ys)
 
 
+def lp_rows(k, p, xs):
+    """The Lowpass serial warp's rows (``csrc/lowpass.cuh`` `lp_step`):
+    e = x - (p0 >> 32) saturating in int32, E = e k0; N = 1: y = (p0 + E)
+    >> 32, p0 = (p0 + E) + E; N = 2: q = (p1 + (p1 >> 32) k1) + E, y = (p0
+    + q) >> 32, p0 = p0 + q + q, p1 = q + q - p1; numpy uint64 words, the
+    sums wrapping mod 2^64.  ``k`` the N gains, ``p`` [p0, p1 or None]
+    uint64 lane vectors, updated; ``xs`` (rows, lanes) int64 words of
+    int32 values.  Returns y (rows, lanes) int64."""
+    k0 = np.int64(k[0])
+    p0, p1 = p
+    out = np.empty(xs.shape, np.int64)
+    for j, x in enumerate(np.asarray(xs, np.int64)):
+        h0 = _i32_bits(p0 >> np.uint64(32)).astype(np.int64)
+        E = _u64(np.clip(x - h0, -(2**31), 2**31 - 1) * k0)
+        if p1 is None:
+            y = p0 + E
+            p0 = y + E
+        else:
+            h = _i32_bits(p1 >> np.uint64(32)).astype(np.int64)
+            q = p1 + _u64(h * np.int64(k[1])) + E
+            y = p0 + q
+            p0 = p0 + q + q
+            p1 = q + q - p1
+        out[j] = _i32_bits(y >> np.uint64(32))
+    p[:] = [p0, p1]
+    return out
+
+
+def _lp_words(state, rows=None):
+    """A LowpassState's p0 and p1 (or None) as uint64 lane vectors, of the
+    state rows ``rows`` (all by default; 0 where a row is negative)."""
+    p = state.p.numpy().astype(np.int64)
+    if rows is not None:
+        p = np.where((rows >= 0)[:, None], p[np.maximum(rows, 0)], 0)
+    return [_u64(p[:, 0]).copy(),
+            _u64(p[:, 1]).copy() if p.shape[1] == 2 else None]
+
+
+def lowpass_model(k, state, xs, plan, *, dec=1, seed=0):
+    """K4 as the kernel runs it (``csrc/lowpass_bank.cu``): the producers
+    copy x by spans, the serial warp runs `lp_rows`, the store warp keeps
+    the block's rows r with r % dec == 0 whatever the chunk
+    (df1_ring.cuh `keep_store`).  Returns (LowpassState, ys int32) like
+    `lowpass_bank_plain`."""
+    from idsp_tpu_torch.filters.lowpass import LowpassState
+
+    t, c = xs.shape
+    k = [int(v) for v in np.asarray(k).reshape(-1)]
+    p = _lp_words(state)
+    xw = xs.numpy().astype(np.int64)
+
+    def produce(r0, idx):
+        return xw[r0 + idx][..., None]
+
+    def serial(words):
+        return lp_rows(k, p, words[..., 0])[..., None]
+
+    kept = np.zeros((t // dec, c), np.int64)
+    once = np.zeros(t // dec, np.int64)
+
+    def back(r0, words):
+        r = np.arange(len(words))
+        keep = (r0 + r) % dec == 0
+        kept[(r0 + r[keep]) // dec] = words[keep, :, 0]
+        once[(r0 + r[keep]) // dec] += 1
+
+    with np.errstate(over="ignore"):
+        pipe_run(t, c, plan, produce, span_rows, serial, seed=seed,
+                 back=back)
+    assert bool((once == 1).all()), "a kept row written twice or never"
+    new = LowpassState(p=torch.from_numpy(np.stack(
+        [v for v in p if v is not None], 1).view(np.int64).copy()))
+    return new, torch.from_numpy(kept.astype(np.int32))
+
+
 PAIR = 16  # channels of a K12/K13 tile
 
 
@@ -607,7 +684,8 @@ def pair_lanes(c):
 
 
 def bank_model(ba, f, state, phase0, steps, x, plan, *, d, time_chunk,
-               clamp=None, pll_ba=None, pll_state=None, seed=0):
+               clamp=None, pll_ba=None, pll_state=None, lp_gains=None,
+               seed=0):
     """K12 (``pll_state`` None; with ``clamp`` the anti-windup DF1) or K13
     as the kernel runs it (``csrc/ddc_bank.cu``): the paired lane map
     (`pair_lanes`); the mix warps by spans, row r with the coarse factor
@@ -620,7 +698,12 @@ def bank_model(ba, f, state, phase0, steps, x, plan, *, d, time_chunk,
     two kept rows at once (the second row index clamped to the chunk's
     last) and one PLL step each, the second only where it is in the
     chunk.  Returns (Df1State, PllState or None, yiq int32) like
-    `fastlo_df1_dec_bank_plain` / `fastlo_ddc_bank_block_plain`."""
+    `fastlo_df1_dec_bank_plain` / `fastlo_ddc_bank_block_plain`.  With
+    ``lp_gains`` (K6; ``ba``, ``f`` and ``clamp`` unused) ``state`` is a
+    LowpassState (2c, N), the serial warp is `lp_rows` on the paired
+    lanes' state rows and the back end also writes each PLL step's output
+    to y_pll at row (r0 + r) // d; returns (LowpassState, PllState, yiq
+    int32, y_pll int32) like `fastlo_ddc_bank_block_lp_plain`'s."""
     from idsp_tpu_torch.filters.biquad import Df1State
     from idsp_tpu_torch.filters.pll_cuda import pll_bank_plain
     from idsp_tpu_torch.ops.fastlo import AMPLITUDE, fastlo_tables
@@ -650,16 +733,25 @@ def bank_model(ba, f, state, phase0, steps, x, plan, *, d, time_chunk,
     def lanes_of(v):
         return torch.from_numpy(np.where(live, v.numpy()[rows_live], 0))
 
-    s = [lanes_of(state.x[:, 0].to(torch.int64)),
-         lanes_of(state.x[:, 1].to(torch.int64)),
-         lanes_of(state.y[:, 0].to(torch.int64)),
-         lanes_of(state.y[:, 1].to(torch.int64))]
+    if lp_gains is None:
+        s = [lanes_of(state.x[:, 0].to(torch.int64)),
+             lanes_of(state.x[:, 1].to(torch.int64)),
+             lanes_of(state.y[:, 0].to(torch.int64)),
+             lanes_of(state.y[:, 1].to(torch.int64))]
 
-    def df1(words):
-        return df1_rows(ba, f, s, torch.from_numpy(words[..., 0]),
-                        clamp).numpy()[..., None]
+        def serial(words):
+            return df1_rows(ba, f, s, torch.from_numpy(words[..., 0]),
+                            clamp).numpy()[..., None]
+    else:
+        k = [int(v) for v in np.asarray(lp_gains).reshape(-1)]
+        lp = _lp_words(state, np.where(live, row, -1))
+
+        def serial(words):
+            with np.errstate(over="ignore"):
+                return lp_rows(k, lp, words[..., 0])[..., None]
 
     yiq = np.zeros((t // d, 2 * c), np.int64)
+    ypll = np.zeros((t // d, c), np.int64)
     kept_once = np.zeros(t // d, np.int64)
     i_lanes, q_lanes = live & ~is_q, live & is_q  # each in channel order
     pll = [pll_state]
@@ -676,11 +768,24 @@ def bank_model(ba, f, state, phase0, steps, x, plan, *, d, time_chunk,
             w = words[pair, :, 0].astype(np.int32)
             ang = atan2(torch.from_numpy(w[:, q_lanes]),
                         torch.from_numpy(w[:, i_lanes]))
-            pll[0], _ = pll_bank_plain(pll_ba, pll[0],
-                                       ang[:2 if r + d < n else 1])
+            two = r + d < n
+            pll[0], yp = pll_bank_plain(pll_ba, pll[0], ang[:2 if two else 1])
+            ypll[(r0 + r) // d] = yp[0].numpy()
+            if two:
+                ypll[(r0 + r) // d + 1] = yp[1].numpy()
 
-    pipe_run(t, lanes, plan, produce, span_rows, df1, seed=seed, back=back)
+    pipe_run(t, lanes, plan, produce, span_rows, serial, seed=seed,
+             back=back)
     assert bool((kept_once == 1).all()), "a kept row written twice or never"
+    if lp_gains is not None:
+        from idsp_tpu_torch.filters.lowpass import LowpassState
+
+        words = np.stack([v for v in lp if v is not None], 1).view(np.int64)
+        p_new = state.p.clone()
+        p_new[torch.from_numpy(row[live])] = torch.from_numpy(words[live])
+        return (LowpassState(p=p_new), pll[0],
+                torch.from_numpy(yiq.astype(np.int32)),
+                torch.from_numpy(ypll.astype(np.int32)))
     sx, sy = state.x.clone(), state.y.clone()
     at, on = torch.from_numpy(row[live]), torch.from_numpy(live)
     for j, v in enumerate(s):
