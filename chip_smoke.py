@@ -70,8 +70,10 @@ Phases, each reported on its own line:
    over 2 blocks, bit for bit; K31, K33 and K34 at that pipeline's edges
    (t = 1, t under a chunk, t = 3 chunks + 17, a forced plan of 16-row
    chunks; c = 200, 50, 1 and 200; K31 at f 29 unclamped and clamped, f
-   1 and f 32, K33 per-lane and shared, K34 each output) over 2 blocks,
-   and K31 at f 1 and 32 on a block whose 64-bit sums wrap, bit for bit;
+   1 and f 32, K33 per-lane and shared, K34 each output, K35 at f 29, 1,
+   32, 33 and 63 with full-range coefficients, x and state, whose 64-bit
+   sums wrap, K36) over 2 blocks, and K31 at f 1 and 32 on a block whose
+   64-bit sums wrap, bit for bit;
    K12 (unclamped and with CLAMP) and K13 at that pipeline's edges
    (chunks other than the time chunk and not multiples of d, chunks
    under d, t not a multiple of the chunk, c = 17, 3, 1, d = 1, 5 and 3
@@ -282,8 +284,7 @@ Phases, each reported on its own line:
    K32 also by its profiler spans);
    K34-K40 at c=1024 lanes with their rates and their plain versions'
    times from phase 3 (K40 over wdf-ca-7 on the log only), K29, K31,
-   K33, K34 and K37-K40 also by their profiler spans, device ms a
-   launch;
+   K33 and K34-K40 also by their profiler spans, device ms a launch;
    K41 at h = 1, 2, 90 on (8192, 1024) f32 blocks, timed by the ranks
    at the end of phase 4 once the parent is done: the median of 20 calls
    with CUDA events (host gate included; 4 time-sliced processes on one
@@ -396,6 +397,8 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "df1_dither_bank": "df1_dither_kernel",
                   "df1_dither_bank_coef": "df1_dither_kernel",
                   "svf_bank": "svf_kernel",
+                  "normal_bank_q": "normal_q_kernel",
+                  "normal_bank_f32": "normal_f32_kernel",
                   "rpll_bank": "rpll_kernel",
                   "fm_disc_bank": "fm_disc_kernel",
                   "fm_disc_bank_fast": "fm_disc_kernel",
@@ -652,9 +655,11 @@ def work(name, c, t=T):
     if name == "svf_bank":  # lp: 4 products and 3 adds; 3 words in and out
         return _w(8 * t * c + 24 * c, 7 * t * c, 0, t, 6)
     if name == "normal_bank_q":  # 7 products, 5 adds, 2 shifts, 2 narrows;
-        # on the chain the y1 product, two adds, the shift
-        return _w(8 * t * c + 32 * c, 0, 16 * t * c, t, 4)
-    if name == "normal_bank_f32":  # 7 products and 5 adds, one by one
+        # on the chain (W from the producers) p_re y1's multiply-add onto W,
+        # -p_im y0's onto that, the shift (acc0: two, then its shift)
+        return _w(8 * t * c + 32 * c, 0, 16 * t * c, t, 3)
+    if name == "normal_bank_f32":  # 7 products and 5 adds, one by one; on
+        # the chain (s from the producers) p_re y1, + s, - p_im y0
         return _w(8 * t * c + 32 * c, 12 * t * c, 0, t, 3)
     if name == "rpll_bank":  # 4 B x, a mask byte in, phase and frequency
         # out; per sample the phase add, dx, the u32 x u32 -> u64 product,
@@ -2130,23 +2135,31 @@ def check_serial_pipe_edges(dev, i32, errs):
 
 
 def check_depth0_edges(dev, i32, errs):
-    """Phase 3 for K31, K33 and K34 at the edges of the depth-0 pipeline,
-    each against its plain version over 2 carried blocks, tolerance 0
-    (into errs under the kernel's own name): t = 1 (c = 200), t under a
-    chunk (c = 50), t = 3 chunks + 17 (c = 1: one live lane of a tile),
-    and a forced plan of 16-row chunks, 3 slots and 2 producers (c = 200:
-    a tile's tail lanes).  K31 unclamped and clamped with CLAMP at f = 29,
-    at f = 1 and at f = 32 (coefficients in +-2^(f + 1), full-range x and
-    state), K33 with per-lane and with shared planes at f = 29 (and
+    """Phase 3 for K31, K33, K34, K35 and K36 at the edges of the depth-0
+    pipeline, each against its plain version over 2 carried blocks,
+    tolerance 0 (into errs under the kernel's own name): t = 1 (c = 200),
+    t under a chunk (c = 50), t = 3 chunks + 17 (c = 1: one live lane of a
+    tile), and a forced plan of 16-row chunks, 3 slots and 2 producers (c =
+    200: a tile's tail lanes).  K31 unclamped and clamped with CLAMP at f =
+    29, at f = 1 and at f = 32 (coefficients in +-2^(f + 1), full-range x
+    and state), K33 with per-lane and with shared planes at f = 29 (and
     CLAMP); then K31 at f = 1 and 32, clamped and not, on a block whose
     rows' five products and e pass 2^63 (coefficients, state and the first
     row at -2^31, e at 2^32 - 1; the rest at int32's edges: the sum
-    wraps); K34 with each of its four outputs from a random state."""
+    wraps); K34 with each of its four outputs from a random state; K35 at f
+    = 29, 1, 32, 33 and 63 with full-range coefficients (p_im never
+    INT32_MIN), x and state, whose five-term sums wrap mod 2^64; K36 on x ~
+    N(0, 1) from a random state, the structure row's float lowpass."""
     import torch
-    from idsp_tpu_torch.filters import biquad, svf
+    from idsp_tpu_torch.design import Filter
+    from idsp_tpu_torch.filters import biquad, normal, svf
     from idsp_tpu_torch.filters.biquad_cuda import (
         df1_dither_bank, df1_dither_bank_coef, df1_dither_bank_coef_plain,
         df1_dither_bank_plain, dither_plan,
+    )
+    from idsp_tpu_torch.filters.normal_cuda import (
+        normal_bank_f32, normal_bank_f32_plain, normal_bank_q,
+        normal_bank_q_plain, normal_plan,
     )
     from idsp_tpu_torch.filters.svf_cuda import (
         OUTPUTS, svf_bank, svf_bank_plain, svf_plan,
@@ -2169,10 +2182,41 @@ def check_depth0_edges(dev, i32, errs):
         "16-row chunks": (200, 5 * 16 + 3, dict(chunk=16, ring=3,
                                                 producers=2)),
     }
+    b_f, p_f = normal.from_cookbook(
+        Filter().critical_frequency(NORMAL_FC).lowpass())
     for label, (c, t, kw) in edges.items():
-        for name, plan_of in (("dither", dither_plan), ("svf", svf_plan)):
+        for name, plan_of in (("dither", dither_plan), ("svf", svf_plan),
+                              ("normal_q", normal_plan),
+                              ("normal_f32", lambda c, **kw: normal_plan(
+                                  c, f32=True, **kw))):
             rows = 3 * chunk_of(plan_of) + 17 if t is None else t
             plan = plan_of(c, **kw) if kw else None
+            if name == "normal_q":
+                for f in (29, 1, 32, 33, 63):
+                    bq = rng.integers(-(2**31) + 1, 2**31, 3).astype(np.int32)
+                    pq = rng.integers(-(2**31) + 1, 2**31, 2).astype(np.int32)
+                    errs["normal_bank_q"] = max(errs["normal_bank_q"], hold(
+                        f"normal_bank_q ({label}, f {f})",
+                        lambda s, x, b=bq, p=pq, f=f, pl=plan: normal_bank_q(
+                            b, p, s, x, f, _plan=pl),
+                        lambda s, x, b=bq, p=pq, f=f: normal_bank_q_plain(
+                            b, p, s, x, f),
+                        (biquad.Df1State(x=i32((c, 2)), y=i32((c, 2))),),
+                        lambda rows=rows, c=c: i32((rows, c)), blocks=2))
+                continue
+            if name == "normal_f32":
+                st = biquad.Df1State(*(torch.from_numpy(rng.normal(
+                    size=(c, 2)).astype(np.float32)).to(dev)
+                    for _ in range(2)))
+                errs["normal_bank_f32"] = max(errs["normal_bank_f32"], hold(
+                    f"normal_bank_f32 ({label})",
+                    lambda s, x, pl=plan: normal_bank_f32(b_f, p_f, s, x,
+                                                          _plan=pl),
+                    lambda s, x: normal_bank_f32_plain(b_f, p_f, s, x), (st,),
+                    lambda rows=rows, c=c: torch.from_numpy(rng.normal(
+                        size=(rows, c)).astype(np.float32)).to(dev),
+                    blocks=2))
+                continue
             if name == "svf":
                 f, qi = svf.coefficients(*SVF_ROW)
                 for out in OUTPUTS:
@@ -2237,11 +2281,14 @@ def check_depth0_edges(dev, i32, errs):
                 (st,), lambda: torch.from_numpy(xs).to(dev), blocks=1))
     log(f"phase 3 K31 (f 29 unclamped and clamped {CLAMP}, f 1, f 32 "
         f"unclamped and clamped), K33 (per-lane and shared planes, clamped "
-        f"per-lane) and K34 (lp, hp, bp, br) at the depth-0 pipeline's "
-        f"edges == plain over 2 blocks each ({', '.join(edges)}: c = 200, "
-        f"50, 1 and 200); K31 at f 1 and 32 where the 64-bit sum wraps, "
-        f"clamped and not: max |d| {errs['df1_dither_bank']}, "
-        f"{errs['df1_dither_bank_coef']}, {errs['svf_bank']}")
+        f"per-lane), K34 (lp, hp, bp, br), K35 (f 29, 1, 32, 33, 63, "
+        f"full-range coefficients, x and state: the sums wrap) and K36 at "
+        f"the depth-0 pipeline's edges == plain over 2 blocks each "
+        f"({', '.join(edges)}: c = 200, 50, 1 and 200); K31 at f 1 and 32 "
+        f"where the 64-bit sum wraps, clamped and not: max |d| "
+        f"{errs['df1_dither_bank']}, {errs['df1_dither_bank_coef']}, "
+        f"{errs['svf_bank']}, {errs['normal_bank_q']}, "
+        f"{errs['normal_bank_f32']}")
 
 
 def check_df1_pipe_edges(dev, i32, errs):
@@ -4704,9 +4751,9 @@ def structures_main_path(dev, rng, wrappers):
 
 def time_structures(dev, rng, card, timings, plain_s):
     """Phase 6 for K34-K40 at c = C_STRUCT, t = T: each kernel beside its
-    plain version (timed in phase 3) and its rate in c*t samples/s, K34 and
-    K37-K40 also by their profiler spans (`launch_device_ms`); K40 over
-    wdf-ca-7 on the log only."""
+    plain version (timed in phase 3) and its rate in c*t samples/s, each
+    also by its profiler spans (`launch_device_ms`); K40 over wdf-ca-7 on
+    the log only."""
     from idsp_tpu_torch.profiling import measure_rate
 
     c = C_STRUCT

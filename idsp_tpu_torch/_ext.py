@@ -75,8 +75,8 @@ _SIGNATURES = {
     "idsp_ddc_lockin": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_I] * 5 + [_P],
     "idsp_channelize": [_P] * 10 + [_I] * 8 + [_P],
     "idsp_svf_bank": [_P] * 8 + [_I] * 3 + [_F] * 2 + [_I] * 5 + [_P],
-    "idsp_normal_bank_q": [_P] * 6 + [_I] * 8 + [_P],
-    "idsp_normal_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P],
+    "idsp_normal_bank_q": [_P] * 6 + [_I] * 13 + [_P],
+    "idsp_normal_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_I] * 5 + [_P],
     "idsp_rpll_bank": [_P] * 12 + [_I] * 10 + [_P],
     "idsp_wdf_bank": [_P] * 9 + [_I] * 7 + [_P],
     "idsp_halo_slot_alloc": [_L, _P, _P],

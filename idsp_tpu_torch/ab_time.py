@@ -1,5 +1,5 @@
 """Time K1, K2, K3, K4, K6, K7, K8, K11, K12 (and its ``clamp=``), K13, K14,
-K15, K16, K17, K18, K19, K22 "highest", K24-K27, K29, K31-K34, K37 and
+K15, K16, K17, K18, K19, K22 "highest", K24-K27, K29, K31-K37 and
 K38-K40 of two checkouts of the port in turns, in one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
@@ -9,7 +9,8 @@ Usage (on a CUDA machine, from the root of a checkout)::
 ``--only`` keeps the kernels whose name contains one of the given substrings
 (e.g. ``--only highest,wdf``; K2, K3, K19: ``--only
 df1_hbf,fastlo_ddc_cascade,df1_clamp``; K14, K15: ``--only mix_df1,fm_disc``;
-K29, K37: ``--only q64,rpll``; K31, K33, K34: ``--only dither,svf``; K12, its
+K29, K37: ``--only q64,rpll``; K31, K33, K34: ``--only dither,svf``; K35,
+K36: ``--only normal``; K12, its
 ``clamp=``, K13, K6 and K16: ``--only
 fastlo_df1_dec,fastlo_ddc_bank,ddc_lockin``; K4: ``--only lowpass``; K1, K11,
 K18, K26, K27: ``--only df1_bank_q,df1_clamp_bank_q``; K24, K25, K32: ``--only
@@ -52,7 +53,9 @@ in +-2^24, zero state; unclamped and clamped with the suite's row (0,
 +-2^30), which pins nothing), K33 `df1_dither_bank_coef` (per-lane Q29
 lowpass planes at 1024 frequencies in [0.01, 0.2], and the shared set)
 and K34 `svf_bank` (the suite's row (0.01, 0.7), x ~ N(0, 1), zero
-state; each of its four outputs) at the same width; K12
+state; each of its four outputs), K35 `normal_bank_q` (the normal form's
+lowpass at 0.06 in Q29, x in +-2^24, zero state) and K36 `normal_bank_f32`
+(that lowpass in f32, x ~ N(0, 1), zero state) at the same width; K12
 `fastlo_df1_dec_bank` (unclamped and with ``clamp=`` (2^10, +-2^23)) and
 K13 `fastlo_ddc_bank_block` at c = 1024 (the suite's bank filter, the
 Q29 lowpass at 0.004; d = 16, time chunk 128; x, a zero phase, the K6
@@ -98,13 +101,14 @@ M_CH, CH_TAPS, N_CH = 1024, 8, (1024, 16384)  # K17: branches, taps, frames
 ROUNDS, ITERS = 30, 20
 C_WDF = 1024  # K38-K40's lanes
 C_FM, FM_CARRIER = 512, 12345  # K15's channels and carrier word
-C_SERIAL = 1024  # K24's, K25's, K29's and K31-K34's, K37's lanes
+C_SERIAL = 1024  # K24's, K25's, K29's and K31-K37's lanes
 C_BANK, C_LOCKIN, TC_LOCKIN = 1024, 512, 512  # K12/K13's, K16's widths
 BANK_CLAMP = (1 << 10, -(1 << 23), 1 << 23)  # K12's clamp= in chip_smoke
 DITHER_CLAMP = (0, -(2**30), 2**30)  # the suite's clamped-dither row
 WIDE_CLAMP = DITHER_CLAMP  # K25's clamp in chip_smoke (its WIDE_CLAMP)
 SOS_STAGES = 4  # `compat.sos`'s "q32 cascade4" stages
 SVF_ROW = (0.01, 0.7)  # the suite's SVF row (f0, Q)
+NORMAL_FC = 0.06  # the normal form's cookbook lowpass (chip_smoke.py's)
 # wdf-ca-7 and wdf-ca-19 (benches/suite.py:442-500): per branch, stages of
 # (type nibbles, adapters, pole coefficients)
 WDF_CA7 = ([(0xAD, 2, [-0.9, 0.9]), (0xAD, 2, [-0.6, 0.7])],
@@ -140,7 +144,8 @@ def cases(alias: str, dev, inputs):
         "filters.wdf_cuda", "pipelines.channelizer",
         "pipelines.channelizer_cuda", "filters.rpll", "filters.rpll_cuda",
         "filters.svf", "filters.svf_cuda", "filters.ddc_lockin_cuda",
-        "filters.lowpass_cuda")}
+        "filters.lowpass_cuda", "filters.normal", "filters.normal_cuda",
+        "fxp")}
     biquad, lowpass, pll = (sub["filters.biquad"], sub["filters.lowpass"],
                             sub["filters.pll"])
     ba = biquad.quantize_ba(biquad.from_cookbook(
@@ -216,6 +221,16 @@ def cases(alias: str, dev, inputs):
         out[f"svf_bank {o} c={C_SERIAL}"] = (
             lambda st=svf.init((C_SERIAL,), device=dev), o=o:
             svf_cuda.svf_bank(f, qi, st, inputs["xf"], output=o))
+    normal, normal_cuda = sub["filters.normal"], sub["filters.normal_cuda"]
+    b_n, p_n = normal.from_cookbook(
+        sub["design"].Filter().critical_frequency(NORMAL_FC).lowpass())
+    bq, pq = (sub["fxp"].from_float(v, 29) for v in (b_n, p_n))
+    out[f"normal_bank_q c={C_SERIAL}"] = (
+        lambda st=normal.init((C_SERIAL,), torch.int32, device=dev):
+        normal_cuda.normal_bank_q(bq, pq, st, inputs["x29"], 29))
+    out[f"normal_bank_f32 c={C_SERIAL}"] = (
+        lambda st=normal.init((C_SERIAL,), device=dev):
+        normal_cuda.normal_bank_f32(b_n, p_n, st, inputs["xf"]))
     rpll = sub["filters.rpll"]
     out[f"rpll_bank c={C_SERIAL}"] = (
         lambda st=rpll.init((C_SERIAL,), device=dev):

@@ -9,7 +9,10 @@
 // K6 (the same kernel) and K4 (lowpass_bank.cu: producers that copy x,
 // `copy_feed`, and a store warp that keeps rows, `keep_store`) with the
 // Lowpass serial warp (lowpass.cuh `LpSerial`), K37 and K34
-// (structures_bank.cu, the RPLL and the SVF), K29
+// (structures_bank.cu, the RPLL and the SVF), K35 and K36 (the same file,
+// the normal form: K1's producers `tap_feed` / `put_w` and a serial warp
+// over the 2x2 rotation, `NormalQSerial`; K36's producers form the f32
+// feed-forward sum, `NormalF32Serial`), K29
 // (biquad_precision.cu, the Q64) and K16 (ddc_lockin.cu, the f32 DF1 after
 // the lock-in mix) with their own, K1, K11, K18, K26, K27 (df1_bank.cu)
 // and K31/K33 (biquad_precision.cu, the error-feedback DF1) with one
@@ -43,8 +46,9 @@
 // input ring's full and empty and the output ring's full and empty.  An input
 // slot holds `chunk` rows of kLanes x `Win` 32-bit words, word w of row r and
 // lane l at (r * kLanes + l) * Win + w, an output slot the same with `Wout`
-// words (K4, K6, K12/K13, K14, K15, K16, K34: 1 and 1; K1, K11, K18, K24, K25,
-// K26, K27, K31/K33, K32: 2 and 1; K37: 2 and 2; K29: 4 and 2), so a warp
+// words (K4, K6, K12/K13, K14, K15, K16, K34, K36: 1 and 1; K1, K11, K18,
+// K24, K25, K26, K27, K31/K33, K32, K35: 2 and 1; K37: 2 and 2; K29: 4 and
+// 2), so a warp
 // reads or writes a row as one 4-, 8- or 16-byte word a lane, contiguous
 // across the lanes.
 #pragma once
@@ -113,7 +117,7 @@ struct Df1Ring {
 // step(r, load(r)) for the rows r = 0 .. rows-1 of a slot in order, in
 // groups of kGroup rows, each group's inputs read before the group before
 // computes, so the loads stay off the chain (K4, K6, K16, K29, K31/K33,
-// K34, K37; a read past the slot's rows takes its last row, unused).
+// K34-K37; a read past the slot's rows takes its last row, unused).
 template <class Load, class Step>
 __device__ __forceinline__ void group_rows(int rows, Load load, Step step) {
   using In = decltype(load(0));
@@ -137,7 +141,7 @@ __device__ __forceinline__ void group_rows(int rows, Load load, Step step) {
   for (; r < rows; ++r) step(r, load(r));
 }
 
-// The serial warp's walk over the chunks (K4, K6, K16, K29, K31/K33, K34, K37;
+// The serial warp's walk over the chunks (K4, K6, K16, K29, K31/K33, K34-K37;
 // one CTA a tile): chunk q's input slot full and its output slot empty,
 // rows(k, n) on slot k's n rows, then both released.
 template <class Rows>
@@ -391,7 +395,7 @@ struct Batch {
 
 // Producer pw of P's walk over its span of every chunk, rows [pw * span,
 // (pw + 1) * span) (span = ceil(chunk / P)), in batches of B rows (K3, K4,
-// K6, K12/K13, K16, K29, K31/K33, K34, K37): for each chunk its input slot
+// K6, K12/K13, K16, K29, K31/K33, K34-K37): for each chunk its input slot
 // empty, then for each of its batches load(next, rows, cur_rows, same) --
 // the next batch, the next chunk's first too, loaded while this one is
 // formed -- and form(batch, rows, slot k), then one arrival on the slot's
@@ -567,8 +571,8 @@ int launch_pipe(Kernel kernel, const A& args, const Pipe& p, int smem,
 
 // ---- the Q32<f> DF1 at depth 0: W by the producers, the chain alone --------
 
-// A DF1 producer's rows (K1, K11, K18, K26, K27, K29, K31/K33): x[0], x[1]
-// the two rows before a batch of B rows, x[v + 2] row v.
+// A DF1 producer's rows (K1, K11, K18, K26, K27, K29, K31/K33, K35, K36):
+// x[0], x[1] the two rows before a batch of B rows, x[v + 2] row v.
 template <class T, int B>
 struct TapRows {
   T x[B + 2];

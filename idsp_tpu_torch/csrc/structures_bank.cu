@@ -19,41 +19,48 @@
 // (K34-K36), 4 B and a mask byte in and 8 B out (K37).  K34 and K36 round
 // every product and sum on its own (`__fmul_rn`, `__fadd_rn`, `__fsub_rn`)
 // in the plain version's order, so nvcc cannot contract them into FMAs:
-// bit-identical to the plain scans.
+// bit-identical to the plain scans.  K35's sums wrap mod 2^64, so any
+// grouping of their terms gives the plain version's bits.
 //
-// What the design does: K35 and K36 run one thread per lane with the state in
-// registers, on the sequential-bank template of seq_bank.cuh (the next 16 rows
-// prefetched, rows coalesced along lanes).  K34 and K37 run on df1_ring.cuh's
-// depth-0 pipeline, a block a 32-lane tile: producer warps, each a span of
-// every chunk, load their rows a batch ahead into the input ring; the serial
-// warp, alone on its scheduler, runs the recurrence from shared memory into
-// the output ring; the store warp writes the rows, 16 bytes a thread where
-// c % 4 == 0.  K34: the producers copy x (df1_ring.cuh `copy_feed`); the
-// serial warp holds lp, hp and bp, forms bp qi beside bp f (off the chain) and
-// bp f, + lp, x - lp, - bp qi, hp f, + bp on it, each rounded on its own, br's
-// hp + lp off it; one template instance an output.  K37: the producers form
-// each row's words -- x, and dt = -x mod 2^dt2 with the mask in bit 31; the
-// serial warp carries the last valid timestamp (dx and one select a row, off
-// the chain) and runs the ff / f / y chain (rpll.rs:47-77), its `>> sf` one
-// template instance a regime (the host picks it); the store warp writes the
-// phase and frequency planes.  The plans (warps, producers, chunk, ring depth,
-// shared memory) are the host's (filters/svf_cuda.py `svf_plan`,
-// filters/rpll_cuda.py `rpll_plan`), which the entry points check.
+// What the design does: all four run on df1_ring.cuh's depth-0 pipeline, a
+// block a 32-lane tile: producer warps, each a span of every chunk, load
+// their rows a batch ahead into the input ring; the serial warp, alone on
+// its scheduler, runs the recurrence from shared memory into the output
+// ring; the store warp writes the rows, 16 bytes a thread where c % 4 == 0.
+// K34: the producers copy x (df1_ring.cuh `copy_feed`); the serial warp
+// holds lp, hp and bp, forms bp qi beside bp f (off the chain) and bp f, +
+// lp, x - lp, - bp qi, hp f, + bp on it, each rounded on its own, br's hp +
+// lp off it; one template instance an output.  K35: the producers form K1's
+// feed-forward word W = b0 x0 + b1 x1 + b2 x2 mod 2^64 (`tap_feed`,
+// `put_w`); the serial warp holds y0 and y1 and forms W + p_re y1 - p_im y0
+// and p_im y1 + p_re y0 mod 2^64, each shifted right by f (one template
+// instance a regime, f <= 32 or above, as K1's; the host picks it).  K36:
+// the producers form (b0 x0 + b1 x1) + b2 x2, rounded as the plain version
+// rounds it; the serial warp the 2x2 rotation of y0 and y1, each product
+// and sum rounded on its own.  K37: the producers form each row's words --
+// x, and dt = -x mod 2^dt2 with the mask in bit 31; the serial warp carries
+// the last valid timestamp (dx and one select a row, off the chain) and
+// runs the ff / f / y chain (rpll.rs:47-77), its `>> sf` one template
+// instance a regime (the host picks it); the store warp writes the phase and
+// frequency planes.  The plans (warps, producers, chunk, ring depth, shared
+// memory) are the host's (filters/svf_cuda.py `svf_plan`,
+// filters/normal_cuda.py `normal_plan`, filters/rpll_cuda.py `rpll_plan`),
+// which the entry points check.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "df1.cuh"
 #include "df1_ring.cuh"
-#include "seq_bank.cuh"
 
 namespace {
 
-using idsp::kBankLanes;
 using idsp::ring::Batch;
 using idsp::ring::kLanes;
+using idsp::ring::kWRows;
 using idsp::ring::Pipe;
 using idsp::ring::Rings;
+using idsp::ring::TapRows;
 
 // K34 (svf.rs:47-60): a launch; p.d holds the rows, chunk and ring depth
 // (no DF1), p.y the (t, c) f32 output; state lp, hp, bp (c,) each.
@@ -128,78 +135,172 @@ __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
       });
 }
 
-// K35: normal.rs:38-58 in Q<f>: the sums of i32 x i32 products wrap mod
-// 2^64 (formed unsigned, `wadd64`), one truncating `>> f` each, then the
-// low 32 bits.  -p_im is folded into the y1 sum's fifth coefficient (the
-// wrapper refuses p_im == INT32_MIN, as the JAX kernel does).
-struct NormalCoefsQ {
-  int32_t b0, b1, b2, p_re, p_im;
+// K35 and K36: normal.rs:38-58 on the depth-0 pipeline.  A launch: p.d
+// holds the rows, chunk and ring depth (no DF1), p.y the (t, c) output;
+// state x = [x1, x2], y = [y0, y1] (c, 2) each (y the rotating I/Q pair,
+// not DF1's [y1, y2]).  K35 only: n_im is -p_im (the entry refuses p_im ==
+// INT32_MIN, as the JAX kernel does), f the Q<f> shift.
+template <class T>
+struct NormalArgs {
+  Pipe p;
+  const T* xs;
+  const T *sx, *sy;
+  T *sx_out, *sy_out;
+  T b0, b1, b2, p_re, p_im, n_im;
   int f;
 };
 
-struct NormalLaneQ {
-  int32_t x1, x2, y0, y1;
+// K35's serial warp: y0, y1 of its lane in registers; each row's W = b0 x0
+// + b1 x1 + b2 x2 mod 2^64 (the producers', df1_ring.cuh `put_w`) from the
+// input ring, y0' into the output ring.  acc1 = W + p_re y1 + n_im y0 and
+// acc0 = p_im y1 + p_re y0 wrap mod 2^64, so any order of their terms
+// gives the plain version's bits; y1' and y0' are the low words of acc >>
+// f: for f <= 32 bits [f, f + 32) of acc (`__funnelshift_rc`), for 32 < f
+// < 64 (Hi) the high word shifted right by f - 32, sign-filled, as
+// `Df1WSerial`'s.  On the chain: the products of the row before's y0 and
+// y1, their adds onto W, the shift.  Whatever the source's grouping, ptxas
+// forms acc1's two products apart and adds them onto W in one three-input
+// add, and gives acc0's second product the first as its addend; forms that
+// kept acc0 a three-input add too ran slower (PERF.md §6).
+template <bool Hi>
+struct NormalQSerial {
+  const NormalArgs<int32_t>* a;
 
-  __device__ __forceinline__ int32_t step(const NormalCoefsQ& k,
-                                          int32_t x0) {
-    using idsp::wadd64;
-    const int64_t acc1 = wadd64(
-        wadd64(wadd64(wadd64(static_cast<int64_t>(k.b0) * x0,
-                             static_cast<int64_t>(k.b1) * x1),
-                      static_cast<int64_t>(k.b2) * x2),
-               static_cast<int64_t>(k.p_re) * y1),
-        -static_cast<int64_t>(k.p_im) * y0);
-    const int64_t acc0 = wadd64(static_cast<int64_t>(k.p_im) * y1,
-                                static_cast<int64_t>(k.p_re) * y0);
-    x2 = x1;
-    x1 = x0;
-    y1 = static_cast<int32_t>(acc1 >> k.f);
-    y0 = static_cast<int32_t>(acc0 >> k.f);
-    return y0;
+  __device__ __forceinline__ static int32_t shift(uint64_t acc, int f,
+                                                  int sh) {
+    const uint32_t lo = static_cast<uint32_t>(acc);
+    const uint32_t hi = static_cast<uint32_t>(acc >> 32);
+    if constexpr (Hi) {
+      return static_cast<int32_t>(hi) >> sh;
+    } else {
+      return static_cast<int32_t>(__funnelshift_rc(lo, hi, f));
+    }
+  }
+
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int lane, bool live,
+                                             uint32_t) const {
+    using idsp::mad_wide;
+    using idsp::mul_wide;
+    const Pipe& p = a->p;
+    const int32_t p_re = a->p_re, p_im = a->p_im, n_im = a->n_im;
+    const int f = a->f, sh = f - 32;
+    int32_t y0 = 0, y1 = 0;
+    if (live) {
+      y0 = a->sy[2 * lane];
+      y1 = a->sy[2 * lane + 1];
+    }
+    idsp::ring::serial_chunks(
+        p.d.t, p.d.chunk, p.d.depth, R, [&](int slot, int rows) {
+          const uint2* in =
+              reinterpret_cast<const uint2*>(R.in_slot<2>(slot)) + lid;
+          int32_t* o = reinterpret_cast<int32_t*>(out) +
+                       static_cast<size_t>(slot) * p.d.chunk * kLanes + lid;
+          idsp::ring::group_rows(
+              rows, [&](int r) { return in[r * kLanes]; },
+              [&](int r, uint2 w) {
+                const int64_t acc1 = mad_wide(
+                    n_im, y0,
+                    mad_wide(p_re, y1,
+                             static_cast<int64_t>(uint64_t{w.y} << 32 | w.x)));
+                const int64_t acc0 = mad_wide(p_im, y1, mul_wide(p_re, y0));
+                y1 = shift(static_cast<uint64_t>(acc1), f, sh);
+                y0 = shift(static_cast<uint64_t>(acc0), f, sh);
+                o[r * kLanes] = y0;
+              });
+        });
+    if (live) {
+      a->sy_out[2 * lane] = y0;
+      a->sy_out[2 * lane + 1] = y1;
+    }
   }
 };
 
-// K36: the same update in f32, each product and sum rounded on its own,
-// left to right as normal.step: y1' = (((b0 x0 + b1 x1) + b2 x2) + p_re
-// y1) - p_im y0, then y0' = p_im y1 + p_re y0.
-struct NormalCoefsF32 {
-  float b0, b1, b2, p_re, p_im;
-};
+template <bool Hi>
+__global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
+    normal_q_kernel(const __grid_constant__ NormalArgs<int32_t> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  idsp::ring::run_pipe<2, 1, idsp::ring::Layout::kWide>(
+      a.p, smem, NormalQSerial<Hi>{&a},
+      [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
+        // one CTA a tile; producer 0 writes x = [x1, x2] out
+        idsp::ring::tap_feed<kWRows>(
+            a.p, R, pw, lane, live, a.xs, a.sx, a.sx_out,
+            [&](const Batch& b,
+                const TapRows<int32_t, kWRows>& xv, int slot) {
+              idsp::ring::put_w(R, slot, lid, b, xv, a.b0, a.b1, a.b2);
+            });
+      });
+}
 
-struct NormalLaneF32 {
-  float x1, x2, y0, y1;
+// K36's serial warp: y0, y1 of its lane in registers; each row's s =
+// (b0 x0 + b1 x1) + b2 x2 (the producers', each product and sum rounded on
+// its own) from the input ring, y0' into the output ring: y1' = (s + p_re
+// y1) - p_im y0, y0' = p_im y1 + p_re y0, the plain version's order
+// (`__f*_rn`: no contraction).  The four products do not wait on each
+// other; on the chain are a multiply, an add and a subtract.
+struct NormalF32Serial {
+  const NormalArgs<float>* a;
 
-  __device__ __forceinline__ float step(const NormalCoefsF32& k, float x0) {
-    const float s = __fadd_rn(
-        __fadd_rn(__fadd_rn(__fmul_rn(k.b0, x0), __fmul_rn(k.b1, x1)),
-                  __fmul_rn(k.b2, x2)),
-        __fmul_rn(k.p_re, y1));
-    const float y1n = __fsub_rn(s, __fmul_rn(k.p_im, y0));
-    y0 = __fadd_rn(__fmul_rn(k.p_im, y1), __fmul_rn(k.p_re, y0));
-    y1 = y1n;
-    x2 = x1;
-    x1 = x0;
-    return y0;
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int lane, bool live,
+                                             uint32_t) const {
+    const Pipe& p = a->p;
+    const float p_re = a->p_re, p_im = a->p_im;
+    float y0 = 0.f, y1 = 0.f;
+    if (live) {
+      y0 = a->sy[2 * lane];
+      y1 = a->sy[2 * lane + 1];
+    }
+    idsp::ring::serial_chunks(
+        p.d.t, p.d.chunk, p.d.depth, R, [&](int slot, int rows) {
+          const float* in =
+              reinterpret_cast<const float*>(R.in_slot<1>(slot)) + lid;
+          float* o = reinterpret_cast<float*>(out) +
+                     static_cast<size_t>(slot) * p.d.chunk * kLanes + lid;
+          idsp::ring::group_rows(
+              rows, [&](int r) { return in[r * kLanes]; },
+              [&](int r, float s) {
+                const float y1n = __fsub_rn(__fadd_rn(s, __fmul_rn(p_re, y1)),
+                                            __fmul_rn(p_im, y0));
+                y0 = __fadd_rn(__fmul_rn(p_im, y1), __fmul_rn(p_re, y0));
+                y1 = y1n;
+                o[r * kLanes] = y0;
+              });
+        });
+    if (live) {
+      a->sy_out[2 * lane] = y0;
+      a->sy_out[2 * lane + 1] = y1;
+    }
   }
 };
 
-// K35 and K36: x = [x1, x2], y = [y0, y1] of each lane, (c, 2) each.
-template <class Lane, class T, class Coefs>
-__global__ void __launch_bounds__(kBankLanes)
-    normal_kernel(const T* __restrict__ xs, T* __restrict__ ys,
-                  const T* __restrict__ sx, const T* __restrict__ sy,
-                  T* __restrict__ sx_out, T* __restrict__ sy_out, int t, int c,
-                  Coefs k) {
-  const int lane = blockIdx.x * kBankLanes + threadIdx.x;
-  if (lane >= c) return;
-  Lane s{sx[2 * lane], sx[2 * lane + 1], sy[2 * lane], sy[2 * lane + 1]};
-  idsp::seq_bank<false>(
-      xs, t, c, lane, 1, [&](T x) { return s.step(k, x); },
-      [&](size_t i, T y) { ys[i] = y; });
-  sx_out[2 * lane] = s.x1;
-  sx_out[2 * lane + 1] = s.x2;
-  sy_out[2 * lane] = s.y0;
-  sy_out[2 * lane + 1] = s.y1;
+// K36's producers take batches of 32 rows: at kWRows (16) their loads set
+// its pace (PERF.md §6).
+constexpr int kF32Rows = 32;
+
+__global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
+    normal_f32_kernel(const __grid_constant__ NormalArgs<float> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  idsp::ring::run_pipe<1, 1, idsp::ring::Layout::kWide>(
+      a.p, smem, NormalF32Serial{&a},
+      [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
+        // one CTA a tile; producer 0 writes x = [x1, x2] out
+        idsp::ring::tap_feed<kF32Rows>(
+            a.p, R, pw, lane, live, a.xs, a.sx, a.sx_out,
+            [&](const Batch& b, const TapRows<float, kF32Rows>& xv,
+                int slot) {
+              float* s = reinterpret_cast<float*>(R.in_slot<1>(slot)) + lid;
+#pragma unroll
+              for (int v = 0; v < kF32Rows; ++v) {
+                const float w =
+                    __fadd_rn(__fadd_rn(__fmul_rn(a.b0, xv.x[v + 2]),
+                                        __fmul_rn(a.b1, xv.x[v + 1])),
+                              __fmul_rn(a.b2, xv.x[v]));
+                if (b.r + v < b.hi) s[(b.r + v) * kLanes] = w;
+              }
+            });
+      });
 }
 
 // K37: rpll.rs:47-77 on native unsigned words.  bias = 1 << (sf - 1),
@@ -346,18 +447,28 @@ __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
       });
 }
 
-dim3 grid_of(int c) { return dim3((c + kBankLanes - 1) / kBankLanes); }
-
-template <class Lane, class T, class Coefs>
-int launch_normal(const void* xs, void* ys, const void* sx, const void* sy,
-                  void* sx_out, void* sy_out, int t, int c, const Coefs& k,
-                  void* stream) {
-  normal_kernel<Lane, T, Coefs>
-      <<<grid_of(c), kBankLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(xs), static_cast<T*>(ys),
-          static_cast<const T*>(sx), static_cast<const T*>(sy),
-          static_cast<T*>(sx_out), static_cast<T*>(sy_out), t, c, k);
-  return static_cast<int>(cudaGetLastError());
+// A K35 or K36 launch's arguments but the coefficients.
+template <class T>
+NormalArgs<T> normal_args(const void* xs, void* ys, const void* sx,
+                          const void* sy, void* sx_out, void* sy_out, int t,
+                          int c, int warps, int producers, int chunk,
+                          int ring) {
+  NormalArgs<T> a{};
+  a.p.d.t = t;
+  a.p.d.chunk = chunk;
+  a.p.d.depth = ring;
+  a.p.y[0] = ys;
+  a.p.c2 = c;
+  a.p.warps = warps;
+  a.p.producers = producers;
+  a.p.cluster = 1;
+  a.p.vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(ys) % 16 == 0;
+  a.xs = static_cast<const T*>(xs);
+  a.sx = static_cast<const T*>(sx);
+  a.sy = static_cast<const T*>(sy);
+  a.sx_out = static_cast<T*>(sx_out);
+  a.sy_out = static_cast<T*>(sy_out);
+  return a;
 }
 
 }  // namespace
@@ -409,27 +520,56 @@ extern "C" int idsp_svf_bank(const void* xs, void* ys, const void* lp,
 }
 
 // K35: xs (t, c) i32 -> ys (t, c) i32; state x, y (c, 2) i32 each, in and
-// out; 0 < f < 64.
+// out; 0 < f < 64, p_im != INT32_MIN.  warps, producers, chunk, ring
+// (slots a ring) and smem are the host plan's (filters/normal_cuda.py
+// `normal_plan`: two words a row and lane in, one out); a plan the kernel
+// cannot run is refused.  A refused call launches nothing and leaves no
+// CUDA error pending.
 extern "C" int idsp_normal_bank_q(const void* xs, void* ys, const void* sx,
                                   const void* sy, void* sx_out, void* sy_out,
                                   int t, int c, int f, int b0, int b1, int b2,
-                                  int p_re, int p_im, void* stream) {
-  if (f <= 0 || f >= 64 || p_im == INT32_MIN)
+                                  int p_re, int p_im, int warps,
+                                  int producers, int chunk, int ring,
+                                  int smem, void* stream) {
+  if (f <= 0 || f >= 64 || p_im == INT32_MIN ||
+      !idsp::ring::pipe_plan_ok(t, c, warps, producers, chunk, ring, smem, 1,
+                                2, 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_normal<NormalLaneQ, int32_t>(
-      xs, ys, sx, sy, sx_out, sy_out, t, c,
-      NormalCoefsQ{b0, b1, b2, p_re, p_im, f}, stream);
+  NormalArgs<int32_t> a = normal_args<int32_t>(
+      xs, ys, sx, sy, sx_out, sy_out, t, c, warps, producers, chunk, ring);
+  a.b0 = b0;
+  a.b1 = b1;
+  a.b2 = b2;
+  a.p_re = p_re;
+  a.p_im = p_im;
+  a.n_im = -p_im;
+  a.f = f;
+  if (f > 32)
+    return idsp::ring::launch_pipe(normal_q_kernel<true>, a, a.p, smem,
+                                   stream);
+  return idsp::ring::launch_pipe(normal_q_kernel<false>, a, a.p, smem,
+                                 stream);
 }
 
-// K36: xs (t, c) f32 -> ys (t, c) f32; state x, y (c, 2) f32 each.
+// K36: xs (t, c) f32 -> ys (t, c) f32; state x, y (c, 2) f32 each; the
+// plan as K35's (`normal_plan`: one word a row and lane each way).
 extern "C" int idsp_normal_bank_f32(const void* xs, void* ys, const void* sx,
                                     const void* sy, void* sx_out,
                                     void* sy_out, int t, int c, float b0,
                                     float b1, float b2, float p_re,
-                                    float p_im, void* stream) {
-  return launch_normal<NormalLaneF32, float>(
-      xs, ys, sx, sy, sx_out, sy_out, t, c,
-      NormalCoefsF32{b0, b1, b2, p_re, p_im}, stream);
+                                    float p_im, int warps, int producers,
+                                    int chunk, int ring, int smem,
+                                    void* stream) {
+  if (!idsp::ring::pipe_plan_ok(t, c, warps, producers, chunk, ring, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  NormalArgs<float> a = normal_args<float>(
+      xs, ys, sx, sy, sx_out, sy_out, t, c, warps, producers, chunk, ring);
+  a.b0 = b0;
+  a.b1 = b1;
+  a.b2 = b2;
+  a.p_re = p_re;
+  a.p_im = p_im;
+  return idsp::ring::launch_pipe(normal_f32_kernel, a, a.p, smem, stream);
 }
 
 // K37: xs (t, c) i32 timestamps and valids (t, c) bytes (0 or 1) ->

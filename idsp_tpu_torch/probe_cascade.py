@@ -1,6 +1,6 @@
 """Where K2, K3, K19-K21 (`csrc/ddc_cascade.cu`), K12/K13, K14 and K15
 (`csrc/ddc_bank.cu`, `csrc/ddc_mix_df1.cu`, `csrc/fm_disc.cu`, all on
-`csrc/df1_ring.cuh`'s DF1 warp), K16, K29, K31 and K37, K34, K1, K11,
+`csrc/df1_ring.cuh`'s DF1 warp), K16, K29, K31 and K37, K34-K36, K1, K11,
 K18, K26, K25/K32, K4 and K6 (`csrc/ddc_lockin.cu`,
 `csrc/biquad_precision.cu`, `csrc/structures_bank.cu`, `csrc/df1_bank.cu`,
 `csrc/biquad_bank.cu`, `csrc/lowpass_bank.cu`, `csrc/ddc_bank.cu`, on its
@@ -82,10 +82,17 @@ deemphasis lowpass at 0.02):
   `ddc_bank_cuda.bank_plan`: producers, chunk, ring), their times at N = 1
   and 2, and the stamps (K4: the serial warp, producer 0, `keep_store`;
   K6: the serial warp, producer 0, the back end);
+* K35 (the normal form's lowpass at 0.06 in Q29, and in Q33 for the
+  shift's other regime, x in +-2^24) and K36 (that lowpass in f32, x ~
+  N(0, 1)) at 1024 lanes: their plan sweeps (`normal_cuda.normal_plan`:
+  producers, chunk, ring), their stamps (the serial warp, producer 0, the
+  store warp), and K35's serial warp in other forms of its sums and K36's
+  producers at 16-row batches, each built on its own and held to the
+  package's words (`NORMAL_FORMS`);
 * the SASS of the built library (`cuobjdump -sass`): the largest loops of
-  K24's, K25/K32's, K1's and the Lowpass serial warp's kernels (K4 and K6
-  at N = 1 and 2) with their instruction counts (the serial warp's 8-row
-  group among them).
+  K24's, K25/K32's, K1's, K35's (both regimes and each form), K36's and
+  the Lowpass serial warp's kernels (K4 and K6 at N = 1 and 2) with their
+  instruction counts (the serial warp's 8-row group among them).
 
 A time is the median of 3 trials of 20 chained launches (CUDA events,
 `profiling.measure_rate`); a stamp is SM clock cycles, the median over
@@ -105,10 +112,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import _ext, design
+from . import _ext, design, fxp
 from .filters import biquad, biquad_cuda, ddc_bank_cuda, ddc_cuda, fm_cuda
 from .filters import ddc_lockin_cuda, hbf, lowpass, lowpass_cuda, pll, rpll
-from .filters import rpll_cuda, svf, svf_cuda
+from .filters import normal, normal_cuda, rpll_cuda, svf, svf_cuda
 from .filters.pipe_plan import sos_plan
 from .ops.fastlo import factor_pairs, fastlo_tables
 from .pipelines import fm_disc
@@ -401,7 +408,7 @@ def variants() -> dict:
 
 DF1_PIPE_SOURCES = ("ddc_mix_df1.cu", "fm_disc.cu")  # K14, K15
 PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K29, K31/K33
-                                   "structures_bank.cu",  # K34, K37
+                                   "structures_bank.cu",  # K34-K37
                                    "ddc_lockin.cu",  # K16
                                    "biquad_bank.cu",  # K25/K32
                                    "df1_bank.cu",  # K1, K11, K18, K26, K27
@@ -409,8 +416,9 @@ PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K29, K31/K33
 
 
 def pipe_variants() -> dict:
-    """K4's, K6's, K13's, K14's, K15's, K16's, K29's, K31's, K34's and
-    K37's variants: name -> {file: source}; each builds its .cu files."""
+    """K4's, K6's, K13's, K14's, K15's, K16's, K29's, K31's, K34's, K35's
+    and K37's variants: name -> {file: source}; each builds its .cu
+    files."""
     ring = _read("df1_ring.cuh")
     out = {"df1_copy": {"df1_ring.cuh": _df1_copy(ring),
                         **{f: _read(f) for f in DF1_PIPE_SOURCES}}}
@@ -419,7 +427,57 @@ def pipe_variants() -> dict:
         out[f"stamps_{f[:-3]}"] = {"df1_ring.cuh": r, f: k}
     out["stamps_ddc_bank"] = _back_stamps(ring, "ddc_bank.cu")  # K6, K12/K13
     out["chain_stamps"] = _chain_stamps(ring, _read("biquad_bank.cu"))  # K24
+    forms = _normal_forms(_read("structures_bank.cu"))  # K35
+    out.update({k: {"structures_bank.cu": v} for k, v in forms.items()})
     return out
+
+
+# K35's serial warp as the package has it: acc1 = mad_wide(n_im, y0,
+# mad_wide(p_re, y1, W)), acc0 = mad_wide(p_im, y1, mul_wide(p_re, y0))
+_W = "static_cast<int64_t>(uint64_t{w.y} << 32 | w.x)"
+_ACC1 = ("const int64_t acc1 = mad_wide(\n"
+         "                    n_im, y0,\n"
+         "                    mad_wide(p_re, y1,\n"
+         f"                             {_W}));\n")
+_ACC0 = "const int64_t acc0 = mad_wide(p_im, y1, mul_wide(p_re, y0));\n"
+# other forms of K35's sums (they wrap mod 2^64: every form gives the same
+# words) and K36 at 16-row producer batches, each built on its own
+NORMAL_FORMS = ("normal_b", "normal_swap", "normal_acc0", "normal_b_acc0",
+                "normal_iadd3", "normal_iadd3_both", "normal_f32_b16")
+
+
+def _normal_forms(src) -> dict:
+    """structures_bank.cu with K35's serial warp's sums in other forms:
+    "normal_b", -p_im y0's product beside p_re y1's multiply-add onto W,
+    then one 64-bit add; "normal_swap", -p_im y0's multiply-add onto W
+    first; "normal_acc0", acc0 as two products and an add; both b and
+    acc0; "normal_iadd3", acc0 as two products and a three-input add with a
+    zero ptxas cannot see (t >> 31; t >= 0), which keeps it from fusing a
+    product into a multiply-add; both sums so; and "normal_f32_b16", K36's
+    producers in batches of 16 rows (kWRows) instead of kF32Rows."""
+    u64 = "static_cast<uint64_t>"
+    zero = f"{u64}(static_cast<int64_t>(p.d.t >> 31))"
+    b = (f"const int64_t acc1 = static_cast<int64_t>({u64}(\n"
+         f"    mul_wide(n_im, y0)) + {u64}(mad_wide(p_re, y1, {_W})));\n")
+    swap = ("const int64_t acc1 = mad_wide(p_re, y1,\n"
+            f"    mad_wide(n_im, y0, {_W}));\n")
+    acc0 = (f"const int64_t acc0 = static_cast<int64_t>({u64}(\n"
+            f"    mul_wide(p_im, y1)) + {u64}(mul_wide(p_re, y0)));\n")
+    add3_0 = (f"const int64_t acc0 = static_cast<int64_t>(\n"
+              f"    {u64}(mul_wide(p_im, y1)) + {u64}(mul_wide(p_re, y0)) +\n"
+              f"    {zero});\n")
+    add3_1 = (f"const int64_t acc1 = static_cast<int64_t>(\n"
+              f"    {u64}(mul_wide(p_re, y1)) + {u64}(mul_wide(n_im, y0)) +\n"
+              f"    {u64}({_W}) + {zero});\n")
+    return {"normal_b": _patch(src, _ACC1, b),
+            "normal_swap": _patch(src, _ACC1, swap),
+            "normal_acc0": _patch(src, _ACC0, acc0),
+            "normal_b_acc0": _patch(_patch(src, _ACC1, b), _ACC0, acc0),
+            "normal_iadd3": _patch(src, _ACC0, add3_0),
+            "normal_iadd3_both": _patch(_patch(src, _ACC0, add3_0), _ACC1,
+                                        add3_1),
+            "normal_f32_b16": _patch(src, "constexpr int kF32Rows = 32;",
+                                     "constexpr int kF32Rows = kWRows;")}
 
 
 def build(sources: dict) -> dict:
@@ -599,8 +657,8 @@ def _stamp_rows(lib, launch, chunk, series) -> dict:
 
 
 def _pipe(dev, card, libs, package, result) -> None:
-    """K1, K4, K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, K29, K31, K34
-    and K37: the plan sweep, the variants, the per-role stamps."""
+    """K1, K4, K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, K29, K31 and
+    K34-K37: the plan sweep, the variants, the per-role stamps."""
     ba = biquad.quantize_ba(biquad.from_cookbook(
         design.Filter().critical_frequency(0.02).lowpass()), 29)
     bf = fm_disc.deemphasis_coefficients(0.02)
@@ -745,6 +803,21 @@ def _pipe(dev, card, libs, package, result) -> None:
             planes, biquad.df1_wide_init((1024,), device=dev), x32, 29,
             _plan=plan)
 
+    b_n, p_n = normal.from_cookbook(
+        design.Filter().critical_frequency(0.06).lowpass())
+    nq = {f: (fxp.from_float(b_n, f), fxp.from_float(p_n, f))
+          for f in (29, 33)}
+    x24 = i32((T, 1024), -(2**24), 2**24)
+
+    def k35(plan=None, f=29):
+        return normal_cuda.normal_bank_q(
+            *nq[f], normal.init((1024,), torch.int32, device=dev), x24, f,
+            _plan=plan)
+
+    def k36(plan=None):
+        return normal_cuda.normal_bank_f32(
+            b_n, p_n, normal.init((1024,), device=dev), xf, _plan=plan)
+
     _ext._lib = package
     result.update(pipe_sweep={}, pipe_variants={}, pipe_stamps={})
     cases = [(f"K14 c={c}", lambda p, c=c: k14(c, p),
@@ -813,7 +886,17 @@ def _pipe(dev, card, libs, package, result) -> None:
               ("K25 c=1024", k25, lambda **kw: biquad_cuda.wide_plan(1024,
                                                                      **kw),
                [dict(producers=p) for p in (3, 5, 11)]
-               + [dict(chunk=128, ring=r) for r in (2, 3)])]
+               + [dict(chunk=128, ring=r) for r in (2, 3)]),
+              ("K35 c=1024", k35,
+               lambda **kw: normal_cuda.normal_plan(1024, **kw),
+               [dict(producers=p) for p in (2, 3, 5, 8, 11)]
+               + [dict(chunk=128, ring=r) for r in (2, 3)]
+               + [dict(chunk=64, ring=4), dict(chunk=32, ring=8)]),
+              ("K36 c=1024", k36,
+               lambda **kw: normal_cuda.normal_plan(1024, f32=True, **kw),
+               [dict(producers=p) for p in (1, 2, 3, 5, 8, 11)]
+               + [dict(chunk=256, ring=2), dict(chunk=128, ring=6),
+                  dict(chunk=64, ring=4), dict(chunk=32, ring=8)])]
     for name, run, plan_of, forced in cases:
         want = run(None)
         for kw in forced:
@@ -846,7 +929,8 @@ def _pipe(dev, card, libs, package, result) -> None:
          "K18 c=512": _ms(k18), "K26 c=1024": _ms(k26),
          "K24 c=1024": _ms(k24), "K25 c=1024": _ms(k25),
          "K25 clamp c=1024": _ms(lambda: k25(clamp=(0, -(2**30), 2**30))),
-         "K32 c=1024": _ms(k32)})
+         "K32 c=1024": _ms(k32), "K35 c=1024": _ms(k35),
+         "K35 f=33 c=1024": _ms(lambda: k35(f=33)), "K36 c=1024": _ms(k36)})
     lp_timed = {"K4 c=2048": k4, "K4 N=1 c=2048": lambda: k4(n=1),
                 "K6 c=1024": k6, "K6 N=1 c=1024": lambda: k6(n=1)}
     result["pipe_variants"]["package"].update(
@@ -854,6 +938,16 @@ def _pipe(dev, card, libs, package, result) -> None:
     _ext._lib = libs["pipe_df1_copy"]
     result["pipe_variants"]["df1_copy"] = {k: _ms(fn)
                                            for k, fn in timed.items()}
+    _ext._lib = package
+    forms = {"K35 c=1024": k35, "K35 f=33 c=1024": lambda: k35(f=33),
+             "K36 c=1024": k36}
+    want = {k: fn() for k, fn in forms.items()}
+    for form in NORMAL_FORMS:
+        _ext._lib = libs[f"pipe_{form}"]
+        for k, fn in forms.items():
+            if not _same(fn(), want[k]):
+                raise AssertionError(f"{form} {k}: another value")
+        result["pipe_variants"][form] = {k: _ms(fn) for k, fn in forms.items()}
     _ext._lib = package
     for name, row in result["pipe_variants"].items():
         print(f"variant {name}: {row} ms  [{card}]", flush=True)
@@ -868,7 +962,9 @@ def _pipe(dev, card, libs, package, result) -> None:
               "K13 c=1024": ddc_bank_cuda.bank_plan(1024).chunk,
               "K16 c=512": ddc_lockin_cuda.lockin_plan(512).chunk,
               "K4 c=2048": lowpass_cuda.lowpass_plan(2048).chunk,
-              "K6 c=1024": ddc_bank_cuda.bank_plan(1024).chunk}
+              "K6 c=1024": ddc_bank_cuda.bank_plan(1024).chunk,
+              "K35 c=1024": normal_cuda.normal_plan(1024).chunk,
+              "K36 c=1024": normal_cuda.normal_plan(1024, f32=True).chunk}
     chunks.update({k: biquad_cuda.df1_plan(1024).chunk for k in (
         "K1 c=512", "K11 c=1024", "K18 c=512", "K26 c=1024")})
     chunks.update({k: biquad_cuda.wide_plan(1024).chunk for k in (
@@ -892,7 +988,9 @@ def _pipe(dev, card, libs, package, result) -> None:
             ("K25 c=1024", "stamps_biquad_bank", k25),
             ("K25 clamp c=1024", "stamps_biquad_bank",
              lambda: k25(clamp=(0, -(2**30), 2**30))),
-            ("K32 c=1024", "stamps_biquad_bank", k32)):
+            ("K32 c=1024", "stamps_biquad_bank", k32),
+            ("K35 c=1024", "stamps_structures_bank", k35),
+            ("K36 c=1024", "stamps_structures_bank", k36)):
         chunk = chunks[key]
         row = _stamp_rows(libs[f"pipe_{lib}"], fn, chunk, roles)
         row["pace"] = max(roles, key=lambda r: row[r])
@@ -906,7 +1004,16 @@ def _pipe(dev, card, libs, package, result) -> None:
                ("K6 N=1", "BankLpSerialILi1"), ("K6 N=2", "BankLpSerialILi2"))
     result["sass_loops"] = {k: sass_loops(str(so), sym) for k, sym in (
         ("K24", "sos_chain_kernelILb0"), ("K25/K32", "df1_wide_pipe_kernel"),
-        ("K1", "df1_pipe_kernelILb0ELb0ELb0ELb0")) + lp_syms}
+        ("K1", "df1_pipe_kernelILb0ELb0ELb0ELb0"),
+        ("K35 f<=32", "normal_q_kernelILb0"),
+        ("K35 f>32", "normal_q_kernelILb1"),
+        ("K36", "normal_f32_kernel")) + lp_syms}
+    for form in NORMAL_FORMS:
+        lib = str(OUT / f"pipe_{form}" / "structures_bank.cu.so")
+        result["sass_loops"][f"K35 {form}"] = sass_loops(
+            lib, "normal_q_kernelILb0")
+        result["sass_loops"][f"K36 {form}"] = sass_loops(
+            lib, "normal_f32_kernel")
     for k, loops in result["sass_loops"].items():
         print(f"sass {k}: {loops}", flush=True)
 
@@ -944,7 +1051,7 @@ def main() -> None:
     ap.add_argument("--only", choices=("cascade", "pipe"),
                     help="K2/K3/K19-K21, or the depth-0 kernels (K1, K4, "
                          "K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, "
-                         "K29, K31, K34, K37) alone")
+                         "K29, K31, K34-K37) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_cascade times the CUDA device; none is "

@@ -9,7 +9,8 @@ arithmetic of K31/K33 (`dither_model`), K1, K11, K18, K26 and K27
 (`df1w_model`, tests/test_torch_df1_plan.py), K25/K32 (`wide_model`,
 tests/test_torch_wide_plan.py), K34 (`svf_model`), K12/K13 and K6
 (`bank_model`, with its back end; K6 with the Lowpass serial warp), K16
-(`lockin_model`) and K4 (`lowpass_model`, tests/test_torch_lowpass_plan.py);
+(`lockin_model`), K4 (`lowpass_model`, tests/test_torch_lowpass_plan.py)
+and K35/K36 (`normal_model`, tests/test_torch_normal_plan.py);
 and K24's chain of such blocks over a cluster (`sos_model`,
 tests/test_torch_sos_plan.py).
 
@@ -590,6 +591,78 @@ def svf_model(f, qi, state, xs, plan, *, output="lp", seed=0):
     new = SvfState(*(torch.from_numpy(np.array(v, np.float32))
                      for v in (lp, hp, bp)))
     return new, torch.from_numpy(ys)
+
+
+def normal_model(b, p, state, xs, plan, *, f=None, seed=0):
+    """K35 (``f`` its Q<f> shift) or K36 (``f`` None) as the kernel runs it
+    (``csrc/structures_bank.cu``).  K35: the producers' W = b0 x0 + b1 x1
+    + b2 x2 mod 2^64 as two 32-bit words a row and lane (`_w_feed`, rows
+    -1, -2 of the block from the state), the serial warp's acc1 = W + p_re
+    y1 + (-p_im) y0 and acc0 = p_im y1 + p_re y0 mod 2^64, y1' and y0' the
+    low words of acc >> f (`_shift_q`: the funnel shift for f <= 32, the
+    high word's arithmetic shift above); numpy uint64 words.  K36: the
+    producers' s = (b0 x0 + b1 x1) + b2 x2, the serial warp's y1' = (s +
+    p_re y1) - p_im y0 and y0' = p_im y1 + p_re y0, numpy float32 with one
+    rounding an operation; the words are the f32 bits.  Returns (Df1State,
+    ys) like `normal_bank_q_plain` / `normal_bank_f32_plain`."""
+    from idsp_tpu_torch.filters.biquad import Df1State
+
+    t, c = xs.shape
+    if f is None:
+        b0, b1, b2 = (np.float32(v) for v in np.asarray(b).reshape(-1)[:3])
+        p_re, p_im = (np.float32(v) for v in np.asarray(p).reshape(-1)[:2])
+        xf = np.concatenate([state.x[:, 1].numpy()[None],
+                             state.x[:, 0].numpy()[None],
+                             xs.numpy()]).astype(np.float32)
+        y0, y1 = (state.y[:, i].numpy().astype(np.float32) for i in (0, 1))
+
+        def produce(r0, idx):
+            g = r0 + idx + 2  # rows of xf
+            s = (b0 * xf[g] + b1 * xf[g - 1]) + b2 * xf[g - 2]
+            return s.view(np.int32)[..., None].astype(np.int64)
+
+        def serial(words):
+            nonlocal y0, y1
+            out = np.empty((len(words), c, 1), np.int64)
+            for j, w in enumerate(words[..., 0]):
+                s = w.astype(np.int32).view(np.float32)
+                y1n = (s + p_re * y1) - p_im * y0
+                y0 = p_im * y1 + p_re * y0
+                y1 = y1n
+                out[j, :, 0] = y0.view(np.int32)
+            return out
+
+        words = pipe_run(t, c, plan, produce, span_rows, serial, seed=seed)
+        new = Df1State(x=torch.from_numpy(np.stack([xf[-1], xf[-2]], 1)),
+                       y=torch.from_numpy(np.stack([y0, y1], 1)))
+        return new, torch.from_numpy(
+            words[..., 0].astype(np.int32).view(np.float32))
+
+    coefs = [int(v) for v in np.asarray(b).reshape(-1)[:3]] + [0, 0]
+    _, xw, produce = _w_feed(coefs, state.x, xs)
+    p_re, p_im = (_sext(int(v)) for v in np.asarray(p).reshape(-1)[:2])
+    n_im = _sext(-int(np.asarray(p).reshape(-1)[1]))
+    y0 = _sext(state.y[:, 0].numpy()).copy()
+    y1 = _sext(state.y[:, 1].numpy()).copy()
+
+    def serial_q(words):
+        nonlocal y0, y1
+        out = np.empty((len(words), c, 1), np.int64)
+        for j, w in enumerate(words.astype(np.uint64) & U32):
+            wide = w[:, 1] << np.uint64(32) | w[:, 0]
+            acc1 = n_im * y0 + (p_re * y1 + wide)
+            acc0 = p_im * y1 + p_re * y0
+            y1, y0 = _sext(_shift_q(acc1, f)), _sext(_shift_q(acc0, f))
+            out[j, :, 0] = _i32_bits(y0)
+        return out
+
+    with np.errstate(over="ignore"):
+        words = pipe_run(t, c, plan, produce, span_rows, serial_q, seed=seed)
+    new = Df1State(
+        x=torch.from_numpy(np.stack([xw[-1], xw[-2]], 1).view(
+            np.int64).astype(np.int32)),
+        y=torch.from_numpy(np.stack([_i32_bits(y0), _i32_bits(y1)], 1)))
+    return new, torch.from_numpy(words[..., 0].astype(np.int32))
 
 
 def lp_rows(k, p, xs):
