@@ -34,7 +34,10 @@ Phases, each reported on its own line:
    ragged c=200, HBF_TAPS and HBF_TAPS_98, forced range counts from one
    to one row a range), K9 `cic_dec_bank`
    (N=3, R=16, (32768, 512) i32 in +-2^16) and K10 `cic_int_bank`
-   ((2048, 512) i32 in +-2^10); K11 `df1_bank_q_dec`, K12
+   ((2048, 512) i32 in +-2^10), each also at the edges of its time-range
+   plan from a random carried state on full-range x over 2 blocks
+   (CIC_EDGES: one range, one kept or slow row a range, a ragged last
+   range, N = 1 and 8, R = 1 and 4, c = 200, t <= 8192); K11 `df1_bank_q_dec`, K12
    `fastlo_df1_dec_bank` and K13 `fastlo_ddc_bank_block` at c=1024,
    d=16, time chunk 128; K14 `ddc_mix_df1_bank` (int32 and f32 out, x
    and steps full range) at c=512 and 1024; K15 `fm_disc_bank` (exact and fast
@@ -268,7 +271,9 @@ Phases, each reported on its own line:
    and the range counts of HBF_BLOCKS_PER_SM blocks an SM) at c=512 and
    1024 beside their
    library yardsticks (grouped `F.conv1d` per half-band stage, TF32
-   off; chained `torch.cumsum` and `torch.diff` for the CIC),
+   off; chained `torch.cumsum` and `torch.diff` for the CIC; K9/K10 also
+   by their profiler spans, device ms a launch, with the plain combs'
+   spans and the plan),
    round-trip and composite
    rates at c=512 and 1024; K15 (both angles; also by its profiler
    spans, device ms a launch) and K16 at c=512 with the FM and lock-in
@@ -366,13 +371,30 @@ MXU_RANGES = (1, 7)
 HBF_RANGE_CASES = ((1, 200, 3, "HBF_TAPS_98"), (2, C_RATE, 1, "HBF_TAPS"),
                    (3, 200, None, "HBF_TAPS"), (4, C_RATE, 2, "HBF_TAPS"),
                    (4, 200, 64, "HBF_TAPS_98"), (4, C_RATE, 10**6, "HBF_TAPS"))
+# K9/K10 in phase 3 at the edges of their time-range plan (`cic_plan`),
+# each over HOLD_BLOCKS carried blocks from a random state: (kernel, N, R,
+# c, t input rows, forced plan or None for the default); the lengths in
+# input rows (K9: fast, K10: slow), t <= 8192 each
+CIC_EDGES = (
+    ("K9", 3, 16, C_RATE, 8192, dict(length=8192, warps=1, cluster=1)),
+    ("K9", 1, 1, 200, 256, dict(length=1, warps=32, cluster=8)),
+    ("K9", 8, 4, 200, 1024, dict(length=4, warps=32, cluster=8)),
+    ("K9", 3, 4, 200, 8192, dict(length=108, warps=16, cluster=5)),
+    ("K9", 8, 1, 200, 8192, None),
+    ("K10", 1, 1, 200, 256, dict(length=1, warps=32, cluster=8)),
+    ("K10", 8, 4, 200, 2048, dict(length=9, warps=32, cluster=8)),
+    ("K10", 3, 16, C_RATE, 512, dict(length=512, warps=1, cluster=1)),
+    ("K10", 3, 4, 200, 2048, None),
+)
 # K7/K8 in phase 6 at other chunks and range counts (blocks an SM)
 HBF_CHUNKS = {"hbf_dec_cascade_bank": (128, 256, 512),
               "hbf_int_cascade_bank": (16, 32, 64)}
 HBF_BLOCKS_PER_SM = (1, 2, 4, 8)
-# the device symbols of the half-band cascade, channelizer, WDF, fused
-# DDC-cascade, K14 and K15 kernels, for their device time
+# the device symbols of the half-band cascade, CIC, channelizer, WDF,
+# fused DDC-cascade, K14 and K15 kernels, for their device time
 DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
+                  "cic_dec_bank": "cic_range_kernel",
+                  "cic_int_bank": "cic_range_kernel",
                   "hbf_int_cascade_bank": "hbf_int_cascade_kernel",
                   "hbf_dec_cascade_mxu": "hbf_dec_mma_kernel",
                   "hbf_int_cascade_mxu": "hbf_int_mma_kernel",
@@ -894,6 +916,49 @@ def check_rate_kernels(dev, rng, errs):
             f"max |d| {err}")
 
 
+def check_cic_edges(dev, errs):
+    """Phase 3 for K9 and K10 at the edges of their time-range plan
+    (CIC_EDGES: one range, one R-row or slow-row range each, a ragged last
+    range, N = 1 and 8, R = 1, 4 and 16, c = 200 and C_RATE, the default
+    plans), each over HOLD_BLOCKS carried blocks from a random state of
+    full-range words on full-range x, so every sum wraps; tolerance 0 (into
+    errs under the kernel's own name).  Its inputs come from a generator of
+    its own, so the other phases' inputs stay as they were.  Logs each
+    plan."""
+    import torch
+    from idsp_tpu_torch.filters import cic
+    from idsp_tpu_torch.filters.cic_cuda import (
+        cic_dec_bank, cic_dec_bank_plain, cic_int_bank, cic_int_bank_plain,
+        cic_launch_plan, cic_plan,
+    )
+
+    rng = np.random.default_rng(25)
+
+    def i32(shape):
+        return torch.from_numpy(rng.integers(
+            -(2**31), 2**31, size=shape, dtype=np.int64).astype(np.int32)).to(
+                dev)
+
+    plans = []
+    for tag, n, r, c, t, forced in CIC_EDGES:
+        dec = tag == "K9"
+        plan = (cic_launch_plan(t, c, n, r, dec, dev) if forced is None else
+                cic_plan(t, c, n, r, dec=dec, **forced))
+        kern, plain = ((cic_dec_bank, cic_dec_bank_plain) if dec else
+                       (cic_int_bank, cic_int_bank_plain))
+        st = cic.CicState(*(i32(tuple(v.shape))
+                            for v in cic.init(n, 2, (c,), device=dev)))
+        name = kern.__name__
+        errs[name] = max(errs[name], hold(
+            name, lambda s, x, k=kern, p=plan: k(s, x, r - 1, _plan=p),
+            lambda s, x, f=plain: f(s, x, r - 1), (st,),
+            lambda t=t, c=c: i32((t, c))))
+        plans.append((tag, n, r, c, t, tuple(plan)))
+    log(f"phase 3 K9/K10 == plain over {HOLD_BLOCKS} blocks from a random "
+        f"state at their plans' edges, x full range; (kernel, N, R, c, t, "
+        f"(tiles, cluster, warps, length, ranges, smem)): {plans}")
+
+
 def ulp_bound(ref, k):
     """k * spacing(max |ref|) in f32 (tests/test_hbf_pallas.py:23-27)."""
     scale = np.float32(max(float(ref.abs().max()), 1.0))
@@ -1376,6 +1441,7 @@ def time_rate(dev, rng, card, timings):
     from idsp_tpu_torch.filters import cic, hbf
     from idsp_tpu_torch.filters.cic_cuda import (
         cic_dec_bank, cic_dec_bank_plain, cic_int_bank, cic_int_bank_plain,
+        cic_launch_plan,
     )
     from idsp_tpu_torch.filters.hbf_cuda import (
         LANES, hbf_dec_cascade_bank, hbf_dec_cascade_bank_plain,
@@ -1445,6 +1511,13 @@ def time_rate(dev, rng, card, timings):
                 f"plain {p_s * 1e3:.4f} ms, library {l_s * 1e3:.4f} ms (max "
                 f"|d| library vs kernel {lib_d:.3e}, scale "
                 f"{float(ker_out.abs().max()):.3e})  [{card}]")
+            if name.startswith("cic"):  # the kernel and the plain combs'
+                # device spans, and the plan
+                log_busy(timings, name, c, k_s, card, kern, st)
+                dec = name == "cic_dec_bank"
+                plan = cic_launch_plan(T if dec else T // CIC_R, c, 3, CIC_R,
+                                       dec, dev)
+                log(f"phase 6 c={c} {name} plan: {plan}")
 
         # K22/K23 at their second phase-3 tiling
         for name, kern, st, xb, (block, sub) in (
@@ -5257,6 +5330,7 @@ def main():
     check_chain_bank_kernels(dev, i32, i64, errs, plain_s, ba, lp_gains,
                              pll_ba)
     check_rate_kernels(dev, rng, errs)
+    check_cic_edges(dev, errs)
     check_mxu_kernels(dev, rng, errs, plain_s)
     check_biquad_kernels(dev, i32, errs, plain_s, ba, ba_bank, pll_ba)
     check_slice5_kernels(dev, rng, errs, plain_s)

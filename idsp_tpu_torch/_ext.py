@@ -69,8 +69,8 @@ _SIGNATURES = {
     "idsp_hbf_dec_mma": [_P] * 4 + [_I] * 7 + [_P, _P, _P],
     "idsp_hbf_int_mma": [_P] * 4 + [_I] * 7 + [_P, _P, _P],
     "idsp_hbf_mma_occupancy": [_I, _I, _P, _I, _I],
-    "idsp_cic_dec_bank": [_P] * 4 + [_I] * 4 + [_P],
-    "idsp_cic_int_bank": [_P] * 4 + [_I] * 4 + [_P],
+    "idsp_cic_dec_bank": [_P] * 5 + [_I] * 8 + [_P],
+    "idsp_cic_int_bank": [_P] * 5 + [_I] * 8 + [_P],
     "idsp_fm_disc_bank": [_P] * 13 + [_I] * 16 + [_P],
     "idsp_ddc_lockin": [_P] * 8 + [_I] * 3 + [_F] * 5 + [_I] * 5 + [_P],
     "idsp_channelize": [_P] * 10 + [_I] * 8 + [_P],

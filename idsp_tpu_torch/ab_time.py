@@ -1,6 +1,6 @@
-"""Time K1, K2, K3, K4, K6, K7, K8, K11, K12 (and its ``clamp=``), K13, K14,
-K15, K16, K17, K18, K19, K22 "highest", K24-K27, K29, K31-K37 and
-K38-K40 of two checkouts of the port in turns, in one process.
+"""Time K1, K2, K3, K4, K6, K7, K8, K9, K10, K11, K12 (and its ``clamp=``),
+K13, K14, K15, K16, K17, K18, K19, K22 "highest", K24-K27, K29, K31-K37
+and K38-K40 of two checkouts of the port in turns, in one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -14,7 +14,7 @@ K36: ``--only normal``; K12, its
 ``clamp=``, K13, K6 and K16: ``--only
 fastlo_df1_dec,fastlo_ddc_bank,ddc_lockin``; K4: ``--only lowpass``; K1, K11,
 K18, K26, K27: ``--only df1_bank_q,df1_clamp_bank_q``; K24, K25, K32: ``--only
-sos,wide``).
+sos,wide``; K9, K10: ``--only cic``).
 
 Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
 loaded under a name of its own, so both live in this process, and each
@@ -35,7 +35,11 @@ c = 512 (the chain's taps (5, 10, 23), zero state, time chunk 128), K6
 with the #5 bank's `lowpass.gains2(0.004)`, and
 K7 `hbf_dec_cascade_bank` on (32768, c) and K8 `hbf_int_cascade_bank` on
 (2048, c) f32 at c = 512 and 1024 (depth 4, `HBF_TAPS`, zero state, each
-tree's default chunk and launch shape), and K17 `channelize_fused` at
+tree's default chunk and launch shape), K9 `cic_dec_bank` (N = 3, R = 16,
+x in +-2^16; and R = 4, x in +-2^20, the composite decimator's) and K10
+`cic_int_bank` (N = 3, R = 16, 2048 slow rows in +-2^10) through their
+wrappers (the plain combs included) at c = 512 and 1024, zero state, as
+`chip_smoke.py` phase 6 times them, and K17 `channelize_fused` at
 m = 1024, 8 taps, n = 1024 and 16384 frames, bf16 and f32 (zero history,
 each tree's default plan), K22 `hbf_dec_cascade_mxu` at precision
 "highest" on K7's inputs, and K38 `wdf_bank` (wdf-ca-7's first chain),
@@ -107,6 +111,7 @@ BANK_CLAMP = (1 << 10, -(1 << 23), 1 << 23)  # K12's clamp= in chip_smoke
 DITHER_CLAMP = (0, -(2**30), 2**30)  # the suite's clamped-dither row
 WIDE_CLAMP = DITHER_CLAMP  # K25's clamp in chip_smoke (its WIDE_CLAMP)
 SOS_STAGES = 4  # `compat.sos`'s "q32 cascade4" stages
+CIC_R, COMP_R = 16, 4  # K9/K10's rate change, and the composite's K9
 SVF_ROW = (0.01, 0.7)  # the suite's SVF row (f0, Q)
 NORMAL_FC = 0.06  # the normal form's cookbook lowpass (chip_smoke.py's)
 # wdf-ca-7 and wdf-ca-19 (benches/suite.py:442-500): per branch, stages of
@@ -145,7 +150,7 @@ def cases(alias: str, dev, inputs):
         "pipelines.channelizer_cuda", "filters.rpll", "filters.rpll_cuda",
         "filters.svf", "filters.svf_cuda", "filters.ddc_lockin_cuda",
         "filters.lowpass_cuda", "filters.normal", "filters.normal_cuda",
-        "fxp")}
+        "filters.cic", "filters.cic_cuda", "fxp")}
     biquad, lowpass, pll = (sub["filters.biquad"], sub["filters.lowpass"],
                             sub["filters.pll"])
     ba = biquad.quantize_ba(biquad.from_cookbook(
@@ -305,6 +310,18 @@ def cases(alias: str, dev, inputs):
             lambda st=dec0, x=inputs[f"hbf{c}"]:
             sub["filters.hbf_mxu"].hbf_dec_cascade_mxu(
                 st, x, precision="highest"))
+    cic, cic_cuda = sub["filters.cic"], sub["filters.cic_cuda"]
+    for c in (512, 1024):
+        cic0 = cic.init(3, 1, (c,), device=dev)
+        out[f"cic_dec_bank R={CIC_R} c={c}"] = (
+            lambda st=cic0, x=inputs[f"cic{c}"]:
+            cic_cuda.cic_dec_bank(st, x, CIC_R - 1))
+        out[f"cic_int_bank R={CIC_R} c={c}"] = (
+            lambda st=cic0, x=inputs[f"cicl{c}"]:
+            cic_cuda.cic_int_bank(st, x, CIC_R - 1))
+        out[f"cic_dec_bank R={COMP_R} c={c}"] = (
+            lambda st=cic0, x=inputs[f"comp{c}"]:
+            cic_cuda.cic_dec_bank(st, x, COMP_R - 1))
     wdf, wdf_cuda = sub["filters.wdf"], sub["filters.wdf_cuda"]
 
     def stages(spec):
@@ -390,6 +407,10 @@ def main() -> None:
             rng.normal(size=(T, c)).astype(np.float32)).to(dev)
         inputs[f"low{c}"] = torch.from_numpy(
             rng.normal(size=(T >> DEPTH, c)).astype(np.float32)).to(dev)
+    for c in (512, 1024):  # the CIC's, as chip_smoke.py's phase 6
+        inputs[f"cic{c}"] = i32((T, c), -(2**16), 2**16)
+        inputs[f"cicl{c}"] = i32((T // CIC_R, c), -(2**10), 2**10)
+        inputs[f"comp{c}"] = i32((T, c), -(2**20), 2**20)
     inputs["wdf"] = i32((T, C_WDF), -(2**24), 2**24)
     inputs["iq"] = (i32((T, C_FM)), i32((T, C_FM)))
     inputs["x64"] = torch.from_numpy(rng.integers(

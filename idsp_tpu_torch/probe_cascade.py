@@ -9,7 +9,7 @@ such blocks over a cluster) spend their time on the card.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
-    python3 -m idsp_tpu_torch.probe_cascade [--only cascade|pipe]
+    python3 -m idsp_tpu_torch.probe_cascade [--only cascade|pipe|cic]
 
 One set of inputs, made from a seed: the chain's Q<29> lowpass at 0.02
 and taps (5, 10, 23), t = 32768, xs uniform in +-2^27, x in +-2^30 with
@@ -89,6 +89,10 @@ deemphasis lowpass at 0.02):
   store warp), and K35's serial warp in other forms of its sums and K36's
   producers at 16-row batches, each built on its own and held to the
   package's words (`NORMAL_FORMS`);
+* K9 and K10 (``cic``, `_cic`): the kernel alone at chip_smoke.py's
+  phase-6 inputs, its device time at the default plan and at other
+  (warps, CTAs a tile), and the clock64 stamps of each range's local
+  pass, fold and second pass;
 * the SASS of the built library (`cuobjdump -sass`): the largest loops of
   K24's, K25/K32's, K1's, K35's (both regimes and each form), K36's and
   the Lowpass serial warp's kernels (K4 and K6 at N = 1 and 2) with their
@@ -512,7 +516,8 @@ def build(sources: dict) -> dict:
                 entry = getattr(lib, fn)
                 entry.argtypes, entry.restype = argtypes, ctypes.c_int
                 setattr(libs[name], fn, entry)
-        for probe in ("probe_stamps", "probe_chain_stamps"):
+        for probe in ("probe_stamps", "probe_chain_stamps",
+                      "probe_cic_stamps"):
             if hasattr(lib, probe):
                 setattr(libs[name], probe, getattr(lib, probe))
     return libs
@@ -1046,12 +1051,100 @@ def _chain(lib, k24, card, result) -> None:
                   f"[{card}]", flush=True)
 
 
+# K9/K10's plan sweep: (warps, CTAs a tile) beside the default plan
+CIC_SWEEP = ((8, 4), (8, 8), (16, 1), (16, 2), (16, 4), (16, 8), (32, 2),
+             (32, 4), (32, 8))
+
+
+def _cic(dev, card, libs, package, result) -> None:
+    """K9 and K10 (cic_bank.cu): the kernel alone (`cic_cuda._launch`, no
+    combs) at N = 3 on chip_smoke.py's phase-6 inputs -- K9 at R = 16 (x in
+    +-2^16) and R = 4 (the composite's, x in +-2^20), K10 at R = 16 (2048
+    slow rows in +-2^10) -- at c = 512 and 1024, zero state: device ms a
+    launch (profiler spans) at the default plan and at CIC_SWEEP's (every
+    plan's words held to the default's bit for bit), then the stamps of
+    tile 0's ranges at the default plan: cycles of the local pass, the fold
+    (its barriers' waits included) and the second pass, the median and the
+    largest over the ranges that hold rows."""
+    from .filters import cic
+    from .filters.cic_cuda import _launch, cic_launch_plan, cic_plan
+    from .profiling import busy_share
+
+    rng = np.random.default_rng(2)
+
+    def i32(shape, lim):
+        return torch.from_numpy(rng.integers(-lim, lim, size=shape).astype(
+            np.int32)).to(dev)
+
+    def device_ms(step, st):
+        _, _, by_name = busy_share(step, st, iters=20)
+        kept = [(n, sec) for k, (n, sec) in by_name.items()
+                if "cic_range_kernel" in k]
+        spans = sum(n for n, _ in kept)
+        return round(sum(sec for _, sec in kept) * 20 / spans * 1e3, 4) \
+            if spans else None
+
+    result.update(cic_sweep={}, cic_stamps={})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for c in (512, 1024):
+        st = cic.init(3, 1, (c,), device=dev)
+        for key, dec, r, x in (
+                (f"K9 R=16 c={c}", True, 16, i32((T, c), 2**16)),
+                (f"K9 R=4 c={c}", True, 4, i32((T, c), 2**20)),
+                (f"K10 R=16 c={c}", False, 16, i32((T // 16, c), 2**10))):
+            t = x.shape[0]
+            name = "cic_dec_bank" if dec else "cic_int_bank"
+            rows = t // r if dec else t * r
+            default = cic_launch_plan(t, c, 3, r, dec, dev)
+
+            def step(s, plan):
+                return s, _launch(name, s, x, r, rows, dec, plan)
+
+            _ext._lib = package
+            want = step(st, default)
+            row = {"default": {"plan": list(default),
+                               "device_ms": device_ms(
+                                   lambda s: step(s, default), st)}}
+            for warps, cl in CIC_SWEEP:
+                if -(-c // 32) * cl > 2 * sms:
+                    continue
+                plan = cic_plan(t, c, 3, r, dec=dec, warps=warps, cluster=cl)
+                if not _same(step(st, plan), want):
+                    raise AssertionError(f"{key} at {plan}: differs from the "
+                                         "default plan")
+                row[f"{warps},{cl}"] = {"plan": list(plan),
+                                        "device_ms": device_ms(
+                                            lambda s, p=plan: step(s, p), st)}
+            result["cic_sweep"][key] = row
+            print(f"cic sweep {key} (warps,cluster: plan, device ms a "
+                  f"launch): {row}  [{card}]", flush=True)
+            _ext._lib = libs["cic_stamps"]
+            got = step(st, default)
+            torch.cuda.synchronize()
+            if not _same(got, want):
+                raise AssertionError(f"{key}: the stamps build differs")
+            buf = np.zeros((8 * 32, 4), np.int64)
+            if libs["cic_stamps"].probe_cic_stamps(
+                    ctypes.c_void_p(buf.ctypes.data)) != 0:
+                raise RuntimeError("probe_cic_stamps failed")
+            buf = buf[:default.ranges]
+            parts = {"local": buf[:, 1] - buf[:, 0],
+                     "fold": buf[:, 2] - buf[:, 1],
+                     "second": buf[:, 3] - buf[:, 2]}
+            stamps = {k: {"median": float(np.median(v)), "max": int(v.max())}
+                      for k, v in parts.items()}
+            result["cic_stamps"][key] = stamps
+            print(f"cic stamps {key} (cycles a range, tile 0, {default}): "
+                  f"{stamps}  [{card}]", flush=True)
+    _ext._lib = package
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("cascade", "pipe"),
-                    help="K2/K3/K19-K21, or the depth-0 kernels (K1, K4, "
+    ap.add_argument("--only", choices=("cascade", "pipe", "cic"),
+                    help="K2/K3/K19-K21, the depth-0 kernels (K1, K4, "
                          "K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, "
-                         "K29, K31, K34-K37) alone")
+                         "K29, K31, K34-K37), or K9/K10 alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_cascade times the CUDA device; none is "
@@ -1059,10 +1152,14 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     _ext.library()
     package = _ext._lib
-    parts = ("cascade", "pipe") if args.only is None else (args.only,)
+    parts = (("cascade", "pipe", "cic") if args.only is None else
+             (args.only,))
     sources = variants() if "cascade" in parts else {}
     if "pipe" in parts:
         sources.update({f"pipe_{k}": v for k, v in pipe_variants().items()})
+    if "cic" in parts:  # K9/K10 with clock64 stamps (IDSP_CIC_STAMPS)
+        sources["cic_stamps"] = {"cic_bank.cu": "#define IDSP_CIC_STAMPS\n"
+                                 + _read("cic_bank.cu")}
     libs = build(sources)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1074,6 +1171,8 @@ def main() -> None:
         _cascade(dev, card, libs, package, result)
     if "pipe" in parts:
         _pipe(dev, card, libs, package, result)
+    if "cic" in parts:
+        _cic(dev, card, libs, package, result)
     _ext._lib = package
     print(json.dumps(result), flush=True)
 

@@ -80,6 +80,7 @@ from idsp_tpu_torch.filters.cic_cuda import (
     cic_dec_bank_plain,
     cic_int_bank,
     cic_int_bank_plain,
+    cic_plan,
 )
 from idsp_tpu_torch.filters.ddc_bank_cuda import (
     bank_plan,
@@ -514,6 +515,14 @@ def test_rate_conversion_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError):  # 9 integrator stages
         cic_dec_bank(cic.init(9, 1, (128,), device=cuda),
                      torch.zeros((32, 128), dtype=torch.int32, device=cuda), 15)
+    # plans the kernel cannot run: the C entry refuses them
+    xs = torch.zeros((256, 128), dtype=torch.int32, device=cuda)
+    plan = cic_plan(256, 128, 3, 16, warps=4, cluster=2)
+    for bad in (plan._replace(smem=plan.smem + 4),  # not its own sum
+                plan._replace(length=8),  # kept rows across ranges
+                plan._replace(length=16, cluster=1)):  # 16 ranges, 4 warps
+        with pytest.raises(RuntimeError):
+            cic_dec_bank(st, xs, 15, _plan=bad)
 
 
 @pytest.mark.requires_cuda
