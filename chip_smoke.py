@@ -75,8 +75,9 @@ Phases, each reported on its own line:
    chunks; c = 200, 50, 1 and 200; K31 at f 29 unclamped and clamped, f
    1 and f 32, K33 per-lane and shared, K34 each output, K35 at f 29, 1,
    32, 33 and 63 with full-range coefficients, x and state, whose 64-bit
-   sums wrap, K36) over 2 blocks, and K31 at f 1 and 32 on a block whose
-   64-bit sums wrap, bit for bit;
+   sums wrap, K36, K28 with the Q16<13> lowpass and at f 1 and 31 with
+   full-range int16 words, whose int32 sums wrap, K30) over 2 blocks, and
+   K31 at f 1 and 32 on a block whose 64-bit sums wrap, bit for bit;
    K12 (unclamped and with CLAMP) and K13 at that pipeline's edges
    (chunks other than the time chunk and not multiples of d, chunks
    under d, t not a multiple of the chunk, c = 17, 3, 1, d = 1, 5 and 3
@@ -286,7 +287,7 @@ Phases, each reported on its own line:
    profiler spans, device ms a launch), and the control legs' block
    times; K28-K33 at c=1024 lanes with their plain versions' times from
    phase 3 (K31 clamped and K32/K33 with a shared set on the log only;
-   K32 also by its profiler spans);
+   K28-K33 also by their profiler spans, device ms a launch);
    K34-K40 at c=1024 lanes with their rates and their plain versions'
    times from phase 3 (K40 over wdf-ca-7 on the log only), K29, K31,
    K33 and K34-K40 also by their profiler spans, device ms a launch;
@@ -415,7 +416,9 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "df1_hbf12_bank": "ddc_cascade_kernel",
                   "fastlo_ddc_cascade_bank_clamp": "ddc_cascade_kernel",
                   "ddc_mix_df1_bank": "ddc_mix_df1_kernel",
+                  "df1_bank_q16": "df1_q16_kernel",
                   "df1_bank_q64": "df1_q64_kernel",
+                  "df1_bank_f32": "df1_f32_kernel",
                   "df1_dither_bank": "df1_dither_kernel",
                   "df1_dither_bank_coef": "df1_dither_kernel",
                   "svf_bank": "svf_kernel",
@@ -2208,8 +2211,8 @@ def check_serial_pipe_edges(dev, i32, errs):
 
 
 def check_depth0_edges(dev, i32, errs):
-    """Phase 3 for K31, K33, K34, K35 and K36 at the edges of the depth-0
-    pipeline, each against its plain version over 2 carried blocks,
+    """Phase 3 for K28, K30, K31, K33, K34, K35 and K36 at the edges of the
+    depth-0 pipeline, each against its plain version over 2 carried blocks,
     tolerance 0 (into errs under the kernel's own name): t = 1 (c = 200),
     t under a chunk (c = 50), t = 3 chunks + 17 (c = 1: one live lane of a
     tile), and a forced plan of 16-row chunks, 3 slots and 2 producers (c =
@@ -2222,13 +2225,19 @@ def check_depth0_edges(dev, i32, errs):
     wraps); K34 with each of its four outputs from a random state; K35 at f
     = 29, 1, 32, 33 and 63 with full-range coefficients (p_im never
     INT32_MIN), x and state, whose five-term sums wrap mod 2^64; K36 on x ~
-    N(0, 1) from a random state, the structure row's float lowpass."""
+    N(0, 1) from a random state, the structure row's float lowpass; K28 with
+    the ladder's Q16<13> lowpass on x and state in +-2^14, and at f = 1 and
+    31 with full-range int16 coefficients, x and state, whose int32 sums
+    wrap (c = 200: 16-byte stores of 8 lanes' low halves; c = 50 and 1: a
+    2-byte store a lane); K30 on x ~ N(0, 1) from a random state, the
+    ladder's f32 lowpass."""
     import torch
     from idsp_tpu_torch.design import Filter
     from idsp_tpu_torch.filters import biquad, normal, svf
     from idsp_tpu_torch.filters.biquad_cuda import (
+        df1_bank_f32, df1_bank_f32_plain, df1_bank_q16, df1_bank_q16_plain,
         df1_dither_bank, df1_dither_bank_coef, df1_dither_bank_coef_plain,
-        df1_dither_bank_plain, dither_plan,
+        df1_dither_bank_plain, dither_plan, f32_plan, q16_plan,
     )
     from idsp_tpu_torch.filters.normal_cuda import (
         normal_bank_f32, normal_bank_f32_plain, normal_bank_q,
@@ -2257,13 +2266,48 @@ def check_depth0_edges(dev, i32, errs):
     }
     b_f, p_f = normal.from_cookbook(
         Filter().critical_frequency(NORMAL_FC).lowpass())
+    lp = biquad.from_cookbook(Filter().critical_frequency(0.1).lowpass())
+    b16 = biquad.quantize_ba(lp, 13, dtype=np.int16)
+
+    def i16(shape, lim):
+        return torch.from_numpy(rng.integers(-lim, lim, size=shape).astype(
+            np.int16)).to(dev)
+
+    def f32(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev)
+
     for label, (c, t, kw) in edges.items():
         for name, plan_of in (("dither", dither_plan), ("svf", svf_plan),
                               ("normal_q", normal_plan),
                               ("normal_f32", lambda c, **kw: normal_plan(
-                                  c, f32=True, **kw))):
+                                  c, f32=True, **kw)),
+                              ("q16", q16_plan), ("f32", f32_plan)):
             rows = 3 * chunk_of(plan_of) + 17 if t is None else t
             plan = plan_of(c, **kw) if kw else None
+            if name == "q16":
+                for f, lim in ((13, 2**14), (1, 2**15), (31, 2**15)):
+                    ba = (b16 if f == 13 else rng.integers(
+                        -(2**15), 2**15, 5).astype(np.int16))
+                    errs["df1_bank_q16"] = max(errs["df1_bank_q16"], hold(
+                        f"df1_bank_q16 ({label}, f {f})",
+                        lambda s, x, ba=ba, f=f, pl=plan: df1_bank_q16(
+                            ba, s, x, f, _plan=pl),
+                        lambda s, x, ba=ba, f=f: df1_bank_q16_plain(
+                            ba, s, x, f),
+                        (biquad.Df1State(x=i16((c, 2), lim),
+                                         y=i16((c, 2), lim)),),
+                        lambda rows=rows, c=c, lim=lim: i16((rows, c), lim),
+                        blocks=2))
+                continue
+            if name == "f32":
+                errs["df1_bank_f32"] = max(errs["df1_bank_f32"], hold(
+                    f"df1_bank_f32 ({label})",
+                    lambda s, x, pl=plan: df1_bank_f32(lp, s, x, _plan=pl),
+                    lambda s, x: df1_bank_f32_plain(lp, s, x),
+                    (biquad.Df1State(x=f32((c, 2)), y=f32((c, 2))),),
+                    lambda rows=rows, c=c: f32((rows, c)), blocks=2))
+                continue
             if name == "normal_q":
                 for f in (29, 1, 32, 33, 63):
                     bq = rng.integers(-(2**31) + 1, 2**31, 3).astype(np.int32)
@@ -2355,13 +2399,15 @@ def check_depth0_edges(dev, i32, errs):
     log(f"phase 3 K31 (f 29 unclamped and clamped {CLAMP}, f 1, f 32 "
         f"unclamped and clamped), K33 (per-lane and shared planes, clamped "
         f"per-lane), K34 (lp, hp, bp, br), K35 (f 29, 1, 32, 33, 63, "
-        f"full-range coefficients, x and state: the sums wrap) and K36 at "
-        f"the depth-0 pipeline's edges == plain over 2 blocks each "
-        f"({', '.join(edges)}: c = 200, 50, 1 and 200); K31 at f 1 and 32 "
-        f"where the 64-bit sum wraps, clamped and not: max |d| "
+        f"full-range coefficients, x and state: the sums wrap), K36, K28 "
+        f"(the Q16<13> lowpass; f 1 and 31 at full range: the int32 sums "
+        f"wrap) and K30 at the depth-0 pipeline's edges == plain over 2 "
+        f"blocks each ({', '.join(edges)}: c = 200, 50, 1 and 200); K31 at "
+        f"f 1 and 32 where the 64-bit sum wraps, clamped and not: max |d| "
         f"{errs['df1_dither_bank']}, {errs['df1_dither_bank_coef']}, "
         f"{errs['svf_bank']}, {errs['normal_bank_q']}, "
-        f"{errs['normal_bank_f32']}")
+        f"{errs['normal_bank_f32']}, {errs['df1_bank_q16']}, "
+        f"{errs['df1_bank_f32']}")
 
 
 def check_df1_pipe_edges(dev, i32, errs):
@@ -4283,7 +4329,7 @@ def precision_main_path(dev, rng, wrappers):
 def time_precision(dev, rng, card, timings, plain_s):
     """Phase 6 for K28-K33 at c = C_PREC, t = T, the suite's inputs: each
     kernel (K31 unclamped, K32/K33 per-lane) beside its plain version
-    (timed in phase 3), K29, K31 and K33 also by their profiler spans
+    (timed in phase 3), each also by its profiler spans
     (`launch_device_ms`);
     K31 clamped with the suite's row, and K32/K33 with the shared (5,)
     set, on the log only."""
@@ -5860,6 +5906,8 @@ def main():
                             "idsp_tpu/filters/biquad_pallas.py:932"),
         "df1_clamp_bank_q_coef": ("idsp_tpu_torch/csrc/df1_bank.cu",
                                   "idsp_tpu/filters/biquad_pallas.py:999"),
+        # K28, K30: depth-0 `run_pipe` (`tap_feed` over int16 rows and
+        # `Q16Serial`, int16 rows out; `f32_feed` and `Df1F32Serial`)
         "df1_bank_q16": ("idsp_tpu_torch/csrc/biquad_precision.cu",
                          "idsp_tpu/filters/biquad_pallas.py:1352"),
         "df1_bank_q64": ("idsp_tpu_torch/csrc/biquad_precision.cu",

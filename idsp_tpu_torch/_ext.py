@@ -51,9 +51,9 @@ _SIGNATURES = {
     "idsp_sos_max_clusters": [_I] * 4,
     "idsp_df1_wide_bank": [_P] * 6 + [_I] * 17 + [_P],
     "idsp_df1_wide_bank_coef": [_P] * 7 + [_I] * 12 + [_P],
-    "idsp_df1_bank_q16": [_P] * 6 + [_I] * 8 + [_P],
+    "idsp_df1_bank_q16": [_P] * 6 + [_I] * 13 + [_P],
     "idsp_df1_bank_q64": [_P] * 6 + [_I] * 3 + [_L] * 5 + [_I] * 5 + [_P],
-    "idsp_df1_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_P],
+    "idsp_df1_bank_f32": [_P] * 6 + [_I] * 2 + [_F] * 5 + [_I] * 5 + [_P],
     "idsp_df1_dither_bank": [_P] * 8 + [_I] * 17 + [_P],
     "idsp_df1_dither_bank_coef": [_P] * 9 + [_I] * 12 + [_P],
     "idsp_ddc_cascade": [_P] * 11 + [_I] * 14 + [_P, _P] + [_I] * 5 + [_P],

@@ -1,6 +1,6 @@
 """Time K1, K2, K3, K4, K6, K7, K8, K9, K10, K11, K12 (and its ``clamp=``),
-K13, K14, K15, K16, K17, K18, K19, K22 "highest", K24-K27, K29, K31-K37
-and K38-K40 of two checkouts of the port in turns, in one process.
+K13, K14, K15, K16, K17, K18, K19, K22 "highest", K24-K37 and K38-K40 of
+two checkouts of the port in turns, in one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -9,8 +9,8 @@ Usage (on a CUDA machine, from the root of a checkout)::
 ``--only`` keeps the kernels whose name contains one of the given substrings
 (e.g. ``--only highest,wdf``; K2, K3, K19: ``--only
 df1_hbf,fastlo_ddc_cascade,df1_clamp``; K14, K15: ``--only mix_df1,fm_disc``;
-K29, K37: ``--only q64,rpll``; K31, K33, K34: ``--only dither,svf``; K35,
-K36: ``--only normal``; K12, its
+K29, K37: ``--only q64,rpll``; K28, K30: ``--only q16,df1_bank_f32``;
+K31, K33, K34: ``--only dither,svf``; K35, K36: ``--only normal``; K12, its
 ``clamp=``, K13, K6 and K16: ``--only
 fastlo_df1_dec,fastlo_ddc_bank,ddc_lockin``; K4: ``--only lowpass``; K1, K11,
 K18, K26, K27: ``--only df1_bank_q,df1_clamp_bank_q``; K24, K25, K32: ``--only
@@ -51,8 +51,10 @@ out; x, a zero phase, the K6 steps) at c = 512 and 1024, and K15
 deemphasis lowpass at 0.02, zero state) at c = 512, K29 `df1_bank_q64`
 (the Q64<61> lowpass at 0.1, x in +-2^55, zero state) and K37
 `rpll_bank` (the RPLL row (8, 12, 11), full-range timestamps, 1 in 64
-valid, zero state) at c = 1024 lanes, t = 32768, as `chip_smoke.py`'s
-ladder and structures; K31 `df1_dither_bank` (the Q29 lowpass at 0.1, x
+valid, zero state), K28 `df1_bank_q16` (the suite's Q16<13> lowpass at
+0.1, x in +-2^14, zero state) and K30 `df1_bank_f32` (that lowpass in
+f32, x ~ N(0, 1), zero state) at c = 1024 lanes, t = 32768, as
+`chip_smoke.py`'s ladder and structures; K31 `df1_dither_bank` (the Q29 lowpass at 0.1, x
 in +-2^24, zero state; unclamped and clamped with the suite's row (0,
 +-2^30), which pins nothing), K33 `df1_dither_bank_coef` (per-lane Q29
 lowpass planes at 1024 frequencies in [0.01, 0.2], and the shared set)
@@ -105,7 +107,7 @@ M_CH, CH_TAPS, N_CH = 1024, 8, (1024, 16384)  # K17: branches, taps, frames
 ROUNDS, ITERS = 30, 20
 C_WDF = 1024  # K38-K40's lanes
 C_FM, FM_CARRIER = 512, 12345  # K15's channels and carrier word
-C_SERIAL = 1024  # K24's, K25's, K29's and K31-K37's lanes
+C_SERIAL = 1024  # K24's, K25's and K28-K37's lanes
 C_BANK, C_LOCKIN, TC_LOCKIN = 1024, 512, 512  # K12/K13's, K16's widths
 BANK_CLAMP = (1 << 10, -(1 << 23), 1 << 23)  # K12's clamp= in chip_smoke
 DITHER_CLAMP = (0, -(2**30), 2**30)  # the suite's clamped-dither row
@@ -207,6 +209,15 @@ def cases(alias: str, dev, inputs):
         lambda st=biquad.df1_init((C_SERIAL,), torch.int64, device=dev):
         sub["filters.biquad_cuda"].df1_bank_q64(ba64, st, inputs["x64"], 61))
     bc = sub["filters.biquad_cuda"]
+    lp_01 = biquad.from_cookbook(
+        sub["design"].Filter().critical_frequency(0.1).lowpass())
+    b16 = biquad.quantize_ba(lp_01, 13, dtype=np.int16)
+    out[f"df1_bank_q16 c={C_SERIAL}"] = (
+        lambda st=biquad.df1_init((C_SERIAL,), torch.int16, device=dev):
+        bc.df1_bank_q16(b16, st, inputs["x16"], 13))
+    out[f"df1_bank_f32 c={C_SERIAL}"] = (
+        lambda st=biquad.df1_init((C_SERIAL,), torch.float32, device=dev):
+        bc.df1_bank_f32(lp_01, st, inputs["xf"]))
     ba29 = biquad.quantize_ba(biquad.from_cookbook(
         sub["design"].Filter().critical_frequency(0.1).lowpass()), 29)
     for label, clamp in (("", None), (" clamped", DITHER_CLAMP)):
@@ -433,6 +444,7 @@ def main() -> None:
         trees_biquad.quantize_ba(trees_biquad.from_cookbook(
             trees_design.Filter().critical_frequency(fc).lowpass()), 29)
         for fc in rng.uniform(0.01, 0.2, C_SERIAL)], axis=1)).to(dev)
+    inputs["x16"] = i32((T, C_SERIAL), -(2**14), 2**14).to(torch.int16)
     fns = {k: cases(f"ab_{k}", dev, inputs) for k in trees}
     only = [o for o in args.only.split(",") if o]
     names = [n for n in fns["parent"] if not only or any(o in n for o in only)]

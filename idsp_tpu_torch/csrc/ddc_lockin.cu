@@ -14,7 +14,7 @@
 //   I = x[i] * lo_re,                    Q = -(x[i] * lo_im)
 //
 // then y0 = b0*x0 + b1*x1 + b2*x2 + a1*y1 + a2*y2 per lane, summed left to
-// right (df1.cuh `Df1LaneF32`).  Every multiply and add is a
+// right (the plain `df1_process`).  Every multiply and add is a
 // single-rounding intrinsic in the plain version's order: kernel == plain
 // bit for bit, given the same tables.  The factorisation depends on tc, so
 // both take the same tc.
@@ -41,7 +41,8 @@
 // it (at the block's start from the state), later batches from the batch
 // before.  The serial warp, alone on its scheduler, holds y1 and y2, forms
 // a2*y2 a row ahead (off its chain) and runs three rounded ops a row on
-// the chain, (W + a1*y1) + a2*y2, from shared memory into the output ring;
+// the chain, (W + a1*y1) + a2*y2, from shared memory into the output ring
+// (df1_ring.cuh `Df1F32Serial`, K30's too);
 // a store warp writes the rows, 16 bytes a thread where 2c % 4 == 0.
 // Neither the LO nor the mix reaches device memory, and the chunk, which
 // shared memory bounds, is the plan's, independent of tc.  The plan
@@ -167,53 +168,11 @@ __device__ __forceinline__ void lockin_feed(const LockinArgs& a,
   }
 }
 
-// The serial warp: y1, y2 of its lane in registers; each row's W from the
-// input ring, y0 = (W + a1*y1) + a2*y2 into the output ring, a2*y2 formed
-// a row ahead (y2 is the row before's y1), so that a1*y1's multiply and
-// the two adds alone are on the chain: df1.cuh `Df1LaneF32::step`'s
-// roundings in its order.
-struct LockinSerial {
-  const LockinArgs* a;
-
-  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
-                                             int lid, int lane, bool live,
-                                             uint32_t) const {
-    const Pipe& p = a->p;
-    const float a1 = a->k.a1, a2 = a->k.a2;
-    float y1 = 0.f, y2 = 0.f;
-    if (live) {
-      y1 = a->sy[2 * lane];
-      y2 = a->sy[2 * lane + 1];
-    }
-    float v = __fmul_rn(a2, y2);  // the next row's a2*y2
-    idsp::ring::serial_chunks(
-        p.d.t, p.d.chunk, p.d.depth, R, [&](int slot, int rows) {
-          const float* in =
-              reinterpret_cast<const float*>(R.in_slot(slot)) + lid;
-          float* o = reinterpret_cast<float*>(out) +
-                     static_cast<size_t>(slot) * p.d.chunk * kLanes + lid;
-          idsp::ring::group_rows(
-              rows, [&](int r) { return in[r * kLanes]; },
-              [&](int r, float w) {
-                const float y0 = __fadd_rn(__fadd_rn(w, __fmul_rn(a1, y1)), v);
-                v = __fmul_rn(a2, y1);  // off the chain
-                y2 = y1;
-                y1 = y0;
-                o[r * kLanes] = y0;
-              });
-        });
-    if (live) {
-      a->sy_out[2 * lane] = y1;
-      a->sy_out[2 * lane + 1] = y2;
-    }
-  }
-};
-
 __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
     ddc_lockin_kernel(const __grid_constant__ LockinArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   idsp::ring::run_pipe<1, 1, idsp::ring::Layout::kWide>(
-      a.p, smem, LockinSerial{&a},
+      a.p, smem, idsp::ring::Df1F32Serial<LockinArgs>{&a},
       [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
         lockin_feed(a, R, pw, lid, lane, live);  // one CTA a tile
       });

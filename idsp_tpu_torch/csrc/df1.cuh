@@ -1,5 +1,5 @@
 // Shared device code of the DDC-chain kernels: the Q<f> DF1 biquad step,
-// and its f32 twin.
+// the Q64 multiply-add and the f32 coefficients.
 //
 // y0 = (b0*x0 + b1*x1 + b2*x2 + a1*y1 + a2*y2) >> f   (biquad.rs:366-383)
 //
@@ -15,16 +15,14 @@
 // The wide-state DF1, which keeps each fed-back output as a full int64
 // word, is K25/K32's serial warp (df1_ring.cuh `Df1WideSerial`).
 //
-// Two other rungs of the reference's precision ladder: Q16
-// (`Df1LaneQ16`, int16 storage, 32-bit sums) and Q64 (`mac_q64`, int64
-// storage, 128-bit sums), each bit-identical to its plain scan
-// (`df1_process_q` at int16, `df1_process_q64`).  The error-feedback DF1
-// is K31/K33's serial warp (df1_ring.cuh `Df1WSerial` with its dither
-// flag).
-//
-// The f32 step (`Df1LaneF32`) has no shift; each product and each sum is
-// a single-rounding intrinsic, left to right, so nvcc cannot contract
-// them into FMAs: bit-identical to the plain `df1_process`.
+// Another rung of the reference's precision ladder: Q64 (`mac_q64`, int64
+// storage, 128-bit sums), bit-identical to its plain scan
+// (`df1_process_q64`).  The Q16 DF1 is K28's serial warp
+// (biquad_precision.cu `Q16Serial`), the error-feedback DF1 K31/K33's
+// (df1_ring.cuh `Df1WSerial` with its dither flag), the f32 DF1 K16's and
+// K30's (df1_ring.cuh `Df1F32Serial`: each product and each sum a
+// single-rounding intrinsic, left to right, so nvcc cannot contract them
+// into FMAs; bit-identical to the plain `df1_process`).
 #pragma once
 
 #include <cstddef>
@@ -164,47 +162,6 @@ struct Df1Lane {
   }
 };
 
-// The reference's Q16 (`Q<i16, i32, f>`, tests/embedded/README.md:62):
-// int16 taps, each product and the five-term sum in 32 bits, wrapping
-// (formed in uint32), the arithmetic >> f, the low 16 bits.  The
-// coefficients ride in Df1Coefs' int32 words.
-struct Df1LaneQ16 {
-  int16_t x1, x2, y1, y2;
-
-  __device__ __forceinline__ void load(const int16_t* sx, const int16_t* sy,
-                                       int lane) {
-    x1 = sx[2 * lane];
-    x2 = sx[2 * lane + 1];
-    y1 = sy[2 * lane];
-    y2 = sy[2 * lane + 1];
-  }
-
-  __device__ __forceinline__ void store(int16_t* sx, int16_t* sy,
-                                        int lane) const {
-    sx[2 * lane] = x1;
-    sx[2 * lane + 1] = x2;
-    sy[2 * lane] = y1;
-    sy[2 * lane + 1] = y2;
-  }
-
-  static __device__ __forceinline__ uint32_t mul(int32_t a, int16_t v) {
-    return static_cast<uint32_t>(a) *
-           static_cast<uint32_t>(static_cast<int32_t>(v));
-  }
-
-  __device__ __forceinline__ int16_t step(const Df1Coefs& k, int16_t x0) {
-    const uint32_t acc = mul(k.b0, x0) + mul(k.b1, x1) + mul(k.b2, x2) +
-                         mul(k.a1, y1) + mul(k.a2, y2);
-    const int16_t y0 = static_cast<int16_t>(static_cast<uint16_t>(
-        static_cast<uint32_t>(static_cast<int32_t>(acc) >> k.f)));
-    x2 = x1;
-    x1 = x0;
-    y2 = y1;
-    y1 = y0;
-    return y0;
-  }
-};
-
 // The reference's Q64 (`Q<i64, i128, f>`, dsp-fixedpoint/src/lib.rs:
 // 473-492): int64 taps and coefficients, each product the full signed
 // 128-bit one, the five summed mod 2^128, the output the low 64 bits of
@@ -247,41 +204,9 @@ __device__ __forceinline__ void mac_q64(uint64_t& lo, uint64_t& hi,
   lo = (m << 32) | static_cast<uint32_t>(p00);
 }
 
+// The f32 DF1's coefficients (K16, K30).
 struct Df1CoefsF32 {
   float b0, b1, b2, a1, a2;
-};
-
-struct Df1LaneF32 {
-  float x1, x2, y1, y2;
-
-  __device__ __forceinline__ void load(const float* sx, const float* sy,
-                                       int lane) {
-    x1 = sx[2 * lane];
-    x2 = sx[2 * lane + 1];
-    y1 = sy[2 * lane];
-    y2 = sy[2 * lane + 1];
-  }
-
-  __device__ __forceinline__ void store(float* sx, float* sy,
-                                        int lane) const {
-    sx[2 * lane] = x1;
-    sx[2 * lane + 1] = x2;
-    sy[2 * lane] = y1;
-    sy[2 * lane + 1] = y2;
-  }
-
-  __device__ __forceinline__ float step(const Df1CoefsF32& k, float x0) {
-    float acc = __fmul_rn(k.b0, x0);
-    acc = __fadd_rn(acc, __fmul_rn(k.b1, x1));
-    acc = __fadd_rn(acc, __fmul_rn(k.b2, x2));
-    acc = __fadd_rn(acc, __fmul_rn(k.a1, y1));
-    const float y0 = __fadd_rn(acc, __fmul_rn(k.a2, y2));
-    x2 = x1;
-    x1 = x0;
-    y2 = y1;
-    y1 = y0;
-    return y0;
-  }
 };
 
 }  // namespace idsp

@@ -12,9 +12,12 @@
 // (structures_bank.cu, the RPLL and the SVF), K35 and K36 (the same file,
 // the normal form: K1's producers `tap_feed` / `put_w` and a serial warp
 // over the 2x2 rotation, `NormalQSerial`; K36's producers form the f32
-// feed-forward sum, `NormalF32Serial`), K29
-// (biquad_precision.cu, the Q64) and K16 (ddc_lockin.cu, the f32 DF1 after
-// the lock-in mix) with their own, K1, K11, K18, K26, K27 (df1_bank.cu)
+// feed-forward sum, `f32_feed`, `NormalF32Serial`), K29 and K28
+// (biquad_precision.cu, the Q64 and the Q16, whose store warp writes int16
+// rows, `Layout::kHalf`) with their own, K16 (ddc_lockin.cu, the f32 DF1
+// after the lock-in mix) and K30 (biquad_precision.cu, K36's producers)
+// with one f32 DF1 serial warp (`Df1F32Serial`), K1, K11, K18, K26, K27
+// (df1_bank.cu)
 // and K31/K33 (biquad_precision.cu, the error-feedback DF1) with one
 // serial warp over the producers' feed-forward sums (`Df1WSerial`), and
 // K25/K32 (biquad_bank.cu, the wide DF1) with the same producers and a
@@ -46,7 +49,8 @@
 // input ring's full and empty and the output ring's full and empty.  An input
 // slot holds `chunk` rows of kLanes x `Win` 32-bit words, word w of row r and
 // lane l at (r * kLanes + l) * Win + w, an output slot the same with `Wout`
-// words (K4, K6, K12/K13, K14, K15, K16, K34, K36: 1 and 1; K1, K11, K18,
+// words (K4, K6, K12/K13, K14, K15, K16, K28, K30, K34, K36: 1 and 1; K1,
+// K11, K18,
 // K24, K25, K26, K27, K31/K33, K32, K35: 2 and 1; K37: 2 and 2; K29: 4 and
 // 2), so a warp
 // reads or writes a row as one 4-, 8- or 16-byte word a lane, contiguous
@@ -236,8 +240,9 @@ __device__ __forceinline__ void df1_warp(const Df1Ring& a, const Rings& R,
 // How the store warp lays a row's wout words a lane out in device memory:
 // kWide, one (t, c2) plane of wout-word elements (K14, K15: int32 or f32;
 // K31/K33: int32; K34: f32; K29: int64); kPlanes, wout (t, c2) planes of
-// 32-bit words, word w to plane w (K37: phase and frequency).
-enum class Layout { kWide, kPlanes };
+// 32-bit words, word w to plane w (K37: phase and frequency); kHalf (wout
+// 1), one (t, c2) plane of each word's low 16 bits (K28: int16).
+enum class Layout { kWide, kPlanes, kHalf };
 
 // A depth-0 launch: d, the serial warp's rows (t), chunk and ring depth
 // (with the DF1 warp, its state and coefficients too); y, the output
@@ -245,7 +250,7 @@ enum class Layout { kWide, kPlanes };
 // `pipe_plan`): `warps` warps a block, `producers` of them producers and
 // the next one the store warp, the rest idle; cluster: 1, or 2 (a partner
 // CTA a tile, all `warps` of it producers); vec: y's rows take 16-byte
-// stores (each plane 16-byte aligned, its rows too).
+// stores (each plane 16-byte aligned, its rows too; kHalf: c2 % 8 == 0).
 struct Pipe {
   Df1Ring d;
   void* y[2];
@@ -281,16 +286,21 @@ inline bool pipe_plan_ok(int t, int c2, int warps, int producers,
 // rows, this tile's columns [col0, col0 + kLanes).  With vec, 16 bytes a
 // thread (kWide: 4 x wout lanes a row and 4 / wout rows a warp
 // instruction; kPlanes: 8 threads a row of 4 lanes each, 4 rows an
-// instruction a plane), else each lane its own column.
+// instruction a plane; kHalf: 4 threads a row of 8 lanes each, two lanes'
+// low halves a word (`__byte_perm`), 8 rows an instruction), else each
+// lane its own column (kHalf: a 2-byte store).
 template <int Wout, Layout L>
 __device__ __forceinline__ void store_warp(const Pipe& p, const Rings& R,
                                            const uint32_t* out, int lid,
                                            int col0) {
   constexpr int kRow = kLanes * Wout;  // words of a slot's row
-  constexpr int kT = L == Layout::kWide ? kRow / 4 : kLanes / 4;
+  constexpr int kT = L == Layout::kWide    ? kRow / 4
+                     : L == Layout::kPlanes ? kLanes / 4
+                                            : kLanes / 8;
   const int chunk = p.d.chunk;
   const size_t c2 = static_cast<size_t>(p.c2);
-  const int w4 = 4 * (lid % kT);  // kWide: word; kPlanes: lane of the row
+  // kWide: word; kPlanes: lane of the row; kHalf: its lane / 2
+  const int w4 = 4 * (lid % kT);
   sm90::Cursor u;
   for (int r0 = 0; r0 < p.d.t; r0 += chunk, u.next(p.d.depth)) {
     const int rows = min(chunk, p.d.t - r0);
@@ -309,6 +319,25 @@ __device__ __forceinline__ void store_warp(const Pipe& p, const Rings& R,
 #pragma unroll
           for (int w = 0; w < Wout; ++w)
             yr[(r * c2 + lid) * Wout + w] = s[r * kRow + lid * Wout + w];
+      }
+    } else if constexpr (L == Layout::kHalf) {
+      static_assert(Wout == 1, "kHalf narrows one word a lane");
+      uint16_t* yr = static_cast<uint16_t*>(p.y[0]) +
+                     static_cast<size_t>(r0) * c2 + col0;
+      const int l8 = 2 * w4;  // the first of this thread's 8 lanes
+      if (p.vec) {
+        if (col0 + l8 < p.c2)
+          for (int r = lid / kT; r < rows; r += kLanes / kT) {
+            const uint4 a = *reinterpret_cast<const uint4*>(s + r * kRow + l8);
+            const uint4 b =
+                *reinterpret_cast<const uint4*>(s + r * kRow + l8 + 4);
+            *reinterpret_cast<uint4*>(yr + r * c2 + l8) = make_uint4(
+                __byte_perm(a.x, a.y, 0x5410), __byte_perm(a.z, a.w, 0x5410),
+                __byte_perm(b.x, b.y, 0x5410), __byte_perm(b.z, b.w, 0x5410));
+          }
+      } else if (col0 + lid < p.c2) {
+        for (int r = 0; r < rows; ++r)
+          yr[r * c2 + lid] = static_cast<uint16_t>(s[r * kRow + lid]);
       }
     } else {
       const size_t at = static_cast<size_t>(r0) * c2 + col0;
@@ -756,6 +785,77 @@ struct Df1WSerial {
       a->sy_out[2 * lane] = y1;
       a->sy_out[2 * lane + 1] = y2;
       if constexpr (Dither) a->se_out[lane] = static_cast<int64_t>(e);
+    }
+  }
+};
+
+// ---- the f32 DF1 at depth 0 (K16, K30; K36's producers) -------------------
+
+// The f32 producers of K30 and K36 (Args: p, xs, sx, sx_out as f32 rows):
+// `tap_feed` in batches of kF32Rows rows, each row's (b0 x0 + b1 x1) + b2
+// x2, each product and sum rounded on its own in the plain version's
+// order (`__f*_rn`: no contraction), into the input ring (one f32 word a
+// row and lane).  At kWRows (16) a batch, their loads set K36's pace
+// (PERF.md §6).
+constexpr int kF32Rows = 32;
+
+template <class Args>
+__device__ __forceinline__ void f32_feed(const Args& a, const Rings& R,
+                                         int pw, int lid, int lane,
+                                         bool live, float b0, float b1,
+                                         float b2) {
+  tap_feed<kF32Rows>(
+      a.p, R, pw, lane, live, a.xs, a.sx, a.sx_out,
+      [&](const Batch& b, const TapRows<float, kF32Rows>& xv, int slot) {
+        float* s = reinterpret_cast<float*>(R.in_slot<1>(slot)) + lid;
+#pragma unroll
+        for (int v = 0; v < kF32Rows; ++v) {
+          const float w = __fadd_rn(__fadd_rn(__fmul_rn(b0, xv.x[v + 2]),
+                                              __fmul_rn(b1, xv.x[v + 1])),
+                                    __fmul_rn(b2, xv.x[v]));
+          if (b.r + v < b.hi) s[(b.r + v) * kLanes] = w;
+        }
+      });
+}
+
+// The f32 DF1 serial warp of K16 and K30 (Args: p, sy, sy_out (lanes, 2)
+// f32 and k, `Df1CoefsF32`): y1, y2 of its lane in registers; each row's W
+// = (b0 x0 + b1 x1) + b2 x2 from the input ring, y0 = (W + a1 y1) + a2 y2
+// into the output ring, a2 y2 formed a row ahead (y2 is the row before's
+// y1), so that a1 y1's multiply and the two adds alone are on the chain:
+// the plain `df1_process`'s roundings in its order, left to right.
+template <class Args>
+struct Df1F32Serial {
+  const Args* a;
+
+  __device__ __forceinline__ void operator()(const Rings& R, uint32_t* out,
+                                             int lid, int lane, bool live,
+                                             uint32_t) const {
+    const Pipe& p = a->p;
+    const float a1 = a->k.a1, a2 = a->k.a2;
+    float y1 = 0.f, y2 = 0.f;
+    if (live) {
+      y1 = a->sy[2 * lane];
+      y2 = a->sy[2 * lane + 1];
+    }
+    float v = __fmul_rn(a2, y2);  // the next row's a2 y2
+    serial_chunks(p.d.t, p.d.chunk, p.d.depth, R, [&](int slot, int rows) {
+      const float* in = reinterpret_cast<const float*>(R.in_slot(slot)) + lid;
+      float* o = reinterpret_cast<float*>(out) +
+                 static_cast<size_t>(slot) * p.d.chunk * kLanes + lid;
+      group_rows(
+          rows, [&](int r) { return in[r * kLanes]; },
+          [&](int r, float w) {
+            const float y0 = __fadd_rn(__fadd_rn(w, __fmul_rn(a1, y1)), v);
+            v = __fmul_rn(a2, y1);  // off the chain
+            y2 = y1;
+            y1 = y0;
+            o[r * kLanes] = y0;
+          });
+    });
+    if (live) {
+      a->sy_out[2 * lane] = y1;
+      a->sy_out[2 * lane + 1] = y2;
     }
   }
 };

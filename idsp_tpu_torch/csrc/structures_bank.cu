@@ -36,7 +36,7 @@
 // and p_im y1 + p_re y0 mod 2^64, each shifted right by f (one template
 // instance a regime, f <= 32 or above, as K1's; the host picks it).  K36:
 // the producers form (b0 x0 + b1 x1) + b2 x2, rounded as the plain version
-// rounds it; the serial warp the 2x2 rotation of y0 and y1, each product
+// rounds it (df1_ring.cuh `f32_feed`, K30's too); the serial warp the 2x2 rotation of y0 and y1, each product
 // and sum rounded on its own.  K37: the producers form each row's words --
 // x, and dt = -x mod 2^dt2 with the mask in bit 31; the serial warp carries
 // the last valid timestamp (dx and one select a row, off the chain) and
@@ -275,10 +275,8 @@ struct NormalF32Serial {
   }
 };
 
-// K36's producers take batches of 32 rows: at kWRows (16) their loads set
-// its pace (PERF.md §6).
-constexpr int kF32Rows = 32;
-
+// K36's producers: df1_ring.cuh `f32_feed` (K30's too), batches of
+// kF32Rows (32) rows.
 __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
     normal_f32_kernel(const __grid_constant__ NormalArgs<float> a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -286,20 +284,7 @@ __global__ void __launch_bounds__(kLanes* idsp::ring::kMaxWarps)
       a.p, smem, NormalF32Serial{&a},
       [&](const Rings& R, int pw, int lid, int lane, bool live, bool) {
         // one CTA a tile; producer 0 writes x = [x1, x2] out
-        idsp::ring::tap_feed<kF32Rows>(
-            a.p, R, pw, lane, live, a.xs, a.sx, a.sx_out,
-            [&](const Batch& b, const TapRows<float, kF32Rows>& xv,
-                int slot) {
-              float* s = reinterpret_cast<float*>(R.in_slot<1>(slot)) + lid;
-#pragma unroll
-              for (int v = 0; v < kF32Rows; ++v) {
-                const float w =
-                    __fadd_rn(__fadd_rn(__fmul_rn(a.b0, xv.x[v + 2]),
-                                        __fmul_rn(a.b1, xv.x[v + 1])),
-                              __fmul_rn(a.b2, xv.x[v]));
-                if (b.r + v < b.hi) s[(b.r + v) * kLanes] = w;
-              }
-            });
+        idsp::ring::f32_feed(a, R, pw, lid, lane, live, a.b0, a.b1, a.b2);
       });
 }
 

@@ -8,9 +8,10 @@
 
 Each runs its CUDA kernel (K1, K11, K18, K26, K27 ``csrc/df1_bank.cu``;
 K24, K25 and K32 ``csrc/biquad_bank.cu``; K28-K31 and K33
-``csrc/biquad_precision.cu``; K1, K11, K18, K25-K27, K29 and K31-K33 on
-the depth-0 pipeline of ``csrc/df1_ring.cuh``, `df1_plan`, `wide_plan`,
-`q64_plan` and `dither_plan`; K24 on a chain of such blocks over a
+``csrc/biquad_precision.cu``; K1, K11, K18 and K25-K33 on the depth-0
+pipeline of ``csrc/df1_ring.cuh``, `df1_plan`, `wide_plan`, `q16_plan`,
+`q64_plan`, `f32_plan` and `dither_plan`; K24 on a chain of such blocks
+over a
 thread-block cluster, `pipe_plan.sos_plan`) for a CUDA tensor and its
 plain PyTorch version
 (``*_plain``) for a CPU tensor; any other device raises.  K1 and K11
@@ -54,6 +55,9 @@ from .pipe_plan import SOS_MAX_STAGES, PipePlan, SosPlan, pipe_plan, sos_plan
 DF1_PRODUCERS = 8
 # K29's producer warps by default (and a store warp: 8 warps a block)
 Q64_PRODUCERS = 5
+# K28's and K30's producer warps by default (and a store warp: 12 warps a
+# block; with 5 the producers set their pace, PERF.md §6)
+Q16_PRODUCERS = 8
 DITHER_PRODUCERS = DF1_PRODUCERS  # K31's and K33's name for it
 
 
@@ -530,7 +534,8 @@ def _check_planes(ba_planes, c: int) -> None:
 
 
 def _launch_typed(name, fn, coefs, state, xs, dtype, f=None):
-    """Validate and launch K28 (int16), K29 (int64) or K30 (float32)."""
+    """Validate and launch K28 (int16), K29 (int64) or K30 (float32);
+    ``coefs`` holds the coefficients and the plan's arguments."""
     t, c = xs.shape
     dev = xs.device
     _ext.require("xs", xs, dev, dtype, (t, c))
@@ -553,7 +558,25 @@ def df1_bank_q16_plain(ba, state: Df1State, xs, f: int = 13):
     return df1_process_q(ba, f, state, xs, dtype=torch.int16)
 
 
-def df1_bank_q16(ba, state: Df1State, xs, f: int = 13):
+def q16_plan(c: int, *, producers: int = Q16_PRODUCERS, **kw) -> PipePlan:
+    """The plan over ``c`` lanes (`pipe_plan.pipe_plan`) of K28 and (as
+    `f32_plan`) K30: Q16_PRODUCERS producer warps by default, each a span
+    of ceil(chunk / producers) rows of every chunk; one 32-bit word a row
+    and lane each way (K28: the feed-forward sum mod 2^32 in, y0
+    sign-extended out, of which the store warp writes the low half; K30:
+    f32 words, as K36's `normal_cuda.normal_plan(c, f32=True)`), so
+    PIPE_CHUNK rows a chunk in PIPE_RING slots by default; one CTA a
+    tile."""
+    if kw.get("cluster", 1) != 1:
+        raise ValueError("K28 and K30 run one CTA a tile")
+    return pipe_plan(c, producers=producers, win=1, wout=1, **kw)
+
+
+f32_plan = q16_plan  # K30's name for it
+
+
+def df1_bank_q16(ba, state: Df1State, xs, f: int = 13, *,
+                 _plan: PipePlan | None = None):
     """Q16<f> DF1 over a bank of lanes (the reference's ``Q16<13>`` row,
     tests/embedded/README.md:62): int16 storage, each product and the
     five-term sum in int32 (wrapping), one truncating shift, wrap to int16.
@@ -565,13 +588,16 @@ def df1_bank_q16(ba, state: Df1State, xs, f: int = 13):
       f: fractional bits, 0 < f < 32.
 
     Returns (state, ys int16), bit-identical to scanning
-    ``biquad.df1_step_q(ba, f, s, x, dtype=int16)``.
+    ``biquad.df1_step_q(ba, f, s, x, dtype=int16)``.  The kernel's plan is
+    `q16_plan`'s; no plan changes a value.
     """
     check_q16_f(f)
     if xs.device.type == "cpu":
         return df1_bank_q16_plain(ba, state, xs, f)
+    plan = q16_plan(xs.shape[1]) if _plan is None else _plan
     out = _launch_typed("df1_bank_q16", _ext.library().idsp_df1_bank_q16,
-                        _ba_list(ba), state, xs, torch.int16, f)
+                        [*_ba_list(ba), *_plan_args(plan)], state, xs,
+                        torch.int16, f)
     df1_bank_q16.launches += 1
     return out
 
@@ -614,11 +640,9 @@ def df1_bank_q64(ba, state: Df1State, xs, f: int = 61, *,
     check_q64_f(f)
     if xs.device.type == "cpu":
         return df1_bank_q64_plain(ba, state, xs, f)
-    t, c = xs.shape
-    plan = q64_plan(c) if _plan is None else _plan
+    plan = q64_plan(xs.shape[1]) if _plan is None else _plan
     out = _launch_typed("df1_bank_q64", _ext.library().idsp_df1_bank_q64,
-                        [*_ba_list(ba), plan.warps, plan.producers,
-                         plan.chunk, plan.ring, plan.smem], state, xs,
+                        [*_ba_list(ba), *_plan_args(plan)], state, xs,
                         torch.int64, f)
     df1_bank_q64.launches += 1
     return out
@@ -639,7 +663,7 @@ def df1_bank_f32_plain(ba, state: Df1State, xs):
     return df1_process(_f32_coefs(ba), state, xs)
 
 
-def df1_bank_f32(ba, state: Df1State, xs):
+def df1_bank_f32(ba, state: Df1State, xs, *, _plan: PipePlan | None = None):
     """Float DF1 over a bank of lanes, sequential: each product and sum
     rounded on its own, left to right, as `biquad.df1_process` (unlike the
     reassociating `df1_block_float`).
@@ -649,12 +673,15 @@ def df1_bank_f32(ba, state: Df1State, xs):
       state: Df1State with x/y (c, 2) float32.
       xs: (t, c) float32.
 
-    Returns (state, ys float32), bit-identical to `df1_process`.
+    Returns (state, ys float32), bit-identical to `df1_process`.  The
+    kernel's plan is `f32_plan`'s; no plan changes a value.
     """
     if xs.device.type == "cpu":
         return df1_bank_f32_plain(ba, state, xs)
+    plan = f32_plan(xs.shape[1]) if _plan is None else _plan
     out = _launch_typed("df1_bank_f32", _ext.library().idsp_df1_bank_f32,
-                        _f32_coefs(ba), state, xs, torch.float32)
+                        [*_f32_coefs(ba), *_plan_args(plan)], state, xs,
+                        torch.float32)
     df1_bank_f32.launches += 1
     return out
 

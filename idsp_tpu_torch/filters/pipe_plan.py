@@ -1,8 +1,8 @@
 """The host plan of the depth-0 pipeline of a serial recurrence that K6,
 K12 and K13 (`ddc_bank_cuda`), K14 (`ddc_cuda`), K15 (`fm_cuda`), K16
-(`ddc_lockin_cuda`), K1, K11, K18, K25, K26, K27, K29, K31, K32 and K33
-(`biquad_cuda`), K34 (`svf_cuda`), K35 and K36 (`normal_cuda`), K37
-(`rpll_cuda`) and K4 (`lowpass_cuda`) run: ``csrc/df1_ring.cuh``
+(`ddc_lockin_cuda`), K1, K11, K18 and K25-K33 (`biquad_cuda`), K34
+(`svf_cuda`), K35 and K36 (`normal_cuda`), K37 (`rpll_cuda`) and K4
+(`lowpass_cuda`) run: ``csrc/df1_ring.cuh``
 `run_pipe` (K1, K4, K11, K18, K26, K27, K6/K12/K13: `run_roles`); and
 K24's chain of such blocks, one or two a CTA, over a thread-block cluster
 (`sos_plan`, ``df1_ring.cuh`` `run_chain`).
@@ -39,13 +39,13 @@ def pipe_smem(chunk: int, ring: int, win: int = 1, wout: int = 1) -> int:
 
 
 class PipePlan(NamedTuple):
-    """How K1, K11-K16, K18, K26, K27, K29, K31/K33 and K34-K37 run a
+    """How K1, K11-K16, K18, K26-K31, K33 and K34-K37 run a
     launch: a CUDA block is a tile of LANES lanes and ``warps`` warps: warp
     0 the serial warp, the others of its scheduler (warp % 4 == 0) idle,
     of the rest ``producers`` that fill its input ring (K12/K13, K14: the
     mix of their rows mod their count; K15: dphi of a span of each chunk;
-    K16: the mix and the feed-forward sum of a span; K1, K11, K18, K26,
-    K27, K29, K31/K33, K35, K36: the feed-forward sums of a span; K34: the
+    K16: the mix and the feed-forward sum of a span; K1, K11, K18,
+    K26-K31, K33, K35, K36: the feed-forward sums of a span; K34: the
     x rows of a span; K37: the x and dt words of a span) and the next one
     the store warp (K12/K13: the back end), the rest idle; with
     ``cluster`` 2 (K15) a tile is a cluster of that block and a partner CTA

@@ -1,6 +1,6 @@
 """Where K2, K3, K19-K21 (`csrc/ddc_cascade.cu`), K12/K13, K14 and K15
 (`csrc/ddc_bank.cu`, `csrc/ddc_mix_df1.cu`, `csrc/fm_disc.cu`, all on
-`csrc/df1_ring.cuh`'s DF1 warp), K16, K29, K31 and K37, K34-K36, K1, K11,
+`csrc/df1_ring.cuh`'s DF1 warp), K16, K28-K31 and K37, K34-K36, K1, K11,
 K18, K26, K25/K32, K4 and K6 (`csrc/ddc_lockin.cu`,
 `csrc/biquad_precision.cu`, `csrc/structures_bank.cu`, `csrc/df1_bank.cu`,
 `csrc/biquad_bank.cu`, `csrc/lowpass_bank.cu`, `csrc/ddc_bank.cu`, on its
@@ -10,6 +10,7 @@ such blocks over a cluster) spend their time on the card.
 Usage (on a CUDA machine, from the root of a checkout)::
 
     python3 -m idsp_tpu_torch.probe_cascade [--only cascade|pipe|cic]
+        [--cases K28,K30]
 
 One set of inputs, made from a seed: the chain's Q<29> lowpass at 0.02
 and taps (5, 10, 23), t = 32768, xs uniform in +-2^27, x in +-2^30 with
@@ -89,14 +90,24 @@ deemphasis lowpass at 0.02):
   store warp), and K35's serial warp in other forms of its sums and K36's
   producers at 16-row batches, each built on its own and held to the
   package's words (`NORMAL_FORMS`);
+* K28 (the suite's Q16<13> lowpass at 0.1, x in +-2^14; and the same
+  words at f = 17, the shift's other regime) and K30 (that lowpass in
+  f32, x ~ N(0, 1)) at 1024 lanes: their plan sweeps
+  (`biquad_cuda.q16_plan`, `f32_plan`: producers, chunk, ring), their
+  stamps (the serial warp, producer 0, the store warp) and K28's chain in
+  other forms (`Q16_FORMS`), each built on its own and held to the
+  package's words;
+* ``--cases`` keeps the depth-0 cases whose key holds one of its
+  substrings (and builds only their variants);
 * K9 and K10 (``cic``, `_cic`): the kernel alone at chip_smoke.py's
   phase-6 inputs, its device time at the default plan and at other
   (warps, CTAs a tile), and the clock64 stamps of each range's local
   pass, fold and second pass;
 * the SASS of the built library (`cuobjdump -sass`): the largest loops of
-  K24's, K25/K32's, K1's, K35's (both regimes and each form), K36's and
-  the Lowpass serial warp's kernels (K4 and K6 at N = 1 and 2) with their
-  instruction counts (the serial warp's 8-row group among them).
+  K24's, K25/K32's, K1's, K35's (both regimes and each form), K36's,
+  K28's (each form), K30's, K16's and the Lowpass serial warp's kernels
+  (K4 and K6 at N = 1 and 2) with their instruction counts (the serial
+  warp's 8-row group among them).
 
 A time is the median of 3 trials of 20 chained launches (CUDA events,
 `profiling.measure_rate`); a stamp is SM clock cycles, the median over
@@ -411,7 +422,7 @@ def variants() -> dict:
 
 
 DF1_PIPE_SOURCES = ("ddc_mix_df1.cu", "fm_disc.cu")  # K14, K15
-PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K29, K31/K33
+PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K28-K31/K33
                                    "structures_bank.cu",  # K34-K37
                                    "ddc_lockin.cu",  # K16
                                    "biquad_bank.cu",  # K25/K32
@@ -419,20 +430,57 @@ PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K29, K31/K33
                                    "lowpass_bank.cu")  # K4
 
 
-def pipe_variants() -> dict:
-    """K4's, K6's, K13's, K14's, K15's, K16's, K29's, K31's, K34's, K35's
-    and K37's variants: name -> {file: source}; each builds its .cu
-    files."""
+# the stamps of each timed depth-0 case: (key, its stamps library)
+STAMP_LIBS = (
+    ("K14 c=512", "stamps_ddc_mix_df1"), ("K15 exact", "stamps_fm_disc"),
+    ("K15 fast", "stamps_fm_disc"), ("K29 c=1024", "stamps_biquad_precision"),
+    ("K37 c=1024", "stamps_structures_bank"),
+    ("K31 c=1024", "stamps_biquad_precision"),
+    ("K34 c=1024", "stamps_structures_bank"),
+    ("K13 c=1024", "stamps_ddc_bank"), ("K16 c=512", "stamps_ddc_lockin"),
+    ("K4 c=2048", "stamps_lowpass_bank"), ("K6 c=1024", "stamps_ddc_bank"),
+    ("K1 c=512", "stamps_df1_bank"), ("K11 c=1024", "stamps_df1_bank"),
+    ("K18 c=512", "stamps_df1_bank"), ("K26 c=1024", "stamps_df1_bank"),
+    ("K25 c=1024", "stamps_biquad_bank"),
+    ("K25 clamp c=1024", "stamps_biquad_bank"),
+    ("K32 c=1024", "stamps_biquad_bank"),
+    ("K35 c=1024", "stamps_structures_bank"),
+    ("K36 c=1024", "stamps_structures_bank"),
+    ("K28 c=1024", "stamps_biquad_precision"),
+    ("K28 f=17 c=1024", "stamps_biquad_precision"),
+    ("K30 c=1024", "stamps_biquad_precision"))
+
+
+def _wanted(cases):
+    """key -> whether a probe of the case ``key`` runs: every case, or
+    those whose key holds one of the substrings ``cases``."""
+    return lambda key: not cases or any(c in key for c in cases)
+
+
+def pipe_variants(cases=()) -> dict:
+    """K4's, K6's, K13's, K14's, K15's, K16's, K28's, K29's, K30's, K31's,
+    K34's, K35's, K36's and K37's variants (those the cases ``cases`` read,
+    `_wanted`): name -> {file: source}; each builds its .cu files."""
+    want = _wanted(cases)
     ring = _read("df1_ring.cuh")
-    out = {"df1_copy": {"df1_ring.cuh": _df1_copy(ring),
-                        **{f: _read(f) for f in DF1_PIPE_SOURCES}}}
+    out = {}
+    if want("K14") or want("K15"):
+        out["df1_copy"] = {"df1_ring.cuh": _df1_copy(ring),
+                           **{f: _read(f) for f in DF1_PIPE_SOURCES}}
+    libs = {lib for key, lib in STAMP_LIBS if want(key)}
     for f in PIPE_SOURCES:  # one library each: one g_stamps a library
-        r, k = _pipe_stamps(ring, _read(f))
-        out[f"stamps_{f[:-3]}"] = {"df1_ring.cuh": r, f: k}
-    out["stamps_ddc_bank"] = _back_stamps(ring, "ddc_bank.cu")  # K6, K12/K13
-    out["chain_stamps"] = _chain_stamps(ring, _read("biquad_bank.cu"))  # K24
-    forms = _normal_forms(_read("structures_bank.cu"))  # K35
-    out.update({k: {"structures_bank.cu": v} for k, v in forms.items()})
+        if f"stamps_{f[:-3]}" in libs:
+            r, k = _pipe_stamps(ring, _read(f))
+            out[f"stamps_{f[:-3]}"] = {"df1_ring.cuh": r, f: k}
+    if "stamps_ddc_bank" in libs:  # K6, K12/K13
+        out["stamps_ddc_bank"] = _back_stamps(ring, "ddc_bank.cu")
+    if want("K24"):
+        out["chain_stamps"] = _chain_stamps(ring, _read("biquad_bank.cu"))
+    if want("K35") or want("K36"):
+        out.update(_normal_forms(_read("structures_bank.cu"), ring))
+    if want("K28"):
+        out.update({k: {"biquad_precision.cu": v} for k, v in
+                    _q16_forms(_read("biquad_precision.cu")).items()})
     return out
 
 
@@ -450,7 +498,7 @@ NORMAL_FORMS = ("normal_b", "normal_swap", "normal_acc0", "normal_b_acc0",
                 "normal_iadd3", "normal_iadd3_both", "normal_f32_b16")
 
 
-def _normal_forms(src) -> dict:
+def _normal_forms(src, ring) -> dict:
     """structures_bank.cu with K35's serial warp's sums in other forms:
     "normal_b", -p_im y0's product beside p_re y1's multiply-add onto W,
     then one 64-bit add; "normal_swap", -p_im y0's multiply-add onto W
@@ -458,7 +506,8 @@ def _normal_forms(src) -> dict:
     acc0; "normal_iadd3", acc0 as two products and a three-input add with a
     zero ptxas cannot see (t >> 31; t >= 0), which keeps it from fusing a
     product into a multiply-add; both sums so; and "normal_f32_b16", K36's
-    producers in batches of 16 rows (kWRows) instead of kF32Rows."""
+    producers (df1_ring.cuh `f32_feed`) in batches of 16 rows (kWRows)
+    instead of kF32Rows: name -> {file: source}."""
     u64 = "static_cast<uint64_t>"
     zero = f"{u64}(static_cast<int64_t>(p.d.t >> 31))"
     b = (f"const int64_t acc1 = static_cast<int64_t>({u64}(\n"
@@ -473,15 +522,59 @@ def _normal_forms(src) -> dict:
     add3_1 = (f"const int64_t acc1 = static_cast<int64_t>(\n"
               f"    {u64}(mul_wide(p_re, y1)) + {u64}(mul_wide(n_im, y0)) +\n"
               f"    {u64}({_W}) + {zero});\n")
-    return {"normal_b": _patch(src, _ACC1, b),
-            "normal_swap": _patch(src, _ACC1, swap),
-            "normal_acc0": _patch(src, _ACC0, acc0),
-            "normal_b_acc0": _patch(_patch(src, _ACC1, b), _ACC0, acc0),
-            "normal_iadd3": _patch(src, _ACC0, add3_0),
-            "normal_iadd3_both": _patch(_patch(src, _ACC0, add3_0), _ACC1,
-                                        add3_1),
-            "normal_f32_b16": _patch(src, "constexpr int kF32Rows = 32;",
-                                     "constexpr int kF32Rows = kWRows;")}
+    forms = {"normal_b": _patch(src, _ACC1, b),
+             "normal_swap": _patch(src, _ACC1, swap),
+             "normal_acc0": _patch(src, _ACC0, acc0),
+             "normal_b_acc0": _patch(_patch(src, _ACC1, b), _ACC0, acc0),
+             "normal_iadd3": _patch(src, _ACC0, add3_0),
+             "normal_iadd3_both": _patch(_patch(src, _ACC0, add3_0), _ACC1,
+                                         add3_1)}
+    out = {k: {"structures_bank.cu": v} for k, v in forms.items()}
+    out["normal_f32_b16"] = {
+        "structures_bank.cu": src,
+        "df1_ring.cuh": _patch(ring, "constexpr int kF32Rows = 32;",
+                               "constexpr int kF32Rows = kWRows;")}
+    return out
+
+
+# K28's serial warp as the package has it: the coefficients scaled by 2^s
+# (s = max(16 - f, 0)) and one arithmetic shift by sh = f + s on the chain
+_Q16_SCALE = "  const int s = f < 16 ? 16 - f : 0;\n"
+_Q16_Y0 = "  return static_cast<int32_t>(acc) >> sh;\n"
+_Q16_STEP = ("                const uint32_t v =  // off the chain\n"
+             "                    mad_lo(a2, static_cast<uint32_t>(y2), w);\n"
+             "                const int32_t y0 =\n"
+             "                    q16_y0(mad_lo(a1, static_cast<uint32_t>(y1), "
+             "v), sh);\n")
+# other forms of its chain, each built on its own: every form gives the
+# same words
+Q16_FORMS = ("q16_cxx", "q16_narrow", "q16_bfe", "q16_shl")
+
+
+def _q16_forms(src) -> dict:
+    """biquad_precision.cu with K28's chain in other forms: "q16_cxx", the
+    step's two multiply-adds in C++ (V = W + a2 y2, then V + a1 y1), which
+    the compiler regroups; with the coefficients unscaled, "q16_narrow",
+    the plain step's int16 wrap of int32(acc) >> f (a shift and a sign
+    extension); "q16_bfe", one `bfe.s32` of bits [f, f + 16) of acc
+    (sign-filled past bit 31); "q16_shl", acc shifted left by max(16 - f,
+    0) and right by f plus that on the chain."""
+    cxx = ("                const uint32_t v = w + a2 * static_cast<uint32_t>"
+           "(y2);\n"
+           "                const int32_t y0 =\n"
+           "                    q16_y0(v + a1 * static_cast<uint32_t>(y1), "
+           "sh);\n")
+    unscaled = _patch(src, _Q16_SCALE, "  const int s = 0;\n")
+    narrow = "  return static_cast<int16_t>(static_cast<int32_t>(acc) >> sh);\n"
+    bfe = ("  int32_t y;\n"
+           "  asm(\"bfe.s32 %0, %1, %2, 16;\" : \"=r\"(y) : \"r\"(acc), "
+           "\"r\"(sh));\n  return y;\n")
+    shl = ("  const int l = sh < 16 ? 16 - sh : 0;\n"
+           "  return static_cast<int32_t>(acc << l) >> (sh + l);\n")
+    return {"q16_cxx": _patch(src, _Q16_STEP, cxx),
+            "q16_narrow": _patch(unscaled, _Q16_Y0, narrow),
+            "q16_bfe": _patch(unscaled, _Q16_Y0, bfe),
+            "q16_shl": _patch(unscaled, _Q16_Y0, shl)}
 
 
 def build(sources: dict) -> dict:
@@ -661,9 +754,11 @@ def _stamp_rows(lib, launch, chunk, series) -> dict:
     return row
 
 
-def _pipe(dev, card, libs, package, result) -> None:
-    """K1, K4, K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, K29, K31 and
-    K34-K37: the plan sweep, the variants, the per-role stamps."""
+def _pipe(dev, card, libs, package, result, cases=()) -> None:
+    """K1, K4, K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, K28-K31 and
+    K34-K37 (those whose key holds one of ``cases``, `_wanted`): the plan
+    sweep, the variants, the per-role stamps, the serial loops' SASS."""
+    want = _wanted(cases)
     ba = biquad.quantize_ba(biquad.from_cookbook(
         design.Filter().critical_frequency(0.02).lowpass()), 29)
     bf = fm_disc.deemphasis_coefficients(0.02)
@@ -823,6 +918,22 @@ def _pipe(dev, card, libs, package, result) -> None:
         return normal_cuda.normal_bank_f32(
             b_n, p_n, normal.init((1024,), device=dev), xf, _plan=plan)
 
+    lp_01 = biquad.from_cookbook(
+        design.Filter().critical_frequency(0.1).lowpass())
+    b16 = biquad.quantize_ba(lp_01, 13, dtype=np.int16)
+    x16 = torch.from_numpy(rng.integers(-(2**14), 2**14, size=(T, 1024))
+                           .astype(np.int16)).to(dev)
+
+    def k28(plan=None, f=13):  # f = 17: the same words, the other regime
+        return biquad_cuda.df1_bank_q16(
+            b16, biquad.df1_init((1024,), torch.int16, device=dev), x16, f,
+            _plan=plan)
+
+    def k30(plan=None):
+        return biquad_cuda.df1_bank_f32(
+            lp_01, biquad.df1_init((1024,), torch.float32, device=dev), xf,
+            _plan=plan)
+
     _ext._lib = package
     result.update(pipe_sweep={}, pipe_variants={}, pipe_stamps={})
     cases = [(f"K14 c={c}", lambda p, c=c: k14(c, p),
@@ -902,14 +1013,25 @@ def _pipe(dev, card, libs, package, result) -> None:
                [dict(producers=p) for p in (1, 2, 3, 5, 8, 11)]
                + [dict(chunk=256, ring=2), dict(chunk=128, ring=6),
                   dict(chunk=64, ring=4), dict(chunk=32, ring=8)])]
+    cases += [(f"K{k} c=1024", run, plan_of,
+               [dict(producers=p) for p in (2, 3, 5, 8, 11)]
+               + [dict(producers=11, warps=16)]
+               + [dict(chunk=128, ring=r) for r in (2, 3, 6)]
+               + [dict(chunk=256, ring=2), dict(chunk=64, ring=4),
+                  dict(chunk=32, ring=8)])
+              for k, run, plan_of in (
+                  (28, k28, lambda **kw: biquad_cuda.q16_plan(1024, **kw)),
+                  (30, k30, lambda **kw: biquad_cuda.f32_plan(1024, **kw)))]
     for name, run, plan_of, forced in cases:
-        want = run(None)
+        if not want(name):
+            continue
+        want_words = run(None)
         for kw in forced:
             try:
                 plan = plan_of(**kw)
             except ValueError:
                 continue  # a plan the kernel cannot run
-            if not _same(run(plan), want):
+            if not _same(run(plan), want_words):
                 raise AssertionError(f"{name} {kw}: another value")
             key = (f"{name} w{plan.warps} p{plan.producers} "
                    f"cl{plan.cluster} ch{plan.chunk} r{plan.ring}"
@@ -921,39 +1043,46 @@ def _pipe(dev, card, libs, package, result) -> None:
 
     timed = {"K14 c=512": lambda: k14(512), "K15 exact": lambda: k15("exact"),
              "K15 fast": lambda: k15("fast")}
-    result["pipe_variants"]["package"] = {k: _ms(fn)
-                                          for k, fn in timed.items()}
-    result["pipe_variants"]["package"].update(
-        {"K29 c=1024": _ms(k29), "K37 c=1024": _ms(k37),
-         "K31 c=1024": _ms(k31), "K34 c=1024": _ms(k34),
-         "K12 c=1024": _ms(k12),
-         "K12 clamp c=1024": _ms(lambda: k12(clamp=(1 << 10, -(1 << 23),
-                                                    1 << 23))),
-         "K13 c=1024": _ms(k13), "K16 c=512": _ms(k16),
-         "K1 c=512": _ms(k1), "K11 c=1024": _ms(k11),
-         "K18 c=512": _ms(k18), "K26 c=1024": _ms(k26),
-         "K24 c=1024": _ms(k24), "K25 c=1024": _ms(k25),
-         "K25 clamp c=1024": _ms(lambda: k25(clamp=(0, -(2**30), 2**30))),
-         "K32 c=1024": _ms(k32), "K35 c=1024": _ms(k35),
-         "K35 f=33 c=1024": _ms(lambda: k35(f=33)), "K36 c=1024": _ms(k36)})
-    lp_timed = {"K4 c=2048": k4, "K4 N=1 c=2048": lambda: k4(n=1),
-                "K6 c=1024": k6, "K6 N=1 c=1024": lambda: k6(n=1)}
-    result["pipe_variants"]["package"].update(
-        {k: _ms(fn) for k, fn in lp_timed.items()})
-    _ext._lib = libs["pipe_df1_copy"]
-    result["pipe_variants"]["df1_copy"] = {k: _ms(fn)
-                                           for k, fn in timed.items()}
+    timed = {k: fn for k, fn in timed.items() if want(k)}
+    package_timed = {
+        **timed, "K29 c=1024": k29, "K37 c=1024": k37, "K31 c=1024": k31,
+        "K34 c=1024": k34, "K12 c=1024": k12,
+        "K12 clamp c=1024": lambda: k12(clamp=(1 << 10, -(1 << 23),
+                                               1 << 23)),
+        "K13 c=1024": k13, "K16 c=512": k16, "K1 c=512": k1,
+        "K11 c=1024": k11, "K18 c=512": k18, "K26 c=1024": k26,
+        "K24 c=1024": k24, "K25 c=1024": k25,
+        "K25 clamp c=1024": lambda: k25(clamp=(0, -(2**30), 2**30)),
+        "K32 c=1024": k32, "K35 c=1024": k35,
+        "K35 f=33 c=1024": lambda: k35(f=33), "K36 c=1024": k36,
+        "K4 c=2048": k4, "K4 N=1 c=2048": lambda: k4(n=1), "K6 c=1024": k6,
+        "K6 N=1 c=1024": lambda: k6(n=1), "K28 c=1024": k28,
+        "K28 f=17 c=1024": lambda: k28(f=17), "K30 c=1024": k30}
+    result["pipe_variants"]["package"] = {
+        k: _ms(fn) for k, fn in package_timed.items() if want(k)}
+    if timed:
+        _ext._lib = libs["pipe_df1_copy"]
+        result["pipe_variants"]["df1_copy"] = {k: _ms(fn)
+                                               for k, fn in timed.items()}
     _ext._lib = package
-    forms = {"K35 c=1024": k35, "K35 f=33 c=1024": lambda: k35(f=33),
-             "K36 c=1024": k36}
-    want = {k: fn() for k, fn in forms.items()}
-    for form in NORMAL_FORMS:
-        _ext._lib = libs[f"pipe_{form}"]
-        for k, fn in forms.items():
-            if not _same(fn(), want[k]):
-                raise AssertionError(f"{form} {k}: another value")
-        result["pipe_variants"][form] = {k: _ms(fn) for k, fn in forms.items()}
-    _ext._lib = package
+    for names, fns in (
+            (NORMAL_FORMS, {"K35 c=1024": k35,
+                            "K35 f=33 c=1024": lambda: k35(f=33),
+                            "K36 c=1024": k36}),
+            (Q16_FORMS, {"K28 c=1024": k28,
+                         "K28 f=17 c=1024": lambda: k28(f=17)})):
+        fns = {k: fn for k, fn in fns.items() if want(k)}
+        if not fns:
+            continue
+        words = {k: fn() for k, fn in fns.items()}
+        for form in names:
+            _ext._lib = libs[f"pipe_{form}"]
+            for k, fn in fns.items():
+                if not _same(fn(), words[k]):
+                    raise AssertionError(f"{form} {k}: another value")
+            result["pipe_variants"][form] = {k: _ms(fn)
+                                             for k, fn in fns.items()}
+        _ext._lib = package
     for name, row in result["pipe_variants"].items():
         print(f"variant {name}: {row} ms  [{card}]", flush=True)
     roles = {"serial": (0, 1), "producer": (2, 3), "store": (4, 5)}
@@ -969,39 +1098,25 @@ def _pipe(dev, card, libs, package, result) -> None:
               "K4 c=2048": lowpass_cuda.lowpass_plan(2048).chunk,
               "K6 c=1024": ddc_bank_cuda.bank_plan(1024).chunk,
               "K35 c=1024": normal_cuda.normal_plan(1024).chunk,
-              "K36 c=1024": normal_cuda.normal_plan(1024, f32=True).chunk}
+              "K36 c=1024": normal_cuda.normal_plan(1024, f32=True).chunk,
+              "K28 c=1024": biquad_cuda.q16_plan(1024).chunk,
+              "K28 f=17 c=1024": biquad_cuda.q16_plan(1024).chunk,
+              "K30 c=1024": biquad_cuda.f32_plan(1024).chunk}
     chunks.update({k: biquad_cuda.df1_plan(1024).chunk for k in (
         "K1 c=512", "K11 c=1024", "K18 c=512", "K26 c=1024")})
     chunks.update({k: biquad_cuda.wide_plan(1024).chunk for k in (
         "K25 c=1024", "K25 clamp c=1024", "K32 c=1024")})
-    for key, lib, fn in (
-            ("K14 c=512", "stamps_ddc_mix_df1", timed["K14 c=512"]),
-            ("K15 exact", "stamps_fm_disc", timed["K15 exact"]),
-            ("K15 fast", "stamps_fm_disc", timed["K15 fast"]),
-            ("K29 c=1024", "stamps_biquad_precision", k29),
-            ("K37 c=1024", "stamps_structures_bank", k37),
-            ("K31 c=1024", "stamps_biquad_precision", k31),
-            ("K34 c=1024", "stamps_structures_bank", k34),
-            ("K13 c=1024", "stamps_ddc_bank", k13),
-            ("K16 c=512", "stamps_ddc_lockin", k16),
-            ("K4 c=2048", "stamps_lowpass_bank", k4),
-            ("K6 c=1024", "stamps_ddc_bank", k6),
-            ("K1 c=512", "stamps_df1_bank", k1),
-            ("K11 c=1024", "stamps_df1_bank", k11),
-            ("K18 c=512", "stamps_df1_bank", k18),
-            ("K26 c=1024", "stamps_df1_bank", k26),
-            ("K25 c=1024", "stamps_biquad_bank", k25),
-            ("K25 clamp c=1024", "stamps_biquad_bank",
-             lambda: k25(clamp=(0, -(2**30), 2**30))),
-            ("K32 c=1024", "stamps_biquad_bank", k32),
-            ("K35 c=1024", "stamps_structures_bank", k35),
-            ("K36 c=1024", "stamps_structures_bank", k36)):
+    for key, lib in STAMP_LIBS:
+        if not want(key):
+            continue
+        fn = package_timed[key]
         chunk = chunks[key]
         row = _stamp_rows(libs[f"pipe_{lib}"], fn, chunk, roles)
         row["pace"] = max(roles, key=lambda r: row[r])
         result["pipe_stamps"][key] = row
         print(f"stamps {key} (cycles a chunk): {row}  [{card}]", flush=True)
-    _chain(libs["pipe_chain_stamps"], k24, card, result)
+    if want("K24"):
+        _chain(libs["pipe_chain_stamps"], k24, card, result)
     _ext._lib = package
     so = next(_ext.BUILD_ROOT.glob("*/libidsp_tpu_torch.so"))
     lp_syms = (("K4 N=1", "lowpass_pipe_kernelILi1"),
@@ -1012,13 +1127,19 @@ def _pipe(dev, card, libs, package, result) -> None:
         ("K1", "df1_pipe_kernelILb0ELb0ELb0ELb0"),
         ("K35 f<=32", "normal_q_kernelILb0"),
         ("K35 f>32", "normal_q_kernelILb1"),
-        ("K36", "normal_f32_kernel")) + lp_syms}
-    for form in NORMAL_FORMS:
+        ("K36", "normal_f32_kernel"), ("K28", "df1_q16_kernel"),
+        ("K30", "df1_f32_kernel"), ("K16", "ddc_lockin_kernel")) + lp_syms
+        if want(k)}
+    for form in NORMAL_FORMS if want("K35") else ():
         lib = str(OUT / f"pipe_{form}" / "structures_bank.cu.so")
         result["sass_loops"][f"K35 {form}"] = sass_loops(
             lib, "normal_q_kernelILb0")
         result["sass_loops"][f"K36 {form}"] = sass_loops(
             lib, "normal_f32_kernel")
+    for form in Q16_FORMS if want("K28") else ():
+        lib = str(OUT / f"pipe_{form}" / "biquad_precision.cu.so")
+        result["sass_loops"][f"K28 {form}"] = sass_loops(lib,
+                                                         "df1_q16_kernel")
     for k, loops in result["sass_loops"].items():
         print(f"sass {k}: {loops}", flush=True)
 
@@ -1144,7 +1265,10 @@ def main() -> None:
     ap.add_argument("--only", choices=("cascade", "pipe", "cic"),
                     help="K2/K3/K19-K21, the depth-0 kernels (K1, K4, "
                          "K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, "
-                         "K29, K31, K34-K37), or K9/K10 alone")
+                         "K28-K31, K34-K37), or K9/K10 alone")
+    ap.add_argument("--cases", default="",
+                    help="comma-separated substrings of the depth-0 cases "
+                         "to probe (e.g. 'K28,K30'); all by default")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_cascade times the CUDA device; none is "
@@ -1155,8 +1279,10 @@ def main() -> None:
     parts = (("cascade", "pipe", "cic") if args.only is None else
              (args.only,))
     sources = variants() if "cascade" in parts else {}
+    cases = tuple(c for c in args.cases.split(",") if c)
     if "pipe" in parts:
-        sources.update({f"pipe_{k}": v for k, v in pipe_variants().items()})
+        sources.update({f"pipe_{k}": v
+                        for k, v in pipe_variants(cases).items()})
     if "cic" in parts:  # K9/K10 with clock64 stamps (IDSP_CIC_STAMPS)
         sources["cic_stamps"] = {"cic_bank.cu": "#define IDSP_CIC_STAMPS\n"
                                  + _read("cic_bank.cu")}
@@ -1170,7 +1296,7 @@ def main() -> None:
     if "cascade" in parts:
         _cascade(dev, card, libs, package, result)
     if "pipe" in parts:
-        _pipe(dev, card, libs, package, result)
+        _pipe(dev, card, libs, package, result, cases)
     if "cic" in parts:
         _cic(dev, card, libs, package, result)
     _ext._lib = package

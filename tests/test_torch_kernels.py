@@ -2322,6 +2322,91 @@ def test_precision_banks_launch_after_refused_launch(cuda):
         _equal((tuple(got[0]), got[1]), (tuple(want[0]), want[1]))
 
 
+# K28 and K30 at the depth-0 pipeline's edges (`q16_plan`, `f32_plan`:
+# 256-row chunks): DEPTH0_EDGES, t = 2 at c = 37, and c = 36 and 44 (K28's
+# rows in 2-byte stores where c % 8 != 0, K30's 16-byte stores at c % 4 ==
+# 0)
+PRECISION_EDGES = {**DEPTH0_EDGES,
+                   "t = 2": (37, 2, {}),
+                   "c = 36, 2 chunks + 5": (36, 2 * 256 + 5, {}),
+                   "c = 44, 1 producer": (44, 3 * 64 + 9,
+                                          dict(producers=1, chunk=64,
+                                               ring=2))}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("f", [1, 13, 16, 17, 31])
+@pytest.mark.parametrize("case", sorted(PRECISION_EDGES))
+def test_df1_bank_q16_kernel_at_pipe_edges(cuda, case, f):
+    """K28 over 2 carried blocks against its plain version: at f = 13 the
+    Q16<13> lowpass on x and state in +-2^14, at the other f full-range
+    int16 coefficients, x and state (the int32 sums wrap)."""
+    from idsp_tpu_torch.filters.biquad_cuda import q16_plan
+
+    c, t, kw = PRECISION_EDGES[case]
+    plan = q16_plan(c, **kw) if kw else None
+    rng = np.random.default_rng(280 + f)
+    lim = 2**14 if f == 13 else 2**15
+    ba = (biquad.quantize_ba(LOWPASS, 13, dtype=np.int16) if f == 13 else
+          rng.integers(-(2**15), 2**15, 5).astype(np.int16))
+
+    def make(shape):
+        return _ints(rng, shape, 16, -lim, lim, device=cuda)
+
+    _carried(lambda s, x: df1_bank_q16(ba, s, x, f, _plan=plan),
+             lambda s, x: df1_bank_q16_plain(ba, s, x, f),
+             biquad.Df1State(x=make((c, 2)), y=make((c, 2))),
+             lambda: make((t, c)), blocks=2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", sorted(PRECISION_EDGES))
+def test_df1_bank_f32_kernel_at_pipe_edges(cuda, case):
+    """K30 over 2 carried blocks from a random state, x ~ N(0, 1), against
+    its plain version, every word."""
+    from idsp_tpu_torch.filters.biquad_cuda import f32_plan
+
+    c, t, kw = PRECISION_EDGES[case]
+    plan = f32_plan(c, **kw) if kw else None
+    rng = np.random.default_rng(300)
+
+    def make(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda)
+
+    _carried(lambda s, x: df1_bank_f32(LOWPASS, s, x, _plan=plan),
+             lambda s, x: df1_bank_f32_plain(LOWPASS, s, x),
+             biquad.Df1State(x=make((c, 2)), y=make((c, 2))),
+             lambda: make((t, c)), blocks=2)
+
+
+@pytest.mark.requires_cuda
+def test_q16_and_f32_entries_refuse_a_plan_not_their_own(cuda):
+    """K28's and K30's entry points refuse a plan whose shared memory is
+    not the kernel's own sum, roles that do not fit the warps, or another
+    kernel's words a row (RuntimeError, nothing launched); the next launch
+    runs as usual."""
+    from idsp_tpu_torch.filters.biquad_cuda import f32_plan, q16_plan, q64_plan
+
+    c, t = 64, 300
+    b16 = biquad.quantize_ba(LOWPASS, 13, dtype=np.int16)
+    for kern, plain, ba, dt, plan in (
+            (df1_bank_q16, df1_bank_q16_plain, b16, torch.int16,
+             q16_plan(c)),
+            (df1_bank_f32, df1_bank_f32_plain, LOWPASS, torch.float32,
+             f32_plan(c))):
+        st = biquad.df1_init((c,), dt, device=cuda)
+        x = torch.ones((t, c), dtype=dt, device=cuda)
+        n0 = kern.launches
+        for bad in (plan._replace(smem=plan.smem - 32),
+                    plan._replace(producers=9),  # 10 roles in 9 places
+                    q64_plan(c)):  # another kernel's words a row
+            with pytest.raises(RuntimeError):
+                kern(ba, st, x, _plan=bad)
+        assert kern.launches == n0
+        _equal(kern(ba, st, x), plain(ba, st, x))
+
+
 # --- K34-K40: the filter structures -------------------------------------------
 
 

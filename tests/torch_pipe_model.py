@@ -9,8 +9,9 @@ arithmetic of K31/K33 (`dither_model`), K1, K11, K18, K26 and K27
 (`df1w_model`, tests/test_torch_df1_plan.py), K25/K32 (`wide_model`,
 tests/test_torch_wide_plan.py), K34 (`svf_model`), K12/K13 and K6
 (`bank_model`, with its back end; K6 with the Lowpass serial warp), K16
-(`lockin_model`), K4 (`lowpass_model`, tests/test_torch_lowpass_plan.py)
-and K35/K36 (`normal_model`, tests/test_torch_normal_plan.py);
+(`lockin_model`), K4 (`lowpass_model`, tests/test_torch_lowpass_plan.py),
+K35/K36 (`normal_model`, tests/test_torch_normal_plan.py) and K28/K30
+(`q16_model`, `f32_model`, tests/test_torch_precision_plan.py);
 and K24's chain of such blocks over a cluster (`sos_model`,
 tests/test_torch_sos_plan.py).
 
@@ -920,6 +921,111 @@ def lockin_model(ba, state, x, lo_freqs, n0, plan, *, time_chunk, seed=0):
 
     words = pipe_run(t, 2 * c, plan, produce, span_rows, serial, seed=seed)
     new = Df1State(x=torch.from_numpy(np.stack([mix(t - 1), mix(t - 2)], 1)),
+                   y=torch.from_numpy(np.stack([y1, y2], 1)))
+    return new, torch.from_numpy(words[..., 0].astype(np.int32).view(
+        np.float32))
+
+
+U16 = np.uint64(0xFFFF)
+
+
+def q16_scale(f):
+    """K28's scale of its coefficients and its shift (``csrc/
+    biquad_precision.cu`` `idsp_df1_bank_q16`): s = max(16 - f, 0) and sh
+    = f + s, so int32(2^s sum) >> sh keeps bits [f, f + 16) of the sum
+    sign-extended (f < 16), or is int32(sum) >> f, already in int16 (f >=
+    16)."""
+    s = max(16 - f, 0)
+    return s, f + s
+
+
+def q16_model(ba, f, state, xs, plan, *, seed=0):
+    """K28 as the kernel runs it (``csrc/biquad_precision.cu``): the
+    coefficients times 2^s mod 2^32 (`q16_scale`); the producers' W = b0 x0
+    + b1 x1 + b2 x2 mod 2^32, one word a row and lane, each product the
+    coefficient times the sign-extended int16 row (rows -1, -2 of the block
+    from the state); the serial warp's V = W + a2 y2 (off its chain), acc =
+    V + a1 y1 mod 2^32, y0 = int32(acc) >> sh, held sign-extended and fed
+    back; the store warp writes each word's low 16 bits; numpy uint64
+    words masked to 32 bits.  Returns (Df1State, ys int16) like
+    `df1_bank_q16_plain`."""
+    from idsp_tpu_torch.filters.biquad import Df1State
+
+    t, c = xs.shape
+    s, sh = q16_scale(f)
+    b0, b1, b2, a1, a2 = ((_sext(int(v)) << np.uint64(s)) & U32
+                          for v in np.asarray(ba).reshape(-1)[:5])
+    xw = _sext(np.concatenate([state.x[:, 1].numpy()[None],
+                               state.x[:, 0].numpy()[None], xs.numpy()]))
+    y1 = _sext(state.y[:, 0].numpy()).copy()
+    y2 = _sext(state.y[:, 1].numpy()).copy()
+
+    def produce(r0, idx):
+        g = r0 + idx + 2  # rows of xw
+        w = (b0 * xw[g] + b1 * xw[g - 1] + b2 * xw[g - 2]) & U32
+        return w.astype(np.int64)[..., None]
+
+    def serial(words):
+        nonlocal y1, y2
+        out = np.empty((len(words), c, 1), np.int64)
+        for j, w in enumerate(words[..., 0].astype(np.uint64) & U32):
+            v = w + a2 * y2  # off the chain
+            acc = (v + a1 * y1) & U32
+            y0 = _i32_bits(acc) >> np.int32(sh)
+            y2, y1 = y1, _sext(y0)
+            out[j, :, 0] = y0
+        return out
+
+    with np.errstate(over="ignore"):
+        words = pipe_run(t, c, plan, produce, span_rows, serial, seed=seed)
+    ys = (words[..., 0].astype(np.uint64) & U16).astype(np.uint16).view(
+        np.int16)
+
+    def i16(v):
+        return (v & U16).astype(np.uint16).view(np.int16)
+
+    new = Df1State(x=torch.from_numpy(np.stack([i16(xw[-1]), i16(xw[-2])],
+                                               1)),
+                   y=torch.from_numpy(np.stack([i16(y1), i16(y2)], 1)))
+    return new, torch.from_numpy(ys.copy())
+
+
+def f32_model(ba, state, xs, plan, *, seed=0):
+    """K30 as the kernel runs it (``csrc/biquad_precision.cu`` on
+    df1_ring.cuh's `f32_feed` and `Df1F32Serial`): the coefficients
+    rounded to float32; the producers' W = (b0 x0 + b1 x1) + b2 x2 (rows
+    -1, -2 of the block from the state); the serial warp's y0 = (W + a1 y1)
+    + a2 y2, a2 y2 formed a row ahead; numpy float32, each product and sum
+    rounded on its own, the words the f32 bits.  Returns (Df1State, ys
+    f32) like `df1_bank_f32_plain`."""
+    from idsp_tpu_torch.filters.biquad import Df1State
+
+    t, c = xs.shape
+    b0, b1, b2, a1, a2 = (np.float32(v) for v in np.asarray(
+        ba, np.float64).reshape(-1)[:5])
+    xf = np.concatenate([state.x[:, 1].numpy()[None],
+                         state.x[:, 0].numpy()[None],
+                         xs.numpy()]).astype(np.float32)
+    y1, y2 = (state.y[:, j].numpy().astype(np.float32) for j in (0, 1))
+    v = a2 * y2  # the next row's a2 y2
+
+    def produce(r0, idx):
+        g = r0 + idx + 2  # rows of xf
+        w = (b0 * xf[g] + b1 * xf[g - 1]) + b2 * xf[g - 2]
+        return w.view(np.int32).astype(np.int64)[..., None]
+
+    def serial(words):
+        nonlocal y1, y2, v
+        out = np.empty((len(words), c, 1), np.int64)
+        for j, w in enumerate(words[..., 0]):
+            y0 = (w.astype(np.int32).view(np.float32) + a1 * y1) + v
+            v = a2 * y1  # off the chain
+            y2, y1 = y1, y0
+            out[j, :, 0] = y0.view(np.int32)
+        return out
+
+    words = pipe_run(t, c, plan, produce, span_rows, serial, seed=seed)
+    new = Df1State(x=torch.from_numpy(np.stack([xf[-1], xf[-2]], 1)),
                    y=torch.from_numpy(np.stack([y1, y2], 1)))
     return new, torch.from_numpy(words[..., 0].astype(np.int32).view(
         np.float32))
