@@ -90,7 +90,12 @@ Phases, each reported on its own line:
    f 33) at the edges of the same pipeline (`df1_plan`: t = 1, t under a
    chunk, t = 3 chunks + 17, a forced plan of 16-row chunks; c = 200, 50,
    1 and 200) over 2 blocks, and K1, K18 at f 32 and 63 and K27 at f 63
-   on a block whose 64-bit sums wrap, bit for bit; K24 on its cluster
+   on a block whose 64-bit sums wrap, bit for bit; K5 at the edges of the
+   same pipeline (`pll_plan`: t = 1, t under a chunk, t not a multiple of
+   the chunk, c = 200, 50, 33, 40, 1 and the bank's 1024, 1-11 producers;
+   the #5 bank's loop and coefficients at int32's ends, a1 = INT32_MIN;
+   f and f0 within 2^40 of +-2^63, cl at -1, 0 and +1, x0 next to a wrap)
+   over 2 blocks, bit for bit; K24 on its cluster
    chain (`sos_plan`: c = 1, 50 and 200 lanes, t not a multiple of the
    chunk, under a chunk and 1 row, N = 1, 3 and 8 stages at g = 1, 2 and
    N stages a rank and at two one-stage ranks a CTA, f 1, 32 and 33, and f
@@ -103,9 +108,9 @@ Phases, each reported on its own line:
    K22 `hbf_dec_cascade_mxu`
    ((32768, 512) f32) and K23
    `hbf_int_cascade_mxu` ((2048, 512) f32), depth 4, with HBF_TAPS and
-   HBF_TAPS_98 from a random carried state, at two (block, sub) tilings,
-   bit for bit (K22 also at the forced range counts MXU_RANGES), and one
-   block against its two halves, bit for bit; K24
+   HBF_TAPS_98 from a random carried state, at two (block, sub) tilings
+   and the forced range counts MXU_RANGES, bit for bit (K23 "highest" also
+   at c=1024), and one block against its two halves, bit for bit; K24
    `sos_bank_q` (4 stages), K25 `df1_wide_bank` (clamped with the suite's
    row), K26 `df1_bank_q_coef` and K27 `df1_clamp_bank_q_coef` (per-lane
    planes of 1024 `BiquadConfig`s) at c=1024 lanes on one block of
@@ -312,6 +317,7 @@ non-zero before any result.  The last line is
 Usage: python3 chip_smoke.py
 """
 
+import itertools
 import json
 import subprocess
 import sys
@@ -402,7 +408,7 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "hbf_dec_cascade_mxu_default": "hbf_dec_mma_kernel",
                   "hbf_int_cascade_mxu_default": "hbf_int_mma_kernel",
                   "hbf_dec_cascade_mxu_highest": "hbf_dec_band_kernel",
-                  "hbf_int_cascade_mxu_highest": "hbf_int_mxu_kernel",
+                  "hbf_int_cascade_mxu_highest": "hbf_int_band_kernel",
                   "channelize_fused": "channelize_kernel",
                   "channelize_fused_f32": "channelize_kernel",
                   "wdf_bank": "wdf_pipeline_kernel",
@@ -432,6 +438,7 @@ DEVICE_SYMBOLS = {"hbf_dec_cascade_bank": "hbf_dec_cascade_kernel",
                   "fastlo_ddc_bank_block": "ddc_bank_kernel",
                   "fastlo_ddc_bank_block_lp": "ddc_bank_kernel",
                   "lowpass_bank": "lowpass_pipe_kernel",
+                  "pll_bank": "pll_pipe_kernel",
                   "ddc_lockin_bank": "ddc_lockin_kernel",
                   "df1_bank_q": "df1_pipe_kernel",
                   "df1_bank_q_dec": "df1_pipe_kernel",
@@ -1289,14 +1296,13 @@ def check_mxu_kernels(dev, rng, errs, plain_s):
     )
 
     normal, _ = rate_inputs(dev, rng)
-    c = C_RATE
 
-    def dec_state(taps):
+    def dec_state(taps, c):
         return tuple(hbf.HbfDecState(normal(s.odd.shape), normal(s.even.shape))
                      for s in hbf.hbf_dec_cascade_init(
                          DEPTH, (c,), taps=taps, axis=0, device=dev))
 
-    def int_state(taps):
+    def int_state(taps, c):
         return tuple(hbf.HbfIntState(normal(s.x.shape))
                      for s in hbf.hbf_int_cascade_init(
                          DEPTH, (c,), taps=taps, axis=0, device=dev))
@@ -1310,38 +1316,41 @@ def check_mxu_kernels(dev, rng, errs, plain_s):
             name = kern.__name__ + ("" if prec == "split3" else f"_{prec}")
             err = rel = truth = 0.0
             ndiff = nout = 0
-            for tname in ("HBF_TAPS", "HBF_TAPS_98"):
+            # K23 "highest" (K8's walk in the band order) also at C_WIDE
+            widths = ((C_RATE, C_WIDE) if (kind, prec) == ("int", "highest")
+                      else (C_RATE,))
+            for tname, c in itertools.product(("HBF_TAPS", "HBF_TAPS_98"),
+                                              widths):
                 taps = getattr(hbf, tname)
-                st0 = state(taps)
+                st0 = state(taps, c)
                 xs = [normal((rows, c)) for _ in range(BLOCKS)]
                 runs = []
                 for i, (block, sub) in enumerate(tiles):
+                    first = tname == "HBF_TAPS" and i == 0 and c == C_RATE
                     e, r, nd, no, got = hold_near(
                         name,
                         lambda s, x: kern(s, x, taps=taps, block=block,
                                           sub=sub, precision=prec),
                         lambda s, x: plain(s, x, taps=taps, precision=prec),
                         st0, xs, hbf_mxu.KERNEL_TOL[prec],
-                        plain_s if tname == "HBF_TAPS" and i == 0 else None)
+                        plain_s if first else None)
                     err, rel = max(err, e), max(rel, r)
                     ndiff, nout = ndiff + nd, nout + no
                     runs.append(got)
-                compare(f"{name} ({tname}): tilings {tiles}", runs[1],
+                compare(f"{name} ({tname}, c={c}): tilings {tiles}", runs[1],
                         runs[0])
                 block, sub = tiles[0]
-                if prec != "highest" or kind == "dec":  # K23 "highest":
-                    # segments of its own, no range count
-                    for ranges in MXU_RANGES:
-                        compare(f"{name} ({tname}): {ranges} ranges",
-                                private(st0, xs[0], taps, block, sub, prec,
-                                        ranges), runs[0][0])
+                for ranges in MXU_RANGES:
+                    compare(f"{name} ({tname}, c={c}): {ranges} ranges",
+                            private(st0, xs[0], taps, block, sub, prec,
+                                    ranges), runs[0][0])
                 whole = kern(st0, xs[0], taps=taps, precision=prec)
                 st_a, y_a = kern(st0, xs[0][:rows // 2], taps=taps,
                                  precision=prec)
                 st_b, y_b = kern(st_a, xs[0][rows // 2:], taps=taps,
                                  precision=prec)
                 torch.cuda.synchronize()
-                compare(f"{name} ({tname}): two halves vs one block",
+                compare(f"{name} ({tname}, c={c}): two halves vs one block",
                         (st_b, torch.cat([y_a, y_b])), whole)
                 want = mxu_truth(st0, xs[0], taps, kind)
                 y = plain(st0, xs[0], taps=taps, precision=prec)[1]
@@ -1352,7 +1361,8 @@ def check_mxu_kernels(dev, rng, errs, plain_s):
                                          f"float64 truth by {d} of the scale")
             errs[name] = err
             log(f"phase 3 {tag} {name} ({prec}) vs plain over {BLOCKS} "
-                f"blocks (c={c}, x ({rows}, {c}), depth {DEPTH}, HBF_TAPS "
+                f"blocks (c={' and '.join(map(str, widths))}, x ({rows}, "
+                f"c), depth {DEPTH}, HBF_TAPS "
                 f"and HBF_TAPS_98, random carried state, (block, sub) "
                 f"{tiles}): max |d| {err}, {rel:.3e} of the scale (gate "
                 f"{hbf_mxu.KERNEL_TOL[prec]:.3e}); outputs differing "
@@ -2936,6 +2946,71 @@ def check_lowpass_edges(dev, i32, errs):
         f"{errs['lowpass_bank']}, {errs['fastlo_ddc_bank_block_lp']}; plans "
         f"K4 {dict(lowpass_plan(2 * C_BANK)._asdict())}, K6 "
         f"{dict(bank_plan(C_BANK)._asdict())}")
+
+
+def check_pll_edges(dev, i32, errs):
+    """Phase 3 for K5 at the edges of the depth-0 pipeline, each case over
+    2 carried blocks of full-range phases against its plain version,
+    tolerance 0 (into errs["pll_bank"]): t = 1, t under a chunk, t not a
+    multiple of the chunk, c not a multiple of 4 (no 16-byte stores), one
+    channel and the bank's width, 1-11 producers; the #5 bank's loop and
+    coefficients at int32's ends (a1 = INT32_MIN); states at the int32 and
+    int64 edges: f and f0 within 2^40 of +-2^63 or of 0 (a quarter of f0's
+    low words 0xFFFFFFFF), cl at -1, 0 and +1, x0 within 2^8 of a wrap.
+    Logs K5's default plan at the bank's width."""
+    import torch
+    from idsp_tpu_torch.filters import pll
+    from idsp_tpu_torch.filters.pll_cuda import (
+        pll_bank, pll_bank_plain, pll_plan,
+    )
+    from idsp_tpu_torch.ops.unwrap import ClampWrapState
+
+    rng = np.random.default_rng(27)
+    coefs = {"bank": pll.coefficients_from_bandwidth(2e-2, 4.0),
+             "edge": np.array([-(2**31), 2**31 - 1, -(2**31)], np.int64)}
+
+    def edge_state(c):
+        def i64():
+            base = rng.choice(np.array([-(2**63), 0, 2**63 - 1], np.int64),
+                              c)
+            off = rng.integers(0, 2**40, c, dtype=np.int64)
+            return np.where(base < 0, base + off, base - off)
+
+        def t(v):
+            return torch.from_numpy(np.asarray(v)).to(dev)
+
+        f0 = i64()
+        f0 = np.where(rng.random(c) < 0.25, f0 | 0xFFFFFFFF, f0)
+        end = rng.choice(np.array([-(2**31), 2**31 - 1], np.int64), c)
+        x0 = (end - np.sign(end) * rng.integers(0, 256, c)).astype(np.int32)
+        return pll.PllState(
+            clamp=ClampWrapState(x0=t(x0), clamp=t(rng.integers(
+                -1, 2, c).astype(np.int8))),
+            z0=i32((c,)), y0=i32((c,)), f0=t(f0), f=t(i64()), y=i32((c,)))
+
+    cases = {  # (c, t, coefficients, plan keywords)
+        "t = 1": (200, 1, "bank", {}),
+        "t under a chunk, 3 producers": (50, 100, "edge", dict(
+            producers=3)),
+        "33 channels, t % chunk": (33, 999, "edge", dict(chunk=40)),
+        "chunk 24, 11 producers": (40, 7 * 64 + 48, "bank", dict(
+            chunk=24, producers=11, warps=16)),
+        "one channel, 1 producer": (1, 64, "edge", dict(chunk=12,
+                                                        producers=1)),
+        "2 slots of 64 rows": (96, 512, "bank", dict(chunk=64, ring=2)),
+        "the bank's width": (C_BANK, T // DEC, "edge", {}),
+    }
+    for label, (c, t, k, kw) in cases.items():
+        plan = pll_plan(c, **kw)
+        ba = coefs[k]
+        errs["pll_bank"] = max(errs["pll_bank"], hold(
+            f"pll_bank ({label})",
+            lambda s, xs, ba=ba, p=plan: pll_bank(ba, s, xs, _plan=p),
+            lambda s, xs, ba=ba: pll_bank_plain(ba, s, xs),
+            (edge_state(c),), lambda t=t, c=c: i32((t, c)), blocks=2))
+    log(f"phase 3 K5 at the depth-0 pipeline's edges == plain over 2 blocks "
+        f"each ({', '.join(cases)}): max |d| {errs['pll_bank']}; plan "
+        f"{dict(pll_plan(C_BANK)._asdict())}")
 
 
 def check_biquad_kernels(dev, i32, errs, plain_s, ba, ba_bank, pll_ba):
@@ -5393,6 +5468,7 @@ def main():
     sos_plans = log_sos_plans(dev)
     check_bank_lockin_edges(dev, i32, errs)
     check_lowpass_edges(dev, i32, errs)
+    check_pll_edges(dev, i32, errs)
     log(f"phase 3 done at {time.perf_counter() - wall0:.1f} s")
 
     # ---- phase 4: the main path ---------------------------------------
@@ -5873,7 +5949,7 @@ def main():
                                         "idsp_tpu/filters/hbf_pallas.py:612"),
         "hbf_dec_cascade_mxu_highest": ("idsp_tpu_torch/csrc/hbf_cascade.cu",
                                         "idsp_tpu/filters/hbf_pallas.py:409"),
-        "hbf_int_cascade_mxu_highest": ("idsp_tpu_torch/csrc/hbf_mxu.cu",
+        "hbf_int_cascade_mxu_highest": ("idsp_tpu_torch/csrc/hbf_cascade.cu",
                                         "idsp_tpu/filters/hbf_pallas.py:612"),
         "cic_dec_bank": ("idsp_tpu_torch/csrc/cic_bank.cu",
                          "idsp_tpu/filters/cic_pallas.py:83"),

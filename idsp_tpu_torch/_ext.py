@@ -59,13 +59,13 @@ _SIGNATURES = {
     "idsp_ddc_cascade": [_P] * 11 + [_I] * 14 + [_P, _P] + [_I] * 5 + [_P],
     "idsp_ddc_mix_df1": [_P] * 8 + [_I] * 14 + [_P],
     "idsp_lowpass_bank": [_P] * 4 + [_I] * 11 + [_P],
-    "idsp_pll_bank": [_P] * 4 + [_I] * 5 + [_P],
+    "idsp_pll_bank": [_P] * 4 + [_I] * 10 + [_P],
     "idsp_ddc_bank_lp": [_P] * 9 + [_I] * 15 + [_P],
     "idsp_ddc_bank_df1": [_P] * 10 + [_I] * 22 + [_P],
     "idsp_hbf_dec_cascade": [_P] * 4 + [_I] * 6 + [_P] * 4,
     "idsp_hbf_int_cascade": [_P] * 4 + [_I] * 6 + [_P] * 4,
     "idsp_hbf_dec_band": [_P] * 4 + [_I] * 6 + [_P] * 4,
-    "idsp_hbf_int_mxu": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
+    "idsp_hbf_int_band": [_P] * 4 + [_I] * 6 + [_P] * 4,
     "idsp_hbf_dec_mma": [_P] * 4 + [_I] * 7 + [_P, _P, _P],
     "idsp_hbf_int_mma": [_P] * 4 + [_I] * 7 + [_P, _P, _P],
     "idsp_hbf_mma_occupancy": [_I, _I, _P, _I, _I],

@@ -1,6 +1,5 @@
-"""Time K1, K2, K3, K4, K6, K7, K8, K9, K10, K11, K12 (and its ``clamp=``),
-K13, K14, K15, K16, K17, K18, K19, K22 "highest", K24-K37 and K38-K40 of
-two checkouts of the port in turns, in one process.
+"""Time K1-K19, K22 and K23 "highest", K24-K37 and K38-K40 (K12 also with
+its ``clamp=``) of two checkouts of the port in turns, in one process.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -14,7 +13,8 @@ K31, K33, K34: ``--only dither,svf``; K35, K36: ``--only normal``; K12, its
 ``clamp=``, K13, K6 and K16: ``--only
 fastlo_df1_dec,fastlo_ddc_bank,ddc_lockin``; K4: ``--only lowpass``; K1, K11,
 K18, K26, K27: ``--only df1_bank_q,df1_clamp_bank_q``; K24, K25, K32: ``--only
-sos,wide``; K9, K10: ``--only cic``).
+sos,wide``; K9, K10: ``--only cic``; K5: ``--only pll_bank``; K23 "highest":
+``--only int_cascade_mxu``; K7, K8, K22 and K23 "highest": ``--only hbf_``).
 
 Each root is a checkout holding an ``idsp_tpu_torch/`` package; each is
 loaded under a name of its own, so both live in this process, and each
@@ -42,7 +42,11 @@ wrappers (the plain combs included) at c = 512 and 1024, zero state, as
 `chip_smoke.py` phase 6 times them, and K17 `channelize_fused` at
 m = 1024, 8 taps, n = 1024 and 16384 frames, bf16 and f32 (zero history,
 each tree's default plan), K22 `hbf_dec_cascade_mxu` at precision
-"highest" on K7's inputs, and K38 `wdf_bank` (wdf-ca-7's first chain),
+"highest" on K7's inputs and K23 `hbf_int_cascade_mxu` at precision
+"highest" on K8's, at c = 512 and 1024, K5 `pll_bank` at c = 1024 on
+2048 rows of full-range phases (the #5 bank's kept rows;
+`pll.coefficients_from_bandwidth(2e-2, 4.0)`, zero state), and K38
+`wdf_bank` (wdf-ca-7's first chain),
 K39 `wdf_chain_bank` (wdf-ca-19's branch 0) and K40 `wdf_pair_bank`
 (wdf-ca-7 and wdf-ca-19) at c = 1024 lanes of x in +-2^24, t = 32768
 (zero state, `chip_smoke.py`'s chains), K14 `ddc_mix_df1_bank` (f32
@@ -152,7 +156,7 @@ def cases(alias: str, dev, inputs):
         "pipelines.channelizer_cuda", "filters.rpll", "filters.rpll_cuda",
         "filters.svf", "filters.svf_cuda", "filters.ddc_lockin_cuda",
         "filters.lowpass_cuda", "filters.normal", "filters.normal_cuda",
-        "filters.cic", "filters.cic_cuda", "fxp")}
+        "filters.cic", "filters.cic_cuda", "filters.pll_cuda", "fxp")}
     biquad, lowpass, pll = (sub["filters.biquad"], sub["filters.lowpass"],
                             sub["filters.pll"])
     ba = biquad.quantize_ba(biquad.from_cookbook(
@@ -303,6 +307,9 @@ def cases(alias: str, dev, inputs):
     out["fastlo_ddc_bank_block_lp c=1024"] = lambda: k6(
         gains, pll_ba, lp0, pll0, inputs["ph0"], inputs["steps"],
         inputs["x"], d=DEC, time_chunk=TC)
+    out[f"pll_bank c={C_BANK}"] = (
+        lambda st=pll.init((C_BANK,), device=dev):
+        sub["filters.pll_cuda"].pll_bank(pll_ba, st, inputs["ph"]))
     out[f"lowpass_bank c={2 * C_BANK}"] = (
         lambda st=lowpass.init(2, (2 * C_BANK,), device=dev):
         sub["filters.lowpass_cuda"].lowpass_bank(gains, st, inputs["xs1024"],
@@ -320,6 +327,10 @@ def cases(alias: str, dev, inputs):
         out[f"hbf_dec_cascade_mxu highest c={c}"] = (
             lambda st=dec0, x=inputs[f"hbf{c}"]:
             sub["filters.hbf_mxu"].hbf_dec_cascade_mxu(
+                st, x, precision="highest"))
+        out[f"hbf_int_cascade_mxu highest c={c}"] = (
+            lambda st=int0, x=inputs[f"low{c}"]:
+            sub["filters.hbf_mxu"].hbf_int_cascade_mxu(
                 st, x, precision="highest"))
     cic, cic_cuda = sub["filters.cic"], sub["filters.cic_cuda"]
     for c in (512, 1024):
@@ -445,6 +456,7 @@ def main() -> None:
             trees_design.Filter().critical_frequency(fc).lowpass()), 29)
         for fc in rng.uniform(0.01, 0.2, C_SERIAL)], axis=1)).to(dev)
     inputs["x16"] = i32((T, C_SERIAL), -(2**14), 2**14).to(torch.int16)
+    inputs["ph"] = i32((T // DEC, C_BANK))  # K5's phases
     fns = {k: cases(f"ab_{k}", dev, inputs) for k in trees}
     only = [o for o in args.only.split(",") if o]
     names = [n for n in fns["parent"] if not only or any(o in n for o in only)]

@@ -1,6 +1,6 @@
 // K7 and K8: the pure-FIR half-band rate-change cascades, decimate and
-// interpolate by 2^depth, each in one kernel; and K22 at precision
-// "highest", K7's walk with the stage's sum in the band order.
+// interpolate by 2^depth, each in one kernel; and K22 and K23 at precision
+// "highest", K7's and K8's walks with the stage's sum in the band order.
 //
 // Replaces the Pallas kernels of idsp_tpu/filters/hbf_pallas.py
 // `hbf_dec_cascade_bank` (:52, `_hbf_dec_cascade_impl` :88, pallas_call
@@ -50,6 +50,15 @@
 // no value depends on the chunk or the ranges.  The TPU ran it as an f32
 // banded-matrix product on the MXU; a band row has 2m+1 nonzero entries of
 // 4m-1, so here the products are the nonzero ones on the CUDA cores.
+//
+// K23 "highest" (hbf_int_band_kernel; replaces the "highest" path of
+// idsp_tpu/filters/hbf_pallas.py `hbf_int_cascade_mxu` :612, pallas_call
+// :749): the same cascade, support and tails as K8, each FIR output its
+// band row's sum in ascending band column (hbf_tile.cuh `int_band_stage`,
+// `_sum_band`'s order: 4m-1 rounded operations a pair where K8's
+// symmetric sum takes 3m-1), the odd rows the center copies, so it equals
+// hbf_int_cascade_mxu_plain(precision="highest") bit for bit and no value
+// depends on the chunk or the ranges.
 //
 // K8 (stage d uses taps[d], lowest rate and most taps first): output pair
 // j of stage d reads its input rows j-2m+1 .. j and is the FIR sum in slot
@@ -254,11 +263,14 @@ __global__ void __launch_bounds__(kLanes* kWarps) hbf_dec_band_kernel(
                        h);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kLanes* kWarps) hbf_int_cascade_kernel(
+// The interpolating walk of K8 (Band false: hbf.py's symmetric order) and
+// of K23 "highest" (Band true: the band order of filters/hbf_mxu.py); the
+// two differ only in the stage's sum.
+template <int D, bool Band>
+__device__ __forceinline__ void int_cascade(
     const float* __restrict__ xs, const float* __restrict__ tails_in,
     float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
-    int tc, int seg, int halo, Taps p, Halos h) {
+    int tc, int seg, int halo, const Taps& p, const Halos& h) {
   extern __shared__ float smem[];
   const int lane = blockIdx.x * kLanes + threadIdx.x;
   const bool live = lane < c;
@@ -290,21 +302,24 @@ __global__ void __launch_bounds__(kLanes* kWarps) hbf_int_cascade_kernel(
         const int sd = L.off[d] - base(d, q, cs);
         auto in = [&](int u) { return col[(sd + u) * kLanes]; };
         const int lo = imax(cs << d, a[d]), hi = ce << d;
+        auto sum = [&](auto out) {
+          if constexpr (Band)
+            idsp::tile::int_band_stage(lo, hi, p.m[d], p.taps[d], in, out);
+          else
+            idsp::tile::int_stage(lo, hi, p.m[d], p.taps[d], in, out);
+        };
         if (d + 1 < D) {
           const int so = L.off[d + 1] - base(d + 1, q, cs);
-          idsp::tile::int_stage(lo, hi, p.m[d], p.taps[d], in,
-                                [&](int j, float fir, float cen) {
-                                  col[(so + 2 * j) * kLanes] = fir;
-                                  col[(so + 2 * j + 1) * kLanes] = cen;
-                                });
+          sum([&](int j, float fir, float cen) {
+            col[(so + 2 * j) * kLanes] = fir;
+            col[(so + 2 * j + 1) * kLanes] = cen;
+          });
         } else {
-          idsp::tile::int_stage(
-              lo, hi, p.m[d], p.taps[d], in,
-              [&](int j, float fir, float cen) {
-                if (!live) return;
-                y[static_cast<size_t>(2 * j) * c + lane] = fir;
-                y[static_cast<size_t>(2 * j + 1) * c + lane] = cen;
-              });
+          sum([&](int j, float fir, float cen) {
+            if (!live) return;
+            y[static_cast<size_t>(2 * j) * c + lane] = fir;
+            y[static_cast<size_t>(2 * j + 1) * c + lane] = cen;
+          });
         }
       });
 
@@ -322,19 +337,39 @@ __global__ void __launch_bounds__(kLanes* kWarps) hbf_int_cascade_kernel(
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(kLanes* kWarps) hbf_int_cascade_kernel(
+    const float* __restrict__ xs, const float* __restrict__ tails_in,
+    float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
+    int tc, int seg, int halo, Taps p, Halos h) {
+  int_cascade<D, false>(xs, tails_in, tails_out, y, t, c, tc, seg, halo, p,
+                        h);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kLanes* kWarps) hbf_int_band_kernel(
+    const float* __restrict__ xs, const float* __restrict__ tails_in,
+    float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
+    int tc, int seg, int halo, Taps p, Halos h) {
+  int_cascade<D, true>(xs, tails_in, tails_out, y, t, c, tc, seg, halo, p,
+                       h);
+}
+
 using Kernel = void (*)(const float*, const float*, float*, float*, int, int,
                         int, int, int, Taps, Halos);
 
-enum Kind { kDec, kDecBand, kInt };  // K7, K22 "highest", K8
+// K7, K22 "highest", K8, K23 "highest"
+enum Kind { kDec, kDecBand, kInt, kIntBand };
 
 template <int D>
 int launch(Kind kind, const void* xs, const void* tails_in, void* tails_out,
            void* y, int t, int c, int tc, int seg, int halo, const Taps& p,
            const Halos& h, void* stream) {
-  const bool dec = kind != kInt;
+  const bool dec = kind == kDec || kind == kDecBand;
   const Kernel kernel = kind == kDec      ? hbf_dec_cascade_kernel<D>
                         : kind == kDecBand ? hbf_dec_band_kernel<D>
-                                           : hbf_int_cascade_kernel<D>;
+                        : kind == kInt     ? hbf_int_cascade_kernel<D>
+                                           : hbf_int_band_kernel<D>;
   const int rows = dec ? t >> D : t;  // the rows the ranges cut
   const int ranges = (rows + seg - 1) / seg;
   if (ranges > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -434,5 +469,17 @@ extern "C" int idsp_hbf_int_cascade(const void* xs, const void* tails_in,
                                     const int* stage_halo, void* stream) {
   if (t <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch(kInt, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
+                depth, ms, taps, stage_halo, stream);
+}
+
+// K23 "highest" (filters/hbf_mxu.py): K8's arguments, each FIR output the
+// band row's sum in the band order.
+extern "C" int idsp_hbf_int_band(const void* xs, const void* tails_in,
+                                 void* tails_out, void* y, int t, int c,
+                                 int tc, int seg, int halo, int depth,
+                                 const int* ms, const float* taps,
+                                 const int* stage_halo, void* stream) {
+  if (t <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(kIntBand, xs, tails_in, tails_out, y, t, c, tc, seg, halo,
                 depth, ms, taps, stage_halo, stream);
 }

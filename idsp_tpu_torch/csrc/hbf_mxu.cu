@@ -1,6 +1,6 @@
 // K22 and K23: the half-band rate-change cascades in their banded-matrix
 // form, decimate and interpolate by 2^depth, each in one kernel a
-// precision.
+// precision ("highest" in hbf_cascade.cu, the others here).
 //
 // Replaces the Pallas kernels of idsp_tpu/filters/hbf_pallas.py
 // `hbf_dec_cascade_mxu` (:409, `_hbf_dec_mxu_impl` :465, pallas_call :567;
@@ -49,12 +49,10 @@
 //
 // "highest" sums the band's nonzero entries in f32 on the CUDA cores,
 // each multiply and add one __f*_rn intrinsic in ascending band column
-// order, so it equals the plain version of filters/hbf_mxu.py bit for bit.
-// K22's runs on K7's walk (hbf_cascade.cu `hbf_dec_band_kernel`: lane
-// tiles x time ranges from exact halos, the band order being its only
-// change).  K23's is hbf_int_mxu_kernel below, the port's first design:
-// lane tiles x time segments, a block recomputing the cascade's halo
-// before its segment.
+// order, so it equals the plain version of filters/hbf_mxu.py bit for bit:
+// K22's on K7's walk and K23's on K8's (hbf_cascade.cu
+// `hbf_dec_band_kernel`, `hbf_int_band_kernel`: lane tiles x time ranges
+// from exact halos, the band order being their only change).
 //
 // Numerics of "split3" and "default": a product of bf16 parts is exact;
 // the tensor cores sum a k-step's 16 products in their own order, so the
@@ -86,213 +84,14 @@
 
 namespace {
 
-constexpr int kMxuLanes = 32;  // lanes of a tile (threadIdx.x)
-constexpr int kMxuWarps = 32;  // warps of a block (threadIdx.y)
-constexpr int kIlp = 4;        // rows a thread sums side by side
 constexpr int kMaxSmem = 232448;
 constexpr int kD = idsp::tile::kMaxDepth;
-
-using HbfTaps = idsp::tile::Taps;
-
-// One block of K23 "highest": stage d computes its output row pairs
-// [a[d], b[d]) and reads its input rows [lo[d], hi[d]); the input of
-// stage d >= 1 sits in shared memory at rows off[d] .. off[d] + hi[d] -
-// base[d], row u at off[d] + u - base[d].
-struct Plan {
-  int a[kD], b[kD], lo[kD], hi[kD], base[kD], off[kD];
-  int rows;  // shared-memory rows per lane
-};
-
-template <int N>
-struct Ilp {
-  static constexpr int n = N;
-};
 
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 __host__ __device__ inline int floor_div2(int v) {
   return v >= 0 ? v / 2 : -((1 - v) / 2);
-}
-
-// Shared-memory offsets of the stage buffers and their total.
-__host__ __device__ inline void plan_buffers(const HbfTaps& p, Plan& q) {
-  q.rows = 0;
-  for (int d = 1; d < p.depth; ++d) {
-    q.off[d] = q.rows;
-    q.rows += q.hi[d] - q.base[d];
-  }
-}
-
-// K23, segment k of seg low-rate rows: output pair j of stage d reads
-// input rows j-2m+1 .. j; stage d's input rows are stage d-1's output
-// rows, two a pair.
-__host__ __device__ inline void int_plan(const HbfTaps& p, int t, int seg,
-                                         int k, Plan& q) {
-  const int depth = p.depth;
-  const int last = depth - 1;
-  int a = (k * seg) << last, b = imin((k + 1) * seg, t) << last;
-  for (int d = last; d >= 0; --d) {
-    q.a[d] = imax(a, 0);
-    q.b[d] = b;
-    q.lo[d] = q.a[d] - (2 * p.m[d] - 1);
-    q.hi[d] = b;
-    // stage d-1 writes whole pairs: from the even row below lo (rows
-    // below 0 are carried and loaded as they are)
-    q.base[d] = q.lo[d] < 0 ? q.lo[d] : q.lo[d] & ~1;
-    a = floor_div2(q.lo[d]);
-    b = b / 2;
-  }
-  plan_buffers(p, q);
-}
-
-__device__ __forceinline__ float int_carried(const float* tails, int toff,
-                                             int m, int c, int lane, int u) {
-  return tails[static_cast<size_t>(toff + 2 * m - 1 + u) * c + lane];
-}
-
-// Tail offsets (rows) of each stage in the packed tails (2m-1 a stage).
-__device__ __forceinline__ void tail_offsets(const HbfTaps& p, int* toff) {
-  int r = 0;
-  for (int d = 0; d < p.depth; ++d) {
-    toff[d] = r;
-    r += 2 * p.m[d] - 1;
-  }
-}
-
-// Calls rows(j, n) for the rows [a, b) this thread's warp takes, n = kIlp
-// rows at a time then single rows.  A warp takes chunks of up to sub
-// consecutive rows, cut to its share of the stage (whole kIlp groups) so
-// that a short stage still spreads over the warps.
-template <typename Rows>
-__device__ __forceinline__ void for_rows(int a, int b, int sub, Rows rows) {
-  const int share = (b - a + kMxuWarps - 1) / kMxuWarps;
-  const int per = imax(1, imin(sub, (share + kIlp - 1) / kIlp * kIlp));
-  for (int r0 = a + threadIdx.y * per; r0 < b; r0 += kMxuWarps * per) {
-    const int r1 = imin(r0 + per, b);
-    int j = r0;
-    for (; j + kIlp <= r1; j += kIlp) rows(j, Ilp<kIlp>{});
-    for (; j < r1; ++j) rows(j, Ilp<1>{});
-  }
-}
-
-// One interpolating stage over this thread's row pairs [a, b):
-// out(j, fir, center) stores output rows 2j and 2j+1.
-template <typename In, typename Out>
-__device__ __forceinline__ void int_stage(int a, int b, int sub, int m,
-                                          const float* tp, In in, Out out) {
-  for_rows(a, b, sub, [&](int j, auto ilp) {
-    constexpr int N = decltype(ilp)::n;
-    const int u0 = j - 2 * m + 1;
-    float acc[N];
-#pragma unroll
-    for (int r = 0; r < N; ++r) acc[r] = __fmul_rn(tp[0], in(u0 + r));
-    for (int i = 1; i < m; ++i) {
-      const float w = tp[i];
-#pragma unroll
-      for (int r = 0; r < N; ++r)
-        acc[r] = __fadd_rn(acc[r], __fmul_rn(w, in(u0 + r + i)));
-    }
-    for (int i = 0; i < m; ++i) {
-      const float w = tp[m - 1 - i];
-#pragma unroll
-      for (int r = 0; r < N; ++r)
-        acc[r] = __fadd_rn(acc[r], __fmul_rn(w, in(u0 + r + m + i)));
-    }
-#pragma unroll
-    for (int r = 0; r < N; ++r) out(j + r, acc[r], in(u0 + r + m));
-  });
-}
-
-__global__ void __launch_bounds__(kMxuLanes* kMxuWarps) hbf_int_mxu_kernel(
-    const float* __restrict__ xs, const float* __restrict__ tails_in,
-    float* __restrict__ tails_out, float* __restrict__ y, int t, int c,
-    int seg, int sub, HbfTaps p) {
-  extern __shared__ float smem[];
-  const int lane = blockIdx.x * kMxuLanes + threadIdx.x;
-  const bool live = lane < c;
-  const int depth = p.depth;
-  Plan q;
-  int_plan(p, t, seg, blockIdx.y, q);
-  int toff[kD];
-  tail_offsets(p, toff);
-  float* col = smem + threadIdx.x;
-  auto x0 = [&](int u) {
-    return u >= 0 ? __ldg(xs + static_cast<size_t>(u) * c + lane)
-                  : int_carried(tails_in, toff[0], p.m[0], c, lane, u);
-  };
-
-  if (live)
-    for (int d = 1; d < depth; ++d)
-      for (int u = q.base[d] + threadIdx.y; u < imin(0, q.hi[d]);
-           u += kMxuWarps)
-        col[(q.off[d] + u - q.base[d]) * kMxuLanes] =
-            int_carried(tails_in, toff[d], p.m[d], c, lane, u);
-
-  for (int d = 0; d < depth; ++d) {
-    if (live) {
-      const int sd = q.off[d] - q.base[d];
-      const int so = d + 1 < depth ? q.off[d + 1] - q.base[d + 1] : 0;
-      auto out = [&](int j, float fir, float cen) {
-        if (d + 1 == depth) {
-          y[static_cast<size_t>(2 * j) * c + lane] = fir;
-          y[static_cast<size_t>(2 * j + 1) * c + lane] = cen;
-        } else {
-          col[(so + 2 * j) * kMxuLanes] = fir;
-          col[(so + 2 * j + 1) * kMxuLanes] = cen;
-        }
-      };
-      if (d == 0)
-        int_stage(q.a[d], q.b[d], sub, p.m[d], p.taps[d], x0, out);
-      else
-        int_stage(q.a[d], q.b[d], sub, p.m[d], p.taps[d],
-                  [&](int u) { return col[(sd + u) * kMxuLanes]; }, out);
-    }
-    __syncthreads();
-  }
-
-  if (!live || blockIdx.y + 1 != gridDim.y) return;
-  // new carries: the last 2m-1 input rows of each stage
-  for (int d = 0; d < depth; ++d) {
-    const int ln = 2 * p.m[d] - 1, u0 = (t << d) - ln;
-    for (int r = threadIdx.y; r < ln; r += kMxuWarps)
-      tails_out[static_cast<size_t>(toff[d] + r) * c + lane] =
-          d == 0 ? x0(u0 + r)
-                 : col[(q.off[d] + u0 + r - q.base[d]) * kMxuLanes];
-  }
-}
-
-using Kernel = void (*)(const float*, const float*, float*, float*, int, int,
-                        int, int, HbfTaps);
-using PlanFn = void (*)(const HbfTaps&, int, int, int, Plan&);
-
-int launch(Kernel kernel, PlanFn plan, int segments, const void* xs,
-           const void* tails_in, void* tails_out, void* y, int t, int c,
-           int seg, int sub, const HbfTaps& p, void* stream) {
-  if (segments < 1 || segments > 65535 || c < 1 || sub < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int rows = 0;
-  for (int k = 0; k < segments; ++k) {
-    Plan q;
-    plan(p, t, seg, k, q);
-    rows = imax(rows, q.rows);
-  }
-  const size_t smem = static_cast<size_t>(rows) * kMxuLanes * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  // a refused size is also the runtime's last error: take it, or the
-  // next launch of any kernel in this library would report it
-  if (err != cudaSuccess) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((c + kMxuLanes - 1) / kMxuLanes, segments);
-  const dim3 block(kMxuLanes, kMxuWarps);
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xs), static_cast<const float*>(tails_in),
-      static_cast<float*>(tails_out), static_cast<float*>(y), t, c, seg, sub,
-      p);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // --- "split3" and "default": the band product on the tensor cores ----------
@@ -894,19 +693,6 @@ int launch_mma(bool dec, const void* xs, const void* tails_in,
 
 }  // namespace
 
-// K23: xs (t, c) f32 -> y (t << depth, c) f32; tails (2m-1, c) per stage,
-// packed.  seg >= 1 low-rate rows a segment.
-extern "C" int idsp_hbf_int_mxu(const void* xs, const void* tails_in,
-                                void* tails_out, void* y, int t, int c,
-                                int seg, int sub, int depth, const int* ms,
-                                const float* taps, void* stream) {
-  HbfTaps p{};
-  if (!idsp::tile::taps_from_host(p, depth, ms, taps) || t <= 0 || seg < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch(hbf_int_mxu_kernel, int_plan, (t + seg - 1) / seg, xs,
-                tails_in, tails_out, y, t, c, seg, sub, p, stream);
-}
-
 // Blocks of K22's (dec 1) or K23's MMA kernel that fit an SM at chunk tc
 // (as idsp_hbf_dec_mma / idsp_hbf_int_mma take it), 0 if a block does not
 // fit, or minus a CUDA error.
@@ -946,7 +732,7 @@ extern "C" int idsp_hbf_dec_mma(const void* xs, const void* tails_in,
 }
 
 // K23 "split3" and "default": xs (t, c) f32 -> y (t << depth, c) f32,
-// tails as idsp_hbf_int_mxu.  tc and seg low-rate input rows, positive
+// tails as idsp_hbf_int_cascade (hbf_cascade.cu).  tc and seg low-rate input rows, positive
 // multiples of 16.
 extern "C" int idsp_hbf_int_mma(const void* xs, const void* tails_in,
                                 void* tails_out, void* y, int t, int c,

@@ -1,5 +1,5 @@
 // The half-band FIR stages of one lane tile, a team of warps on the rows
-// of one stage: the stage code of K7, K8 and K22 "highest"
+// of one stage: the stage code of K7, K8 and K22 / K23 "highest"
 // (hbf_cascade.cu; the team every warp of the block) and of K2, K3 and
 // K19-K21 (ddc_cascade.cu; the team the block's FIR warps).
 //
@@ -15,9 +15,10 @@
 //
 // Numerics: each output is the plain version's sum in its order (hbf.py
 // `symmetric_fir`): acc = (b + a) * tap[0], acc += (b + a) * tap[i] for i
-// ascending, then + even (decimation; K22's band order: dec_band_stage),
-// every f32 operation one __f*_rn intrinsic, so nvcc cannot contract them
-// into FMAs and the kernels equal the eager plain versions bit for bit.
+// ascending, then + even (decimation; K22's and K23's band order:
+// dec_band_stage, int_band_stage), every f32 operation one __f*_rn
+// intrinsic, so nvcc cannot contract them into FMAs and the kernels equal
+// the eager plain versions bit for bit.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -173,6 +174,39 @@ __device__ __forceinline__ void int_stage(int a, int b, int m,
     }
 #pragma unroll
     for (int r = 0; r < N; ++r) out(j + r, acc[r], in(lo + m + r));
+  });
+}
+
+// int_stage's row pairs in the band order of K23 "highest"
+// (filters/hbf_mxu.py `_sum_band`, `int_band_row`): pair j's FIR is the
+// sum over its band row's nonzero entries in ascending input row, u0 =
+// j-2m+1: tap[0] * x[u0] the sum's start, tap[i] * x[u0+i] for i
+// ascending, then tap[m-1-i] * x[u0+m+i] for i ascending; the center
+// x[j-m+1] as int_stage's.
+template <class In, class Out>
+__device__ __forceinline__ void int_band_stage(int a, int b, int m,
+                                               const float* tp, In in,
+                                               Out out) {
+  for_rows(a, b, BlockTeam{}, [&](int j, auto ilp) {
+    constexpr int N = decltype(ilp)::n;
+    const int u0 = j - 2 * m + 1;
+    float acc[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) acc[r] = __fmul_rn(tp[0], in(u0 + r));
+    for (int i = 1; i < m; ++i) {
+      const float w = tp[i];
+#pragma unroll
+      for (int r = 0; r < N; ++r)
+        acc[r] = __fadd_rn(acc[r], __fmul_rn(w, in(u0 + r + i)));
+    }
+    for (int i = 0; i < m; ++i) {
+      const float w = tp[m - 1 - i];
+#pragma unroll
+      for (int r = 0; r < N; ++r)
+        acc[r] = __fadd_rn(acc[r], __fmul_rn(w, in(u0 + r + m + i)));
+    }
+#pragma unroll
+    for (int r = 0; r < N; ++r) out(j + r, acc[r], in(u0 + m + r));
   });
 }
 

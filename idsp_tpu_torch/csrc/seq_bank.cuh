@@ -1,5 +1,5 @@
-// The sequential-bank template: one thread per lane walks the whole
-// block of time with its recurrence state in registers.
+// The sequential walk of a recurrence and the helpers its kernels share:
+// one thread walks a lane's block of time with its state in registers.
 //
 // Replaces the scaffold of the TPU bank kernels,
 // idsp_tpu/filters/biquad_pallas.py `_seq_bank_kernel` (:471) run by
@@ -9,11 +9,11 @@
 //
 // `seq_rows` loads the next kBankGroup rows while the current group
 // computes, so global-load latency stays off the serial chain of the
-// recurrence.  `seq_bank` applies it to a time-major (t, c) input of
-// int16, int32, int64 or float rows (the row type a template argument),
-// with an optional keep-1-in-dec output (rows 0, dec, 2*dec, ...; the
-// state still carries the full-rate recurrence), as the TPU kernel's
-// `dec` epilogue did.
+// recurrence (K9/K10's range passes, cic_bank.cu, with `Keep` for the
+// kept rows); `ldg` is the read-only row load of cic_bank.cu and
+// df1_ring.cuh's producers, `wadd32` / `wadd64` the wrapping sums of
+// fm_disc.cu, atan2.cuh and pll.cuh.  The serial banks (K1, K4, K5 and
+// the rest) run on df1_ring.cuh's depth-0 pipeline instead.
 #pragma once
 
 #include <cstddef>
@@ -22,7 +22,6 @@
 
 namespace idsp {
 
-constexpr int kBankLanes = 32;  // lanes (threads) per block
 constexpr int kBankGroup = 16;  // rows per prefetch group
 
 // step(i, load(i)) for rows i = 0 .. t-1 in order; load(i) runs one
@@ -69,33 +68,6 @@ __device__ __forceinline__ T ldg(const T* p) {
     return static_cast<T>(__ldg(reinterpret_cast<const long long*>(p)));
   } else {
     return __ldg(p);
-  }
-}
-
-// One lane of a bank over xs (t, c) of T (int16, int32, int64 or float),
-// time-major: y = step(x) for every row; put(k, y) stores the k-th
-// output row's value (flat index k * c + lane), for every row, or with
-// Decimate for rows 0, dec, ...
-template <bool Decimate, class T, class Step, class Put>
-__device__ __forceinline__ void seq_bank(const T* __restrict__ xs, int t,
-                                         int c, int lane, int dec, Step step,
-                                         Put put) {
-  const T* xp = xs + lane;
-  auto load = [&](int i) { return ldg(xp + static_cast<size_t>(i) * c); };
-  if constexpr (Decimate) {
-    Keep keep(dec);
-    size_t out = lane;
-    seq_rows(t, load, [&](int, T x) {
-      const auto y = step(x);
-      if (keep.next()) {
-        put(out, y);
-        out += c;
-      }
-    });
-  } else {
-    seq_rows(t, load, [&](int i, T x) {
-      put(static_cast<size_t>(i) * c + lane, step(x));
-    });
   }
 }
 

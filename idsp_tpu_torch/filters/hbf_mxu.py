@@ -38,9 +38,9 @@ Both take and return the time-major (``axis=0``) `HbfDecState` /
   card: the same kernel, one pass.
 * ``"highest"``: the band's f32 sum, about 2e-7 relative (Mosaic's own
   f32 decomposition on the TPU).  On the card: each multiply and add one
-  rounding in ascending band column order on the CUDA cores; K22's on
-  K7's walk of lane tiles x time ranges (``csrc/hbf_cascade.cu``
-  `hbf_dec_band_kernel`), K23's a SIMT kernel of time segments.
+  rounding in ascending band column order on the CUDA cores, on K7's
+  and K8's walks of lane tiles x time ranges (``csrc/hbf_cascade.cu``
+  `hbf_dec_band_kernel`, `hbf_int_band_kernel`).
 
 The plain versions compute the same products (a bf16 product is exact in
 f32) and sum each pass in ascending band column order, the passes added
@@ -57,7 +57,7 @@ tolerance, never bit for bit.
 
 ``block`` and ``sub`` size the kernels' tiles only; no value depends on
 them, nor on the number of time ranges the kernels cut a call into (the
-MMA kernels about MMA_BLOCKS_PER_SM blocks an SM, K22 "highest" K7's
+MMA kernels about MMA_BLOCKS_PER_SM blocks an SM, "highest" K7's and K8's
 `default_ranges`; the private `_dec` / `_int` take the count, for the
 tests).
 """
@@ -79,6 +79,7 @@ from .hbf_cuda import (
     _split,
     dec_range_plan,
     default_ranges,
+    int_range_plan,
     pick_chunk,
 )
 
@@ -95,6 +96,11 @@ KERNEL_TOL = {"highest": 0.0, "split3": 2.0 ** -15, "default": 2.0 ** -6}
 # blocks an SM the MMA kernels' default range count fills at most (two fit
 # at K22's default chunk; more ranges recompute more halo)
 MMA_BLOCKS_PER_SM = 2
+# K23 "highest"'s default chunk, K8's (`hbf_int_cascade_bank`'s
+# time_chunk): 76 KB at depth 4 with HBF_TAPS, three blocks an SM (at 64
+# rows one fits: 0.1892 ms of device time a launch at c = 1024 on the
+# H100 against 0.1260 at 32, `probe_cascade --only cascade`, PERF.md §6)
+INT_BAND_CHUNK = 32
 
 
 def _ceil8(n: int) -> int:
@@ -400,6 +406,8 @@ def _dec(states, xs, taps, block, sub, precision, ranges):
 
 def _int(states, xs, taps, block, sub, precision, ranges):
     stage_taps = _stage_taps(states, taps, False)
+    if block is None:
+        block = INT_BAND_CHUNK if precision == "highest" else 64
     _check_args(xs, block, sub, precision, 1)
     if xs.device.type == "cpu":
         return hbf_int_cascade_mxu_plain(states, xs, taps=taps,
@@ -408,9 +416,13 @@ def _int(states, xs, taps, block, sub, precision, ranges):
     t, c = xs.shape
     rows = [(2 * len(tv) - 1,) for tv in stage_taps]
     tails = [(s.x,) for s in states]
-    if precision == "highest":
-        packed, y = _launch("hbf_int_mxu", tails, rows, xs, stage_taps,
-                            t << depth, min(block, t), sub)
+    if precision == "highest":  # K8's walk, the band order (`_sum_band`)
+        ms = [len(tv) for tv in stage_taps]
+        plan = int_range_plan(ms, t, default_ranges(t, c, xs.device)
+                              if ranges is None else ranges)
+        packed, y = _launch("hbf_int_band", tails, rows, xs, stage_taps,
+                            t << depth, pick_chunk(t, block, 1), plan.seg,
+                            plan.halo, extra=(plan.stage_halo,))
     else:
         tc = mma_chunk(block, t, 16)
         seg = mma_seg(t, mma_ranges(False, stage_taps, tc, PASSES[precision],
@@ -457,7 +469,7 @@ hbf_dec_cascade_mxu.default_launches = 0
 hbf_dec_cascade_mxu.highest_launches = 0
 
 
-def hbf_int_cascade_mxu(states, xs, *, taps=None, block: int = 64,
+def hbf_int_cascade_mxu(states, xs, *, taps=None, block: int | None = None,
                         sub: int = 32, precision: str = "split3"):
     """Interpolate-by-2**depth half-band cascade in its banded-matrix
     form, one kernel, depth = len(states).
@@ -468,13 +480,17 @@ def hbf_int_cascade_mxu(states, xs, *, taps=None, block: int = 64,
       xs: (t, c) f32 low-rate block, t >= 1, any c.
       taps: the full tap table (default `HBF_TAPS`); stage i uses
         ``taps[i]``.
-      block: "split3" and "default": the low-rate rows a CUDA block takes
-        at a time (`mma_chunk`: a multiple of 16); "highest": the low-rate
-        rows of a CUDA block's time segment (at most t), each segment also
-        recomputing the cascade's halo before it.  A launch that would
-        exceed a block's shared memory is refused (RuntimeError).
-      sub: output row pairs a warp takes at a time (at most its share of
-        a stage; whole 16-pair tiles for the MMA kernels).
+      block: the low-rate rows a CUDA block takes at a time: "split3"
+        and "default" `mma_chunk` (a multiple of 16; 64 by default);
+        "highest" the chunk of K8's walk (`hbf_cuda.pick_chunk`: lowered
+        to t; INT_BAND_CHUNK by default), each range of time walked from
+        its exact halo (`int_range_plan`, `default_ranges`).  Sizes
+        shared memory: a launch that would exceed a block's is refused
+        (RuntimeError).
+      sub: output row pairs a warp takes at a time ("split3" and
+        "default": whole 16-pair tiles, at most a warp's share of a
+        stage); "highest" deals a stage's pairs to the warps in groups of
+        four and takes no ``sub``.
       precision: as for `hbf_dec_cascade_mxu`.
 
     Returns (new_states, y) with y (t * 2**depth, c) f32: per stage the

@@ -1,22 +1,22 @@
 """The host plan of the depth-0 pipeline of a serial recurrence that K6,
 K12 and K13 (`ddc_bank_cuda`), K14 (`ddc_cuda`), K15 (`fm_cuda`), K16
 (`ddc_lockin_cuda`), K1, K11, K18 and K25-K33 (`biquad_cuda`), K34
-(`svf_cuda`), K35 and K36 (`normal_cuda`), K37 (`rpll_cuda`) and K4
-(`lowpass_cuda`) run: ``csrc/df1_ring.cuh``
+(`svf_cuda`), K35 and K36 (`normal_cuda`), K37 (`rpll_cuda`), K4
+(`lowpass_cuda`) and K5 (`pll_cuda`) run: ``csrc/df1_ring.cuh``
 `run_pipe` (K1, K4, K11, K18, K26, K27, K6/K12/K13: `run_roles`); and
 K24's chain of such blocks, one or two a CTA, over a thread-block cluster
 (`sos_plan`, ``df1_ring.cuh`` `run_chain`).
 
 A CUDA block is a tile of LANES lanes: the serial warp (warp 0; the DF1 warp of
-K12-K15, the Lowpass serial warp of K4 and K6), the other warps of its
-scheduler idle, ``producers`` warps that fill its input ring and one store warp
-that writes its output ring to device memory (K6, K12/K13: a back-end warp that
-writes the kept rows, and for K6 and K13 steps the PLL, K6 writing its output;
-K1, K4, K11, K18, K26, K27: a store warp that keeps K4's and K11's rows and
-converts K1's f32).  A row of a slot holds ``win`` (input) or ``wout`` (output)
-32-bit words a lane.  `pipe_plan` picks the warps, chunk and ring depth and
-sums the shared memory; ``df1_ring.cuh`` `pipe_plan_ok` refuses a plan that is
-not its own.
+K12-K15, the Lowpass serial warp of K4 and K6, the PLL serial warp of K5), the
+other warps of its scheduler idle, ``producers`` warps that fill its input ring
+and one store warp that writes its output ring to device memory (K6, K12/K13: a
+back-end warp that writes the kept rows, and for K6 and K13 steps the PLL, K6
+writing its output; K1, K4, K11, K18, K26, K27: a store warp that keeps K4's and
+K11's rows and converts K1's f32).  A row of a slot holds ``win`` (input) or
+``wout`` (output) 32-bit words a lane.  `pipe_plan` picks the warps, chunk and
+ring depth and sums the shared memory; ``df1_ring.cuh`` `pipe_plan_ok` refuses
+a plan that is not its own.
 """
 
 from __future__ import annotations
@@ -39,14 +39,15 @@ def pipe_smem(chunk: int, ring: int, win: int = 1, wout: int = 1) -> int:
 
 
 class PipePlan(NamedTuple):
-    """How K1, K11-K16, K18, K26-K31, K33 and K34-K37 run a
+    """How K1, K4, K5, K11-K16, K18, K26-K31, K33 and K34-K37 run a
     launch: a CUDA block is a tile of LANES lanes and ``warps`` warps: warp
     0 the serial warp, the others of its scheduler (warp % 4 == 0) idle,
     of the rest ``producers`` that fill its input ring (K12/K13, K14: the
     mix of their rows mod their count; K15: dphi of a span of each chunk;
     K16: the mix and the feed-forward sum of a span; K1, K11, K18,
-    K26-K31, K33, K35, K36: the feed-forward sums of a span; K34: the
-    x rows of a span; K37: the x and dt words of a span) and the next one
+    K26-K31, K33, K35, K36: the feed-forward sums of a span; K4, K5,
+    K34: the x rows of a span; K37: the x and dt words of a span) and the
+    next one
     the store warp (K12/K13: the back end), the rest idle; with
     ``cluster`` 2 (K15) a tile is a cluster of that block and a partner CTA
     whose ``warps`` warps are all producers; chunks of ``chunk`` rows,

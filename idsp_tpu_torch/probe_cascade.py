@@ -1,11 +1,12 @@
 """Where K2, K3, K19-K21 (`csrc/ddc_cascade.cu`), K12/K13, K14 and K15
 (`csrc/ddc_bank.cu`, `csrc/ddc_mix_df1.cu`, `csrc/fm_disc.cu`, all on
 `csrc/df1_ring.cuh`'s DF1 warp), K16, K28-K31 and K37, K34-K36, K1, K11,
-K18, K26, K25/K32, K4 and K6 (`csrc/ddc_lockin.cu`,
+K18, K26, K25/K32, K4, K5 and K6 (`csrc/ddc_lockin.cu`,
 `csrc/biquad_precision.cu`, `csrc/structures_bank.cu`, `csrc/df1_bank.cu`,
-`csrc/biquad_bank.cu`, `csrc/lowpass_bank.cu`, `csrc/ddc_bank.cu`, on its
-depth-0 pipeline with serial warps of their own) and K24 (on a chain of
-such blocks over a cluster) spend their time on the card.
+`csrc/biquad_bank.cu`, `csrc/lowpass_bank.cu`, `csrc/pll_bank.cu`,
+`csrc/ddc_bank.cu`, on its depth-0 pipeline with serial warps of their
+own), K24 (on a chain of such blocks over a cluster) and K8 and K23
+"highest" (`csrc/hbf_cascade.cu`) spend their time on the card.
 
 Usage (on a CUDA machine, from the root of a checkout)::
 
@@ -30,7 +31,12 @@ a fine length of 128 for K3, a random DF1 state, zero tails.  Two parts:
   warps' chunk, stage 0 and wait, the producer's issue of its first
   chunk, into a fresh slot).  K2,
   K20 and K3 at c = 512, each at its default plan; "output" and "stamps"
-  are held to the package's kernel bit for bit.
+  are held to the package's kernel bit for bit;
+* K8 `hbf_int_cascade_bank` and K23 `hbf_int_cascade_mxu` at precision
+  "highest" (K8's walk in the band order) on (2048, c) f32 ~ N(0, 1), depth
+  4, `HBF_TAPS`, zero state, at c = 512 and 1024: device ms a launch
+  (profiler spans) at the chunks HBF_INT_CHUNKS x 1, 2, 4 and 8 blocks an
+  SM (`HBF_BLOCKS_PER_SM`), every one's words held to the default's.
 
 K14 and K15 (``pipe``), on the same kind of inputs (K14: x in
 +-2^27, full-range steps, f32 out; K15: IQ full range, carrier 12345, the
@@ -97,7 +103,16 @@ deemphasis lowpass at 0.02):
   stamps (the serial warp, producer 0, the store warp) and K28's chain in
   other forms (`Q16_FORMS`), each built on its own and held to the
   package's words;
-* ``--cases`` keeps the depth-0 cases whose key holds one of its
+* K5 (the #5 bank's loop `pll.coefficients_from_bandwidth(2e-2, 4.0)`,
+  2048 rows of full-range phases, zero state) at 1024 channels: its plan
+  sweep (`pll_cuda.pll_plan`: producers, chunk, ring) with each plan's
+  device ms (profiler spans: an event time takes in the wrapper's host
+  work), its stamps (the serial warp, producer 0, the store warp; 8 chunks
+  of 256 rows) and its serial warp in other forms (`PLL_FORMS`), each a
+  stamps build of its own held to the package's words, with its device ms
+  and the serial warp's cycles a row;
+* ``--cases`` keeps the depth-0 cases, and of ``cascade`` the K2/K3/K19-K21
+  cases and the K8/K23 sweep ("K23"), whose key holds one of its
   substrings (and builds only their variants);
 * K9 and K10 (``cic``, `_cic`): the kernel alone at chip_smoke.py's
   phase-6 inputs, its device time at the default plan and at other
@@ -105,9 +120,9 @@ deemphasis lowpass at 0.02):
   pass, fold and second pass;
 * the SASS of the built library (`cuobjdump -sass`): the largest loops of
   K24's, K25/K32's, K1's, K35's (both regimes and each form), K36's,
-  K28's (each form), K30's, K16's and the Lowpass serial warp's kernels
-  (K4 and K6 at N = 1 and 2) with their instruction counts (the serial
-  warp's 8-row group among them).
+  K28's (each form), K30's, K16's, the Lowpass serial warp's kernels
+  (K4 and K6 at N = 1 and 2) and K5's (each form) with their instruction
+  counts (the serial warp's 8-row group among them).
 
 A time is the median of 3 trials of 20 chained launches (CUDA events,
 `profiling.measure_rate`); a stamp is SM clock cycles, the median over
@@ -130,7 +145,8 @@ import torch
 from . import _ext, design, fxp
 from .filters import biquad, biquad_cuda, ddc_bank_cuda, ddc_cuda, fm_cuda
 from .filters import ddc_lockin_cuda, hbf, lowpass, lowpass_cuda, pll, rpll
-from .filters import normal, normal_cuda, rpll_cuda, svf, svf_cuda
+from .filters import hbf_cuda, hbf_mxu, normal, normal_cuda, pll_cuda
+from .filters import rpll_cuda, svf, svf_cuda
 from .filters.pipe_plan import sos_plan
 from .ops.fastlo import factor_pairs, fastlo_tables
 from .pipelines import fm_disc
@@ -140,6 +156,10 @@ T, TC = 32768, 128
 CLAMP = (1 << 10, -(1 << 23), 1 << 23)
 OUT = _ext.BUILD_ROOT.parent / "probe_cascade"
 STAMPS = 1024  # chunks a stamp series holds
+# K8 and K23 "highest" in the cascade part: chunks (low-rate rows) and
+# blocks an SM (the range count ceil(k * SMs / tiles))
+HBF_INT_CHUNKS = (16, 32, 64)
+HBF_BLOCKS_PER_SM = (1, 2, 4, 8)
 
 
 def _patch(src: str, old: str, new: str) -> str:
@@ -427,7 +447,8 @@ PIPE_SOURCES = DF1_PIPE_SOURCES + ("biquad_precision.cu",  # K28-K31/K33
                                    "ddc_lockin.cu",  # K16
                                    "biquad_bank.cu",  # K25/K32
                                    "df1_bank.cu",  # K1, K11, K18, K26, K27
-                                   "lowpass_bank.cu")  # K4
+                                   "lowpass_bank.cu",  # K4
+                                   "pll_bank.cu")  # K5
 
 
 # the stamps of each timed depth-0 case: (key, its stamps library)
@@ -448,7 +469,8 @@ STAMP_LIBS = (
     ("K36 c=1024", "stamps_structures_bank"),
     ("K28 c=1024", "stamps_biquad_precision"),
     ("K28 f=17 c=1024", "stamps_biquad_precision"),
-    ("K30 c=1024", "stamps_biquad_precision"))
+    ("K30 c=1024", "stamps_biquad_precision"),
+    ("K5 c=1024", "stamps_pll_bank"))
 
 
 def _wanted(cases):
@@ -481,6 +503,10 @@ def pipe_variants(cases=()) -> dict:
     if want("K28"):
         out.update({k: {"biquad_precision.cu": v} for k, v in
                     _q16_forms(_read("biquad_precision.cu")).items()})
+    if want(K5_KEY):  # each form a stamps build
+        r, k = _pipe_stamps(ring, _read("pll_bank.cu"))
+        out.update({name: {"df1_ring.cuh": r, "pll_bank.cu": k, "pll.cuh": v}
+                    for name, v in _pll_forms(_read("pll.cuh")).items()})
     return out
 
 
@@ -577,6 +603,123 @@ def _q16_forms(src) -> dict:
             "q16_shl": _patch(unscaled, _Q16_Y0, shl)}
 
 
+# K5's serial step as the package has it (pll.cuh `step_grouped`), whose
+# body the forms below replace
+_STEP_HEAD = "  __device__ __forceinline__ int32_t step_grouped("
+_STEP_END = "    return y;\n  }\n"
+# the package's V, and "pll_v0"'s: f0 + b1 y0 and a1 hi(f0) as two
+# multiply-adds, then the signed (a1 lo(f0)) >> 32 sign-extended
+_V_PKG = """    const int64_t v = wadd64(
+        wadd64(mad_wide(k.a1, static_cast<int32_t>(f0 >> 32), f0m), uh),
+        mul_wide(k.b1, y0));
+"""
+_V_0 = """    const int64_t v = wadd64(
+        mad_wide(k.a1, static_cast<int32_t>(f0 >> 32),
+                 mad_wide(k.b1, y0, f0)),
+        static_cast<int32_t>(uh - (k.a1 < 0 ? static_cast<uint32_t>(f0)
+                                            : 0u)));
+"""
+# the words before the chain of the forms that replace the whole body
+_OFF = """    const int32_t ca = wadd32(z0, INT32_MIN >> 1);
+    const int32_t cb = wadd32(z0, INT32_MAX >> 1);
+    const int64_t f0m = static_cast<int64_t>(
+        static_cast<uint64_t>(f0) &
+        ~static_cast<uint64_t>(k.a1 < 0 ? 0xFFFFFFFFu : 0u));
+    const int64_t uh = static_cast<int64_t>(__umulhi(
+        static_cast<uint32_t>(k.a1), static_cast<uint32_t>(f0)));
+""" + _V_PKG + """    const int64_t w = wadd64(f, v);
+    const int32_t h = static_cast<int32_t>(f >> 32);
+    const int32_t xi = add3(x, y, h);
+"""
+_TAIL = """    f0 = mad_wide(k.b0, y0n, v);
+    y = wadd32(y, h);
+    x0 = xi;
+    z0 = static_cast<int32_t>(static_cast<uint32_t>(y0n) -
+                              static_cast<uint32_t>(z0));
+    y0 = y0n;
+"""
+# s = cl + (delta >= 0) - (xi >= x0) as a sum, its sign picking y0
+_SUM = """    const int32_t delta = static_cast<int32_t>(
+        static_cast<uint32_t>(xi) - static_cast<uint32_t>(x0));
+    const int32_t s = cl + int32_t{delta >= 0} - int32_t{xi >= x0};
+    const int32_t cx = wadd32(xi >> 1, z0);
+    const int32_t y0n = s < 0 ? ca : (s > 0 ? cb : cx);
+    f = mad_wide(k.b0, y0n, w);
+    cl = max(-1, min(1, s));
+"""
+# the package's one compare and picks in C++ (the compiler keeps the bools
+# as 0/1 words and compares them again)
+_FLAG_C = """    const int32_t t = x0 ^ INT32_MIN;
+    const bool xneg = x0 < 0;
+    const int32_t s1 = cl + (xneg ? -1 : 1);
+    const int32_t k1 = s1 < 0 ? ca : cb, k0 = cl < 0 ? ca : cb;
+    const bool m1 = s1 == 0, m0 = cl == 0;
+    const bool flag = (xi < t) != xneg;
+    const int32_t cx = wadd32(xi >> 1, z0);
+    const int32_t y0n = (flag ? m1 : m0) ? cx : (flag ? k1 : k0);
+    f = mad_wide(k.b0, y0n, w);
+    cl = max(-1, min(1, flag ? s1 : cl));
+"""
+# the package's f = b0 y0' + W as a 32-bit multiply-add with carry out and
+# its high word's with carry in
+_F_LINE = "    f = mad_wide(k.b0, y0n, w);\n"
+_F_MADCC = ("    {\n      uint32_t lo, hi;\n"
+            "      asm(\"mad.lo.cc.u32 %0, %2, %3, %4;\\n\\t\"\n"
+            "          \"madc.hi.s32 %1, %2, %3, %5;\"\n"
+            "          : \"=r\"(lo), \"=r\"(hi)\n"
+            "          : \"r\"(y0n), \"r\"(k.b0), \"r\"(static_cast<uint32_t>(w)),\n"
+            "            \"r\"(static_cast<uint32_t>(static_cast<uint64_t>(w) >> 32)));\n"
+            "      f = static_cast<int64_t>(uint64_t{hi} << 32 | lo);\n    }\n")
+# with a1 < 0 (the loop filters' case, pole < 1): f0 + a1 hi(f0) + (a1
+# lo(f0)) >> 32 = a1 hi(f0) + {umulhi(a1, lo(f0)) : hi(f0)}, one 64-bit
+# multiply-add whose addend needs no add
+_VW_NEG = """    const uint32_t uh = __umulhi(static_cast<uint32_t>(k.a1),
+                                 static_cast<uint32_t>(f0));
+    const int64_t pk = static_cast<int64_t>(
+        (static_cast<uint64_t>(f0) & 0xFFFFFFFF00000000ull) | uh);
+    const int64_t part = mad_wide(k.a1, static_cast<int32_t>(f0 >> 32), pk);
+    const int64_t v = mad_wide(k.b1, y0, part);
+"""
+
+
+def _vw_block(src):
+    """The package's V and W lines."""
+    i = src.index("    const int64_t f0m = ")
+    end = "    const int64_t w = wadd64(f, v);\n"
+    return src[i:src.index(end, i) + len(end)]
+
+
+# K5's case key ("K5" alone also names K35's cases for ``--cases``)
+K5_KEY = "K5 c=1024"
+# K5's forms timed against the package, each a stamps build of its own:
+# every form gives the same words
+PLL_FORMS = ("pll_plain", "pll_sum", "pll_flag_c", "pll_v0", "pll_madcc",
+             "pll_neg")
+
+
+def _pll_forms(src) -> dict:
+    """pll.cuh with K5's serial step in other forms: "pll_plain", the plain
+    order (`PllLane::step`, K6/K13's); "pll_sum", the wrap as (delta >= 0)
+    - (xi >= x0) added to cl, s's sign picking y0; "pll_flag_c", the
+    package's one compare with its picks written in C++; "pll_v0", the
+    package with V grouped as `_V_0`; "pll_madcc", the package with f = b0
+    y0' + W as `mad.lo.cc.u32` and `madc.hi.s32`; "pll_neg", V for a1 <
+    0 as `_VW_NEG` (the probe's loop has a1 < 0)."""
+    i = src.index(_STEP_HEAD)
+    j = src.index(_STEP_END, i) + len(_STEP_END)
+    head = src[i:src.index("{\n", i) + 2]
+
+    def body(chain):
+        return src[:i] + head + _OFF + chain + _TAIL + _STEP_END + src[j:]
+
+    return {"pll_plain": _patch(src, "s.step_grouped(k, x)", "s.step(k, x)"),
+            "pll_sum": body(_SUM), "pll_flag_c": body(_FLAG_C),
+            "pll_v0": _patch(src, _V_PKG, _V_0),
+            "pll_madcc": _patch(src, _F_LINE, _F_MADCC),
+            "pll_neg": _patch(src, _vw_block(src), _VW_NEG
+                              + "    const int64_t w = wadd64(f, v);\n")}
+
+
 def build(sources: dict) -> dict:
     """name -> the bound entry points of that variant's .cu files, each
     built into a library of its own with nvcc (all at once) in a
@@ -628,8 +771,66 @@ def _same(a, b) -> bool:
     return all(_same(u, v) for u, v in zip(a, b, strict=True))
 
 
-def _cascade(dev, card, libs, package, result) -> None:
-    """K2, K3 and K19-K21: the plan sweep, the variants, the stamps."""
+def _device_ms(step, st, symbol, iters=20):
+    """Device ms a launch of the kernel whose name holds ``symbol``: the
+    mean of its profiler spans over ``iters`` chained calls ``step(s) ->
+    (s, ...)`` (`profiling.busy_share`), None if none was recorded."""
+    from .profiling import busy_share
+
+    _, _, by_name = busy_share(step, st, iters=iters)
+    kept = [(n, sec) for k, (n, sec) in by_name.items() if symbol in k]
+    spans = sum(n for n, _ in kept)
+    return round(sum(sec for _, sec in kept) * iters / spans * 1e3, 4) \
+        if spans else None
+
+
+def _int_sweep(dev, card, result) -> None:
+    """K8 and K23 "highest" on (2048, c) f32 ~ N(0, 1), depth 4, HBF_TAPS,
+    zero state, at c = 512 and 1024: device ms a launch at each of
+    HBF_INT_CHUNKS x HBF_BLOCKS_PER_SM blocks an SM (ranges ceil(k SMs /
+    tiles)) and at the wrappers' defaults, every call's words held to the
+    default's bit for bit."""
+    rng = np.random.default_rng(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    result["int_sweep"] = {}
+    for c in (512, 1024):
+        x = torch.from_numpy(rng.normal(size=(T >> 4, c)).astype(
+            np.float32)).to(dev)
+        st = hbf.hbf_int_cascade_init(4, (c,), axis=0, device=dev)
+        tiles = -(-c // hbf_cuda.LANES)
+        for key, symbol, run in (
+                (f"K8 c={c}", "hbf_int_cascade_kernel",
+                 lambda tc, r: hbf_cuda.hbf_int_cascade_bank(
+                     st, x, **({} if tc is None else {"time_chunk": tc}),
+                     ranges=r)),
+                (f"K23 highest c={c}", "hbf_int_band_kernel",
+                 lambda tc, r: hbf_mxu._int(st, x, None, tc, 32, "highest",
+                                            r))):
+            want = run(None, None)
+            row = {"default": _device_ms(
+                lambda s: (s, run(None, None)), st, symbol)}
+            for tc in HBF_INT_CHUNKS:
+                for k in HBF_BLOCKS_PER_SM:
+                    r = -(-k * sms // tiles)
+                    if not _same(run(tc, r), want):
+                        raise AssertionError(f"{key} at chunk {tc}, {r} "
+                                             "ranges: another value")
+                    row[f"{tc},{r}"] = _device_ms(
+                        lambda s, tc=tc, r=r: (s, run(tc, r)), st, symbol)
+            result["int_sweep"][key] = row
+            print(f"int sweep {key} (chunk,ranges: device ms a launch): "
+                  f"{row}  [{card}]", flush=True)
+
+
+def _cascade(dev, card, libs, package, result, cases=()) -> None:
+    """K2, K3 and K19-K21: the plan sweep, the variants, the stamps; K8
+    and K23 "highest": `_int_sweep` (those whose key holds one of
+    ``cases``, `_wanted`)."""
+    want = _wanted(cases)
+    if want("K23"):
+        _int_sweep(dev, card, result)
+    if "stamps" not in libs:  # no K2/K3/K19-K21 case asked for
+        return
     ba = biquad.quantize_ba(biquad.from_cookbook(
         design.Filter().critical_frequency(0.02).lowpass()), 29)
     taps = tuple(np.asarray(hbf.HBF_TAPS[2 - d], np.float32)
@@ -681,6 +882,8 @@ def _cascade(dev, card, libs, package, result) -> None:
                 ("K21", {}, dict(depth=2), [dict(chunk=ch)
                                             for ch in (128, 256)])]
         for name, plan_kw, kw, forced in cases:
+            if not want(name):
+                continue
             ms = [len(v) for v in taps[:kw.get("depth", 3)]]
             want = launch(ins, **kw)
             for p in forced:
@@ -736,16 +939,17 @@ def _cascade(dev, card, libs, package, result) -> None:
         print(f"stamps {key} (cycles a chunk): {row}  [{card}]", flush=True)
 
 
-def _stamp_rows(lib, launch, chunk, series) -> dict:
-    """One launch of a stamps variant; the medians over its chunks of each
-    named span (start series, end series) and of the waits between."""
+def _stamp_rows(lib, launch, chunk, series, rows=T) -> dict:
+    """One launch of a stamps variant over ``rows`` rows; the medians over
+    its chunks of each named span (start series, end series) and of the
+    waits between."""
     _ext._lib = lib
     launch()
     torch.cuda.synchronize()
     buf = np.zeros((6, STAMPS), np.int64)
     if lib.probe_stamps(ctypes.c_void_p(buf.ctypes.data)) != 0:
         raise RuntimeError("probe_stamps failed")
-    n = min(-(-T // chunk), STAMPS)
+    n = min(-(-rows // chunk), STAMPS)
     b = buf[:, :n].astype(np.float64)
     row = {"chunks": n, "period": float(np.median(np.diff(b[0])))}
     for name, (s0, s1) in series.items():
@@ -755,7 +959,7 @@ def _stamp_rows(lib, launch, chunk, series) -> dict:
 
 
 def _pipe(dev, card, libs, package, result, cases=()) -> None:
-    """K1, K4, K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, K28-K31 and
+    """K1, K4, K5, K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, K28-K31 and
     K34-K37 (those whose key holds one of ``cases``, `_wanted`): the plan
     sweep, the variants, the per-role stamps, the serial loops' SASS."""
     want = _wanted(cases)
@@ -852,6 +1056,12 @@ def _pipe(dev, card, libs, package, result, cases=()) -> None:
             lp_gains[n], pll_ba, lowpass.init(n, (2048,), device=dev),
             pll.init((1024,), device=dev), *bank_in, x, d=16, time_chunk=TC,
             _plan=plan)
+
+    ph5 = i32((T // 16, 1024))  # K5: the #5 bank's kept rows
+
+    def k5(plan=None):
+        return pll_cuda.pll_bank(pll_ba, pll.init((1024,), device=dev), ph5,
+                                 _plan=plan)
 
     def k16(plan=None):
         return ddc_lockin_cuda.ddc_lockin_bank(
@@ -979,6 +1189,12 @@ def _pipe(dev, card, libs, package, result, cases=()) -> None:
                + [dict(chunk=128, ring=r) for r in (2, 3, 6)]
                + [dict(chunk=256, ring=2), dict(chunk=64, ring=4),
                   dict(chunk=32, ring=8)]),
+              ("K5 c=1024", k5, lambda **kw: pll_cuda.pll_plan(1024, **kw),
+               [dict(producers=p) for p in (1, 2, 3, 8, 11)]
+               + [dict(chunk=128, ring=r) for r in (2, 3, 6)]
+               + [dict(chunk=256, ring=2), dict(chunk=64, ring=4),
+                  dict(chunk=64, ring=8), dict(chunk=32, ring=8),
+                  dict(chunk=128, producers=2), dict(chunk=64, producers=2)]),
               ("K6 c=1024", k6,
                lambda **kw: ddc_bank_cuda.bank_plan(1024, **kw),
                [dict(producers=p) for p in (4, 5, 6, 7, 9, 10, 11)]
@@ -1038,8 +1254,12 @@ def _pipe(dev, card, libs, package, result, cases=()) -> None:
                    + (f" g{plan.group} h{plan.halves}"
                       if hasattr(plan, "group") else ""))
             result["pipe_sweep"][key] = _ms(lambda: run(plan))
-            print(f"{key}: {result['pipe_sweep'][key]} ms  [{card}]",
-                  flush=True)
+            if name == K5_KEY:  # events take in the wrapper's host work
+                result["pipe_sweep"][f"{key} device"] = _device_ms(
+                    lambda s: (s, run(plan)), None, "pll_pipe_kernel")
+            print(f"{key}: {result['pipe_sweep'][key]} ms, device "
+                  f"{result['pipe_sweep'].get(f'{key} device')} ms  "
+                  f"[{card}]", flush=True)
 
     timed = {"K14 c=512": lambda: k14(512), "K15 exact": lambda: k15("exact"),
              "K15 fast": lambda: k15("fast")}
@@ -1056,7 +1276,8 @@ def _pipe(dev, card, libs, package, result, cases=()) -> None:
         "K32 c=1024": k32, "K35 c=1024": k35,
         "K35 f=33 c=1024": lambda: k35(f=33), "K36 c=1024": k36,
         "K4 c=2048": k4, "K4 N=1 c=2048": lambda: k4(n=1), "K6 c=1024": k6,
-        "K6 N=1 c=1024": lambda: k6(n=1), "K28 c=1024": k28,
+        "K6 N=1 c=1024": lambda: k6(n=1), "K5 c=1024": k5,
+        "K28 c=1024": k28,
         "K28 f=17 c=1024": lambda: k28(f=17), "K30 c=1024": k30}
     result["pipe_variants"]["package"] = {
         k: _ms(fn) for k, fn in package_timed.items() if want(k)}
@@ -1070,7 +1291,8 @@ def _pipe(dev, card, libs, package, result, cases=()) -> None:
                             "K35 f=33 c=1024": lambda: k35(f=33),
                             "K36 c=1024": k36}),
             (Q16_FORMS, {"K28 c=1024": k28,
-                         "K28 f=17 c=1024": lambda: k28(f=17)})):
+                         "K28 f=17 c=1024": lambda: k28(f=17)}),
+            (PLL_FORMS, {"K5 c=1024": k5})):
         fns = {k: fn for k, fn in fns.items() if want(k)}
         if not fns:
             continue
@@ -1101,7 +1323,8 @@ def _pipe(dev, card, libs, package, result, cases=()) -> None:
               "K36 c=1024": normal_cuda.normal_plan(1024, f32=True).chunk,
               "K28 c=1024": biquad_cuda.q16_plan(1024).chunk,
               "K28 f=17 c=1024": biquad_cuda.q16_plan(1024).chunk,
-              "K30 c=1024": biquad_cuda.f32_plan(1024).chunk}
+              "K30 c=1024": biquad_cuda.f32_plan(1024).chunk,
+              "K5 c=1024": pll_cuda.pll_plan(1024).chunk}
     chunks.update({k: biquad_cuda.df1_plan(1024).chunk for k in (
         "K1 c=512", "K11 c=1024", "K18 c=512", "K26 c=1024")})
     chunks.update({k: biquad_cuda.wide_plan(1024).chunk for k in (
@@ -1111,10 +1334,22 @@ def _pipe(dev, card, libs, package, result, cases=()) -> None:
             continue
         fn = package_timed[key]
         chunk = chunks[key]
-        row = _stamp_rows(libs[f"pipe_{lib}"], fn, chunk, roles)
+        row = _stamp_rows(libs[f"pipe_{lib}"], fn, chunk, roles,
+                          T // 16 if key.startswith("K5 ") else T)
         row["pace"] = max(roles, key=lambda r: row[r])
         result["pipe_stamps"][key] = row
         print(f"stamps {key} (cycles a chunk): {row}  [{card}]", flush=True)
+    if want(K5_KEY):  # each form's stamps and device ms a launch
+        chunk = pll_cuda.pll_plan(1024).chunk
+        for form in ("stamps_pll_bank",) + PLL_FORMS:
+            lib = libs[f"pipe_{form}"]
+            row = _stamp_rows(lib, k5, chunk, roles, T // 16)
+            row["device_ms"] = _device_ms(lambda s: (s, k5()), None,
+                                          "pll_pipe_kernel")
+            row["serial_cycles_a_row"] = row["serial"] / chunk
+            result["pipe_stamps"][f"K5 {form}"] = row
+            print(f"stamps K5 {form} (cycles a chunk): {row}  [{card}]",
+                  flush=True)
     if want("K24"):
         _chain(libs["pipe_chain_stamps"], k24, card, result)
     _ext._lib = package
@@ -1128,7 +1363,8 @@ def _pipe(dev, card, libs, package, result, cases=()) -> None:
         ("K35 f<=32", "normal_q_kernelILb0"),
         ("K35 f>32", "normal_q_kernelILb1"),
         ("K36", "normal_f32_kernel"), ("K28", "df1_q16_kernel"),
-        ("K30", "df1_f32_kernel"), ("K16", "ddc_lockin_kernel")) + lp_syms
+        ("K30", "df1_f32_kernel"), ("K16", "ddc_lockin_kernel"),
+        (K5_KEY, "pll_pipe_kernel")) + lp_syms
         if want(k)}
     for form in NORMAL_FORMS if want("K35") else ():
         lib = str(OUT / f"pipe_{form}" / "structures_bank.cu.so")
@@ -1140,6 +1376,10 @@ def _pipe(dev, card, libs, package, result, cases=()) -> None:
         lib = str(OUT / f"pipe_{form}" / "biquad_precision.cu.so")
         result["sass_loops"][f"K28 {form}"] = sass_loops(lib,
                                                          "df1_q16_kernel")
+    for form in PLL_FORMS if want(K5_KEY) else ():
+        lib = str(OUT / f"pipe_{form}" / "pll_bank.cu.so")
+        result["sass_loops"][f"K5 {form}"] = sass_loops(lib,
+                                                        "pll_pipe_kernel")
     for k, loops in result["sass_loops"].items():
         print(f"sass {k}: {loops}", flush=True)
 
@@ -1189,7 +1429,6 @@ def _cic(dev, card, libs, package, result) -> None:
     largest over the ranges that hold rows."""
     from .filters import cic
     from .filters.cic_cuda import _launch, cic_launch_plan, cic_plan
-    from .profiling import busy_share
 
     rng = np.random.default_rng(2)
 
@@ -1198,12 +1437,7 @@ def _cic(dev, card, libs, package, result) -> None:
             np.int32)).to(dev)
 
     def device_ms(step, st):
-        _, _, by_name = busy_share(step, st, iters=20)
-        kept = [(n, sec) for k, (n, sec) in by_name.items()
-                if "cic_range_kernel" in k]
-        spans = sum(n for n, _ in kept)
-        return round(sum(sec for _, sec in kept) * 20 / spans * 1e3, 4) \
-            if spans else None
+        return _device_ms(step, st, "cic_range_kernel")
 
     result.update(cic_sweep={}, cic_stamps={})
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1263,12 +1497,14 @@ def _cic(dev, card, libs, package, result) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("cascade", "pipe", "cic"),
-                    help="K2/K3/K19-K21, the depth-0 kernels (K1, K4, "
-                         "K6, K11, K12/K13, K14, K15, K16, K18, K24-K26, "
-                         "K28-K31, K34-K37), or K9/K10 alone")
+                    help="K2/K3/K19-K21 and K8/K23 \"highest\", the "
+                         "depth-0 kernels (K1, K4, K5, K6, K11, K12/K13, "
+                         "K14, K15, K16, K18, K24-K26, K28-K31, K34-K37), "
+                         "or K9/K10 alone")
     ap.add_argument("--cases", default="",
                     help="comma-separated substrings of the depth-0 cases "
-                         "to probe (e.g. 'K28,K30'); all by default")
+                         "and of the cascade part's to probe (e.g. "
+                         "'K28,K30', 'K5 ,K23'); all by default")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_cascade times the CUDA device; none is "
@@ -1278,8 +1514,9 @@ def main() -> None:
     package = _ext._lib
     parts = (("cascade", "pipe", "cic") if args.only is None else
              (args.only,))
-    sources = variants() if "cascade" in parts else {}
     cases = tuple(c for c in args.cases.split(",") if c)
+    sources = variants() if "cascade" in parts and _wanted(cases)("K2") \
+        else {}
     if "pipe" in parts:
         sources.update({f"pipe_{k}": v
                         for k, v in pipe_variants(cases).items()})
@@ -1294,7 +1531,7 @@ def main() -> None:
     print(card, flush=True)
     result = {"card": card}
     if "cascade" in parts:
-        _cascade(dev, card, libs, package, result)
+        _cascade(dev, card, libs, package, result, cases)
     if "pipe" in parts:
         _pipe(dev, card, libs, package, result, cases)
     if "cic" in parts:

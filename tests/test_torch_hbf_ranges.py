@@ -17,10 +17,12 @@ it, the plan's numbers.  These tests show, for `HBF_TAPS` and
   equals the one-shot plain version bit for bit over two carried blocks,
   and the interpret-mode JAX kernels within the 16 ULP of
   tests/test_torch_rate_conversion.py;
-* the same two for K22 `hbf_dec_cascade_mxu` at precision "highest",
-  which runs K7's walk with K7's plan (`hbf_dec_cascade_mxu_plain`, the
-  band order of `hbf_mxu._sum_band`): the halo is exact and one step
-  less is not, and the walk range by range equals one shot bit for bit.
+* the same two for K22 `hbf_dec_cascade_mxu` and K23
+  `hbf_int_cascade_mxu` at precision "highest", which run K7's and K8's
+  walks with K7's and K8's plans (`hbf_dec_cascade_mxu_plain`,
+  `hbf_int_cascade_mxu_plain`: the band order of `hbf_mxu._sum_band`):
+  the halo is exact and one step less is not, and the walk range by range
+  equals one shot bit for bit.
 """
 
 import jax.numpy as jnp
@@ -35,7 +37,10 @@ from idsp_tpu.filters.hbf_pallas import (
 )
 
 from idsp_tpu_torch.filters import hbf
-from idsp_tpu_torch.filters.hbf_mxu import hbf_dec_cascade_mxu_plain
+from idsp_tpu_torch.filters.hbf_mxu import (
+    hbf_dec_cascade_mxu_plain,
+    hbf_int_cascade_mxu_plain,
+)
 from idsp_tpu_torch.filters.hbf_cuda import (
     RangePlan,
     dec_range_plan,
@@ -48,6 +53,9 @@ from idsp_tpu_torch.filters.hbf_cuda import (
 CPU = torch.device("cpu")
 TAPS = ["HBF_TAPS", "HBF_TAPS_98"]
 DEPTHS = [1, 2, 3, 4]
+# the interpolators: K8 and K23 "highest" (K8's walk, the band order);
+# "dec" and "highest" (K22's) are the decimators
+INT = ("int", "int_highest")
 
 
 def _f32(rng, shape):
@@ -56,12 +64,12 @@ def _f32(rng, shape):
 
 def _ms(kernel, taps, depth):
     """Stage tap counts in stage order."""
-    order = reversed(range(depth)) if kernel != "int" else range(depth)
+    order = reversed(range(depth)) if kernel not in INT else range(depth)
     return [len(taps[i]) for i in order]
 
 
 def _plan(kernel, taps, depth, t, ranges):
-    fn = dec_range_plan if kernel != "int" else int_range_plan
+    fn = dec_range_plan if kernel not in INT else int_range_plan
     return fn(_ms(kernel, taps, depth), t, ranges)
 
 
@@ -70,7 +78,7 @@ def _state(kernel, taps, depth, c, rng, scale=1.0):
     def f(shape):
         return _f32(rng, shape) * scale
 
-    if kernel != "int":
+    if kernel not in INT:
         return tuple(hbf.HbfDecState(f(s.odd.shape), f(s.even.shape))
                      for s in hbf.hbf_dec_cascade_init(
                          depth, (c,), taps=taps, axis=0, device=CPU))
@@ -83,6 +91,9 @@ def _plain(kernel, states, xs, taps):
     if kernel == "highest":  # K22 "highest": K7's cascade, the band order
         return hbf_dec_cascade_mxu_plain(states, xs, taps=taps,
                                          precision="highest")
+    if kernel == "int_highest":  # K23 "highest": K8's, the band order
+        return hbf_int_cascade_mxu_plain(states, xs, taps=taps,
+                                         precision="highest")
     fn = (hbf_dec_cascade_bank_plain if kernel == "dec"
           else hbf_int_cascade_bank_plain)
     return fn(states, xs, taps=taps)
@@ -90,7 +101,7 @@ def _plain(kernel, states, xs, taps):
 
 def _out_rows(kernel, depth, n_in):
     """Output rows of n_in input rows."""
-    return n_in >> depth if kernel != "int" else n_in << depth
+    return n_in >> depth if kernel not in INT else n_in << depth
 
 
 def _walk(kernel, plan, taps, depth, states, xs, rng):
@@ -161,13 +172,13 @@ def test_default_ranges_needs_a_card():
         default_ranges(2048, 512, CPU)
 
 
-@pytest.mark.parametrize("kernel", ["dec", "int", "highest"])
+@pytest.mark.parametrize("kernel", ["dec", "int", "highest", "int_highest"])
 @pytest.mark.parametrize("depth", DEPTHS)
 @pytest.mark.parametrize("tname", TAPS)
 def test_halo_warm_start_is_exact(kernel, depth, tname):
     taps = getattr(hbf, tname)
     rng = np.random.default_rng(80 + depth)
-    c, step = 4, (1 << depth if kernel != "int" else 1)
+    c, step = 4, (1 << depth if kernel not in INT else 1)
     plan = _plan(kernel, taps, depth, 4096, 1)
     start = plan.halo + 3 * step  # a range start, one more step allowed
     xs = _f32(rng, (start + 8 * step, c))
@@ -244,4 +255,26 @@ def test_highest_walk_by_ranges_equals_one_shot(depth, tname):
         for x in xs:
             st, y = _plain("highest", st, x, taps)
             st_w, y_w = _walk("highest", plan, taps, depth, st_w, x, rng)
+            _equal((st_w, y_w), (st, y))
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("tname", TAPS)
+def test_int_highest_walk_by_ranges_equals_one_shot(depth, tname):
+    """K23 "highest" walked as the kernel walks it (K8's plan) equals its
+    one-shot plain version bit for bit over two carried blocks, at one
+    range, a few, ranges shorter than the halo and one row each."""
+    taps = getattr(hbf, tname)
+    rng = np.random.default_rng(110 + depth)
+    c, t = 8, 2048 >> depth
+    st0 = _state("int_highest", taps, depth, c, rng)
+    xs = [_f32(rng, (t, c)) for _ in range(2)]
+    rows = _plan("int_highest", taps, depth, t, 1).rows
+    for ranges in (1, 2, 5, rows // 8, rows):
+        plan = _plan("int_highest", taps, depth, t, ranges)
+        st, st_w = st0, st0
+        for x in xs:
+            st, y = _plain("int_highest", st, x, taps)
+            st_w, y_w = _walk("int_highest", plan, taps, depth, st_w, x,
+                              rng)
             _equal((st_w, y_w), (st, y))

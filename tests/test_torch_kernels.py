@@ -115,7 +115,8 @@ from idsp_tpu_torch.filters.lowpass_cuda import (
     lowpass_bank_plain,
     lowpass_plan,
 )
-from idsp_tpu_torch.filters.pll_cuda import pll_bank, pll_bank_plain
+from idsp_tpu_torch.filters.pll_cuda import pll_bank, pll_bank_plain, pll_plan
+from idsp_tpu_torch.ops.unwrap import ClampWrapState
 from idsp_tpu_torch.filters import normal, rpll, svf, wdf
 from idsp_tpu_torch.filters.normal_cuda import (
     normal_bank_f32,
@@ -368,6 +369,79 @@ def test_fastlo_ddc_bank_lp_kernel_at_the_edges(cuda, n, c, t, d, tc, kw,
         torch.cuda.synchronize()
         _equal(out, out_p)
         carry, carry_p = out[:3], out_p[:3]
+
+
+def _pll_edge_state(rng, c, device):
+    """A PLL state at the edges: f and f0 within 2^40 of int64's ends or of
+    0 (a quarter of f0's low words 0xFFFFFFFF), cl -1, 0 or 1, x0 within
+    2^8 of a wrap, z0, y0 and y full range."""
+    def i64():
+        base = rng.choice(np.array([-(2**63), 0, 2**63 - 1], np.int64), c)
+        off = rng.integers(0, 2**40, c, dtype=np.int64)
+        return np.where(base < 0, base + off, base - off)
+
+    def t(v):
+        return torch.from_numpy(np.asarray(v)).to(device)
+
+    f0 = i64()
+    f0 = np.where(rng.random(c) < 0.25, f0 | 0xFFFFFFFF, f0)
+    end = rng.choice(np.array([-(2**31), 2**31 - 1], np.int64), c)
+    x0 = (end - np.sign(end) * rng.integers(0, 256, c)).astype(np.int32)
+    return pll.PllState(
+        clamp=ClampWrapState(x0=t(x0), clamp=t(rng.integers(
+            -1, 2, c).astype(np.int8))),
+        z0=_i32(rng, (c,), device=device), y0=_i32(rng, (c,), device=device),
+        f0=t(f0), f=t(i64()), y=_i32(rng, (c,), device=device))
+
+
+# K5 at the depth-0 pipeline's edges: (c, t, plan keywords)
+PLL_PIPE_EDGES = [
+    (1024, 2048, {}),                                # the #5 bank's
+    (200, 1, {}),                                    # t = 1
+    (50, 100, dict(producers=3)),                    # t under a chunk
+    (33, 999, dict(chunk=40)),                       # t % chunk, c % 4
+    (40, 7 * 64 + 48, dict(chunk=24, producers=11, warps=16)),
+    (1, 64, dict(chunk=12, producers=1)),            # one channel
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("coefs", ["bank", "edge"])
+@pytest.mark.parametrize("c,t,kw", PLL_PIPE_EDGES)
+def test_pll_bank_kernel_at_the_edges(cuda, c, t, kw, coefs):
+    """K5 from edge states over 2 carried blocks of full-range phases, the
+    #5 bank's loop or coefficients at int32's ends (a1 = INT32_MIN)."""
+    rng = np.random.default_rng(50 + c + t)
+    ba = (pll.coefficients_from_bandwidth(2e-2, 4.0) if coefs == "bank"
+          else np.array([-(2**31), 2**31 - 1, -(2**31)], np.int64))
+    st = st_p = _pll_edge_state(rng, c, cuda)
+    plan = pll_plan(c, **kw)
+    for _ in range(2):
+        xs = _i32(rng, (t, c), device=cuda)
+        st, ys = pll_bank(ba, st, xs, _plan=plan)
+        st_p, ys_p = pll_bank_plain(ba, st_p, xs)
+        torch.cuda.synchronize()
+        _equal((st, ys), (st_p, ys_p))
+
+
+@pytest.mark.requires_cuda
+def test_pll_entry_refuses_a_plan_not_its_own(cuda):
+    """K5's entry point refuses a plan whose shared memory is not the
+    kernel's own sum, or roles that do not fit the warps (RuntimeError,
+    nothing launched); the next launch runs as usual."""
+    c, t = 64, 256
+    rng = np.random.default_rng(5)
+    ba = pll.coefficients_from_bandwidth(2e-2, 4.0)
+    st = pll.init((c,), device=cuda)
+    xs = _i32(rng, (t, c), device=cuda)
+    plan = pll_plan(c)
+    n0 = pll_bank.launches
+    for bad in (plan._replace(smem=plan.smem - 32),
+                plan._replace(producers=6)):  # 8 roles in 6 places
+        with pytest.raises(RuntimeError):
+            pll_bank(ba, st, xs, _plan=bad)
+    assert pll_bank.launches == n0
+    _equal(pll_bank(ba, st, xs), pll_bank_plain(ba, st, xs))
 
 
 @pytest.mark.requires_cuda

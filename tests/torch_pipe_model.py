@@ -10,6 +10,7 @@ arithmetic of K31/K33 (`dither_model`), K1, K11, K18, K26 and K27
 tests/test_torch_wide_plan.py), K34 (`svf_model`), K12/K13 and K6
 (`bank_model`, with its back end; K6 with the Lowpass serial warp), K16
 (`lockin_model`), K4 (`lowpass_model`, tests/test_torch_lowpass_plan.py),
+K5 (`pll_model`, tests/test_torch_pll_plan.py),
 K35/K36 (`normal_model`, tests/test_torch_normal_plan.py) and K28/K30
 (`q16_model`, `f32_model`, tests/test_torch_precision_plan.py);
 and K24's chain of such blocks over a cluster (`sos_model`,
@@ -739,6 +740,105 @@ def lowpass_model(k, state, xs, plan, *, dec=1, seed=0):
     new = LowpassState(p=torch.from_numpy(np.stack(
         [v for v in p if v is not None], 1).view(np.int64).copy()))
     return new, torch.from_numpy(kept.astype(np.int32))
+
+
+def _w32(v):
+    """int64 values wrapped to int32's range (the low 32 bits, signed)."""
+    return (np.asarray(v, np.int64) + 2**31) % 2**32 - 2**31
+
+
+def pll_rows(k, s, xs):
+    """The PLL serial warp's rows (``csrc/pll.cuh`` `PllLane::step_grouped`)
+    in numpy words: off the chain t = x0 ^ INT32_MIN, s1 = cl + (x0 < 0 ?
+    -1 : 1), the candidates (INT32_MIN >> 1) + z0 and (INT32_MAX >> 1) + z0
+    and each flag's pick among them, V = ((a1 hi(f0) + f0m) + umulhi(a1,
+    lo(f0))) + b1 y0 (f0m: f0 with lo(f0) cleared where a1 < 0) and W = f +
+    V; on it, with h = hi(f), xi = (x + y) + h, flag = (xi < t) != (x0 <
+    0), s = s1 where flag else cl, y0 the
+    candidate of s's sign ((xi >> 1) + z0 at 0), f = b0 y0 + W; then f0 =
+    b0 y0 + V, y += h, x0 = xi, cl = clip(s, -1, 1), z0 = y0 - z0; int32
+    words wrapped, int64 ones as uint64 sums mod 2^64.  ``k`` (b0, b1, a1),
+    ``s`` the dict of lane vectors x0, cl, z0, y0, y (int64 holding int32)
+    and f0, f (uint64), updated; ``xs`` (rows, lanes) int64 words of int32
+    values.  Returns y (rows, lanes) int64 and s's values a row (rows,
+    lanes), for the tests' coverage."""
+    b0, b1, a1 = (np.int64(v) for v in k)
+    x0, cl, z0, y0, y, f0, f = (s[n] for n in ("x0", "cl", "z0", "y0", "y",
+                                               "f0", "f"))
+    out = np.empty(xs.shape, np.int64)
+    seen = np.empty(xs.shape, np.int64)
+    for j, x in enumerate(np.asarray(xs, np.int64)):
+        t = _w32(x0 + 2**31)  # x0 ^ INT32_MIN
+        xneg = x0 < 0
+        s1 = cl + np.where(xneg, -1, 1)
+        ca, cb = _w32(z0 - 2**30), _w32(z0 + 2**30 - 1)
+        k1, k0 = np.where(s1 < 0, ca, cb), np.where(cl < 0, ca, cb)
+        f0hi = _i32_bits(f0 >> np.uint64(32)).astype(np.int64)
+        f0m = f0 & ~U32 if a1 < 0 else f0  # lo(f0) cleared where a1 < 0
+        uh = (np.uint64(int(a1) & 0xFFFFFFFF) * (f0 & U32)) >> np.uint64(32)
+        v = ((_u64(a1 * f0hi) + f0m) + uh) + _u64(b1 * y0)
+        w = f + v
+        h = _i32_bits(f >> np.uint64(32)).astype(np.int64)
+        xi = _w32(_w32(x + y) + h)
+        flag = (xi < t) != xneg
+        cx = _w32((xi >> 1) + z0)
+        y0n = np.where(np.where(flag, s1 == 0, cl == 0), cx,
+                       np.where(flag, k1, k0))
+        st = np.where(flag, s1, cl)
+        f = _u64(b0 * y0n) + w
+        f0 = _u64(b0 * y0n) + v
+        y = _w32(y + h)
+        x0, cl, z0, y0 = xi, np.clip(st, -1, 1), _w32(y0n - z0), y0n
+        out[j], seen[j] = y, st
+    s.update(x0=x0, cl=cl, z0=z0, y0=y0, y=y, f0=f0, f=f)
+    return out, seen
+
+
+def pll_words(state):
+    """A PllState's words as `pll_rows`' dict of numpy lane vectors."""
+    def i64(v):
+        return v.numpy().astype(np.int64)
+
+    return {"x0": i64(state.clamp.x0), "cl": i64(state.clamp.clamp),
+            "z0": i64(state.z0), "y0": i64(state.y0), "y": i64(state.y),
+            "f0": _u64(i64(state.f0)).copy(), "f": _u64(i64(state.f)).copy()}
+
+
+def pll_state(s):
+    """`pll_words`' inverse: the PllState of a dict of lane vectors."""
+    from idsp_tpu_torch.filters.pll import PllState
+    from idsp_tpu_torch.ops.unwrap import ClampWrapState
+
+    def t(v, dt):
+        return torch.from_numpy(np.asarray(v).astype(dt))
+
+    return PllState(
+        clamp=ClampWrapState(x0=t(s["x0"], np.int32), clamp=t(s["cl"],
+                                                               np.int8)),
+        z0=t(s["z0"], np.int32), y0=t(s["y0"], np.int32),
+        f0=t(s["f0"].view(np.int64), np.int64),
+        f=t(s["f"].view(np.int64), np.int64), y=t(s["y"], np.int32))
+
+
+def pll_model(ba, state, xs, plan, *, seed=0):
+    """K5 as the kernel runs it (``csrc/pll_bank.cu``): the producers copy
+    the phases by spans, the serial warp runs `pll_rows`, the store warp
+    writes every row.  Returns (PllState, ys int32) like
+    `pll_bank_plain`."""
+    t, c = xs.shape
+    k = [int(v) for v in np.asarray(ba).reshape(-1)[:3]]
+    s = pll_words(state)
+    xw = xs.numpy().astype(np.int64)
+
+    def produce(r0, idx):
+        return xw[r0 + idx][..., None]
+
+    def serial(words):
+        return pll_rows(k, s, words[..., 0])[0][..., None]
+
+    with np.errstate(over="ignore"):
+        y = pipe_run(t, c, plan, produce, span_rows, serial, seed=seed)
+    return pll_state(s), torch.from_numpy(y[..., 0].astype(np.int32))
 
 
 PAIR = 16  # channels of a K12/K13 tile
